@@ -3,11 +3,12 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once, at the headline configuration: the
-dense-grid tiled forward render through ``Renderer.forward`` at 512^2
-rays over a 64^3 Gaussian-blob grid with 128 stratified steps (seed 3;
-the scene ``bench.py::_scene`` builds, rebuilt here in numpy). Phases,
-each fatal when it fails:
+Drives the port's main paths once each, at the headline configuration:
+the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
+with 128 stratified steps (seed 3; the scene ``bench.py::_scene`` builds,
+rebuilt here in numpy) through ``Renderer.forward``, its gradients
+through ``Renderer.backward``, and a few SGD training steps through
+autograd of ``render_tiled``. Phases, each fatal when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
@@ -21,7 +22,23 @@ each fatal when it fails:
    rendered on the card matches the plain path on the CPU;
 6. times, with CUDA events, after warm-up: the forward per frame (the
    schedule excluded) and its stages, and each kernel beside its plain
-   twin.
+   twin;
+7. K2 (fused tile backward) against its plain twin on every tile group,
+   with and without the camera adjoint, for a seeded random cotangent:
+   d(table) within 2e-6 x scale, d(rayt) within 1e-5 x scale, and two
+   runs equal bit for bit;
+8. K4 (table-gradient unpack) against its plain twin at 64^3: bit-exact;
+9. ``Renderer.backward`` under ``torch.use_deterministic_algorithms``:
+   finite, nonzero grid and camera gradients, within tolerance of the
+   plain path on the card, two calls equal bit for bit; the small test
+   scene's backward on the card matches the CPU's;
+10. four SGD steps (MSE against a zero target, as ``bench.py`` trains)
+    through autograd of ``render_tiled``, at bench's lr 1e-3 and at that
+    lr times the image's 512*512*3 values (at 1e-3 the updates are below
+    float32 resolution): the loss is finite and falls at the scaled lr,
+    K1-K4 each launch in every step; then the step time (forward,
+    backward, update) at lr 1e-3 over 10 steps with CUDA events, its
+    stages beside their plain twins, and peak device memory.
 
 Prints a JSON line of per-kernel results, then the card line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
@@ -41,7 +58,12 @@ import numpy as np
 
 TOL = 5e-6          # radiance, transmittance, opacity
 TOL_DEPTH = 1e-4    # depth is a ratio: wd / opacity
+GRID_TOL = 2e-6     # gradients and d(table), x max |reference|
+RAYT_TOL = 1e-5     # d(rayt), x max |reference|
+CAM_RTOL, CAM_ATOL = 2e-3, 1e-4   # camera gradients
 FRAMES = 30         # timed forward frames
+STEPS = 10          # timed training steps
+LR = 1e-3           # bench.py's SGD step
 
 
 def card_line() -> str:
@@ -131,6 +153,44 @@ def planes_errors(planes, ref):
 def require(cond, what):
     if not cond:
         raise AssertionError(what)
+
+
+def rel_err(got, ref) -> float:
+    """max |got - ref| / max |ref|."""
+    return float((got - ref).abs().max()) / max(float(ref.abs().max()),
+                                                 1e-30)
+
+
+def launch_counts(fused_tiles, packed_transpose) -> dict:
+    return {"fused_tiles": fused_tiles.tile_forward.launches,
+            "packed_table": packed_transpose.build_rows.launches,
+            "fused_tiles_bwd": fused_tiles.tile_backward.launches,
+            "packed_table_bwd": packed_transpose.table_grad_to_params.launches}
+
+
+def reset_counts(fused_tiles, packed_transpose) -> None:
+    fused_tiles.tile_forward.launches = 0
+    fused_tiles.tile_backward.launches = 0
+    packed_transpose.build_rows.launches = 0
+    packed_transpose.table_grad_to_params.launches = 0
+
+
+def tiled_grads(torch, P, tiled, plan, field, sched, dl_img, use_kernel):
+    """d sum(image * dl_img) in (sigma, color, c2w, k) through
+    ``render_tiled``: what ``Renderer.backward`` computes, with the
+    kernels or with their plain twins."""
+    from dvren_tpu_torch.ops.raygen import camera_arrays
+
+    k, c2w, _ = camera_arrays(plan, dl_img.device)
+    k.requires_grad_(True)
+    c2w.requires_grad_(True)
+    leaf = P.DenseGridField(field.sigma.detach().clone(),
+                            field.color.detach().clone(),
+                            bbox_min=field.bbox_min, bbox_max=field.bbox_max)
+    planes = tiled.render_tiled(plan, leaf, sched, use_kernel=use_kernel,
+                                k=k, c2w=c2w)
+    return torch.autograd.grad(torch.sum(planes.image * dl_img),
+                               (leaf.sigma, leaf.color, c2w, k))
 
 
 def run() -> dict:
@@ -290,6 +350,198 @@ def run() -> dict:
           f"{len(args)} launches (plain {k1_plain_ms:.4f}), compose "
           f"{compose_ms:.4f}", flush=True)
 
+    # 7. K2 against its plain twin on every group
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gss = [torch.randn((g.n_tiles, 5, 16, 16), generator=gen, device=dev)
+           for g in sched.groups]
+    k2_err = k2_cam_err = k2_raw = 0.0
+    k2_rows = []
+    for a, gs in zip(args, gss):
+        b_rows, b_rayt = fused_tiles.tile_backward(*a[:6], gs, a[6], cam=True)
+        b_rows_nc, none = fused_tiles.tile_backward(*a[:6], gs, a[6])
+        b_rows2, b_rayt2 = fused_tiles.tile_backward(*a[:6], gs, a[6],
+                                                     cam=True)
+        torch.cuda.synchronize()
+        p_rows, p_rayt = fused_tiles.tile_backward_plain(*a[:6], gs, a[6],
+                                                         cam=True)
+        require(bool(torch.isfinite(b_rows).all()
+                     and torch.isfinite(b_rayt).all()), "K2 not finite")
+        require(none is None and torch.equal(b_rows_nc, b_rows),
+                "K2 without the camera differs from K2 with it")
+        require(torch.equal(b_rows2, b_rows) and torch.equal(b_rayt2, b_rayt),
+                "K2 differs between two runs")
+        k2_err = max(k2_err, rel_err(b_rows, p_rows))
+        k2_cam_err = max(k2_cam_err, rel_err(b_rayt, p_rayt))
+        k2_raw = max(k2_raw, float((b_rows - p_rows).abs().max()))
+        k2_rows.append(b_rows.reshape(-1, 32))
+    print(f"K2 vs plain over {len(args)} groups: d(table) {k2_err:.3e} x "
+          f"scale (max |diff| {k2_raw:.3e}), d(rayt) {k2_cam_err:.3e} x "
+          f"scale; repeat runs equal", flush=True)
+    require(k2_err <= GRID_TOL and k2_cam_err <= RAYT_TOL,
+            "K2 differs from its plain twin beyond tolerance")
+
+    # 8. K4 against its plain twin at 64^3
+    n_rows = packed_transpose.fullpitch_rows(sigma.shape)
+    all_rows = torch.cat(k2_rows)
+    tg = tiled.slot_rows_to_table(all_rows, sched.gather_plan, n_rows)
+    k4_out = packed_transpose.table_grad_to_params(tg, sigma.shape)
+    torch.cuda.synchronize()
+    k4_plain = packed_transpose.table_grad_to_params_plain(tg, sigma.shape)
+    require(all(torch.equal(x, y) for x, y in zip(k4_out, k4_plain)),
+            "K4 differs from its plain twin")
+    k4_err = max(float((x - y).abs().max()) for x, y in zip(k4_out, k4_plain))
+    print(f"K4 == plain, bit for bit: d_sigma {tuple(k4_out[0].shape)}, "
+          f"d_color {tuple(k4_out[1].shape)}", flush=True)
+
+    # 9. Renderer.backward, deterministic
+    dl = torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2 - 1
+    dl = dl.cpu().numpy()
+    reset_counts(fused_tiles, packed_transpose)
+    torch.use_deterministic_algorithms(True)
+    try:
+        bwd = renderer.backward(field, dl)
+        bwd_launches = launch_counts(fused_tiles, packed_transpose)
+        bwd2 = renderer.backward(field, dl)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"Renderer.backward launches {bwd_launches}", flush=True)
+    require(bwd_launches["fused_tiles_bwd"] == len(sched.groups)
+            and bwd_launches["packed_table_bwd"] == 1,
+            "Renderer.backward did not launch K2 per group and K4 once")
+    for name in ("sigma", "color", "camera", "camera_k"):
+        x = getattr(bwd, name)
+        require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
+                f"backward {name} not finite or zero")
+        require(np.array_equal(x, getattr(bwd2, name)),
+                f"backward {name} differs between two calls")
+    dl_img = renderer._dl_image(dl)
+    plain_g = [g.cpu().numpy() for g in tiled_grads(
+        torch, P, tiled, plan, field, sched, dl_img, use_kernel=False)]
+    bwd_errs = {
+        "sigma": rel_err(torch.from_numpy(bwd.sigma),
+                         torch.from_numpy(plain_g[0].reshape(-1))),
+        "color": rel_err(torch.from_numpy(bwd.color),
+                         torch.from_numpy(plain_g[1].reshape(-1)))}
+    cam_ok = (np.allclose(bwd.camera, plain_g[2], rtol=CAM_RTOL,
+                          atol=CAM_ATOL)
+              and np.allclose(bwd.camera_k, plain_g[3], rtol=CAM_RTOL,
+                              atol=CAM_ATOL))
+    print(f"backward vs plain path: sigma {bwd_errs['sigma']:.3e} x scale, "
+          f"color {bwd_errs['color']:.3e} x scale, camera "
+          f"{float(np.abs(bwd.camera - plain_g[2]).max()):.3e}, camera_k "
+          f"{float(np.abs(bwd.camera_k - plain_g[3]).max()):.3e}; two "
+          f"calls equal", flush=True)
+    require(max(bwd_errs.values()) <= GRID_TOL and cam_ok,
+            "backward differs from the plain path")
+
+    s_dl = np.random.default_rng(3).uniform(
+        -1, 1, s_plan.ray_count * 3).astype(np.float32)
+    s_card = P.Renderer(P.Context.create(device="cuda"), s_plan)
+    s_card.forward(s_field)
+    s_got = s_card.backward(s_field, s_dl)
+    s_cpu = P.Renderer(P.Context.create(device="cpu"), s_plan,
+                       P.RenderOptions(use_tiles=True))
+    s_cpu.forward(cpu_field)
+    s_want = s_cpu.backward(cpu_field, s_dl)
+    s_bwd_err = max(rel_err(torch.from_numpy(getattr(s_got, k)),
+                            torch.from_numpy(getattr(s_want, k)))
+                    for k in ("sigma", "color"))
+    print(f"small scene backward, card vs CPU: grids {s_bwd_err:.3e} x "
+          f"scale, camera {float(np.abs(s_got.camera - s_want.camera).max()):.3e}",
+          flush=True)
+    require(s_bwd_err <= GRID_TOL
+            and np.allclose(s_got.camera, s_want.camera, rtol=CAM_RTOL,
+                            atol=CAM_ATOL)
+            and np.allclose(s_got.camera_k, s_want.camera_k, rtol=CAM_RTOL,
+                            atol=CAM_ATOL),
+            "small scene backward on the card differs from the CPU")
+
+    # 10. training steps through autograd of render_tiled
+    from dvren_tpu_torch.opt.fit import mse, psnr
+
+    target = torch.zeros((plan.height, plan.width, 3), device=dev)
+
+    def trainer(lr):
+        field_t = P.DenseGridField.create(config, device=dev)
+        opt = torch.optim.SGD(field_t.parameters(), lr=lr)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = mse(tiled.render_tiled(plan, field_t, sched).image,
+                       target)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return field_t, step
+
+    def four_steps(lr):
+        field_t, step = trainer(lr)
+        losses = []
+        for _ in range(4):
+            before = launch_counts(fused_tiles, packed_transpose)
+            losses.append(float(step().detach()))
+            after = launch_counts(fused_tiles, packed_transpose)
+            require(all(after[k] > before[k] for k in after),
+                    f"a kernel did not launch in a training step: {after}")
+        moved = max(float((field_t.sigma.detach() - sigma).abs().max()),
+                    float((field_t.color.detach() - color).abs().max()))
+        return losses, moved
+
+    # bench.py's loop as it is: at lr 1e-3 the mean over 512*512*3 values
+    # makes every update smaller than half an ulp of the parameters, so
+    # they do not move in float32. The loss must fall at a learning rate
+    # scaled by that count (the same steps on the summed squared error).
+    reset_counts(fused_tiles, packed_transpose)
+    losses, moved = four_steps(LR)
+    train_launches = launch_counts(fused_tiles, packed_transpose)
+    n_values = plan.height * plan.width * 3
+    losses_n, moved_n = four_steps(LR * n_values)
+    print(f"4 SGD steps at lr {LR}: loss {losses}, largest parameter "
+          f"change {moved:.3e}; launches {train_launches}", flush=True)
+    print(f"4 SGD steps at lr {LR} x {n_values}: loss {losses_n} (psnr "
+          f"{float(psnr(torch.tensor(losses_n[-1]))):.4f} dB), largest "
+          f"parameter change {moved_n:.3e}", flush=True)
+    require(all(np.isfinite(losses + losses_n)),
+            "training loss is not finite")
+    require(all(b < a for a, b in zip(losses_n, losses_n[1:])),
+            "training loss does not fall")
+    _, step = trainer(LR)
+
+    torch.cuda.reset_peak_memory_stats()
+    step_ms = cuda_ms(torch, step, STEPS, warmup=2)
+    train_peak_mb = torch.cuda.max_memory_allocated() / 2 ** 20
+    plain_train = P.DenseGridField.create(config, device=dev)
+    plain_opt = torch.optim.SGD(plain_train.parameters(), lr=LR)
+
+    def plain_step():
+        plain_opt.zero_grad(set_to_none=True)
+        loss = mse(tiled.render_tiled(plan, plain_train, sched,
+                                      use_kernel=False).image, target)
+        loss.backward()
+        plain_opt.step()
+
+    plain_step_ms = cuda_ms(torch, plain_step, 1, warmup=1)
+    k2_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward(
+        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 20)
+    k2_plain_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward_plain(
+        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 1, warmup=1)
+    reduce_ms = cuda_ms(torch, lambda: tiled.slot_rows_to_table(
+        all_rows, sched.gather_plan, n_rows), 20)
+    k4_ms = cuda_ms(torch, lambda: packed_transpose.table_grad_to_params(
+        tg, sigma.shape), 50)
+    k4_plain_ms = cuda_ms(
+        torch, lambda: packed_transpose.table_grad_to_params_plain(
+            tg, sigma.shape), 20)
+    print(f"training step {step_ms:.4f} ms/step = "
+          f"{n_rays / step_ms / 1e3:.3f} Mrays/s over {STEPS} steps (plain "
+          f"path {plain_step_ms:.4f} ms/step); peak device memory "
+          f"{train_peak_mb:.1f} MiB", flush=True)
+    print(f"backward stages ms/step: K2 {k2_ms:.4f} over {len(args)} "
+          f"launches (plain {k2_plain_ms:.4f}), slot reduction "
+          f"{reduce_ms:.4f}, K4 {k4_ms:.4f} (plain {k4_plain_ms:.4f})",
+          flush=True)
+
     kernels = [
         {"name": "fused_tiles", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
@@ -302,6 +554,16 @@ def run() -> dict:
          "launches": launches["packed_table"],
          "max_abs_err": float((rows_k - rows_p).abs().max()),
          "ms": k3_ms, "plain_ms": k3_plain_ms},
+        {"name": "fused_tiles_bwd", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:714",
+         "launches": train_launches["fused_tiles_bwd"],
+         "max_abs_err": k2_raw, "ms": k2_ms, "plain_ms": k2_plain_ms},
+        {"name": "packed_table_bwd", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/packed_table_bwd.cu",
+         "replaces": "dvren_tpu/ops/packed_transpose.py:119",
+         "launches": train_launches["packed_table_bwd"],
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({
@@ -311,7 +573,15 @@ def run() -> dict:
                       "fused_tiles": k1_ms, "compose": compose_ms},
         "schedule_build_s": build_s, "peak_mib": peak_mb,
         "forward_vs_plain": e2e_err, "depth_vs_plain": e2e_depth,
-        "card": card}), flush=True)
+        "train_step_ms": step_ms, "train_mrays_s": n_rays / step_ms / 1e3,
+        "plain_train_step_ms": plain_step_ms, "train_losses": losses,
+        "train_losses_scaled_lr": losses_n,
+        "train_peak_mib": train_peak_mb,
+        "backward_stages_ms": {"fused_tiles_bwd": k2_ms,
+                               "slot_reduction": reduce_ms,
+                               "packed_table_bwd": k4_ms},
+        "k2_rel_err": k2_err, "k2_rayt_rel_err": k2_cam_err,
+        "backward_vs_plain": bwd_errs, "card": card}), flush=True)
     print(card_line(), flush=True)
     return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
             "count": torch.cuda.device_count()}

@@ -7,8 +7,11 @@ reference becomes a CUDA kernel written by hand for Hopper (``csrc/``,
 built at first use by :mod:`dvren_tpu_torch._build`), each with a plain
 PyTorch twin that runs on the CPU.
 
-Ported so far: the dense-grid tiled forward render through
-:meth:`Renderer.forward` (see ROADMAP.md for what follows).
+Ported so far: the dense-grid tiled render through
+:meth:`Renderer.forward`, and its gradients in the grid and the camera
+through :meth:`Renderer.backward` and autograd of
+:func:`dvren_tpu_torch.render.tiled.render_tiled` (see ROADMAP.md for
+what follows).
 """
 
 from dvren_tpu_torch.version import __version__
@@ -28,6 +31,7 @@ from dvren_tpu_torch.core.plan import (
 )
 from dvren_tpu_torch.fields.dense_grid import DenseGridConfig, DenseGridField
 from dvren_tpu_torch.render.renderer import (
+    BackwardResult,
     ForwardResult,
     Renderer,
     RenderOptions,
@@ -56,4 +60,5 @@ __all__ = [
     "RenderOptions",
     "RenderStats",
     "ForwardResult",
+    "BackwardResult",
 ]

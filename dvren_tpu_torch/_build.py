@@ -1,11 +1,12 @@
 """Build and load the port's CUDA kernels.
 
-Every ``csrc/*.cu`` file is compiled by ``nvcc`` into one shared library
-with a plain C interface, loaded with ctypes:
+Every ``csrc/*.cu`` file is compiled by its own ``nvcc``, all started
+together, and the objects are linked into one shared library with a plain
+C interface, loaded with ctypes:
 
-    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 -shared \
-         -Xcompiler -fPIC -Xptxas -v -o _build/libdvren_kernels_<hash>.so \
-         csrc/*.cu
+    nvcc -gencode arch=compute_90a,code=sm_90a -std=c++17 -O3 \
+         -Xcompiler -fPIC -Xptxas -v -c -o _build/<hash>/<name>.o csrc/<name>.cu
+    nvcc -shared -o _build/libdvren_kernels_<hash>.so _build/<hash>/*.o
 
 The build runs at the first kernel launch in a process, never at import,
 and lands in ``dvren_tpu_torch/_build/`` (git-ignored), keyed by a hash of
@@ -26,6 +27,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import shutil
 import subprocess
 import threading
 from pathlib import Path
@@ -34,8 +36,7 @@ _PKG = Path(__file__).resolve().parent
 _CSRC = _PKG / "csrc"
 _OUT = _PKG / "_build"
 _ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
-_FLAGS = ["-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
-          "-Xptxas", "-v"]
+_FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -48,6 +49,13 @@ _SIGNATURES = {
                           _F, _F, _F, _F, _F,
                           _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _P], _I),
+    "dvt_tile_backward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I,
+                           _F, _F, _F, _F, _F,
+                           _F, _F, _F, _F, _F, _F, _F, _F, _F,
+                           _F, _F, _F,
+                           _P], _I),
+    "dvt_packed_table_grad": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 
@@ -91,20 +99,34 @@ def _build() -> Path:
     lib = _OUT / f"libdvren_kernels_{digest}.so"
     if lib.exists():
         return lib
-    _OUT.mkdir(parents=True, exist_ok=True)
-    tmp = _OUT / f".tmp_{digest}_{os.getpid()}.so"
-    cmd = ([_nvcc()] + _ARCH + _FLAGS + ["-o", str(tmp)]
-           + [str(s) for s in _sources() if s.suffix == ".cu"])
+    work = _OUT / f".tmp_{digest}_{os.getpid()}"
+    work.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    proc = subprocess.run(cmd, capture_output=True, text=True)
+    srcs = [s for s in _sources() if s.suffix == ".cu"]
+    objs = [work / f"{s.stem}.o" for s in srcs]
+    cmds = [[nvcc] + _ARCH + _FLAGS + ["-c", "-o", str(o), str(s)]
+            for s, o in zip(srcs, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, out)
+              for c, p, out in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} (exit {rc})\n{out}" for c, rc, out in failed))
+    tmp = work / "lib.so"
+    link = [nvcc] + _ARCH + ["-shared", "-o", str(tmp)] + [str(o) for o in objs]
+    proc = subprocess.run(link, capture_output=True, text=True)
     if proc.returncode != 0:
-        tmp.unlink(missing_ok=True)
         raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{' '.join(cmd)}\n"
+            f"nvcc link failed (exit {proc.returncode}):\n{' '.join(link)}\n"
             f"{proc.stderr}{proc.stdout}")
     build_seconds = time.perf_counter() - t0
-    (_OUT / f"ptxas_{digest}.txt").write_text(proc.stderr + proc.stdout)
+    (_OUT / f"ptxas_{digest}.txt").write_text("".join(outs))
     os.replace(tmp, lib)
+    shutil.rmtree(work, ignore_errors=True)
     return lib
 
 

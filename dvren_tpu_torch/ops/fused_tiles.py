@@ -1,22 +1,28 @@
-"""Fused tile-group forward (K1) and the helpers around it.
+"""Fused tile-group forward (K1) and backward (K2), and the helpers around
+them.
 
-Counterpart of ``dvren_tpu/ops/fused_tiles.py`` for the forward render:
-the Pallas ``_fwd_kernel`` becomes the CUDA kernel ``csrc/fused_tiles.cu``
-(one thread per ray, one block per 16x16 tile), with the plain PyTorch
-twin :func:`tile_forward_plain` beside it. The TPU kernel's layout
-machinery (mask-matmul prefix sums, lane-shuffle slot expansion, the
-``mxu``/``roll`` ablations) has no counterpart: on the card a ray's
-prefix sum is a running sum.
+Counterpart of ``dvren_tpu/ops/fused_tiles.py``: the Pallas
+``_fwd_kernel`` becomes the CUDA kernel ``csrc/fused_tiles.cu`` and
+``_bwd_kernel`` becomes ``csrc/fused_tiles_bwd.cu`` (both one thread per
+ray, one block per 16x16 tile), with the plain PyTorch twins
+:func:`tile_forward_plain` and :func:`tile_backward_plain` beside them.
+The TPU kernels' layout machinery (mask-matmul prefix sums, lane-shuffle
+slot expansion, the ``mxu``/``roll`` ablations, the u16 split of the
+backward's rows) has no counterpart: on the card a ray's prefix sum is a
+running sum.
 
-Per sample the kernel recomputes the trilinear fractions from the slim
-schedule (sample_t bits, slot | mask bits, the tile's ray planes and the
-slot's cell base), interpolates the 32-column stencil row of its slot from
-the chunk's two-bank window, and runs the optical-depth recurrence with
+Per sample K1 recomputes the trilinear fractions from the slim schedule
+(sample_t bits, slot | mask bits, the tile's ray planes and the slot's
+cell base), interpolates the 32-column stencil row of its slot from the
+chunk's two-bank window, and runs the optical-depth recurrence with
 exact early stop. Output per ray: r, g, b, sum of w * mid-segment depth,
-and processed optical depth, as (T, 5, 16, 16) image tiles.
+and processed optical depth, as (T, 5, 16, 16) image tiles. K2 is its
+recompute adjoint: d(bank table) as f32 slot rows (T, NB, 128, 32) and,
+on request, d(rayt) for camera gradients.
 
-:func:`tile_forward` launches the kernel for CUDA tensors and runs the
-plain twin for CPU tensors; ``tile_forward.launches`` counts launches.
+:func:`tile_forward` and :func:`tile_backward` launch their kernels for
+CUDA tensors and run the plain twins for CPU tensors; their
+``.launches`` attributes count launches.
 """
 
 from __future__ import annotations
@@ -163,42 +169,52 @@ def decode_samples(samp: torch.Tensor):
     return st, m, s32[:, :, 2] & 0x7FFF
 
 
-def tile_forward_plain(tabs, samp, base, rayt, ke, bank0,
-                       prm: TileParams) -> torch.Tensor:
-    """Plain twin of the kernel, vectorised over tiles and rays; loops
-    over chunks and over the 8 steps of the recurrence, in the kernel's
-    order of arithmetic."""
-    t_cnt, nb = int(tabs.shape[0]), prm.banks
-    nc = prm.n_chunks
-    dev = tabs.device
 
-    def f32(v):
-        return torch.tensor(v, dtype=torch.float32, device=dev)
 
-    dt, t_near, t_far = f32(prm.dt), f32(prm.t_near), f32(prm.t_far)
-    t_stop, stop = f32(prm.t_stop), f32(prm.stop)
-    lo = [f32(v) for v in prm.lo]
-    inv = [f32(v) for v in prm.inv]
-    ns = [f32(v) for v in prm.ns]
+class _Lattice:
+    """One tile group's decoded schedule and float32 constants, shared by
+    the plain twins of K1 and K2. Every per-chunk value is computed in
+    the kernels' order of arithmetic."""
 
-    st_all, m_all, lane_all = decode_samples(samp)
-    rays = rayt.reshape(t_cnt, 6, RAYS_PER_TILE).repeat_interleave(
-        GROUP, dim=2)                                  # (T, 6, 2048)
-    b0_all = (bank0.reshape(t_cnt, nc) & 0x3FFF).long()
-    tiles = torch.arange(t_cnt, device=dev)
-    step = (torch.arange(CHUNK_SAMPLES, device=dev) % GROUP)[None]
-    ke32 = ke.to(torch.int32)
-    t_origin = t_near + ke32.to(torch.float32) * dt            # (T,)
-    t_origin_c = torch.minimum(t_origin, t_stop)
+    def __init__(self, tabs, samp, base, rayt, ke, bank0, prm: TileParams):
+        self.t_cnt, self.nb, self.nc = int(tabs.shape[0]), prm.banks, \
+            prm.n_chunks
+        self.tabs, self.base, self.prm = tabs, base, prm
+        dev = self.dev = tabs.device
 
-    zeros = torch.zeros((t_cnt, RAYS_PER_TILE), dtype=torch.float32,
-                        device=dev)
-    acc = [zeros] * 5                # r, g, b, w*mid, processed od
-    s = zeros
-    for c in range(nc):
-        b0 = b0_all[:, c]
-        b1 = torch.clamp(b0 + 1, max=nb - 1)
-        idx2 = lane_all[:, c] - (b0 * LANES)[:, None].to(torch.int32)
+        def f32(v):
+            return torch.tensor(v, dtype=torch.float32, device=dev)
+
+        self.dt, self.t_near, self.t_far = (f32(prm.dt), f32(prm.t_near),
+                                            f32(prm.t_far))
+        self.t_stop, self.stop = f32(prm.t_stop), f32(prm.stop)
+        self.lo = [f32(v) for v in prm.lo]
+        self.inv = [f32(v) for v in prm.inv]
+        self.ns = [f32(v) for v in prm.ns]
+        self.st_all, self.m_all, self.lane_all = decode_samples(samp)
+        self.rays = rayt.reshape(self.t_cnt, 6, RAYS_PER_TILE) \
+            .repeat_interleave(GROUP, dim=2)                   # (T, 6, 2048)
+        self.b0_all = (bank0.reshape(self.t_cnt, self.nc) & 0x3FFF).long()
+        self.tiles = torch.arange(self.t_cnt, device=dev)
+        self.step = (torch.arange(CHUNK_SAMPLES, device=dev) % GROUP)[None]
+        self.ke32 = ke.to(torch.int32)
+        self.t_origin = self.t_near + self.ke32.to(torch.float32) * self.dt
+        self.t_origin_c = torch.minimum(self.t_origin, self.t_stop)
+
+    def window(self, c):
+        """Chunk c's window banks (b0, b1) per tile and its samples'
+        window-relative slots idx2 (T, 2048) int32."""
+        b0 = self.b0_all[:, c]
+        b1 = torch.clamp(b0 + 1, max=self.nb - 1)
+        idx2 = self.lane_all[:, c] - (b0 * LANES)[:, None].to(torch.int32)
+        return b0, b1, idx2
+
+    def chunk(self, c):
+        """Chunk c: (vals (T, 32, 2048) stencil values per sample, the
+        axis weights ((1 - tx, tx), (1 - ty, ty), m-folded z), the
+        planes sigma, r, g, b as (T, 256, 8), idx2)."""
+        t_cnt = self.t_cnt
+        b0, b1, idx2 = self.window(c)
         i0 = idx2.clamp(0, LANES - 1).long()
         i1 = (idx2 - LANES).clamp(0, LANES - 1).long()
         second = idx2 >= LANES
@@ -210,38 +226,65 @@ def tile_forward_plain(tabs, samp, base, rayt, ke, bank0,
             v1 = torch.gather(m1, 2, i1[:, None].expand(t_cnt, n, -1))
             return torch.where(second[:, None], v1, v0)
 
-        vals = expand(tabs[tiles, b0], tabs[tiles, b1])      # (T, 32, 2048)
-        cbase = expand(base[tiles, b0], base[tiles, b1])     # (T, 3, 2048)
-
-        st, m = st_all[:, c], m_all[:, c]
+        tiles = self.tiles
+        vals = expand(self.tabs[tiles, b0], self.tabs[tiles, b1])
+        cbase = expand(self.base[tiles, b0], self.base[tiles, b1])
+        st, m = self.st_all[:, c], self.m_all[:, c]
         w = []
         for ax in range(3):
-            p = rays[:, ax] + rays[:, 3 + ax] * st
-            frac = ((p - lo[ax]) * inv[ax]) * ns[ax] - cbase[:, ax]
+            p = self.rays[:, ax] + self.rays[:, 3 + ax] * st
+            frac = ((p - self.lo[ax]) * self.inv[ax]) * self.ns[ax] \
+                - cbase[:, ax]
             w.append((1.0 - frac, frac))
         wx, wy, wz = w
         wz = (m * wz[0], m * wz[1])
-        w8 = [wz[dz] * wy[dy] * wx[dx]
-              for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+        w8 = corner_weights((wx, wy, wz))
         planes = []
         for ch in range(4):
             a = w8[0] * vals[:, ch * 8]
             for corner in range(1, 8):
                 a = a + w8[corner] * vals[:, ch * 8 + corner]
             planes.append(a.reshape(t_cnt, RAYS_PER_TILE, GROUP))
-        sig, cr, cg, cb = planes
+        return vals, (wx, wy, wz), planes, idx2
 
-        k = ke32[:, None] + c * GROUP + step                 # (T, 2048)
-        base_t = t_near + k.to(torch.float32) * dt
-        live = (base_t < t_far) & (k < prm.k_max)
+    def chunk_time(self, c):
+        """(livef, dt_actual, mid-segment depth) of chunk c's steps, each
+        (T, 256, 8)."""
+        k = self.ke32[:, None] + c * GROUP + self.step          # (T, 2048)
+        base_t = self.t_near + k.to(torch.float32) * self.dt
+        live = (base_t < self.t_far) & (k < self.prm.k_max)
         livef = live.to(torch.float32)
-        dta = torch.where(live, torch.minimum(base_t + dt, t_far) - base_t,
+        dta = torch.where(live,
+                          torch.minimum(base_t + self.dt, self.t_far) - base_t,
                           torch.zeros_like(base_t))
-        tcur = t_origin[:, None] + torch.clamp_min(
-            torch.minimum(base_t, t_stop) - t_origin_c[:, None], 0.0)
+        tcur = self.t_origin[:, None] + torch.clamp_min(
+            torch.minimum(base_t, self.t_stop) - self.t_origin_c[:, None], 0.0)
         mid = tcur + 0.5 * dta
-        livef, dta, mid = (x.reshape(t_cnt, RAYS_PER_TILE, GROUP)
-                           for x in (livef, dta, mid))
+        shape = (self.t_cnt, RAYS_PER_TILE, GROUP)
+        return livef.reshape(shape), dta.reshape(shape), mid.reshape(shape)
+
+
+def corner_weights(weights):
+    """The eight trilinear corner weights in packed-corner order
+    (dz*4 + dy*2 + dx), each (wz * wy) * wx."""
+    wx, wy, wz = weights
+    return [wz[dz] * wy[dy] * wx[dx]
+            for dz in (0, 1) for dy in (0, 1) for dx in (0, 1)]
+
+
+def tile_forward_plain(tabs, samp, base, rayt, ke, bank0,
+                       prm: TileParams) -> torch.Tensor:
+    """Plain twin of the kernel, vectorised over tiles and rays; loops
+    over chunks and over the 8 steps of the recurrence, in the kernel's
+    order of arithmetic."""
+    lat = _Lattice(tabs, samp, base, rayt, ke, bank0, prm)
+    zeros = torch.zeros((lat.t_cnt, RAYS_PER_TILE), dtype=torch.float32,
+                        device=lat.dev)
+    acc = [zeros] * 5                # r, g, b, w*mid, processed od
+    s = zeros
+    for c in range(lat.nc):
+        sig, cr, cg, cb = lat.chunk(c)[2]
+        livef, dta, mid = lat.chunk_time(c)
         od = torch.clamp_min(sig * dta, 0.0) * livef
 
         part = [zeros] * 5
@@ -249,11 +292,195 @@ def tile_forward_plain(tabs, samp, base, rayt, ke, bank0,
             od_j = od[..., j]
             tb = torch.exp(-s)
             p = torch.exp(-(s + od_j))
-            procf = livef[..., j] * (tb > stop).to(torch.float32)
+            procf = livef[..., j] * (tb > lat.stop).to(torch.float32)
             wgt = (tb - p) * procf
             part = [part[0] + wgt * cr[..., j], part[1] + wgt * cg[..., j],
                     part[2] + wgt * cb[..., j], part[3] + wgt * mid[..., j],
                     part[4] + od_j * procf]
             s = s + od_j
         acc = [a + b for a, b in zip(acc, part)]
-    return torch.stack(acc, dim=1).reshape(t_cnt, 5, ROWS, RAYS_COLS)
+    return torch.stack(acc, dim=1).reshape(lat.t_cnt, 5, ROWS, RAYS_COLS)
+
+
+def _tie(x: torch.Tensor) -> torch.Tensor:
+    """d max(x, 0) / dx with JAX's tie value 0.5 at x == 0 (torch's relu
+    and clamp_min give another value there)."""
+    one, zero = torch.ones_like(x), torch.zeros_like(x)
+    return torch.where(x > 0.0, one, torch.where(x < 0.0, zero, 0.5 * one))
+
+
+def _camera_terms(vals, weights, m, dpl):
+    """Per-sample d(loss)/d(trilinear fraction) along x, y, z: the
+    corner-value differences weighted by the other two axes' weights
+    (m folded into z), summed over the four d-planes in the order of
+    dvren_tpu's ``_bwd_kernel``. vals (T, 32, 2048); dpl (T, 2048) each."""
+    wx, wy, wz = weights
+    v = [vals[:, i] for i in range(NCH)]
+    dtx = dty = dtz = 0.0
+    for ch in range(4):
+        dp = dpl[ch]
+        vc = v[ch * 8:(ch + 1) * 8]
+        for dz in (0, 1):
+            for dy in (0, 1):
+                dtx = dtx + dp * ((wz[dz] * wy[dy])
+                                  * (vc[dz * 4 + dy * 2 + 1]
+                                     - vc[dz * 4 + dy * 2]))
+        for dz in (0, 1):
+            for dx in (0, 1):
+                dty = dty + dp * ((wz[dz] * wx[dx])
+                                  * (vc[dz * 4 + 2 + dx] - vc[dz * 4 + dx]))
+        for dy in (0, 1):
+            for dx in (0, 1):
+                dtz = dtz + dp * (((m * wy[dy]) * wx[dx])
+                                  * (vc[4 + dy * 2 + dx] - vc[dy * 2 + dx]))
+    return dtx, dty, dtz
+
+
+def camera_scales(prm: TileParams) -> tuple:
+    """d(fraction)/d(ray coordinate) per axis: float32(inv * ns), the
+    factor that chains the fraction adjoint to the ray planes."""
+    return tuple(float(torch.tensor(i * n, dtype=torch.float32))
+                 for i, n in zip(prm.inv, prm.ns))
+
+
+def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
+                        prm: TileParams, cam: bool = False):
+    """Plain twin of K2: (d_rows (T, NB, 128, 32), d_rayt (T, 12, 128) or
+    None) for the per-ray cotangents ``gs`` (T, 5, 16, 16) of K1's heads.
+
+    Pass 1 recomputes every sample's optical-depth prefix in K1's order.
+    Pass 2 walks the chunks and their steps in reverse with the adjoint
+    of the telescoped weights (suffix sums of gw * w, the 0.5 tie of
+    max(x, 0)), and adds each chunk's d(table) into the tile's banks: a
+    one-hot contraction over the chunk's 256-slot window, as the TPU
+    kernel does (torch.bmm; the kernel sums in sample order instead).
+    The camera adjoint is summed per ray in the kernel's order."""
+    lat = _Lattice(tabs, samp, base, rayt, ke, bank0, prm)
+    t_cnt, nb, nc = lat.t_cnt, lat.nb, lat.nc
+    g = gs.reshape(t_cnt, 5, RAYS_PER_TILE, 1)
+    g_r, g_g, g_b, g_wd, g_odp = (g[:, i] for i in range(5))
+    zeros = torch.zeros((t_cnt, RAYS_PER_TILE), dtype=torch.float32,
+                        device=lat.dev)
+
+    # pass 1: the exclusive optical-depth prefix of every sample
+    s, s_pre = zeros, []
+    for c in range(nc):
+        sig = lat.chunk(c)[2][0]
+        livef, dta, _ = lat.chunk_time(c)
+        od = torch.clamp_min(sig * dta, 0.0) * livef
+        pre = []
+        for j in range(GROUP):
+            pre.append(s)
+            s = s + od[..., j]
+        s_pre.append(torch.stack(pre, dim=-1))                # (T, 256, 8)
+
+    # pass 2: the reverse adjoint
+    acc = torch.zeros((t_cnt, nb, NCH, LANES), dtype=torch.float32,
+                      device=lat.dev)
+    slots = torch.arange(2 * LANES, device=lat.dev)
+    kcam = camera_scales(prm)
+    carry = zeros
+    dcam = [zeros] * 6
+    for c in reversed(range(nc)):
+        vals, weights, (sig, cr, cg, cb), idx2 = lat.chunk(c)
+        livef, dta, mid = lat.chunk_time(c)
+        x = sig * dta
+        od = torch.clamp_min(x, 0.0) * livef
+        tb = torch.exp(-s_pre[c])
+        p = torch.exp(-(s_pre[c] + od))
+        procf = livef * (tb > lat.stop).to(torch.float32)
+        w = (tb - p) * procf
+        gw = g_r * cr + g_g * cg + g_b * cb + g_wd * mid
+        gww = gw * w
+        dod = [None] * GROUP
+        for j in reversed(range(GROUP)):
+            dod[j] = ((gw[..., j] * procf[..., j]) * p[..., j] - carry
+                      + g_odp[..., 0] * procf[..., j])
+            carry = carry + gww[..., j]
+        dod = torch.stack(dod, dim=-1)
+        dsig = dod * livef * _tie(x) * dta
+        dpl = [d.reshape(t_cnt, CHUNK_SAMPLES)
+               for d in (dsig, g_r * w, g_g * w, g_b * w)]
+
+        w8 = corner_weights(weights)
+        wp = torch.stack([w8[corner] * dpl[ch] for ch in range(4)
+                          for corner in range(8)], dim=1)    # (T, 32, 2048)
+        onehot = (idx2[:, :, None] == slots).to(torch.float32)
+        d01 = torch.bmm(wp, onehot)                         # (T, 32, 256)
+        b0, b1, _ = lat.window(c)
+        acc[lat.tiles, b0] = acc[lat.tiles, b0] + d01[..., :LANES]
+        acc[lat.tiles, b1] = acc[lat.tiles, b1] + d01[..., LANES:]
+
+        if cam:
+            m = lat.m_all[:, c]
+            st = lat.st_all[:, c]
+            terms = _camera_terms(vals, weights, m, dpl)
+            per = [terms[ax] * kcam[ax] for ax in range(3)] + [
+                (terms[ax] * st) * kcam[ax] for ax in range(3)]
+            per = [t.reshape(t_cnt, RAYS_PER_TILE, GROUP) for t in per]
+            for j in reversed(range(GROUP)):
+                dcam = [d + t[..., j] for d, t in zip(dcam, per)]
+
+    d_rows = acc.transpose(2, 3).contiguous()               # (T, NB, 128, 32)
+    d_rayt = (torch.stack(dcam, dim=1).reshape(t_cnt, RAYT_ROWS, LANES)
+              if cam else None)
+    return d_rows, d_rayt
+
+
+def _check_cotangent(gs, tabs):
+    want = (int(tabs.shape[0]), 5, ROWS, RAYS_COLS)
+    if tuple(gs.shape) != want:
+        raise ValueError(f"gs: want shape {want}, got {tuple(gs.shape)}")
+    if gs.dtype != torch.float32:
+        raise TypeError(f"gs: want torch.float32, got {gs.dtype}")
+    if gs.device != tabs.device:
+        raise ValueError(f"gs on {gs.device}, tabs on {tabs.device}")
+
+
+def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
+                  cam: bool = False):
+    """K2: one tile group's d(bank table) as f32 slot rows (T, NB, 128,
+    32), row (t * NB + b) * 128 + lane, column ch * 8 + corner; and with
+    ``cam`` d(rayt) (T, 12, 128) in rayt's layout (else None).
+
+    ``gs`` (T, 5, 16, 16) f32 is the cotangent of :func:`tile_forward`'s
+    output. Launches ``csrc/fused_tiles_bwd.cu`` for CUDA tensors, runs
+    :func:`tile_backward_plain` for CPU tensors."""
+    _check_inputs(tabs, samp, base, rayt, ke, bank0, prm)
+    _check_cotangent(gs, tabs)
+    if tabs.device.type == "cpu":
+        return tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
+                                   prm, cam)
+    if tabs.device.type != "cuda":
+        raise ValueError(f"unsupported device {tabs.device}")
+    for name, x in (("tabs", tabs), ("samp", samp), ("base", base),
+                    ("rayt", rayt), ("ke", ke), ("bank0", bank0),
+                    ("gs", gs)):
+        if not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    t_cnt, nb, nc = int(tabs.shape[0]), prm.banks, prm.n_chunks
+    dev = tabs.device
+    d_rows = torch.empty((t_cnt, nb, LANES, NCH), dtype=torch.float32,
+                         device=dev)
+    d_rayt = (torch.empty((t_cnt, RAYT_ROWS, LANES), dtype=torch.float32,
+                          device=dev) if cam else None)
+    # each sample's optical-depth prefix, written by pass 1, read by pass 2
+    s_pre = torch.empty((t_cnt, nc * GROUP, RAYS_PER_TILE),
+                        dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.dvt_tile_backward(
+            tabs.data_ptr(), samp.data_ptr(), base.data_ptr(),
+            rayt.data_ptr(), ke.data_ptr(), bank0.data_ptr(), gs.data_ptr(),
+            d_rows.data_ptr(), d_rayt.data_ptr() if cam else None,
+            s_pre.data_ptr(),
+            t_cnt, nc, nb, prm.k_max,
+            prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
+            *prm.lo, *prm.inv, *prm.ns, *camera_scales(prm),
+            _build.stream_ptr(dev))
+    _build.check(code, "dvt_tile_backward")
+    tile_backward.launches += 1
+    return d_rows, d_rayt
+
+
+tile_backward.launches = 0

@@ -11,7 +11,8 @@ named by a schedule.
 
 The table itself is built by the CUDA kernel in
 :mod:`dvren_tpu_torch.ops.packed_transpose`; the stack here is the plain
-half of that kernel's twin.
+half of that kernel's twin, and :func:`stack_plane_grads`, its adjoint, is
+the plain twin of the table-gradient unpack there.
 """
 
 from __future__ import annotations
@@ -53,3 +54,22 @@ def _shift_stack_fullpitch(sigma: torch.Tensor, color: torch.Tensor,
         for off in offs:
             parts.append(flat[off:off + n_rows])
     return torch.stack(parts, dim=0)
+
+
+def stack_plane_grads(t: torch.Tensor, sigma_shape) -> tuple:
+    """(32, R) f32 stack cotangent -> (d_sigma (Z, Y, X), d_color
+    (Z, Y, X, 3)): the adjoint of :func:`_shift_stack_fullpitch`'s offset
+    slices, as 32 zero-padded shifted adds summed from 0 in corner order
+    (``dvren_tpu/ops/grid.py::stack_plane_grads``)."""
+    z, y, x = (int(v) for v in sigma_shape)
+    p = z * y * x
+    planes = []
+    for ch in range(4):
+        acc = t.new_zeros(p)
+        for corner, off in enumerate(corner_offsets(sigma_shape)):
+            col = t[ch * 8 + corner]
+            acc = acc + torch.nn.functional.pad(col, (off, 0))[:p]
+        planes.append(acc)
+    d_sigma = planes[0].reshape(z, y, x)
+    d_color = torch.stack([d.reshape(z, y, x) for d in planes[1:]], dim=-1)
+    return d_sigma, d_color

@@ -1,4 +1,4 @@
-"""The packed-stencil table build (K3): grid -> (R, 32) float32 rows.
+"""The packed-stencil table (K3) and its gradient's unpack (K4).
 
 Counterpart of ``dvren_tpu/ops/packed_transpose.py::stack_to_u16_rows``
 as the tiled path reaches it (``dvren_tpu/ops/grid.py::build_packed_table16``:
@@ -10,6 +10,13 @@ rows here equal ``hi << 16 | lo`` of its rows bit for bit.
 :func:`build_rows` takes the kernel for CUDA tensors and the plain twin
 :func:`build_rows_plain` for CPU tensors; it never moves data between
 devices. ``build_rows.launches`` counts kernel launches.
+
+K4, :func:`table_grad_to_params`, is the backward's counterpart of
+``dvren_tpu/ops/packed_transpose.py::u16_rows_to_stack`` followed by
+``grid.stack_plane_grads``: (R, 32) f32 table gradient -> (d_sigma,
+d_color), fused in ``csrc/packed_table_bwd.cu`` as a gather with no
+atomics; its twin :func:`table_grad_to_params_plain` transposes and runs
+the 32 shifted adds, and the two agree bit for bit.
 """
 
 from __future__ import annotations
@@ -17,7 +24,8 @@ from __future__ import annotations
 import torch
 
 from dvren_tpu_torch import _build
-from dvren_tpu_torch.ops.grid import NCH, _shift_stack_fullpitch, fullpitch_rows
+from dvren_tpu_torch.ops.grid import (NCH, _shift_stack_fullpitch,
+                                     fullpitch_rows, stack_plane_grads)
 
 
 def build_rows_plain(sigma: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
@@ -61,3 +69,41 @@ def build_rows(sigma: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
 
 
 build_rows.launches = 0
+
+
+def table_grad_to_params_plain(table_grad: torch.Tensor, grid_shape) -> tuple:
+    """Plain twin of K4: the shifted adds of the transposed gradient."""
+    return stack_plane_grads(table_grad.T, grid_shape)
+
+
+def table_grad_to_params(table_grad: torch.Tensor, grid_shape) -> tuple:
+    """(R, 32) f32 packed-table gradient -> (d_sigma (Z, Y, X), d_color
+    (Z, Y, X, 3)) for a grid of shape ``grid_shape`` (Z, Y, X)."""
+    z, y, x = (int(v) for v in grid_shape)
+    want = (fullpitch_rows((z, y, x)), NCH)
+    if tuple(table_grad.shape) != want:
+        raise ValueError(f"table_grad: want shape {want}, got "
+                         f"{tuple(table_grad.shape)}")
+    if table_grad.dtype != torch.float32:
+        raise TypeError(f"table_grad: want torch.float32, got "
+                        f"{table_grad.dtype}")
+    if table_grad.device.type == "cpu":
+        return table_grad_to_params_plain(table_grad, (z, y, x))
+    if table_grad.device.type != "cuda":
+        raise ValueError(f"unsupported device {table_grad.device}")
+    if not table_grad.is_contiguous():
+        raise ValueError("table_grad must be contiguous")
+    dev = table_grad.device
+    d_sigma = torch.empty((z, y, x), dtype=torch.float32, device=dev)
+    d_color = torch.empty((z, y, x, 3), dtype=torch.float32, device=dev)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.dvt_packed_table_grad(
+            table_grad.data_ptr(), d_sigma.data_ptr(), d_color.data_ptr(),
+            z, y, x, _build.stream_ptr(dev))
+    _build.check(code, "dvt_packed_table_grad")
+    table_grad_to_params.launches += 1
+    return d_sigma, d_color
+
+
+table_grad_to_params.launches = 0

@@ -1,16 +1,18 @@
 """Renderer: the plan-bound entry point of the port.
 
-Counterpart of ``dvren_tpu/render/renderer.py`` for the forward render on
-the tiled path: :meth:`Renderer.forward` builds the tile schedule once
-per (field bbox, grid shape, pitch) key, keeps it on the context's
-device, and replays it every frame (K3 table build, bank gather, one K1
-launch per tile group, tile compose).
+Counterpart of ``dvren_tpu/render/renderer.py`` on the tiled path:
+:meth:`Renderer.forward` builds the tile schedule once per (field bbox,
+grid shape, pitch) key, keeps it on the context's device, and replays it
+every frame (K3 table build, bank gather, one K1 launch per tile group,
+tile compose). :meth:`Renderer.backward` differentiates that replay for
+``sum(image * dl_image)`` in (sigma, color), ``c2w`` and ``k`` (K2 per
+group, the gather-plan reduction, K4).
 
 Every other mode of the JAX Renderer raises ``NotImplementedError``
 naming its ROADMAP item: override rays, the hash-MLP, windowed, streamed,
-fused and staged paths, graph capture and the backward. Unlike the JAX
-package, which picks tiles by default only on a TPU, ``use_tiles=None``
-picks them on a CUDA context.
+fused and staged paths, and graph capture. Unlike the JAX package, which
+picks tiles by default only on a TPU, ``use_tiles=None`` picks them on a
+CUDA context.
 """
 
 from __future__ import annotations
@@ -24,8 +26,10 @@ import torch
 
 from dvren_tpu_torch.core.context import Context
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
-from dvren_tpu_torch.core.status import check
+from dvren_tpu_torch.core.status import DvrenError, check
+from dvren_tpu_torch.fields.dense_grid import DenseGridField
 from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+from dvren_tpu_torch.ops.raygen import camera_arrays
 from dvren_tpu_torch.render import tiled as tiled_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
@@ -77,6 +81,18 @@ class ForwardResult:
     stats: RenderStats = dc_field(default_factory=RenderStats)
 
 
+@dataclass
+class BackwardResult:
+    """Mirrors ``dvren::BackwardResult`` (renderer.hpp:61-66) plus the
+    camera gradients: flat numpy buffers."""
+
+    sigma: np.ndarray           # (voxel_count,) float32, [z][y][x]
+    color: np.ndarray           # (3*voxel_count,) float32
+    camera: np.ndarray          # (3, 4) float32 = dL/d(c2w)
+    camera_k: np.ndarray | None = None   # (3, 3) dL/dK
+    sample_count: int = 0
+
+
 def _launch_counts() -> tuple[int, int]:
     return fused_tiles.tile_forward.launches, packed_transpose.build_rows.launches
 
@@ -92,6 +108,8 @@ class Renderer:
         self._jitter_host = plan_jitter_table(plan)
         self._tiled_schedule = None
         self._tiled_key = None
+        self._last_mode = None        # the mode of the last forward
+        self._last_ray_count = 0
 
     @property
     def plan(self) -> Plan:
@@ -154,9 +172,89 @@ class Renderer:
         result.ray_count = self._plan.ray_count
         result.sample_count = sample_count
         result.stats = stats
+        self._last_mode = "tiled"
+        self._last_ray_count = self._plan.ray_count
         return result
 
     Forward = forward
+
+    def backward(self, field, dl_di,
+                 out: BackwardResult | None = None) -> BackwardResult:
+        """Analogue of Renderer::Backward (renderer.cpp:390-446).
+
+        ``dl_di`` is flat (ray_count*3,) or (ray_count, 3): the loss
+        gradient with respect to each ray's radiance. Differentiates the
+        last forward's mode at its schedule; only the tiled mode is
+        ported."""
+        if self._last_mode is None:
+            raise DvrenError.invalid_argument(
+                "Backward requires a prior Forward")
+        if not (hasattr(field, "sigma") and hasattr(field, "color")):
+            raise DvrenError.unsupported(
+                "Renderer.backward targets dense voxel grids (the reference "
+                "hp_diff contract)")
+        if self._last_mode != "tiled" or self._tiled_schedule is None:
+            raise NotImplementedError(
+                f"the {self._last_mode} backward is ROADMAP Queue 1 item 11")
+        n = self._last_ray_count
+        dl = np.asarray(dl_di, np.float32).reshape(-1)
+        check(dl.size == n * 3,
+              f"dL/dI must have {n * 3} elements, got {dl.size}")
+        check(field.sigma.device == self._ctx.device,
+              f"field is on {field.sigma.device}, the context on "
+              f"{self._ctx.device}: move it with field.to(device)")
+        return self._backward_tiled(field, dl.reshape(n, 3), out)
+
+    Backward = backward
+
+    def _dl_image(self, dl: np.ndarray) -> torch.Tensor:
+        """Per-ray dL/dI (N, 3) placed into the (H, W, 3) image plane on
+        the context's device (generated rays own their pixels)."""
+        plan = self._plan
+        roi = plan.roi
+        dl_img = np.zeros((plan.height, plan.width, 3), np.float32)
+        ys = roi.y + np.arange(plan.ray_count) // roi.width
+        xs = roi.x + np.arange(plan.ray_count) % roi.width
+        dl_img[ys, xs] = dl
+        return torch.from_numpy(dl_img).to(self._ctx.device)
+
+    def _finish_backward(self, grads, out: BackwardResult | None):
+        sigma_g, color_g, dc2w, dk = (
+            g.detach().cpu().numpy().astype(np.float32) for g in grads)
+        result = out or BackwardResult(
+            sigma=np.empty(0), color=np.empty(0),
+            camera=np.zeros((3, 4), np.float32))
+        result.sigma = sigma_g.reshape(-1)
+        result.color = color_g.reshape(-1)
+        result.camera = dc2w.reshape(3, 4)
+        result.camera_k = dk.reshape(3, 3)
+        result.sample_count = self._analytic_sample_count()
+        return result
+
+    def _backward_tiled(self, field, dl: np.ndarray,
+                        out: BackwardResult | None) -> BackwardResult:
+        """Differentiate the tiled replay of the last forward: the loss
+        ``sum(image * dl_image)`` through :func:`render_tiled` at the
+        schedule's camera, in (sigma, color), c2w and k."""
+        dev = self._ctx.device
+        dl_img = self._dl_image(dl)
+        k0, c2w0, _ = camera_arrays(self._plan, dev)
+        k0.requires_grad_(True)
+        c2w0.requires_grad_(True)
+        # the field's values as fresh leaves (what ``field.with_params``
+        # is in the JAX package): the gradient does not depend on whether
+        # the caller's parameters require grad, nor touches their .grad
+        leaf = DenseGridField(field.sigma.detach(), field.color.detach(),
+                              bbox_min=field.bbox_min,
+                              bbox_max=field.bbox_max, interp=field.interp,
+                              oob=field.oob)
+        with torch.enable_grad():
+            planes = tiled_mod.render_tiled(
+                self._plan, leaf, self._tiled_schedule, k=k0, c2w=c2w0)
+            loss = torch.sum(planes.image * dl_img)
+            grads = torch.autograd.grad(
+                loss, (leaf.sigma, leaf.color, c2w0, k0))
+        return self._finish_backward(grads, out)
 
     def _tile_eligible(self, field) -> bool:
         """Dense OOB_ZERO trilinear grids with all dims >= 2."""

@@ -21,12 +21,20 @@ block from it, renders each tile group (K1,
 :mod:`dvren_tpu_torch.ops.fused_tiles`) and places the (16, 16) output
 tiles into the image.
 
+The backward (:class:`_GroupsetFromParams`, what autograd runs through
+:func:`render_tiled`) runs K2 per group, which emits each tile's table
+gradient as f32 slot rows (and the ray-plane adjoint for camera
+gradients), sums the rows of every cell through the schedule's
+:class:`GatherPlan` (gathers and sums, no scatter and no atomics), and
+unpacks the table gradient onto the grid with K4. Repeat runs are
+bit-identical.
+
 The schedule is built in numpy, as the JAX package builds it, and its
-arrays equal that package's array for array (``gather_plan``, which only
-the backward needs, is not built). This slice supports what the headline
-render needs: 16 px tiles, pitch 1, one slot per grid cell, dense float32
-fields, no occupancy trimming and no windowed fallback. Anything else
-raises ``NotImplementedError`` naming its ROADMAP item.
+arrays, the gather plan included, equal that package's array for array.
+This slice supports what the headline render needs: 16 px tiles, pitch
+1, one slot per grid cell, dense float32 fields, no occupancy trimming
+and no windowed fallback. Anything else raises ``NotImplementedError``
+naming its ROADMAP item.
 
 Sample layout per (tile, chunk): block row r in [0, 16), lane l in
 [0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8.
@@ -44,7 +52,8 @@ from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import check
 from dvren_tpu_torch.ops import fused_tiles, packed_transpose
 from dvren_tpu_torch.ops.compose import ImagePlanes
-from dvren_tpu_torch.ops.grid import NCH
+from dvren_tpu_torch.ops.grid import NCH, fullpitch_rows
+from dvren_tpu_torch.ops.raygen import generate_rays
 from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
@@ -106,11 +115,29 @@ class TileGroup:
 
 
 @dataclass(frozen=True)
+class GatherPlan:
+    """The backward's transpose of the bank gather (see
+    :func:`_build_gather_plan`). ``meta`` = per exact-count class
+    (offset into ``all_idx``, cells n_k, slots per cell c_k)."""
+
+    all_idx: np.ndarray      # (S_live,) int32 slot rows, grouped by cell
+    inv_map: np.ndarray      # (n_cells,) int32 class-order row per table
+    #                          row; inactive rows name the trailing zero row
+    meta: tuple
+
+    def to(self, device) -> "GatherPlan":
+        return dataclasses.replace(
+            self, all_idx=_to_device(self.all_idx, device),
+            inv_map=_to_device(self.inv_map, device))
+
+
+@dataclass(frozen=True)
 class TiledSchedule:
     groups: tuple            # of TileGroup
     fallback: object         # always None: no windowed fallback yet
     hostmap_all: np.ndarray  # (S,) int32 every group's hostmap, concatenated
     gathermap_all: np.ndarray  # (S,) int32 the bank gather's rows
+    gather_plan: object      # GatherPlan | None (an empty schedule)
     total_rays: int
     tiled_samples: int
     full_lattice_samples: int
@@ -128,7 +155,9 @@ class TiledSchedule:
             self,
             groups=tuple(g.to(device) for g in self.groups),
             hostmap_all=_to_device(self.hostmap_all, device),
-            gathermap_all=_to_device(self.gathermap_all, device))
+            gathermap_all=_to_device(self.gathermap_all, device),
+            gather_plan=(self.gather_plan.to(device)
+                         if self.gather_plan is not None else None))
 
     @property
     def device(self):
@@ -479,9 +508,49 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     return TiledSchedule(
         groups=tuple(groups), fallback=None,
         hostmap_all=hostmap_all, gathermap_all=hostmap_all,
+        gather_plan=_build_gather_plan(hostmap_all,
+                                       fullpitch_rows((nz, ny, nx))),
         total_rays=n, tiled_samples=tiled_samples,
         full_lattice_samples=n * k_max, fallback_rays=fallback_rays,
         grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max))
+
+
+def _build_gather_plan(hostmap_all: np.ndarray,
+                       n_cells: int) -> GatherPlan | None:
+    """The transpose of the bank gather, as gathers and sums only.
+
+    The live slot rows (dead lanes, -1, carry exact zeros and are left
+    out) are sorted by the table row (cell) they gather, and the cells are
+    bucketed into exact-count classes: ``all_idx`` concatenates every
+    class's (n_k, c_k) block of slot rows, so the backward takes ONE
+    gather of the slot rows, sums each cell's c_k rows, and assembles the
+    (n_cells, 32) table gradient by the inverse-permutation gather
+    ``inv_map`` (untouched cells read a trailing zero row). None for an
+    empty schedule. Equal to ``dvren_tpu``'s plan array for array."""
+    if hostmap_all.size == 0:
+        return None
+    valid = np.nonzero(hostmap_all >= 0)[0].astype(np.int64)
+    if valid.size == 0:
+        return None
+    order = valid[np.argsort(hostmap_all[valid], kind="stable")]
+    cells, first, counts = np.unique(
+        hostmap_all[order], return_index=True, return_counts=True)
+    idx_parts, meta, cell_order = [], [], []
+    off = 0
+    for v in np.unique(counts):
+        member = counts == v
+        n_k, c_k = int(member.sum()), int(v)
+        col = np.arange(c_k, dtype=np.int64)[None, :]
+        idx_parts.append(
+            order[first[member][:, None] + col].astype(np.int32).reshape(-1))
+        cell_order.append(cells[member])
+        meta.append((off, n_k, c_k))
+        off += n_k * c_k
+    cell_order = np.concatenate(cell_order)
+    inv_map = np.full(n_cells, cell_order.size, np.int32)
+    inv_map[cell_order] = np.arange(cell_order.size, dtype=np.int32)
+    return GatherPlan(all_idx=np.concatenate(idx_parts), inv_map=inv_map,
+                      meta=tuple(meta))
 
 
 # --------------------------------------------------------------- device side
@@ -538,39 +607,172 @@ def tiles5_to_planes(plan: Plan, tiles5: torch.Tensor, tile_px: int):
             place(depth, float(plan.t_far)))
 
 
+def slot_rows_to_table(rows: torch.Tensor, plan: GatherPlan | None,
+                       n_cells: int) -> torch.Tensor:
+    """Per-slot table-gradient rows (S, 32) -> the (n_cells, 32) table
+    gradient: the f32 counterpart of ``dvren_tpu``'s
+    ``ct16_rows_to_table16``. One gather of the live slot rows in the
+    plan's class order, a sum over each cell's c_k rows per exact-count
+    class, and an inverse-permutation gather with a trailing zero row for
+    the cells no slot names. Gathers and sums only: no ``index_add_`` or
+    scatter, whose float atomics on CUDA add in a run-dependent order."""
+    if plan is None:
+        return rows.new_zeros((n_cells, rows.shape[1]))
+    g = torch.index_select(rows, 0, plan.all_idx)
+    parts = []
+    for off, n_k, c_k in plan.meta:
+        block = g[off:off + n_k * c_k]
+        parts.append(block if c_k == 1 else
+                     block.reshape(n_k, c_k, -1).sum(dim=1))
+    parts.append(rows.new_zeros((1, rows.shape[1])))
+    return torch.index_select(torch.cat(parts), 0, plan.inv_map)
+
+
+class _PlaceTiles(torch.autograd.Function):
+    """Place rendered tiles at their ROI tile index: ``out[ids[i]] =
+    raw[i]``, with ids outside [0, n_tiles) dropped (the pad tiles). The
+    ids of kept tiles are distinct, so both directions are gathers:
+    forward through the inverse map, backward through ``ids``. (Traced
+    indexing would put an accumulating ``index_put_`` in the backward.)"""
+
+    @staticmethod
+    def forward(ctx, raw, ids, n_tiles: int):
+        dst = torch.where((ids >= 0) & (ids < n_tiles), ids,
+                          torch.full_like(ids, n_tiles))
+        n = raw.shape[0]
+        # src[tile] = the raw tile placed there, or the zero row n
+        src = torch.full((n_tiles + 1,), n, dtype=torch.long,
+                         device=raw.device)
+        src[dst] = torch.arange(n, device=raw.device)
+        src[n_tiles] = n
+        ctx.save_for_backward(dst)
+        padded = torch.cat([raw, raw.new_zeros((1,) + raw.shape[1:])])
+        return torch.index_select(padded, 0, src[:n_tiles])
+
+    @staticmethod
+    def backward(ctx, grad):
+        (dst,) = ctx.saved_tensors
+        padded = torch.cat([grad, grad.new_zeros((1,) + grad.shape[1:])])
+        return torch.index_select(padded, 0, dst), None, None
+
+
 def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
                    tile_px: int = 16) -> ImagePlanes:
     """Place each (16, 16) output tile at its image region. Tiles with an
     id outside the ROI's tile grid (the pad sentinel 1 << 30) are dropped,
     as the JAX scatter's ``mode="drop"`` does. Rays that no tile renders
-    keep the background (T = 1, depth = t_far)."""
+    keep the background (T = 1, depth = t_far). Differentiable in
+    ``raws``."""
     if fallback_parts:
         raise NotImplementedError(_TODO_FALLBACK)
     roi = plan.roi
     n_tiles = (-(-roi.width // tile_px)) * (-(-roi.height // tile_px))
-    device = raws[0].device if raws else None
-    tiles5 = torch.zeros((n_tiles, 5, tile_px, tile_px), dtype=torch.float32,
-                         device=device)
     if raws:
         raw = raw_to_subtiles(torch.cat(raws), tile_px)
         ids = torch.cat([t.reshape(-1) for t in tile_ids]).long()
-        keep = (ids >= 0) & (ids < n_tiles)
-        tiles5[ids[keep]] = raw[keep]
+        tiles5 = _PlaceTiles.apply(raw, ids, n_tiles)
+    else:
+        tiles5 = torch.zeros((n_tiles, 5, tile_px, tile_px),
+                             dtype=torch.float32)
     image, trans, opac, dep = tiles5_to_planes(plan, tiles5, tile_px)
     return ImagePlanes(image=image, transmittance=trans, opacity=opac,
                        depth=dep,
                        hitmask=windowed_mod.roi_hitmask(plan, image.device))
 
 
+class _GroupsetFromParams(torch.autograd.Function):
+    """Dense-grid params -> every tile group's raw K1 output, as one
+    autograd node: the counterpart of ``dvren_tpu``'s
+    ``_groupset_from_params``.
+
+    Forward: the packed table (K3), the bank gather, K1 per group.
+    Backward: K2 per group (slot rows, and d(rayt) when ``cam``), one
+    ``torch.cat`` of the slot rows, :func:`slot_rows_to_table`, then K4.
+    Returns (None, d_sigma, d_color, *d_rayt per group). Autograd
+    never records the table gather: its backward would be ``index_add_``.
+    ``static`` = (schedule, per-group TileParams, use_kernel, cam); on CPU
+    tensors every kernel step runs its plain twin."""
+
+    @staticmethod
+    def forward(ctx, static, sigma, color, *rayts):
+        schedule, params, use_kernel, cam = static
+        if use_kernel:
+            table = packed_transpose.build_rows(sigma, color)
+            forward = fused_tiles.tile_forward
+        else:
+            table = packed_transpose.build_rows_plain(sigma, color)
+            forward = fused_tiles.tile_forward_plain
+        tabs = _gather_bank_tables(
+            table, schedule.gathermap_all,
+            [(g.n_tiles, g.banks) for g in schedule.groups])
+        raws = tuple(
+            forward(tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
+                    g.bank0.reshape(-1), params[gi])
+            for gi, g in enumerate(schedule.groups))
+        ctx.static = static
+        ctx.tabs = tabs
+        ctx.grid_shape = tuple(sigma.shape)
+        ctx.save_for_backward(*rayts)
+        return raws
+
+    @staticmethod
+    def backward(ctx, *g_raws):
+        schedule, params, use_kernel, cam = ctx.static
+        rayts = ctx.saved_tensors
+        backward = (fused_tiles.tile_backward if use_kernel
+                    else fused_tiles.tile_backward_plain)
+        want_grid = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        rows, d_rayts = [], []
+        for gi, g in enumerate(schedule.groups):
+            d_rows, d_rayt = backward(
+                ctx.tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
+                g.bank0.reshape(-1), g_raws[gi].contiguous(), params[gi],
+                cam)
+            rows.append(d_rows.reshape(-1, NCH))
+            d_rayts.append(d_rayt)
+        d_sigma = d_color = None
+        if want_grid:
+            table_grad = slot_rows_to_table(
+                torch.cat(rows), schedule.gather_plan,
+                fullpitch_rows(ctx.grid_shape))
+            unpack = (packed_transpose.table_grad_to_params if use_kernel
+                      else packed_transpose.table_grad_to_params_plain)
+            d_sigma, d_color = unpack(table_grad, ctx.grid_shape)
+        return (None, d_sigma, d_color, *d_rayts)
+
+
+def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w) -> list:
+    """Each group's (T, 12, 128) ray planes rebuilt from the camera
+    tensors ``k`` / ``c2w`` (autograd records them), for the rays the
+    schedule baked in: dead and pad lanes carry ray 0 there too."""
+    ids = torch.cat([g.ray_ids.reshape(-1) for g in schedule.groups])
+    rays = generate_rays(plan, k=k, c2w=c2w, ids=ids)
+    out, off = [], 0
+    for g in schedule.groups:
+        nt = g.n_tiles
+        n_r = nt * RAYS_PER_TILE
+        o = rays.origins[off:off + n_r]
+        d = rays.directions[off:off + n_r]
+        off += n_r
+        out.append(torch.stack(
+            [o[:, i].reshape(nt, 2, 128) for i in range(3)]
+            + [d[:, i].reshape(nt, 2, 128) for i in range(3)],
+            dim=1).reshape(nt, 12, 128))
+    return out
+
+
 def render_tiled(plan: Plan, field, schedule: TiledSchedule,
-                 use_kernel: bool = True) -> ImagePlanes:
-    """Tile-table forward render of a dense field.
+                 use_kernel: bool = True, k=None, c2w=None) -> ImagePlanes:
+    """Tile-table render of a dense field, differentiable in the field's
+    ``sigma`` and ``color`` and, through ``k`` (3, 3) / ``c2w`` (3, 4),
+    in the camera at the schedule's camera.
 
     The schedule must be on the field's device (:meth:`TiledSchedule.to`).
-    ``use_kernel=False`` runs the plain PyTorch twins of K3 and K1 on
-    that device: the reference the kernels are held to. Forward only: the
-    backward kernels are ROADMAP Queue 1 item 8, so this refuses to run
-    where autograd would record the field's parameters."""
+    ``use_kernel=False`` runs the plain PyTorch twins of K1-K4 on that
+    device: the reference the kernels are held to. With ``k`` or ``c2w``
+    the ray planes are rebuilt from those tensors and the backward emits
+    their adjoint; the cells, slots and mask stay the schedule's, so a
+    camera far from the schedule's needs a new schedule."""
     check(tuple(float(v) for v in field.bbox_min) == tuple(schedule.bbox[0])
           and tuple(float(v) for v in field.bbox_max)
           == tuple(schedule.bbox[1]),
@@ -585,28 +787,18 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
         raise NotImplementedError(
             f"{schedule.fallback_rays} rays need {_TODO_FALLBACK}")
     sigma, color = field.sigma, field.color
-    if torch.is_grad_enabled() and (sigma.requires_grad
-                                    or color.requires_grad):
-        raise NotImplementedError(
-            "the tiled backward is ROADMAP Queue 1 item 8: render under "
-            "torch.no_grad()")
     check(schedule.device == sigma.device,
           f"schedule is on {schedule.device}, the field on {sigma.device}: "
           f"move it with schedule.to(device)")
 
     geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
-    if use_kernel:
-        table = packed_transpose.build_rows(sigma, color)
-        forward = fused_tiles.tile_forward
-    else:
-        table = packed_transpose.build_rows_plain(sigma, color)
-        forward = fused_tiles.tile_forward_plain
-    tabs = _gather_bank_tables(
-        table, schedule.gathermap_all,
-        [(g.n_tiles, g.banks) for g in schedule.groups])
-    raws = [
-        forward(tabs[gi], g.samp, g.base, g.rayt, g.k_enter,
-                g.bank0.reshape(-1),
-                fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks))
-        for gi, g in enumerate(schedule.groups)]
+    params = tuple(fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks)
+                   for g in schedule.groups)
+    cam = k is not None or c2w is not None
+    raws = []
+    if schedule.groups:
+        rayts = (_traced_rayts(plan, schedule, k, c2w) if cam
+                 else [g.rayt for g in schedule.groups])
+        raws = list(_GroupsetFromParams.apply(
+            (schedule, params, use_kernel, cam), sigma, color, *rayts))
     return _compose_tiles(plan, raws, [g.tile_ids for g in schedule.groups])

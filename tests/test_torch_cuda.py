@@ -7,8 +7,11 @@ tests/conftest.py does import JAX, so run it there with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 The twins are held to dvren_tpu on the CPU by the other test_torch_*
-files; here the kernels are held to the twins: K3 bit for bit, K1 and
-the whole forward within 5e-6 (depth 1e-4).
+files; here the kernels are held to the twins: K3 and K4 bit for bit, K1
+and the whole forward within 5e-6 (depth 1e-4), K2 within 2e-6 x scale
+on d(table) and 1e-5 x scale on d(rayt), the backward on the card within
+2e-6 x scale of the CPU's (camera rtol 2e-3 / atol 1e-4), and every
+kernel's repeat runs bit for bit.
 """
 
 import numpy as np
@@ -24,6 +27,8 @@ pytestmark = pytest.mark.cuda
 
 TOL = 5e-6
 TOL_DEPTH = 1e-4
+GRID_TOL = 2e-6       # x max |twin|
+CAM_TOL = 1e-5        # x max |twin|, d(rayt)
 
 
 @pytest.fixture
@@ -65,7 +70,10 @@ SCENES = ("fixed", "stratified", "roi", "opaque")
 def test_library_builds_once(cuda_device):
     lib = _build.library()
     assert _build.library() is lib
-    assert "tile_forward_kernel" in _build.ptxas_report()
+    report = _build.ptxas_report()
+    for kernel in ("tile_forward_kernel", "packed_table_kernel",
+                   "tile_backward_kernel", "packed_table_grad_kernel"):
+        assert kernel in report
 
 
 @pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
@@ -151,3 +159,91 @@ def test_forward_on_the_card_matches_cpu(cuda_device, name):
                                    atol=TOL)
     np.testing.assert_allclose(got.depth, ref.depth, atol=TOL_DEPTH)
     np.testing.assert_array_equal(got.hitmask, ref.hitmask)
+
+
+def _close(got, ref, tol):
+    scale = max(float(ref.abs().max()), 1e-12)
+    assert float((got - ref).abs().max()) <= tol * scale
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_tile_backward_matches_plain(cuda_device, name):
+    _, groups = _group_args(name, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for args in groups:
+        gs = torch.randn((args[0].shape[0], 5, 16, 16), generator=gen,
+                         device=cuda_device)
+        before = fused_tiles.tile_backward.launches
+        rows, d_rayt = fused_tiles.tile_backward(*args[:6], gs, args[6],
+                                                 cam=True)
+        torch.cuda.synchronize()
+        assert fused_tiles.tile_backward.launches == before + 1
+        p_rows, p_rayt = fused_tiles.tile_backward_plain(*args[:6], gs,
+                                                         args[6], cam=True)
+        assert bool(torch.isfinite(rows).all())
+        _close(rows, p_rows, GRID_TOL)
+        _close(d_rayt, p_rayt, CAM_TOL)
+        rows2, d_rayt2 = fused_tiles.tile_backward(*args[:6], gs, args[6],
+                                                   cam=True)
+        assert torch.equal(rows2, rows) and torch.equal(d_rayt2, d_rayt)
+        rows_nc, none = fused_tiles.tile_backward(*args[:6], gs, args[6])
+        assert none is None and torch.equal(rows_nc, rows)
+
+
+def test_tile_backward_rejects_strided_input(cuda_device):
+    _, groups = _group_args("fixed", cuda_device)
+    tabs, samp, base, rayt, ke, bank0, prm = groups[0]
+    gs = torch.zeros((tabs.shape[0] * 2, 5, 16, 16), device=cuda_device)[::2]
+    with pytest.raises(ValueError):
+        fused_tiles.tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm)
+
+
+@pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
+                                   (64, 64, 64)])
+def test_packed_table_grad_bit_equal_to_plain(cuda_device, shape):
+    rows = packed_transpose.fullpitch_rows(shape)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    tg = torch.randn((rows, 32), generator=gen, device=cuda_device)
+    before = packed_transpose.table_grad_to_params.launches
+    got = packed_transpose.table_grad_to_params(tg, shape)
+    torch.cuda.synchronize()
+    assert packed_transpose.table_grad_to_params.launches == before + 1
+    want = packed_transpose.table_grad_to_params_plain(tg, shape)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_packed_table_grad_rejects_strided_input(cuda_device):
+    rows = packed_transpose.fullpitch_rows((4, 4, 4))
+    tg = torch.zeros((rows, 64), device=cuda_device)[:, ::2]
+    with pytest.raises(ValueError):
+        packed_transpose.table_grad_to_params(tg, (4, 4, 4))
+
+
+@pytest.mark.parametrize("name", SCENES)
+def test_backward_on_the_card_matches_cpu(cuda_device, name):
+    plan, config = scene(name)
+    dl = np.random.default_rng(3).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    launches = (fused_tiles.tile_backward.launches,
+                packed_transpose.table_grad_to_params.launches)
+    card = P.Renderer(P.Context.create(device="cuda"), plan)
+    field = P.DenseGridField.create(config, device=cuda_device)
+    card.forward(field)
+    got = card.backward(field, dl)
+    assert fused_tiles.tile_backward.launches > launches[0]
+    assert packed_transpose.table_grad_to_params.launches > launches[1]
+    cpu = P.Renderer(P.Context.create(device="cpu"), plan,
+                     P.RenderOptions(use_tiles=True))
+    cpu_field = P.DenseGridField.create(config)
+    cpu.forward(cpu_field)
+    ref = cpu.backward(cpu_field, dl)
+    for key in ("sigma", "color"):
+        _close(torch.from_numpy(getattr(got, key)),
+               torch.from_numpy(getattr(ref, key)), GRID_TOL)
+    np.testing.assert_allclose(got.camera, ref.camera, rtol=2e-3, atol=1e-4)
+    np.testing.assert_allclose(got.camera_k, ref.camera_k, rtol=2e-3,
+                               atol=1e-4)
+    again = card.backward(field, dl)
+    for key in ("sigma", "color", "camera", "camera_k"):
+        np.testing.assert_array_equal(getattr(again, key), getattr(got, key))

@@ -168,14 +168,32 @@ def test_unported_schedule_options_raise(kwargs):
                                      **kwargs)
 
 
-def test_render_tiled_refuses_autograd_and_wrong_device():
+def test_render_tiled_refuses_wrong_device():
     plan, field, _ = reference("fixed")
     pplan, pfield = port_plan(plan), port_field(field)
     sched = p_tiled.build_tiled_schedule(pplan, pfield)
-    with pytest.raises(NotImplementedError):
-        p_tiled.render_tiled(pplan, pfield, sched.to("cpu"))
     with torch.no_grad(), pytest.raises(P.DvrenError):
         p_tiled.render_tiled(pplan, pfield, sched)      # still numpy
+    with pytest.raises(P.DvrenError):
+        p_tiled.render_tiled(pplan, pfield, sched)
+
+
+def test_render_tiled_records_gradients():
+    """render_tiled is differentiable: autograd records the field's
+    parameters through one node, and grad mode changes no value."""
+    plan, field, _ = reference("fixed")
+    pplan, pfield = port_plan(plan), port_field(field)
+    sched = p_tiled.build_tiled_schedule(pplan, pfield).to("cpu")
+    planes = p_tiled.render_tiled(pplan, pfield, sched)
+    assert planes.image.requires_grad and planes.opacity.requires_grad
+    d_sigma, d_color = torch.autograd.grad(planes.image.sum(),
+                                           (pfield.sigma, pfield.color))
+    assert d_sigma.shape == pfield.sigma.shape
+    assert d_color.shape == pfield.color.shape
+    assert float(d_color.abs().sum()) > 0.0
+    with torch.no_grad():
+        again = p_tiled.render_tiled(pplan, pfield, sched)
+    assert torch.equal(again.image, planes.image.detach())
 
 
 def test_compose_drops_sentinel_tiles():
