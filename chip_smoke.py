@@ -3,12 +3,16 @@
 
     python3 chip_smoke.py
 
-Drives the port's main paths once each, at the headline configuration:
+Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
 with 128 stratified steps (seed 3; the scene ``bench.py::_scene`` builds,
 rebuilt here in numpy) through ``Renderer.forward``, its gradients
 through ``Renderer.backward``, and a few SGD training steps through
-autograd of ``render_tiled``. Phases, each fatal when it fails:
+autograd of ``render_tiled``; then the hash-MLP field (the L=8, T=128
+spec of ``tools/hashmlp_bench.py``) rendered at 512^2 with 128
+stratified steps (seed 5) through ``Renderer.forward`` and fitted with
+``fit_hash_mlp`` (4 views at 96^2, 64 steps, Adam lr 8e-3). Phases, each
+fatal when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
@@ -38,7 +42,27 @@ autograd of ``render_tiled``. Phases, each fatal when it fails:
     float32 resolution): the loss is finite and falls at the scaled lr,
     K1-K4 each launch in every step; then the step time (forward,
     backward, update) at lr 1e-3 over 10 steps with CUDA events, its
-    stages beside their plain twins, and peak device memory.
+    stages beside their plain twins, and peak device memory;
+11. K7f (fused hash-MLP forward) against its plain twin at the hash
+    headline, the field from a seeded ``torch.Generator``: within 5e-6
+    after ``finalize_heads`` (depth 1e-4); the hash schedule's build and
+    upload times;
+12. ``Renderer(Context.create(device="cuda"), plan).forward(hash_field)``:
+    the K7f launch count rises, the planes are finite with opacity > 0
+    somewhere and match the plain path on the card; the small hash test
+    scene (24x20) rendered on the card matches the CPU twin;
+13. K7b (fused hash-MLP backward) against its plain twin for a seeded
+    random cotangent on a subset of the headline's tiles: d(table) and
+    d(MLP) within 2e-5 x scale; two runs on the full frame equal bit for
+    bit;
+14. ``fit_hash_mlp`` for 25 Adam steps (``sync_every=25``) toward a
+    teacher field of the same spec rendered by the port from the same
+    cameras: the loss is finite and falls, K7f and K7b launch in every
+    step, ``steady_step_ms`` > 0;
+15. times with CUDA events after warm-up, each beside its plain twin's:
+    the hash forward per frame and Mrays/s (schedule excluded), K7f, K7b,
+    the fit step (forward, backward, Adam), and the peak device memory
+    each adds to what the earlier phases hold.
 
 Prints a JSON line of per-kernel results, then the card line, and as the
 last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
@@ -59,6 +83,9 @@ import numpy as np
 TOL = 5e-6          # radiance, transmittance, opacity
 TOL_DEPTH = 1e-4    # depth is a ratio: wd / opacity
 GRID_TOL = 2e-6     # gradients and d(table), x max |reference|
+HASH_GRAD_TOL = 2e-5  # K7b, x max |reference| (tests/test_hash_tiled.py)
+HASH_SUBSET = 64    # headline tiles the K7b twin is compared on
+FIT_STEPS = 25
 RAYT_TOL = 1e-5     # d(rayt), x max |reference|
 CAM_RTOL, CAM_ATOL = 2e-3, 1e-4   # camera gradients
 FRAMES = 30         # timed forward frames
@@ -191,6 +218,310 @@ def tiled_grads(torch, P, tiled, plan, field, sched, dl_img, use_kernel):
                                 k=k, c2w=c2w)
     return torch.autograd.grad(torch.sum(planes.image * dl_img),
                                (leaf.sigma, leaf.color, c2w, k))
+
+
+def hash_headline(P, width=512, max_steps=128):
+    """tools/hashmlp_bench.py's plan (seed 5, stratified) and spec."""
+    plan = P.Plan.create(P.PlanConfig(
+        width=width, height=width, t_near=0.2, t_far=2.2, seed=5,
+        camera=P.CameraConfig(
+            k=(width * 1.2, 0, width / 2, 0, width * 1.2, width / 2, 0, 0,
+               1),
+            c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0)),
+        sampling=P.SamplingConfig(dt=2.0 / max_steps, max_steps=max_steps,
+                                  mode=P.SamplingMode.STRATIFIED)))
+    spec = P.HashMLPSpec(n_levels=8, table_size=128, base_resolution=2.0,
+                         finest_resolution=48.0)
+    return plan, spec
+
+
+def hash_fit_setup(P, views=4, width=96):
+    """tools/hashmlp_bench.py's fit: 4 views at 96^2 on a y-axis orbit of
+    radius 1.5 around (0.5, 0.5, 0.5), 64 fixed steps."""
+    plan = P.Plan.create(P.PlanConfig(
+        width=width, height=width, t_near=0.2, t_far=2.2, seed=5,
+        camera=P.CameraConfig(
+            k=(width * 1.2, 0, width / 2, 0, width * 1.2, width / 2, 0, 0,
+               1),
+            c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0)),
+        sampling=P.SamplingConfig(dt=2.0 / 64, max_steps=64)))
+    center = np.array([0.5, 0.5, 0.5], np.float32)
+    cams = []
+    for v in range(views):
+        th = 2 * np.pi * v / views
+        eye = center + 1.5 * np.array([np.sin(th), 0.0, -np.cos(th)],
+                                      np.float32)
+        fwd = (center - eye) / np.linalg.norm(center - eye)
+        right = np.cross(np.array([0.0, 1.0, 0.0], np.float32), fwd)
+        right /= np.linalg.norm(right)
+        up = np.cross(fwd, right)
+        c2w = np.concatenate([np.stack([right, up, fwd], axis=1),
+                              eye.reshape(3, 1)], axis=1)
+        cams.append(P.CameraConfig(
+            k=plan.camera.k, c2w=tuple(float(x) for x in c2w.reshape(-1))))
+    return plan, cams
+
+
+def hash_small_scene(P, device=None):
+    """tests/test_hash_tiled.py's stratified case: 24x20, default spec."""
+    plan = P.Plan.create(P.PlanConfig(
+        width=24, height=20, t_near=0.2, t_far=1.8, seed=11,
+        sampling=P.SamplingConfig(dt=0.05, max_steps=24,
+                                  mode=P.SamplingMode.STRATIFIED)))
+    spec = P.HashMLPSpec()
+    flat = np.random.default_rng(5).uniform(
+        -0.5, 0.5, spec.param_count).astype(np.float32)
+    return plan, P.HashMLPField.create(P.HashMLPConfig(spec=spec,
+                                                       params=flat),
+                                       device=device)
+
+
+def hash_counts(hash_tiles) -> dict:
+    return {"hash_tiles": hash_tiles.hash_tile_forward.launches,
+            "hash_tiles_bwd": hash_tiles.hash_tile_backward.launches}
+
+
+def reset_hash_counts(hash_tiles) -> None:
+    hash_tiles.hash_tile_forward.launches = 0
+    hash_tiles.hash_tile_backward.launches = 0
+
+
+def run_hash(torch, P, dev) -> tuple[list, dict]:
+    """Phases 11-15: the hash-MLP field's forward, backward and fit."""
+    from dvren_tpu_torch.ops import fused_tiles, hash_tiles
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.render import hash_tiled
+
+    # 11. K7f against its plain twin at the hash headline
+    plan, spec = hash_headline(P)
+    field = P.HashMLPField.init_random(torch.Generator().manual_seed(0),
+                                       spec=spec, device=dev)
+    field.requires_grad_(False)
+    t0 = time.perf_counter()
+    sched_host = hash_tiled.build_hash_schedule(plan)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sched = sched_host.to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    print(f"hash schedule build {build_s:.3f} s, upload {upload_s:.3f} s: "
+          f"{sched.n_tiles} tiles x {sched.n_chunks} chunks, sample_t "
+          f"{sched.samp.numel() * 4 / 2 ** 20:.1f} MiB", flush=True)
+    params = dict(field.params)
+    prm = hash_tiles.hash_tile_params(plan, spec, sched.n_chunks)
+    table = params["hash_table"].contiguous()
+    sc = hash_tiles.pack_mlp_scalars(params, spec)
+    args = (sched.samp, sched.rayt, table, sc, prm)
+    out_k = hash_tiles.hash_tile_forward(*args)
+    torch.cuda.synchronize()
+    out_p = hash_tiles.hash_tile_forward_plain(*args)
+    require(bool(torch.isfinite(out_k).all()), "K7f output not finite")
+    k7f_err, k7f_depth = head_errors(torch, fused_tiles, plan, out_k, out_p)
+    k7f_raw = float((out_k - out_p).abs().max())
+    print(f"K7f vs plain: heads {k7f_err:.3e}, depth {k7f_depth:.3e}, raw "
+          f"{k7f_raw:.3e}", flush=True)
+    require(k7f_err <= TOL and k7f_depth <= TOL_DEPTH,
+            "K7f differs from its plain twin beyond tolerance")
+
+    # 12. Renderer.forward on the hash field, end to end
+    renderer = P.Renderer(P.Context.create(device="cuda"), plan)
+    reset_hash_counts(hash_tiles)
+    result = renderer.forward(field)
+    fwd_launches = hash_counts(hash_tiles)
+    print(f"hash Renderer.forward: {result.stats.total_ms:.3f} ms (schedule "
+          f"included), launches {fwd_launches}, notes "
+          f"{result.stats.notes}", flush=True)
+    require(fwd_launches["hash_tiles"] == 1
+            and "hash_tiled_path" in result.stats.notes
+            and "kernel_launches=hash_tiles:1" in result.stats.notes,
+            "the hash Renderer.forward did not launch K7f")
+    for name in ("image", "transmittance", "opacity", "depth"):
+        require(bool(np.isfinite(getattr(result, name)).all()),
+                f"hash {name} not finite")
+    require(float(result.opacity.max()) > 0.0, "hash opacity is 0 "
+            "everywhere")
+    with torch.no_grad():
+        plain = hash_tiled.render_hash_tiled(plan, field,
+                                             renderer._hash_schedule,
+                                             use_kernel=False)
+    e2e_err, e2e_depth, hit_ok = planes_errors(result, plain)
+    print(f"hash forward vs plain path: planes {e2e_err:.3e}, depth "
+          f"{e2e_depth:.3e}, hitmask equal {hit_ok}; opacity max "
+          f"{float(result.opacity.max()):.6f} mean "
+          f"{float(result.opacity.mean()):.6f}", flush=True)
+    require(e2e_err <= TOL and e2e_depth <= TOL_DEPTH and hit_ok,
+            "hash forward differs from the plain path")
+    s_plan, s_field = hash_small_scene(P, dev)
+    s_out = P.Renderer(P.Context.create(device="cuda"), s_plan).forward(
+        s_field)
+    s_ref = P.Renderer(P.Context.create(device="cpu"), s_plan,
+                       P.RenderOptions(use_tiles=True)).forward(
+        hash_small_scene(P)[1])
+    s_err = max(float(np.abs(getattr(s_out, k) - getattr(s_ref, k)).max())
+                for k in ("image", "transmittance", "opacity"))
+    s_depth = float(np.abs(s_out.depth - s_ref.depth).max())
+    print(f"small hash scene, card vs CPU plain: planes {s_err:.3e}, depth "
+          f"{s_depth:.3e}", flush=True)
+    require(s_err <= TOL and s_depth <= TOL_DEPTH
+            and np.array_equal(s_out.hitmask, s_ref.hitmask),
+            "small hash scene on the card differs from the CPU")
+
+    # 13. K7b against its plain twin (tile subset); repeats on the frame
+    gen = torch.Generator(device=dev).manual_seed(7)
+    gs = torch.randn((sched.n_tiles, 5, 16, 16), generator=gen, device=dev)
+    step = sched.n_tiles // HASH_SUBSET
+    sub = torch.arange(0, sched.n_tiles, step, device=dev)[:HASH_SUBSET]
+    sub_args = (sched.samp[sub].contiguous(), sched.rayt[sub].contiguous(),
+                table, sc)
+    b_tab, b_sc = hash_tiles.hash_tile_backward(*sub_args, gs[sub].contiguous(),
+                                                prm)
+    torch.cuda.synchronize()
+    p_tab, p_sc = hash_tiles.hash_tile_backward_plain(
+        *sub_args, gs[sub].contiguous(), prm)
+    k7b_tab_err, k7b_sc_err = rel_err(b_tab, p_tab), rel_err(b_sc, p_sc)
+    k7b_raw = max(float((b_tab - p_tab).abs().max()),
+                  float((b_sc - p_sc).abs().max()))
+    full1 = hash_tiles.hash_tile_backward(*args[:4], gs, prm)
+    full2 = hash_tiles.hash_tile_backward(*args[:4], gs, prm)
+    torch.cuda.synchronize()
+    require(all(bool(torch.isfinite(x).all()) for x in full1),
+            "K7b not finite")
+    require(all(torch.equal(a, b) for a, b in zip(full1, full2)),
+            "K7b differs between two runs")
+    print(f"K7b vs plain on {HASH_SUBSET} tiles: d(table) {k7b_tab_err:.3e} "
+          f"x scale, d(MLP) {k7b_sc_err:.3e} x scale (max |diff| "
+          f"{k7b_raw:.3e}); two full-frame runs equal", flush=True)
+    require(k7b_tab_err <= HASH_GRAD_TOL and k7b_sc_err <= HASH_GRAD_TOL,
+            "K7b differs from its plain twin beyond tolerance")
+
+    # 14. fit_hash_mlp toward a teacher of the same spec
+    f_plan, cams = hash_fit_setup(P)
+    # a denser teacher than the default initialisation (table std 1, not
+    # 1e-2), so the targets are not near-empty images
+    teacher = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                         spec=spec, table_std=1.0,
+                                         device=dev)
+    stack = hash_tiled.build_hash_schedule_stack(
+        fit.view_plans(f_plan, cams), device=dev)
+    with torch.no_grad():
+        targets = hash_tiled.render_hash_tiled_stack(f_plan, teacher, stack)
+    student = P.HashMLPField.init_random(torch.Generator().manual_seed(3),
+                                         spec=spec, device=dev)
+    config = fit.FitConfig(steps=FIT_STEPS, sync_every=FIT_STEPS,
+                           learning_rate=8e-3, target_psnr=None)
+    reset_hash_counts(hash_tiles)
+    res = fit.fit_hash_mlp(f_plan, student, cams, targets, config)
+    fit_launches = hash_counts(hash_tiles)
+    losses = res.loss_history
+    print(f"fit_hash_mlp: {res.steps_run} steps, loss {losses[0]:.6e} -> "
+          f"{losses[-1]:.6e} (psnr {res.psnr_history[0]:.3f} -> "
+          f"{res.psnr_history[-1]:.3f} dB), launches {fit_launches}, "
+          f"schedule {res.schedule_build_s:.3f} s, first step "
+          f"{res.first_step_s:.3f} s, steady {res.steady_step_ms:.4f} "
+          f"ms/step, wall {res.wall_clock_s:.3f} s", flush=True)
+    require(res.steps_run == FIT_STEPS and np.all(np.isfinite(losses)),
+            "fit loss not finite")
+    require(losses[-1] < losses[0], "fit loss does not fall")
+    require(fit_launches["hash_tiles"] == FIT_STEPS
+            and fit_launches["hash_tiles_bwd"] == FIT_STEPS,
+            f"K7f / K7b did not launch once per fit step: {fit_launches}")
+    require(res.steady_step_ms > 0.0, "steady_step_ms is 0")
+
+    # 15. times; peak device memory above what the earlier phases still
+    # hold (the dense scene, both schedules, the teacher's targets)
+    def added_peak_mb(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    base = torch.cuda.memory_allocated()
+    print(f"allocated before the hash timings {base / 2 ** 20:.1f} MiB",
+          flush=True)
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: hash_tiled.render_hash_tiled(
+            plan, field, sched), FRAMES, warmup=3)
+        peak_mb = added_peak_mb(base)
+        plain_fwd_ms = cuda_ms(torch, lambda: hash_tiled.render_hash_tiled(
+            plan, field, sched, use_kernel=False), 1, warmup=1)
+    k7f_ms = cuda_ms(torch, lambda: hash_tiles.hash_tile_forward(*args), 20)
+    k7f_plain_ms = cuda_ms(
+        torch, lambda: hash_tiles.hash_tile_forward_plain(*args), 1,
+        warmup=1)
+    torch.cuda.reset_peak_memory_stats()
+    k7b_ms = cuda_ms(torch, lambda: hash_tiles.hash_tile_backward(
+        *args[:4], gs, prm), 5, warmup=1)
+    bwd_peak_mb = added_peak_mb(base)
+    k7b_plain_ms = cuda_ms(torch, lambda: hash_tiles.hash_tile_backward_plain(
+        *args[:4], gs, prm), 1, warmup=0)
+    k7b_sub_ms = cuda_ms(torch, lambda: hash_tiles.hash_tile_backward(
+        *sub_args, gs[sub].contiguous(), prm), 20)
+    k7b_sub_plain_ms = cuda_ms(
+        torch, lambda: hash_tiles.hash_tile_backward_plain(
+            *sub_args, gs[sub].contiguous(), prm), 1, warmup=1)
+    n_rays = plan.ray_count
+    print(f"hash forward {fwd_ms:.4f} ms/frame = "
+          f"{n_rays / fwd_ms / 1e3:.3f} Mrays/s over {FRAMES} frames (plain "
+          f"path {plain_fwd_ms:.4f} ms); K7f {k7f_ms:.4f} ms (plain "
+          f"{k7f_plain_ms:.4f}); K7b {k7b_ms:.4f} ms (plain "
+          f"{k7b_plain_ms:.4f}), on {HASH_SUBSET} tiles {k7b_sub_ms:.4f} ms "
+          f"(plain {k7b_sub_plain_ms:.4f}); peak device memory added: "
+          f"forward {peak_mb:.1f} MiB, K7b {bwd_peak_mb:.1f} MiB",
+          flush=True)
+
+    trained = student.with_params({k: v.detach().clone()
+                                   for k, v in student.params.items()})
+
+    def fit_step(use_kernel, opt, f):
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = fit.mse(hash_tiled.render_hash_tiled_stack(
+                f_plan, f, stack, use_kernel=use_kernel), targets)
+            loss.backward()
+            opt.step()
+        return step
+
+    opt = torch.optim.Adam(trained.parameters(), lr=8e-3)
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fit_ms = cuda_ms(torch, fit_step(True, opt, trained), 20, warmup=2)
+    fit_peak_mb = added_peak_mb(base)
+    plain_fit_ms = cuda_ms(torch, fit_step(False, opt, trained), 1,
+                           warmup=1)
+    fit_rays = len(cams) * f_plan.ray_count
+    print(f"fit step {fit_ms:.4f} ms/step = {fit_rays / fit_ms / 1e3:.3f} "
+          f"Mrays/s over 20 steps (plain path {plain_fit_ms:.4f} ms/step); "
+          f"peak device memory added {fit_peak_mb:.1f} MiB", flush=True)
+
+    kernels = [
+        {"name": "hash_tiles", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/hash_tiles.cu",
+         "replaces": "dvren_tpu/ops/hash_tiles.py:288",
+         "launches": fwd_launches["hash_tiles"], "max_abs_err": k7f_raw,
+         "ms": k7f_ms, "plain_ms": k7f_plain_ms},
+        {"name": "hash_tiles_bwd", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/hash_tiles_bwd.cu",
+         "replaces": "dvren_tpu/ops/hash_tiles.py:339",
+         "launches": fit_launches["hash_tiles_bwd"], "max_abs_err": k7b_raw,
+         "ms": k7b_ms, "plain_ms": k7b_plain_ms},
+    ]
+    report = {
+        "hash_forward_ms": fwd_ms, "hash_forward_mrays_s":
+            n_rays / fwd_ms / 1e3,
+        "hash_plain_forward_ms": plain_fwd_ms,
+        "hash_schedule_build_s": build_s, "hash_schedule_upload_s": upload_s,
+        "hash_forward_added_peak_mib": peak_mb,
+        "k7b_added_peak_mib": bwd_peak_mb,
+        "k7f_ms": k7f_ms, "k7b_ms": k7b_ms,
+        "k7b_subset_ms": k7b_sub_ms, "k7b_subset_plain_ms": k7b_sub_plain_ms,
+        "k7b_rel_err": [k7b_tab_err, k7b_sc_err],
+        "hash_forward_vs_plain": e2e_err,
+        "fit_step_ms": fit_ms, "fit_plain_step_ms": plain_fit_ms,
+        "fit_mrays_s": fit_rays / fit_ms / 1e3,
+        "fit_added_peak_mib": fit_peak_mb,
+        "fit_losses": [losses[0], losses[-1]],
+        "fit_steady_step_ms": res.steady_step_ms,
+        "fit_first_step_s": res.first_step_s,
+        "fit_schedule_build_s": res.schedule_build_s}
+    return kernels, report
 
 
 def run() -> dict:
@@ -565,8 +896,10 @@ def run() -> dict:
          "launches": train_launches["packed_table_bwd"],
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
     ]
+    hash_kernels, hash_report = run_hash(torch, P, dev)
+    kernels += hash_kernels
     print(json.dumps({"kernels": kernels}), flush=True)
-    print(json.dumps({
+    print(json.dumps({**hash_report,
         "forward_ms": fwd_ms, "forward_mrays_s": n_rays / fwd_ms / 1e3,
         "plain_forward_ms": plain_fwd_ms, "renderer_forward_ms": host_ms,
         "stages_ms": {"packed_table": k3_ms, "bank_gather": gather_ms,

@@ -10,8 +10,11 @@ PyTorch twin that runs on the CPU.
 Ported so far: the dense-grid tiled render through
 :meth:`Renderer.forward`, and its gradients in the grid and the camera
 through :meth:`Renderer.backward` and autograd of
-:func:`dvren_tpu_torch.render.tiled.render_tiled` (see ROADMAP.md for
-what follows).
+:func:`dvren_tpu_torch.render.tiled.render_tiled`; the hash-MLP field's
+fused render through :meth:`Renderer.forward` and autograd of
+:func:`dvren_tpu_torch.render.hash_tiled.render_hash_tiled`, and its fit
+:func:`dvren_tpu_torch.opt.fit.fit_hash_mlp` (see ROADMAP.md for what
+follows).
 """
 
 from dvren_tpu_torch.version import __version__
@@ -30,6 +33,8 @@ from dvren_tpu_torch.core.plan import (
     SamplingMode,
 )
 from dvren_tpu_torch.fields.dense_grid import DenseGridConfig, DenseGridField
+from dvren_tpu_torch.fields.hash_mlp import HashMLPConfig, HashMLPField
+from dvren_tpu_torch.ops.hashmlp import HashMLPSpec
 from dvren_tpu_torch.render.renderer import (
     BackwardResult,
     ForwardResult,
@@ -56,6 +61,9 @@ __all__ = [
     "SamplingMode",
     "DenseGridConfig",
     "DenseGridField",
+    "HashMLPConfig",
+    "HashMLPField",
+    "HashMLPSpec",
     "Renderer",
     "RenderOptions",
     "RenderStats",

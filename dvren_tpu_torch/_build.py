@@ -56,6 +56,15 @@ _SIGNATURES = {
                            _F, _F, _F,
                            _P], _I),
     "dvt_packed_table_grad": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "dvt_hash_forward": ([_P, _P, _P, _P, _P,
+                          _I, _I, _I, _I, _I, _I, _I,
+                          _F, _F, _F, _F, _F,
+                          _P, _P], _I),
+    "dvt_hash_backward": ([_P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I, _I, _I,
+                           _F, _F, _F, _F, _F,
+                           _P, _P], _I),
+    "dvt_hash_backward_smem": ([_I, _I, _I, _I], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 

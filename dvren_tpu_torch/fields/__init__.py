@@ -1,3 +1,5 @@
 from dvren_tpu_torch.fields.dense_grid import DenseGridConfig, DenseGridField
+from dvren_tpu_torch.fields.hash_mlp import HashMLPConfig, HashMLPField
 
-__all__ = ["DenseGridConfig", "DenseGridField"]
+__all__ = ["DenseGridConfig", "DenseGridField", "HashMLPConfig",
+           "HashMLPField"]

@@ -1,3 +1,5 @@
-from dvren_tpu_torch.opt.fit import mse, psnr
+from dvren_tpu_torch.opt.fit import (FitConfig, FitResult, fit_hash_mlp,
+                                    mse, psnr, view_plans)
 
-__all__ = ["mse", "psnr"]
+__all__ = ["FitConfig", "FitResult", "fit_hash_mlp", "mse", "psnr",
+           "view_plans"]

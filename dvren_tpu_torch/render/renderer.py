@@ -1,17 +1,21 @@
 """Renderer: the plan-bound entry point of the port.
 
-Counterpart of ``dvren_tpu/render/renderer.py`` on the tiled path:
-:meth:`Renderer.forward` builds the tile schedule once per (field bbox,
-grid shape, pitch) key, keeps it on the context's device, and replays it
-every frame (K3 table build, bank gather, one K1 launch per tile group,
-tile compose). :meth:`Renderer.backward` differentiates that replay for
-``sum(image * dl_image)`` in (sigma, color), ``c2w`` and ``k`` (K2 per
-group, the gather-plan reduction, K4).
+Counterpart of ``dvren_tpu/render/renderer.py`` on its two tiled paths.
+On a dense grid, :meth:`Renderer.forward` builds the tile schedule once
+per (field bbox, grid shape, pitch) key, keeps it on the context's
+device, and replays it every frame (K3 table build, bank gather, one K1
+launch per tile group, tile compose); :meth:`Renderer.backward`
+differentiates that replay for ``sum(image * dl_image)`` in (sigma,
+color), ``c2w`` and ``k`` (K2 per group, the gather-plan reduction, K4).
+On a hash-MLP field, the forward builds the frame's hash schedule once
+per plan and renders it with one K7f launch (the backward refuses: hash
+fields train through autograd of ``render_hash_tiled`` or
+``opt.fit.fit_hash_mlp``).
 
 Every other mode of the JAX Renderer raises ``NotImplementedError``
-naming its ROADMAP item: override rays, the hash-MLP, windowed, streamed,
-fused and staged paths, and graph capture. Unlike the JAX package, which
-picks tiles by default only on a TPU, ``use_tiles=None`` picks them on a
+naming its ROADMAP item: override rays, windowed, streamed, fused and
+staged paths, and graph capture. Unlike the JAX package, which picks the
+tiled paths by default only on a TPU, ``use_tiles=None`` picks them on a
 CUDA context.
 """
 
@@ -28,8 +32,9 @@ from dvren_tpu_torch.core.context import Context
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import DvrenError, check
 from dvren_tpu_torch.fields.dense_grid import DenseGridField
-from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+from dvren_tpu_torch.ops import fused_tiles, hash_tiles, packed_transpose
 from dvren_tpu_torch.ops.raygen import camera_arrays
+from dvren_tpu_torch.render import hash_tiled as hash_mod
 from dvren_tpu_torch.render import tiled as tiled_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
@@ -93,8 +98,15 @@ class BackwardResult:
     sample_count: int = 0
 
 
-def _launch_counts() -> tuple[int, int]:
-    return fused_tiles.tile_forward.launches, packed_transpose.build_rows.launches
+def _launch_counts() -> tuple[int, int, int]:
+    return (fused_tiles.tile_forward.launches,
+            packed_transpose.build_rows.launches,
+            hash_tiles.hash_tile_forward.launches)
+
+
+def _field_device(field) -> torch.device:
+    """The device of a dense grid's or a hash field's parameters."""
+    return field.device if hasattr(field, "spec") else field.sigma.device
 
 
 class Renderer:
@@ -108,6 +120,7 @@ class Renderer:
         self._jitter_host = plan_jitter_table(plan)
         self._tiled_schedule = None
         self._tiled_key = None
+        self._hash_schedule = None    # frame layout only: once per plan
         self._last_mode = None        # the mode of the last forward
         self._last_ray_count = 0
 
@@ -133,11 +146,16 @@ class Renderer:
         if rays is not None:
             raise NotImplementedError(
                 "override ray bundles are ROADMAP Queue 1 item 11")
-        check(field.sigma.device == self._ctx.device,
-              f"field is on {field.sigma.device}, the context on "
-              f"{self._ctx.device}: move it with field.to(device)")
-        if not self._use_tiles(field):
+        if self._use_hash_tiles(field):
+            mode, render = "hash_tiled", self._forward_hash_tiled
+        elif self._use_tiles(field):
+            mode, render = "tiled", self._forward_tiled
+        else:
             raise NotImplementedError(self._untiled_mode())
+        device = _field_device(field)
+        check(device == self._ctx.device,
+              f"field is on {device}, the context on {self._ctx.device}: "
+              f"move it with field.to(device)")
         if self._options.enable_graph:
             raise NotImplementedError(
                 "CUDA graph capture is ROADMAP Queue 1 item 9")
@@ -145,12 +163,14 @@ class Renderer:
         t0 = time.perf_counter()
         launches0 = _launch_counts()
         with torch.no_grad():
-            planes = self._forward_tiled(field, stats)
+            planes = render(field, stats)
         if self._ctx.device.type == "cuda":
             torch.cuda.synchronize(self._ctx.device)
         stats.total_ms = (time.perf_counter() - t0) * 1e3
-        k1, k3 = (b - a for a, b in zip(launches0, _launch_counts()))
-        stats.notes.append(f"kernel_launches=fused_tiles:{k1},"
+        k1, k3, k7 = (b - a for a, b in zip(launches0, _launch_counts()))
+        stats.notes.append(f"kernel_launches=hash_tiles:{k7}"
+                           if mode == "hash_tiled" else
+                           f"kernel_launches=fused_tiles:{k1},"
                            f"packed_table:{k3}")
         sample_count = self._analytic_sample_count()
         check(sample_count <= self._plan.max_samples,
@@ -172,7 +192,7 @@ class Renderer:
         result.ray_count = self._plan.ray_count
         result.sample_count = sample_count
         result.stats = stats
-        self._last_mode = "tiled"
+        self._last_mode = mode
         self._last_ray_count = self._plan.ray_count
         return result
 
@@ -192,7 +212,9 @@ class Renderer:
         if not (hasattr(field, "sigma") and hasattr(field, "color")):
             raise DvrenError.unsupported(
                 "Renderer.backward targets dense voxel grids (the reference "
-                "hp_diff contract)")
+                "hp_diff contract); train other field families through "
+                "autograd (hash-MLP: render_hash_tiled / "
+                "opt.fit.fit_hash_mlp ride the fused kernel)")
         if self._last_mode != "tiled" or self._tiled_schedule is None:
             raise NotImplementedError(
                 f"the {self._last_mode} backward is ROADMAP Queue 1 item 11")
@@ -266,6 +288,39 @@ class Renderer:
                 and getattr(field, "interp", None) == InterpMode.LINEAR
                 and min(int(v) for v in sigma.shape) >= 2)
 
+    def _hash_eligible(self, field) -> bool:
+        """Hash-MLP fields ride the slot-free fused kernel
+        (ops/hash_tiles.py) when the spec fits it."""
+        params = getattr(field, "params", None)
+        return (params is not None and hasattr(params, "keys")
+                and "hash_table" in params.keys() and hasattr(field, "spec")
+                and hash_tiles.fast_path_ok(field.spec))
+
+    def _use_hash_tiles(self, field) -> bool:
+        opt = self._options.use_tiles
+        if opt is False or not self._hash_eligible(field):
+            return False
+        if opt is True:
+            return True
+        return (self._ctx.device.type == "cuda"
+                and not self._options.use_window)
+
+    def _forward_hash_tiled(self, field, stats: RenderStats):
+        """The fused hash-MLP path (render/hash_tiled.py). The schedule
+        is pure frame layout (no field capture): built once per plan."""
+        if self._hash_schedule is None:
+            t0 = time.perf_counter()
+            self._hash_schedule = hash_mod.build_hash_schedule(
+                self._plan, jitter=self._jitter_host,
+                device=self._ctx.device)
+            stats.notes.append(
+                f"hash_schedule_build_ms="
+                f"{(time.perf_counter() - t0) * 1e3:.3f}")
+        planes = hash_mod.render_hash_tiled(self._plan, field,
+                                            self._hash_schedule)
+        stats.notes.append("hash_tiled_path")
+        return planes
+
     def _use_tiles(self, field) -> bool:
         opt = self._options.use_tiles
         if opt is False:
@@ -294,9 +349,9 @@ class Renderer:
         else:
             mode = "the staged path"
         return (f"this forward would take {mode}, which is ROADMAP Queue 1 "
-                f"item 11; only the tiled path is ported (it is the default "
-                f"on CUDA, or pass RenderOptions(use_tiles=True) with a "
-                f"dense OOB_ZERO trilinear grid)")
+                f"item 11; only the tiled paths are ported (the default on "
+                f"CUDA, or pass RenderOptions(use_tiles=True) with a dense "
+                f"OOB_ZERO trilinear grid or a hash-MLP field)")
 
     def _tiled_schedule_key(self, field) -> tuple:
         return (tuple(float(v) for v in field.bbox_min),

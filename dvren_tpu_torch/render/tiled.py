@@ -640,11 +640,13 @@ class _PlaceTiles(torch.autograd.Function):
         dst = torch.where((ids >= 0) & (ids < n_tiles), ids,
                           torch.full_like(ids, n_tiles))
         n = raw.shape[0]
-        # src[tile] = the raw tile placed there, or the zero row n
+        # src[tile] = the raw tile placed there, or the zero row n; the
+        # dropped tiles land in src[n_tiles], which is never read (storing
+        # a Python scalar there would be a host copy that waits for the
+        # stream)
         src = torch.full((n_tiles + 1,), n, dtype=torch.long,
                          device=raw.device)
         src[dst] = torch.arange(n, device=raw.device)
-        src[n_tiles] = n
         ctx.save_for_backward(dst)
         padded = torch.cat([raw, raw.new_zeros((1,) + raw.shape[1:])])
         return torch.index_select(padded, 0, src[:n_tiles])

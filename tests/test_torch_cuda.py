@@ -11,7 +11,10 @@ files; here the kernels are held to the twins: K3 and K4 bit for bit, K1
 and the whole forward within 5e-6 (depth 1e-4), K2 within 2e-6 x scale
 on d(table) and 1e-5 x scale on d(rayt), the backward on the card within
 2e-6 x scale of the CPU's (camera rtol 2e-3 / atol 1e-4), and every
-kernel's repeat runs bit for bit.
+kernel's repeat runs bit for bit. The hash-MLP kernels: K7f and the hash
+Renderer.forward within 5e-6 (depth 1e-4), K7b within 2e-5 x scale (the
+JAX package's bound for its own kernel, tests/test_hash_tiled.py:114),
+fit_hash_mlp's losses on the card within 1e-5 relative of the CPU's.
 """
 
 import numpy as np
@@ -20,8 +23,9 @@ import torch
 
 import dvren_tpu_torch as P
 from dvren_tpu_torch import _build
-from dvren_tpu_torch.ops import fused_tiles, packed_transpose
-from dvren_tpu_torch.render import tiled
+from dvren_tpu_torch.ops import fused_tiles, hash_tiles, packed_transpose
+from dvren_tpu_torch.opt import fit
+from dvren_tpu_torch.render import hash_tiled, tiled
 
 pytestmark = pytest.mark.cuda
 
@@ -72,7 +76,8 @@ def test_library_builds_once(cuda_device):
     assert _build.library() is lib
     report = _build.ptxas_report()
     for kernel in ("tile_forward_kernel", "packed_table_kernel",
-                   "tile_backward_kernel", "packed_table_grad_kernel"):
+                   "tile_backward_kernel", "packed_table_grad_kernel",
+                   "hash_forward_kernel", "hash_backward_kernel"):
         assert kernel in report
 
 
@@ -247,3 +252,129 @@ def test_backward_on_the_card_matches_cpu(cuda_device, name):
     again = card.backward(field, dl)
     for key in ("sigma", "color", "camera", "camera_k"):
         np.testing.assert_array_equal(getattr(again, key), getattr(got, key))
+
+
+# ------------------------------------------------------------ hash-MLP (K7)
+
+HASH_GRAD_TOL = 2e-5    # x max |twin|
+HASH_SCENES = ("fixed", "stratified", "roi", "l8", "zeros", "opaque")
+
+
+def hash_scene(name, device=None):
+    """tests/test_hash_tiled.py's plans (24x20, 24 steps; the ROI case
+    40x24) and a field from a seeded blob: "l8" is the L=8 / T=128 spec,
+    "zeros" the all-zero blob, "opaque" stops its rays early."""
+    spec = (P.HashMLPSpec(n_levels=8, table_size=128, base_resolution=2.0,
+                          finest_resolution=48.0)
+            if name == "l8" else P.HashMLPSpec())
+    width, height, roi = 24, 20, P.Roi()
+    if name == "roi":
+        width, height, roi = 40, 24, P.Roi(x=3, y=2, width=21, height=17)
+    mode = (P.SamplingMode.FIXED if name in ("fixed", "roi")
+            else P.SamplingMode.STRATIFIED)
+    plan = P.Plan.create(P.PlanConfig(
+        width=width, height=height, t_near=0.2, t_far=1.8, seed=11, roi=roi,
+        sampling=P.SamplingConfig(dt=0.05, max_steps=24, mode=mode)))
+    flat = np.random.default_rng(5).uniform(
+        -0.5, 0.5, spec.param_count).astype(np.float32)
+    if name == "zeros":
+        flat = None
+    elif name == "opaque":
+        flat[spec.hash_table_size + spec.sigma_weights_size
+             + spec.hidden_dim] = 60.0          # sigma_b2
+    field = P.HashMLPField.create(P.HashMLPConfig(spec=spec, params=flat),
+                                  device=device)
+    return plan, field
+
+
+def _hash_args(name, device):
+    plan, field = hash_scene(name, device)
+    sched = hash_tiled.build_hash_schedule(plan, device=device)
+    prm = hash_tiles.hash_tile_params(plan, field.spec, sched.n_chunks)
+    sc = hash_tiles.pack_mlp_scalars(dict(field.params), field.spec).detach()
+    return plan, (sched.samp, sched.rayt,
+                  field.params["hash_table"].detach().contiguous(), sc, prm)
+
+
+@pytest.mark.parametrize("name", HASH_SCENES)
+def test_hash_forward_matches_plain(cuda_device, name):
+    plan, args = _hash_args(name, cuda_device)
+    before = hash_tiles.hash_tile_forward.launches
+    out = hash_tiles.hash_tile_forward(*args)
+    torch.cuda.synchronize()
+    assert hash_tiles.hash_tile_forward.launches == before + 1
+    plain = hash_tiles.hash_tile_forward_plain(*args)
+    assert bool(torch.isfinite(out).all())
+    (r, g, b), t, o, d = fused_tiles.finalize_heads(plan, out)
+    (r2, g2, b2), t2, o2, d2 = fused_tiles.finalize_heads(plan, plain)
+    for x, y in ((r, r2), (g, g2), (b, b2), (t, t2), (o, o2)):
+        assert float((x - y).abs().max()) <= TOL
+    assert float((d - d2).abs().max()) <= TOL_DEPTH
+
+
+@pytest.mark.parametrize("name", HASH_SCENES)
+def test_hash_backward_matches_plain(cuda_device, name):
+    _, args = _hash_args(name, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    gs = torch.randn((args[0].shape[0], 5, 16, 16), generator=gen,
+                     device=cuda_device)
+    before = hash_tiles.hash_tile_backward.launches
+    d_tab, d_sc = hash_tiles.hash_tile_backward(*args[:4], gs, args[4])
+    torch.cuda.synchronize()
+    assert hash_tiles.hash_tile_backward.launches == before + 1
+    p_tab, p_sc = hash_tiles.hash_tile_backward_plain(*args[:4], gs, args[4])
+    for got, want in ((d_tab, p_tab), (d_sc, p_sc)):
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, HASH_GRAD_TOL)
+    again = hash_tiles.hash_tile_backward(*args[:4], gs, args[4])
+    assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_sc)
+
+
+def test_hash_kernels_reject_strided_input(cuda_device):
+    _, (samp, rayt, table, sc, prm) = _hash_args("fixed", cuda_device)
+    strided = torch.empty((samp.shape[0] * 2,) + samp.shape[1:],
+                          device=cuda_device)[::2]
+    strided.copy_(samp)
+    with pytest.raises(ValueError):
+        hash_tiles.hash_tile_forward(strided, rayt, table, sc, prm)
+    gs = torch.zeros((samp.shape[0] * 2, 5, 16, 16), device=cuda_device)[::2]
+    with pytest.raises(ValueError):
+        hash_tiles.hash_tile_backward(samp, rayt, table, sc, gs, prm)
+
+
+@pytest.mark.parametrize("name", ["stratified", "roi", "l8"])
+def test_hash_forward_on_the_card_matches_cpu(cuda_device, name):
+    plan, field = hash_scene(name, cuda_device)
+    before = hash_tiles.hash_tile_forward.launches
+    got = P.Renderer(P.Context.create(device="cuda"), plan).forward(field)
+    assert hash_tiles.hash_tile_forward.launches == before + 1
+    assert "hash_tiled_path" in got.stats.notes
+    ref = P.Renderer(P.Context.create(device="cpu"), plan,
+                     P.RenderOptions(use_tiles=True)).forward(
+        hash_scene(name)[1])
+    for key in ("image", "transmittance", "opacity"):
+        np.testing.assert_allclose(getattr(got, key), getattr(ref, key),
+                                   atol=TOL)
+    np.testing.assert_allclose(got.depth, ref.depth, atol=TOL_DEPTH)
+    np.testing.assert_array_equal(got.hitmask, ref.hitmask)
+
+
+def test_fit_hash_mlp_on_the_card_matches_cpu(cuda_device):
+    plan, field = hash_scene("stratified")
+    cams = [P.CameraConfig(k=plan.camera.k, c2w=c2w) for c2w in (
+        (1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0),
+        (0, 0, -1, 2.0, 0, 1, 0, 0.5, 1, 0, 0, 0.5))]
+    tgt = np.random.default_rng(2).uniform(
+        0, 1, (2, plan.height, plan.width, 3)).astype(np.float32)
+    config = fit.FitConfig(learning_rate=8e-3, steps=3, sync_every=2,
+                           target_psnr=None)
+    launches = (hash_tiles.hash_tile_forward.launches,
+                hash_tiles.hash_tile_backward.launches)
+    got = fit.fit_hash_mlp(plan, field.to(cuda_device), cams, tgt, config)
+    assert hash_tiles.hash_tile_forward.launches == launches[0] + 3
+    assert hash_tiles.hash_tile_backward.launches == launches[1] + 3
+    want = fit.fit_hash_mlp(plan, hash_scene("stratified")[1], cams, tgt,
+                            config)
+    np.testing.assert_allclose(got.loss_history, want.loss_history,
+                               rtol=1e-5)
+    assert got.steady_step_ms > 0.0
