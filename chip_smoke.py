@@ -58,7 +58,11 @@ fatal when it fails:
 14. ``fit_hash_mlp`` for 25 Adam steps (``sync_every=25``) toward a
     teacher field of the same spec rendered by the port from the same
     cameras: the loss is finite and falls, K7f and K7b launch in every
-    step, ``steady_step_ms`` > 0;
+    step, ``steady_step_ms`` > 0; then K7f and K7b against their twins at
+    the fit's shapes (its four-view stack schedule, a seeded random
+    cotangent), for the fitted student and for the teacher made opaque
+    (sigma_b2 + 5), on which some rays must stop early: K7f within 5e-6
+    after ``finalize_heads`` (depth 1e-4), K7b within 2e-5 x scale;
 15. times with CUDA events after warm-up, each beside its plain twin's:
     the hash forward per frame and Mrays/s (schedule excluded), K7f, K7b,
     the fit step (forward, backward, Adam), and the peak device memory
@@ -72,6 +76,7 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import subprocess
 import sys
@@ -86,6 +91,7 @@ GRID_TOL = 2e-6     # gradients and d(table), x max |reference|
 HASH_GRAD_TOL = 2e-5  # K7b, x max |reference| (tests/test_hash_tiled.py)
 HASH_SUBSET = 64    # headline tiles the K7b twin is compared on
 FIT_STEPS = 25
+OPAQUE_BIAS = 5.0   # added to the teacher's sigma_b2: rays stop early
 RAYT_TOL = 1e-5     # d(rayt), x max |reference|
 CAM_RTOL, CAM_ATOL = 2e-3, 1e-4   # camera gradients
 FRAMES = 30         # timed forward frames
@@ -427,6 +433,52 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
             f"K7f / K7b did not launch once per fit step: {fit_launches}")
     require(res.steady_step_ms > 0.0, "steady_step_ms is 0")
 
+    # K7f and K7b against their twins at the fit's shapes, for the fitted
+    # student and an opaque teacher. A ray stopped early when its optical
+    # depth with the stop threshold is below the one without it.
+    f_prm = hash_tiles.hash_tile_params(f_plan, spec, stack.n_chunks)
+    f_gs = torch.randn((stack.samp.shape[0], 5, 16, 16), generator=gen,
+                       device=dev)
+    opaque = {k: v.detach().clone() for k, v in teacher.params.items()}
+    opaque["sigma_b2"] += OPAQUE_BIAS
+    fit_cmp = {}
+    with torch.no_grad():
+        for name, prms in (("student", res.field.params),
+                           ("opaque teacher", opaque)):
+            f_args = (stack.samp, stack.rayt,
+                      prms["hash_table"].detach().contiguous(),
+                      hash_tiles.pack_mlp_scalars(prms, spec))
+            o_k = hash_tiles.hash_tile_forward(*f_args, f_prm)
+            g_k = hash_tiles.hash_tile_backward(*f_args, f_gs, f_prm)
+            torch.cuda.synchronize()
+            o_p = hash_tiles.hash_tile_forward_plain(*f_args, f_prm)
+            g_p = hash_tiles.hash_tile_backward_plain(*f_args, f_gs, f_prm)
+            no_stop = hash_tiles.hash_tile_forward_plain(
+                *f_args, dataclasses.replace(f_prm, stop=0.0))
+            early = int((o_p[:, 4] < no_stop[:, 4]).sum())
+            err, depth = head_errors(torch, fused_tiles, f_plan, o_k, o_p)
+            cmp = {"heads": err, "depth": depth,
+                   "f_raw": float((o_k - o_p).abs().max()),
+                   "table": rel_err(g_k[0], g_p[0]),
+                   "mlp": rel_err(g_k[1], g_p[1]),
+                   "b_raw": max(float((g_k[0] - g_p[0]).abs().max()),
+                                float((g_k[1] - g_p[1]).abs().max())),
+                   "early": early}
+            fit_cmp[name] = cmp
+            print(f"fit shapes, {name}: K7f vs plain heads {err:.3e}, depth "
+                  f"{depth:.3e}, raw {cmp['f_raw']:.3e}; K7b vs plain "
+                  f"d(table) {cmp['table']:.3e} x scale, d(MLP) "
+                  f"{cmp['mlp']:.3e} x scale (max |diff| {cmp['b_raw']:.3e}); "
+                  f"{early} of {f_plan.ray_count * len(cams)} rays stop early",
+                  flush=True)
+            require(err <= TOL and depth <= TOL_DEPTH,
+                    f"K7f differs from its twin at the fit's shapes ({name})")
+            require(cmp["table"] <= HASH_GRAD_TOL
+                    and cmp["mlp"] <= HASH_GRAD_TOL,
+                    f"K7b differs from its twin at the fit's shapes ({name})")
+    require(fit_cmp["opaque teacher"]["early"] > 0,
+            "no ray of the opaque teacher stops early")
+
     # 15. times; peak device memory above what the earlier phases still
     # hold (the dense scene, both schedules, the teacher's targets)
     def added_peak_mb(base):
@@ -495,12 +547,16 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
         {"name": "hash_tiles", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_tiles.cu",
          "replaces": "dvren_tpu/ops/hash_tiles.py:288",
-         "launches": fwd_launches["hash_tiles"], "max_abs_err": k7f_raw,
+         "launches": fwd_launches["hash_tiles"],
+         "max_abs_err": max([k7f_raw] + [c["f_raw"]
+                                         for c in fit_cmp.values()]),
          "ms": k7f_ms, "plain_ms": k7f_plain_ms},
         {"name": "hash_tiles_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_tiles_bwd.cu",
          "replaces": "dvren_tpu/ops/hash_tiles.py:339",
-         "launches": fit_launches["hash_tiles_bwd"], "max_abs_err": k7b_raw,
+         "launches": fit_launches["hash_tiles_bwd"],
+         "max_abs_err": max([k7b_raw] + [c["b_raw"]
+                                         for c in fit_cmp.values()]),
          "ms": k7b_ms, "plain_ms": k7b_plain_ms},
     ]
     report = {
@@ -513,6 +569,7 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
         "k7f_ms": k7f_ms, "k7b_ms": k7b_ms,
         "k7b_subset_ms": k7b_sub_ms, "k7b_subset_plain_ms": k7b_sub_plain_ms,
         "k7b_rel_err": [k7b_tab_err, k7b_sc_err],
+        "fit_shape_compares": fit_cmp,
         "hash_forward_vs_plain": e2e_err,
         "fit_step_ms": fit_ms, "fit_plain_step_ms": plain_fit_ms,
         "fit_mrays_s": fit_rays / fit_ms / 1e3,

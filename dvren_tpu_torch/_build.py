@@ -64,7 +64,6 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F,
                            _P, _P], _I),
-    "dvt_hash_backward_smem": ([_I, _I, _I, _I], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 

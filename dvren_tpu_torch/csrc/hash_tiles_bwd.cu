@@ -41,7 +41,7 @@
 //   one after another. At the end the block adds its 8 copies in warp
 //   order.
 //
-// Bound on the H100: latency. One block per SM (about 131 KB of shared
+// Bound on the H100: latency. One block per SM (about 127 KB of shared
 // memory at L=8, T=128, F=2, hidden 8) leaves 8 warps to hide the
 // shuffles of the scatter and the owners' shared-memory reads. A first
 // version in which the lowest lane of each (level, corner, entry) group
@@ -78,14 +78,13 @@ __host__ __device__ inline StageDims stage_dims(int n_levels, int n_feat,
 }
 
 // Shared-memory floats: table, MLP scalars, 8 warp copies of d(table),
-// left and right stage rows, per-ray d(encoding) of one level.
-__host__ __device__ inline int smem_floats(int n_levels, int n_feat,
-                                           int t_size, int hidden) {
+// left and right stage rows. Nine copies of the table bound the specs K7b
+// takes: at T=128 and hidden 8, L*F <= 33 fits the H100's 227 KB.
+inline int smem_floats(int n_levels, int n_feat, int t_size, int hidden) {
   const StageDims s = stage_dims(n_levels, n_feat, t_size, hidden);
   const int enc = n_levels * n_feat;
   const int n_sc = 2 * hidden * enc + 6 * hidden + 4;
-  return s.ltf * (1 + kWarps) + n_sc + kRays * (s.ls + s.rs)
-         + kRays * n_feat;
+  return s.ltf * (1 + kWarps) + n_sc + kRays * (s.ls + s.rs);
 }
 
 // Warp sum of eight per-lane values: returns, in every lane, the sum of
@@ -164,7 +163,6 @@ hash_backward_kernel(const float* __restrict__ samp,
   float* acc_tab = sc + k.n_sc;                    // (8, L*T*F)
   float* stage_l = acc_tab + kWarps * sd.ltf;      // (256, ls)
   float* stage_r = stage_l + kRays * sd.ls;        // (256, rs)
-  float* dbuf = stage_r + kRays * sd.rs;           // (256, F)
 
   block_copy(tab, table, sd.ltf);
   block_copy(sc, scg, k.n_sc);
@@ -300,7 +298,7 @@ hash_backward_kernel(const float* __restrict__ samp,
     // d(table): per level, d(encoding), then the cell groups' sums
     const unsigned act = __ballot_sync(kFull, active);
     for (int l = 0; l < k.n_levels; ++l) {
-      float w[8];
+      float w[8], denc[kMaxLevels];
       int ic[3] = {0, 0, 0};
       if (active) {
         level_cell(p, k.res[l], w, ic);
@@ -314,7 +312,7 @@ hash_backward_kernel(const float* __restrict__ samp,
                                  mul(dc1[j], sc[lay.cw1 + j * k.enc + i])));
             }
           }
-          dbuf[ray * n_f + f] = acc;
+          denc[f] = acc;
         }
       }
       float* acc_l = acc_tab + warp * sd.ltf + l * k.t_size * n_f;
@@ -343,7 +341,7 @@ hash_backward_kernel(const float* __restrict__ samp,
         }
         const int key = corner_entry(cell, c_own, k.t_size);
         for (int f = 0; f < n_f; ++f) {
-          const float dv = member ? dbuf[ray * n_f + f] : 0.f;
+          const float dv = member ? denc[f] : 0.f;
           float v[8];
 #pragma unroll
           for (int c = 0; c < 8; ++c) v[c] = member ? mul(w[c], dv) : 0.f;
@@ -398,11 +396,6 @@ hash_backward_kernel(const float* __restrict__ samp,
 
 }  // namespace
 
-extern "C" int dvt_hash_backward_smem(int n_levels, int n_feat, int t_size,
-                                      int hidden) {
-  return smem_floats(n_levels, n_feat, t_size, hidden) * 4;
-}
-
 extern "C" int dvt_hash_backward(
     const float* samp, const float* rayt, const float* table,
     const float* sc, const float* gs, float* part_tab, float* part_mlp,
@@ -421,7 +414,10 @@ extern "C" int dvt_hash_backward(
   const cudaError_t err = cudaFuncSetAttribute(
       hash_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
-  if (err != cudaSuccess) return (int)err;
+  if (err != cudaSuccess) {   // the spec's table copies do not fit
+    cudaGetLastError();       // clear it: the next launch is unaffected
+    return (int)err;
+  }
   if (n_tiles > 0) {
     hash_backward_kernel<<<n_tiles, kRays, smem, (cudaStream_t)stream>>>(
         samp, rayt, table, sc, gs, part_tab, part_mlp, s_pre, k);

@@ -45,7 +45,6 @@ from dvren_tpu_torch.ops.integrate import STOP_THRESHOLD
 # the params-dict keys in the packed scalar order, after the table
 MLP_KEYS = ("sigma_w1", "sigma_b1", "sigma_w2", "sigma_b2",
             "color_w1", "color_b1", "color_w2", "color_b2")
-_SMEM_LIMIT = 232448     # shared memory one block may use on the H100
 
 
 def fast_path_ok(spec: HashMLPSpec) -> bool:
@@ -283,8 +282,13 @@ def hash_tile_backward_plain(samp, rayt, table, sc, gs,
     each end of the colour clamp; torch's relu and clamp backward give
     other values there). The MLP gradients are matrix products over the
     chunk's samples; the table gradient is ``index_add_`` per level and
-    corner. Per-sample values follow the kernel's order of arithmetic;
-    the sums over samples run in another order."""
+    corner into a float64 accumulator (in float32 the card's
+    ``index_add_``, a chain of atomics in no fixed order over the frame's
+    millions of terms, rounds more than K7b's per-warp sums: 1.5e-5 x
+    scale against 3.9e-7 on an H100, at the fit of
+    ``tools/hashmlp_bench.py``).
+    Per-sample values follow the kernel's order of arithmetic; the sums
+    over samples run in another order."""
     spec = prm.spec
     steps = _Steps(samp, rayt, prm)
     mlp = _mlp_from_scalars(sc, spec)
@@ -309,8 +313,8 @@ def hash_tile_backward_plain(samp, rayt, table, sc, gs,
         s_pre.append(torch.stack(pre, dim=-1))                # (T, 256, 8)
 
     # pass 2: the reverse adjoint
-    d_table = torch.zeros_like(table).reshape(spec.n_levels,
-                                              t_size * n_f)
+    d_table = torch.zeros((spec.n_levels, t_size * n_f),
+                          dtype=torch.float64, device=dev)
     d_mlp = {k: torch.zeros_like(v) for k, v in mlp.items()}
     carry = zeros
     for c in reversed(range(steps.nc)):
@@ -391,15 +395,10 @@ def hash_tile_backward_plain(samp, rayt, table, sc, gs,
                                           t_size).reshape(-1)
                         for f in range(n_f):
                             d_table[level].index_add_(
-                                0, idx * n_f + f, wc * denc[f])
+                                0, idx * n_f + f,
+                                (wc * denc[f]).to(torch.float64))
     d_sc = torch.cat([d_mlp[k].reshape(-1) for k in MLP_KEYS])
-    return d_table.reshape(table.shape), d_sc
-
-
-def _bwd_smem_bytes(spec: HashMLPSpec) -> int:
-    return int(_build.library().dvt_hash_backward_smem(
-        spec.n_levels, spec.features_per_level, spec.table_size,
-        spec.hidden_dim))
+    return d_table.to(torch.float32).reshape(table.shape), d_sc
 
 
 def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
@@ -409,20 +408,18 @@ def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
     Launches ``csrc/hash_tiles_bwd.cu``, which writes per-tile partials,
     and sums them over the tiles (``torch.sum``: a fixed order, so repeat
     runs are bit-identical) for CUDA tensors; runs
-    :func:`hash_tile_backward_plain` for CPU tensors."""
+    :func:`hash_tile_backward_plain` for CPU tensors.
+
+    The kernel keeps nine copies of the (L, T, F) table in shared memory
+    (the table and one d(table) copy per warp), so on the H100 it takes
+    specs up to L*F = 33 at T=128 and hidden 8, where
+    :func:`fast_path_ok` allows 64; a larger spec fails at launch."""
     t_cnt = int(samp.shape[0])
     _check_inputs(samp, rayt, table, sc, prm,
                   extra=(("gs", gs, (t_cnt, 5, ROWS, RAYS_COLS)),))
     if samp.device.type == "cpu":
         return hash_tile_backward_plain(samp, rayt, table, sc, gs, prm)
     spec = prm.spec
-    smem = _bwd_smem_bytes(spec)
-    if smem > _SMEM_LIMIT:
-        raise NotImplementedError(
-            f"K7b needs {smem} bytes of shared memory for this spec (at "
-            f"most {_SMEM_LIMIT}): tables of L*T*F = "
-            f"{spec.hash_table_size} take the NGP-scale grid path "
-            f"(ROADMAP Queue 1 item 14)")
     dev = samp.device
     n_sc = int(sc.shape[0])
     part_tab = torch.empty((t_cnt, spec.hash_table_size),
@@ -438,7 +435,8 @@ def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
             sc.data_ptr(), gs.data_ptr(), part_tab.data_ptr(),
             part_mlp.data_ptr(), s_pre.data_ptr(), t_cnt, *consts,
             ctypes.cast(res, ctypes.c_void_p), _build.stream_ptr(dev))
-    _build.check(code, "dvt_hash_backward")
+    _build.check(code, "dvt_hash_backward (nine copies of the L*T*F table "
+                       "in shared memory)")
     hash_tile_backward.launches += 1
     return (part_tab.sum(dim=0).reshape(table.shape),
             part_mlp.sum(dim=0))

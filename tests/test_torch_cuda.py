@@ -342,6 +342,31 @@ def test_hash_kernels_reject_strided_input(cuda_device):
         hash_tiles.hash_tile_backward(samp, rayt, table, sc, gs, prm)
 
 
+@pytest.mark.parametrize("n_levels,trains", [(16, True), (17, False)])
+def test_hash_backward_shared_memory_limit(cuda_device, n_levels, trains):
+    """K7b holds nine table copies in shared memory: at T=128, F=2 and
+    hidden 8 it takes L*F = 32 and refuses 34 at launch, which K7f
+    renders."""
+    plan, _ = hash_scene("fixed")
+    spec = P.HashMLPSpec(n_levels=n_levels, table_size=128)
+    assert hash_tiles.fast_path_ok(spec)
+    field = P.HashMLPField.init_random(torch.Generator().manual_seed(0),
+                                       spec=spec, device=cuda_device)
+    sched = hash_tiled.build_hash_schedule(plan, device=cuda_device)
+    prm = hash_tiles.hash_tile_params(plan, spec, sched.n_chunks)
+    args = (sched.samp, sched.rayt,
+            field.params["hash_table"].detach().contiguous(),
+            hash_tiles.pack_mlp_scalars(dict(field.params), spec).detach())
+    assert bool(torch.isfinite(hash_tiles.hash_tile_forward(*args, prm)).all())
+    gs = torch.ones((sched.n_tiles, 5, 16, 16), device=cuda_device)
+    if trains:
+        d_tab, _ = hash_tiles.hash_tile_backward(*args, gs, prm)
+        assert bool(torch.isfinite(d_tab).all())
+    else:
+        with pytest.raises(RuntimeError, match="shared memory"):
+            hash_tiles.hash_tile_backward(*args, gs, prm)
+
+
 @pytest.mark.parametrize("name", ["stratified", "roi", "l8"])
 def test_hash_forward_on_the_card_matches_cpu(cuda_device, name):
     plan, field = hash_scene(name, cuda_device)
