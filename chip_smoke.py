@@ -11,8 +11,11 @@ through ``Renderer.backward``, and a few SGD training steps through
 autograd of ``render_tiled``; then the hash-MLP field (the L=8, T=128
 spec of ``tools/hashmlp_bench.py``) rendered at 512^2 with 128
 stratified steps (seed 5) through ``Renderer.forward`` and fitted with
-``fit_hash_mlp`` (4 views at 96^2, 64 steps, Adam lr 8e-3). Phases, each
-fatal when it fails:
+``fit_hash_mlp`` (4 views at 96^2, 64 steps, Adam lr 8e-3); then the
+NGP-scale hash grid path (``tools/hashmlp_bench.py``'s grid spec: L=4,
+F=2, T=4096, resolutions 4-8-16-32) at 512^2 with 128 stratified steps
+(seed 5) through ``render_hash_grid_tiled`` and 10 Adam steps through its
+autograd. Phases, each fatal when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
@@ -66,10 +69,37 @@ fatal when it fails:
 15. times with CUDA events after warm-up, each beside its plain twin's:
     the hash forward per frame and Mrays/s (schedule excluded), K7f, K7b,
     the fit step (forward, backward, Adam), and the peak device memory
-    each adds to what the earlier phases hold.
+    each adds to what the earlier phases hold;
+16. the grid headline schedule (16 px tiles, 0 overflow rays, 8 groups;
+    its build and upload times) and K8f (fused hash-grid forward) against
+    its plain twin on every group: within 5e-6 after ``finalize_heads``
+    (depth 1e-4);
+17. ``render_hash_grid_tiled`` on the card against the plain path on the
+    card: the K8f launch count rises by one per group, the planes are
+    finite with opacity > 0 somewhere; the small grid test scene
+    (tests/test_hash_grid.py's 32^2 / 16 steps, L=3 / T=4096) on the card
+    matches the CPU twin;
+18. K8b (fused hash-grid backward) against its plain twin for a seeded
+    random cotangent on a subset of the headline's tiles: slot rows and
+    d(MLP) within 2e-5 x scale; under
+    ``torch.use_deterministic_algorithms`` two full-frame backwards
+    through autograd equal bit for bit, d(hash_table) included;
+19. 10 Adam steps (lr 8e-3) through autograd of ``render_hash_grid_tiled``
+    toward a teacher of the same spec (``torch.Generator`` seed 2, table
+    std 1.0) rendered by the port: the loss is finite and falls, K8f and
+    K8b launch in every step;
+20. times with CUDA events after warm-up, each beside its plain twin's
+    where there is one: the grid forward per frame and Mrays/s (schedule
+    excluded), the table build, the bank gather, K8f, K8b, the slot
+    reduction, the table adjoint, the training step, and the peak device
+    memory each adds.
 
-Prints a JSON line of per-kernel results, then the card line, and as the
-last line ``{"ok": true, "device": {...}}``. Exits nonzero, without that
+Prints a JSON line of per-kernel results (each with its bound: the larger
+of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
+its float operations over 67 TFLOP/s, the H100 SXM's published
+peaks; ``library_ms`` is null: no single PyTorch call computes any of
+these functions), then the card line, and as the last line
+``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when CUDA is missing, a kernel does not build, or any check fails.
 Imports no JAX.
 """
@@ -92,11 +122,121 @@ HASH_GRAD_TOL = 2e-5  # K7b, x max |reference| (tests/test_hash_tiled.py)
 HASH_SUBSET = 64    # headline tiles the K7b twin is compared on
 FIT_STEPS = 25
 OPAQUE_BIAS = 5.0   # added to the teacher's sigma_b2: rays stop early
+GRID_SUBSET = 8     # tiles per group the K8b twin is compared on
+GRID_STEPS = 10     # Adam steps on the grid path
+GRID_GROUPS = 8     # tile groups of the grid headline's schedule
+GRID_OPAQUE_BIAS = 30.0   # added to the grid teacher's sigma_b2 (5 stops no ray)
+# tools/hashmlp_bench.py's grid spec (:133-143)
+GRID_SPEC = dict(n_levels=4, features_per_level=2, table_size=4096,
+                 hidden_dim=8, base_resolution=4.0, finest_resolution=32.0,
+                 resolutions=(4, 8, 16, 32))
 RAYT_TOL = 1e-5     # d(rayt), x max |reference|
 CAM_RTOL, CAM_ATOL = 2e-3, 1e-4   # camera gradients
 FRAMES = 30         # timed forward frames
 STEPS = 10          # timed training steps
 LR = 1e-3           # bench.py's SGD step
+
+
+# The H100 SXM's published peaks: HBM bytes
+# per second and float32 operations per second outside the tensor cores.
+HBM_BYTES_S = 3.35e12
+F32_OPS_S = 67e12
+# Float operations per processed sample that each function needs from its
+# inputs (exp as one; integer and comparison work not counted), counted
+# from each kernel's source but without the work a kernel's own design
+# adds: a backward counts the forward once (not pass 1's recompute), the
+# adjoint, and a product and an add per slot-row column (not the weights
+# its window sums recompute). The dense stencil forward: fractions 18,
+# corner weights 19, 4 x 8 corners 64, recurrence 15. Its adjoint without
+# the camera term, as timed: the forward, then the step times, the
+# transmittance and plane adjoint and 32 slot products (105). The
+# recurrence; the adjoint's transmittance part.
+DENSE_FWD_OPS = 116
+DENSE_BWD_OPS = DENSE_FWD_OPS + 105
+RECUR_OPS = 15
+ADJ_OPS = 20
+
+
+def enc_ops_hash(spec) -> int:
+    """K7's per-sample encoding: per level 3 scales, floors and fractions,
+    19 for the corner weights, 16 per feature for the corner sum."""
+    return spec.n_levels * (9 + 19 + 16 * spec.features_per_level)
+
+
+def enc_ops_grid(spec) -> int:
+    """K8's: the finest coordinates (9), then per level 12 for the level
+    fractions, 19 for the weights, 16 per feature for the corner sum."""
+    return 9 + spec.n_levels * (12 + 19 + 16 * spec.features_per_level)
+
+
+def mlp_fwd_ops(spec) -> int:
+    h, e = spec.hidden_dim, spec.encoding_dim
+    return 4 * h * e + 4 * h + 8 * h + 8
+
+
+def sigma_ops(spec) -> int:
+    h, e = spec.hidden_dim, spec.encoding_dim
+    return 2 * h * e + 4 * h + 2
+
+
+def mlp_bwd_ops(spec) -> int:
+    """The heads' adjoint, d(encoding) and the MLP gradient products."""
+    h, e = spec.hidden_dim, spec.encoding_dim
+    n_sc = 2 * h * e + 6 * h + 4
+    return 12 + 10 * h + 4 * h * e + 2 * n_sc
+
+
+def k7f_ops(spec) -> int:
+    return enc_ops_hash(spec) + mlp_fwd_ops(spec) + RECUR_OPS
+
+
+def k7b_ops(spec) -> int:
+    """The forward once (K7f's count), the adjoint, the MLP adjoint and a
+    product and an add for each of the 8*L*F table products."""
+    table = 2 * 8 * spec.n_levels * spec.features_per_level
+    return k7f_ops(spec) + ADJ_OPS + mlp_bwd_ops(spec) + table
+
+
+def k8f_ops(spec) -> int:
+    return enc_ops_grid(spec) + mlp_fwd_ops(spec) + RECUR_OPS
+
+
+def k8b_ops(spec) -> int:
+    """As K7b's, with K8's encoding and C = L*8*F slot-row columns."""
+    cols = spec.n_levels * 8 * spec.features_per_level
+    return k8f_ops(spec) + ADJ_OPS + mlp_bwd_ops(spec) + 2 * cols
+
+
+def live_samples(samp) -> int:
+    """Masked-in samples of a (T, nc, 3, 16, 128) u16 sample block: bit
+    15 of the lane plane (the sign bit of its int16 view)."""
+    import torch
+
+    return int((samp[:, :, 2].view(torch.int16) < 0).sum())
+
+
+def take(x, idx):
+    """x[idx] along dim 0, contiguous; CUDA indexes no uint16 tensor, so
+    those go through their int16 view."""
+    import torch
+
+    if x.dtype == torch.uint16:
+        return x.view(torch.int16)[idx].contiguous().view(torch.uint16)
+    return x[idx].contiguous()
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def bound(n_bytes: int, ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the float32 rate."""
+    by_bytes = n_bytes / HBM_BYTES_S * 1e3
+    by_ops = ops / F32_OPS_S * 1e3
+    return {"bound_ms": max(by_bytes, by_ops),
+            "bound_by": "bytes" if by_bytes >= by_ops else "operations",
+            "library_ms": None}
 
 
 def card_line() -> str:
@@ -543,6 +683,7 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
           f"Mrays/s over 20 steps (plain path {plain_fit_ms:.4f} ms/step); "
           f"peak device memory added {fit_peak_mb:.1f} MiB", flush=True)
 
+    live = live_samples(sched.samp)
     kernels = [
         {"name": "hash_tiles", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_tiles.cu",
@@ -550,14 +691,16 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
          "launches": fwd_launches["hash_tiles"],
          "max_abs_err": max([k7f_raw] + [c["f_raw"]
                                          for c in fit_cmp.values()]),
-         "ms": k7f_ms, "plain_ms": k7f_plain_ms},
+         "ms": k7f_ms, "plain_ms": k7f_plain_ms,
+         **bound(nbytes(*args[:4], out_k), live * k7f_ops(spec))},
         {"name": "hash_tiles_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_tiles_bwd.cu",
          "replaces": "dvren_tpu/ops/hash_tiles.py:339",
          "launches": fit_launches["hash_tiles_bwd"],
          "max_abs_err": max([k7b_raw] + [c["b_raw"]
                                          for c in fit_cmp.values()]),
-         "ms": k7b_ms, "plain_ms": k7b_plain_ms},
+         "ms": k7b_ms, "plain_ms": k7b_plain_ms,
+         **bound(nbytes(*args[:4], gs, *full1), live * k7b_ops(spec))},
     ]
     report = {
         "hash_forward_ms": fwd_ms, "hash_forward_mrays_s":
@@ -581,12 +724,368 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
     return kernels, report
 
 
+def grid_small_scene(torch, P, device=None):
+    """tests/test_hash_grid.py's scene: 32^2, 16 fixed steps, L=3 / F=2 /
+    T=4096 on the 2-4-8 ladder, a field from a seeded generator."""
+    w, steps = 32, 16
+    plan = P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.2, t_far=2.2, seed=5,
+        camera=P.CameraConfig(
+            k=(w * 1.2, 0, w / 2, 0, w * 1.2, w / 2, 0, 0, 1),
+            c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0)),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps)))
+    spec = P.HashMLPSpec(n_levels=3, features_per_level=2, table_size=4096,
+                         base_resolution=2.0, finest_resolution=8.0,
+                         resolutions=(2, 4, 8))
+    field = P.HashMLPField.init_random(torch.Generator().manual_seed(4),
+                                       spec=spec, table_std=0.5,
+                                       device=device)
+    return plan, field
+
+
+def image_errors(a, b):
+    """(max |diff| over image, transmittance, opacity; depth; hitmask
+    equal) of two ImagePlanes."""
+    def diff(k):
+        return (getattr(a, k).cpu() - getattr(b, k).cpu()).abs().max()
+
+    err = max(float(diff(k)) for k in ("image", "transmittance", "opacity"))
+    return (err, float(diff("depth")),
+            bool((a.hitmask.cpu() == b.hitmask.cpu()).all()))
+
+
+def grid_counts(hash_grid) -> dict:
+    return {"hash_grid": hash_grid.hash_grid_forward.launches,
+            "hash_grid_bwd": hash_grid.hash_grid_backward.launches}
+
+
+def reset_grid_counts(hash_grid) -> None:
+    hash_grid.hash_grid_forward.launches = 0
+    hash_grid.hash_grid_backward.launches = 0
+
+
+def run_grid(torch, P, dev) -> tuple[list, dict]:
+    """Phases 16-20: the NGP-scale hash grid path."""
+    from dvren_tpu_torch.ops import (fused_tiles, gather_plan, hash_grid,
+                                     hash_tiles)
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import hash_tiled, tiled
+
+    # 16. the grid headline's schedule; K8f against its twin on every group
+    print(card_line(), flush=True)
+    plan, _ = hash_headline(P)
+    spec = P.HashMLPSpec(**GRID_SPEC)
+    field = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                       spec=spec, device=dev)
+    t0 = time.perf_counter()
+    sched_host = hash_tiled.build_hash_grid_schedule(plan, field)
+    build_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sched = sched_host.to(dev)
+    torch.cuda.synchronize()
+    upload_s = time.perf_counter() - t0
+    groups = sched.groups
+    n_groups = len(groups)
+    lanes = sum(g.n_tiles * g.banks for g in groups) * 128
+    print(f"grid schedule build {build_s:.3f} s, upload {upload_s:.3f} s: "
+          f"{sched.tile_px} px tiles, (n_chunks, n_tiles, banks) "
+          f"{[(g.n_chunks, g.n_tiles, g.banks) for g in groups]}, {lanes} "
+          f"bank lanes, {sched.tiled_samples} of "
+          f"{sched.full_lattice_samples} samples live, fallback_rays "
+          f"{sched.fallback_rays}", flush=True)
+    require(sched.tile_px == 16 and sched.fallback_rays == 0
+            and n_groups == GRID_GROUPS,
+            "the grid headline's schedule is not 16 px tiles in "
+            f"{GRID_GROUPS} groups without overflow")
+    shapes = [(g.n_tiles, g.banks) for g in groups]
+    prms = [hash_grid.grid_op_params(plan, spec, g.banks, g.n_chunks)
+            for g in groups]
+
+    def kernel_args(params):
+        """(packed table, per-group K8 arguments) for detached params."""
+        table = hash_grid.build_hash_grid_table(params, spec)
+        tabs = tiled._gather_bank_tables(table, sched.gathermap_all, shapes)
+        sc = hash_tiles.pack_mlp_scalars(params, spec)
+        return table, [(tabs[i], g.samp, g.base, g.rayt, g.k_enter,
+                        g.bank0.reshape(-1), sc, prms[i])
+                       for i, g in enumerate(groups)]
+
+    teacher = P.HashMLPField.init_random(torch.Generator().manual_seed(2),
+                                         spec=spec, table_std=1.0,
+                                         device=dev)
+    student_p = {k: v.detach() for k, v in field.params.items()}
+    opaque_p = {k: v.detach().clone() for k, v in teacher.params.items()}
+    opaque_p["sigma_b2"] += GRID_OPAQUE_BIAS
+    cmp = {}
+    for name, params in (("student", student_p), ("opaque teacher", opaque_p)):
+        _, g_args = kernel_args(params)
+        c = {"heads": 0.0, "depth": 0.0, "f_raw": 0.0, "early": 0}
+        for a in g_args:
+            out_k = hash_grid.hash_grid_forward(*a)
+            torch.cuda.synchronize()
+            out_p = hash_grid.hash_grid_forward_plain(*a)
+            require(bool(torch.isfinite(out_k).all()), "K8f output not finite")
+            err, depth = head_errors(torch, fused_tiles, plan, out_k, out_p)
+            c["heads"], c["depth"] = max(c["heads"], err), max(c["depth"],
+                                                               depth)
+            c["f_raw"] = max(c["f_raw"], float((out_k - out_p).abs().max()))
+            if name != "student":
+                no_stop = hash_grid.hash_grid_forward_plain(
+                    *a[:7], dataclasses.replace(a[7], stop=0.0))
+                c["early"] += int((out_p[:, 4] < no_stop[:, 4]).sum())
+        cmp[name] = c
+        print(f"K8f vs plain over {n_groups} groups, {name}: heads "
+              f"{c['heads']:.3e}, depth {c['depth']:.3e}, raw "
+              f"{c['f_raw']:.3e}" + (f"; {c['early']} rays stop early"
+                                     if name != "student" else ""),
+              flush=True)
+        require(c["heads"] <= TOL and c["depth"] <= TOL_DEPTH,
+                f"K8f differs from its plain twin beyond tolerance ({name})")
+    require(cmp["opaque teacher"]["early"] > 0,
+            "no ray of the opaque teacher stops early")
+
+    # 17. render_hash_grid_tiled on the card against the plain path there
+    field.requires_grad_(False)
+    reset_grid_counts(hash_grid)
+    with torch.no_grad():
+        out = hash_tiled.render_hash_grid_tiled(plan, field, sched)
+        fwd_launches = grid_counts(hash_grid)
+        plain = hash_tiled.render_hash_grid_tiled(plan, field, sched,
+                                                  use_kernel=False)
+    require(fwd_launches == {"hash_grid": n_groups, "hash_grid_bwd": 0},
+            f"render_hash_grid_tiled did not launch K8f once per group: "
+            f"{fwd_launches}")
+    require(all(bool(torch.isfinite(getattr(out, k)).all())
+                for k in ("image", "transmittance", "opacity", "depth")),
+            "grid planes not finite")
+    require(float(out.opacity.max()) > 0.0, "grid opacity is 0 everywhere")
+    e2e_err, e2e_depth, hit_ok = image_errors(out, plain)
+    print(f"render_hash_grid_tiled: launches {fwd_launches}; vs plain path "
+          f"planes {e2e_err:.3e}, depth {e2e_depth:.3e}, hitmask equal "
+          f"{hit_ok}; opacity max {float(out.opacity.max()):.6f} mean "
+          f"{float(out.opacity.mean()):.6f}", flush=True)
+    require(e2e_err <= TOL and e2e_depth <= TOL_DEPTH and hit_ok,
+            "the grid forward differs from the plain path")
+    s_plan, s_field = grid_small_scene(torch, P, dev)
+    _, s_cpu = grid_small_scene(torch, P)
+    with torch.no_grad():
+        s_out = hash_tiled.render_hash_grid_tiled(
+            s_plan, s_field,
+            hash_tiled.build_hash_grid_schedule(s_plan, s_field, device=dev))
+        s_ref = hash_tiled.render_hash_grid_tiled(
+            s_plan, s_cpu,
+            hash_tiled.build_hash_grid_schedule(s_plan, s_cpu,
+                                                device="cpu"))
+    s_err, s_depth, s_hit = image_errors(s_out, s_ref)
+    print(f"small grid scene, card vs CPU plain: planes {s_err:.3e}, depth "
+          f"{s_depth:.3e}", flush=True)
+    require(s_err <= TOL and s_depth <= TOL_DEPTH and s_hit,
+            "small grid scene on the card differs from the CPU")
+
+    # 18. K8b against its twin on a tile subset; deterministic backwards
+    gen = torch.Generator(device=dev).manual_seed(9)
+    gss = [torch.randn((g.n_tiles, 5, 16, 16), generator=gen, device=dev)
+           for g in groups]
+
+    def subset(a, gs):
+        n = a[0].shape[0]
+        sub = torch.arange(0, n, max(1, n // GRID_SUBSET),
+                           device=dev)[:GRID_SUBSET]
+        bank0 = a[5].reshape(n, -1)[sub].reshape(-1)
+        return tuple(take(x, sub) for x in a[:5]) + (
+            bank0.contiguous(), a[6], gs[sub].contiguous(), a[7])
+
+    for name, params in (("student", student_p), ("opaque teacher", opaque_p)):
+        _, g_args = kernel_args(params)
+        c = cmp[name]
+        c["rows"] = c["mlp"] = c["b_raw"] = 0.0
+        for a, gs in zip(g_args, gss):
+            sa = subset(a, gs)
+            d_rows, d_sc = hash_grid.hash_grid_backward(*sa)
+            torch.cuda.synchronize()
+            p_rows, p_sc = hash_grid.hash_grid_backward_plain(*sa)
+            require(bool(torch.isfinite(d_rows).all()
+                         and torch.isfinite(d_sc).all()), "K8b not finite")
+            c["rows"] = max(c["rows"], rel_err(d_rows, p_rows))
+            c["mlp"] = max(c["mlp"], rel_err(d_sc, p_sc))
+            c["b_raw"] = max(c["b_raw"], float((d_rows - p_rows).abs().max()),
+                             float((d_sc - p_sc).abs().max()))
+        print(f"K8b vs plain on {GRID_SUBSET} tiles per group, {name}: slot "
+              f"rows {c['rows']:.3e} x scale, d(MLP) {c['mlp']:.3e} x scale "
+              f"(max |diff| {c['b_raw']:.3e})", flush=True)
+        require(c["rows"] <= HASH_GRAD_TOL and c["mlp"] <= HASH_GRAD_TOL,
+                f"K8b differs from its plain twin beyond tolerance ({name})")
+
+    dl_img = torch.randn((plan.height, plan.width, 3), generator=gen,
+                         device=dev)
+    keys = sorted(field.params)
+
+    def frame_grads():
+        leaf = field.with_params({k: v.detach().clone()
+                                  for k, v in field.params.items()})
+        img = hash_tiled.render_hash_grid_tiled(plan, leaf, sched).image
+        return torch.autograd.grad(torch.sum(img * dl_img),
+                                   [leaf.params[k] for k in keys])
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        g1, g2 = frame_grads(), frame_grads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(all(bool(torch.isfinite(x).all()) for x in g1),
+            "grid gradients not finite")
+    require(all(torch.equal(a, b) for a, b in zip(g1, g2)),
+            "two grid backwards differ")
+    require(float(g1[keys.index("hash_table")].abs().max()) > 0.0,
+            "d(hash_table) is 0")
+    print("two full-frame grid backwards under deterministic algorithms: "
+          "equal bit for bit, d(hash_table) included", flush=True)
+
+    # 19. Adam steps through autograd of render_hash_grid_tiled
+    with torch.no_grad():
+        target = hash_tiled.render_hash_grid_tiled(plan, teacher, sched).image
+    student = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                         spec=spec, device=dev)
+
+    def trainer(f, use_kernel=True):
+        opt = torch.optim.Adam(f.parameters(), lr=8e-3)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = mse(hash_tiled.render_hash_grid_tiled(
+                plan, f, sched, use_kernel=use_kernel).image, target)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return step
+
+    step = trainer(student)
+    reset_grid_counts(hash_grid)
+    losses = []
+    for _ in range(GRID_STEPS):
+        before = grid_counts(hash_grid)
+        losses.append(float(step().detach()))
+        after = grid_counts(hash_grid)
+        require(all(after[k] - before[k] == n_groups for k in after),
+                f"K8f / K8b did not launch once per group in a step: "
+                f"{before} -> {after}")
+    train_launches = grid_counts(hash_grid)
+    print(f"{GRID_STEPS} Adam steps (lr 8e-3) toward the teacher: loss "
+          f"{losses[0]:.6e} -> {losses[-1]:.6e}; launches {train_launches}",
+          flush=True)
+    require(all(np.isfinite(losses)), "grid training loss not finite")
+    require(losses[-1] < losses[0], "grid training loss does not fall")
+
+    # 20. times; peak device memory above what is held before each
+    def added_peak_mb(base):
+        return (torch.cuda.max_memory_allocated() - base) / 2 ** 20
+
+    def peak_from_here():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    base = peak_from_here()
+    with torch.no_grad():
+        fwd_ms = cuda_ms(torch, lambda: hash_tiled.render_hash_grid_tiled(
+            plan, field, sched), FRAMES, warmup=3)
+        fwd_peak = added_peak_mb(base)
+        plain_fwd_ms = cuda_ms(
+            torch, lambda: hash_tiled.render_hash_grid_tiled(
+                plan, field, sched, use_kernel=False), 1, warmup=0)
+    table, g_args = kernel_args(student_p)
+    table_ms = cuda_ms(torch, lambda: hash_grid.build_hash_grid_table(
+        student_p, spec), 50)
+    gather_ms = cuda_ms(torch, lambda: tiled._gather_bank_tables(
+        table, sched.gathermap_all, shapes), 20)
+    k8f_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_forward(*a)
+                                     for a in g_args], 20)
+    k8f_plain_ms = cuda_ms(torch, lambda: [
+        hash_grid.hash_grid_forward_plain(*a) for a in g_args], 1, warmup=0)
+    base = peak_from_here()
+    k8b_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_backward(
+        *a[:7], gs, a[7]) for a, gs in zip(g_args, gss)], 5, warmup=1)
+    k8b_peak = added_peak_mb(base)
+    k8b_plain_ms = cuda_ms(torch, lambda: [
+        hash_grid.hash_grid_backward_plain(*a[:7], gs, a[7])
+        for a, gs in zip(g_args, gss)], 1, warmup=0)
+    b_out = [hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+             for a, gs in zip(g_args, gss)]
+    cols = hash_grid.packed_cols(spec)
+    rows = torch.cat([r.reshape(-1, cols) for r, _ in b_out])
+    n_rows = int(table.shape[0])
+    reduce_ms = cuda_ms(torch, lambda: gather_plan.slot_rows_to_table(
+        rows, sched.gather_plan, n_rows), 20)
+    tg = gather_plan.slot_rows_to_table(rows, sched.gather_plan, n_rows)
+    adjoint_ms = cuda_ms(torch, lambda: hash_grid.hash_grid_table_grad(
+        tg, spec), 20)
+    base = peak_from_here()
+    step_ms = cuda_ms(torch, step, STEPS, warmup=2)
+    step_peak = added_peak_mb(base)
+    plain_student = student.with_params({k: v.detach().clone()
+                                         for k, v in student.params.items()})
+    plain_step_ms = cuda_ms(torch, trainer(plain_student, use_kernel=False),
+                            1, warmup=0)
+    n_rays = plan.ray_count
+    print(f"grid forward {fwd_ms:.4f} ms/frame = {n_rays / fwd_ms / 1e3:.3f} "
+          f"Mrays/s over {FRAMES} frames (plain path {plain_fwd_ms:.4f} ms); "
+          f"training step {step_ms:.4f} ms/step = "
+          f"{n_rays / step_ms / 1e3:.3f} Mrays/s over {STEPS} steps (plain "
+          f"path {plain_step_ms:.4f} ms/step)", flush=True)
+    print(f"grid stages ms: table build {table_ms:.4f}, bank gather "
+          f"{gather_ms:.4f}, K8f {k8f_ms:.4f} over {n_groups} launches "
+          f"(plain {k8f_plain_ms:.4f}), K8b {k8b_ms:.4f} (plain "
+          f"{k8b_plain_ms:.4f}), slot reduction {reduce_ms:.4f}, table "
+          f"adjoint {adjoint_ms:.4f}; peak device memory added: forward "
+          f"{fwd_peak:.1f} MiB, K8b {k8b_peak:.1f} MiB, step "
+          f"{step_peak:.1f} MiB", flush=True)
+
+    live = sched.tiled_samples
+    f_in = sum(nbytes(*a[:7]) for a in g_args)
+    f_out = sum(g.n_tiles * 5 * 256 * 4 for g in groups)
+    b_bytes = f_in + sum(nbytes(g) for g in gss) + nbytes(rows) + nbytes(
+        b_out[0][1])
+    kernels = [
+        {"name": "hash_grid", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/hash_grid.cu",
+         "replaces": "dvren_tpu/ops/hash_grid.py:223",
+         "launches": train_launches["hash_grid"],
+         "max_abs_err": max(c["f_raw"] for c in cmp.values()),
+         "ms": k8f_ms, "plain_ms": k8f_plain_ms,
+         **bound(f_in + f_out, live * k8f_ops(spec))},
+        {"name": "hash_grid_bwd", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/hash_grid_bwd.cu",
+         "replaces": "dvren_tpu/ops/hash_grid.py:282",
+         "launches": train_launches["hash_grid_bwd"],
+         "max_abs_err": max(c["b_raw"] for c in cmp.values()),
+         "ms": k8b_ms, "plain_ms": k8b_plain_ms,
+         **bound(b_bytes, live * k8b_ops(spec))},
+    ]
+    report = {
+        "schedule_build_s": build_s, "schedule_upload_s": upload_s,
+        "forward_ms": fwd_ms, "forward_mrays_s": n_rays / fwd_ms / 1e3,
+        "plain_forward_ms": plain_fwd_ms, "forward_vs_plain": e2e_err,
+        "stages_ms": {"table_build": table_ms, "bank_gather": gather_ms,
+                      "hash_grid": k8f_ms, "hash_grid_bwd": k8b_ms,
+                      "slot_reduction": reduce_ms,
+                      "table_adjoint": adjoint_ms},
+        "plain_stages_ms": {"hash_grid": k8f_plain_ms,
+                            "hash_grid_bwd": k8b_plain_ms},
+        "step_ms": step_ms, "plain_step_ms": plain_step_ms,
+        "step_mrays_s": n_rays / step_ms / 1e3,
+        "added_peak_mib": {"forward": fwd_peak, "hash_grid_bwd": k8b_peak,
+                           "step": step_peak},
+        "losses": losses, "compares": cmp}
+    return kernels, report
+
+
 def run() -> dict:
     import torch
 
     import dvren_tpu_torch as P
     from dvren_tpu_torch import _build
-    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.ops import fused_tiles, gather_plan, packed_transpose
     from dvren_tpu_torch.render import tiled
 
     dev = torch.device("cuda", 0)
@@ -771,7 +1270,7 @@ def run() -> dict:
     # 8. K4 against its plain twin at 64^3
     n_rows = packed_transpose.fullpitch_rows(sigma.shape)
     all_rows = torch.cat(k2_rows)
-    tg = tiled.slot_rows_to_table(all_rows, sched.gather_plan, n_rows)
+    tg = gather_plan.slot_rows_to_table(all_rows, sched.gather_plan, n_rows)
     k4_out = packed_transpose.table_grad_to_params(tg, sigma.shape)
     torch.cuda.synchronize()
     k4_plain = packed_transpose.table_grad_to_params_plain(tg, sigma.shape)
@@ -914,7 +1413,7 @@ def run() -> dict:
         *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 20)
     k2_plain_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward_plain(
         *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 1, warmup=1)
-    reduce_ms = cuda_ms(torch, lambda: tiled.slot_rows_to_table(
+    reduce_ms = cuda_ms(torch, lambda: gather_plan.slot_rows_to_table(
         all_rows, sched.gather_plan, n_rows), 20)
     k4_ms = cuda_ms(torch, lambda: packed_transpose.table_grad_to_params(
         tg, sigma.shape), 50)
@@ -930,31 +1429,45 @@ def run() -> dict:
           f"{reduce_ms:.4f}, K4 {k4_ms:.4f} (plain {k4_plain_ms:.4f})",
           flush=True)
 
+    # bounds: each kernel's inputs and outputs at this run's shapes, and
+    # its operations per live sample (K3 and K4 copy and add: bytes)
+    k1_in = sum(nbytes(*a[:6]) for a in args)
+    k1_out = sum(g.n_tiles * 5 * 256 * 4 for g in sched.groups)
+    k2_out = sum(nbytes(r) for r in k2_rows)
+    live = sched.tiled_samples
     kernels = [
         {"name": "fused_tiles", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
          "replaces": "dvren_tpu/ops/fused_tiles.py:656",
          "launches": launches["fused_tiles"], "max_abs_err": k1_err,
-         "ms": k1_ms, "plain_ms": k1_plain_ms},
+         "ms": k1_ms, "plain_ms": k1_plain_ms,
+         **bound(k1_in + k1_out, live * DENSE_FWD_OPS)},
         {"name": "packed_table", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/packed_table.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:81",
          "launches": launches["packed_table"],
          "max_abs_err": float((rows_k - rows_p).abs().max()),
-         "ms": k3_ms, "plain_ms": k3_plain_ms},
+         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         **bound(nbytes(sigma, color, rows_k), 0)},
         {"name": "fused_tiles_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
          "replaces": "dvren_tpu/ops/fused_tiles.py:714",
          "launches": train_launches["fused_tiles_bwd"],
-         "max_abs_err": k2_raw, "ms": k2_ms, "plain_ms": k2_plain_ms},
+         "max_abs_err": k2_raw, "ms": k2_ms, "plain_ms": k2_plain_ms,
+         **bound(k1_in + sum(nbytes(g) for g in gss) + k2_out,
+                 live * DENSE_BWD_OPS)},
         {"name": "packed_table_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/packed_table_bwd.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:119",
          "launches": train_launches["packed_table_bwd"],
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms},
+         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+         **bound(nbytes(tg, *k4_out), 8 * sum(x.numel() for x in k4_out))},
     ]
     hash_kernels, hash_report = run_hash(torch, P, dev)
     kernels += hash_kernels
+    grid_kernels, grid_report = run_grid(torch, P, dev)
+    kernels += grid_kernels
+    hash_report["grid"] = grid_report
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({**hash_report,
         "forward_ms": fwd_ms, "forward_mrays_s": n_rays / fwd_ms / 1e3,

@@ -64,6 +64,14 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F,
                            _P, _P], _I),
+    "dvt_hash_grid_forward": ([_P] * 8
+                              + [_I] * 7
+                              + [_F] * 5 + [_F] * 9
+                              + [_P, _P], _I),
+    "dvt_hash_grid_backward": ([_P] * 11
+                               + [_I] * 7
+                               + [_F] * 5 + [_F] * 9
+                               + [_P, _P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -2,9 +2,10 @@
 
 Counterpart of ``dvren_tpu/core/context.py``. The JAX context pins a JAX
 device set; here the context carries one explicit ``torch.device``, and
-every tensor the renderer makes lives there. Asking for CUDA where torch
-has none raises: the port never substitutes the CPU for a device that was
-asked for.
+every tensor the renderer makes lives there. The device is CUDA unless
+the caller names another: asking for CUDA, or naming no device, where torch
+has no CUDA raises. The port never substitutes the CPU for the card; the
+CPU is used only when the caller asks for ``"cpu"``.
 """
 
 from __future__ import annotations
@@ -22,7 +23,7 @@ class ContextOptions:
     """Mirrors ``hp_ctx_desc`` (hp.h:87-91).
 
     ``preferred_device``: a torch device string ("cuda", "cuda:1", "cpu"),
-    or empty for CUDA when torch has it and the CPU otherwise."""
+    or empty for "cuda"."""
 
     flags: int = 0
     preferred_device: str = ""
@@ -33,8 +34,7 @@ class Context:
 
     def __init__(self, options: ContextOptions | None = None):
         self._options = options or ContextOptions()
-        name = self._options.preferred_device or (
-            "cuda" if torch.cuda.is_available() else "cpu")
+        name = self._options.preferred_device or "cuda"
         try:
             device = torch.device(name)
         except RuntimeError as exc:
@@ -43,7 +43,8 @@ class Context:
         if device.type == "cuda":
             if not torch.cuda.is_available():
                 raise DvrenError.unsupported(
-                    f"device '{name}' was asked for but torch has no CUDA")
+                    f"device '{name}' was asked for but torch has no CUDA "
+                    f"(name device='cpu' to run on the CPU)")
             index = device.index if device.index is not None else 0
             if index >= torch.cuda.device_count():
                 raise DvrenError.unsupported(

@@ -1,6 +1,7 @@
 // Shared device code of the fused hash-MLP kernels (K7f hash_tiles.cu,
-// K7b hash_tiles_bwd.cu): constants, the sample lattice, the hash and the
-// per-sample encoding folded into both heads' pre-activations.
+// K7b hash_tiles_bwd.cu, and through hash_grid.cuh K8f / K8b): constants,
+// the sample lattice, the hash, the per-sample encoding folded into both
+// heads' pre-activations, and the heads' second layers.
 //
 // Every float operation uses the _rn intrinsics (no FMA contraction) in
 // the order of dvren_tpu_torch/ops/hash_tiles.py's plain twins, which is
@@ -115,10 +116,52 @@ __device__ __forceinline__ float level_feature(const float* tab, int l,
   return e;
 }
 
+// The first layers' pre-activations are folded feature by feature, in
+// the i-order of the sums: zero_pre, then fold_feature for i = 0, 1, ...
+// as each feature is final, then add_biases; pre_s (and pre_c when
+// kColor) end as w1 . enc + b1.
+__device__ __forceinline__ void zero_pre(float pre_s[kMaxHidden],
+                                         float pre_c[kMaxHidden]) {
+#pragma unroll
+  for (int j = 0; j < kMaxHidden; ++j) {
+    pre_s[j] = 0.f;
+    pre_c[j] = 0.f;
+  }
+}
+
+template <bool kColor>
+__device__ __forceinline__ void fold_feature(int i, float e, const float* sc,
+                                             const HashConsts& k,
+                                             const MlpLayout& lay,
+                                             float pre_s[kMaxHidden],
+                                             float pre_c[kMaxHidden]) {
+#pragma unroll
+  for (int j = 0; j < kMaxHidden; ++j) {
+    if (j < k.hidden) {
+      pre_s[j] = add(pre_s[j], mul(sc[lay.sw1 + j * k.enc + i], e));
+      if (kColor) pre_c[j] = add(pre_c[j], mul(sc[lay.cw1 + j * k.enc + i], e));
+    }
+  }
+}
+
+template <bool kColor>
+__device__ __forceinline__ void add_biases(const float* sc,
+                                           const HashConsts& k,
+                                           const MlpLayout& lay,
+                                           float pre_s[kMaxHidden],
+                                           float pre_c[kMaxHidden]) {
+#pragma unroll
+  for (int j = 0; j < kMaxHidden; ++j) {
+    if (j < k.hidden) {
+      pre_s[j] = add(pre_s[j], sc[lay.sb1 + j]);
+      if (kColor) pre_c[j] = add(pre_c[j], sc[lay.cb1 + j]);
+    }
+  }
+}
+
 // Encode the sample at p and fold each feature into the first layers'
-// pre-activations as soon as it is final (the i-order of the sums):
-// pre_s (and pre_c when kColor) end as w1 . enc + b1. With enc_out, the
-// features are also written to enc_out[i].
+// pre-activations as soon as it is final. With enc_out, the features are
+// also written to enc_out[i].
 template <bool kColor>
 __device__ __forceinline__ void encode_dense(const float p[3],
                                              const float* tab,
@@ -128,11 +171,7 @@ __device__ __forceinline__ void encode_dense(const float p[3],
                                              float pre_s[kMaxHidden],
                                              float pre_c[kMaxHidden],
                                              float* enc_out) {
-#pragma unroll
-  for (int j = 0; j < kMaxHidden; ++j) {
-    pre_s[j] = 0.f;
-    pre_c[j] = 0.f;
-  }
+  zero_pre(pre_s, pre_c);
   for (int l = 0; l < k.n_levels; ++l) {
     float w[8];
     int id[8];
@@ -141,22 +180,10 @@ __device__ __forceinline__ void encode_dense(const float p[3],
       const float e = level_feature(tab, l, f, w, id, k);
       const int i = l * k.n_feat + f;
       if (enc_out != nullptr) enc_out[i] = e;
-#pragma unroll
-      for (int j = 0; j < kMaxHidden; ++j) {
-        if (j < k.hidden) {
-          pre_s[j] = add(pre_s[j], mul(sc[lay.sw1 + j * k.enc + i], e));
-          if (kColor) pre_c[j] = add(pre_c[j], mul(sc[lay.cw1 + j * k.enc + i], e));
-        }
-      }
+      fold_feature<kColor>(i, e, sc, k, lay, pre_s, pre_c);
     }
   }
-#pragma unroll
-  for (int j = 0; j < kMaxHidden; ++j) {
-    if (j < k.hidden) {
-      pre_s[j] = add(pre_s[j], sc[lay.sb1 + j]);
-      if (kColor) pre_c[j] = add(pre_c[j], sc[lay.cb1 + j]);
-    }
-  }
+  add_biases<kColor>(sc, k, lay, pre_s, pre_c);
 }
 
 // Second layer of the sigma head: s_pre2 = sum_j w2[j] * relu(pre_s[j]) + b2.

@@ -209,10 +209,10 @@ class _Lattice:
         idx2 = self.lane_all[:, c] - (b0 * LANES)[:, None].to(torch.int32)
         return b0, b1, idx2
 
-    def chunk(self, c):
-        """Chunk c: (vals (T, 32, 2048) stencil values per sample, the
-        axis weights ((1 - tx, tx), (1 - ty, ty), m-folded z), the
-        planes sigma, r, g, b as (T, 256, 8), idx2)."""
+    def expand(self, c):
+        """Chunk c's window values per sample: (vals (T, C, 2048), the
+        bank table's C columns at each sample's slot; cbase (T, 3, 2048),
+        the slot's cell base; idx2)."""
         t_cnt = self.t_cnt
         b0, b1, idx2 = self.window(c)
         i0 = idx2.clamp(0, LANES - 1).long()
@@ -229,12 +229,26 @@ class _Lattice:
         tiles = self.tiles
         vals = expand(self.tabs[tiles, b0], self.tabs[tiles, b1])
         cbase = expand(self.base[tiles, b0], self.base[tiles, b1])
-        st, m = self.st_all[:, c], self.m_all[:, c]
+        return vals, cbase, idx2
+
+    def coords(self, c):
+        """Chunk c's sample coordinates on the grid's cell scale,
+        ((p - lo) * inv) * ns per axis, each (T, 2048)."""
+        st = self.st_all[:, c]
+        return [((self.rays[:, ax] + self.rays[:, 3 + ax] * st)
+                 - self.lo[ax]) * self.inv[ax] * self.ns[ax]
+                for ax in range(3)]
+
+    def chunk(self, c):
+        """Chunk c: (vals (T, 32, 2048) stencil values per sample, the
+        axis weights ((1 - tx, tx), (1 - ty, ty), m-folded z), the
+        planes sigma, r, g, b as (T, 256, 8), idx2)."""
+        t_cnt = self.t_cnt
+        vals, cbase, idx2 = self.expand(c)
+        m = self.m_all[:, c]
         w = []
-        for ax in range(3):
-            p = self.rays[:, ax] + self.rays[:, 3 + ax] * st
-            frac = ((p - self.lo[ax]) * self.inv[ax]) * self.ns[ax] \
-                - cbase[:, ax]
+        for ax, f in enumerate(self.coords(c)):
+            frac = f - cbase[:, ax]
             w.append((1.0 - frac, frac))
         wx, wy, wz = w
         wz = (m * wz[0], m * wz[1])
@@ -278,12 +292,19 @@ def tile_forward_plain(tabs, samp, base, rayt, ke, bank0,
     over chunks and over the 8 steps of the recurrence, in the kernel's
     order of arithmetic."""
     lat = _Lattice(tabs, samp, base, rayt, ke, bank0, prm)
+    return march_plain(lat, lambda c: lat.chunk(c)[2])
+
+
+def march_plain(lat: _Lattice, planes_of) -> torch.Tensor:
+    """The emission-absorption recurrence over a tile group's lattice:
+    raw heads (T, 5, 16, 16) from ``planes_of(c)``, chunk c's (sigma, r,
+    g, b) planes as (T, 256, 8), in the kernels' order of arithmetic."""
     zeros = torch.zeros((lat.t_cnt, RAYS_PER_TILE), dtype=torch.float32,
                         device=lat.dev)
     acc = [zeros] * 5                # r, g, b, w*mid, processed od
     s = zeros
     for c in range(lat.nc):
-        sig, cr, cg, cb = lat.chunk(c)[2]
+        sig, cr, cg, cb = planes_of(c)
         livef, dta, mid = lat.chunk_time(c)
         od = torch.clamp_min(sig * dta, 0.0) * livef
 

@@ -14,8 +14,13 @@ sample_t kept as float32 where the TPU splits it into u16 hi | lo halves
 The composition reuses the dense path's tile composer: the kernel's
 (16, 16) output blocks are image tiles.
 
-The NGP-scale grid half (``build_hash_grid_schedule``,
-``render_hash_grid_tiled``) rides K8 and is ROADMAP Queue 1 item 14.
+The NGP-scale grid half (:func:`build_hash_grid_schedule`,
+:func:`render_hash_grid_tiled`, counterpart of the JAX module's grid
+path) carries table sizes past 128: the dense scheduler over the finest
+level's point lattice, the packed multi-level corner table of
+:mod:`dvren_tpu_torch.ops.hash_grid`, the bank gather at C = L*8*F
+columns, and K8f / K8b per tile group inside one autograd node
+(:class:`_HashGridGroupset`). The field is zero outside the unit cube.
 """
 
 from __future__ import annotations
@@ -28,16 +33,18 @@ import torch
 
 from dvren_tpu_torch.core.plan import Plan
 from dvren_tpu_torch.core.status import check
+from dvren_tpu_torch.ops import hash_grid
 from dvren_tpu_torch.ops.compose import ImagePlanes
-from dvren_tpu_torch.ops.hash_tiles import (fast_path_ok,
+from dvren_tpu_torch.ops.gather_plan import slot_rows_to_table
+from dvren_tpu_torch.ops.hash_tiles import (MLP_KEYS, fast_path_ok,
+                                            grads_from_blocks,
+                                            pack_mlp_scalars,
                                             render_hash_tile_group_raw)
 from dvren_tpu_torch.render import tiled as tiled_mod
 from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
 _DROP_TILE = tiled_mod._DROP_TILE
-_TODO_GRID = ("the NGP-scale hash grid path (K8) is ROADMAP Queue 1 "
-              "item 14")
 
 
 def _arrays_to(obj, device):
@@ -214,9 +221,139 @@ def render_hash_tiled(plan: Plan, field, schedule: HashTiledSchedule,
     return tiled_mod._compose_tiles(plan, [raw], [schedule.tile_ids])
 
 
-def build_hash_grid_schedule(*args, **kwargs):
-    raise NotImplementedError(_TODO_GRID)
+# -------------------------------------------------- NGP-scale grid path
 
 
-def render_hash_grid_tiled(*args, **kwargs):
-    raise NotImplementedError(_TODO_GRID)
+@dataclass(frozen=True)
+class _HashSchedProxy:
+    """The scheduler's view of a hash-MLP field on the grid path: the unit
+    bbox (the reference fixes field bounds to [0, 1]^3) and the finest
+    level's point lattice as the cell grid. The grid path defines the
+    field as zero outside the unit cube."""
+
+    schedule_grid_shape: tuple
+    bbox_min: tuple = (0.0, 0.0, 0.0)
+    bbox_max: tuple = (1.0, 1.0, 1.0)
+
+
+def _check_grid_spec(spec):
+    check(hash_grid.grid_path_ok(spec),
+          "hash grid path unavailable for this spec: it needs explicit "
+          "integer power-of-two ladder resolutions with finest <= 64 "
+          "(HashMLPSpec.resolutions), hidden_dim <= 8 and encoding_dim <= 64")
+
+
+def build_hash_grid_schedule(plan: Plan, field,
+                             jitter: np.ndarray | None = None,
+                             device=None) -> tiled_mod.TiledSchedule:
+    """Tile-table schedule for the hash grid path: the dense scheduler over
+    the spec's finest-level lattice (one slot per finest cell; every
+    level's lookups resolve from that cell's packed row), in numpy, or
+    moved to ``device``.
+
+    The JAX package cascades 16 -> 8 -> 4 px sub-tiles to the coarsest
+    configuration without slot overflow (the grid path has no windowed
+    fallback). This slice has 16 px tiles only: a scene whose tiles
+    overflow them raises ``NotImplementedError`` (ROADMAP Queue 1 item
+    10), and never returns a schedule with overflow rays."""
+    _check_grid_spec(field.spec)
+    proxy = _HashSchedProxy(
+        schedule_grid_shape=hash_grid.grid_shape(field.spec))
+    sched = tiled_mod.build_tiled_schedule(plan, proxy, jitter=jitter)
+    if sched.fallback_rays:
+        raise NotImplementedError(
+            f"{sched.fallback_rays} rays overflow the hash grid's 16 px slot "
+            f"tables: needs {tiled_mod._TODO_SUBTILES}")
+    return sched if device is None else sched.to(device)
+
+
+class _HashGridGroupset(torch.autograd.Function):
+    """Hash-field params -> every tile group's raw K8f output, as one
+    autograd node: the counterpart of ``dvren_tpu``'s
+    ``render_hash_grid_tiled`` chain (table build, ``_gather_banks_f32``,
+    the hash-grid custom VJP per group).
+
+    Forward: :func:`hash_grid.build_hash_grid_table`, the bank gather at
+    C columns, K8f per group. Backward: K8b per group, one ``torch.cat``
+    of the slot rows, :func:`gather_plan.slot_rows_to_table` over C
+    columns, then :func:`hash_grid.hash_grid_table_grad`; the MLP partials
+    are summed with ``torch.sum`` and mapped by ``grads_from_blocks``. Autograd
+    never records the table gather: its backward would be ``index_add_``.
+    Returns None for ``static`` and the params' cotangents in
+    ``("hash_table",) + MLP_KEYS`` order. ``static`` = (schedule,
+    per-group GridParams, use_kernel, spec); on CPU tensors every kernel
+    step runs its plain twin."""
+
+    @staticmethod
+    def forward(ctx, static, *params):
+        schedule, prms, use_kernel, spec = static
+        named = dict(zip(("hash_table",) + MLP_KEYS, params))
+        table = hash_grid.build_hash_grid_table(named, spec)
+        sc = pack_mlp_scalars(named, spec)
+        tabs = tiled_mod._gather_bank_tables(
+            table, schedule.gathermap_all,
+            [(g.n_tiles, g.banks) for g in schedule.groups])
+        forward = (hash_grid.hash_grid_forward if use_kernel
+                   else hash_grid.hash_grid_forward_plain)
+        raws = tuple(
+            forward(tabs[gi], g.samp, g.base, g.rayt, g.k_enter,
+                    g.bank0.reshape(-1), sc, prms[gi])
+            for gi, g in enumerate(schedule.groups))
+        ctx.static = static
+        ctx.tabs = tabs
+        ctx.n_rows = int(table.shape[0])
+        ctx.save_for_backward(sc)
+        return raws
+
+    @staticmethod
+    def backward(ctx, *g_raws):
+        schedule, prms, use_kernel, spec = ctx.static
+        (sc,) = ctx.saved_tensors
+        backward = (hash_grid.hash_grid_backward if use_kernel
+                    else hash_grid.hash_grid_backward_plain)
+        rows, d_scs = [], []
+        for gi, g in enumerate(schedule.groups):
+            gs = g_raws[gi]
+            gs = (sc.new_zeros((g.n_tiles, 5, 16, 16)) if gs is None
+                  else gs.contiguous())
+            d_rows, d_sc = backward(ctx.tabs[gi], g.samp, g.base, g.rayt,
+                                    g.k_enter, g.bank0.reshape(-1), sc, gs,
+                                    prms[gi])
+            rows.append(d_rows.reshape(-1, d_rows.shape[-1]))
+            d_scs.append(d_sc)
+        table_grad = slot_rows_to_table(
+            torch.cat(rows), schedule.gather_plan, ctx.n_rows)
+        grads = grads_from_blocks(
+            hash_grid.hash_grid_table_grad(table_grad, spec),
+            torch.sum(torch.stack(d_scs), dim=0), spec)
+        return (None, *(grads[k] for k in ("hash_table",) + MLP_KEYS))
+
+
+def render_hash_grid_tiled(plan: Plan, field, schedule,
+                           use_kernel: bool = True) -> ImagePlanes:
+    """NGP-scale fused hash render: the packed multi-level table build, the
+    planned bank gather, K8f per tile group and the tile composition.
+    Differentiable in the field's parameters (the hash table through K8b's
+    slot rows, the planned gather transpose and the table build's
+    adjoint; the MLP heads through K8b's scalar gradients).
+    ``use_kernel=False`` runs the plain twins of K8f / K8b on the
+    schedule's device."""
+    _check_grid_spec(field.spec)
+    check(schedule.fallback_rays == 0 and schedule.fallback is None,
+          "hash grid path requires zero overflow rays")
+    check(tuple(schedule.grid_shape) == hash_grid.grid_shape(field.spec),
+          "schedule was built for a different finest resolution")
+    check(schedule.device == field.device,
+          f"schedule is on {schedule.device}, the field on {field.device}: "
+          f"move it with schedule.to(device)")
+    prms = tuple(hash_grid.grid_op_params(plan, field.spec, g.banks,
+                                          g.n_chunks)
+                 for g in schedule.groups)
+    raws = []
+    if schedule.groups:
+        raws = list(_HashGridGroupset.apply(
+            (schedule, prms, use_kernel, field.spec),
+            *(field.params[k] for k in ("hash_table",) + MLP_KEYS)))
+    return tiled_mod._compose_tiles(
+        plan, raws, [g.tile_ids for g in schedule.groups],
+        tile_px=schedule.tile_px)

@@ -25,9 +25,9 @@ The backward (:class:`_GroupsetFromParams`, what autograd runs through
 :func:`render_tiled`) runs K2 per group, which emits each tile's table
 gradient as f32 slot rows (and the ray-plane adjoint for camera
 gradients), sums the rows of every cell through the schedule's
-:class:`GatherPlan` (gathers and sums, no scatter and no atomics), and
-unpacks the table gradient onto the grid with K4. Repeat runs are
-bit-identical.
+:class:`~dvren_tpu_torch.ops.gather_plan.GatherPlan` (gathers and sums,
+no scatter and no atomics), and unpacks the table gradient onto the grid
+with K4. Repeat runs are bit-identical.
 
 The schedule is built in numpy, as the JAX package builds it, and its
 arrays, the gather plan included, equal that package's array for array.
@@ -52,6 +52,8 @@ from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import check
 from dvren_tpu_torch.ops import fused_tiles, packed_transpose
 from dvren_tpu_torch.ops.compose import ImagePlanes
+from dvren_tpu_torch.ops.gather_plan import (build_gather_plan,
+                                             slot_rows_to_table)
 from dvren_tpu_torch.ops.grid import NCH, fullpitch_rows
 from dvren_tpu_torch.ops.raygen import generate_rays
 from dvren_tpu_torch.render import windowed as windowed_mod
@@ -112,23 +114,6 @@ class TileGroup:
         return dataclasses.replace(self, **{
             f.name: _to_device(getattr(self, f.name), device)
             for f in dataclasses.fields(self)})
-
-
-@dataclass(frozen=True)
-class GatherPlan:
-    """The backward's transpose of the bank gather (see
-    :func:`_build_gather_plan`). ``meta`` = per exact-count class
-    (offset into ``all_idx``, cells n_k, slots per cell c_k)."""
-
-    all_idx: np.ndarray      # (S_live,) int32 slot rows, grouped by cell
-    inv_map: np.ndarray      # (n_cells,) int32 class-order row per table
-    #                          row; inactive rows name the trailing zero row
-    meta: tuple
-
-    def to(self, device) -> "GatherPlan":
-        return dataclasses.replace(
-            self, all_idx=_to_device(self.all_idx, device),
-            inv_map=_to_device(self.inv_map, device))
 
 
 @dataclass(frozen=True)
@@ -271,12 +256,17 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     ``jitter``: the (N, K) host table of a stratified plan; built from the
     plan when omitted. The schedule is valid for any field with the same
     bbox and grid resolution. Tiles whose chunks touch more than 256
-    cells are counted in ``fallback_rays`` and left out."""
+    cells are counted in ``fallback_rays`` and left out. A field with a
+    ``schedule_grid_shape`` (the hash grid path's virtual cell grid)
+    schedules over that grid instead of ``sigma``'s."""
     _check_slice(field, tile_px, pitch, cell_scale, occupancy, quantize,
                  uniform_shape, all_tiles, bank_aligned)
     bbox_min = tuple(float(v) for v in field.bbox_min)
     bbox_max = tuple(float(v) for v in field.bbox_max)
-    nz, ny, nx = (int(v) for v in field.sigma.shape[:3])
+    grid = getattr(field, "schedule_grid_shape", None)
+    if grid is None:
+        grid = field.sigma.shape[:3]
+    nz, ny, nx = (int(v) for v in grid)
     check(min(nx, ny, nz) >= 2, "tiled rendering requires grid dims >= 2")
 
     n = plan.ray_count
@@ -508,49 +498,11 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     return TiledSchedule(
         groups=tuple(groups), fallback=None,
         hostmap_all=hostmap_all, gathermap_all=hostmap_all,
-        gather_plan=_build_gather_plan(hostmap_all,
+        gather_plan=build_gather_plan(hostmap_all,
                                        fullpitch_rows((nz, ny, nx))),
         total_rays=n, tiled_samples=tiled_samples,
         full_lattice_samples=n * k_max, fallback_rays=fallback_rays,
         grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max))
-
-
-def _build_gather_plan(hostmap_all: np.ndarray,
-                       n_cells: int) -> GatherPlan | None:
-    """The transpose of the bank gather, as gathers and sums only.
-
-    The live slot rows (dead lanes, -1, carry exact zeros and are left
-    out) are sorted by the table row (cell) they gather, and the cells are
-    bucketed into exact-count classes: ``all_idx`` concatenates every
-    class's (n_k, c_k) block of slot rows, so the backward takes ONE
-    gather of the slot rows, sums each cell's c_k rows, and assembles the
-    (n_cells, 32) table gradient by the inverse-permutation gather
-    ``inv_map`` (untouched cells read a trailing zero row). None for an
-    empty schedule. Equal to ``dvren_tpu``'s plan array for array."""
-    if hostmap_all.size == 0:
-        return None
-    valid = np.nonzero(hostmap_all >= 0)[0].astype(np.int64)
-    if valid.size == 0:
-        return None
-    order = valid[np.argsort(hostmap_all[valid], kind="stable")]
-    cells, first, counts = np.unique(
-        hostmap_all[order], return_index=True, return_counts=True)
-    idx_parts, meta, cell_order = [], [], []
-    off = 0
-    for v in np.unique(counts):
-        member = counts == v
-        n_k, c_k = int(member.sum()), int(v)
-        col = np.arange(c_k, dtype=np.int64)[None, :]
-        idx_parts.append(
-            order[first[member][:, None] + col].astype(np.int32).reshape(-1))
-        cell_order.append(cells[member])
-        meta.append((off, n_k, c_k))
-        off += n_k * c_k
-    cell_order = np.concatenate(cell_order)
-    inv_map = np.full(n_cells, cell_order.size, np.int32)
-    inv_map[cell_order] = np.arange(cell_order.size, dtype=np.int32)
-    return GatherPlan(all_idx=np.concatenate(idx_parts), inv_map=inv_map,
-                      meta=tuple(meta))
 
 
 # --------------------------------------------------------------- device side
@@ -558,16 +510,20 @@ def _build_gather_plan(hostmap_all: np.ndarray,
 
 def _gather_bank_tables(table: torch.Tensor, gathermap_all: torch.Tensor,
                         group_shapes) -> tuple:
-    """(R, 32) packed table -> per-group bank blocks (T, NB, 32, 128).
+    """(R, w) packed table -> per-group bank blocks (T, NB, w, 128): w = 32
+    for a dense grid, the hash grid's C = L*8*F columns for a hash field
+    (``dvren_tpu``'s ``_gather_banks_f32``; its transpose is
+    :func:`slot_rows_to_table`).
 
     Dead lanes (-1) read row 0, as the JAX gather's ``mode="clip"``
     does; torch indexing would wrap -1 to the last row."""
+    w = int(table.shape[1])
     rows = torch.index_select(table, 0, gathermap_all.clamp(min=0))
-    banks = rows.reshape(-1, MAX_CELLS, NCH).transpose(1, 2).contiguous()
+    banks = rows.reshape(-1, MAX_CELLS, w).transpose(1, 2).contiguous()
     out, off = [], 0
     for t_cnt, nb in group_shapes:
         out.append(banks[off:off + t_cnt * nb].reshape(
-            t_cnt, nb, NCH, MAX_CELLS))
+            t_cnt, nb, w, MAX_CELLS))
         off += t_cnt * nb
     return tuple(out)
 
@@ -605,27 +561,6 @@ def tiles5_to_planes(plan: Plan, tiles5: torch.Tensor, tile_px: int):
                         dim=-1)
     return (image, place(t_final, 1.0), place(opacity, 0.0),
             place(depth, float(plan.t_far)))
-
-
-def slot_rows_to_table(rows: torch.Tensor, plan: GatherPlan | None,
-                       n_cells: int) -> torch.Tensor:
-    """Per-slot table-gradient rows (S, 32) -> the (n_cells, 32) table
-    gradient: the f32 counterpart of ``dvren_tpu``'s
-    ``ct16_rows_to_table16``. One gather of the live slot rows in the
-    plan's class order, a sum over each cell's c_k rows per exact-count
-    class, and an inverse-permutation gather with a trailing zero row for
-    the cells no slot names. Gathers and sums only: no ``index_add_`` or
-    scatter, whose float atomics on CUDA add in a run-dependent order."""
-    if plan is None:
-        return rows.new_zeros((n_cells, rows.shape[1]))
-    g = torch.index_select(rows, 0, plan.all_idx)
-    parts = []
-    for off, n_k, c_k in plan.meta:
-        block = g[off:off + n_k * c_k]
-        parts.append(block if c_k == 1 else
-                     block.reshape(n_k, c_k, -1).sum(dim=1))
-    parts.append(rows.new_zeros((1, rows.shape[1])))
-    return torch.index_select(torch.cat(parts), 0, plan.inv_map)
 
 
 class _PlaceTiles(torch.autograd.Function):

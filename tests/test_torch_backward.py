@@ -32,6 +32,7 @@ from tests.test_torch_core import port_field, port_plan
 
 import dvren_tpu_torch as P
 from dvren_tpu_torch.ops import fused_tiles as p_ft
+from dvren_tpu_torch.ops import gather_plan as p_gp
 from dvren_tpu_torch.ops import packed_transpose as p_pt
 from dvren_tpu_torch.ops import raygen as p_raygen
 from dvren_tpu_torch.opt import fit as p_fit
@@ -127,8 +128,8 @@ def test_gather_plan_equal(name):
 
 
 def test_gather_plan_empty():
-    assert p_tiled._build_gather_plan(np.zeros(0, np.int32), 8) is None
-    assert p_tiled._build_gather_plan(np.full(4, -1, np.int32), 8) is None
+    assert p_gp.build_gather_plan(np.zeros(0, np.int32), 8) is None
+    assert p_gp.build_gather_plan(np.full(4, -1, np.int32), 8) is None
 
 
 @pytest.mark.parametrize("name", ["stratified", "roi"])
@@ -141,8 +142,8 @@ def test_slot_reduction_matches_reference(name):
     want = j_tiled.ct16_rows_to_table(
         j_grid._split_u16(jnp.asarray(rows)), ref.gather_plan.all_idx,
         ref.gather_plan.meta, ref.gather_plan.inv_map, 32)
-    out = p_tiled.slot_rows_to_table(torch.from_numpy(rows),
-                                     got.gather_plan, n_cells)
+    out = p_gp.slot_rows_to_table(torch.from_numpy(rows),
+                                  got.gather_plan, n_cells)
     assert out.shape == (n_cells, 32)
     close(out.numpy(), want, tol=1e-6)
 

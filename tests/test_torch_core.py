@@ -107,7 +107,11 @@ def test_cuda_context_raises_without_cuda(monkeypatch):
         P.Context.create(device="cuda")
     with pytest.raises(P.DvrenError):
         P.Context.create(P.ContextOptions(preferred_device="cuda:0"))
-    assert P.Context.create().device == torch.device("cpu")
+    # no device named means CUDA, never a silent CPU
+    with pytest.raises(P.DvrenError):
+        P.Context.create()
+    with pytest.raises(P.DvrenError):
+        P.Context.create(P.ContextOptions())
 
 
 def test_context_devices():
@@ -116,9 +120,13 @@ def test_context_devices():
     assert ctx.version == (0, 1, 0)
     with pytest.raises(P.DvrenError):
         P.Context.create(device="not-a-device")
-    default = P.Context.create()
-    assert default.platform == ("cuda" if torch.cuda.is_available()
-                                else "cpu")
+    assert P.Context.create(P.ContextOptions(
+        preferred_device="cpu")).device == torch.device("cpu")
+    if torch.cuda.is_available():
+        assert P.Context.create().device == torch.device("cuda", 0)
+    else:
+        with pytest.raises(P.DvrenError, match="no CUDA"):
+            P.Context.create()
 
 
 # --------------------------------------------------------------------- plans

@@ -15,7 +15,14 @@ kernel's repeat runs bit for bit. The hash-MLP kernels: K7f and the hash
 Renderer.forward within 5e-6 (depth 1e-4), K7b within 2e-5 x scale (the
 JAX package's bound for its own kernel, tests/test_hash_tiled.py:114),
 fit_hash_mlp's losses on the card within 1e-5 relative of the CPU's.
+The hash-grid kernels: K8f within 5e-6 (depth 1e-4), K8b within 2e-5 x
+scale on its slot rows and MLP gradients, repeat runs and two backwards
+of render_hash_grid_tiled under torch.use_deterministic_algorithms bit
+for bit, and the card's render and gradients within those bounds of the
+CPU twins'.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -23,7 +30,8 @@ import torch
 
 import dvren_tpu_torch as P
 from dvren_tpu_torch import _build
-from dvren_tpu_torch.ops import fused_tiles, hash_tiles, packed_transpose
+from dvren_tpu_torch.ops import (fused_tiles, hash_grid, hash_tiles,
+                                 packed_transpose)
 from dvren_tpu_torch.opt import fit
 from dvren_tpu_torch.render import hash_tiled, tiled
 
@@ -77,7 +85,8 @@ def test_library_builds_once(cuda_device):
     report = _build.ptxas_report()
     for kernel in ("tile_forward_kernel", "packed_table_kernel",
                    "tile_backward_kernel", "packed_table_grad_kernel",
-                   "hash_forward_kernel", "hash_backward_kernel"):
+                   "hash_forward_kernel", "hash_backward_kernel",
+                   "hash_grid_forward_kernel", "hash_grid_backward_kernel"):
         assert kernel in report
 
 
@@ -403,3 +412,145 @@ def test_fit_hash_mlp_on_the_card_matches_cpu(cuda_device):
     np.testing.assert_allclose(got.loss_history, want.loss_history,
                                rtol=1e-5)
     assert got.steady_step_ms > 0.0
+
+
+# -------------------------------------------------------- hash grid (K8)
+
+GRID_SPECS = {
+    # tests/test_hash_grid.py's spec: C = 48
+    "test": dict(n_levels=3, features_per_level=2, table_size=4096,
+                 resolutions=(2, 4, 8)),
+    # encoding_dim 64, C = 512: the widest grid_path_ok admits (K8b takes
+    # one step per staged group and eight column panels)
+    "wide": dict(n_levels=8, features_per_level=8, table_size=4096,
+                 resolutions=(1, 1, 2, 2, 4, 4, 8, 8)),
+}
+GRID_SCENES = ("fixed", "stratified", "opaque", "wide")
+
+
+def grid_scene(name, device=None):
+    """tests/test_hash_grid.py's plan (32^2, 16 steps) and a field from a
+    seeded generator (table std 0.5); "opaque" adds 30 to sigma_b2, so
+    rays stop early."""
+    spec = P.HashMLPSpec(**GRID_SPECS["wide" if name == "wide" else "test"])
+    w, steps = 32, 16
+    mode = (P.SamplingMode.FIXED if name == "fixed"
+            else P.SamplingMode.STRATIFIED)
+    plan = P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.2, t_far=2.2, seed=5,
+        camera=P.CameraConfig(k=(w * 1.2, 0, w / 2, 0, w * 1.2, w / 2, 0, 0,
+                                 1),
+                              c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1,
+                                   -1.0)),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps,
+                                  mode=mode)))
+    field = P.HashMLPField.init_random(torch.Generator().manual_seed(4),
+                                       spec=spec, table_std=0.5)
+    if name == "opaque":
+        with torch.no_grad():
+            field.params["sigma_b2"] += 30.0
+    return plan, field.to(device) if device is not None else field
+
+
+def _grid_args(name, device):
+    plan, field = grid_scene(name, device)
+    field.requires_grad_(False)
+    sched = hash_tiled.build_hash_grid_schedule(plan, field, device=device)
+    table = hash_grid.build_hash_grid_table(dict(field.params), field.spec)
+    tabs = tiled._gather_bank_tables(
+        table, sched.gathermap_all,
+        [(g.n_tiles, g.banks) for g in sched.groups])
+    sc = hash_tiles.pack_mlp_scalars(dict(field.params), field.spec)
+    args = []
+    for gi, g in enumerate(sched.groups):
+        prm = hash_grid.grid_op_params(plan, field.spec, g.banks, g.n_chunks)
+        args.append((tabs[gi], g.samp, g.base, g.rayt, g.k_enter,
+                     g.bank0.reshape(-1), sc, prm))
+    return plan, args
+
+
+@pytest.mark.parametrize("name", GRID_SCENES)
+def test_hash_grid_forward_matches_plain(cuda_device, name):
+    plan, args = _grid_args(name, cuda_device)
+    for a in args:
+        before = hash_grid.hash_grid_forward.launches
+        out = hash_grid.hash_grid_forward(*a)
+        torch.cuda.synchronize()
+        assert hash_grid.hash_grid_forward.launches == before + 1
+        plain = hash_grid.hash_grid_forward_plain(*a)
+        assert bool(torch.isfinite(out).all())
+        (r, g, b), t, o, d = fused_tiles.finalize_heads(plan, out)
+        (r2, g2, b2), t2, o2, d2 = fused_tiles.finalize_heads(plan, plain)
+        for x, y in ((r, r2), (g, g2), (b, b2), (t, t2), (o, o2)):
+            assert float((x - y).abs().max()) <= TOL
+        assert float((d - d2).abs().max()) <= TOL_DEPTH
+    if name == "opaque":   # some ray stops early
+        a = args[0]
+        no_stop = hash_grid.hash_grid_forward_plain(
+            *a[:7], dataclasses.replace(a[7], stop=0.0))
+        assert bool((hash_grid.hash_grid_forward_plain(*a)[:, 4]
+                     < no_stop[:, 4]).any())
+
+
+@pytest.mark.parametrize("name", GRID_SCENES)
+def test_hash_grid_backward_matches_plain(cuda_device, name):
+    _, args = _grid_args(name, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(5)
+    for a in args:
+        gs = torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
+                         device=cuda_device)
+        before = hash_grid.hash_grid_backward.launches
+        d_rows, d_sc = hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+        torch.cuda.synchronize()
+        assert hash_grid.hash_grid_backward.launches == before + 1
+        p_rows, p_sc = hash_grid.hash_grid_backward_plain(*a[:7], gs, a[7])
+        for got, want in ((d_rows, p_rows), (d_sc, p_sc)):
+            assert bool(torch.isfinite(got).all())
+            _close(got, want, HASH_GRAD_TOL)
+        again = hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+        assert torch.equal(again[0], d_rows) and torch.equal(again[1], d_sc)
+
+
+def test_hash_grid_kernels_reject_strided_input(cuda_device):
+    _, args = _grid_args("fixed", cuda_device)
+    tabs = args[0][0]
+    strided = torch.empty((tabs.shape[0] * 2,) + tabs.shape[1:],
+                          device=cuda_device)[::2]
+    strided.copy_(tabs)
+    with pytest.raises(ValueError):
+        hash_grid.hash_grid_forward(strided, *args[0][1:])
+
+
+@pytest.mark.parametrize("name", ["stratified", "opaque"])
+def test_render_hash_grid_on_the_card_matches_cpu(cuda_device, name):
+    """render_hash_grid_tiled and its gradients through autograd on the
+    card against the CPU twins; under torch.use_deterministic_algorithms
+    two backwards are equal bit for bit."""
+    def run(device):
+        plan, field = grid_scene(name, device)
+        sched = hash_tiled.build_hash_grid_schedule(plan, field,
+                                                    device=device)
+        out = hash_tiled.render_hash_grid_tiled(plan, field, sched)
+        loss = torch.mean(out.image ** 2) + 0.25 * torch.mean(out.opacity)
+        keys = sorted(field.params)
+        grads = torch.autograd.grad(loss, [field.params[k] for k in keys])
+        return out, dict(zip(keys, grads))
+
+    launches = (hash_grid.hash_grid_forward.launches,
+                hash_grid.hash_grid_backward.launches)
+    torch.use_deterministic_algorithms(True)
+    try:
+        got, g1 = run(cuda_device)
+        _, g2 = run(cuda_device)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert hash_grid.hash_grid_forward.launches > launches[0]
+    assert hash_grid.hash_grid_backward.launches > launches[1]
+    want, gw = run("cpu")
+    for key in ("image", "transmittance", "opacity"):
+        assert float((getattr(got, key).cpu() - getattr(want, key))
+                     .abs().max()) <= TOL
+    assert float((got.depth.cpu() - want.depth).abs().max()) <= TOL_DEPTH
+    for k in gw:
+        assert torch.equal(g1[k], g2[k]), k
+        _close(g1[k].cpu(), gw[k], HASH_GRAD_TOL)

@@ -335,13 +335,6 @@ def test_forward_inputs_checked():
         p_hash.render_hash_tiled(pplan, pf, p_hash.build_hash_schedule(pplan))
 
 
-def test_grid_path_not_ported():
-    for fn in (p_hash.build_hash_grid_schedule,
-               p_hash.render_hash_grid_tiled):
-        with pytest.raises(NotImplementedError, match="item 14"):
-            fn(None, None, None)
-
-
 # ----------------------------------------------------------------- Renderer
 
 
