@@ -8,7 +8,9 @@ the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
 with 128 stratified steps (seed 3; the scene ``bench.py::_scene`` builds,
 rebuilt here in numpy) through ``Renderer.forward``, its gradients
 through ``Renderer.backward``, and a few SGD training steps through
-autograd of ``render_tiled``; then the hash-MLP field (the L=8, T=128
+autograd of ``render_tiled``; the same grid with bfloat16 and float16
+packed tables and as sparse bricks (float32 and bfloat16); then the
+hash-MLP field (the L=8, T=128
 spec of ``tools/hashmlp_bench.py``) rendered at 512^2 with 128
 stratified steps (seed 5) through ``Renderer.forward`` and fitted with
 ``fit_hash_mlp`` (4 views at 96^2, 64 steps, Adam lr 8e-3); then the
@@ -92,13 +94,42 @@ autograd. Phases, each fatal when it fails:
     where there is one: the grid forward per frame and Mrays/s (schedule
     excluded), the table build, the bank gather, K8f, K8b, the slot
     reduction, the table adjoint, the training step, and the peak device
-    memory each adds.
+    memory each adds;
+21. K5a (16-bit packed-table build) against its plain twin at 64^3, for
+    bfloat16 and float16: bit-exact;
+22. ``Renderer.forward`` on the headline field with
+    ``packed_dtype="bfloat16"`` and ``"float16"`` (the headline's
+    schedule, reused): K5a launches once and K3 not, K1 once per group;
+    the planes match the plain path on the card within 5e-6 (depth 1e-4)
+    and the float32 frame within 5e-3;
+23. K5b (16-bit table-gradient unpack) against its plain twin on the
+    headline's table gradient (phase 7's K2 rows through the 16-bit
+    reduction): bit-exact;
+24. ``Renderer.backward`` on both 16-bit fields under
+    ``torch.use_deterministic_algorithms``: K2 per group, K5a and K5b
+    once; finite, nonzero, two calls equal bit for bit, within c * ulp x
+    scale of the plain path (c the largest slot class);
+25. four SGD steps on the bfloat16 field at lr 1e-3 x 512*512*3: K1, K2,
+    K5a and K5b launch every step, K3 and K4 never; the loss falls;
+26. ``SparseGridField.from_dense(headline, threshold=0)`` in float32 and
+    bfloat16 (all 512 bricks kept) through ``Renderer.forward``: K1 alone,
+    the frame equal to the dense frame of the same type; ``.backward``
+    deterministic and repeat-equal, within 2e-6 (float32) or c * ulp x
+    scale (bfloat16) of the plain path; four SGD steps on the float32
+    bricks (K1 and K2 alone; the loss falls);
+27. times with CUDA events: the 16-bit and sparse frames and steps beside
+    their plain paths, K5a and K5b beside their twins and the one
+    PyTorch call that computes the TPU kernel's function (a transpose:
+    ``stack.t().contiguous()`` of the (32, R) 16-bit stack,
+    ``rows.t().contiguous()`` of the (R, 32) float32 rows), and the peak
+    device memory each adds.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
 its float operations over 67 TFLOP/s, the H100 SXM's published
-peaks; ``library_ms`` is null: no single PyTorch call computes any of
-these functions), then the card line, and as the last line
+peaks; ``library_ms`` is null where no single PyTorch call computes the
+function, the transpose's time for K5a and K5b), then the card line, and
+as the last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when CUDA is missing, a kernel does not build, or any check fails.
 Imports no JAX.
@@ -107,6 +138,7 @@ Imports no JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import subprocess
 import sys
@@ -334,36 +366,412 @@ def rel_err(got, ref) -> float:
                                                  1e-30)
 
 
+DENSE_KERNELS = {   # counter name -> wrapper, in ops.fused_tiles or
+    #                 ops.packed_transpose
+    "fused_tiles": "tile_forward", "fused_tiles_bwd": "tile_backward",
+    "packed_table": "build_rows", "packed_table_bwd": "table_grad_to_params",
+    "packed_table16": "build_rows16",
+    "packed_table16_bwd": "table16_grad_to_params"}
+DENSE_F32 = ("fused_tiles", "packed_table", "fused_tiles_bwd",
+             "packed_table_bwd")    # the float32 route's kernels
+
+
+def _wrappers(fused_tiles, packed_transpose) -> dict:
+    return {k: getattr(fused_tiles if k.startswith("fused")
+                       else packed_transpose, fn)
+            for k, fn in DENSE_KERNELS.items()}
+
+
 def launch_counts(fused_tiles, packed_transpose) -> dict:
-    return {"fused_tiles": fused_tiles.tile_forward.launches,
-            "packed_table": packed_transpose.build_rows.launches,
-            "fused_tiles_bwd": fused_tiles.tile_backward.launches,
-            "packed_table_bwd": packed_transpose.table_grad_to_params.launches}
+    return {k: w.launches
+            for k, w in _wrappers(fused_tiles, packed_transpose).items()}
 
 
 def reset_counts(fused_tiles, packed_transpose) -> None:
-    fused_tiles.tile_forward.launches = 0
-    fused_tiles.tile_backward.launches = 0
-    packed_transpose.build_rows.launches = 0
-    packed_transpose.table_grad_to_params.launches = 0
+    for w in _wrappers(fused_tiles, packed_transpose).values():
+        w.launches = 0
 
 
 def tiled_grads(torch, P, tiled, plan, field, sched, dl_img, use_kernel):
-    """d sum(image * dl_img) in (sigma, color, c2w, k) through
-    ``render_tiled``: what ``Renderer.backward`` computes, with the
-    kernels or with their plain twins."""
+    """d sum(image * dl_img) in (sigma, color, c2w, k), or (bricks, c2w,
+    k) for a sparse field, through ``render_tiled``: what
+    ``Renderer.backward`` computes, with the kernels or with their plain
+    twins."""
     from dvren_tpu_torch.ops.raygen import camera_arrays
 
     k, c2w, _ = camera_arrays(plan, dl_img.device)
     k.requires_grad_(True)
     c2w.requires_grad_(True)
-    leaf = P.DenseGridField(field.sigma.detach().clone(),
-                            field.color.detach().clone(),
-                            bbox_min=field.bbox_min, bbox_max=field.bbox_max)
+    if hasattr(field, "bricks"):
+        leaf = field.with_params(field.bricks.detach().clone())
+        params = (leaf.bricks,)
+    else:
+        leaf = field.with_params(field.sigma.detach().clone(),
+                                 field.color.detach().clone())
+        params = (leaf.sigma, leaf.color)
     planes = tiled.render_tiled(plan, leaf, sched, use_kernel=use_kernel,
                                 k=k, c2w=c2w)
     return torch.autograd.grad(torch.sum(planes.image * dl_img),
-                               (leaf.sigma, leaf.color, c2w, k))
+                               params + (c2w, k))
+
+
+def run_tables(torch, P, dev, plan, config, renderer, f32_result,
+               k2_rows) -> tuple[list, dict]:
+    """Phases 21-27: the dense headline with 16-bit packed tables (K5a,
+    K5b) and as sparse bricks, through Renderer.forward, .backward and
+    SGD steps. ``renderer`` holds the headline's schedule (the dtype does
+    not change it), ``f32_result`` is its float32 frame and ``k2_rows``
+    K2's slot rows for a seeded cotangent (phase 7)."""
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.ops.grid import _shift_stack_fullpitch
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import tiled
+
+    sched = renderer._tiled_schedule
+    n_groups = len(sched.groups)
+    base = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    sigma, color = base.sigma, base.color
+    n_rows = packed_transpose.fullpitch_rows(sigma.shape)
+    dtypes = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+    c_max = max(c_k for _, _, c_k in sched.gather_plan.meta)
+    ulp = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
+    gen = torch.Generator(device=dev).manual_seed(21)
+    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    report = {}
+
+    # 21. K5a against its twin at 64^3, bfloat16 and float16
+    k5a_err = 0.0
+    for name, dt in dtypes.items():
+        got = packed_transpose.build_rows16(sigma, color, dt)
+        torch.cuda.synchronize()
+        want = packed_transpose.build_rows16_plain(sigma, color, dt)
+        require(got.dtype == dt and torch.equal(got.view(torch.int16),
+                                                want.view(torch.int16)),
+                f"K5a differs from its plain twin ({name})")
+        k5a_err = max(k5a_err, float((got.float() - want.float()).abs().max()))
+    print(f"K5a == plain, bit for bit, bfloat16 and float16: "
+          f"{tuple(got.shape)}", flush=True)
+
+    # 22. Renderer.forward on the 16-bit fields (the headline's schedule)
+    fields16 = {name: base.with_packed_dtype(name) for name in dtypes}
+    fwd16 = {}
+    for name, f16 in fields16.items():
+        reset()
+        res = renderer.forward(f16)
+        c = counts()
+        print(f"{name} Renderer.forward: {res.stats.total_ms:.3f} ms, "
+              f"launches {c}, notes {res.stats.notes}", flush=True)
+        require(c["packed_table16"] == 1 and c["packed_table"] == 0
+                and c["fused_tiles"] == n_groups
+                and "kernel_launches=packed_table16:1" in res.stats.notes
+                and not any(n.startswith("tiled_schedule_build_ms=")
+                            for n in res.stats.notes),
+                f"the {name} forward did not launch K5a once and K1 per "
+                f"group on the headline's schedule")
+        for key in ("image", "transmittance", "opacity", "depth"):
+            require(bool(np.isfinite(getattr(res, key)).all()),
+                    f"{name} {key} not finite")
+        with torch.no_grad():
+            plain = tiled.render_tiled(plan, f16, sched, use_kernel=False)
+        err, depth, hit = planes_errors(res, plain)
+        vs32 = max(float(np.abs(getattr(res, k) - getattr(f32_result, k))
+                         .max()) for k in ("image", "transmittance",
+                                           "opacity"))
+        print(f"{name} forward vs plain path: planes {err:.3e}, depth "
+              f"{depth:.3e}, hitmask equal {hit}; vs the float32 frame "
+              f"{vs32:.3e}", flush=True)
+        require(err <= TOL and depth <= TOL_DEPTH and hit,
+                f"the {name} forward differs from the plain path")
+        require(vs32 <= 5e-3, f"the {name} frame is off the float32 frame")
+        fwd16[name] = {"result": res, "vs_plain": err, "vs_f32": vs32,
+                       "launches": c}
+
+    # 23. K5b against its twin on the headline's table gradient (K2's slot
+    # rows through the 16-bit reduction)
+    tg16 = {name: tiled.slot_rows_to_table_as(k2_rows, sched.gather_plan,
+                                              n_rows, dt)
+            for name, dt in dtypes.items()}
+    k5b_err = 0.0
+    for name, tg in tg16.items():
+        got = packed_transpose.table16_grad_to_params(tg, sigma.shape)
+        torch.cuda.synchronize()
+        want = packed_transpose.table16_grad_to_params_plain(tg, sigma.shape)
+        require(all(torch.equal(a, b) for a, b in zip(got, want)),
+                f"K5b differs from its plain twin ({name})")
+        k5b_err = max(k5b_err, max(float((a - b).abs().max())
+                                   for a, b in zip(got, want)))
+    print("K5b == plain, bit for bit, bfloat16 and float16", flush=True)
+
+    # 24. Renderer.backward on the 16-bit fields, deterministic
+    dl = (torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2
+          - 1).cpu().numpy()
+    dl_img = renderer._dl_image(dl)
+    bwd16 = {}
+    for name, f16 in fields16.items():
+        renderer.forward(f16)
+        reset()
+        torch.use_deterministic_algorithms(True)
+        try:
+            g1 = renderer.backward(f16, dl)
+            c = counts()
+            g2 = renderer.backward(f16, dl)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        require(c["fused_tiles_bwd"] == n_groups
+                and c["packed_table16"] == 1
+                and c["packed_table16_bwd"] == 1
+                and c["packed_table"] == 0 and c["packed_table_bwd"] == 0,
+                f"the {name} backward did not launch K2 per group, K5a and "
+                f"K5b once: {c}")
+        for key in ("sigma", "color", "camera", "camera_k"):
+            x = getattr(g1, key)
+            require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
+                    f"{name} backward {key} not finite or zero")
+            require(np.array_equal(x, getattr(g2, key)),
+                    f"{name} backward {key} differs between two calls")
+        plain_g = tiled_grads(torch, P, tiled, plan, f16, sched, dl_img,
+                              use_kernel=False)
+        errs = [rel_err(torch.from_numpy(getattr(g1, k)),
+                        plain_g[i].reshape(-1).cpu())
+                for i, k in enumerate(("sigma", "color"))]
+        tol = c_max * ulp[name]
+        print(f"{name} Renderer.backward: launches {c}; vs plain path sigma "
+              f"{errs[0]:.3e}, color {errs[1]:.3e} x scale (bound c * ulp = "
+              f"{tol:.3e}, c = {c_max}); two calls equal", flush=True)
+        require(max(errs) <= tol,
+                f"the {name} backward differs from the plain path")
+        bwd16[name] = {"launches": c, "vs_plain": errs}
+
+    # 25. bfloat16 training steps through autograd of render_tiled
+    target = torch.zeros((plan.height, plan.width, 3), device=dev)
+    n_values = plan.height * plan.width * 3
+
+    def sgd_trainer(field_t, sched_t, lr, use_kernel=True):
+        opt = torch.optim.SGD(field_t.parameters(), lr=lr)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = mse(tiled.render_tiled(plan, field_t, sched_t,
+                                          use_kernel=use_kernel).image,
+                       target)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return step
+
+    def four_steps(field_t, sched_t, expect):
+        step = sgd_trainer(field_t, sched_t, LR * n_values)
+        losses = []
+        reset()
+        for _ in range(4):
+            before = counts()
+            losses.append(float(step().detach()))
+            after = counts()
+            delta = {k: after[k] - before[k] for k in after}
+            require(all((delta[k] > 0) == (k in expect) for k in delta),
+                    f"a step launched other kernels than {expect}: {delta}")
+        require(all(np.isfinite(losses))
+                and all(b < a for a, b in zip(losses, losses[1:])),
+                f"the loss does not fall: {losses}")
+        return losses, counts()
+
+    bf16_losses, bf16_launches = four_steps(
+        P.DenseGridField.create(config, device=dev).with_packed_dtype(
+            "bfloat16"), sched,
+        ("fused_tiles", "fused_tiles_bwd", "packed_table16",
+         "packed_table16_bwd"))
+    print(f"4 SGD steps on the bfloat16 table at lr {LR} x {n_values}: loss "
+          f"{bf16_losses}; launches {bf16_launches}", flush=True)
+
+    # 26. sparse bricks at threshold 0: every brick is kept
+    t0 = time.perf_counter()
+    sp32 = P.SparseGridField.from_dense(base, threshold=0.0, device=dev)
+    from_dense_s = time.perf_counter() - t0
+    sp16 = P.SparseGridField.from_dense(base, threshold=0.0,
+                                        dtype="bfloat16", device=dev)
+    sp32.requires_grad_(False)
+    sp16.requires_grad_(False)
+    print(f"SparseGridField.from_dense {from_dense_s:.3f} s: "
+          f"{sp32.occupied_bricks} of {sp32.total_bricks} bricks occupied, "
+          f"{sp32.memory_bytes() / 1e6:.1f} MB (f32), "
+          f"{sp16.memory_bytes() / 1e6:.1f} MB (bf16)", flush=True)
+    require(sp32.occupied_bricks == sp32.total_bricks,
+            "threshold 0 dropped a brick of a field positive everywhere")
+    s_renderer = P.Renderer(P.Context.create(device="cuda"), plan)
+    sp_res = {}
+    for name, sp in (("float32", sp32), ("bfloat16", sp16)):
+        reset()
+        res = s_renderer.forward(sp)
+        c = counts()
+        print(f"sparse {name} Renderer.forward: {res.stats.total_ms:.3f} ms, "
+              f"launches {c}, notes {res.stats.notes}", flush=True)
+        s_groups = len(s_renderer._tiled_schedule.groups)
+        require(c["fused_tiles"] == s_groups and c["packed_table"] == 0
+                and c["packed_table16"] == 0,
+                f"the sparse {name} forward did not launch K1 alone")
+        require(s_renderer._tiled_schedule.table_kind == "sparse",
+                "the sparse forward did not take a sparse schedule")
+        ref = f32_result if name == "float32" else fwd16[name]["result"]
+        diff = max(float(np.abs(getattr(res, k) - getattr(ref, k)).max())
+                   for k in ("image", "transmittance", "opacity", "depth"))
+        print(f"sparse {name} frame vs dense {name} frame: max |diff| "
+              f"{diff:.3e}", flush=True)
+        require(diff == 0.0,
+                f"the sparse {name} frame differs from the dense one")
+        sp_res[name] = {"result": res, "vs_dense": diff, "launches": c}
+    s_sched = s_renderer._tiled_schedule
+    s_c = max(c_k for _, _, c_k in s_sched.gather_plan.meta)
+    sp_bwd = {}
+    for name, sp in (("float32", sp32), ("bfloat16", sp16)):
+        s_renderer.forward(sp)
+        reset()
+        torch.use_deterministic_algorithms(True)
+        try:
+            g1 = s_renderer.backward(sp, dl)
+            c = counts()
+            g2 = s_renderer.backward(sp, dl)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        require(g1.bricks.shape == tuple(sp.bricks.shape)
+                and g1.sigma.size == 0, "sparse backward shapes")
+        for key in ("bricks", "camera", "camera_k"):
+            x = getattr(g1, key)
+            require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
+                    f"sparse {name} backward {key} not finite or zero")
+            require(np.array_equal(x, getattr(g2, key)),
+                    f"sparse {name} backward {key} differs between calls")
+        plain_g = tiled_grads(torch, P, tiled, plan, sp, s_sched, dl_img,
+                              use_kernel=False)
+        err = rel_err(torch.from_numpy(g1.bricks), plain_g[0].float().cpu())
+        tol = GRID_TOL if name == "float32" else s_c * ulp[name]
+        print(f"sparse {name} Renderer.backward: launches {c}; d(bricks) vs "
+              f"plain path {err:.3e} x scale (bound {tol:.3e}); two calls "
+              f"equal", flush=True)
+        require(c["fused_tiles_bwd"] == len(s_sched.groups)
+                and c["packed_table_bwd"] == 0
+                and c["packed_table16_bwd"] == 0,
+                f"the sparse backward launched other kernels: {c}")
+        require(err <= tol, f"the sparse {name} backward differs from the "
+                            f"plain path")
+        sp_bwd[name] = {"vs_plain": err, "launches": c}
+    sp_losses, sp_launches = four_steps(
+        P.SparseGridField.from_dense(base, threshold=0.0, device=dev),
+        s_sched, ("fused_tiles", "fused_tiles_bwd"))
+    print(f"4 SGD steps on the float32 bricks at lr {LR} x {n_values}: loss "
+          f"{sp_losses}; launches {sp_launches}", flush=True)
+
+    # 27. times (CUDA events) and the peak device memory each adds
+    def peak_from_here():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        return torch.cuda.memory_allocated()
+
+    def added_peak_mb(base_bytes):
+        return (torch.cuda.max_memory_allocated() - base_bytes) / 2 ** 20
+
+    times, peaks = {}, {}
+    with torch.no_grad():
+        for name, f, sch in (("bfloat16", fields16["bfloat16"], sched),
+                             ("float16", fields16["float16"], sched),
+                             ("sparse_float32", sp32, s_sched),
+                             ("sparse_bfloat16", sp16, s_sched)):
+            b0 = peak_from_here()
+            times[f"frame_{name}"] = cuda_ms(
+                torch, lambda f=f, sch=sch: tiled.render_tiled(plan, f, sch),
+                FRAMES, warmup=3)
+            peaks[f"frame_{name}"] = added_peak_mb(b0)
+        times["plain_frame_bfloat16"] = cuda_ms(
+            torch, lambda: tiled.render_tiled(plan, fields16["bfloat16"],
+                                              sched, use_kernel=False),
+            1, warmup=1)
+        times["plain_frame_sparse_float32"] = cuda_ms(
+            torch, lambda: tiled.render_tiled(plan, sp32, s_sched,
+                                              use_kernel=False), 1, warmup=1)
+    for name, make, sch in (
+            ("bfloat16", lambda: P.DenseGridField.create(
+                config, device=dev).with_packed_dtype("bfloat16"), sched),
+            ("sparse_float32", lambda: P.SparseGridField.from_dense(
+                base, threshold=0.0, device=dev), s_sched)):
+        b0 = peak_from_here()
+        times[f"step_{name}"] = cuda_ms(torch, sgd_trainer(make(), sch, LR),
+                                        STEPS, warmup=2)
+        peaks[f"step_{name}"] = added_peak_mb(b0)
+        times[f"plain_step_{name}"] = cuda_ms(
+            torch, sgd_trainer(make(), sch, LR, use_kernel=False), 1,
+            warmup=1)
+    k5 = {}
+    for name, dt in dtypes.items():
+        stack = _shift_stack_fullpitch(sigma, color, n_rows).to(dt)
+        rows32 = tg16[name].float()
+        k5[name] = {
+            "k5a": cuda_ms(torch, lambda dt=dt: packed_transpose.build_rows16(
+                sigma, color, dt), 50),
+            "k5a_plain": cuda_ms(
+                torch, lambda dt=dt: packed_transpose.build_rows16_plain(
+                    sigma, color, dt), 50),
+            "k5a_library": cuda_ms(torch, lambda s=stack: s.t().contiguous(),
+                                   50),
+            "k5b": cuda_ms(
+                torch, lambda tg=tg16[name]:
+                packed_transpose.table16_grad_to_params(tg, sigma.shape), 50),
+            "k5b_plain": cuda_ms(
+                torch, lambda tg=tg16[name]:
+                packed_transpose.table16_grad_to_params_plain(
+                    tg, sigma.shape), 20),
+            "k5b_library": cuda_ms(torch, lambda r=rows32: r.t().contiguous(),
+                                   50)}
+    n_rays = plan.ray_count
+    print("16-bit and sparse times ms: " + ", ".join(
+        f"{k} {v:.4f}" for k, v in times.items()), flush=True)
+    print("Mrays/s: " + ", ".join(
+        f"{k} {n_rays / v / 1e3:.3f}" for k, v in times.items()
+        if not k.startswith("plain")), flush=True)
+    print("peak device memory added MiB: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in peaks.items()), flush=True)
+    for name, t in k5.items():
+        print(f"{name}: K5a {t['k5a']:.4f} ms (plain {t['k5a_plain']:.4f}, "
+              f"stack.t().contiguous() {t['k5a_library']:.4f}); K5b "
+              f"{t['k5b']:.4f} ms (plain {t['k5b_plain']:.4f}, "
+              f"rows.t().contiguous() {t['k5b_library']:.4f})", flush=True)
+
+    t16 = packed_transpose.build_rows16(sigma, color, torch.bfloat16)
+    k5b_out = packed_transpose.table16_grad_to_params(tg16["bfloat16"],
+                                                      sigma.shape)
+    kernels = [
+        {"name": "packed_table16", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/packed_table16.cu",
+         "replaces": "dvren_tpu/ops/packed_transpose.py:40",
+         "launches": fwd16["bfloat16"]["launches"]["packed_table16"],
+         "max_abs_err": k5a_err, "ms": k5["bfloat16"]["k5a"],
+         "plain_ms": k5["bfloat16"]["k5a_plain"],
+         **bound(nbytes(sigma, color, t16), 0),
+         "library_ms": k5["bfloat16"]["k5a_library"]},
+        {"name": "packed_table16_bwd", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/packed_table16_bwd.cu",
+         "replaces": "dvren_tpu/ops/packed_transpose.py:63",
+         "launches": bf16_launches["packed_table16_bwd"],
+         "max_abs_err": k5b_err, "ms": k5["bfloat16"]["k5b"],
+         "plain_ms": k5["bfloat16"]["k5b_plain"],
+         **bound(nbytes(tg16["bfloat16"], *k5b_out),
+                 8 * sum(x.numel() for x in k5b_out)),
+         "library_ms": k5["bfloat16"]["k5b_library"]},
+    ]
+    report.update({
+        "times_ms": times, "added_peak_mib": peaks, "k5_ms": k5,
+        "forward16_vs_plain": {k: v["vs_plain"] for k, v in fwd16.items()},
+        "forward16_vs_f32": {k: v["vs_f32"] for k, v in fwd16.items()},
+        "backward16_vs_plain": {k: v["vs_plain"] for k, v in bwd16.items()},
+        "sparse_vs_dense": {k: v["vs_dense"] for k, v in sp_res.items()},
+        "sparse_backward_vs_plain": {k: v["vs_plain"]
+                                     for k, v in sp_bwd.items()},
+        "bf16_losses": bf16_losses, "sparse_losses": sp_losses,
+        "sparse_from_dense_s": from_dense_s,
+        "sparse_memory_mb": [sp32.memory_bytes() / 1e6,
+                             sp16.memory_bytes() / 1e6],
+        "slot_class_max": [c_max, s_c]})
+    return kernels, report
 
 
 def hash_headline(P, width=512, max_steps=128):
@@ -502,7 +910,7 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
         s_field)
     s_ref = P.Renderer(P.Context.create(device="cpu"), s_plan,
                        P.RenderOptions(use_tiles=True)).forward(
-        hash_small_scene(P)[1])
+        hash_small_scene(P, "cpu")[1])
     s_err = max(float(np.abs(getattr(s_out, k) - getattr(s_ref, k)).max())
                 for k in ("image", "transmittance", "opacity"))
     s_depth = float(np.abs(s_out.depth - s_ref.depth).max())
@@ -867,7 +1275,7 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
     require(e2e_err <= TOL and e2e_depth <= TOL_DEPTH and hit_ok,
             "the grid forward differs from the plain path")
     s_plan, s_field = grid_small_scene(torch, P, dev)
-    _, s_cpu = grid_small_scene(torch, P)
+    _, s_cpu = grid_small_scene(torch, P, "cpu")
     with torch.no_grad():
         s_out = hash_tiled.render_hash_grid_tiled(
             s_plan, s_field,
@@ -1369,7 +1777,7 @@ def run() -> dict:
             before = launch_counts(fused_tiles, packed_transpose)
             losses.append(float(step().detach()))
             after = launch_counts(fused_tiles, packed_transpose)
-            require(all(after[k] > before[k] for k in after),
+            require(all(after[k] > before[k] for k in DENSE_F32),
                     f"a kernel did not launch in a training step: {after}")
         moved = max(float((field_t.sigma.detach() - sigma).abs().max()),
                     float((field_t.color.detach() - color).abs().max()))
@@ -1463,11 +1871,15 @@ def run() -> dict:
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          **bound(nbytes(tg, *k4_out), 8 * sum(x.numel() for x in k4_out))},
     ]
+    table_kernels, table_report = run_tables(
+        torch, P, dev, plan, config, renderer, result, all_rows)
+    kernels += table_kernels
     hash_kernels, hash_report = run_hash(torch, P, dev)
     kernels += hash_kernels
     grid_kernels, grid_report = run_grid(torch, P, dev)
     kernels += grid_kernels
     hash_report["grid"] = grid_report
+    hash_report["tables"] = table_report
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({**hash_report,
         "forward_ms": fwd_ms, "forward_mrays_s": n_rays / fwd_ms / 1e3,

@@ -8,9 +8,11 @@ built at first use by :mod:`dvren_tpu_torch._build`), each with a plain
 PyTorch twin that runs on the CPU.
 
 Ported so far: the dense-grid tiled render through
-:meth:`Renderer.forward`, and its gradients in the grid and the camera
-through :meth:`Renderer.backward` and autograd of
-:func:`dvren_tpu_torch.render.tiled.render_tiled`; the hash-MLP field's
+:meth:`Renderer.forward` (float32, bfloat16 or float16 packed tables),
+and its gradients in the grid and the camera through
+:meth:`Renderer.backward` and autograd of
+:func:`dvren_tpu_torch.render.tiled.render_tiled`; the same for sparse
+brick fields (:class:`SparseGridField`); the hash-MLP field's
 fused render through :meth:`Renderer.forward` and autograd of
 :func:`dvren_tpu_torch.render.hash_tiled.render_hash_tiled`, and its fit
 :func:`dvren_tpu_torch.opt.fit.fit_hash_mlp` (see ROADMAP.md for what
@@ -34,6 +36,7 @@ from dvren_tpu_torch.core.plan import (
 )
 from dvren_tpu_torch.fields.dense_grid import DenseGridConfig, DenseGridField
 from dvren_tpu_torch.fields.hash_mlp import HashMLPConfig, HashMLPField
+from dvren_tpu_torch.fields.sparse_grid import SparseGridField
 from dvren_tpu_torch.ops.hashmlp import HashMLPSpec
 from dvren_tpu_torch.render.renderer import (
     BackwardResult,
@@ -63,6 +66,7 @@ __all__ = [
     "DenseGridField",
     "HashMLPConfig",
     "HashMLPField",
+    "SparseGridField",
     "HashMLPSpec",
     "Renderer",
     "RenderOptions",

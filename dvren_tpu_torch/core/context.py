@@ -29,32 +29,40 @@ class ContextOptions:
     preferred_device: str = ""
 
 
+def resolve_device(name=None) -> torch.device:
+    """The torch device for ``name`` (a device or its string): CUDA when
+    ``name`` is None or empty, and a :class:`DvrenError` when CUDA is
+    asked for and torch has none (name ``"cpu"`` to run on the CPU).
+    Shared by :class:`Context` and the field constructors."""
+    name = str(name) if name else "cuda"
+    try:
+        device = torch.device(name)
+    except RuntimeError as exc:
+        raise DvrenError.unsupported(
+            f"unknown device '{name}': {exc}") from exc
+    if device.type == "cuda":
+        if not torch.cuda.is_available():
+            raise DvrenError.unsupported(
+                f"device '{name}' was asked for but torch has no CUDA "
+                f"(name device='cpu' to run on the CPU)")
+        index = device.index if device.index is not None else 0
+        if index >= torch.cuda.device_count():
+            raise DvrenError.unsupported(
+                f"device '{name}' does not exist "
+                f"({torch.cuda.device_count()} CUDA devices)")
+        return torch.device("cuda", index)
+    if device.type != "cpu":
+        raise DvrenError.unsupported(
+            f"device type '{device.type}' is not supported")
+    return device
+
+
 class Context:
     """Immutable owner of runtime facts: the device and the version."""
 
     def __init__(self, options: ContextOptions | None = None):
         self._options = options or ContextOptions()
-        name = self._options.preferred_device or "cuda"
-        try:
-            device = torch.device(name)
-        except RuntimeError as exc:
-            raise DvrenError.unsupported(
-                f"unknown device '{name}': {exc}") from exc
-        if device.type == "cuda":
-            if not torch.cuda.is_available():
-                raise DvrenError.unsupported(
-                    f"device '{name}' was asked for but torch has no CUDA "
-                    f"(name device='cpu' to run on the CPU)")
-            index = device.index if device.index is not None else 0
-            if index >= torch.cuda.device_count():
-                raise DvrenError.unsupported(
-                    f"device '{name}' does not exist "
-                    f"({torch.cuda.device_count()} CUDA devices)")
-            device = torch.device("cuda", index)
-        elif device.type != "cpu":
-            raise DvrenError.unsupported(
-                f"device type '{device.type}' is not supported")
-        self._device = device
+        self._device = resolve_device(self._options.preferred_device)
 
     @staticmethod
     def create(options: ContextOptions | None = None,

@@ -34,15 +34,23 @@
 //   depth, so at each step and level they mostly share one cell, hence
 //   all eight corner entries. Per level the lanes are grouped by cell
 //   (the lowest pending lane's cell, and a ballot of the lanes in it);
-//   for each group and feature the warp reduces the members' eight corner terms with a fixed
-//   butterfly (non-members add 0) that leaves corner c's sum in lane 4c,
-//   and lane 4c adds it into its entry: eight adds in parallel, or one
-//   corner after another when two corners hash to one entry. Groups run
-//   one after another. At the end the block adds its 8 copies in warp
-//   order.
+//   for each group and feature the warp reduces the members' eight corner
+//   terms with a fixed butterfly (non-members add 0) that leaves corner
+//   c's sum in lane 4c, and lane 4c adds it into its entry: eight adds in
+//   parallel, or one corner after another when two corners hash to one
+//   entry. Groups run one after another. At the end the block adds its
+//   copies in copy order.
+// - Where 8 copies of d(table) do not fit in shared memory (L*F > 33 at
+//   T=128, hidden 8), `share` warps hold one copy together: warps
+//   c*share .. c*share + share - 1 add into copy c in turn, warp by warp,
+//   each level's turns separated by block barriers, so the order of the
+//   adds is still fixed. The launcher takes the most copies that fit (8,
+//   4, 2 or 1): 8 for every spec up to L*F = 33, through an instance
+//   compiled without the turns (kShared false: the code of one copy per
+//   warp); 2 at L*F = 64, the widest spec fast_path_ok admits.
 //
 // Bound on the H100: latency. One block per SM (about 127 KB of shared
-// memory at L=8, T=128, F=2, hidden 8) leaves 8 warps to hide the
+// memory at L=8, T=128, F=2, hidden 8, 8 copies) leaves 8 warps to hide the
 // shuffles of the scatter and the owners' shared-memory reads. A first
 // version in which the lowest lane of each (level, corner, entry) group
 // added the group's terms one by one took 176.7 ms at the 512^2 hash
@@ -77,14 +85,15 @@ __host__ __device__ inline StageDims stage_dims(int n_levels, int n_feat,
   return s;
 }
 
-// Shared-memory floats: table, MLP scalars, 8 warp copies of d(table),
-// left and right stage rows. Nine copies of the table bound the specs K7b
-// takes: at T=128 and hidden 8, L*F <= 33 fits the H100's 227 KB.
-inline int smem_floats(int n_levels, int n_feat, int t_size, int hidden) {
+// Shared-memory floats: table, MLP scalars, `copies` copies of d(table),
+// left and right stage rows. At T=128 and hidden 8, 8 copies fit the
+// H100's 227 KB up to L*F = 33, 2 copies up to L*F = 64.
+inline int smem_floats(int n_levels, int n_feat, int t_size, int hidden,
+                       int copies) {
   const StageDims s = stage_dims(n_levels, n_feat, t_size, hidden);
   const int enc = n_levels * n_feat;
   const int n_sc = 2 * hidden * enc + 6 * hidden + 4;
-  return s.ltf * (1 + kWarps) + n_sc + kRays * (s.ls + s.rs);
+  return s.ltf * (1 + copies) + n_sc + kRays * (s.ls + s.rs);
 }
 
 // Warp sum of eight per-lane values: returns, in every lane, the sum of
@@ -146,6 +155,7 @@ __device__ inline void owner_columns(int o, const HashConsts& k,
   }
 }
 
+template <bool kShared>
 __global__ void __launch_bounds__(kRays, 1)
 hash_backward_kernel(const float* __restrict__ samp,
                      const float* __restrict__ rayt,
@@ -154,19 +164,22 @@ hash_backward_kernel(const float* __restrict__ samp,
                      const float* __restrict__ gs,
                      float* __restrict__ part_tab,
                      float* __restrict__ part_mlp,
-                     float* __restrict__ s_pre, HashConsts k) {
+                     float* __restrict__ s_pre, HashConsts k,
+                     int share_arg) {
   extern __shared__ float smem[];
+  const int share = kShared ? share_arg : 1;   // warps per d(table) copy
   const StageDims sd = stage_dims(k.n_levels, k.n_feat, k.t_size, k.hidden);
   const int n_f = k.n_feat;
+  const int copies = kWarps / share;
   float* tab = smem;
   float* sc = tab + sd.ltf;
-  float* acc_tab = sc + k.n_sc;                    // (8, L*T*F)
-  float* stage_l = acc_tab + kWarps * sd.ltf;      // (256, ls)
+  float* acc_tab = sc + k.n_sc;                    // (copies, L*T*F)
+  float* stage_l = acc_tab + copies * sd.ltf;      // (256, ls)
   float* stage_r = stage_l + kRays * sd.ls;        // (256, rs)
 
   block_copy(tab, table, sd.ltf);
   block_copy(sc, scg, k.n_sc);
-  for (int i = threadIdx.x; i < kWarps * sd.ltf; i += kRays) acc_tab[i] = 0.f;
+  for (int i = threadIdx.x; i < copies * sd.ltf; i += kRays) acc_tab[i] = 0.f;
 
   const int64_t t = blockIdx.x;
   const int ray = threadIdx.x;
@@ -315,10 +328,13 @@ hash_backward_kernel(const float* __restrict__ samp,
           denc[f] = acc;
         }
       }
-      float* acc_l = acc_tab + warp * sd.ltf + l * k.t_size * n_f;
+      float* acc_l = acc_tab + (warp / share) * sd.ltf + l * k.t_size * n_f;
       // lane 4c writes corner c of the group's cell
       const int c_own = lane >> 2;
       const bool writer = (lane & 3) == 0;
+      // the warps sharing a copy take their turns in warp order
+      for (int turn = 0; turn < share; ++turn) {
+      if (warp % share == turn) {
       for (unsigned pending = act; pending;) {    // uniform over the warp
         // the group: the active lanes in the lowest pending lane's cell
         const int leader = __ffs(pending) - 1;
@@ -358,6 +374,9 @@ hash_backward_kernel(const float* __restrict__ samp,
         }
         __syncwarp();         // the next group may share entries
       }
+      }
+      if (kShared) __syncthreads();   // the turn's adds are done
+      }
     }
     __syncthreads();   // every ray's stage rows are written
 
@@ -389,7 +408,7 @@ hash_backward_kernel(const float* __restrict__ samp,
   }
   for (int e = ray; e < sd.ltf; e += kRays) {
     float v = acc_tab[e];
-    for (int w = 1; w < kWarps; ++w) v = add(v, acc_tab[w * sd.ltf + e]);
+    for (int c = 1; c < copies; ++c) v = add(v, acc_tab[c * sd.ltf + e]);
     part_tab[t * sd.ltf + e] = v;
   }
 }
@@ -410,17 +429,33 @@ extern "C" int dvt_hash_backward(
                                    hidden, dt, t_near, t_far, t_stop, stop,
                                    res);
   if (k.n_sc > kMaxOwners * kRays) return (int)cudaErrorInvalidValue;
-  const int smem = smem_floats(n_levels, n_feat, t_size, hidden) * 4;
-  const cudaError_t err = cudaFuncSetAttribute(
-      hash_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (err != cudaSuccess) {   // the spec's table copies do not fit
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err != cudaSuccess) return (int)err;
+  // the most d(table) copies that fit: 8, 4, 2 or 1
+  int copies = kWarps;
+  while (copies > 1
+         && smem_floats(n_levels, n_feat, t_size, hidden, copies) * 4
+                > limit) {
+    copies /= 2;
+  }
+  const int smem = smem_floats(n_levels, n_feat, t_size, hidden, copies) * 4;
+  const auto kernel = copies == kWarps ? hash_backward_kernel<false>
+                                       : hash_backward_kernel<true>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) {   // even one copy does not fit
     cudaGetLastError();       // clear it: the next launch is unaffected
     return (int)err;
   }
   if (n_tiles > 0) {
-    hash_backward_kernel<<<n_tiles, kRays, smem, (cudaStream_t)stream>>>(
-        samp, rayt, table, sc, gs, part_tab, part_mlp, s_pre, k);
+    kernel<<<n_tiles, kRays, smem, (cudaStream_t)stream>>>(
+        samp, rayt, table, sc, gs, part_tab, part_mlp, s_pre, k,
+        kWarps / copies);
   }
   return (int)cudaGetLastError();
 }

@@ -5,7 +5,9 @@ Counterpart of ``dvren_tpu/fields/hash_mlp.py`` (the original's
 parameters are an ``nn.ParameterDict`` under the JAX package's keys
 (``hash_table`` (L, T, F), ``sigma_w1``, ``sigma_b1``, ``sigma_w2``,
 ``sigma_b2``, ``color_w1``, ``color_b1``, ``color_w2``, ``color_b2``), so
-``field.parameters()`` is what an optimizer trains.
+``field.parameters()`` is what an optimizer trains. The constructors put
+the parameters on CUDA unless the caller names a device
+(``device="cpu"`` on the CPU), as :class:`~dvren_tpu_torch.Context` does.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from dvren_tpu_torch.core.context import resolve_device
 from dvren_tpu_torch.core.status import check
 from dvren_tpu_torch.ops import hashmlp as ops
 from dvren_tpu_torch.ops.hashmlp import PARAM_KEYS, HashMLPSpec
@@ -59,6 +62,7 @@ class HashMLPField(nn.Module):
               f"hash-mlp params must have {spec.param_count} elements, "
               f"got {flat.size}")
         params = ops.unpack_params(flat, spec)
+        device = resolve_device(device)
         return HashMLPField({k: v.clone().to(device)
                              for k, v in params.items()}, spec)
 
@@ -85,6 +89,7 @@ class HashMLPField(nn.Module):
             color_w1=normal(hid, enc) * math.sqrt(2.0 / enc),
             color_w2=normal(3, hid) * math.sqrt(2.0 / hid),
             color_b1=torch.zeros(hid), color_b2=torch.zeros(3))
+        device = resolve_device(device)
         return HashMLPField({k: v.to(device) for k, v in params.items()},
                             spec)
 
@@ -93,6 +98,7 @@ class HashMLPField(nn.Module):
                               device=None) -> "HashMLPField":
         """A field from the JAX field's parameters carried across as numpy
         arrays (``{key: np.asarray(jax_field.params[key])}``)."""
+        device = resolve_device(device)
         return HashMLPField(
             {k: torch.from_numpy(np.array(v, np.float32)).to(device)
              for k, v in params.items()}, spec)

@@ -9,17 +9,35 @@ pure offset ``dz*Y*X + dy*X + dx``, zero past the end. Rows of cells on
 the far faces (ix == X-1 and so on) read wrapped neighbours and are never
 named by a schedule.
 
-The table itself is built by the CUDA kernel in
-:mod:`dvren_tpu_torch.ops.packed_transpose`; the stack here is the plain
-half of that kernel's twin, and :func:`stack_plane_grads`, its adjoint, is
-the plain twin of the table-gradient unpack there.
+The table itself is built by the CUDA kernels in
+:mod:`dvren_tpu_torch.ops.packed_transpose` (float32, or a 16-bit type
+named by :func:`table_dtype`); the stack here is the plain half of those
+kernels' twins, and :func:`stack_plane_grads`, its adjoint, is the plain
+twin of the table-gradient unpacks there.
 """
 
 from __future__ import annotations
 
 import torch
 
+from dvren_tpu_torch.core.status import DvrenError
+
 NCH = 32     # packed columns: 4 channels x 8 corners
+
+TABLE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+                 "float16": torch.float16}
+
+
+def table_dtype(packed_dtype: str) -> torch.dtype:
+    """A field's ``packed_dtype`` name -> the packed table's torch dtype:
+    "float32" (the parity default), "bfloat16" or "float16" (the 16-bit
+    flat-table route of the tiled renderer)."""
+    try:
+        return TABLE_DTYPES[packed_dtype]
+    except KeyError:
+        raise DvrenError.invalid_argument(
+            f"unknown packed_dtype {packed_dtype!r}; expected float32, "
+            "bfloat16 or float16") from None
 
 
 def fullpitch_rows(grid_shape_zyx) -> int:

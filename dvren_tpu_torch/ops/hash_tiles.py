@@ -410,10 +410,11 @@ def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
     runs are bit-identical) for CUDA tensors; runs
     :func:`hash_tile_backward_plain` for CPU tensors.
 
-    The kernel keeps nine copies of the (L, T, F) table in shared memory
-    (the table and one d(table) copy per warp), so on the H100 it takes
-    specs up to L*F = 33 at T=128 and hidden 8, where
-    :func:`fast_path_ok` allows 64; a larger spec fails at launch."""
+    The kernel keeps the (L, T, F) table and copies of d(table) in shared
+    memory: one per warp where they fit (on the H100 up to L*F = 33 at
+    T=128 and hidden 8), else one for every 2, 4 or 8 warps, which add
+    into it in turn. So it takes every spec :func:`fast_path_ok` admits
+    (L*F <= 64)."""
     t_cnt = int(samp.shape[0])
     _check_inputs(samp, rayt, table, sc, prm,
                   extra=(("gs", gs, (t_cnt, 5, ROWS, RAYS_COLS)),))
@@ -435,8 +436,7 @@ def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
             sc.data_ptr(), gs.data_ptr(), part_tab.data_ptr(),
             part_mlp.data_ptr(), s_pre.data_ptr(), t_cnt, *consts,
             ctypes.cast(res, ctypes.c_void_p), _build.stream_ptr(dev))
-    _build.check(code, "dvt_hash_backward (nine copies of the L*T*F table "
-                       "in shared memory)")
+    _build.check(code, "dvt_hash_backward")
     hash_tile_backward.launches += 1
     return (part_tab.sum(dim=0).reshape(table.shape),
             part_mlp.sum(dim=0))

@@ -1,12 +1,18 @@
 """Renderer: the plan-bound entry point of the port.
 
 Counterpart of ``dvren_tpu/render/renderer.py`` on its two tiled paths.
-On a dense grid, :meth:`Renderer.forward` builds the tile schedule once
-per (field bbox, grid shape, pitch) key, keeps it on the context's
-device, and replays it every frame (K3 table build, bank gather, one K1
-launch per tile group, tile compose); :meth:`Renderer.backward`
-differentiates that replay for ``sum(image * dl_image)`` in (sigma,
-color), ``c2w`` and ``k`` (K2 per group, the gather-plan reduction, K4).
+On a dense grid or a sparse brick field, :meth:`Renderer.forward` builds
+the tile schedule once per (field bbox, grid shape, pitch; for a sparse
+field its brick count and occupancy, compared by contents) key, keeps it
+on the context's device, and replays it every frame (the table: K3 for a
+float32 dense grid, K5a for a 16-bit one, the bricks as they are for a
+sparse field; the bank gather, one K1 launch per tile group, the tile
+compose); :meth:`Renderer.backward` differentiates that replay for
+``sum(image * dl_image)`` in (sigma, color) or the bricks, ``c2w`` and
+``k`` (K2 per group, the gather-plan reduction, then K4 or K5b on a dense
+grid). The forward's stats notes count the launches of K1
+(``fused_tiles``), K3 (``packed_table``) and K5a (``packed_table16``);
+K2, K4 and K5b (``packed_table16_bwd``) launch in the backward.
 On a hash-MLP field, the forward builds the frame's hash schedule once
 per plan and renders it with one K7f launch (the backward refuses: hash
 fields train through autograd of ``render_hash_tiled`` or
@@ -31,7 +37,6 @@ import torch
 from dvren_tpu_torch.core.context import Context
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import DvrenError, check
-from dvren_tpu_torch.fields.dense_grid import DenseGridField
 from dvren_tpu_torch.ops import fused_tiles, hash_tiles, packed_transpose
 from dvren_tpu_torch.ops.raygen import camera_arrays
 from dvren_tpu_torch.render import hash_tiled as hash_mod
@@ -96,17 +101,15 @@ class BackwardResult:
     camera: np.ndarray          # (3, 4) float32 = dL/d(c2w)
     camera_k: np.ndarray | None = None   # (3, 3) dL/dK
     sample_count: int = 0
+    bricks: np.ndarray | None = None     # sparse fields: dL/d(bricks),
+    #                                      (n_bricks, 512, 32) float32;
+    #                                      sigma and color are then empty
 
 
 def _launch_counts() -> tuple[int, int, int]:
     return (fused_tiles.tile_forward.launches,
             packed_transpose.build_rows.launches,
             hash_tiles.hash_tile_forward.launches)
-
-
-def _field_device(field) -> torch.device:
-    """The device of a dense grid's or a hash field's parameters."""
-    return field.device if hasattr(field, "spec") else field.sigma.device
 
 
 class Renderer:
@@ -152,26 +155,30 @@ class Renderer:
             mode, render = "tiled", self._forward_tiled
         else:
             raise NotImplementedError(self._untiled_mode())
-        device = _field_device(field)
-        check(device == self._ctx.device,
-              f"field is on {device}, the context on {self._ctx.device}: "
-              f"move it with field.to(device)")
+        check(field.device == self._ctx.device,
+              f"field is on {field.device}, the context on "
+              f"{self._ctx.device}: move it with field.to(device)")
         if self._options.enable_graph:
             raise NotImplementedError(
                 "CUDA graph capture is ROADMAP Queue 1 item 9")
         stats = RenderStats()
         t0 = time.perf_counter()
         launches0 = _launch_counts()
+        k5a0 = packed_transpose.build_rows16.launches
         with torch.no_grad():
             planes = render(field, stats)
         if self._ctx.device.type == "cuda":
             torch.cuda.synchronize(self._ctx.device)
         stats.total_ms = (time.perf_counter() - t0) * 1e3
         k1, k3, k7 = (b - a for a, b in zip(launches0, _launch_counts()))
-        stats.notes.append(f"kernel_launches=hash_tiles:{k7}"
-                           if mode == "hash_tiled" else
-                           f"kernel_launches=fused_tiles:{k1},"
-                           f"packed_table:{k3}")
+        if mode == "hash_tiled":
+            stats.notes.append(f"kernel_launches=hash_tiles:{k7}")
+        else:
+            stats.notes.append(f"kernel_launches=fused_tiles:{k1},"
+                               f"packed_table:{k3}")
+            stats.notes.append(
+                f"kernel_launches=packed_table16:"
+                f"{packed_transpose.build_rows16.launches - k5a0}")
         sample_count = self._analytic_sample_count()
         check(sample_count <= self._plan.max_samples,
               f"sample capacity exceeded: {sample_count} > "
@@ -209,12 +216,14 @@ class Renderer:
         if self._last_mode is None:
             raise DvrenError.invalid_argument(
                 "Backward requires a prior Forward")
-        if not (hasattr(field, "sigma") and hasattr(field, "color")):
+        if not (hasattr(field, "sigma") and hasattr(field, "color")
+                or hasattr(field, "bricks")):
             raise DvrenError.unsupported(
                 "Renderer.backward targets dense voxel grids (the reference "
-                "hp_diff contract); train other field families through "
-                "autograd (hash-MLP: render_hash_tiled / "
-                "opt.fit.fit_hash_mlp ride the fused kernel)")
+                "hp_diff contract) and sparse brick fields; train other "
+                "field families through autograd (hash-MLP: "
+                "render_hash_tiled / opt.fit.fit_hash_mlp ride the fused "
+                "kernel)")
         if self._last_mode != "tiled" or self._tiled_schedule is None:
             raise NotImplementedError(
                 f"the {self._last_mode} backward is ROADMAP Queue 1 item 11")
@@ -222,8 +231,8 @@ class Renderer:
         dl = np.asarray(dl_di, np.float32).reshape(-1)
         check(dl.size == n * 3,
               f"dL/dI must have {n * 3} elements, got {dl.size}")
-        check(field.sigma.device == self._ctx.device,
-              f"field is on {field.sigma.device}, the context on "
+        check(field.device == self._ctx.device,
+              f"field is on {field.device}, the context on "
               f"{self._ctx.device}: move it with field.to(device)")
         return self._backward_tiled(field, dl.reshape(n, 3), out)
 
@@ -241,13 +250,21 @@ class Renderer:
         return torch.from_numpy(dl_img).to(self._ctx.device)
 
     def _finish_backward(self, grads, out: BackwardResult | None):
-        sigma_g, color_g, dc2w, dk = (
-            g.detach().cpu().numpy().astype(np.float32) for g in grads)
+        """``grads`` = (*field params, dc2w, dk): (sigma, color) of a
+        dense grid, or (bricks,) of a sparse field (JAX
+        ``_finish_backward``)."""
+        *params_g, dc2w, dk = (
+            g.detach().float().cpu().numpy() for g in grads)
         result = out or BackwardResult(
             sigma=np.empty(0), color=np.empty(0),
             camera=np.zeros((3, 4), np.float32))
-        result.sigma = sigma_g.reshape(-1)
-        result.color = color_g.reshape(-1)
+        if len(params_g) == 1:      # sparse brick field
+            result.bricks = params_g[0]
+            result.sigma = np.empty(0, np.float32)
+            result.color = np.empty(0, np.float32)
+        else:
+            result.sigma = params_g[0].reshape(-1)
+            result.color = params_g[1].reshape(-1)
         result.camera = dc2w.reshape(3, 4)
         result.camera_k = dk.reshape(3, 3)
         result.sample_count = self._analytic_sample_count()
@@ -257,29 +274,36 @@ class Renderer:
                         out: BackwardResult | None) -> BackwardResult:
         """Differentiate the tiled replay of the last forward: the loss
         ``sum(image * dl_image)`` through :func:`render_tiled` at the
-        schedule's camera, in (sigma, color), c2w and k."""
+        schedule's camera, in (sigma, color) or the bricks, c2w and k."""
         dev = self._ctx.device
         dl_img = self._dl_image(dl)
         k0, c2w0, _ = camera_arrays(self._plan, dev)
         k0.requires_grad_(True)
         c2w0.requires_grad_(True)
-        # the field's values as fresh leaves (what ``field.with_params``
-        # is in the JAX package): the gradient does not depend on whether
+        # the field's values as fresh leaves (``field.with_params``, as
+        # in the JAX package): the gradient does not depend on whether
         # the caller's parameters require grad, nor touches their .grad
-        leaf = DenseGridField(field.sigma.detach(), field.color.detach(),
-                              bbox_min=field.bbox_min,
-                              bbox_max=field.bbox_max, interp=field.interp,
-                              oob=field.oob)
+        if hasattr(field, "bricks"):
+            leaf = field.with_params(field.bricks.detach())
+            params = (leaf.bricks,)
+        else:
+            leaf = field.with_params(field.sigma.detach(),
+                                     field.color.detach())
+            params = (leaf.sigma, leaf.color)
         with torch.enable_grad():
             planes = tiled_mod.render_tiled(
                 self._plan, leaf, self._tiled_schedule, k=k0, c2w=c2w0)
             loss = torch.sum(planes.image * dl_img)
-            grads = torch.autograd.grad(
-                loss, (leaf.sigma, leaf.color, c2w0, k0))
+            grads = torch.autograd.grad(loss, params + (c2w0, k0))
         return self._finish_backward(grads, out)
 
     def _tile_eligible(self, field) -> bool:
-        """Dense OOB_ZERO trilinear grids with all dims >= 2."""
+        """Dense OOB_ZERO trilinear grids with all dims >= 2, and sparse
+        brick fields (trilinear by construction) over such grids."""
+        if hasattr(field, "bricks") and hasattr(field, "occupancy"):
+            shape = tuple(int(v) for v in field.grid_shape)
+            return (getattr(field, "oob", None) == OobPolicy.ZERO
+                    and len(shape) == 3 and min(shape) >= 2)
         sigma = getattr(field, "sigma", None)
         return (sigma is not None and sigma.dim() == 3
                 and hasattr(field, "color")
@@ -327,7 +351,8 @@ class Renderer:
             return False
         if opt is True:
             check(self._tile_eligible(field),
-                  "use_tiles requires a dense OOB_ZERO trilinear grid field")
+                  "use_tiles requires a dense OOB_ZERO trilinear grid field "
+                  "or a sparse brick field")
             return True
         return (self._ctx.device.type == "cuda"
                 and not self._options.use_window
@@ -354,10 +379,22 @@ class Renderer:
                 f"OOB_ZERO trilinear grid or a hash-MLP field)")
 
     def _tiled_schedule_key(self, field) -> tuple:
-        return (tuple(float(v) for v in field.bbox_min),
-                tuple(float(v) for v in field.bbox_max),
-                tuple(int(v) for v in field.sigma.shape),
-                self._options.tile_pitch)
+        """What the schedule depends on. A sparse schedule's lanes name
+        brick rows resolved through the occupancy, so its key holds the
+        brick count and a host copy of the occupancy, compared by
+        contents. (The JAX key adds the occupancy only under
+        ``use_occupancy``, and then by object id: two sparse fields of one
+        shape and bbox would share a stale schedule there.)"""
+        bbox = (tuple(float(v) for v in field.bbox_min),
+                tuple(float(v) for v in field.bbox_max))
+        if hasattr(field, "bricks"):
+            occ = field.occupancy.cpu().numpy()
+            return bbox + (tuple(int(v) for v in field.grid_shape), True,
+                           self._options.tile_pitch,
+                           int(field.bricks.shape[0]), occ.shape,
+                           occ.tobytes())
+        return bbox + (tuple(int(v) for v in field.sigma.shape), False,
+                       self._options.tile_pitch)
 
     def _forward_tiled(self, field, stats: RenderStats):
         key = self._tiled_schedule_key(field)

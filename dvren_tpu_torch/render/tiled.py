@@ -29,12 +29,19 @@ gradients), sums the rows of every cell through the schedule's
 no scatter and no atomics), and unpacks the table gradient onto the grid
 with K4. Repeat runs are bit-identical.
 
+That is the dense float32 route. Every other field takes the flat-table
+route (:class:`_GroupsetFromTable`, from any (R, 32) table): a dense
+field with a 16-bit ``packed_dtype`` builds its table with K5a
+(:class:`_Table16FromParams`, whose backward is K5b), and a
+:class:`~dvren_tpu_torch.fields.sparse_grid.SparseGridField` hands over
+its bricks as they are, the schedule's lanes naming brick rows.
+
 The schedule is built in numpy, as the JAX package builds it, and its
 arrays, the gather plan included, equal that package's array for array.
-This slice supports what the headline render needs: 16 px tiles, pitch
-1, one slot per grid cell, dense float32 fields, no occupancy trimming
-and no windowed fallback. Anything else raises ``NotImplementedError``
-naming its ROADMAP item.
+This slice supports 16 px tiles, pitch 1, one slot per grid cell, dense
+fields (float32, bfloat16 or float16 tables) and sparse brick fields, no
+occupancy trimming and no windowed fallback. Anything else raises
+``NotImplementedError`` naming its ROADMAP item.
 
 Sample layout per (tile, chunk): block row r in [0, 16), lane l in
 [0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8.
@@ -50,11 +57,12 @@ import torch
 
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import check
+from dvren_tpu_torch.fields.sparse_grid import BRICK
 from dvren_tpu_torch.ops import fused_tiles, packed_transpose
 from dvren_tpu_torch.ops.compose import ImagePlanes
 from dvren_tpu_torch.ops.gather_plan import (build_gather_plan,
                                              slot_rows_to_table)
-from dvren_tpu_torch.ops.grid import NCH, fullpitch_rows
+from dvren_tpu_torch.ops.grid import NCH, fullpitch_rows, table_dtype
 from dvren_tpu_torch.ops.raygen import generate_rays
 from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
@@ -73,7 +81,6 @@ _TODO_SUBTILES = "sub-tiled and supercell schedules (ROADMAP Queue 1 item 10)"
 _TODO_PITCH2 = "pitch-2 packing (ROADMAP Queue 1 item 5)"
 _TODO_OCCUPANCY = "occupancy trimming (ROADMAP Queue 1 item 5)"
 _TODO_MULTIVIEW = "quantized and uniform schedules (ROADMAP Queue 1 item 13)"
-_TODO_SPARSE = "sparse fields and 16-bit tables (ROADMAP Queue 1 item 12)"
 
 
 def _to_device(x, device):
@@ -130,7 +137,7 @@ class TiledSchedule:
     grid_shape: tuple        # (nz, ny, nx) the cell ids index
     bbox: tuple              # ((min), (max)) the windows and cells assume
     tile_px: int = 16
-    table_kind: str = "dense"
+    table_kind: str = "dense"  # "sparse": lanes name brick-table rows
     pitch: int = 1
     cell_scale: int = 1
 
@@ -223,6 +230,21 @@ def _pack_runs_numpy(flat: np.ndarray, umax: int):
     return lidx, lanes_run, ucell, ulane, n_u
 
 
+def _sparse_rows_for_cells(cells: np.ndarray, occ: np.ndarray,
+                           grid_shape) -> np.ndarray:
+    """Full-pitch base-cell ids -> brick-table rows (slot * BRICK^3 +
+    brick-local cell), resolved on the host: the sparse field's two-level
+    indirection costs nothing at render time."""
+    nz, ny, nx = grid_shape
+    iz = cells // (ny * nx)
+    rem = cells % (ny * nx)
+    iy = rem // nx
+    ix = rem % nx
+    slot = occ[iz // BRICK, iy // BRICK, ix // BRICK].astype(np.int64)
+    local = ((iz % BRICK) * BRICK + (iy % BRICK)) * BRICK + (ix % BRICK)
+    return slot * (BRICK ** 3) + local
+
+
 def _check_slice(field, tile_px, pitch, cell_scale, occupancy, quantize,
                  uniform_shape, all_tiles, bank_aligned):
     if tile_px != 16 or cell_scale != 1:
@@ -233,9 +255,6 @@ def _check_slice(field, tile_px, pitch, cell_scale, occupancy, quantize,
         raise NotImplementedError(_TODO_OCCUPANCY)
     if quantize or uniform_shape is not None or all_tiles or bank_aligned:
         raise NotImplementedError(_TODO_MULTIVIEW)
-    if (hasattr(field, "bricks")
-            or getattr(field, "packed_dtype", "float32") != "float32"):
-        raise NotImplementedError(_TODO_SPARSE)
     check(getattr(field, "oob", OobPolicy.ZERO) == OobPolicy.ZERO,
           "tiled rendering requires an OOB_ZERO field")
     check(getattr(field, "interp", InterpMode.LINEAR) == InterpMode.LINEAR,
@@ -255,17 +274,25 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 
     ``jitter``: the (N, K) host table of a stratified plan; built from the
     plan when omitted. The schedule is valid for any field with the same
-    bbox and grid resolution. Tiles whose chunks touch more than 256
-    cells are counted in ``fallback_rays`` and left out. A field with a
-    ``schedule_grid_shape`` (the hash grid path's virtual cell grid)
-    schedules over that grid instead of ``sigma``'s."""
+    bbox and grid resolution (and, for a sparse field, occupancy). Tiles
+    whose chunks touch more than 256 cells are counted in
+    ``fallback_rays`` and left out. A field with a ``schedule_grid_shape``
+    (the hash grid path's virtual cell grid) schedules over that grid
+    instead of ``sigma``'s; a sparse brick field over its ``grid_shape``,
+    with lanes resolved to brick rows through its occupancy
+    (``table_kind="sparse"``)."""
     _check_slice(field, tile_px, pitch, cell_scale, occupancy, quantize,
                  uniform_shape, all_tiles, bank_aligned)
     bbox_min = tuple(float(v) for v in field.bbox_min)
     bbox_max = tuple(float(v) for v in field.bbox_max)
-    grid = getattr(field, "schedule_grid_shape", None)
-    if grid is None:
-        grid = field.sigma.shape[:3]
+    sparse = hasattr(field, "bricks")
+    if sparse:
+        grid = field.grid_shape
+        occ_host = field.occupancy.cpu().numpy()
+    else:
+        grid = getattr(field, "schedule_grid_shape", None)
+        if grid is None:
+            grid = field.sigma.shape[:3]
     nz, ny, nx = (int(v) for v in grid)
     check(min(nx, ny, nz) >= 2, "tiled rendering requires grid dims >= 2")
 
@@ -462,7 +489,14 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
             # Pad the group to a multiple of 8 tiles with dead tiles:
             # m == 0 everywhere, lane 0, packed row 0, throwaway pixels.
             t_pad = -(-t_kept // 8) * 8
-            uniq_r = hostmap.astype(np.int32)         # (T, lanes)
+            if sparse:
+                # lanes name brick rows; ``base`` keeps the cell ids
+                uniq_r = np.where(
+                    hostmap >= 0,
+                    _sparse_rows_for_cells(hm_c, occ_host, (nz, ny, nx)),
+                    -1).astype(np.int32)
+            else:
+                uniq_r = hostmap.astype(np.int32)     # (T, lanes)
             ke_k = ke_t[keep].astype(np.int32)
             tile_ids_k = sub_tile_ids[sel][keep].astype(np.int32)
             pids = pids.reshape(t_kept, RAYS_PER_TILE)
@@ -495,14 +529,16 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 
     hostmap_all = (np.concatenate(host_rows) if host_rows
                    else np.zeros(0, np.int32))
+    n_rows = (int(field.bricks.shape[0]) * BRICK ** 3 if sparse
+              else fullpitch_rows((nz, ny, nx)))
     return TiledSchedule(
         groups=tuple(groups), fallback=None,
         hostmap_all=hostmap_all, gathermap_all=hostmap_all,
-        gather_plan=build_gather_plan(hostmap_all,
-                                       fullpitch_rows((nz, ny, nx))),
+        gather_plan=build_gather_plan(hostmap_all, n_rows),
         total_rays=n, tiled_samples=tiled_samples,
         full_lattice_samples=n * k_max, fallback_rays=fallback_rays,
-        grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max))
+        grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max),
+        table_kind="sparse" if sparse else "dense")
 
 
 # --------------------------------------------------------------- device side
@@ -510,15 +546,20 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 
 def _gather_bank_tables(table: torch.Tensor, gathermap_all: torch.Tensor,
                         group_shapes) -> tuple:
-    """(R, w) packed table -> per-group bank blocks (T, NB, w, 128): w = 32
-    for a dense grid, the hash grid's C = L*8*F columns for a hash field
-    (``dvren_tpu``'s ``_gather_banks_f32``; its transpose is
-    :func:`slot_rows_to_table`).
+    """(R, w) packed table -> per-group float32 bank blocks (T, NB, w,
+    128): w = 32 for a dense grid or a brick table, the hash grid's C =
+    L*8*F columns for a hash field (``dvren_tpu``'s ``_gather_banks_f32``;
+    its transpose is :func:`slot_rows_to_table`). A 16-bit table is
+    widened after the gather, as ``dvren_tpu``'s ``_group_tables`` does.
 
     Dead lanes (-1) read row 0, as the JAX gather's ``mode="clip"``
-    does; torch indexing would wrap -1 to the last row."""
+    does; torch indexing would wrap -1 to the last row. (The JAX 16-bit
+    route wraps; dead lanes carry masked samples only, so the render is
+    the same.)"""
     w = int(table.shape[1])
     rows = torch.index_select(table, 0, gathermap_all.clamp(min=0))
+    if rows.dtype != torch.float32:
+        rows = rows.float()
     banks = rows.reshape(-1, MAX_CELLS, w).transpose(1, 2).contiguous()
     out, off = [], 0
     for t_cnt, nb in group_shapes:
@@ -678,6 +719,102 @@ class _GroupsetFromParams(torch.autograd.Function):
         return (None, d_sigma, d_color, *d_rayts)
 
 
+class _Table16FromParams(torch.autograd.Function):
+    """Dense-grid params -> the (R, 32) 16-bit packed table: K5a forward,
+    K5b backward (``dvren_tpu``'s ``_build_fullpitch`` custom VJP on a
+    16-bit dtype). ``static`` = (dtype, use_kernel); on CPU tensors both
+    run their plain twins."""
+
+    @staticmethod
+    def forward(ctx, static, sigma, color):
+        dtype, use_kernel = static
+        build = (packed_transpose.build_rows16 if use_kernel
+                 else packed_transpose.build_rows16_plain)
+        ctx.static = static
+        ctx.grid_shape = tuple(sigma.shape)
+        return build(sigma, color, dtype)
+
+    @staticmethod
+    def backward(ctx, g_table):
+        _, use_kernel = ctx.static
+        unpack = (packed_transpose.table16_grad_to_params if use_kernel
+                  else packed_transpose.table16_grad_to_params_plain)
+        d_sigma, d_color = unpack(g_table.contiguous(), ctx.grid_shape)
+        return None, d_sigma, d_color
+
+
+class _GroupsetFromTable(torch.autograd.Function):
+    """Any (R, 32) table (float32, bfloat16 or float16) -> every tile
+    group's raw K1 output, as one autograd node: the flat-table route of
+    ``dvren_tpu``'s ``render_tiled`` (a 16-bit dense table, or a sparse
+    field's bricks).
+
+    Forward: the bank gather, widened to f32 after it, then K1 per group.
+    Backward: K2 per group (f32 slot rows, and d(rayt) when ``cam``).
+    For a 16-bit table every slot row is rounded to the table's dtype, as
+    the JAX cotangent of the widening cast is; the rows of each cell are
+    then summed in f32 in the gather plan's fixed order
+    (:func:`slot_rows_to_table`) and the sums rounded once to the table's
+    dtype. (JAX's scatter-add adds in the 16-bit dtype, in scatter
+    order.) Returns (None, d_table in the table's dtype, *d_rayt per
+    group). ``static`` = (schedule, per-group TileParams, use_kernel,
+    cam)."""
+
+    @staticmethod
+    def forward(ctx, static, table, *rayts):
+        schedule, params, use_kernel, cam = static
+        forward = (fused_tiles.tile_forward if use_kernel
+                   else fused_tiles.tile_forward_plain)
+        tabs = _gather_bank_tables(
+            table, schedule.gathermap_all,
+            [(g.n_tiles, g.banks) for g in schedule.groups])
+        raws = tuple(
+            forward(tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
+                    g.bank0.reshape(-1), params[gi])
+            for gi, g in enumerate(schedule.groups))
+        ctx.static = static
+        ctx.tabs = tabs
+        ctx.table_meta = (int(table.shape[0]), table.dtype)
+        ctx.save_for_backward(*rayts)
+        return raws
+
+    @staticmethod
+    def backward(ctx, *g_raws):
+        schedule, params, use_kernel, cam = ctx.static
+        n_rows, dtype = ctx.table_meta
+        rayts = ctx.saved_tensors
+        backward = (fused_tiles.tile_backward if use_kernel
+                    else fused_tiles.tile_backward_plain)
+        rows, d_rayts = [], []
+        for gi, g in enumerate(schedule.groups):
+            d_rows, d_rayt = backward(
+                ctx.tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
+                g.bank0.reshape(-1), g_raws[gi].contiguous(), params[gi],
+                cam)
+            rows.append(d_rows.reshape(-1, NCH))
+            d_rayts.append(d_rayt)
+        d_table = None
+        if ctx.needs_input_grad[1]:
+            d_table = slot_rows_to_table_as(torch.cat(rows),
+                                            schedule.gather_plan, n_rows,
+                                            dtype)
+        return (None, d_table, *d_rayts)
+
+
+def slot_rows_to_table_as(rows: torch.Tensor, plan, n_rows: int,
+                          dtype: torch.dtype) -> torch.Tensor:
+    """f32 slot rows (S, w) -> the (n_rows, w) gradient of a table in
+    ``dtype``: each row rounded to ``dtype`` (the cotangent of the
+    gather's widening cast), summed per cell in f32 through the gather
+    plan, and the sums rounded once to ``dtype``. The transpose of
+    ``dvren_tpu``'s ``jnp.take(table, hostmap).astype(float32)``, whose
+    scatter-add adds in ``dtype``: equal to it where a cell has one slot,
+    within ``dtype``'s roundoff times the slot count elsewhere."""
+    if dtype != torch.float32:
+        rows = rows.to(dtype).float()
+    return slot_rows_to_table(rows, plan, n_rows).to(dtype)
+
+
 def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w) -> list:
     """Each group's (T, 12, 128) ray planes rebuilt from the camera
     tensors ``k`` / ``c2w`` (autograd records them), for the rays the
@@ -700,16 +837,22 @@ def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w) -> list:
 
 def render_tiled(plan: Plan, field, schedule: TiledSchedule,
                  use_kernel: bool = True, k=None, c2w=None) -> ImagePlanes:
-    """Tile-table render of a dense field, differentiable in the field's
-    ``sigma`` and ``color`` and, through ``k`` (3, 3) / ``c2w`` (3, 4),
-    in the camera at the schedule's camera.
+    """Tile-table render of a dense or sparse brick field, differentiable
+    in the field's ``sigma`` and ``color`` (or ``bricks``) and, through
+    ``k`` (3, 3) / ``c2w`` (3, 4), in the camera at the schedule's
+    camera.
+
+    Routes: a dense float32 field takes :class:`_GroupsetFromParams`
+    (K3, K1, K2, K4); a dense 16-bit field :class:`_Table16FromParams`
+    (K5a, K5b) into :class:`_GroupsetFromTable` (K1, K2); a sparse field
+    its bricks, flat, into :class:`_GroupsetFromTable`.
 
     The schedule must be on the field's device (:meth:`TiledSchedule.to`).
-    ``use_kernel=False`` runs the plain PyTorch twins of K1-K4 on that
-    device: the reference the kernels are held to. With ``k`` or ``c2w``
-    the ray planes are rebuilt from those tensors and the backward emits
-    their adjoint; the cells, slots and mask stay the schedule's, so a
-    camera far from the schedule's needs a new schedule."""
+    ``use_kernel=False`` runs the plain PyTorch twins of the kernels on
+    that device: the reference the kernels are held to. With ``k`` or
+    ``c2w`` the ray planes are rebuilt from those tensors and the backward
+    emits their adjoint; the cells, slots and mask stay the schedule's, so
+    a camera far from the schedule's needs a new schedule."""
     check(tuple(float(v) for v in field.bbox_min) == tuple(schedule.bbox[0])
           and tuple(float(v) for v in field.bbox_max)
           == tuple(schedule.bbox[1]),
@@ -717,15 +860,20 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
           "fraction constants depend on it)")
     check(getattr(field, "oob", OobPolicy.ZERO) == OobPolicy.ZERO,
           "tiled rendering requires an OOB_ZERO field")
-    check(tuple(int(v) for v in field.sigma.shape[:3])
-          == tuple(schedule.grid_shape),
+    sparse = hasattr(field, "bricks")
+    kind = "sparse" if sparse else "dense"
+    check(schedule.table_kind == kind,
+          f"schedule was built for a {schedule.table_kind} field, this one "
+          f"is {kind}")
+    shape = field.grid_shape if sparse else field.sigma.shape[:3]
+    check(tuple(int(v) for v in shape) == tuple(schedule.grid_shape),
           "schedule was built for a different grid resolution")
     if schedule.fallback_rays:
         raise NotImplementedError(
             f"{schedule.fallback_rays} rays need {_TODO_FALLBACK}")
-    sigma, color = field.sigma, field.color
-    check(schedule.device == sigma.device,
-          f"schedule is on {schedule.device}, the field on {sigma.device}: "
+    device = field.bricks.device if sparse else field.sigma.device
+    check(schedule.device == device,
+          f"schedule is on {schedule.device}, the field on {device}: "
           f"move it with schedule.to(device)")
 
     geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
@@ -736,6 +884,17 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     if schedule.groups:
         rayts = (_traced_rayts(plan, schedule, k, c2w) if cam
                  else [g.rayt for g in schedule.groups])
-        raws = list(_GroupsetFromParams.apply(
-            (schedule, params, use_kernel, cam), sigma, color, *rayts))
+        static = (schedule, params, use_kernel, cam)
+        if sparse:
+            raws = _GroupsetFromTable.apply(
+                static, field.bricks.reshape(-1, NCH), *rayts)
+        elif getattr(field, "packed_dtype", "float32") == "float32":
+            raws = _GroupsetFromParams.apply(static, field.sigma,
+                                             field.color, *rayts)
+        else:
+            table = _Table16FromParams.apply(
+                (table_dtype(field.packed_dtype), use_kernel), field.sigma,
+                field.color)
+            raws = _GroupsetFromTable.apply(static, table, *rayts)
+        raws = list(raws)
     return _compose_tiles(plan, raws, [g.tile_ids for g in schedule.groups])

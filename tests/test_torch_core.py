@@ -269,7 +269,7 @@ def test_dense_field_create_matches_reference():
                color=rng.uniform(0, 1, 72), bbox_min=(-1, 0, 0.5),
                bbox_max=(1, 2, 3))
     ref = J.DenseGridField.create(J.DenseGridConfig(**cfg))
-    got = P.DenseGridField.create(P.DenseGridConfig(**cfg))
+    got = P.DenseGridField.create(P.DenseGridConfig(**cfg), device="cpu")
     np.testing.assert_array_equal(got.sigma.detach().numpy(),
                                   np.asarray(ref.sigma))
     np.testing.assert_array_equal(got.color.detach().numpy(),
@@ -292,5 +292,5 @@ def test_dense_field_validation_matches_reference(bad):
     with pytest.raises(J.DvrenError) as ref:
         J.DenseGridField.create(J.DenseGridConfig(**bad))
     with pytest.raises(P.DvrenError) as got:
-        P.DenseGridField.create(P.DenseGridConfig(**bad))
+        P.DenseGridField.create(P.DenseGridConfig(**bad), device="cpu")
     assert str(got.value) == str(ref.value)

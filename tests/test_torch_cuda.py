@@ -19,7 +19,13 @@ The hash-grid kernels: K8f within 5e-6 (depth 1e-4), K8b within 2e-5 x
 scale on its slot rows and MLP gradients, repeat runs and two backwards
 of render_hash_grid_tiled under torch.use_deterministic_algorithms bit
 for bit, and the card's render and gradients within those bounds of the
-CPU twins'.
+CPU twins'. The 16-bit tables and sparse fields: K5a and K5b bit for bit,
+the 16-bit and sparse renders on the card within 5e-6 (depth 1e-4) of the
+CPU's, their gradients within 2e-6 x scale (float32 bricks) or c * ulp x
+scale (16-bit tables: c the largest slot class, ulp 2^-8 bfloat16, 2^-11
+float16; the K2 kernel and its twin differ in the last f32 bits, which
+can move a 16-bit rounding by one ulp), repeat backwards bit for bit; K7b
+trains L*F = 64 within 2e-5 x scale.
 """
 
 import dataclasses
@@ -86,7 +92,8 @@ def test_library_builds_once(cuda_device):
     for kernel in ("tile_forward_kernel", "packed_table_kernel",
                    "tile_backward_kernel", "packed_table_grad_kernel",
                    "hash_forward_kernel", "hash_backward_kernel",
-                   "hash_grid_forward_kernel", "hash_grid_backward_kernel"):
+                   "hash_grid_forward_kernel", "hash_grid_backward_kernel",
+                   "packed_table16_kernel", "packed_table16_grad_kernel"):
         assert kernel in report
 
 
@@ -167,7 +174,7 @@ def test_forward_on_the_card_matches_cpu(cuda_device, name):
     assert packed_transpose.build_rows.launches > k3
     ref = P.Renderer(P.Context.create(device="cpu"), plan,
                      P.RenderOptions(use_tiles=True)).forward(
-        P.DenseGridField.create(config))
+        P.DenseGridField.create(config, device="cpu"))
     for key in ("image", "transmittance", "opacity"):
         np.testing.assert_allclose(getattr(got, key), getattr(ref, key),
                                    atol=TOL)
@@ -249,7 +256,7 @@ def test_backward_on_the_card_matches_cpu(cuda_device, name):
     assert packed_transpose.table_grad_to_params.launches > launches[1]
     cpu = P.Renderer(P.Context.create(device="cpu"), plan,
                      P.RenderOptions(use_tiles=True))
-    cpu_field = P.DenseGridField.create(config)
+    cpu_field = P.DenseGridField.create(config, device="cpu")
     cpu.forward(cpu_field)
     ref = cpu.backward(cpu_field, dl)
     for key in ("sigma", "color"):
@@ -269,7 +276,7 @@ HASH_GRAD_TOL = 2e-5    # x max |twin|
 HASH_SCENES = ("fixed", "stratified", "roi", "l8", "zeros", "opaque")
 
 
-def hash_scene(name, device=None):
+def hash_scene(name, device="cpu"):
     """tests/test_hash_tiled.py's plans (24x20, 24 steps; the ROI case
     40x24) and a field from a seeded blob: "l8" is the L=8 / T=128 spec,
     "zeros" the all-zero blob, "opaque" stops its rays early."""
@@ -351,11 +358,12 @@ def test_hash_kernels_reject_strided_input(cuda_device):
         hash_tiles.hash_tile_backward(samp, rayt, table, sc, gs, prm)
 
 
-@pytest.mark.parametrize("n_levels,trains", [(16, True), (17, False)])
-def test_hash_backward_shared_memory_limit(cuda_device, n_levels, trains):
-    """K7b holds nine table copies in shared memory: at T=128, F=2 and
-    hidden 8 it takes L*F = 32 and refuses 34 at launch, which K7f
-    renders."""
+@pytest.mark.parametrize("n_levels", [16, 17, 32])
+def test_hash_backward_shared_memory_limit(cuda_device, n_levels):
+    """K7b trains every spec fast_path_ok admits: at T=128, F=2 and
+    hidden 8, L*F = 32 keeps one d(table) copy per warp, 34 and 64 share
+    copies between warps. Each is within 2e-5 x scale of the float64
+    twin, and repeat runs are equal bit for bit."""
     plan, _ = hash_scene("fixed")
     spec = P.HashMLPSpec(n_levels=n_levels, table_size=128)
     assert hash_tiles.fast_path_ok(spec)
@@ -367,13 +375,17 @@ def test_hash_backward_shared_memory_limit(cuda_device, n_levels, trains):
             field.params["hash_table"].detach().contiguous(),
             hash_tiles.pack_mlp_scalars(dict(field.params), spec).detach())
     assert bool(torch.isfinite(hash_tiles.hash_tile_forward(*args, prm)).all())
-    gs = torch.ones((sched.n_tiles, 5, 16, 16), device=cuda_device)
-    if trains:
-        d_tab, _ = hash_tiles.hash_tile_backward(*args, gs, prm)
-        assert bool(torch.isfinite(d_tab).all())
-    else:
-        with pytest.raises(RuntimeError, match="shared memory"):
-            hash_tiles.hash_tile_backward(*args, gs, prm)
+    gs = torch.randn((sched.n_tiles, 5, 16, 16), device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(5))
+    d_tab, d_sc = hash_tiles.hash_tile_backward(*args, gs, prm)
+    p_tab, p_sc = hash_tiles.hash_tile_backward_plain(*args, gs, prm)
+    for got, want in ((d_tab, p_tab), (d_sc, p_sc)):
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, HASH_GRAD_TOL)
+    assert float(d_tab.abs().max()) > 0.0
+    again = hash_tiles.hash_tile_backward(*args, gs, prm)
+    assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_sc)
 
 
 @pytest.mark.parametrize("name", ["stratified", "roi", "l8"])
@@ -445,7 +457,8 @@ def grid_scene(name, device=None):
         sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps,
                                   mode=mode)))
     field = P.HashMLPField.init_random(torch.Generator().manual_seed(4),
-                                       spec=spec, table_std=0.5)
+                                       spec=spec, table_std=0.5,
+                                       device="cpu")
     if name == "opaque":
         with torch.no_grad():
             field.params["sigma_b2"] += 30.0
@@ -554,3 +567,122 @@ def test_render_hash_grid_on_the_card_matches_cpu(cuda_device, name):
     for k in gw:
         assert torch.equal(g1[k], g2[k]), k
         _close(g1[k].cpu(), gw[k], HASH_GRAD_TOL)
+
+
+# ------------------------------------------ 16-bit tables and sparse (K5)
+
+ULP16 = {torch.bfloat16: 2.0 ** -8, torch.float16: 2.0 ** -11}
+DTYPES16 = (torch.bfloat16, torch.float16)
+
+
+@pytest.mark.parametrize("dtype", DTYPES16)
+@pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
+                                   (64, 64, 64)])
+def test_packed_table16_bit_equal_to_plain(cuda_device, dtype, shape):
+    rng = np.random.default_rng(2)
+    sigma = torch.from_numpy(
+        rng.uniform(-1, 300, shape).astype(np.float32)).to(cuda_device)
+    color = torch.from_numpy(
+        rng.uniform(0, 1, shape + (3,)).astype(np.float32)).to(cuda_device)
+    before = packed_transpose.build_rows16.launches
+    got = packed_transpose.build_rows16(sigma, color, dtype)
+    torch.cuda.synchronize()
+    assert packed_transpose.build_rows16.launches == before + 1
+    want = packed_transpose.build_rows16_plain(sigma, color, dtype)
+    assert got.dtype == dtype
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", DTYPES16)
+@pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
+                                   (64, 64, 64)])
+def test_packed_table16_grad_bit_equal_to_plain(cuda_device, dtype, shape):
+    rows = packed_transpose.fullpitch_rows(shape)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    tg = torch.randn((rows, 32), generator=gen, device=cuda_device).to(dtype)
+    before = packed_transpose.table16_grad_to_params.launches
+    got = packed_transpose.table16_grad_to_params(tg, shape)
+    torch.cuda.synchronize()
+    assert packed_transpose.table16_grad_to_params.launches == before + 1
+    want = packed_transpose.table16_grad_to_params_plain(tg, shape)
+    for a, b in zip(got, want):
+        assert a.shape == b.shape and torch.equal(a, b)
+
+
+def test_packed_table16_rejects_strided_input(cuda_device):
+    sigma = torch.zeros((4, 4, 8), device=cuda_device)[:, :, ::2]
+    with pytest.raises(ValueError):
+        packed_transpose.build_rows16(
+            sigma, torch.zeros((4, 4, 4, 3), device=cuda_device),
+            torch.bfloat16)
+    rows = packed_transpose.fullpitch_rows((4, 4, 4))
+    tg = torch.zeros((rows, 64), dtype=torch.bfloat16,
+                     device=cuda_device)[:, ::2]
+    with pytest.raises(ValueError):
+        packed_transpose.table16_grad_to_params(tg, (4, 4, 4))
+
+
+def _field(config, device, kind):
+    """The scene's dense field with a 16-bit table (kind a torch dtype),
+    or its sparse bricks at threshold 0 (kind "sparse" / "sparse16")."""
+    dense = P.DenseGridField.create(config, device="cpu")
+    if kind in ("sparse", "sparse16"):
+        dtype = "bfloat16" if kind == "sparse16" else "float32"
+        return P.SparseGridField.from_dense(dense, dtype=dtype, device=device)
+    return dense.with_packed_dtype(str(kind).replace("torch.", "")).to(
+        device)
+
+
+def _grad_tol(renderer, kind):
+    if kind == "sparse":
+        return GRID_TOL
+    c = max(c_k for _, _, c_k in renderer._tiled_schedule.gather_plan.meta)
+    return c * ULP16[torch.bfloat16 if kind == "sparse16" else kind]
+
+
+@pytest.mark.parametrize("kind", [torch.bfloat16, torch.float16, "sparse",
+                                  "sparse16"])
+def test_tables_on_the_card_match_cpu(cuda_device, kind):
+    """Renderer.forward and .backward on a 16-bit dense field (K5a, K1,
+    K2, K5b) and on a sparse field (K1, K2) against the CPU's, and two
+    backwards under torch.use_deterministic_algorithms equal bit for
+    bit."""
+    plan, config = scene("stratified")
+    dl = np.random.default_rng(3).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    counts = (packed_transpose.build_rows16.launches,
+              packed_transpose.table16_grad_to_params.launches,
+              packed_transpose.build_rows.launches,
+              fused_tiles.tile_backward.launches)
+    card = P.Renderer(P.Context.create(device="cuda"), plan)
+    field = _field(config, cuda_device, kind)
+    got = card.forward(field)
+    torch.use_deterministic_algorithms(True)
+    try:
+        g1 = card.backward(field, dl)
+        g2 = card.backward(field, dl)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    sparse = kind in ("sparse", "sparse16")
+    k5 = (packed_transpose.build_rows16.launches - counts[0],
+          packed_transpose.table16_grad_to_params.launches - counts[1])
+    assert k5 == ((0, 0) if sparse else (3, 2))   # backwards rebuild
+    assert packed_transpose.build_rows.launches == counts[2]
+    assert fused_tiles.tile_backward.launches > counts[3]
+    cpu = P.Renderer(P.Context.create(device="cpu"), plan,
+                     P.RenderOptions(use_tiles=True))
+    cpu_field = _field(config, "cpu", kind)
+    ref = cpu.forward(cpu_field)
+    for key in ("image", "transmittance", "opacity"):
+        np.testing.assert_allclose(getattr(got, key), getattr(ref, key),
+                                   atol=TOL)
+    np.testing.assert_allclose(got.depth, ref.depth, atol=TOL_DEPTH)
+    want = cpu.backward(cpu_field, dl)
+    keys = ("bricks",) if sparse else ("sigma", "color")
+    for key in keys:
+        a, b = getattr(g1, key), getattr(want, key)
+        assert np.isfinite(a).all() and np.abs(a).max() > 0
+        _close(torch.from_numpy(a), torch.from_numpy(b),
+               _grad_tol(card, kind))
+    for key in keys + ("camera", "camera_k"):
+        np.testing.assert_array_equal(getattr(g2, key), getattr(g1, key))

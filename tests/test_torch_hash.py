@@ -59,7 +59,8 @@ def blob(spec, seed):
 
 def port_hash_field(jf, spec) -> "P.HashMLPField":
     return P.HashMLPField.from_reference_params(
-        {k: np.asarray(v) for k, v in jf.params.items()}, spec)
+        {k: np.asarray(v) for k, v in jf.params.items()}, spec,
+        device="cpu")
 
 
 def make_plan(w=24, h=20, mode=J.SamplingMode.FIXED, roi=None, seed=0):
@@ -218,22 +219,25 @@ def test_fast_path_rules():
 
 def test_field_construction():
     spec = P.HashMLPSpec()
-    zero = P.HashMLPField.create(P.HashMLPConfig())
+    zero = P.HashMLPField.create(P.HashMLPConfig(), device="cpu")
     assert float(zero.flat_params().detach().abs().sum()) == 0.0
     assert tuple(zero.params["hash_table"].shape) == (4, 16, 2)
     assert zero.params["sigma_b2"].dim() == 0
     flat = blob(spec, 8)
-    f = P.HashMLPField.create(P.HashMLPConfig(params=flat))
+    f = P.HashMLPField.create(P.HashMLPConfig(params=flat), device="cpu")
     np.testing.assert_array_equal(f.flat_params().detach().numpy(), flat)
     assert f.device == torch.device("cpu") and f.to("cpu") is f
     with pytest.raises(P.DvrenError):
-        P.HashMLPField.create(P.HashMLPConfig(params=flat[:-1]))
+        P.HashMLPField.create(P.HashMLPConfig(params=flat[:-1]),
+                              device="cpu")
     # parameters are what an optimizer trains; with_params shares them
     assert len(list(f.parameters())) == 9
     g = f.with_params(dict(f.params))
     assert g.params["hash_table"] is f.params["hash_table"]
-    r1 = P.HashMLPField.init_random(torch.Generator().manual_seed(1))
-    r2 = P.HashMLPField.init_random(torch.Generator().manual_seed(1))
+    r1 = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                    device="cpu")
+    r2 = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                    device="cpu")
     for k in r1.params:
         assert torch.equal(r1.params[k], r2.params[k]), k
     assert float(r1.params["sigma_w1"].detach().abs().sum()) > 0.0
@@ -382,7 +386,7 @@ def test_renderer_hash_modes():
         hash_renderer(pplan, P.RenderOptions(use_tiles=True,
                                              enable_graph=True)).forward(pf)
     ineligible = P.HashMLPField.create(P.HashMLPConfig(
-        spec=P.HashMLPSpec(table_size=100)))
+        spec=P.HashMLPSpec(table_size=100)), device="cpu")
     with pytest.raises(P.DvrenError):       # not a dense grid either
         hash_renderer(pplan).forward(ineligible)
 

@@ -85,7 +85,8 @@ def make_plan(w=32, steps=16, mode=J.SamplingMode.FIXED):
 
 def port_grid_field(jf, spec) -> "P.HashMLPField":
     return P.HashMLPField.from_reference_params(
-        {k: np.asarray(v) for k, v in jf.params.items()}, spec)
+        {k: np.asarray(v) for k, v in jf.params.items()}, spec,
+        device="cpu")
 
 
 # (plan kwargs, field seed)
@@ -128,7 +129,8 @@ def rel_close(got, ref, tol):
 
 def random_field(seed, spec, table_std=0.5):
     return P.HashMLPField.init_random(torch.Generator().manual_seed(seed),
-                                      spec=spec, table_std=table_std)
+                                      spec=spec, table_std=table_std,
+                                      device="cpu")
 
 
 # ------------------------------------------------------------ host half
@@ -250,7 +252,8 @@ def test_overflowing_scene_names_subtile_item():
 
 def test_refused_spec_raises():
     _, _, pplan, _ = case("fixed")
-    toy = P.HashMLPField.create(P.HashMLPConfig())     # no explicit ladder
+    toy = P.HashMLPField.create(P.HashMLPConfig(),     # no explicit ladder
+                                device="cpu")
     with pytest.raises(P.DvrenError, match="grid path"):
         p_hash.build_hash_grid_schedule(pplan, toy)
     with pytest.raises(P.DvrenError, match="grid path"):

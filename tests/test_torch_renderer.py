@@ -84,7 +84,7 @@ def test_schedule_built_once_and_replayed():
     # new values, same bbox and resolution: the schedule is reused
     brighter = P.DenseGridField.from_reference_arrays(
         np.asarray(field.sigma) * 2.0, np.asarray(field.color),
-        field.bbox_min, field.bbox_max)
+        field.bbox_min, field.bbox_max, device="cpu")
     third = renderer.forward(brighter)
     assert not any(n.startswith("tiled_schedule_build_ms=")
                    for n in third.stats.notes)
@@ -128,7 +128,7 @@ def test_ineligible_fields_rejected():
     plan, field, _ = reference("fixed")
     clamp = P.DenseGridField.from_reference_arrays(
         np.asarray(field.sigma), np.asarray(field.color), field.bbox_min,
-        field.bbox_max, oob=P.OobPolicy.CLAMP)
+        field.bbox_max, oob=P.OobPolicy.CLAMP, device="cpu")
     with pytest.raises(P.DvrenError):
         port_renderer(plan).forward(clamp)
 
@@ -145,7 +145,7 @@ def test_overflowing_schedule_raises():
         sampling=P.SamplingConfig(dt=0.05, max_steps=60)))
     field = P.DenseGridField.create(P.DenseGridConfig(
         resolution=(n, n, n), sigma=np.ones(n ** 3),
-        color=np.ones(3 * n ** 3)))
+        color=np.ones(3 * n ** 3)), device="cpu")
     sched = p_tiled.build_tiled_schedule(plan, field)
     assert sched.fallback_rays > 0
     with pytest.raises(NotImplementedError):
