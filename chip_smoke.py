@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only dense]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -17,7 +17,11 @@ stratified steps (seed 5) through ``Renderer.forward`` and fitted with
 NGP-scale hash grid path (``tools/hashmlp_bench.py``'s grid spec: L=4,
 F=2, T=4096, resolutions 4-8-16-32) at 512^2 with 128 stratified steps
 (seed 5) through ``render_hash_grid_tiled`` and 10 Adam steps through its
-autograd. Phases, each fatal when it fails:
+autograd; then the sub-tiled and supercell schedules of the cascade:
+``tools/finegrid_bench.py``'s fine-grid scene (512^2 over a 128^3 blob,
+256 stratified steps, seed 3) in float32 and bfloat16, and the eight
+views of ``tools/fit_benchmark.py``'s fit flagship (96^2 over 64^3, 96
+steps). Phases, each fatal when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
@@ -98,8 +102,9 @@ autograd. Phases, each fatal when it fails:
 21. K5a (16-bit packed-table build) against its plain twin at 64^3, for
     bfloat16 and float16: bit-exact;
 22. ``Renderer.forward`` on the headline field with
-    ``packed_dtype="bfloat16"`` and ``"float16"`` (the headline's
-    schedule, reused): K5a launches once and K3 not, K1 once per group;
+    ``packed_dtype="bfloat16"`` and ``"float16"`` (the schedule, keyed by
+    the dtype, rebuilt: the headline's 16 px cells): K5a launches once
+    and K3 not, K1 once per group;
     the planes match the plain path on the card within 5e-6 (depth 1e-4)
     and the float32 frame within 5e-3;
 23. K5b (16-bit table-gradient unpack) against its plain twin on the
@@ -122,7 +127,27 @@ autograd. Phases, each fatal when it fails:
     PyTorch call that computes the TPU kernel's function (a transpose:
     ``stack.t().contiguous()`` of the (32, R) 16-bit stack,
     ``rows.t().contiguous()`` of the (R, 32) float32 rows), and the peak
-    device memory each adds.
+    device memory each adds;
+28. the fine-grid scene through ``Renderer.forward``'s cascade (16 px
+    supercells, 0 overflow rays): K1 once per group and no table kernel;
+    the frame against the plain path on the card; the schedule's form,
+    groups, banks, live samples and build time;
+29. K1 and K2 in that form against their twins on the first 8 tiles of
+    every group: bit for bit, repeats too; two deterministic
+    ``Renderer.backward`` calls equal; four SGD steps at lr 1e-3 x
+    786,432 (the loss falls, K2 per group each step); the frame, the step,
+    K1 and K2 beside their twins (CUDA events; the twins once);
+30. the same with ``packed_dtype="bfloat16"`` (8 px cells, K5a once);
+31. the fit flagship's eight views, each through the cascade (8 px
+    supercells): K1 and K2 against their twins on every group, bit for
+    bit;
+32. 10 Adam steps (lr 5e-2, the flagship's) from a flat student on the
+    summed loss of the eight views (the loss falls); view 0's grid and
+    camera gradients against the plain path, two runs equal; times;
+33. view 0 at 4 px (0 overflow rays): frame and backward against the
+    plain path, the frame equal to the 8 px supercell frame bit for bit,
+    two deterministic backwards equal, K1 and K2 against their twins on
+    every group, times.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
@@ -462,11 +487,14 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
         c = counts()
         print(f"{name} Renderer.forward: {res.stats.total_ms:.3f} ms, "
               f"launches {c}, notes {res.stats.notes}", flush=True)
+        # the Renderer keys its schedule by the table's dtype (the
+        # cascade depends on it), so it builds one: the same 16 px cells
+        s16 = renderer._tiled_schedule
         require(c["packed_table16"] == 1 and c["packed_table"] == 0
                 and c["fused_tiles"] == n_groups
                 and "kernel_launches=packed_table16:1" in res.stats.notes
-                and not any(n.startswith("tiled_schedule_build_ms=")
-                            for n in res.stats.notes),
+                and (s16.tile_px, s16.cell_scale) == (16, 1)
+                and torch.equal(s16.hostmap_all, sched.hostmap_all),
                 f"the {name} forward did not launch K5a once and K1 per "
                 f"group on the headline's schedule")
         for key in ("image", "transmittance", "opacity", "depth"):
@@ -1488,7 +1516,507 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
     return kernels, report
 
 
-def run() -> dict:
+SUBSET = 8          # tiles per group the sub-tile phases hold to the twins
+FIT_VIEWS = 8       # tools/fit_benchmark.py's flagship: 8 views, 96^2, 64^3
+FIT_ADAM_STEPS = 10
+FIT_LR = 5e-2       # tools/fit_benchmark.py's Adam rate
+SUPER_OPS = 3       # a supercell sample's extra adds: base + lb per axis
+
+
+def flagship_views(P, views=FIT_VIEWS, res=96, grid=64):
+    """tools/fit_benchmark.py:58-82 rebuilt in numpy: the truth field (a
+    64^3 Gaussian blob), the 96^2 plan (96 fixed steps) and its per-view
+    plans on a translation orbit."""
+    import math
+
+    zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, grid)] * 3), indexing="ij")
+    r2 = (xs - 0.5) ** 2 + (ys - 0.5) ** 2 + (zs - 0.45) ** 2
+    sigma = (10.0 * np.exp(-r2 / 0.06)).astype(np.float32)
+    color = np.stack([xs, ys, 1 - zs], axis=-1).astype(np.float32)
+    config = P.DenseGridConfig(resolution=(grid,) * 3,
+                               sigma=sigma.reshape(-1),
+                               color=color.reshape(-1))
+    plan = P.Plan.create(P.PlanConfig(
+        width=res, height=res, t_near=0.2, t_far=2.2,
+        camera=P.CameraConfig(k=(res * 1.2, 0, res / 2, 0, res * 1.2,
+                                 res / 2, 0, 0, 1)),
+        sampling=P.SamplingConfig(dt=2.0 / 96, max_steps=96)))
+    cams = []
+    for i in range(views):
+        ang = 2 * math.pi * i / views
+        cams.append(P.CameraConfig(c2w=(
+            1, 0, 0, 0.5 + 0.25 * math.sin(ang),
+            0, 1, 0, 0.5 + 0.15 * math.cos(ang),
+            0, 0, 1, -1.0)))
+    from dvren_tpu_torch.opt.fit import view_plans
+    return view_plans(plan, cams), config
+
+
+def schedule_line(sched, build_s) -> str:
+    return (f"(tile_px, cell_scale) = ({sched.tile_px}, {sched.cell_scale}), "
+            f"{len(sched.groups)} groups, "
+            f"{sum(g.n_tiles for g in sched.groups)} tiles, banks <= "
+            f"{max(g.banks for g in sched.groups)}, {sched.tiled_samples} "
+            f"live samples, fallback rays {sched.fallback_rays}, build "
+            f"{build_s:.3f} s")
+
+
+def build_ms(notes) -> float:
+    for n in notes:
+        if n.startswith("tiled_schedule_build_ms="):
+            return float(n.split("=", 1)[1])
+    return float("nan")
+
+
+def variant_args(torch, plan, field, sched):
+    """Every group's K1 arguments on the card for ``sched``'s form, the
+    bank tables from the field's table (the supercell table for
+    cell_scale 2, else the field's float32 or 16-bit rows)."""
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.ops.grid import build_supercell_stencil, table_dtype
+    from dvren_tpu_torch.render import tiled
+
+    sigma, color = field.sigma.detach(), field.color.detach()
+    if sched.cell_scale == 2:
+        table = build_supercell_stencil(sigma, color)
+    elif field.packed_dtype == "float32":
+        table = packed_transpose.build_rows(sigma, color)
+    else:
+        table = packed_transpose.build_rows16(
+            sigma, color, table_dtype(field.packed_dtype))
+    tabs = tiled._gather_bank_tables(table, sched.gathermap_all,
+                                     [(g.n_tiles, g.banks)
+                                      for g in sched.groups])
+    geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
+    subs = (16 // sched.tile_px) ** 2
+    stencil = "super" if sched.cell_scale == 2 else "cell"
+    return [(tabs[i], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
+             fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks, subs,
+                                        stencil))
+            for i, g in enumerate(sched.groups)]
+
+
+def subset_args(torch, a, n_tiles):
+    """The first ``n_tiles`` tiles of one group's K1 arguments."""
+    tabs, samp, base, rayt, ke, bank0, prm = a
+    t = min(n_tiles, int(tabs.shape[0]))
+    per = bank0.numel() // tabs.shape[0]
+    return (tabs[:t].contiguous(), take(samp, slice(0, t)),
+            base[:t].contiguous(), rayt[:t].contiguous(), ke[:t].contiguous(),
+            bank0[:t * per].contiguous(), prm)
+
+
+def twins_bit_equal(torch, args, gen, n_tiles=None):
+    """K1 and K2 (with the camera adjoint) against their twins on every
+    group (the first ``n_tiles`` tiles of each, when given): heads, slot
+    rows and d(rayt) equal bit for bit, and K2's repeat too. Returns the
+    largest |kernel - twin| (0.0) over K1 and over K2."""
+    from dvren_tpu_torch.ops import fused_tiles
+
+    k1_err = k2_err = 0.0
+    for a in args:
+        if n_tiles is not None:
+            a = subset_args(torch, a, n_tiles)
+        out = fused_tiles.tile_forward(*a)
+        gs = torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
+                         device=a[0].device)
+        rows, d_rayt = fused_tiles.tile_backward(*a[:6], gs, a[6], cam=True)
+        rows2, d_rayt2 = fused_tiles.tile_backward(*a[:6], gs, a[6], cam=True)
+        torch.cuda.synchronize()
+        p_out = fused_tiles.tile_forward_plain(*a)
+        p_rows, p_rayt = fused_tiles.tile_backward_plain(*a[:6], gs, a[6],
+                                                         cam=True)
+        require(bool(torch.isfinite(out).all() and torch.isfinite(rows).all()),
+                "K1 / K2 output not finite")
+        k1_err = max(k1_err, float((out - p_out).abs().max()))
+        k2_err = max(k2_err, float((rows - p_rows).abs().max()),
+                     float((d_rayt - p_rayt).abs().max()))
+        require(torch.equal(out, p_out),
+                f"K1 ({a[6].subs} sub-tiles, {a[6].stencil}) differs from "
+                f"its twin")
+        require(torch.equal(rows, p_rows) and torch.equal(d_rayt, p_rayt),
+                f"K2 ({a[6].subs} sub-tiles, {a[6].stencil}) differs from "
+                f"its twin")
+        require(torch.equal(rows2, rows) and torch.equal(d_rayt2, d_rayt),
+                "K2 differs between two runs")
+    return k1_err, k2_err
+
+
+def variant_times(torch, args, gss):
+    """(K1 ms, K2 ms, K1 twin ms, K2 twin ms) over every group: the
+    kernels after warm-up, the twins once."""
+    from dvren_tpu_torch.ops import fused_tiles
+
+    k1 = cuda_ms(torch, lambda: [fused_tiles.tile_forward(*a) for a in args],
+                 10)
+    k2 = cuda_ms(torch, lambda: [fused_tiles.tile_backward(*a[:6], gs, a[6])
+                                 for a, gs in zip(args, gss)], 10)
+    k1p = cuda_ms(torch, lambda: [fused_tiles.tile_forward_plain(*a)
+                                  for a in args], 1, warmup=0)
+    k2p = cuda_ms(torch, lambda: [fused_tiles.tile_backward_plain(
+        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 1, warmup=0)
+    return k1, k2, k1p, k2p
+
+
+def variant_kernels(form, args, gss, sched, launches, errs, times) -> list:
+    """The ``kernels`` entries of K1 and K2 in one form."""
+    live = sched.tiled_samples
+    extra = SUPER_OPS if sched.cell_scale == 2 else 0
+    k1_in = sum(nbytes(*a[:6]) for a in args)
+    out = sum(a[0].shape[0] * 5 * 256 * 4 for a in args)
+    rows = sum(a[0].shape[0] * a[6].banks * 128 * a[6].cols * 4 for a in args)
+    return [
+        {"name": f"fused_tiles:{form}", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:656",
+         "launches": launches[0], "max_abs_err": errs[0],
+         "ms": times[0], "plain_ms": times[2],
+         **bound(k1_in + out, live * (DENSE_FWD_OPS + extra))},
+        {"name": f"fused_tiles_bwd:{form}", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:714",
+         "launches": launches[1], "max_abs_err": errs[1],
+         "ms": times[1], "plain_ms": times[3],
+         **bound(k1_in + sum(nbytes(g) for g in gss) + rows,
+                 live * (DENSE_BWD_OPS + extra))}]
+
+
+def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
+    """Phases 28-33: the sub-tiled and supercell schedules of the cascade,
+    with K1 and K2 in their subs 4 / 16 and supercell forms: the fine-grid
+    scene (float32: 16 px supercells; bfloat16: 8 px cells), the fit
+    flagship's eight views (8 px supercells) and its view 0 at 4 px."""
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import tiled
+
+    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    gen = torch.Generator(device=dev).manual_seed(28)
+    kernels, report = [], {}
+
+    def sgd_steps(plan, field_t, sched, lr):
+        target = torch.zeros((plan.height, plan.width, 3), device=dev)
+        opt = torch.optim.SGD(field_t.parameters(), lr=lr)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = mse(tiled.render_tiled(plan, field_t, sched).image, target)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return step
+
+    def fine_phase(name, dtype, want_note):
+        # 28 / 30. the fine-grid scene through Renderer.forward's cascade
+        plan, config = headline_scene(P, grid_n=128, max_steps=256)
+        field = P.DenseGridField.create(config, device=dev).with_packed_dtype(
+            dtype).requires_grad_(False)
+        renderer = P.Renderer(P.Context.create(device="cuda"), plan)
+        reset()
+        res = renderer.forward(field)
+        c = counts()
+        sched = renderer._tiled_schedule
+        build_s = build_ms(res.stats.notes) / 1e3
+        print(f"fine-grid {name} Renderer.forward: {res.stats.total_ms:.3f} "
+              f"ms (schedule included), launches {c}; "
+              f"{schedule_line(sched, build_s)}; notes {res.stats.notes}",
+              flush=True)
+        require(want_note in res.stats.notes and sched.fallback_rays == 0,
+                f"the fine-grid {name} cascade did not land on {want_note}")
+        require(c["fused_tiles"] == len(sched.groups) and c["packed_table"] == 0
+                and c["packed_table16"] == (0 if dtype == "float32" else 1),
+                f"the fine-grid {name} forward launched {c}")
+        for key in ("image", "transmittance", "opacity", "depth"):
+            require(bool(np.isfinite(getattr(res, key)).all()),
+                    f"fine-grid {key} not finite")
+        require(float(res.opacity.max()) > 0.0, "opacity is 0 everywhere")
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            plain = tiled.render_tiled(plan, field, sched, use_kernel=False)
+            torch.cuda.synchronize()
+            plain_frame_s = time.perf_counter() - t0
+        err, depth, hit = planes_errors(res, plain)
+        print(f"fine-grid {name} forward vs plain path: planes {err:.3e}, "
+              f"depth {depth:.3e}, hitmask equal {hit} (plain frame "
+              f"{plain_frame_s:.2f} s)", flush=True)
+        require(err <= TOL and depth <= TOL_DEPTH and hit,
+                f"the fine-grid {name} frame differs from the plain path")
+
+        # 29 / 30. K1 and K2 in this form against their twins, first SUBSET
+        # tiles of every group; backward deterministic; SGD steps
+        args = variant_args(torch, plan, field, sched)
+        errs = twins_bit_equal(torch, args, gen, SUBSET)
+        print(f"fine-grid {name}: K1 and K2 == twins bit for bit on the "
+              f"first {SUBSET} tiles of all {len(args)} groups; repeats "
+              f"equal", flush=True)
+        dl = (torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2
+              - 1).cpu().numpy()
+        torch.use_deterministic_algorithms(True)
+        try:
+            g1 = renderer.backward(field, dl)
+            g2 = renderer.backward(field, dl)
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for key in ("sigma", "color", "camera", "camera_k"):
+            x = getattr(g1, key)
+            require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
+                    f"fine-grid backward {key} not finite or zero")
+            require(np.array_equal(x, getattr(g2, key)),
+                    f"fine-grid backward {key} differs between two calls")
+        n_values = plan.height * plan.width * 3
+        step = sgd_steps(plan, P.DenseGridField.create(
+            config, device=dev).with_packed_dtype(dtype), sched,
+            LR * n_values)
+        reset()
+        losses = [float(step().detach()) for _ in range(4)]
+        step_c = counts()
+        print(f"fine-grid {name}: 4 SGD steps at lr {LR} x {n_values}: loss "
+              f"{losses}; launches {step_c}; two deterministic backwards "
+              f"equal", flush=True)
+        require(all(np.isfinite(losses))
+                and all(b < a for a, b in zip(losses, losses[1:])),
+                f"the fine-grid {name} loss does not fall")
+        require(step_c["fused_tiles_bwd"] == 4 * len(sched.groups),
+                "K2 did not launch per group in every step")
+
+        # times
+        with torch.no_grad():
+            frame_ms = cuda_ms(torch, lambda: tiled.render_tiled(
+                plan, field, sched), 10, warmup=2)
+        step_ms = cuda_ms(torch, sgd_steps(plan, P.DenseGridField.create(
+            config, device=dev).with_packed_dtype(dtype), sched, LR), 5,
+            warmup=1)
+        gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
+                           device=dev) for a in args]
+        times = variant_times(torch, args, gss)
+        print(f"fine-grid {name} times ms [{card}]: frame {frame_ms:.4f} = "
+              f"{plan.ray_count / frame_ms / 1e3:.3f} Mrays/s, SGD step "
+              f"{step_ms:.4f}; K1 {times[0]:.4f} over {len(args)} launches "
+              f"(plain {times[2]:.4f}), K2 {times[1]:.4f} (plain "
+              f"{times[3]:.4f})", flush=True)
+        form = (f"supercell_{sched.tile_px}px" if sched.cell_scale == 2
+                else f"subtiled_{sched.tile_px}px")
+        kernels.extend(variant_kernels(
+            form, args, gss, sched, (c["fused_tiles"],
+                                     step_c["fused_tiles_bwd"]), errs, times))
+        report[f"finegrid_{name}"] = {
+            "tile_px": sched.tile_px, "cell_scale": sched.cell_scale,
+            "groups": len(sched.groups),
+            "banks_max": max(g.banks for g in sched.groups),
+            "live_samples": sched.tiled_samples, "build_s": build_s,
+            "frame_ms": frame_ms, "step_ms": step_ms, "k1_ms": times[0],
+            "k2_ms": times[1], "k1_plain_ms": times[2],
+            "k2_plain_ms": times[3], "plain_frame_s": plain_frame_s,
+            "vs_plain": err, "losses": losses}
+
+    fine_phase("float32", "float32", "tiled_supercell_16px")
+    fine_phase("bfloat16", "bfloat16", "tiled_subtiled_8px")
+
+    # 31-32. the fit flagship: each view through the cascade, Adam steps
+    # on the summed loss of the eight views, camera gradients on view 0
+    plans, config = flagship_views(P)
+    truth = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    scheds, targets, notes, builds = [], [], [], []
+    t0 = time.perf_counter()
+    reset()
+    for pv in plans:
+        r = P.Renderer(P.Context.create(device="cuda"), pv)
+        res = r.forward(truth)
+        scheds.append(r._tiled_schedule)
+        builds.append(build_ms(res.stats.notes) / 1e3)
+        notes.append([n for n in res.stats.notes if n.startswith("tiled_")
+                      and "=" not in n])
+        with torch.no_grad():
+            targets.append(tiled.render_tiled(pv, truth, scheds[-1]).image)
+    fwd_c = counts()
+    fit_build_s = time.perf_counter() - t0
+    n_groups = sum(len(s.groups) for s in scheds)
+    print(f"fit flagship: {len(plans)} views through the cascade in "
+          f"{fit_build_s:.3f} s (schedules and two frames each), notes "
+          f"{notes}; launches {fwd_c}", flush=True)
+    for v, (s, b) in enumerate(zip(scheds, builds)):
+        print(f"  view {v}: {schedule_line(s, b)}", flush=True)
+    require(all(s.tile_px == 8 and s.cell_scale == 2 and s.fallback_rays == 0
+                for s in scheds),
+            "a flagship view did not land on 8 px supercells without overflow")
+    require(fwd_c["fused_tiles"] == 2 * n_groups and fwd_c["packed_table"] == 0,
+            f"the flagship forwards launched {fwd_c}")
+    fit_args = [a for pv, s in zip(plans, scheds)
+                for a in variant_args(torch, pv, truth, s)]
+    fit_errs = twins_bit_equal(torch, fit_args, gen)
+    print(f"fit flagship: K1 and K2 (8 px supercells) == twins bit for bit "
+          f"on all {len(fit_args)} groups of the {len(plans)} views",
+          flush=True)
+
+    student = P.DenseGridField.create(dataclasses.replace(
+        config, sigma=np.full(len(config.sigma), 0.5, np.float32),
+        color=np.full(len(config.color), 0.5, np.float32)), device=dev)
+    opt = torch.optim.Adam(student.parameters(), lr=FIT_LR)
+
+    def fit_step():
+        opt.zero_grad(set_to_none=True)
+        loss = sum(mse(tiled.render_tiled(pv, student, s).image, tg)
+                   for pv, s, tg in zip(plans, scheds, targets))
+        loss.backward()
+        opt.step()
+        return loss
+
+    reset()
+    fit_losses = [float(fit_step().detach()) for _ in range(FIT_ADAM_STEPS)]
+    fit_c = counts()
+    print(f"fit flagship: {FIT_ADAM_STEPS} Adam steps (lr {FIT_LR}) on the "
+          f"summed loss of {len(plans)} views: loss {fit_losses}; launches "
+          f"{fit_c}", flush=True)
+    require(all(np.isfinite(fit_losses)) and fit_losses[-1] < fit_losses[0],
+            "the flagship fit loss does not fall")
+    require(fit_c["fused_tiles"] == FIT_ADAM_STEPS * n_groups
+            and fit_c["fused_tiles_bwd"] == FIT_ADAM_STEPS * n_groups,
+            f"the fit steps launched {fit_c}")
+    fit_step_ms = cuda_ms(torch, fit_step, 5, warmup=1)
+
+    def view0_grads(use_kernel, sched0):
+        from dvren_tpu_torch.ops.raygen import camera_arrays
+
+        k, c2w, _ = camera_arrays(plans[0], dev)
+        k.requires_grad_(True)
+        c2w.requires_grad_(True)
+        leaf = student.with_params(student.sigma.detach().clone(),
+                                   student.color.detach().clone())
+        img = tiled.render_tiled(plans[0], leaf, sched0,
+                                 use_kernel=use_kernel, k=k, c2w=c2w).image
+        dl0 = torch.linspace(-1, 1, img.numel(), device=dev).reshape(img.shape)
+        return torch.autograd.grad(torch.sum(img * dl0),
+                                   (leaf.sigma, leaf.color, c2w, k))
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        cam_k = view0_grads(True, scheds[0])
+        cam_k2 = view0_grads(True, scheds[0])
+    finally:
+        torch.use_deterministic_algorithms(False)
+    cam_p = view0_grads(False, scheds[0])
+    require(all(torch.equal(a, b) for a, b in zip(cam_k, cam_k2)),
+            "view 0's gradients differ between two runs")
+    require(float(cam_k[2].abs().max()) > 0.0, "view 0's d(c2w) is zero")
+    cam_ok = all(torch.allclose(a, b, rtol=CAM_RTOL, atol=CAM_ATOL)
+                 for a, b in zip(cam_k[2:], cam_p[2:]))
+    grid_err = max(rel_err(a, b) for a, b in zip(cam_k[:2], cam_p[:2]))
+    print(f"fit flagship view 0 camera gradients: d(c2w) max "
+          f"{float(cam_k[2].abs().max()):.4e}, vs plain path "
+          f"{float((cam_k[2] - cam_p[2]).abs().max()):.3e}; grids "
+          f"{grid_err:.3e} x scale; two runs equal", flush=True)
+    require(cam_ok and grid_err <= GRID_TOL,
+            "view 0's gradients differ from the plain path")
+    fit_gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
+                           device=dev) for a in fit_args]
+    fit_times = variant_times(torch, fit_args, fit_gss)
+    with torch.no_grad():
+        fit_frames_ms = cuda_ms(torch, lambda: [tiled.render_tiled(
+            pv, student, s) for pv, s in zip(plans, scheds)], 10)
+    print(f"fit flagship times ms [{card}]: {len(plans)} frames "
+          f"{fit_frames_ms:.4f}, Adam step {fit_step_ms:.4f}; K1 "
+          f"{fit_times[0]:.4f} over {len(fit_args)} launches (plain "
+          f"{fit_times[2]:.4f}), K2 {fit_times[1]:.4f} (plain "
+          f"{fit_times[3]:.4f})", flush=True)
+    live = sum(s.tiled_samples for s in scheds)
+    merged = dataclasses.replace(scheds[0], tiled_samples=live)
+    kernels.extend(variant_kernels(
+        "supercell_8px", fit_args, fit_gss, merged,
+        (fit_c["fused_tiles"], fit_c["fused_tiles_bwd"]), fit_errs, fit_times))
+
+    # 33. view 0 at 4 px: frame and backward
+    t0 = time.perf_counter()
+    s4 = tiled.build_tiled_schedule(plans[0], student, tile_px=4).to(dev)
+    s4_s = time.perf_counter() - t0
+    print(f"fit view 0 at 4 px: {schedule_line(s4, s4_s)}", flush=True)
+    require(s4.fallback_rays == 0, "view 0 overflows at 4 px")
+    reset()
+    with torch.no_grad():
+        f4 = tiled.render_tiled(plans[0], student, s4)
+    leaf = student.with_params(student.sigma.detach().clone(),
+                               student.color.detach().clone())
+    img4 = tiled.render_tiled(plans[0], leaf, s4).image
+    g4 = torch.autograd.grad(mse(img4, targets[0]), (leaf.sigma, leaf.color))
+    c4 = counts()
+    print(f"fit view 0 at 4 px: frame and backward launches {c4}", flush=True)
+    require(c4["fused_tiles"] == 2 * len(s4.groups)
+            and c4["fused_tiles_bwd"] == len(s4.groups)
+            and c4["packed_table"] == 2 and c4["packed_table_bwd"] == 1,
+            f"the 4 px frame and backward launched {c4}")
+    with torch.no_grad():
+        p4 = tiled.render_tiled(plans[0], student, s4, use_kernel=False)
+    plain_leaf = student.with_params(student.sigma.detach().clone(),
+                                     student.color.detach().clone())
+    pg4 = torch.autograd.grad(
+        mse(tiled.render_tiled(plans[0], plain_leaf, s4,
+                               use_kernel=False).image, targets[0]),
+        (plain_leaf.sigma, plain_leaf.color))
+    e4 = max(float((getattr(f4, k) - getattr(p4, k)).abs().max())
+             for k in ("image", "transmittance", "opacity"))
+    ge4 = max(rel_err(a, b) for a, b in zip(g4, pg4))
+    vs8 = float((f4.image - tiled.render_tiled(plans[0], student,
+                                               scheds[0]).image.detach())
+                .abs().max())
+    print(f"fit view 0 at 4 px vs plain path: planes {e4:.3e}, grids "
+          f"{ge4:.3e} x scale; vs the 8 px supercell frame {vs8:.3e}",
+          flush=True)
+    require(e4 <= TOL and ge4 <= GRID_TOL,
+            "the 4 px frame or backward differs from the plain path")
+    require(vs8 == 0.0, "the 4 px frame differs from the 8 px supercell one")
+    args4 = variant_args(torch, plans[0], student, s4)
+    errs4 = twins_bit_equal(torch, args4, gen)
+    gss4 = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
+                        device=dev) for a in args4]
+    times4 = variant_times(torch, args4, gss4)
+    with torch.no_grad():
+        frame4_ms = cuda_ms(torch, lambda: tiled.render_tiled(
+            plans[0], student, s4), 20)
+
+    def bwd4():
+        lf = student.with_params(student.sigma.detach().clone(),
+                                 student.color.detach().clone())
+        mse(tiled.render_tiled(plans[0], lf, s4).image,
+            targets[0]).backward()
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        g4a = view0_grads(True, s4)
+        g4b = view0_grads(True, s4)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(all(torch.equal(a, b) for a, b in zip(g4a, g4b)),
+            "view 0's 4 px backward differs between two runs")
+    bwd4_ms = cuda_ms(torch, bwd4, 10)
+    print(f"fit view 0 at 4 px times ms [{card}]: frame {frame4_ms:.4f}, "
+          f"forward + backward {bwd4_ms:.4f}; K1 {times4[0]:.4f} over "
+          f"{len(args4)} launches (plain {times4[2]:.4f}), K2 "
+          f"{times4[1]:.4f} (plain {times4[3]:.4f}); K1 and K2 == twins bit "
+          f"for bit on every group; two deterministic backwards equal",
+          flush=True)
+    kernels.extend(variant_kernels(
+        "subtiled_4px", args4, gss4, s4,
+        (c4["fused_tiles"], c4["fused_tiles_bwd"]), errs4, times4))
+    report["fit_flagship"] = {
+        "views": len(plans), "notes": notes,
+        "groups": [len(s.groups) for s in scheds],
+        "banks_max": [max(g.banks for g in s.groups) for s in scheds],
+        "live_samples": [s.tiled_samples for s in scheds],
+        "cascade_and_frames_s": fit_build_s, "build_s": builds,
+        "losses": fit_losses,
+        "adam_step_ms": fit_step_ms, "frames_ms": fit_frames_ms,
+        "k1_ms": fit_times[0], "k2_ms": fit_times[1],
+        "k1_plain_ms": fit_times[2], "k2_plain_ms": fit_times[3],
+        "view0_dc2w_vs_plain": float((cam_k[2] - cam_p[2]).abs().max()),
+        "px4": {"groups": len(s4.groups), "build_s": s4_s,
+                "frame_ms": frame4_ms, "fwd_bwd_ms": bwd4_ms,
+                "k1_ms": times4[0], "k2_ms": times4[1],
+                "k1_plain_ms": times4[2], "k2_plain_ms": times4[3]}}
+    return kernels, report
+
+
+def run(only: str = "all") -> dict:
     import torch
 
     import dvren_tpu_torch as P
@@ -1871,6 +2399,18 @@ def run() -> dict:
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          **bound(nbytes(tg, *k4_out), 8 * sum(x.numel() for x in k4_out))},
     ]
+    if only == "dense":
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({
+            "forward_ms": fwd_ms, "stages_ms": {
+                "packed_table": k3_ms, "bank_gather": gather_ms,
+                "fused_tiles": k1_ms, "compose": compose_ms},
+            "train_step_ms": step_ms, "backward_stages_ms": {
+                "fused_tiles_bwd": k2_ms, "slot_reduction": reduce_ms,
+                "packed_table_bwd": k4_ms}, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                "count": torch.cuda.device_count()}
     table_kernels, table_report = run_tables(
         torch, P, dev, plan, config, renderer, result, all_rows)
     kernels += table_kernels
@@ -1878,8 +2418,11 @@ def run() -> dict:
     kernels += hash_kernels
     grid_kernels, grid_report = run_grid(torch, P, dev)
     kernels += grid_kernels
+    sub_kernels, sub_report = run_subtiles(torch, P, dev, card)
+    kernels += sub_kernels
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
+    hash_report["subtiles"] = sub_report
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({**hash_report,
         "forward_ms": fwd_ms, "forward_mrays_s": n_rays / fwd_ms / 1e3,
@@ -1903,6 +2446,14 @@ def run() -> dict:
 
 
 def main() -> int:
+    import argparse
+
+    parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    parser.add_argument(
+        "--only", choices=("all", "dense"), default="all",
+        help="'dense': phases 1-10 alone (the dense headline), for timing "
+             "two trees against each other in one call")
+    args = parser.parse_args()
     try:
         import torch
     except ImportError as exc:
@@ -1913,7 +2464,7 @@ def main() -> int:
               file=sys.stderr)
         return 1
     try:
-        device = run()
+        device = run(args.only)
     except Exception:  # report any failed phase, then fail the run
         traceback.print_exc()
         print("chip_smoke: FAILED", file=sys.stderr)

@@ -45,12 +45,12 @@ _F = ctypes.c_float
 _SIGNATURES = {
     "dvt_packed_table": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "dvt_tile_forward": ([_P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I,
+                          _I, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F,
                           _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _P], _I),
     "dvt_tile_backward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F,
                            _F, _F, _F,

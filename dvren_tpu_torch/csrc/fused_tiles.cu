@@ -9,14 +9,19 @@
 // samples in order, so the prefix sums are a running sum in a register.
 //
 // Layouts (see dvren_tpu_torch/render/tiled.py):
-//   tabs  (T, NB, 32, 128) f32  bank tables, row ch*8 + corner, lane slot
+//   tabs  (T, NB, C, 128) f32  bank tables, lane slot; C = 32, row
+//                              ch*8 + corner (cells), or C = 108, row
+//                              ch*27 + vertex (supercells)
 //   samp  (T, nc, 3, 16, 128) u16  [sample_t hi16, lo16, lane | m << 15]
-//   base  (T, NB, 3, 128) f32  per-slot cell base coordinates (x, y, z)
+//                                  (supercells: lane(12) | lb << 12 | m << 15)
+//   base  (T, NB, 3, 128) f32  per-slot cell base coordinates (x, y, z),
+//                              a supercell's vertex origin
 //   rayt  (T, 12, 128) f32  row ax*2 + ray/128, lane ray%128 for
 //                           (ox, oy, oz, dx, dy, dz)
 //   ke    (T,) i32  tile window start step
-//   bank0 (T*nc,) i32  window start bank in bits 0..13 (bit 30, the
-//                      backward's ALIGNED flag, is ignored here)
+//   bank0 (T*nc*subs,) i32  window start bank per (chunk, sub-tile) in
+//                      bits 0..13 (bit 30, the JAX backward's ALIGNED
+//                      flag, is ignored here)
 //   out   (T, 5, 16, 16) f32  per ray: r, g, b, sum w*mid, processed od
 // Sample (chunk c, step j) of ray `ray` sits at block row ray/16, lane
 // (ray%16)*8 + j.
@@ -57,6 +62,15 @@ __device__ __forceinline__ float mul(float a, float b) { return __fmul_rn(a, b);
 __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b); }
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
+// SUBS sub-tiles per block (1, 4, 16): ray `ray` belongs to sub-tile
+// ray / (256 / SUBS), whose chunk window starts at
+// bank0[(t*nc + c)*SUBS + s]. SUPER: the supercell stencil (108 columns
+// ch*27 + vertex; packed word lane(12) | lb << 12 | m << 15). A supercell
+// sample's cell base is its supercell's vertex origin plus lb, an exact
+// float add, and its 8 corners are the vertices lb + (dx, dy, dz): the
+// JAX kernel sums all 27 hat-weighted vertices, whose 19 extra terms are
+// exact zeros, so reading the 8 gives the same sum to the last bit.
+template <int SUBS, bool SUPER>
 __global__ void __launch_bounds__(kRays)
 tile_forward_kernel(const float* __restrict__ tabs,
                     const uint16_t* __restrict__ samp,
@@ -65,10 +79,14 @@ tile_forward_kernel(const float* __restrict__ tabs,
                     const int* __restrict__ ke,
                     const int* __restrict__ bank0,
                     float* __restrict__ out, TileConsts k) {
+  constexpr int kCols = SUPER ? 108 : kNch;
+  constexpr int kPer = SUPER ? 27 : 8;            // columns per channel
+  constexpr unsigned kLaneMask = SUPER ? 0xFFFu : 0x7FFFu;
   const int64_t t = blockIdx.x;
   const int ray = threadIdx.x;
   const int row = ray >> 4;
   const int lane0 = (ray & 15) * kSteps;
+  const int sub_tile = ray / (kRays / SUBS);
 
   const float* rt = rayt + t * 12 * kLanes;
   const int half = ray >> 7;
@@ -88,10 +106,10 @@ tile_forward_kernel(const float* __restrict__ tabs,
   float s = 0.f;   // optical depth of every earlier step, processed or not
   bool done = false;
   for (int c = 0; c < k.nc && !done; ++c) {
-    const int b0 = bank0[t * k.nc + c] & 0x3FFF;
+    const int b0 = bank0[(t * k.nc + c) * SUBS + sub_tile] & 0x3FFF;
     const int b1 = min(b0 + 1, k.nb - 1);
-    const float* tab0 = tabs + (t * k.nb + b0) * kNch * kLanes;
-    const float* tab1 = tabs + (t * k.nb + b1) * kNch * kLanes;
+    const float* tab0 = tabs + (t * k.nb + b0) * kCols * kLanes;
+    const float* tab1 = tabs + (t * k.nb + b1) * kCols * kLanes;
     const float* base0 = base + (t * k.nb + b0) * 3 * kLanes;
     const float* base1 = base + (t * k.nb + b1) * 3 * kLanes;
     const uint16_t* sc = samp + (t * k.nc + c) * 3 * kChunkSamples
@@ -119,36 +137,47 @@ tile_forward_kernel(const float* __restrict__ tabs,
       if ((packed >> 15) & 1u) {   // masked samples interpolate to 0
         const uint32_t bits = ((uint32_t)sc[j] << 16) | sc[kChunkSamples + j];
         const float st = __uint_as_float(bits);
-        const int idx2 = (int)(packed & 0x7FFFu) - b0 * kLanes;
+        const int idx2 = (int)(packed & kLaneMask) - b0 * kLanes;
         const bool second = idx2 >= kLanes;
         const int slot = second ? min(max(idx2 - kLanes, 0), kLanes - 1)
                                 : min(max(idx2, 0), kLanes - 1);
         const float* tab = second ? tab1 : tab0;
         const float* cbase = second ? base1 : base0;
+        int lb[3] = {0, 0, 0};
+        if (SUPER) {
+#pragma unroll
+          for (int ax = 0; ax < 3; ++ax) lb[ax] = (packed >> (12 + ax)) & 1u;
+        }
         float w[3][2];
 #pragma unroll
         for (int ax = 0; ax < 3; ++ax) {
           const float p = add(o[ax], mul(d[ax], st));
           const float local = mul(sub(p, k.lo[ax]), k.inv[ax]);
           const float f = mul(local, k.ns[ax]);
-          const float frac = sub(f, cbase[ax * kLanes + slot]);
+          float cb_ax = cbase[ax * kLanes + slot];
+          if (SUPER) cb_ax = add(cb_ax, (float)lb[ax]);
+          const float frac = sub(f, cb_ax);
           w[ax][0] = sub(1.f, frac);
           w[ax][1] = frac;
         }
         float w8[8];
+        int col8[8];
 #pragma unroll
         for (int corner = 0; corner < 8; ++corner) {
-          w8[corner] = mul(mul(w[2][corner >> 2], w[1][(corner >> 1) & 1]),
-                           w[0][corner & 1]);
+          const int dz = corner >> 2, dy = (corner >> 1) & 1, dx = corner & 1;
+          w8[corner] = mul(mul(w[2][dz], w[1][dy]), w[0][dx]);
+          col8[corner] = SUPER ? (lb[2] + dz) * 9 + (lb[1] + dy) * 3
+                                     + (lb[0] + dx)
+                               : corner;
         }
         float ch_val[4];
 #pragma unroll
         for (int ch = 0; ch < 4; ++ch) {
-          const float* col = tab + ch * 8 * kLanes + slot;
-          float acc = mul(w8[0], col[0]);
+          const float* col = tab + ch * kPer * kLanes + slot;
+          float acc = mul(w8[0], col[col8[0] * kLanes]);
 #pragma unroll
           for (int corner = 1; corner < 8; ++corner) {
-            acc = add(acc, mul(w8[corner], col[corner * kLanes]));
+            acc = add(acc, mul(w8[corner], col[col8[corner] * kLanes]));
           }
           ch_val[ch] = acc;
         }
@@ -184,12 +213,21 @@ tile_forward_kernel(const float* __restrict__ tabs,
   o_t[4 * kRays] = acc_odp;
 }
 
+template <int SUBS, bool SUPER>
+void launch(int n_tiles, cudaStream_t stream, const float* tabs,
+            const uint16_t* samp, const float* base, const float* rayt,
+            const int* ke, const int* bank0, float* out,
+            const TileConsts& k) {
+  tile_forward_kernel<SUBS, SUPER><<<n_tiles, kRays, 0, stream>>>(
+      tabs, samp, base, rayt, ke, bank0, out, k);
+}
+
 }  // namespace
 
 extern "C" int dvt_tile_forward(
     const float* tabs, const uint16_t* samp, const float* base,
     const float* rayt, const int* ke, const int* bank0, float* out,
-    int n_tiles, int nc, int nb, int k_max,
+    int n_tiles, int nc, int nb, int k_max, int subs, int super_stencil,
     float dt, float t_near, float t_far, float t_stop, float stop,
     float lo_x, float lo_y, float lo_z, float inv_x, float inv_y,
     float inv_z, float ns_x, float ns_y, float ns_z, void* stream) {
@@ -205,9 +243,23 @@ extern "C" int dvt_tile_forward(
   k.lo[0] = lo_x; k.lo[1] = lo_y; k.lo[2] = lo_z;
   k.inv[0] = inv_x; k.inv[1] = inv_y; k.inv[2] = inv_z;
   k.ns[0] = ns_x; k.ns[1] = ns_y; k.ns[2] = ns_z;
-  if (n_tiles > 0) {
-    tile_forward_kernel<<<n_tiles, kRays, 0, (cudaStream_t)stream>>>(
-        tabs, samp, base, rayt, ke, bank0, out, k);
+  if (n_tiles <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  const bool sup = super_stencil != 0;
+  if (subs == 1 && !sup) {
+    launch<1, false>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+  } else if (subs == 4 && !sup) {
+    launch<4, false>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+  } else if (subs == 16 && !sup) {
+    launch<16, false>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+  } else if (subs == 1) {
+    launch<1, true>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+  } else if (subs == 4) {
+    launch<4, true>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+  } else if (subs == 16) {
+    launch<16, true>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -13,12 +13,26 @@ running sum.
 
 Per sample K1 recomputes the trilinear fractions from the slim schedule
 (sample_t bits, slot | mask bits, the tile's ray planes and the slot's
-cell base), interpolates the 32-column stencil row of its slot from the
-chunk's two-bank window, and runs the optical-depth recurrence with
-exact early stop. Output per ray: r, g, b, sum of w * mid-segment depth,
-and processed optical depth, as (T, 5, 16, 16) image tiles. K2 is its
-recompute adjoint: d(bank table) as f32 slot rows (T, NB, 128, 32) and,
-on request, d(rayt) for camera gradients.
+cell base), interpolates the stencil row of its slot from its sub-tile's
+two-bank window, and runs the optical-depth recurrence with exact early
+stop. Output per ray: r, g, b, sum of w * mid-segment depth, and
+processed optical depth, as (T, 5, 16, 16) image tiles. K2 is its
+recompute adjoint: d(bank table) as f32 slot rows (T, NB, 128, cols)
+and, on request, d(rayt) for camera gradients.
+
+Two forms, as in the JAX kernels (``subs`` and ``stencil`` of
+``tile_op_params``):
+
+- ``subs`` 1, 4 or 16 sub-tiles per 16x16 block (16, 8 or 4 px tiles):
+  block row r belongs to sub-tile r // (16 // subs), whose window starts
+  at ``bank0[(t * nc + c) * subs + s]``;
+- ``stencil`` "cell" (32 columns ch * 8 + corner, one slot per grid cell)
+  or "super" (108 columns ch * 27 + vertex, one slot per 2x2x2 supercell;
+  the packed word is lane (12 bits) | lb << 12 | m << 15, lb the sample's
+  cell in its supercell). The supercell sample interpolates with 27 hat
+  weights (hz * hy) * hx in vertex order vz * 9 + vy * 3 + vx, of which
+  19 are exact zeros; the kernels read only the 8 vertices of the
+  sample's cell, which gives the same sums to the last bit.
 
 :func:`tile_forward` and :func:`tile_backward` launch their kernels for
 CUDA tensors and run the plain twins for CPU tensors; their
@@ -40,16 +54,19 @@ LANES = 128        # lanes per row (slots per bank)
 GROUP = 8          # steps per chunk (lanes per ray)
 RAYS_PER_TILE = 256
 RAYS_COLS = 16     # output lanes per block row
-NCH = 32           # packed columns: 4 (sigma, r, g, b) x 8 corners
+NCH = 32           # cell columns: 4 (sigma, r, g, b) x 8 corners
+SUPER_NCH = 108    # supercell columns: 4 x 27 vertices
 RAYT_ROWS = 12     # compact ray planes: 6 axes x 2 halves of 128 rays
 CHUNK_SAMPLES = ROWS * LANES
+STENCILS = ("cell", "super")
 
 
 @dataclass(frozen=True)
 class TileParams:
     """Static constants of one tile group's forward (the port's
-    ``tile_op_params``): chunk and bank counts, the lattice, and the
-    fraction constants lo / inv / ns per axis (x, y, z)."""
+    ``tile_op_params``): chunk and bank counts, the lattice, the fraction
+    constants lo / inv / ns per axis (x, y, z), the sub-tiles per block
+    and the stencil."""
 
     n_chunks: int
     banks: int
@@ -61,6 +78,8 @@ class TileParams:
     lo: tuple
     inv: tuple
     ns: tuple
+    subs: int = 1
+    stencil: str = "cell"
 
     @property
     def t_stop(self) -> float:
@@ -68,11 +87,24 @@ class TileParams:
         return min(float(self.t_far),
                    float(self.t_near) + float(self.k_max) * float(self.dt))
 
+    @property
+    def cols(self) -> int:
+        """Bank-table columns: 32 for the cell stencil, 108 for the
+        supercell one."""
+        return SUPER_NCH if self.stencil == "super" else NCH
 
-def tile_op_params(plan: Plan, geom, nb: int, n_chunks: int) -> TileParams:
+
+def tile_op_params(plan: Plan, geom, nb: int, n_chunks: int, subs: int = 1,
+                   stencil: str = "cell") -> TileParams:
     """Group constants from the plan and the schedule's field geometry
     ``geom = (bbox_min, bbox_max, grid_shape_zyx)``; computed in float64
-    and rounded to float32 where they are used, as in the JAX package."""
+    and rounded to float32 where they are used, as in the JAX package.
+    ``subs``: sub-tiles per block, (16 // tile_px) ** 2; ``stencil``:
+    "super" for a supercell schedule (cell_scale 2)."""
+    if subs not in (1, 4, 16):
+        raise ValueError(f"subs must be 1, 4 or 16, got {subs}")
+    if stencil not in STENCILS:
+        raise ValueError(f"stencil must be one of {STENCILS}, got {stencil!r}")
     bbox_min, bbox_max, grid_shape = geom
     nz, ny, nx = (int(v) for v in grid_shape)
     lo = tuple(float(v) for v in bbox_min)
@@ -84,7 +116,8 @@ def tile_op_params(plan: Plan, geom, nb: int, n_chunks: int) -> TileParams:
         n_chunks=int(n_chunks), banks=int(nb),
         dt=float(plan.sampling.dt), t_near=float(plan.t_near),
         t_far=float(plan.t_far), k_max=int(plan.sampling.max_steps),
-        stop=float(STOP_THRESHOLD), lo=lo, inv=inv, ns=ns)
+        stop=float(STOP_THRESHOLD), lo=lo, inv=inv, ns=ns, subs=int(subs),
+        stencil=stencil)
 
 
 def finalize_heads(plan: Plan, raw: torch.Tensor, axis: int = 1):
@@ -103,12 +136,12 @@ def _check_inputs(tabs, samp, base, rayt, ke, bank0, prm: TileParams):
     t_cnt = tabs.shape[0]
     nc, nb = prm.n_chunks, prm.banks
     want = {
-        "tabs": (tabs, (t_cnt, nb, NCH, LANES), torch.float32),
+        "tabs": (tabs, (t_cnt, nb, prm.cols, LANES), torch.float32),
         "samp": (samp, (t_cnt, nc, 3, ROWS, LANES), torch.uint16),
         "base": (base, (t_cnt, nb, 3, LANES), torch.float32),
         "rayt": (rayt, (t_cnt, RAYT_ROWS, LANES), torch.float32),
         "ke": (ke, (t_cnt,), torch.int32),
-        "bank0": (bank0, (t_cnt * nc,), torch.int32),
+        "bank0": (bank0, (t_cnt * nc * prm.subs,), torch.int32),
     }
     for name, (x, shape, dtype) in want.items():
         if tuple(x.shape) != shape:
@@ -124,9 +157,9 @@ def tile_forward(tabs, samp, base, rayt, ke, bank0,
                  prm: TileParams) -> torch.Tensor:
     """One tile group's raw heads, (T, 5, 16, 16) float32.
 
-    tabs (T, NB, 32, 128) f32, samp (T, nc, 3, 16, 128) u16, base
-    (T, NB, 3, 128) f32, rayt (T, 12, 128) f32, ke (T,) i32, bank0
-    (T * nc,) i32."""
+    tabs (T, NB, cols, 128) f32 (cols = ``prm.cols``), samp
+    (T, nc, 3, 16, 128) u16, base (T, NB, 3, 128) f32, rayt (T, 12, 128)
+    f32, ke (T,) i32, bank0 (T * nc * subs,) i32."""
     _check_inputs(tabs, samp, base, rayt, ke, bank0, prm)
     if tabs.device.type == "cpu":
         return tile_forward_plain(tabs, samp, base, rayt, ke, bank0, prm)
@@ -144,7 +177,8 @@ def tile_forward(tabs, samp, base, rayt, ke, bank0,
         code = lib.dvt_tile_forward(
             tabs.data_ptr(), samp.data_ptr(), base.data_ptr(),
             rayt.data_ptr(), ke.data_ptr(), bank0.data_ptr(), out.data_ptr(),
-            t_cnt, prm.n_chunks, prm.banks, prm.k_max,
+            t_cnt, prm.n_chunks, prm.banks, prm.k_max, prm.subs,
+            int(prm.stencil == "super"),
             prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
             *prm.lo, *prm.inv, *prm.ns,
             _build.stream_ptr(tabs.device))
@@ -159,9 +193,10 @@ tile_forward.launches = 0
 def decode_samples(samp: torch.Tensor):
     """(T, nc, 3, 16, 128) u16 slim schedule -> per-chunk flat planes
     (T, nc, 2048): sample_t (f32, from its hi/lo bits), the mask (f32)
-    and the tile-local lane (int32). Sample q = ray * 8 + step of a chunk
-    sits at block row q // 128, lane q % 128, so the flat view needs no
-    shuffle. torch has no shifts or masks on uint16: widen first."""
+    and the 15 packed bits below it (int32: the tile-local lane, or for a
+    supercell schedule lane | lb << 12). Sample q = ray * 8 + step of a
+    chunk sits at block row q // 128, lane q % 128, so the flat view needs
+    no shuffle. torch has no shifts or masks on uint16: widen first."""
     t_cnt, nc = samp.shape[:2]
     s32 = samp.to(torch.int32).reshape(t_cnt, nc, 3, CHUNK_SAMPLES)
     st = ((s32[:, :, 0] << 16) | s32[:, :, 1]).view(torch.float32)
@@ -169,17 +204,17 @@ def decode_samples(samp: torch.Tensor):
     return st, m, s32[:, :, 2] & 0x7FFF
 
 
-
-
 class _Lattice:
     """One tile group's decoded schedule and float32 constants, shared by
-    the plain twins of K1 and K2. Every per-chunk value is computed in
-    the kernels' order of arithmetic."""
+    the plain twins of K1 and K2 (and K8's). Every per-chunk value is
+    computed in the kernels' order of arithmetic."""
 
-    def __init__(self, tabs, samp, base, rayt, ke, bank0, prm: TileParams):
+    def __init__(self, tabs, samp, base, rayt, ke, bank0, prm):
         self.t_cnt, self.nb, self.nc = int(tabs.shape[0]), prm.banks, \
             prm.n_chunks
-        self.tabs, self.base, self.prm = tabs, base, prm
+        self.prm = prm
+        self.subs = getattr(prm, "subs", 1)
+        self.super = getattr(prm, "stencil", "cell") == "super"
         dev = self.dev = tabs.device
 
         def f32(v):
@@ -191,10 +226,25 @@ class _Lattice:
         self.lo = [f32(v) for v in prm.lo]
         self.inv = [f32(v) for v in prm.inv]
         self.ns = [f32(v) for v in prm.ns]
-        self.st_all, self.m_all, self.lane_all = decode_samples(samp)
+        self.st_all, self.m_all, bits = decode_samples(samp)
+        if self.super:
+            # lane (12 bits) | lx << 12 | ly << 13 | lz << 14
+            self.lane_all = bits & 0xFFF
+            self.lb_all = [(bits >> (12 + ax)) & 1 for ax in range(3)]
+        else:
+            self.lane_all, self.lb_all = bits, None
         self.rays = rayt.reshape(self.t_cnt, 6, RAYS_PER_TILE) \
             .repeat_interleave(GROUP, dim=2)                   # (T, 6, 2048)
-        self.b0_all = (bank0.reshape(self.t_cnt, self.nc) & 0x3FFF).long()
+        self.b0_all = (bank0.reshape(self.t_cnt, self.nc, self.subs)
+                       & 0x3FFF).long()
+        # each sample's sub-tile: block rows r // (16 // subs)
+        self.sub_of = torch.arange(CHUNK_SAMPLES, device=dev) // (
+            CHUNK_SAMPLES // self.subs)
+        # the tile's bank lanes flat: (T, C, NB * 128)
+        self.tabs_f = tabs.permute(0, 2, 1, 3).reshape(
+            self.t_cnt, tabs.shape[2], self.nb * LANES)
+        self.base_f = base.permute(0, 2, 1, 3).reshape(
+            self.t_cnt, 3, self.nb * LANES)
         self.tiles = torch.arange(self.t_cnt, device=dev)
         self.step = (torch.arange(CHUNK_SAMPLES, device=dev) % GROUP)[None]
         self.ke32 = ke.to(torch.int32)
@@ -202,34 +252,30 @@ class _Lattice:
         self.t_origin_c = torch.minimum(self.t_origin, self.t_stop)
 
     def window(self, c):
-        """Chunk c's window banks (b0, b1) per tile and its samples'
-        window-relative slots idx2 (T, 2048) int32."""
-        b0 = self.b0_all[:, c]
+        """Chunk c's window banks (b0, b1) and window-relative slots idx2
+        of every sample, each (T, 2048): the window of the sample's
+        sub-tile, b1 = min(b0 + 1, NB - 1)."""
+        b0 = self.b0_all[:, c][:, self.sub_of]
         b1 = torch.clamp(b0 + 1, max=self.nb - 1)
-        idx2 = self.lane_all[:, c] - (b0 * LANES)[:, None].to(torch.int32)
+        idx2 = self.lane_all[:, c] - (b0 * LANES).to(torch.int32)
         return b0, b1, idx2
 
     def expand(self, c):
         """Chunk c's window values per sample: (vals (T, C, 2048), the
         bank table's C columns at each sample's slot; cbase (T, 3, 2048),
-        the slot's cell base; idx2)."""
-        t_cnt = self.t_cnt
+        the slot's cell base; idx2). A slot past the window clamps into
+        its bank, as the kernels read it."""
         b0, b1, idx2 = self.window(c)
-        i0 = idx2.clamp(0, LANES - 1).long()
-        i1 = (idx2 - LANES).clamp(0, LANES - 1).long()
         second = idx2 >= LANES
+        slot = torch.where(second, idx2 - LANES, idx2).clamp(0, LANES - 1)
+        flat = torch.where(second, b1, b0) * LANES + slot.long()
 
-        def expand(m0, m1):
-            # (T, C, 128) bank rows -> (T, C, 2048) per-sample values
-            n = m0.shape[1]
-            v0 = torch.gather(m0, 2, i0[:, None].expand(t_cnt, n, -1))
-            v1 = torch.gather(m1, 2, i1[:, None].expand(t_cnt, n, -1))
-            return torch.where(second[:, None], v1, v0)
+        def gather(table):
+            n = table.shape[1]
+            return torch.gather(table, 2,
+                                flat[:, None].expand(self.t_cnt, n, -1))
 
-        tiles = self.tiles
-        vals = expand(self.tabs[tiles, b0], self.tabs[tiles, b1])
-        cbase = expand(self.base[tiles, b0], self.base[tiles, b1])
-        return vals, cbase, idx2
+        return gather(self.tabs_f), gather(self.base_f), idx2
 
     def coords(self, c):
         """Chunk c's sample coordinates on the grid's cell scale,
@@ -240,26 +286,62 @@ class _Lattice:
                 for ax in range(3)]
 
     def chunk(self, c):
-        """Chunk c: (vals (T, 32, 2048) stencil values per sample, the
+        """Chunk c: (vals (T, C, 2048) stencil values per sample, the
         axis weights ((1 - tx, tx), (1 - ty, ty), m-folded z), the
-        planes sigma, r, g, b as (T, 256, 8), idx2)."""
+        planes sigma, r, g, b as (T, 256, 8), idx2). A supercell sample's
+        cell base is its supercell's vertex origin plus lb, an exact
+        float32 add."""
         t_cnt = self.t_cnt
         vals, cbase, idx2 = self.expand(c)
         m = self.m_all[:, c]
         w = []
         for ax, f in enumerate(self.coords(c)):
-            frac = f - cbase[:, ax]
+            cb = cbase[:, ax]
+            if self.super:
+                cb = cb + self.lb_all[ax][:, c].to(torch.float32)
+            frac = f - cb
             w.append((1.0 - frac, frac))
         wx, wy, wz = w
         wz = (m * wz[0], m * wz[1])
-        w8 = corner_weights((wx, wy, wz))
+        if self.super:
+            wv, per = hat_weights((wx, wy, wz), self.lbits(c)), 27
+        else:
+            wv, per = corner_weights((wx, wy, wz)), 8
         planes = []
         for ch in range(4):
-            a = w8[0] * vals[:, ch * 8]
-            for corner in range(1, 8):
-                a = a + w8[corner] * vals[:, ch * 8 + corner]
+            a = wv[0] * vals[:, ch * per]
+            for v in range(1, per):
+                a = a + wv[v] * vals[:, ch * per + v]
             planes.append(a.reshape(t_cnt, RAYS_PER_TILE, GROUP))
         return vals, (wx, wy, wz), planes, idx2
+
+    def lbits(self, c):
+        """Chunk c's cell-in-supercell bits (lx, ly, lz), each (T, 2048)."""
+        return [lb[:, c] for lb in self.lb_all]
+
+    def slot_products(self, c, weights, dpl):
+        """d(stencil row) per sample, (T, C, 2048): the stencil weight of
+        each column times the d-plane of its channel (``dpl``: d sigma,
+        d r, d g, d b, each (T, 2048))."""
+        if self.super:
+            wv, per = hat_weights(weights, self.lbits(c)), 27
+        else:
+            wv, per = corner_weights(weights), 8
+        return torch.stack([wv[v] * dpl[ch] for ch in range(4)
+                            for v in range(per)], dim=1)
+
+    def corner_values(self, vals, c):
+        """The 32 values ch * 8 + corner of each sample's cell, (T, 32,
+        2048): ``vals`` itself for the cell stencil; for a supercell, its
+        vertices (lz + dz, ly + dy, lx + dx)."""
+        if not self.super:
+            return vals
+        lx, ly, lz = self.lbits(c)
+        vert = torch.stack([(lz + dz) * 9 + (ly + dy) * 3 + (lx + dx)
+                            for dz in (0, 1) for dy in (0, 1)
+                            for dx in (0, 1)], dim=1)          # (T, 8, 2048)
+        idx = torch.cat([vert + ch * 27 for ch in range(4)], dim=1)
+        return torch.gather(vals, 1, idx.long())
 
     def chunk_time(self, c):
         """(livef, dt_actual, mid-segment depth) of chunk c's steps, each
@@ -276,6 +358,24 @@ class _Lattice:
         mid = tcur + 0.5 * dta
         shape = (self.t_cnt, RAYS_PER_TILE, GROUP)
         return livef.reshape(shape), dta.reshape(shape), mid.reshape(shape)
+
+
+def hat_weights(weights, lbits):
+    """The 27 supercell vertex weights in vertex order vz*9 + vy*3 + vx,
+    each (hz * hy) * hx with the hat h[a] = w0 where a == l, w1 where
+    a == l + 1 and an exact 0.0 elsewhere (``dvren_tpu``'s
+    ``_hat_weights``): the 8 nonzero ones equal the cell's corner weights
+    bit for bit."""
+    hats = []
+    for (w0, w1), lb in zip(weights, lbits):
+        zero = torch.zeros_like(w0)
+        hats.append([torch.where(lb == a, w0,
+                                 torch.where(lb == a - 1, w1, zero))
+                     for a in range(3)])
+    hx, hy, hz = hats
+    hzy = [[hz[vz] * hy[vy] for vy in range(3)] for vz in range(3)]
+    return [hzy[vz][vy] * hx[vx]
+            for vz in range(3) for vy in range(3) for vx in range(3)]
 
 
 def corner_weights(weights):
@@ -364,20 +464,56 @@ def camera_scales(prm: TileParams) -> tuple:
                  for i, n in zip(prm.inv, prm.ns))
 
 
+def ordered_sums(vals: torch.Tensor, keys: torch.Tensor,
+                 n_keys: int) -> torch.Tensor:
+    """Rows of ``vals`` (N, C) summed by ``keys`` (N,) into (n_keys, C):
+    each key's rows are added one at a time, from +0.0, in their order in
+    ``vals``, as K2 adds a window's staged samples; rows with key -1 are
+    left out. One step per rank of a row among its key's rows, and within
+    a step every key at most once, so the sums are the same on every
+    device and every run (no ``index_add_``, whose CUDA atomics add in no
+    fixed order)."""
+    out = vals.new_zeros((n_keys, vals.shape[1]))
+    idx = torch.nonzero(keys >= 0).squeeze(1)
+    if idx.numel() == 0:
+        return out
+    k = keys[idx]
+    order = torch.argsort(k, stable=True)
+    ks, src = k[order], idx[order]
+    pos = torch.arange(ks.numel(), device=ks.device)
+    start = torch.ones_like(ks, dtype=torch.bool)
+    start[1:] = ks[1:] != ks[:-1]
+    rank = pos - torch.cummax(torch.where(start, pos, 0), 0).values
+    by_rank = torch.argsort(rank, stable=True)
+    ks, src = ks[by_rank], src[by_rank]
+    off = 0
+    for cnt in torch.unique_consecutive(rank[by_rank],
+                                        return_counts=True)[1].tolist():
+        d = ks[off:off + cnt]
+        out[d] = out[d] + vals[src[off:off + cnt]]
+        off += cnt
+    return out
+
+
 def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
                         prm: TileParams, cam: bool = False):
-    """Plain twin of K2: (d_rows (T, NB, 128, 32), d_rayt (T, 12, 128) or
+    """Plain twin of K2: (d_rows (T, NB, 128, C), d_rayt (T, 12, 128) or
     None) for the per-ray cotangents ``gs`` (T, 5, 16, 16) of K1's heads.
 
     Pass 1 recomputes every sample's optical-depth prefix in K1's order.
     Pass 2 walks the chunks and their steps in reverse with the adjoint
     of the telescoped weights (suffix sums of gw * w, the 0.5 tie of
-    max(x, 0)), and adds each chunk's d(table) into the tile's banks: a
-    one-hot contraction over the chunk's 256-slot window, as the TPU
-    kernel does (torch.bmm; the kernel sums in sample order instead).
-    The camera adjoint is summed per ray in the kernel's order."""
+    max(x, 0)), and adds each chunk's d(table) into the tile's banks in
+    K2's order: sub-tile by sub-tile, the window's 256 slot rows summed
+    from 0 over the samples that take part (live, masked in, not stopped)
+    in sample order (:func:`ordered_sums`), then its first half added
+    into bank b0 and its second into b1. Samples that do not take part
+    carry exact zeros. The camera adjoint is summed per ray in K2's
+    order; a supercell sample's is the cell one over its 8 vertices,
+    which the JAX kernel's 27-vertex hat-derivative sums equal."""
     lat = _Lattice(tabs, samp, base, rayt, ke, bank0, prm)
-    t_cnt, nb, nc = lat.t_cnt, lat.nb, lat.nc
+    t_cnt, nb, nc, subs = lat.t_cnt, lat.nb, lat.nc, lat.subs
+    cols = prm.cols
     g = gs.reshape(t_cnt, 5, RAYS_PER_TILE, 1)
     g_r, g_g, g_b, g_wd, g_odp = (g[:, i] for i in range(5))
     zeros = torch.zeros((t_cnt, RAYS_PER_TILE), dtype=torch.float32,
@@ -396,9 +532,12 @@ def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
         s_pre.append(torch.stack(pre, dim=-1))                # (T, 256, 8)
 
     # pass 2: the reverse adjoint
-    acc = torch.zeros((t_cnt, nb, NCH, LANES), dtype=torch.float32,
+    acc = torch.zeros((t_cnt, nb * LANES, cols), dtype=torch.float32,
                       device=lat.dev)
-    slots = torch.arange(2 * LANES, device=lat.dev)
+    # window row of each (tile, sub-tile, window slot)
+    win_base = ((lat.tiles[:, None] * subs + lat.sub_of[None])
+                * 2 * LANES)                                  # (T, 2048)
+    lanes = torch.arange(LANES, device=lat.dev)
     kcam = camera_scales(prm)
     carry = zeros
     dcam = [zeros] * 6
@@ -423,26 +562,35 @@ def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
         dpl = [d.reshape(t_cnt, CHUNK_SAMPLES)
                for d in (dsig, g_r * w, g_g * w, g_b * w)]
 
-        w8 = corner_weights(weights)
-        wp = torch.stack([w8[corner] * dpl[ch] for ch in range(4)
-                          for corner in range(8)], dim=1)    # (T, 32, 2048)
-        onehot = (idx2[:, :, None] == slots).to(torch.float32)
-        d01 = torch.bmm(wp, onehot)                         # (T, 32, 256)
-        b0, b1, _ = lat.window(c)
-        acc[lat.tiles, b0] = acc[lat.tiles, b0] + d01[..., :LANES]
-        acc[lat.tiles, b1] = acc[lat.tiles, b1] + d01[..., LANES:]
+        wp = lat.slot_products(c, weights, dpl)             # (T, C, 2048)
+        m = lat.m_all[:, c]
+        takes_part = ((m > 0) & (procf.reshape(t_cnt, CHUNK_SAMPLES) > 0)
+                      & (idx2 >= 0) & (idx2 < 2 * LANES))
+        keys = torch.where(takes_part, win_base + idx2, -1)
+        win = ordered_sums(wp.transpose(1, 2).reshape(-1, cols),
+                           keys.reshape(-1), t_cnt * subs * 2 * LANES)
+        win = win.reshape(t_cnt, subs, 2 * LANES, cols)
+        b0s = lat.b0_all[:, c]                              # (T, subs)
+        for sub in range(subs):
+            b0 = b0s[:, sub]
+            b1 = torch.clamp(b0 + 1, max=nb - 1)
+            for half, bank in enumerate((b0, b1)):
+                rows = bank[:, None] * LANES + lanes          # (T, 128)
+                acc[lat.tiles[:, None], rows] = (
+                    acc[lat.tiles[:, None], rows]
+                    + win[:, sub, half * LANES:(half + 1) * LANES])
 
         if cam:
-            m = lat.m_all[:, c]
             st = lat.st_all[:, c]
-            terms = _camera_terms(vals, weights, m, dpl)
+            terms = _camera_terms(lat.corner_values(vals, c), weights, m,
+                                  dpl)
             per = [terms[ax] * kcam[ax] for ax in range(3)] + [
                 (terms[ax] * st) * kcam[ax] for ax in range(3)]
             per = [t.reshape(t_cnt, RAYS_PER_TILE, GROUP) for t in per]
             for j in reversed(range(GROUP)):
                 dcam = [d + t[..., j] for d, t in zip(dcam, per)]
 
-    d_rows = acc.transpose(2, 3).contiguous()               # (T, NB, 128, 32)
+    d_rows = acc.reshape(t_cnt, nb, LANES, cols)
     d_rayt = (torch.stack(dcam, dim=1).reshape(t_cnt, RAYT_ROWS, LANES)
               if cam else None)
     return d_rows, d_rayt
@@ -461,8 +609,9 @@ def _check_cotangent(gs, tabs):
 def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
                   cam: bool = False):
     """K2: one tile group's d(bank table) as f32 slot rows (T, NB, 128,
-    32), row (t * NB + b) * 128 + lane, column ch * 8 + corner; and with
-    ``cam`` d(rayt) (T, 12, 128) in rayt's layout (else None).
+    C), row (t * NB + b) * 128 + lane, column ch * 8 + corner (C = 32) or
+    ch * 27 + vertex (C = 108, a supercell schedule); and with ``cam``
+    d(rayt) (T, 12, 128) in rayt's layout (else None).
 
     ``gs`` (T, 5, 16, 16) f32 is the cotangent of :func:`tile_forward`'s
     output. Launches ``csrc/fused_tiles_bwd.cu`` for CUDA tensors, runs
@@ -481,7 +630,7 @@ def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
             raise ValueError(f"{name} must be contiguous")
     t_cnt, nb, nc = int(tabs.shape[0]), prm.banks, prm.n_chunks
     dev = tabs.device
-    d_rows = torch.empty((t_cnt, nb, LANES, NCH), dtype=torch.float32,
+    d_rows = torch.empty((t_cnt, nb, LANES, prm.cols), dtype=torch.float32,
                          device=dev)
     d_rayt = (torch.empty((t_cnt, RAYT_ROWS, LANES), dtype=torch.float32,
                           device=dev) if cam else None)
@@ -495,7 +644,7 @@ def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
             rayt.data_ptr(), ke.data_ptr(), bank0.data_ptr(), gs.data_ptr(),
             d_rows.data_ptr(), d_rayt.data_ptr() if cam else None,
             s_pre.data_ptr(),
-            t_cnt, nc, nb, prm.k_max,
+            t_cnt, nc, nb, prm.k_max, prm.subs, int(prm.stencil == "super"),
             prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
             *prm.lo, *prm.inv, *prm.ns, *camera_scales(prm),
             _build.stream_ptr(dev))

@@ -74,6 +74,47 @@ def _shift_stack_fullpitch(sigma: torch.Tensor, color: torch.Tensor,
     return torch.stack(parts, dim=0)
 
 
+SUPER_NCH = 108   # supercell columns: 4 channels x 27 vertices
+
+
+def supercell_dims(grid_shape_zyx) -> tuple:
+    """Supergrid dims (SZ, SY, SX) of the 2x2x2 supercells of base cells:
+    base cells run [0, n-2] per axis, so supercell cell // 2 runs
+    [0, (n-2) // 2] and n // 2 covers it for every n >= 2."""
+    z, y, x = (int(v) for v in grid_shape_zyx)
+    return (z // 2, y // 2, x // 2)
+
+
+def supercell_rows(grid_shape_zyx) -> int:
+    sz, sy, sx = supercell_dims(grid_shape_zyx)
+    return sz * sy * sx
+
+
+def build_supercell_stencil(sigma: torch.Tensor,
+                            color: torch.Tensor) -> torch.Tensor:
+    """The 3x3x3 vertex block of every 2x2x2 supercell: (R_s, 108) float32
+    with R_s = :func:`supercell_rows`, row (sz*SY + sy)*SX + sx, column
+    ch*27 + vz*9 + vy*3 + vx (ch in sigma, r, g, b; vertex v at grid point
+    2s + v per axis), as ``dvren_tpu/ops/grid.py::build_supercell_stencil``
+    builds it. Vertices past the grid (the last supercell of an even axis)
+    are zero: every sample that could read them has an exactly-zero hat
+    weight. Plain tensor ops (a zero pad and 108 strided slices), so
+    autograd gives the adjoint; it adds no scatter."""
+    z, y, x = sigma.shape
+    sz, sy, sx = supercell_dims((z, y, x))
+    pad = (0, 2 * sx + 1 - x, 0, 2 * sy + 1 - y, 0, 2 * sz + 1 - z)
+    parts = []
+    for ch in range(4):
+        g = sigma if ch == 0 else color[..., ch - 1]
+        g = torch.nn.functional.pad(g.to(torch.float32), pad)
+        for vz in range(3):
+            for vy in range(3):
+                for vx in range(3):
+                    parts.append(g[vz:vz + 2 * sz - 1:2, vy:vy + 2 * sy - 1:2,
+                                   vx:vx + 2 * sx - 1:2])
+    return torch.stack(parts, dim=-1).reshape(sz * sy * sx, SUPER_NCH)
+
+
 def stack_plane_grads(t: torch.Tensor, sigma_shape) -> tuple:
     """(32, R) f32 stack cotangent -> (d_sigma (Z, Y, X), d_color
     (Z, Y, X, 3)): the adjoint of :func:`_shift_stack_fullpitch`'s offset

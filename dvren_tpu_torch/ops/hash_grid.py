@@ -492,7 +492,7 @@ def hash_grid_backward_plain(tabs, samp, base, rayt, ke, bank0, sc, gs,
         wp = torch.stack(wp, dim=-1)                        # (T, 2048, C)
         b0, b1, _ = lat.window(c)
         second = idx2 >= LANES
-        bank = torch.where(second, b1[:, None], b0[:, None])
+        bank = torch.where(second, b1, b0)
         lane = torch.where(second, idx2 - LANES, idx2).clamp(0, LANES - 1)
         row = (lat.tiles[:, None] * nb + bank) * LANES + lane
         ok = (idx2 >= 0) & (idx2 < 2 * LANES)

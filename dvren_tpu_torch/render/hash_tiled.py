@@ -253,9 +253,10 @@ def build_hash_grid_schedule(plan: Plan, field,
 
     The JAX package cascades 16 -> 8 -> 4 px sub-tiles to the coarsest
     configuration without slot overflow (the grid path has no windowed
-    fallback). This slice has 16 px tiles only: a scene whose tiles
-    overflow them raises ``NotImplementedError`` (ROADMAP Queue 1 item
-    10), and never returns a schedule with overflow rays."""
+    fallback). K8 has no sub-tiled form here yet, so this builds 16 px
+    tiles only: a scene whose tiles overflow them raises
+    ``NotImplementedError`` (ROADMAP Queue 1 item 10), and it never
+    returns a schedule with overflow rays."""
     _check_grid_spec(field.spec)
     proxy = _HashSchedProxy(
         schedule_grid_shape=hash_grid.grid_shape(field.spec))
@@ -263,7 +264,7 @@ def build_hash_grid_schedule(plan: Plan, field,
     if sched.fallback_rays:
         raise NotImplementedError(
             f"{sched.fallback_rays} rays overflow the hash grid's 16 px slot "
-            f"tables: needs {tiled_mod._TODO_SUBTILES}")
+            f"tables: needs K8's sub-tiled form (ROADMAP Queue 1 item 10)")
     return sched if device is None else sched.to(device)
 
 
@@ -356,4 +357,4 @@ def render_hash_grid_tiled(plan: Plan, field, schedule,
             *(field.params[k] for k in ("hash_table",) + MLP_KEYS)))
     return tiled_mod._compose_tiles(
         plan, raws, [g.tile_ids for g in schedule.groups],
-        tile_px=schedule.tile_px)
+        tile_px=schedule.tile_px, device=field.device)

@@ -2,12 +2,15 @@
 
 Counterpart of ``dvren_tpu/render/renderer.py`` on its two tiled paths.
 On a dense grid or a sparse brick field, :meth:`Renderer.forward` builds
-the tile schedule once per (field bbox, grid shape, pitch; for a sparse
-field its brick count and occupancy, compared by contents) key, keeps it
-on the context's device, and replays it every frame (the table: K3 for a
-float32 dense grid, K5a for a 16-bit one, the bricks as they are for a
-sparse field; the bank gather, one K1 launch per tile group, the tile
-compose); :meth:`Renderer.backward` differentiates that replay for
+the tile schedule by ``build_tiled_schedule_auto``'s cascade (16, 8 or
+4 px tiles, cell or supercell tables) once per (field bbox, packed
+dtype, grid shape, pitch; for a sparse field its brick count and
+occupancy, compared by contents) key, keeps it on the context's device,
+and replays it every frame (the table: K3 for a float32 dense grid on
+cell tables, the supercell table on supercell ones, K5a for a 16-bit
+grid, the bricks as they are for a sparse field; the bank gather, one K1
+launch per tile group, the tile compose); :meth:`Renderer.backward`
+differentiates that replay for
 ``sum(image * dl_image)`` in (sigma, color) or the bricks, ``c2w`` and
 ``k`` (K2 per group, the gather-plan reduction, then K4 or K5b on a dense
 grid). The forward's stats notes count the launches of K1
@@ -290,11 +293,17 @@ class Renderer:
             leaf = field.with_params(field.sigma.detach(),
                                      field.color.detach())
             params = (leaf.sigma, leaf.color)
+        wrt = params + (c2w0, k0)
         with torch.enable_grad():
             planes = tiled_mod.render_tiled(
                 self._plan, leaf, self._tiled_schedule, k=k0, c2w=c2w0)
             loss = torch.sum(planes.image * dl_img)
-            grads = torch.autograd.grad(loss, params + (c2w0, k0))
+            # an empty schedule (no ray enters the bbox) renders the
+            # background alone: every gradient is zero, as in JAX
+            grads = (torch.autograd.grad(loss, wrt, allow_unused=True)
+                     if loss.requires_grad else (None,) * len(wrt))
+        grads = tuple(torch.zeros_like(x) if g is None else g
+                      for g, x in zip(grads, wrt))
         return self._finish_backward(grads, out)
 
     def _tile_eligible(self, field) -> bool:
@@ -379,31 +388,37 @@ class Renderer:
                 f"OOB_ZERO trilinear grid or a hash-MLP field)")
 
     def _tiled_schedule_key(self, field) -> tuple:
-        """What the schedule depends on. A sparse schedule's lanes name
-        brick rows resolved through the occupancy, so its key holds the
-        brick count and a host copy of the occupancy, compared by
-        contents. (The JAX key adds the occupancy only under
-        ``use_occupancy``, and then by object id: two sparse fields of one
-        shape and bbox would share a stale schedule there.)"""
-        bbox = (tuple(float(v) for v in field.bbox_min),
-                tuple(float(v) for v in field.bbox_max))
+        """What the schedule depends on. The cascade's choice depends on
+        the table's ``packed_dtype`` (supercells only for float32), so the
+        key holds it. A sparse schedule's lanes name brick rows resolved
+        through the occupancy, so its key holds the brick count and a host
+        copy of the occupancy, compared by contents. (The JAX key has
+        neither the dtype nor, outside ``use_occupancy``, the occupancy:
+        a bfloat16 field after a float32 one of one shape would reuse a
+        supercell schedule there, and two sparse fields of one shape and
+        bbox a stale one.)"""
+        key = (tuple(float(v) for v in field.bbox_min),
+               tuple(float(v) for v in field.bbox_max),
+               getattr(field, "packed_dtype", "float32"))
         if hasattr(field, "bricks"):
             occ = field.occupancy.cpu().numpy()
-            return bbox + (tuple(int(v) for v in field.grid_shape), True,
-                           self._options.tile_pitch,
-                           int(field.bricks.shape[0]), occ.shape,
-                           occ.tobytes())
-        return bbox + (tuple(int(v) for v in field.sigma.shape), False,
-                       self._options.tile_pitch)
+            return key + (tuple(int(v) for v in field.grid_shape), True,
+                          self._options.tile_pitch,
+                          int(field.bricks.shape[0]), occ.shape,
+                          occ.tobytes())
+        return key + (tuple(int(v) for v in field.sigma.shape), False,
+                      self._options.tile_pitch)
 
     def _forward_tiled(self, field, stats: RenderStats):
         key = self._tiled_schedule_key(field)
         if self._tiled_schedule is None or self._tiled_key != key:
             t0 = time.perf_counter()
-            schedule, _ = tiled_mod.build_tiled_schedule_auto(
+            schedule, note = tiled_mod.build_tiled_schedule_auto(
                 self._plan, field, jitter=self._jitter_host,
                 occupancy=self._options.use_occupancy,
                 pitch=self._options.tile_pitch)
+            if note:
+                stats.notes.append(note)
             self._tiled_schedule = schedule.to(self._ctx.device)
             self._tiled_key = key
             stats.notes.append(

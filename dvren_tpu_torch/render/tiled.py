@@ -29,22 +29,28 @@ gradients), sums the rows of every cell through the schedule's
 no scatter and no atomics), and unpacks the table gradient onto the grid
 with K4. Repeat runs are bit-identical.
 
-That is the dense float32 route. Every other field takes the flat-table
-route (:class:`_GroupsetFromTable`, from any (R, 32) table): a dense
-field with a 16-bit ``packed_dtype`` builds its table with K5a
-(:class:`_Table16FromParams`, whose backward is K5b), and a
+That is the dense float32 route on cell tables. Every other case takes
+the flat-table route (:class:`_GroupsetFromTable`, from any (R, C)
+table): a dense field with a 16-bit ``packed_dtype`` builds its table
+with K5a (:class:`_Table16FromParams`, whose backward is K5b); a
+supercell schedule (``cell_scale=2``) the 108-column table of
+:func:`~dvren_tpu_torch.ops.grid.build_supercell_stencil`; and a
 :class:`~dvren_tpu_torch.fields.sparse_grid.SparseGridField` hands over
 its bricks as they are, the schedule's lanes naming brick rows.
 
 The schedule is built in numpy, as the JAX package builds it, and its
 arrays, the gather plan included, equal that package's array for array.
-This slice supports 16 px tiles, pitch 1, one slot per grid cell, dense
-fields (float32, bfloat16 or float16 tables) and sparse brick fields, no
-occupancy trimming and no windowed fallback. Anything else raises
-``NotImplementedError`` naming its ROADMAP item.
+Tiles of 16, 8 or 4 px (8 and 4 px: sub-tiles of a 16x16 block, each
+with its own bank windows), one slot per grid cell or per 2x2x2
+supercell, and :func:`build_tiled_schedule_auto`'s cascade over them, as
+in the JAX package. Not yet ported: pitch 2, occupancy trimming,
+quantized shapes and the windowed fallback, so a schedule whose rays
+still overflow cannot be rendered. Those raise ``NotImplementedError``
+naming their ROADMAP item.
 
 Sample layout per (tile, chunk): block row r in [0, 16), lane l in
-[0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8.
+[0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8; with n_sub
+sub-tiles, sub-tile s owns the 16 // n_sub rows from s * (16 // n_sub).
 """
 
 from __future__ import annotations
@@ -62,7 +68,9 @@ from dvren_tpu_torch.ops import fused_tiles, packed_transpose
 from dvren_tpu_torch.ops.compose import ImagePlanes
 from dvren_tpu_torch.ops.gather_plan import (build_gather_plan,
                                              slot_rows_to_table)
-from dvren_tpu_torch.ops.grid import NCH, fullpitch_rows, table_dtype
+from dvren_tpu_torch.ops.grid import (NCH, build_supercell_stencil,
+                                      fullpitch_rows, supercell_rows,
+                                      table_dtype)
 from dvren_tpu_torch.ops.raygen import generate_rays
 from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
@@ -77,7 +85,6 @@ _DROP_TILE = 1 << 30     # tile id of pad tiles: compose drops it
 
 # ROADMAP Queue 1 items for what this slice leaves out
 _TODO_FALLBACK = "the windowed fallback (ROADMAP Queue 1 item 11)"
-_TODO_SUBTILES = "sub-tiled and supercell schedules (ROADMAP Queue 1 item 10)"
 _TODO_PITCH2 = "pitch-2 packing (ROADMAP Queue 1 item 5)"
 _TODO_OCCUPANCY = "occupancy trimming (ROADMAP Queue 1 item 5)"
 _TODO_MULTIVIEW = "quantized and uniform schedules (ROADMAP Queue 1 item 13)"
@@ -104,17 +111,21 @@ class TileGroup:
     #                          -1 on dead lanes
     gathermap: np.ndarray    # pitch 1: the same array as ``hostmap``
     samp: np.ndarray         # (T, nc, 3, 16, 128) u16: [sample_t hi16,
-    #                          sample_t lo16, tile lane | mask << 15];
+    #                          sample_t lo16, tile lane | mask << 15, or
+    #                          for supercells lane(12) | lb << 12 | m << 15];
     #                          integer data, only bit ops may touch it
-    base: np.ndarray         # (T, banks, 3, 128) f32 lane cell base (x,y,z)
+    base: np.ndarray         # (T, banks, 3, 128) f32 lane cell base (x,y,z);
+    #                          a supercell lane's vertex origin
     rayt: np.ndarray         # (T, 12, 128) f32 ray planes, row ax*2 + half,
     #                          lane ray % 128, axes (ox, oy, oz, dx, dy, dz)
-    bank0: np.ndarray        # (T, nc, 1) int32 window start bank (bits
-    #                          0..13) | ALIGNED << 30 (used by the backward)
+    bank0: np.ndarray        # (T, nc, n_sub) int32 window start bank per
+    #                          (chunk, sub-tile), bits 0..13, | ALIGNED
+    #                          << 30 (read only by the JAX backward)
     ray_ids: np.ndarray      # (T, 256) int32 global ray id (dead -> 0)
     k_enter: np.ndarray      # (T,) int32 tile window start step
     pixel_ids: np.ndarray    # (T*256,) int32 compose targets per ray
-    tile_ids: np.ndarray     # (T, 1) int32 ROI tile index (pads: 1 << 30)
+    tile_ids: np.ndarray     # (T, n_sub) int32 compose id per sub-tile
+    #                          (pads and overflowing sub-tiles: 1 << 30)
     samples: int             # live sample count
 
     def to(self, device) -> "TileGroup":
@@ -133,7 +144,8 @@ class TiledSchedule:
     total_rays: int
     tiled_samples: int
     full_lattice_samples: int
-    fallback_rays: int       # rays whose tiles overflow the slot tables
+    fallback_rays: int       # rays whose sub-tiles overflow the slot
+    #                          tables (counted as the JAX package counts)
     grid_shape: tuple        # (nz, ny, nx) the cell ids index
     bbox: tuple              # ((min), (max)) the windows and cells assume
     tile_px: int = 16
@@ -165,40 +177,77 @@ def build_tiled_schedule_auto(plan: Plan, field, jitter=None,
                               occupancy: bool = False,
                               quantize: bool = False,
                               pitch: int = 1):
-    """Build the 16 px cell-table schedule; returns (schedule, None).
+    """Build the schedule at the coarsest configuration whose slot tables
+    hold the scene, by ``dvren_tpu``'s cascade; returns (schedule, note).
 
-    The JAX package cascades to supercell and sub-tiled schedules when
-    more than a tenth of the rays overflow, and renders the remaining
-    overflow rays through the windowed path; this slice has neither, so
-    any overflow raises ``NotImplementedError``."""
+    16 px cell tables first; while more than a tenth of the rays
+    overflow, (tile_px, cell_scale) = (16, 2), (8, 1), (8, 2), (4, 1) for
+    a dense float32 field, (8, 1), (4, 1) for a 16-bit or sparse one,
+    each kept when it overflows fewer rays. ``note`` names the chosen
+    configuration ("tiled_subtiled_8px", "tiled_supercell_16px", ...) or
+    is None at 16 px cells. The JAX package renders the rays that still
+    overflow through the windowed path; this port has none yet, so a
+    chosen schedule with overflow rays raises ``NotImplementedError``."""
     sched = build_tiled_schedule(plan, field, jitter=jitter,
                                  occupancy=occupancy, quantize=quantize,
                                  pitch=pitch)
-    if sched.fallback_rays * 10 > sched.total_rays:
-        raise NotImplementedError(
-            f"{sched.fallback_rays} of {sched.total_rays} rays overflow the "
-            f"16 px slot tables: needs {_TODO_SUBTILES}")
+    note = None
+    supercell_ok = (not hasattr(field, "bricks")
+                    and getattr(field, "packed_dtype", "float32")
+                    == "float32")
+    cascade = ([(16, 2), (8, 1), (8, 2), (4, 1)] if supercell_ok
+               else [(8, 1), (4, 1)])
+    for px, scale in cascade:
+        if sched.fallback_rays * 10 <= sched.total_rays:
+            break
+        s_fine = build_tiled_schedule(plan, field, jitter=jitter,
+                                      occupancy=occupancy, tile_px=px,
+                                      quantize=quantize, pitch=pitch,
+                                      cell_scale=scale)
+        if s_fine.fallback_rays < sched.fallback_rays:
+            sched = s_fine
+            note = (f"tiled_subtiled_{px}px" if scale == 1
+                    else f"tiled_supercell_{px}px")
     if sched.fallback_rays:
         raise NotImplementedError(
-            f"{sched.fallback_rays} rays overflow the slot tables: needs "
-            f"{_TODO_FALLBACK}")
-    return sched, None
+            f"{sched.fallback_rays} of {sched.total_rays} rays overflow the "
+            f"slot tables at tile_px={sched.tile_px}, "
+            f"cell_scale={sched.cell_scale}: needs {_TODO_FALLBACK}")
+    return sched, note
 
 
-def _tile_rays(plan: Plan):
-    """Global ray ids per 16x16 tile, (n_tiles, 256) row-major with -1
-    past the ROI edge, and each tile's ROI tile index, (n_tiles, 1)."""
+def _tile_rays(plan: Plan, tile_px: int = 16):
+    """Global ray ids per 16x16 block, (n_blocks, 256) with -1 past the
+    ROI edge, and each block's sub-tile compose ids, (n_blocks, n_sub).
+
+    ``tile_px`` 16: one image tile per block, rays row-major. 8 or 4:
+    (16 / tile_px)^2 sub-tiles of tile_px x tile_px pixels per block, rays
+    ordered sub-major (sub-tile s row-major, then its pixels row-major),
+    so sub-tile s owns block rows s * 16 / n_sub onward; its compose id
+    indexes the ceil(roi / tile_px) sub-tile grid, -1 past its edge
+    (``dvren_tpu``'s ``_tile_rays``)."""
     roi = plan.roi
+    per = 16 // tile_px
+    sx_n = -(-roi.width // tile_px)
+    sy_n = -(-roi.height // tile_px)
     tx_n = -(-roi.width // TILE_W)
     ty_n = -(-roi.height // TILE_H)
-    ys = (np.arange(ty_n)[:, None, None, None] * TILE_H
-          + np.arange(TILE_H)[None, None, :, None])
-    xs = (np.arange(tx_n)[None, :, None, None] * TILE_W
-          + np.arange(TILE_W)[None, None, None, :])
+    # axes (ty, tx, sy, sx, iy, ix)
+    ys = (np.arange(ty_n)[:, None, None, None, None, None] * TILE_H
+          + np.arange(per)[None, None, :, None, None, None] * tile_px
+          + np.arange(tile_px)[None, None, None, None, :, None])
+    xs = (np.arange(tx_n)[None, :, None, None, None, None] * TILE_W
+          + np.arange(per)[None, None, None, :, None, None] * tile_px
+          + np.arange(tile_px)[None, None, None, None, None, :])
     ids = np.where((ys < roi.height) & (xs < roi.width),
                    ys * roi.width + xs, -1)
     tiles = ids.reshape(ty_n * tx_n, RAYS_PER_TILE)
-    return tiles, np.arange(ty_n * tx_n).reshape(-1, 1)
+    gy = (np.arange(ty_n)[:, None, None, None] * per
+          + np.arange(per)[None, None, :, None])
+    gx = (np.arange(tx_n)[None, :, None, None] * per
+          + np.arange(per)[None, None, None, :])
+    sub = np.where((gy < sy_n) & (gx < sx_n), gy * sx_n + gx, -1)
+    return tiles, sub.reshape(ty_n * tx_n, per * per)
 
 
 def _pack_runs_numpy(flat: np.ndarray, umax: int):
@@ -245,10 +294,8 @@ def _sparse_rows_for_cells(cells: np.ndarray, occ: np.ndarray,
     return slot * (BRICK ** 3) + local
 
 
-def _check_slice(field, tile_px, pitch, cell_scale, occupancy, quantize,
-                 uniform_shape, all_tiles, bank_aligned):
-    if tile_px != 16 or cell_scale != 1:
-        raise NotImplementedError(_TODO_SUBTILES)
+def _check_slice(field, pitch, occupancy, quantize, uniform_shape,
+                 all_tiles, bank_aligned):
     if pitch != 1:
         raise NotImplementedError(_TODO_PITCH2)
     if occupancy:
@@ -274,18 +321,34 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 
     ``jitter``: the (N, K) host table of a stratified plan; built from the
     plan when omitted. The schedule is valid for any field with the same
-    bbox and grid resolution (and, for a sparse field, occupancy). Tiles
-    whose chunks touch more than 256 cells are counted in
-    ``fallback_rays`` and left out. A field with a ``schedule_grid_shape``
-    (the hash grid path's virtual cell grid) schedules over that grid
-    instead of ``sigma``'s; a sparse brick field over its ``grid_shape``,
-    with lanes resolved to brick rows through its occupancy
-    (``table_kind="sparse"``)."""
-    _check_slice(field, tile_px, pitch, cell_scale, occupancy, quantize,
-                 uniform_shape, all_tiles, bank_aligned)
+    bbox and grid resolution (and, for a sparse field, occupancy). A
+    field with a ``schedule_grid_shape`` (the hash grid path's virtual
+    cell grid) schedules over that grid instead of ``sigma``'s; a sparse
+    brick field over its ``grid_shape``, with lanes resolved to brick rows
+    through its occupancy (``table_kind="sparse"``).
+
+    ``tile_px`` 16, 8 or 4: each 16x16 block holds (16 / tile_px)^2
+    sub-tiles with their own bank windows, which divides the cells one
+    window must hold. ``cell_scale`` 2: one slot per 2x2x2 supercell of a
+    dense float32 grid, whose lanes index the 108-column table of
+    :func:`~dvren_tpu_torch.ops.grid.build_supercell_stencil` (pitch is
+    then 1, as in the JAX package). A sub-tile with a chunk of more than
+    256 slots overflows: its live rays are counted in ``fallback_rays``
+    and its pixels left out; a supercell tile wider than 31 banks (the
+    12-bit lane) overflows whole."""
+    check(tile_px in (4, 8, 16), "tile_px must be 4, 8 or 16")
+    check(cell_scale in (1, 2), "cell_scale must be 1 or 2")
+    sparse = hasattr(field, "bricks")
+    if cell_scale == 2:
+        check(not sparse,
+              "cell_scale=2 (supercell tables) supports dense grids only")
+        check(getattr(field, "packed_dtype", "float32") == "float32",
+              "cell_scale=2 requires float32 tables")
+        pitch = 1
+    _check_slice(field, pitch, occupancy, quantize, uniform_shape, all_tiles,
+                 bank_aligned)
     bbox_min = tuple(float(v) for v in field.bbox_min)
     bbox_max = tuple(float(v) for v in field.bbox_max)
-    sparse = hasattr(field, "bricks")
     if sparse:
         grid = field.grid_shape
         occ_host = field.occupancy.cpu().numpy()
@@ -295,6 +358,7 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
             grid = field.sigma.shape[:3]
     nz, ny, nx = (int(v) for v in grid)
     check(min(nx, ny, nz) >= 2, "tiled rendering requires grid dims >= 2")
+    n_sub = (16 // tile_px) ** 2
 
     n = plan.ray_count
     dt = np.float32(plan.sampling.dt)
@@ -309,7 +373,7 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     if jitter is not None:
         jitter = np.asarray(jitter, np.float32)
 
-    tiles, sub_tile_ids = _tile_rays(plan)             # (n_tiles, 256)
+    tiles, sub_tile_ids = _tile_rays(plan, tile_px)    # (n_tiles, 256)
     safe_ids = np.maximum(tiles, 0)
     ray_live = (tiles >= 0) & (k_count_ray[safe_ids] > 0)
 
@@ -325,21 +389,22 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     roi = plan.roi
     groups = []
     host_rows: list[np.ndarray] = []
-    fallback_rays = 0
+    fallback: list[np.ndarray] = []
     tiled_samples = 0
     pad_pid_base = plan.width * plan.height
     inv_ext = [np.float32(1.0 / (bbox_max[i] - bbox_min[i]))
                if bbox_max[i] != bbox_min[i] else np.float32(0.0)
                for i in range(3)]
     nudge = np.nextafter(t_far, t_near, dtype=np.float32)
-    lanes_per_row = RAYS_PER_TILE * CHUNK           # 2048 samples per chunk
-    umax = 2 * MAX_CELLS + 1
+    sub_cols = (16 // n_sub) * 128                  # samples per sub-tile run
+    umax = min(sub_cols, 2 * MAX_CELLS + 1)
 
     for nc in sorted(set(n_chunks_tile[tile_live & (n_chunks_tile > 0)])):
         sel = np.nonzero(tile_live & (n_chunks_tile == nc))[0]
         nc = int(nc)
         t_cnt = sel.size
         k_steps = nc * CHUNK
+        runs = t_cnt * nc * n_sub
 
         ids = tiles[sel]                              # (T, 256)
         live_r = ray_live[sel]
@@ -375,7 +440,14 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         in_y, iy = _axis(1, ny)
         in_z, iz = _axis(2, nz)
         m = in_x & in_y & in_z & live
-        cell = (iz * ny + iy) * nx + ix               # full-pitch table row
+        if cell_scale == 2:
+            # the supercell's row, and the sample's cell in it
+            # (lb = lx + 2 ly + 4 lz)
+            cell = (((iz >> 1) * (ny // 2) + (iy >> 1)) * (nx // 2)
+                    + (ix >> 1))
+            lb = np.where(m, (ix & 1) + 2 * (iy & 1) + 4 * (iz & 1), 0)
+        else:
+            cell = (iz * ny + iy) * nx + ix           # full-pitch table row
 
         def to_lanes(a):
             # (T, 256, K) -> (T, nc, 16, 128): ray = row * 16 + lane // 8
@@ -387,42 +459,68 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         m_l = to_lanes(m.astype(np.float32))
         st_l = to_lanes(np.broadcast_to(
             sample_t, (t_cnt, RAYS_PER_TILE, k_steps)))
-        flat = cell_l.reshape(t_cnt * nc, lanes_per_row)
-        lidx, lanes_run, ucell, ulane, n_u = _pack_runs_numpy(flat, umax)
+        lidx, lanes_run, ucell, ulane, n_u = _pack_runs_numpy(
+            cell_l.reshape(runs, sub_cols), umax)
+        lb_l = (to_lanes(lb).reshape(runs, sub_cols).astype(np.int32)
+                if cell_scale == 2 else None)
 
         rayt_all = np.stack(
             [ot[:, :, i].reshape(t_cnt, 2, 128) for i in range(3)]
             + [dtn[:, :, i].reshape(t_cnt, 2, 128) for i in range(3)],
             axis=1).astype(np.float32).reshape(t_cnt, 12, 128)
 
-        # A tile with a chunk of more than 256 cells overflows: its rays
-        # would need the windowed fallback.
-        lanes2 = lanes_run.reshape(t_cnt, nc)
-        overflow = (lanes2 > 2 * MAX_CELLS).any(axis=1)
-        fallback_rays += int(live_r[overflow].sum())
+        # A sub-tile with a chunk of more than 256 cells overflows: its
+        # live rays would need the windowed fallback, its samples are
+        # masked and its runs emptied; a tile whose sub-tiles all overflow
+        # is left out.
+        lanes3 = lanes_run.reshape(t_cnt, nc, n_sub)
+        sub_bad = (lanes3 > 2 * MAX_CELLS).any(axis=1)   # (T, n_sub)
+        overflow = sub_bad.all(axis=1)
+        if sub_bad.any():
+            fb = ids.reshape(t_cnt, n_sub, -1)[sub_bad][
+                live_r.reshape(t_cnt, n_sub, -1)[sub_bad]]
+            if fb.size:
+                fallback.append(fb)
+            lanes3 = np.where(sub_bad[:, None, :], 0, lanes3)
+            m_l = (m_l.reshape(t_cnt, nc, n_sub, sub_cols)
+                   * ~sub_bad[:, None, :, None]).reshape(t_cnt, nc, 16, 128)
+            n_u = np.where(np.broadcast_to(
+                sub_bad[:, None, :], (t_cnt, nc, n_sub)).reshape(-1), 0, n_u)
 
-        # Dense bank packing: each chunk's run lands at the next free lane;
-        # runs of more than 128 cells start on a bank boundary. Empty runs
-        # anchor at lane 0 (their samples are masked but must index a
-        # valid lane).
-        offs = np.zeros((t_cnt, nc), np.int64)
+        # Dense bank packing: each (chunk, sub-tile) run lands at the next
+        # free lane; runs of more than 128 cells start on a bank boundary.
+        # Empty runs anchor at lane 0 (their samples are masked but must
+        # index a valid lane).
+        lanes_f = lanes3.reshape(t_cnt, nc * n_sub).astype(np.int64)
+        offs = np.zeros((t_cnt, nc * n_sub), np.int64)
         cur = np.zeros(t_cnt, np.int64)
-        for r in range(nc):
-            n_c = lanes2[:, r].astype(np.int64)
-            align = n_c > MAX_CELLS
-            cur = np.where(align, -(-cur // MAX_CELLS) * MAX_CELLS, cur)
+        for r in range(nc * n_sub):
+            n_c = lanes_f[:, r]
+            cur = np.where(n_c > MAX_CELLS, -(-cur // MAX_CELLS) * MAX_CELLS,
+                           cur)
             offs[:, r] = np.where(n_c > 0, cur, 0)
             cur += n_c
-        off = np.where(overflow[:, None], 0, offs)
+        off = np.where(overflow[:, None, None], 0,
+                       offs.reshape(t_cnt, nc, n_sub))
         nb_tile = np.where(overflow, 0, np.maximum(-(-cur // MAX_CELLS), 1))
+        if cell_scale == 2:
+            # the supercell word has 12 lane bits: <= 31 banks per tile;
+            # a wider tile overflows whole
+            too_wide = (~overflow) & (nb_tile > 31)
+            if too_wide.any():
+                fb = ids[too_wide][live_r[too_wide]]
+                if fb.size:
+                    fallback.append(fb)
+                overflow = overflow | too_wide
+                nb_tile = np.where(too_wide, 0, nb_tile)
 
         for nb in sorted(set(nb_tile[~overflow].tolist())):
             keep = (~overflow) & (nb_tile == nb)
             nb = int(nb)
             lanes = nb * MAX_CELLS
             t_kept = int(keep.sum())
-            rowsel = np.repeat(keep, nc)
-            off_k = off[keep].reshape(-1)            # (t_kept * nc,)
+            rowsel = np.repeat(keep, nc * n_sub)
+            off_k = off[keep].reshape(-1)            # (t_kept * nc * n_sub,)
 
             # Dead lanes (bank rounding, pad tiles, empty-run anchors) are
             # -1; the device gather reads row 0 for them.
@@ -431,22 +529,29 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
             ucell_k, ulane_k = ucell[rowsel], ulane[rowsel]
             rws, cls = np.nonzero(
                 np.arange(ucell.shape[1])[None, :] < n_u_k[:, None])
-            hostmap[rws // nc, off_k[rws] + ulane_k[rws, cls]] = \
+            hostmap[rws // (nc * n_sub), off_k[rws] + ulane_k[rws, cls]] = \
                 ucell_k[rws, cls]
 
             # Tile-local lanes; masked samples point at their run's start.
-            rank_s = lidx.reshape(t_cnt, nc, lanes_per_row)[keep].astype(
+            rank_s = lidx.reshape(t_cnt, nc, n_sub, sub_cols)[keep].astype(
                 np.int64)
-            m_k3 = m_l.reshape(t_cnt, nc, lanes_per_row)[keep] > 0
-            off_bc = off[keep][:, :, None]
-            nuq_bc = lanes2[keep][:, :, None]
-            lidx_local = np.where(m_k3, off_bc + np.minimum(
+            m_k4 = m_l.reshape(t_cnt, nc, n_sub, sub_cols)[keep] > 0
+            off_bc = off[keep][:, :, :, None]
+            nuq_bc = lanes3[keep][:, :, :, None]
+            lidx_local = np.where(m_k4, off_bc + np.minimum(
                 rank_s, np.maximum(nuq_bc - 1, 0)),
                 off_bc).astype(np.int32).reshape(t_kept, nc, 16, 128)
-            m_k = m_k3.reshape(t_kept, nc, 16, 128)
+            m_k = m_k4.reshape(t_kept, nc, 16, 128).astype(np.int32)
 
-            check(nb <= 255, "bank space exceeds the 15-bit lane id")
-            packed_bits = lidx_local | (m_k.astype(np.int32) << 15)
+            if cell_scale == 2:
+                check(nb <= 31,
+                      "supercell bank space exceeds the 12-bit lane id")
+                lb_k = lb_l.reshape(t_cnt, nc, n_sub, sub_cols)[keep].reshape(
+                    t_kept, nc, 16, 128)
+                packed_bits = lidx_local | (lb_k << 12) | (m_k << 15)
+            else:
+                check(nb <= 255, "bank space exceeds the 15-bit lane id")
+                packed_bits = lidx_local | (m_k << 15)
             st_bits = np.ascontiguousarray(st_l[keep]).view(np.uint32)
             samp = np.stack(
                 [(st_bits >> 16).astype(np.uint16),
@@ -455,23 +560,31 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                 axis=2)                               # (T, nc, 3, 16, 128)
 
             # Per-lane cell base coordinates: the clipped floor indices,
-            # recovered from the lane's cell id (dead lanes: cell 0).
+            # recovered from the lane's cell id (dead lanes: cell 0); a
+            # supercell lane holds its vertex origin, 2 s per axis.
             hm_c = np.maximum(hostmap, 0)
-            iz_u = hm_c // (ny * nx)
-            rem_u = hm_c % (ny * nx)
-            base = np.stack([(rem_u % nx), (rem_u // nx), iz_u],
-                            axis=1).astype(np.float32)    # (T, 3, lanes)
+            if cell_scale == 2:
+                snx, sny = nx // 2, ny // 2
+                iz_u = hm_c // (sny * snx)
+                rem_u = hm_c % (sny * snx)
+                base = np.stack([2 * (rem_u % snx), 2 * (rem_u // snx),
+                                 2 * iz_u], axis=1).astype(np.float32)
+            else:
+                iz_u = hm_c // (ny * nx)
+                rem_u = hm_c % (ny * nx)
+                base = np.stack([(rem_u % nx), (rem_u // nx), iz_u],
+                                axis=1).astype(np.float32)  # (T, 3, lanes)
             base = base.reshape(t_kept, 3, nb, MAX_CELLS).transpose(
                 0, 2, 1, 3)                               # (T, nb, 3, 128)
             rayt = rayt_all[keep]
-            # ALIGNED bit (30): the chunk's run fits bank b0 alone. Only
-            # the backward reads it; the forward masks it off.
-            n_keep = lanes2[keep]
+            # ALIGNED bit (30): the run fits bank b0 alone. Only the JAX
+            # backward reads it; the kernels here mask it off.
+            n_keep = lanes3[keep]
             fits = (n_keep > 0) & (off[keep] % MAX_CELLS + n_keep
                                    <= MAX_CELLS)
             bank0 = ((off[keep] // MAX_CELLS)
                      | (fits.astype(np.int64) << 30)).astype(np.int32)
-            bank0 = bank0[:, :, None]                     # (T, nc, 1)
+            #        (T, nc, n_sub): the kernels' flat (t*nc + c)*subs + s
 
             ids_k = ids[keep]
             ray_ids_k = np.maximum(ids_k, 0).astype(np.int32)
@@ -498,7 +611,10 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
             else:
                 uniq_r = hostmap.astype(np.int32)     # (T, lanes)
             ke_k = ke_t[keep].astype(np.int32)
-            tile_ids_k = sub_tile_ids[sel][keep].astype(np.int32)
+            # compose targets: overflowing or ROI-dead sub-tiles drop
+            tile_ids_k = np.where(
+                sub_bad[keep] | (sub_tile_ids[sel][keep] < 0), _DROP_TILE,
+                sub_tile_ids[sel][keep]).astype(np.int32)   # (T, n_sub)
             pids = pids.reshape(t_kept, RAYS_PER_TILE)
             if t_pad != t_kept:
                 extra = t_pad - t_kept
@@ -529,16 +645,21 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 
     hostmap_all = (np.concatenate(host_rows) if host_rows
                    else np.zeros(0, np.int32))
-    n_rows = (int(field.bricks.shape[0]) * BRICK ** 3 if sparse
-              else fullpitch_rows((nz, ny, nx)))
+    if sparse:
+        n_rows = int(field.bricks.shape[0]) * BRICK ** 3
+    elif cell_scale == 2:
+        n_rows = supercell_rows((nz, ny, nx))
+    else:
+        n_rows = fullpitch_rows((nz, ny, nx))
     return TiledSchedule(
         groups=tuple(groups), fallback=None,
         hostmap_all=hostmap_all, gathermap_all=hostmap_all,
         gather_plan=build_gather_plan(hostmap_all, n_rows),
         total_rays=n, tiled_samples=tiled_samples,
-        full_lattice_samples=n * k_max, fallback_rays=fallback_rays,
-        grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max),
-        table_kind="sparse" if sparse else "dense")
+        full_lattice_samples=n * k_max,
+        fallback_rays=int(sum(f.size for f in fallback)),
+        grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max), tile_px=tile_px,
+        table_kind="sparse" if sparse else "dense", cell_scale=cell_scale)
 
 
 # --------------------------------------------------------------- device side
@@ -635,12 +756,14 @@ class _PlaceTiles(torch.autograd.Function):
 
 
 def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
-                   tile_px: int = 16) -> ImagePlanes:
-    """Place each (16, 16) output tile at its image region. Tiles with an
-    id outside the ROI's tile grid (the pad sentinel 1 << 30) are dropped,
-    as the JAX scatter's ``mode="drop"`` does. Rays that no tile renders
+                   tile_px: int = 16, device=None) -> ImagePlanes:
+    """Place each (16, 16) output block's sub-tiles at their image
+    regions. Sub-tiles with an id outside the ROI's tile_px grid (the
+    sentinel 1 << 30 of pads and overflowing sub-tiles) are dropped, as
+    the JAX scatter's ``mode="drop"`` does. Rays that no tile renders
     keep the background (T = 1, depth = t_far). Differentiable in
-    ``raws``."""
+    ``raws``. ``device``: where the planes of an empty schedule (no
+    ``raws``) are built."""
     if fallback_parts:
         raise NotImplementedError(_TODO_FALLBACK)
     roi = plan.roi
@@ -651,7 +774,7 @@ def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
         tiles5 = _PlaceTiles.apply(raw, ids, n_tiles)
     else:
         tiles5 = torch.zeros((n_tiles, 5, tile_px, tile_px),
-                             dtype=torch.float32)
+                             dtype=torch.float32, device=device)
     image, trans, opac, dep = tiles5_to_planes(plan, tiles5, tile_px)
     return ImagePlanes(image=image, transmittance=trans, opacity=opac,
                        depth=dep,
@@ -744,10 +867,10 @@ class _Table16FromParams(torch.autograd.Function):
 
 
 class _GroupsetFromTable(torch.autograd.Function):
-    """Any (R, 32) table (float32, bfloat16 or float16) -> every tile
+    """Any (R, C) table (float32, bfloat16 or float16) -> every tile
     group's raw K1 output, as one autograd node: the flat-table route of
-    ``dvren_tpu``'s ``render_tiled`` (a 16-bit dense table, or a sparse
-    field's bricks).
+    ``dvren_tpu``'s ``render_tiled`` (a 16-bit dense table, a sparse
+    field's bricks, or the (R_s, 108) supercell table).
 
     Forward: the bank gather, widened to f32 after it, then K1 per group.
     Backward: K2 per group (f32 slot rows, and d(rayt) when ``cam``).
@@ -791,7 +914,7 @@ class _GroupsetFromTable(torch.autograd.Function):
                 ctx.tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
                 g.bank0.reshape(-1), g_raws[gi].contiguous(), params[gi],
                 cam)
-            rows.append(d_rows.reshape(-1, NCH))
+            rows.append(d_rows.reshape(-1, d_rows.shape[-1]))
             d_rayts.append(d_rayt)
         d_table = None
         if ctx.needs_input_grad[1]:
@@ -842,10 +965,15 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     ``k`` (3, 3) / ``c2w`` (3, 4), in the camera at the schedule's
     camera.
 
-    Routes: a dense float32 field takes :class:`_GroupsetFromParams`
-    (K3, K1, K2, K4); a dense 16-bit field :class:`_Table16FromParams`
-    (K5a, K5b) into :class:`_GroupsetFromTable` (K1, K2); a sparse field
-    its bricks, flat, into :class:`_GroupsetFromTable`.
+    Routes: a dense float32 field on a cell schedule takes
+    :class:`_GroupsetFromParams` (K3, K1, K2, K4); on a supercell schedule
+    the 108-column table of :func:`build_supercell_stencil` (autograd
+    gives its adjoint) into :class:`_GroupsetFromTable` (K1, K2); a dense
+    16-bit field :class:`_Table16FromParams` (K5a, K5b) into
+    :class:`_GroupsetFromTable`; a sparse field its bricks, flat, into
+    :class:`_GroupsetFromTable`. K1 and K2 run in the schedule's form:
+    (16 // tile_px) ** 2 sub-tiles per block, the supercell stencil at
+    cell_scale 2.
 
     The schedule must be on the field's device (:meth:`TiledSchedule.to`).
     ``use_kernel=False`` runs the plain PyTorch twins of the kernels on
@@ -868,6 +996,9 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     shape = field.grid_shape if sparse else field.sigma.shape[:3]
     check(tuple(int(v) for v in shape) == tuple(schedule.grid_shape),
           "schedule was built for a different grid resolution")
+    packed_dtype = getattr(field, "packed_dtype", "float32")
+    check(schedule.cell_scale == 1 or packed_dtype == "float32",
+          "supercell schedules need float32 tables")
     if schedule.fallback_rays:
         raise NotImplementedError(
             f"{schedule.fallback_rays} rays need {_TODO_FALLBACK}")
@@ -877,7 +1008,10 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
           f"move it with schedule.to(device)")
 
     geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
-    params = tuple(fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks)
+    subs = (16 // schedule.tile_px) ** 2
+    stencil = "super" if schedule.cell_scale == 2 else "cell"
+    params = tuple(fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks,
+                                              subs, stencil)
                    for g in schedule.groups)
     cam = k is not None or c2w is not None
     raws = []
@@ -888,13 +1022,18 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
         if sparse:
             raws = _GroupsetFromTable.apply(
                 static, field.bricks.reshape(-1, NCH), *rayts)
-        elif getattr(field, "packed_dtype", "float32") == "float32":
+        elif stencil == "super":
+            raws = _GroupsetFromTable.apply(
+                static, build_supercell_stencil(field.sigma, field.color),
+                *rayts)
+        elif packed_dtype == "float32":
             raws = _GroupsetFromParams.apply(static, field.sigma,
                                              field.color, *rayts)
         else:
             table = _Table16FromParams.apply(
-                (table_dtype(field.packed_dtype), use_kernel), field.sigma,
+                (table_dtype(packed_dtype), use_kernel), field.sigma,
                 field.color)
             raws = _GroupsetFromTable.apply(static, table, *rayts)
         raws = list(raws)
-    return _compose_tiles(plan, raws, [g.tile_ids for g in schedule.groups])
+    return _compose_tiles(plan, raws, [g.tile_ids for g in schedule.groups],
+                          tile_px=schedule.tile_px, device=device)

@@ -25,7 +25,14 @@ CPU's, their gradients within 2e-6 x scale (float32 bricks) or c * ulp x
 scale (16-bit tables: c the largest slot class, ulp 2^-8 bfloat16, 2^-11
 float16; the K2 kernel and its twin differ in the last f32 bits, which
 can move a 16-bit rounding by one ulp), repeat backwards bit for bit; K7b
-trains L*F = 64 within 2e-5 x scale.
+trains L*F = 64 within 2e-5 x scale. K1 and K2 in their sub-tiled (8 and
+4 px) and supercell forms, on every group of tests/test_supercell.py's
+scene: bit for bit against their twins; the Renderer's cascade on that
+scene (float32: 8 px supercells; bfloat16: 4 px cells): the frame within
+the bounds above of the CPU's (depth where opacity exceeds 1e-3: its rays
+end just above OPACITY_EPS, where wd / opacity magnifies the last bit of
+exp), the backward equal to the plain path on the card; and an empty
+schedule's planes on the card, with zero gradients.
 """
 
 import dataclasses
@@ -38,6 +45,7 @@ import dvren_tpu_torch as P
 from dvren_tpu_torch import _build
 from dvren_tpu_torch.ops import (fused_tiles, hash_grid, hash_tiles,
                                  packed_transpose)
+from dvren_tpu_torch.ops.grid import build_supercell_stencil
 from dvren_tpu_torch.opt import fit
 from dvren_tpu_torch.render import hash_tiled, tiled
 
@@ -686,3 +694,154 @@ def test_tables_on_the_card_match_cpu(cuda_device, kind):
                _grad_tol(card, kind))
     for key in keys + ("camera", "camera_k"):
         np.testing.assert_array_equal(getattr(g2, key), getattr(g1, key))
+
+
+# ------------------------------------------- sub-tiles and supercells (K1, K2)
+
+VARIANTS = ((16, 2), (8, 1), (8, 2), (4, 1), (4, 2))   # (tile_px, cell_scale)
+
+
+def super_scene():
+    """tests/test_supercell.py::scene in the port's terms: 48^2 rays over
+    a 32^3 Gaussian blob, 32 stratified steps (16 px cell tables overflow
+    every tile; the cascade lands on 8 px supercells)."""
+    n, wh, steps = 32, 48, 32
+    zs, ys, xs = np.meshgrid(*[np.linspace(0, 1, n)] * 3, indexing="ij")
+    r2 = (xs - 0.5) ** 2 + (ys - 0.5) ** 2 + (zs - 0.45) ** 2
+    sigma = (12.0 * np.exp(-r2 / 0.05)).astype(np.float32)
+    color = np.stack([xs, ys, 1.0 - zs], -1).astype(np.float32)
+    plan = P.Plan.create(P.PlanConfig(
+        width=wh, height=wh, t_near=0.2, t_far=2.2, seed=3,
+        camera=P.CameraConfig(
+            k=(wh * 1.2, 0, wh / 2, 0, wh * 1.2, wh / 2, 0, 0, 1),
+            c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0)),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps,
+                                  mode=P.SamplingMode.STRATIFIED)))
+    config = P.DenseGridConfig(resolution=(n,) * 3, sigma=sigma.reshape(-1),
+                               color=color.reshape(-1))
+    return plan, config
+
+
+def _variant_args(px, scale, device):
+    """Every group of the supercell scene's (px, scale) schedule, overflow
+    or not, as K1's arguments on ``device``."""
+    plan, config = super_scene()
+    field = P.DenseGridField.create(config, device=device)
+    sched = tiled.build_tiled_schedule(plan, field, tile_px=px,
+                                       cell_scale=scale).to(device)
+    geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
+    sigma, color = field.sigma.detach(), field.color.detach()
+    table = (build_supercell_stencil(sigma, color) if scale == 2
+             else packed_transpose.build_rows_plain(sigma, color))
+    tabs = tiled._gather_bank_tables(
+        table, sched.gathermap_all, [(g.n_tiles, g.banks)
+                                     for g in sched.groups])
+    subs, stencil = (16 // px) ** 2, ("super" if scale == 2 else "cell")
+    return [(tabs[i], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
+             fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks, subs,
+                                        stencil))
+            for i, g in enumerate(sched.groups)]
+
+
+@pytest.mark.parametrize("px,scale", VARIANTS)
+def test_tile_variants_bit_equal_to_plain(cuda_device, px, scale):
+    """K1 and K2 in their sub-tiled and supercell forms: equal to their
+    twins bit for bit (heads, d(table) rows, d(rayt)), repeat runs too."""
+    groups = _variant_args(px, scale, cuda_device)
+    assert groups
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    for args in groups:
+        assert args[0].shape[2] == (108 if scale == 2 else 32)
+        before = (fused_tiles.tile_forward.launches,
+                  fused_tiles.tile_backward.launches)
+        out = fused_tiles.tile_forward(*args)
+        gs = torch.randn((args[0].shape[0], 5, 16, 16), generator=gen,
+                         device=cuda_device)
+        rows, d_rayt = fused_tiles.tile_backward(*args[:6], gs, args[6],
+                                                 cam=True)
+        torch.cuda.synchronize()
+        assert (fused_tiles.tile_forward.launches,
+                fused_tiles.tile_backward.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+        assert torch.equal(out, fused_tiles.tile_forward_plain(*args))
+        p_rows, p_rayt = fused_tiles.tile_backward_plain(*args[:6], gs,
+                                                         args[6], cam=True)
+        assert bool(torch.isfinite(rows).all())
+        assert torch.equal(rows, p_rows) and torch.equal(d_rayt, p_rayt)
+        rows2, d_rayt2 = fused_tiles.tile_backward(*args[:6], gs, args[6],
+                                                   cam=True)
+        assert torch.equal(rows2, rows) and torch.equal(d_rayt2, d_rayt)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_cascade_on_the_card_matches_cpu(cuda_device, dtype):
+    """The supercell scene through the Renderer's cascade (float32: 8 px
+    supercells; bfloat16: 4 px cells): the frame on the card against the
+    CPU's; the backward against the plain path on the card (the kernels
+    equal their twins, so bit for bit) and, under deterministic
+    algorithms, against itself."""
+    plan, config = super_scene()
+    dl = np.random.default_rng(4).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    card = P.Renderer(P.Context.create(device="cuda"), plan)
+    field = P.DenseGridField.create(config, device=cuda_device)
+    field = field.with_packed_dtype(dtype)
+    got = card.forward(field)
+    ref = P.Renderer(P.Context.create(device="cpu"), plan,
+                     P.RenderOptions(use_tiles=True)).forward(
+        P.DenseGridField.create(config, device="cpu").with_packed_dtype(dtype))
+    note = ("tiled_supercell_8px" if dtype == "float32"
+            else "tiled_subtiled_4px")
+    assert note in got.stats.notes and note in ref.stats.notes
+    for key in ("image", "transmittance", "opacity"):
+        np.testing.assert_allclose(getattr(got, key), getattr(ref, key),
+                                   atol=TOL)
+    # depth = wd / opacity: rays of this scene end just above OPACITY_EPS,
+    # where the quotient turns the last bit of exp (the card's and the
+    # CPU's differ) into 1e-4; compare it where opacity is not that small
+    seen = ref.opacity > 1e-3
+    np.testing.assert_allclose(got.depth[seen], ref.depth[seen],
+                               atol=TOL_DEPTH)
+    torch.use_deterministic_algorithms(True)
+    try:
+        g1 = card.backward(field, dl)
+        g2 = card.backward(field, dl)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    from dvren_tpu_torch.ops.raygen import camera_arrays
+
+    leaf = field.with_params(field.sigma.detach().clone(),
+                             field.color.detach().clone())
+    k, c2w, _ = camera_arrays(plan, cuda_device)
+    img = tiled.render_tiled(plan, leaf, card._tiled_schedule,
+                             use_kernel=False, k=k.requires_grad_(True),
+                             c2w=c2w.requires_grad_(True)).image
+    dl_img = card._dl_image(dl.reshape(-1, 3))
+    want = torch.autograd.grad(torch.sum(img * dl_img),
+                               (leaf.sigma, leaf.color))
+    for key, w in zip(("sigma", "color"), want):
+        x = getattr(g1, key)
+        assert np.isfinite(x).all() and np.abs(x).max() > 0
+        np.testing.assert_array_equal(x, w.cpu().numpy().reshape(-1))
+    for key in ("sigma", "color", "camera", "camera_k"):
+        np.testing.assert_array_equal(getattr(g2, key), getattr(g1, key))
+
+
+def test_empty_schedule_stays_on_the_card(cuda_device):
+    """No ray enters the bbox: the planes are the background, built on the
+    card, and the backward gives zero gradients."""
+    plan, config = scene("stratified")
+    config = dataclasses.replace(config, bbox_min=(50.0, 50.0, 50.0),
+                                 bbox_max=(51.0, 51.0, 51.0))
+    field = P.DenseGridField.create(config, device=cuda_device)
+    sched = tiled.build_tiled_schedule(plan, field).to(cuda_device)
+    assert not sched.groups
+    planes = tiled.render_tiled(plan, field, sched)
+    for key in ("image", "transmittance", "opacity", "depth", "hitmask"):
+        assert getattr(planes, key).device.type == "cuda", key
+    assert bool(torch.all(planes.transmittance == 1.0))
+    r = P.Renderer(P.Context.create(device="cuda"), plan)
+    r.forward(field)
+    g = r.backward(field, np.ones(plan.ray_count * 3, np.float32))
+    for key in ("sigma", "color", "camera", "camera_k"):
+        assert not np.any(getattr(g, key))

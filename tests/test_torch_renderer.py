@@ -14,8 +14,10 @@ import pytest
 import torch
 
 import dvren_tpu as J
+from dvren_tpu.render import tiled as j_tiled
 from tests.test_tiled import assert_planes_close, scene
 from tests.test_torch_core import port_field, port_plan
+from tests.test_torch_fused_tiles import assert_schedules_equal
 
 import dvren_tpu_torch as P
 from dvren_tpu_torch.ops.compose import ImagePlanes
@@ -133,32 +135,66 @@ def test_ineligible_fields_rejected():
         port_renderer(plan).forward(clamp)
 
 
-def test_overflowing_schedule_raises():
-    """Rays that overflow the slot tables need the windowed fallback or
-    the sub-tile cascade, which are not ported: the auto build raises."""
-    n = 64
-    plan = P.Plan.create(P.PlanConfig(
-        width=32, height=32, t_near=0.1, t_far=3.1,
-        camera=P.CameraConfig(k=(32.0, 0, 16.0, 0, 32.0, 16.0, 0, 0, 1),
-                              c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1,
-                                   -1.1)),
-        sampling=P.SamplingConfig(dt=0.05, max_steps=60)))
-    field = P.DenseGridField.create(P.DenseGridConfig(
+def _ones_scene(n, width, height, focal, c2w, t_near=0.1):
+    """A JAX plan and a dense n^3 field of ones over the unit cube (a
+    schedule depends only on the geometry)."""
+    plan = J.Plan.create(J.PlanConfig(
+        width=width, height=height, t_near=t_near, t_far=3.1,
+        camera=J.CameraConfig(k=(focal, 0, width / 2, 0, focal, height / 2,
+                                 0, 0, 1), c2w=c2w),
+        sampling=J.SamplingConfig(dt=0.05, max_steps=60)))
+    field = J.DenseGridField.create(J.DenseGridConfig(
         resolution=(n, n, n), sigma=np.ones(n ** 3),
-        color=np.ones(3 * n ** 3)), device="cpu")
-    sched = p_tiled.build_tiled_schedule(plan, field)
-    assert sched.fallback_rays > 0
-    with pytest.raises(NotImplementedError):
+        color=np.ones(3 * n ** 3)))
+    return plan, field
+
+
+def test_overflowing_schedule_raises():
+    """Rays that still overflow the schedule the cascade keeps need the
+    windowed fallback (ROADMAP item 11), which is not ported: the auto
+    build, render_tiled and the Renderer raise naming it. The scene: a
+    48x32 camera (focal 24 px) 1.1 in front of a 32^3 grid, on which
+    JAX's cascade also keeps 8 px supercells with overflow rays left."""
+    jplan, jfield = _ones_scene(32, 48, 32, 24.0,
+                                (1, 0, 0, 0.2, 0, 1, 0, 0.5, 0, 0, 1, -1.1),
+                                t_near=0.05)
+    ref, note = j_tiled.build_tiled_schedule_auto(jplan, jfield, device=False)
+    assert note == "tiled_supercell_8px" and ref.fallback_rays > 0
+    plan, field = port_plan(jplan), port_field(jfield)
+    sched = p_tiled.build_tiled_schedule(plan, field, tile_px=8, cell_scale=2)
+    assert sched.fallback_rays == ref.fallback_rays
+    with pytest.raises(NotImplementedError, match="item 11"):
         p_tiled.build_tiled_schedule_auto(plan, field)
-    with torch.no_grad(), pytest.raises(NotImplementedError):
+    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 11"):
         p_tiled.render_tiled(plan, field, sched.to("cpu"))
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(NotImplementedError, match="item 11"):
         P.Renderer(P.Context.create(device="cpu"), plan,
                    P.RenderOptions(use_tiles=True)).forward(field)
 
 
-@pytest.mark.parametrize("kwargs", [dict(tile_px=8), dict(pitch=2),
-                                    dict(cell_scale=2), dict(occupancy=True),
+def test_cascade_rescues_overflowing_scene():
+    """A 32x32 camera over a 64^3 grid overflows every 16 px cell tile;
+    the cascade picks the configuration JAX's picks, with its arrays, and
+    the Renderer renders the frame JAX's reference consumer renders."""
+    jplan, jfield = _ones_scene(64, 32, 32, 32.0,
+                                (1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.1))
+    ref, note = j_tiled.build_tiled_schedule_auto(jplan, jfield, device=False)
+    plan, field = port_plan(jplan), port_field(jfield)
+    assert p_tiled.build_tiled_schedule(plan, field).fallback_rays > 0
+    got, got_note = p_tiled.build_tiled_schedule_auto(plan, field)
+    assert got.fallback_rays == ref.fallback_rays == 0
+    assert (got.tile_px, got.cell_scale, got_note) == (ref.tile_px,
+                                                       ref.cell_scale, note)
+    assert note is not None
+    assert_schedules_equal(ref, got)
+    res = P.Renderer(P.Context.create(device="cpu"), plan,
+                     P.RenderOptions(use_tiles=True)).forward(field)
+    assert note in res.stats.notes
+    want = j_tiled.render_tiled(jplan, jfield, ref, use_kernel=False)
+    assert_planes_close(_Planes(res, plan), want, tol=5e-6)
+
+
+@pytest.mark.parametrize("kwargs", [dict(pitch=2), dict(occupancy=True),
                                     dict(quantize=True),
                                     dict(bank_aligned=True)])
 def test_unported_schedule_options_raise(kwargs):
@@ -166,6 +202,16 @@ def test_unported_schedule_options_raise(kwargs):
     with pytest.raises(NotImplementedError):
         p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
                                      **kwargs)
+
+
+@pytest.mark.parametrize("kwargs", [dict(tile_px=8), dict(cell_scale=2)])
+def test_schedule_options_build_reference(kwargs):
+    """``tile_px`` and ``cell_scale`` build the JAX package's schedule."""
+    plan, field, _ = reference("fixed")
+    ref = j_tiled.build_tiled_schedule(plan, field, device=False, **kwargs)
+    got = p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
+                                       **kwargs)
+    assert_schedules_equal(ref, got)
 
 
 def test_render_tiled_refuses_wrong_device():
