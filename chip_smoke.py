@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense]
+    python3 chip_smoke.py [--only dense|grid]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -21,7 +21,10 @@ autograd; then the sub-tiled and supercell schedules of the cascade:
 ``tools/finegrid_bench.py``'s fine-grid scene (512^2 over a 128^3 blob,
 256 stratified steps, seed 3) in float32 and bfloat16, and the eight
 views of ``tools/fit_benchmark.py``'s fit flagship (96^2 over 64^3, 96
-steps). Phases, each fatal when it fails:
+steps); then the grid path over those eight views (the grid spec at
+finest 32 and at finest 64, the cascade's 8 and 4 px sub-tiles), and
+``fit_dense_grid`` at the flagship on the views' merged schedule. Phases,
+each fatal when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
@@ -147,7 +150,31 @@ steps). Phases, each fatal when it fails:
 33. view 0 at 4 px (0 overflow rays): frame and backward against the
     plain path, the frame equal to the 8 px supercell frame bit for bit,
     two deterministic backwards equal, K1 and K2 against their twins on
-    every group, times.
+    every group, times;
+34. the grid spec of ``tools/hashmlp_bench.py`` (finest 32) over the
+    flagship's eight 96^2 views, each through ``build_hash_grid_schedule``'s
+    cascade (8 px, 0 overflow rays; groups, banks and build times
+    printed): K8f at subs 4 equal to its twin bit for bit on every group,
+    K8b within 2e-5 x scale on every tile and repeat-equal (each twin run
+    once, timed); view 0's ``render_hash_grid_tiled`` against the plain
+    path; 10 Adam steps (lr 8e-3) on the summed loss of the views toward a
+    teacher (``torch.Generator`` seed 2, table std 1.0): the loss falls,
+    K8f and K8b launch once per group in every step; times with CUDA
+    events;
+35. the same at finest 64 (resolutions 8-16-32-64): 4 px, K8 at subs 16,
+    at most 77 banks per tile (the gathered tables' size printed first);
+36. ``fit_dense_grid`` at the fit flagship (``tools/fit_benchmark.py``'s
+    scene and cameras, Adam lr 5e-2, target PSNR 35, ``sync_every=32``,
+    at most 300 steps), toward phase 31's per-view frames: the auto mode
+    keeps "tiled", the views merge into one 8 px supercell group (its
+    shape printed), the stack equals the per-view frames within 5e-6, K1
+    and K2 equal their twins on the group's first 8 tiles and launch once
+    per step each; the steps to PSNR 35, ``schedule_build_s``,
+    ``first_step_s``, ``steady_step_ms``, ``wall_clock_s``, and the Adam
+    step with CUDA events beside phase 32's (each view its own schedule).
+
+``--only dense`` runs phases 1-10, ``--only grid`` phases 1 and 16-20:
+each alone, to time two trees against each other in one call.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
@@ -342,6 +369,18 @@ def small_scene(P, seed=3):
         color=rng.uniform(0, 1, 3 * n ** 3),
         bbox_min=(0.3, 0.3, 0.2), bbox_max=(0.8, 0.9, 0.7))
     return plan, config
+
+
+def timed_once(torch, fn):
+    """(``fn()``, its ms): one cold run between CUDA events."""
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def cuda_ms(torch, fn, iters, warmup=2):
@@ -2016,6 +2055,325 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
     return kernels, report
 
 
+GRID_VIEW_LR = 8e-3      # the grid path's Adam rate (phase 19's)
+GRID_VIEW_BANKS = 77     # the widest 4 px tile of the finest-64 views
+FLAGSHIP_STEPS = 300     # fit_dense_grid's step cap at the flagship
+FLAGSHIP_PSNR = 35.0     # tools/fit_benchmark.py's target
+FLAGSHIP_SYNC = 32       # tools/fit_benchmark.py's sync_every
+
+
+def grid_view_spec(finest: int) -> dict:
+    """tools/hashmlp_bench.py's grid spec on a four-level ladder ending at
+    ``finest`` (32: the spec as it is; 64: the finest grid_path_ok admits)."""
+    res = tuple(finest >> (3 - i) for i in range(4))
+    return dict(GRID_SPEC, resolutions=res, base_resolution=float(res[0]),
+                finest_resolution=float(finest))
+
+
+def grid_group_args(torch, plan, spec, sched, params, subs) -> list:
+    """Every group's K8f arguments for ``sched`` and detached ``params``."""
+    from dvren_tpu_torch.ops import hash_grid, hash_tiles
+    from dvren_tpu_torch.render import tiled
+
+    table = hash_grid.build_hash_grid_table(params, spec)
+    tabs = tiled._gather_bank_tables(table, sched.gathermap_all,
+                                     [(g.n_tiles, g.banks)
+                                      for g in sched.groups])
+    sc = hash_tiles.pack_mlp_scalars(params, spec)
+    return [(tabs[i], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
+             sc, hash_grid.grid_op_params(plan, spec, g.banks, g.n_chunks,
+                                          subs))
+            for i, g in enumerate(sched.groups)]
+
+
+def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
+    """Phase 34 (finest 32: 8 px sub-tiles, K8 at subs 4) or 35 (finest 64:
+    4 px, subs 16): the hash grid path over the fit flagship's eight 96^2
+    views, each through ``build_hash_grid_schedule``'s cascade."""
+    from dvren_tpu_torch.ops import hash_grid
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import hash_tiled
+
+    want_px = {32: 8, 64: 4}[finest]
+    subs = (16 // want_px) ** 2
+    form = f"subs{subs}"
+    name = f"grid views (finest {finest}, {want_px} px)"
+    plans, _ = flagship_views(P)
+    spec = P.HashMLPSpec(**grid_view_spec(finest))
+    field = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                       spec=spec, device=dev)
+    field.requires_grad_(False)
+    teacher = P.HashMLPField.init_random(torch.Generator().manual_seed(2),
+                                         spec=spec, table_std=1.0, device=dev)
+    teacher.requires_grad_(False)
+
+    # the cascade, view by view; the gathered tables reckoned before K8f
+    scheds, builds = [], []
+    for pv in plans:
+        t0 = time.perf_counter()
+        host = hash_tiled.build_hash_grid_schedule(pv, field)
+        builds.append(time.perf_counter() - t0)
+        scheds.append(host.to(dev))
+    for v, (s, b) in enumerate(zip(scheds, builds)):
+        print(f"{name}, view {v}: {schedule_line(s, b)}", flush=True)
+    require(all(s.tile_px == want_px and s.fallback_rays == 0 for s in scheds),
+            f"a {name} schedule is not {want_px} px without overflow")
+    banks = max(g.banks for s in scheds for g in s.groups)
+    require(finest == 32 or banks <= GRID_VIEW_BANKS,
+            f"a {name} tile holds {banks} banks")
+    cols = hash_grid.packed_cols(spec)
+    table_gb = [sum(g.n_tiles * g.banks for g in s.groups) * cols * 128 * 4
+                / 1e9 for s in scheds]
+    print(f"{name}: gathered bank tables {min(table_gb):.3f}-"
+          f"{max(table_gb):.3f} GB per view ({cols} columns)", flush=True)
+    n_groups = sum(len(s.groups) for s in scheds)
+
+    # K8f against its twin on every group (bit for bit), K8b on
+    # GRID_SUBSET tiles of each (2e-5 x scale) and its repeat
+    params = {k: v.detach() for k, v in field.params.items()}
+    args = [a for pv, s in zip(plans, scheds)
+            for a in grid_group_args(torch, pv, spec, s, params, subs)]
+    gen = torch.Generator(device=dev).manual_seed(finest)
+    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
+           for a in args]
+    # each twin runs once, timed: that run is both the reference of the
+    # check and the kernels line's plain_ms
+    outs = [hash_grid.hash_grid_forward(*a) for a in args]
+    bwds = [hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+            for a, gs in zip(args, gss)]
+    again = [hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+             for a, gs in zip(args, gss)]
+    plains, k8f_plain_ms = timed_once(torch, lambda: [
+        hash_grid.hash_grid_forward_plain(*a) for a in args])
+    p_bwds, k8b_plain_ms = timed_once(torch, lambda: [
+        hash_grid.hash_grid_backward_plain(*a[:7], gs, a[7])
+        for a, gs in zip(args, gss)])
+    f_err = b_rows = b_mlp = b_raw = 0.0
+    for out, plain, (d_rows, d_sc), rep, (p_rows, p_sc) in zip(
+            outs, plains, bwds, again, p_bwds):
+        require(bool(torch.isfinite(out).all() and torch.isfinite(d_rows).all()
+                     and torch.isfinite(d_sc).all()),
+                f"K8f / K8b ({form}) not finite")
+        f_err = max(f_err, float((out - plain).abs().max()))
+        require(torch.equal(out, plain), f"K8f ({form}) differs from its twin")
+        require(torch.equal(rep[0], d_rows) and torch.equal(rep[1], d_sc),
+                f"K8b ({form}) differs between two runs")
+        b_rows = max(b_rows, rel_err(d_rows, p_rows))
+        b_mlp = max(b_mlp, rel_err(d_sc, p_sc))
+        b_raw = max(b_raw, float((d_rows - p_rows).abs().max()),
+                    float((d_sc - p_sc).abs().max()))
+    del outs, plains, bwds, again, p_bwds
+    print(f"{name}: K8f ({form}) == twin bit for bit on all {n_groups} groups "
+          f"of the {len(plans)} views; K8b vs twin on every tile: slot rows "
+          f"{b_rows:.3e}, d(MLP) {b_mlp:.3e} x scale (max |diff| "
+          f"{b_raw:.3e}); repeats equal", flush=True)
+    require(b_rows <= HASH_GRAD_TOL and b_mlp <= HASH_GRAD_TOL,
+            f"K8b ({form}) differs from its twin beyond tolerance")
+
+    # render_hash_grid_tiled against the plain path on view 0 (the twin
+    # has matched K8f on every group above)
+    with torch.no_grad():
+        out = hash_tiled.render_hash_grid_tiled(plans[0], field, scheds[0])
+        plain = hash_tiled.render_hash_grid_tiled(plans[0], field, scheds[0],
+                                                  use_kernel=False)
+        frame_err, frame_depth, hit = image_errors(out, plain)
+        require(all(bool(torch.isfinite(getattr(out, k)).all())
+                    for k in ("image", "opacity", "depth"))
+                and float(out.opacity.max()) > 0.0 and hit,
+                f"the {name} frame is not finite or empty")
+        targets = [hash_tiled.render_hash_grid_tiled(pv, teacher, s).image
+                   for pv, s in zip(plans, scheds)]
+    print(f"{name}: render_hash_grid_tiled vs plain path on view 0: planes "
+          f"{frame_err:.3e}, depth {frame_depth:.3e}", flush=True)
+    require(frame_err <= TOL and frame_depth <= TOL_DEPTH,
+            f"the {name} frame differs from the plain path")
+
+    # the main path: Adam steps on the summed loss of the views
+    student = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                         spec=spec, device=dev)
+    opt = torch.optim.Adam(student.parameters(), lr=GRID_VIEW_LR)
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        loss = sum(mse(hash_tiled.render_hash_grid_tiled(pv, student, s).image,
+                       tg) for pv, s, tg in zip(plans, scheds, targets))
+        loss.backward()
+        opt.step()
+        return loss
+
+    reset_grid_counts(hash_grid)
+    losses = []
+    for _ in range(GRID_STEPS):
+        before = grid_counts(hash_grid)
+        losses.append(float(step().detach()))
+        after = grid_counts(hash_grid)
+        require(all(after[k] - before[k] == n_groups for k in after),
+                f"K8f / K8b did not launch once per group in a {name} step: "
+                f"{before} -> {after}")
+    launches = grid_counts(hash_grid)
+    print(f"{name}: {GRID_STEPS} Adam steps (lr {GRID_VIEW_LR}) on the summed "
+          f"loss of {len(plans)} views: loss {losses[0]:.6e} -> "
+          f"{losses[-1]:.6e}; launches {launches}", flush=True)
+    require(all(np.isfinite(losses)) and losses[-1] < losses[0],
+            f"the {name} loss does not fall")
+
+    # times: kernels after warm-up (the twins' above)
+    step_ms = cuda_ms(torch, step, 5, warmup=1)
+    with torch.no_grad():
+        frames_ms = cuda_ms(torch, lambda: [hash_tiled.render_hash_grid_tiled(
+            pv, field, s) for pv, s in zip(plans, scheds)], 10)
+    k8f_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_forward(*a)
+                                     for a in args], 10)
+    k8b_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_backward(
+        *a[:7], gs, a[7]) for a, gs in zip(args, gss)], 5, warmup=1)
+    print(f"{name} times ms [{card}]: {len(plans)} frames {frames_ms:.4f}, "
+          f"Adam step {step_ms:.4f}; K8f {k8f_ms:.4f} over {n_groups} "
+          f"launches (plain {k8f_plain_ms:.4f}), K8b {k8b_ms:.4f} (plain "
+          f"{k8b_plain_ms:.4f})", flush=True)
+
+    live = sum(s.tiled_samples for s in scheds)
+    f_in = sum(nbytes(*a[:7]) for a in args)
+    f_out = sum(a[0].shape[0] * 5 * 256 * 4 for a in args)
+    rows = sum(a[0].shape[0] * a[7].banks * 128 * cols * 4 for a in args)
+    b_bytes = f_in + sum(nbytes(g) for g in gss) + rows + 4 * len(args[0][6])
+    kernels = [
+        {"name": f"hash_grid:{form}", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/hash_grid.cu",
+         "replaces": "dvren_tpu/ops/hash_grid.py:223",
+         "launches": launches["hash_grid"], "max_abs_err": f_err,
+         "ms": k8f_ms, "plain_ms": k8f_plain_ms,
+         **bound(f_in + f_out, live * k8f_ops(spec))},
+        {"name": f"hash_grid_bwd:{form}", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/hash_grid_bwd.cu",
+         "replaces": "dvren_tpu/ops/hash_grid.py:282",
+         "launches": launches["hash_grid_bwd"], "max_abs_err": b_raw,
+         "ms": k8b_ms, "plain_ms": k8b_plain_ms,
+         **bound(b_bytes, live * k8b_ops(spec))}]
+    report = {
+        "tile_px": want_px, "groups": [len(s.groups) for s in scheds],
+        "tiles": [sum(g.n_tiles for g in s.groups) for s in scheds],
+        "banks_max": banks, "live_samples": live, "build_s": builds,
+        "table_gb": table_gb, "frames_ms": frames_ms, "step_ms": step_ms,
+        "k8f_ms": k8f_ms, "k8b_ms": k8b_ms, "k8f_plain_ms": k8f_plain_ms,
+        "k8b_plain_ms": k8b_plain_ms, "losses": losses,
+        "k8b_rel_err": [b_rows, b_mlp]}
+    return kernels, report
+
+
+def run_fit_flagship(torch, P, dev, card,
+                     per_view_step_ms) -> tuple[list, dict]:
+    """Phase 36: ``fit_dense_grid`` at the fit flagship
+    (tools/fit_benchmark.py's scene, cameras and settings): the views
+    merged into one schedule, K1 and K2 once per step; its Adam step
+    beside ``per_view_step_ms``, phase 32's with a schedule per view."""
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.render import tiled
+
+    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    plans, config = flagship_views(P)
+    truth = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    cams = [P.CameraConfig(c2w=pv.camera.c2w) for pv in plans]
+    # the targets: phase 31's frames, each view through its own cascade
+    frames = []
+    for pv in plans:
+        s, _ = tiled.build_tiled_schedule_auto(pv, truth)
+        with torch.no_grad():
+            frames.append(tiled.render_tiled(pv, truth, s.to(dev)).image)
+    targets = torch.stack(frames)
+    init = truth.with_params(torch.full_like(truth.sigma, 0.5),
+                             torch.full_like(truth.color, 0.5))
+
+    t0 = time.perf_counter()
+    views = fit._scheduled_views(plans[0], cams, init, "tiled")
+    torch.cuda.synchronize()
+    merge_s = time.perf_counter() - t0
+    merged, render_stack = views[1], views[2]
+    sched = merged.sched
+    shapes = [(g.n_chunks, g.n_tiles, g.banks) for g in sched.groups]
+    print(f"fit flagship merged: {schedule_line(sched, merge_s)} (eight "
+          f"builds, the merge and one upload); (n_chunks, n_tiles, banks) "
+          f"{shapes}", flush=True)
+    require(len(shapes) == 1 and sched.tile_px == 8 and sched.cell_scale == 2
+            and sched.fallback_rays == 0,
+            "the flagship's views did not merge into one 8 px supercell group")
+    with torch.no_grad():
+        stack = render_stack(truth, merged)
+    stack_err = float((stack - targets).abs().max())
+    print(f"fit flagship: render_tiled_stack vs the per-view frames "
+          f"{stack_err:.3e}", flush=True)
+    require(stack_err <= TOL, "the stack differs from the per-view frames")
+    gen = torch.Generator(device=dev).manual_seed(36)
+    args = variant_args(torch, plans[0], truth, sched)
+    errs = twins_bit_equal(torch, args, gen, SUBSET)
+    print(f"fit flagship merged group: K1 and K2 == twins bit for bit on its "
+          f"first {SUBSET} tiles; repeats equal", flush=True)
+
+    # the main path: fit_dense_grid in its auto mode
+    cfg = fit.FitConfig(learning_rate=FIT_LR, steps=FLAGSHIP_STEPS,
+                        target_psnr=FLAGSHIP_PSNR, log_every=100,
+                        sync_every=FLAGSHIP_SYNC)
+    reset()
+    res = fit.fit_dense_grid(plans[0], init, cams, targets, cfg)
+    c = counts()
+    reached = next((i + 1 for i, p in enumerate(res.psnr_history)
+                    if p >= FLAGSHIP_PSNR), None)
+    print(f"fit_dense_grid at the flagship: mode {res.mode}, {res.steps_run} "
+          f"steps, PSNR {res.psnr_history[0]:.4f} -> "
+          f"{res.psnr_history[-1]:.4f} dB, PSNR {FLAGSHIP_PSNR} first at step "
+          f"{reached} (checked every {FLAGSHIP_SYNC}), reached "
+          f"{res.reached_target}; schedule_build_s {res.schedule_build_s:.4f}, "
+          f"first_step_s {res.first_step_s:.4f}, steady_step_ms "
+          f"{res.steady_step_ms:.4f}, wall_clock_s {res.wall_clock_s:.4f}; "
+          f"launches {c}", flush=True)
+    require(res.mode == "tiled", f"the auto mode chose {res.mode}")
+    require(c["fused_tiles"] == res.steps_run
+            and c["fused_tiles_bwd"] == res.steps_run
+            and c["packed_table"] == 0 and c["packed_table_bwd"] == 0,
+            f"the fit did not launch K1 and K2 once per step: {c}")
+    require(all(np.isfinite(res.loss_history))
+            and res.loss_history[-1] < res.loss_history[0],
+            "the flagship fit loss does not fall")
+    require(float(res.field.sigma.min()) >= 0.0
+            and float(res.field.color.max()) <= 1.0,
+            "the fitted grid left the projection's bounds")
+
+    # times: the Adam step with CUDA events; K1 and K2 at the merged group
+    student = init.with_params(init.sigma.detach().clone(),
+                               init.color.detach().clone())
+    opt = torch.optim.Adam(student.parameters(), lr=FIT_LR, betas=(0.9, 0.999),
+                           eps=1e-8)
+    step = fit.make_train_step_scheduled(plans[0], cams, student, opt,
+                                         views=views)
+    step_ms = cuda_ms(torch, lambda: step(student, targets), 10, warmup=2)
+    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
+           for a in args]
+    times = variant_times(torch, args, gss)
+    with torch.no_grad():
+        stack_ms = cuda_ms(torch, lambda: render_stack(student, merged), 10)
+    print(f"fit flagship times ms [{card}]: Adam step {step_ms:.4f} (each "
+          f"view its own schedule: {per_view_step_ms:.4f}), {len(plans)}-view "
+          f"stack {stack_ms:.4f}; K1 {times[0]:.4f} (plain {times[2]:.4f}), "
+          f"K2 {times[1]:.4f} (plain {times[3]:.4f}), one launch each",
+          flush=True)
+    kernels = variant_kernels(
+        "merged_supercell_8px", args, gss, sched,
+        (c["fused_tiles"], c["fused_tiles_bwd"]), errs, times)
+    report = {
+        "mode": res.mode, "shape": shapes, "merge_s": merge_s,
+        "stack_vs_frames": stack_err, "steps_run": res.steps_run,
+        "psnr_first": res.psnr_history[0], "psnr_last": res.psnr_history[-1],
+        "psnr_target_step": reached, "reached": res.reached_target,
+        "schedule_build_s": res.schedule_build_s,
+        "first_step_s": res.first_step_s,
+        "steady_step_ms": res.steady_step_ms,
+        "wall_clock_s": res.wall_clock_s, "adam_step_ms": step_ms,
+        "stack_ms": stack_ms, "k1_ms": times[0], "k2_ms": times[1],
+        "k1_plain_ms": times[2], "k2_plain_ms": times[3]}
+    return kernels, report
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -2027,6 +2385,11 @@ def run(only: str = "all") -> dict:
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
     report = {}
+    t_start = time.perf_counter()
+
+    def elapsed(phases):
+        print(f"phases {phases} done at {time.perf_counter() - t_start:.1f} s",
+              flush=True)
 
     # 1. card and build
     card = card_line()
@@ -2040,6 +2403,14 @@ def run(only: str = "all") -> dict:
     for line in _build.ptxas_report().splitlines():
         if "registers" in line or "spill" in line or "Compiling" in line:
             print("ptxas:", line.strip())
+    device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+              "count": torch.cuda.device_count()}
+    if only == "grid":
+        grid_kernels, grid_report = run_grid(torch, P, dev)
+        print(json.dumps({"kernels": grid_kernels}), flush=True)
+        print(json.dumps({**grid_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
 
     # 2. K3 against its plain twin at 64^3
     plan, config = headline_scene(P)
@@ -2409,17 +2780,30 @@ def run(only: str = "all") -> dict:
                 "fused_tiles_bwd": k2_ms, "slot_reduction": reduce_ms,
                 "packed_table_bwd": k4_ms}, "card": card}), flush=True)
         print(card_line(), flush=True)
-        return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-                "count": torch.cuda.device_count()}
+        return device
+    elapsed("1-10")
     table_kernels, table_report = run_tables(
         torch, P, dev, plan, config, renderer, result, all_rows)
     kernels += table_kernels
+    elapsed("21-27")
     hash_kernels, hash_report = run_hash(torch, P, dev)
     kernels += hash_kernels
+    elapsed("11-15")
     grid_kernels, grid_report = run_grid(torch, P, dev)
     kernels += grid_kernels
+    elapsed("16-20")
     sub_kernels, sub_report = run_subtiles(torch, P, dev, card)
     kernels += sub_kernels
+    elapsed("28-33")
+    for phase, finest in ((34, 32), (35, 64)):
+        view_kernels, hash_report[f"grid_views_{finest}"] = run_grid_views(
+            torch, P, dev, card, finest)
+        kernels += view_kernels
+        elapsed(str(phase))
+    fit_kernels, hash_report["fit_dense_grid"] = run_fit_flagship(
+        torch, P, dev, card, sub_report["fit_flagship"]["adam_step_ms"])
+    kernels += fit_kernels
+    elapsed("36")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -2441,8 +2825,7 @@ def run(only: str = "all") -> dict:
         "k2_rel_err": k2_err, "k2_rayt_rel_err": k2_cam_err,
         "backward_vs_plain": bwd_errs, "card": card}), flush=True)
     print(card_line(), flush=True)
-    return {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
-            "count": torch.cuda.device_count()}
+    return device
 
 
 def main() -> int:
@@ -2450,9 +2833,10 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("all", "dense"), default="all",
-        help="'dense': phases 1-10 alone (the dense headline), for timing "
-             "two trees against each other in one call")
+        "--only", choices=("all", "dense", "grid"), default="all",
+        help="'dense': phases 1-10 alone (the dense headline); 'grid': phase "
+             "1 and phases 16-20 (the grid headline); each for timing two "
+             "trees against each other in one call")
     args = parser.parse_args()
     try:
         import torch

@@ -16,7 +16,7 @@
 //   tabs  (T, NB, C, 128) f32  bank tables, column (l*8 + corner)*F + f
 //   samp  (T, nc, 3, 16, 128) u16  [sample_t hi16, lo16, lane | m << 15]
 //   base  (T, NB, 3, 128) f32  per-slot finest cell base (x, y, z)
-//   rayt  (T, 12, 128) f32, ke (T,) i32, bank0 (T*nc,) i32  as K1's
+//   rayt  (T, 12, 128) f32, ke (T,) i32, bank0 (T*nc*SUBS,) i32  as K1's
 //   sc    (P,) f32  packed MLP scalars (ops/hash_tiles.py::_mlp_layout)
 //   out   (T, 5, 16, 16) f32  per ray: r, g, b, sum w*mid, processed od
 //
@@ -40,6 +40,11 @@ namespace {
 
 using namespace dvt_grid;
 
+// SUBS sub-tiles per block (1, 4, 16; 16, 8 or 4 px tiles): ray `ray`
+// belongs to sub-tile ray / (256 / SUBS), i.e. block row r to sub-tile
+// r / (16 / SUBS), whose chunk window starts at bank0[(t*nc + c)*SUBS + s],
+// as _Windows(..., subs) resolves it in the TPU kernel.
+template <int SUBS>
 __global__ void __launch_bounds__(kRays)
 hash_grid_forward_kernel(const float* __restrict__ tabs,
                          const uint16_t* __restrict__ samp,
@@ -57,6 +62,7 @@ hash_grid_forward_kernel(const float* __restrict__ tabs,
   const int ray = threadIdx.x;
   const int row = ray >> 4;
   const int lane0 = (ray & 15) * kSteps;
+  const int sub_tile = ray / (kRays / SUBS);
   float o[3], d[3];
   load_ray(rayt, t, ray, o, d);
   const MlpLayout lay(k.h);
@@ -68,7 +74,7 @@ hash_grid_forward_kernel(const float* __restrict__ tabs,
   float s = 0.f;   // optical depth of every earlier step
   bool done = false;
   for (int c = 0; c < nc && !done; ++c) {
-    const int b0 = bank0[t * nc + c] & 0x3FFF;
+    const int b0 = bank0[(t * nc + c) * SUBS + sub_tile] & 0x3FFF;
     const int b1 = min(b0 + 1, k.nb - 1);
     const uint16_t* sp = samp + (t * nc + c) * 3 * kChunkSamples
                          + row * kLanes + lane0;
@@ -134,12 +140,23 @@ hash_grid_forward_kernel(const float* __restrict__ tabs,
   o_t[4 * kRays] = acc_odp;
 }
 
+template <int SUBS>
+void launch(int n_tiles, cudaStream_t stream, const float* tabs,
+            const uint16_t* samp, const float* base, const float* rayt,
+            const int* ke, const int* bank0, const float* sc, float* out,
+            const GridConsts& k) {
+  hash_grid_forward_kernel<SUBS><<<n_tiles, kRays, (size_t)k.h.n_sc * 4,
+                                   stream>>>(tabs, samp, base, rayt, ke,
+                                             bank0, sc, out, k);
+}
+
 }  // namespace
 
 extern "C" int dvt_hash_grid_forward(
     const float* tabs, const uint16_t* samp, const float* base,
     const float* rayt, const int* ke, const int* bank0, const float* sc,
-    float* out, int n_tiles, int nc, int nb, int k_max, int n_levels,
+    float* out, int n_tiles, int nc, int nb, int k_max, int subs,
+    int n_levels,
     int n_feat, int hidden, float dt, float t_near, float t_far,
     float t_stop, float stop, float lo_x, float lo_y, float lo_z,
     float inv_x, float inv_y, float inv_z, float ns_x, float ns_y,
@@ -148,10 +165,16 @@ extern "C" int dvt_hash_grid_forward(
   const GridConsts k = make_grid_consts(
       nc, nb, k_max, n_levels, n_feat, hidden, dt, t_near, t_far, t_stop,
       stop, lo_x, lo_y, lo_z, inv_x, inv_y, inv_z, ns_x, ns_y, ns_z, ratios);
-  if (n_tiles > 0) {
-    hash_grid_forward_kernel<<<n_tiles, kRays, (size_t)k.h.n_sc * 4,
-                               (cudaStream_t)stream>>>(
-        tabs, samp, base, rayt, ke, bank0, sc, out, k);
+  if (n_tiles <= 0) return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+  if (subs == 1) {
+    launch<1>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, sc, out, k);
+  } else if (subs == 4) {
+    launch<4>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, sc, out, k);
+  } else if (subs == 16) {
+    launch<16>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, sc, out, k);
+  } else {
+    return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
 }

@@ -38,6 +38,13 @@
 //   each touched row is added into its bank row in device memory (first the
 //   window's first half into b0, then its second into b1). No float atomics,
 //   the same bits on every run.
+// - Sub-tiles (SUBS 4 or 16: 8 or 4 px tiles): ray `ray` belongs to
+//   sub-tile ray / (256 / SUBS), whose chunk window starts at
+//   bank0[(t*nc + c)*SUBS + s]. Staged positions follow sample order, so
+//   each sub-tile's samples form one range; the sub-tiles take turns
+//   through the one window accumulator in sub-tile order, each flushed
+//   into its own (b0, b1), as the TPU kernel adds them (sub-tiles of one
+//   tile may share banks) and as csrc/fused_tiles_bwd.cu does for K2.
 // - Shared memory bounds nothing the grid path admits: the window
 //   accumulator covers CP = min(C, 64) columns at a time (column panels),
 //   and the host picks the largest group of g in {8, 4, 2, 1} steps whose
@@ -102,6 +109,7 @@ __device__ __forceinline__ void warp_add(float v, int o, float* acc,
   if (lane == (o & 31)) acc[o] = add(acc[o], v);
 }
 
+template <int SUBS>
 __global__ void __launch_bounds__(kRays)
 hash_grid_backward_kernel(const float* __restrict__ tabs,
                           const uint16_t* __restrict__ samp,
@@ -126,6 +134,8 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
   float* st_fs = reinterpret_cast<float*>(st_slot + stride);   // (3, stride)
   float* st_denc = st_fs + 3 * stride;                         // (enc, stride)
   __shared__ int warp_total[kWarps];
+  __shared__ int sub_start[SUBS + 1];   // staged range per sub-tile
+  constexpr int kSubRays = kRays / SUBS;
 
   const int64_t t = blockIdx.x;
   const int ray = threadIdx.x;
@@ -133,6 +143,7 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
   const int warp = ray >> 5;
   const int row = ray >> 4;
   const int lane0 = (ray & 15) * kSteps;
+  const int sub_tile = ray / kSubRays;
   const int nc = h.nc, nb = k.nb;
 
   block_copy(sc, scg, n_sc);
@@ -179,7 +190,7 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
   {
     float s = 0.f;
     for (int c = 0; c < nc && k_stop == n_steps; ++c) {
-      const int b0 = bank0[t * nc + c] & 0x3FFF;
+      const int b0 = bank0[(t * nc + c) * SUBS + sub_tile] & 0x3FFF;
       const int b1 = min(b0 + 1, nb - 1);
       const uint16_t* sp = samp + (t * nc + c) * 3 * kChunkSamples
                            + row * kLanes + lane0;
@@ -215,13 +226,13 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
   float* wacc = win_acc + warp * 32 * cp;
   const int n_groups = kSteps / bl.g;
   for (int c = nc - 1; c >= 0; --c) {
-    const int b0 = bank0[t * nc + c] & 0x3FFF;
+    const int b0 = bank0[(t * nc + c) * SUBS + sub_tile] & 0x3FFF;
     const int b1 = min(b0 + 1, nb - 1);
     const uint16_t* sp = samp + (t * nc + c) * 3 * kChunkSamples
                          + row * kLanes + lane0;
 
     // the steps that take part (processed, live, masked in) and those
-    // that land in the window's 256 slots
+    // that land in the sub-tile's window of 256 slots
     unsigned proc = 0, scat = 0;
     for (int j = 0; j < kSteps; ++j) {
       const int q = c * kSteps + j;
@@ -239,7 +250,8 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
       const int j_lo = grp * bl.g;
       const unsigned gmask = ((1u << bl.g) - 1u) << j_lo;
       // block-wide exclusive scan of the staged counts: positions follow
-      // sample order (ray-major, then step)
+      // sample order (ray-major, then step), so each sub-tile's samples
+      // form one range
       const unsigned sg = scat & gmask;
       const int cnt = __popc(sg);
       int incl = cnt;
@@ -258,6 +270,8 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
         if (w < warp) pos0 += tw;
         n_stage += tw;
       }
+      if (ray % kSubRays == 0) sub_start[sub_tile] = pos0;
+      if (ray == 0) sub_start[SUBS] = n_stage;
 
       for (int j = j_lo + bl.g - 1; j >= j_lo; --j) {
         const bool active = (proc >> j) & 1u;
@@ -366,74 +380,84 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
       }
       __syncthreads();   // the group's samples are staged
 
-      // Warp `warp` owns the window slots s with s % 8 == warp and adds
+      // Sub-tile by sub-tile (the TPU kernel adds each sub-tile's window
+      // into its own banks in sub-tile order; sub-tiles may share banks),
+      // warp `warp` owns the window slots s with s % 8 == warp and adds
       // their staged samples in order into its rows r = s / 8 of the
-      // window accumulator, one panel of cp columns at a time.
-      for (int p0 = 0; p0 < cols; p0 += cp) {
-        const int pend = min(p0 + cp, cols);
-        unsigned hit = 0;   // rows of this warp that received a sample
-        for (int base_q = 0; base_q < n_stage; base_q += 32) {
-          const int qq = base_q + lane;
-          const int sl = qq < n_stage ? st_slot[qq] : -1;
-          unsigned mine = __ballot_sync(kFull, sl >= 0 && (sl & 7) == warp);
-          while (mine) {
-            const int b = __ffs(mine) - 1;
-            mine &= mine - 1u;
-            const int src = base_q + b;
-            const int s_idx = __shfl_sync(kFull, sl, b);
-            const int r = s_idx >> 3;
-            bool second;
-            const int slot = window_slot(s_idx, &second);
-            const int64_t bank = t * nb + (second ? b1 : b0);
-            float fs[3], cb[3];
+      // window accumulator, one panel of cp columns at a time. A sub-tile
+      // that staged nothing is skipped (sub_start is the block's, so the
+      // skip is uniform and the barriers stay matched).
+      for (int sb = 0; sb < SUBS; ++sb) {
+        const int q_lo = sub_start[sb], q_end = sub_start[sb + 1];
+        if (q_lo == q_end) continue;
+        const int sb0 = bank0[(t * nc + c) * SUBS + sb] & 0x3FFF;
+        const int sb1 = min(sb0 + 1, nb - 1);
+        for (int p0 = 0; p0 < cols; p0 += cp) {
+          const int pend = min(p0 + cp, cols);
+          unsigned hit = 0;   // rows of this warp that received a sample
+          for (int base_q = q_lo; base_q < q_end; base_q += 32) {
+            const int qq = base_q + lane;
+            const int sl = qq < q_end ? st_slot[qq] : -1;
+            unsigned mine = __ballot_sync(kFull, sl >= 0 && (sl & 7) == warp);
+            while (mine) {
+              const int b = __ffs(mine) - 1;
+              mine &= mine - 1u;
+              const int src = base_q + b;
+              const int s_idx = __shfl_sync(kFull, sl, b);
+              const int r = s_idx >> 3;
+              bool second;
+              const int slot = window_slot(s_idx, &second);
+              const int64_t bank = t * nb + (second ? sb1 : sb0);
+              float fs[3], cb[3];
 #pragma unroll
-            for (int ax = 0; ax < 3; ++ax) {
-              fs[ax] = st_fs[ax * stride + src];
-              cb[ax] = base[(bank * 3 + ax) * kLanes + slot];
-            }
-#pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int col = p0 + lane + 32 * half;
-              if (col < pend) {
-                const int l = col / (8 * n_f);
-                const int corner = (col / n_f) & 7;
-                const int f = col - (l * 8 + corner) * n_f;
-                const float rr = h.res[l];
-                float tl[3];
-#pragma unroll
-                for (int ax = 0; ax < 3; ++ax) tl[ax] = level_frac(fs[ax], cb[ax], rr);
-                const float v = mul(corner_weight(tl, corner),
-                                    st_denc[(l * n_f + f) * stride + src]);
-                float* a = wacc + r * cp + (col - p0);
-                *a = add(*a, v);
+              for (int ax = 0; ax < 3; ++ax) {
+                fs[ax] = st_fs[ax * stride + src];
+                cb[ax] = base[(bank * 3 + ax) * kLanes + slot];
               }
+#pragma unroll
+              for (int half = 0; half < 2; ++half) {
+                const int col = p0 + lane + 32 * half;
+                if (col < pend) {
+                  const int l = col / (8 * n_f);
+                  const int corner = (col / n_f) & 7;
+                  const int f = col - (l * 8 + corner) * n_f;
+                  const float rr = h.res[l];
+                  float tl[3];
+#pragma unroll
+                  for (int ax = 0; ax < 3; ++ax) tl[ax] = level_frac(fs[ax], cb[ax], rr);
+                  const float v = mul(corner_weight(tl, corner),
+                                      st_denc[(l * n_f + f) * stride + src]);
+                  float* a = wacc + r * cp + (col - p0);
+                  *a = add(*a, v);
+                }
+              }
+              hit |= 1u << r;
             }
-            hit |= 1u << r;
           }
-        }
 
-        // add into the tile's banks: the window's first half (rows 0-15 of
-        // every warp) into b0, then its second half (rows 16-31) into b1,
-        // the same bank when the window clamps; the accumulator rows are
-        // zeroed for the next panel
-        for (int hh = 0; hh < 2; ++hh) {
-          unsigned rows_left = hit & (hh ? 0xFFFF0000u : 0x0000FFFFu);
-          while (rows_left) {
-            const int r = __ffs(rows_left) - 1;
-            rows_left &= rows_left - 1u;
-            const int slot = r * 8 + warp;
-            float* gr = rows_t + ((int64_t)(hh ? b1 : b0) * kLanes
-                                  + (slot & (kLanes - 1))) * cols + p0;
+          // add into the tile's banks: the window's first half (rows 0-15 of
+          // every warp) into b0, then its second half (rows 16-31) into b1,
+          // the same bank when the window clamps; the accumulator rows are
+          // zeroed for the next panel
+          for (int hh = 0; hh < 2; ++hh) {
+            unsigned rows_left = hit & (hh ? 0xFFFF0000u : 0x0000FFFFu);
+            while (rows_left) {
+              const int r = __ffs(rows_left) - 1;
+              rows_left &= rows_left - 1u;
+              const int slot = r * 8 + warp;
+              float* gr = rows_t + ((int64_t)(hh ? sb1 : sb0) * kLanes
+                                    + (slot & (kLanes - 1))) * cols + p0;
 #pragma unroll
-            for (int half = 0; half < 2; ++half) {
-              const int cc = lane + 32 * half;
-              if (p0 + cc < pend) {
-                gr[cc] = add(gr[cc], wacc[r * cp + cc]);
-                wacc[r * cp + cc] = 0.f;
+              for (int half = 0; half < 2; ++half) {
+                const int cc = lane + 32 * half;
+                if (p0 + cc < pend) {
+                  gr[cc] = add(gr[cc], wacc[r * cp + cc]);
+                  wacc[r * cp + cc] = 0.f;
+                }
               }
             }
+            __syncthreads();
           }
-          __syncthreads();
         }
       }
     }
@@ -447,14 +471,36 @@ hash_grid_backward_kernel(const float* __restrict__ tabs,
   }
 }
 
+template <int SUBS>
+int launch(int n_tiles, cudaStream_t stream, const float* tabs,
+           const uint16_t* samp, const float* base, const float* rayt,
+           const int* ke, const int* bank0, const float* sc, const float* gs,
+           float* d_rows, float* part_mlp, float* s_pre, const GridConsts& k,
+           const BwdLayout& bl) {
+  const cudaError_t err = cudaFuncSetAttribute(
+      hash_grid_backward_kernel<SUBS>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, bl.floats * 4);
+  if (err != cudaSuccess) {
+    cudaGetLastError();   // clear it: the next launch is unaffected
+    return (int)err;
+  }
+  if (n_tiles > 0) {
+    hash_grid_backward_kernel<SUBS><<<n_tiles, kRays, (size_t)bl.floats * 4,
+                                      stream>>>(
+        tabs, samp, base, rayt, ke, bank0, sc, gs, d_rows, part_mlp, s_pre,
+        k, bl);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int dvt_hash_grid_backward(
     const float* tabs, const uint16_t* samp, const float* base,
     const float* rayt, const int* ke, const int* bank0, const float* sc,
     const float* gs, float* d_rows, float* part_mlp, float* s_pre,
-    int n_tiles, int nc, int nb, int k_max, int n_levels, int n_feat,
-    int hidden, float dt, float t_near, float t_far, float t_stop,
+    int n_tiles, int nc, int nb, int k_max, int subs, int n_levels,
+    int n_feat, int hidden, float dt, float t_near, float t_far, float t_stop,
     float stop, float lo_x, float lo_y, float lo_z, float inv_x,
     float inv_y, float inv_z, float ns_x, float ns_y, float ns_z,
     const float* ratios, void* stream) {
@@ -464,18 +510,13 @@ extern "C" int dvt_hash_grid_backward(
       stop, lo_x, lo_y, lo_z, inv_x, inv_y, inv_z, ns_x, ns_y, ns_z, ratios);
   const BwdLayout bl = bwd_layout(k.h.n_sc, k.h.enc, k.cols);
   if (bl.g == 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = cudaFuncSetAttribute(
-      hash_grid_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      bl.floats * 4);
-  if (err != cudaSuccess) {
-    cudaGetLastError();   // clear it: the next launch is unaffected
-    return (int)err;
-  }
-  if (n_tiles > 0) {
-    hash_grid_backward_kernel<<<n_tiles, kRays, (size_t)bl.floats * 4,
-                                (cudaStream_t)stream>>>(
-        tabs, samp, base, rayt, ke, bank0, sc, gs, d_rows, part_mlp, s_pre,
-        k, bl);
-  }
-  return (int)cudaGetLastError();
+  cudaStream_t st = (cudaStream_t)stream;
+#define DVT_GRID_BWD(S)                                                    \
+  return launch<S>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, sc, gs, \
+                   d_rows, part_mlp, s_pre, k, bl)
+  if (subs == 1) DVT_GRID_BWD(1);
+  if (subs == 4) DVT_GRID_BWD(4);
+  if (subs == 16) DVT_GRID_BWD(16);
+#undef DVT_GRID_BWD
+  return (int)cudaErrorInvalidValue;
 }

@@ -24,7 +24,9 @@ instead:
   vector, zeroes masked samples (the field is zero outside the unit
   cube) and integrates with exact early stop. K8b
   (``csrc/hash_grid_bwd.cu``) is its recompute adjoint: d(bank table)
-  as f32 slot rows (T, NB, 128, C) and per-tile MLP partials.
+  as f32 slot rows (T, NB, 128, C) and per-tile MLP partials. Both come
+  in three forms, ``GridParams.subs`` 1, 4 or 16 sub-tiles per block (16,
+  8 or 4 px tiles), each sub-tile with its own bank window per chunk.
 
 :func:`hash_grid_forward` and :func:`hash_grid_backward` launch their
 kernels for CUDA tensors and run the plain twins
@@ -214,9 +216,9 @@ def hash_grid_table_grad(d_packed: torch.Tensor,
 @dataclass(frozen=True)
 class GridParams:
     """Static constants of one hash-grid tile group: the fields of
-    ``fused_tiles.TileParams`` (the lattice and the fraction constants of
-    the finest level's point grid over the unit cube) plus the spec and
-    its level ratios res_l / res_finest."""
+    ``fused_tiles.TileParams`` (the lattice, the fraction constants of
+    the finest level's point grid over the unit cube and the sub-tiles
+    per block) plus the spec and its level ratios res_l / res_finest."""
 
     n_chunks: int
     banks: int
@@ -230,6 +232,7 @@ class GridParams:
     ns: tuple
     ratios: tuple
     spec: HashMLPSpec
+    subs: int = 1
 
     @property
     def t_stop(self) -> float:
@@ -243,7 +246,12 @@ class GridParams:
 
 
 def grid_op_params(plan: Plan, spec: HashMLPSpec, nb: int,
-                   n_chunks: int) -> GridParams:
+                   n_chunks: int, subs: int = 1) -> GridParams:
+    """Group constants; ``subs``: sub-tiles per block, (16 // tile_px) ** 2
+    of the schedule (block row r belongs to sub-tile r // (16 // subs),
+    with its own bank windows)."""
+    if subs not in (1, 4, 16):
+        raise ValueError(f"subs must be 1, 4 or 16, got {subs}")
     nz, ny, nx = grid_shape(spec)
     return GridParams(
         n_chunks=int(n_chunks), banks=int(nb), dt=float(plan.sampling.dt),
@@ -251,7 +259,7 @@ def grid_op_params(plan: Plan, spec: HashMLPSpec, nb: int,
         k_max=int(plan.sampling.max_steps), stop=float(STOP_THRESHOLD),
         lo=(0.0, 0.0, 0.0), inv=(1.0, 1.0, 1.0),
         ns=(float(nx - 1), float(ny - 1), float(nz - 1)),
-        ratios=_level_ratios(spec), spec=spec)
+        ratios=_level_ratios(spec), spec=spec, subs=int(subs))
 
 
 def _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm: GridParams,
@@ -264,7 +272,7 @@ def _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm: GridParams,
         "base": (base, (t_cnt, nb, 3, LANES), torch.float32),
         "rayt": (rayt, (t_cnt, RAYT_ROWS, LANES), torch.float32),
         "ke": (ke, (t_cnt,), torch.int32),
-        "bank0": (bank0, (t_cnt * nc,), torch.int32),
+        "bank0": (bank0, (t_cnt * nc * prm.subs,), torch.int32),
         "sc": (sc, (_mlp_layout(prm.spec)["total"],), torch.float32),
     }
     if gs is not None:
@@ -288,7 +296,8 @@ def _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm: GridParams,
 def _kernel_args(prm: GridParams):
     spec = prm.spec
     ratios = (ctypes.c_float * len(prm.ratios))(*prm.ratios)
-    return ratios, (prm.n_chunks, prm.banks, prm.k_max, spec.n_levels,
+    return ratios, (prm.n_chunks, prm.banks, prm.k_max, prm.subs,
+                    spec.n_levels,
                     spec.features_per_level, spec.hidden_dim,
                     prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
                     *prm.lo, *prm.inv, *prm.ns)
@@ -301,8 +310,9 @@ def hash_grid_forward(tabs, samp, base, rayt, ke, bank0, sc,
 
     tabs (T, NB, C, 128) f32 bank tables of :func:`build_hash_grid_table`,
     samp (T, nc, 3, 16, 128) u16, base (T, NB, 3, 128) f32, rayt
-    (T, 12, 128) f32, ke (T,) i32, bank0 (T * nc,) i32 (the dense
-    schedule's), sc (P,) f32 packed MLP scalars."""
+    (T, 12, 128) f32, ke (T,) i32, bank0 (T * nc * subs,) i32 (the dense
+    schedule's window start per (chunk, sub-tile)), sc (P,) f32 packed MLP
+    scalars."""
     _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm)
     if tabs.device.type == "cpu":
         return hash_grid_forward_plain(tabs, samp, base, rayt, ke, bank0,

@@ -17,10 +17,12 @@ The composition reuses the dense path's tile composer: the kernel's
 The NGP-scale grid half (:func:`build_hash_grid_schedule`,
 :func:`render_hash_grid_tiled`, counterpart of the JAX module's grid
 path) carries table sizes past 128: the dense scheduler over the finest
-level's point lattice, the packed multi-level corner table of
+level's point lattice, cascading 16 -> 8 -> 4 px sub-tiles until no slot
+table overflows, the packed multi-level corner table of
 :mod:`dvren_tpu_torch.ops.hash_grid`, the bank gather at C = L*8*F
-columns, and K8f / K8b per tile group inside one autograd node
-(:class:`_HashGridGroupset`). The field is zero outside the unit cube.
+columns, and K8f / K8b per tile group, in the schedule's sub-tile form,
+inside one autograd node (:class:`_HashGridGroupset`). The field is zero
+outside the unit cube.
 """
 
 from __future__ import annotations
@@ -245,26 +247,39 @@ def _check_grid_spec(spec):
 
 def build_hash_grid_schedule(plan: Plan, field,
                              jitter: np.ndarray | None = None,
+                             tile_px: int | None = None,
+                             quantize=False,
+                             uniform_shape=None,
                              device=None) -> tiled_mod.TiledSchedule:
     """Tile-table schedule for the hash grid path: the dense scheduler over
     the spec's finest-level lattice (one slot per finest cell; every
     level's lookups resolve from that cell's packed row), in numpy, or
     moved to ``device``.
 
-    The JAX package cascades 16 -> 8 -> 4 px sub-tiles to the coarsest
-    configuration without slot overflow (the grid path has no windowed
-    fallback). K8 has no sub-tiled form here yet, so this builds 16 px
-    tiles only: a scene whose tiles overflow them raises
-    ``NotImplementedError`` (ROADMAP Queue 1 item 10), and it never
-    returns a schedule with overflow rays."""
+    ``tile_px`` 16, 8 or 4 builds that size; ``None`` cascades 16 -> 8 ->
+    4 px sub-tiles and keeps the first size with zero slot overflow (the
+    grid path has no windowed fallback: the streamed referee's semantics
+    outside the unit cube differ). A scene that overflows even 4 px
+    sub-tiles raises ``DvrenError``. ``quantize`` / ``uniform_shape`` as
+    in :func:`tiled.build_tiled_schedule`."""
     _check_grid_spec(field.spec)
     proxy = _HashSchedProxy(
         schedule_grid_shape=hash_grid.grid_shape(field.spec))
-    sched = tiled_mod.build_tiled_schedule(plan, proxy, jitter=jitter)
-    if sched.fallback_rays:
-        raise NotImplementedError(
-            f"{sched.fallback_rays} rays overflow the hash grid's 16 px slot "
-            f"tables: needs K8's sub-tiled form (ROADMAP Queue 1 item 10)")
+
+    def build(px):
+        return tiled_mod.build_tiled_schedule(
+            plan, proxy, jitter=jitter, tile_px=px, quantize=quantize,
+            uniform_shape=uniform_shape)
+
+    if tile_px is not None:
+        sched = build(tile_px)
+    else:
+        for px in (16, 8, 4):
+            sched = build(px)
+            if sched.fallback_rays == 0:
+                break
+        check(sched.fallback_rays == 0,
+              "hash grid schedule overflows even 4px sub-tiles")
     return sched if device is None else sched.to(device)
 
 
@@ -347,8 +362,9 @@ def render_hash_grid_tiled(plan: Plan, field, schedule,
     check(schedule.device == field.device,
           f"schedule is on {schedule.device}, the field on {field.device}: "
           f"move it with schedule.to(device)")
+    subs = (16 // schedule.tile_px) ** 2
     prms = tuple(hash_grid.grid_op_params(plan, field.spec, g.banks,
-                                          g.n_chunks)
+                                          g.n_chunks, subs)
                  for g in schedule.groups)
     raws = []
     if schedule.groups:

@@ -43,10 +43,12 @@ arrays, the gather plan included, equal that package's array for array.
 Tiles of 16, 8 or 4 px (8 and 4 px: sub-tiles of a 16x16 block, each
 with its own bank windows), one slot per grid cell or per 2x2x2
 supercell, and :func:`build_tiled_schedule_auto`'s cascade over them, as
-in the JAX package. Not yet ported: pitch 2, occupancy trimming,
-quantized shapes and the windowed fallback, so a schedule whose rays
-still overflow cannot be rendered. Those raise ``NotImplementedError``
-naming their ROADMAP item.
+in the JAX package, with quantized and uniform shape classes; many views'
+schedules merge into one (:func:`merge_view_schedules`) that
+:func:`render_tiled_stack` renders with one launch per merged group. Not
+yet ported: pitch 2, occupancy trimming and the windowed fallback, so a
+schedule whose rays still overflow cannot be rendered. Those raise
+``NotImplementedError`` naming their ROADMAP item.
 
 Sample layout per (tile, chunk): block row r in [0, 16), lane l in
 [0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8; with n_sub
@@ -87,7 +89,26 @@ _DROP_TILE = 1 << 30     # tile id of pad tiles: compose drops it
 _TODO_FALLBACK = "the windowed fallback (ROADMAP Queue 1 item 11)"
 _TODO_PITCH2 = "pitch-2 packing (ROADMAP Queue 1 item 5)"
 _TODO_OCCUPANCY = "occupancy trimming (ROADMAP Queue 1 item 5)"
-_TODO_MULTIVIEW = "quantized and uniform schedules (ROADMAP Queue 1 item 13)"
+_TODO_ALL_TILES = ("all_tiles, the camera-stable schedule of render/animate.py "
+                   "(ROADMAP Queue 1 item 15)")
+_TODO_BANK_ALIGNED = ("bank_aligned packing (not ported: ROADMAP 'Not ported, "
+                      "on purpose')")
+
+# Shape classes of quantized schedules: a group's (chunk count, bank count)
+# rounds up to the nearest member, so every (nc, nb) pair maps to a small
+# shared set (ratio <= 1.34 bounds the padding). Padded chunks hold masked
+# samples only (exact zeros in every sum) and padded banks are never
+# indexed (b1 clamps at nb - 1), so a quantized schedule renders the same
+# frame bit for bit. ``dvren_tpu``'s ``_QUANT``.
+_QUANT = (1, 2, 3, 4, 5, 6, 8, 10, 13, 16, 20, 26, 32, 42, 52, 64, 84,
+          104, 128, 168, 208, 256)
+
+
+def _quant_up(v: int, cap: int | None = None) -> int:
+    for q in _QUANT:
+        if q >= v:
+            return q if cap is None else min(q, cap)
+    return v
 
 
 def _to_device(x, device):
@@ -294,14 +315,15 @@ def _sparse_rows_for_cells(cells: np.ndarray, occ: np.ndarray,
     return slot * (BRICK ** 3) + local
 
 
-def _check_slice(field, pitch, occupancy, quantize, uniform_shape,
-                 all_tiles, bank_aligned):
+def _check_slice(field, pitch, occupancy, all_tiles, bank_aligned):
     if pitch != 1:
         raise NotImplementedError(_TODO_PITCH2)
     if occupancy:
         raise NotImplementedError(_TODO_OCCUPANCY)
-    if quantize or uniform_shape is not None or all_tiles or bank_aligned:
-        raise NotImplementedError(_TODO_MULTIVIEW)
+    if all_tiles:
+        raise NotImplementedError(_TODO_ALL_TILES)
+    if bank_aligned:
+        raise NotImplementedError(_TODO_BANK_ALIGNED)
     check(getattr(field, "oob", OobPolicy.ZERO) == OobPolicy.ZERO,
           "tiled rendering requires an OOB_ZERO field")
     check(getattr(field, "interp", InterpMode.LINEAR) == InterpMode.LINEAR,
@@ -335,7 +357,14 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     then 1, as in the JAX package). A sub-tile with a chunk of more than
     256 slots overflows: its live rays are counted in ``fallback_rays``
     and its pixels left out; a supercell tile wider than 31 banks (the
-    12-bit lane) overflows whole."""
+    12-bit lane) overflows whole.
+
+    ``quantize=True`` rounds each group's (chunk count, bank count) up to
+    the ``_QUANT`` series; ``"uniform"`` gives every tile one class, the
+    largest chunk and bank counts; ``uniform_shape=(nc, nb)`` pins that
+    class (at least this schedule's maxima), so views built alike merge
+    into one group (:func:`merge_view_schedules`). The frames are the same
+    bit for bit: the padding holds masked samples and unread banks."""
     check(tile_px in (4, 8, 16), "tile_px must be 4, 8 or 16")
     check(cell_scale in (1, 2), "cell_scale must be 1 or 2")
     sparse = hasattr(field, "bricks")
@@ -345,8 +374,7 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         check(getattr(field, "packed_dtype", "float32") == "float32",
               "cell_scale=2 requires float32 tables")
         pitch = 1
-    _check_slice(field, pitch, occupancy, quantize, uniform_shape, all_tiles,
-                 bank_aligned)
+    _check_slice(field, pitch, occupancy, all_tiles, bank_aligned)
     bbox_min = tuple(float(v) for v in field.bbox_min)
     bbox_max = tuple(float(v) for v in field.bbox_max)
     if sparse:
@@ -385,6 +413,23 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     budget = np.maximum(tile_kx - tile_ke, 0)
     budget = np.minimum(-(-budget // CHUNK) * CHUNK, -(-k_max // CHUNK) * CHUNK)
     n_chunks_tile = (budget // CHUNK).astype(np.int64)
+    uniform = quantize == "uniform" or uniform_shape is not None
+    if uniform:
+        live_nc = n_chunks_tile[tile_live & (n_chunks_tile > 0)]
+        if live_nc.size:
+            nc_u = int(live_nc.max())
+            if uniform_shape is not None:
+                check(uniform_shape[0] >= nc_u,
+                      "uniform_shape nc below this schedule's maximum")
+                nc_u = int(uniform_shape[0])
+            n_chunks_tile = np.where(tile_live & (n_chunks_tile > 0), nc_u,
+                                     n_chunks_tile)
+    elif quantize:
+        nc_cap = -(-k_max // CHUNK)
+        lut = np.array([_quant_up(v, nc_cap)
+                        for v in range(int(n_chunks_tile.max()) + 1)]
+                       if n_chunks_tile.size else [0], np.int64)
+        n_chunks_tile = lut[n_chunks_tile]
 
     roi = plan.roi
     groups = []
@@ -513,6 +558,20 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                     fallback.append(fb)
                 overflow = overflow | too_wide
                 nb_tile = np.where(too_wide, 0, nb_tile)
+        if uniform:
+            if (~overflow).any():
+                nb_u = int(nb_tile[~overflow].max())
+                if uniform_shape is not None:
+                    check(uniform_shape[1] >= nb_u,
+                          "uniform_shape nb below this schedule's maximum")
+                    nb_u = int(uniform_shape[1])
+                nb_tile = np.where(~overflow, nb_u, 0)
+        elif quantize:
+            nb_cap = 31 if cell_scale == 2 else None
+            qmap = {int(v): _quant_up(int(v), nb_cap)
+                    for v in np.unique(nb_tile[~overflow])}
+            nb_tile = np.where(overflow, 0, np.vectorize(
+                lambda v: qmap.get(int(v), 0), otypes=[np.int64])(nb_tile))
 
         for nb in sorted(set(nb_tile[~overflow].tolist())):
             keep = (~overflow) & (nb_tile == nb)
@@ -958,6 +1017,76 @@ def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w) -> list:
     return out
 
 
+def _check_field_schedule(field, schedule: TiledSchedule, what: str):
+    """The checks every tiled render makes of (field, schedule); returns
+    the field's device."""
+    check(tuple(float(v) for v in field.bbox_min) == tuple(schedule.bbox[0])
+          and tuple(float(v) for v in field.bbox_max)
+          == tuple(schedule.bbox[1]),
+          f"{what} was built for a different field bbox (cell ids and "
+          "fraction constants depend on it)")
+    check(getattr(field, "oob", OobPolicy.ZERO) == OobPolicy.ZERO,
+          "tiled rendering requires an OOB_ZERO field")
+    sparse = hasattr(field, "bricks")
+    kind = "sparse" if sparse else "dense"
+    check(schedule.table_kind == kind,
+          f"{what} was built for a {schedule.table_kind} field, this one "
+          f"is {kind}")
+    shape = field.grid_shape if sparse else field.sigma.shape[:3]
+    check(tuple(int(v) for v in shape) == tuple(schedule.grid_shape),
+          f"{what} was built for a different grid resolution")
+    check(schedule.cell_scale == 1
+          or getattr(field, "packed_dtype", "float32") == "float32",
+          "supercell schedules need float32 tables")
+    if schedule.fallback_rays:
+        raise NotImplementedError(
+            f"{schedule.fallback_rays} rays need {_TODO_FALLBACK}")
+    device = field.bricks.device if sparse else field.sigma.device
+    check(schedule.device == device,
+          f"{what} is on {schedule.device}, the field on {device}: "
+          f"move it with .to(device)")
+    return device
+
+
+def _group_raws(plan: Plan, field, schedule: TiledSchedule,
+                use_kernel: bool, rayts=None) -> list:
+    """Every tile group's raw heads (T, 5, 16, 16) for ``field`` through
+    the route its table takes (see :func:`render_tiled`): one table
+    build, one planned bank gather and K1 once per group, in the
+    schedule's form, as one autograd node. ``rayts``: per-group ray
+    planes that autograd records (the camera adjoint), else the
+    schedule's."""
+    if not schedule.groups:
+        return []
+    geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
+    subs = (16 // schedule.tile_px) ** 2
+    stencil = "super" if schedule.cell_scale == 2 else "cell"
+    params = tuple(fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks,
+                                              subs, stencil)
+                   for g in schedule.groups)
+    cam = rayts is not None
+    if not cam:
+        rayts = [g.rayt for g in schedule.groups]
+    static = (schedule, params, use_kernel, cam)
+    packed_dtype = getattr(field, "packed_dtype", "float32")
+    if hasattr(field, "bricks"):
+        raws = _GroupsetFromTable.apply(
+            static, field.bricks.reshape(-1, NCH), *rayts)
+    elif stencil == "super":
+        raws = _GroupsetFromTable.apply(
+            static, build_supercell_stencil(field.sigma, field.color),
+            *rayts)
+    elif packed_dtype == "float32":
+        raws = _GroupsetFromParams.apply(static, field.sigma, field.color,
+                                         *rayts)
+    else:
+        table = _Table16FromParams.apply(
+            (table_dtype(packed_dtype), use_kernel), field.sigma,
+            field.color)
+        raws = _GroupsetFromTable.apply(static, table, *rayts)
+    return list(raws)
+
+
 def render_tiled(plan: Plan, field, schedule: TiledSchedule,
                  use_kernel: bool = True, k=None, c2w=None) -> ImagePlanes:
     """Tile-table render of a dense or sparse brick field, differentiable
@@ -981,59 +1110,146 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     ``c2w`` the ray planes are rebuilt from those tensors and the backward
     emits their adjoint; the cells, slots and mask stay the schedule's, so
     a camera far from the schedule's needs a new schedule."""
-    check(tuple(float(v) for v in field.bbox_min) == tuple(schedule.bbox[0])
-          and tuple(float(v) for v in field.bbox_max)
-          == tuple(schedule.bbox[1]),
-          "schedule was built for a different field bbox (cell ids and "
-          "fraction constants depend on it)")
-    check(getattr(field, "oob", OobPolicy.ZERO) == OobPolicy.ZERO,
-          "tiled rendering requires an OOB_ZERO field")
-    sparse = hasattr(field, "bricks")
-    kind = "sparse" if sparse else "dense"
-    check(schedule.table_kind == kind,
-          f"schedule was built for a {schedule.table_kind} field, this one "
-          f"is {kind}")
-    shape = field.grid_shape if sparse else field.sigma.shape[:3]
-    check(tuple(int(v) for v in shape) == tuple(schedule.grid_shape),
-          "schedule was built for a different grid resolution")
-    packed_dtype = getattr(field, "packed_dtype", "float32")
-    check(schedule.cell_scale == 1 or packed_dtype == "float32",
-          "supercell schedules need float32 tables")
-    if schedule.fallback_rays:
-        raise NotImplementedError(
-            f"{schedule.fallback_rays} rays need {_TODO_FALLBACK}")
-    device = field.bricks.device if sparse else field.sigma.device
-    check(schedule.device == device,
-          f"schedule is on {schedule.device}, the field on {device}: "
-          f"move it with schedule.to(device)")
-
-    geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
-    subs = (16 // schedule.tile_px) ** 2
-    stencil = "super" if schedule.cell_scale == 2 else "cell"
-    params = tuple(fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks,
-                                              subs, stencil)
-                   for g in schedule.groups)
-    cam = k is not None or c2w is not None
-    raws = []
-    if schedule.groups:
-        rayts = (_traced_rayts(plan, schedule, k, c2w) if cam
-                 else [g.rayt for g in schedule.groups])
-        static = (schedule, params, use_kernel, cam)
-        if sparse:
-            raws = _GroupsetFromTable.apply(
-                static, field.bricks.reshape(-1, NCH), *rayts)
-        elif stencil == "super":
-            raws = _GroupsetFromTable.apply(
-                static, build_supercell_stencil(field.sigma, field.color),
-                *rayts)
-        elif packed_dtype == "float32":
-            raws = _GroupsetFromParams.apply(static, field.sigma,
-                                             field.color, *rayts)
-        else:
-            table = _Table16FromParams.apply(
-                (table_dtype(packed_dtype), use_kernel), field.sigma,
-                field.color)
-            raws = _GroupsetFromTable.apply(static, table, *rayts)
-        raws = list(raws)
+    device = _check_field_schedule(field, schedule, "schedule")
+    rayts = None
+    if (k is not None or c2w is not None) and schedule.groups:
+        rayts = _traced_rayts(plan, schedule, k, c2w)
+    raws = _group_raws(plan, field, schedule, use_kernel, rayts)
     return _compose_tiles(plan, raws, [g.tile_ids for g in schedule.groups],
                           tile_px=schedule.tile_px, device=device)
+
+
+# ------------------------------------------------------------ many views
+
+
+@dataclass(frozen=True)
+class MergedViewSchedule:
+    """Every view's tile groups merged by (chunk count, bank count) class
+    (``dvren_tpu``'s ``MergedViewSchedule``). Tiles are independent, so
+    the tiles of all views that share a class form one group: one table
+    build, one planned gather and one kernel launch per class serve every
+    view.
+
+    ``view_slices``: per merged group, the (view, t_start, t_count) runs
+    of its tile axis, view-major. ``view_fallbacks``: per view, None (the
+    windowed fallback is not ported). ``view_cams``: per view (k, c2w,
+    ortho_scale) when ``merge_view_schedules`` had the plans."""
+
+    sched: TiledSchedule
+    view_fallbacks: tuple
+    view_slices: tuple
+    n_views: int
+    view_cams: tuple | None = None
+
+    def to(self, device) -> "MergedViewSchedule":
+        return dataclasses.replace(self, sched=self.sched.to(device))
+
+
+def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
+    """Merge per-view numpy schedules (one plan geometry, one field, one
+    tile_px and cell_scale) into a :class:`MergedViewSchedule`, its
+    arrays numpy as well, with the gather plan built over the
+    concatenated hostmaps; move it with :meth:`MergedViewSchedule.to`.
+    Build the views with ``quantize="uniform"`` and one ``uniform_shape``
+    to get one group. A view with overflow rays raises
+    ``NotImplementedError``: they need the windowed fallback."""
+    base = scheds[0]
+    for s in scheds:
+        if s.fallback_rays:
+            raise NotImplementedError(
+                f"a view has {s.fallback_rays} overflow rays: merging it "
+                f"needs {_TODO_FALLBACK}")
+        check(s.device is None,
+              "merge_view_schedules: build the views as numpy schedules "
+              "(they merge on the host and move once)")
+    for s in scheds[1:]:
+        check(s.tile_px == base.tile_px
+              and s.grid_shape == base.grid_shape
+              and s.bbox == base.bbox
+              and s.table_kind == base.table_kind
+              and s.pitch == base.pitch
+              and s.cell_scale == base.cell_scale,
+              "merge_view_schedules: schedules must share tile_px, pitch, "
+              "cell_scale, grid and bbox (build all views at one tile_px)")
+    keys = sorted({(g.n_chunks, g.banks) for s in scheds for g in s.groups})
+    merged, slices_all, host_parts = [], [], []
+    t_samples = 0
+    for key in keys:
+        parts, slices, t_off = [], [], 0
+        for v, s in enumerate(scheds):
+            for g in s.groups:
+                if (g.n_chunks, g.banks) == key:
+                    parts.append(g)
+                    slices.append((v, t_off, g.n_tiles))
+                    t_off += g.n_tiles
+        t_samples += sum(p.samples for p in parts)
+
+        def cat(name):
+            vals = [getattr(p, name) for p in parts]
+            return vals[0] if len(vals) == 1 else np.concatenate(vals)
+
+        host_parts.extend(p.hostmap for p in parts)
+        hostmap = cat("hostmap")
+        merged.append(TileGroup(
+            n_chunks=key[0], n_tiles=t_off, banks=key[1],
+            hostmap=hostmap, gathermap=hostmap, samp=cat("samp"),
+            base=cat("base"), rayt=cat("rayt"), bank0=cat("bank0"),
+            ray_ids=cat("ray_ids"), k_enter=cat("k_enter"),
+            pixel_ids=cat("pixel_ids"), tile_ids=cat("tile_ids"),
+            samples=sum(p.samples for p in parts)))
+        slices_all.append(tuple(slices))
+
+    hostmap_all = (np.concatenate(host_parts) if host_parts
+                   else np.zeros(0, np.int32))
+    n_rows = next((int(s.gather_plan.inv_map.shape[0]) for s in scheds
+                   if s.gather_plan is not None), 1)
+    sched = TiledSchedule(
+        groups=tuple(merged), fallback=None,
+        hostmap_all=hostmap_all, gathermap_all=hostmap_all,
+        gather_plan=build_gather_plan(hostmap_all, n_rows),
+        total_rays=sum(s.total_rays for s in scheds),
+        tiled_samples=t_samples,
+        full_lattice_samples=sum(s.full_lattice_samples for s in scheds),
+        fallback_rays=0, grid_shape=base.grid_shape, bbox=base.bbox,
+        tile_px=base.tile_px, table_kind=base.table_kind,
+        pitch=base.pitch, cell_scale=base.cell_scale)
+    view_cams = None
+    if plans is not None:
+        check(len(plans) == len(scheds),
+              "merge_view_schedules: one plan per schedule")
+        view_cams = tuple(
+            (tuple(float(v) for v in p.camera.k),
+             tuple(float(v) for v in p.camera.c2w),
+             float(p.camera.ortho_scale)) for p in plans)
+    return MergedViewSchedule(
+        sched=sched, view_fallbacks=(None,) * len(scheds),
+        view_slices=tuple(slices_all), n_views=len(scheds),
+        view_cams=view_cams)
+
+
+def render_tiled_stack(plan: Plan, field, merged: MergedViewSchedule,
+                       use_kernel: bool = True) -> torch.Tensor:
+    """Render every merged view in one pass -> the (V, H, W, 3) image
+    stack, differentiable in the field as :func:`render_tiled` is.
+
+    One table build, one planned bank gather and one K1 launch per merged
+    group serve every view (K2 likewise in the backward); each view's
+    image is composed from its slices of each group's output
+    (``view_slices``). ``use_kernel=False`` runs the twins. ``plan`` is
+    any view's plan: the views share its geometry and sampling, and each
+    group's rays were baked in per view when its schedule was built."""
+    sched = merged.sched
+    device = _check_field_schedule(field, sched, "merged schedule")
+    raws = _group_raws(plan, field, sched, use_kernel)
+    images = []
+    for v in range(merged.n_views):
+        raws_v, ids_v = [], []
+        for gi, group in enumerate(sched.groups):
+            for vv, t0, cnt in merged.view_slices[gi]:
+                if vv == v:
+                    raws_v.append(raws[gi][t0:t0 + cnt])
+                    ids_v.append(group.tile_ids[t0:t0 + cnt])
+        images.append(_compose_tiles(plan, raws_v, ids_v,
+                                     tile_px=sched.tile_px,
+                                     device=device).image)
+    return torch.stack(images)

@@ -845,3 +845,164 @@ def test_empty_schedule_stays_on_the_card(cuda_device):
     g = r.backward(field, np.ones(plan.ray_count * 3, np.float32))
     for key in ("sigma", "color", "camera", "camera_k"):
         assert not np.any(getattr(g, key))
+
+
+# ------------------------------ grid sub-tiles (K8 at subs 4 and 16)
+
+GRID_SUB_SPEC = dict(n_levels=4, features_per_level=2, table_size=4096,
+                     base_resolution=2.0, finest_resolution=16.0,
+                     resolutions=(2, 4, 8, 16))
+GRID_SUB_SCENES = {"8px": (48, 32, 8), "4px": (24, 24, 4)}
+
+
+def grid_sub_scene(name, device):
+    """tests/test_torch_grid_subtiles.py's scenes: view 0 of
+    tools/fit_benchmark.py's camera at 48^2 / 32 steps (the cascade picks
+    8 px) and 24^2 / 24 steps (4 px), a seeded field (table std 0.5)."""
+    w, steps, _ = GRID_SUB_SCENES[name]
+    plan = P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.2, t_far=2.2,
+        camera=P.CameraConfig(
+            k=(w * 1.2, 0, w / 2, 0, w * 1.2, w / 2, 0, 0, 1),
+            c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.65, 0, 0, 1, -1.0)),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps)))
+    field = P.HashMLPField.init_random(
+        torch.Generator().manual_seed(0), spec=P.HashMLPSpec(**GRID_SUB_SPEC),
+        table_std=0.5, device="cpu")
+    return plan, field.to(device)
+
+
+@pytest.mark.parametrize("name", sorted(GRID_SUB_SCENES))
+def test_hash_grid_subtiles_match_plain(cuda_device, name):
+    """K8f at subs 4 / 16 equal to its twin bit for bit on every group of
+    the cascade's schedule; K8b within 2e-5 x scale of its twin, and its
+    repeat runs bit for bit."""
+    plan, field = grid_sub_scene(name, cuda_device)
+    field.requires_grad_(False)
+    sched = hash_tiled.build_hash_grid_schedule(plan, field,
+                                                device=cuda_device)
+    assert sched.tile_px == GRID_SUB_SCENES[name][2]
+    subs = (16 // sched.tile_px) ** 2
+    table = hash_grid.build_hash_grid_table(dict(field.params), field.spec)
+    tabs = tiled._gather_bank_tables(
+        table, sched.gathermap_all,
+        [(g.n_tiles, g.banks) for g in sched.groups])
+    sc = hash_tiles.pack_mlp_scalars(dict(field.params), field.spec)
+    gen = torch.Generator(device=cuda_device).manual_seed(6)
+    for gi, g in enumerate(sched.groups):
+        prm = hash_grid.grid_op_params(plan, field.spec, g.banks, g.n_chunks,
+                                       subs)
+        a = (tabs[gi], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
+             sc, prm)
+        before = (hash_grid.hash_grid_forward.launches,
+                  hash_grid.hash_grid_backward.launches)
+        out = hash_grid.hash_grid_forward(*a)
+        gs = torch.randn((g.n_tiles, 5, 16, 16), generator=gen,
+                         device=cuda_device)
+        d_rows, d_sc = hash_grid.hash_grid_backward(*a[:7], gs, prm)
+        torch.cuda.synchronize()
+        assert (hash_grid.hash_grid_forward.launches,
+                hash_grid.hash_grid_backward.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+        assert torch.equal(out, hash_grid.hash_grid_forward_plain(*a))
+        p_rows, p_sc = hash_grid.hash_grid_backward_plain(*a[:7], gs, prm)
+        for got, want in ((d_rows, p_rows), (d_sc, p_sc)):
+            assert bool(torch.isfinite(got).all())
+            _close(got, want, HASH_GRAD_TOL)
+        again = hash_grid.hash_grid_backward(*a[:7], gs, prm)
+        assert torch.equal(again[0], d_rows) and torch.equal(again[1], d_sc)
+
+
+# ------------------------------------------ merged views and the fit
+
+FIT_N = 8
+
+
+def fit_scene(device):
+    """tests/test_fit.py's scene in the port's terms: 12^2 views of an 8^3
+    blob (25 fixed steps) from four cameras on a translation row."""
+    n, w = FIT_N, 12
+    plan = P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.3, t_far=2.3,
+        camera=P.CameraConfig(k=(14.0, 0, w / 2, 0, 14.0, w / 2, 0, 0, 1)),
+        sampling=P.SamplingConfig(dt=0.08, max_steps=25)))
+    cams = [P.CameraConfig(c2w=(1, 0, 0, 0.5 + dx, 0, 1, 0, 0.5, 0, 0, 1,
+                                -1.0)) for dx in (-0.15, 0.0, 0.15, 0.3)]
+    rng = np.random.default_rng(0)
+    zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, n)] * 3), indexing="ij")
+    r2 = (xs - 0.5) ** 2 + (ys - 0.5) ** 2 + (zs - 0.5) ** 2
+    sigma = (10.0 * np.exp(-r2 / 0.07)).astype(np.float32)
+    color = rng.uniform(0.2, 0.9, (n, n, n, 3)).astype(np.float32)
+    field = P.DenseGridField.create(P.DenseGridConfig(
+        resolution=(n, n, n), sigma=sigma.reshape(-1),
+        color=color.reshape(-1)), device=device)
+    return plan, cams, field
+
+
+def test_render_tiled_stack_matches_plain(cuda_device):
+    """One merged group: K1 once and K2 once for the whole stack; the
+    stack and its grid gradients within 5e-6 / 2e-6 x scale of the plain
+    path on the card."""
+    plan, cams, field = fit_scene(cuda_device)
+    _, merged, render_stack = fit._scheduled_views(plan, cams, field, "tiled")
+    assert len(merged.sched.groups) == 1 and merged.n_views == len(cams)
+    target = torch.rand((len(cams), plan.height, plan.width, 3),
+                        generator=torch.Generator(device=cuda_device)
+                        .manual_seed(3), device=cuda_device)
+
+    def run(use_kernel):
+        leaf = field.with_params(field.sigma.detach().clone(),
+                                 field.color.detach().clone())
+        img = tiled.render_tiled_stack(plan, leaf, merged,
+                                       use_kernel=use_kernel)
+        grads = torch.autograd.grad(fit.mse(img, target),
+                                    (leaf.sigma, leaf.color))
+        return img.detach(), grads
+
+    before = (fused_tiles.tile_forward.launches,
+              fused_tiles.tile_backward.launches)
+    img, grads = run(True)
+    torch.cuda.synchronize()
+    assert (fused_tiles.tile_forward.launches,
+            fused_tiles.tile_backward.launches) == (before[0] + 1,
+                                                    before[1] + 1)
+    img_p, grads_p = run(False)
+    assert float((img - img_p).abs().max()) <= TOL
+    for a, b in zip(grads, grads_p):
+        assert float(b.abs().max()) > 0.0
+        _close(a, b, GRID_TOL)
+
+
+def test_fit_dense_grid_on_the_card(cuda_device):
+    """Three steps of fit_dense_grid: one K1 and one K2 launch per merged
+    group per step; the losses within 1e-5 relative of the CPU's fit."""
+    plan, cams, truth = fit_scene(cuda_device)
+    with torch.no_grad():
+        _, merged, render_stack = fit._scheduled_views(plan, cams, truth,
+                                                       "tiled")
+        targets = render_stack(truth, merged).cpu().numpy()
+    n_groups = len(merged.sched.groups)
+
+    def flat(device):
+        f = fit_scene(device)[2]
+        return f.with_params(torch.full_like(f.sigma, 0.5),
+                             torch.full_like(f.color, 0.5))
+
+    config = fit.FitConfig(learning_rate=5e-2, steps=3, sync_every=2,
+                           target_psnr=None)
+    before = (fused_tiles.tile_forward.launches,
+              fused_tiles.tile_backward.launches)
+    got = fit.fit_dense_grid(plan, flat(cuda_device), cams, targets, config,
+                             mode="tiled")
+    assert got.steps_run == 3
+    assert (fused_tiles.tile_forward.launches,
+            fused_tiles.tile_backward.launches) == (
+                before[0] + 3 * n_groups, before[1] + 3 * n_groups)
+    want = fit.fit_dense_grid(plan, flat("cpu"), cams, targets, config,
+                              mode="tiled")
+    np.testing.assert_allclose(got.loss_history, want.loss_history,
+                               rtol=1e-5)
+    assert got.loss_history[-1] < got.loss_history[0]
+    assert float(got.field.sigma.min()) >= 0.0
+    assert float(got.field.color.max()) <= 1.0
+    assert got.steady_step_ms > 0.0

@@ -237,7 +237,9 @@ def test_schedule_equal(name):
 
 def test_overflowing_scene_names_subtile_item():
     """A close-up 16x16 frame over a 65^3 point lattice: a chunk's samples
-    touch more than 256 cells, which needs 8 or 4 px sub-tiles."""
+    touch more than 256 cells, which needs 8 or 4 px sub-tiles. The
+    cascade builds them; 16 px tiles keep their overflow rays, which the
+    render refuses (the grid path has no windowed fallback)."""
     spec = P.HashMLPSpec(n_levels=3, table_size=4096,
                          resolutions=(16, 32, 64))
     plan = P.Plan.create(P.PlanConfig(
@@ -246,8 +248,14 @@ def test_overflowing_scene_names_subtile_item():
                               c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1,
                                    -1.1)),
         sampling=P.SamplingConfig(dt=0.05, max_steps=60)))
-    with pytest.raises(NotImplementedError, match="item 10"):
-        p_hash.build_hash_grid_schedule(plan, random_field(0, spec))
+    field = random_field(0, spec)
+    sched = p_hash.build_hash_grid_schedule(plan, field)
+    assert sched.tile_px < 16 and sched.fallback_rays == 0
+    coarse = p_hash.build_hash_grid_schedule(plan, field, tile_px=16,
+                                             device="cpu")
+    assert coarse.fallback_rays > 0
+    with pytest.raises(P.DvrenError, match="zero overflow rays"):
+        p_hash.render_hash_grid_tiled(plan, field, coarse)
 
 
 def test_refused_spec_raises():

@@ -195,7 +195,7 @@ def test_cascade_rescues_overflowing_scene():
 
 
 @pytest.mark.parametrize("kwargs", [dict(pitch=2), dict(occupancy=True),
-                                    dict(quantize=True),
+                                    dict(all_tiles=True),
                                     dict(bank_aligned=True)])
 def test_unported_schedule_options_raise(kwargs):
     plan, field, _ = reference("fixed")
