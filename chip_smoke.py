@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|grid]
+    python3 chip_smoke.py [--only dense|grid|window]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -22,9 +22,12 @@ autograd; then the sub-tiled and supercell schedules of the cascade:
 256 stratified steps, seed 3) in float32 and bfloat16, and the eight
 views of ``tools/fit_benchmark.py``'s fit flagship (96^2 over 64^3, 96
 steps); then the grid path over those eight views (the grid spec at
-finest 32 and at finest 64, the cascade's 8 and 4 px sub-tiles), and
-``fit_dense_grid`` at the flagship on the views' merged schedule. Phases,
-each fatal when it fails:
+finest 32 and at finest 64, the cascade's 8 and 4 px sub-tiles),
+``fit_dense_grid`` at the flagship on the views' merged schedule, and last
+the windowed path with the per-ray integrator K9f / K9b: the dense
+headline through ``Renderer(use_window=True)``, the fine grid at 16 px
+cells with its windowed fallback, and ``fit_dense_grid``'s windowed and
+plain modes at the flagship. Phases, each fatal when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
@@ -171,10 +174,41 @@ each fatal when it fails:
     and K2 equal their twins on the group's first 8 tiles and launch once
     per step each; the steps to PSNR 35, ``schedule_build_s``,
     ``first_step_s``, ``steady_step_ms``, ``wall_clock_s``, and the Adam
-    step with CUDA events beside phase 32's (each view its own schedule).
+    step with CUDA events beside phase 32's (each view its own schedule);
+37. K9f and K9b against their twins on every group of the dense
+    headline's windowed schedule (a seeded cotangent), and on the same
+    lattice with sigma x 10, whose rays stop early (their count printed,
+    > 0): tests/test_pallas_parity.py's bounds, repeats bit for bit;
+    their times beside the twins' and their bounds;
+38. ``Renderer(Context.create(device="cuda"), plan,
+    RenderOptions(use_window=True))`` on the dense headline: K9f once
+    per group; the planes finite, within 5e-6 (depth 1e-4) of the plain
+    path on the card and within 1e-5 of the tiled frame (depth over
+    every ray within 1e-4 + 4 ulps x t_far / opacity: depth = wd /
+    opacity, see ``depth_error``);
+    ``Renderer.backward`` under ``torch.use_deterministic_algorithms``:
+    K9b once per group, grid and camera gradients finite and nonzero, two
+    calls bit for bit; the frame and the backward timed;
+39. the fine grid (512^2 over 128^3, 256 steps) at 16 px cells: its
+    fallback count equal to JAX's builder's (151,552 of 262,144 rays);
+    ``render_tiled`` with K1 once per tile group and K9f once per
+    fallback group, within 1e-5 (depth as in 38) of the 16 px supercell
+    frame (phase 28's form); its autograd backward (K2 and K9b launch) twice,
+    bit for bit; four SGD steps at lr 1e-3 x 786,432 (the loss falls);
+    times and peak device memory;
+40. ``fit_dense_grid(mode="windowed")`` at the flagship (phase 36's
+    scene, targets, rate and cap): K9f and K9b once per stack group per
+    step, the loss falls; steps to PSNR 35, ``schedule_build_s``,
+    ``steady_step_ms``, ``wall_clock_s``; then ``mode="plain"`` for 10
+    steps (K9 once per view per step; the loss falls);
+41. K1 and K2 in their supercell, subs 16 form on the flagship's view 0
+    (4 px, ``cell_scale=2``): one frame and backward (one launch per
+    group each), the twins bit for bit on the first 8 tiles of every
+    group, times beside the twins' and the bounds.
 
-``--only dense`` runs phases 1-10, ``--only grid`` phases 1 and 16-20:
-each alone, to time two trees against each other in one call.
+``--only dense`` runs phases 1-10, ``--only grid`` phases 1 and 16-20,
+``--only window`` phases 1 and 37-41: each alone, to time two trees
+against each other in one call.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
@@ -2374,6 +2408,570 @@ def run_fit_flagship(torch, P, dev, card,
     return kernels, report
 
 
+# Float operations per processed step that the per-ray integrator needs:
+# od (2), the prefix add, exp, the weight (1 each), r, g, b (6), the depth
+# cursor and midpoint (5), w * mid (2). Its radiance adjoint adds dot (5),
+# dot * w and the suffix add (2), dL/dod (2), d_sigma (2), d_colour (3).
+K9F_OPS = 18
+K9B_OPS = K9F_OPS + 14
+FINE_FALLBACK_RAYS = 151552   # JAX's builder at 16 px over the fine grid
+
+
+DEPTH_ULPS = 4   # ulps of 1 that T and sum(w * mid) may differ by per ray
+
+
+def depth_error(depth, ref_depth, ref_opacity, t_far) -> tuple:
+    """(max |depth - ref| over every ray, the largest share of its bound
+    that a ray's difference takes, the ulps that the worst ray's
+    difference past 1e-4 stands for). Frames of two formulations (a
+    tile's running T against the windowed path's last P) differ in T and
+    in wd = sum(w * mid) by an ulp or two of 1; depth = wd / opacity turns
+    that into up to ulps * 2^-23 * t_far / opacity, past 1e-4 where the
+    opacity is small. So each ray is held to
+        1e-4 + DEPTH_ULPS * 2^-23 * t_far / max(opacity, OPACITY_EPS)."""
+    def flat(x):
+        return np.asarray(x.detach().cpu() if hasattr(x, "detach")
+                          else x, np.float64).reshape(-1)
+
+    diff = np.abs(flat(depth) - flat(ref_depth))
+    scale = 2.0 ** -23 * t_far / np.maximum(flat(ref_opacity), 1e-6)
+    share = diff / (TOL_DEPTH + DEPTH_ULPS * scale)
+    ulps = np.maximum(diff - TOL_DEPTH, 0.0) / scale
+    return float(diff.max()), float(share.max()), float(ulps.max())
+
+
+def device_breakdown(torch, fn, steps: int = 3, top: int = 8):
+    """``fn`` run ``steps`` times under ``torch.profiler`` after one warm
+    run: (kernel ms per step, wall ms per step, the ``top`` kernels by time
+    per step as (name, ms, launches)); kernel time over wall time is the
+    busy share (the profiler's own overhead is in the wall time). None
+    when the profiler records no kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    rows = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue    # a host operator: its kernels have rows of their own
+        own = getattr(ev, "self_device_time_total", None)
+        if own is None:
+            own = getattr(ev, "self_cuda_time_total", 0.0)
+        if own > 0:
+            rows.append((ev.key[:60], own / 1e3 / steps, ev.count // steps))
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[1])
+    return sum(r[1] for r in rows), wall, rows[:top]
+
+
+def window_counts(integrate_fused) -> dict:
+    return {"integrate": integrate_fused.integrate_forward.launches,
+            "integrate_bwd": integrate_fused.radiance_vjp.launches}
+
+
+def reset_window_counts(integrate_fused) -> None:
+    integrate_fused.integrate_forward.launches = 0
+    integrate_fused.radiance_vjp.launches = 0
+
+
+def window_group_inputs(torch, plan, field, sched):
+    """Per windowed group, the integrator's inputs as the path builds
+    them: (sigma, (r, g, b), dt, mask, t_origin), the field evaluated at
+    the group's window of samples."""
+    from dvren_tpu_torch.ops.raygen import generate_rays
+    from dvren_tpu_torch.ops.sampling import generate_samples
+    from dvren_tpu_torch.render.pipeline import eval_fields
+
+    out = []
+    with torch.no_grad():
+        for budget, ids, ke, jit in sched.groups:
+            rays = generate_rays(plan, ids=ids)
+            lat = generate_samples(plan, rays, jitter=jit, step_offset=ke,
+                                   num_steps=budget)
+            sigma, color = eval_fields(field, lat)
+            origin = plan.t_near + ke.to(torch.float32) * plan.sampling.dt
+            out.append((sigma.contiguous(),
+                        tuple(c.contiguous() for c in color),
+                        lat.dt.contiguous(), lat.mask.contiguous(),
+                        origin.contiguous()))
+    return out
+
+
+def processed_steps(torch, inputs) -> tuple[int, int]:
+    """(processed steps, rays that stop early: a live step left
+    unprocessed because T fell to the threshold), the work K9 needs."""
+    from dvren_tpu_torch.ops.integrate import STOP_THRESHOLD, scan_prefix
+
+    proc = early = 0
+    for sigma, _, dt, mask, _ in inputs:
+        od = torch.clamp_min(sigma * dt, 0.0) * mask
+        p = torch.exp(-scan_prefix(od))
+        tb = torch.cat([torch.ones_like(p[:, :1]), p[:, :-1]], dim=1)
+        done = mask & (tb <= STOP_THRESHOLD)
+        proc += int((mask & (tb > STOP_THRESHOLD)).sum())
+        early += int(done.any(dim=1).sum())
+    return proc, early
+
+
+def k9_against_twins(torch, inputs, gs, what, t_near, t_far):
+    """K9f and K9b against their twins on every group, at
+    tests/test_pallas_parity.py's bounds, and each repeat bit for bit.
+    Returns (max |K9f - twin|, max |K9b - twin|)."""
+    from dvren_tpu_torch.ops import integrate_fused as fz
+
+    f_err = b_err = 0.0
+    for (sigma, planes, dt, mask, origin), g in zip(inputs, gs):
+        out = fz.integrate_forward(sigma, planes, dt, mask, t_near, t_far,
+                                   origin)
+        again = fz.integrate_forward(sigma, planes, dt, mask, t_near, t_far,
+                                     origin)
+        ds, dc = fz.radiance_vjp(sigma, planes, dt, mask, g)
+        ds2, dc2 = fz.radiance_vjp(sigma, planes, dt, mask, g)
+        torch.cuda.synchronize()
+        want = fz.integrate_forward_plain(sigma, planes, dt, mask, t_near,
+                                          t_far, origin)
+        ps, pc = fz.radiance_vjp_plain(sigma, planes, dt, mask, g)
+        require(torch.equal(out, again) and torch.equal(ds, ds2)
+                and all(torch.equal(a, b) for a, b in zip(dc, dc2)),
+                f"K9 differs between two runs ({what})")
+        require(bool(torch.isfinite(out).all() and torch.isfinite(ds).all()),
+                f"K9 output not finite ({what})")
+
+        k = sigma.shape[1]
+        bounds = ((slice(0, 3), 1e-5, 1e-6), (slice(3, 5), 1e-5, 1e-7),
+                  (slice(5, 6), 1e-4 if k >= 128 else 1e-5, 1e-5))
+        for cols, rtol, atol in bounds:
+            a, b = out[:, cols], want[:, cols]
+            excess = (a - b).abs() - (atol + rtol * b.abs())
+            if float(excess.max()) > 0:
+                ray, col = divmod(int(excess.argmax()), a.shape[1])
+                raise AssertionError(
+                    f"K9f differs from its twin beyond tolerance ({what}): "
+                    f"ray {ray} column {cols.start + col}: kernel "
+                    f"{out[ray].tolist()}, twin {want[ray].tolist()}, "
+                    f"{int(mask[ray].sum())} live steps of {k}")
+        for a, b, atol in ((ds, ps, 1e-6),) + tuple(
+                (x, y, 1e-7) for x, y in zip(dc, pc)):
+            excess = (a - b).abs() - (atol + 1e-4 * b.abs())
+            if float(excess.max()) > 0:
+                ray, step = divmod(int(excess.argmax()), a.shape[1])
+                raise AssertionError(
+                    f"K9b differs from its twin beyond tolerance ({what}): "
+                    f"ray {ray} step {step}: kernel {float(a[ray, step])}, "
+                    f"twin {float(b[ray, step])}, sigma "
+                    f"{float(sigma[ray, step])}, {int(mask[ray].sum())} live "
+                    f"steps of {a.shape[1]}")
+        f_err = max(f_err, float((out - want).abs().max()))
+        b_err = max(b_err, float((ds - ps).abs().max()),
+                    *(float((a - b).abs().max()) for a, b in zip(dc, pc)))
+    return f_err, b_err
+
+
+def k9_times(torch, inputs, gs, t_near, t_far):
+    """(K9f ms, K9b ms, K9f twin ms, K9b twin ms) over every group."""
+    from dvren_tpu_torch.ops import integrate_fused as fz
+
+    def fwd(f):
+        return lambda: [f(s, pl, d, m, t_near, t_far, o)
+                        for s, pl, d, m, o in inputs]
+
+    def bwd(f):
+        return lambda: [f(s, pl, d, m, g)
+                        for (s, pl, d, m, _), g in zip(inputs, gs)]
+
+    return (cuda_ms(torch, fwd(fz.integrate_forward), 20),
+            cuda_ms(torch, bwd(fz.radiance_vjp), 20),
+            cuda_ms(torch, fwd(fz.integrate_forward_plain), 3, warmup=1),
+            cuda_ms(torch, bwd(fz.radiance_vjp_plain), 3, warmup=1))
+
+
+def k9_bounds(inputs, proc) -> tuple[dict, dict]:
+    """Bounds of K9f and K9b at these inputs: each processed step's
+    sigma, dt, colours and mask byte read once, the outputs written once
+    (K9f: 8 floats a ray; K9b: four (N, K) planes), and the operations
+    per processed step."""
+    n = sum(int(x[0].shape[0]) for x in inputs)
+    nk = sum(int(x[0].numel()) for x in inputs)
+    reads = proc * (5 * 4 + 1)
+    return (bound(reads + n * 4 + n * 8 * 4, proc * K9F_OPS),
+            bound(reads + n * 3 * 4 + nk * 4 * 4, proc * K9B_OPS))
+
+
+def run_window(torch, P, dev, card) -> tuple[list, dict]:
+    """Phases 37-41: the windowed path and the tiled schedule's windowed
+    fallback with K9f / K9b, the windowed and plain fit modes, and K1 / K2
+    in their 4 px supercell form."""
+    from dvren_tpu_torch.ops import (fused_tiles, integrate_fused,
+                                     packed_transpose)
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import tiled, windowed
+    from dvren_tpu_torch.render.pipeline import plan_jitter_table
+
+    counts = functools.partial(window_counts, integrate_fused)
+    reset = functools.partial(reset_window_counts, integrate_fused)
+    tcounts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    treset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    gen = torch.Generator(device=dev).manual_seed(37)
+    kernels, report = [], {}
+
+    # 37. K9f / K9b against their twins on the dense headline's windowed
+    # schedule, and on the same lattice with sigma x 10 (rays stop early)
+    plan, config = headline_scene(P)
+    field = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    t0 = time.perf_counter()
+    wsched = windowed.build_schedule(plan, field.bbox_min, field.bbox_max,
+                                     jitter=plan_jitter_table(plan),
+                                     device=dev)
+    wbuild_s = time.perf_counter() - t0
+    budgets = [g[0] for g in wsched.groups]
+    print(f"windowed headline schedule: {len(wsched.groups)} groups, budgets "
+          f"{budgets}, {wsched.windowed_samples} of "
+          f"{wsched.full_lattice_samples} lattice samples, skipped rays "
+          f"{wsched.skipped_rays}, build {wbuild_s:.3f} s", flush=True)
+    inputs = window_group_inputs(torch, plan, field, wsched)
+    gs = [torch.rand((x[0].shape[0], 3), generator=gen, device=dev) * 2 - 1
+          for x in inputs]
+    proc, early = processed_steps(torch, inputs)
+    span = (plan.t_near, plan.t_far)
+    errs = k9_against_twins(torch, inputs, gs, "headline", *span)
+    dense = [(s * 10.0, pl, d, m, o) for s, pl, d, m, o in inputs]
+    proc10, early10 = processed_steps(torch, dense)
+    errs10 = k9_against_twins(torch, dense, gs, "sigma x 10", *span)
+    print(f"K9f / K9b vs twins over {len(inputs)} groups: K9f {errs[0]:.3e}, "
+          f"K9b {errs[1]:.3e} ({proc} processed steps, {early} rays stop "
+          f"early); sigma x 10: K9f {errs10[0]:.3e}, K9b {errs10[1]:.3e} "
+          f"({proc10} processed steps, {early10} rays stop early); repeats "
+          f"equal", flush=True)
+    require(early10 > 0, "no ray stops early at sigma x 10")
+    times = k9_times(torch, inputs, gs, *span)
+    times10 = k9_times(torch, dense, gs, *span)
+    fb, bb = k9_bounds(inputs, proc)
+    fb10, bb10 = k9_bounds(dense, proc10)
+    print(f"K9 times ms [{card}]: K9f {times[0]:.4f} (twin {times[2]:.4f}, "
+          f"bound {fb['bound_ms']:.4f} by {fb['bound_by']}), K9b "
+          f"{times[1]:.4f} (twin {times[3]:.4f}, bound "
+          f"{bb['bound_ms']:.4f} by {bb['bound_by']}); sigma x 10: K9f "
+          f"{times10[0]:.4f} (bound {fb10['bound_ms']:.4f}), K9b "
+          f"{times10[1]:.4f} (bound "
+          f"{bb10['bound_ms']:.4f}); {len(inputs)} launches each", flush=True)
+
+    # 38. Renderer(use_window=True) on the dense headline: forward and a
+    # deterministic backward, K9f / K9b once per group
+    renderer = P.Renderer(P.Context.create(device="cuda"), plan,
+                          P.RenderOptions(use_window=True))
+    reset()
+    res = renderer.forward(field)
+    fwd_c = counts()
+    n_groups = len(renderer._window_schedule.groups)
+    print(f"windowed Renderer.forward: {res.stats.total_ms:.3f} ms (schedule "
+          f"included), launches {fwd_c}, notes {res.stats.notes}", flush=True)
+    require(fwd_c["integrate"] == n_groups and fwd_c["integrate_bwd"] == 0,
+            f"the windowed forward did not launch K9f once per group: "
+            f"{fwd_c}")
+    for key in ("image", "transmittance", "opacity", "depth"):
+        require(bool(np.isfinite(getattr(res, key)).all()),
+                f"windowed {key} not finite")
+    with torch.no_grad():
+        plain = windowed.render_windowed(plan, field,
+                                         renderer._window_schedule,
+                                         use_kernel=False)
+        ts, _ = tiled.build_tiled_schedule_auto(plan, field)
+        tframe = tiled.render_tiled(plan, field, ts.to(dev))
+    err, depth, hit = planes_errors(res, plain)
+    t_err, t_depth_all, t_hit = planes_errors(res, tframe)
+    t_depth, t_share, t_ulps = depth_error(res.depth, tframe.depth,
+                                           tframe.opacity, plan.t_far)
+    print(f"windowed frame vs the plain path on the card: planes {err:.3e}, "
+          f"depth {depth:.3e}, hitmask {hit}; vs the tiled frame (phase 5's "
+          f"path): planes {t_err:.3e}, depth {t_depth:.3e} over every ray, "
+          f"{t_share:.3f} of the largest share of its bound (1e-4 + "
+          f"{DEPTH_ULPS} ulps x t_far / opacity) a ray takes, {t_ulps:.3f} "
+          f"ulps past 1e-4 at most; hitmask {t_hit}", flush=True)
+    require(err <= TOL and depth <= TOL_DEPTH and hit,
+            "the windowed frame differs from the plain path")
+    require(t_err <= 1e-5 and t_share <= 1.0 and t_hit,
+            "the windowed frame differs from the tiled frame")
+    dl = (torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2
+          - 1).cpu().numpy()
+    reset()
+    torch.use_deterministic_algorithms(True)
+    try:
+        g1 = renderer.backward(field, dl)
+        bwd_c = counts()
+        g2 = renderer.backward(field, dl)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    print(f"windowed Renderer.backward launches {bwd_c} (K9f too: the "
+          f"backward replays the forward)", flush=True)
+    require(bwd_c["integrate_bwd"] == n_groups,
+            "the windowed backward did not launch K9b once per group")
+    for key in ("sigma", "color", "camera", "camera_k"):
+        x = getattr(g1, key)
+        require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
+                f"windowed backward {key} not finite or zero")
+        require(np.array_equal(x, getattr(g2, key)),
+                f"windowed backward {key} differs between two calls")
+    sched_w = renderer._window_schedule
+    with torch.no_grad():
+        frame_ms = cuda_ms(torch, lambda: windowed.render_windowed(
+            plan, field, sched_w), 10, warmup=2)
+    bwd_ms = cuda_ms(torch, lambda: renderer.backward(field, dl), 5,
+                     warmup=1)
+    print(f"windowed headline times ms [{card}]: frame {frame_ms:.4f} = "
+          f"{plan.ray_count / frame_ms / 1e3:.3f} Mrays/s, Renderer.backward "
+          f"{bwd_ms:.4f} (host copies included); two deterministic "
+          f"backwards equal", flush=True)
+    kernels += [
+        {"name": "integrate", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/integrate.cu",
+         "replaces": "dvren_tpu/ops/integrate_pallas.py:62",
+         "launches": fwd_c["integrate"], "max_abs_err": max(errs[0],
+                                                            errs10[0]),
+         "ms": times[0], "plain_ms": times[2], **fb},
+        {"name": "integrate_bwd", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/integrate_bwd.cu",
+         "replaces": "dvren_tpu/ops/integrate_pallas.py:105",
+         "launches": bwd_c["integrate_bwd"],
+         "max_abs_err": max(errs[1], errs10[1]),
+         "ms": times[1], "plain_ms": times[3], **bb}]
+    report["window_headline"] = {
+        "groups": n_groups, "budgets": budgets,
+        "windowed_samples": wsched.windowed_samples,
+        "processed": proc, "early": early, "processed_x10": proc10,
+        "early_x10": early10, "k9f_ms": times[0], "k9b_ms": times[1],
+        "k9f_plain_ms": times[2], "k9b_plain_ms": times[3],
+        "k9f_ms_x10": times10[0], "k9b_ms_x10": times10[1],
+        "k9f_bound_ms": fb["bound_ms"], "k9b_bound_ms": bb["bound_ms"],
+        "frame_ms": frame_ms, "backward_ms": bwd_ms, "vs_plain": err,
+        "vs_tiled": t_err, "vs_tiled_depth": t_depth,
+        "vs_tiled_depth_share": t_share, "build_s": wbuild_s}
+
+    # 39. the fine grid at 16 px cells: most rays fall back
+    fplan, fconfig = headline_scene(P, grid_n=128, max_steps=256)
+    ffield = P.DenseGridField.create(fconfig, device=dev).requires_grad_(False)
+    t0 = time.perf_counter()
+    fsched = tiled.build_tiled_schedule(fplan, ffield, tile_px=16).to(dev)
+    fbuild_s = time.perf_counter() - t0
+    n_fb = len(fsched.fallback.groups) if fsched.fallback else 0
+    print(f"fine grid at 16 px cells: {schedule_line(fsched, fbuild_s)}; "
+          f"{fsched.fallback_rays} of {fsched.total_rays} rays fall back "
+          f"(JAX's builder: {FINE_FALLBACK_RAYS}) in {n_fb} windowed groups",
+          flush=True)
+    require(fsched.fallback_rays == FINE_FALLBACK_RAYS and n_fb > 0,
+            "the fine grid at 16 px does not fall back as JAX's builder does")
+    treset()
+    reset()
+    with torch.no_grad():
+        fframe = tiled.render_tiled(fplan, ffield, fsched)
+    c_t, c_w = tcounts(), counts()
+    require(c_t["fused_tiles"] == len(fsched.groups)
+            and c_w["integrate"] == n_fb,
+            f"the fallback frame launched {c_t} {c_w}")
+    with torch.no_grad():
+        ssched = tiled.build_tiled_schedule(fplan, ffield, tile_px=16,
+                                            cell_scale=2).to(dev)
+        sframe = tiled.render_tiled(fplan, ffield, ssched)
+    f_err = max(float((getattr(fframe, k) - getattr(sframe, k)).abs().max())
+                for k in ("image", "transmittance", "opacity"))
+    f_depth, f_share, f_ulps = depth_error(fframe.depth, sframe.depth,
+                                           sframe.opacity, fplan.t_far)
+    print(f"fallback frame vs phase 28's 16 px supercell frame: planes "
+          f"{f_err:.3e}, depth {f_depth:.3e} over every ray, {f_share:.3f} "
+          f"of the largest share of its bound (1e-4 + {DEPTH_ULPS} ulps x "
+          f"t_far / opacity) a ray takes, {f_ulps:.3f} ulps past 1e-4 at "
+          f"most; launches {c_t['fused_tiles']} K1, {c_w['integrate']} K9f",
+          flush=True)
+    require(f_err <= 1e-5 and f_share <= 1.0,
+            "the fallback frame differs from the supercell frame")
+    dl_img = torch.rand((fplan.height, fplan.width, 3), generator=gen,
+                        device=dev) * 2 - 1
+
+    def fgrads():
+        leaf = ffield.with_params(ffield.sigma.detach().clone(),
+                                  ffield.color.detach().clone())
+        img = tiled.render_tiled(fplan, leaf, fsched).image
+        return torch.autograd.grad(torch.sum(img * dl_img),
+                                   (leaf.sigma, leaf.color))
+
+    treset()
+    reset()
+    torch.use_deterministic_algorithms(True)
+    try:
+        ga = fgrads()
+        b_t, b_w = tcounts(), counts()
+        gb_ = fgrads()
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(b_t["fused_tiles_bwd"] == len(fsched.groups)
+            and b_w["integrate_bwd"] == n_fb,
+            f"the fallback backward launched {b_t} {b_w}")
+    require(all(torch.equal(a, b) for a, b in zip(ga, gb_))
+            and all(bool(torch.isfinite(a).all()) for a in ga),
+            "the fallback backward differs between two runs")
+    n_values = fplan.height * fplan.width * 3
+    student = P.DenseGridField.create(fconfig, device=dev)
+    opt = torch.optim.SGD(student.parameters(), lr=LR * n_values)
+    target = torch.zeros((fplan.height, fplan.width, 3), device=dev)
+
+    def fstep():
+        opt.zero_grad(set_to_none=True)
+        loss = mse(tiled.render_tiled(fplan, student, fsched).image, target)
+        loss.backward()
+        opt.step()
+        return loss
+
+    torch.cuda.reset_peak_memory_stats()
+    flosses = [float(fstep().detach()) for _ in range(4)]
+    fpeak = torch.cuda.max_memory_allocated() / 2 ** 20
+    require(all(np.isfinite(flosses))
+            and all(b < a for a, b in zip(flosses, flosses[1:])),
+            "the fallback training loss does not fall")
+    with torch.no_grad():
+        fframe_ms = cuda_ms(torch, lambda: tiled.render_tiled(
+            fplan, ffield, fsched), 5, warmup=1)
+    fstep_ms = cuda_ms(torch, fstep, 3, warmup=1)
+    print(f"fallback: backward K2 x {b_t['fused_tiles_bwd']}, K9b x "
+          f"{b_w['integrate_bwd']}, two deterministic runs equal; 4 SGD steps "
+          f"at lr {LR} x {n_values}: loss {flosses}; times ms [{card}]: frame "
+          f"{fframe_ms:.4f}, SGD step {fstep_ms:.4f}; peak device memory "
+          f"{fpeak:.1f} MiB", flush=True)
+    report["fallback_16px"] = {
+        "fallback_rays": fsched.fallback_rays, "fallback_groups": n_fb,
+        "tile_groups": len(fsched.groups), "build_s": fbuild_s,
+        "vs_supercell": f_err, "vs_supercell_depth": f_depth,
+        "vs_supercell_depth_share": f_share, "frame_ms": fframe_ms,
+        "step_ms": fstep_ms, "losses": flosses, "peak_mib": fpeak}
+    del fsched, ssched, ga, gb_, student, opt
+
+    # 40. fit_dense_grid at the flagship in the windowed mode, then plain
+    plans, vconfig = flagship_views(P)
+    truth = P.DenseGridField.create(vconfig, device=dev).requires_grad_(False)
+    cams = [P.CameraConfig(c2w=pv.camera.c2w) for pv in plans]
+    frames = []
+    for pv in plans:
+        s, _ = tiled.build_tiled_schedule_auto(pv, truth)
+        with torch.no_grad():
+            frames.append(tiled.render_tiled(pv, truth, s.to(dev)).image)
+    targets = torch.stack(frames)
+    init = truth.with_params(torch.full_like(truth.sigma, 0.5),
+                             torch.full_like(truth.color, 0.5))
+    stack = windowed.build_stack_schedule(plans, truth.bbox_min,
+                                          truth.bbox_max, device=dev)
+    n_stack = len(stack.groups)
+    cfg = fit.FitConfig(learning_rate=FIT_LR, steps=FLAGSHIP_STEPS,
+                        target_psnr=FLAGSHIP_PSNR, log_every=100,
+                        sync_every=FLAGSHIP_SYNC)
+    reset()
+    res_w = fit.fit_dense_grid(plans[0], init, cams, targets, cfg,
+                               mode="windowed")
+    c = counts()
+    reached = next((i + 1 for i, p in enumerate(res_w.psnr_history)
+                    if p >= FLAGSHIP_PSNR), None)
+    print(f"fit_dense_grid(mode='windowed') at the flagship: {n_stack} stack "
+          f"groups, {res_w.steps_run} steps, PSNR {res_w.psnr_history[0]:.4f} "
+          f"-> {res_w.psnr_history[-1]:.4f} dB, PSNR {FLAGSHIP_PSNR} first at "
+          f"step {reached}, reached {res_w.reached_target}; schedule_build_s "
+          f"{res_w.schedule_build_s:.4f}, first_step_s "
+          f"{res_w.first_step_s:.4f}, steady_step_ms "
+          f"{res_w.steady_step_ms:.4f}, wall_clock_s "
+          f"{res_w.wall_clock_s:.4f} [{card}]; launches {c}", flush=True)
+    require(res_w.mode == "windowed", f"the fit ran {res_w.mode}")
+    require(c["integrate_bwd"] == n_stack * res_w.steps_run
+            and c["integrate"] >= n_stack * res_w.steps_run,
+            f"the windowed fit did not launch K9f / K9b once per stack group "
+            f"per step: {c}")
+    require(all(np.isfinite(res_w.loss_history))
+            and res_w.loss_history[-1] < res_w.loss_history[0],
+            "the windowed fit loss does not fall")
+    student = init.with_params(init.sigma.detach().clone(),
+                               init.color.detach().clone())
+    adam = torch.optim.Adam(student.parameters(), lr=FIT_LR,
+                            betas=(0.9, 0.999), eps=1e-8)
+    wstep = fit.make_train_step_scheduled(
+        plans[0], cams, student, adam, mode="windowed",
+        views=fit._scheduled_views(plans[0], cams, student, "windowed"))
+    breakdown = device_breakdown(torch, lambda: wstep(student, targets))
+    if breakdown is None:
+        print("windowed fit step: the profiler recorded no device time",
+              flush=True)
+    else:
+        dev_ms, wall_ms, rows = breakdown
+        print(f"windowed fit step under torch.profiler [{card}]: kernels "
+              f"{dev_ms:.4f} ms of {wall_ms:.4f} ms wall per step (busy "
+              f"share {dev_ms / wall_ms:.3f}); kernels by time per step: "
+              + "; ".join(f"{name} {ms:.4f} ms x {n}"
+                          for name, ms, n in rows), flush=True)
+    reset()
+    res_p = fit.fit_dense_grid(plans[0], init, cams, targets,
+                               fit.FitConfig(learning_rate=FIT_LR, steps=10,
+                                             target_psnr=None),
+                               mode="plain")
+    cp = counts()
+    print(f"fit_dense_grid(mode='plain'): 10 steps, loss "
+          f"{res_p.loss_history[0]:.6e} -> {res_p.loss_history[-1]:.6e}, "
+          f"steady_step_ms {res_p.steady_step_ms:.4f} [{card}]; launches "
+          f"{cp}", flush=True)
+    require(res_p.mode == "plain"
+            and res_p.loss_history[-1] < res_p.loss_history[0],
+            "the plain fit loss does not fall")
+    require(cp["integrate"] == 10 * len(plans)
+            and cp["integrate_bwd"] == 10 * len(plans),
+            f"the plain fit did not launch K9 once per view per step: {cp}")
+    report["fit_windowed"] = {
+        "stack_groups": n_stack, "steps_run": res_w.steps_run,
+        "psnr_first": res_w.psnr_history[0],
+        "psnr_last": res_w.psnr_history[-1], "psnr_target_step": reached,
+        "schedule_build_s": res_w.schedule_build_s,
+        "first_step_s": res_w.first_step_s,
+        "steady_step_ms": res_w.steady_step_ms,
+        "wall_clock_s": res_w.wall_clock_s,
+        "plain_losses": [res_p.loss_history[0], res_p.loss_history[-1]],
+        "plain_steady_step_ms": res_p.steady_step_ms,
+        "step_device_breakdown": breakdown}
+
+    # 41. K1 and K2 in their supercell, subs 16 form: view 0 at 4 px
+    t0 = time.perf_counter()
+    s4 = tiled.build_tiled_schedule(plans[0], truth, tile_px=4,
+                                    cell_scale=2).to(dev)
+    s4_build = time.perf_counter() - t0
+    print(f"flagship view 0, 4 px supercells: {schedule_line(s4, s4_build)}",
+          flush=True)
+    student4 = truth.with_params(truth.sigma.detach().clone(),
+                                 truth.color.detach().clone())
+    treset()
+    tiled.render_tiled(plans[0], student4, s4).image.sum().backward()
+    c4 = tcounts()
+    args = variant_args(torch, plans[0], truth, s4)
+    errs4 = twins_bit_equal(torch, args, gen, SUBSET)
+    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
+           for a in args]
+    times4 = variant_times(torch, args, gss)
+    print(f"K1 / K2 supercell subs 16: == twins bit for bit on the first "
+          f"{SUBSET} tiles of {len(args)} groups; times ms [{card}]: K1 "
+          f"{times4[0]:.4f} (plain {times4[2]:.4f}), K2 {times4[1]:.4f} "
+          f"(plain {times4[3]:.4f}), one launch per group", flush=True)
+    require(c4["fused_tiles"] == len(args)
+            and c4["fused_tiles_bwd"] == len(args),
+            f"a 4 px supercell frame and backward launched {c4}")
+    kernels.extend(variant_kernels(
+        "supercell_4px", args, gss, s4,
+        (c4["fused_tiles"], c4["fused_tiles_bwd"]), errs4, times4))
+    report["supercell_4px"] = {"groups": len(args), "k1_ms": times4[0],
+                               "k2_ms": times4[1], "k1_plain_ms": times4[2],
+                               "k2_plain_ms": times4[3]}
+    return kernels, report
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -2409,6 +3007,13 @@ def run(only: str = "all") -> dict:
         grid_kernels, grid_report = run_grid(torch, P, dev)
         print(json.dumps({"kernels": grid_kernels}), flush=True)
         print(json.dumps({**grid_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "window":
+        win_kernels, win_report = run_window(torch, P, dev, card)
+        elapsed("37-41")
+        print(json.dumps({"kernels": win_kernels}), flush=True)
+        print(json.dumps({**win_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
 
@@ -2804,6 +3409,9 @@ def run(only: str = "all") -> dict:
         torch, P, dev, card, sub_report["fit_flagship"]["adam_step_ms"])
     kernels += fit_kernels
     elapsed("36")
+    win_kernels, hash_report["window"] = run_window(torch, P, dev, card)
+    kernels += win_kernels
+    elapsed("37-41")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -2833,10 +3441,11 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("all", "dense", "grid"), default="all",
+        "--only", choices=("all", "dense", "grid", "window"), default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'grid': phase "
-             "1 and phases 16-20 (the grid headline); each for timing two "
-             "trees against each other in one call")
+             "1 and phases 16-20 (the grid headline); 'window': phase 1 and "
+             "phases 37-41 (the windowed path, its fallback and K9); each "
+             "for timing two trees against each other in one call")
     args = parser.parse_args()
     try:
         import torch

@@ -74,6 +74,8 @@ _SIGNATURES = {
                                + [_I] * 8
                                + [_F] * 5 + [_F] * 9
                                + [_P, _P], _I),
+    "dvt_integrate_forward": ([_P] * 8 + [_I, _I] + [_F] * 4 + [_P], _I),
+    "dvt_integrate_backward": ([_P] * 11 + [_I, _I, _F, _P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -5,9 +5,9 @@ Counterpart of ``dvren_tpu/fields/dense_grid.py``. The field is an
 policy, interpolation mode and packed-table dtype are plain metadata.
 The constructors put the grid on CUDA unless the caller names a device
 (``device="cpu"`` on the CPU), as :class:`~dvren_tpu_torch.Context` does.
-Point evaluation and gradient scatter come with the general render paths
-(ROADMAP Queue 1 item 11); the tiled renderer reads ``sigma`` and
-``color`` whole.
+The tiled renderer reads ``sigma`` and ``color`` whole; the per-ray paths
+evaluate the field at sample positions (``packed_eval_planes`` for a
+trilinear grid, ``sigma_at_planes`` / ``color_at_planes`` otherwise).
 """
 
 from __future__ import annotations
@@ -21,6 +21,7 @@ from torch import nn
 from dvren_tpu_torch.core.context import resolve_device
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy
 from dvren_tpu_torch.core.status import check
+from dvren_tpu_torch.ops import grid as grid_ops
 from dvren_tpu_torch.ops.grid import table_dtype
 
 
@@ -143,3 +144,33 @@ class DenseGridField(nn.Module):
     @property
     def voxel_count(self) -> int:
         return int(self.sigma.numel())
+
+    # -- evaluation (the field protocol of the per-ray paths) -----------------
+
+    def sigma_at_planes(self, px, py, pz) -> torch.Tensor:
+        """Density at coordinate planes; differentiable."""
+        return grid_ops.eval_grid_planes(self.sigma, px, py, pz,
+                                         self.bbox_min, self.bbox_max,
+                                         self.interp, self.oob)
+
+    def color_at_planes(self, px, py, pz) -> tuple:
+        """(r, g, b) planes at coordinate planes; differentiable."""
+        return grid_ops.eval_grid_planes(self.color, px, py, pz,
+                                         self.bbox_min, self.bbox_max,
+                                         self.interp, self.oob)
+
+    @property
+    def supports_packed_eval(self) -> bool:
+        """The packed-stencil route needs trilinear and all dims >= 2."""
+        return (self.interp == InterpMode.LINEAR
+                and min(self.grid_shape) >= 2)
+
+    def packed_eval_planes(self, px, py, pz) -> tuple:
+        """(sigma, r, g, b) planes through one packed-stencil row per
+        sample, the stencil built in ``packed_dtype`` from the current
+        parameters (autograd reaches sigma and color through it)."""
+        packed = grid_ops.build_packed_stencil(
+            self.sigma, self.color, table_dtype(self.packed_dtype))
+        return grid_ops.eval_packed_trilinear(
+            packed, self.grid_shape, px, py, pz, self.bbox_min,
+            self.bbox_max, self.oob)

@@ -13,8 +13,9 @@ on the host (:func:`dvren_tpu_torch.render.tiled.build_tiled_schedule`).
 The field is an ``nn.Module``: ``bricks`` (float32, bfloat16 or float16)
 is its parameter, the occupancy a buffer (topology: static). The
 constructors put both on CUDA unless the caller names a device.
-Point evaluation (``packed_eval_planes``) comes with the streamed
-pipeline (ROADMAP Queue 1 item 11).
+:meth:`SparseGridField.packed_eval_planes` evaluates the field at sample
+positions for the per-ray paths: the occupancy lookup, then the brick-row
+gather.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from torch import nn
 from dvren_tpu_torch.core.context import resolve_device
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy
 from dvren_tpu_torch.core.status import check
+from dvren_tpu_torch.ops import grid as grid_ops
 from dvren_tpu_torch.ops.grid import NCH, TABLE_DTYPES, table_dtype
 
 BRICK = 8
@@ -175,3 +177,34 @@ class SparseGridField(nn.Module):
     def memory_bytes(self) -> int:
         return int(self.bricks.numel() * self.bricks.element_size()
                    + self.occupancy.numel() * 4)
+
+    # -- evaluation (the field protocol of the per-ray paths) -----------------
+
+    @property
+    def supports_packed_eval(self) -> bool:
+        return True
+
+    def packed_eval_planes(self, px, py, pz) -> tuple:
+        """(sigma, r, g, b) planes: each sample's base cell through the
+        occupancy to its brick row (slot * BRICK^3 + brick-local cell),
+        then one row gather; differentiable in ``bricks``."""
+        shape = px.shape
+        (ix, iy, iz), w = grid_ops.trilinear_fractions(
+            self.grid_shape, px, py, pz, self.bbox_min, self.bbox_max,
+            self.oob)
+        _, by, bx = (int(v) for v in self.occupancy.shape)
+        b_idx = ((iz // BRICK) * by + (iy // BRICK)) * bx + (ix // BRICK)
+        slot = torch.index_select(self.occupancy.reshape(-1), 0,
+                                  b_idx).to(torch.int64)
+        local = ((iz % BRICK) * BRICK + (iy % BRICK)) * BRICK + (ix % BRICK)
+        cube = grid_ops.take_rows(self.bricks.reshape(-1, NCH),
+                                  slot * (BRICK ** 3) + local).to(
+                                      torch.float32)
+        outs = torch.sum(w[:, None, :] * cube.reshape(-1, 4, 8), dim=2)
+        return tuple(outs[:, c].reshape(shape) for c in range(4))
+
+    def sigma_at_planes(self, px, py, pz) -> torch.Tensor:
+        return self.packed_eval_planes(px, py, pz)[0]
+
+    def color_at_planes(self, px, py, pz) -> tuple:
+        return self.packed_eval_planes(px, py, pz)[1:]

@@ -18,6 +18,7 @@ from dataclasses import dataclass
 
 import torch
 
+from dvren_tpu_torch.core.context import resolve_device
 from dvren_tpu_torch.core.plan import CameraModel, Plan
 
 _FLT_MIN = 1.1754943508222875e-38  # std::numeric_limits<float>::min()
@@ -64,11 +65,15 @@ def generate_rays(plan: Plan, k: torch.Tensor | None = None,
     contiguous block of rays; entries past the ROI are degenerate padding
     rays (t_far == t_near, pixel id past the frame). ``ids`` (integer
     tensor of global ray indices) overrides both. The rays live on the
-    device of ``ids``, else of ``k`` / ``c2w``, else ``device``."""
+    device of ``ids``, else of ``k`` / ``c2w`` / ``ortho_scale``, else on
+    ``device``, which defaults as :class:`~dvren_tpu_torch.Context`'s does:
+    CUDA unless the caller names ``"cpu"``."""
     for x in (ids, k, c2w, ortho_scale):
         if isinstance(x, torch.Tensor):
             device = x.device
             break
+    else:
+        device = resolve_device(device)
     dk, dc2w, ds = camera_arrays(plan, device)
     k = dk if k is None else k
     c2w = dc2w if c2w is None else c2w

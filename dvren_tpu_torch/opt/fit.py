@@ -2,33 +2,31 @@
 hash-MLP fit.
 
 Counterpart of ``dvren_tpu/opt/fit.py``. A step is plain PyTorch: render
-through autograd of a fused tiled path, ``loss.backward()``, an optimizer
-step on the field's parameters. :func:`fit_dense_grid` fits a dense
-grid's sigma and colour to target views with ``torch.optim.Adam`` over
-one merged multi-view schedule (:func:`_scheduled_views`: K1 and K2 once
-per merged group per step); :func:`fit_hash_mlp` fits a hash-MLP field
-through K7f / K7b. The JAX package's windowed and plain fit modes wait
-for the windowed path and the lattice integrator (ROADMAP Queue 1 items
-11 and 4). JAX runs ``sync_every`` steps in one ``lax.scan``; here the
-steps run one by one and the losses are copied to the host every
+through autograd, ``loss.backward()``, an optimizer step on the field's
+parameters. :func:`fit_dense_grid` fits a dense grid's sigma and colour
+to target views with ``torch.optim.Adam`` in one of three modes: "tiled",
+one merged multi-view tile schedule (:func:`_scheduled_views`: K1 and K2
+once per merged group per step); "windowed", one merged multi-view
+windowed schedule (K9f and K9b once per stack group per step); "plain",
+the dense lattice of each view through ``pipeline.render`` (K9f / K9b
+once per view). :func:`fit_hash_mlp` fits a hash-MLP field through K7f /
+K7b. JAX runs ``sync_every`` steps in one ``lax.scan``; here the steps
+run one by one and the losses are copied to the host every
 ``sync_every`` steps.
 """
 
 from __future__ import annotations
 
+import functools
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field as dc_field, replace
 from typing import Callable, Sequence
 
+import numpy as np
 import torch
 
 from dvren_tpu_torch.core.plan import CameraConfig, InterpMode, OobPolicy, Plan
-
-_TODO_WINDOWED = ("the windowed fit mode, which needs the windowed path "
-                  "(ROADMAP Queue 1 item 11)")
-_TODO_PLAIN = ("the plain fit mode, which needs the lattice integrator "
-               "(ROADMAP Queue 1 item 4)")
 
 
 @dataclass
@@ -55,7 +53,8 @@ class FitResult:
     first_step_s: float = 0.0      # the first step, kernel build included
     steady_step_ms: float = 0.0    # mean of the remaining steps
     reached_target: bool = False
-    mode: str = ""                 # the schedule mode the fit ran
+    mode: str = ""                 # the mode the fit ran (auto may
+    #                                demote "tiled" to "windowed")
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -154,24 +153,30 @@ def _scheduled_views(plan: Plan, cameras: Sequence[CameraConfig], field,
                      mode: str):
     """(per-view plans, the merged schedule on the field's device,
     ``render_stack(f, merged) -> (V, H, W, 3)``), as ``dvren_tpu`` builds
-    them for ``mode="tiled"``: view 0 through the cascade
+    them. ``mode="tiled"``: view 0 through the cascade
     (:func:`tiled.build_tiled_schedule_auto`) with uniform shapes, the
     other views at view 0's tile_px and cell_scale, every view rebuilt at
     the global (nc, nb) maxima when their shapes differ (so the merge is
     one group), the host builds in a thread pool, then one merge and one
-    upload. "windowed" raises ``NotImplementedError`` (item 11)."""
+    upload. ``mode="windowed"``: one windowed schedule over every view's
+    rays (:func:`windowed.build_stack_schedule`), rendered by
+    :func:`windowed.render_windowed_stack`."""
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
     from dvren_tpu_torch.render.tiled import (build_tiled_schedule,
                                               build_tiled_schedule_auto,
                                               merge_view_schedules,
                                               render_tiled_stack)
+    from dvren_tpu_torch.render.windowed import (build_stack_schedule,
+                                                 render_windowed_stack)
 
-    if mode == "windowed":
-        raise NotImplementedError(_TODO_WINDOWED)
-    if mode != "tiled":
-        raise ValueError(f"unknown scheduled mode: {mode}")
     plans = view_plans(plan, cameras)
     jitter = plan_jitter_table(plan)
+    if mode == "windowed":
+        stack = build_stack_schedule(plans, field.bbox_min, field.bbox_max,
+                                     jitter=jitter, device=field.device)
+        return plans, stack, functools.partial(render_windowed_stack, plan)
+    if mode != "tiled":
+        raise ValueError(f"unknown scheduled mode: {mode}")
     s0, _ = build_tiled_schedule_auto(plans[0], field, jitter=jitter,
                                       quantize="uniform")
 
@@ -223,6 +228,36 @@ def make_train_step_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
     return step
 
 
+def make_train_step(plan: Plan, cameras: Sequence[CameraConfig], field,
+                    optimizer, sigma_min: float | None = 0.0):
+    """The plain training step: each view's whole lattice through
+    :func:`dvren_tpu_torch.render.pipeline.render` at its ``c2w`` (the
+    port's per-ray integrator), the MSE over the (V, H, W, 3) stack,
+    ``optimizer``'s step, then the projection unless ``sigma_min`` is
+    None (``dvren_tpu``'s ``make_train_step``)."""
+    from dvren_tpu_torch.render.pipeline import plan_jitter_table, render
+
+    c2ws = [torch.tensor(c.c2w, dtype=torch.float32,
+                         device=field.device).reshape(3, 4)
+            for c in cameras]
+    jitter = plan_jitter_table(plan)
+    if jitter is not None:
+        jitter = torch.from_numpy(jitter.copy()).to(field.device)
+
+    def step(f, targets):
+        optimizer.zero_grad(set_to_none=True)
+        pred = torch.stack([render(plan, f, c2w=c2w, jitter=jitter)
+                            .planes.image for c2w in c2ws])
+        loss = mse(pred, targets)
+        loss.backward()
+        optimizer.step()
+        if sigma_min is not None:
+            _project(f, sigma_min)
+        return loss.detach()
+
+    return step
+
+
 def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
                    targets, config: FitConfig | None = None,
                    checkpoint_cb: Callable | None = None,
@@ -230,23 +265,23 @@ def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
     """Fit a DenseGridField's sigma and colour to target views (V, H, W, 3)
     with Adam (optax's defaults: b1 0.9, b2 0.999, eps 1e-8).
 
-    ``mode``: None (auto: "tiled" for a trilinear OOB_ZERO grid, unless
-    the merged schedule's table slots, weighted by row width, outnumber
-    the views' sample lattice: then the JAX package takes the windowed
-    replay) or "tiled". The windowed and plain modes, and an auto choice
-    of either, raise ``NotImplementedError`` (items 11 and 4). The steps,
-    sync points and checkpoints run as :func:`_run_steps` says. The input
-    field is left as it is; the fitted one is ``result.field``."""
+    ``mode``: None (auto, as the JAX package picks: "tiled" for a
+    trilinear OOB_ZERO grid, demoted to "windowed" when the merged
+    schedule's table slots, weighted by row width, outnumber the views'
+    sample lattice; "windowed" for another OOB_ZERO grid; "plain"
+    otherwise), or "tiled", "windowed" or "plain". ``result.mode`` is the
+    mode that ran. The steps, sync points and checkpoints run as
+    :func:`_run_steps` says. The input field is left as it is; the fitted
+    one is ``result.field``."""
     config = config or FitConfig()
     auto = mode is None
     if auto:
         mode = scheduled_mode_for(field) or "plain"
-    if mode == "plain":
-        raise NotImplementedError(_TODO_PLAIN)
     dev = field.device
     t_build0 = time.perf_counter()
-    views = _scheduled_views(plan, cameras, field, mode)
-    if auto:
+    views = (_scheduled_views(plan, cameras, field, mode)
+             if mode in ("tiled", "windowed") else None)
+    if auto and mode == "tiled":
         # the JAX fit's table-economy check: slot traffic in cell-stencil
         # equivalents (a supercell slot carries 108 values, a cell slot
         # 32) against the views' full sample lattice
@@ -256,17 +291,23 @@ def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
         lattice = sum(int(p.ray_count) * int(p.sampling.max_steps)
                       for p in views[0])
         if slots > lattice:
-            raise NotImplementedError(
-                f"the auto mode chose {_TODO_WINDOWED}: {slots:.0f} weighted "
-                f"table slots against a {lattice}-sample lattice")
+            mode = "windowed"
+            views = _scheduled_views(plan, cameras, field, mode)
     trained = field.with_params(field.sigma.detach().clone(),
                                 field.color.detach().clone())
     optimizer = torch.optim.Adam(trained.parameters(),
                                  lr=config.learning_rate,
                                  betas=(0.9, 0.999), eps=1e-8)
-    step = make_train_step_scheduled(plan, cameras, trained, optimizer,
-                                     mode=mode, sigma_min=config.sigma_min,
-                                     views=views)
+    if mode == "plain":
+        step = make_train_step(plan, cameras, trained, optimizer,
+                               sigma_min=config.sigma_min)
+    else:
+        step = make_train_step_scheduled(plan, cameras, trained, optimizer,
+                                         mode=mode,
+                                         sigma_min=config.sigma_min,
+                                         views=views)
+    if not isinstance(targets, torch.Tensor):
+        targets = np.array(targets, np.float32)     # a writable copy
     targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
     result = FitResult(field=field, mode=mode)
     result.schedule_build_s = time.perf_counter() - t_build0

@@ -1,6 +1,7 @@
 """Renderer: the plan-bound entry point of the port.
 
-Counterpart of ``dvren_tpu/render/renderer.py`` on its two tiled paths.
+Counterpart of ``dvren_tpu/render/renderer.py`` on its tiled and windowed
+paths.
 On a dense grid or a sparse brick field, :meth:`Renderer.forward` builds
 the tile schedule by ``build_tiled_schedule_auto``'s cascade (16, 8 or
 4 px tiles, cell or supercell tables) once per (field bbox, packed
@@ -16,16 +17,25 @@ differentiates that replay for
 grid). The forward's stats notes count the launches of K1
 (``fused_tiles``), K3 (``packed_table``) and K5a (``packed_table16``);
 K2, K4 and K5b (``packed_table16_bwd``) launch in the backward.
+A tile schedule whose rays still overflow after the cascade renders them
+through its windowed fallback (K9f per fallback group; K9b in the
+backward); in the auto mode, when more than half the rays fall back, the
+forward takes the windowed path instead (the note
+``tiled_demoted_to_windowed``), as the JAX Renderer does.
+``RenderOptions(use_window=True)`` takes the windowed path
+(:mod:`dvren_tpu_torch.render.windowed`: a schedule per field bbox, then
+per group the field at the window's samples and K9f), and its backward
+differentiates that replay in the grid and the camera (K9b per group).
 On a hash-MLP field, the forward builds the frame's hash schedule once
 per plan and renders it with one K7f launch (the backward refuses: hash
 fields train through autograd of ``render_hash_tiled`` or
 ``opt.fit.fit_hash_mlp``).
 
 Every other mode of the JAX Renderer raises ``NotImplementedError``
-naming its ROADMAP item: override rays, windowed, streamed, fused and
-staged paths, and graph capture. Unlike the JAX package, which picks the
-tiled paths by default only on a TPU, ``use_tiles=None`` picks them on a
-CUDA context.
+naming its ROADMAP item: override rays, the streamed, fused and staged
+paths, and graph capture. Unlike the JAX package, which picks the tiled
+paths by default only on a TPU, ``use_tiles=None`` picks them on a CUDA
+context.
 """
 
 from __future__ import annotations
@@ -40,21 +50,23 @@ import torch
 from dvren_tpu_torch.core.context import Context
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import DvrenError, check
-from dvren_tpu_torch.ops import fused_tiles, hash_tiles, packed_transpose
+from dvren_tpu_torch.ops import (fused_tiles, hash_tiles, integrate_fused,
+                                 packed_transpose)
 from dvren_tpu_torch.ops.raygen import camera_arrays
 from dvren_tpu_torch.render import hash_tiled as hash_mod
 from dvren_tpu_torch.render import tiled as tiled_mod
+from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
 
 @dataclass(frozen=True)
 class RenderOptions:
     """Mirrors ``dvren::RenderOptions`` (renderer.hpp:17-21) with the JAX
-    package's fields. Only the tiled forward is ported: ``use_tiles`` None
-    (tiles on CUDA) or True. ``enable_graph``, ``use_window``,
-    ``use_occupancy`` and ``tile_pitch=2`` raise when they would take
-    effect; ``capture_stats`` is accepted, and no stage timings are taken
-    yet."""
+    package's fields. The tiled paths (``use_tiles`` None: tiles on CUDA,
+    or True) and the windowed path (``use_window=True``) are ported.
+    ``enable_graph``, ``use_occupancy`` and ``tile_pitch=2`` raise when
+    they would take effect; ``capture_stats`` is accepted, and no stage
+    timings are taken yet."""
 
     use_fused_path: bool = True
     enable_graph: bool = False
@@ -126,6 +138,9 @@ class Renderer:
         self._jitter_host = plan_jitter_table(plan)
         self._tiled_schedule = None
         self._tiled_key = None
+        self._tiled_demoted = False
+        self._window_schedule = None
+        self._window_bbox = None
         self._hash_schedule = None    # frame layout only: once per plan
         self._last_mode = None        # the mode of the last forward
         self._last_ray_count = 0
@@ -156,6 +171,8 @@ class Renderer:
             mode, render = "hash_tiled", self._forward_hash_tiled
         elif self._use_tiles(field):
             mode, render = "tiled", self._forward_tiled
+        elif self._options.use_window:
+            mode, render = "windowed", self._forward_windowed
         else:
             raise NotImplementedError(self._untiled_mode())
         check(field.device == self._ctx.device,
@@ -168,17 +185,22 @@ class Renderer:
         t0 = time.perf_counter()
         launches0 = _launch_counts()
         k5a0 = packed_transpose.build_rows16.launches
+        k9f0 = integrate_fused.integrate_forward.launches
         with torch.no_grad():
             planes = render(field, stats)
+        if mode == "tiled" and self._tiled_demoted:
+            mode = "windowed"
         if self._ctx.device.type == "cuda":
             torch.cuda.synchronize(self._ctx.device)
         stats.total_ms = (time.perf_counter() - t0) * 1e3
         k1, k3, k7 = (b - a for a, b in zip(launches0, _launch_counts()))
+        k9 = integrate_fused.integrate_forward.launches - k9f0
         if mode == "hash_tiled":
             stats.notes.append(f"kernel_launches=hash_tiles:{k7}")
         else:
             stats.notes.append(f"kernel_launches=fused_tiles:{k1},"
                                f"packed_table:{k3}")
+            stats.notes.append(f"kernel_launches=integrate:{k9}")
             stats.notes.append(
                 f"kernel_launches=packed_table16:"
                 f"{packed_transpose.build_rows16.launches - k5a0}")
@@ -214,8 +236,8 @@ class Renderer:
 
         ``dl_di`` is flat (ray_count*3,) or (ray_count, 3): the loss
         gradient with respect to each ray's radiance. Differentiates the
-        last forward's mode at its schedule; only the tiled mode is
-        ported."""
+        last forward's mode (tiled, its fallback included, or windowed)
+        at its schedule."""
         if self._last_mode is None:
             raise DvrenError.invalid_argument(
                 "Backward requires a prior Forward")
@@ -227,9 +249,6 @@ class Renderer:
                 "field families through autograd (hash-MLP: "
                 "render_hash_tiled / opt.fit.fit_hash_mlp ride the fused "
                 "kernel)")
-        if self._last_mode != "tiled" or self._tiled_schedule is None:
-            raise NotImplementedError(
-                f"the {self._last_mode} backward is ROADMAP Queue 1 item 11")
         n = self._last_ray_count
         dl = np.asarray(dl_di, np.float32).reshape(-1)
         check(dl.size == n * 3,
@@ -237,6 +256,11 @@ class Renderer:
         check(field.device == self._ctx.device,
               f"field is on {field.device}, the context on "
               f"{self._ctx.device}: move it with field.to(device)")
+        if self._last_mode == "windowed":
+            return self._backward_windowed(field, dl.reshape(n, 3), out)
+        check(self._last_mode == "tiled" and self._tiled_schedule is not None,
+              f"the last forward took the {self._last_mode} path, which "
+              f"Renderer.backward does not differentiate")
         return self._backward_tiled(field, dl.reshape(n, 3), out)
 
     Backward = backward
@@ -278,6 +302,25 @@ class Renderer:
         """Differentiate the tiled replay of the last forward: the loss
         ``sum(image * dl_image)`` through :func:`render_tiled` at the
         schedule's camera, in (sigma, color) or the bricks, c2w and k."""
+        return self._backward_replay(
+            field, dl, out, lambda leaf, k0, c2w0: tiled_mod.render_tiled(
+                self._plan, leaf, self._tiled_schedule, k=k0, c2w=c2w0))
+
+    def _backward_windowed(self, field, dl: np.ndarray,
+                           out: BackwardResult | None) -> BackwardResult:
+        """Differentiate the windowed replay of the last forward (its
+        schedule: the skipped samples are zero in an open neighbourhood,
+        so their adjoint is zero too), K9b per group."""
+        return self._backward_replay(
+            field, dl, out,
+            lambda leaf, k0, c2w0: windowed_mod.render_windowed(
+                self._plan, leaf, self._window_schedule, k=k0, c2w=c2w0))
+
+    def _backward_replay(self, field, dl: np.ndarray,
+                         out: BackwardResult | None,
+                         render) -> BackwardResult:
+        """The gradients of ``sum(image * dl_image)`` for ``render(leaf,
+        k, c2w) -> planes`` in (sigma, color) or the bricks, c2w and k."""
         dev = self._ctx.device
         dl_img = self._dl_image(dl)
         k0, c2w0, _ = camera_arrays(self._plan, dev)
@@ -295,8 +338,7 @@ class Renderer:
             params = (leaf.sigma, leaf.color)
         wrt = params + (c2w0, k0)
         with torch.enable_grad():
-            planes = tiled_mod.render_tiled(
-                self._plan, leaf, self._tiled_schedule, k=k0, c2w=c2w0)
+            planes = render(leaf, k0, c2w0)
             loss = torch.sum(planes.image * dl_img)
             # an empty schedule (no ray enters the bbox) renders the
             # background alone: every gradient is zero, as in JAX
@@ -368,12 +410,10 @@ class Renderer:
                 and self._tile_eligible(field))
 
     def _untiled_mode(self) -> str:
-        """Why this forward would leave the tiled path, and where the
-        mode it would take instead stands in the ROADMAP."""
+        """Why this forward would leave the tiled and windowed paths, and
+        where the mode it would take instead stands in the ROADMAP."""
         opts = self._options
-        if opts.use_window:
-            mode = "the windowed path"
-        elif opts.streaming or (
+        if opts.streaming or (
                 opts.streaming is None
                 and self._plan.ray_count * self._plan.sampling.max_steps
                 > opts.streaming_budget):
@@ -383,9 +423,10 @@ class Renderer:
         else:
             mode = "the staged path"
         return (f"this forward would take {mode}, which is ROADMAP Queue 1 "
-                f"item 11; only the tiled paths are ported (the default on "
-                f"CUDA, or pass RenderOptions(use_tiles=True) with a dense "
-                f"OOB_ZERO trilinear grid or a hash-MLP field)")
+                f"items 11 and 4 (the general paths); the tiled paths (the "
+                f"default on CUDA, or RenderOptions(use_tiles=True) with a "
+                f"dense OOB_ZERO trilinear grid, a sparse or a hash-MLP "
+                f"field) and the windowed path (use_window=True) are ported")
 
     def _tiled_schedule_key(self, field) -> tuple:
         """What the schedule depends on. The cascade's choice depends on
@@ -421,6 +462,11 @@ class Renderer:
                 stats.notes.append(note)
             self._tiled_schedule = schedule.to(self._ctx.device)
             self._tiled_key = key
+            # auto mode: when most rays' tiles still overflow, the
+            # fallback is the windowed path less the schedule's overhead
+            self._tiled_demoted = (
+                self._options.use_tiles is None
+                and schedule.fallback_rays * 2 > schedule.total_rays)
             stats.notes.append(
                 f"tiled_schedule_build_ms="
                 f"{(time.perf_counter() - t0) * 1e3:.3f}")
@@ -428,7 +474,39 @@ class Renderer:
                 f"tiled_samples={schedule.tiled_samples}"
                 f"/{schedule.full_lattice_samples}"
                 f" fallback_rays={schedule.fallback_rays}")
+        if self._tiled_demoted:
+            stats.notes.append(
+                "tiled_demoted_to_windowed: most rays fall back")
+            return self._forward_windowed(field, stats)
         planes = tiled_mod.render_tiled(self._plan, field,
                                         self._tiled_schedule)
         stats.notes.append("tiled_path")
+        return planes
+
+    def _forward_windowed(self, field, stats: RenderStats):
+        """The windowed path: the schedule built once per field bbox on
+        the context's device, then every group through K9f."""
+        check(hasattr(field, "bbox_min") and hasattr(field, "bbox_max"),
+              "use_window requires a bounded grid field (bbox_min / "
+              "bbox_max); unbounded fields (hash-MLP) cannot be "
+              "window-clipped")
+        bbox = (tuple(float(v) for v in field.bbox_min),
+                tuple(float(v) for v in field.bbox_max))
+        if self._window_schedule is None or self._window_bbox != bbox:
+            t0 = time.perf_counter()
+            sched = windowed_mod.build_schedule(
+                self._plan, field.bbox_min, field.bbox_max,
+                jitter=self._jitter_host, device=self._ctx.device)
+            self._window_schedule = sched
+            self._window_bbox = bbox
+            stats.notes.append(
+                f"window_schedule_build_ms="
+                f"{(time.perf_counter() - t0) * 1e3:.3f}")
+            stats.notes.append(
+                f"window_samples={sched.windowed_samples}"
+                f"/{sched.full_lattice_samples}"
+                f" skipped_rays={sched.skipped_rays}")
+        planes = windowed_mod.render_windowed(self._plan, field,
+                                              self._window_schedule)
+        stats.notes.append("windowed_path")
         return planes

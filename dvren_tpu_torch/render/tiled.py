@@ -45,10 +45,13 @@ with its own bank windows), one slot per grid cell or per 2x2x2
 supercell, and :func:`build_tiled_schedule_auto`'s cascade over them, as
 in the JAX package, with quantized and uniform shape classes; many views'
 schedules merge into one (:func:`merge_view_schedules`) that
-:func:`render_tiled_stack` renders with one launch per merged group. Not
-yet ported: pitch 2, occupancy trimming and the windowed fallback, so a
-schedule whose rays still overflow cannot be rendered. Those raise
-``NotImplementedError`` naming their ROADMAP item.
+:func:`render_tiled_stack` renders with one launch per merged group. Rays
+whose sub-tiles overflow the slot tables go to the windowed fallback: the
+schedule carries a :class:`~dvren_tpu_torch.render.windowed.WindowedSchedule`
+of them (``fallback``), and the render overwrites their pixels with the
+windowed path's results (K9f / K9b per fallback group). Not yet ported:
+pitch 2 and occupancy trimming, which raise ``NotImplementedError``
+naming their ROADMAP item.
 
 Sample layout per (tile, chunk): block row r in [0, 16), lane l in
 [0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8; with n_sub
@@ -67,7 +70,7 @@ from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import check
 from dvren_tpu_torch.fields.sparse_grid import BRICK
 from dvren_tpu_torch.ops import fused_tiles, packed_transpose
-from dvren_tpu_torch.ops.compose import ImagePlanes
+from dvren_tpu_torch.ops.compose import ImagePlanes, place_rays
 from dvren_tpu_torch.ops.gather_plan import (build_gather_plan,
                                              slot_rows_to_table)
 from dvren_tpu_torch.ops.grid import (NCH, build_supercell_stencil,
@@ -86,7 +89,6 @@ _SENTINEL = np.int64(1) << 62
 _DROP_TILE = 1 << 30     # tile id of pad tiles: compose drops it
 
 # ROADMAP Queue 1 items for what this slice leaves out
-_TODO_FALLBACK = "the windowed fallback (ROADMAP Queue 1 item 11)"
 _TODO_PITCH2 = "pitch-2 packing (ROADMAP Queue 1 item 5)"
 _TODO_OCCUPANCY = "occupancy trimming (ROADMAP Queue 1 item 5)"
 _TODO_ALL_TILES = ("all_tiles, the camera-stable schedule of render/animate.py "
@@ -158,7 +160,8 @@ class TileGroup:
 @dataclass(frozen=True)
 class TiledSchedule:
     groups: tuple            # of TileGroup
-    fallback: object         # always None: no windowed fallback yet
+    fallback: object         # windowed.WindowedSchedule of the overflow
+    #                          rays, or None (none, or a cascade probe)
     hostmap_all: np.ndarray  # (S,) int32 every group's hostmap, concatenated
     gathermap_all: np.ndarray  # (S,) int32 the bank gather's rows
     gather_plan: object      # GatherPlan | None (an empty schedule)
@@ -179,6 +182,8 @@ class TiledSchedule:
         return dataclasses.replace(
             self,
             groups=tuple(g.to(device) for g in self.groups),
+            fallback=(self.fallback.to(device)
+                      if self.fallback is not None else None),
             hostmap_all=_to_device(self.hostmap_all, device),
             gathermap_all=_to_device(self.gathermap_all, device),
             gather_plan=(self.gather_plan.to(device)
@@ -206,12 +211,13 @@ def build_tiled_schedule_auto(plan: Plan, field, jitter=None,
     a dense float32 field, (8, 1), (4, 1) for a 16-bit or sparse one,
     each kept when it overflows fewer rays. ``note`` names the chosen
     configuration ("tiled_subtiled_8px", "tiled_supercell_16px", ...) or
-    is None at 16 px cells. The JAX package renders the rays that still
-    overflow through the windowed path; this port has none yet, so a
-    chosen schedule with overflow rays raises ``NotImplementedError``."""
+    is None at 16 px cells. The probes skip the windowed fallback (only
+    their overflow counts rank them); the chosen configuration is rebuilt
+    with it when rays still overflow."""
     sched = build_tiled_schedule(plan, field, jitter=jitter,
                                  occupancy=occupancy, quantize=quantize,
-                                 pitch=pitch)
+                                 pitch=pitch, build_fallback=False)
+    chosen = (16, 1)
     note = None
     supercell_ok = (not hasattr(field, "bricks")
                     and getattr(field, "packed_dtype", "float32")
@@ -224,16 +230,17 @@ def build_tiled_schedule_auto(plan: Plan, field, jitter=None,
         s_fine = build_tiled_schedule(plan, field, jitter=jitter,
                                       occupancy=occupancy, tile_px=px,
                                       quantize=quantize, pitch=pitch,
-                                      cell_scale=scale)
+                                      cell_scale=scale, build_fallback=False)
         if s_fine.fallback_rays < sched.fallback_rays:
             sched = s_fine
+            chosen = (px, scale)
             note = (f"tiled_subtiled_{px}px" if scale == 1
                     else f"tiled_supercell_{px}px")
     if sched.fallback_rays:
-        raise NotImplementedError(
-            f"{sched.fallback_rays} of {sched.total_rays} rays overflow the "
-            f"slot tables at tile_px={sched.tile_px}, "
-            f"cell_scale={sched.cell_scale}: needs {_TODO_FALLBACK}")
+        sched = build_tiled_schedule(plan, field, jitter=jitter,
+                                     occupancy=occupancy, tile_px=chosen[0],
+                                     quantize=quantize, pitch=pitch,
+                                     cell_scale=chosen[1])
     return sched, note
 
 
@@ -337,7 +344,8 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                          cell_scale: int = 1,
                          uniform_shape: tuple | None = None,
                          all_tiles: bool = False,
-                         bank_aligned: bool = False) -> TiledSchedule:
+                         bank_aligned: bool = False,
+                         build_fallback: bool = True) -> TiledSchedule:
     """Build the tile-table schedule for (plan, field bbox + resolution),
     as numpy arrays (move it with :meth:`TiledSchedule.to`).
 
@@ -355,9 +363,13 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     dense float32 grid, whose lanes index the 108-column table of
     :func:`~dvren_tpu_torch.ops.grid.build_supercell_stencil` (pitch is
     then 1, as in the JAX package). A sub-tile with a chunk of more than
-    256 slots overflows: its live rays are counted in ``fallback_rays``
-    and its pixels left out; a supercell tile wider than 31 banks (the
-    12-bit lane) overflows whole.
+    256 slots overflows: its live rays are counted in ``fallback_rays``,
+    its pixels left to them, and ``fallback`` holds their windowed
+    schedule (numpy, moved with the rest by :meth:`TiledSchedule.to`); a
+    supercell tile wider than 31 banks (the 12-bit lane) overflows whole.
+    ``build_fallback=False`` counts the overflow rays without building
+    their schedule (a cascade probe); such a schedule with overflow rays
+    cannot be rendered.
 
     ``quantize=True`` rounds each group's (chunk count, bank count) up to
     the ``_QUANT`` series; ``"uniform"`` gives every tile one class, the
@@ -702,6 +714,12 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                 pixel_ids=pids.reshape(-1).astype(np.int32),
                 tile_ids=tile_ids_k, samples=n_samples))
 
+    fb = None
+    fb_count = int(sum(f.size for f in fallback))
+    if fb_count and build_fallback:
+        fb = windowed_mod.build_schedule(
+            plan, bbox_min, bbox_max, jitter=jitter,
+            ray_subset=np.concatenate(fallback), device=False)
     hostmap_all = (np.concatenate(host_rows) if host_rows
                    else np.zeros(0, np.int32))
     if sparse:
@@ -711,12 +729,12 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     else:
         n_rows = fullpitch_rows((nz, ny, nx))
     return TiledSchedule(
-        groups=tuple(groups), fallback=None,
+        groups=tuple(groups), fallback=fb,
         hostmap_all=hostmap_all, gathermap_all=hostmap_all,
         gather_plan=build_gather_plan(hostmap_all, n_rows),
         total_rays=n, tiled_samples=tiled_samples,
         full_lattice_samples=n * k_max,
-        fallback_rays=int(sum(f.size for f in fallback)),
+        fallback_rays=fb_count,
         grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max), tile_px=tile_px,
         table_kind="sparse" if sparse else "dense", cell_scale=cell_scale)
 
@@ -820,11 +838,12 @@ def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
     regions. Sub-tiles with an id outside the ROI's tile_px grid (the
     sentinel 1 << 30 of pads and overflowing sub-tiles) are dropped, as
     the JAX scatter's ``mode="drop"`` does. Rays that no tile renders
-    keep the background (T = 1, depth = t_far). Differentiable in
-    ``raws``. ``device``: where the planes of an empty schedule (no
-    ``raws``) are built."""
-    if fallback_parts:
-        raise NotImplementedError(_TODO_FALLBACK)
+    keep the background (T = 1, depth = t_far), unless a fallback part
+    (pixel ids, radiance, T, opacity, depth; windowed
+    ``_group_outputs``) overwrites their pixels, as
+    ``dvren_tpu``'s ``_compose_tiles`` does. Differentiable in ``raws``
+    and the parts. ``device``: where the planes of an empty schedule (no
+    ``raws``, no parts) are built."""
     roi = plan.roi
     n_tiles = (-(-roi.width // tile_px)) * (-(-roi.height // tile_px))
     if raws:
@@ -835,6 +854,16 @@ def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
         tiles5 = torch.zeros((n_tiles, 5, tile_px, tile_px),
                              dtype=torch.float32, device=device)
     image, trans, opac, dep = tiles5_to_planes(plan, tiles5, tile_px)
+    if fallback_parts:
+        h, w = plan.height, plan.width
+        pids = torch.cat([p[0] for p in fallback_parts])
+        heads = [torch.cat([p[i] for p in fallback_parts]) for i in (1, 2, 3,
+                                                                       4)]
+        image = place_rays(image.reshape(h * w, 3), pids,
+                           heads[0]).reshape(h, w, 3)
+        trans, opac, dep = (
+            place_rays(x.reshape(h * w), pids, v).reshape(h, w)
+            for x, v in zip((trans, opac, dep), heads[1:]))
     return ImagePlanes(image=image, transmittance=trans, opacity=opac,
                        depth=dep,
                        hitmask=windowed_mod.roi_hitmask(plan, image.device))
@@ -1038,9 +1067,6 @@ def _check_field_schedule(field, schedule: TiledSchedule, what: str):
     check(schedule.cell_scale == 1
           or getattr(field, "packed_dtype", "float32") == "float32",
           "supercell schedules need float32 tables")
-    if schedule.fallback_rays:
-        raise NotImplementedError(
-            f"{schedule.fallback_rays} rays need {_TODO_FALLBACK}")
     device = field.bricks.device if sparse else field.sigma.device
     check(schedule.device == device,
           f"{what} is on {schedule.device}, the field on {device}: "
@@ -1109,14 +1135,34 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     that device: the reference the kernels are held to. With ``k`` or
     ``c2w`` the ray planes are rebuilt from those tensors and the backward
     emits their adjoint; the cells, slots and mask stay the schedule's, so
-    a camera far from the schedule's needs a new schedule."""
+    a camera far from the schedule's needs a new schedule. The fallback's
+    rays render through the windowed path's groups (K9f / K9b), under the
+    same camera tensors."""
     device = _check_field_schedule(field, schedule, "schedule")
+    check(schedule.fallback is not None or schedule.fallback_rays == 0,
+          f"the schedule was built with build_fallback=False (a cascade "
+          f"probe) but has {schedule.fallback_rays} overflow rays: rebuild "
+          f"it with the fallback")
     rayts = None
     if (k is not None or c2w is not None) and schedule.groups:
         rayts = _traced_rayts(plan, schedule, k, c2w)
     raws = _group_raws(plan, field, schedule, use_kernel, rayts)
+    parts = _fallback_parts(plan, field, schedule.fallback, k=k, c2w=c2w,
+                            use_kernel=use_kernel)
     return _compose_tiles(plan, raws, [g.tile_ids for g in schedule.groups],
-                          tile_px=schedule.tile_px, device=device)
+                          parts, tile_px=schedule.tile_px, device=device)
+
+
+def _fallback_parts(plan: Plan, field, fallback, k=None, c2w=None,
+                    ortho_scale=None, use_kernel: bool = True) -> list:
+    """Per fallback group, the windowed path's per-ray parts."""
+    if fallback is None:
+        return []
+    return [windowed_mod._group_outputs(plan, budget, field, ids, ke, jit,
+                                        k=k, c2w=c2w,
+                                        ortho_scale=ortho_scale,
+                                        use_kernel=use_kernel)
+            for budget, ids, ke, jit in fallback.groups]
 
 
 # ------------------------------------------------------------ many views
@@ -1131,9 +1177,10 @@ class MergedViewSchedule:
     view.
 
     ``view_slices``: per merged group, the (view, t_start, t_count) runs
-    of its tile axis, view-major. ``view_fallbacks``: per view, None (the
-    windowed fallback is not ported). ``view_cams``: per view (k, c2w,
-    ortho_scale) when ``merge_view_schedules`` had the plans."""
+    of its tile axis, view-major. ``view_fallbacks``: per view, its
+    windowed fallback schedule or None. ``view_cams``: per view (k, c2w,
+    ortho_scale) when ``merge_view_schedules`` had the plans: fallback
+    rays are generated at render time, under their view's camera."""
 
     sched: TiledSchedule
     view_fallbacks: tuple
@@ -1142,7 +1189,10 @@ class MergedViewSchedule:
     view_cams: tuple | None = None
 
     def to(self, device) -> "MergedViewSchedule":
-        return dataclasses.replace(self, sched=self.sched.to(device))
+        return dataclasses.replace(
+            self, sched=self.sched.to(device),
+            view_fallbacks=tuple(None if f is None else f.to(device)
+                                 for f in self.view_fallbacks))
 
 
 def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
@@ -1151,14 +1201,14 @@ def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
     arrays numpy as well, with the gather plan built over the
     concatenated hostmaps; move it with :meth:`MergedViewSchedule.to`.
     Build the views with ``quantize="uniform"`` and one ``uniform_shape``
-    to get one group. A view with overflow rays raises
-    ``NotImplementedError``: they need the windowed fallback."""
+    to get one group. Each view keeps its windowed fallback; ``plans``
+    (one per view) must be given when a view has one, since its rays are
+    generated at render time under the view's camera."""
     base = scheds[0]
     for s in scheds:
-        if s.fallback_rays:
-            raise NotImplementedError(
-                f"a view has {s.fallback_rays} overflow rays: merging it "
-                f"needs {_TODO_FALLBACK}")
+        check(s.fallback is not None or s.fallback_rays == 0,
+              "merge_view_schedules: a view schedule was built with "
+              "build_fallback=False but has overflow rays")
         check(s.device is None,
               "merge_view_schedules: build the views as numpy schedules "
               "(they merge on the host and move once)")
@@ -1210,7 +1260,8 @@ def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
         total_rays=sum(s.total_rays for s in scheds),
         tiled_samples=t_samples,
         full_lattice_samples=sum(s.full_lattice_samples for s in scheds),
-        fallback_rays=0, grid_shape=base.grid_shape, bbox=base.bbox,
+        fallback_rays=sum(s.fallback_rays for s in scheds),
+        grid_shape=base.grid_shape, bbox=base.bbox,
         tile_px=base.tile_px, table_kind=base.table_kind,
         pitch=base.pitch, cell_scale=base.cell_scale)
     view_cams = None
@@ -1221,8 +1272,12 @@ def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
             (tuple(float(v) for v in p.camera.k),
              tuple(float(v) for v in p.camera.c2w),
              float(p.camera.ortho_scale)) for p in plans)
+    check(plans is not None or all(s.fallback is None for s in scheds),
+          "merge_view_schedules: a view has fallback (slot-overflow) rays, "
+          "which are generated at render time: pass plans= so each uses "
+          "its own camera")
     return MergedViewSchedule(
-        sched=sched, view_fallbacks=(None,) * len(scheds),
+        sched=sched, view_fallbacks=tuple(s.fallback for s in scheds),
         view_slices=tuple(slices_all), n_views=len(scheds),
         view_cams=view_cams)
 
@@ -1243,13 +1298,29 @@ def render_tiled_stack(plan: Plan, field, merged: MergedViewSchedule,
     raws = _group_raws(plan, field, sched, use_kernel)
     images = []
     for v in range(merged.n_views):
+        parts = []
+        fb = merged.view_fallbacks[v]
+        if fb is not None:
+            check(merged.view_cams is not None,
+                  "merged schedule has fallback rays but no per-view "
+                  "cameras; rebuild with merge_view_schedules(plans=...)")
+            cam_k, cam_c2w, cam_os = merged.view_cams[v]
+            parts = _fallback_parts(
+                plan, field, fb,
+                k=torch.tensor(cam_k, dtype=torch.float32,
+                               device=device).reshape(3, 3),
+                c2w=torch.tensor(cam_c2w, dtype=torch.float32,
+                                 device=device).reshape(3, 4),
+                ortho_scale=torch.tensor(cam_os, dtype=torch.float32,
+                                         device=device),
+                use_kernel=use_kernel)
         raws_v, ids_v = [], []
         for gi, group in enumerate(sched.groups):
             for vv, t0, cnt in merged.view_slices[gi]:
                 if vv == v:
                     raws_v.append(raws[gi][t0:t0 + cnt])
                     ids_v.append(group.tile_ids[t0:t0 + cnt])
-        images.append(_compose_tiles(plan, raws_v, ids_v,
+        images.append(_compose_tiles(plan, raws_v, ids_v, parts,
                                      tile_px=sched.tile_px,
                                      device=device).image)
     return torch.stack(images)

@@ -255,7 +255,7 @@ def test_host_rays_and_windows_equal(name):
 def test_roi_hitmask_equal(name):
     plan, _ = _geometry_plan(name)
     ref = np.asarray(j_windowed.roi_hitmask(plan))
-    got = p_windowed.roi_hitmask(port_plan(plan)).numpy()
+    got = p_windowed.roi_hitmask(port_plan(plan), "cpu").numpy()
     assert got.dtype == ref.dtype
     np.testing.assert_array_equal(got, ref)
 

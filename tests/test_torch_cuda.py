@@ -32,7 +32,14 @@ scene (float32: 8 px supercells; bfloat16: 4 px cells): the frame within
 the bounds above of the CPU's (depth where opacity exceeds 1e-3: its rays
 end just above OPACITY_EPS, where wd / opacity magnifies the last bit of
 exp), the backward equal to the plain path on the card; and an empty
-schedule's planes on the card, with zero gradients.
+schedule's planes on the card, with zero gradients. The per-ray
+integrator: K9f and K9b against their twins at
+tests/test_pallas_parity.py's bounds (radiance rtol 1e-5 / atol 1e-6, T
+and opacity 1e-5 / 1e-7, depth 1e-5 / 1e-5, d_sigma 1e-4 / 1e-6, d_colour
+1e-4 / 1e-7), repeats bit for bit; the windowed Renderer, the tiled
+schedule's fallback and the windowed and plain fits on the card against
+the CPU (planes 5e-6, depth 1e-4, gradients 2e-6 x scale, losses 1e-5
+relative), with K9's launch counts.
 """
 
 import dataclasses
@@ -44,7 +51,7 @@ import torch
 import dvren_tpu_torch as P
 from dvren_tpu_torch import _build
 from dvren_tpu_torch.ops import (fused_tiles, hash_grid, hash_tiles,
-                                 packed_transpose)
+                                 integrate_fused, packed_transpose)
 from dvren_tpu_torch.ops.grid import build_supercell_stencil
 from dvren_tpu_torch.opt import fit
 from dvren_tpu_torch.render import hash_tiled, tiled
@@ -101,7 +108,8 @@ def test_library_builds_once(cuda_device):
                    "tile_backward_kernel", "packed_table_grad_kernel",
                    "hash_forward_kernel", "hash_backward_kernel",
                    "hash_grid_forward_kernel", "hash_grid_backward_kernel",
-                   "packed_table16_kernel", "packed_table16_grad_kernel"):
+                   "packed_table16_kernel", "packed_table16_grad_kernel",
+                   "integrate_forward_kernel", "integrate_backward_kernel"):
         assert kernel in report
 
 
@@ -1006,3 +1014,277 @@ def test_fit_dense_grid_on_the_card(cuda_device):
     assert float(got.field.sigma.min()) >= 0.0
     assert float(got.field.color.max()) <= 1.0
     assert got.steady_step_ms > 0.0
+
+
+# ---------------------------------------------------------------- K9
+
+
+def integrate_scene(device, n=40, k=50, seed=0, hi=4.0, zeros=False):
+    """tests/test_pallas_parity.py's lattice: sigma in [0, hi), ragged
+    live prefixes; ``zeros`` sets a third of sigma to exactly 0."""
+    rng = np.random.default_rng(seed)
+    sigma = rng.uniform(0.0, hi, (n, k)).astype(np.float32)
+    if zeros:
+        sigma[rng.uniform(size=(n, k)) < 0.3] = 0.0
+    color = rng.uniform(0, 1, (3, n, k)).astype(np.float32)
+    dt = np.full((n, k), 0.05, np.float32)
+    mask = np.ones((n, k), bool)
+    for i, length in enumerate(rng.integers(k // 2, k + 1, n)):
+        mask[i, length:] = False
+        dt[i, length:] = 0.0
+    origin = (0.3 + rng.integers(0, 5, n) * 0.05).astype(np.float32)
+    g = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
+    t = [torch.from_numpy(x).to(device)
+         for x in (sigma, dt, mask, origin, g)]
+    planes = tuple(torch.from_numpy(c).to(device) for c in color)
+    return t[0], planes, t[1], t[2], t[3], t[4]
+
+
+@pytest.mark.parametrize("n,k,hi,zeros", [(40, 50, 4.0, False),
+                                          (40, 50, 40.0, False),
+                                          (16, 200, 4.0, False),
+                                          (300, 96, 4.0, True)])
+@pytest.mark.parametrize("with_origin", [False, True])
+def test_integrate_forward_matches_plain(cuda_device, n, k, hi, zeros,
+                                         with_origin):
+    sigma, planes, dt, mask, origin, _ = integrate_scene(
+        cuda_device, n, k, hi=hi, zeros=zeros)
+    origin = origin if with_origin else None
+    before = integrate_fused.integrate_forward.launches
+    got = integrate_fused.integrate_forward(sigma, planes, dt, mask, 0.3,
+                                            2.8, origin)
+    again = integrate_fused.integrate_forward(sigma, planes, dt, mask, 0.3,
+                                              2.8, origin)
+    torch.cuda.synchronize()
+    assert integrate_fused.integrate_forward.launches == before + 2
+    assert torch.equal(got, again)
+    want = integrate_fused.integrate_forward_plain(sigma, planes, dt, mask,
+                                                   0.3, 2.8, origin)
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_allclose(got[:, :3], want[:, :3], rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got[:, 3:5], want[:, 3:5], rtol=1e-5,
+                               atol=1e-7)
+    np.testing.assert_allclose(got[:, 5], want[:, 5],
+                               rtol=1e-4 if k >= 128 else 1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("n,k,hi,zeros", [(40, 50, 4.0, False),
+                                          (40, 50, 40.0, False),
+                                          (16, 200, 4.0, False),
+                                          (300, 96, 4.0, True)])
+def test_integrate_backward_matches_plain(cuda_device, n, k, hi, zeros):
+    sigma, planes, dt, mask, _, g = integrate_scene(cuda_device, n, k, hi=hi,
+                                                    zeros=zeros)
+    before = integrate_fused.radiance_vjp.launches
+    ds, dc = integrate_fused.radiance_vjp(sigma, planes, dt, mask, g)
+    ds2, dc2 = integrate_fused.radiance_vjp(sigma, planes, dt, mask, g)
+    torch.cuda.synchronize()
+    assert integrate_fused.radiance_vjp.launches == before + 2
+    assert torch.equal(ds, ds2)
+    assert all(torch.equal(a, b) for a, b in zip(dc, dc2))
+    ps, pc = integrate_fused.radiance_vjp_plain(sigma, planes, dt, mask, g)
+    np.testing.assert_allclose(ds.cpu().numpy(), ps.cpu().numpy(),
+                               rtol=1e-4, atol=1e-6)
+    for a, b in zip(dc, pc):
+        np.testing.assert_allclose(a.cpu().numpy(), b.cpu().numpy(),
+                                   rtol=1e-4, atol=1e-7)
+
+
+def test_integrate_fused_autograd_on_the_card(cuda_device):
+    """The autograd node on the card: radiance through K9f / K9b, the
+    other heads through the twin; the same gradients as on the CPU."""
+    def grads(device):
+        sigma, planes, dt, mask, origin, g = integrate_scene(device, 64, 70)
+        sigma.requires_grad_(True)
+        planes = tuple(p.clone().requires_grad_(True) for p in planes)
+        rad, t, op, depth = integrate_fused.integrate_fused(
+            sigma, planes, dt, mask, 0.3, 2.8, origin)
+        loss = (rad * g).sum() + (0.3 * t + 0.2 * op + 0.1 * depth).sum()
+        return [x.detach().cpu().numpy()
+                for x in torch.autograd.grad(loss, (sigma,) + planes)]
+
+    before = (integrate_fused.integrate_forward.launches,
+              integrate_fused.radiance_vjp.launches)
+    got = grads(cuda_device)
+    assert (integrate_fused.integrate_forward.launches,
+            integrate_fused.radiance_vjp.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for a, b in zip(got, grads("cpu")):
+        np.testing.assert_allclose(a, b, rtol=1e-4, atol=1e-6)
+
+
+def test_integrate_kernels_reject_strided_input(cuda_device):
+    sigma, planes, dt, mask, _, g = integrate_scene(cuda_device, 8, 64)
+    with pytest.raises(ValueError):
+        integrate_fused.integrate_forward(sigma[:, ::2], tuple(
+            p[:, ::2] for p in planes), dt[:, ::2], mask[:, ::2], 0.3, 2.8)
+
+
+# --------------------------------------------- the windowed path on the card
+
+
+def window_renderers(name, device):
+    plan, config = scene(name)
+    field = P.DenseGridField.create(config, device=device)
+    if name == "nearest":
+        field = P.DenseGridField(field.sigma, field.color,
+                                 bbox_min=field.bbox_min,
+                                 bbox_max=field.bbox_max,
+                                 interp=P.InterpMode.NEAREST)
+    r = P.Renderer(P.Context.create(device=str(device)), plan,
+                   P.RenderOptions(use_window=True))
+    return plan, field, r
+
+
+def _k9_counts():
+    return (integrate_fused.integrate_forward.launches,
+            integrate_fused.radiance_vjp.launches)
+
+
+@pytest.mark.parametrize("name", ["fixed", "stratified", "opaque"])
+def test_windowed_renderer_on_the_card_matches_cpu(cuda_device, name):
+    """Renderer(use_window=True) on the card: K9f once per group forward,
+    K9b once per group backward; planes within 5e-6 (depth 1e-4) and
+    gradients within 2e-6 x scale (camera rtol 2e-3 / atol 1e-4) of the
+    CPU's; two deterministic backwards bit for bit."""
+    plan, field, r = window_renderers(name, cuda_device)
+    _, cpu_field, r_cpu = window_renderers(name, "cpu")
+    before = _k9_counts()
+    got = r.forward(field)
+    n_groups = len(r._window_schedule.groups)
+    assert _k9_counts() == (before[0] + n_groups, before[1])
+    want = r_cpu.forward(cpu_field)
+    for k in ("image", "transmittance", "opacity"):
+        np.testing.assert_allclose(getattr(got, k), getattr(want, k),
+                                   atol=TOL)
+    np.testing.assert_allclose(got.depth, want.depth, atol=TOL_DEPTH)
+    assert np.array_equal(got.hitmask, want.hitmask)
+    dl = np.random.default_rng(4).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    before = _k9_counts()
+    torch.use_deterministic_algorithms(True)
+    try:
+        g1 = r.backward(field, dl)
+        g2 = r.backward(field, dl)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    assert _k9_counts()[1] == before[1] + 2 * n_groups
+    gw = r_cpu.backward(cpu_field, dl)
+    for k in ("sigma", "color", "camera", "camera_k"):
+        assert np.array_equal(getattr(g1, k), getattr(g2, k))
+    for k in ("sigma", "color"):
+        ref = getattr(gw, k)
+        np.testing.assert_allclose(getattr(g1, k), ref, rtol=0,
+                                   atol=GRID_TOL * np.abs(ref).max())
+    for k in ("camera", "camera_k"):
+        np.testing.assert_allclose(getattr(g1, k), getattr(gw, k),
+                                   rtol=2e-3, atol=1e-4)
+
+
+def test_windowed_backward_repeats_without_the_flag(cuda_device):
+    """The grid gradient's row sums (``take_rows``' backward) are
+    deterministic with torch's deterministic mode off too."""
+    plan, field, r = window_renderers("stratified", cuda_device)
+    r.forward(field)
+    dl = np.random.default_rng(5).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    g1 = r.backward(field, dl)
+    g2 = r.backward(field, dl)
+    assert np.array_equal(g1.sigma, g2.sigma)
+    assert np.array_equal(g1.color, g2.color)
+    assert not torch.are_deterministic_algorithms_enabled()
+
+
+def partial_fallback_scene(device):
+    """tests/test_tiled.py::test_subtiled_partial_fallback's scene in the
+    port's terms: 32^2 over a 20^3 blob; at 8 px, 64 rays fall back."""
+    n, w = 20, 32
+    plan = P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.2, t_far=2.6,
+        camera=P.CameraConfig(
+            k=(w * 1.25, 0, w / 2, 0, w * 1.25, w / 2, 0, 0, 1),
+            c2w=(1, 0, 0, 0.3, 0, 1, 0, 0.3, 0, 0, 1, -1.0)),
+        sampling=P.SamplingConfig(dt=0.04, max_steps=60)))
+    zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, n)] * 3), indexing="ij")
+    r2 = (xs - 0.3) ** 2 + (ys - 0.3) ** 2 + (zs - 0.3) ** 2
+    sigma = 15.0 * np.exp(-r2 / 0.1)
+    sigma[sigma < 1e-3] = 0.0
+    color = np.stack([xs, ys, zs], axis=-1)
+    field = P.DenseGridField.create(P.DenseGridConfig(
+        resolution=(n, n, n), sigma=sigma.astype(np.float32).reshape(-1),
+        color=color.astype(np.float32).reshape(-1)), device=device)
+    return plan, field
+
+
+@pytest.mark.parametrize("tile_px", [8, 16])
+def test_fallback_on_the_card_matches_cpu(cuda_device, tile_px):
+    """render_tiled with fallback rays on the card: K1 per tile group,
+    K9f per fallback group; the frame within 5e-6 (depth 1e-4) of the
+    CPU's, the grid gradients within 2e-6 x scale, repeats bit for bit."""
+    def run(device):
+        plan, field = partial_fallback_scene(device)
+        sched = tiled.build_tiled_schedule(plan, field, tile_px=tile_px)
+        assert sched.fallback_rays > 0
+        sched = sched.to(device)
+        leaf = field.with_params(field.sigma.detach().clone(),
+                                 field.color.detach().clone())
+        planes = tiled.render_tiled(plan, leaf, sched)
+        grads = torch.autograd.grad(torch.sum(planes.image ** 2),
+                                    (leaf.sigma, leaf.color))
+        return planes, grads, len(sched.fallback.groups), len(sched.groups)
+
+    before = (fused_tiles.tile_forward.launches, _k9_counts())
+    got, g1, n_fb, n_t = run(cuda_device)
+    assert fused_tiles.tile_forward.launches == before[0] + n_t
+    assert _k9_counts() == (before[1][0] + n_fb, before[1][1] + n_fb)
+    _, g2, _, _ = run(cuda_device)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    want, gw, _, _ = run("cpu")
+    for k in ("image", "transmittance", "opacity"):
+        np.testing.assert_allclose(getattr(got, k).detach().cpu().numpy(),
+                                   getattr(want, k).detach().numpy(),
+                                   atol=TOL)
+    np.testing.assert_allclose(got.depth.detach().cpu().numpy(),
+                               want.depth.detach().numpy(), atol=TOL_DEPTH)
+    for a, b in zip(g1, gw):
+        b = b.numpy()
+        np.testing.assert_allclose(a.cpu().numpy(), b, rtol=0,
+                                   atol=GRID_TOL * np.abs(b).max())
+
+
+@pytest.mark.parametrize("mode", ["windowed", "plain"])
+def test_fit_modes_on_the_card(cuda_device, mode):
+    """fit_dense_grid's windowed and plain modes on the card: K9f / K9b
+    per stack group (windowed) or per view (plain) each step, the losses
+    within 1e-5 relative of the CPU's."""
+    plan, cams, truth = fit_scene(cuda_device)
+    with torch.no_grad():
+        targets = windowed_targets(plan, cams, truth)
+
+    def flat(device):
+        f = fit_scene(device)[2]
+        return f.with_params(torch.full_like(f.sigma, 0.5),
+                             torch.full_like(f.color, 0.5))
+
+    config = fit.FitConfig(learning_rate=5e-2, steps=3, target_psnr=None)
+    before = _k9_counts()
+    got = fit.fit_dense_grid(plan, flat(cuda_device), cams, targets, config,
+                             mode=mode)
+    launched = [b - a for a, b in zip(before, _k9_counts())]
+    per_step = len(cams) if mode == "plain" else 1
+    assert launched[1] == 3 * per_step and launched[0] >= 3 * per_step
+    want = fit.fit_dense_grid(plan, flat("cpu"), cams, targets, config,
+                              mode=mode)
+    assert got.mode == want.mode == mode
+    np.testing.assert_allclose(got.loss_history, want.loss_history,
+                               rtol=1e-5)
+    assert got.loss_history[-1] < got.loss_history[0]
+
+
+def windowed_targets(plan, cams, field):
+    from dvren_tpu_torch.render import windowed
+
+    stack = windowed.build_stack_schedule(fit.view_plans(plan, cams),
+                                          field.bbox_min, field.bbox_max,
+                                          device=field.device)
+    return windowed.render_windowed_stack(plan, field, stack).cpu().numpy()

@@ -21,8 +21,8 @@ Held:
   2e-6 x scale of ``jax.grad``, and each view equal to its own frame;
 - ``fit_dense_grid(mode="tiled")``: the loss history within rtol 1e-4 of
   JAX's over 5 Adam steps and the fitted grids within 1e-4; ``sync_every``
-  changes nothing; the projection holds; the auto mode chooses as JAX's;
-  what is not ported raises ``NotImplementedError`` naming its item;
+  changes nothing; the projection holds; the auto mode chooses as JAX's
+  (tiled, or its demotion to windowed), and the chosen mode runs;
 - checkpoints written by either package load in the other.
 
 tests/test_torch_cuda.py runs the stack and the fit on the card.
@@ -196,8 +196,9 @@ def assert_merged_equal(ref, got):
     assert got.view_slices == ref.view_slices
     assert got.n_views == ref.n_views
     assert got.view_cams == ref.view_cams
-    assert all(f is None for f in ref.view_fallbacks)
-    assert got.view_fallbacks == (None,) * got.n_views
+    assert len(got.view_fallbacks) == len(ref.view_fallbacks)
+    for a, b in zip(ref.view_fallbacks, got.view_fallbacks):
+        assert (a is None) == (b is None)
 
 
 @pytest.mark.parametrize("name", ["fit", "tiled"])
@@ -253,8 +254,10 @@ def test_many_group_merge_equal():
 
 
 def test_merge_refuses_fallback_view():
-    """A view whose tiles overflow (16 px over 128^3) needs the windowed
-    fallback."""
+    """A view whose tiles overflow (16 px over 128^3) carries a windowed
+    fallback, whose rays are generated at render time under the view's
+    camera: the merge refuses it without the views' plans, and keeps it
+    with them."""
     n = 128
     field = P.DenseGridField.create(P.DenseGridConfig(
         resolution=(n, n, n), sigma=np.ones(n ** 3), color=np.ones(3 * n ** 3)),
@@ -266,9 +269,15 @@ def test_merge_refuses_fallback_view():
                                    -1.1)),
         sampling=P.SamplingConfig(dt=0.05, max_steps=60)))
     sched = p_tiled.build_tiled_schedule(plan, field)
-    assert sched.fallback_rays > 0
-    with pytest.raises(NotImplementedError, match="item 11"):
+    assert sched.fallback_rays > 0 and sched.fallback is not None
+    with pytest.raises(P.DvrenError, match="plans="):
         p_tiled.merge_view_schedules([sched])
+    probe = p_tiled.build_tiled_schedule(plan, field, build_fallback=False)
+    with pytest.raises(P.DvrenError, match="build_fallback=False"):
+        p_tiled.merge_view_schedules([probe], plans=[plan])
+    merged = p_tiled.merge_view_schedules([sched], plans=[plan])
+    assert merged.view_fallbacks == (sched.fallback,)
+    assert merged.sched.fallback_rays == sched.fallback_rays
 
 
 # ------------------------------------------------------- stack renderer
@@ -468,23 +477,18 @@ def test_fit_target_psnr_stops():
 @pytest.mark.parametrize("name", ["fit", "tiled"])
 def test_auto_mode_choice_equal(name):
     """The auto mode's choice (tiled, or windowed when the merged tables'
-    weighted slots outnumber the views' sample lattice) as JAX's; the
-    port raises for the windowed choice. Zero steps: the choice alone."""
+    weighted slots outnumber the views' sample lattice) as JAX's. Zero
+    steps: the choice alone."""
     plan, field, cams, pplan, pfield, pcams = scene(name)
     targets = targets_for(name)
     ref = j_fit.fit_dense_grid(plan, field, list(cams), targets,
                                j_fit.FitConfig(steps=0))
     assert p_fit.scheduled_mode_for(pfield) == j_fit.scheduled_mode_for(
         field) == "tiled"
-    if ref.mode == "tiled":
-        got = p_fit.fit_dense_grid(pplan, pfield, list(pcams), targets,
-                                   p_fit.FitConfig(steps=0))
-        assert got.mode == "tiled" and got.steps_run == 0
-    else:
-        assert ref.mode == "windowed"
-        with pytest.raises(NotImplementedError, match="item 11"):
-            p_fit.fit_dense_grid(pplan, pfield, list(pcams), targets,
-                                 p_fit.FitConfig(steps=0))
+    got = p_fit.fit_dense_grid(pplan, pfield, list(pcams), targets,
+                               p_fit.FitConfig(steps=0))
+    assert got.mode == ref.mode and got.steps_run == 0
+    assert ref.mode in ("tiled", "windowed")
 
 
 def test_auto_mode_covers_both_choices():
@@ -496,15 +500,6 @@ def test_auto_mode_covers_both_choices():
                                        targets_for(name),
                                        j_fit.FitConfig(steps=0)).mode)
     assert modes == {"tiled", "windowed"}
-
-
-@pytest.mark.parametrize("mode, item", [("windowed", "item 11"),
-                                        ("plain", "item 4")])
-def test_unported_fit_modes_raise(mode, item):
-    pplan, pfield, pcams = scene("fit")[3:]
-    with pytest.raises(NotImplementedError, match=item):
-        p_fit.fit_dense_grid(pplan, pfield, list(pcams), targets_for("fit"),
-                             p_fit.FitConfig(steps=1), mode=mode)
 
 
 def test_scheduled_mode_for_rules():

@@ -103,7 +103,7 @@ def _options_case(case):
     return {
         "use_tiles_false": P.RenderOptions(use_tiles=False),
         "auto_on_cpu": P.RenderOptions(),
-        "use_window": P.RenderOptions(use_window=True),
+        "streaming": P.RenderOptions(streaming=True),
         "enable_graph": P.RenderOptions(use_tiles=True, enable_graph=True),
         "occupancy": P.RenderOptions(use_tiles=True, use_occupancy=True),
         "pitch2": P.RenderOptions(use_tiles=True, tile_pitch=2),
@@ -111,7 +111,7 @@ def _options_case(case):
 
 
 @pytest.mark.parametrize("case", ["use_tiles_false", "auto_on_cpu",
-                                  "use_window", "enable_graph",
+                                  "streaming", "enable_graph",
                                   "occupancy", "pitch2"])
 def test_unported_modes_raise(case):
     plan, field, _ = reference("fixed")
@@ -150,9 +150,10 @@ def _ones_scene(n, width, height, focal, c2w, t_near=0.1):
 
 
 def test_overflowing_schedule_raises():
-    """Rays that still overflow the schedule the cascade keeps need the
-    windowed fallback (ROADMAP item 11), which is not ported: the auto
-    build, render_tiled and the Renderer raise naming it. The scene: a
+    """Rays that still overflow the schedule the cascade keeps ride the
+    windowed fallback: the cascade rebuilds its choice with it, as JAX's
+    does, and render_tiled and the Renderer render them; a cascade probe
+    (``build_fallback=False``) with overflow rays is refused. The scene: a
     48x32 camera (focal 24 px) 1.1 in front of a 32^3 grid, on which
     JAX's cascade also keeps 8 px supercells with overflow rays left."""
     jplan, jfield = _ones_scene(32, 48, 32, 24.0,
@@ -163,13 +164,23 @@ def test_overflowing_schedule_raises():
     plan, field = port_plan(jplan), port_field(jfield)
     sched = p_tiled.build_tiled_schedule(plan, field, tile_px=8, cell_scale=2)
     assert sched.fallback_rays == ref.fallback_rays
-    with pytest.raises(NotImplementedError, match="item 11"):
-        p_tiled.build_tiled_schedule_auto(plan, field)
-    with torch.no_grad(), pytest.raises(NotImplementedError, match="item 11"):
-        p_tiled.render_tiled(plan, field, sched.to("cpu"))
-    with pytest.raises(NotImplementedError, match="item 11"):
-        P.Renderer(P.Context.create(device="cpu"), plan,
-                   P.RenderOptions(use_tiles=True)).forward(field)
+    assert_schedules_equal(ref, sched)
+    probe = p_tiled.build_tiled_schedule(plan, field, tile_px=8,
+                                         cell_scale=2, build_fallback=False)
+    with torch.no_grad(), pytest.raises(P.DvrenError,
+                                        match="build_fallback=False"):
+        p_tiled.render_tiled(plan, field, probe.to("cpu"))
+    got, got_note = p_tiled.build_tiled_schedule_auto(plan, field)
+    assert got_note == note and got.fallback is not None
+    assert_schedules_equal(ref, got)
+    want = j_tiled.render_tiled(jplan, jfield, ref, use_kernel=False)
+    with torch.no_grad():
+        assert_planes_close(p_tiled.render_tiled(plan, field, sched.to("cpu")),
+                            want, tol=5e-6)
+    res = P.Renderer(P.Context.create(device="cpu"), plan,
+                     P.RenderOptions(use_tiles=True)).forward(field)
+    assert "tiled_path" in res.stats.notes
+    assert_planes_close(_Planes(res, plan), want, tol=5e-6)
 
 
 def test_cascade_rescues_overflowing_scene():
@@ -257,8 +268,15 @@ def test_compose_drops_sentinel_tiles():
     assert torch.all(planes.transmittance[:, :16] == 1.0)
     assert torch.all(planes.depth[:, :16] == 2.0)
     assert torch.all(planes.hitmask == 1)
-    with pytest.raises(NotImplementedError):
-        p_tiled._compose_tiles(plan, [raw], [ids], fallback_parts=[()])
+    # fallback parts overwrite their rays' pixels; ids past the frame drop
+    part = (torch.tensor([3, 16 * 32 + 5], dtype=torch.int32),
+            torch.full((2, 3), 0.25), torch.full((2,), 0.5),
+            torch.full((2,), 0.5), torch.full((2,), 1.5))
+    planes = p_tiled._compose_tiles(plan, [raw], [ids], fallback_parts=[part])
+    assert torch.all(planes.image[0, 3] == 0.25)
+    assert float(planes.transmittance[0, 3]) == 0.5
+    assert float(planes.depth[0, 3]) == 1.5
+    assert float(planes.image.sum()) == 16 * 16 * 3 + 0.75
 
 
 def test_plain_path_equals_wrappers_on_cpu():

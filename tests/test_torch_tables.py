@@ -95,7 +95,7 @@ def all_heads_port(pls):
 def sparse_plan(width=48, height=32):
     """tests/test_sparse_grid.py's tiled plan with a longer focal length
     (2.5 x width) and stratified steps, so no 16 px tile overflows (the
-    port has no windowed fallback yet)."""
+    tests here hold the tiles alone)."""
     return J.Plan.create(J.PlanConfig(
         width=width, height=height, t_near=0.2, t_far=2.6, seed=7,
         camera=J.CameraConfig(
