@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|grid|window]
+    python3 chip_smoke.py [--only dense|grid|window|split]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -23,11 +23,14 @@ autograd; then the sub-tiled and supercell schedules of the cascade:
 views of ``tools/fit_benchmark.py``'s fit flagship (96^2 over 64^3, 96
 steps); then the grid path over those eight views (the grid spec at
 finest 32 and at finest 64, the cascade's 8 and 4 px sub-tiles),
-``fit_dense_grid`` at the flagship on the views' merged schedule, and last
+``fit_dense_grid`` at the flagship on the views' merged schedule, then
 the windowed path with the per-ray integrator K9f / K9b: the dense
 headline through ``Renderer(use_window=True)``, the fine grid at 16 px
 cells with its windowed fallback, and ``fit_dense_grid``'s windowed and
-plain modes at the flagship. Phases, each fatal when it fails:
+plain modes at the flagship; and last the split tiled backward
+(``DVREN_BWD_SPLIT=pallas``: K2's bank-block form and K6) on the dense
+stack, the sparse float32 field and ``fit_dense_grid``. Phases, each fatal
+when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
@@ -204,17 +207,52 @@ plain modes at the flagship. Phases, each fatal when it fails:
 41. K1 and K2 in their supercell, subs 16 form on the flagship's view 0
     (4 px, ``cell_scale=2``): one frame and backward (one launch per
     group each), the twins bit for bit on the first 8 tiles of every
-    group, times beside the twins' and the bounds.
+    group, times beside the twins' and the bounds;
+42. K6 (bank blocks -> slot rows) against its twin, as 32-bit words, on
+    the dense headline's 14 groups (K2's bank-form cotangents of a seeded
+    random ``gs``, each group into its slice of one array) and on blocks
+    holding -0.0, subnormals, +-inf and NaN payloads; its time over the
+    14 launches beside the twin's, ``banks.transpose(1, 2).contiguous()``
+    (``library_ms``) and its bound;
+43. K2's bank form against its rows form, transposed, and its repeat, bit
+    for bit, and within 2e-6 x scale of its twin's bank form, on every
+    group: at subs 1 (the headline), subs 4 (the flagship's eight views at
+    8 px cells, merged; groups and fallback rays printed) and subs 16
+    (view 0 at 4 px cells, a one-view merge), with one backward of
+    ``render_tiled_stack`` under "pallas" at subs 4 and 16 (K2 and K6 once
+    per group); times beside the rows form's;
+44. the dense headline as a one-view ``merge_view_schedules`` through
+    ``render_tiled_stack``: four SGD steps at lr 1e-3 x 786,432 under
+    "xla" and under "pallas", the losses and d_sigma / d_color equal bit
+    for bit at every step, K6 14 times per step under "pallas" and never
+    under "xla", the loss falling; the step timed under both (xla,
+    pallas, pallas, xla);
+45. in a child process started with ``DVREN_BWD_SPLIT=pallas`` (the flag
+    read at import; a failing child fails the script):
+    ``SparseGridField.from_dense(headline, threshold=0)`` in float32
+    through ``Renderer.backward`` under ``torch.use_deterministic_
+    algorithms`` with both values of the flag, the gradients equal bit
+    for bit between the routes and between calls, K6 once per group under
+    "pallas"; four SGD steps on the bricks under "pallas" (the loss
+    falls); the step timed under both;
+46. ``fit_dense_grid(mode="tiled")`` on two 512^2 views of the headline
+    (its camera, and that camera moved +0.05 in x) toward the headline
+    field's frames rendered by the port, from a flat student (0.5), Adam
+    lr 5e-2, 8 steps, ``sync_every=4``, once per value of the flag: the
+    cascade keeps 16 px cells (else the phase fails: K6 would be off the
+    path), the loss histories and final parameters equal bit for bit, K6
+    once per group per step under "pallas"; ``schedule_build_s`` and
+    ``steady_step_ms`` of each.
 
 ``--only dense`` runs phases 1-10, ``--only grid`` phases 1 and 16-20,
-``--only window`` phases 1 and 37-41: each alone, to time two trees
-against each other in one call.
+``--only window`` phases 1 and 37-41, ``--only split`` phases 1 and 42-46:
+each alone, to time two trees against each other in one call.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
 its float operations over 67 TFLOP/s, the H100 SXM's published
 peaks; ``library_ms`` is null where no single PyTorch call computes the
-function, the transpose's time for K5a and K5b), then the card line, and
+function, the transpose's time for K5a, K5b and K6), then the card line, and
 as the last line
 ``{"ok": true, "device": {...}}``. Exits nonzero, without that
 line, when CUDA is missing, a kernel does not build, or any check fails.
@@ -223,9 +261,11 @@ Imports no JAX.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
+import os
 import subprocess
 import sys
 import time
@@ -432,6 +472,25 @@ def cuda_ms(torch, fn, iters, warmup=2):
     return start.elapsed_time(end) / iters
 
 
+def device_ms(torch, fn, iters, warmup=2):
+    """Mean device ms per call of ``fn``: the stream first sleeps on the
+    card while the host queues the timed calls behind it, so the events
+    time the launches back to back, without the host's cost of issuing
+    them (which ``cuda_ms`` includes when a call is short)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(200_000_000)     # ~0.1 s at the H100's clocks
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / iters
+
+
 def head_errors(torch, fused_tiles, plan, a, b):
     """(max |diff| over r, g, b, T, opacity; max |diff| of depth)."""
     (ra, ga, ba), ta, oa, da = fused_tiles.finalize_heads(plan, a)
@@ -469,7 +528,8 @@ DENSE_KERNELS = {   # counter name -> wrapper, in ops.fused_tiles or
     "fused_tiles": "tile_forward", "fused_tiles_bwd": "tile_backward",
     "packed_table": "build_rows", "packed_table_bwd": "table_grad_to_params",
     "packed_table16": "build_rows16",
-    "packed_table16_bwd": "table16_grad_to_params"}
+    "packed_table16_bwd": "table16_grad_to_params",
+    "banks_to_rows": "banks_to_rows"}
 DENSE_F32 = ("fused_tiles", "packed_table", "fused_tiles_bwd",
              "packed_table_bwd")    # the float32 route's kernels
 
@@ -2972,6 +3032,470 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     return kernels, report
 
 
+SPLIT_STEPS = 4          # SGD steps per route (phases 44 and 45)
+SPLIT_FIT_STEPS = 8      # fit_dense_grid steps per route (phase 46)
+SPLIT_FIT_SYNC = 4
+SPLIT_VIEW_DX = 0.05     # phase 46's second view: the headline camera + x
+# -0.0, subnormals, +-inf, NaNs with payloads (quiet and signalling)
+SPECIAL_WORDS = (0x80000000, 0x00000001, 0x807FFFFF, 0x00400000, 0x7F800000,
+                 0xFF800000, 0x7FC00001, 0xFFC12345, 0x7F800001, 0xFFA00000)
+
+
+def words(x):
+    """A float32 tensor's 32-bit words, for comparisons bit for bit."""
+    import torch
+
+    return x.contiguous().view(torch.int32)
+
+
+def special_blocks(torch, dev, n_blocks=3, seed=42):
+    """Seeded (B, 32, 128) f32 bank blocks of normal values with
+    SPECIAL_WORDS at random places in every block."""
+    rng = np.random.default_rng(seed)
+    banks = rng.normal(size=(n_blocks, 32, 128)).astype(np.float32)
+    bits = banks.view(np.uint32).reshape(n_blocks, -1)
+    for b in range(n_blocks):
+        cols = rng.choice(32 * 128, size=len(SPECIAL_WORDS), replace=False)
+        bits[b, cols] = np.array(SPECIAL_WORDS, np.uint32)
+    return torch.from_numpy(banks).to(dev)
+
+
+def bank_form_check(torch, args, gss, what):
+    """K2's bank form against its rows form, transposed, and its repeat,
+    bit for bit, on every group; then its twin's bank form once. Returns
+    (max |kernel - twin|, x scale, the twin's ms, bank-form ms, rows-form
+    ms)."""
+    from dvren_tpu_torch.ops import fused_tiles
+
+    outs = []
+    for a, gs in zip(args, gss):
+        rows, _ = fused_tiles.tile_backward(*a[:6], gs, a[6])
+        banks, _ = fused_tiles.tile_backward(*a[:6], gs, a[6], emit="banks")
+        again, _ = fused_tiles.tile_backward(*a[:6], gs, a[6], emit="banks")
+        torch.cuda.synchronize()
+        require(bool(torch.isfinite(banks).all()),
+                f"K2's bank form not finite ({what})")
+        require(torch.equal(banks, rows.transpose(2, 3)),
+                f"K2's bank form differs from its rows form transposed "
+                f"({what})")
+        require(torch.equal(again, banks),
+                f"K2's bank form differs between two runs ({what})")
+        outs.append(banks)
+    plain, plain_ms = timed_once(torch, lambda: [
+        fused_tiles.tile_backward_plain(*a[:6], gs, a[6], emit="banks")[0]
+        for a, gs in zip(args, gss)])
+    err = max(float((b - p).abs().max()) for b, p in zip(outs, plain))
+    rel = max(rel_err(b, p) for b, p in zip(outs, plain))
+    require(rel <= GRID_TOL,
+            f"K2's bank form differs from its twin's ({what}): {rel:.3e}")
+    banks_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward(
+        *a[:6], gs, a[6], emit="banks") for a, gs in zip(args, gss)], 10)
+    rows_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward(
+        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 10)
+    return err, rel, plain_ms, banks_ms, rows_ms
+
+
+@contextlib.contextmanager
+def split_route(tiled, value):
+    """``tiled.BWD_SPLIT`` set to ``value`` inside the block, as it was
+    after."""
+    before, tiled.BWD_SPLIT = tiled.BWD_SPLIT, value
+    try:
+        yield
+    finally:
+        tiled.BWD_SPLIT = before
+
+
+def stack_split_backward(torch, tiled, plan, field, merged, counts, reset):
+    """One backward through render_tiled_stack under BWD_SPLIT "pallas":
+    the launches of K2 and K6, each once per merged group."""
+    leaf = field.with_params(field.sigma.detach().clone(),
+                             field.color.detach().clone())
+    with split_route(tiled, "pallas"):
+        reset()
+        img = tiled.render_tiled_stack(plan, leaf, merged)
+        img.square().sum().backward()
+        torch.cuda.synchronize()
+        c = counts()
+    n = len(merged.sched.groups)
+    require(c["fused_tiles_bwd"] == n and c["banks_to_rows"] == n,
+            f"render_tiled_stack's split backward did not launch K2 and K6 "
+            f"once per group ({n}): {c}")
+    require(float(leaf.sigma.grad.abs().max()) > 0,
+            "the split backward's d_sigma is zero")
+    return c
+
+
+def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
+    """Phases 42-46: the split tiled backward (``DVREN_BWD_SPLIT=pallas``):
+    K6 and K2's bank form against their twins and the rows form, the dense
+    stack's SGD steps, the sparse Renderer.backward (in a child process
+    that reads the flag from its environment) and fit_dense_grid, each
+    under both values of the flag. ``headline``: phase 3's (plan, config,
+    field, numpy schedule), else built here."""
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import tiled
+
+    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    kernels, report = [], {}
+    if headline is None:
+        plan, config = headline_scene(P)
+        field = P.DenseGridField.create(config, device=dev)
+        field.requires_grad_(False)
+        t0 = time.perf_counter()
+        sched_host, _ = tiled.build_tiled_schedule_auto(plan, field)
+        print(f"headline schedule build {time.perf_counter() - t0:.3f} s",
+              flush=True)
+    else:
+        plan, config, field, sched_host = headline
+    sched = sched_host.to(dev)
+    args = variant_args(torch, plan, field, sched)
+    n_groups = len(args)
+    gen = torch.Generator(device=dev).manual_seed(42)
+    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
+           for a in args]
+
+    # 42. K6 against its twin on the headline's bank cotangents
+    banks = [fused_tiles.tile_backward(*a[:6], gs, a[6], emit="banks")[0]
+             .reshape(-1, 32, 128) for a, gs in zip(args, gss)]
+    n_blocks = sum(int(b.shape[0]) for b in banks)
+    offs = np.cumsum([0] + [int(b.shape[0]) * 128 for b in banks])[:-1]
+    out = torch.empty((n_blocks * 128, 32), device=dev)
+    for b, off in zip(banks, offs):
+        packed_transpose.banks_to_rows(b, out=out, offset=int(off))
+    torch.cuda.synchronize()
+    twin = torch.cat([packed_transpose.banks_to_rows_plain(b) for b in banks])
+    require(torch.equal(words(out), words(twin)),
+            "K6 differs from its twin on the headline's cotangents")
+    special = special_blocks(torch, dev)
+    got = packed_transpose.banks_to_rows(special)
+    torch.cuda.synchronize()
+    require(torch.equal(words(got),
+                        words(packed_transpose.banks_to_rows_plain(special))),
+            "K6 differs from its twin on -0.0, subnormals, inf and NaNs")
+    k6_fns = {
+        "kernel": lambda: [packed_transpose.banks_to_rows(
+            b, out=out, offset=int(off)) for b, off in zip(banks, offs)],
+        "plain": lambda: [packed_transpose.banks_to_rows_plain(b)
+                          for b in banks],
+        "library": lambda: [b.transpose(1, 2).contiguous() for b in banks]}
+    k6_dev = {k: device_ms(torch, fn, 20) for k, fn in k6_fns.items()}
+    k6_host = {k: cuda_ms(torch, fn, 50) for k, fn in k6_fns.items()}
+    k6_ms, k6_plain_ms, k6_lib_ms = (k6_dev["kernel"], k6_dev["plain"],
+                                     k6_dev["library"])
+    k6_bound = bound(2 * nbytes(*banks), 0)
+    print(f"K6 == plain, bit for bit, on {n_groups} groups ({n_blocks} bank "
+          f"blocks, {2 * nbytes(*banks) / 1e6:.1f} MB moved) and on a block "
+          f"of -0.0, subnormals, +-inf and NaN payloads; device ms over the "
+          f"{n_groups} launches: K6 {k6_ms:.4f}, twin {k6_plain_ms:.4f}, "
+          f"banks.transpose(1, 2).contiguous() {k6_lib_ms:.4f}, bound "
+          f"{k6_bound['bound_ms']:.4f}; issued from the host one after "
+          f"another: K6 {k6_host['kernel']:.4f}, twin {k6_host['plain']:.4f},"
+          f" transpose {k6_host['library']:.4f} ({card})", flush=True)
+    report["k6"] = {"device_ms": k6_dev, "host_issued_ms": k6_host,
+                    "bank_blocks": n_blocks,
+                    "bound_ms": k6_bound["bound_ms"]}
+
+    # 43. K2's bank form against its rows form: subs 1 (the headline),
+    # subs 4 (the flagship's eight views at 8 px cells, merged) and subs 16
+    # (view 0 at 4 px cells, a one-view merge)
+    forms = {}
+
+    def bank_entry(form, f_args, f_gss, f_sched, launches, res):
+        err, rel, plain_ms, banks_ms, rows_ms = res
+        live = f_sched.tiled_samples
+        k_in = sum(nbytes(*a[:6]) for a in f_args)
+        rows_b = sum(a[0].shape[0] * a[6].banks * 128 * 32 * 4
+                     for a in f_args)
+        forms[form] = {"banks_ms": banks_ms, "rows_ms": rows_ms,
+                       "plain_ms": plain_ms, "rel_err": rel,
+                       "groups": len(f_args)}
+        print(f"K2 bank form, {form}: == rows form transposed and its repeat "
+              f"on {len(f_args)} groups, vs twin {rel:.3e} x scale; "
+              f"{banks_ms:.4f} ms (rows form {rows_ms:.4f}, twin "
+              f"{plain_ms:.4f}) ({card})", flush=True)
+        return {"name": f"fused_tiles_bwd:banks_{form}", "route": "cuda",
+                "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
+                "replaces": "dvren_tpu/ops/fused_tiles.py:714",
+                "launches": launches, "max_abs_err": err, "ms": banks_ms,
+                "plain_ms": plain_ms,
+                **bound(k_in + sum(nbytes(g) for g in f_gss) + rows_b,
+                        live * DENSE_BWD_OPS)}
+
+    subs1 = bank_form_check(torch, args, gss, "subs 1")
+    fl_plans, fl_config = flagship_views(P)
+    fl_field = P.DenseGridField.create(fl_config, device=dev)
+    fl_field.requires_grad_(False)
+    sub_entries = []
+    for form, px, plans in (("subs4", 8, fl_plans), ("subs16", 4,
+                                                     fl_plans[:1])):
+        t0 = time.perf_counter()
+        views = [tiled.build_tiled_schedule(p, fl_field, tile_px=px,
+                                            quantize=True) for p in plans]
+        merged = tiled.merge_view_schedules(views, plans=plans).to(dev)
+        build_s = time.perf_counter() - t0
+        print(f"{form}: {len(plans)} view(s) at {px} px cells, merged: "
+              f"{schedule_line(merged.sched, build_s)}", flush=True)
+        f_args = variant_args(torch, plans[0], fl_field, merged.sched)
+        f_gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
+                             device=dev) for a in f_args]
+        res = bank_form_check(torch, f_args, f_gss, form)
+        c = stack_split_backward(torch, tiled, plans[0], fl_field, merged,
+                                 counts, reset)
+        sub_entries.append(bank_entry(form, f_args, f_gss, merged.sched,
+                                      c["fused_tiles_bwd"], res))
+        forms[form]["fallback_rays"] = merged.sched.fallback_rays
+
+    # 44. the dense headline as a one-view merge through render_tiled_stack:
+    # SGD steps under both values of the flag
+    merged = tiled.merge_view_schedules([sched_host], plans=[plan]).to(dev)
+    n_values = plan.height * plan.width * 3
+    target = torch.zeros((1, plan.height, plan.width, 3), device=dev)
+
+    def stack_trainer(lr):
+        f = P.DenseGridField.create(config, device=dev)
+        opt = torch.optim.SGD(f.parameters(), lr=lr)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = mse(tiled.render_tiled_stack(plan, f, merged), target)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return f, step
+
+    def stack_steps(split):
+        f, step = stack_trainer(LR * n_values)
+        losses, grads, per_step = [], [], []
+        with split_route(tiled, split):
+            reset()
+            for _ in range(SPLIT_STEPS):
+                before = counts()
+                losses.append(float(step().detach()))
+                after = counts()
+                per_step.append({k: after[k] - before[k] for k in after})
+                grads.append((f.sigma.grad.clone(), f.color.grad.clone()))
+        return losses, grads, per_step, counts()
+
+    runs = {s: stack_steps(s) for s in ("xla", "pallas")}
+    for split, (losses, _, per_step, _) in runs.items():
+        print(f"{SPLIT_STEPS} SGD steps through render_tiled_stack under "
+              f"{split!r} at lr {LR} x {n_values}: loss {losses}; launches "
+              f"per step {per_step[0]}", flush=True)
+        want_k6 = n_groups if split == "pallas" else 0
+        require(all(c["banks_to_rows"] == want_k6
+                    and c["fused_tiles_bwd"] == n_groups for c in per_step),
+                f"under {split!r} K6 did not launch {want_k6} times and K2 "
+                f"{n_groups} times per step")
+        require(all(b < a for a, b in zip(losses, losses[1:])),
+                f"the stack's loss does not fall under {split!r}")
+    require(runs["xla"][0] == runs["pallas"][0],
+            "the losses differ between the routes")
+    for (xs, xc), (ps, pc) in zip(runs["xla"][1], runs["pallas"][1]):
+        require(torch.equal(words(xs), words(ps))
+                and torch.equal(words(xc), words(pc)),
+                "d_sigma / d_color differ between the routes")
+    print("the routes' losses, d_sigma and d_color equal bit for bit at "
+          "every step", flush=True)
+    stack_ms = {}
+    for key in ("xla", "pallas", "pallas_again", "xla_again"):
+        with split_route(tiled, key.split("_")[0]):
+            stack_ms[key] = cuda_ms(torch, stack_trainer(LR)[1], STEPS,
+                                    warmup=2)
+    print(f"stack SGD step (lr {LR}): 'xla' {stack_ms['xla']:.4f} / "
+          f"{stack_ms['xla_again']:.4f} ms, 'pallas' {stack_ms['pallas']:.4f}"
+          f" / {stack_ms['pallas_again']:.4f} ms over {STEPS} steps "
+          f"({card})", flush=True)
+    report["stack"] = {"losses": runs["pallas"][0], "step_ms": stack_ms}
+    k6_launches = runs["pallas"][3]["banks_to_rows"]
+    k2_launches = runs["pallas"][3]["fused_tiles_bwd"]
+
+    # 45. the sparse float32 field through Renderer.backward, in a child
+    # process that reads DVREN_BWD_SPLIT=pallas at import
+    env = dict(os.environ, DVREN_BWD_SPLIT="pallas")
+    proc = subprocess.run([sys.executable, os.path.abspath(__file__),
+                           "--split-child"], env=env, capture_output=True,
+                          text=True, timeout=900)
+    lines = proc.stdout.strip().splitlines()
+    for line in lines[:-1]:
+        print(f"  [45] {line}", flush=True)
+    if proc.returncode != 0:
+        print(proc.stderr[-4000:], file=sys.stderr, flush=True)
+        raise AssertionError(f"phase 45's child exited {proc.returncode}")
+    report["sparse"] = json.loads(lines[-1])
+
+    # 46. fit_dense_grid(mode="tiled") on two 512^2 views of the headline
+    cams = [P.CameraConfig(c2w=tuple(plan.camera.c2w))]
+    c2w = list(plan.camera.c2w)
+    c2w[3] += SPLIT_VIEW_DX
+    cams.append(P.CameraConfig(c2w=tuple(c2w)))
+    t0 = time.perf_counter()
+    _, t_merged, render_stack = fit._scheduled_views(plan, cams, field,
+                                                     "tiled")
+    with torch.no_grad():
+        targets = render_stack(field, t_merged)
+    ts = t_merged.sched
+    print(f"fit views' merged schedule (the fit builds the same from the "
+          f"same plans, bbox and grid): "
+          f"{schedule_line(ts, time.perf_counter() - t0)}", flush=True)
+    require(ts.tile_px == 16 and ts.cell_scale == 1,
+            f"the cascade chose ({ts.tile_px} px, cell_scale "
+            f"{ts.cell_scale}), not 16 px cells: K6 is not on this fit's path")
+    student = field.with_params(torch.full_like(field.sigma, 0.5),
+                                torch.full_like(field.color, 0.5))
+    fits = {}
+    for split in ("xla", "pallas"):
+        with split_route(tiled, split):
+            reset()
+            res = fit.fit_dense_grid(
+                plan, student, cams, targets,
+                fit.FitConfig(learning_rate=5e-2, steps=SPLIT_FIT_STEPS,
+                              target_psnr=None, sync_every=SPLIT_FIT_SYNC),
+                mode="tiled")
+            torch.cuda.synchronize()
+            c = counts()
+        want_k6 = SPLIT_FIT_STEPS * len(ts.groups) if split == "pallas" else 0
+        print(f"fit_dense_grid under {split!r}: mode {res.mode}, loss "
+              f"{res.loss_history[0]:.6f} -> {res.loss_history[-1]:.6f}, "
+              f"schedule_build_s {res.schedule_build_s:.4f}, steady_step_ms "
+              f"{res.steady_step_ms:.4f}, launches {c} ({card})", flush=True)
+        require(res.mode == "tiled" and res.steps_run == SPLIT_FIT_STEPS,
+                f"the fit ran {res.mode} for {res.steps_run} steps")
+        require(c["banks_to_rows"] == want_k6,
+                f"the fit under {split!r} launched K6 {c['banks_to_rows']} "
+                f"times, not {want_k6}")
+        require(res.loss_history[-1] < res.loss_history[0],
+                f"the fit's loss does not fall under {split!r}")
+        fits[split] = res
+    require(fits["xla"].loss_history == fits["pallas"].loss_history,
+            "the fits' loss histories differ between the routes")
+    for name in ("sigma", "color"):
+        require(torch.equal(words(getattr(fits["xla"].field, name).detach()),
+                            words(getattr(fits["pallas"].field, name)
+                                  .detach())),
+                f"the fits' final {name} differ between the routes")
+    print("the fits' loss histories and final parameters equal bit for bit",
+          flush=True)
+    report["fit"] = {s: {"loss_history": r.loss_history,
+                         "schedule_build_s": r.schedule_build_s,
+                         "steady_step_ms": r.steady_step_ms}
+                     for s, r in fits.items()}
+    report["k2_bank_forms"] = forms
+
+    kernels.append({
+        "name": "banks_to_rows", "route": "cuda",
+        "source": "dvren_tpu_torch/csrc/banks_to_rows.cu",
+        "replaces": "dvren_tpu/ops/packed_transpose.py:153",
+        "launches": k6_launches, "max_abs_err": 0.0, "ms": k6_ms,
+        "plain_ms": k6_plain_ms, **k6_bound, "library_ms": k6_lib_ms})
+    kernels.append(bank_entry("subs1", args, gss, sched, k2_launches, subs1))
+    kernels += sub_entries
+    return kernels, report
+
+
+def run_split_child(torch, P, dev) -> dict:
+    """Phase 45, in a process started with DVREN_BWD_SPLIT=pallas: the
+    sparse float32 headline through Renderer.backward under both values
+    of the flag (deterministic algorithms), four SGD steps on the bricks
+    under "pallas", and the step under both."""
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import tiled
+
+    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    print(f"BWD_SPLIT read from the environment: {tiled.BWD_SPLIT!r}",
+          flush=True)
+    require(tiled.BWD_SPLIT == "pallas",
+            "the child did not read DVREN_BWD_SPLIT=pallas at import")
+    plan, config = headline_scene(P)
+    base = P.DenseGridField.create(config, device=dev)
+    sp = P.SparseGridField.from_dense(base, threshold=0.0, device=dev)
+    sp.requires_grad_(False)
+    require(sp.bricks.dtype == torch.float32
+            and sp.occupied_bricks == sp.total_bricks,
+            "the sparse field is not float32 with every brick")
+    renderer = P.Renderer(P.Context.create(device="cuda"), plan)
+    renderer.forward(sp)
+    s_sched = renderer._tiled_schedule
+    n = len(s_sched.groups)
+    require(s_sched.table_kind == "sparse" and s_sched.cell_scale == 1,
+            "the sparse forward did not take a sparse cell schedule")
+    dl = np.random.default_rng(45).uniform(
+        -1.0, 1.0, plan.ray_count * 3).astype(np.float32)
+    grads = {}
+    for split in ("xla", "pallas"):
+        with split_route(tiled, split):
+            renderer.forward(sp)
+            reset()
+            torch.use_deterministic_algorithms(True)
+            try:
+                g1 = renderer.backward(sp, dl)
+                c = counts()
+                g2 = renderer.backward(sp, dl)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        print(f"sparse Renderer.backward under {split!r}: launches {c}",
+              flush=True)
+        want = n if split == "pallas" else 0
+        require(c["banks_to_rows"] == want and c["fused_tiles_bwd"] == n,
+                f"under {split!r} K6 did not launch {want} times and K2 {n}")
+        for key in ("bricks", "camera", "camera_k"):
+            x = getattr(g1, key)
+            require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
+                    f"sparse backward {key} not finite or zero")
+            require(np.array_equal(x.view(np.int32),
+                                   getattr(g2, key).view(np.int32)),
+                    f"sparse backward {key} differs between calls")
+        grads[split] = g1
+    for key in ("bricks", "camera", "camera_k"):
+        require(np.array_equal(getattr(grads["xla"], key).view(np.int32),
+                               getattr(grads["pallas"], key).view(np.int32)),
+                f"sparse backward {key} differs between the routes")
+    print("sparse d(bricks) and camera gradients equal bit for bit between "
+          "the routes and between calls", flush=True)
+
+    n_values = plan.height * plan.width * 3
+    target = torch.zeros((plan.height, plan.width, 3), device=dev)
+
+    def trainer(lr):
+        f = P.SparseGridField.from_dense(base, threshold=0.0, device=dev)
+        opt = torch.optim.SGD(f.parameters(), lr=lr)
+
+        def step():
+            opt.zero_grad(set_to_none=True)
+            loss = mse(tiled.render_tiled(plan, f, s_sched).image, target)
+            loss.backward()
+            opt.step()
+            return loss
+
+        return step
+
+    step = trainer(LR * n_values)
+    reset()
+    losses = [float(step().detach()) for _ in range(SPLIT_STEPS)]
+    c = counts()
+    print(f"{SPLIT_STEPS} SGD steps on the bricks under 'pallas' at lr {LR} "
+          f"x {n_values}: loss {losses}; launches {c}", flush=True)
+    require(c["banks_to_rows"] == SPLIT_STEPS * n,
+            "K6 did not launch once per group in every step")
+    require(all(b < a for a, b in zip(losses, losses[1:])),
+            "the sparse loss does not fall")
+    step_ms = {}
+    for key in ("xla", "pallas", "pallas_again", "xla_again"):
+        with split_route(tiled, key.split("_")[0]):
+            step_ms[key] = cuda_ms(torch, trainer(LR), STEPS, warmup=2)
+    print(f"sparse SGD step (lr {LR}): 'xla' {step_ms['xla']:.4f} / "
+          f"{step_ms['xla_again']:.4f} ms, 'pallas' {step_ms['pallas']:.4f} / "
+          f"{step_ms['pallas_again']:.4f} ms over {STEPS} steps ({card_line()})",
+          flush=True)
+    return {"groups": n, "losses": losses, "step_ms": step_ms}
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -3014,6 +3538,13 @@ def run(only: str = "all") -> dict:
         elapsed("37-41")
         print(json.dumps({"kernels": win_kernels}), flush=True)
         print(json.dumps({**win_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "split":
+        split_kernels, split_report = run_split(torch, P, dev, card)
+        elapsed("42-46")
+        print(json.dumps({"kernels": split_kernels}), flush=True)
+        print(json.dumps({**split_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
 
@@ -3412,6 +3943,10 @@ def run(only: str = "all") -> dict:
     win_kernels, hash_report["window"] = run_window(torch, P, dev, card)
     kernels += win_kernels
     elapsed("37-41")
+    split_kernels, hash_report["split"] = run_split(
+        torch, P, dev, card, headline=(plan, config, field, sched_host))
+    kernels += split_kernels
+    elapsed("42-46")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -3441,11 +3976,15 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("all", "dense", "grid", "window"), default="all",
+        "--only", choices=("all", "dense", "grid", "window", "split"),
+        default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'grid': phase "
              "1 and phases 16-20 (the grid headline); 'window': phase 1 and "
-             "phases 37-41 (the windowed path, its fallback and K9); each "
-             "for timing two trees against each other in one call")
+             "phases 37-41 (the windowed path, its fallback and K9); "
+             "'split': phase 1 and phases 42-46 (the split backward, K6); "
+             "each for timing two trees against each other in one call")
+    parser.add_argument("--split-child", action="store_true",
+                        help=argparse.SUPPRESS)   # phase 45's child process
     args = parser.parse_args()
     try:
         import torch
@@ -3456,6 +3995,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    if args.split_child:
+        try:
+            import dvren_tpu_torch as P
+
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+            print(json.dumps(run_split_child(torch, P, dev)), flush=True)
+        except Exception:  # the parent reports the failure and fails
+            traceback.print_exc()
+            return 1
+        return 0
     try:
         device = run(args.only)
     except Exception:  # report any failed phase, then fail the run

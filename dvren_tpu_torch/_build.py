@@ -50,7 +50,7 @@ _SIGNATURES = {
                           _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _P], _I),
     "dvt_tile_backward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I,
+                           _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F,
                            _F, _F, _F,
@@ -58,6 +58,7 @@ _SIGNATURES = {
     "dvt_packed_table_grad": ([_P, _P, _P, _I, _I, _I, _P], _I),
     "dvt_packed_table16": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "dvt_packed_table16_grad": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "dvt_banks_to_rows": ([_P, _P, _I, _P], _I),
     "dvt_hash_forward": ([_P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I,
                           _F, _F, _F, _F, _F,

@@ -1,16 +1,21 @@
 // Fused tile backward (K2): the recompute adjoint of K1 for every ray of
-// a tile group, with the table gradient as f32 slot rows and, on request,
-// the ray-plane (camera) adjoint.
+// a tile group, with the table gradient as f32 slot rows (or, for the
+// split backward, bank blocks) and, on request, the ray-plane (camera)
+// adjoint.
 //
 // Replaces dvren_tpu/ops/fused_tiles.py::_bwd_kernel (launched by
 // _tile_op.bwd_call) for both stencils ("cell", "super") and 1, 4 or 16
-// sub-tiles per block, emit "rows16" in f32 form. Inputs are K1's (see
-// csrc/fused_tiles.cu) plus
+// sub-tiles per block, emit "rows16" in f32 form, and for the cell stencil
+// emit "banks". Inputs are K1's (see csrc/fused_tiles.cu) plus
 //   gs     (T, 5, 16, 16) f32  d(loss)/d(K1 output) per ray
 // Outputs:
 //   d_rows (T, NB, 128, C) f32   d(bank table), row (t*NB + b)*128 + lane,
 //                                column ch*8 + corner (C = 32) or
-//                                ch*27 + vertex (C = 108); zeroed here
+//                                ch*27 + vertex (C = 108); zeroed here.
+//                                With emit_banks (cell stencil only) the
+//                                bank form (T, NB, 32, 128): element
+//                                ((t*NB + b)*32 + col)*128 + lane, the
+//                                same values transposed per bank
 //   d_rayt (T, 12, 128) f32      d(rayt) in rayt's layout, or null
 //   s_pre  (T, nc*8, 256) f32    scratch: each sample's optical-depth prefix
 //
@@ -44,6 +49,15 @@
 //   second into b1 = min(b0+1, nb-1), as the TPU kernel does. The ALIGNED
 //   bit (30 of bank0) is ignored. tile_backward_plain sums in this order
 //   (fused_tiles.ordered_sums), so the two agree to the last bit.
+// - The bank form (BANKS) changes the final adds only. Its window
+//   accumulator is slot-major with rows padded to 33 words, and the whole
+//   block flushes a window: thread (slot = ray % 128, column parity
+//   ray / 128) adds the touched rows' 16 columns into their bank's
+//   (col, lane) words, one 128-byte run per warp and column, first half
+//   into b0, then second into b1. Each element gets the same adds in the
+//   same order as in the rows form (window by window, b0 before b1), so
+//   the bank form is the rows form transposed, bit for bit; it costs two
+//   block barriers per window.
 // - A supercell sample's 27 hat weights have 8 nonzero values, the cell
 //   corner weights of the vertices lb + (dx, dy, dz); the other 76
 //   columns of its row get exact zeros, which the kernel skips (an
@@ -84,9 +98,9 @@ constexpr unsigned kFull = 0xffffffffu;
 
 // dynamic shared memory: the staged samples (slot, 3 fractions, 4
 // d-planes per sample) and the window's (256, C) accumulator
-template <bool SUPER>
+template <bool SUPER, bool BANKS>
 constexpr int smem_bytes() {
-  return (8 * kChunkSamples + 2 * kLanes * (SUPER ? 108 : kNch)) * 4;
+  return (8 * kChunkSamples + 2 * kLanes * ((SUPER ? 108 : kNch) + BANKS)) * 4;
 }
 
 struct TileConsts {
@@ -150,7 +164,43 @@ __device__ __forceinline__ int window_slot(int idx2, bool* second) {
                  : min(max(idx2, 0), kLanes - 1);
 }
 
-template <int SUBS, bool SUPER>
+// The window accumulator's row of window slot r * 8 + warp: warp-major
+// (warp, r) for the rows form, slot-major with rows padded to kCols + 1
+// words for the bank form, whose flush reads it slot by slot.
+template <int kCols, bool BANKS>
+__device__ __forceinline__ float* acc_row(float* win_acc, int warp, int r) {
+  return BANKS ? win_acc + (r * 8 + warp) * (kCols + 1)
+               : win_acc + (warp * 32 + r) * kCols;
+}
+
+// The bank form's flush of one window (cell stencil): every warp has
+// summed its rows; thread (slot, column parity) adds window rows slot and
+// 128 + slot, where touched, into banks b0 and b1 at (col, lane) and
+// zeroes them. One thread does both halves of a slot, so an element both
+// reach (b1 == b0 when the window clamps) gets b0's add first, as in the
+// rows form.
+__device__ __forceinline__ void flush_banks(float* rows_t, float* win_acc,
+                                            unsigned* hit_s, unsigned hit,
+                                            int b0, int b1, int ray) {
+  if ((ray & 31) == 0) hit_s[ray >> 5] = hit;
+  __syncthreads();
+  const int slot = ray & (kLanes - 1);
+  const unsigned owner_hit = hit_s[slot & 7];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    if (!((owner_hit >> (h * 16 + (slot >> 3))) & 1u)) continue;
+    float* arow = win_acc + (h * kLanes + slot) * (kNch + 1);
+    float* g = rows_t + (int64_t)(h ? b1 : b0) * kNch * kLanes + slot;
+#pragma unroll
+    for (int col = ray >> 7; col < kNch; col += 2) {
+      g[col * kLanes] = add(g[col * kLanes], arow[col]);
+      arow[col] = 0.f;
+    }
+  }
+  __syncthreads();
+}
+
+template <int SUBS, bool SUPER, bool BANKS>
 __global__ void __launch_bounds__(kRays)
 tile_backward_kernel(const float* __restrict__ tabs,
                      const uint16_t* __restrict__ samp,
@@ -162,6 +212,7 @@ tile_backward_kernel(const float* __restrict__ tabs,
                      float* __restrict__ d_rows,
                      float* __restrict__ d_rayt,
                      float* __restrict__ s_pre, TileConsts k) {
+  static_assert(!(SUPER && BANKS), "the bank form is cell-stencil only");
   constexpr int kCols = SUPER ? 108 : kNch;
   constexpr int kPer = SUPER ? 27 : 8;           // columns per channel
   constexpr unsigned kLaneMask = SUPER ? 0xFFFu : 0x7FFFu;
@@ -173,6 +224,7 @@ tile_backward_kernel(const float* __restrict__ tabs,
   float* win_acc = stage + 8 * kChunkSamples; // (256 slots, C columns)
   __shared__ int warp_total[kWarps];
   __shared__ int sub_start[SUBS + 1];         // staged range per sub-tile
+  __shared__ unsigned hit_s[kWarps];          // the bank form's touched rows
 
   const int64_t t = blockIdx.x;
   const int ray = threadIdx.x;
@@ -189,7 +241,9 @@ tile_backward_kernel(const float* __restrict__ tabs,
   for (int i = ray; i < k.nb * kLanes * kCols / 4; i += kRays) {
     rows4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int i = ray; i < 2 * kLanes * kCols; i += kRays) win_acc[i] = 0.f;
+  for (int i = ray; i < 2 * kLanes * (kCols + BANKS); i += kRays) {
+    win_acc[i] = 0.f;
+  }
 
   const float* rt = rayt + t * 12 * kLanes;
   const int half = ray >> 7;
@@ -262,8 +316,6 @@ tile_backward_kernel(const float* __restrict__ tabs,
   float carry = 0.f;            // sum of gw * w over the later steps
   float dcam[6] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
   const bool cam = d_rayt != nullptr;
-  // the window-accumulator columns this lane flushes
-  float* wacc = win_acc + warp * 32 * kCols;
   for (int c = k.nc - 1; c >= 0; --c) {
     const int b0 = bank0[(t * k.nc + c) * SUBS + sub_tile] & 0x3FFF;
     const int b1 = min(b0 + 1, k.nb - 1);
@@ -469,14 +521,19 @@ tile_backward_kernel(const float* __restrict__ tabs,
 #pragma unroll
             for (int ax = 0; ax < 3; ++ax) lb[ax] = (word >> (16 + ax)) & 1;
           }
-          float* a = wacc + r * kCols + col_ch * kPer
+          float* a = acc_row<kCols, BANKS>(win_acc, warp, r) + col_ch * kPer
                      + corner_col<SUPER>(col_corner, lb);
           *a = add(*a, mul(wc, st_d[col_ch * kChunkSamples + src]));
           hit |= 1u << r;
           if (SUPER) __syncwarp();
         }
       }
+      if constexpr (BANKS) {
+        flush_banks(rows_t, win_acc, hit_s, hit, sb0, sb1, ray);
+        continue;
+      }
       if (SUPER) __syncwarp();
+      float* wacc = acc_row<kCols, false>(win_acc, warp, 0);
       for (int h = 0; h < 2; ++h) {
         unsigned rows_left = hit & (h ? 0xFFFF0000u : 0x0000FFFFu);
         while (rows_left) {
@@ -508,6 +565,7 @@ tile_backward_kernel(const float* __restrict__ tabs,
 // kernel (one window per chunk, a block barrier after each half of its
 // flush); the template ran this form 2.8 % slower on the H100. It adds in
 // the same order as the template, so it too equals the twin bit for bit.
+template <bool BANKS>
 __global__ void __launch_bounds__(kRays)
 tile_backward_cell16_kernel(const float* __restrict__ tabs,
                             const uint16_t* __restrict__ samp,
@@ -525,6 +583,7 @@ tile_backward_cell16_kernel(const float* __restrict__ tabs,
   float* st_d = stage + 4 * kChunkSamples;    // 4 d-planes
   float* win_acc = stage + 8 * kChunkSamples; // (256 slots, 32 columns)
   __shared__ int warp_total[kWarps];
+  __shared__ unsigned hit_s[kWarps];          // the bank form's touched rows
   const int kNoLb[3] = {0, 0, 0};
 
   const int64_t t = blockIdx.x;
@@ -541,7 +600,9 @@ tile_backward_cell16_kernel(const float* __restrict__ tabs,
   for (int i = ray; i < k.nb * kLanes * kNch / 4; i += kRays) {
     rows4[i] = make_float4(0.f, 0.f, 0.f, 0.f);
   }
-  for (int i = ray; i < 2 * kLanes * kNch; i += kRays) win_acc[i] = 0.f;
+  for (int i = ray; i < 2 * kLanes * (kNch + BANKS); i += kRays) {
+    win_acc[i] = 0.f;
+  }
 
   const float* rt = rayt + t * 12 * kLanes;
   const int half = ray >> 7;
@@ -761,7 +822,6 @@ tile_backward_cell16_kernel(const float* __restrict__ tabs,
     // r = s / 8 of the window accumulator; lane i owns column i
     // (ch = i / 8, corner = i % 8) of every row, so each sample keeps all
     // 32 lanes of its warp busy.
-    float* wacc = win_acc + warp * 32 * kNch;
     const int col_ch = lane >> 3, col_corner = lane & 7;
     unsigned hit = 0;   // rows of this warp that received a sample
     for (int base_q = 0; base_q < n_stage; base_q += 32) {
@@ -783,7 +843,7 @@ tile_backward_cell16_kernel(const float* __restrict__ tabs,
         const float wc = mul(mul(w[2][col_corner >> 2],
                                  w[1][(col_corner >> 1) & 1]),
                              w[0][col_corner & 1]);
-        float* a = wacc + r * kNch + lane;
+        float* a = acc_row<kNch, BANKS>(win_acc, warp, r) + lane;
         *a = add(*a, mul(wc, st_d[col_ch * kChunkSamples + src]));
         hit |= 1u << r;
       }
@@ -793,6 +853,11 @@ tile_backward_cell16_kernel(const float* __restrict__ tabs,
     // every warp) into b0, then its second half (rows 16-31) into b1, the
     // same bank when the window clamps; each row is one coalesced 128-byte
     // add, after which the accumulator row is zeroed for the next chunk
+    if constexpr (BANKS) {
+      flush_banks(rows_t, win_acc, hit_s, hit, b0, b1, ray);
+      continue;
+    }
+    float* wacc = acc_row<kNch, false>(win_acc, warp, 0);
     for (int h = 0; h < 2; ++h) {
       unsigned rows_left = hit & (h ? 0xFFFF0000u : 0x0000FFFFu);
       while (rows_left) {
@@ -816,15 +881,17 @@ tile_backward_cell16_kernel(const float* __restrict__ tabs,
 }
 
 
-template <int SUBS, bool SUPER>
+template <int SUBS, bool SUPER, bool BANKS>
 int launch(int n_tiles, cudaStream_t stream, const float* tabs,
            const uint16_t* samp, const float* base, const float* rayt,
            const int* ke, const int* bank0, const float* gs, float* d_rows,
            float* d_rayt, float* s_pre, const TileConsts& k) {
-  auto* kernel = tile_backward_cell16_kernel;
-  if constexpr (SUBS != 1 || SUPER) kernel = tile_backward_kernel<SUBS, SUPER>;
+  auto* kernel = tile_backward_cell16_kernel<BANKS>;
+  if constexpr (SUBS != 1 || SUPER) {
+    kernel = tile_backward_kernel<SUBS, SUPER, BANKS>;
+  }
   static bool smem_set = false;
-  constexpr int bytes = smem_bytes<SUPER>();
+  constexpr int bytes = smem_bytes<SUPER, BANKS>();
   if (!smem_set) {
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
@@ -843,7 +910,7 @@ extern "C" int dvt_tile_backward(
     const float* rayt, const int* ke, const int* bank0, const float* gs,
     float* d_rows, float* d_rayt, float* s_pre,
     int n_tiles, int nc, int nb, int k_max, int subs, int super_stencil,
-    float dt, float t_near, float t_far, float t_stop, float stop,
+    int emit_banks, float dt, float t_near, float t_far, float t_stop, float stop,
     float lo_x, float lo_y, float lo_z, float inv_x, float inv_y,
     float inv_z, float ns_x, float ns_y, float ns_z,
     float kcam_x, float kcam_y, float kcam_z, void* stream) {
@@ -863,15 +930,19 @@ extern "C" int dvt_tile_backward(
   if (n_tiles <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const bool sup = super_stencil != 0;
-#define DVT_BWD(S, SUP)                                                   \
-  return launch<S, SUP>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, gs, \
-                        d_rows, d_rayt, s_pre, k)
-  if (subs == 1 && !sup) DVT_BWD(1, false);
-  if (subs == 4 && !sup) DVT_BWD(4, false);
-  if (subs == 16 && !sup) DVT_BWD(16, false);
-  if (subs == 1 && sup) DVT_BWD(1, true);
-  if (subs == 4 && sup) DVT_BWD(4, true);
-  if (subs == 16 && sup) DVT_BWD(16, true);
+  const bool banks = emit_banks != 0;
+#define DVT_BWD(S, SUP, BANKS)                                            \
+  return launch<S, SUP, BANKS>(n_tiles, st, tabs, samp, base, rayt, ke,   \
+                               bank0, gs, d_rows, d_rayt, s_pre, k)
+  if (subs == 1 && !sup && !banks) DVT_BWD(1, false, false);
+  if (subs == 4 && !sup && !banks) DVT_BWD(4, false, false);
+  if (subs == 16 && !sup && !banks) DVT_BWD(16, false, false);
+  if (subs == 1 && sup && !banks) DVT_BWD(1, true, false);
+  if (subs == 4 && sup && !banks) DVT_BWD(4, true, false);
+  if (subs == 16 && sup && !banks) DVT_BWD(16, true, false);
+  if (subs == 1 && !sup && banks) DVT_BWD(1, false, true);
+  if (subs == 4 && !sup && banks) DVT_BWD(4, false, true);
+  if (subs == 16 && !sup && banks) DVT_BWD(16, false, true);
 #undef DVT_BWD
   return (int)cudaErrorInvalidValue;
 }

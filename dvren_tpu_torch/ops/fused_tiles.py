@@ -7,9 +7,9 @@ Counterpart of ``dvren_tpu/ops/fused_tiles.py``: the Pallas
 ray, one block per 16x16 tile), with the plain PyTorch twins
 :func:`tile_forward_plain` and :func:`tile_backward_plain` beside them.
 The TPU kernels' layout machinery (mask-matmul prefix sums, lane-shuffle
-slot expansion, the ``mxu``/``roll`` ablations, the u16 split of the
+slot expansion, the ``mxu``/``roll`` ablations, the u16 hi/lo split of the
 backward's rows) has no counterpart: on the card a ray's prefix sum is a
-running sum.
+running sum, and the rows stay f32.
 
 Per sample K1 recomputes the trilinear fractions from the slim schedule
 (sample_t bits, slot | mask bits, the tile's ray planes and the slot's
@@ -18,7 +18,11 @@ two-bank window, and runs the optical-depth recurrence with exact early
 stop. Output per ray: r, g, b, sum of w * mid-segment depth, and
 processed optical depth, as (T, 5, 16, 16) image tiles. K2 is its
 recompute adjoint: d(bank table) as f32 slot rows (T, NB, 128, cols)
-and, on request, d(rayt) for camera gradients.
+and, on request, d(rayt) for camera gradients. For the split backward
+(``render/tiled.py``'s ``BWD_SPLIT = "pallas"``) K2 also emits the table
+gradient in JAX's ``emit="banks"`` layout, bank blocks (T, NB, 32, 128),
+the rows form transposed bit for bit (cell stencil only, as in JAX);
+K6 (``packed_transpose.banks_to_rows``) then relays them to slot rows.
 
 Two forms, as in the JAX kernels (``subs`` and ``stencil`` of
 ``tile_op_params``):
@@ -495,10 +499,24 @@ def ordered_sums(vals: torch.Tensor, keys: torch.Tensor,
     return out
 
 
+EMITS = ("rows", "banks")
+
+
+def _check_emit(emit: str, prm: TileParams) -> None:
+    if emit not in EMITS:
+        raise ValueError(f"emit must be one of {EMITS}, got {emit!r}")
+    if emit == "banks" and prm.stencil != "cell":
+        raise ValueError("emit='banks' takes the cell stencil only (32 "
+                         "columns), as the JAX package's K6 does")
+
+
 def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
-                        prm: TileParams, cam: bool = False):
+                        prm: TileParams, cam: bool = False,
+                        emit: str = "rows"):
     """Plain twin of K2: (d_rows (T, NB, 128, C), d_rayt (T, 12, 128) or
-    None) for the per-ray cotangents ``gs`` (T, 5, 16, 16) of K1's heads.
+    None) for the per-ray cotangents ``gs`` (T, 5, 16, 16) of K1's heads;
+    with ``emit="banks"`` the first is the bank form (T, NB, 32, 128),
+    d_rows transposed.
 
     Pass 1 recomputes every sample's optical-depth prefix in K1's order.
     Pass 2 walks the chunks and their steps in reverse with the adjoint
@@ -511,6 +529,7 @@ def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
     carry exact zeros. The camera adjoint is summed per ray in K2's
     order; a supercell sample's is the cell one over its 8 vertices,
     which the JAX kernel's 27-vertex hat-derivative sums equal."""
+    _check_emit(emit, prm)
     lat = _Lattice(tabs, samp, base, rayt, ke, bank0, prm)
     t_cnt, nb, nc, subs = lat.t_cnt, lat.nb, lat.nc, lat.subs
     cols = prm.cols
@@ -591,6 +610,8 @@ def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
                 dcam = [d + t[..., j] for d, t in zip(dcam, per)]
 
     d_rows = acc.reshape(t_cnt, nb, LANES, cols)
+    if emit == "banks":
+        d_rows = d_rows.transpose(2, 3).contiguous()
     d_rayt = (torch.stack(dcam, dim=1).reshape(t_cnt, RAYT_ROWS, LANES)
               if cam else None)
     return d_rows, d_rayt
@@ -607,20 +628,23 @@ def _check_cotangent(gs, tabs):
 
 
 def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
-                  cam: bool = False):
+                  cam: bool = False, emit: str = "rows"):
     """K2: one tile group's d(bank table) as f32 slot rows (T, NB, 128,
     C), row (t * NB + b) * 128 + lane, column ch * 8 + corner (C = 32) or
     ch * 27 + vertex (C = 108, a supercell schedule); and with ``cam``
-    d(rayt) (T, 12, 128) in rayt's layout (else None).
+    d(rayt) (T, 12, 128) in rayt's layout (else None). ``emit="banks"``
+    (cell stencil) gives the table gradient as bank blocks (T, NB, 32,
+    128) instead: the same values, transposed per bank, bit for bit.
 
     ``gs`` (T, 5, 16, 16) f32 is the cotangent of :func:`tile_forward`'s
     output. Launches ``csrc/fused_tiles_bwd.cu`` for CUDA tensors, runs
     :func:`tile_backward_plain` for CPU tensors."""
     _check_inputs(tabs, samp, base, rayt, ke, bank0, prm)
     _check_cotangent(gs, tabs)
+    _check_emit(emit, prm)
     if tabs.device.type == "cpu":
         return tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
-                                   prm, cam)
+                                   prm, cam, emit)
     if tabs.device.type != "cuda":
         raise ValueError(f"unsupported device {tabs.device}")
     for name, x in (("tabs", tabs), ("samp", samp), ("base", base),
@@ -630,8 +654,10 @@ def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
             raise ValueError(f"{name} must be contiguous")
     t_cnt, nb, nc = int(tabs.shape[0]), prm.banks, prm.n_chunks
     dev = tabs.device
-    d_rows = torch.empty((t_cnt, nb, LANES, prm.cols), dtype=torch.float32,
-                         device=dev)
+    banks = emit == "banks"
+    d_rows = torch.empty((t_cnt, nb, prm.cols, LANES) if banks
+                         else (t_cnt, nb, LANES, prm.cols),
+                         dtype=torch.float32, device=dev)
     d_rayt = (torch.empty((t_cnt, RAYT_ROWS, LANES), dtype=torch.float32,
                           device=dev) if cam else None)
     # each sample's optical-depth prefix, written by pass 1, read by pass 2
@@ -645,7 +671,7 @@ def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
             d_rows.data_ptr(), d_rayt.data_ptr() if cam else None,
             s_pre.data_ptr(),
             t_cnt, nc, nb, prm.k_max, prm.subs, int(prm.stencil == "super"),
-            prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
+            int(banks), prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
             *prm.lo, *prm.inv, *prm.ns, *camera_scales(prm),
             _build.stream_ptr(dev))
     _build.check(code, "dvt_tile_backward")

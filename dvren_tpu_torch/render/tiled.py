@@ -29,6 +29,16 @@ gradients), sums the rows of every cell through the schedule's
 no scatter and no atomics), and unpacks the table gradient onto the grid
 with K4. Repeat runs are bit-identical.
 
+The split backward (:data:`BWD_SPLIT`, ``DVREN_BWD_SPLIT``) is the JAX
+package's two-op route: under ``"pallas"`` K2 emits bank blocks (T, NB,
+32, 128) and K6 (:func:`~dvren_tpu_torch.ops.packed_transpose.banks_to_rows`)
+relays them to slot rows before the gather plan's sums; under ``"xla"``,
+the default, K2 emits the slot rows itself. The two give the same bits.
+The flag is read on the routes where JAX reads it: a float32 32-column
+flat table (sparse float32 bricks) and the dense float32 cell route of
+:func:`render_tiled_stack`; the single-view dense :func:`render_tiled`,
+16-bit tables and supercell schedules ignore it.
+
 That is the dense float32 route on cell tables. Every other case takes
 the flat-table route (:class:`_GroupsetFromTable`, from any (R, C)
 table): a dense field with a 16-bit ``packed_dtype`` builds its table
@@ -61,6 +71,7 @@ sub-tiles, sub-tile s owns the 16 // n_sub rows from s * (16 // n_sub).
 from __future__ import annotations
 
 import dataclasses
+import os
 from dataclasses import dataclass
 
 import numpy as np
@@ -95,6 +106,24 @@ _TODO_ALL_TILES = ("all_tiles, the camera-stable schedule of render/animate.py "
                    "(ROADMAP Queue 1 item 15)")
 _TODO_BANK_ALIGNED = ("bank_aligned packing (not ported: ROADMAP 'Not ported, "
                       "on purpose')")
+
+# The split backward's relayout (``dvren_tpu``'s ``BWD_SPLIT``, read from
+# DVREN_BWD_SPLIT at import): "pallas" makes K2 emit bank blocks and K6
+# (packed_transpose.banks_to_rows, CUDA here; the value keeps JAX's name)
+# relay them to slot rows; "xla" makes K2 emit the slot rows, the port's
+# fused form of JAX's XLA relayout. Both give the same bits. Read when a
+# route that honours it runs its forward, kept in its autograd node, and
+# checked at its backward: any other value raises ValueError there.
+BWD_SPLIT = os.environ.get("DVREN_BWD_SPLIT", "xla")
+BWD_SPLIT_VALUES = ("xla", "pallas")
+
+
+def _split_pallas(value: str) -> bool:
+    """True for the bank-block route ("pallas"), False for "xla"."""
+    if value not in BWD_SPLIT_VALUES:
+        raise ValueError(f"DVREN_BWD_SPLIT must be one of "
+                         f"{BWD_SPLIT_VALUES}, got {value!r}")
+    return value == "pallas"
 
 # Shape classes of quantized schedules: a group's (chunk count, bank count)
 # rounds up to the nearest member, so every (nc, nb) pair maps to a small
@@ -872,19 +901,22 @@ def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
 class _GroupsetFromParams(torch.autograd.Function):
     """Dense-grid params -> every tile group's raw K1 output, as one
     autograd node: the counterpart of ``dvren_tpu``'s
-    ``_groupset_from_params``.
+    ``_groupset_from_params`` and, when ``split``, of its
+    ``bank_tables_from_params`` (the route ``render_tiled_stack`` takes).
 
     Forward: the packed table (K3), the bank gather, K1 per group.
     Backward: K2 per group (slot rows, and d(rayt) when ``cam``), one
-    ``torch.cat`` of the slot rows, :func:`slot_rows_to_table`, then K4.
+    ``torch.cat`` of the slot rows, :func:`slot_rows_to_table`, then K4;
+    with ``split`` under ``BWD_SPLIT == "pallas"``, K2's bank blocks and
+    K6 (:func:`_cts_to_rows`) in place of the rows and the ``cat``.
     Returns (None, d_sigma, d_color, *d_rayt per group). Autograd
     never records the table gather: its backward would be ``index_add_``.
-    ``static`` = (schedule, per-group TileParams, use_kernel, cam); on CPU
-    tensors every kernel step runs its plain twin."""
+    ``static`` = (schedule, per-group TileParams, use_kernel, cam, split);
+    on CPU tensors every kernel step runs its plain twin."""
 
     @staticmethod
     def forward(ctx, static, sigma, color, *rayts):
-        schedule, params, use_kernel, cam = static
+        schedule, params, use_kernel, cam, split = static
         if use_kernel:
             table = packed_transpose.build_rows(sigma, color)
             forward = fused_tiles.tile_forward
@@ -899,6 +931,7 @@ class _GroupsetFromParams(torch.autograd.Function):
                     g.bank0.reshape(-1), params[gi])
             for gi, g in enumerate(schedule.groups))
         ctx.static = static
+        ctx.split = BWD_SPLIT if split else "xla"
         ctx.tabs = tabs
         ctx.grid_shape = tuple(sigma.shape)
         ctx.save_for_backward(*rayts)
@@ -906,24 +939,13 @@ class _GroupsetFromParams(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g_raws):
-        schedule, params, use_kernel, cam = ctx.static
-        rayts = ctx.saved_tensors
-        backward = (fused_tiles.tile_backward if use_kernel
-                    else fused_tiles.tile_backward_plain)
+        schedule, use_kernel = ctx.static[0], ctx.static[2]
         want_grid = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
-        rows, d_rayts = [], []
-        for gi, g in enumerate(schedule.groups):
-            d_rows, d_rayt = backward(
-                ctx.tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
-                g.bank0.reshape(-1), g_raws[gi].contiguous(), params[gi],
-                cam)
-            rows.append(d_rows.reshape(-1, NCH))
-            d_rayts.append(d_rayt)
+        rows, d_rayts = _k2_groups(ctx, g_raws, want_grid)
         d_sigma = d_color = None
         if want_grid:
             table_grad = slot_rows_to_table(
-                torch.cat(rows), schedule.gather_plan,
-                fullpitch_rows(ctx.grid_shape))
+                rows, schedule.gather_plan, fullpitch_rows(ctx.grid_shape))
             unpack = (packed_transpose.table_grad_to_params if use_kernel
                       else packed_transpose.table_grad_to_params_plain)
             d_sigma, d_color = unpack(table_grad, ctx.grid_shape)
@@ -969,11 +991,13 @@ class _GroupsetFromTable(torch.autograd.Function):
     dtype. (JAX's scatter-add adds in the 16-bit dtype, in scatter
     order.) Returns (None, d_table in the table's dtype, *d_rayt per
     group). ``static`` = (schedule, per-group TileParams, use_kernel,
-    cam)."""
+    cam, split): ``split`` for a float32 32-column table (sparse float32
+    bricks), whose backward then follows ``BWD_SPLIT`` as ``dvren_tpu``'s
+    ``_gather_bank_tables`` does."""
 
     @staticmethod
     def forward(ctx, static, table, *rayts):
-        schedule, params, use_kernel, cam = static
+        schedule, params, use_kernel, cam, split = static
         forward = (fused_tiles.tile_forward if use_kernel
                    else fused_tiles.tile_forward_plain)
         tabs = _gather_bank_tables(
@@ -984,6 +1008,7 @@ class _GroupsetFromTable(torch.autograd.Function):
                     g.bank0.reshape(-1), params[gi])
             for gi, g in enumerate(schedule.groups))
         ctx.static = static
+        ctx.split = BWD_SPLIT if split else "xla"
         ctx.tabs = tabs
         ctx.table_meta = (int(table.shape[0]), table.dtype)
         ctx.save_for_backward(*rayts)
@@ -991,25 +1016,62 @@ class _GroupsetFromTable(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, *g_raws):
-        schedule, params, use_kernel, cam = ctx.static
+        schedule = ctx.static[0]
         n_rows, dtype = ctx.table_meta
-        rayts = ctx.saved_tensors
-        backward = (fused_tiles.tile_backward if use_kernel
-                    else fused_tiles.tile_backward_plain)
-        rows, d_rayts = [], []
-        for gi, g in enumerate(schedule.groups):
-            d_rows, d_rayt = backward(
-                ctx.tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
-                g.bank0.reshape(-1), g_raws[gi].contiguous(), params[gi],
-                cam)
-            rows.append(d_rows.reshape(-1, d_rows.shape[-1]))
-            d_rayts.append(d_rayt)
+        rows, d_rayts = _k2_groups(ctx, g_raws, ctx.needs_input_grad[1])
         d_table = None
         if ctx.needs_input_grad[1]:
-            d_table = slot_rows_to_table_as(torch.cat(rows),
-                                            schedule.gather_plan, n_rows,
-                                            dtype)
+            d_table = slot_rows_to_table_as(rows, schedule.gather_plan,
+                                            n_rows, dtype)
         return (None, d_table, *d_rayts)
+
+
+def _k2_groups(ctx, g_raws, want_table: bool):
+    """K2 on every group of a groupset node's backward -> ((S, C) f32
+    slot rows of all groups, or None without ``want_table``; per-group
+    d(rayt) or None). Under the split route (``ctx.split`` "pallas") K2
+    emits bank blocks and K6 relays them (:func:`_cts_to_rows`); else K2
+    emits the rows and one ``torch.cat`` joins them."""
+    schedule, params, use_kernel, cam, _ = ctx.static
+    pallas = _split_pallas(ctx.split)
+    emit = "banks" if pallas and want_table else "rows"
+    backward = (fused_tiles.tile_backward if use_kernel
+                else fused_tiles.tile_backward_plain)
+    rayts = ctx.saved_tensors
+    parts, d_rayts = [], []
+    for gi, g in enumerate(schedule.groups):
+        d_part, d_rayt = backward(
+            ctx.tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
+            g.bank0.reshape(-1), g_raws[gi].contiguous(), params[gi],
+            cam, emit=emit)
+        parts.append(d_part)
+        d_rayts.append(d_rayt)
+    if not want_table:
+        return None, d_rayts
+    if emit == "banks":
+        return _cts_to_rows(parts, use_kernel), d_rayts
+    return torch.cat([p.reshape(-1, p.shape[-1]) for p in parts]), d_rayts
+
+
+def _cts_to_rows(cts, use_kernel: bool) -> torch.Tensor:
+    """Per-group bank cotangents (T, NB, 32, 128) -> (S, 32) f32 slot rows
+    of all groups: K6 on every group, each into its slice of one array
+    (``dvren_tpu``'s ``_cts_to_ct16`` under ``BWD_SPLIT="pallas"``, whose
+    rows these equal as ``hi << 16 | lo``; K6 here needs no multiple of 8
+    blocks, so no group falls back). ``use_kernel=False`` runs K6's
+    twin."""
+    blocks = [c.reshape(-1, NCH, MAX_CELLS) for c in cts]
+    out = torch.empty((sum(int(b.shape[0]) for b in blocks) * MAX_CELLS, NCH),
+                      dtype=torch.float32, device=blocks[0].device)
+    off = 0
+    for b in blocks:
+        n = int(b.shape[0]) * MAX_CELLS
+        if use_kernel:
+            packed_transpose.banks_to_rows(b, out=out, offset=off)
+        else:
+            out[off:off + n] = packed_transpose.banks_to_rows_plain(b)
+        off += n
+    return out
 
 
 def slot_rows_to_table_as(rows: torch.Tensor, plan, n_rows: int,
@@ -1075,13 +1137,15 @@ def _check_field_schedule(field, schedule: TiledSchedule, what: str):
 
 
 def _group_raws(plan: Plan, field, schedule: TiledSchedule,
-                use_kernel: bool, rayts=None) -> list:
+                use_kernel: bool, rayts=None, stack: bool = False) -> list:
     """Every tile group's raw heads (T, 5, 16, 16) for ``field`` through
     the route its table takes (see :func:`render_tiled`): one table
     build, one planned bank gather and K1 once per group, in the
     schedule's form, as one autograd node. ``rayts``: per-group ray
     planes that autograd records (the camera adjoint), else the
-    schedule's."""
+    schedule's. ``stack``: the caller is :func:`render_tiled_stack`,
+    whose dense float32 cell route reads ``BWD_SPLIT`` (the single-view
+    one does not, as in JAX)."""
     if not schedule.groups:
         return []
     geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
@@ -1093,18 +1157,21 @@ def _group_raws(plan: Plan, field, schedule: TiledSchedule,
     cam = rayts is not None
     if not cam:
         rayts = [g.rayt for g in schedule.groups]
-    static = (schedule, params, use_kernel, cam)
+    static = (schedule, params, use_kernel, cam, False)
+    split = (schedule, params, use_kernel, cam, True)
     packed_dtype = getattr(field, "packed_dtype", "float32")
     if hasattr(field, "bricks"):
+        bricks = field.bricks.reshape(-1, NCH)
         raws = _GroupsetFromTable.apply(
-            static, field.bricks.reshape(-1, NCH), *rayts)
+            split if bricks.dtype == torch.float32 else static, bricks,
+            *rayts)
     elif stencil == "super":
         raws = _GroupsetFromTable.apply(
             static, build_supercell_stencil(field.sigma, field.color),
             *rayts)
     elif packed_dtype == "float32":
-        raws = _GroupsetFromParams.apply(static, field.sigma, field.color,
-                                         *rayts)
+        raws = _GroupsetFromParams.apply(split if stack else static,
+                                         field.sigma, field.color, *rayts)
     else:
         table = _Table16FromParams.apply(
             (table_dtype(packed_dtype), use_kernel), field.sigma,
@@ -1126,7 +1193,8 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     gives its adjoint) into :class:`_GroupsetFromTable` (K1, K2); a dense
     16-bit field :class:`_Table16FromParams` (K5a, K5b) into
     :class:`_GroupsetFromTable`; a sparse field its bricks, flat, into
-    :class:`_GroupsetFromTable`. K1 and K2 run in the schedule's form:
+    :class:`_GroupsetFromTable`, whose backward follows :data:`BWD_SPLIT`
+    for float32 bricks. K1 and K2 run in the schedule's form:
     (16 // tile_px) ** 2 sub-tiles per block, the supercell stencil at
     cell_scale 2.
 
@@ -1290,12 +1358,14 @@ def render_tiled_stack(plan: Plan, field, merged: MergedViewSchedule,
     One table build, one planned bank gather and one K1 launch per merged
     group serve every view (K2 likewise in the backward); each view's
     image is composed from its slices of each group's output
-    (``view_slices``). ``use_kernel=False`` runs the twins. ``plan`` is
+    (``view_slices``). The backward of the dense float32 cell route, and
+    of sparse float32 bricks, follows :data:`BWD_SPLIT` (K2's bank blocks
+    and K6 under "pallas"). ``use_kernel=False`` runs the twins. ``plan`` is
     any view's plan: the views share its geometry and sampling, and each
     group's rays were baked in per view when its schedule was built."""
     sched = merged.sched
     device = _check_field_schedule(field, sched, "merged schedule")
-    raws = _group_raws(plan, field, sched, use_kernel)
+    raws = _group_raws(plan, field, sched, use_kernel, stack=True)
     images = []
     for v in range(merged.n_views):
         parts = []

@@ -39,7 +39,12 @@ and opacity 1e-5 / 1e-7, depth 1e-5 / 1e-5, d_sigma 1e-4 / 1e-6, d_colour
 1e-4 / 1e-7), repeats bit for bit; the windowed Renderer, the tiled
 schedule's fallback and the windowed and plain fits on the card against
 the CPU (planes 5e-6, depth 1e-4, gradients 2e-6 x scale, losses 1e-5
-relative), with K9's launch counts.
+relative), with K9's launch counts. The split backward: K6 equal to its
+twin word for word on random 32-bit words (B = 1, 8 and the headline's
+5,104 blocks), K2's bank form equal to its rows form transposed and to
+its twin's bank form at subs 1, 4 and 16, and the sparse and stack routes'
+gradients under BWD_SPLIT "pallas" equal to "xla"'s, with K6 once per
+group.
 """
 
 import dataclasses
@@ -1288,3 +1293,127 @@ def windowed_targets(plan, cams, field):
                                           field.bbox_min, field.bbox_max,
                                           device=field.device)
     return windowed.render_windowed_stack(plan, field, stack).cpu().numpy()
+
+
+# ------------------------------------------ the split backward (K6, K2)
+
+
+@pytest.mark.parametrize("n_blocks", [1, 8, 5104])
+def test_banks_to_rows_bit_equal_to_plain(cuda_device, n_blocks):
+    """K6 on random 32-bit words (NaN payloads, -0.0, subnormals and
+    infinities among them): equal to its twin word for word, alone and
+    into a slice of a larger array."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n_blocks)
+    bits = torch.randint(-2 ** 31, 2 ** 31 - 1, (n_blocks, 32, 128),
+                         generator=gen, dtype=torch.int32, device=cuda_device)
+    banks = bits.view(torch.float32)
+    before = packed_transpose.banks_to_rows.launches
+    rows = packed_transpose.banks_to_rows(banks)
+    torch.cuda.synchronize()
+    assert packed_transpose.banks_to_rows.launches == before + 1
+    want = packed_transpose.banks_to_rows_plain(banks)
+    assert rows.shape == (n_blocks * 128, 32)
+    assert torch.equal(rows.view(torch.int32), want.view(torch.int32))
+    out = torch.zeros(((n_blocks + 3) * 128, 32), device=cuda_device)
+    part = packed_transpose.banks_to_rows(banks, out=out, offset=2 * 128)
+    torch.cuda.synchronize()
+    assert part.data_ptr() == out[256].data_ptr()
+    assert torch.equal(out[256:256 + n_blocks * 128].view(torch.int32),
+                       want.view(torch.int32))
+    assert not bool(out[:256].any()) and not bool(
+        out[256 + n_blocks * 128:].any())
+
+
+def test_banks_to_rows_rejects_bad_input(cuda_device):
+    banks = torch.zeros((4, 128, 32), device=cuda_device)
+    with pytest.raises(ValueError):
+        packed_transpose.banks_to_rows(banks.transpose(1, 2))
+    with pytest.raises(ValueError):
+        packed_transpose.banks_to_rows(banks)
+    with pytest.raises(TypeError):
+        packed_transpose.banks_to_rows(banks.transpose(1, 2).contiguous()
+                                       .double())
+    with pytest.raises(ValueError):
+        packed_transpose.banks_to_rows(
+            banks.transpose(1, 2).contiguous(),
+            out=torch.zeros((4 * 128, 32)))
+
+
+@pytest.mark.parametrize("px", [16, 8, 4])
+def test_tile_backward_banks_equal_rows(cuda_device, px):
+    """K2's bank form against its rows form, transposed, bit for bit, with
+    and without the camera adjoint; and against its twin's bank form."""
+    groups = _variant_args(px, 1, cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(px)
+    for args in groups:
+        gs = torch.randn((args[0].shape[0], 5, 16, 16), generator=gen,
+                         device=cuda_device)
+        for cam in (False, True):
+            rows, rayt_r = fused_tiles.tile_backward(*args[:6], gs, args[6],
+                                                     cam=cam)
+            before = fused_tiles.tile_backward.launches
+            banks, rayt_b = fused_tiles.tile_backward(
+                *args[:6], gs, args[6], cam=cam, emit="banks")
+            torch.cuda.synchronize()
+            assert fused_tiles.tile_backward.launches == before + 1
+            assert banks.shape == (args[0].shape[0], args[6].banks, 32, 128)
+            assert torch.equal(banks, rows.transpose(2, 3))
+            assert not cam or torch.equal(rayt_b, rayt_r)
+        p_banks, _ = fused_tiles.tile_backward_plain(*args[:6], gs, args[6],
+                                                     emit="banks")
+        assert torch.equal(banks, p_banks)
+
+
+@pytest.mark.parametrize("route", ["sparse", "stack"])
+def test_split_routes_equal_on_the_card(cuda_device, route, monkeypatch):
+    """Under BWD_SPLIT "pallas" the sparse float32 render_tiled and the
+    dense render_tiled_stack give the "xla" route's gradients bit for bit,
+    with K6 launched once per group; the single-view dense route stays off
+    the flag."""
+    plan, config = scene("stratified")
+    field = P.DenseGridField.create(config, device=cuda_device)
+    if route == "sparse":
+        field = P.SparseGridField.from_dense(field, threshold=0.0,
+                                             device=cuda_device)
+        sched = tiled.build_tiled_schedule(plan, field).to(cuda_device)
+        groups = sched.groups
+    else:
+        cams = [P.CameraConfig(c2w=(1, 0, 0, 0.5 + dx, 0, 1, 0, 0.5, 0, 0,
+                                    1, -1.0)) for dx in (0.0, 0.1)]
+        plans = fit.view_plans(plan, cams)
+        sched = tiled.merge_view_schedules(
+            [tiled.build_tiled_schedule(p, field, quantize=True)
+             for p in plans], plans=plans).to(cuda_device)
+        groups = sched.sched.groups
+
+    def grads():
+        if route == "sparse":
+            leaf = field.with_params(field.bricks.detach().clone())
+            params = (leaf.bricks,)
+            img = tiled.render_tiled(plan, leaf, sched).image
+        else:
+            leaf = field.with_params(field.sigma.detach().clone(),
+                                     field.color.detach().clone())
+            params = (leaf.sigma, leaf.color)
+            img = tiled.render_tiled_stack(plan, leaf, sched)
+        return torch.autograd.grad(torch.sum(img ** 2), params)
+
+    monkeypatch.setattr(tiled, "BWD_SPLIT", "xla")
+    before = packed_transpose.banks_to_rows.launches
+    xla = grads()
+    assert packed_transpose.banks_to_rows.launches == before
+    monkeypatch.setattr(tiled, "BWD_SPLIT", "pallas")
+    split = grads()
+    torch.cuda.synchronize()
+    assert packed_transpose.banks_to_rows.launches == before + len(groups)
+    for a, b in zip(split, xla):
+        assert float(b.abs().max()) > 0.0
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+    if route == "stack":
+        one = tiled.build_tiled_schedule(plan, field).to(cuda_device)
+        leaf = field.with_params(field.sigma.detach().clone(),
+                                 field.color.detach().clone())
+        img = tiled.render_tiled(plan, leaf, one).image
+        torch.autograd.grad(torch.sum(img ** 2), (leaf.sigma, leaf.color))
+        torch.cuda.synchronize()
+        assert packed_transpose.banks_to_rows.launches == before + len(groups)
