@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|grid|window|split]
+    python3 chip_smoke.py [--only dense|grid|gridviews|window|split]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -86,23 +86,26 @@ when it fails:
     the fit step (forward, backward, Adam), and the peak device memory
     each adds to what the earlier phases hold;
 16. the grid headline schedule (16 px tiles, 0 overflow rays, 8 groups;
-    its build and upload times) and K8f (fused hash-grid forward) against
-    its plain twin on every group: within 5e-6 after ``finalize_heads``
-    (depth 1e-4);
+    its build and upload times), K8f's and K8b's registers, shared memory
+    per block, local memory and blocks per SM (the CUDA runtime's
+    occupancy query; also at enc 64 / hidden 8, the widest spec
+    ``grid_path_ok`` admits), and K8f (fused hash-grid forward) in one
+    launch over every group against its plain twin run group by group:
+    within 5e-6 after ``finalize_heads`` (depth 1e-4) and bit for bit;
 17. ``render_hash_grid_tiled`` on the card against the plain path on the
-    card: the K8f launch count rises by one per group, the planes are
+    card: K8f launches once over the schedule's groups, the planes are
     finite with opacity > 0 somewhere; the small grid test scene
     (tests/test_hash_grid.py's 32^2 / 16 steps, L=3 / T=4096) on the card
     matches the CPU twin;
-18. K8b (fused hash-grid backward) against its plain twin for a seeded
-    random cotangent on a subset of the headline's tiles: slot rows and
-    d(MLP) within 2e-5 x scale; under
+18. K8b (fused hash-grid backward) in one launch against its plain twin
+    for a seeded random cotangent on every tile of the headline: slot rows
+    and d(MLP) within 2e-5 x scale, a repeat equal bit for bit; under
     ``torch.use_deterministic_algorithms`` two full-frame backwards
     through autograd equal bit for bit, d(hash_table) included;
 19. 10 Adam steps (lr 8e-3) through autograd of ``render_hash_grid_tiled``
     toward a teacher of the same spec (``torch.Generator`` seed 2, table
     std 1.0) rendered by the port: the loss is finite and falls, K8f and
-    K8b launch in every step;
+    K8b launch once in every step (printed);
 20. times with CUDA events after warm-up, each beside its plain twin's
     where there is one: the grid forward per frame and Mrays/s (schedule
     excluded), the table build, the bank gather, K8f, K8b, the slot
@@ -160,12 +163,14 @@ when it fails:
 34. the grid spec of ``tools/hashmlp_bench.py`` (finest 32) over the
     flagship's eight 96^2 views, each through ``build_hash_grid_schedule``'s
     cascade (8 px, 0 overflow rays; groups, banks and build times
-    printed): K8f at subs 4 equal to its twin bit for bit on every group,
-    K8b within 2e-5 x scale on every tile and repeat-equal (each twin run
-    once, timed); view 0's ``render_hash_grid_tiled`` against the plain
-    path; 10 Adam steps (lr 8e-3) on the summed loss of the views toward a
-    teacher (``torch.Generator`` seed 2, table std 1.0): the loss falls,
-    K8f and K8b launch once per group in every step; times with CUDA
+    printed; the kernels' registers, shared memory and blocks per SM):
+    K8f at subs 4, one launch per view over all its groups, equal to its
+    twin bit for bit on every group, K8b within 2e-5 x scale on every tile
+    and repeat-equal (each twin run once, timed); view 0's
+    ``render_hash_grid_tiled`` against the plain path; 10 Adam steps (lr
+    8e-3) on the summed loss of the views toward a teacher
+    (``torch.Generator`` seed 2, table std 1.0): the loss falls, K8f and
+    K8b launch once per view in every step (printed); times with CUDA
     events;
 35. the same at finest 64 (resolutions 8-16-32-64): 4 px, K8 at subs 16,
     at most 77 banks per tile (the gathered tables' size printed first);
@@ -245,8 +250,9 @@ when it fails:
     ``steady_step_ms`` of each.
 
 ``--only dense`` runs phases 1-10, ``--only grid`` phases 1 and 16-20,
-``--only window`` phases 1 and 37-41, ``--only split`` phases 1 and 42-46:
-each alone, to time two trees against each other in one call.
+``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
+37-41, ``--only split`` phases 1 and 42-46: each alone, to time two trees
+against each other in one call.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
@@ -280,7 +286,6 @@ HASH_GRAD_TOL = 2e-5  # K7b, x max |reference| (tests/test_hash_tiled.py)
 HASH_SUBSET = 64    # headline tiles the K7b twin is compared on
 FIT_STEPS = 25
 OPAQUE_BIAS = 5.0   # added to the teacher's sigma_b2: rays stop early
-GRID_SUBSET = 8     # tiles per group the K8b twin is compared on
 GRID_STEPS = 10     # Adam steps on the grid path
 GRID_GROUPS = 8     # tile groups of the grid headline's schedule
 GRID_OPAQUE_BIAS = 30.0   # added to the grid teacher's sigma_b2 (5 stops no ray)
@@ -288,6 +293,9 @@ GRID_OPAQUE_BIAS = 30.0   # added to the grid teacher's sigma_b2 (5 stops no ray
 GRID_SPEC = dict(n_levels=4, features_per_level=2, table_size=4096,
                  hidden_dim=8, base_resolution=4.0, finest_resolution=32.0,
                  resolutions=(4, 8, 16, 32))
+# encoding_dim 64, hidden 8: the widest spec grid_path_ok admits
+GRID_EDGE_SPEC = dict(n_levels=8, features_per_level=8, table_size=4096,
+                      resolutions=(1, 1, 2, 2, 4, 4, 8, 8))
 RAYT_TOL = 1e-5     # d(rayt), x max |reference|
 CAM_RTOL, CAM_ATOL = 2e-3, 1e-4   # camera gradients
 FRAMES = 30         # timed forward frames
@@ -1324,19 +1332,47 @@ def image_errors(a, b):
 
 
 def grid_counts(hash_grid) -> dict:
-    return {"hash_grid": hash_grid.hash_grid_forward.launches,
-            "hash_grid_bwd": hash_grid.hash_grid_backward.launches}
+    """K8f's and K8b's launches on the main path: the one-launch wrappers
+    that ``render_hash_grid_tiled`` calls."""
+    return {"hash_grid": hash_grid.hash_grid_forward_tiles.launches,
+            "hash_grid_bwd": hash_grid.hash_grid_backward_tiles.launches}
 
 
 def reset_grid_counts(hash_grid) -> None:
-    hash_grid.hash_grid_forward.launches = 0
-    hash_grid.hash_grid_backward.launches = 0
+    hash_grid.hash_grid_forward_tiles.launches = 0
+    hash_grid.hash_grid_backward_tiles.launches = 0
+
+
+def grid_tiles_args(plan, spec, sched, params) -> tuple:
+    """(packed table, (flat bank tables, GridTiles, sc, GridParams)): the
+    one-launch K8f / K8b arguments of ``sched`` for detached ``params``."""
+    from dvren_tpu_torch.ops import hash_grid, hash_tiles
+    from dvren_tpu_torch.render import tiled
+
+    table = hash_grid.build_hash_grid_table(params, spec)
+    tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
+    sc = hash_tiles.pack_mlp_scalars(params, spec)
+    return table, (tabs, sched.grid_tiles, sc,
+                   hash_grid.tiles_op_params(plan, spec, sched.grid_tiles))
+
+
+def grid_occupancy(hash_grid, spec, subs, what) -> dict:
+    """Print and return K8f's and K8b's registers, shared memory per block,
+    local memory per thread and blocks per SM at ``spec`` (CUDA runtime)."""
+    occ = hash_grid.kernel_occupancy(spec, subs)
+    for name, o in occ.items():
+        extra = (f", staged group g {o['g']}, panel {o['panel']}"
+                 if "g" in o else "")
+        print(f"{what}: {name} (subs {subs}) {o['registers']} registers, "
+              f"{o['static_smem'] + o['dynamic_smem']} B shared memory per "
+              f"block, {o['local_bytes']} B local memory per thread, "
+              f"{o['blocks_per_sm']} blocks per SM{extra}", flush=True)
+    return occ
 
 
 def run_grid(torch, P, dev) -> tuple[list, dict]:
     """Phases 16-20: the NGP-scale hash grid path."""
-    from dvren_tpu_torch.ops import (fused_tiles, gather_plan, hash_grid,
-                                     hash_tiles)
+    from dvren_tpu_torch.ops import fused_tiles, gather_plan, hash_grid
     from dvren_tpu_torch.opt.fit import mse
     from dvren_tpu_torch.render import hash_tiled, tiled
 
@@ -1366,18 +1402,12 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
             and n_groups == GRID_GROUPS,
             "the grid headline's schedule is not 16 px tiles in "
             f"{GRID_GROUPS} groups without overflow")
-    shapes = [(g.n_tiles, g.banks) for g in groups]
-    prms = [hash_grid.grid_op_params(plan, spec, g.banks, g.n_chunks)
-            for g in groups]
+    occ = grid_occupancy(hash_grid, spec, 1, "grid headline")
+    occ_edge = grid_occupancy(hash_grid, P.HashMLPSpec(**GRID_EDGE_SPEC), 1,
+                              "enc 64, hidden 8")
 
     def kernel_args(params):
-        """(packed table, per-group K8 arguments) for detached params."""
-        table = hash_grid.build_hash_grid_table(params, spec)
-        tabs = tiled._gather_bank_tables(table, sched.gathermap_all, shapes)
-        sc = hash_tiles.pack_mlp_scalars(params, spec)
-        return table, [(tabs[i], g.samp, g.base, g.rayt, g.k_enter,
-                        g.bank0.reshape(-1), sc, prms[i])
-                       for i, g in enumerate(groups)]
+        return grid_tiles_args(plan, spec, sched, params)
 
     teacher = P.HashMLPField.init_random(torch.Generator().manual_seed(2),
                                          spec=spec, table_std=1.0,
@@ -1387,29 +1417,29 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
     opaque_p["sigma_b2"] += GRID_OPAQUE_BIAS
     cmp = {}
     for name, params in (("student", student_p), ("opaque teacher", opaque_p)):
-        _, g_args = kernel_args(params)
-        c = {"heads": 0.0, "depth": 0.0, "f_raw": 0.0, "early": 0}
-        for a in g_args:
-            out_k = hash_grid.hash_grid_forward(*a)
-            torch.cuda.synchronize()
-            out_p = hash_grid.hash_grid_forward_plain(*a)
-            require(bool(torch.isfinite(out_k).all()), "K8f output not finite")
-            err, depth = head_errors(torch, fused_tiles, plan, out_k, out_p)
-            c["heads"], c["depth"] = max(c["heads"], err), max(c["depth"],
-                                                               depth)
-            c["f_raw"] = max(c["f_raw"], float((out_k - out_p).abs().max()))
-            if name != "student":
-                no_stop = hash_grid.hash_grid_forward_plain(
-                    *a[:7], dataclasses.replace(a[7], stop=0.0))
-                c["early"] += int((out_p[:, 4] < no_stop[:, 4]).sum())
+        _, a = kernel_args(params)
+        out_k = hash_grid.hash_grid_forward_tiles(*a)
+        torch.cuda.synchronize()
+        out_p = hash_grid.hash_grid_forward_tiles_plain(*a)
+        require(bool(torch.isfinite(out_k).all()), "K8f output not finite")
+        err, depth = head_errors(torch, fused_tiles, plan, out_k, out_p)
+        c = {"heads": err, "depth": depth,
+             "f_raw": float((out_k - out_p).abs().max()),
+             "bit_equal": bool(torch.equal(out_k, out_p)), "early": 0}
+        if name != "student":
+            no_stop = hash_grid.hash_grid_forward_tiles_plain(
+                *a[:3], dataclasses.replace(a[3], stop=0.0))
+            c["early"] = int((out_p[:, 4] < no_stop[:, 4]).sum())
         cmp[name] = c
-        print(f"K8f vs plain over {n_groups} groups, {name}: heads "
-              f"{c['heads']:.3e}, depth {c['depth']:.3e}, raw "
-              f"{c['f_raw']:.3e}" + (f"; {c['early']} rays stop early"
-                                     if name != "student" else ""),
-              flush=True)
+        print(f"K8f (one launch over {n_groups} groups) vs plain, {name}: "
+              f"heads {c['heads']:.3e}, depth {c['depth']:.3e}, raw "
+              f"{c['f_raw']:.3e}, bit for bit {c['bit_equal']}"
+              + (f"; {c['early']} rays stop early"
+                 if name != "student" else ""), flush=True)
         require(c["heads"] <= TOL and c["depth"] <= TOL_DEPTH,
                 f"K8f differs from its plain twin beyond tolerance ({name})")
+        require(c["bit_equal"],
+                f"K8f is not bit-equal to its twins group by group ({name})")
     require(cmp["opaque teacher"]["early"] > 0,
             "no ray of the opaque teacher stops early")
 
@@ -1421,9 +1451,9 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
         fwd_launches = grid_counts(hash_grid)
         plain = hash_tiled.render_hash_grid_tiled(plan, field, sched,
                                                   use_kernel=False)
-    require(fwd_launches == {"hash_grid": n_groups, "hash_grid_bwd": 0},
-            f"render_hash_grid_tiled did not launch K8f once per group: "
-            f"{fwd_launches}")
+    require(fwd_launches == {"hash_grid": 1, "hash_grid_bwd": 0},
+            f"render_hash_grid_tiled did not launch K8f once over its "
+            f"{n_groups} groups: {fwd_launches}")
     require(all(bool(torch.isfinite(getattr(out, k)).all())
                 for k in ("image", "transmittance", "opacity", "depth")),
             "grid planes not finite")
@@ -1451,37 +1481,34 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
     require(s_err <= TOL and s_depth <= TOL_DEPTH and s_hit,
             "small grid scene on the card differs from the CPU")
 
-    # 18. K8b against its twin on a tile subset; deterministic backwards
+    # 18. K8b against its twin on every tile; deterministic backwards
     gen = torch.Generator(device=dev).manual_seed(9)
-    gss = [torch.randn((g.n_tiles, 5, 16, 16), generator=gen, device=dev)
-           for g in groups]
-
-    def subset(a, gs):
-        n = a[0].shape[0]
-        sub = torch.arange(0, n, max(1, n // GRID_SUBSET),
-                           device=dev)[:GRID_SUBSET]
-        bank0 = a[5].reshape(n, -1)[sub].reshape(-1)
-        return tuple(take(x, sub) for x in a[:5]) + (
-            bank0.contiguous(), a[6], gs[sub].contiguous(), a[7])
-
+    gs = torch.randn((sched.grid_tiles.n_tiles, 5, 16, 16), generator=gen,
+                     device=dev)
+    k8b_plain_ms = None
     for name, params in (("student", student_p), ("opaque teacher", opaque_p)):
-        _, g_args = kernel_args(params)
+        _, a = kernel_args(params)
         c = cmp[name]
-        c["rows"] = c["mlp"] = c["b_raw"] = 0.0
-        for a, gs in zip(g_args, gss):
-            sa = subset(a, gs)
-            d_rows, d_sc = hash_grid.hash_grid_backward(*sa)
-            torch.cuda.synchronize()
-            p_rows, p_sc = hash_grid.hash_grid_backward_plain(*sa)
-            require(bool(torch.isfinite(d_rows).all()
-                         and torch.isfinite(d_sc).all()), "K8b not finite")
-            c["rows"] = max(c["rows"], rel_err(d_rows, p_rows))
-            c["mlp"] = max(c["mlp"], rel_err(d_sc, p_sc))
-            c["b_raw"] = max(c["b_raw"], float((d_rows - p_rows).abs().max()),
-                             float((d_sc - p_sc).abs().max()))
-        print(f"K8b vs plain on {GRID_SUBSET} tiles per group, {name}: slot "
-              f"rows {c['rows']:.3e} x scale, d(MLP) {c['mlp']:.3e} x scale "
-              f"(max |diff| {c['b_raw']:.3e})", flush=True)
+        d_rows, d_sc = hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
+        again = hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
+        torch.cuda.synchronize()
+        (p_rows, p_sc), ms = timed_once(
+            torch, lambda: hash_grid.hash_grid_backward_tiles_plain(
+                *a[:3], gs, a[3]))
+        if name == "student":
+            k8b_plain_ms = ms
+        require(bool(torch.isfinite(d_rows).all()
+                     and torch.isfinite(d_sc).all()), "K8b not finite")
+        require(torch.equal(again[0], d_rows) and torch.equal(again[1], d_sc),
+                f"K8b differs between two runs ({name})")
+        c["rows"] = rel_err(d_rows, p_rows)
+        c["mlp"] = rel_err(d_sc, p_sc)
+        c["b_raw"] = max(float((d_rows - p_rows).abs().max()),
+                         float((d_sc - p_sc).abs().max()))
+        print(f"K8b (one launch) vs plain on all {gs.shape[0]} tiles, {name}: "
+              f"slot rows {c['rows']:.3e} x scale, d(MLP) {c['mlp']:.3e} x "
+              f"scale (max |diff| {c['b_raw']:.3e}); repeat equal",
+              flush=True)
         require(c["rows"] <= HASH_GRAD_TOL and c["mlp"] <= HASH_GRAD_TOL,
                 f"K8b differs from its plain twin beyond tolerance ({name})")
 
@@ -1536,12 +1563,13 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
         before = grid_counts(hash_grid)
         losses.append(float(step().detach()))
         after = grid_counts(hash_grid)
-        require(all(after[k] - before[k] == n_groups for k in after),
-                f"K8f / K8b did not launch once per group in a step: "
-                f"{before} -> {after}")
+        require(all(after[k] - before[k] == 1 for k in after),
+                f"K8f / K8b did not launch once in a step: {before} -> "
+                f"{after}")
     train_launches = grid_counts(hash_grid)
     print(f"{GRID_STEPS} Adam steps (lr 8e-3) toward the teacher: loss "
-          f"{losses[0]:.6e} -> {losses[-1]:.6e}; launches {train_launches}",
+          f"{losses[0]:.6e} -> {losses[-1]:.6e}; launches {train_launches}: "
+          f"K8f and K8b once per step each over the {n_groups} groups",
           flush=True)
     require(all(np.isfinite(losses)), "grid training loss not finite")
     require(losses[-1] < losses[0], "grid training loss does not fall")
@@ -1563,26 +1591,21 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
         plain_fwd_ms = cuda_ms(
             torch, lambda: hash_tiled.render_hash_grid_tiled(
                 plan, field, sched, use_kernel=False), 1, warmup=0)
-    table, g_args = kernel_args(student_p)
+    table, a = kernel_args(student_p)
     table_ms = cuda_ms(torch, lambda: hash_grid.build_hash_grid_table(
         student_p, spec), 50)
-    gather_ms = cuda_ms(torch, lambda: tiled._gather_bank_tables(
-        table, sched.gathermap_all, shapes), 20)
-    k8f_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_forward(*a)
-                                     for a in g_args], 20)
-    k8f_plain_ms = cuda_ms(torch, lambda: [
-        hash_grid.hash_grid_forward_plain(*a) for a in g_args], 1, warmup=0)
+    gather_ms = cuda_ms(torch, lambda: tiled._gather_banks_flat(
+        table, sched.gathermap_all), 20)
+    k8f_ms = cuda_ms(torch, lambda: hash_grid.hash_grid_forward_tiles(*a),
+                     20)
+    k8f_plain_ms = cuda_ms(
+        torch, lambda: hash_grid.hash_grid_forward_tiles_plain(*a), 1,
+        warmup=0)
     base = peak_from_here()
-    k8b_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_backward(
-        *a[:7], gs, a[7]) for a, gs in zip(g_args, gss)], 5, warmup=1)
+    k8b_ms = cuda_ms(torch, lambda: hash_grid.hash_grid_backward_tiles(
+        *a[:3], gs, a[3]), 5, warmup=1)
     k8b_peak = added_peak_mb(base)
-    k8b_plain_ms = cuda_ms(torch, lambda: [
-        hash_grid.hash_grid_backward_plain(*a[:7], gs, a[7])
-        for a, gs in zip(g_args, gss)], 1, warmup=0)
-    b_out = [hash_grid.hash_grid_backward(*a[:7], gs, a[7])
-             for a, gs in zip(g_args, gss)]
-    cols = hash_grid.packed_cols(spec)
-    rows = torch.cat([r.reshape(-1, cols) for r, _ in b_out])
+    rows, d_sc = hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
     n_rows = int(table.shape[0])
     reduce_ms = cuda_ms(torch, lambda: gather_plan.slot_rows_to_table(
         rows, sched.gather_plan, n_rows), 20)
@@ -1603,18 +1626,18 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
           f"{n_rays / step_ms / 1e3:.3f} Mrays/s over {STEPS} steps (plain "
           f"path {plain_step_ms:.4f} ms/step)", flush=True)
     print(f"grid stages ms: table build {table_ms:.4f}, bank gather "
-          f"{gather_ms:.4f}, K8f {k8f_ms:.4f} over {n_groups} launches "
-          f"(plain {k8f_plain_ms:.4f}), K8b {k8b_ms:.4f} (plain "
-          f"{k8b_plain_ms:.4f}), slot reduction {reduce_ms:.4f}, table "
-          f"adjoint {adjoint_ms:.4f}; peak device memory added: forward "
-          f"{fwd_peak:.1f} MiB, K8b {k8b_peak:.1f} MiB, step "
+          f"{gather_ms:.4f}, K8f {k8f_ms:.4f} in 1 launch over {n_groups} "
+          f"groups (plain {k8f_plain_ms:.4f}), K8b {k8b_ms:.4f} in 1 launch "
+          f"(plain {k8b_plain_ms:.4f}), slot reduction {reduce_ms:.4f}, "
+          f"table adjoint {adjoint_ms:.4f}; peak device memory added: "
+          f"forward {fwd_peak:.1f} MiB, K8b {k8b_peak:.1f} MiB, step "
           f"{step_peak:.1f} MiB", flush=True)
 
     live = sched.tiled_samples
-    f_in = sum(nbytes(*a[:7]) for a in g_args)
-    f_out = sum(g.n_tiles * 5 * 256 * 4 for g in groups)
-    b_bytes = f_in + sum(nbytes(g) for g in gss) + nbytes(rows) + nbytes(
-        b_out[0][1])
+    f_in = nbytes(a[0], a[1].samp, a[1].base, a[1].rayt, a[1].ke,
+                  a[1].bank0, a[2])
+    f_out = a[1].n_tiles * 5 * 256 * 4
+    b_bytes = f_in + nbytes(gs) + nbytes(rows) + nbytes(d_sc)
     kernels = [
         {"name": "hash_grid", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_grid.cu",
@@ -1643,6 +1666,9 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
                             "hash_grid_bwd": k8b_plain_ms},
         "step_ms": step_ms, "plain_step_ms": plain_step_ms,
         "step_mrays_s": n_rays / step_ms / 1e3,
+        "launches_per_step": {k: v / GRID_STEPS
+                              for k, v in train_launches.items()},
+        "occupancy": occ, "occupancy_enc64": occ_edge,
         "added_peak_mib": {"forward": fwd_peak, "hash_grid_bwd": k8b_peak,
                            "step": step_peak},
         "losses": losses, "compares": cmp}
@@ -2164,26 +2190,11 @@ def grid_view_spec(finest: int) -> dict:
                 finest_resolution=float(finest))
 
 
-def grid_group_args(torch, plan, spec, sched, params, subs) -> list:
-    """Every group's K8f arguments for ``sched`` and detached ``params``."""
-    from dvren_tpu_torch.ops import hash_grid, hash_tiles
-    from dvren_tpu_torch.render import tiled
-
-    table = hash_grid.build_hash_grid_table(params, spec)
-    tabs = tiled._gather_bank_tables(table, sched.gathermap_all,
-                                     [(g.n_tiles, g.banks)
-                                      for g in sched.groups])
-    sc = hash_tiles.pack_mlp_scalars(params, spec)
-    return [(tabs[i], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
-             sc, hash_grid.grid_op_params(plan, spec, g.banks, g.n_chunks,
-                                          subs))
-            for i, g in enumerate(sched.groups)]
-
-
 def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
     """Phase 34 (finest 32: 8 px sub-tiles, K8 at subs 4) or 35 (finest 64:
     4 px, subs 16): the hash grid path over the fit flagship's eight 96^2
-    views, each through ``build_hash_grid_schedule``'s cascade."""
+    views, each through ``build_hash_grid_schedule``'s cascade; K8f and
+    K8b run once per view over all of its tile groups."""
     from dvren_tpu_torch.ops import hash_grid
     from dvren_tpu_torch.opt.fit import mse
     from dvren_tpu_torch.render import hash_tiled
@@ -2221,26 +2232,27 @@ def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
     print(f"{name}: gathered bank tables {min(table_gb):.3f}-"
           f"{max(table_gb):.3f} GB per view ({cols} columns)", flush=True)
     n_groups = sum(len(s.groups) for s in scheds)
+    occ = grid_occupancy(hash_grid, spec, subs, name)
 
-    # K8f against its twin on every group (bit for bit), K8b on
-    # GRID_SUBSET tiles of each (2e-5 x scale) and its repeat
+    # K8f (one launch per view) against its twins on every group (bit for
+    # bit), K8b on every tile (2e-5 x scale) and its repeat
     params = {k: v.detach() for k, v in field.params.items()}
-    args = [a for pv, s in zip(plans, scheds)
-            for a in grid_group_args(torch, pv, spec, s, params, subs)]
+    args = [grid_tiles_args(pv, spec, s, params)[1]
+            for pv, s in zip(plans, scheds)]
     gen = torch.Generator(device=dev).manual_seed(finest)
-    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
+    gss = [torch.randn((a[1].n_tiles, 5, 16, 16), generator=gen, device=dev)
            for a in args]
     # each twin runs once, timed: that run is both the reference of the
     # check and the kernels line's plain_ms
-    outs = [hash_grid.hash_grid_forward(*a) for a in args]
-    bwds = [hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+    outs = [hash_grid.hash_grid_forward_tiles(*a) for a in args]
+    bwds = [hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
             for a, gs in zip(args, gss)]
-    again = [hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+    again = [hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
              for a, gs in zip(args, gss)]
     plains, k8f_plain_ms = timed_once(torch, lambda: [
-        hash_grid.hash_grid_forward_plain(*a) for a in args])
+        hash_grid.hash_grid_forward_tiles_plain(*a) for a in args])
     p_bwds, k8b_plain_ms = timed_once(torch, lambda: [
-        hash_grid.hash_grid_backward_plain(*a[:7], gs, a[7])
+        hash_grid.hash_grid_backward_tiles_plain(*a[:3], gs, a[3])
         for a, gs in zip(args, gss)])
     f_err = b_rows = b_mlp = b_raw = 0.0
     for out, plain, (d_rows, d_sc), rep, (p_rows, p_sc) in zip(
@@ -2257,10 +2269,10 @@ def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
         b_raw = max(b_raw, float((d_rows - p_rows).abs().max()),
                     float((d_sc - p_sc).abs().max()))
     del outs, plains, bwds, again, p_bwds
-    print(f"{name}: K8f ({form}) == twin bit for bit on all {n_groups} groups "
-          f"of the {len(plans)} views; K8b vs twin on every tile: slot rows "
-          f"{b_rows:.3e}, d(MLP) {b_mlp:.3e} x scale (max |diff| "
-          f"{b_raw:.3e}); repeats equal", flush=True)
+    print(f"{name}: K8f ({form}, one launch per view) == twin bit for bit on "
+          f"all {n_groups} groups of the {len(plans)} views; K8b vs twin on "
+          f"every tile: slot rows {b_rows:.3e}, d(MLP) {b_mlp:.3e} x scale "
+          f"(max |diff| {b_raw:.3e}); repeats equal", flush=True)
     require(b_rows <= HASH_GRAD_TOL and b_mlp <= HASH_GRAD_TOL,
             f"K8b ({form}) differs from its twin beyond tolerance")
 
@@ -2301,13 +2313,15 @@ def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
         before = grid_counts(hash_grid)
         losses.append(float(step().detach()))
         after = grid_counts(hash_grid)
-        require(all(after[k] - before[k] == n_groups for k in after),
-                f"K8f / K8b did not launch once per group in a {name} step: "
+        require(all(after[k] - before[k] == len(plans) for k in after),
+                f"K8f / K8b did not launch once per view in a {name} step: "
                 f"{before} -> {after}")
     launches = grid_counts(hash_grid)
     print(f"{name}: {GRID_STEPS} Adam steps (lr {GRID_VIEW_LR}) on the summed "
           f"loss of {len(plans)} views: loss {losses[0]:.6e} -> "
-          f"{losses[-1]:.6e}; launches {launches}", flush=True)
+          f"{losses[-1]:.6e}; launches {launches}: K8f and K8b once per view "
+          f"per step each ({len(plans)} per step over {n_groups} groups)",
+          flush=True)
     require(all(np.isfinite(losses)) and losses[-1] < losses[0],
             f"the {name} loss does not fall")
 
@@ -2316,20 +2330,21 @@ def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
     with torch.no_grad():
         frames_ms = cuda_ms(torch, lambda: [hash_tiled.render_hash_grid_tiled(
             pv, field, s) for pv, s in zip(plans, scheds)], 10)
-    k8f_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_forward(*a)
+    k8f_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_forward_tiles(*a)
                                      for a in args], 10)
-    k8b_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_backward(
-        *a[:7], gs, a[7]) for a, gs in zip(args, gss)], 5, warmup=1)
+    k8b_ms = cuda_ms(torch, lambda: [hash_grid.hash_grid_backward_tiles(
+        *a[:3], gs, a[3]) for a, gs in zip(args, gss)], 5, warmup=1)
     print(f"{name} times ms [{card}]: {len(plans)} frames {frames_ms:.4f}, "
-          f"Adam step {step_ms:.4f}; K8f {k8f_ms:.4f} over {n_groups} "
-          f"launches (plain {k8f_plain_ms:.4f}), K8b {k8b_ms:.4f} (plain "
-          f"{k8b_plain_ms:.4f})", flush=True)
+          f"Adam step {step_ms:.4f}; K8f {k8f_ms:.4f} over {len(plans)} "
+          f"launches (plain {k8f_plain_ms:.4f}), K8b {k8b_ms:.4f} over "
+          f"{len(plans)} launches (plain {k8b_plain_ms:.4f})", flush=True)
 
     live = sum(s.tiled_samples for s in scheds)
-    f_in = sum(nbytes(*a[:7]) for a in args)
-    f_out = sum(a[0].shape[0] * 5 * 256 * 4 for a in args)
-    rows = sum(a[0].shape[0] * a[7].banks * 128 * cols * 4 for a in args)
-    b_bytes = f_in + sum(nbytes(g) for g in gss) + rows + 4 * len(args[0][6])
+    f_in = sum(nbytes(a[0], a[1].samp, a[1].base, a[1].rayt, a[1].ke,
+                      a[1].bank0, a[2]) for a in args)
+    f_out = sum(a[1].n_tiles * 5 * 256 * 4 for a in args)
+    rows = sum(int(a[0].shape[0]) * 128 * cols * 4 for a in args)
+    b_bytes = f_in + sum(nbytes(g) for g in gss) + rows + 4 * len(args[0][2])
     kernels = [
         {"name": f"hash_grid:{form}", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_grid.cu",
@@ -2350,7 +2365,8 @@ def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
         "table_gb": table_gb, "frames_ms": frames_ms, "step_ms": step_ms,
         "k8f_ms": k8f_ms, "k8b_ms": k8b_ms, "k8f_plain_ms": k8f_plain_ms,
         "k8b_plain_ms": k8b_plain_ms, "losses": losses,
-        "k8b_rel_err": [b_rows, b_mlp]}
+        "launches_per_step": {k: v / GRID_STEPS for k, v in launches.items()},
+        "occupancy": occ, "k8b_rel_err": [b_rows, b_mlp]}
     return kernels, report
 
 
@@ -3533,6 +3549,17 @@ def run(only: str = "all") -> dict:
         print(json.dumps({**grid_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
+    if only == "gridviews":
+        kernels, views = [], {}
+        for phase, finest in ((34, 32), (35, 64)):
+            view_kernels, views[f"grid_views_{finest}"] = run_grid_views(
+                torch, P, dev, card, finest)
+            kernels += view_kernels
+            elapsed(str(phase))
+        print(json.dumps({"kernels": kernels}), flush=True)
+        print(json.dumps({**views, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
     if only == "window":
         win_kernels, win_report = run_window(torch, P, dev, card)
         elapsed("37-41")
@@ -3976,10 +4003,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("all", "dense", "grid", "window", "split"),
+        "--only", choices=("all", "dense", "grid", "gridviews", "window",
+                           "split"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'grid': phase "
-             "1 and phases 16-20 (the grid headline); 'window': phase 1 and "
+             "1 and phases 16-20 (the grid headline); 'gridviews': phase 1 "
+             "and phases 34-35 (the grid path over eight views at 8 and 4 "
+             "px); 'window': phase 1 and "
              "phases 37-41 (the windowed path, its fallback and K9); "
              "'split': phase 1 and phases 42-46 (the split backward, K6); "
              "each for timing two trees against each other in one call")

@@ -67,14 +67,16 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F,
                            _P, _P], _I),
-    "dvt_hash_grid_forward": ([_P] * 8
-                              + [_I] * 8
+    "dvt_hash_grid_forward": ([_P] * 9
+                              + [_I] * 6
                               + [_F] * 5 + [_F] * 9
                               + [_P, _P], _I),
-    "dvt_hash_grid_backward": ([_P] * 11
-                               + [_I] * 8
+    "dvt_hash_grid_backward": ([_P] * 12
+                               + [_I] * 6
                                + [_F] * 5 + [_F] * 9
                                + [_P, _P], _I),
+    "dvt_hash_grid_forward_occupancy": ([_I] * 4 + [_P], _I),
+    "dvt_hash_grid_backward_occupancy": ([_I] * 4 + [_P], _I),
     "dvt_integrate_forward": ([_P] * 8 + [_I, _I] + [_F] * 4 + [_P], _I),
     "dvt_integrate_backward": ([_P] * 11 + [_I, _I, _F, _P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),

@@ -12,11 +12,18 @@
 // scalars (308 floats at hidden 8, enc 16) are loaded once per block into
 // shared memory; every weight read is a broadcast.
 //
-// Layouts (see dvren_tpu_torch/render/tiled.py, ops/hash_grid.py):
-//   tabs  (T, NB, C, 128) f32  bank tables, column (l*8 + corner)*F + f
-//   samp  (T, nc, 3, 16, 128) u16  [sample_t hi16, lo16, lane | m << 15]
-//   base  (T, NB, 3, 128) f32  per-slot finest cell base (x, y, z)
-//   rayt  (T, 12, 128) f32, ke (T,) i32, bank0 (T*nc*SUBS,) i32  as K1's
+// One launch covers every tile group of a schedule: through a descriptor
+// (desc, (T, 4) i32: nc, nb, first chunk, first bank per tile;
+// hash_grid.cuh::tile_span) each tile finds its chunks and banks in the
+// schedule's flat arrays, so a launch fills the card however few tiles a
+// group holds. One group is the case of a single shape.
+//
+// Layouts (see dvren_tpu_torch/render/tiled.py, ops/hash_grid.py), with
+// S_c = the tiles' chunks and S_b their banks, summed over the groups:
+//   tabs  (S_b, C, 128) f32  bank tables, column (l*8 + corner)*F + f
+//   samp  (S_c, 3, 16, 128) u16  [sample_t hi16, lo16, lane | m << 15]
+//   base  (S_b, 3, 128) f32  per-slot finest cell base (x, y, z)
+//   rayt  (T, 12, 128) f32, ke (T,) i32, bank0 (S_c*SUBS,) i32  as K1's
 //   sc    (P,) f32  packed MLP scalars (ops/hash_tiles.py::_mlp_layout)
 //   out   (T, 5, 16, 16) f32  per ray: r, g, b, sum w*mid, processed od
 //
@@ -29,7 +36,8 @@
 // its exact early stop once T <= stop.
 //
 // Bound on the H100: the latency of the slot reads (C = 64 columns per
-// sample at the headline, from a tile's window in L1/L2) and the MLP's
+// sample at the headline, from a tile's window in L1/L2; grid_encode
+// issues a pair of features' 16 reads together) and the MLP's
 // 2*hidden*enc multiply-adds without FMA. Arithmetic runs in the plain
 // twin's order with _rn intrinsics, so the kernel agrees with
 // hash_grid.hash_grid_forward_plain to the last bit wherever expf does.
@@ -52,6 +60,7 @@ hash_grid_forward_kernel(const float* __restrict__ tabs,
                          const float* __restrict__ rayt,
                          const int* __restrict__ ke,
                          const int* __restrict__ bank0,
+                         const int* __restrict__ desc,
                          const float* __restrict__ scg,
                          float* __restrict__ out, GridConsts k) {
   extern __shared__ float sc[];
@@ -68,15 +77,16 @@ hash_grid_forward_kernel(const float* __restrict__ tabs,
   const MlpLayout lay(k.h);
   const int ket = ke[t];
   const TileTime tt(ket, k.h);
-  const int nc = k.h.nc;
+  const TileSpan span = tile_span(desc, t);
+  const int nc = span.nc;
 
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_wd = 0.f, acc_odp = 0.f;
   float s = 0.f;   // optical depth of every earlier step
   bool done = false;
   for (int c = 0; c < nc && !done; ++c) {
-    const int b0 = bank0[(t * nc + c) * SUBS + sub_tile] & 0x3FFF;
-    const int b1 = min(b0 + 1, k.nb - 1);
-    const uint16_t* sp = samp + (t * nc + c) * 3 * kChunkSamples
+    const int b0 = bank0[(span.chunk0 + c) * SUBS + sub_tile] & 0x3FFF;
+    const int b1 = min(b0 + 1, span.nb - 1);
+    const uint16_t* sp = samp + (span.chunk0 + c) * 3 * kChunkSamples
                          + row * kLanes + lane0;
 
     float c_r = 0.f, c_g = 0.f, c_b = 0.f, c_wd = 0.f, c_odp = 0.f;
@@ -100,7 +110,7 @@ hash_grid_forward_kernel(const float* __restrict__ tabs,
         bool second;
         const int slot = window_slot((int)(packed & 0x7FFFu) - b0 * kLanes,
                                      &second);
-        const int64_t bank = t * k.nb + (second ? b1 : b0);
+        const int64_t bank = span.bank0 + (second ? b1 : b0);
         const float* cbase = base + bank * 3 * kLanes + slot;
         float fs[3], cb[3];
         finest_coords(o, d, st, k, fs);
@@ -143,38 +153,72 @@ hash_grid_forward_kernel(const float* __restrict__ tabs,
 template <int SUBS>
 void launch(int n_tiles, cudaStream_t stream, const float* tabs,
             const uint16_t* samp, const float* base, const float* rayt,
-            const int* ke, const int* bank0, const float* sc, float* out,
-            const GridConsts& k) {
+            const int* ke, const int* bank0, const int* desc, const float* sc,
+            float* out, const GridConsts& k) {
   hash_grid_forward_kernel<SUBS><<<n_tiles, kRays, (size_t)k.h.n_sc * 4,
                                    stream>>>(tabs, samp, base, rayt, ke,
-                                             bank0, sc, out, k);
+                                             bank0, desc, sc, out, k);
+}
+
+template <int SUBS>
+int occupancy(int n_sc, int* out) {
+  cudaFuncAttributes fa;
+  cudaError_t err = cudaFuncGetAttributes(&fa, hash_grid_forward_kernel<SUBS>);
+  if (err != cudaSuccess) return (int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, hash_grid_forward_kernel<SUBS>, kRays, (size_t)n_sc * 4);
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = (int)fa.localSizeBytes;
+  out[3] = n_sc * 4;
+  out[4] = blocks;
+  return (int)err;
 }
 
 }  // namespace
 
 extern "C" int dvt_hash_grid_forward(
     const float* tabs, const uint16_t* samp, const float* base,
-    const float* rayt, const int* ke, const int* bank0, const float* sc,
-    float* out, int n_tiles, int nc, int nb, int k_max, int subs,
-    int n_levels,
-    int n_feat, int hidden, float dt, float t_near, float t_far,
+    const float* rayt, const int* ke, const int* bank0, const int* desc,
+    const float* sc, float* out, int n_tiles, int k_max, int subs,
+    int n_levels, int n_feat, int hidden, float dt, float t_near, float t_far,
     float t_stop, float stop, float lo_x, float lo_y, float lo_z,
     float inv_x, float inv_y, float inv_z, float ns_x, float ns_y,
     float ns_z, const float* ratios, void* stream) {
   if (!spec_ok(n_levels, n_feat, hidden)) return (int)cudaErrorInvalidValue;
   const GridConsts k = make_grid_consts(
-      nc, nb, k_max, n_levels, n_feat, hidden, dt, t_near, t_far, t_stop,
+      k_max, n_levels, n_feat, hidden, dt, t_near, t_far, t_stop,
       stop, lo_x, lo_y, lo_z, inv_x, inv_y, inv_z, ns_x, ns_y, ns_z, ratios);
   if (n_tiles <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   if (subs == 1) {
-    launch<1>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, sc, out, k);
+    launch<1>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, desc, sc, out,
+              k);
   } else if (subs == 4) {
-    launch<4>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, sc, out, k);
+    launch<4>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, desc, sc, out,
+              k);
   } else if (subs == 16) {
-    launch<16>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, sc, out, k);
+    launch<16>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, desc, sc, out,
+               k);
   } else {
     return (int)cudaErrorInvalidValue;
   }
   return (int)cudaGetLastError();
+}
+
+
+// Registers, static shared memory, local memory (stack and spills) per
+// thread, dynamic shared memory and resident blocks per SM of the K8f form
+// `subs` at a spec: out[0..4].
+extern "C" int dvt_hash_grid_forward_occupancy(int subs, int n_levels,
+                                               int n_feat, int hidden,
+                                               int* out) {
+  if (!spec_ok(n_levels, n_feat, hidden)) return (int)cudaErrorInvalidValue;
+  const int enc = n_levels * n_feat;
+  const int n_sc = 2 * hidden * enc + 6 * hidden + 4;
+  if (subs == 1) return occupancy<1>(n_sc, out);
+  if (subs == 4) return occupancy<4>(n_sc, out);
+  if (subs == 16) return occupancy<16>(n_sc, out);
+  return (int)cudaErrorInvalidValue;
 }

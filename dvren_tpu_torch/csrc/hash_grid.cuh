@@ -23,11 +23,11 @@ constexpr int kMaxEnc = 64;   // encoding_dim <= 64 (ops/hash_grid.py::grid_path
 
 struct GridConsts {
   HashConsts h;   // lattice, spec sizes; h.res[l] = res_l / res_finest
-  int nb, cols;   // banks per tile, C = L*8*F bank columns
+  int cols;       // C = L*8*F bank columns
   float lo[3], inv[3], ns[3];
 };
 
-inline GridConsts make_grid_consts(int nc, int nb, int k_max, int n_levels,
+inline GridConsts make_grid_consts(int k_max, int n_levels,
                                    int n_feat, int hidden, float dt,
                                    float t_near, float t_far, float t_stop,
                                    float stop, float lo_x, float lo_y,
@@ -35,9 +35,9 @@ inline GridConsts make_grid_consts(int nc, int nb, int k_max, int n_levels,
                                    float inv_z, float ns_x, float ns_y,
                                    float ns_z, const float* ratios) {
   GridConsts k;
-  k.h = make_consts(nc, k_max, n_levels, n_feat, 0, hidden, dt, t_near,
+  // chunk and bank counts are per tile (tile_span), not per launch
+  k.h = make_consts(0, k_max, n_levels, n_feat, 0, hidden, dt, t_near,
                     t_far, t_stop, stop, ratios);
-  k.nb = nb;
   k.cols = n_levels * 8 * n_feat;
   k.lo[0] = lo_x; k.lo[1] = lo_y; k.lo[2] = lo_z;
   k.inv[0] = inv_x; k.inv[1] = inv_y; k.inv[2] = inv_z;
@@ -99,7 +99,8 @@ __device__ __forceinline__ float corner_weight(const float t[3], int c) {
 
 // The sample's encoding from its bank slot (col points at column 0 of the
 // slot; column stride kLanes), folded into the first layers'
-// pre-activations; with enc_out the features are written there too.
+// pre-activations; with enc_out feature i is written to enc_out[i * stride]
+// too.
 template <bool kColor>
 __device__ __forceinline__ void grid_encode(const float fs[3],
                                             const float cb[3],
@@ -109,7 +110,8 @@ __device__ __forceinline__ void grid_encode(const float fs[3],
                                             const MlpLayout& lay,
                                             float pre_s[kMaxHidden],
                                             float pre_c[kMaxHidden],
-                                            float* enc_out) {
+                                            float* enc_out,
+                                            int stride = 1) {
   const int n_f = k.h.n_feat;
   zero_pre(pre_s, pre_c);
   for (int l = 0; l < k.h.n_levels; ++l) {
@@ -119,17 +121,64 @@ __device__ __forceinline__ void grid_encode(const float fs[3],
     for (int ax = 0; ax < 3; ++ax) t[ax] = level_frac(fs[ax], cb[ax], r);
 #pragma unroll
     for (int c = 0; c < 8; ++c) w8[c] = corner_weight(t, c);
-    for (int f = 0; f < n_f; ++f) {
+    auto emit = [&](int f, float e) {
+      const int i = l * n_f + f;
+      if (enc_out != nullptr) enc_out[i * stride] = e;
+      fold_feature<kColor>(i, e, sc, k.h, lay, pre_s, pre_c);
+    };
+    // features in pairs: a pair's 16 slot reads are issued together
+    int f = 0;
+    for (; f + 1 < n_f; f += 2) {
+      const float* v = col + (l * 8 * n_f + f) * kLanes;
+      float a[8], b[8];
+#pragma unroll
+      for (int c = 0; c < 8; ++c) {
+        a[c] = v[c * n_f * kLanes];
+        b[c] = v[c * n_f * kLanes + kLanes];
+      }
+      float e = mul(w8[0], a[0]);
+#pragma unroll
+      for (int c = 1; c < 8; ++c) e = add(e, mul(w8[c], a[c]));
+      emit(f, e);
+      e = mul(w8[0], b[0]);
+#pragma unroll
+      for (int c = 1; c < 8; ++c) e = add(e, mul(w8[c], b[c]));
+      emit(f + 1, e);
+    }
+    if (f < n_f) {
       const float* v = col + (l * 8 * n_f + f) * kLanes;
       float e = mul(w8[0], v[0]);
 #pragma unroll
       for (int c = 1; c < 8; ++c) e = add(e, mul(w8[c], v[c * n_f * kLanes]));
-      const int i = l * n_f + f;
-      if (enc_out != nullptr) enc_out[i] = e;
-      fold_feature<kColor>(i, e, sc, k.h, lay, pre_s, pre_c);
+      emit(f, e);
     }
   }
   add_biases<kColor>(sc, k.h, lay, pre_s, pre_c);
+}
+
+// A tile's place in a schedule's flat arrays (ops/hash_grid.py::GridTiles):
+// its chunk and bank counts and its first chunk (samp, bank0, the backward's
+// prefix scratch) and first bank (tabs, base, slot rows). Ray planes, ke and
+// the outputs are indexed by the tile itself. The empty asm keeps the four
+// words in registers: without it the compiler reloads them from desc where
+// they are used, inside the sample loop, so that each sample's slot address
+// waits on a load (K8f then uses fewer registers and runs markedly slower).
+constexpr int kDescWords = 4;   // nc, nb, first chunk, first bank
+
+struct TileSpan {
+  int nc, nb;
+  int64_t chunk0, bank0;
+};
+
+__device__ __forceinline__ TileSpan tile_span(const int* desc, int64_t t) {
+  const int* d = desc + t * kDescWords;
+  TileSpan s;
+  s.nc = d[0];
+  s.nb = d[1];
+  s.chunk0 = d[2];
+  s.bank0 = d[3];
+  asm volatile("" : "+r"(s.nc), "+r"(s.nb), "+l"(s.chunk0), "+l"(s.bank0));
+  return s;
 }
 
 // The window slot of a tile-local lane: (clipped slot, second bank?).

@@ -28,15 +28,19 @@ instead:
   in three forms, ``GridParams.subs`` 1, 4 or 16 sub-tiles per block (16,
   8 or 4 px tiles), each sub-tile with its own bank window per chunk.
 
-:func:`hash_grid_forward` and :func:`hash_grid_backward` launch their
-kernels for CUDA tensors and run the plain twins
-(:func:`hash_grid_forward_plain`, :func:`hash_grid_backward_plain`) for
-CPU tensors; their ``.launches`` attributes count launches.
+:func:`hash_grid_forward_tiles` and :func:`hash_grid_backward_tiles`
+launch the kernels once over every tile group of a schedule, from its
+flat arrays and per-tile descriptor (:class:`GridTiles`; one group is a
+:class:`GridTiles` of one shape), for CUDA tensors; for CPU tensors they
+loop the plain twins (:func:`hash_grid_forward_plain`,
+:func:`hash_grid_backward_plain`, one tile group each) over the groups.
+Each wrapper's ``.launches`` attribute counts its launches.
 """
 
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import functools
 from dataclasses import dataclass
 
@@ -262,22 +266,166 @@ def grid_op_params(plan: Plan, spec: HashMLPSpec, nb: int,
         ratios=_level_ratios(spec), spec=spec, subs=int(subs))
 
 
-def _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm: GridParams,
-                  gs=None):
-    t_cnt = tabs.shape[0]
-    nc, nb = prm.n_chunks, prm.banks
+# ------------------------------------------------ every group in one launch
+
+DESC_WORDS = 4   # per tile: n_chunks, banks, first chunk, first bank
+
+
+def _concat(arrays, empty):
+    """Concatenate numpy arrays, or tensors (u16 through an int16 view);
+    ``empty`` when there are none."""
+    if not arrays:
+        return empty
+    if isinstance(arrays[0], np.ndarray):
+        return np.concatenate(arrays)
+    if arrays[0].dtype == torch.uint16:
+        return torch.cat([a.view(torch.int16) for a in arrays]).view(
+            torch.uint16)
+    return torch.cat(arrays)
+
+
+@dataclass(frozen=True)
+class GridTiles:
+    """Every tile group of a hash-grid schedule as flat arrays, for one K8f
+    and one K8b launch over all of them. The groups' arrays concatenated
+    in group order, with S_c = sum of n_tiles * n_chunks and S_b = sum of
+    n_tiles * banks over the groups:
+
+    samp (S_c, 3, 16, 128) u16, base (S_b, 3, 128) f32, rayt (T, 12, 128)
+    f32, ke (T,) i32, bank0 (S_c * subs,) i32; and desc (T, 4) i32, per
+    tile its n_chunks, banks, first chunk (into samp, bank0 / subs) and
+    first bank (into base, the bank tables and K8b's slot rows).
+    ``shapes`` holds each group's (n_tiles, n_chunks, banks). Numpy arrays
+    as built, or tensors after :meth:`to`."""
+
+    shapes: tuple
+    subs: int
+    samp: np.ndarray
+    base: np.ndarray
+    rayt: np.ndarray
+    ke: np.ndarray
+    bank0: np.ndarray
+    desc: np.ndarray
+
+    def to(self, device) -> "GridTiles":
+        def move(x):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            return x.to(device)
+
+        return GridTiles(
+            shapes=self.shapes, subs=self.subs, samp=move(self.samp),
+            base=move(self.base), rayt=move(self.rayt), ke=move(self.ke),
+            bank0=move(self.bank0), desc=move(self.desc))
+
+    @property
+    def device(self):
+        return (self.samp.device if isinstance(self.samp, torch.Tensor)
+                else None)
+
+    @property
+    def n_tiles(self) -> int:
+        return sum(n for n, _, _ in self.shapes)
+
+    @property
+    def max_chunks(self) -> int:
+        return max((nc for _, nc, _ in self.shapes), default=0)
+
+    @property
+    def max_banks(self) -> int:
+        return max((nb for _, _, nb in self.shapes), default=0)
+
+    def offsets(self) -> list:
+        """Per group (first tile, first chunk, first bank)."""
+        out, t0, c0, b0 = [], 0, 0, 0
+        for n, nc, nb in self.shapes:
+            out.append((t0, c0, b0))
+            t0, c0, b0 = t0 + n, c0 + n * nc, b0 + n * nb
+        return out
+
+    def group_arrays(self) -> list:
+        """Per group its (T, ...) arrays as views of the flat ones: samp,
+        base, rayt, k_enter and bank0 (T, nc, subs), named as
+        ``tiled.TileGroup``'s fields."""
+        out = []
+        for (n, nc, nb), (t0, c0, b0) in zip(self.shapes, self.offsets()):
+            out.append({
+                "samp": self.samp[c0:c0 + n * nc].reshape(
+                    (n, nc) + tuple(self.samp.shape[1:])),
+                "base": self.base[b0:b0 + n * nb].reshape(
+                    (n, nb) + tuple(self.base.shape[1:])),
+                "rayt": self.rayt[t0:t0 + n],
+                "k_enter": self.ke[t0:t0 + n],
+                "bank0": self.bank0[c0 * self.subs:(c0 + n * nc)
+                                    * self.subs].reshape(n, nc, self.subs)})
+        return out
+
+
+def grid_tiles(groups, subs: int) -> GridTiles:
+    """The flat arrays and descriptor of ``groups`` (``tiled.TileGroup``s,
+    numpy or tensors on one device): copies, in group order."""
+    shapes = tuple((int(g.n_tiles), int(g.n_chunks), int(g.banks))
+                   for g in groups)
+    desc = []
+    c0 = b0 = 0
+    for n, nc, nb in shapes:
+        d = np.empty((n, DESC_WORDS), np.int32)
+        d[:, 0], d[:, 1] = nc, nb
+        d[:, 2] = c0 + nc * np.arange(n)
+        d[:, 3] = b0 + nb * np.arange(n)
+        desc.append(d)
+        c0, b0 = c0 + n * nc, b0 + n * nb
+    desc = (np.concatenate(desc) if desc
+            else np.zeros((0, DESC_WORDS), np.int32))
+
+    def flat(name, tail, dtype):
+        return _concat([getattr(g, name).reshape((-1,) + tail)
+                        for g in groups], np.zeros((0,) + tail, dtype))
+
+    tiles = GridTiles(
+        shapes=shapes, subs=int(subs),
+        samp=flat("samp", (3, ROWS, LANES), np.uint16),
+        base=flat("base", (3, LANES), np.float32),
+        rayt=flat("rayt", (RAYT_ROWS, LANES), np.float32),
+        ke=flat("k_enter", (), np.int32), bank0=flat("bank0", (), np.int32),
+        desc=desc)
+    dev = tiles.device
+    return tiles if dev is None else dataclasses.replace(
+        tiles, desc=torch.from_numpy(desc).to(dev))
+
+
+def tiles_op_params(plan: Plan, spec: HashMLPSpec,
+                    tiles: GridTiles) -> GridParams:
+    """The constants of a one-launch call over ``tiles``: the groups'
+    largest chunk and bank counts (each tile's own come from the
+    descriptor) and the schedule's sub-tiles per block."""
+    return grid_op_params(plan, spec, tiles.max_banks, tiles.max_chunks,
+                          tiles.subs)
+
+
+def _check_tiles(tabs, tiles: GridTiles, sc, prm: GridParams, gs=None):
+    s_c = sum(n * nc for n, nc, _ in tiles.shapes)
+    s_b = sum(n * nb for n, _, nb in tiles.shapes)
+    t_cnt = tiles.n_tiles
+    if prm.subs != tiles.subs:
+        raise ValueError(f"params for subs {prm.subs}, tiles of subs "
+                         f"{tiles.subs}")
     want = {
-        "tabs": (tabs, (t_cnt, nb, prm.cols, LANES), torch.float32),
-        "samp": (samp, (t_cnt, nc, 3, ROWS, LANES), torch.uint16),
-        "base": (base, (t_cnt, nb, 3, LANES), torch.float32),
-        "rayt": (rayt, (t_cnt, RAYT_ROWS, LANES), torch.float32),
-        "ke": (ke, (t_cnt,), torch.int32),
-        "bank0": (bank0, (t_cnt * nc * prm.subs,), torch.int32),
+        "tabs": (tabs, (s_b, prm.cols, LANES), torch.float32),
+        "samp": (tiles.samp, (s_c, 3, ROWS, LANES), torch.uint16),
+        "base": (tiles.base, (s_b, 3, LANES), torch.float32),
+        "rayt": (tiles.rayt, (t_cnt, RAYT_ROWS, LANES), torch.float32),
+        "ke": (tiles.ke, (t_cnt,), torch.int32),
+        "bank0": (tiles.bank0, (s_c * tiles.subs,), torch.int32),
+        "desc": (tiles.desc, (t_cnt, DESC_WORDS), torch.int32),
         "sc": (sc, (_mlp_layout(prm.spec)["total"],), torch.float32),
     }
     if gs is not None:
         want["gs"] = (gs, (t_cnt, 5, ROWS, RAYS_COLS), torch.float32)
     for name, (x, shape, dtype) in want.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name}: want a tensor (move the tiles with "
+                            f".to(device))")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: want shape {shape}, got "
                              f"{tuple(x.shape)}")
@@ -285,56 +433,149 @@ def _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm: GridParams,
             raise TypeError(f"{name}: want {dtype}, got {x.dtype}")
         if x.device != tabs.device:
             raise ValueError(f"{name} on {x.device}, tabs on {tabs.device}")
-    if tabs.device.type == "cuda":
-        for name, (x, _, _) in want.items():
-            if not x.is_contiguous():
-                raise ValueError(f"{name} must be contiguous")
-    elif tabs.device.type != "cpu":
+        if tabs.device.type == "cuda" and not x.is_contiguous():
+            raise ValueError(f"{name} must be contiguous")
+    if tabs.device.type not in ("cpu", "cuda"):
         raise ValueError(f"unsupported device {tabs.device}")
 
 
-def _kernel_args(prm: GridParams):
-    spec = prm.spec
-    ratios = (ctypes.c_float * len(prm.ratios))(*prm.ratios)
-    return ratios, (prm.n_chunks, prm.banks, prm.k_max, prm.subs,
-                    spec.n_levels,
-                    spec.features_per_level, spec.hidden_dim,
-                    prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
-                    *prm.lo, *prm.inv, *prm.ns)
+def _group_args(tabs, tiles: GridTiles, sc, prm: GridParams) -> list:
+    """Per group the arguments of the one-group wrappers, as views."""
+    out = []
+    for (n, nc, nb), (t0, c0, b0), arrays in zip(
+            tiles.shapes, tiles.offsets(), tiles.group_arrays()):
+        out.append((tabs[b0:b0 + n * nb].reshape(n, nb, prm.cols, LANES),
+                    arrays["samp"], arrays["base"], arrays["rayt"],
+                    arrays["k_enter"], arrays["bank0"].reshape(-1), sc,
+                    dataclasses.replace(prm, n_chunks=nc, banks=nb)))
+    return out
 
 
-def hash_grid_forward(tabs, samp, base, rayt, ke, bank0, sc,
-                      prm: GridParams) -> torch.Tensor:
-    """K8f: one tile group's raw heads, (T, 5, 16, 16) float32 (r, g, b,
-    weighted mid-depth, processed optical depth).
+def hash_grid_forward_tiles_plain(tabs, tiles: GridTiles, sc,
+                                  prm: GridParams) -> torch.Tensor:
+    """:func:`hash_grid_forward_plain` group by group, concatenated."""
+    outs = [hash_grid_forward_plain(*a)
+            for a in _group_args(tabs, tiles, sc, prm)]
+    if not outs:
+        return tabs.new_zeros((0, 5, ROWS, RAYS_COLS))
+    return torch.cat(outs)
 
-    tabs (T, NB, C, 128) f32 bank tables of :func:`build_hash_grid_table`,
-    samp (T, nc, 3, 16, 128) u16, base (T, NB, 3, 128) f32, rayt
-    (T, 12, 128) f32, ke (T,) i32, bank0 (T * nc * subs,) i32 (the dense
-    schedule's window start per (chunk, sub-tile)), sc (P,) f32 packed MLP
-    scalars."""
-    _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm)
+
+def hash_grid_backward_tiles_plain(tabs, tiles: GridTiles, sc, gs,
+                                   prm: GridParams):
+    """:func:`hash_grid_backward_plain` group by group: the slot rows
+    concatenated, (S_b * 128, C), and the groups' MLP gradients summed
+    (``torch.sum`` over the stacked groups)."""
+    rows, d_scs, t0 = [], [], 0
+    for a in _group_args(tabs, tiles, sc, prm):
+        n = int(a[0].shape[0])
+        d_rows, d_sc = hash_grid_backward_plain(
+            *a[:7], gs[t0:t0 + n].contiguous(), a[7])
+        rows.append(d_rows.reshape(-1, prm.cols))
+        d_scs.append(d_sc)
+        t0 += n
+    if not rows:
+        return (tabs.new_zeros((0, prm.cols)),
+                sc.new_zeros(sc.shape))
+    return torch.cat(rows), torch.sum(torch.stack(d_scs), dim=0)
+
+
+def hash_grid_forward_tiles(tabs, tiles: GridTiles, sc,
+                            prm: GridParams) -> torch.Tensor:
+    """K8f over every tile group of a schedule in one launch: (T, 5, 16,
+    16) float32, the groups' outputs in group order. ``tabs`` (S_b, C,
+    128) the flat bank tables (``tiled._gather_banks_flat``), ``prm`` from
+    :func:`tiles_op_params`. CPU tensors run the twin group by group."""
+    _check_tiles(tabs, tiles, sc, prm)
     if tabs.device.type == "cpu":
-        return hash_grid_forward_plain(tabs, samp, base, rayt, ke, bank0,
-                                       sc, prm)
-    t_cnt = int(tabs.shape[0])
+        return hash_grid_forward_tiles_plain(tabs, tiles, sc, prm)
+    t_cnt = tiles.n_tiles
     out = torch.empty((t_cnt, 5, ROWS, RAYS_COLS), dtype=torch.float32,
                       device=tabs.device)
     ratios, consts = _kernel_args(prm)
     lib = _build.library()
     with torch.cuda.device(tabs.device):
         code = lib.dvt_hash_grid_forward(
-            tabs.data_ptr(), samp.data_ptr(), base.data_ptr(),
-            rayt.data_ptr(), ke.data_ptr(), bank0.data_ptr(), sc.data_ptr(),
+            tabs.data_ptr(), tiles.samp.data_ptr(), tiles.base.data_ptr(),
+            tiles.rayt.data_ptr(), tiles.ke.data_ptr(),
+            tiles.bank0.data_ptr(), tiles.desc.data_ptr(), sc.data_ptr(),
             out.data_ptr(), t_cnt, *consts,
             ctypes.cast(ratios, ctypes.c_void_p),
             _build.stream_ptr(tabs.device))
     _build.check(code, "dvt_hash_grid_forward")
-    hash_grid_forward.launches += 1
+    hash_grid_forward_tiles.launches += 1
     return out
 
 
-hash_grid_forward.launches = 0
+hash_grid_forward_tiles.launches = 0
+
+
+def hash_grid_backward_tiles(tabs, tiles: GridTiles, sc, gs,
+                             prm: GridParams):
+    """K8b over every tile group of a schedule in one launch: (d_rows
+    (S_b * 128, C) f32, the slot rows of every group concatenated, as
+    :func:`gather_plan.slot_rows_to_table` reads them; d_mlp (P,)) for
+    the cotangent ``gs`` (T, 5, 16, 16) of :func:`hash_grid_forward_tiles`.
+    The kernel writes each tile's MLP partials into one (T, P) array,
+    summed once (``torch.sum``: a fixed order, repeat runs bit-identical).
+    CPU tensors run the twin group by group."""
+    _check_tiles(tabs, tiles, sc, prm, gs=gs)
+    if tabs.device.type == "cpu":
+        return hash_grid_backward_tiles_plain(tabs, tiles, sc, gs, prm)
+    t_cnt, dev = tiles.n_tiles, tabs.device
+    d_rows = torch.empty((int(tabs.shape[0]) * LANES, prm.cols),
+                         dtype=torch.float32, device=dev)
+    part_mlp = torch.empty((t_cnt, int(sc.shape[0])), dtype=torch.float32,
+                           device=dev)
+    s_pre = torch.empty((int(tiles.samp.shape[0]) * GROUP, RAYS_PER_TILE),
+                        dtype=torch.float32, device=dev)
+    ratios, consts = _kernel_args(prm)
+    lib = _build.library()
+    with torch.cuda.device(dev):
+        code = lib.dvt_hash_grid_backward(
+            tabs.data_ptr(), tiles.samp.data_ptr(), tiles.base.data_ptr(),
+            tiles.rayt.data_ptr(), tiles.ke.data_ptr(),
+            tiles.bank0.data_ptr(), tiles.desc.data_ptr(), sc.data_ptr(),
+            gs.data_ptr(), d_rows.data_ptr(), part_mlp.data_ptr(),
+            s_pre.data_ptr(), t_cnt, *consts,
+            ctypes.cast(ratios, ctypes.c_void_p), _build.stream_ptr(dev))
+    _build.check(code, "dvt_hash_grid_backward")
+    hash_grid_backward_tiles.launches += 1
+    return d_rows, part_mlp.sum(dim=0)
+
+
+hash_grid_backward_tiles.launches = 0
+
+
+def kernel_occupancy(spec: HashMLPSpec, subs: int) -> dict:
+    """K8f's and K8b's registers, static and dynamic shared memory (bytes
+    per block), local memory (bytes per thread: stack and spills) and
+    resident blocks per SM at ``spec`` in the form ``subs``, from the CUDA
+    runtime (K8b also its staged group g and panel width)."""
+    lib = _build.library()
+    out = {}
+    for name, fn, keys in (
+            ("hash_grid", lib.dvt_hash_grid_forward_occupancy,
+             ("registers", "static_smem", "local_bytes", "dynamic_smem",
+              "blocks_per_sm")),
+            ("hash_grid_bwd", lib.dvt_hash_grid_backward_occupancy,
+             ("registers", "static_smem", "local_bytes", "dynamic_smem",
+              "blocks_per_sm", "g", "panel"))):
+        vals = (ctypes.c_int * 8)()
+        code = fn(subs, spec.n_levels, spec.features_per_level,
+                  spec.hidden_dim, ctypes.cast(vals, ctypes.c_void_p))
+        _build.check(code, f"{name} occupancy")
+        out[name] = dict(zip(keys, list(vals)))
+    return out
+
+
+def _kernel_args(prm: GridParams):
+    spec = prm.spec
+    ratios = (ctypes.c_float * len(prm.ratios))(*prm.ratios)
+    return ratios, (prm.k_max, prm.subs, spec.n_levels,
+                    spec.features_per_level, spec.hidden_dim,
+                    prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
+                    *prm.lo, *prm.inv, *prm.ns)
 
 
 class _GridLattice(_Lattice):
@@ -388,27 +629,17 @@ def hash_grid_forward_plain(tabs, samp, base, rayt, ke, bank0, sc,
     return march_plain(lat, lambda c: lat.planes(c, mlp)[0])
 
 
-def hash_grid_backward_plain(tabs, samp, base, rayt, ke, bank0, sc, gs,
-                             prm: GridParams):
-    """Plain twin of K8b: (d_rows (T, NB, 128, C), d_mlp (P,)) for the
-    per-ray cotangents ``gs`` (T, 5, 16, 16) of K8f's heads.
-
-    Pass 1 recomputes every sample's optical-depth prefix in K8f's order.
-    Pass 2 walks the chunks and their steps in reverse with the adjoint of
-    the telescoped weights (suffix sums of gw * w), then through the mask
-    and both heads with JAX's tie values written out (0.5 at max(x, 0) ==
-    0 and at each end of the colour clamp), to d(encoding) and the C
-    products w8_l[corner] * d(enc)[l*F + f] per sample. Per-sample values
-    follow the kernel's order of arithmetic. The sums over samples run in
-    float64 and round once: the slot rows by ``index_add_`` into each
-    sample's window slot (in float32 the card's ``index_add_``, atomics in
-    no fixed order, rounds more than K8b's ordered sums), the MLP
-    gradients as matrix products."""
-    spec = prm.spec
-    lat = _GridLattice(tabs, samp, base, rayt, ke, bank0, prm)
-    mlp = _mlp_from_scalars(sc, spec)
-    t_cnt, nb, nc, dev = lat.t_cnt, lat.nb, lat.nc, lat.dev
-    hid, n_f, n_cols = spec.hidden_dim, spec.features_per_level, prm.cols
+def _adjoint_chunks(lat: _GridLattice, mlp: dict, gs, spec: HashMLPSpec):
+    """The plain twin's reverse adjoint, chunk by chunk from the last: per
+    chunk c a dict of its per-sample planes (T, 2048), sample = ray * 8 +
+    step, in K8b's order of arithmetic: the encoding ``enc`` (E planes),
+    ``s_h`` / ``c_h`` (relu of both heads' first layers, H each), ``ds1``
+    / ``dc1`` (H each), ``dsig2``, ``dc2`` (3), ``denc`` (E), the level
+    weights ``wl``, ``idx2`` and ``c``. Every plane is exactly 0 on a
+    sample K8b does not process, but enc, s_h and c_h, whose products with
+    those zeros are 0."""
+    t_cnt, nc, dev = lat.t_cnt, lat.nc, lat.dev
+    hid = spec.hidden_dim
     g = gs.reshape(t_cnt, 5, RAYS_PER_TILE, 1)
     g_r, g_g, g_b, g_wd, g_odp = (g[:, i] for i in range(5))
     zeros = torch.zeros((t_cnt, RAYS_PER_TILE), dtype=torch.float32,
@@ -427,10 +658,6 @@ def hash_grid_backward_plain(tabs, samp, base, rayt, ke, bank0, sc, gs,
         s_pre.append(torch.stack(pre, dim=-1))                # (T, 256, 8)
 
     # pass 2: the reverse adjoint
-    acc = torch.zeros((t_cnt * nb * LANES, n_cols), dtype=torch.float64,
-                      device=dev)
-    d_mlp = {k: torch.zeros(v.shape, dtype=torch.float64, device=dev)
-             for k, v in mlp.items()}
     carry = zeros
     for c in reversed(range(nc)):
         (sig, cr, cg, cb), enc, pre, wl, idx2, m = lat.planes(c, mlp)
@@ -476,31 +703,64 @@ def hash_grid_backward_plain(tabs, samp, base, rayt, ke, bank0, sc, gs,
                 a = a + (ds1[j] * mlp["sigma_w1"][j, i]
                          + dc1[j] * mlp["color_w1"][j, i])
             denc.append(a)
+        yield {"c": c, "enc": enc, "s_h": s_h, "c_h": c_h, "ds1": ds1,
+               "dc1": dc1, "dsig2": dsig2, "dc2": dc2, "denc": denc,
+               "wl": wl, "idx2": idx2}
 
-        def outer(a, b):
-            return torch.stack([v.reshape(-1) for v in a]).double() @ \
-                torch.stack([v.reshape(-1) for v in b]).double().T
 
-        def total(vs):
-            return torch.stack([v.reshape(-1) for v in vs]).double().sum(1)
+def hash_grid_backward_plain(tabs, samp, base, rayt, ke, bank0, sc, gs,
+                             prm: GridParams):
+    """Plain twin of K8b: (d_rows (T, NB, 128, C), d_mlp (P,)) for the
+    per-ray cotangents ``gs`` (T, 5, 16, 16) of K8f's heads.
 
-        d_mlp["sigma_w1"] += outer(ds1, enc)
+    Pass 1 recomputes every sample's optical-depth prefix in K8f's order.
+    Pass 2 walks the chunks and their steps in reverse with the adjoint of
+    the telescoped weights (suffix sums of gw * w), then through the mask
+    and both heads with JAX's tie values written out (0.5 at max(x, 0) ==
+    0 and at each end of the colour clamp), to d(encoding) and the C
+    products w8_l[corner] * d(enc)[l*F + f] per sample
+    (:func:`_adjoint_chunks`). Per-sample values follow the kernel's order
+    of arithmetic. The sums over samples run in float64 and round once:
+    the slot rows by ``index_add_`` into each sample's window slot (in
+    float32 the card's ``index_add_``, atomics in no fixed order, rounds
+    more than K8b's ordered sums), the MLP gradients as matrix products."""
+    spec = prm.spec
+    lat = _GridLattice(tabs, samp, base, rayt, ke, bank0, prm)
+    mlp = _mlp_from_scalars(sc, spec)
+    t_cnt, nb, dev = lat.t_cnt, lat.nb, lat.dev
+    n_f, n_cols = spec.features_per_level, prm.cols
+    acc = torch.zeros((t_cnt * nb * LANES, n_cols), dtype=torch.float64,
+                      device=dev)
+    d_mlp = {k: torch.zeros(v.shape, dtype=torch.float64, device=dev)
+             for k, v in mlp.items()}
+
+    def outer(a, b):
+        return torch.stack([v.reshape(-1) for v in a]).double() @ \
+            torch.stack([v.reshape(-1) for v in b]).double().T
+
+    def total(vs):
+        return torch.stack([v.reshape(-1) for v in vs]).double().sum(1)
+
+    for f in _adjoint_chunks(lat, mlp, gs, spec):
+        ds1, dc1, dsig2, dc2 = f["ds1"], f["dc1"], f["dsig2"], f["dc2"]
+        d_mlp["sigma_w1"] += outer(ds1, f["enc"])
         d_mlp["sigma_b1"] += total(ds1)
-        d_mlp["sigma_w2"] += outer([dsig2], s_h)[0]
+        d_mlp["sigma_w2"] += outer([dsig2], f["s_h"])[0]
         d_mlp["sigma_b2"] += dsig2.double().sum()
-        d_mlp["color_w1"] += outer(dc1, enc)
+        d_mlp["color_w1"] += outer(dc1, f["enc"])
         d_mlp["color_b1"] += total(dc1)
-        d_mlp["color_w2"] += outer(dc2, c_h)
+        d_mlp["color_w2"] += outer(dc2, f["c_h"])
         d_mlp["color_b2"] += total(dc2)
 
         wp = []
-        for level, weights in enumerate(wl):
+        for level, weights in enumerate(f["wl"]):
             w8 = corner_weights(weights)
             for corner in range(8):
-                for f in range(n_f):
-                    wp.append(w8[corner] * denc[level * n_f + f])
+                for ff in range(n_f):
+                    wp.append(w8[corner] * f["denc"][level * n_f + ff])
         wp = torch.stack(wp, dim=-1)                        # (T, 2048, C)
-        b0, b1, _ = lat.window(c)
+        idx2 = f["idx2"]
+        b0, b1, _ = lat.window(f["c"])
         second = idx2 >= LANES
         bank = torch.where(second, b1, b0)
         lane = torch.where(second, idx2 - LANES, idx2).clamp(0, LANES - 1)
@@ -511,42 +771,3 @@ def hash_grid_backward_plain(tabs, samp, base, rayt, ke, bank0, sc, gs,
     d_sc = torch.cat([d_mlp[k].reshape(-1) for k in MLP_KEYS]).to(
         torch.float32)
     return d_rows, d_sc
-
-
-def hash_grid_backward(tabs, samp, base, rayt, ke, bank0, sc, gs,
-                       prm: GridParams):
-    """K8b: (d_rows (T, NB, 128, C) f32 slot rows, row (t * NB + b) * 128
-    + lane; d_mlp (P,) in :func:`hash_tiles._mlp_layout` order) for the
-    cotangent ``gs`` (T, 5, 16, 16) f32 of :func:`hash_grid_forward`.
-
-    Launches ``csrc/hash_grid_bwd.cu``, which writes per-tile MLP
-    partials, and sums them over the tiles (``torch.sum``: a fixed order,
-    so repeat runs are bit-identical) for CUDA tensors; runs
-    :func:`hash_grid_backward_plain` for CPU tensors."""
-    _check_inputs(tabs, samp, base, rayt, ke, bank0, sc, prm, gs=gs)
-    if tabs.device.type == "cpu":
-        return hash_grid_backward_plain(tabs, samp, base, rayt, ke, bank0,
-                                        sc, gs, prm)
-    t_cnt, dev = int(tabs.shape[0]), tabs.device
-    d_rows = torch.empty((t_cnt, prm.banks, LANES, prm.cols),
-                         dtype=torch.float32, device=dev)
-    part_mlp = torch.empty((t_cnt, int(sc.shape[0])), dtype=torch.float32,
-                           device=dev)
-    # each sample's optical-depth prefix, written by pass 1, read by pass 2
-    s_pre = torch.empty((t_cnt, prm.n_chunks * GROUP, RAYS_PER_TILE),
-                        dtype=torch.float32, device=dev)
-    ratios, consts = _kernel_args(prm)
-    lib = _build.library()
-    with torch.cuda.device(dev):
-        code = lib.dvt_hash_grid_backward(
-            tabs.data_ptr(), samp.data_ptr(), base.data_ptr(),
-            rayt.data_ptr(), ke.data_ptr(), bank0.data_ptr(), sc.data_ptr(),
-            gs.data_ptr(), d_rows.data_ptr(), part_mlp.data_ptr(),
-            s_pre.data_ptr(), t_cnt, *consts,
-            ctypes.cast(ratios, ctypes.c_void_p), _build.stream_ptr(dev))
-    _build.check(code, "dvt_hash_grid_backward")
-    hash_grid_backward.launches += 1
-    return d_rows, part_mlp.sum(dim=0)
-
-
-hash_grid_backward.launches = 0

@@ -20,9 +20,10 @@ path) carries table sizes past 128: the dense scheduler over the finest
 level's point lattice, cascading 16 -> 8 -> 4 px sub-tiles until no slot
 table overflows, the packed multi-level corner table of
 :mod:`dvren_tpu_torch.ops.hash_grid`, the bank gather at C = L*8*F
-columns, and K8f / K8b per tile group, in the schedule's sub-tile form,
-inside one autograd node (:class:`_HashGridGroupset`). The field is zero
-outside the unit cube.
+columns, and one K8f / K8b launch over every tile group of the schedule
+(its flat arrays and per-tile descriptor, :class:`HashGridSchedule`), in
+the schedule's sub-tile form, inside one autograd node
+(:class:`_HashGridGroupset`). The field is zero outside the unit cube.
 """
 
 from __future__ import annotations
@@ -250,7 +251,7 @@ def build_hash_grid_schedule(plan: Plan, field,
                              tile_px: int | None = None,
                              quantize=False,
                              uniform_shape=None,
-                             device=None) -> tiled_mod.TiledSchedule:
+                             device=None) -> HashGridSchedule:
     """Tile-table schedule for the hash grid path: the dense scheduler over
     the spec's finest-level lattice (one slot per finest cell; every
     level's lookups resolve from that cell's packed row), in numpy, or
@@ -261,7 +262,9 @@ def build_hash_grid_schedule(plan: Plan, field,
     grid path has no windowed fallback: the streamed referee's semantics
     outside the unit cube differ). A scene that overflows even 4 px
     sub-tiles raises ``DvrenError``. ``quantize`` / ``uniform_shape`` as
-    in :func:`tiled.build_tiled_schedule`."""
+    in :func:`tiled.build_tiled_schedule`. The schedule is a
+    :class:`HashGridSchedule`: it carries the flat arrays of the one-launch
+    kernels."""
     _check_grid_spec(field.spec)
     proxy = _HashSchedProxy(
         schedule_grid_shape=hash_grid.grid_shape(field.spec))
@@ -280,80 +283,105 @@ def build_hash_grid_schedule(plan: Plan, field,
                 break
         check(sched.fallback_rays == 0,
               "hash grid schedule overflows even 4px sub-tiles")
+    sched = HashGridSchedule(**{f.name: getattr(sched, f.name)
+                                for f in dataclasses.fields(sched)})
+    sched = sched.with_views(
+        hash_grid.grid_tiles(sched.groups, (16 // sched.tile_px) ** 2))
     return sched if device is None else sched.to(device)
 
 
-class _HashGridGroupset(torch.autograd.Function):
-    """Hash-field params -> every tile group's raw K8f output, as one
-    autograd node: the counterpart of ``dvren_tpu``'s
-    ``render_hash_grid_tiled`` chain (table build, ``_gather_banks_f32``,
-    the hash-grid custom VJP per group).
+_FLAT_FIELDS = ("samp", "base", "rayt", "k_enter", "bank0")
 
-    Forward: :func:`hash_grid.build_hash_grid_table`, the bank gather at
-    C columns, K8f per group. Backward: K8b per group, one ``torch.cat``
-    of the slot rows, :func:`gather_plan.slot_rows_to_table` over C
-    columns, then :func:`hash_grid.hash_grid_table_grad`; the MLP partials
-    are summed with ``torch.sum`` and mapped by ``grads_from_blocks``. Autograd
-    never records the table gather: its backward would be ``index_add_``.
+
+@dataclass(frozen=True)
+class HashGridSchedule(tiled_mod.TiledSchedule):
+    """A hash-grid tile schedule: the dense scheduler's, plus
+    ``grid_tiles`` (:class:`hash_grid.GridTiles`), every group's samp,
+    base, rayt, k_enter and bank0 concatenated with the per-tile descriptor
+    of the one-launch kernels. Those five arrays of the groups are views of
+    the flat ones, on the host and after :meth:`to`, so the schedule holds
+    them once."""
+
+    grid_tiles: hash_grid.GridTiles | None = None
+
+    def with_views(self, tiles: hash_grid.GridTiles) -> "HashGridSchedule":
+        """The schedule carrying ``tiles``, its groups' arrays cut from
+        them."""
+        return dataclasses.replace(self, grid_tiles=tiles, groups=tuple(
+            dataclasses.replace(g, **v)
+            for g, v in zip(self.groups, tiles.group_arrays())))
+
+    def to(self, device) -> "HashGridSchedule":
+        """The schedule on ``device``: the flat arrays moved once, every
+        other array as :meth:`tiled.TiledSchedule.to` moves it."""
+        bare = dataclasses.replace(self, groups=tuple(
+            dataclasses.replace(g, **dict.fromkeys(_FLAT_FIELDS))
+            for g in self.groups))
+        return tiled_mod.TiledSchedule.to(bare, device).with_views(
+            self.grid_tiles.to(device))
+
+
+class _HashGridGroupset(torch.autograd.Function):
+    """Hash-field params -> the raw K8f output of every tile of the
+    schedule, (T, 5, 16, 16) in group order, as one autograd node: the
+    counterpart of ``dvren_tpu``'s ``render_hash_grid_tiled`` chain (table
+    build, ``_gather_banks_f32``, the hash-grid custom VJP per group).
+
+    Forward: :func:`hash_grid.build_hash_grid_table`, the bank gather at C
+    columns into one flat array, one K8f launch over every group
+    (:func:`hash_grid.hash_grid_forward_tiles`). Backward: one K8b launch,
+    which writes every group's slot rows into the one buffer that
+    :func:`gather_plan.slot_rows_to_table` reduces over C columns, then
+    :func:`hash_grid.hash_grid_table_grad`; the MLP partials of all tiles
+    are summed once and mapped by ``grads_from_blocks``. Autograd never
+    records the table gather: its backward would be ``index_add_``.
     Returns None for ``static`` and the params' cotangents in
-    ``("hash_table",) + MLP_KEYS`` order. ``static`` = (schedule,
-    per-group GridParams, use_kernel, spec); on CPU tensors every kernel
-    step runs its plain twin."""
+    ``("hash_table",) + MLP_KEYS`` order. ``static`` = (GridTiles,
+    GridParams of the launch, gather map, gather plan, use_kernel, spec);
+    on CPU tensors, or with ``use_kernel=False``, the twins run group by
+    group."""
 
     @staticmethod
     def forward(ctx, static, *params):
-        schedule, prms, use_kernel, spec = static
+        tiles, prm, gathermap, _, use_kernel, spec = static
         named = dict(zip(("hash_table",) + MLP_KEYS, params))
         table = hash_grid.build_hash_grid_table(named, spec)
         sc = pack_mlp_scalars(named, spec)
-        tabs = tiled_mod._gather_bank_tables(
-            table, schedule.gathermap_all,
-            [(g.n_tiles, g.banks) for g in schedule.groups])
-        forward = (hash_grid.hash_grid_forward if use_kernel
-                   else hash_grid.hash_grid_forward_plain)
-        raws = tuple(
-            forward(tabs[gi], g.samp, g.base, g.rayt, g.k_enter,
-                    g.bank0.reshape(-1), sc, prms[gi])
-            for gi, g in enumerate(schedule.groups))
+        tabs = tiled_mod._gather_banks_flat(table, gathermap)
+        forward = (hash_grid.hash_grid_forward_tiles if use_kernel
+                   else hash_grid.hash_grid_forward_tiles_plain)
+        raw = forward(tabs, tiles, sc, prm)
         ctx.static = static
         ctx.tabs = tabs
         ctx.n_rows = int(table.shape[0])
         ctx.save_for_backward(sc)
-        return raws
+        return raw
 
     @staticmethod
-    def backward(ctx, *g_raws):
-        schedule, prms, use_kernel, spec = ctx.static
+    def backward(ctx, g_raw):
+        tiles, prm, _, plan_rows, use_kernel, spec = ctx.static
         (sc,) = ctx.saved_tensors
-        backward = (hash_grid.hash_grid_backward if use_kernel
-                    else hash_grid.hash_grid_backward_plain)
-        rows, d_scs = [], []
-        for gi, g in enumerate(schedule.groups):
-            gs = g_raws[gi]
-            gs = (sc.new_zeros((g.n_tiles, 5, 16, 16)) if gs is None
-                  else gs.contiguous())
-            d_rows, d_sc = backward(ctx.tabs[gi], g.samp, g.base, g.rayt,
-                                    g.k_enter, g.bank0.reshape(-1), sc, gs,
-                                    prms[gi])
-            rows.append(d_rows.reshape(-1, d_rows.shape[-1]))
-            d_scs.append(d_sc)
-        table_grad = slot_rows_to_table(
-            torch.cat(rows), schedule.gather_plan, ctx.n_rows)
+        backward = (hash_grid.hash_grid_backward_tiles if use_kernel
+                    else hash_grid.hash_grid_backward_tiles_plain)
+        gs = (sc.new_zeros((tiles.n_tiles, 5, 16, 16)) if g_raw is None
+              else g_raw.contiguous())
+        rows, d_sc = backward(ctx.tabs, tiles, sc, gs, prm)
+        table_grad = slot_rows_to_table(rows, plan_rows, ctx.n_rows)
         grads = grads_from_blocks(
-            hash_grid.hash_grid_table_grad(table_grad, spec),
-            torch.sum(torch.stack(d_scs), dim=0), spec)
+            hash_grid.hash_grid_table_grad(table_grad, spec), d_sc, spec)
         return (None, *(grads[k] for k in ("hash_table",) + MLP_KEYS))
 
 
 def render_hash_grid_tiled(plan: Plan, field, schedule,
                            use_kernel: bool = True) -> ImagePlanes:
     """NGP-scale fused hash render: the packed multi-level table build, the
-    planned bank gather, K8f per tile group and the tile composition.
-    Differentiable in the field's parameters (the hash table through K8b's
-    slot rows, the planned gather transpose and the table build's
-    adjoint; the MLP heads through K8b's scalar gradients).
+    planned bank gather, one K8f launch over every tile group and the
+    tile composition. Differentiable in the field's parameters (the hash
+    table through K8b's slot rows, the planned gather transpose and the
+    table build's adjoint; the MLP heads through K8b's scalar gradients).
     ``use_kernel=False`` runs the plain twins of K8f / K8b on the
-    schedule's device."""
+    schedule's device. The schedule comes from
+    :func:`build_hash_grid_schedule` (a :class:`HashGridSchedule`)."""
     _check_grid_spec(field.spec)
     check(schedule.fallback_rays == 0 and schedule.fallback is None,
           "hash grid path requires zero overflow rays")
@@ -362,15 +390,17 @@ def render_hash_grid_tiled(plan: Plan, field, schedule,
     check(schedule.device == field.device,
           f"schedule is on {schedule.device}, the field on {field.device}: "
           f"move it with schedule.to(device)")
-    subs = (16 // schedule.tile_px) ** 2
-    prms = tuple(hash_grid.grid_op_params(plan, field.spec, g.banks,
-                                          g.n_chunks, subs)
-                 for g in schedule.groups)
+    check(isinstance(schedule, HashGridSchedule)
+          and schedule.grid_tiles is not None,
+          "schedule has no grid_tiles: build it with build_hash_grid_schedule")
     raws = []
     if schedule.groups:
-        raws = list(_HashGridGroupset.apply(
-            (schedule, prms, use_kernel, field.spec),
-            *(field.params[k] for k in ("hash_table",) + MLP_KEYS)))
+        tiles = schedule.grid_tiles
+        prm = hash_grid.tiles_op_params(plan, field.spec, tiles)
+        raws = [_HashGridGroupset.apply(
+            (tiles, prm, schedule.gathermap_all, schedule.gather_plan,
+             use_kernel, field.spec),
+            *(field.params[k] for k in ("hash_table",) + MLP_KEYS))]
     return tiled_mod._compose_tiles(
         plan, raws, [g.tile_ids for g in schedule.groups],
         tile_px=schedule.tile_px, device=field.device)

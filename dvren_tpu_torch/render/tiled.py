@@ -771,6 +771,17 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 # --------------------------------------------------------------- device side
 
 
+def _gather_banks_flat(table: torch.Tensor,
+                       gathermap_all: torch.Tensor) -> torch.Tensor:
+    """Every group's bank blocks in one (S, w, 128) float32 array, group
+    after group (:func:`_gather_bank_tables` cuts it per group)."""
+    w = int(table.shape[1])
+    rows = torch.index_select(table, 0, gathermap_all.clamp(min=0))
+    if rows.dtype != torch.float32:
+        rows = rows.float()
+    return rows.reshape(-1, MAX_CELLS, w).transpose(1, 2).contiguous()
+
+
 def _gather_bank_tables(table: torch.Tensor, gathermap_all: torch.Tensor,
                         group_shapes) -> tuple:
     """(R, w) packed table -> per-group float32 bank blocks (T, NB, w,
@@ -784,10 +795,7 @@ def _gather_bank_tables(table: torch.Tensor, gathermap_all: torch.Tensor,
     route wraps; dead lanes carry masked samples only, so the render is
     the same.)"""
     w = int(table.shape[1])
-    rows = torch.index_select(table, 0, gathermap_all.clamp(min=0))
-    if rows.dtype != torch.float32:
-        rows = rows.float()
-    banks = rows.reshape(-1, MAX_CELLS, w).transpose(1, 2).contiguous()
+    banks = _gather_banks_flat(table, gathermap_all)
     out, off = [], 0
     for t_cnt, nb in group_shapes:
         out.append(banks[off:off + t_cnt * nb].reshape(

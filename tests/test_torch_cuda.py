@@ -19,7 +19,10 @@ The hash-grid kernels: K8f within 5e-6 (depth 1e-4), K8b within 2e-5 x
 scale on its slot rows and MLP gradients, repeat runs and two backwards
 of render_hash_grid_tiled under torch.use_deterministic_algorithms bit
 for bit, and the card's render and gradients within those bounds of the
-CPU twins'. The 16-bit tables and sparse fields: K5a and K5b bit for bit,
+CPU twins'; in their one-launch form, over every group of a ragged
+schedule at subs 1, 4 and 16 and at the widest spec grid_path_ok admits,
+K8f bit for bit and K8b within 2e-5 x scale of the twins, once per
+render_hash_grid_tiled forward and backward. The 16-bit tables and sparse fields: K5a and K5b bit for bit,
 the 16-bit and sparse renders on the card within 5e-6 (depth 1e-4) of the
 CPU's, their gradients within 2e-6 x scale (float32 bricks) or c * ulp x
 scale (16-bit tables: c the largest slot class, ulp 2^-8 bfloat16, 2^-11
@@ -486,32 +489,39 @@ def grid_scene(name, device=None):
     return plan, field.to(device) if device is not None else field
 
 
+def _group_tiles_args(plan, field, sched):
+    """Per tile group, the one-launch wrappers' arguments over that group
+    alone (a one-shape GridTiles): (flat bank tables, tiles, sc, params)."""
+    subs = (16 // sched.tile_px) ** 2
+    table = hash_grid.build_hash_grid_table(dict(field.params), field.spec)
+    tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
+    sc = hash_tiles.pack_mlp_scalars(dict(field.params), field.spec)
+    args, b0 = [], 0
+    for g in sched.groups:
+        tiles = hash_grid.grid_tiles([g], subs)
+        n_b = g.n_tiles * g.banks
+        args.append((tabs[b0:b0 + n_b], tiles, sc,
+                     hash_grid.tiles_op_params(plan, field.spec, tiles)))
+        b0 += n_b
+    return args
+
+
 def _grid_args(name, device):
     plan, field = grid_scene(name, device)
     field.requires_grad_(False)
     sched = hash_tiled.build_hash_grid_schedule(plan, field, device=device)
-    table = hash_grid.build_hash_grid_table(dict(field.params), field.spec)
-    tabs = tiled._gather_bank_tables(
-        table, sched.gathermap_all,
-        [(g.n_tiles, g.banks) for g in sched.groups])
-    sc = hash_tiles.pack_mlp_scalars(dict(field.params), field.spec)
-    args = []
-    for gi, g in enumerate(sched.groups):
-        prm = hash_grid.grid_op_params(plan, field.spec, g.banks, g.n_chunks)
-        args.append((tabs[gi], g.samp, g.base, g.rayt, g.k_enter,
-                     g.bank0.reshape(-1), sc, prm))
-    return plan, args
+    return plan, _group_tiles_args(plan, field, sched)
 
 
 @pytest.mark.parametrize("name", GRID_SCENES)
 def test_hash_grid_forward_matches_plain(cuda_device, name):
     plan, args = _grid_args(name, cuda_device)
     for a in args:
-        before = hash_grid.hash_grid_forward.launches
-        out = hash_grid.hash_grid_forward(*a)
+        before = hash_grid.hash_grid_forward_tiles.launches
+        out = hash_grid.hash_grid_forward_tiles(*a)
         torch.cuda.synchronize()
-        assert hash_grid.hash_grid_forward.launches == before + 1
-        plain = hash_grid.hash_grid_forward_plain(*a)
+        assert hash_grid.hash_grid_forward_tiles.launches == before + 1
+        plain = hash_grid.hash_grid_forward_tiles_plain(*a)
         assert bool(torch.isfinite(out).all())
         (r, g, b), t, o, d = fused_tiles.finalize_heads(plan, out)
         (r2, g2, b2), t2, o2, d2 = fused_tiles.finalize_heads(plan, plain)
@@ -520,9 +530,9 @@ def test_hash_grid_forward_matches_plain(cuda_device, name):
         assert float((d - d2).abs().max()) <= TOL_DEPTH
     if name == "opaque":   # some ray stops early
         a = args[0]
-        no_stop = hash_grid.hash_grid_forward_plain(
-            *a[:7], dataclasses.replace(a[7], stop=0.0))
-        assert bool((hash_grid.hash_grid_forward_plain(*a)[:, 4]
+        no_stop = hash_grid.hash_grid_forward_tiles_plain(
+            *a[:3], dataclasses.replace(a[3], stop=0.0))
+        assert bool((hash_grid.hash_grid_forward_tiles_plain(*a)[:, 4]
                      < no_stop[:, 4]).any())
 
 
@@ -531,17 +541,18 @@ def test_hash_grid_backward_matches_plain(cuda_device, name):
     _, args = _grid_args(name, cuda_device)
     gen = torch.Generator(device=cuda_device).manual_seed(5)
     for a in args:
-        gs = torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
+        gs = torch.randn((a[1].n_tiles, 5, 16, 16), generator=gen,
                          device=cuda_device)
-        before = hash_grid.hash_grid_backward.launches
-        d_rows, d_sc = hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+        before = hash_grid.hash_grid_backward_tiles.launches
+        d_rows, d_sc = hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
         torch.cuda.synchronize()
-        assert hash_grid.hash_grid_backward.launches == before + 1
-        p_rows, p_sc = hash_grid.hash_grid_backward_plain(*a[:7], gs, a[7])
+        assert hash_grid.hash_grid_backward_tiles.launches == before + 1
+        p_rows, p_sc = hash_grid.hash_grid_backward_tiles_plain(*a[:3], gs,
+                                                                a[3])
         for got, want in ((d_rows, p_rows), (d_sc, p_sc)):
             assert bool(torch.isfinite(got).all())
             _close(got, want, HASH_GRAD_TOL)
-        again = hash_grid.hash_grid_backward(*a[:7], gs, a[7])
+        again = hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
         assert torch.equal(again[0], d_rows) and torch.equal(again[1], d_sc)
 
 
@@ -552,7 +563,7 @@ def test_hash_grid_kernels_reject_strided_input(cuda_device):
                           device=cuda_device)[::2]
     strided.copy_(tabs)
     with pytest.raises(ValueError):
-        hash_grid.hash_grid_forward(strided, *args[0][1:])
+        hash_grid.hash_grid_forward_tiles(strided, *args[0][1:])
 
 
 @pytest.mark.parametrize("name", ["stratified", "opaque"])
@@ -570,16 +581,17 @@ def test_render_hash_grid_on_the_card_matches_cpu(cuda_device, name):
         grads = torch.autograd.grad(loss, [field.params[k] for k in keys])
         return out, dict(zip(keys, grads))
 
-    launches = (hash_grid.hash_grid_forward.launches,
-                hash_grid.hash_grid_backward.launches)
+    launches = (hash_grid.hash_grid_forward_tiles.launches,
+                hash_grid.hash_grid_backward_tiles.launches)
     torch.use_deterministic_algorithms(True)
     try:
         got, g1 = run(cuda_device)
         _, g2 = run(cuda_device)
     finally:
         torch.use_deterministic_algorithms(False)
-    assert hash_grid.hash_grid_forward.launches > launches[0]
-    assert hash_grid.hash_grid_backward.launches > launches[1]
+    # one K8f and one K8b launch per render and backward
+    assert hash_grid.hash_grid_forward_tiles.launches == launches[0] + 2
+    assert hash_grid.hash_grid_backward_tiles.launches == launches[1] + 2
     want, gw = run("cpu")
     for key in ("image", "transmittance", "opacity"):
         assert float((getattr(got, key).cpu() - getattr(want, key))
@@ -895,34 +907,26 @@ def test_hash_grid_subtiles_match_plain(cuda_device, name):
     sched = hash_tiled.build_hash_grid_schedule(plan, field,
                                                 device=cuda_device)
     assert sched.tile_px == GRID_SUB_SCENES[name][2]
-    subs = (16 // sched.tile_px) ** 2
-    table = hash_grid.build_hash_grid_table(dict(field.params), field.spec)
-    tabs = tiled._gather_bank_tables(
-        table, sched.gathermap_all,
-        [(g.n_tiles, g.banks) for g in sched.groups])
-    sc = hash_tiles.pack_mlp_scalars(dict(field.params), field.spec)
     gen = torch.Generator(device=cuda_device).manual_seed(6)
-    for gi, g in enumerate(sched.groups):
-        prm = hash_grid.grid_op_params(plan, field.spec, g.banks, g.n_chunks,
-                                       subs)
-        a = (tabs[gi], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
-             sc, prm)
-        before = (hash_grid.hash_grid_forward.launches,
-                  hash_grid.hash_grid_backward.launches)
-        out = hash_grid.hash_grid_forward(*a)
-        gs = torch.randn((g.n_tiles, 5, 16, 16), generator=gen,
+    for a in _group_tiles_args(plan, field, sched):
+        assert a[3].subs == (16 // sched.tile_px) ** 2
+        before = (hash_grid.hash_grid_forward_tiles.launches,
+                  hash_grid.hash_grid_backward_tiles.launches)
+        out = hash_grid.hash_grid_forward_tiles(*a)
+        gs = torch.randn((a[1].n_tiles, 5, 16, 16), generator=gen,
                          device=cuda_device)
-        d_rows, d_sc = hash_grid.hash_grid_backward(*a[:7], gs, prm)
+        d_rows, d_sc = hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
         torch.cuda.synchronize()
-        assert (hash_grid.hash_grid_forward.launches,
-                hash_grid.hash_grid_backward.launches) == (before[0] + 1,
-                                                           before[1] + 1)
-        assert torch.equal(out, hash_grid.hash_grid_forward_plain(*a))
-        p_rows, p_sc = hash_grid.hash_grid_backward_plain(*a[:7], gs, prm)
+        assert (hash_grid.hash_grid_forward_tiles.launches,
+                hash_grid.hash_grid_backward_tiles.launches) == (
+            before[0] + 1, before[1] + 1)
+        assert torch.equal(out, hash_grid.hash_grid_forward_tiles_plain(*a))
+        p_rows, p_sc = hash_grid.hash_grid_backward_tiles_plain(*a[:3], gs,
+                                                                a[3])
         for got, want in ((d_rows, p_rows), (d_sc, p_sc)):
             assert bool(torch.isfinite(got).all())
             _close(got, want, HASH_GRAD_TOL)
-        again = hash_grid.hash_grid_backward(*a[:7], gs, prm)
+        again = hash_grid.hash_grid_backward_tiles(*a[:3], gs, a[3])
         assert torch.equal(again[0], d_rows) and torch.equal(again[1], d_sc)
 
 
@@ -1417,3 +1421,119 @@ def test_split_routes_equal_on_the_card(cuda_device, route, monkeypatch):
         torch.autograd.grad(torch.sum(img ** 2), (leaf.sigma, leaf.color))
         torch.cuda.synchronize()
         assert packed_transpose.banks_to_rows.launches == before + len(groups)
+
+
+# ------------------------- one launch per schedule (K8f / K8b over groups)
+
+GROUPED_SCENES = {
+    # tests/test_torch_grid_grouped.py's scenes: (width, steps, spec,
+    # camera position, tile_px); "wide" is enc 64 / hidden 8 at 16 px
+    "16px": (64, 48, GRID_SPECS["test"], (0.3, 0.6, -0.6), 16),
+    "8px": (48, 40, GRID_SUB_SPEC, (0.3, 0.6, -0.6), 8),
+    "4px": (24, 24, GRID_SUB_SPEC, (0.5, 0.65, -1.0), 4),
+    "wide": (32, 16, GRID_SPECS["wide"], (0.5, 0.5, -1.0), 16),
+}
+
+
+def grouped_scene(name, device):
+    w, steps, spec, (x, y, z), px = GROUPED_SCENES[name]
+    plan = P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.2, t_far=2.2, seed=5,
+        camera=P.CameraConfig(
+            k=(w * 1.2, 0, w / 2, 0, w * 1.2, w / 2, 0, 0, 1),
+            c2w=(1, 0, 0, x, 0, 1, 0, y, 0, 0, 1, z)),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps)))
+    field = P.HashMLPField.init_random(
+        torch.Generator().manual_seed(0), spec=P.HashMLPSpec(**spec),
+        table_std=0.5, device="cpu").to(device)
+    sched = hash_tiled.build_hash_grid_schedule(plan, field, tile_px=px,
+                                                device=device)
+    return plan, field, sched
+
+
+@pytest.mark.parametrize("name", sorted(GROUPED_SCENES))
+def test_hash_grid_one_launch_matches_plain(cuda_device, name):
+    """One K8f and one K8b launch over every group: K8f equal to its
+    twins group by group bit for bit, K8b's slot rows and MLP gradients
+    within 2e-5 x scale, repeats bit for bit."""
+    plan, field, sched = grouped_scene(name, cuda_device)
+    if name != "wide":
+        assert len(sched.groups) > 1
+    field.requires_grad_(False)
+    tiles = sched.grid_tiles
+    table = hash_grid.build_hash_grid_table(dict(field.params), field.spec)
+    tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
+    sc = hash_tiles.pack_mlp_scalars(dict(field.params), field.spec)
+    prm = hash_grid.tiles_op_params(plan, field.spec, tiles)
+    assert prm.subs == (16 // GROUPED_SCENES[name][4]) ** 2
+    gs = torch.randn((tiles.n_tiles, 5, 16, 16),
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(7), device=cuda_device)
+    before = (hash_grid.hash_grid_forward_tiles.launches,
+              hash_grid.hash_grid_backward_tiles.launches)
+    out = hash_grid.hash_grid_forward_tiles(tabs, tiles, sc, prm)
+    rows, d_sc = hash_grid.hash_grid_backward_tiles(tabs, tiles, sc, gs, prm)
+    torch.cuda.synchronize()
+    assert (hash_grid.hash_grid_forward_tiles.launches,
+            hash_grid.hash_grid_backward_tiles.launches) == (before[0] + 1,
+                                                           before[1] + 1)
+    assert torch.equal(out, hash_grid.hash_grid_forward_tiles_plain(
+        tabs, tiles, sc, prm))
+    p_rows, p_sc = hash_grid.hash_grid_backward_tiles_plain(tabs, tiles, sc,
+                                                            gs, prm)
+    for got, want in ((rows, p_rows), (d_sc, p_sc)):
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, HASH_GRAD_TOL)
+    again = hash_grid.hash_grid_backward_tiles(tabs, tiles, sc, gs, prm)
+    assert torch.equal(again[0], rows) and torch.equal(again[1], d_sc)
+    assert torch.equal(hash_grid.hash_grid_forward_tiles(tabs, tiles, sc,
+                                                         prm), out)
+
+
+@pytest.mark.parametrize("name", ["8px", "4px", "wide"])
+def test_render_hash_grid_launches_once_per_schedule(cuda_device, name):
+    """render_hash_grid_tiled launches K8f once and its backward K8b once,
+    however many groups; the frame and gradients match the plain path on
+    the card."""
+    plan, field, sched = grouped_scene(name, cuda_device)
+
+    def run(use_kernel):
+        leaf = field.with_params({k: v.detach().clone().requires_grad_(True)
+                                  for k, v in field.params.items()})
+        out = hash_tiled.render_hash_grid_tiled(plan, leaf, sched,
+                                                use_kernel=use_kernel)
+        loss = torch.mean(out.image ** 2) + 0.25 * torch.mean(out.opacity)
+        keys = sorted(leaf.params)
+        return out, dict(zip(keys, torch.autograd.grad(
+            loss, [leaf.params[k] for k in keys])))
+
+    before = (hash_grid.hash_grid_forward_tiles.launches,
+              hash_grid.hash_grid_backward_tiles.launches)
+    got, g_got = run(True)
+    torch.cuda.synchronize()
+    assert (hash_grid.hash_grid_forward_tiles.launches,
+            hash_grid.hash_grid_backward_tiles.launches) == (
+        before[0] + 1, before[1] + 1)
+    want, g_want = run(False)
+    for key in ("image", "transmittance", "opacity"):
+        assert float((getattr(got, key) - getattr(want, key))
+                     .abs().max()) <= TOL
+    assert float((got.depth - want.depth).abs().max()) <= TOL_DEPTH
+    for k in g_want:
+        _close(g_got[k], g_want[k], HASH_GRAD_TOL)
+
+
+def test_hash_grid_occupancy_report(cuda_device):
+    """The occupancy query answers for every form: at the grid spec K8b
+    keeps two blocks per SM."""
+    spec = P.HashMLPSpec(n_levels=4, features_per_level=2, table_size=4096,
+                         resolutions=(4, 8, 16, 32))
+    for subs in (1, 4, 16):
+        occ = hash_grid.kernel_occupancy(spec, subs)
+        for name in ("hash_grid", "hash_grid_bwd"):
+            assert occ[name]["registers"] > 0
+            assert occ[name]["blocks_per_sm"] >= 1
+        assert occ["hash_grid_bwd"]["blocks_per_sm"] == 2
+        assert occ["hash_grid_bwd"]["g"] >= 1
+    wide = hash_grid.kernel_occupancy(P.HashMLPSpec(**GRID_SPECS["wide"]), 16)
+    assert wide["hash_grid_bwd"]["blocks_per_sm"] >= 1

@@ -319,32 +319,33 @@ def test_forward_matches_reference(name):
 
 
 def test_wrapper_on_cpu_is_the_plain_twin():
-    before = (p_hg.hash_grid_forward.launches,
-              p_hg.hash_grid_backward.launches)
+    before = (p_hg.hash_grid_forward_tiles.launches,
+              p_hg.hash_grid_backward_tiles.launches)
     a, b = port_forward("fixed"), port_forward("fixed", use_kernel=False)
     for key in ("image", "opacity", "transmittance", "depth"):
         assert torch.equal(getattr(a, key), getattr(b, key)), key
     _port_grads("fixed")
-    assert (p_hg.hash_grid_forward.launches,
-            p_hg.hash_grid_backward.launches) == before
+    assert (p_hg.hash_grid_forward_tiles.launches,
+            p_hg.hash_grid_backward_tiles.launches) == before
 
 
 def test_kernel_inputs_checked():
     _, _, pplan, pf = case("fixed")
     sched = p_schedule("fixed")
-    g = sched.groups[0]
-    prm = p_hg.grid_op_params(pplan, pf.spec, g.banks, g.n_chunks)
+    tiles = p_hg.grid_tiles(sched.groups[:1], 1)   # the first group alone
+    prm = p_hg.tiles_op_params(pplan, pf.spec, tiles)
     table = p_hg.build_hash_grid_table(dict(pf.params), pf.spec).detach()
-    tabs = p_tiled._gather_bank_tables(table, sched.gathermap_all,
-                                       [(g.n_tiles, g.banks)])[0]
+    g = sched.groups[0]
+    tabs = p_tiled._gather_banks_flat(table, sched.gathermap_all)[
+        :g.n_tiles * g.banks]
     sc = p_ht.pack_mlp_scalars(dict(pf.params), pf.spec).detach()
-    args = [tabs, g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1), sc]
     with pytest.raises(ValueError):
-        p_hg.hash_grid_forward(tabs[:, :, :32], *args[1:], prm)
+        p_hg.hash_grid_forward_tiles(tabs[:, :32], tiles, sc, prm)
     with pytest.raises(TypeError):
-        p_hg.hash_grid_forward(*args[:6], sc.double(), prm)
+        p_hg.hash_grid_forward_tiles(tabs, tiles, sc.double(), prm)
     with pytest.raises(ValueError):
-        p_hg.hash_grid_backward(*args, torch.zeros((1, 5, 16, 16)), prm)
+        p_hg.hash_grid_backward_tiles(tabs, tiles, sc,
+                                      torch.zeros((1, 5, 16, 16)), prm)
     with pytest.raises(P.DvrenError):          # still numpy: not on a device
         p_hash.render_hash_grid_tiled(
             pplan, pf, p_hash.build_hash_grid_schedule(pplan, pf))
@@ -409,7 +410,7 @@ def test_twin_adjoint_matches_autograd_of_twin_forward():
         gs = torch.from_numpy(rng.normal(size=tuple(raw.shape)).astype(
             np.float32))
         want_t, want_sc = torch.autograd.grad((raw * gs).sum(), (t, sc))
-        got_rows, got_sc = p_hg.hash_grid_backward(
+        got_rows, got_sc = p_hg.hash_grid_backward_plain(
             tabs[gi], *args, sc0, gs, prm)
         rel_close(got_rows.numpy(), want_t.transpose(2, 3).numpy(), TWIN_TOL)
         rel_close(got_sc.numpy(), want_sc.numpy(), TWIN_TOL)
