@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|grid|gridviews|window|split]
+    python3 chip_smoke.py [--only dense|tiles|grid|gridviews|window|split]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -36,8 +36,8 @@ when it fails:
    ``dvren_tpu_torch/csrc`` and print the build time;
 2. K3 (packed-table build) against its plain twin at 64^3: bit-exact;
 3. build the headline schedule (no overflow rays allowed);
-4. K1 (fused tile forward) against its plain twin on every tile group:
-   within 5e-6 after ``finalize_heads`` (depth 1e-4);
+4. K1 (fused tile forward), one launch over every tile group, against
+   its plain twin run group by group: bit for bit;
 5. ``Renderer(Context.create(device="cuda"), plan).forward(field)``: the
    kernels' launch counts rise, the planes are finite with opacity > 0
    somewhere and match the plain path on the card; the small test scene
@@ -45,10 +45,10 @@ when it fails:
 6. times, with CUDA events, after warm-up: the forward per frame (the
    schedule excluded) and its stages, and each kernel beside its plain
    twin;
-7. K2 (fused tile backward) against its plain twin on every tile group,
-   with and without the camera adjoint, for a seeded random cotangent:
-   d(table) within 2e-6 x scale, d(rayt) within 1e-5 x scale, and two
-   runs equal bit for bit;
+7. K2 (fused tile backward), one launch over every tile group, against
+   its plain twin run group by group, with and without the camera
+   adjoint, for a seeded random cotangent: bit for bit, two runs too; its
+   distance from the twin summing in float64 printed;
 8. K4 (table-gradient unpack) against its plain twin at 64^3: bit-exact;
 9. ``Renderer.backward`` under ``torch.use_deterministic_algorithms``:
    finite, nonzero grid and camera gradients, within tolerance of the
@@ -58,7 +58,7 @@ when it fails:
     through autograd of ``render_tiled``, at bench's lr 1e-3 and at that
     lr times the image's 512*512*3 values (at 1e-3 the updates are below
     float32 resolution): the loss is finite and falls at the scaled lr,
-    K1-K4 each launch in every step; then the step time (forward,
+    K1-K4 each launch once in every step; then the step time (forward,
     backward, update) at lr 1e-3 over 10 steps with CUDA events, its
     stages beside their plain twins, and peak device memory;
 11. K7f (fused hash-MLP forward) against its plain twin at the hash
@@ -116,18 +116,18 @@ when it fails:
 22. ``Renderer.forward`` on the headline field with
     ``packed_dtype="bfloat16"`` and ``"float16"`` (the schedule, keyed by
     the dtype, rebuilt: the headline's 16 px cells): K5a launches once
-    and K3 not, K1 once per group;
+    and K3 not, K1 once;
     the planes match the plain path on the card within 5e-6 (depth 1e-4)
     and the float32 frame within 5e-3;
 23. K5b (16-bit table-gradient unpack) against its plain twin on the
     headline's table gradient (phase 7's K2 rows through the 16-bit
     reduction): bit-exact;
 24. ``Renderer.backward`` on both 16-bit fields under
-    ``torch.use_deterministic_algorithms``: K2 per group, K5a and K5b
-    once; finite, nonzero, two calls equal bit for bit, within c * ulp x
-    scale of the plain path (c the largest slot class);
+    ``torch.use_deterministic_algorithms``: K2, K5a and K5b once;
+    finite, nonzero, two calls equal bit for bit, within c * ulp x scale
+    of the plain path (c the largest slot class);
 25. four SGD steps on the bfloat16 field at lr 1e-3 x 512*512*3: K1, K2,
-    K5a and K5b launch every step, K3 and K4 never; the loss falls;
+    K5a and K5b launch once every step, K3 and K4 never; the loss falls;
 26. ``SparseGridField.from_dense(headline, threshold=0)`` in float32 and
     bfloat16 (all 512 bricks kept) through ``Renderer.forward``: K1 alone,
     the frame equal to the dense frame of the same type; ``.backward``
@@ -141,18 +141,18 @@ when it fails:
     ``rows.t().contiguous()`` of the (R, 32) float32 rows), and the peak
     device memory each adds;
 28. the fine-grid scene through ``Renderer.forward``'s cascade (16 px
-    supercells, 0 overflow rays): K1 once per group and no table kernel;
+    supercells, 0 overflow rays): K1 once and no table kernel;
     the frame against the plain path on the card; the schedule's form,
     groups, banks, live samples and build time;
 29. K1 and K2 in that form against their twins on the first 8 tiles of
     every group: bit for bit, repeats too; two deterministic
     ``Renderer.backward`` calls equal; four SGD steps at lr 1e-3 x
-    786,432 (the loss falls, K2 per group each step); the frame, the step,
+    786,432 (the loss falls, K2 once each step); the frame, the step,
     K1 and K2 beside their twins (CUDA events; the twins once);
 30. the same with ``packed_dtype="bfloat16"`` (8 px cells, K5a once);
 31. the fit flagship's eight views, each through the cascade (8 px
-    supercells): K1 and K2 against their twins on every group, bit for
-    bit;
+    supercells): K1 and K2, one launch per view, against their twins on
+    every group, bit for bit;
 32. 10 Adam steps (lr 5e-2, the flagship's) from a flat student on the
     summed loss of the eight views (the loss falls); view 0's grid and
     camera gradients against the plain path, two runs equal; times;
@@ -199,7 +199,7 @@ when it fails:
     calls bit for bit; the frame and the backward timed;
 39. the fine grid (512^2 over 128^3, 256 steps) at 16 px cells: its
     fallback count equal to JAX's builder's (151,552 of 262,144 rays);
-    ``render_tiled`` with K1 once per tile group and K9f once per
+    ``render_tiled`` with K1 once and K9f once per
     fallback group, within 1e-5 (depth as in 38) of the 16 px supercell
     frame (phase 28's form); its autograd backward (K2 and K9b launch) twice,
     bit for bit; four SGD steps at lr 1e-3 x 786,432 (the loss falls);
@@ -210,26 +210,27 @@ when it fails:
     ``steady_step_ms``, ``wall_clock_s``; then ``mode="plain"`` for 10
     steps (K9 once per view per step; the loss falls);
 41. K1 and K2 in their supercell, subs 16 form on the flagship's view 0
-    (4 px, ``cell_scale=2``): one frame and backward (one launch per
-    group each), the twins bit for bit on the first 8 tiles of every
-    group, times beside the twins' and the bounds;
+    (4 px, ``cell_scale=2``): one frame and backward (one launch each),
+    the twins bit for bit on the first 8 tiles of every group, times
+    beside the twins' and the bounds;
 42. K6 (bank blocks -> slot rows) against its twin, as 32-bit words, on
     the dense headline's 14 groups (K2's bank-form cotangents of a seeded
-    random ``gs``, each group into its slice of one array) and on blocks
-    holding -0.0, subnormals, +-inf and NaN payloads; its time over the
-    14 launches beside the twin's, ``banks.transpose(1, 2).contiguous()``
-    (``library_ms``) and its bound;
+    random ``gs``, one launch) and on blocks holding -0.0, subnormals,
+    +-inf and NaN payloads; its time beside the twin's,
+    ``banks.transpose(1, 2).contiguous()`` (``library_ms``) and its
+    bound;
 43. K2's bank form against its rows form, transposed, and its repeat, bit
-    for bit, and within 2e-6 x scale of its twin's bank form, on every
-    group: at subs 1 (the headline), subs 4 (the flagship's eight views at
-    8 px cells, merged; groups and fallback rays printed) and subs 16
+    for bit, and within 2e-6 x scale of its twin's bank form, one launch
+    over every group: at subs 1 (the headline), subs 4 (the flagship's
+    eight views at 8 px cells, merged; groups and fallback rays printed)
+    and subs 16
     (view 0 at 4 px cells, a one-view merge), with one backward of
-    ``render_tiled_stack`` under "pallas" at subs 4 and 16 (K2 and K6 once
-    per group); times beside the rows form's;
+    ``render_tiled_stack`` under "pallas" at subs 4 and 16 (K2 and K6
+    once); times beside the rows form's;
 44. the dense headline as a one-view ``merge_view_schedules`` through
     ``render_tiled_stack``: four SGD steps at lr 1e-3 x 786,432 under
     "xla" and under "pallas", the losses and d_sigma / d_color equal bit
-    for bit at every step, K6 14 times per step under "pallas" and never
+    for bit at every step, K6 once per step under "pallas" and never
     under "xla", the loss falling; the step timed under both (xla,
     pallas, pallas, xla);
 45. in a child process started with ``DVREN_BWD_SPLIT=pallas`` (the flag
@@ -237,7 +238,7 @@ when it fails:
     ``SparseGridField.from_dense(headline, threshold=0)`` in float32
     through ``Renderer.backward`` under ``torch.use_deterministic_
     algorithms`` with both values of the flag, the gradients equal bit
-    for bit between the routes and between calls, K6 once per group under
+    for bit between the routes and between calls, K6 once under
     "pallas"; four SGD steps on the bricks under "pallas" (the loss
     falls); the step timed under both;
 46. ``fit_dense_grid(mode="tiled")`` on two 512^2 views of the headline
@@ -246,10 +247,12 @@ when it fails:
     lr 5e-2, 8 steps, ``sync_every=4``, once per value of the flag: the
     cascade keeps 16 px cells (else the phase fails: K6 would be off the
     path), the loss histories and final parameters equal bit for bit, K6
-    once per group per step under "pallas"; ``schedule_build_s`` and
+    once per step under "pallas"; ``schedule_build_s`` and
     ``steady_step_ms`` of each.
 
-``--only dense`` runs phases 1-10, ``--only grid`` phases 1 and 16-20,
+``--only dense`` runs phases 1-10, ``--only tiles`` phases 1-10, 28-33,
+36, 41 and 42-46 (every phase that times K1 / K2, in every form),
+``--only grid`` phases 1 and 16-20,
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
 37-41, ``--only split`` phases 1 and 42-46: each alone, to time two trees
 against each other in one call.
@@ -594,7 +597,6 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
     from dvren_tpu_torch.render import tiled
 
     sched = renderer._tiled_schedule
-    n_groups = len(sched.groups)
     base = P.DenseGridField.create(config, device=dev).requires_grad_(False)
     sigma, color = base.sigma, base.color
     n_rows = packed_transpose.fullpitch_rows(sigma.shape)
@@ -632,12 +634,12 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
         # cascade depends on it), so it builds one: the same 16 px cells
         s16 = renderer._tiled_schedule
         require(c["packed_table16"] == 1 and c["packed_table"] == 0
-                and c["fused_tiles"] == n_groups
+                and c["fused_tiles"] == 1
                 and "kernel_launches=packed_table16:1" in res.stats.notes
                 and (s16.tile_px, s16.cell_scale) == (16, 1)
                 and torch.equal(s16.hostmap_all, sched.hostmap_all),
-                f"the {name} forward did not launch K5a once and K1 per "
-                f"group on the headline's schedule")
+                f"the {name} forward did not launch K5a and K1 once on the "
+                f"headline's schedule")
         for key in ("image", "transmittance", "opacity", "depth"):
             require(bool(np.isfinite(getattr(res, key)).all()),
                     f"{name} {key} not finite")
@@ -687,12 +689,12 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
             g2 = renderer.backward(f16, dl)
         finally:
             torch.use_deterministic_algorithms(False)
-        require(c["fused_tiles_bwd"] == n_groups
+        require(c["fused_tiles_bwd"] == 1
                 and c["packed_table16"] == 1
                 and c["packed_table16_bwd"] == 1
                 and c["packed_table"] == 0 and c["packed_table_bwd"] == 0,
-                f"the {name} backward did not launch K2 per group, K5a and "
-                f"K5b once: {c}")
+                f"the {name} backward did not launch K2, K5a and K5b once: "
+                f"{c}")
         for key in ("sigma", "color", "camera", "camera_k"):
             x = getattr(g1, key)
             require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
@@ -739,8 +741,9 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
             losses.append(float(step().detach()))
             after = counts()
             delta = {k: after[k] - before[k] for k in after}
-            require(all((delta[k] > 0) == (k in expect) for k in delta),
-                    f"a step launched other kernels than {expect}: {delta}")
+            require(all(delta[k] == (k in expect) for k in delta),
+                    f"a step did not launch each of {expect} once and "
+                    f"nothing else: {delta}")
         require(all(np.isfinite(losses))
                 and all(b < a for a, b in zip(losses, losses[1:])),
                 f"the loss does not fall: {losses}")
@@ -776,8 +779,7 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
         c = counts()
         print(f"sparse {name} Renderer.forward: {res.stats.total_ms:.3f} ms, "
               f"launches {c}, notes {res.stats.notes}", flush=True)
-        s_groups = len(s_renderer._tiled_schedule.groups)
-        require(c["fused_tiles"] == s_groups and c["packed_table"] == 0
+        require(c["fused_tiles"] == 1 and c["packed_table"] == 0
                 and c["packed_table16"] == 0,
                 f"the sparse {name} forward did not launch K1 alone")
         require(s_renderer._tiled_schedule.table_kind == "sparse",
@@ -818,8 +820,7 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
         print(f"sparse {name} Renderer.backward: launches {c}; d(bricks) vs "
               f"plain path {err:.3e} x scale (bound {tol:.3e}); two calls "
               f"equal", flush=True)
-        require(c["fused_tiles_bwd"] == len(s_sched.groups)
-                and c["packed_table_bwd"] == 0
+        require(c["fused_tiles_bwd"] == 1 and c["packed_table_bwd"] == 0
                 and c["packed_table16_bwd"] == 0,
                 f"the sparse backward launched other kernels: {c}")
         require(err <= tol, f"the sparse {name} backward differs from the "
@@ -1344,7 +1345,7 @@ def reset_grid_counts(hash_grid) -> None:
 
 
 def grid_tiles_args(plan, spec, sched, params) -> tuple:
-    """(packed table, (flat bank tables, GridTiles, sc, GridParams)): the
+    """(packed table, (flat bank tables, TileSet, sc, GridParams)): the
     one-launch K8f / K8b arguments of ``sched`` for detached ``params``."""
     from dvren_tpu_torch.ops import hash_grid, hash_tiles
     from dvren_tpu_torch.render import tiled
@@ -1352,8 +1353,8 @@ def grid_tiles_args(plan, spec, sched, params) -> tuple:
     table = hash_grid.build_hash_grid_table(params, spec)
     tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
     sc = hash_tiles.pack_mlp_scalars(params, spec)
-    return table, (tabs, sched.grid_tiles, sc,
-                   hash_grid.tiles_op_params(plan, spec, sched.grid_tiles))
+    return table, (tabs, sched.tiles, sc,
+                   hash_grid.tiles_op_params(plan, spec, sched.tiles))
 
 
 def grid_occupancy(hash_grid, spec, subs, what) -> dict:
@@ -1483,7 +1484,7 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
 
     # 18. K8b against its twin on every tile; deterministic backwards
     gen = torch.Generator(device=dev).manual_seed(9)
-    gs = torch.randn((sched.grid_tiles.n_tiles, 5, 16, 16), generator=gen,
+    gs = torch.randn((sched.tiles.n_tiles, 5, 16, 16), generator=gen,
                      device=dev)
     k8b_plain_ms = None
     for name, params in (("student", student_p), ("opaque teacher", opaque_p)):
@@ -1728,9 +1729,10 @@ def build_ms(notes) -> float:
 
 
 def variant_args(torch, plan, field, sched):
-    """Every group's K1 arguments on the card for ``sched``'s form, the
-    bank tables from the field's table (the supercell table for
-    cell_scale 2, else the field's float32 or 16-bit rows)."""
+    """K1's one-launch arguments over ``sched`` on the card: (flat bank
+    tables, the schedule's tile set, the launch's TileParams), the bank
+    tables from the field's table (the supercell table for cell_scale 2,
+    else the field's float32 or 16-bit rows)."""
     from dvren_tpu_torch.ops import fused_tiles, packed_transpose
     from dvren_tpu_torch.ops.grid import build_supercell_stencil, table_dtype
     from dvren_tpu_torch.render import tiled
@@ -1743,87 +1745,129 @@ def variant_args(torch, plan, field, sched):
     else:
         table = packed_transpose.build_rows16(
             sigma, color, table_dtype(field.packed_dtype))
-    tabs = tiled._gather_bank_tables(table, sched.gathermap_all,
-                                     [(g.n_tiles, g.banks)
-                                      for g in sched.groups])
+    tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
     geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
-    subs = (16 // sched.tile_px) ** 2
     stencil = "super" if sched.cell_scale == 2 else "cell"
-    return [(tabs[i], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
-             fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks, subs,
-                                        stencil))
-            for i, g in enumerate(sched.groups)]
+    return (tabs, sched.tiles,
+            fused_tiles.tiles_op_params(plan, geom, sched.tiles, stencil))
 
 
 def subset_args(torch, a, n_tiles):
-    """The first ``n_tiles`` tiles of one group's K1 arguments."""
-    tabs, samp, base, rayt, ke, bank0, prm = a
-    t = min(n_tiles, int(tabs.shape[0]))
-    per = bank0.numel() // tabs.shape[0]
-    return (tabs[:t].contiguous(), take(samp, slice(0, t)),
-            base[:t].contiguous(), rayt[:t].contiguous(), ke[:t].contiguous(),
-            bank0[:t * per].contiguous(), prm)
+    """The first ``n_tiles`` tiles of every group of a one-launch call's
+    arguments, as a tile set of their own."""
+    from types import SimpleNamespace
+
+    from dvren_tpu_torch.ops import fused_tiles
+
+    tabs, tiles, prm = a
+    groups, parts = [], []
+    for (n, nc, nb), (g_tabs, samp, base, rayt, ke, bank0) in zip(
+            tiles.shapes, tiles.group_views(tabs)):
+        t = min(n_tiles, n)
+        groups.append(SimpleNamespace(
+            n_tiles=t, n_chunks=nc, banks=nb, samp=samp[:t], base=base[:t],
+            rayt=rayt[:t], k_enter=ke[:t],
+            bank0=bank0[:t * nc * tiles.subs]))
+        parts.append(g_tabs[:t].reshape((-1,) + tuple(tabs.shape[1:])))
+    return (torch.cat(parts).contiguous(),
+            fused_tiles.tile_set(groups, tiles.subs), prm)
+
+
+def twin64(torch, a, gs):
+    """K2's plain twin summing in float64 (slot rows, d(rayt))."""
+    import dataclasses as dc
+
+    from dvren_tpu_torch.ops import fused_tiles
+
+    tabs, tiles, prm = a
+    t64 = dc.replace(tiles, base=tiles.base.double(),
+                     rayt=tiles.rayt.double())
+    return fused_tiles.tile_backward_set_plain(tabs.double(), t64,
+                                               gs.double(), prm, cam=True)
 
 
 def twins_bit_equal(torch, args, gen, n_tiles=None):
-    """K1 and K2 (with the camera adjoint) against their twins on every
-    group (the first ``n_tiles`` tiles of each, when given): heads, slot
-    rows and d(rayt) equal bit for bit, and K2's repeat too. Returns the
-    largest |kernel - twin| (0.0) over K1 and over K2."""
+    """K1 and K2 (with the camera adjoint), one launch per schedule of
+    ``args`` (the first ``n_tiles`` tiles of every group, when given),
+    against their twins run group by group: heads, slot rows and d(rayt)
+    equal bit for bit, K2's repeat too; and K2's distance from its
+    float64 twin (printed: float32 sums in the twin's order, not held to a
+    bound). Returns the largest |kernel - twin| (0.0) over K1 and over K2."""
     from dvren_tpu_torch.ops import fused_tiles
 
     k1_err = k2_err = 0.0
     for a in args:
         if n_tiles is not None:
             a = subset_args(torch, a, n_tiles)
-        out = fused_tiles.tile_forward(*a)
-        gs = torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
-                         device=a[0].device)
-        rows, d_rayt = fused_tiles.tile_backward(*a[:6], gs, a[6], cam=True)
-        rows2, d_rayt2 = fused_tiles.tile_backward(*a[:6], gs, a[6], cam=True)
+        tabs, tiles, prm = a
+        out = fused_tiles.tile_forward(tabs, tiles, prm)
+        gs = torch.randn((tiles.n_tiles, 5, 16, 16), generator=gen,
+                         device=tabs.device)
+        rows, d_rayt = fused_tiles.tile_backward(tabs, tiles, gs, prm,
+                                                 cam=True)
+        rows2, d_rayt2 = fused_tiles.tile_backward(tabs, tiles, gs, prm,
+                                                   cam=True)
         torch.cuda.synchronize()
-        p_out = fused_tiles.tile_forward_plain(*a)
-        p_rows, p_rayt = fused_tiles.tile_backward_plain(*a[:6], gs, a[6],
-                                                         cam=True)
+        p_out = fused_tiles.tile_forward_set_plain(tabs, tiles, prm)
+        p_rows, p_rayt = fused_tiles.tile_backward_set_plain(
+            tabs, tiles, gs, prm, cam=True)
         require(bool(torch.isfinite(out).all() and torch.isfinite(rows).all()),
                 "K1 / K2 output not finite")
         k1_err = max(k1_err, float((out - p_out).abs().max()))
         k2_err = max(k2_err, float((rows - p_rows).abs().max()),
                      float((d_rayt - p_rayt).abs().max()))
         require(torch.equal(out, p_out),
-                f"K1 ({a[6].subs} sub-tiles, {a[6].stencil}) differs from "
+                f"K1 ({prm.subs} sub-tiles, {prm.stencil}) differs from "
                 f"its twin")
         require(torch.equal(rows, p_rows) and torch.equal(d_rayt, p_rayt),
-                f"K2 ({a[6].subs} sub-tiles, {a[6].stencil}) differs from "
+                f"K2 ({prm.subs} sub-tiles, {prm.stencil}) differs from "
                 f"its twin")
         require(torch.equal(rows2, rows) and torch.equal(d_rayt2, d_rayt),
                 "K2 differs between two runs")
+        rows64, rayt64 = twin64(torch, a, gs)
+        print(f"  K2 ({prm.subs} sub-tiles, {prm.stencil}) vs its float64 "
+              f"twin: d(table) {rel_err(rows.double(), rows64):.3e}, d(rayt) "
+              f"{rel_err(d_rayt.double(), rayt64):.3e} x scale", flush=True)
     return k1_err, k2_err
 
 
 def variant_times(torch, args, gss):
-    """(K1 ms, K2 ms, K1 twin ms, K2 twin ms) over every group: the
-    kernels after warm-up, the twins once."""
+    """(K1 ms, K2 ms, K1 twin ms, K2 twin ms) over every schedule of
+    ``args``, one launch each: the kernels after warm-up, the twins
+    (group by group) once."""
     from dvren_tpu_torch.ops import fused_tiles
 
     k1 = cuda_ms(torch, lambda: [fused_tiles.tile_forward(*a) for a in args],
                  10)
-    k2 = cuda_ms(torch, lambda: [fused_tiles.tile_backward(*a[:6], gs, a[6])
-                                 for a, gs in zip(args, gss)], 10)
-    k1p = cuda_ms(torch, lambda: [fused_tiles.tile_forward_plain(*a)
+    k2 = cuda_ms(torch, lambda: [fused_tiles.tile_backward(
+        a[0], a[1], gs, a[2]) for a, gs in zip(args, gss)], 10)
+    k1p = cuda_ms(torch, lambda: [fused_tiles.tile_forward_set_plain(*a)
                                   for a in args], 1, warmup=0)
-    k2p = cuda_ms(torch, lambda: [fused_tiles.tile_backward_plain(
-        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 1, warmup=0)
+    k2p = cuda_ms(torch, lambda: [fused_tiles.tile_backward_set_plain(
+        a[0], a[1], gs, a[2]) for a, gs in zip(args, gss)], 1, warmup=0)
     return k1, k2, k1p, k2p
+
+
+def tile_gss(torch, args, gen):
+    """A seeded cotangent (T, 5, 16, 16) of K1's output per schedule."""
+    return [torch.randn((a[1].n_tiles, 5, 16, 16), generator=gen,
+                        device=a[0].device) for a in args]
+
+
+def tile_in_bytes(a) -> int:
+    """The bytes K1 reads: bank tables, the tile set's arrays."""
+    tabs, tiles, _ = a
+    return nbytes(tabs, tiles.samp, tiles.base, tiles.rayt, tiles.ke,
+                  tiles.bank0, tiles.desc)
 
 
 def variant_kernels(form, args, gss, sched, launches, errs, times) -> list:
     """The ``kernels`` entries of K1 and K2 in one form."""
     live = sched.tiled_samples
     extra = SUPER_OPS if sched.cell_scale == 2 else 0
-    k1_in = sum(nbytes(*a[:6]) for a in args)
-    out = sum(a[0].shape[0] * 5 * 256 * 4 for a in args)
-    rows = sum(a[0].shape[0] * a[6].banks * 128 * a[6].cols * 4 for a in args)
+    k1_in = sum(tile_in_bytes(a) for a in args)
+    out = sum(a[1].n_tiles * 5 * 256 * 4 for a in args)
+    rows = sum(a[1].n_bank_rows * 128 * a[2].cols * 4 for a in args)
     return [
         {"name": f"fused_tiles:{form}", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
@@ -1884,7 +1928,7 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
               flush=True)
         require(want_note in res.stats.notes and sched.fallback_rays == 0,
                 f"the fine-grid {name} cascade did not land on {want_note}")
-        require(c["fused_tiles"] == len(sched.groups) and c["packed_table"] == 0
+        require(c["fused_tiles"] == 1 and c["packed_table"] == 0
                 and c["packed_table16"] == (0 if dtype == "float32" else 1),
                 f"the fine-grid {name} forward launched {c}")
         for key in ("image", "transmittance", "opacity", "depth"):
@@ -1905,11 +1949,11 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
 
         # 29 / 30. K1 and K2 in this form against their twins, first SUBSET
         # tiles of every group; backward deterministic; SGD steps
-        args = variant_args(torch, plan, field, sched)
+        args = [variant_args(torch, plan, field, sched)]
         errs = twins_bit_equal(torch, args, gen, SUBSET)
         print(f"fine-grid {name}: K1 and K2 == twins bit for bit on the "
-              f"first {SUBSET} tiles of all {len(args)} groups; repeats "
-              f"equal", flush=True)
+              f"first {SUBSET} tiles of all {len(sched.groups)} groups, one "
+              f"launch; repeats equal", flush=True)
         dl = (torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2
               - 1).cpu().numpy()
         torch.use_deterministic_algorithms(True)
@@ -1937,8 +1981,8 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
         require(all(np.isfinite(losses))
                 and all(b < a for a, b in zip(losses, losses[1:])),
                 f"the fine-grid {name} loss does not fall")
-        require(step_c["fused_tiles_bwd"] == 4 * len(sched.groups),
-                "K2 did not launch per group in every step")
+        require(step_c["fused_tiles_bwd"] == 4,
+                "K2 did not launch once in every step")
 
         # times
         with torch.no_grad():
@@ -1947,8 +1991,7 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
         step_ms = cuda_ms(torch, sgd_steps(plan, P.DenseGridField.create(
             config, device=dev).with_packed_dtype(dtype), sched, LR), 5,
             warmup=1)
-        gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
-                           device=dev) for a in args]
+        gss = tile_gss(torch, args, gen)
         times = variant_times(torch, args, gss)
         print(f"fine-grid {name} times ms [{card}]: frame {frame_ms:.4f} = "
               f"{plan.ray_count / frame_ms / 1e3:.3f} Mrays/s, SGD step "
@@ -2000,14 +2043,15 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
     require(all(s.tile_px == 8 and s.cell_scale == 2 and s.fallback_rays == 0
                 for s in scheds),
             "a flagship view did not land on 8 px supercells without overflow")
-    require(fwd_c["fused_tiles"] == 2 * n_groups and fwd_c["packed_table"] == 0,
+    require(fwd_c["fused_tiles"] == 2 * len(plans)
+            and fwd_c["packed_table"] == 0,
             f"the flagship forwards launched {fwd_c}")
-    fit_args = [a for pv, s in zip(plans, scheds)
-                for a in variant_args(torch, pv, truth, s)]
+    fit_args = [variant_args(torch, pv, truth, s)
+                for pv, s in zip(plans, scheds)]
     fit_errs = twins_bit_equal(torch, fit_args, gen)
     print(f"fit flagship: K1 and K2 (8 px supercells) == twins bit for bit "
-          f"on all {len(fit_args)} groups of the {len(plans)} views",
-          flush=True)
+          f"on all {n_groups} groups of the {len(plans)} views, one launch "
+          f"per view", flush=True)
 
     student = P.DenseGridField.create(dataclasses.replace(
         config, sigma=np.full(len(config.sigma), 0.5, np.float32),
@@ -2030,8 +2074,8 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
           f"{fit_c}", flush=True)
     require(all(np.isfinite(fit_losses)) and fit_losses[-1] < fit_losses[0],
             "the flagship fit loss does not fall")
-    require(fit_c["fused_tiles"] == FIT_ADAM_STEPS * n_groups
-            and fit_c["fused_tiles_bwd"] == FIT_ADAM_STEPS * n_groups,
+    require(fit_c["fused_tiles"] == FIT_ADAM_STEPS * len(plans)
+            and fit_c["fused_tiles_bwd"] == FIT_ADAM_STEPS * len(plans),
             f"the fit steps launched {fit_c}")
     fit_step_ms = cuda_ms(torch, fit_step, 5, warmup=1)
 
@@ -2068,8 +2112,7 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
           f"{grid_err:.3e} x scale; two runs equal", flush=True)
     require(cam_ok and grid_err <= GRID_TOL,
             "view 0's gradients differ from the plain path")
-    fit_gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
-                           device=dev) for a in fit_args]
+    fit_gss = tile_gss(torch, fit_args, gen)
     fit_times = variant_times(torch, fit_args, fit_gss)
     with torch.no_grad():
         fit_frames_ms = cuda_ms(torch, lambda: [tiled.render_tiled(
@@ -2100,8 +2143,7 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
     g4 = torch.autograd.grad(mse(img4, targets[0]), (leaf.sigma, leaf.color))
     c4 = counts()
     print(f"fit view 0 at 4 px: frame and backward launches {c4}", flush=True)
-    require(c4["fused_tiles"] == 2 * len(s4.groups)
-            and c4["fused_tiles_bwd"] == len(s4.groups)
+    require(c4["fused_tiles"] == 2 and c4["fused_tiles_bwd"] == 1
             and c4["packed_table"] == 2 and c4["packed_table_bwd"] == 1,
             f"the 4 px frame and backward launched {c4}")
     with torch.no_grad():
@@ -2124,10 +2166,9 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
     require(e4 <= TOL and ge4 <= GRID_TOL,
             "the 4 px frame or backward differs from the plain path")
     require(vs8 == 0.0, "the 4 px frame differs from the 8 px supercell one")
-    args4 = variant_args(torch, plans[0], student, s4)
+    args4 = [variant_args(torch, plans[0], student, s4)]
     errs4 = twins_bit_equal(torch, args4, gen)
-    gss4 = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
-                        device=dev) for a in args4]
+    gss4 = tile_gss(torch, args4, gen)
     times4 = variant_times(torch, args4, gss4)
     with torch.no_grad():
         frame4_ms = cuda_ms(torch, lambda: tiled.render_tiled(
@@ -2150,9 +2191,10 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
     bwd4_ms = cuda_ms(torch, bwd4, 10)
     print(f"fit view 0 at 4 px times ms [{card}]: frame {frame4_ms:.4f}, "
           f"forward + backward {bwd4_ms:.4f}; K1 {times4[0]:.4f} over "
-          f"{len(args4)} launches (plain {times4[2]:.4f}), K2 "
+          f"{len(args4)} launch (plain {times4[2]:.4f}), K2 "
           f"{times4[1]:.4f} (plain {times4[3]:.4f}); K1 and K2 == twins bit "
-          f"for bit on every group; two deterministic backwards equal",
+          f"for bit on all {len(s4.groups)} groups; two deterministic "
+          f"backwards equal",
           flush=True)
     kernels.extend(variant_kernels(
         "subtiled_4px", args4, gss4, s4,
@@ -2415,7 +2457,7 @@ def run_fit_flagship(torch, P, dev, card,
           f"{stack_err:.3e}", flush=True)
     require(stack_err <= TOL, "the stack differs from the per-view frames")
     gen = torch.Generator(device=dev).manual_seed(36)
-    args = variant_args(torch, plans[0], truth, sched)
+    args = [variant_args(torch, plans[0], truth, sched)]
     errs = twins_bit_equal(torch, args, gen, SUBSET)
     print(f"fit flagship merged group: K1 and K2 == twins bit for bit on its "
           f"first {SUBSET} tiles; repeats equal", flush=True)
@@ -2457,8 +2499,7 @@ def run_fit_flagship(torch, P, dev, card,
     step = fit.make_train_step_scheduled(plans[0], cams, student, opt,
                                          views=views)
     step_ms = cuda_ms(torch, lambda: step(student, targets), 10, warmup=2)
-    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
-           for a in args]
+    gss = tile_gss(torch, args, gen)
     times = variant_times(torch, args, gss)
     with torch.no_grad():
         stack_ms = cuda_ms(torch, lambda: render_stack(student, merged), 10)
@@ -2850,8 +2891,7 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     with torch.no_grad():
         fframe = tiled.render_tiled(fplan, ffield, fsched)
     c_t, c_w = tcounts(), counts()
-    require(c_t["fused_tiles"] == len(fsched.groups)
-            and c_w["integrate"] == n_fb,
+    require(c_t["fused_tiles"] == 1 and c_w["integrate"] == n_fb,
             f"the fallback frame launched {c_t} {c_w}")
     with torch.no_grad():
         ssched = tiled.build_tiled_schedule(fplan, ffield, tile_px=16,
@@ -2888,8 +2928,7 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
         gb_ = fgrads()
     finally:
         torch.use_deterministic_algorithms(False)
-    require(b_t["fused_tiles_bwd"] == len(fsched.groups)
-            and b_w["integrate_bwd"] == n_fb,
+    require(b_t["fused_tiles_bwd"] == 1 and b_w["integrate_bwd"] == n_fb,
             f"the fallback backward launched {b_t} {b_w}")
     require(all(torch.equal(a, b) for a, b in zip(ga, gb_))
             and all(bool(torch.isfinite(a).all()) for a in ga),
@@ -3015,7 +3054,23 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
         "plain_steady_step_ms": res_p.steady_step_ms,
         "step_device_breakdown": breakdown}
 
-    # 41. K1 and K2 in their supercell, subs 16 form: view 0 at 4 px
+    sc_kernels, report["supercell_4px"] = run_supercell4(torch, P, dev,
+                                                         card)
+    kernels.extend(sc_kernels)
+    return kernels, report
+
+
+def run_supercell4(torch, P, dev, card) -> tuple[list, dict]:
+    """Phase 41: K1 and K2 in their supercell, subs 16 form (the cascade
+    never picks it): the flagship's view 0 at 4 px supercells."""
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.render import tiled
+
+    treset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    tcounts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    gen = torch.Generator(device=dev).manual_seed(41)
+    plans, config = flagship_views(P)
+    truth = P.DenseGridField.create(config, device=dev).requires_grad_(False)
     t0 = time.perf_counter()
     s4 = tiled.build_tiled_schedule(plans[0], truth, tile_px=4,
                                     cell_scale=2).to(dev)
@@ -3027,25 +3082,22 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     treset()
     tiled.render_tiled(plans[0], student4, s4).image.sum().backward()
     c4 = tcounts()
-    args = variant_args(torch, plans[0], truth, s4)
+    args = [variant_args(torch, plans[0], truth, s4)]
     errs4 = twins_bit_equal(torch, args, gen, SUBSET)
-    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
-           for a in args]
+    gss = tile_gss(torch, args, gen)
     times4 = variant_times(torch, args, gss)
     print(f"K1 / K2 supercell subs 16: == twins bit for bit on the first "
-          f"{SUBSET} tiles of {len(args)} groups; times ms [{card}]: K1 "
+          f"{SUBSET} tiles of {len(s4.groups)} groups; times ms [{card}]: K1 "
           f"{times4[0]:.4f} (plain {times4[2]:.4f}), K2 {times4[1]:.4f} "
-          f"(plain {times4[3]:.4f}), one launch per group", flush=True)
-    require(c4["fused_tiles"] == len(args)
-            and c4["fused_tiles_bwd"] == len(args),
+          f"(plain {times4[3]:.4f}), one launch each", flush=True)
+    require(c4["fused_tiles"] == 1 and c4["fused_tiles_bwd"] == 1,
             f"a 4 px supercell frame and backward launched {c4}")
-    kernels.extend(variant_kernels(
+    kernels = variant_kernels(
         "supercell_4px", args, gss, s4,
-        (c4["fused_tiles"], c4["fused_tiles_bwd"]), errs4, times4))
-    report["supercell_4px"] = {"groups": len(args), "k1_ms": times4[0],
-                               "k2_ms": times4[1], "k1_plain_ms": times4[2],
-                               "k2_plain_ms": times4[3]}
-    return kernels, report
+        (c4["fused_tiles"], c4["fused_tiles_bwd"]), errs4, times4)
+    return kernels, {"groups": len(s4.groups), "k1_ms": times4[0],
+                     "k2_ms": times4[1], "k1_plain_ms": times4[2],
+                     "k2_plain_ms": times4[3]}
 
 
 SPLIT_STEPS = 4          # SGD steps per route (phases 44 and 45)
@@ -3078,36 +3130,39 @@ def special_blocks(torch, dev, n_blocks=3, seed=42):
 
 def bank_form_check(torch, args, gss, what):
     """K2's bank form against its rows form, transposed, and its repeat,
-    bit for bit, on every group; then its twin's bank form once. Returns
-    (max |kernel - twin|, x scale, the twin's ms, bank-form ms, rows-form
-    ms)."""
+    bit for bit, one launch per schedule of ``args``; then its twin's bank
+    form, group by group, once. Returns (max |kernel - twin|, x scale, the
+    twin's ms, bank-form ms, rows-form ms)."""
     from dvren_tpu_torch.ops import fused_tiles
 
     outs = []
-    for a, gs in zip(args, gss):
-        rows, _ = fused_tiles.tile_backward(*a[:6], gs, a[6])
-        banks, _ = fused_tiles.tile_backward(*a[:6], gs, a[6], emit="banks")
-        again, _ = fused_tiles.tile_backward(*a[:6], gs, a[6], emit="banks")
+    for (tabs, tiles, prm), gs in zip(args, gss):
+        rows, _ = fused_tiles.tile_backward(tabs, tiles, gs, prm)
+        banks, _ = fused_tiles.tile_backward(tabs, tiles, gs, prm,
+                                             emit="banks")
+        again, _ = fused_tiles.tile_backward(tabs, tiles, gs, prm,
+                                             emit="banks")
         torch.cuda.synchronize()
         require(bool(torch.isfinite(banks).all()),
                 f"K2's bank form not finite ({what})")
-        require(torch.equal(banks, rows.transpose(2, 3)),
+        require(torch.equal(banks, rows.transpose(1, 2)),
                 f"K2's bank form differs from its rows form transposed "
                 f"({what})")
         require(torch.equal(again, banks),
                 f"K2's bank form differs between two runs ({what})")
         outs.append(banks)
     plain, plain_ms = timed_once(torch, lambda: [
-        fused_tiles.tile_backward_plain(*a[:6], gs, a[6], emit="banks")[0]
+        fused_tiles.tile_backward_set_plain(a[0], a[1], gs, a[2],
+                                            emit="banks")[0]
         for a, gs in zip(args, gss)])
     err = max(float((b - p).abs().max()) for b, p in zip(outs, plain))
     rel = max(rel_err(b, p) for b, p in zip(outs, plain))
     require(rel <= GRID_TOL,
             f"K2's bank form differs from its twin's ({what}): {rel:.3e}")
     banks_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward(
-        *a[:6], gs, a[6], emit="banks") for a, gs in zip(args, gss)], 10)
+        a[0], a[1], gs, a[2], emit="banks") for a, gs in zip(args, gss)], 10)
     rows_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward(
-        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 10)
+        a[0], a[1], gs, a[2]) for a, gs in zip(args, gss)], 10)
     return err, rel, plain_ms, banks_ms, rows_ms
 
 
@@ -3124,7 +3179,7 @@ def split_route(tiled, value):
 
 def stack_split_backward(torch, tiled, plan, field, merged, counts, reset):
     """One backward through render_tiled_stack under BWD_SPLIT "pallas":
-    the launches of K2 and K6, each once per merged group."""
+    the launches of K2 and K6, each once over every merged group."""
     leaf = field.with_params(field.sigma.detach().clone(),
                              field.color.detach().clone())
     with split_route(tiled, "pallas"):
@@ -3133,10 +3188,9 @@ def stack_split_backward(torch, tiled, plan, field, merged, counts, reset):
         img.square().sum().backward()
         torch.cuda.synchronize()
         c = counts()
-    n = len(merged.sched.groups)
-    require(c["fused_tiles_bwd"] == n and c["banks_to_rows"] == n,
+    require(c["fused_tiles_bwd"] == 1 and c["banks_to_rows"] == 1,
             f"render_tiled_stack's split backward did not launch K2 and K6 "
-            f"once per group ({n}): {c}")
+            f"once over its {len(merged.sched.groups)} groups: {c}")
     require(float(leaf.sigma.grad.abs().max()) > 0,
             "the split backward's d_sigma is zero")
     return c
@@ -3168,22 +3222,20 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
     else:
         plan, config, field, sched_host = headline
     sched = sched_host.to(dev)
-    args = variant_args(torch, plan, field, sched)
-    n_groups = len(args)
+    args = [variant_args(torch, plan, field, sched)]
+    n_groups = len(sched.groups)
     gen = torch.Generator(device=dev).manual_seed(42)
-    gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen, device=dev)
-           for a in args]
+    gss = tile_gss(torch, args, gen)
 
-    # 42. K6 against its twin on the headline's bank cotangents
-    banks = [fused_tiles.tile_backward(*a[:6], gs, a[6], emit="banks")[0]
-             .reshape(-1, 32, 128) for a, gs in zip(args, gss)]
-    n_blocks = sum(int(b.shape[0]) for b in banks)
-    offs = np.cumsum([0] + [int(b.shape[0]) * 128 for b in banks])[:-1]
-    out = torch.empty((n_blocks * 128, 32), device=dev)
-    for b, off in zip(banks, offs):
-        packed_transpose.banks_to_rows(b, out=out, offset=int(off))
+    # 42. K6 against its twin on the headline's bank cotangents, every
+    # group's blocks in one launch
+    (tabs, tiles, prm), = args
+    banks = fused_tiles.tile_backward(tabs, tiles, gss[0], prm,
+                                      emit="banks")[0]
+    n_blocks = int(banks.shape[0])
+    out = packed_transpose.banks_to_rows(banks)
     torch.cuda.synchronize()
-    twin = torch.cat([packed_transpose.banks_to_rows_plain(b) for b in banks])
+    twin = packed_transpose.banks_to_rows_plain(banks)
     require(torch.equal(words(out), words(twin)),
             "K6 differs from its twin on the headline's cotangents")
     special = special_blocks(torch, dev)
@@ -3193,20 +3245,18 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
                         words(packed_transpose.banks_to_rows_plain(special))),
             "K6 differs from its twin on -0.0, subnormals, inf and NaNs")
     k6_fns = {
-        "kernel": lambda: [packed_transpose.banks_to_rows(
-            b, out=out, offset=int(off)) for b, off in zip(banks, offs)],
-        "plain": lambda: [packed_transpose.banks_to_rows_plain(b)
-                          for b in banks],
-        "library": lambda: [b.transpose(1, 2).contiguous() for b in banks]}
+        "kernel": lambda: packed_transpose.banks_to_rows(banks),
+        "plain": lambda: packed_transpose.banks_to_rows_plain(banks),
+        "library": lambda: banks.transpose(1, 2).contiguous()}
     k6_dev = {k: device_ms(torch, fn, 20) for k, fn in k6_fns.items()}
     k6_host = {k: cuda_ms(torch, fn, 50) for k, fn in k6_fns.items()}
     k6_ms, k6_plain_ms, k6_lib_ms = (k6_dev["kernel"], k6_dev["plain"],
                                      k6_dev["library"])
-    k6_bound = bound(2 * nbytes(*banks), 0)
+    k6_bound = bound(2 * nbytes(banks), 0)
     print(f"K6 == plain, bit for bit, on {n_groups} groups ({n_blocks} bank "
-          f"blocks, {2 * nbytes(*banks) / 1e6:.1f} MB moved) and on a block "
-          f"of -0.0, subnormals, +-inf and NaN payloads; device ms over the "
-          f"{n_groups} launches: K6 {k6_ms:.4f}, twin {k6_plain_ms:.4f}, "
+          f"blocks, {2 * nbytes(banks) / 1e6:.1f} MB moved) and on a block "
+          f"of -0.0, subnormals, +-inf and NaN payloads; device ms, one "
+          f"launch: K6 {k6_ms:.4f}, twin {k6_plain_ms:.4f}, "
           f"banks.transpose(1, 2).contiguous() {k6_lib_ms:.4f}, bound "
           f"{k6_bound['bound_ms']:.4f}; issued from the host one after "
           f"another: K6 {k6_host['kernel']:.4f}, twin {k6_host['plain']:.4f},"
@@ -3223,14 +3273,14 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
     def bank_entry(form, f_args, f_gss, f_sched, launches, res):
         err, rel, plain_ms, banks_ms, rows_ms = res
         live = f_sched.tiled_samples
-        k_in = sum(nbytes(*a[:6]) for a in f_args)
-        rows_b = sum(a[0].shape[0] * a[6].banks * 128 * 32 * 4
-                     for a in f_args)
+        k_in = sum(tile_in_bytes(a) for a in f_args)
+        rows_b = sum(a[1].n_bank_rows * 128 * 32 * 4 for a in f_args)
         forms[form] = {"banks_ms": banks_ms, "rows_ms": rows_ms,
                        "plain_ms": plain_ms, "rel_err": rel,
-                       "groups": len(f_args)}
+                       "groups": len(f_sched.groups)}
         print(f"K2 bank form, {form}: == rows form transposed and its repeat "
-              f"on {len(f_args)} groups, vs twin {rel:.3e} x scale; "
+              f"over {len(f_sched.groups)} groups in one launch, vs twin "
+              f"{rel:.3e} x scale; "
               f"{banks_ms:.4f} ms (rows form {rows_ms:.4f}, twin "
               f"{plain_ms:.4f}) ({card})", flush=True)
         return {"name": f"fused_tiles_bwd:banks_{form}", "route": "cuda",
@@ -3255,9 +3305,8 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
         build_s = time.perf_counter() - t0
         print(f"{form}: {len(plans)} view(s) at {px} px cells, merged: "
               f"{schedule_line(merged.sched, build_s)}", flush=True)
-        f_args = variant_args(torch, plans[0], fl_field, merged.sched)
-        f_gss = [torch.randn((a[0].shape[0], 5, 16, 16), generator=gen,
-                             device=dev) for a in f_args]
+        f_args = [variant_args(torch, plans[0], fl_field, merged.sched)]
+        f_gss = tile_gss(torch, f_args, gen)
         res = bank_form_check(torch, f_args, f_gss, form)
         c = stack_split_backward(torch, tiled, plans[0], fl_field, merged,
                                  counts, reset)
@@ -3302,11 +3351,11 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
         print(f"{SPLIT_STEPS} SGD steps through render_tiled_stack under "
               f"{split!r} at lr {LR} x {n_values}: loss {losses}; launches "
               f"per step {per_step[0]}", flush=True)
-        want_k6 = n_groups if split == "pallas" else 0
+        want_k6 = 1 if split == "pallas" else 0
         require(all(c["banks_to_rows"] == want_k6
-                    and c["fused_tiles_bwd"] == n_groups for c in per_step),
+                    and c["fused_tiles_bwd"] == 1 for c in per_step),
                 f"under {split!r} K6 did not launch {want_k6} times and K2 "
-                f"{n_groups} times per step")
+                f"once per step (over {n_groups} groups)")
         require(all(b < a for a, b in zip(losses, losses[1:])),
                 f"the stack's loss does not fall under {split!r}")
     require(runs["xla"][0] == runs["pallas"][0],
@@ -3374,7 +3423,7 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
                 mode="tiled")
             torch.cuda.synchronize()
             c = counts()
-        want_k6 = SPLIT_FIT_STEPS * len(ts.groups) if split == "pallas" else 0
+        want_k6 = SPLIT_FIT_STEPS if split == "pallas" else 0
         print(f"fit_dense_grid under {split!r}: mode {res.mode}, loss "
               f"{res.loss_history[0]:.6f} -> {res.loss_history[-1]:.6f}, "
               f"schedule_build_s {res.schedule_build_s:.4f}, steady_step_ms "
@@ -3457,9 +3506,10 @@ def run_split_child(torch, P, dev) -> dict:
                 torch.use_deterministic_algorithms(False)
         print(f"sparse Renderer.backward under {split!r}: launches {c}",
               flush=True)
-        want = n if split == "pallas" else 0
-        require(c["banks_to_rows"] == want and c["fused_tiles_bwd"] == n,
-                f"under {split!r} K6 did not launch {want} times and K2 {n}")
+        want = 1 if split == "pallas" else 0
+        require(c["banks_to_rows"] == want and c["fused_tiles_bwd"] == 1,
+                f"under {split!r} K6 did not launch {want} times and K2 once "
+                f"(over {n} groups)")
         for key in ("bricks", "camera", "camera_k"):
             x = getattr(g1, key)
             require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
@@ -3497,8 +3547,8 @@ def run_split_child(torch, P, dev) -> dict:
     c = counts()
     print(f"{SPLIT_STEPS} SGD steps on the bricks under 'pallas' at lr {LR} "
           f"x {n_values}: loss {losses}; launches {c}", flush=True)
-    require(c["banks_to_rows"] == SPLIT_STEPS * n,
-            "K6 did not launch once per group in every step")
+    require(c["banks_to_rows"] == SPLIT_STEPS,
+            "K6 did not launch once in every step")
     require(all(b < a for a, b in zip(losses, losses[1:])),
             "the sparse loss does not fall")
     step_ms = {}
@@ -3600,27 +3650,25 @@ def run(only: str = "all") -> dict:
     require(sched.fallback_rays == 0, "schedule has fallback rays")
     report["schedule_build_s"] = build_s
 
-    # 4. K1 against its plain twin on every group
+    # 4. K1, one launch over every group, against its plain twin run group
+    # by group
     geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
-    shapes = [(g.n_tiles, g.banks) for g in sched.groups]
-    tabs = tiled._gather_bank_tables(rows_k, sched.gathermap_all, shapes)
-    params = [fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks)
-              for g in sched.groups]
-    args = [(tabs[i], g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
-             params[i]) for i, g in enumerate(sched.groups)]
-    k1_err = k1_depth = k1_raw = 0.0
-    for a in args:
-        out_k = fused_tiles.tile_forward(*a)
-        out_p = fused_tiles.tile_forward_plain(*a)
-        torch.cuda.synchronize()
-        require(bool(torch.isfinite(out_k).all()), "K1 output not finite")
-        err, depth = head_errors(torch, fused_tiles, plan, out_k, out_p)
-        k1_err, k1_depth = max(k1_err, err), max(k1_depth, depth)
-        k1_raw = max(k1_raw, float((out_k - out_p).abs().max()))
-    print(f"K1 vs plain over {len(args)} groups: heads {k1_err:.3e}, "
-          f"depth {k1_depth:.3e}, raw {k1_raw:.3e}", flush=True)
-    require(k1_err <= TOL and k1_depth <= TOL_DEPTH,
-            "K1 differs from its plain twin beyond tolerance")
+    tiles = sched.tiles
+    tabs = tiled._gather_banks_flat(rows_k, sched.gathermap_all)
+    prm = fused_tiles.tiles_op_params(plan, geom, tiles)
+    args = (tabs, tiles, prm)
+    n_groups = len(sched.groups)
+    out_k = fused_tiles.tile_forward(*args)
+    out_p = fused_tiles.tile_forward_set_plain(*args)
+    torch.cuda.synchronize()
+    require(bool(torch.isfinite(out_k).all()), "K1 output not finite")
+    k1_err, k1_depth = head_errors(torch, fused_tiles, plan, out_k, out_p)
+    k1_raw = float((out_k - out_p).abs().max())
+    print(f"K1 (one launch) vs plain over {n_groups} groups: heads "
+          f"{k1_err:.3e}, depth {k1_depth:.3e}, raw {k1_raw:.3e}; equal bit "
+          f"for bit {torch.equal(out_k, out_p)}", flush=True)
+    require(torch.equal(out_k, out_p),
+            "K1 differs from its plain twin")
 
     # 5. the main path, end to end
     renderer = P.Renderer(P.Context.create(device="cuda"), plan)
@@ -3692,54 +3740,55 @@ def run(only: str = "all") -> dict:
     k3_plain_ms = cuda_ms(
         torch, lambda: packed_transpose.build_rows_plain(sigma, color), 50)
     gather_ms = cuda_ms(
-        torch, lambda: tiled._gather_bank_tables(
-            rows_k, sched.gathermap_all, shapes), 20)
-    k1_ms = cuda_ms(torch, lambda: [fused_tiles.tile_forward(*a)
-                                    for a in args], 20)
-    k1_plain_ms = cuda_ms(torch, lambda: [fused_tiles.tile_forward_plain(*a)
-                                          for a in args], 3, warmup=1)
-    raws = [fused_tiles.tile_forward(*a) for a in args]
+        torch, lambda: tiled._gather_banks_flat(rows_k, sched.gathermap_all),
+        20)
+    k1_ms = cuda_ms(torch, lambda: fused_tiles.tile_forward(*args), 20)
+    k1_plain_ms = cuda_ms(
+        torch, lambda: fused_tiles.tile_forward_set_plain(*args), 3, warmup=1)
+    raw = fused_tiles.tile_forward(*args)
     ids = [g.tile_ids for g in sched.groups]
-    compose_ms = cuda_ms(torch, lambda: tiled._compose_tiles(plan, raws, ids),
+    compose_ms = cuda_ms(torch, lambda: tiled._compose_tiles(plan, [raw], ids),
                          20)
     print(f"stages ms/frame: K3 {k3_ms:.4f} (plain {k3_plain_ms:.4f}), "
-          f"bank gather {gather_ms:.4f}, K1 {k1_ms:.4f} over "
-          f"{len(args)} launches (plain {k1_plain_ms:.4f}), compose "
+          f"bank gather {gather_ms:.4f}, K1 {k1_ms:.4f} in 1 launch over "
+          f"{n_groups} groups (plain {k1_plain_ms:.4f}), compose "
           f"{compose_ms:.4f}", flush=True)
 
-    # 7. K2 against its plain twin on every group
+    # 7. K2, one launch over every group, against its plain twin run group
+    # by group (bit for bit) and its float64 twin
     gen = torch.Generator(device=dev).manual_seed(7)
-    gss = [torch.randn((g.n_tiles, 5, 16, 16), generator=gen, device=dev)
-           for g in sched.groups]
-    k2_err = k2_cam_err = k2_raw = 0.0
-    k2_rows = []
-    for a, gs in zip(args, gss):
-        b_rows, b_rayt = fused_tiles.tile_backward(*a[:6], gs, a[6], cam=True)
-        b_rows_nc, none = fused_tiles.tile_backward(*a[:6], gs, a[6])
-        b_rows2, b_rayt2 = fused_tiles.tile_backward(*a[:6], gs, a[6],
-                                                     cam=True)
-        torch.cuda.synchronize()
-        p_rows, p_rayt = fused_tiles.tile_backward_plain(*a[:6], gs, a[6],
+    gs = torch.randn((tiles.n_tiles, 5, 16, 16), generator=gen, device=dev)
+    gss = [gs]
+    b_rows, b_rayt = fused_tiles.tile_backward(tabs, tiles, gs, prm, cam=True)
+    b_rows_nc, none = fused_tiles.tile_backward(tabs, tiles, gs, prm)
+    b_rows2, b_rayt2 = fused_tiles.tile_backward(tabs, tiles, gs, prm,
+                                                 cam=True)
+    torch.cuda.synchronize()
+    p_rows, p_rayt = fused_tiles.tile_backward_set_plain(tabs, tiles, gs, prm,
                                                          cam=True)
-        require(bool(torch.isfinite(b_rows).all()
-                     and torch.isfinite(b_rayt).all()), "K2 not finite")
-        require(none is None and torch.equal(b_rows_nc, b_rows),
-                "K2 without the camera differs from K2 with it")
-        require(torch.equal(b_rows2, b_rows) and torch.equal(b_rayt2, b_rayt),
-                "K2 differs between two runs")
-        k2_err = max(k2_err, rel_err(b_rows, p_rows))
-        k2_cam_err = max(k2_cam_err, rel_err(b_rayt, p_rayt))
-        k2_raw = max(k2_raw, float((b_rows - p_rows).abs().max()))
-        k2_rows.append(b_rows.reshape(-1, 32))
-    print(f"K2 vs plain over {len(args)} groups: d(table) {k2_err:.3e} x "
-          f"scale (max |diff| {k2_raw:.3e}), d(rayt) {k2_cam_err:.3e} x "
-          f"scale; repeat runs equal", flush=True)
-    require(k2_err <= GRID_TOL and k2_cam_err <= RAYT_TOL,
-            "K2 differs from its plain twin beyond tolerance")
+    rows64, rayt64 = twin64(torch, args, gs)
+    require(bool(torch.isfinite(b_rows).all()
+                 and torch.isfinite(b_rayt).all()), "K2 not finite")
+    require(none is None and torch.equal(b_rows_nc, b_rows),
+            "K2 without the camera differs from K2 with it")
+    require(torch.equal(b_rows2, b_rows) and torch.equal(b_rayt2, b_rayt),
+            "K2 differs between two runs")
+    k2_err = rel_err(b_rows, p_rows)
+    k2_cam_err = rel_err(b_rayt, p_rayt)
+    k2_raw = float((b_rows - p_rows).abs().max())
+    k2_err64 = rel_err(b_rows.double(), rows64)
+    k2_cam_err64 = rel_err(b_rayt.double(), rayt64)
+    print(f"K2 (one launch) over {n_groups} groups vs plain twin: d(table) "
+          f"{k2_err:.3e} x scale (max |diff| {k2_raw:.3e}), d(rayt) "
+          f"{k2_cam_err:.3e} x scale; vs its float64 twin d(table) "
+          f"{k2_err64:.3e}, d(rayt) {k2_cam_err64:.3e} x scale (float32 "
+          f"sums in the twin's order); repeat runs equal", flush=True)
+    require(torch.equal(b_rows, p_rows) and torch.equal(b_rayt, p_rayt),
+            "K2 differs from its plain twin")
 
     # 8. K4 against its plain twin at 64^3
     n_rows = packed_transpose.fullpitch_rows(sigma.shape)
-    all_rows = torch.cat(k2_rows)
+    all_rows = b_rows.reshape(-1, 32)
     tg = gather_plan.slot_rows_to_table(all_rows, sched.gather_plan, n_rows)
     k4_out = packed_transpose.table_grad_to_params(tg, sigma.shape)
     torch.cuda.synchronize()
@@ -3762,9 +3811,9 @@ def run(only: str = "all") -> dict:
     finally:
         torch.use_deterministic_algorithms(False)
     print(f"Renderer.backward launches {bwd_launches}", flush=True)
-    require(bwd_launches["fused_tiles_bwd"] == len(sched.groups)
+    require(bwd_launches["fused_tiles_bwd"] == 1
             and bwd_launches["packed_table_bwd"] == 1,
-            "Renderer.backward did not launch K2 per group and K4 once")
+            "Renderer.backward did not launch K2 and K4 once")
     for name in ("sigma", "color", "camera", "camera_k"):
         x = getattr(bwd, name)
         require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
@@ -3839,8 +3888,9 @@ def run(only: str = "all") -> dict:
             before = launch_counts(fused_tiles, packed_transpose)
             losses.append(float(step().detach()))
             after = launch_counts(fused_tiles, packed_transpose)
-            require(all(after[k] > before[k] for k in DENSE_F32),
-                    f"a kernel did not launch in a training step: {after}")
+            require(all(after[k] == before[k] + 1 for k in DENSE_F32),
+                    f"a kernel did not launch once in a training step: "
+                    f"{after}")
         moved = max(float((field_t.sigma.detach() - sigma).abs().max()),
                     float((field_t.color.detach() - color).abs().max()))
         return losses, moved
@@ -3879,10 +3929,10 @@ def run(only: str = "all") -> dict:
         plain_opt.step()
 
     plain_step_ms = cuda_ms(torch, plain_step, 1, warmup=1)
-    k2_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward(
-        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 20)
-    k2_plain_ms = cuda_ms(torch, lambda: [fused_tiles.tile_backward_plain(
-        *a[:6], gs, a[6]) for a, gs in zip(args, gss)], 1, warmup=1)
+    k2_ms = cuda_ms(torch, lambda: fused_tiles.tile_backward(
+        tabs, tiles, gs, prm), 20)
+    k2_plain_ms = cuda_ms(torch, lambda: fused_tiles.tile_backward_set_plain(
+        tabs, tiles, gs, prm), 1, warmup=1)
     reduce_ms = cuda_ms(torch, lambda: gather_plan.slot_rows_to_table(
         all_rows, sched.gather_plan, n_rows), 20)
     k4_ms = cuda_ms(torch, lambda: packed_transpose.table_grad_to_params(
@@ -3894,16 +3944,16 @@ def run(only: str = "all") -> dict:
           f"{n_rays / step_ms / 1e3:.3f} Mrays/s over {STEPS} steps (plain "
           f"path {plain_step_ms:.4f} ms/step); peak device memory "
           f"{train_peak_mb:.1f} MiB", flush=True)
-    print(f"backward stages ms/step: K2 {k2_ms:.4f} over {len(args)} "
-          f"launches (plain {k2_plain_ms:.4f}), slot reduction "
+    print(f"backward stages ms/step: K2 {k2_ms:.4f} in 1 launch over "
+          f"{n_groups} groups (plain {k2_plain_ms:.4f}), slot reduction "
           f"{reduce_ms:.4f}, K4 {k4_ms:.4f} (plain {k4_plain_ms:.4f})",
           flush=True)
 
     # bounds: each kernel's inputs and outputs at this run's shapes, and
     # its operations per live sample (K3 and K4 copy and add: bytes)
-    k1_in = sum(nbytes(*a[:6]) for a in args)
-    k1_out = sum(g.n_tiles * 5 * 256 * 4 for g in sched.groups)
-    k2_out = sum(nbytes(r) for r in k2_rows)
+    k1_in = tile_in_bytes(args)
+    k1_out = tiles.n_tiles * 5 * 256 * 4
+    k2_out = nbytes(b_rows)
     live = sched.tiled_samples
     kernels = [
         {"name": "fused_tiles", "route": "cuda",
@@ -3933,10 +3983,27 @@ def run(only: str = "all") -> dict:
          "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
          **bound(nbytes(tg, *k4_out), 8 * sum(x.numel() for x in k4_out))},
     ]
-    if only == "dense":
+    if only in ("dense", "tiles"):
+        extra = {}
+        if only == "tiles":
+            elapsed("1-10")
+            sub_kernels, extra["subtiles"] = run_subtiles(torch, P, dev, card)
+            elapsed("28-33")
+            fit_kernels, extra["fit_dense_grid"] = run_fit_flagship(
+                torch, P, dev, card,
+                extra["subtiles"]["fit_flagship"]["adam_step_ms"])
+            elapsed("36")
+            sc_kernels, extra["supercell_4px"] = run_supercell4(torch, P, dev,
+                                                                card)
+            elapsed("41")
+            split_kernels, extra["split"] = run_split(
+                torch, P, dev, card, headline=(plan, config, field,
+                                               sched_host))
+            elapsed("42-46")
+            kernels += sub_kernels + fit_kernels + sc_kernels + split_kernels
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({
-            "forward_ms": fwd_ms, "stages_ms": {
+            **extra, "forward_ms": fwd_ms, "stages_ms": {
                 "packed_table": k3_ms, "bank_gather": gather_ms,
                 "fused_tiles": k1_ms, "compose": compose_ms},
             "train_step_ms": step_ms, "backward_stages_ms": {
@@ -3993,6 +4060,8 @@ def run(only: str = "all") -> dict:
                                "slot_reduction": reduce_ms,
                                "packed_table_bwd": k4_ms},
         "k2_rel_err": k2_err, "k2_rayt_rel_err": k2_cam_err,
+        "k2_rel_err_float64": k2_err64,
+        "k2_rayt_rel_err_float64": k2_cam_err64,
         "backward_vs_plain": bwd_errs, "card": card}), flush=True)
     print(card_line(), flush=True)
     return device
@@ -4003,10 +4072,12 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("all", "dense", "grid", "gridviews", "window",
-                           "split"),
+        "--only", choices=("all", "dense", "tiles", "grid", "gridviews",
+                           "window", "split"),
         default="all",
-        help="'dense': phases 1-10 alone (the dense headline); 'grid': phase "
+        help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
+             "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
+             "form, K6); 'grid': phase "
              "1 and phases 16-20 (the grid headline); 'gridviews': phase 1 "
              "and phases 34-35 (the grid path over eight views at 8 and 4 "
              "px); 'window': phase 1 and "

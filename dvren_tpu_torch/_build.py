@@ -44,13 +44,13 @@ _F = ctypes.c_float
 # (argtypes, restype) per C entry point (see csrc/*.cu)
 _SIGNATURES = {
     "dvt_packed_table": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
-    "dvt_tile_forward": ([_P, _P, _P, _P, _P, _P, _P,
-                          _I, _I, _I, _I, _I, _I,
+    "dvt_tile_forward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
+                          _I, _I, _I, _I,
                           _F, _F, _F, _F, _F,
                           _F, _F, _F, _F, _F, _F, _F, _F, _F,
                           _P], _I),
-    "dvt_tile_backward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-                           _I, _I, _I, _I, _I, _I, _I,
+    "dvt_tile_backward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+                           _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F,
                            _F, _F, _F, _F, _F, _F, _F, _F, _F,
                            _F, _F, _F,

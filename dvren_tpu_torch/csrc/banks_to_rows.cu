@@ -14,9 +14,8 @@
 // (128 consecutive words, coalesced) into a shared tile whose rows are
 // padded to 129 words, so that the transposed read, lane i taking column
 // i of one slot row, hits 32 distinct shared-memory banks; each warp then
-// writes whole 128-byte slot rows. `out` points at the block's first row,
-// so a caller writes each tile group's rows into its slice of one (S, 32)
-// array.
+// writes whole 128-byte slot rows. One launch relays every tile group of
+// a backward (K2 writes all their blocks into one array).
 //
 // Bound on the H100: bytes. Every word is read once and written once
 // (the dense headline's 5,104 blocks: 167.2 MB in all, 0.0499 ms at

@@ -1,5 +1,5 @@
 // Fused tile forward (K1): slot expansion, trilinear interpolation and
-// the emission-absorption recurrence for every ray of a tile group.
+// the emission-absorption recurrence for every ray of a tile schedule.
 //
 // Replaces dvren_tpu/ops/fused_tiles.py::_fwd_kernel (launched by
 // _tile_op.fwd_call). It computes what that kernel computes, not how:
@@ -8,20 +8,32 @@
 // mask matmuls on the MXU. Here one thread owns one ray and walks its
 // samples in order, so the prefix sums are a running sum in a register.
 //
-// Layouts (see dvren_tpu_torch/render/tiled.py):
-//   tabs  (T, NB, C, 128) f32  bank tables, lane slot; C = 32, row
-//                              ch*8 + corner (cells), or C = 108, row
-//                              ch*27 + vertex (supercells)
-//   samp  (T, nc, 3, 16, 128) u16  [sample_t hi16, lo16, lane | m << 15]
-//                                  (supercells: lane(12) | lb << 12 | m << 15)
-//   base  (T, NB, 3, 128) f32  per-slot cell base coordinates (x, y, z),
-//                              a supercell's vertex origin
+// One launch covers every tile group of a schedule: through a descriptor
+// (desc, (T, 4) i32: nc, nb, first chunk, first bank per tile;
+// tile_set.cuh::tile_span) each tile finds its chunks and banks in the
+// schedule's flat arrays, so a launch fills the card however few tiles a
+// group holds (the JAX package launches once per group). One group is the
+// case of a single shape.
+//
+// Layouts (see dvren_tpu_torch/render/tiled.py, ops/fused_tiles.py), with
+// S_c = the tiles' chunks and S_b their banks, summed over the groups:
+//   tabs  (S_b, C, 128) f32  bank tables, lane slot; C = 32, row
+//                            ch*8 + corner (cells), or C = 108, row
+//                            ch*27 + vertex (supercells)
+//   samp  (S_c, 3, 16, 128) u16  [sample_t hi16, lo16, lane | m << 15]
+//                                (supercells: lane(12) | lb << 12 | m << 15)
+//   base  (S_b, 3, 128) f32  per-slot cell base coordinates (x, y, z),
+//                            a supercell's vertex origin
 //   rayt  (T, 12, 128) f32  row ax*2 + ray/128, lane ray%128 for
 //                           (ox, oy, oz, dx, dy, dz)
 //   ke    (T,) i32  tile window start step
-//   bank0 (T*nc*subs,) i32  window start bank per (chunk, sub-tile) in
-//                      bits 0..13 (bit 30, the JAX backward's ALIGNED
-//                      flag, is ignored here)
+//   bank0 (S_c*subs,) i32  window start bank per (chunk, sub-tile) in
+//                    bits 0..13 (bit 30, the JAX backward's ALIGNED
+//                    flag, is ignored here)
+//   desc  (T, 4) i32  per tile: nc, nb, first chunk, first bank
+//   order (T,) i32  block b renders tile order[b]: the tiles by falling
+//                   chunk count, so the longest start first and the
+//                   launch's tail is short; no output moves
 //   out   (T, 5, 16, 16) f32  per ray: r, g, b, sum w*mid, processed od
 // Sample (chunk c, step j) of ray `ray` sits at block row ray/16, lane
 // (ray%16)*8 + j.
@@ -43,7 +55,12 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "tile_set.cuh"
+
 namespace {
+
+using dvt_tiles::tile_span;
+using dvt_tiles::TileSpan;
 
 constexpr int kLanes = 128;
 constexpr int kRows = 16;
@@ -52,8 +69,10 @@ constexpr int kNch = 32;
 constexpr int kRays = 256;
 constexpr int kChunkSamples = kRows * kLanes;   // 2048
 
+// What the tiles of a launch share; each tile's chunk and bank counts
+// come from its descriptor.
 struct TileConsts {
-  int nc, nb, k_max;
+  int k_max;
   float dt, t_near, t_far, t_stop, stop;
   float lo[3], inv[3], ns[3];
 };
@@ -63,8 +82,8 @@ __device__ __forceinline__ float add(float a, float b) { return __fadd_rn(a, b);
 __device__ __forceinline__ float sub(float a, float b) { return __fsub_rn(a, b); }
 
 // SUBS sub-tiles per block (1, 4, 16): ray `ray` belongs to sub-tile
-// ray / (256 / SUBS), whose chunk window starts at
-// bank0[(t*nc + c)*SUBS + s]. SUPER: the supercell stencil (108 columns
+// ray / (256 / SUBS), whose window at the tile's chunk c starts at
+// bank0[(chunk0 + c)*SUBS + s]. SUPER: the supercell stencil (108 columns
 // ch*27 + vertex; packed word lane(12) | lb << 12 | m << 15). A supercell
 // sample's cell base is its supercell's vertex origin plus lb, an exact
 // float add, and its 8 corners are the vertices lb + (dx, dy, dz): the
@@ -78,11 +97,14 @@ tile_forward_kernel(const float* __restrict__ tabs,
                     const float* __restrict__ rayt,
                     const int* __restrict__ ke,
                     const int* __restrict__ bank0,
+                    const int* __restrict__ desc,
+                    const int* __restrict__ order,
                     float* __restrict__ out, TileConsts k) {
   constexpr int kCols = SUPER ? 108 : kNch;
   constexpr int kPer = SUPER ? 27 : 8;            // columns per channel
   constexpr unsigned kLaneMask = SUPER ? 0xFFFu : 0x7FFFu;
-  const int64_t t = blockIdx.x;
+  const int64_t t = order[blockIdx.x];   // the longest tiles start first
+  const TileSpan span = tile_span(desc, t);
   const int ray = threadIdx.x;
   const int row = ray >> 4;
   const int lane0 = (ray & 15) * kSteps;
@@ -105,15 +127,15 @@ tile_forward_kernel(const float* __restrict__ tabs,
   float acc_r = 0.f, acc_g = 0.f, acc_b = 0.f, acc_wd = 0.f, acc_odp = 0.f;
   float s = 0.f;   // optical depth of every earlier step, processed or not
   bool done = false;
-  for (int c = 0; c < k.nc && !done; ++c) {
-    const int b0 = bank0[(t * k.nc + c) * SUBS + sub_tile] & 0x3FFF;
-    const int b1 = min(b0 + 1, k.nb - 1);
-    const float* tab0 = tabs + (t * k.nb + b0) * kCols * kLanes;
-    const float* tab1 = tabs + (t * k.nb + b1) * kCols * kLanes;
-    const float* base0 = base + (t * k.nb + b0) * 3 * kLanes;
-    const float* base1 = base + (t * k.nb + b1) * 3 * kLanes;
-    const uint16_t* sc = samp + (t * k.nc + c) * 3 * kChunkSamples
-                         + row * kLanes + lane0;
+  for (int c = 0; c < span.nc && !done; ++c) {
+    const int64_t ch = span.chunk0 + c;
+    const int b0 = bank0[ch * SUBS + sub_tile] & 0x3FFF;
+    const int b1 = min(b0 + 1, span.nb - 1);
+    const float* tab0 = tabs + (span.bank0 + b0) * kCols * kLanes;
+    const float* tab1 = tabs + (span.bank0 + b1) * kCols * kLanes;
+    const float* base0 = base + (span.bank0 + b0) * 3 * kLanes;
+    const float* base1 = base + (span.bank0 + b1) * 3 * kLanes;
+    const uint16_t* sc = samp + ch * 3 * kChunkSamples + row * kLanes + lane0;
 
     float c_r = 0.f, c_g = 0.f, c_b = 0.f, c_wd = 0.f, c_odp = 0.f;
     for (int j = 0; j < kSteps; ++j) {
@@ -216,24 +238,23 @@ tile_forward_kernel(const float* __restrict__ tabs,
 template <int SUBS, bool SUPER>
 void launch(int n_tiles, cudaStream_t stream, const float* tabs,
             const uint16_t* samp, const float* base, const float* rayt,
-            const int* ke, const int* bank0, float* out,
-            const TileConsts& k) {
+            const int* ke, const int* bank0, const int* desc,
+            const int* order, float* out, const TileConsts& k) {
   tile_forward_kernel<SUBS, SUPER><<<n_tiles, kRays, 0, stream>>>(
-      tabs, samp, base, rayt, ke, bank0, out, k);
+      tabs, samp, base, rayt, ke, bank0, desc, order, out, k);
 }
 
 }  // namespace
 
 extern "C" int dvt_tile_forward(
     const float* tabs, const uint16_t* samp, const float* base,
-    const float* rayt, const int* ke, const int* bank0, float* out,
-    int n_tiles, int nc, int nb, int k_max, int subs, int super_stencil,
+    const float* rayt, const int* ke, const int* bank0, const int* desc,
+    const int* order, float* out, int n_tiles, int k_max, int subs,
+    int super_stencil,
     float dt, float t_near, float t_far, float t_stop, float stop,
     float lo_x, float lo_y, float lo_z, float inv_x, float inv_y,
     float inv_z, float ns_x, float ns_y, float ns_z, void* stream) {
   TileConsts k;
-  k.nc = nc;
-  k.nb = nb;
   k.k_max = k_max;
   k.dt = dt;
   k.t_near = t_near;
@@ -246,20 +267,24 @@ extern "C" int dvt_tile_forward(
   if (n_tiles <= 0) return (int)cudaGetLastError();
   cudaStream_t st = (cudaStream_t)stream;
   const bool sup = super_stencil != 0;
+#define DVT_FWD(S, SUP)                                                      \
+  launch<S, SUP>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, desc,     \
+                 order, out, k)
   if (subs == 1 && !sup) {
-    launch<1, false>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+    DVT_FWD(1, false);
   } else if (subs == 4 && !sup) {
-    launch<4, false>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+    DVT_FWD(4, false);
   } else if (subs == 16 && !sup) {
-    launch<16, false>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+    DVT_FWD(16, false);
   } else if (subs == 1) {
-    launch<1, true>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+    DVT_FWD(1, true);
   } else if (subs == 4) {
-    launch<4, true>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+    DVT_FWD(4, true);
   } else if (subs == 16) {
-    launch<16, true>(n_tiles, st, tabs, samp, base, rayt, ke, bank0, out, k);
+    DVT_FWD(16, true);
   } else {
     return (int)cudaErrorInvalidValue;
   }
+#undef DVT_FWD
   return (int)cudaGetLastError();
 }

@@ -14,7 +14,7 @@
 //
 // One launch covers every tile group of a schedule: through a descriptor
 // (desc, (T, 4) i32: nc, nb, first chunk, first bank per tile;
-// hash_grid.cuh::tile_span) each tile finds its chunks and banks in the
+// tile_set.cuh::tile_span) each tile finds its chunks and banks in the
 // schedule's flat arrays, so a launch fills the card however few tiles a
 // group holds. One group is the case of a single shape.
 //

@@ -14,6 +14,7 @@
 #pragma once
 
 #include "hash_tiles.cuh"
+#include "tile_set.cuh"
 
 namespace dvt_grid {
 
@@ -156,36 +157,11 @@ __device__ __forceinline__ void grid_encode(const float fs[3],
   add_biases<kColor>(sc, k.h, lay, pre_s, pre_c);
 }
 
-// A tile's place in a schedule's flat arrays (ops/hash_grid.py::GridTiles):
-// its chunk and bank counts and its first chunk (samp, bank0, the backward's
-// prefix scratch) and first bank (tabs, base, slot rows). Ray planes, ke and
-// the outputs are indexed by the tile itself. The empty asm keeps the four
-// words in registers: without it the compiler reloads them from desc where
-// they are used, inside the sample loop, so that each sample's slot address
-// waits on a load (K8f then uses fewer registers and runs markedly slower).
-constexpr int kDescWords = 4;   // nc, nb, first chunk, first bank
-
-struct TileSpan {
-  int nc, nb;
-  int64_t chunk0, bank0;
-};
-
-__device__ __forceinline__ TileSpan tile_span(const int* desc, int64_t t) {
-  const int* d = desc + t * kDescWords;
-  TileSpan s;
-  s.nc = d[0];
-  s.nb = d[1];
-  s.chunk0 = d[2];
-  s.bank0 = d[3];
-  asm volatile("" : "+r"(s.nc), "+r"(s.nb), "+l"(s.chunk0), "+l"(s.bank0));
-  return s;
-}
-
-// The window slot of a tile-local lane: (clipped slot, second bank?).
-__device__ __forceinline__ int window_slot(int idx2, bool* second) {
-  *second = idx2 >= kLanes;
-  return *second ? min(max(idx2 - kLanes, 0), kLanes - 1)
-                 : min(max(idx2, 0), kLanes - 1);
-}
+// A tile's place in a schedule's flat arrays and a lane's window slot
+// (tile_set.cuh, shared with the dense tile kernels K1 / K2).
+using dvt_tiles::kDescWords;
+using dvt_tiles::tile_span;
+using dvt_tiles::TileSpan;
+using dvt_tiles::window_slot;
 
 }  // namespace dvt_grid

@@ -5,7 +5,8 @@ Counterpart of ``dvren_tpu/ops/fused_tiles.py``: the Pallas
 ``_fwd_kernel`` becomes the CUDA kernel ``csrc/fused_tiles.cu`` and
 ``_bwd_kernel`` becomes ``csrc/fused_tiles_bwd.cu`` (both one thread per
 ray, one block per 16x16 tile), with the plain PyTorch twins
-:func:`tile_forward_plain` and :func:`tile_backward_plain` beside them.
+:func:`tile_forward_plain` and :func:`tile_backward_plain` (one tile group
+each) beside them.
 The TPU kernels' layout machinery (mask-matmul prefix sums, lane-shuffle
 slot expansion, the ``mxu``/``roll`` ablations, the u16 hi/lo split of the
 backward's rows) has no counterpart: on the card a ray's prefix sum is a
@@ -17,10 +18,11 @@ cell base), interpolates the stencil row of its slot from its sub-tile's
 two-bank window, and runs the optical-depth recurrence with exact early
 stop. Output per ray: r, g, b, sum of w * mid-segment depth, and
 processed optical depth, as (T, 5, 16, 16) image tiles. K2 is its
-recompute adjoint: d(bank table) as f32 slot rows (T, NB, 128, cols)
-and, on request, d(rayt) for camera gradients. For the split backward
-(``render/tiled.py``'s ``BWD_SPLIT = "pallas"``) K2 also emits the table
-gradient in JAX's ``emit="banks"`` layout, bank blocks (T, NB, 32, 128),
+recompute adjoint: d(bank table) as f32 slot rows (one (NB, 128, cols)
+block per tile) and, on request, d(rayt) for camera gradients. For the
+split backward (``render/tiled.py``'s ``BWD_SPLIT = "pallas"``) K2 also
+emits the table gradient in JAX's ``emit="banks"`` layout, bank blocks
+(NB, 32, 128) per tile,
 the rows form transposed bit for bit (cell stencil only, as in JAX);
 K6 (``packed_transpose.banks_to_rows``) then relays them to slot rows.
 
@@ -38,15 +40,23 @@ Two forms, as in the JAX kernels (``subs`` and ``stencil`` of
   19 are exact zeros; the kernels read only the 8 vertices of the
   sample's cell, which gives the same sums to the last bit.
 
+Each kernel launches once per schedule over every tile group: a
+:class:`TileSet` holds the groups' arrays flat with a per-tile descriptor
+(chunk and bank counts, first chunk, first bank), which the schedule
+carries (``tiled.TiledSchedule.tiles``) and the hash-grid kernels K8f /
+K8b read too; one group alone is a set of one shape (:func:`tile_set`).
 :func:`tile_forward` and :func:`tile_backward` launch their kernels for
-CUDA tensors and run the plain twins for CPU tensors; their
+CUDA tensors and, for CPU tensors, run the twins group by group
+(:func:`tile_forward_set_plain`, :func:`tile_backward_set_plain`); their
 ``.launches`` attributes count launches.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
+import numpy as np
 import torch
 
 from dvren_tpu_torch import _build
@@ -136,18 +146,201 @@ def finalize_heads(plan: Plan, raw: torch.Tensor, axis: int = 1):
     return (r, g, b), t_final, opacity, depth
 
 
-def _check_inputs(tabs, samp, base, rayt, ke, bank0, prm: TileParams):
-    t_cnt = tabs.shape[0]
-    nc, nb = prm.n_chunks, prm.banks
+# ------------------------------------------------ every group in one launch
+
+DESC_WORDS = 4   # per tile: n_chunks, banks, first chunk, first bank
+
+
+def _concat(arrays, empty):
+    """Concatenate numpy arrays, or tensors (u16 through an int16 view);
+    ``empty`` when there are none."""
+    if not arrays:
+        return empty
+    if isinstance(arrays[0], np.ndarray):
+        return np.concatenate(arrays)
+    if arrays[0].dtype == torch.uint16:
+        return torch.cat([a.view(torch.int16) for a in arrays]).view(
+            torch.uint16)
+    return torch.cat(arrays)
+
+
+@dataclass(frozen=True)
+class TileSet:
+    """Every tile group of a schedule as flat arrays, for one launch of a
+    tile kernel (K1, K2, K8f, K8b) over all of them. The groups' arrays
+    concatenated in group order, with S_c = sum of n_tiles * n_chunks and
+    S_b = sum of n_tiles * banks over the groups:
+
+    samp (S_c, 3, 16, 128) u16, base (S_b, 3, 128) f32, rayt (T, 12, 128)
+    f32, ke (T,) i32, bank0 (S_c * subs,) i32; desc (T, 4) i32, per tile
+    its n_chunks, banks, first chunk (into samp, bank0 / subs) and first
+    bank (into base, the bank tables and the backward's slot rows); and
+    order (T,) i32, the tiles by falling chunk count (stable), the order
+    in which K1 and K2 hand tiles to blocks so that the longest start
+    first (no output moves). ``shapes`` holds each group's (n_tiles,
+    n_chunks, banks). Numpy arrays as built, or tensors after :meth:`to`;
+    a lone group is a set of one shape (:func:`tile_set`)."""
+
+    shapes: tuple
+    subs: int
+    samp: np.ndarray
+    base: np.ndarray
+    rayt: np.ndarray
+    ke: np.ndarray
+    bank0: np.ndarray
+    desc: np.ndarray
+    order: np.ndarray
+
+    def to(self, device) -> "TileSet":
+        def move(x):
+            if isinstance(x, np.ndarray):
+                x = torch.from_numpy(np.ascontiguousarray(x))
+            return x.to(device)
+
+        return TileSet(
+            shapes=self.shapes, subs=self.subs, samp=move(self.samp),
+            base=move(self.base), rayt=move(self.rayt), ke=move(self.ke),
+            bank0=move(self.bank0), desc=move(self.desc),
+            order=move(self.order))
+
+    @property
+    def device(self):
+        return (self.samp.device if isinstance(self.samp, torch.Tensor)
+                else None)
+
+    @property
+    def n_tiles(self) -> int:
+        return sum(n for n, _, _ in self.shapes)
+
+    @property
+    def n_chunk_rows(self) -> int:
+        """S_c: the chunks of every tile."""
+        return sum(n * nc for n, nc, _ in self.shapes)
+
+    @property
+    def n_bank_rows(self) -> int:
+        """S_b: the banks of every tile."""
+        return sum(n * nb for n, _, nb in self.shapes)
+
+    @property
+    def max_chunks(self) -> int:
+        return max((nc for _, nc, _ in self.shapes), default=0)
+
+    @property
+    def max_banks(self) -> int:
+        return max((nb for _, _, nb in self.shapes), default=0)
+
+    def offsets(self) -> list:
+        """Per group (first tile, first chunk, first bank)."""
+        out, t0, c0, b0 = [], 0, 0, 0
+        for n, nc, nb in self.shapes:
+            out.append((t0, c0, b0))
+            t0, c0, b0 = t0 + n, c0 + n * nc, b0 + n * nb
+        return out
+
+    def group_arrays(self) -> list:
+        """Per group its (T, ...) arrays as views of the flat ones: samp,
+        base, rayt, k_enter and bank0 (T, nc, subs), named as
+        ``tiled.TileGroup``'s fields."""
+        out = []
+        for (n, nc, nb), (t0, c0, b0) in zip(self.shapes, self.offsets()):
+            out.append({
+                "samp": self.samp[c0:c0 + n * nc].reshape(
+                    (n, nc) + tuple(self.samp.shape[1:])),
+                "base": self.base[b0:b0 + n * nb].reshape(
+                    (n, nb) + tuple(self.base.shape[1:])),
+                "rayt": self.rayt[t0:t0 + n],
+                "k_enter": self.ke[t0:t0 + n],
+                "bank0": self.bank0[c0 * self.subs:(c0 + n * nc)
+                                    * self.subs].reshape(n, nc, self.subs)})
+        return out
+
+    def group_views(self, tabs, rayt=None) -> list:
+        """Per group the one-group twins' arguments, as views: (tabs
+        (T, NB, C, 128) from the flat bank tables ``tabs`` (S_b, C, 128),
+        samp, base, rayt (``rayt`` (T_all, 12, 128) in place of the set's
+        when given), ke, bank0 (T * nc * subs,))."""
+        rayt = self.rayt if rayt is None else rayt
+        out = []
+        for (n, nc, nb), (t0, _, b0), arrays in zip(
+                self.shapes, self.offsets(), self.group_arrays()):
+            out.append((tabs[b0:b0 + n * nb].reshape(
+                (n, nb) + tuple(tabs.shape[1:])),
+                arrays["samp"], arrays["base"], rayt[t0:t0 + n],
+                arrays["k_enter"], arrays["bank0"].reshape(-1)))
+        return out
+
+
+def tile_set(groups, subs: int) -> TileSet:
+    """The flat arrays and descriptor of ``groups`` (``tiled.TileGroup``s,
+    numpy or tensors on one device): copies, in group order."""
+    shapes = tuple((int(g.n_tiles), int(g.n_chunks), int(g.banks))
+                   for g in groups)
+    desc = []
+    c0 = b0 = 0
+    for n, nc, nb in shapes:
+        d = np.empty((n, DESC_WORDS), np.int32)
+        d[:, 0], d[:, 1] = nc, nb
+        d[:, 2] = c0 + nc * np.arange(n)
+        d[:, 3] = b0 + nb * np.arange(n)
+        desc.append(d)
+        c0, b0 = c0 + n * nc, b0 + n * nb
+    desc = (np.concatenate(desc) if desc
+            else np.zeros((0, DESC_WORDS), np.int32))
+    order = np.argsort(-desc[:, 0], kind="stable").astype(np.int32)
+
+    def flat(name, tail, dtype):
+        return _concat([getattr(g, name).reshape((-1,) + tail)
+                        for g in groups], np.zeros((0,) + tail, dtype))
+
+    tiles = TileSet(
+        shapes=shapes, subs=int(subs),
+        samp=flat("samp", (3, ROWS, LANES), np.uint16),
+        base=flat("base", (3, LANES), np.float32),
+        rayt=flat("rayt", (RAYT_ROWS, LANES), np.float32),
+        ke=flat("k_enter", (), np.int32), bank0=flat("bank0", (), np.int32),
+        desc=desc, order=order)
+    dev = tiles.device
+    return tiles if dev is None else dataclasses.replace(
+        tiles, desc=torch.from_numpy(desc).to(dev),
+        order=torch.from_numpy(order).to(dev))
+
+
+def tiles_op_params(plan: Plan, geom, tiles: TileSet,
+                    stencil: str = "cell") -> TileParams:
+    """The constants of a one-launch call over ``tiles``: the groups'
+    largest chunk and bank counts (each tile's own come from the
+    descriptor) and the set's sub-tiles per block."""
+    return tile_op_params(plan, geom, tiles.max_banks, tiles.max_chunks,
+                          tiles.subs, stencil)
+
+
+def check_tiles(tabs, tiles: TileSet, cols: int, subs: int,
+                rayt=None, extra=None) -> None:
+    """Shapes, dtypes and devices of a one-launch call over ``tiles``:
+    the flat bank tables ``tabs`` (S_b, cols, 128), the set's arrays (its
+    ray planes or ``rayt``) and ``extra`` {name: (tensor, shape,
+    dtype)}; CUDA tensors must be contiguous."""
+    s_c, s_b, t_cnt = tiles.n_chunk_rows, tiles.n_bank_rows, tiles.n_tiles
+    if subs != tiles.subs:
+        raise ValueError(f"params for subs {subs}, tiles of subs "
+                         f"{tiles.subs}")
     want = {
-        "tabs": (tabs, (t_cnt, nb, prm.cols, LANES), torch.float32),
-        "samp": (samp, (t_cnt, nc, 3, ROWS, LANES), torch.uint16),
-        "base": (base, (t_cnt, nb, 3, LANES), torch.float32),
-        "rayt": (rayt, (t_cnt, RAYT_ROWS, LANES), torch.float32),
-        "ke": (ke, (t_cnt,), torch.int32),
-        "bank0": (bank0, (t_cnt * nc * prm.subs,), torch.int32),
+        "tabs": (tabs, (s_b, cols, LANES), torch.float32),
+        "samp": (tiles.samp, (s_c, 3, ROWS, LANES), torch.uint16),
+        "base": (tiles.base, (s_b, 3, LANES), torch.float32),
+        "rayt": (tiles.rayt if rayt is None else rayt,
+                 (t_cnt, RAYT_ROWS, LANES), torch.float32),
+        "ke": (tiles.ke, (t_cnt,), torch.int32),
+        "bank0": (tiles.bank0, (s_c * tiles.subs,), torch.int32),
+        "desc": (tiles.desc, (t_cnt, DESC_WORDS), torch.int32),
+        "order": (tiles.order, (t_cnt,), torch.int32),
+        **(extra or {}),
     }
     for name, (x, shape, dtype) in want.items():
+        if not isinstance(x, torch.Tensor):
+            raise TypeError(f"{name}: want a tensor (move the tiles with "
+                            f".to(device))")
         if tuple(x.shape) != shape:
             raise ValueError(f"{name}: want shape {shape}, got "
                              f"{tuple(x.shape)}")
@@ -155,34 +348,52 @@ def _check_inputs(tabs, samp, base, rayt, ke, bank0, prm: TileParams):
             raise TypeError(f"{name}: want {dtype}, got {x.dtype}")
         if x.device != tabs.device:
             raise ValueError(f"{name} on {x.device}, tabs on {tabs.device}")
-
-
-def tile_forward(tabs, samp, base, rayt, ke, bank0,
-                 prm: TileParams) -> torch.Tensor:
-    """One tile group's raw heads, (T, 5, 16, 16) float32.
-
-    tabs (T, NB, cols, 128) f32 (cols = ``prm.cols``), samp
-    (T, nc, 3, 16, 128) u16, base (T, NB, 3, 128) f32, rayt (T, 12, 128)
-    f32, ke (T,) i32, bank0 (T * nc * subs,) i32."""
-    _check_inputs(tabs, samp, base, rayt, ke, bank0, prm)
-    if tabs.device.type == "cpu":
-        return tile_forward_plain(tabs, samp, base, rayt, ke, bank0, prm)
-    if tabs.device.type != "cuda":
-        raise ValueError(f"unsupported device {tabs.device}")
-    for name, x in (("tabs", tabs), ("samp", samp), ("base", base),
-                    ("rayt", rayt), ("ke", ke), ("bank0", bank0)):
-        if not x.is_contiguous():
+        if tabs.device.type == "cuda" and not x.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    t_cnt = int(tabs.shape[0])
+    if tabs.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tabs.device}")
+
+
+def _group_params(tiles: TileSet, prm: TileParams) -> list:
+    return [dataclasses.replace(prm, n_chunks=nc, banks=nb)
+            for _, nc, nb in tiles.shapes]
+
+
+def tile_forward_set_plain(tabs, tiles: TileSet, prm: TileParams,
+                           rayt=None) -> torch.Tensor:
+    """:func:`tile_forward_plain` group by group, concatenated."""
+    outs = [tile_forward_plain(*a, p) for a, p in zip(
+        tiles.group_views(tabs, rayt), _group_params(tiles, prm))]
+    if not outs:
+        return tabs.new_zeros((0, 5, ROWS, RAYS_COLS))
+    return torch.cat(outs)
+
+
+def tile_forward(tabs, tiles: TileSet, prm: TileParams,
+                 rayt=None) -> torch.Tensor:
+    """K1 over every tile group of a schedule in one launch: the raw heads
+    (T, 5, 16, 16) float32 of the groups' tiles in group order.
+
+    ``tabs`` (S_b, cols, 128) f32 are the flat bank tables
+    (``tiled._gather_banks_flat``; cols = ``prm.cols``), ``prm`` comes
+    from :func:`tiles_op_params`, ``rayt`` (T, 12, 128) replaces the
+    set's ray planes when given (the camera route). CPU tensors run
+    :func:`tile_forward_plain` group by group."""
+    check_tiles(tabs, tiles, prm.cols, prm.subs, rayt)
+    rayt = tiles.rayt if rayt is None else rayt
+    if tabs.device.type == "cpu":
+        return tile_forward_set_plain(tabs, tiles, prm, rayt)
+    t_cnt = tiles.n_tiles
     out = torch.empty((t_cnt, 5, ROWS, RAYS_COLS), dtype=torch.float32,
                       device=tabs.device)
     lib = _build.library()
     with torch.cuda.device(tabs.device):
         code = lib.dvt_tile_forward(
-            tabs.data_ptr(), samp.data_ptr(), base.data_ptr(),
-            rayt.data_ptr(), ke.data_ptr(), bank0.data_ptr(), out.data_ptr(),
-            t_cnt, prm.n_chunks, prm.banks, prm.k_max, prm.subs,
-            int(prm.stencil == "super"),
+            tabs.data_ptr(), tiles.samp.data_ptr(), tiles.base.data_ptr(),
+            rayt.data_ptr(), tiles.ke.data_ptr(), tiles.bank0.data_ptr(),
+            tiles.desc.data_ptr(), tiles.order.data_ptr(), out.data_ptr(),
+            t_cnt, prm.k_max,
+            prm.subs, int(prm.stencil == "super"),
             prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
             *prm.lo, *prm.inv, *prm.ns,
             _build.stream_ptr(tabs.device))
@@ -528,14 +739,17 @@ def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
     into bank b0 and its second into b1. Samples that do not take part
     carry exact zeros. The camera adjoint is summed per ray in K2's
     order; a supercell sample's is the cell one over its 8 vertices,
-    which the JAX kernel's 27-vertex hat-derivative sums equal."""
+    which the JAX kernel's 27-vertex hat-derivative sums equal. Given
+    float64 ``tabs``, ``base``, ``rayt`` and ``gs`` it sums in float64:
+    the reference that K2's float32 sums are held to within 2e-6 x
+    scale."""
     _check_emit(emit, prm)
     lat = _Lattice(tabs, samp, base, rayt, ke, bank0, prm)
     t_cnt, nb, nc, subs = lat.t_cnt, lat.nb, lat.nc, lat.subs
     cols = prm.cols
     g = gs.reshape(t_cnt, 5, RAYS_PER_TILE, 1)
     g_r, g_g, g_b, g_wd, g_odp = (g[:, i] for i in range(5))
-    zeros = torch.zeros((t_cnt, RAYS_PER_TILE), dtype=torch.float32,
+    zeros = torch.zeros((t_cnt, RAYS_PER_TILE), dtype=tabs.dtype,
                         device=lat.dev)
 
     # pass 1: the exclusive optical-depth prefix of every sample
@@ -551,7 +765,7 @@ def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
         s_pre.append(torch.stack(pre, dim=-1))                # (T, 256, 8)
 
     # pass 2: the reverse adjoint
-    acc = torch.zeros((t_cnt, nb * LANES, cols), dtype=torch.float32,
+    acc = torch.zeros((t_cnt, nb * LANES, cols), dtype=tabs.dtype,
                       device=lat.dev)
     # window row of each (tile, sub-tile, window slot)
     win_base = ((lat.tiles[:, None] * subs + lat.sub_of[None])
@@ -617,60 +831,69 @@ def tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
     return d_rows, d_rayt
 
 
-def _check_cotangent(gs, tabs):
-    want = (int(tabs.shape[0]), 5, ROWS, RAYS_COLS)
-    if tuple(gs.shape) != want:
-        raise ValueError(f"gs: want shape {want}, got {tuple(gs.shape)}")
-    if gs.dtype != torch.float32:
-        raise TypeError(f"gs: want torch.float32, got {gs.dtype}")
-    if gs.device != tabs.device:
-        raise ValueError(f"gs on {gs.device}, tabs on {tabs.device}")
+def tile_backward_set_plain(tabs, tiles: TileSet, gs, prm: TileParams,
+                            cam: bool = False, emit: str = "rows",
+                            rayt=None):
+    """:func:`tile_backward_plain` group by group: the table gradients
+    concatenated, (S_b, 128, C) slot rows or (S_b, 32, 128) bank blocks,
+    and d(rayt) (T, 12, 128) or None."""
+    _check_emit(emit, prm)
+    parts, d_rayts, t0 = [], [], 0
+    for a, p in zip(tiles.group_views(tabs, rayt), _group_params(tiles, prm)):
+        n = int(a[0].shape[0])
+        d_part, d_rayt = tile_backward_plain(
+            *a, gs[t0:t0 + n].contiguous(), p, cam, emit)
+        parts.append(d_part.reshape((-1,) + tuple(d_part.shape[2:])))
+        d_rayts.append(d_rayt)
+        t0 += n
+    tail = (prm.cols, LANES) if emit == "banks" else (LANES, prm.cols)
+    rows = torch.cat(parts) if parts else tabs.new_zeros((0,) + tail)
+    d_rayt = None
+    if cam:
+        d_rayt = (torch.cat(d_rayts) if d_rayts
+                  else tabs.new_zeros((0, RAYT_ROWS, LANES)))
+    return rows, d_rayt
 
 
-def tile_backward(tabs, samp, base, rayt, ke, bank0, gs, prm: TileParams,
-                  cam: bool = False, emit: str = "rows"):
-    """K2: one tile group's d(bank table) as f32 slot rows (T, NB, 128,
-    C), row (t * NB + b) * 128 + lane, column ch * 8 + corner (C = 32) or
-    ch * 27 + vertex (C = 108, a supercell schedule); and with ``cam``
-    d(rayt) (T, 12, 128) in rayt's layout (else None). ``emit="banks"``
-    (cell stencil) gives the table gradient as bank blocks (T, NB, 32,
-    128) instead: the same values, transposed per bank, bit for bit.
+def tile_backward(tabs, tiles: TileSet, gs, prm: TileParams,
+                  cam: bool = False, emit: str = "rows", rayt=None):
+    """K2 over every tile group of a schedule in one launch: (d_rows
+    (S_b, 128, C) f32, the slot rows of every group in group order, row
+    b * 128 + lane of flat bank b, column ch * 8 + corner (C = 32) or
+    ch * 27 + vertex (C = 108, a supercell schedule), the buffer
+    :func:`gather_plan.slot_rows_to_table` reads; with ``cam`` d(rayt)
+    (T, 12, 128) in rayt's layout, else None). ``emit="banks"`` (cell
+    stencil) gives the table gradient as bank blocks (S_b, 32, 128): the
+    same values, transposed per bank, bit for bit.
 
     ``gs`` (T, 5, 16, 16) f32 is the cotangent of :func:`tile_forward`'s
-    output. Launches ``csrc/fused_tiles_bwd.cu`` for CUDA tensors, runs
-    :func:`tile_backward_plain` for CPU tensors."""
-    _check_inputs(tabs, samp, base, rayt, ke, bank0, prm)
-    _check_cotangent(gs, tabs)
+    output, ``rayt`` the ray planes it was given. CPU tensors run
+    :func:`tile_backward_plain` group by group."""
     _check_emit(emit, prm)
+    check_tiles(tabs, tiles, prm.cols, prm.subs, rayt, extra={
+        "gs": (gs, (tiles.n_tiles, 5, ROWS, RAYS_COLS), torch.float32)})
+    rayt = tiles.rayt if rayt is None else rayt
     if tabs.device.type == "cpu":
-        return tile_backward_plain(tabs, samp, base, rayt, ke, bank0, gs,
-                                   prm, cam, emit)
-    if tabs.device.type != "cuda":
-        raise ValueError(f"unsupported device {tabs.device}")
-    for name, x in (("tabs", tabs), ("samp", samp), ("base", base),
-                    ("rayt", rayt), ("ke", ke), ("bank0", bank0),
-                    ("gs", gs)):
-        if not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    t_cnt, nb, nc = int(tabs.shape[0]), prm.banks, prm.n_chunks
-    dev = tabs.device
+        return tile_backward_set_plain(tabs, tiles, gs, prm, cam, emit, rayt)
+    t_cnt, s_b, dev = tiles.n_tiles, tiles.n_bank_rows, tabs.device
     banks = emit == "banks"
-    d_rows = torch.empty((t_cnt, nb, prm.cols, LANES) if banks
-                         else (t_cnt, nb, LANES, prm.cols),
+    d_rows = torch.empty((s_b, prm.cols, LANES) if banks
+                         else (s_b, LANES, prm.cols),
                          dtype=torch.float32, device=dev)
     d_rayt = (torch.empty((t_cnt, RAYT_ROWS, LANES), dtype=torch.float32,
                           device=dev) if cam else None)
     # each sample's optical-depth prefix, written by pass 1, read by pass 2
-    s_pre = torch.empty((t_cnt, nc * GROUP, RAYS_PER_TILE),
+    s_pre = torch.empty((tiles.n_chunk_rows * GROUP, RAYS_PER_TILE),
                         dtype=torch.float32, device=dev)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.dvt_tile_backward(
-            tabs.data_ptr(), samp.data_ptr(), base.data_ptr(),
-            rayt.data_ptr(), ke.data_ptr(), bank0.data_ptr(), gs.data_ptr(),
-            d_rows.data_ptr(), d_rayt.data_ptr() if cam else None,
-            s_pre.data_ptr(),
-            t_cnt, nc, nb, prm.k_max, prm.subs, int(prm.stencil == "super"),
+            tabs.data_ptr(), tiles.samp.data_ptr(), tiles.base.data_ptr(),
+            rayt.data_ptr(), tiles.ke.data_ptr(), tiles.bank0.data_ptr(),
+            tiles.desc.data_ptr(), tiles.order.data_ptr(), gs.data_ptr(),
+            d_rows.data_ptr(),
+            d_rayt.data_ptr() if cam else None, s_pre.data_ptr(),
+            t_cnt, prm.k_max, prm.subs, int(prm.stencil == "super"),
             int(banks), prm.dt, prm.t_near, prm.t_far, prm.t_stop, prm.stop,
             *prm.lo, *prm.inv, *prm.ns, *camera_scales(prm),
             _build.stream_ptr(dev))

@@ -30,10 +30,11 @@ instead:
 
 :func:`hash_grid_forward_tiles` and :func:`hash_grid_backward_tiles`
 launch the kernels once over every tile group of a schedule, from its
-flat arrays and per-tile descriptor (:class:`GridTiles`; one group is a
-:class:`GridTiles` of one shape), for CUDA tensors; for CPU tensors they
-loop the plain twins (:func:`hash_grid_forward_plain`,
-:func:`hash_grid_backward_plain`, one tile group each) over the groups.
+flat arrays and per-tile descriptor (``fused_tiles.TileSet``, which K1
+and K2 launch over too; one group is a set of one shape), for CUDA
+tensors; for CPU tensors they loop the plain twins
+(:func:`hash_grid_forward_plain`, :func:`hash_grid_backward_plain`, one
+tile group each) over the groups.
 Each wrapper's ``.launches`` attribute counts its launches.
 """
 
@@ -50,9 +51,9 @@ import torch
 from dvren_tpu_torch import _build
 from dvren_tpu_torch.core.plan import Plan
 from dvren_tpu_torch.ops.fused_tiles import (CHUNK_SAMPLES, GROUP, LANES,
-                                             RAYS_COLS, RAYS_PER_TILE,
-                                             RAYT_ROWS, ROWS, _Lattice,
-                                             _tie, corner_weights,
+                                             RAYS_COLS, RAYS_PER_TILE, ROWS,
+                                             TileSet, _Lattice, _tie,
+                                             check_tiles, corner_weights,
                                              march_plain)
 from dvren_tpu_torch.ops.gather_plan import (build_gather_plan,
                                              slot_rows_to_table)
@@ -268,134 +269,9 @@ def grid_op_params(plan: Plan, spec: HashMLPSpec, nb: int,
 
 # ------------------------------------------------ every group in one launch
 
-DESC_WORDS = 4   # per tile: n_chunks, banks, first chunk, first bank
-
-
-def _concat(arrays, empty):
-    """Concatenate numpy arrays, or tensors (u16 through an int16 view);
-    ``empty`` when there are none."""
-    if not arrays:
-        return empty
-    if isinstance(arrays[0], np.ndarray):
-        return np.concatenate(arrays)
-    if arrays[0].dtype == torch.uint16:
-        return torch.cat([a.view(torch.int16) for a in arrays]).view(
-            torch.uint16)
-    return torch.cat(arrays)
-
-
-@dataclass(frozen=True)
-class GridTiles:
-    """Every tile group of a hash-grid schedule as flat arrays, for one K8f
-    and one K8b launch over all of them. The groups' arrays concatenated
-    in group order, with S_c = sum of n_tiles * n_chunks and S_b = sum of
-    n_tiles * banks over the groups:
-
-    samp (S_c, 3, 16, 128) u16, base (S_b, 3, 128) f32, rayt (T, 12, 128)
-    f32, ke (T,) i32, bank0 (S_c * subs,) i32; and desc (T, 4) i32, per
-    tile its n_chunks, banks, first chunk (into samp, bank0 / subs) and
-    first bank (into base, the bank tables and K8b's slot rows).
-    ``shapes`` holds each group's (n_tiles, n_chunks, banks). Numpy arrays
-    as built, or tensors after :meth:`to`."""
-
-    shapes: tuple
-    subs: int
-    samp: np.ndarray
-    base: np.ndarray
-    rayt: np.ndarray
-    ke: np.ndarray
-    bank0: np.ndarray
-    desc: np.ndarray
-
-    def to(self, device) -> "GridTiles":
-        def move(x):
-            if isinstance(x, np.ndarray):
-                x = torch.from_numpy(np.ascontiguousarray(x))
-            return x.to(device)
-
-        return GridTiles(
-            shapes=self.shapes, subs=self.subs, samp=move(self.samp),
-            base=move(self.base), rayt=move(self.rayt), ke=move(self.ke),
-            bank0=move(self.bank0), desc=move(self.desc))
-
-    @property
-    def device(self):
-        return (self.samp.device if isinstance(self.samp, torch.Tensor)
-                else None)
-
-    @property
-    def n_tiles(self) -> int:
-        return sum(n for n, _, _ in self.shapes)
-
-    @property
-    def max_chunks(self) -> int:
-        return max((nc for _, nc, _ in self.shapes), default=0)
-
-    @property
-    def max_banks(self) -> int:
-        return max((nb for _, _, nb in self.shapes), default=0)
-
-    def offsets(self) -> list:
-        """Per group (first tile, first chunk, first bank)."""
-        out, t0, c0, b0 = [], 0, 0, 0
-        for n, nc, nb in self.shapes:
-            out.append((t0, c0, b0))
-            t0, c0, b0 = t0 + n, c0 + n * nc, b0 + n * nb
-        return out
-
-    def group_arrays(self) -> list:
-        """Per group its (T, ...) arrays as views of the flat ones: samp,
-        base, rayt, k_enter and bank0 (T, nc, subs), named as
-        ``tiled.TileGroup``'s fields."""
-        out = []
-        for (n, nc, nb), (t0, c0, b0) in zip(self.shapes, self.offsets()):
-            out.append({
-                "samp": self.samp[c0:c0 + n * nc].reshape(
-                    (n, nc) + tuple(self.samp.shape[1:])),
-                "base": self.base[b0:b0 + n * nb].reshape(
-                    (n, nb) + tuple(self.base.shape[1:])),
-                "rayt": self.rayt[t0:t0 + n],
-                "k_enter": self.ke[t0:t0 + n],
-                "bank0": self.bank0[c0 * self.subs:(c0 + n * nc)
-                                    * self.subs].reshape(n, nc, self.subs)})
-        return out
-
-
-def grid_tiles(groups, subs: int) -> GridTiles:
-    """The flat arrays and descriptor of ``groups`` (``tiled.TileGroup``s,
-    numpy or tensors on one device): copies, in group order."""
-    shapes = tuple((int(g.n_tiles), int(g.n_chunks), int(g.banks))
-                   for g in groups)
-    desc = []
-    c0 = b0 = 0
-    for n, nc, nb in shapes:
-        d = np.empty((n, DESC_WORDS), np.int32)
-        d[:, 0], d[:, 1] = nc, nb
-        d[:, 2] = c0 + nc * np.arange(n)
-        d[:, 3] = b0 + nb * np.arange(n)
-        desc.append(d)
-        c0, b0 = c0 + n * nc, b0 + n * nb
-    desc = (np.concatenate(desc) if desc
-            else np.zeros((0, DESC_WORDS), np.int32))
-
-    def flat(name, tail, dtype):
-        return _concat([getattr(g, name).reshape((-1,) + tail)
-                        for g in groups], np.zeros((0,) + tail, dtype))
-
-    tiles = GridTiles(
-        shapes=shapes, subs=int(subs),
-        samp=flat("samp", (3, ROWS, LANES), np.uint16),
-        base=flat("base", (3, LANES), np.float32),
-        rayt=flat("rayt", (RAYT_ROWS, LANES), np.float32),
-        ke=flat("k_enter", (), np.int32), bank0=flat("bank0", (), np.int32),
-        desc=desc)
-    dev = tiles.device
-    return tiles if dev is None else dataclasses.replace(
-        tiles, desc=torch.from_numpy(desc).to(dev))
-
 
 def tiles_op_params(plan: Plan, spec: HashMLPSpec,
-                    tiles: GridTiles) -> GridParams:
+                    tiles: TileSet) -> GridParams:
     """The constants of a one-launch call over ``tiles``: the groups'
     largest chunk and bank counts (each tile's own come from the
     descriptor) and the schedule's sub-tiles per block."""
@@ -403,55 +279,22 @@ def tiles_op_params(plan: Plan, spec: HashMLPSpec,
                           tiles.subs)
 
 
-def _check_tiles(tabs, tiles: GridTiles, sc, prm: GridParams, gs=None):
-    s_c = sum(n * nc for n, nc, _ in tiles.shapes)
-    s_b = sum(n * nb for n, _, nb in tiles.shapes)
-    t_cnt = tiles.n_tiles
-    if prm.subs != tiles.subs:
-        raise ValueError(f"params for subs {prm.subs}, tiles of subs "
-                         f"{tiles.subs}")
-    want = {
-        "tabs": (tabs, (s_b, prm.cols, LANES), torch.float32),
-        "samp": (tiles.samp, (s_c, 3, ROWS, LANES), torch.uint16),
-        "base": (tiles.base, (s_b, 3, LANES), torch.float32),
-        "rayt": (tiles.rayt, (t_cnt, RAYT_ROWS, LANES), torch.float32),
-        "ke": (tiles.ke, (t_cnt,), torch.int32),
-        "bank0": (tiles.bank0, (s_c * tiles.subs,), torch.int32),
-        "desc": (tiles.desc, (t_cnt, DESC_WORDS), torch.int32),
-        "sc": (sc, (_mlp_layout(prm.spec)["total"],), torch.float32),
-    }
+def _check_tiles(tabs, tiles: TileSet, sc, prm: GridParams, gs=None):
+    extra = {"sc": (sc, (_mlp_layout(prm.spec)["total"],), torch.float32)}
     if gs is not None:
-        want["gs"] = (gs, (t_cnt, 5, ROWS, RAYS_COLS), torch.float32)
-    for name, (x, shape, dtype) in want.items():
-        if not isinstance(x, torch.Tensor):
-            raise TypeError(f"{name}: want a tensor (move the tiles with "
-                            f".to(device))")
-        if tuple(x.shape) != shape:
-            raise ValueError(f"{name}: want shape {shape}, got "
-                             f"{tuple(x.shape)}")
-        if x.dtype != dtype:
-            raise TypeError(f"{name}: want {dtype}, got {x.dtype}")
-        if x.device != tabs.device:
-            raise ValueError(f"{name} on {x.device}, tabs on {tabs.device}")
-        if tabs.device.type == "cuda" and not x.is_contiguous():
-            raise ValueError(f"{name} must be contiguous")
-    if tabs.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"unsupported device {tabs.device}")
+        extra["gs"] = (gs, (tiles.n_tiles, 5, ROWS, RAYS_COLS),
+                       torch.float32)
+    check_tiles(tabs, tiles, prm.cols, prm.subs, extra=extra)
 
 
-def _group_args(tabs, tiles: GridTiles, sc, prm: GridParams) -> list:
-    """Per group the arguments of the one-group wrappers, as views."""
-    out = []
-    for (n, nc, nb), (t0, c0, b0), arrays in zip(
-            tiles.shapes, tiles.offsets(), tiles.group_arrays()):
-        out.append((tabs[b0:b0 + n * nb].reshape(n, nb, prm.cols, LANES),
-                    arrays["samp"], arrays["base"], arrays["rayt"],
-                    arrays["k_enter"], arrays["bank0"].reshape(-1), sc,
-                    dataclasses.replace(prm, n_chunks=nc, banks=nb)))
-    return out
+def _group_args(tabs, tiles: TileSet, sc, prm: GridParams) -> list:
+    """Per group the arguments of the one-group twins, as views."""
+    return [(*views, sc, dataclasses.replace(prm, n_chunks=nc, banks=nb))
+            for views, (_, nc, nb) in zip(tiles.group_views(tabs),
+                                          tiles.shapes)]
 
 
-def hash_grid_forward_tiles_plain(tabs, tiles: GridTiles, sc,
+def hash_grid_forward_tiles_plain(tabs, tiles: TileSet, sc,
                                   prm: GridParams) -> torch.Tensor:
     """:func:`hash_grid_forward_plain` group by group, concatenated."""
     outs = [hash_grid_forward_plain(*a)
@@ -461,7 +304,7 @@ def hash_grid_forward_tiles_plain(tabs, tiles: GridTiles, sc,
     return torch.cat(outs)
 
 
-def hash_grid_backward_tiles_plain(tabs, tiles: GridTiles, sc, gs,
+def hash_grid_backward_tiles_plain(tabs, tiles: TileSet, sc, gs,
                                    prm: GridParams):
     """:func:`hash_grid_backward_plain` group by group: the slot rows
     concatenated, (S_b * 128, C), and the groups' MLP gradients summed
@@ -480,7 +323,7 @@ def hash_grid_backward_tiles_plain(tabs, tiles: GridTiles, sc, gs,
     return torch.cat(rows), torch.sum(torch.stack(d_scs), dim=0)
 
 
-def hash_grid_forward_tiles(tabs, tiles: GridTiles, sc,
+def hash_grid_forward_tiles(tabs, tiles: TileSet, sc,
                             prm: GridParams) -> torch.Tensor:
     """K8f over every tile group of a schedule in one launch: (T, 5, 16,
     16) float32, the groups' outputs in group order. ``tabs`` (S_b, C,
@@ -510,7 +353,7 @@ def hash_grid_forward_tiles(tabs, tiles: GridTiles, sc,
 hash_grid_forward_tiles.launches = 0
 
 
-def hash_grid_backward_tiles(tabs, tiles: GridTiles, sc, gs,
+def hash_grid_backward_tiles(tabs, tiles: TileSet, sc, gs,
                              prm: GridParams):
     """K8b over every tile group of a schedule in one launch: (d_rows
     (S_b * 128, C) f32, the slot rows of every group concatenated, as

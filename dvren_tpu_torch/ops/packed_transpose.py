@@ -222,16 +222,11 @@ def banks_to_rows_plain(banks: torch.Tensor) -> torch.Tensor:
     return banks.transpose(1, 2).reshape(-1, NCH).contiguous()
 
 
-def banks_to_rows(banks: torch.Tensor, out: torch.Tensor | None = None,
-                  offset: int = 0) -> torch.Tensor:
+def banks_to_rows(banks: torch.Tensor) -> torch.Tensor:
     """(B, 32, 128) float32 bank-block cotangents -> (B*128, 32) slot
-    rows, row s = lane s % 128 of block s // 128; returns them.
-
-    With ``out`` ((S, 32) float32, contiguous, on the same device) the
-    rows land in ``out[offset:offset + B*128]``, which is returned: each
-    tile group fills its slice of one array, with no copy to join them.
-    Every value is moved as a 32-bit word, NaN payloads and -0.0
-    included."""
+    rows, row s = lane s % 128 of block s // 128: one launch for every
+    tile group of a backward. Every value is moved as a 32-bit word, NaN
+    payloads and -0.0 included."""
     if banks.dim() != 3 or tuple(banks.shape[1:]) != (NCH, BANK_LANES):
         raise ValueError(f"banks: want shape (B, {NCH}, {BANK_LANES}), got "
                          f"{tuple(banks.shape)}")
@@ -239,32 +234,12 @@ def banks_to_rows(banks: torch.Tensor, out: torch.Tensor | None = None,
         raise TypeError(f"banks: want torch.float32, got {banks.dtype}")
     if not banks.is_contiguous():
         raise ValueError("banks must be contiguous")
-    n = int(banks.shape[0]) * BANK_LANES
-    if out is not None:
-        if out.dim() != 2 or int(out.shape[1]) != NCH:
-            raise ValueError(f"out: want shape (S, {NCH}), got "
-                             f"{tuple(out.shape)}")
-        if out.dtype != torch.float32:
-            raise TypeError(f"out: want torch.float32, got {out.dtype}")
-        if out.device != banks.device:
-            raise ValueError(f"out on {out.device}, banks on {banks.device}")
-        if not 0 <= offset <= int(out.shape[0]) - n:
-            raise ValueError(f"offset {offset}: {n} rows do not fit in "
-                             f"out's {int(out.shape[0])}")
-        if not out.is_contiguous():
-            raise ValueError("out must be contiguous")
     if banks.device.type == "cpu":
-        rows = banks_to_rows_plain(banks)
-        if out is None:
-            return rows
-        out[offset:offset + n] = rows
-        return out[offset:offset + n]
+        return banks_to_rows_plain(banks)
     if banks.device.type != "cuda":
         raise ValueError(f"unsupported device {banks.device}")
-    if out is None:
-        out, offset = torch.empty((n, NCH), dtype=torch.float32,
-                                  device=banks.device), 0
-    dst = out[offset:offset + n]
+    dst = torch.empty((int(banks.shape[0]) * BANK_LANES, NCH),
+                      dtype=torch.float32, device=banks.device)
     lib = _build.library()
     with torch.cuda.device(banks.device):
         code = lib.dvt_banks_to_rows(banks.data_ptr(), dst.data_ptr(),

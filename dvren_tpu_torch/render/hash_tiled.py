@@ -21,7 +21,7 @@ level's point lattice, cascading 16 -> 8 -> 4 px sub-tiles until no slot
 table overflows, the packed multi-level corner table of
 :mod:`dvren_tpu_torch.ops.hash_grid`, the bank gather at C = L*8*F
 columns, and one K8f / K8b launch over every tile group of the schedule
-(its flat arrays and per-tile descriptor, :class:`HashGridSchedule`), in
+(the schedule's flat arrays and per-tile descriptor, ``tiles``), in
 the schedule's sub-tile form, inside one autograd node
 (:class:`_HashGridGroupset`). The field is zero outside the unit cube.
 """
@@ -251,7 +251,7 @@ def build_hash_grid_schedule(plan: Plan, field,
                              tile_px: int | None = None,
                              quantize=False,
                              uniform_shape=None,
-                             device=None) -> HashGridSchedule:
+                             device=None) -> tiled_mod.TiledSchedule:
     """Tile-table schedule for the hash grid path: the dense scheduler over
     the spec's finest-level lattice (one slot per finest cell; every
     level's lookups resolve from that cell's packed row), in numpy, or
@@ -261,10 +261,10 @@ def build_hash_grid_schedule(plan: Plan, field,
     4 px sub-tiles and keeps the first size with zero slot overflow (the
     grid path has no windowed fallback: the streamed referee's semantics
     outside the unit cube differ). A scene that overflows even 4 px
-    sub-tiles raises ``DvrenError``. ``quantize`` / ``uniform_shape`` as
-    in :func:`tiled.build_tiled_schedule`. The schedule is a
-    :class:`HashGridSchedule`: it carries the flat arrays of the one-launch
-    kernels."""
+    sub-tiles raises ``DvrenError``; an explicit ``tile_px`` that overflows
+    keeps its overflow count and no windowed fallback, as in the JAX
+    package (:func:`render_hash_grid_tiled` refuses it). ``quantize`` /
+    ``uniform_shape`` as in :func:`tiled.build_tiled_schedule`."""
     _check_grid_spec(field.spec)
     proxy = _HashSchedProxy(
         schedule_grid_shape=hash_grid.grid_shape(field.spec))
@@ -272,7 +272,7 @@ def build_hash_grid_schedule(plan: Plan, field,
     def build(px):
         return tiled_mod.build_tiled_schedule(
             plan, proxy, jitter=jitter, tile_px=px, quantize=quantize,
-            uniform_shape=uniform_shape)
+            uniform_shape=uniform_shape, build_fallback=False)
 
     if tile_px is not None:
         sched = build(tile_px)
@@ -283,42 +283,7 @@ def build_hash_grid_schedule(plan: Plan, field,
                 break
         check(sched.fallback_rays == 0,
               "hash grid schedule overflows even 4px sub-tiles")
-    sched = HashGridSchedule(**{f.name: getattr(sched, f.name)
-                                for f in dataclasses.fields(sched)})
-    sched = sched.with_views(
-        hash_grid.grid_tiles(sched.groups, (16 // sched.tile_px) ** 2))
     return sched if device is None else sched.to(device)
-
-
-_FLAT_FIELDS = ("samp", "base", "rayt", "k_enter", "bank0")
-
-
-@dataclass(frozen=True)
-class HashGridSchedule(tiled_mod.TiledSchedule):
-    """A hash-grid tile schedule: the dense scheduler's, plus
-    ``grid_tiles`` (:class:`hash_grid.GridTiles`), every group's samp,
-    base, rayt, k_enter and bank0 concatenated with the per-tile descriptor
-    of the one-launch kernels. Those five arrays of the groups are views of
-    the flat ones, on the host and after :meth:`to`, so the schedule holds
-    them once."""
-
-    grid_tiles: hash_grid.GridTiles | None = None
-
-    def with_views(self, tiles: hash_grid.GridTiles) -> "HashGridSchedule":
-        """The schedule carrying ``tiles``, its groups' arrays cut from
-        them."""
-        return dataclasses.replace(self, grid_tiles=tiles, groups=tuple(
-            dataclasses.replace(g, **v)
-            for g, v in zip(self.groups, tiles.group_arrays())))
-
-    def to(self, device) -> "HashGridSchedule":
-        """The schedule on ``device``: the flat arrays moved once, every
-        other array as :meth:`tiled.TiledSchedule.to` moves it."""
-        bare = dataclasses.replace(self, groups=tuple(
-            dataclasses.replace(g, **dict.fromkeys(_FLAT_FIELDS))
-            for g in self.groups))
-        return tiled_mod.TiledSchedule.to(bare, device).with_views(
-            self.grid_tiles.to(device))
 
 
 class _HashGridGroupset(torch.autograd.Function):
@@ -336,7 +301,7 @@ class _HashGridGroupset(torch.autograd.Function):
     are summed once and mapped by ``grads_from_blocks``. Autograd never
     records the table gather: its backward would be ``index_add_``.
     Returns None for ``static`` and the params' cotangents in
-    ``("hash_table",) + MLP_KEYS`` order. ``static`` = (GridTiles,
+    ``("hash_table",) + MLP_KEYS`` order. ``static`` = (TileSet,
     GridParams of the launch, gather map, gather plan, use_kernel, spec);
     on CPU tensors, or with ``use_kernel=False``, the twins run group by
     group."""
@@ -380,8 +345,10 @@ def render_hash_grid_tiled(plan: Plan, field, schedule,
     table through K8b's slot rows, the planned gather transpose and the
     table build's adjoint; the MLP heads through K8b's scalar gradients).
     ``use_kernel=False`` runs the plain twins of K8f / K8b on the
-    schedule's device. The schedule comes from
-    :func:`build_hash_grid_schedule` (a :class:`HashGridSchedule`)."""
+    schedule's device. The schedule is any zero-overflow tile schedule of
+    the spec's finest lattice: :func:`build_hash_grid_schedule`'s, or
+    ``tiled.build_tiled_schedule`` over that lattice, as in the JAX
+    package."""
     _check_grid_spec(field.spec)
     check(schedule.fallback_rays == 0 and schedule.fallback is None,
           "hash grid path requires zero overflow rays")
@@ -390,12 +357,9 @@ def render_hash_grid_tiled(plan: Plan, field, schedule,
     check(schedule.device == field.device,
           f"schedule is on {schedule.device}, the field on {field.device}: "
           f"move it with schedule.to(device)")
-    check(isinstance(schedule, HashGridSchedule)
-          and schedule.grid_tiles is not None,
-          "schedule has no grid_tiles: build it with build_hash_grid_schedule")
     raws = []
     if schedule.groups:
-        tiles = schedule.grid_tiles
+        tiles = schedule.tile_set()
         prm = hash_grid.tiles_op_params(plan, field.spec, tiles)
         raws = [_HashGridGroupset.apply(
             (tiles, prm, schedule.gathermap_all, schedule.gather_plan,

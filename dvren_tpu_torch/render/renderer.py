@@ -10,11 +10,11 @@ occupancy, compared by contents) key, keeps it on the context's device,
 and replays it every frame (the table: K3 for a float32 dense grid on
 cell tables, the supercell table on supercell ones, K5a for a 16-bit
 grid, the bricks as they are for a sparse field; the bank gather, one K1
-launch per tile group, the tile compose); :meth:`Renderer.backward`
+launch over every tile group, the tile compose); :meth:`Renderer.backward`
 differentiates that replay for
 ``sum(image * dl_image)`` in (sigma, color) or the bricks, ``c2w`` and
-``k`` (K2 per group, the gather-plan reduction, then K4 or K5b on a dense
-grid). The forward's stats notes count the launches of K1
+``k`` (one K2 launch, the gather-plan reduction, then K4 or K5b on a
+dense grid). The forward's stats notes count the launches of K1
 (``fused_tiles``), K3 (``packed_table``) and K5a (``packed_table16``);
 K2, K4 and K5b (``packed_table16_bwd``) launch in the backward.
 A tile schedule whose rays still overflow after the cascade renders them

@@ -17,12 +17,13 @@ therefore resolves the whole access pattern once:
 
 Each frame, the device builds the packed-stencil table (K3,
 :mod:`dvren_tpu_torch.ops.packed_transpose`), gathers every tile's bank
-block from it, renders each tile group (K1,
-:mod:`dvren_tpu_torch.ops.fused_tiles`) and places the (16, 16) output
-tiles into the image.
+block from it, renders every tile group in one K1 launch
+(:mod:`dvren_tpu_torch.ops.fused_tiles`, over the schedule's flat arrays
+``TiledSchedule.tiles`` and their per-tile descriptor) and places the
+(16, 16) output tiles into the image.
 
 The backward (:class:`_GroupsetFromParams`, what autograd runs through
-:func:`render_tiled`) runs K2 per group, which emits each tile's table
+:func:`render_tiled`) runs one K2 launch, which emits each tile's table
 gradient as f32 slot rows (and the ray-plane adjoint for camera
 gradients), sums the rows of every cell through the schedule's
 :class:`~dvren_tpu_torch.ops.gather_plan.GatherPlan` (gathers and sums,
@@ -32,8 +33,9 @@ with K4. Repeat runs are bit-identical.
 The split backward (:data:`BWD_SPLIT`, ``DVREN_BWD_SPLIT``) is the JAX
 package's two-op route: under ``"pallas"`` K2 emits bank blocks (T, NB,
 32, 128) and K6 (:func:`~dvren_tpu_torch.ops.packed_transpose.banks_to_rows`)
-relays them to slot rows before the gather plan's sums; under ``"xla"``,
-the default, K2 emits the slot rows itself. The two give the same bits.
+relays them to slot rows, in one launch, before the gather plan's sums;
+under ``"xla"``, the default, K2 emits the slot rows itself. The two
+give the same bits.
 The flag is read on the routes where JAX reads it: a float32 32-column
 flat table (sparse float32 bricks) and the dense float32 cell route of
 :func:`render_tiled_stack`; the single-view dense :func:`render_tiled`,
@@ -55,11 +57,12 @@ with its own bank windows), one slot per grid cell or per 2x2x2
 supercell, and :func:`build_tiled_schedule_auto`'s cascade over them, as
 in the JAX package, with quantized and uniform shape classes; many views'
 schedules merge into one (:func:`merge_view_schedules`) that
-:func:`render_tiled_stack` renders with one launch per merged group. Rays
-whose sub-tiles overflow the slot tables go to the windowed fallback: the
-schedule carries a :class:`~dvren_tpu_torch.render.windowed.WindowedSchedule`
-of them (``fallback``), and the render overwrites their pixels with the
-windowed path's results (K9f / K9b per fallback group). Not yet ported:
+:func:`render_tiled_stack` renders with one launch over the merged groups.
+Rays whose sub-tiles overflow the slot tables go to the windowed
+fallback: the schedule carries a
+:class:`~dvren_tpu_torch.render.windowed.WindowedSchedule` of them
+(``fallback``), and the render overwrites their pixels with the windowed
+path's results (K9f / K9b per fallback group). Not yet ported:
 pitch 2 and occupancy trimming, which raise ``NotImplementedError``
 naming their ROADMAP item.
 
@@ -186,8 +189,18 @@ class TileGroup:
             for f in dataclasses.fields(self)})
 
 
+# The TileGroup arrays a schedule holds flat (TiledSchedule.tiles).
+_FLAT_FIELDS = ("samp", "base", "rayt", "k_enter", "bank0")
+
+
 @dataclass(frozen=True)
 class TiledSchedule:
+    """The host-resolved tile schedule (:func:`build_tiled_schedule`).
+    ``tiles`` holds every group's samp, base, rayt, k_enter and bank0
+    concatenated, with the per-tile descriptor of the one-launch kernels
+    (:class:`~dvren_tpu_torch.ops.fused_tiles.TileSet`); the groups'
+    arrays are views of it, as numpy arrays and after :meth:`to`."""
+
     groups: tuple            # of TileGroup
     fallback: object         # windowed.WindowedSchedule of the overflow
     #                          rays, or None (none, or a cascade probe)
@@ -205,18 +218,46 @@ class TiledSchedule:
     table_kind: str = "dense"  # "sparse": lanes name brick-table rows
     pitch: int = 1
     cell_scale: int = 1
+    tiles: fused_tiles.TileSet | None = None   # the groups' arrays, flat
+
+    @property
+    def subs(self) -> int:
+        """Sub-tiles per 16x16 block: (16 // tile_px) ** 2."""
+        return (16 // self.tile_px) ** 2
+
+    def tile_set(self) -> fused_tiles.TileSet:
+        """The flat arrays the one-launch kernels read: ``tiles``, or
+        built from the groups when a caller took them away."""
+        if self.tiles is not None:
+            return self.tiles
+        return fused_tiles.tile_set(self.groups, self.subs)
+
+    def with_tiles(self, tiles=None) -> "TiledSchedule":
+        """The schedule carrying ``tiles`` (by default the groups' arrays
+        flattened), its groups' samp, base, rayt, k_enter and bank0 cut
+        from them as views, so the schedule holds them once."""
+        if tiles is None:
+            tiles = fused_tiles.tile_set(self.groups, self.subs)
+        return dataclasses.replace(self, tiles=tiles, groups=tuple(
+            dataclasses.replace(g, **v)
+            for g, v in zip(self.groups, tiles.group_arrays())))
 
     def to(self, device) -> "TiledSchedule":
-        """The schedule with every array as a tensor on ``device``."""
+        """The schedule with every array as a tensor on ``device``: the
+        flat arrays moved once and the groups' views cut from them."""
+        tiles = self.tile_set()
+        bare = tuple(dataclasses.replace(g, **dict.fromkeys(_FLAT_FIELDS))
+                     for g in self.groups)
         return dataclasses.replace(
             self,
-            groups=tuple(g.to(device) for g in self.groups),
+            groups=tuple(g.to(device) for g in bare),
             fallback=(self.fallback.to(device)
                       if self.fallback is not None else None),
             hostmap_all=_to_device(self.hostmap_all, device),
             gathermap_all=_to_device(self.gathermap_all, device),
             gather_plan=(self.gather_plan.to(device)
-                         if self.gather_plan is not None else None))
+                         if self.gather_plan is not None else None),
+        ).with_tiles(tiles.to(device))
 
     @property
     def device(self):
@@ -765,7 +806,8 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         full_lattice_samples=n * k_max,
         fallback_rays=fb_count,
         grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max), tile_px=tile_px,
-        table_kind="sparse" if sparse else "dense", cell_scale=cell_scale)
+        table_kind="sparse" if sparse else "dense",
+        cell_scale=cell_scale).with_tiles()
 
 
 # --------------------------------------------------------------- device side
@@ -774,7 +816,8 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 def _gather_banks_flat(table: torch.Tensor,
                        gathermap_all: torch.Tensor) -> torch.Tensor:
     """Every group's bank blocks in one (S, w, 128) float32 array, group
-    after group (:func:`_gather_bank_tables` cuts it per group)."""
+    after group: the flat bank tables K1 and K2 read (a 16-bit table is
+    widened after the gather)."""
     w = int(table.shape[1])
     rows = torch.index_select(table, 0, gathermap_all.clamp(min=0))
     if rows.dtype != torch.float32:
@@ -884,7 +927,8 @@ def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
     roi = plan.roi
     n_tiles = (-(-roi.width // tile_px)) * (-(-roi.height // tile_px))
     if raws:
-        raw = raw_to_subtiles(torch.cat(raws), tile_px)
+        raw = raw_to_subtiles(raws[0] if len(raws) == 1 else torch.cat(raws),
+                              tile_px)
         ids = torch.cat([t.reshape(-1) for t in tile_ids]).long()
         tiles5 = _PlaceTiles.apply(raw, ids, n_tiles)
     else:
@@ -907,49 +951,45 @@ def _compose_tiles(plan: Plan, raws, tile_ids, fallback_parts=(),
 
 
 class _GroupsetFromParams(torch.autograd.Function):
-    """Dense-grid params -> every tile group's raw K1 output, as one
-    autograd node: the counterpart of ``dvren_tpu``'s
-    ``_groupset_from_params`` and, when ``split``, of its
-    ``bank_tables_from_params`` (the route ``render_tiled_stack`` takes).
+    """Dense-grid params -> the raw K1 output of every tile of the
+    schedule, (T, 5, 16, 16) in group order, as one autograd node: the
+    counterpart of ``dvren_tpu``'s ``_groupset_from_params`` and, when
+    ``split``, of its ``bank_tables_from_params`` (the route
+    ``render_tiled_stack`` takes).
 
-    Forward: the packed table (K3), the bank gather, K1 per group.
-    Backward: K2 per group (slot rows, and d(rayt) when ``cam``), one
-    ``torch.cat`` of the slot rows, :func:`slot_rows_to_table`, then K4;
+    Forward: the packed table (K3), the bank gather into one flat array,
+    one K1 launch over every group. Backward: one K2 launch, whose slot
+    rows are the one buffer :func:`slot_rows_to_table` reads, then K4;
     with ``split`` under ``BWD_SPLIT == "pallas"``, K2's bank blocks and
-    K6 (:func:`_cts_to_rows`) in place of the rows and the ``cat``.
-    Returns (None, d_sigma, d_color, *d_rayt per group). Autograd
-    never records the table gather: its backward would be ``index_add_``.
-    ``static`` = (schedule, per-group TileParams, use_kernel, cam, split);
-    on CPU tensors every kernel step runs its plain twin."""
+    one K6 launch (:func:`_cts_to_rows`) in place of the rows. Returns
+    (None, d_sigma, d_color, d_rayt). Autograd never records the table
+    gather: its backward would be ``index_add_``. ``static`` = (schedule,
+    TileParams of the launch, use_kernel, cam, split); on CPU tensors
+    every kernel step runs its plain twin, group by group."""
 
     @staticmethod
-    def forward(ctx, static, sigma, color, *rayts):
-        schedule, params, use_kernel, cam, split = static
+    def forward(ctx, static, sigma, color, rayt):
+        schedule, prm, use_kernel, cam, split = static
         if use_kernel:
             table = packed_transpose.build_rows(sigma, color)
             forward = fused_tiles.tile_forward
         else:
             table = packed_transpose.build_rows_plain(sigma, color)
-            forward = fused_tiles.tile_forward_plain
-        tabs = _gather_bank_tables(
-            table, schedule.gathermap_all,
-            [(g.n_tiles, g.banks) for g in schedule.groups])
-        raws = tuple(
-            forward(tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
-                    g.bank0.reshape(-1), params[gi])
-            for gi, g in enumerate(schedule.groups))
+            forward = fused_tiles.tile_forward_set_plain
+        tabs = _gather_banks_flat(table, schedule.gathermap_all)
+        raw = forward(tabs, schedule.tiles, prm, rayt)
         ctx.static = static
         ctx.split = BWD_SPLIT if split else "xla"
         ctx.tabs = tabs
         ctx.grid_shape = tuple(sigma.shape)
-        ctx.save_for_backward(*rayts)
-        return raws
+        ctx.save_for_backward(rayt)
+        return raw
 
     @staticmethod
-    def backward(ctx, *g_raws):
+    def backward(ctx, g_raw):
         schedule, use_kernel = ctx.static[0], ctx.static[2]
         want_grid = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
-        rows, d_rayts = _k2_groups(ctx, g_raws, want_grid)
+        rows, d_rayt = _k2_tiles(ctx, g_raw, want_grid)
         d_sigma = d_color = None
         if want_grid:
             table_grad = slot_rows_to_table(
@@ -957,7 +997,7 @@ class _GroupsetFromParams(torch.autograd.Function):
             unpack = (packed_transpose.table_grad_to_params if use_kernel
                       else packed_transpose.table_grad_to_params_plain)
             d_sigma, d_color = unpack(table_grad, ctx.grid_shape)
-        return (None, d_sigma, d_color, *d_rayts)
+        return None, d_sigma, d_color, d_rayt
 
 
 class _Table16FromParams(torch.autograd.Function):
@@ -985,101 +1025,81 @@ class _Table16FromParams(torch.autograd.Function):
 
 
 class _GroupsetFromTable(torch.autograd.Function):
-    """Any (R, C) table (float32, bfloat16 or float16) -> every tile
-    group's raw K1 output, as one autograd node: the flat-table route of
-    ``dvren_tpu``'s ``render_tiled`` (a 16-bit dense table, a sparse
-    field's bricks, or the (R_s, 108) supercell table).
+    """Any (R, C) table (float32, bfloat16 or float16) -> the raw K1
+    output of every tile of the schedule, (T, 5, 16, 16), as one autograd
+    node: the flat-table route of ``dvren_tpu``'s ``render_tiled`` (a
+    16-bit dense table, a sparse field's bricks, or the (R_s, 108)
+    supercell table).
 
-    Forward: the bank gather, widened to f32 after it, then K1 per group.
-    Backward: K2 per group (f32 slot rows, and d(rayt) when ``cam``).
-    For a 16-bit table every slot row is rounded to the table's dtype, as
-    the JAX cotangent of the widening cast is; the rows of each cell are
-    then summed in f32 in the gather plan's fixed order
-    (:func:`slot_rows_to_table`) and the sums rounded once to the table's
-    dtype. (JAX's scatter-add adds in the 16-bit dtype, in scatter
-    order.) Returns (None, d_table in the table's dtype, *d_rayt per
-    group). ``static`` = (schedule, per-group TileParams, use_kernel,
-    cam, split): ``split`` for a float32 32-column table (sparse float32
-    bricks), whose backward then follows ``BWD_SPLIT`` as ``dvren_tpu``'s
-    ``_gather_bank_tables`` does."""
+    Forward: the bank gather into one flat array, widened to f32 after
+    it, then one K1 launch over every group. Backward: one K2 launch (f32
+    slot rows, and d(rayt) when ``cam``). For a 16-bit table every slot
+    row is rounded to the table's dtype, as the JAX cotangent of the
+    widening cast is; the rows of each cell are then summed in f32 in the
+    gather plan's fixed order (:func:`slot_rows_to_table`) and the sums
+    rounded once to the table's dtype. (JAX's scatter-add adds in the
+    16-bit dtype, in scatter order.) Returns (None, d_table in the
+    table's dtype, d_rayt). ``static`` = (schedule, TileParams of the
+    launch, use_kernel, cam, split): ``split`` for a float32 32-column
+    table (sparse float32 bricks), whose backward then follows
+    ``BWD_SPLIT`` as ``dvren_tpu``'s ``_gather_bank_tables`` does."""
 
     @staticmethod
-    def forward(ctx, static, table, *rayts):
-        schedule, params, use_kernel, cam, split = static
+    def forward(ctx, static, table, rayt):
+        schedule, prm, use_kernel, cam, split = static
         forward = (fused_tiles.tile_forward if use_kernel
-                   else fused_tiles.tile_forward_plain)
-        tabs = _gather_bank_tables(
-            table, schedule.gathermap_all,
-            [(g.n_tiles, g.banks) for g in schedule.groups])
-        raws = tuple(
-            forward(tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
-                    g.bank0.reshape(-1), params[gi])
-            for gi, g in enumerate(schedule.groups))
+                   else fused_tiles.tile_forward_set_plain)
+        tabs = _gather_banks_flat(table, schedule.gathermap_all)
+        raw = forward(tabs, schedule.tiles, prm, rayt)
         ctx.static = static
         ctx.split = BWD_SPLIT if split else "xla"
         ctx.tabs = tabs
         ctx.table_meta = (int(table.shape[0]), table.dtype)
-        ctx.save_for_backward(*rayts)
-        return raws
+        ctx.save_for_backward(rayt)
+        return raw
 
     @staticmethod
-    def backward(ctx, *g_raws):
+    def backward(ctx, g_raw):
         schedule = ctx.static[0]
         n_rows, dtype = ctx.table_meta
-        rows, d_rayts = _k2_groups(ctx, g_raws, ctx.needs_input_grad[1])
+        rows, d_rayt = _k2_tiles(ctx, g_raw, ctx.needs_input_grad[1])
         d_table = None
         if ctx.needs_input_grad[1]:
             d_table = slot_rows_to_table_as(rows, schedule.gather_plan,
                                             n_rows, dtype)
-        return (None, d_table, *d_rayts)
+        return None, d_table, d_rayt
 
 
-def _k2_groups(ctx, g_raws, want_table: bool):
-    """K2 on every group of a groupset node's backward -> ((S, C) f32
-    slot rows of all groups, or None without ``want_table``; per-group
-    d(rayt) or None). Under the split route (``ctx.split`` "pallas") K2
-    emits bank blocks and K6 relays them (:func:`_cts_to_rows`); else K2
-    emits the rows and one ``torch.cat`` joins them."""
-    schedule, params, use_kernel, cam, _ = ctx.static
+def _k2_tiles(ctx, g_raw, want_table: bool):
+    """One K2 launch over every group of a groupset node's backward ->
+    ((S, C) f32 slot rows of all groups, or None without ``want_table``;
+    d(rayt) (T, 12, 128) or None). Under the split route (``ctx.split``
+    "pallas") K2 emits bank blocks and one K6 launch relays them
+    (:func:`_cts_to_rows`)."""
+    schedule, prm, use_kernel, cam, _ = ctx.static
     pallas = _split_pallas(ctx.split)
     emit = "banks" if pallas and want_table else "rows"
     backward = (fused_tiles.tile_backward if use_kernel
-                else fused_tiles.tile_backward_plain)
-    rayts = ctx.saved_tensors
-    parts, d_rayts = [], []
-    for gi, g in enumerate(schedule.groups):
-        d_part, d_rayt = backward(
-            ctx.tabs[gi], g.samp, g.base, rayts[gi], g.k_enter,
-            g.bank0.reshape(-1), g_raws[gi].contiguous(), params[gi],
-            cam, emit=emit)
-        parts.append(d_part)
-        d_rayts.append(d_rayt)
+                else fused_tiles.tile_backward_set_plain)
+    (rayt,) = ctx.saved_tensors
+    d_part, d_rayt = backward(ctx.tabs, schedule.tiles, g_raw.contiguous(),
+                              prm, cam, emit=emit, rayt=rayt)
     if not want_table:
-        return None, d_rayts
+        return None, d_rayt
     if emit == "banks":
-        return _cts_to_rows(parts, use_kernel), d_rayts
-    return torch.cat([p.reshape(-1, p.shape[-1]) for p in parts]), d_rayts
+        return _cts_to_rows(d_part, use_kernel), d_rayt
+    return d_part.reshape(-1, d_part.shape[-1]), d_rayt
 
 
-def _cts_to_rows(cts, use_kernel: bool) -> torch.Tensor:
-    """Per-group bank cotangents (T, NB, 32, 128) -> (S, 32) f32 slot rows
-    of all groups: K6 on every group, each into its slice of one array
-    (``dvren_tpu``'s ``_cts_to_ct16`` under ``BWD_SPLIT="pallas"``, whose
-    rows these equal as ``hi << 16 | lo``; K6 here needs no multiple of 8
-    blocks, so no group falls back). ``use_kernel=False`` runs K6's
-    twin."""
-    blocks = [c.reshape(-1, NCH, MAX_CELLS) for c in cts]
-    out = torch.empty((sum(int(b.shape[0]) for b in blocks) * MAX_CELLS, NCH),
-                      dtype=torch.float32, device=blocks[0].device)
-    off = 0
-    for b in blocks:
-        n = int(b.shape[0]) * MAX_CELLS
-        if use_kernel:
-            packed_transpose.banks_to_rows(b, out=out, offset=off)
-        else:
-            out[off:off + n] = packed_transpose.banks_to_rows_plain(b)
-        off += n
-    return out
+def _cts_to_rows(banks: torch.Tensor, use_kernel: bool) -> torch.Tensor:
+    """Every group's bank cotangents (S_b, 32, 128) -> (S_b * 128, 32) f32
+    slot rows, in one K6 launch (``dvren_tpu``'s ``_cts_to_ct16`` under
+    ``BWD_SPLIT="pallas"``, whose rows these equal as ``hi << 16 | lo``;
+    K6 here needs no multiple of 8 blocks, so nothing falls back).
+    ``use_kernel=False`` runs K6's twin."""
+    if use_kernel:
+        return packed_transpose.banks_to_rows(banks)
+    return packed_transpose.banks_to_rows_plain(banks)
 
 
 def slot_rows_to_table_as(rows: torch.Tensor, plan, n_rows: int,
@@ -1096,24 +1116,18 @@ def slot_rows_to_table_as(rows: torch.Tensor, plan, n_rows: int,
     return slot_rows_to_table(rows, plan, n_rows).to(dtype)
 
 
-def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w) -> list:
-    """Each group's (T, 12, 128) ray planes rebuilt from the camera
+def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w):
+    """The (T, 12, 128) ray planes of every tile, rebuilt from the camera
     tensors ``k`` / ``c2w`` (autograd records them), for the rays the
     schedule baked in: dead and pad lanes carry ray 0 there too."""
     ids = torch.cat([g.ray_ids.reshape(-1) for g in schedule.groups])
     rays = generate_rays(plan, k=k, c2w=c2w, ids=ids)
-    out, off = [], 0
-    for g in schedule.groups:
-        nt = g.n_tiles
-        n_r = nt * RAYS_PER_TILE
-        o = rays.origins[off:off + n_r]
-        d = rays.directions[off:off + n_r]
-        off += n_r
-        out.append(torch.stack(
-            [o[:, i].reshape(nt, 2, 128) for i in range(3)]
-            + [d[:, i].reshape(nt, 2, 128) for i in range(3)],
-            dim=1).reshape(nt, 12, 128))
-    return out
+    nt = int(ids.shape[0]) // RAYS_PER_TILE
+    o = rays.origins.reshape(nt, 2, 128, 3)
+    d = rays.directions.reshape(nt, 2, 128, 3)
+    return torch.stack([o[..., i] for i in range(3)]
+                       + [d[..., i] for i in range(3)],
+                       dim=1).reshape(nt, 12, 128)
 
 
 def _check_field_schedule(field, schedule: TiledSchedule, what: str):
@@ -1144,48 +1158,43 @@ def _check_field_schedule(field, schedule: TiledSchedule, what: str):
     return device
 
 
-def _group_raws(plan: Plan, field, schedule: TiledSchedule,
-                use_kernel: bool, rayts=None, stack: bool = False) -> list:
-    """Every tile group's raw heads (T, 5, 16, 16) for ``field`` through
-    the route its table takes (see :func:`render_tiled`): one table
-    build, one planned bank gather and K1 once per group, in the
-    schedule's form, as one autograd node. ``rayts``: per-group ray
-    planes that autograd records (the camera adjoint), else the
-    schedule's. ``stack``: the caller is :func:`render_tiled_stack`,
-    whose dense float32 cell route reads ``BWD_SPLIT`` (the single-view
-    one does not, as in JAX)."""
+def _tiles_raw(plan: Plan, field, schedule: TiledSchedule,
+               use_kernel: bool, rayt=None, stack: bool = False):
+    """The raw heads (T, 5, 16, 16) of every tile of the schedule, in
+    group order, for ``field`` through the route its table takes (see
+    :func:`render_tiled`): one table build, one planned bank gather and
+    one K1 launch over every group, in the schedule's form, as one
+    autograd node; None for an empty schedule. ``rayt``: ray planes
+    that autograd records (the camera adjoint), else the schedule's.
+    ``stack``: the caller is :func:`render_tiled_stack`, whose dense
+    float32 cell route reads ``BWD_SPLIT`` (the single-view one does not,
+    as in JAX)."""
     if not schedule.groups:
-        return []
+        return None
+    schedule = dataclasses.replace(schedule, tiles=schedule.tile_set())
     geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
-    subs = (16 // schedule.tile_px) ** 2
     stencil = "super" if schedule.cell_scale == 2 else "cell"
-    params = tuple(fused_tiles.tile_op_params(plan, geom, g.banks, g.n_chunks,
-                                              subs, stencil)
-                   for g in schedule.groups)
-    cam = rayts is not None
+    prm = fused_tiles.tiles_op_params(plan, geom, schedule.tiles, stencil)
+    cam = rayt is not None
     if not cam:
-        rayts = [g.rayt for g in schedule.groups]
-    static = (schedule, params, use_kernel, cam, False)
-    split = (schedule, params, use_kernel, cam, True)
+        rayt = schedule.tiles.rayt
+    static = (schedule, prm, use_kernel, cam, False)
+    split = (schedule, prm, use_kernel, cam, True)
     packed_dtype = getattr(field, "packed_dtype", "float32")
     if hasattr(field, "bricks"):
         bricks = field.bricks.reshape(-1, NCH)
-        raws = _GroupsetFromTable.apply(
+        return _GroupsetFromTable.apply(
             split if bricks.dtype == torch.float32 else static, bricks,
-            *rayts)
-    elif stencil == "super":
-        raws = _GroupsetFromTable.apply(
-            static, build_supercell_stencil(field.sigma, field.color),
-            *rayts)
-    elif packed_dtype == "float32":
-        raws = _GroupsetFromParams.apply(split if stack else static,
-                                         field.sigma, field.color, *rayts)
-    else:
-        table = _Table16FromParams.apply(
-            (table_dtype(packed_dtype), use_kernel), field.sigma,
-            field.color)
-        raws = _GroupsetFromTable.apply(static, table, *rayts)
-    return list(raws)
+            rayt)
+    if stencil == "super":
+        return _GroupsetFromTable.apply(
+            static, build_supercell_stencil(field.sigma, field.color), rayt)
+    if packed_dtype == "float32":
+        return _GroupsetFromParams.apply(split if stack else static,
+                                         field.sigma, field.color, rayt)
+    table = _Table16FromParams.apply(
+        (table_dtype(packed_dtype), use_kernel), field.sigma, field.color)
+    return _GroupsetFromTable.apply(static, table, rayt)
 
 
 def render_tiled(plan: Plan, field, schedule: TiledSchedule,
@@ -1219,14 +1228,15 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
           f"the schedule was built with build_fallback=False (a cascade "
           f"probe) but has {schedule.fallback_rays} overflow rays: rebuild "
           f"it with the fallback")
-    rayts = None
+    rayt = None
     if (k is not None or c2w is not None) and schedule.groups:
-        rayts = _traced_rayts(plan, schedule, k, c2w)
-    raws = _group_raws(plan, field, schedule, use_kernel, rayts)
+        rayt = _traced_rayts(plan, schedule, k, c2w)
+    raw = _tiles_raw(plan, field, schedule, use_kernel, rayt)
     parts = _fallback_parts(plan, field, schedule.fallback, k=k, c2w=c2w,
                             use_kernel=use_kernel)
-    return _compose_tiles(plan, raws, [g.tile_ids for g in schedule.groups],
-                          parts, tile_px=schedule.tile_px, device=device)
+    return _compose_tiles(plan, [] if raw is None else [raw],
+                          [g.tile_ids for g in schedule.groups], parts,
+                          tile_px=schedule.tile_px, device=device)
 
 
 def _fallback_parts(plan: Plan, field, fallback, k=None, c2w=None,
@@ -1339,7 +1349,7 @@ def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
         fallback_rays=sum(s.fallback_rays for s in scheds),
         grid_shape=base.grid_shape, bbox=base.bbox,
         tile_px=base.tile_px, table_kind=base.table_kind,
-        pitch=base.pitch, cell_scale=base.cell_scale)
+        pitch=base.pitch, cell_scale=base.cell_scale).with_tiles()
     view_cams = None
     if plans is not None:
         check(len(plans) == len(scheds),
@@ -1363,17 +1373,18 @@ def render_tiled_stack(plan: Plan, field, merged: MergedViewSchedule,
     """Render every merged view in one pass -> the (V, H, W, 3) image
     stack, differentiable in the field as :func:`render_tiled` is.
 
-    One table build, one planned bank gather and one K1 launch per merged
-    group serve every view (K2 likewise in the backward); each view's
-    image is composed from its slices of each group's output
-    (``view_slices``). The backward of the dense float32 cell route, and
+    One table build, one planned bank gather and one K1 launch over every
+    merged group serve every view (K2 likewise in the backward); each
+    view's image is composed from its slices of each group's part of the
+    output (``view_slices``). The backward of the dense float32 cell route, and
     of sparse float32 bricks, follows :data:`BWD_SPLIT` (K2's bank blocks
     and K6 under "pallas"). ``use_kernel=False`` runs the twins. ``plan`` is
     any view's plan: the views share its geometry and sampling, and each
     group's rays were baked in per view when its schedule was built."""
     sched = merged.sched
     device = _check_field_schedule(field, sched, "merged schedule")
-    raws = _group_raws(plan, field, sched, use_kernel, stack=True)
+    raw = _tiles_raw(plan, field, sched, use_kernel, stack=True)
+    group_t0 = [t0 for t0, _, _ in sched.tile_set().offsets()]
     images = []
     for v in range(merged.n_views):
         parts = []
@@ -1396,7 +1407,8 @@ def render_tiled_stack(plan: Plan, field, merged: MergedViewSchedule,
         for gi, group in enumerate(sched.groups):
             for vv, t0, cnt in merged.view_slices[gi]:
                 if vv == v:
-                    raws_v.append(raws[gi][t0:t0 + cnt])
+                    at = group_t0[gi] + t0
+                    raws_v.append(raw[at:at + cnt])
                     ids_v.append(group.tile_ids[t0:t0 + cnt])
         images.append(_compose_tiles(plan, raws_v, ids_v, parts,
                                      tile_px=sched.tile_px,

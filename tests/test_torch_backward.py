@@ -245,25 +245,31 @@ def test_k2_plain_matches_reference(name):
 
 
 def test_k2_wrapper_takes_plain_twin_on_cpu():
+    """The first group as a one-shape set: the wrapper runs K2's twin on
+    the CPU, no launch counted; a bad cotangent is refused."""
     _, field, _, pplan, got = case("fixed")
     geom = (got.bbox[0], got.bbox[1], got.grid_shape)
-    g = got.groups[0]
+    sched = got.to("cpu")
+    g = sched.groups[0]
     pfield = port_field(field)
-    tabs = p_tiled._gather_bank_tables(
+    tiles = p_ft.tile_set([g], 1)
+    tabs = p_tiled._gather_banks_flat(
         p_pt.build_rows_plain(pfield.sigma.detach(), pfield.color.detach()),
-        got.gathermap_all, [(x.n_tiles, x.banks) for x in got.groups])[0]
+        g.gathermap)
     gs = torch.ones((g.n_tiles, 5, 16, 16))
-    args = (tabs, g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1))
-    prm = p_ft.tile_op_params(pplan, geom, g.banks, g.n_chunks)
+    prm = p_ft.tiles_op_params(pplan, geom, tiles)
     before = p_ft.tile_backward.launches
-    rows, d_rayt = p_ft.tile_backward(*args, gs, prm, cam=True)
+    rows, d_rayt = p_ft.tile_backward(tabs, tiles, gs, prm, cam=True)
     assert p_ft.tile_backward.launches == before
-    want = p_ft.tile_backward_plain(*args, gs, prm, cam=True)
-    assert torch.equal(rows, want[0]) and torch.equal(d_rayt, want[1])
+    want = p_ft.tile_backward_plain(
+        tabs.reshape(g.n_tiles, g.banks, 32, 128), g.samp, g.base, g.rayt,
+        g.k_enter, g.bank0.reshape(-1), gs, prm, cam=True)
+    assert torch.equal(rows, want[0].reshape(-1, 128, 32))
+    assert torch.equal(d_rayt, want[1])
     with pytest.raises(ValueError):
-        p_ft.tile_backward(*args, gs[:, :4], prm)
+        p_ft.tile_backward(tabs, tiles, gs[:, :4], prm)
     with pytest.raises(TypeError):
-        p_ft.tile_backward(*args, gs.double(), prm)
+        p_ft.tile_backward(tabs, tiles, gs.double(), prm)
 
 
 def test_tie_gradient_is_half():

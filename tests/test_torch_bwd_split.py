@@ -146,20 +146,12 @@ def test_k6_wrapper_takes_twin_on_cpu():
     assert p_pt.banks_to_rows.launches == before
     np.testing.assert_array_equal(
         words(rows), words(p_pt.banks_to_rows_plain(banks)))
-    out = torch.full((7 * 128, 32), 5.0)
-    part = p_pt.banks_to_rows(banks, out=out, offset=2 * 128)
-    assert part.data_ptr() == out[256].data_ptr()
-    np.testing.assert_array_equal(words(out[256:640]), words(rows))
-    assert bool((out[:256] == 5.0).all()) and bool((out[640:] == 5.0).all())
-    assert p_pt.banks_to_rows.launches == before
     with pytest.raises(ValueError):
         p_pt.banks_to_rows(banks[:, :, :64].contiguous())
     with pytest.raises(TypeError):
         p_pt.banks_to_rows(banks.double())
     with pytest.raises(ValueError):
         p_pt.banks_to_rows(torch.zeros(3, 128, 32).transpose(1, 2))
-    with pytest.raises(ValueError):
-        p_pt.banks_to_rows(banks, out=out, offset=5 * 128)
 
 
 # ------------------------------------------------------- K2's bank form
@@ -235,14 +227,14 @@ def test_k2_banks_equal_rows_transposed(tile_px, cam):
         sched.gathermap_all, [(g.n_tiles, g.banks) for g in sched.groups])
     gen = torch.Generator().manual_seed(tile_px)
     for gi, g in enumerate(sched.groups):
-        prm = p_ft.tile_op_params(pplan, geom, g.banks, g.n_chunks, subs)
-        args = (tabs[gi], g.samp, g.base, g.rayt, g.k_enter,
-                g.bank0.reshape(-1),
-                torch.randn((g.n_tiles, 5, 16, 16), generator=gen), prm)
+        tiles = p_ft.tile_set([g], subs)
+        args = (tabs[gi].reshape(-1, 32, 128), tiles,
+                torch.randn((g.n_tiles, 5, 16, 16), generator=gen),
+                p_ft.tiles_op_params(pplan, geom, tiles))
         rows, rayt_r = p_ft.tile_backward(*args, cam=cam)
         banks, rayt_b = p_ft.tile_backward(*args, cam=cam, emit="banks")
-        assert banks.shape == (g.n_tiles, g.banks, 32, 128)
-        assert torch.equal(banks, rows.transpose(2, 3))
+        assert banks.shape == (g.n_tiles * g.banks, 32, 128)
+        assert torch.equal(banks, rows.transpose(1, 2))
         assert (rayt_r is None) == (not cam)
         assert not cam or torch.equal(rayt_b, rayt_r)
 
@@ -254,13 +246,11 @@ def test_k2_bank_form_cell_stencil_only():
     g = sched.groups[0]
     table = build_supercell_stencil(pfield.sigma.detach(),
                                     pfield.color.detach())
-    tabs = p_tiled._gather_bank_tables(
-        table, sched.gathermap_all,
-        [(x.n_tiles, x.banks) for x in sched.groups])[0]
+    tabs = p_tiled._gather_banks_flat(table, g.gathermap)
     geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
-    prm = p_ft.tile_op_params(pplan, geom, g.banks, g.n_chunks, 4, "super")
-    args = (tabs, g.samp, g.base, g.rayt, g.k_enter, g.bank0.reshape(-1),
-            torch.zeros((g.n_tiles, 5, 16, 16)), prm)
+    tiles = p_ft.tile_set([g], 4)
+    prm = p_ft.tiles_op_params(pplan, geom, tiles, "super")
+    args = (tabs, tiles, torch.zeros((g.n_tiles, 5, 16, 16)), prm)
     for emit in ("banks", "u16"):
         with pytest.raises(ValueError, match="emit"):
             p_ft.tile_backward(*args, emit=emit)
@@ -280,11 +270,11 @@ def test_relayed_rows_match_jax_cts_to_ct16(monkeypatch, k6_spy):
     monkeypatch.setattr(j_tiled, "BWD_SPLIT", "pallas")
     want = recombine(j_tiled._cts_to_ct16(tuple(jnp.asarray(c)
                                                 for c in cts)))
-    rows = p_tiled._cts_to_rows([torch.from_numpy(c) for c in cts],
-                                use_kernel=True)
+    rows = p_tiled._cts_to_rows(torch.from_numpy(np.concatenate(
+        [c.reshape(-1, 32, 128) for c in cts])), use_kernel=True)
     assert rows.shape == (got.hostmap_all.shape[0], 32)
     np.testing.assert_array_equal(words(rows), want)
-    assert k6_spy == [g.n_tiles * g.banks for g in got.groups]
+    assert k6_spy == [sum(g.n_tiles * g.banks for g in got.groups)]
 
 
 # ------------------------------------------------------------ the routes
@@ -327,7 +317,7 @@ def test_split_sparse_render_tiled(monkeypatch, k6_spy):
     assert k6_spy == []
     set_split(monkeypatch, "pallas")
     split = port_sparse_grads()
-    assert len(k6_spy) == len(sched.groups) > 0
+    assert len(k6_spy) == 1 and len(sched.groups) > 0
     np.testing.assert_array_equal(words(split.reshape(-1, 32)),
                                   words(xla.reshape(-1, 32)))
 
@@ -358,7 +348,7 @@ def test_split_renderer_backward_sparse(monkeypatch, k6_spy):
     assert k6_spy == []
     set_split(monkeypatch, "pallas")
     split = backward()
-    assert len(k6_spy) == len(sched.groups)
+    assert len(k6_spy) == 1
     np.testing.assert_array_equal(split.bricks.view(np.int32),
                                   xla.bricks.view(np.int32))
     np.testing.assert_array_equal(split.camera, xla.camera)
@@ -413,7 +403,7 @@ def test_split_dense_render_tiled_stack(monkeypatch, k6_spy):
     assert k6_spy == []
     set_split(monkeypatch, "pallas")
     split = grads()
-    assert len(k6_spy) == len(merged.sched.groups) > 0
+    assert len(k6_spy) == 1 and len(merged.sched.groups) > 0
     for a, b in zip(split, xla):
         np.testing.assert_array_equal(a.view(torch.int32).numpy(),
                                       b.view(torch.int32).numpy())
@@ -484,7 +474,7 @@ def test_split_fit_dense_grid(monkeypatch, k6_spy):
     split = fit()
     views = p_fit._scheduled_views(pplan, cams, init, "tiled")[1]
     assert views.sched.cell_scale == 1
-    assert len(k6_spy) == FIT_STEPS * len(views.sched.groups) > 0
+    assert len(k6_spy) == FIT_STEPS and len(views.sched.groups) > 0
     assert split.mode == "tiled" and split.steps_run == FIT_STEPS
     assert split.loss_history == xla.loss_history
     for name in ("sigma", "color"):

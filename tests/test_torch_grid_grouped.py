@@ -1,6 +1,7 @@
 """The hash grid path's one-launch route: every tile group of a schedule
 through one K8f and one K8b call, from the schedule's flat arrays and
-per-tile descriptor (``hash_grid.GridTiles``), on the CPU.
+per-tile descriptor (``fused_tiles.TileSet``, the schedule's ``tiles``), on
+the CPU.
 
 Three port scenes (no JAX): 16 px tiles over a 64^2 frame with 48 steps
 (groups of 3 and 4 chunks), 8 px sub-tiles over a 48^2 frame with 40
@@ -16,7 +17,8 @@ subtiles.py's 4 px scene). Held:
   bit for bit to the per-group route it replaced (K8f's and K8b's twins
   called group by group, the slot rows concatenated, the groups' MLP
   gradients summed with ``torch.sum``); a schedule without the flat
-  arrays is refused;
+  arrays, and the dense scheduler's own schedule of the finest lattice,
+  render the same frame and gradients;
 - an emulation of K8b's MLP-gradient order (per warp and step, the 32
   rays in quads ((p0 + p1) + (p2 + p3)) added in ray order, the steps in
   the kernel's reverse order, the warps and then the tiles in order),
@@ -37,7 +39,7 @@ import pytest
 import torch
 
 import dvren_tpu_torch as P
-from dvren_tpu_torch.ops import gather_plan, hash_grid, hash_tiles
+from dvren_tpu_torch.ops import fused_tiles, gather_plan, hash_grid, hash_tiles
 from dvren_tpu_torch.render import hash_tiled, tiled
 
 torch.set_num_threads(1)
@@ -97,7 +99,7 @@ def test_a_schedule_has_ragged_groups():
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_descriptor_indexes_the_group_slices(name):
     plan, field, sched = case(name)
-    tiles = sched.grid_tiles
+    tiles = sched.tiles
     subs = (16 // sched.tile_px) ** 2
     assert tiles.shapes == tuple(shapes(sched)) and tiles.subs == subs
     desc = tiles.desc.numpy()
@@ -134,7 +136,7 @@ def test_groups_are_views_of_the_flat_arrays(name):
     """The groups' arrays share the flat arrays' memory (the schedule
     holds them once) and equal the scheduler's own groups."""
     plan, field, sched = case(name)
-    tiles = sched.grid_tiles
+    tiles = sched.tiles
     for g in sched.groups:
         for key, flat in (("samp", tiles.samp), ("base", tiles.base),
                           ("rayt", tiles.rayt), ("k_enter", tiles.ke),
@@ -144,8 +146,7 @@ def test_groups_are_views_of_the_flat_arrays(name):
     proxy = hash_tiled._HashSchedProxy(
         schedule_grid_shape=hash_grid.grid_shape(field.spec))
     own = tiled.build_tiled_schedule(plan, proxy, tile_px=sched.tile_px)
-    assert not isinstance(own, hash_tiled.HashGridSchedule)
-    assert isinstance(sched, hash_tiled.HashGridSchedule)
+    assert own.tiles is not None and sched.tiles is not None
     for g, h in zip(sched.groups, own.groups):
         for f in dataclasses.fields(g):
             a, b = getattr(g, f.name), getattr(h, f.name)
@@ -160,30 +161,30 @@ def test_host_schedule_views_and_move():
     ``.to`` moves the flat arrays once and cuts the groups from them."""
     plan, field, _ = case("8px")
     host = hash_tiled.build_hash_grid_schedule(plan, field, tile_px=8)
-    assert isinstance(host.grid_tiles.samp, np.ndarray)
+    assert isinstance(host.tiles.samp, np.ndarray)
     for g in host.groups:
-        assert np.shares_memory(g.samp, host.grid_tiles.samp)
-        assert np.shares_memory(g.bank0, host.grid_tiles.bank0)
+        assert np.shares_memory(g.samp, host.tiles.samp)
+        assert np.shares_memory(g.bank0, host.tiles.bank0)
     moved = host.to("cpu")
-    assert moved.grid_tiles.device == torch.device("cpu")
-    assert torch.equal(moved.grid_tiles.desc,
-                       torch.from_numpy(host.grid_tiles.desc))
+    assert moved.tiles.device == torch.device("cpu")
+    assert torch.equal(moved.tiles.desc,
+                       torch.from_numpy(host.tiles.desc))
     for g, h in zip(moved.groups, host.groups):
         np.testing.assert_array_equal(g.samp.numpy(), h.samp)
         assert (g.samp.untyped_storage().data_ptr()
-                == moved.grid_tiles.samp.untyped_storage().data_ptr())
+                == moved.tiles.samp.untyped_storage().data_ptr())
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
 def test_tiles_from_tensors_equal_tiles_from_numpy(name):
-    """``grid_tiles`` over tensor groups (u16 samples included) builds the
+    """``tile_set`` over tensor groups (u16 samples included) builds the
     same arrays and descriptor as over the numpy groups."""
     _, _, sched = case(name)
-    again = hash_grid.grid_tiles(sched.groups, sched.grid_tiles.subs)
-    for key in ("samp", "base", "rayt", "ke", "bank0", "desc"):
-        a, b = getattr(again, key), getattr(sched.grid_tiles, key)
+    again = fused_tiles.tile_set(sched.groups, sched.tiles.subs)
+    for key in ("samp", "base", "rayt", "ke", "bank0", "desc", "order"):
+        a, b = getattr(again, key), getattr(sched.tiles, key)
         assert a.dtype == b.dtype and torch.equal(a, b), key
-    assert again.shapes == sched.grid_tiles.shapes
+    assert again.shapes == sched.tiles.shapes
 
 
 def per_group_route(plan, field, sched, loss_fn):
@@ -257,19 +258,23 @@ def test_render_and_gradients_equal_the_per_group_route(name):
 
 
 def test_schedule_without_flat_arrays_is_refused():
-    """A schedule that carries no ``grid_tiles`` (not built by
-    ``build_hash_grid_schedule``: the dense scheduler's own, or one whose
-    flat arrays were taken away) is refused with a message that names
-    that function."""
+    """A schedule whose flat arrays were taken away, and the dense
+    scheduler's own schedule of the finest lattice (not built by
+    ``build_hash_grid_schedule``), are no longer refused: each renders
+    the frame and gradients of the grid schedule bit for bit, as JAX's
+    ``render_hash_grid_tiled`` takes any zero-overflow tile schedule of
+    that lattice."""
     plan, field, sched = case("8px")
-    with pytest.raises(P.DvrenError, match="build_hash_grid_schedule"):
-        hash_tiled.render_hash_grid_tiled(
-            plan, field, dataclasses.replace(sched, grid_tiles=None))
+    want, g_want = one_launch_route(plan, field, sched)
     proxy = hash_tiled._HashSchedProxy(
         schedule_grid_shape=hash_grid.grid_shape(field.spec))
     own = tiled.build_tiled_schedule(plan, proxy, tile_px=8).to("cpu")
-    with pytest.raises(P.DvrenError, match="build_hash_grid_schedule"):
-        hash_tiled.render_hash_grid_tiled(plan, field, own)
+    for other in (dataclasses.replace(sched, tiles=None), own):
+        got, g_got = one_launch_route(plan, field, other)
+        for key in ("image", "transmittance", "opacity", "depth"):
+            assert torch.equal(getattr(got, key), getattr(want, key)), key
+        for k in g_want:
+            assert torch.equal(g_got[k], g_want[k]), k
 
 
 def tiles_args(name, seed=3):
@@ -278,10 +283,10 @@ def tiles_args(name, seed=3):
     table = hash_grid.build_hash_grid_table(named, field.spec)
     tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
     sc = hash_tiles.pack_mlp_scalars(named, field.spec)
-    prm = hash_grid.tiles_op_params(plan, field.spec, sched.grid_tiles)
+    prm = hash_grid.tiles_op_params(plan, field.spec, sched.tiles)
     gs = torch.from_numpy(np.random.default_rng(seed).normal(
-        size=(sched.grid_tiles.n_tiles, 5, 16, 16)).astype(np.float32))
-    return tabs, sched.grid_tiles, sc, gs, prm
+        size=(sched.tiles.n_tiles, 5, 16, 16)).astype(np.float32))
+    return tabs, sched.tiles, sc, gs, prm
 
 
 @pytest.mark.parametrize("name", sorted(SCENES))
@@ -324,7 +329,7 @@ def test_tile_wrappers_refuse_bad_inputs():
     plan, field, _ = case("4px")
     host = hash_tiled.build_hash_grid_schedule(plan, field, tile_px=4)
     with pytest.raises(TypeError, match="tensor"):
-        hash_grid.hash_grid_forward_tiles(tabs, host.grid_tiles, sc, prm)
+        hash_grid.hash_grid_forward_tiles(tabs, host.tiles, sc, prm)
 
 
 def mlp_factor_pairs(f, spec):

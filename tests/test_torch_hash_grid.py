@@ -39,6 +39,7 @@ from tests.test_torch_core import port_plan
 from tests.test_torch_fused_tiles import assert_schedules_equal
 
 import dvren_tpu_torch as P
+from dvren_tpu_torch.ops import fused_tiles as p_ft
 from dvren_tpu_torch.ops import gather_plan as p_gp
 from dvren_tpu_torch.ops import hash_grid as p_hg
 from dvren_tpu_torch.ops import hash_tiles as p_ht
@@ -332,7 +333,7 @@ def test_wrapper_on_cpu_is_the_plain_twin():
 def test_kernel_inputs_checked():
     _, _, pplan, pf = case("fixed")
     sched = p_schedule("fixed")
-    tiles = p_hg.grid_tiles(sched.groups[:1], 1)   # the first group alone
+    tiles = p_ft.tile_set(sched.groups[:1], 1)   # the first group alone
     prm = p_hg.tiles_op_params(pplan, pf.spec, tiles)
     table = p_hg.build_hash_grid_table(dict(pf.params), pf.spec).detach()
     g = sched.groups[0]

@@ -81,13 +81,14 @@ def scene(name):
 
 @functools.lru_cache(maxsize=None)
 def schedules(name, px, scale):
-    """(JAX numpy schedule, port CPU schedule) at (tile_px, cell_scale)."""
+    """(JAX numpy schedule, port numpy schedule) at (tile_px, cell_scale),
+    both built as cascade probes (no windowed fallback)."""
     plan, field, pplan = scene(name)
     ref = j_tiled.build_tiled_schedule(
         plan, field, jitter=plan_jitter_table(plan), tile_px=px,
         cell_scale=scale, device=False, build_fallback=False)
     got = p_tiled.build_tiled_schedule(pplan, port_field(field), tile_px=px,
-                                       cell_scale=scale)
+                                       cell_scale=scale, build_fallback=False)
     return ref, got
 
 
