@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|grid|gridviews|window|split]
+    python3 chip_smoke.py [--only dense|tiles|hash|grid|gridviews|window|split]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -64,7 +64,11 @@ when it fails:
 11. K7f (fused hash-MLP forward) against its plain twin at the hash
     headline, the field from a seeded ``torch.Generator``: within 5e-6
     after ``finalize_heads`` (depth 1e-4); the hash schedule's build and
-    upload times;
+    upload times; K7f's and K7b's registers, shared memory per block,
+    local memory and blocks per SM (the CUDA runtime's occupancy query;
+    K7b also its warps per block); the samples K7 processes (each ray's
+    steps before its stop, from the plain twin's recurrence: the count
+    K7's bounds use);
 12. ``Renderer(Context.create(device="cuda"), plan).forward(hash_field)``:
     the K7f launch count rises, the planes are finite with opacity > 0
     somewhere and match the plain path on the card; the small hash test
@@ -80,11 +84,12 @@ when it fails:
     the fit's shapes (its four-view stack schedule, a seeded random
     cotangent), for the fitted student and for the teacher made opaque
     (sigma_b2 + 5), on which some rays must stop early: K7f within 5e-6
-    after ``finalize_heads`` (depth 1e-4), K7b within 2e-5 x scale;
+    after ``finalize_heads`` (depth 1e-4), K7b within 2e-5 x scale; at
+    each, K7f's and K7b's times and bounds by processed samples;
 15. times with CUDA events after warm-up, each beside its plain twin's:
     the hash forward per frame and Mrays/s (schedule excluded), K7f, K7b,
     the fit step (forward, backward, Adam), and the peak device memory
-    each adds to what the earlier phases hold;
+    each adds to what the earlier phases hold; the occupancy again;
 16. the grid headline schedule (16 px tiles, 0 overflow rays, 8 groups;
     its build and upload times), K8f's and K8b's registers, shared memory
     per block, local memory and blocks per SM (the CUDA runtime's
@@ -252,7 +257,8 @@ when it fails:
 
 ``--only dense`` runs phases 1-10, ``--only tiles`` phases 1-10, 28-33,
 36, 41 and 42-46 (every phase that times K1 / K2, in every form),
-``--only grid`` phases 1 and 16-20,
+``--only hash`` phases 1 and 11-15 (K7f and K7b), ``--only grid`` phases
+1 and 16-20,
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
 37-41, ``--only split`` phases 1 and 42-46: each alone, to time two trees
 against each other in one call.
@@ -378,10 +384,22 @@ def k8b_ops(spec) -> int:
 
 def live_samples(samp) -> int:
     """Masked-in samples of a (T, nc, 3, 16, 128) u16 sample block: bit
-    15 of the lane plane (the sign bit of its int16 view)."""
+    15 of the lane plane (the sign bit of its int16 view). Refuses any
+    other block: the hash schedule's (T, nc, 16, 128) float32 sample
+    depths carry no mask (count K7's samples with hash_processed)."""
     import torch
 
+    if samp.dtype != torch.uint16 or samp.dim() != 5 or samp.shape[2] != 3:
+        raise TypeError(f"live_samples counts a (T, nc, 3, 16, 128) uint16 "
+                        f"block, not {samp.dtype} {tuple(samp.shape)}")
     return int((samp[:, :, 2].view(torch.int16) < 0).sum())
+
+
+def hash_processed(hash_tiles, samp, rayt, table, sc, prm) -> int:
+    """The samples K7f and K7b process at these inputs: each ray's steps
+    before its stop (T <= stop) or the end of its live lattice, summed
+    (``hash_tiles.processed_steps``, the plain twin's recurrence)."""
+    return int(hash_tiles.processed_steps(samp, rayt, table, sc, prm).sum())
 
 
 def take(x, idx):
@@ -1010,6 +1028,22 @@ def reset_hash_counts(hash_tiles) -> None:
     hash_tiles.hash_tile_backward.launches = 0
 
 
+def hash_occupancy(hash_tiles, spec, what) -> dict:
+    """Print and return K7f's and K7b's registers, shared memory per
+    block, local memory per thread and blocks per SM at ``spec`` (CUDA
+    runtime)."""
+    occ = hash_tiles.kernel_occupancy(spec)
+    for name, o in occ.items():
+        extra = (f", {o['warps_per_block']} warps per block, "
+                 f"{o['tiles_per_lane']} product tiles per lane"
+                 if "warps_per_block" in o else "")
+        print(f"{what}: {name} {o['registers']} registers, "
+              f"{o['static_smem'] + o['dynamic_smem']} B shared memory per "
+              f"block, {o['local_bytes']} B local memory per thread, "
+              f"{o['blocks_per_sm']} blocks per SM{extra}", flush=True)
+    return occ
+
+
 def run_hash(torch, P, dev) -> tuple[list, dict]:
     """Phases 11-15: the hash-MLP field's forward, backward and fit."""
     from dvren_tpu_torch.ops import fused_tiles, hash_tiles
@@ -1046,6 +1080,10 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
           f"{k7f_raw:.3e}", flush=True)
     require(k7f_err <= TOL and k7f_depth <= TOL_DEPTH,
             "K7f differs from its plain twin beyond tolerance")
+    occ = hash_occupancy(hash_tiles, spec, "hash headline")
+    proc = hash_processed(hash_tiles, *args)
+    print(f"hash headline: {proc} processed of {sched.samp.numel()} "
+          f"scheduled samples", flush=True)
 
     # 12. Renderer.forward on the hash field, end to end
     renderer = P.Renderer(P.Context.create(device="cuda"), plan)
@@ -1174,8 +1212,18 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
             no_stop = hash_tiles.hash_tile_forward_plain(
                 *f_args, dataclasses.replace(f_prm, stop=0.0))
             early = int((o_p[:, 4] < no_stop[:, 4]).sum())
+            f_proc = hash_processed(hash_tiles, *f_args, f_prm)
             err, depth = head_errors(torch, fused_tiles, f_plan, o_k, o_p)
-            cmp = {"heads": err, "depth": depth,
+            cmp = {"heads": err, "depth": depth, "processed": f_proc,
+                   "k7f_bound": bound(nbytes(*f_args, o_k),
+                                      f_proc * k7f_ops(spec)),
+                   "k7b_bound": bound(nbytes(*f_args, f_gs, *g_k),
+                                      f_proc * k7b_ops(spec)),
+                   "k7f_ms": cuda_ms(torch, lambda: hash_tiles.
+                                     hash_tile_forward(*f_args, f_prm), 20),
+                   "k7b_ms": cuda_ms(torch, lambda: hash_tiles.
+                                     hash_tile_backward(*f_args, f_gs,
+                                                        f_prm), 20),
                    "f_raw": float((o_k - o_p).abs().max()),
                    "table": rel_err(g_k[0], g_p[0]),
                    "mlp": rel_err(g_k[1], g_p[1]),
@@ -1187,8 +1235,12 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
                   f"{depth:.3e}, raw {cmp['f_raw']:.3e}; K7b vs plain "
                   f"d(table) {cmp['table']:.3e} x scale, d(MLP) "
                   f"{cmp['mlp']:.3e} x scale (max |diff| {cmp['b_raw']:.3e}); "
-                  f"{early} of {f_plan.ray_count * len(cams)} rays stop early",
-                  flush=True)
+                  f"{early} of {f_plan.ray_count * len(cams)} rays stop early, "
+                  f"{f_proc} of {stack.samp.numel()} samples processed; K7f "
+                  f"{cmp['k7f_ms']:.4f} ms (bound "
+                  f"{cmp['k7f_bound']['bound_ms']:.4f}), K7b "
+                  f"{cmp['k7b_ms']:.4f} ms (bound "
+                  f"{cmp['k7b_bound']['bound_ms']:.4f})", flush=True)
             require(err <= TOL and depth <= TOL_DEPTH,
                     f"K7f differs from its twin at the fit's shapes ({name})")
             require(cmp["table"] <= HASH_GRAD_TOL
@@ -1237,6 +1289,8 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
           f"forward {peak_mb:.1f} MiB, K7b {bwd_peak_mb:.1f} MiB",
           flush=True)
 
+    hash_occupancy(hash_tiles, spec, "hash timings")
+
     trained = student.with_params({k: v.detach().clone()
                                    for k, v in student.params.items()})
 
@@ -1260,8 +1314,15 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
     print(f"fit step {fit_ms:.4f} ms/step = {fit_rays / fit_ms / 1e3:.3f} "
           f"Mrays/s over 20 steps (plain path {plain_fit_ms:.4f} ms/step); "
           f"peak device memory added {fit_peak_mb:.1f} MiB", flush=True)
+    profile = device_breakdown(torch, fit_step(True, opt, trained), steps=5)
+    if profile is not None:
+        kern_ms, wall_ms, top = profile
+        print(f"fit step under torch.profiler: kernels {kern_ms:.4f} ms of "
+              f"{wall_ms:.4f} ms wall per step (idle share "
+              f"{1.0 - kern_ms / wall_ms:.3f}); "
+              + ", ".join(f"{n} {ms:.4f} ms x{c}" for n, ms, c in top),
+              flush=True)
 
-    live = live_samples(sched.samp)
     kernels = [
         {"name": "hash_tiles", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_tiles.cu",
@@ -1270,7 +1331,7 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
          "max_abs_err": max([k7f_raw] + [c["f_raw"]
                                          for c in fit_cmp.values()]),
          "ms": k7f_ms, "plain_ms": k7f_plain_ms,
-         **bound(nbytes(*args[:4], out_k), live * k7f_ops(spec))},
+         **bound(nbytes(*args[:4], out_k), proc * k7f_ops(spec))},
         {"name": "hash_tiles_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/hash_tiles_bwd.cu",
          "replaces": "dvren_tpu/ops/hash_tiles.py:339",
@@ -1278,13 +1339,14 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
          "max_abs_err": max([k7b_raw] + [c["b_raw"]
                                          for c in fit_cmp.values()]),
          "ms": k7b_ms, "plain_ms": k7b_plain_ms,
-         **bound(nbytes(*args[:4], gs, *full1), live * k7b_ops(spec))},
+         **bound(nbytes(*args[:4], gs, *full1), proc * k7b_ops(spec))},
     ]
     report = {
         "hash_forward_ms": fwd_ms, "hash_forward_mrays_s":
             n_rays / fwd_ms / 1e3,
         "hash_plain_forward_ms": plain_fwd_ms,
         "hash_schedule_build_s": build_s, "hash_schedule_upload_s": upload_s,
+        "hash_processed_samples": proc, "k7_occupancy": occ,
         "hash_forward_added_peak_mib": peak_mb,
         "k7b_added_peak_mib": bwd_peak_mb,
         "k7f_ms": k7f_ms, "k7b_ms": k7b_ms,
@@ -1293,6 +1355,7 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
         "fit_shape_compares": fit_cmp,
         "hash_forward_vs_plain": e2e_err,
         "fit_step_ms": fit_ms, "fit_plain_step_ms": plain_fit_ms,
+        "fit_step_profile": profile,
         "fit_mrays_s": fit_rays / fit_ms / 1e3,
         "fit_added_peak_mib": fit_peak_mb,
         "fit_losses": [losses[0], losses[-1]],
@@ -3593,6 +3656,13 @@ def run(only: str = "all") -> dict:
             print("ptxas:", line.strip())
     device = {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
               "count": torch.cuda.device_count()}
+    if only == "hash":
+        hash_kernels, hash_report = run_hash(torch, P, dev)
+        elapsed("11-15")
+        print(json.dumps({"kernels": hash_kernels}), flush=True)
+        print(json.dumps({**hash_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
     if only == "grid":
         grid_kernels, grid_report = run_grid(torch, P, dev)
         print(json.dumps({"kernels": grid_kernels}), flush=True)
@@ -4072,12 +4142,13 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("all", "dense", "tiles", "grid", "gridviews",
-                           "window", "split"),
+        "--only", choices=("all", "dense", "tiles", "hash", "grid",
+                           "gridviews", "window", "split"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
-             "form, K6); 'grid': phase "
+             "form, K6); 'hash': phase 1 and phases 11-15 (the hash "
+             "headline, K7f and K7b); 'grid': phase "
              "1 and phases 16-20 (the grid headline); 'gridviews': phase 1 "
              "and phases 34-35 (the grid path over eight views at 8 and 4 "
              "px); 'window': phase 1 and "

@@ -67,6 +67,8 @@ _SIGNATURES = {
                            _I, _I, _I, _I, _I, _I, _I,
                            _F, _F, _F, _F, _F,
                            _P, _P], _I),
+    "dvt_hash_forward_occupancy": ([_I] * 4 + [_P], _I),
+    "dvt_hash_backward_occupancy": ([_I] * 4 + [_P], _I),
     "dvt_hash_grid_forward": ([_P] * 9
                               + [_I] * 6
                               + [_F] * 5 + [_F] * 9

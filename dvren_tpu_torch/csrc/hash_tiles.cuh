@@ -1,6 +1,7 @@
 // Shared device code of the fused hash-MLP kernels (K7f hash_tiles.cu,
 // K7b hash_tiles_bwd.cu, and through hash_grid.cuh K8f / K8b): constants,
-// the sample lattice, the hash, the per-sample encoding folded into both
+// the sample lattice, the hash, the MLP scalars in the packed order (K8)
+// and in K7's feature-major rows, the per-sample encoding folded into both
 // heads' pre-activations, and the heads' second layers.
 //
 // Every float operation uses the _rn intrinsics (no FMA contraction) in
@@ -104,18 +105,6 @@ __device__ __forceinline__ void level_corners(const float p[3], float res,
   for (int c = 0; c < 8; ++c) id[c] = corner_entry(ic, c, t_size);
 }
 
-// Feature f of level l: sum over the corners, in corner order.
-__device__ __forceinline__ float level_feature(const float* tab, int l,
-                                               int f, const float w[8],
-                                               const int id[8],
-                                               const HashConsts& k) {
-  const float* lt = tab + l * k.t_size * k.n_feat + f;
-  float e = 0.f;
-#pragma unroll
-  for (int c = 0; c < 8; ++c) e = add(e, mul(w[c], lt[id[c] * k.n_feat]));
-  return e;
-}
-
 // The first layers' pre-activations are folded feature by feature, in
 // the i-order of the sums: zero_pre, then fold_feature for i = 0, 1, ...
 // as each feature is final, then add_biases; pre_s (and pre_c when
@@ -159,33 +148,6 @@ __device__ __forceinline__ void add_biases(const float* sc,
   }
 }
 
-// Encode the sample at p and fold each feature into the first layers'
-// pre-activations as soon as it is final. With enc_out, the features are
-// also written to enc_out[i].
-template <bool kColor>
-__device__ __forceinline__ void encode_dense(const float p[3],
-                                             const float* tab,
-                                             const float* sc,
-                                             const HashConsts& k,
-                                             const MlpLayout& lay,
-                                             float pre_s[kMaxHidden],
-                                             float pre_c[kMaxHidden],
-                                             float* enc_out) {
-  zero_pre(pre_s, pre_c);
-  for (int l = 0; l < k.n_levels; ++l) {
-    float w[8];
-    int id[8];
-    level_corners(p, k.res[l], k.t_size, w, id);
-    for (int f = 0; f < k.n_feat; ++f) {
-      const float e = level_feature(tab, l, f, w, id, k);
-      const int i = l * k.n_feat + f;
-      if (enc_out != nullptr) enc_out[i] = e;
-      fold_feature<kColor>(i, e, sc, k, lay, pre_s, pre_c);
-    }
-  }
-  add_biases<kColor>(sc, k, lay, pre_s, pre_c);
-}
-
 // Second layer of the sigma head: s_pre2 = sum_j w2[j] * relu(pre_s[j]) + b2.
 __device__ __forceinline__ float sigma_pre2(const float pre_s[kMaxHidden],
                                             const float* sc,
@@ -216,6 +178,214 @@ __device__ __forceinline__ void color_pre2(const float pre_c[kMaxHidden],
       }
     }
     out[ch] = add(acc, sc[lay.cb2 + ch]);
+  }
+}
+
+// K7's copy of the MLP scalars in shared memory, feature-major rows of 16
+// floats, each 16-byte aligned, so that a warp reads a row with float4
+// broadcasts (4 loads where the packed order takes 16 scalar loads):
+//   w1  (enc, 16) at 0:   row i = sigma_w1[0..7, i], color_w1[0..7, i]
+//   b1  (16)  at b1():    sigma_b1[0..7], color_b1[0..7]
+//   w2  (8)   at w2():    sigma_w2[0..7]
+//   cw2 (3, 8) at cw2():  color_w2[ch, 0..7]
+//   b2  (4)   at b2():    sigma_b2, color_b2[0..2]
+// Entries past `hidden` are 0 and never enter a sum.
+struct MlpRows {
+  static constexpr int kRow = 2 * kMaxHidden;
+  int enc;
+  __host__ __device__ explicit MlpRows(int enc_) : enc(enc_) {}
+  __host__ __device__ int b1() const { return enc * kRow; }
+  __host__ __device__ int w2() const { return b1() + kRow; }
+  __host__ __device__ int cw2() const { return w2() + kMaxHidden; }
+  __host__ __device__ int b2() const { return cw2() + 3 * kMaxHidden; }
+  __host__ __device__ int floats() const { return b2() + 4; }
+};
+
+// Build the rows from the packed vector, the whole block.
+__device__ __forceinline__ void load_mlp_rows(float* rows, const float* sc,
+                                              const HashConsts& k) {
+  const MlpLayout lay(k);
+  const MlpRows mr(k.enc);
+  const int hid = k.hidden;
+  for (int x = threadIdx.x; x < mr.floats(); x += blockDim.x) {
+    float v = 0.f;
+    if (x < mr.b1()) {
+      const int i = x / MlpRows::kRow, r = x % MlpRows::kRow;
+      const int j = r % kMaxHidden;
+      if (j < hid) v = sc[(r < kMaxHidden ? lay.sw1 : lay.cw1) + j * k.enc + i];
+    } else if (x < mr.w2()) {
+      const int r = x - mr.b1(), j = r % kMaxHidden;
+      if (j < hid) v = sc[(r < kMaxHidden ? lay.sb1 : lay.cb1) + j];
+    } else if (x < mr.cw2()) {
+      const int j = x - mr.w2();
+      if (j < hid) v = sc[lay.sw2 + j];
+    } else if (x < mr.b2()) {
+      const int r = x - mr.cw2(), j = r % kMaxHidden;
+      if (j < hid) v = sc[lay.cw2 + (r / kMaxHidden) * hid + j];
+    } else {
+      const int r = x - mr.b2();
+      v = r == 0 ? sc[lay.sb2] : sc[lay.cb2 + r - 1];
+    }
+    rows[x] = v;
+  }
+}
+
+// Eight weights of a row: two float4 broadcasts, one where hidden <= 4.
+__device__ __forceinline__ void row8(const float* src, int hidden,
+                                     float out[kMaxHidden]) {
+  const float4 a = *reinterpret_cast<const float4*>(src);
+  out[0] = a.x; out[1] = a.y; out[2] = a.z; out[3] = a.w;
+  float4 b = make_float4(0.f, 0.f, 0.f, 0.f);
+  if (hidden > 4) b = *reinterpret_cast<const float4*>(src + 4);
+  out[4] = b.x; out[5] = b.y; out[6] = b.z; out[7] = b.w;
+}
+
+// fold_feature from row i of the rows, for N samples: each weight is
+// read once for all of them.
+template <bool kColor, int N>
+__device__ __forceinline__ void fold_row(const float* row, const float (&e)[N],
+                                         int hidden,
+                                         float (&pre_s)[N][kMaxHidden],
+                                         float (&pre_c)[N][kMaxHidden]) {
+  float ws[kMaxHidden], wc[kMaxHidden];
+  row8(row, hidden, ws);
+  if (kColor) row8(row + kMaxHidden, hidden, wc);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int j = 0; j < kMaxHidden; ++j) {
+      if (j < hidden) {
+        pre_s[n][j] = add(pre_s[n][j], mul(ws[j], e[n]));
+        if (kColor) pre_c[n][j] = add(pre_c[n][j], mul(wc[j], e[n]));
+      }
+    }
+  }
+}
+
+// Encode N samples at p[n] from the (L, T, F) table and fold each feature
+// into the first layers' pre-activations as soon as it is final (then the
+// biases), each sample in the order of arithmetic of one. A corner's
+// features are read together: F = 2 as one float2, any even F in float2
+// pairs; an odd F feature by feature. Each corner's entry is hashed once
+// per level. With enc_out (N = 1), feature i is also written to
+// enc_out[i].
+template <bool kColor, int N>
+__device__ __forceinline__ void encode_rows_n(const float (&p)[N][3],
+                                              const float* tab,
+                                              const float* rows,
+                                              const HashConsts& k,
+                                              float (&pre_s)[N][kMaxHidden],
+                                              float (&pre_c)[N][kMaxHidden],
+                                              float* enc_out) {
+  const int n_f = k.n_feat, hid = k.hidden;
+#pragma unroll
+  for (int n = 0; n < N; ++n) zero_pre(pre_s[n], pre_c[n]);
+  for (int l = 0; l < k.n_levels; ++l) {
+    float w[N][8];
+    int id[N][8];
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      level_corners(p[n], k.res[l], k.t_size, w[n], id[n]);
+    }
+    const float* lt = tab + l * k.t_size * n_f;
+    auto emit = [&](int f, const float (&e)[N]) {
+      const int i = l * n_f + f;
+      if (enc_out != nullptr) enc_out[i] = e[0];
+      fold_row<kColor, N>(rows + i * MlpRows::kRow, e, hid, pre_s, pre_c);
+    };
+    if ((n_f & 1) == 0) {
+      for (int f = 0; f < n_f; f += 2) {
+        float e0[N], e1[N];
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          float2 v[8];
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            v[c] = *reinterpret_cast<const float2*>(lt + id[n][c] * n_f + f);
+          }
+          e0[n] = 0.f;
+          e1[n] = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            e0[n] = add(e0[n], mul(w[n][c], v[c].x));
+            e1[n] = add(e1[n], mul(w[n][c], v[c].y));
+          }
+        }
+        emit(f, e0);
+        emit(f + 1, e1);
+      }
+    } else {
+      for (int f = 0; f < n_f; ++f) {
+        float e[N];
+#pragma unroll
+        for (int n = 0; n < N; ++n) {
+          e[n] = 0.f;
+#pragma unroll
+          for (int c = 0; c < 8; ++c) {
+            e[n] = add(e[n], mul(w[n][c], lt[id[n][c] * n_f + f]));
+          }
+        }
+        emit(f, e);
+      }
+    }
+  }
+  const float* b1 = rows + MlpRows(k.enc).b1();
+  float bs[kMaxHidden], bc[kMaxHidden];
+  row8(b1, hid, bs);
+  if (kColor) row8(b1 + kMaxHidden, hid, bc);
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+#pragma unroll
+    for (int j = 0; j < kMaxHidden; ++j) {
+      if (j < hid) {
+        pre_s[n][j] = add(pre_s[n][j], bs[j]);
+        if (kColor) pre_c[n][j] = add(pre_c[n][j], bc[j]);
+      }
+    }
+  }
+}
+
+// sigma_pre2 of N samples from the rows.
+template <int N>
+__device__ __forceinline__ void sigma_pre2_rows_n(
+    const float (&pre_s)[N][kMaxHidden], const float* rows,
+    const HashConsts& k, float (&out)[N]) {
+  const MlpRows mr(k.enc);
+  float w2[kMaxHidden];
+  row8(rows + mr.w2(), k.hidden, w2);
+  const float b2 = rows[mr.b2()];
+#pragma unroll
+  for (int n = 0; n < N; ++n) {
+    float acc = 0.f;
+#pragma unroll
+    for (int j = 0; j < kMaxHidden; ++j) {
+      if (j < k.hidden) acc = add(acc, mul(w2[j], fmaxf(pre_s[n][j], 0.f)));
+    }
+    out[n] = add(acc, b2);
+  }
+}
+
+// color_pre2 of N samples from the rows.
+template <int N>
+__device__ __forceinline__ void color_pre2_rows_n(
+    const float (&pre_c)[N][kMaxHidden], const float* rows,
+    const HashConsts& k, float (&out)[N][3]) {
+  const MlpRows mr(k.enc);
+  const float4 b2 = *reinterpret_cast<const float4*>(rows + mr.b2());
+  const float cb[3] = {b2.y, b2.z, b2.w};
+#pragma unroll
+  for (int ch = 0; ch < 3; ++ch) {
+    float w[kMaxHidden];
+    row8(rows + mr.cw2() + ch * kMaxHidden, k.hidden, w);
+#pragma unroll
+    for (int n = 0; n < N; ++n) {
+      float acc = 0.f;
+#pragma unroll
+      for (int j = 0; j < kMaxHidden; ++j) {
+        if (j < k.hidden) acc = add(acc, mul(w[j], fmaxf(pre_c[n][j], 0.f)));
+      }
+      out[n][ch] = add(acc, cb[ch]);
+    }
   }
 }
 

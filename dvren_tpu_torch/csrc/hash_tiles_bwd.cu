@@ -1,64 +1,67 @@
 // Fused hash-MLP tile backward (K7b): the recompute adjoint of K7f, with
-// the hash-table and MLP-weight gradients as per-tile partial sums.
+// the hash-table and MLP-weight gradients as partial sums.
 //
 // Replaces dvren_tpu/ops/hash_tiles.py::_bwd_kernel (launched by
 // _hash_tile_op.bwd_call). Inputs are K7f's (csrc/hash_tiles.cu) plus
 //   gs       (T, 5, 16, 16) f32  d(loss)/d(K7f output) per ray
 // Outputs:
-//   part_tab (T, L*T*F) f32   each tile's d(table), (L, T, F) order
-//   part_mlp (T, P) f32       each tile's d(MLP scalars), _mlp_layout order
+//   part_tab (T*split, L*T*F) f32  each block's d(table), (L, T, F) order
+//   part_mlp (T*8, P) f32       each warp's d(MLP scalars), _mlp_layout order
 //   s_pre    (T, nc*8, 256) f32  scratch: each sample's optical-depth prefix
 // The wrapper (ops/hash_tiles.py::hash_tile_backward) sums the partials
-// over the tiles with torch.sum, as XLA sums the TPU kernel's per-grid-step
-// partials.
+// over their first axis with torch.sum, as XLA sums the TPU kernel's
+// per-grid-step partials.
 //
-// One block per tile, one thread per ray, as K7f.
+// A tile's 256 rays are split over `split` blocks of 32*warps threads
+// (warps 4, 2 or 1, split = 8 / warps; the launcher takes the choice that
+// keeps the most warps resident on an SM), one thread per ray; a warp's
+// rays are a 4x8 pixel block of the tile. The block keeps the table and
+// the MLP scalars (as K7f's feature-major rows) in shared memory, and per
+// warp a copy of d(table) and 32 stage rows.
 // - Pass 1 reruns K7f's recurrence (sigma head only) and stores every
 //   sample's exclusive prefix S until the ray's transmittance falls to
 //   `stop` or its lattice ends; every step from there contributes exactly
 //   0 to every gradient, so pass 2 skips it.
-// - Pass 2 walks the steps in reverse, the whole block in step, with a
-//   running suffix sum of gw*w: dod = gw*p - suffix + g_odp, d sigma = dod
-//   * tie(x) * dt, d colour = g * w, then through the heads with JAX's
-//   tie values (0.5 at max(x, 0) == 0, and at each end of the colour
-//   clamp), to d(pre-activations) and d(encoding).
-// - No float atomics, the same bits on every run. The MLP gradients are
-//   sums of outer products: each step, every ray stages its left vectors
-//   (d pre1 of both heads, d pre2 of both) and right vectors (encoding,
-//   hidden activations, 1) in shared memory, and one owner thread per MLP
-//   scalar adds its products over the 256 rays in ray order into a
-//   register (four interleaved chains per step, then added in a fixed
-//   order). The table gradient is a scatter of 8*L*F terms per sample
-//   into L*T*F entries; each warp owns a private copy of it in shared
-//   memory. The 32 rays of a warp are neighbours and sample the same
-//   depth, so at each step and level they mostly share one cell, hence
-//   all eight corner entries. Per level the lanes are grouped by cell
-//   (the lowest pending lane's cell, and a ballot of the lanes in it);
-//   for each group and feature the warp reduces the members' eight corner
-//   terms with a fixed butterfly (non-members add 0) that leaves corner
-//   c's sum in lane 4c, and lane 4c adds it into its entry: eight adds in
-//   parallel, or one corner after another when two corners hash to one
-//   entry. Groups run one after another. At the end the block adds its
-//   copies in copy order.
-// - Where 8 copies of d(table) do not fit in shared memory (L*F > 33 at
-//   T=128, hidden 8), `share` warps hold one copy together: warps
-//   c*share .. c*share + share - 1 add into copy c in turn, warp by warp,
-//   each level's turns separated by block barriers, so the order of the
-//   adds is still fixed. The launcher takes the most copies that fit (8,
-//   4, 2 or 1): 8 for every spec up to L*F = 33, through an instance
-//   compiled without the turns (kShared false: the code of one copy per
-//   warp); 2 at L*F = 64, the widest spec fast_path_ok admits.
+// - Pass 2: each warp walks its rays' steps in reverse on its own (no
+//   block barrier), with a running suffix sum of gw*w: dod = gw*p -
+//   suffix + g_odp, d sigma = dod * tie(x) * dt, d colour = g * w, then
+//   through the heads with JAX's tie values (0.5 at max(x, 0) == 0, and
+//   at each end of the colour clamp), to d(pre-activations) and
+//   d(encoding). The recompute and d(encoding) read the rows as float4
+//   broadcasts; the transmittance after a step is the next step's before
+//   it (one expf a step).
+// - No float atomics, the same bits on every run.
+//   The table gradient is a scatter of 8*L*F terms per sample into the
+//   warp's d(table) copy. Neighbouring rays at one step mostly share a
+//   level's cell, hence all eight corner entries. Per level and pair of
+//   features the lanes are grouped by cell (the lowest pending lane's
+//   cell, and a ballot of the lanes in it); one fixed butterfly reduces
+//   the members' 16 corner terms of both features (non-members add 0),
+//   leaving each term's sum in two lanes, and 16 lanes add them into the
+//   copy. Corners that share an entry (known from the hash's structure,
+//   corner_collisions) leave their sums to the first of them, which adds
+//   them in corner order. Groups go two at a time, their butterflies
+//   overlapped and the second's adds after the first's (the order of one
+//   at a time, the same bits); at the end the block adds its warps'
+//   copies in warp order.
+//   The MLP gradients are sums over rays and steps of outer products:
+//   left (d pre1 of both heads, d pre2 of both) x right (encoding, hidden
+//   activations, 1). Each step the warp's rays write their rows to shared
+//   memory and each lane keeps a 4x4 tile of the product in registers
+//   (25 tiles at hidden 8, enc 16; one float4 of each side per ray and 16
+//   FMAs), summing over the warp's active rays in lane order; each warp
+//   writes its own row of part_mlp.
 //
-// Bound on the H100: latency. One block per SM (about 127 KB of shared
-// memory at L=8, T=128, F=2, hidden 8, 8 copies) leaves 8 warps to hide the
-// shuffles of the scatter and the owners' shared-memory reads. A first
-// version in which the lowest lane of each (level, corner, entry) group
-// added the group's terms one by one took 176.7 ms at the 512^2 hash
-// headline on the H100 (700 W): neighbouring rays made every group 32
-// lanes long. In the present design (33 ms there, 31.5 ms once
-// __match_any_sync gave way to the ballot) timing-only variants put
-// about 12.7 ms in the table scatter, 4 ms in the MLP owners and 3.3 ms
-// in pass 1.
+// Bound on the H100: the instructions and latency of the scatter's groups (about
+// 14 a step at the 512^2 hash headline, 30 at the fit's 96^2 views, most
+// at the finest levels), then the recompute's float work. At L=8, T=128,
+// F=2, hidden 8 a 4-warp block takes 70,864 B of shared memory, three
+// blocks (12 warps) per SM. Timing-only variants
+// (tools/torch_hash_bwd_ablate.py, H100 at 700 W), in full / without the
+// scatter / without the MLP products / pass 1 alone: 11.67 / 6.57 /
+// 9.99 / 1.81 ms at the hash headline, 1.47 / 0.62 / 1.32 / 0.18 at the
+// fit's four-view stack. Warps as 2x16 row pairs: 12.00 and 1.57; groups
+// one at a time: 11.68 and 1.52.
 
 #include "hash_tiles.cuh"
 
@@ -66,34 +69,91 @@ namespace {
 
 using namespace dvt_hash;
 
-constexpr int kWarps = kRays / 32;
-constexpr int kMaxOwners = 5;             // ceil(max P / 256), P <= 1076
 constexpr unsigned kFull = 0xffffffffu;
+constexpr int kTileWarps = kRays / 32;   // 8 warps per tile
+constexpr int kMaxBlockWarps = 4;
+constexpr int kLeft = 20;   // left row: ds1 (8), dc1 (8), dsig2, dc2 (3)
 
-struct StageDims {
-  int ltf, ls, rs, one;
+// The stage rows and the product's 4x4 tiles. Right row: the encoding
+// (4*ncb floats), relu(pre_s) (8), relu(pre_c) (8), then (1, 0, 0, 0).
+struct BwdDims {
+  int ltf;       // L*T*F
+  int ncb;       // float4 groups of the encoding
+  int rs;        // right row stride: an odd number of float4s
+  int nag;       // left row groups per head: 2, or 1 at hidden <= 4
+  int n_tiles;   // product tiles
+  int rows;      // MlpRows floats
 };
 
-__host__ __device__ inline StageDims stage_dims(int n_levels, int n_feat,
-                                                int t_size, int hidden) {
-  StageDims s;
+__host__ __device__ inline BwdDims bwd_dims(int n_levels, int n_feat,
+                                            int t_size, int hidden) {
+  BwdDims b;
   const int enc = n_levels * n_feat;
-  s.ltf = n_levels * t_size * n_feat;
-  s.ls = 2 * hidden + 5;                  // odd row strides: fewer bank
-  s.rs = (enc + 2 * hidden + 1) | 1;      // conflicts on the row writes
-  s.one = enc + 2 * hidden;               // the right vectors' constant 1
-  return s;
+  b.ltf = n_levels * t_size * n_feat;
+  b.ncb = (enc + 3) / 4;
+  b.rs = 4 * b.ncb + 20;
+  if (((b.rs / 4) & 1) == 0) b.rs += 4;
+  b.nag = hidden > 4 ? 2 : 1;
+  // w1 of both heads, w2 of both, the biases
+  b.n_tiles = 2 * b.nag * b.ncb + 2 * b.nag + 2 * b.nag + 1;
+  b.rows = MlpRows(enc).floats();
+  return b;
 }
 
-// Shared-memory floats: table, MLP scalars, `copies` copies of d(table),
-// left and right stage rows. At T=128 and hidden 8, 8 copies fit the
-// H100's 227 KB up to L*F = 33, 2 copies up to L*F = 64.
-inline int smem_floats(int n_levels, int n_feat, int t_size, int hidden,
-                       int copies) {
-  const StageDims s = stage_dims(n_levels, n_feat, t_size, hidden);
-  const int enc = n_levels * n_feat;
-  const int n_sc = 2 * hidden * enc + 6 * hidden + 4;
-  return s.ltf * (1 + copies) + n_sc + kRays * (s.ls + s.rs);
+// Shared memory of a block of `warps` warps: the rows, the stage rows,
+// the table and the d(table) copies.
+inline size_t bwd_smem(const BwdDims& b, int warps) {
+  return (size_t)(b.rows + warps * 32 * (kLeft + b.rs)
+                  + b.ltf * (1 + warps)) * 4;
+}
+
+// Product tile t: left float4 group a (0-1 ds1, 2-3 dc1, 4 the second
+// layers' d pre2) times right float4 group b.
+struct Tile {
+  int a, b;
+  bool ok;
+};
+
+__device__ inline Tile tile_of(int t, const BwdDims& bd) {
+  const int nag = bd.nag, ncb = bd.ncb;
+  auto group = [&](int x) { return nag == 2 ? x : 2 * x; };
+  Tile r{0, 0, false};
+  const int core = 2 * nag * ncb;
+  if (t < core) {                      // w1: d pre1 x encoding
+    r = Tile{group(t / ncb), t % ncb, true};
+  } else if (t - core < 2 * nag) {     // w2: d pre2 x relu(pre1)
+    r = Tile{4, ncb + group(t - core), true};
+  } else if (t - core - 2 * nag <= 2 * nag) {   // biases: left x 1
+    const int x = t - core - 2 * nag;
+    r = Tile{x < 2 * nag ? group(x) : 4, ncb + 4, true};
+  }
+  return r;
+}
+
+// The packed-scalar index of output (u, v) of a tile, or -1 if unused.
+__device__ inline int mlp_index(const Tile& tl, int u, int v,
+                                const HashConsts& k, const MlpLayout& lay,
+                                int ncb) {
+  const int hid = k.hidden, enc = k.enc;
+  if (tl.b < ncb) {
+    const int j = 4 * (tl.a & 1) + u, i = 4 * tl.b + v;
+    if (j >= hid || i >= enc) return -1;
+    return (tl.a < 2 ? lay.sw1 : lay.cw1) + j * enc + i;
+  }
+  const int g = tl.b - ncb;
+  if (g < 4) {
+    const int j = 4 * (g & 1) + v;
+    if (j >= hid) return -1;
+    if (g < 2) return u == 0 ? lay.sw2 + j : -1;
+    return u > 0 ? lay.cw2 + (u - 1) * hid + j : -1;
+  }
+  if (v != 0) return -1;
+  if (tl.a < 4) {
+    const int j = 4 * (tl.a & 1) + u;
+    if (j >= hid) return -1;
+    return (tl.a < 2 ? lay.sb1 : lay.cb1) + j;
+  }
+  return u == 0 ? lay.sb2 : lay.cb2 + u - 1;
 }
 
 // Warp sum of eight per-lane values: returns, in every lane, the sum of
@@ -123,40 +183,100 @@ __device__ __forceinline__ float reduce8(float v[8], int lane) {
   return add(v[0], __shfl_xor_sync(kFull, v[0], 1));
 }
 
-// (left, right) stage columns whose products MLP scalar o sums.
-__device__ inline void owner_columns(int o, const HashConsts& k,
-                                     const MlpLayout& lay,
-                                     const StageDims& sd, int* a, int* b) {
-  const int hid = k.hidden, enc = k.enc;
-  if (o < lay.sb1) {                 // sigma_w1[j, i]
-    *a = o / enc;
-    *b = o % enc;
-  } else if (o < lay.sw2) {          // sigma_b1[j]
-    *a = o - lay.sb1;
-    *b = sd.one;
-  } else if (o < lay.sb2) {          // sigma_w2[j]: d pre2 * relu(pre1)
-    *a = 2 * hid;
-    *b = enc + (o - lay.sw2);
-  } else if (o < lay.cw1) {          // sigma_b2
-    *a = 2 * hid;
-    *b = sd.one;
-  } else if (o < lay.cb1) {          // color_w1[j, i]
-    *a = hid + (o - lay.cw1) / enc;
-    *b = (o - lay.cw1) % enc;
-  } else if (o < lay.cw2) {          // color_b1[j]
-    *a = hid + (o - lay.cb1);
-    *b = sd.one;
-  } else if (o < lay.cb2) {          // color_w2[ch, j]
-    *a = 2 * hid + 1 + (o - lay.cw2) / hid;
-    *b = enc + hid + (o - lay.cw2) % hid;
-  } else {                           // color_b2[ch]
-    *a = 2 * hid + 1 + (o - lay.cb2);
-    *b = sd.one;
+// The same for sixteen values: the sum of value lane >> 1 in every lane
+// (16 shuffles where two reduce8 take 18), for G independent sets at
+// once, stage by stage, so that their shuffle chains overlap.
+template <int G>
+__device__ __forceinline__ void reduce16(float (&v)[G][16], int lane,
+                                         float (&out)[G]) {
+  const bool h16 = lane & 16, h8 = lane & 8, h4 = lane & 4, h2 = lane & 2;
+#pragma unroll
+  for (int k = 0; k < 8; ++k) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float send = h16 ? v[g][k] : v[g][k + 8];
+      const float keep = h16 ? v[g][k + 8] : v[g][k];
+      v[g][k] = add(keep, __shfl_xor_sync(kFull, send, 16));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 4; ++k) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float send = h8 ? v[g][k] : v[g][k + 4];
+      const float keep = h8 ? v[g][k + 4] : v[g][k];
+      v[g][k] = add(keep, __shfl_xor_sync(kFull, send, 8));
+    }
+  }
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int g = 0; g < G; ++g) {
+      const float send = h4 ? v[g][k] : v[g][k + 2];
+      const float keep = h4 ? v[g][k + 2] : v[g][k];
+      v[g][k] = add(keep, __shfl_xor_sync(kFull, send, 4));
+    }
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    const float send = h2 ? v[g][0] : v[g][1];
+    const float keep = h2 ? v[g][1] : v[g][0];
+    v[g][0] = add(keep, __shfl_xor_sync(kFull, send, 2));
+  }
+#pragma unroll
+  for (int g = 0; g < G; ++g) {
+    out[g] = add(v[g][0], __shfl_xor_sync(kFull, v[g][0], 1));
   }
 }
 
-template <bool kShared>
-__global__ void __launch_bounds__(kRays, 1)
+// Which corners of a cell share a table entry: bit d (1..7) is set when
+// corners c and c ^ d do, for every c. The entry of corner c is
+// hx[c & 1] ^ hy[(c >> 1) & 1] ^ hz[c >> 2] mod T (hash3), so corners c
+// and c ^ d collide exactly when the xor of the axes' differences hx[0] ^
+// hx[1], ... over the axes set in d is 0 mod T.
+__device__ __forceinline__ unsigned corner_collisions(const int cell[3],
+                                                      int t_size) {
+  const uint32_t m = (uint32_t)(t_size - 1);
+  const uint32_t a = ((uint32_t)cell[0] ^ (uint32_t)(cell[0] + 1)) & m;
+  const uint32_t b = (((uint32_t)cell[1] * kPrimeY)
+                      ^ ((uint32_t)(cell[1] + 1) * kPrimeY)) & m;
+  const uint32_t g = (((uint32_t)cell[2] * kPrimeZ)
+                      ^ ((uint32_t)(cell[2] + 1) * kPrimeZ)) & m;
+  return ((a == 0u) << 1) | ((b == 0u) << 2) | (((a ^ b) == 0u) << 3)
+         | ((g == 0u) << 4) | (((a ^ g) == 0u) << 5)
+         | (((b ^ g) == 0u) << 6) | (((a ^ b ^ g) == 0u) << 7);
+}
+
+// The differences d for which corner c ^ d comes before corner c: those
+// whose highest bit is set in c.
+__device__ __forceinline__ unsigned earlier_mask(int c) {
+  return ((c & 1) ? 0x02u : 0u) | ((c & 2) ? 0x0cu : 0u)
+         | ((c & 4) ? 0xf0u : 0u);
+}
+
+// d(encoding) of feature i: sum over j of ds1[j] * sigma_w1[j, i] +
+// dc1[j] * color_w1[j, i], from row i of the rows.
+__device__ __forceinline__ float denc_of(const float* row, int hidden,
+                                         const float ds1[kMaxHidden],
+                                         const float dc1[kMaxHidden]) {
+  float ws[kMaxHidden], wc[kMaxHidden];
+  row8(row, hidden, ws);
+  row8(row + kMaxHidden, hidden, wc);
+  float acc = 0.f;
+#pragma unroll
+  for (int j = 0; j < kMaxHidden; ++j) {
+    if (j < hidden) acc = add(acc, add(mul(ds1[j], ws[j]), mul(dc1[j], wc[j])));
+  }
+  return acc;
+}
+
+__device__ __forceinline__ void store4(float* dst, float a, float b, float c,
+                                       float d) {
+  *reinterpret_cast<float4*>(dst) = make_float4(a, b, c, d);
+}
+
+template <int kTiles>   // product tiles per lane
+__global__ void __launch_bounds__(32 * kMaxBlockWarps, 3)
 hash_backward_kernel(const float* __restrict__ samp,
                      const float* __restrict__ rayt,
                      const float* __restrict__ table,
@@ -164,27 +284,41 @@ hash_backward_kernel(const float* __restrict__ samp,
                      const float* __restrict__ gs,
                      float* __restrict__ part_tab,
                      float* __restrict__ part_mlp,
-                     float* __restrict__ s_pre, HashConsts k,
-                     int share_arg) {
-  extern __shared__ float smem[];
-  const int share = kShared ? share_arg : 1;   // warps per d(table) copy
-  const StageDims sd = stage_dims(k.n_levels, k.n_feat, k.t_size, k.hidden);
-  const int n_f = k.n_feat;
-  const int copies = kWarps / share;
-  float* tab = smem;
-  float* sc = tab + sd.ltf;
-  float* acc_tab = sc + k.n_sc;                    // (copies, L*T*F)
-  float* stage_l = acc_tab + copies * sd.ltf;      // (256, ls)
-  float* stage_r = stage_l + kRays * sd.ls;        // (256, rs)
+                     float* __restrict__ s_pre, HashConsts k, int split) {
+  extern __shared__ __align__(16) float smem[];
+  const BwdDims bd = bwd_dims(k.n_levels, k.n_feat, k.t_size, k.hidden);
+  const int warps = blockDim.x >> 5;
+  const int n_f = k.n_feat, hid = k.hidden;
+  const int stage_floats = 32 * (kLeft + bd.rs);
+  float* rows = smem;
+  float* stage = rows + bd.rows;                 // per warp: left, right rows
+  float* tab = stage + warps * stage_floats;
+  float* copies = tab + bd.ltf;                  // (warps, L*T*F)
 
-  block_copy(tab, table, sd.ltf);
-  block_copy(sc, scg, k.n_sc);
-  for (int i = threadIdx.x; i < copies * sd.ltf; i += kRays) acc_tab[i] = 0.f;
+  load_mlp_rows(rows, scg, k);
+  block_copy(tab, table, bd.ltf);
+  for (int i = threadIdx.x; i < warps * bd.ltf; i += blockDim.x) copies[i] = 0.f;
+  for (int i = threadIdx.x; i < warps * stage_floats; i += blockDim.x) {
+    stage[i] = 0.f;
+  }
+  __syncthreads();
 
-  const int64_t t = blockIdx.x;
-  const int ray = threadIdx.x;
-  const int lane = ray & 31;
-  const int warp = ray >> 5;
+  const int lane = threadIdx.x & 31;
+  const int warp = threadIdx.x >> 5;
+  float* left_w = stage + warp * stage_floats;   // (32, kLeft)
+  float* right_w = left_w + 32 * kLeft;          // (32, rs)
+  float* left = left_w + lane * kLeft;
+  float* right = right_w + lane * bd.rs;
+  const int relu0 = 4 * bd.ncb;
+  right[relu0 + 16] = 1.f;
+  float* acc_tab = copies + warp * bd.ltf;
+
+  const int64_t t = blockIdx.x / split;
+  // the warp's rays: a 4x8 pixel block of the tile, which meets fewer
+  // cells per level than a 2x16 row pair (fewer scatter groups)
+  const int wt = (blockIdx.x % split) * warps + warp;   // warp of the tile
+  const int ray = ((wt >> 1) * 4 + (lane >> 3)) * 16 + (wt & 1) * 8
+                  + (lane & 7);
   const int row = ray >> 4;
   const int lane0 = (ray & 15) * kSteps;
   float o[3], d[3];
@@ -194,67 +328,74 @@ hash_backward_kernel(const float* __restrict__ samp,
   const float g_wd = g[3 * kRays], g_odp = g[4 * kRays];
   const int n_steps = k.nc * kSteps;
   float* spre = s_pre + t * n_steps * kRays + ray;   // [q * kRays]
-  __syncthreads();
-  const MlpLayout lay(k);
+  const MlpRows mr(k.enc);
 
-  auto sample_t = [&](int q) {
-    return samp[((t * k.nc + (q >> 3)) * kRows + row) * kLanes + lane0
-                + (q & 7)];
-  };
   auto position = [&](int q, float p[3]) {
-    const float st = sample_t(q);
+    const float st = samp[((t * k.nc + (q >> 3)) * kRows + row) * kLanes
+                          + lane0 + (q & 7)];
 #pragma unroll
     for (int ax = 0; ax < 3; ++ax) p[ax] = add(o[ax], mul(d[ax], st));
   };
 
   // Pass 1: K7f's recurrence over sigma; k_stop = the first step that
-  // adds nothing (T <= stop, or past the live lattice).
+  // adds nothing (T <= stop, or past the live lattice). Two steps at a
+  // time, as K7f: both samples' sigma heads, then the recurrence.
   int k_stop = n_steps;
   {
-    float s = 0.f;
-    for (int q = 0; q < n_steps; ++q) {
-      float dta, mid;
-      if (!(expf(-s) > k.stop) || !step_geometry(q, k, &dta, &mid)) {
-        k_stop = q;
-        break;
+    float s = 0.f, tb = 1.f;
+    for (int q = 0; q < n_steps && k_stop == n_steps; q += 2) {
+      float p[2][3], pre_s[2][kMaxHidden], pre_c[2][kMaxHidden], s2[2];
+      position(q, p[0]);
+      position(q + 1, p[1]);
+      encode_rows_n<false, 2>(p, tab, rows, k, pre_s, pre_c, nullptr);
+      sigma_pre2_rows_n<2>(pre_s, rows, k, s2);
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        float dta, mid;
+        if (!(tb > k.stop) || !step_geometry(q + n, k, &dta, &mid)) {
+          k_stop = q + n;
+          break;
+        }
+        spre[(q + n) * kRays] = s;
+        s = add(s, fmaxf(mul(fmaxf(s2[n], 0.f), dta), 0.f));
+        tb = expf(-s);
       }
-      spre[q * kRays] = s;
-      float p[3], pre_s[kMaxHidden], pre_c[kMaxHidden];
-      position(q, p);
-      encode_dense<false>(p, tab, sc, k, lay, pre_s, pre_c, nullptr);
-      const float sig = fmaxf(sigma_pre2(pre_s, sc, k, lay), 0.f);
-      s = add(s, fmaxf(mul(sig, dta), 0.f));
     }
   }
 
-  // the MLP scalars this thread owns, and their stage columns
-  int own_a[kMaxOwners], own_b[kMaxOwners];
-  float own_acc[kMaxOwners];
+  Tile tiles[kTiles];
+  float acc[kTiles][16];
 #pragma unroll
-  for (int m = 0; m < kMaxOwners; ++m) {
-    own_acc[m] = 0.f;
-    own_a[m] = own_b[m] = 0;
-    const int ow = ray + m * kRays;
-    if (ow < k.n_sc) owner_columns(ow, k, lay, sd, &own_a[m], &own_b[m]);
+  for (int m = 0; m < kTiles; ++m) {
+    tiles[m] = tile_of(lane + 32 * m, bd);
+#pragma unroll
+    for (int x = 0; x < 16; ++x) acc[m][x] = 0.f;
   }
 
-  // Pass 2: the reverse adjoint, one step of every ray at a time.
+  // Pass 2: the reverse adjoint, each warp on its own.
+  const int q_hi = __reduce_max_sync(kFull, k_stop);
   float carry = 0.f;   // sum of gw * w over the ray's later steps
-  float* left = stage_l + ray * sd.ls;
-  float* right = stage_r + ray * sd.rs;
-  for (int q = n_steps - 1; q >= 0; --q) {
+  float tb_next = 0.f;   // expf(-S) of the ray's next step
+  for (int q = q_hi - 1; q >= 0; --q) {
     const bool active = q < k_stop;
-    if (!__syncthreads_or(active)) continue;
-    float p[3];
+    const unsigned act = __ballot_sync(kFull, active);
+    float pp[1][3] = {{0.f, 0.f, 0.f}};
+    float (&p)[3] = pp[0];
     float ds1[kMaxHidden], dc1[kMaxHidden];
+#pragma unroll
+    for (int j = 0; j < kMaxHidden; ++j) ds1[j] = dc1[j] = 0.f;
     if (active) {
       float dta, mid;
       step_geometry(q, k, &dta, &mid);
       position(q, p);
-      float pre_s[kMaxHidden], pre_c[kMaxHidden], c_pre2[3];
-      encode_dense<true>(p, tab, sc, k, lay, pre_s, pre_c, right);
-      const float s_pre2 = sigma_pre2(pre_s, sc, k, lay);
-      color_pre2(pre_c, sc, k, lay, c_pre2);
+      float ps[1][kMaxHidden], pc[1][kMaxHidden], sp2[1], cp2[1][3];
+      encode_rows_n<true, 1>(pp, tab, rows, k, ps, pc, right);
+      sigma_pre2_rows_n<1>(ps, rows, k, sp2);
+      color_pre2_rows_n<1>(pc, rows, k, cp2);
+      const float(&pre_s)[kMaxHidden] = ps[0];
+      const float(&pre_c)[kMaxHidden] = pc[0];
+      const float s_pre2 = sp2[0];
+      const float(&c_pre2)[3] = cp2[0];
       const float sig = fmaxf(s_pre2, 0.f);
       float rgb[3];
 #pragma unroll
@@ -264,7 +405,9 @@ hash_backward_kernel(const float* __restrict__ samp,
       const float x = mul(sig, dta);
       const float od = fmaxf(x, 0.f);
       const float tb = expf(-sp);
-      const float pn = expf(-add(sp, od));
+      // the prefix after this step is the next step's (pass 1's add)
+      const float pn = q == k_stop - 1 ? expf(-add(sp, od)) : tb_next;
+      tb_next = tb;
       const float w = sub(tb, pn);
       const float gw = add(add(add(mul(g_r, rgb[0]), mul(g_g, rgb[1])),
                                mul(g_b, rgb[2])),
@@ -282,135 +425,233 @@ hash_backward_kernel(const float* __restrict__ samp,
         const float t_hi = y2 < 1.f ? 1.f : (y2 > 1.f ? 0.f : 0.5f);
         dc2[ch] = mul(mul(mul(gch[ch], w), t_hi), tie(c_pre2[ch]));
       }
+      float w2[kMaxHidden], cw2[3][kMaxHidden];
+      row8(rows + mr.w2(), hid, w2);
+#pragma unroll
+      for (int ch = 0; ch < 3; ++ch) row8(rows + mr.cw2() + ch * kMaxHidden, hid, cw2[ch]);
 #pragma unroll
       for (int j = 0; j < kMaxHidden; ++j) {
-        ds1[j] = dc1[j] = 0.f;
-        if (j < k.hidden) {
-          ds1[j] = mul(mul(dsig2, sc[lay.sw2 + j]), tie(pre_s[j]));
+        if (j < hid) {
+          ds1[j] = mul(mul(dsig2, w2[j]), tie(pre_s[j]));
           float dh = 0.f;
 #pragma unroll
-          for (int ch = 0; ch < 3; ++ch) {
-            dh = add(dh, mul(dc2[ch], sc[lay.cw2 + ch * k.hidden + j]));
-          }
+          for (int ch = 0; ch < 3; ++ch) dh = add(dh, mul(dc2[ch], cw2[ch][j]));
           dc1[j] = mul(dh, tie(pre_c[j]));
-          left[j] = ds1[j];
-          left[k.hidden + j] = dc1[j];
-          right[k.enc + j] = fmaxf(pre_s[j], 0.f);
-          right[k.enc + k.hidden + j] = fmaxf(pre_c[j], 0.f);
         }
       }
-      left[2 * k.hidden] = dsig2;
+      store4(left, ds1[0], ds1[1], ds1[2], ds1[3]);
+      store4(left + 4, ds1[4], ds1[5], ds1[6], ds1[7]);
+      store4(left + 8, dc1[0], dc1[1], dc1[2], dc1[3]);
+      store4(left + 12, dc1[4], dc1[5], dc1[6], dc1[7]);
+      store4(left + 16, dsig2, dc2[0], dc2[1], dc2[2]);
 #pragma unroll
-      for (int ch = 0; ch < 3; ++ch) left[2 * k.hidden + 1 + ch] = dc2[ch];
-      right[sd.one] = 1.f;
-    } else {
-      for (int i = 0; i < sd.ls; ++i) left[i] = 0.f;
-      for (int i = 0; i < sd.rs; ++i) right[i] = 0.f;
+      for (int h = 0; h < 2; ++h) {
+        const float* pre = h ? pre_c : pre_s;
+        store4(right + relu0 + 8 * h, fmaxf(pre[0], 0.f), fmaxf(pre[1], 0.f),
+               fmaxf(pre[2], 0.f), fmaxf(pre[3], 0.f));
+        store4(right + relu0 + 8 * h + 4, fmaxf(pre[4], 0.f),
+               fmaxf(pre[5], 0.f), fmaxf(pre[6], 0.f), fmaxf(pre[7], 0.f));
+      }
     }
 
-    // d(table): per level, d(encoding), then the cell groups' sums
-    const unsigned act = __ballot_sync(kFull, active);
+    // d(table): per level and feature pair, d(encoding), then the cell
+    // groups' sums into the warp's copy
     for (int l = 0; l < k.n_levels; ++l) {
-      float w[8], denc[kMaxLevels];
+      float w[8] = {0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f, 0.f};
       int ic[3] = {0, 0, 0};
-      if (active) {
-        level_cell(p, k.res[l], w, ic);
-        for (int f = 0; f < n_f; ++f) {
-          const int i = l * n_f + f;
-          float acc = 0.f;
+      if (active) level_cell(p, k.res[l], w, ic);
+      float* acc_l = acc_tab + l * k.t_size * n_f;
+      for (int f = 0; f < n_f; f += 2) {
+        const bool two = f + 1 < n_f;
+        const int i = l * n_f + f;
+        float d0 = 0.f, d1 = 0.f;
+        if (active) {
+          d0 = denc_of(rows + i * MlpRows::kRow, hid, ds1, dc1);
+          if (two) d1 = denc_of(rows + (i + 1) * MlpRows::kRow, hid, ds1, dc1);
+        }
+        // the next group: the active lanes in the lowest pending lane's
+        // cell (the cell is the same in every lane)
+        auto take = [&](unsigned& pending, int cell[3]) {
+          const int leader = __ffs(pending) - 1;
 #pragma unroll
-          for (int j = 0; j < kMaxHidden; ++j) {
-            if (j < k.hidden) {
-              acc = add(acc, add(mul(ds1[j], sc[lay.sw1 + j * k.enc + i]),
-                                 mul(dc1[j], sc[lay.cw1 + j * k.enc + i])));
-            }
+          for (int ax = 0; ax < 3; ++ax) {
+            cell[ax] = __shfl_sync(kFull, ic[ax], leader);
           }
-          denc[f] = acc;
-        }
-      }
-      float* acc_l = acc_tab + (warp / share) * sd.ltf + l * k.t_size * n_f;
-      // lane 4c writes corner c of the group's cell
-      const int c_own = lane >> 2;
-      const bool writer = (lane & 3) == 0;
-      // the warps sharing a copy take their turns in warp order
-      for (int turn = 0; turn < share; ++turn) {
-      if (warp % share == turn) {
-      for (unsigned pending = act; pending;) {    // uniform over the warp
-        // the group: the active lanes in the lowest pending lane's cell
-        const int leader = __ffs(pending) - 1;
-        const int cell[3] = {__shfl_sync(kFull, ic[0], leader),
-                             __shfl_sync(kFull, ic[1], leader),
-                             __shfl_sync(kFull, ic[2], leader)};
-        const bool member = active && ic[0] == cell[0] && ic[1] == cell[1]
-                            && ic[2] == cell[2];
-        pending &= ~__ballot_sync(kFull, member);
-        // serial when two of the cell's corners hash to one entry (every
-        // lane finds the same answer)
-        int keys[8];
+          const bool member = active && ic[0] == cell[0]
+                              && ic[1] == cell[1] && ic[2] == cell[2];
+          pending &= ~__ballot_sync(kFull, member);
+          return member;
+        };
+        // a member's 16 corner terms of both features; non-members add
+        // 0 (w is finite in every lane)
+        auto terms = [&](bool member, float (&v)[16]) {
+          const float m0 = member ? d0 : 0.f, m1 = member ? d1 : 0.f;
 #pragma unroll
-        for (int c = 0; c < 8; ++c) keys[c] = corner_entry(cell, c, k.t_size);
-        bool serial = false;
+          for (int c = 0; c < 8; ++c) {
+            v[2 * c] = mul(w[c], m0);
+            v[2 * c + 1] = mul(w[c], m1);
+          }
+        };
+        // add a group's sums into the copy: lanes 4c and 4c + 2 hold
+        // corner c's sums (features 0, 1); corners that hash to one entry
+        // add in corner order, in the lane of the first of them
+        auto put = [&](const int cell[3], float sum) {
+          const int c_own = lane >> 2;
+          const int key = corner_entry(cell, c_own, k.t_size);
+          const unsigned z = corner_collisions(cell, k.t_size);
+          const bool own_first = (z & earlier_mask(c_own)) == 0;
+          float total = sum;
+          if (z != 0) {   // uniform over the warp
+            total = 0.f;
 #pragma unroll
-        for (int a = 0; a < 8; ++a) {
-#pragma unroll
-          for (int b = a + 1; b < 8; ++b) serial |= keys[a] == keys[b];
-        }
-        const int key = corner_entry(cell, c_own, k.t_size);
-        for (int f = 0; f < n_f; ++f) {
-          const float dv = member ? denc[f] : 0.f;
-          float v[8];
-#pragma unroll
-          for (int c = 0; c < 8; ++c) v[c] = member ? mul(w[c], dv) : 0.f;
-          const float sum = reduce8(v, lane);
-          float* a = acc_l + key * n_f + f;
-          if (!serial) {
-            if (writer) *a = add(*a, sum);
-          } else {            // two corners share an entry: in corner order
             for (int c = 0; c < 8; ++c) {
-              if (lane == 4 * c) *a = add(*a, sum);
-              __syncwarp();
+              const float o = __shfl_sync(kFull, sum, (c << 2) | (lane & 2));
+              if (((z | 1u) >> (c ^ c_own)) & 1u) total = add(total, o);
             }
           }
+          const bool writer = two ? (lane & 1) == 0 : (lane & 3) == 0;
+          if (writer && own_first) {
+            float* a = acc_l + key * n_f + f + ((lane >> 1) & 1);
+            *a = add(*a, total);
+          }
+        };
+        for (unsigned pending = act; pending;) {    // uniform over the warp
+          int ca[3];
+          const bool ma = take(pending, ca);
+          if (two && pending != 0) {   // two groups, butterflies overlapped
+            int cb[3];
+            const bool mb = take(pending, cb);
+            float v[2][16], sums[2];
+            terms(ma, v[0]);
+            terms(mb, v[1]);
+            reduce16<2>(v, lane, sums);
+            put(ca, sums[0]);
+            __syncwarp();   // the second group may share entries
+            put(cb, sums[1]);
+          } else if (two) {
+            float v[1][16], sums[1];
+            terms(ma, v[0]);
+            reduce16<1>(v, lane, sums);
+            put(ca, sums[0]);
+          } else {
+            const float m0 = ma ? d0 : 0.f;
+            float v[8];
+#pragma unroll
+            for (int c = 0; c < 8; ++c) v[c] = mul(w[c], m0);
+            put(ca, reduce8(v, lane));
+          }
+          __syncwarp();   // the next group may share entries
         }
-        __syncwarp();         // the next group may share entries
-      }
-      }
-      if (kShared) __syncthreads();   // the turn's adds are done
       }
     }
-    __syncthreads();   // every ray's stage rows are written
 
+    // the MLP gradient: this step's outer products over the warp's
+    // active rays, in lane order
+    __syncwarp();
+    for (unsigned m = act; m; m &= m - 1) {
+      const int r = __ffs(m) - 1;
+      const float* lr = left_w + r * kLeft;
+      const float* rr = right_w + r * bd.rs;
 #pragma unroll
-    for (int m = 0; m < kMaxOwners; ++m) {
-      if (ray + m * kRays < k.n_sc) {
-        const float* lc = stage_l + own_a[m];
-        const float* rc = stage_r + own_b[m];
-        float part[4] = {0.f, 0.f, 0.f, 0.f};   // rays r = 4i + q
-        for (int r = 0; r < kRays; r += 4) {
+      for (int mm = 0; mm < kTiles; ++mm) {
+        const float4 a = *reinterpret_cast<const float4*>(lr + 4 * tiles[mm].a);
+        const float4 b = *reinterpret_cast<const float4*>(rr + 4 * tiles[mm].b);
+        const float av[4] = {a.x, a.y, a.z, a.w};
+        const float bv[4] = {b.x, b.y, b.z, b.w};
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            part[q] = add(part[q],
-                          mul(lc[(r + q) * sd.ls], rc[(r + q) * sd.rs]));
+        for (int u = 0; u < 4; ++u) {
+#pragma unroll
+          for (int v = 0; v < 4; ++v) {
+            acc[mm][4 * u + v] = fmaf(av[u], bv[v], acc[mm][4 * u + v]);
           }
         }
-        own_acc[m] = add(own_acc[m],
-                         add(add(part[0], part[1]), add(part[2], part[3])));
       }
     }
-    // the next step's __syncthreads_or orders these reads before its writes
+    __syncwarp();   // read before the next step's rows are written
   }
-  __syncthreads();
 
+  // this warp's MLP partials: each scalar from exactly one tile
+  const MlpLayout lay(k);
+  float* pm = part_mlp + (t * kTileWarps + wt) * k.n_sc;
 #pragma unroll
-  for (int m = 0; m < kMaxOwners; ++m) {
-    const int ow = ray + m * kRays;
-    if (ow < k.n_sc) part_mlp[t * k.n_sc + ow] = own_acc[m];
+  for (int mm = 0; mm < kTiles; ++mm) {
+    if (tiles[mm].ok) {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int v = 0; v < 4; ++v) {
+          const int idx = mlp_index(tiles[mm], u, v, k, lay, bd.ncb);
+          if (idx >= 0) pm[idx] = acc[mm][4 * u + v];
+        }
+      }
+    }
   }
-  for (int e = ray; e < sd.ltf; e += kRays) {
-    float v = acc_tab[e];
-    for (int c = 1; c < copies; ++c) v = add(v, acc_tab[c * sd.ltf + e]);
-    part_tab[t * sd.ltf + e] = v;
+  __syncthreads();   // every warp's d(table) adds are done
+  for (int e = threadIdx.x; e < bd.ltf; e += blockDim.x) {
+    float v = copies[e];
+    for (int c = 1; c < warps; ++c) v = add(v, copies[c * bd.ltf + e]);
+    part_tab[(int64_t)blockIdx.x * bd.ltf + e] = v;
   }
+}
+
+using BwdKernel = void (*)(const float*, const float*, const float*,
+                           const float*, const float*, float*, float*,
+                           float*, HashConsts, int);
+
+BwdKernel bwd_kernel(int tiles_per_lane) {
+  switch (tiles_per_lane) {
+    case 1: return hash_backward_kernel<1>;
+    case 2: return hash_backward_kernel<2>;
+    case 3: return hash_backward_kernel<3>;
+    default: return nullptr;
+  }
+}
+
+// The launch configuration of a spec: the instance, warps per block and
+// resident blocks per SM, taking the warps per block (4, 2 or 1) that
+// keep the most warps resident on an SM (the larger block on a tie).
+struct BwdConfig {
+  BwdKernel kernel;
+  int warps, blocks;
+  size_t smem;
+};
+
+cudaError_t bwd_config(const BwdDims& bd, BwdConfig* cfg) {
+  cfg->kernel = bwd_kernel((bd.n_tiles + 31) / 32);
+  if (cfg->kernel == nullptr) return cudaErrorInvalidValue;
+  int dev = 0, limit = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(
+        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaFuncSetAttribute(
+        cfg->kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, limit);
+  }
+  if (err != cudaSuccess) return err;
+  cfg->warps = 0;
+  int best = 0;
+  for (int warps = kMaxBlockWarps; warps >= 1; warps /= 2) {
+    const size_t smem = bwd_smem(bd, warps);
+    if (smem > (size_t)limit) continue;
+    int blocks = 0;
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &blocks, cfg->kernel, 32 * warps, smem);
+    if (err != cudaSuccess) return err;
+    if (blocks * warps > best) {
+      best = blocks * warps;
+      cfg->warps = warps;
+      cfg->blocks = blocks;
+      cfg->smem = smem;
+    }
+  }
+  return cfg->warps == 0 ? cudaErrorInvalidValue : cudaSuccess;
+}
+
+bool spec_ok(int n_levels, int n_feat, int hidden) {
+  return n_levels >= 1 && n_feat >= 1 && n_levels * n_feat <= kMaxLevels
+         && hidden >= 1 && hidden <= kMaxHidden;
 }
 
 }  // namespace
@@ -421,41 +662,48 @@ extern "C" int dvt_hash_backward(
     float* s_pre, int n_tiles, int nc, int k_max, int n_levels, int n_feat,
     int t_size, int hidden, float dt, float t_near, float t_far,
     float t_stop, float stop, const float* res, void* stream) {
-  if (n_levels < 1 || n_levels * n_feat > kMaxLevels || hidden < 1
-      || hidden > kMaxHidden) {
-    return (int)cudaErrorInvalidValue;
-  }
+  if (!spec_ok(n_levels, n_feat, hidden)) return (int)cudaErrorInvalidValue;
   const HashConsts k = make_consts(nc, k_max, n_levels, n_feat, t_size,
                                    hidden, dt, t_near, t_far, t_stop, stop,
                                    res);
-  if (k.n_sc > kMaxOwners * kRays) return (int)cudaErrorInvalidValue;
-  int dev = 0, limit = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaDeviceGetAttribute(
-        &limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
-  }
-  if (err != cudaSuccess) return (int)err;
-  // the most d(table) copies that fit: 8, 4, 2 or 1
-  int copies = kWarps;
-  while (copies > 1
-         && smem_floats(n_levels, n_feat, t_size, hidden, copies) * 4
-                > limit) {
-    copies /= 2;
-  }
-  const int smem = smem_floats(n_levels, n_feat, t_size, hidden, copies) * 4;
-  const auto kernel = copies == kWarps ? hash_backward_kernel<false>
-                                       : hash_backward_kernel<true>;
-  err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-  if (err != cudaSuccess) {   // even one copy does not fit
+  BwdConfig cfg;
+  const cudaError_t err =
+      bwd_config(bwd_dims(n_levels, n_feat, t_size, hidden), &cfg);
+  if (err != cudaSuccess) {   // the spec does not fit
     cudaGetLastError();       // clear it: the next launch is unaffected
     return (int)err;
   }
+  const int split = kTileWarps / cfg.warps;
   if (n_tiles > 0) {
-    kernel<<<n_tiles, kRays, smem, (cudaStream_t)stream>>>(
-        samp, rayt, table, sc, gs, part_tab, part_mlp, s_pre, k,
-        kWarps / copies);
+    cfg.kernel<<<n_tiles * split, 32 * cfg.warps, cfg.smem,
+                 (cudaStream_t)stream>>>(samp, rayt, table, sc, gs, part_tab,
+                                         part_mlp, s_pre, k, split);
   }
   return (int)cudaGetLastError();
+}
+
+// K7b's registers, static and dynamic shared memory (bytes per block),
+// local memory (bytes per thread), resident blocks per SM, warps per
+// block and product tiles per lane at a spec.
+extern "C" int dvt_hash_backward_occupancy(int n_levels, int n_feat,
+                                           int t_size, int hidden, int* out) {
+  if (!spec_ok(n_levels, n_feat, hidden)) return (int)cudaErrorInvalidValue;
+  const BwdDims bd = bwd_dims(n_levels, n_feat, t_size, hidden);
+  BwdConfig cfg;
+  cudaError_t err = bwd_config(bd, &cfg);
+  if (err != cudaSuccess) {
+    cudaGetLastError();
+    return (int)err;
+  }
+  cudaFuncAttributes fa;
+  err = cudaFuncGetAttributes(&fa, cfg.kernel);
+  if (err != cudaSuccess) return (int)err;
+  out[0] = fa.numRegs;
+  out[1] = (int)fa.sharedSizeBytes;
+  out[2] = (int)fa.localSizeBytes;
+  out[3] = (int)cfg.smem;
+  out[4] = cfg.blocks;
+  out[5] = cfg.warps;
+  out[6] = (bd.n_tiles + 31) / 32;
+  return (int)cudaSuccess;
 }

@@ -2,10 +2,11 @@
 fast path.
 
 Counterpart of ``dvren_tpu/ops/hash_tiles.py``: the Pallas
-``_fwd_kernel`` becomes ``csrc/hash_tiles.cu`` and ``_bwd_kernel``
-becomes ``csrc/hash_tiles_bwd.cu`` (one block per 16x16 tile, one thread
-per ray), with the plain PyTorch twins :func:`hash_tile_forward_plain`
-and :func:`hash_tile_backward_plain` beside them. The whole pipeline of a
+``_fwd_kernel`` becomes ``csrc/hash_tiles.cu`` (one block per 16x16 tile)
+and ``_bwd_kernel`` becomes ``csrc/hash_tiles_bwd.cu`` (a tile's rays
+over one to eight blocks, each warp on its own), one thread per ray,
+with the plain PyTorch twins :func:`hash_tile_forward_plain` and
+:func:`hash_tile_backward_plain` beside them. The whole pipeline of a
 sample (hash encoding, trilinear feature interpolation, both MLP heads,
 the transmittance recurrence with exact early stop) runs inside the
 kernel: the schedule is only the frame's tile layout.
@@ -13,19 +14,23 @@ kernel: the schedule is only the frame's tile layout.
 The TPU's (8, 128) table block (``table_block``) and its lane gathers
 have no counterpart: both kernels hold the (L, T, F) table as it is in
 shared memory. The MLP head parameters travel as one packed scalar vector
-(:func:`pack_mlp_scalars`, offsets :func:`_mlp_layout`). K7b writes
-per-tile partial gradients in the table's (L, T, F) order and the packed
-scalar order; :func:`hash_tile_backward` sums them over the tiles and
+(:func:`pack_mlp_scalars`, offsets :func:`_mlp_layout`), which the
+kernels copy into feature-major rows of their own. K7b writes partial
+gradients (per block in the table's (L, T, F) order, per warp in the
+packed scalar order); :func:`hash_tile_backward` sums them and
 :func:`grads_from_blocks` maps them to the params dict.
 
 :func:`hash_tile_forward` and :func:`hash_tile_backward` launch their
 kernels for CUDA tensors and run the plain twins for CPU tensors; their
-``.launches`` attributes count launches.
+``.launches`` attributes count launches. :func:`processed_steps` counts
+the samples the kernels process (each ray's steps before its stop);
+:func:`kernel_occupancy` reads the kernels' resources from the runtime.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 from dataclasses import dataclass
 
@@ -240,17 +245,20 @@ class _Steps:
         return [o.reshape(shape) for o in out], enc, pre, (px, py, pz)
 
 
-def hash_tile_forward_plain(samp, rayt, table, sc,
-                            prm: HashTileParams) -> torch.Tensor:
+def hash_tile_forward_plain(samp, rayt, table, sc, prm: HashTileParams,
+                            return_counts: bool = False):
     """Plain twin of K7f, vectorised over tiles and rays; loops over
     chunks and over the 8 steps of the recurrence, in the kernel's order
-    of arithmetic."""
+    of arithmetic. With ``return_counts`` also each ray's count of
+    processed steps, (T, 256) int64: the steps whose weight the
+    recurrence takes (live, and T before the step above ``stop``)."""
     steps = _Steps(samp, rayt, prm)
     mlp = _mlp_from_scalars(sc, prm.spec)
     zeros = torch.zeros((steps.t_cnt, RAYS_PER_TILE), dtype=torch.float32,
                         device=steps.dev)
     acc = [zeros] * 5                # r, g, b, w*mid, processed od
     s = zeros
+    count = torch.zeros_like(zeros, dtype=torch.int64)
     for c in range(steps.nc):
         (sig, cr, cg, cb), _, _, _ = steps.planes(c, table, mlp)
         livef, dta, mid = steps.time(c)
@@ -265,9 +273,35 @@ def hash_tile_forward_plain(samp, rayt, table, sc,
             part = [part[0] + wgt * cr[..., j], part[1] + wgt * cg[..., j],
                     part[2] + wgt * cb[..., j], part[3] + wgt * mid[..., j],
                     part[4] + od_j * procf]
+            count += (procf > 0).to(torch.int64)
             s = s + od_j
         acc = [a + b for a, b in zip(acc, part)]
-    return torch.stack(acc, dim=1).reshape(steps.t_cnt, 5, ROWS, RAYS_COLS)
+    out = torch.stack(acc, dim=1).reshape(steps.t_cnt, 5, ROWS, RAYS_COLS)
+    return (out, count) if return_counts else out
+
+
+def processed_steps(samp, rayt, table, sc, prm: HashTileParams):
+    """Each ray's processed steps, (T, 256) int64: the samples K7f and K7b
+    run (K7b's pass-1 bound, ``k_stop``), from the sigma head's optical-
+    depth prefix. A ray stops at its first step whose transmittance
+    before it is at most ``stop``, or at the end of its live lattice (the
+    lattice is live up to a step, the same for every ray); every step
+    from there adds nothing. Runs on the tensors' device."""
+    steps = _Steps(samp, rayt, prm)
+    mlp = _mlp_from_scalars(sc, prm.spec)
+    s = torch.zeros((steps.t_cnt, RAYS_PER_TILE), dtype=torch.float32,
+                    device=steps.dev)
+    going = torch.ones_like(s, dtype=torch.bool)
+    count = torch.zeros_like(s, dtype=torch.int64)
+    for c in range(steps.nc):
+        sig = steps.planes(c, table, mlp)[0][0]
+        livef, dta, _ = steps.time(c)
+        od = torch.clamp_min(sig * dta, 0.0)
+        for j in range(GROUP):
+            going &= (livef[..., j] > 0) & (torch.exp(-s) > steps.stop)
+            count += going.to(torch.int64)
+            s = s + od[..., j]
+    return count
 
 
 def hash_tile_backward_plain(samp, rayt, table, sc, gs,
@@ -405,16 +439,16 @@ def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
     """K7b: (d_table (L, T, F), d_mlp (P,)) for the cotangent ``gs``
     (T, 5, 16, 16) f32 of :func:`hash_tile_forward`'s output.
 
-    Launches ``csrc/hash_tiles_bwd.cu``, which writes per-tile partials,
-    and sums them over the tiles (``torch.sum``: a fixed order, so repeat
-    runs are bit-identical) for CUDA tensors; runs
-    :func:`hash_tile_backward_plain` for CPU tensors.
+    Launches ``csrc/hash_tiles_bwd.cu``, which writes partials (d(table)
+    per block, d(MLP) per warp), and sums them over their first axis
+    (``torch.sum``: a fixed order, so repeat runs are bit-identical) for
+    CUDA tensors; runs :func:`hash_tile_backward_plain` for CPU tensors.
 
-    The kernel keeps the (L, T, F) table and copies of d(table) in shared
-    memory: one per warp where they fit (on the H100 up to L*F = 33 at
-    T=128 and hidden 8), else one for every 2, 4 or 8 warps, which add
-    into it in turn. So it takes every spec :func:`fast_path_ok` admits
-    (L*F <= 64)."""
+    The kernel keeps the (L, T, F) table, a d(table) copy per warp and
+    the warps' stage rows in shared memory, with 4, 2 or 1 warps per
+    block (whichever keeps the most warps resident on an SM; 8 / warps
+    blocks per tile), so it takes every spec :func:`fast_path_ok` admits
+    (L*F <= 64 at T=128); a spec that does not fit raises."""
     t_cnt = int(samp.shape[0])
     _check_inputs(samp, rayt, table, sc, prm,
                   extra=(("gs", gs, (t_cnt, 5, ROWS, RAYS_COLS)),))
@@ -423,9 +457,13 @@ def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
     spec = prm.spec
     dev = samp.device
     n_sc = int(sc.shape[0])
-    part_tab = torch.empty((t_cnt, spec.hash_table_size),
+    warps = kernel_occupancy(spec, dev.index)["hash_tiles_bwd"][
+        "warps_per_block"]
+    part_tab = torch.empty((t_cnt * (RAYS_PER_TILE // 32 // warps),
+                            spec.hash_table_size),
                            dtype=torch.float32, device=dev)
-    part_mlp = torch.empty((t_cnt, n_sc), dtype=torch.float32, device=dev)
+    part_mlp = torch.empty((t_cnt * (RAYS_PER_TILE // 32), n_sc),
+                           dtype=torch.float32, device=dev)
     s_pre = torch.empty((t_cnt, prm.n_chunks * GROUP, RAYS_PER_TILE),
                         dtype=torch.float32, device=dev)
     res, consts = _kernel_args(prm)
@@ -440,6 +478,40 @@ def hash_tile_backward(samp, rayt, table, sc, gs, prm: HashTileParams):
     hash_tile_backward.launches += 1
     return (part_tab.sum(dim=0).reshape(table.shape),
             part_mlp.sum(dim=0))
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(n_levels: int, n_feat: int, t_size: int, hidden: int,
+               device: int) -> dict:
+    lib = _build.library()
+    out = {}
+    for name, fn, keys in (
+            ("hash_tiles", lib.dvt_hash_forward_occupancy,
+             ("registers", "static_smem", "local_bytes", "dynamic_smem",
+              "blocks_per_sm")),
+            ("hash_tiles_bwd", lib.dvt_hash_backward_occupancy,
+             ("registers", "static_smem", "local_bytes", "dynamic_smem",
+              "blocks_per_sm", "warps_per_block", "tiles_per_lane"))):
+        vals = (ctypes.c_int * 8)()
+        with torch.cuda.device(device):
+            code = fn(n_levels, n_feat, t_size, hidden,
+                      ctypes.cast(vals, ctypes.c_void_p))
+        _build.check(code, f"{name} occupancy")
+        out[name] = dict(zip(keys, list(vals)))
+    return out
+
+
+def kernel_occupancy(spec: HashMLPSpec, device: int | None = None) -> dict:
+    """K7f's and K7b's registers, static and dynamic shared memory (bytes
+    per block), local memory (bytes per thread: stack and spills) and
+    resident blocks per SM at ``spec`` on CUDA device ``device`` (the
+    current one by default), from the CUDA runtime; K7b also its warps
+    per block and its product tiles per lane."""
+    if device is None:
+        device = torch.cuda.current_device()
+    occ = _occupancy(spec.n_levels, spec.features_per_level,
+                     spec.table_size, spec.hidden_dim, int(device))
+    return {k: dict(v) for k, v in occ.items()}
 
 
 hash_tile_backward.launches = 0

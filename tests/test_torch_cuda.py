@@ -14,7 +14,10 @@ on d(table) and 1e-5 x scale on d(rayt), the backward on the card within
 kernel's repeat runs bit for bit. The hash-MLP kernels: K7f and the hash
 Renderer.forward within 5e-6 (depth 1e-4), K7b within 2e-5 x scale (the
 JAX package's bound for its own kernel, tests/test_hash_tiled.py:114),
-fit_hash_mlp's losses on the card within 1e-5 relative of the CPU's.
+fit_hash_mlp's losses on the card within 1e-5 relative of the CPU's;
+both at the edges of the specs fast_path_ok admits (L*F 2 to 64, F 1 to
+8, hidden 1, 3, 8, T 1, 16, 128) on a scene with pad tiles, and on the
+fit's four-view stack with an opaque teacher whose rays stop early.
 The hash-grid kernels: K8f within 5e-6 (depth 1e-4), K8b within 2e-5 x
 scale on its slot rows and MLP gradients, repeat runs and two backwards
 of render_hash_grid_tiled under torch.use_deterministic_algorithms bit
@@ -470,6 +473,93 @@ def test_hash_backward_shared_memory_limit(cuda_device, n_levels):
     assert float(d_tab.abs().max()) > 0.0
     again = hash_tiles.hash_tile_backward(*args, gs, prm)
     assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_sc)
+
+
+# (n_levels, features_per_level, table_size, hidden_dim): the edges of
+# what fast_path_ok admits, L*F 2, 16, 33, 34 and 64 (F 1, 2, 3, 4, 8),
+# hidden 1, 3 and 8, T 1, 16 and 128
+EDGE_SPECS = ((2, 1, 1, 1), (1, 2, 16, 3), (8, 2, 128, 8), (11, 3, 128, 8),
+              (33, 1, 16, 3), (17, 2, 128, 8), (32, 2, 128, 8),
+              (8, 8, 128, 1), (16, 4, 1, 3))
+
+
+def _check_k7(plan, spec, sched, params, gen, opaque_rays=False):
+    """K7f and K7b against their twins on one schedule (every tile, pad
+    tiles too), repeats bit for bit; returns the rays that stop early."""
+    prm = hash_tiles.hash_tile_params(plan, spec, sched.n_chunks)
+    args = (sched.samp, sched.rayt, params["hash_table"].detach().contiguous(),
+            hash_tiles.pack_mlp_scalars(params, spec).detach())
+    out = hash_tiles.hash_tile_forward(*args, prm)
+    plain = hash_tiles.hash_tile_forward_plain(*args, prm)
+    assert bool(torch.isfinite(out).all())
+    (r, g, b), t, o, d = fused_tiles.finalize_heads(plan, out)
+    (r2, g2, b2), t2, o2, d2 = fused_tiles.finalize_heads(plan, plain)
+    for x, y in ((r, r2), (g, g2), (b, b2), (t, t2), (o, o2)):
+        assert float((x - y).abs().max()) <= TOL
+    assert float((d - d2).abs().max()) <= TOL_DEPTH
+    assert torch.equal(hash_tiles.hash_tile_forward(*args, prm), out)
+    gs = torch.randn((sched.samp.shape[0], 5, 16, 16), generator=gen,
+                     device=sched.samp.device)
+    d_tab, d_sc = hash_tiles.hash_tile_backward(*args, gs, prm)
+    p_tab, p_sc = hash_tiles.hash_tile_backward_plain(*args, gs, prm)
+    for got, want in ((d_tab, p_tab), (d_sc, p_sc)):
+        assert bool(torch.isfinite(got).all())
+        _close(got, want, HASH_GRAD_TOL)
+    assert float(d_tab.abs().max()) > 0.0
+    again = hash_tiles.hash_tile_backward(*args, gs, prm)
+    assert torch.equal(again[0], d_tab) and torch.equal(again[1], d_sc)
+    no_stop = hash_tiles.hash_tile_forward_plain(
+        *args, dataclasses.replace(prm, stop=0.0))
+    return int((plain[:, 4] < no_stop[:, 4]).sum())
+
+
+@pytest.mark.parametrize("dims", EDGE_SPECS)
+def test_hash_kernels_at_the_spec_edges(cuda_device, dims):
+    """K7f within 5e-6 of its twin (depth 1e-4) and K7b within 2e-5 x
+    scale of its float64 twin at every edge of the specs fast_path_ok
+    admits, on the 24x20 stratified scene (4 tiles and 4 pad tiles), the
+    field a seeded uniform blob with positive first-layer biases, sigma_w2
+    and sigma_b2 (so neither head is dead and every gradient is nonzero);
+    repeats equal bit for bit."""
+    n_levels, n_feat, t_size, hidden = dims
+    spec = P.HashMLPSpec(n_levels=n_levels, features_per_level=n_feat,
+                         table_size=t_size, hidden_dim=hidden)
+    assert hash_tiles.fast_path_ok(spec)
+    plan, _ = hash_scene("stratified")
+    flat = np.random.default_rng(n_levels * 100 + n_feat).uniform(
+        -0.5, 0.5, spec.param_count).astype(np.float32)
+    field = P.HashMLPField.create(P.HashMLPConfig(spec=spec, params=flat),
+                                  device=cuda_device)
+    params = {k: v.detach().clone() for k, v in field.params.items()}
+    for key in ("sigma_b1", "color_b1", "sigma_b2"):
+        params[key] = params[key].abs() + 0.5
+    params["sigma_w2"] = params["sigma_w2"].abs()
+    sched = hash_tiled.build_hash_schedule(plan, device=cuda_device)
+    pads = int((sched.tile_ids == hash_tiled._DROP_TILE).sum())
+    assert pads > 0
+    _check_k7(plan, spec, sched, params,
+              torch.Generator(device=cuda_device).manual_seed(5))
+
+
+def test_hash_kernels_on_the_fit_stack(cuda_device):
+    """The fit's four-view stack (chip_smoke.py phase 14 at 32^2), for an
+    opaque teacher (table std 1, sigma_b2 + 5): rays stop early; K7f and
+    K7b against their twins on every tile, repeats bit for bit."""
+    import chip_smoke as cs
+
+    f_plan, cams = cs.hash_fit_setup(P, width=32)
+    spec = P.HashMLPSpec(n_levels=8, table_size=128, base_resolution=2.0,
+                         finest_resolution=48.0)
+    stack = hash_tiled.build_hash_schedule_stack(
+        fit.view_plans(f_plan, cams), device=cuda_device)
+    teacher = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                         spec=spec, table_std=1.0,
+                                         device=cuda_device)
+    opaque = {k: v.detach().clone() for k, v in teacher.params.items()}
+    opaque["sigma_b2"] += cs.OPAQUE_BIAS
+    early = _check_k7(f_plan, spec, stack, opaque,
+                      torch.Generator(device=cuda_device).manual_seed(9))
+    assert early > 0
 
 
 @pytest.mark.parametrize("name", ["stratified", "roi", "l8"])
