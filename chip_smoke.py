@@ -34,7 +34,8 @@ when it fails:
 
 1. print the card's name and power limit; build the CUDA kernels from
    ``dvren_tpu_torch/csrc`` and print the build time;
-2. K3 (packed-table build) against its plain twin at 64^3: bit-exact;
+2. K3 (packed-table build) against its plain twin at 64^3: bit-exact,
+   as 32-bit words;
 3. build the headline schedule (no overflow rays allowed);
 4. K1 (fused tile forward), one launch over every tile group, against
    its plain twin run group by group: bit for bit;
@@ -44,12 +45,14 @@ when it fails:
    rendered on the card matches the plain path on the CPU;
 6. times, with CUDA events, after warm-up: the forward per frame (the
    schedule excluded) and its stages, and each kernel beside its plain
-   twin;
+   twin; K3 also on the device alone (``device_ms``: the stream sleeps
+   while the host queues the calls) beside its time as issued;
 7. K2 (fused tile backward), one launch over every tile group, against
    its plain twin run group by group, with and without the camera
    adjoint, for a seeded random cotangent: bit for bit, two runs too; its
    distance from the twin summing in float64 printed;
 8. K4 (table-gradient unpack) against its plain twin at 64^3: bit-exact;
+   timed in phase 10 on the device alone and as issued;
 9. ``Renderer.backward`` under ``torch.use_deterministic_algorithms``:
    finite, nonzero grid and camera gradients, within tolerance of the
    plain path on the card, two calls equal bit for bit; the small test
@@ -140,8 +143,9 @@ when it fails:
     scale (bfloat16) of the plain path; four SGD steps on the float32
     bricks (K1 and K2 alone; the loss falls);
 27. times with CUDA events: the 16-bit and sparse frames and steps beside
-    their plain paths, K5a and K5b beside their twins and the one
-    PyTorch call that computes the TPU kernel's function (a transpose:
+    their plain paths, K5a and K5b (on the device alone, and as issued)
+    beside their twins and the one PyTorch call that computes the TPU
+    kernel's function (a transpose:
     ``stack.t().contiguous()`` of the (32, R) 16-bit stack,
     ``rows.t().contiguous()`` of the (R, 32) float32 rows), and the peak
     device memory each adds;
@@ -208,7 +212,9 @@ when it fails:
     fallback group, within 1e-5 (depth as in 38) of the 16 px supercell
     frame (phase 28's form); its autograd backward (K2 and K9b launch) twice,
     bit for bit; four SGD steps at lr 1e-3 x 786,432 (the loss falls);
-    times and peak device memory;
+    times and peak device memory; K3 and K4 at 128^3 (the fine grid's
+    field, a seeded table gradient) against their twins as 32-bit words,
+    each timed on the device alone and as issued beside its twin;
 40. ``fit_dense_grid(mode="windowed")`` at the flagship (phase 36's
     scene, targets, rate and cap): K9f and K9b once per stack group per
     step, the loss falls; steps to PSNR 35, ``schedule_build_s``,
@@ -518,6 +524,14 @@ def device_ms(torch, fn, iters, warmup=2):
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def packed_times(torch, kernel, plain, iters=50):
+    """(device ms, issued ms) of a packed-table kernel's wrapper and the
+    device ms of its plain twin: a 40 us kernel's back-to-back calls can
+    be paced by the wrapper's host cost, so its row reports the device."""
+    return (device_ms(torch, kernel, iters), cuda_ms(torch, kernel, iters),
+            device_ms(torch, plain, 10))
 
 
 def head_errors(torch, fused_tiles, plan, a, b):
@@ -893,23 +907,23 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
     for name, dt in dtypes.items():
         stack = _shift_stack_fullpitch(sigma, color, n_rows).to(dt)
         rows32 = tg16[name].float()
+        k5a, k5a_issued, k5a_plain = packed_times(
+            torch, lambda dt=dt: packed_transpose.build_rows16(
+                sigma, color, dt),
+            lambda dt=dt: packed_transpose.build_rows16_plain(
+                sigma, color, dt))
+        k5b, k5b_issued, k5b_plain = packed_times(
+            torch, lambda tg=tg16[name]:
+            packed_transpose.table16_grad_to_params(tg, sigma.shape),
+            lambda tg=tg16[name]:
+            packed_transpose.table16_grad_to_params_plain(tg, sigma.shape))
         k5[name] = {
-            "k5a": cuda_ms(torch, lambda dt=dt: packed_transpose.build_rows16(
-                sigma, color, dt), 50),
-            "k5a_plain": cuda_ms(
-                torch, lambda dt=dt: packed_transpose.build_rows16_plain(
-                    sigma, color, dt), 50),
-            "k5a_library": cuda_ms(torch, lambda s=stack: s.t().contiguous(),
-                                   50),
-            "k5b": cuda_ms(
-                torch, lambda tg=tg16[name]:
-                packed_transpose.table16_grad_to_params(tg, sigma.shape), 50),
-            "k5b_plain": cuda_ms(
-                torch, lambda tg=tg16[name]:
-                packed_transpose.table16_grad_to_params_plain(
-                    tg, sigma.shape), 20),
-            "k5b_library": cuda_ms(torch, lambda r=rows32: r.t().contiguous(),
-                                   50)}
+            "k5a": k5a, "k5a_issued": k5a_issued, "k5a_plain": k5a_plain,
+            "k5a_library": device_ms(torch,
+                                     lambda s=stack: s.t().contiguous(), 50),
+            "k5b": k5b, "k5b_issued": k5b_issued, "k5b_plain": k5b_plain,
+            "k5b_library": device_ms(torch,
+                                     lambda r=rows32: r.t().contiguous(), 50)}
     n_rays = plan.ray_count
     print("16-bit and sparse times ms: " + ", ".join(
         f"{k} {v:.4f}" for k, v in times.items()), flush=True)
@@ -919,10 +933,12 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
     print("peak device memory added MiB: " + ", ".join(
         f"{k} {v:.1f}" for k, v in peaks.items()), flush=True)
     for name, t in k5.items():
-        print(f"{name}: K5a {t['k5a']:.4f} ms (plain {t['k5a_plain']:.4f}, "
+        print(f"{name}, device ms: K5a {t['k5a']:.4f} ({t['k5a_issued']:.4f}"
+              f" as issued; plain {t['k5a_plain']:.4f}, "
               f"stack.t().contiguous() {t['k5a_library']:.4f}); K5b "
-              f"{t['k5b']:.4f} ms (plain {t['k5b_plain']:.4f}, "
-              f"rows.t().contiguous() {t['k5b_library']:.4f})", flush=True)
+              f"{t['k5b']:.4f} ({t['k5b_issued']:.4f} as issued; plain "
+              f"{t['k5b_plain']:.4f}, rows.t().contiguous() "
+              f"{t['k5b_library']:.4f})", flush=True)
 
     t16 = packed_transpose.build_rows16(sigma, color, torch.bfloat16)
     k5b_out = packed_transpose.table16_grad_to_params(tg16["bfloat16"],
@@ -933,6 +949,7 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
          "replaces": "dvren_tpu/ops/packed_transpose.py:40",
          "launches": fwd16["bfloat16"]["launches"]["packed_table16"],
          "max_abs_err": k5a_err, "ms": k5["bfloat16"]["k5a"],
+         "issued_ms": k5["bfloat16"]["k5a_issued"],
          "plain_ms": k5["bfloat16"]["k5a_plain"],
          **bound(nbytes(sigma, color, t16), 0),
          "library_ms": k5["bfloat16"]["k5a_library"]},
@@ -941,6 +958,7 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
          "replaces": "dvren_tpu/ops/packed_transpose.py:63",
          "launches": bf16_launches["packed_table16_bwd"],
          "max_abs_err": k5b_err, "ms": k5["bfloat16"]["k5b"],
+         "issued_ms": k5["bfloat16"]["k5b_issued"],
          "plain_ms": k5["bfloat16"]["k5b_plain"],
          **bound(nbytes(tg16["bfloat16"], *k5b_out),
                  8 * sum(x.numel() for x in k5b_out)),
@@ -3023,6 +3041,45 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
           f"at lr {LR} x {n_values}: loss {flosses}; times ms [{card}]: frame "
           f"{fframe_ms:.4f}, SGD step {fstep_ms:.4f}; peak device memory "
           f"{fpeak:.1f} MiB", flush=True)
+    # K3 and K4 at 128^3 against their twins, as 32-bit words, and timed
+    fsig, fcol = ffield.sigma, ffield.color
+    ftg = torch.randn((packed_transpose.fullpitch_rows(fsig.shape), 32),
+                      generator=gen, device=dev)
+    ftable = packed_transpose.build_rows(fsig, fcol)
+    fgrad = packed_transpose.table_grad_to_params(ftg, fsig.shape)
+    torch.cuda.synchronize()
+    require(torch.equal(words(ftable), words(
+        packed_transpose.build_rows_plain(fsig, fcol))),
+            "K3 differs from its plain twin at 128^3")
+    require(all(torch.equal(words(a), words(b)) for a, b in zip(
+        fgrad, packed_transpose.table_grad_to_params_plain(ftg, fsig.shape))),
+            "K4 differs from its plain twin at 128^3")
+    fk3 = packed_times(torch, lambda: packed_transpose.build_rows(fsig, fcol),
+                       lambda: packed_transpose.build_rows_plain(fsig, fcol))
+    fk4 = packed_times(
+        torch, lambda: packed_transpose.table_grad_to_params(ftg, fsig.shape),
+        lambda: packed_transpose.table_grad_to_params_plain(ftg, fsig.shape))
+    print(f"K3 and K4 == plain at 128^3, as 32-bit words; ms [{card}]: K3 "
+          f"{fk3[0]:.4f} on the device, {fk3[1]:.4f} as issued (plain "
+          f"{fk3[2]:.4f}); K4 {fk4[0]:.4f}, {fk4[1]:.4f} (plain "
+          f"{fk4[2]:.4f}); launches: frame {c_t['packed_table']} K3, "
+          f"backward {b_t['packed_table_bwd']} K4", flush=True)
+    require(c_t["packed_table"] == 1 and b_t["packed_table_bwd"] == 1,
+            "the fallback frame and backward did not launch K3 and K4 once")
+    for name, src, line, (ms, issued, plain_ms), launches, n_bytes in (
+            ("packed_table", "packed_table.cu", 81, fk3, c_t["packed_table"],
+             nbytes(fsig, fcol, ftable)),
+            ("packed_table_bwd", "packed_table_bwd.cu", 119, fk4,
+             b_t["packed_table_bwd"], nbytes(ftg, *fgrad))):
+        kernels.append({
+            "name": f"{name}:128", "route": "cuda",
+            "source": f"dvren_tpu_torch/csrc/{src}",
+            "replaces": f"dvren_tpu/ops/packed_transpose.py:{line}",
+            "launches": launches, "max_abs_err": 0.0, "ms": ms,
+            "issued_ms": issued, "plain_ms": plain_ms,
+            **bound(n_bytes, 0)})
+    report["packed_128"] = {"k3": fk3, "k4": fk4}
+    del ftable, fgrad, ftg
     report["fallback_16px"] = {
         "fallback_rays": fsched.fallback_rays, "fallback_groups": n_fb,
         "tile_groups": len(fsched.groups), "build_s": fbuild_s,
@@ -3702,7 +3759,8 @@ def run(only: str = "all") -> dict:
     rows_k = packed_transpose.build_rows(sigma, color)
     rows_p = packed_transpose.build_rows_plain(sigma, color)
     torch.cuda.synchronize()
-    require(torch.equal(rows_k, rows_p), "K3 differs from its plain twin")
+    require(torch.equal(words(rows_k), words(rows_p)),
+            "K3 differs from its plain twin")
     print(f"K3 == plain, bit for bit: {tuple(rows_k.shape)}", flush=True)
 
     # 3. the headline schedule
@@ -3805,10 +3863,9 @@ def run(only: str = "all") -> dict:
           f"ms); Renderer.forward with host copies {host_ms:.4f} ms/frame; "
           f"peak device memory {peak_mb:.1f} MiB", flush=True)
 
-    k3_ms = cuda_ms(torch, lambda: packed_transpose.build_rows(sigma, color),
-                    50)
-    k3_plain_ms = cuda_ms(
-        torch, lambda: packed_transpose.build_rows_plain(sigma, color), 50)
+    k3_ms, k3_issued_ms, k3_plain_ms = packed_times(
+        torch, lambda: packed_transpose.build_rows(sigma, color),
+        lambda: packed_transpose.build_rows_plain(sigma, color))
     gather_ms = cuda_ms(
         torch, lambda: tiled._gather_banks_flat(rows_k, sched.gathermap_all),
         20)
@@ -3819,7 +3876,8 @@ def run(only: str = "all") -> dict:
     ids = [g.tile_ids for g in sched.groups]
     compose_ms = cuda_ms(torch, lambda: tiled._compose_tiles(plan, [raw], ids),
                          20)
-    print(f"stages ms/frame: K3 {k3_ms:.4f} (plain {k3_plain_ms:.4f}), "
+    print(f"stages ms/frame: K3 {k3_issued_ms:.4f} as issued, "
+          f"{k3_ms:.4f} on the device (plain {k3_plain_ms:.4f}), "
           f"bank gather {gather_ms:.4f}, K1 {k1_ms:.4f} in 1 launch over "
           f"{n_groups} groups (plain {k1_plain_ms:.4f}), compose "
           f"{compose_ms:.4f}", flush=True)
@@ -4005,18 +4063,17 @@ def run(only: str = "all") -> dict:
         tabs, tiles, gs, prm), 1, warmup=1)
     reduce_ms = cuda_ms(torch, lambda: gather_plan.slot_rows_to_table(
         all_rows, sched.gather_plan, n_rows), 20)
-    k4_ms = cuda_ms(torch, lambda: packed_transpose.table_grad_to_params(
-        tg, sigma.shape), 50)
-    k4_plain_ms = cuda_ms(
-        torch, lambda: packed_transpose.table_grad_to_params_plain(
-            tg, sigma.shape), 20)
+    k4_ms, k4_issued_ms, k4_plain_ms = packed_times(
+        torch, lambda: packed_transpose.table_grad_to_params(tg, sigma.shape),
+        lambda: packed_transpose.table_grad_to_params_plain(tg, sigma.shape))
     print(f"training step {step_ms:.4f} ms/step = "
           f"{n_rays / step_ms / 1e3:.3f} Mrays/s over {STEPS} steps (plain "
           f"path {plain_step_ms:.4f} ms/step); peak device memory "
           f"{train_peak_mb:.1f} MiB", flush=True)
     print(f"backward stages ms/step: K2 {k2_ms:.4f} in 1 launch over "
           f"{n_groups} groups (plain {k2_plain_ms:.4f}), slot reduction "
-          f"{reduce_ms:.4f}, K4 {k4_ms:.4f} (plain {k4_plain_ms:.4f})",
+          f"{reduce_ms:.4f}, K4 {k4_issued_ms:.4f} as issued, {k4_ms:.4f} "
+          f"on the device (plain {k4_plain_ms:.4f})",
           flush=True)
 
     # bounds: each kernel's inputs and outputs at this run's shapes, and
@@ -4037,7 +4094,7 @@ def run(only: str = "all") -> dict:
          "replaces": "dvren_tpu/ops/packed_transpose.py:81",
          "launches": launches["packed_table"],
          "max_abs_err": float((rows_k - rows_p).abs().max()),
-         "ms": k3_ms, "plain_ms": k3_plain_ms,
+         "ms": k3_ms, "issued_ms": k3_issued_ms, "plain_ms": k3_plain_ms,
          **bound(nbytes(sigma, color, rows_k), 0)},
         {"name": "fused_tiles_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
@@ -4050,7 +4107,8 @@ def run(only: str = "all") -> dict:
          "source": "dvren_tpu_torch/csrc/packed_table_bwd.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:119",
          "launches": train_launches["packed_table_bwd"],
-         "max_abs_err": k4_err, "ms": k4_ms, "plain_ms": k4_plain_ms,
+         "max_abs_err": k4_err, "ms": k4_ms, "issued_ms": k4_issued_ms,
+         "plain_ms": k4_plain_ms,
          **bound(nbytes(tg, *k4_out), 8 * sum(x.numel() for x in k4_out))},
     ]
     if only in ("dense", "tiles"):
@@ -4074,11 +4132,11 @@ def run(only: str = "all") -> dict:
         print(json.dumps({"kernels": kernels}), flush=True)
         print(json.dumps({
             **extra, "forward_ms": fwd_ms, "stages_ms": {
-                "packed_table": k3_ms, "bank_gather": gather_ms,
+                "packed_table": k3_issued_ms, "bank_gather": gather_ms,
                 "fused_tiles": k1_ms, "compose": compose_ms},
             "train_step_ms": step_ms, "backward_stages_ms": {
                 "fused_tiles_bwd": k2_ms, "slot_reduction": reduce_ms,
-                "packed_table_bwd": k4_ms}, "card": card}), flush=True)
+                "packed_table_bwd": k4_issued_ms}, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
     elapsed("1-10")
@@ -4118,7 +4176,7 @@ def run(only: str = "all") -> dict:
     print(json.dumps({**hash_report,
         "forward_ms": fwd_ms, "forward_mrays_s": n_rays / fwd_ms / 1e3,
         "plain_forward_ms": plain_fwd_ms, "renderer_forward_ms": host_ms,
-        "stages_ms": {"packed_table": k3_ms, "bank_gather": gather_ms,
+        "stages_ms": {"packed_table": k3_issued_ms, "bank_gather": gather_ms,
                       "fused_tiles": k1_ms, "compose": compose_ms},
         "schedule_build_s": build_s, "peak_mib": peak_mb,
         "forward_vs_plain": e2e_err, "depth_vs_plain": e2e_depth,
@@ -4128,7 +4186,9 @@ def run(only: str = "all") -> dict:
         "train_peak_mib": train_peak_mb,
         "backward_stages_ms": {"fused_tiles_bwd": k2_ms,
                                "slot_reduction": reduce_ms,
-                               "packed_table_bwd": k4_ms},
+                               "packed_table_bwd": k4_issued_ms},
+        "packed_device_ms": {"packed_table": k3_ms,
+                             "packed_table_bwd": k4_ms},
         "k2_rel_err": k2_err, "k2_rayt_rel_err": k2_cam_err,
         "k2_rel_err_float64": k2_err64,
         "k2_rayt_rel_err_float64": k2_cam_err64,

@@ -43,7 +43,7 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 # (argtypes, restype) per C entry point (see csrc/*.cu)
 _SIGNATURES = {
-    "dvt_packed_table": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "dvt_packed_table": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
     "dvt_tile_forward": ([_P, _P, _P, _P, _P, _P, _P, _P, _P,
                           _I, _I, _I, _I,
                           _F, _F, _F, _F, _F,
@@ -55,7 +55,7 @@ _SIGNATURES = {
                            _F, _F, _F, _F, _F, _F, _F, _F, _F,
                            _F, _F, _F,
                            _P], _I),
-    "dvt_packed_table_grad": ([_P, _P, _P, _I, _I, _I, _P], _I),
+    "dvt_packed_table_grad": ([_P, _P, _P] + [_I] * 11 + [_P], _I),
     "dvt_packed_table16": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
     "dvt_packed_table16_grad": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
     "dvt_banks_to_rows": ([_P, _P, _I, _P], _I),

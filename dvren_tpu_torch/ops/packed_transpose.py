@@ -37,11 +37,109 @@ words). Its rows equal ``hi << 16 | lo`` of JAX's u16 rows, and its twin
 
 from __future__ import annotations
 
+import functools
+from dataclasses import dataclass
+
 import torch
 
 from dvren_tpu_torch import _build
 from dvren_tpu_torch.ops.grid import (NCH, _shift_stack_fullpitch,
                                      fullpitch_rows, stack_plane_grads)
+
+# K3 / K4 launch geometry, kept per grid shape. The wrappers pass it to
+# the kernels as it is, and tests/test_torch_packed_tiling.py rebuilds the
+# table and its gradient block by block from it on the CPU.
+N_SMS = 132                  # the H100's SMs: 2 blocks each, at least
+SMEM_LIMIT = 232_448         # shared memory a block may take on the H100
+TABLE_ROWS = 256             # K3: table rows a block writes (a thread each)
+
+
+@dataclass(frozen=True)
+class TableTiling:
+    """K3's launch. Block b writes table rows [b * rows, (b + 1) * rows)
+    (those below ``n_rows``), one thread a row. It first stages, for each
+    (dz, dy), the ``rows + 1`` voxels of every channel that start at
+    :meth:`span_start` (zero from ``n_cells`` on) in shared memory: plane
+    ``dy * 8 + ch * 2 + dz`` of ``stride`` floats, so that the row's
+    16-byte word q = ch * 2 + dz is planes q and 8 + q at the row's voxel
+    and the next one; warps then store whole 512-byte stretches of rows."""
+    rows: int
+    blocks: int
+    stride: int          # rows + 1 rounded up to 4 mod 32: no bank conflicts
+    smem_bytes: int      # 16 planes
+
+    def span_start(self, block: int, dz: int, dy: int, yx: int,
+                   x: int) -> int:
+        return block * self.rows + dz * yx + dy * x
+
+
+@functools.lru_cache(maxsize=64)
+def table_tiling(grid_shape, rows: int = TABLE_ROWS) -> TableTiling:
+    stride = rows + 1 + (4 - (rows + 1)) % 32
+    return TableTiling(rows=rows,
+                       blocks=-(-fullpitch_rows(grid_shape) // rows),
+                       stride=stride, smem_bytes=16 * stride * 4)
+
+
+@dataclass(frozen=True)
+class GradTiling:
+    """K4's launch. A run is ``run`` voxels of one z-plane (in-plane
+    index p * run + i, i < run, a thread each); block b owns run
+    p = b % runs of planes [z0, z1) (:meth:`block_planes`) and marches up
+    them. Run z sums table rows v - off over the 8 corners: those with
+    dz = 0 from run z's staged slot, dz = 1 from run z - 1's, so a ring
+    of two slots reads each slot's rows once. A slot holds the ``span``
+    rows of :meth:`slot_rows`: first the dy = 1 rows from base - X - 1,
+    then from staged index ``lead`` the dy = 0 rows from base - 1 (one
+    span when X <= run + 1, two apart otherwise), column-major with
+    ``stride`` floats a column. Voxel i's corner (dz, dy, dx) is staged
+    index (0 if dy else lead) + i + 1 - dx; rows outside [0, n_cells)
+    are staged as 0, which only voxels outside the grid or rows v - off
+    < 0 meet."""
+    run: int
+    z_chunk: int
+    runs: int            # runs a z-plane: ceil(Y * X / run)
+    blocks: int          # runs * ceil(Z / z_chunk)
+    lead: int            # min(X, run + 1)
+    span: int            # lead + run + 1
+    stride: int          # span, made odd: no bank conflicts
+    smem_bytes: int      # 2 slots x 32 columns, and 3 * run floats of d_color
+
+    def block_planes(self, block: int, z: int) -> tuple:
+        """(p, z0, z1) of block ``block`` in a grid of ``z`` planes."""
+        z0 = block // self.runs * self.z_chunk
+        return block % self.runs, z0, min(z0 + self.z_chunk, z)
+
+    def slot_rows(self, p: int, zi: int, yx: int, x: int) -> torch.Tensor:
+        """The table rows run ``zi`` of in-plane run ``p`` stages, in
+        staged order (int64; some may lie outside the table)."""
+        base = zi * yx + p * self.run
+        ell = torch.arange(self.span, dtype=torch.int64)
+        return torch.where(ell < self.lead, base - x - 1 + ell,
+                           base - 1 + ell - self.lead)
+
+
+@functools.lru_cache(maxsize=64)
+def grad_tiling(grid_shape, run: int | None = None,
+                z_chunk: int | None = None) -> GradTiling:
+    """K4's launch: by default runs of 128 voxels up to X = 64 and of 256
+    beyond (a slot reads about 1.5 rows a voxel at X = run / 2), and the
+    longest z-chunk of 16, 8, 4 or 2 planes that still gives 2 blocks an
+    SM (else 1)."""
+    z, y, x = (int(v) for v in grid_shape)
+    if run is None:
+        run = 128 if x <= 64 else 256
+    runs = -(-(y * x) // run)
+    if z_chunk is None:
+        z_chunk = next((k for k in (16, 8, 4, 2)
+                        if runs * -(-z // k) >= 2 * N_SMS), 1)
+    lead = min(x, run + 1)
+    span = lead + run + 1
+    stride = span | 1
+    return GradTiling(run=run, z_chunk=z_chunk, runs=runs,
+                      blocks=runs * -(-z // z_chunk), lead=lead, span=span,
+                      stride=stride,
+                      smem_bytes=(2 * NCH * stride + 3 * run) * 4)
 
 
 def build_rows_plain(sigma: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
@@ -74,11 +172,13 @@ def build_rows(sigma: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
     n_rows = fullpitch_rows(sigma.shape)
     out = torch.empty((n_rows, NCH), dtype=torch.float32,
                       device=sigma.device)
+    tl = table_tiling(sigma.shape)
     lib = _build.library()
     with torch.cuda.device(sigma.device):
         code = lib.dvt_packed_table(
             sigma.data_ptr(), color.data_ptr(), out.data_ptr(),
-            z, y, x, n_rows, _build.stream_ptr(sigma.device))
+            z, y, x, n_rows, tl.rows, tl.stride, tl.blocks, tl.smem_bytes,
+            _build.stream_ptr(sigma.device))
     _build.check(code, "dvt_packed_table")
     build_rows.launches += 1
     return out
@@ -109,14 +209,18 @@ def table_grad_to_params(table_grad: torch.Tensor, grid_shape) -> tuple:
         raise ValueError(f"unsupported device {table_grad.device}")
     if not table_grad.is_contiguous():
         raise ValueError("table_grad must be contiguous")
+    if table_grad.data_ptr() % 16:
+        raise ValueError("table_grad must start on a 16-byte boundary")
     dev = table_grad.device
     d_sigma = torch.empty((z, y, x), dtype=torch.float32, device=dev)
     d_color = torch.empty((z, y, x, 3), dtype=torch.float32, device=dev)
+    tl = grad_tiling((z, y, x))
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.dvt_packed_table_grad(
             table_grad.data_ptr(), d_sigma.data_ptr(), d_color.data_ptr(),
-            z, y, x, _build.stream_ptr(dev))
+            z, y, x, tl.run, tl.z_chunk, tl.runs, tl.lead, tl.span,
+            tl.stride, tl.blocks, tl.smem_bytes, _build.stream_ptr(dev))
     _build.check(code, "dvt_packed_table_grad")
     table_grad_to_params.launches += 1
     return d_sigma, d_color

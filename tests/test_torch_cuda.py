@@ -7,8 +7,9 @@ tests/conftest.py does import JAX, so run it there with
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py -q
 
 The twins are held to dvren_tpu on the CPU by the other test_torch_*
-files; here the kernels are held to the twins: K3 and K4 bit for bit, K1
-and the whole forward within 5e-6 (depth 1e-4), K2 within 2e-6 x scale
+files; here the kernels are held to the twins: K3 and K4 bit for bit as
+32-bit words from 1^3 to 128^3 (K3 also on inf, NaN payloads and -0.0),
+K1 and the whole forward within 5e-6 (depth 1e-4), K2 within 2e-6 x scale
 on d(table) and 1e-5 x scale on d(rayt), the backward on the card within
 2e-6 x scale of the CPU's (camera rtol 2e-3 / atol 1e-4), and every
 kernel's repeat runs bit for bit. The hash-MLP kernels: K7f and the hash
@@ -124,8 +125,19 @@ def test_library_builds_once(cuda_device):
         assert kernel in report
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
-                                   (64, 64, 64)])
+# K3's and K4's shapes: Y = 1, X = 1, X past a run, a partial last
+# z-chunk (tests/test_torch_packed_tiling.py), the headline's and the fine
+# grid's
+PACKED_SHAPES = [(1, 1, 1), (2, 2, 2), (1, 1, 2049), (9, 1, 300), (4, 6, 1),
+                 (5, 7, 9), (3, 17, 40), (41, 70, 61), (64, 64, 64),
+                 (128, 128, 128)]
+
+
+def _words(x):
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
 def test_packed_table_bit_equal_to_plain(cuda_device, shape):
     rng = np.random.default_rng(2)
     sigma = torch.from_numpy(
@@ -136,7 +148,27 @@ def test_packed_table_bit_equal_to_plain(cuda_device, shape):
     got = packed_transpose.build_rows(sigma, color)
     torch.cuda.synchronize()
     assert packed_transpose.build_rows.launches == before + 1
-    assert torch.equal(got, packed_transpose.build_rows_plain(sigma, color))
+    assert torch.equal(_words(got), _words(
+        packed_transpose.build_rows_plain(sigma, color)))
+
+
+def test_packed_table_moves_special_values(cuda_device):
+    """inf, NaN with payloads and -0.0 reach the table as 32-bit words."""
+    shape = (5, 7, 9)
+    n = 5 * 7 * 9
+    words = np.random.default_rng(4).integers(
+        0, 2 ** 32, size=4 * n, dtype=np.uint64).astype(np.uint32)
+    words[::7] = 0x80000000
+    words[1::11] = 0x7F800000
+    words[2::13] = 0xFF800000
+    words[3::5] = 0x7FC00000 | (np.arange(words[3::5].size) & 0x3FFFFF)
+    floats = torch.from_numpy(words.view(np.float32)).to(cuda_device)
+    sigma = floats[:n].reshape(shape)
+    color = floats[n:].reshape(shape + (3,))
+    got = packed_transpose.build_rows(sigma, color)
+    torch.cuda.synchronize()
+    assert torch.equal(_words(got), _words(
+        packed_transpose.build_rows_plain(sigma, color)))
 
 
 def test_packed_table_rejects_strided_input(cuda_device):
@@ -306,8 +338,7 @@ def test_tile_backward_rejects_strided_input(cuda_device):
         fused_tiles.tile_backward(tabs, tiles, gs, prm)
 
 
-@pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
-                                   (64, 64, 64)])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
 def test_packed_table_grad_bit_equal_to_plain(cuda_device, shape):
     rows = packed_transpose.fullpitch_rows(shape)
     gen = torch.Generator(device=cuda_device).manual_seed(6)
@@ -318,7 +349,19 @@ def test_packed_table_grad_bit_equal_to_plain(cuda_device, shape):
     assert packed_transpose.table_grad_to_params.launches == before + 1
     want = packed_transpose.table_grad_to_params_plain(tg, shape)
     for a, b in zip(got, want):
-        assert a.shape == b.shape and torch.equal(a, b)
+        assert a.shape == b.shape and torch.equal(_words(a), _words(b))
+
+
+def test_packed_table_grad_repeats_bit_for_bit(cuda_device):
+    shape = (41, 70, 61)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    tg = torch.randn((packed_transpose.fullpitch_rows(shape), 32),
+                     generator=gen, device=cuda_device)
+    first = packed_transpose.table_grad_to_params(tg, shape)
+    again = packed_transpose.table_grad_to_params(tg, shape)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(_words(a), _words(b))
 
 
 def test_packed_table_grad_rejects_strided_input(cuda_device):
