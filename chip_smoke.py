@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|hash|grid|gridviews|window|split]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -158,7 +158,11 @@ when it fails:
     ``Renderer.backward`` calls equal; four SGD steps at lr 1e-3 x
     786,432 (the loss falls, K2 once each step); the frame, the step,
     K1 and K2 beside their twins (CUDA events; the twins once);
-30. the same with ``packed_dtype="bfloat16"`` (8 px cells, K5a once);
+30. the same with ``packed_dtype="bfloat16"`` (8 px cells): K5a once a
+    frame, K5a and K5b once a backward and a step; then K5a and K5b at
+    128^3 (the field, a seeded table gradient) against their twins as
+    16-bit / 32-bit words, each timed on the device alone and as issued
+    beside its twin and its transpose;
 31. the fit flagship's eight views, each through the cascade (8 px
     supercells): K1 and K2, one launch per view, against their twins on
     every group, bit for bit;
@@ -263,6 +267,8 @@ when it fails:
 
 ``--only dense`` runs phases 1-10, ``--only tiles`` phases 1-10, 28-33,
 36, 41 and 42-46 (every phase that times K1 / K2, in every form),
+``--only tables`` phases 1-10, 21-27 and 28-30 (every phase that runs
+K5a / K5b),
 ``--only hash`` phases 1 and 11-15 (K7f and K7b), ``--only grid`` phases
 1 and 16-20,
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
@@ -945,7 +951,7 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
                                                       sigma.shape)
     kernels = [
         {"name": "packed_table16", "route": "cuda",
-         "source": "dvren_tpu_torch/csrc/packed_table16.cu",
+         "source": "dvren_tpu_torch/csrc/packed_table.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:40",
          "launches": fwd16["bfloat16"]["launches"]["packed_table16"],
          "max_abs_err": k5a_err, "ms": k5["bfloat16"]["k5a"],
@@ -954,7 +960,7 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
          **bound(nbytes(sigma, color, t16), 0),
          "library_ms": k5["bfloat16"]["k5a_library"]},
         {"name": "packed_table16_bwd", "route": "cuda",
-         "source": "dvren_tpu_torch/csrc/packed_table16_bwd.cu",
+         "source": "dvren_tpu_torch/csrc/packed_table_bwd.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:63",
          "launches": bf16_launches["packed_table16_bwd"],
          "max_abs_err": k5b_err, "ms": k5["bfloat16"]["k5b"],
@@ -1965,11 +1971,71 @@ def variant_kernels(form, args, gss, sched, launches, errs, times) -> list:
                  live * (DENSE_BWD_OPS + extra))}]
 
 
-def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
+def table16_128(torch, packed_transpose, field, gen, card, launches,
+                report) -> list:
+    """Phase 30's K5a and K5b at 128^3: the bfloat16 fine grid's field
+    and a seeded table gradient, held to their twins as 16-bit / 32-bit
+    words and timed on the device alone and as issued beside the twins
+    and the transposes; their ``kernels`` entries, with the launches of
+    the phase's frame and backward."""
+    dt = getattr(torch, field.packed_dtype)
+    sigma, color = field.sigma, field.color
+    n_rows = packed_transpose.fullpitch_rows(sigma.shape)
+    tg = torch.randn((n_rows, 32), generator=gen,
+                     device=sigma.device).to(dt)
+    table = packed_transpose.build_rows16(sigma, color, dt)
+    grads = packed_transpose.table16_grad_to_params(tg, sigma.shape)
+    torch.cuda.synchronize()
+    require(torch.equal(table.view(torch.int16), packed_transpose
+                        .build_rows16_plain(sigma, color, dt)
+                        .view(torch.int16)),
+            "K5a differs from its plain twin at 128^3")
+    require(all(torch.equal(words(a), words(b)) for a, b in zip(
+        grads, packed_transpose.table16_grad_to_params_plain(tg, sigma.shape))),
+            "K5b differs from its plain twin at 128^3")
+    k5a = packed_times(
+        torch, lambda: packed_transpose.build_rows16(sigma, color, dt),
+        lambda: packed_transpose.build_rows16_plain(sigma, color, dt))
+    k5b = packed_times(
+        torch, lambda: packed_transpose.table16_grad_to_params(tg, sigma.shape),
+        lambda: packed_transpose.table16_grad_to_params_plain(tg,
+                                                              sigma.shape))
+    stack = packed_transpose._shift_stack_fullpitch(sigma, color,
+                                                    n_rows).to(dt)
+    lib_a = device_ms(torch, lambda: stack.t().contiguous(), 50)
+    del stack
+    rows32 = tg.float()
+    lib_b = device_ms(torch, lambda: rows32.t().contiguous(), 50)
+    del rows32
+    print(f"K5a and K5b == plain at 128^3 ({dt}), as 16-bit / 32-bit words; "
+          f"ms [{card}]: K5a {k5a[0]:.4f} on the device, {k5a[1]:.4f} as "
+          f"issued (plain {k5a[2]:.4f}, stack.t().contiguous() {lib_a:.4f}); "
+          f"K5b {k5b[0]:.4f}, {k5b[1]:.4f} (plain {k5b[2]:.4f}, "
+          f"rows.t().contiguous() {lib_b:.4f}); launches: frame "
+          f"{launches[0]} K5a, backward {launches[1]} K5b", flush=True)
+    report["packed16_128"] = {"k5a": k5a, "k5b": k5b,
+                              "library": [lib_a, lib_b]}
+    return [{"name": f"{name}:128", "route": "cuda",
+             "source": f"dvren_tpu_torch/csrc/{src}",
+             "replaces": f"dvren_tpu/ops/packed_transpose.py:{line}",
+             "launches": n, "max_abs_err": 0.0, "ms": ms,
+             "issued_ms": issued, "plain_ms": plain_ms,
+             **bound(n_bytes, ops), "library_ms": lib}
+            for name, src, line, (ms, issued, plain_ms), n, n_bytes, ops, lib
+            in (("packed_table16", "packed_table.cu", 40, k5a, launches[0],
+                 nbytes(sigma, color, table), 0, lib_a),
+                ("packed_table16_bwd", "packed_table_bwd.cu", 63, k5b,
+                 launches[1], nbytes(tg, *grads),
+                 8 * sum(x.numel() for x in grads), lib_b))]
+
+
+def run_subtiles(torch, P, dev, card,
+                 fine_only: bool = False) -> tuple[list, dict]:
     """Phases 28-33: the sub-tiled and supercell schedules of the cascade,
     with K1 and K2 in their subs 4 / 16 and supercell forms: the fine-grid
-    scene (float32: 16 px supercells; bfloat16: 8 px cells), the fit
-    flagship's eight views (8 px supercells) and its view 0 at 4 px."""
+    scene (float32: 16 px supercells; bfloat16: 8 px cells, with K5a and
+    K5b at 128^3), the fit flagship's eight views (8 px supercells) and
+    its view 0 at 4 px; ``fine_only``: phases 28-30 alone."""
     from dvren_tpu_torch.ops import fused_tiles, packed_transpose
     from dvren_tpu_torch.opt.fit import mse
     from dvren_tpu_torch.render import tiled
@@ -2039,10 +2105,16 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
               - 1).cpu().numpy()
         torch.use_deterministic_algorithms(True)
         try:
+            reset()
             g1 = renderer.backward(field, dl)
+            bwd_c = counts()
             g2 = renderer.backward(field, dl)
         finally:
             torch.use_deterministic_algorithms(False)
+        if dtype != "float32":
+            require(bwd_c["packed_table16"] == 1
+                    and bwd_c["packed_table16_bwd"] == 1,
+                    f"the fine-grid {name} backward launched {bwd_c}")
         for key in ("sigma", "color", "camera", "camera_k"):
             x = getattr(g1, key)
             require(bool(np.isfinite(x).all()) and float(np.abs(x).max()) > 0,
@@ -2064,6 +2136,10 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
                 f"the fine-grid {name} loss does not fall")
         require(step_c["fused_tiles_bwd"] == 4,
                 "K2 did not launch once in every step")
+        if dtype != "float32":
+            require(step_c["packed_table16"] == 4
+                    and step_c["packed_table16_bwd"] == 4,
+                    "K5a and K5b did not launch once in every step")
 
         # times
         with torch.no_grad():
@@ -2084,6 +2160,11 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
         kernels.extend(variant_kernels(
             form, args, gss, sched, (c["fused_tiles"],
                                      step_c["fused_tiles_bwd"]), errs, times))
+        if dtype != "float32":
+            kernels.extend(table16_128(torch, packed_transpose, field, gen,
+                                       card, (c["packed_table16"],
+                                              bwd_c["packed_table16_bwd"]),
+                                       report))
         report[f"finegrid_{name}"] = {
             "tile_px": sched.tile_px, "cell_scale": sched.cell_scale,
             "groups": len(sched.groups),
@@ -2096,6 +2177,8 @@ def run_subtiles(torch, P, dev, card) -> tuple[list, dict]:
 
     fine_phase("float32", "float32", "tiled_supercell_16px")
     fine_phase("bfloat16", "bfloat16", "tiled_subtiled_8px")
+    if fine_only:
+        return kernels, report
 
     # 31-32. the fit flagship: each view through the cascade, Adam steps
     # on the summed loss of the eight views, camera gradients on view 0
@@ -4111,8 +4194,17 @@ def run(only: str = "all") -> dict:
          "plain_ms": k4_plain_ms,
          **bound(nbytes(tg, *k4_out), 8 * sum(x.numel() for x in k4_out))},
     ]
-    if only in ("dense", "tiles"):
+    if only in ("dense", "tiles", "tables"):
         extra = {}
+        if only == "tables":
+            elapsed("1-10")
+            table_kernels, extra["tables"] = run_tables(
+                torch, P, dev, plan, config, renderer, result, all_rows)
+            elapsed("21-27")
+            fine_kernels, extra["subtiles"] = run_subtiles(
+                torch, P, dev, card, fine_only=True)
+            elapsed("28-30")
+            kernels += table_kernels + fine_kernels
         if only == "tiles":
             elapsed("1-10")
             sub_kernels, extra["subtiles"] = run_subtiles(torch, P, dev, card)
@@ -4202,12 +4294,14 @@ def main() -> int:
 
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
-        "--only", choices=("all", "dense", "tiles", "hash", "grid",
-                           "gridviews", "window", "split"),
+        "--only", choices=("all", "dense", "tiles", "tables", "hash",
+                           "grid", "gridviews", "window", "split"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
-             "form, K6); 'hash': phase 1 and phases 11-15 (the hash "
+             "form, K6); 'tables': phases 1-10, 21-27 and 28-30 (the "
+             "16-bit tables, K5a and K5b at 64^3 and 128^3); 'hash': "
+             "phase 1 and phases 11-15 (the hash "
              "headline, K7f and K7b); 'grid': phase "
              "1 and phases 16-20 (the grid headline); 'gridviews': phase 1 "
              "and phases 34-35 (the grid path over eight views at 8 and 4 "

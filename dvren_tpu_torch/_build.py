@@ -56,8 +56,8 @@ _SIGNATURES = {
                            _F, _F, _F,
                            _P], _I),
     "dvt_packed_table_grad": ([_P, _P, _P] + [_I] * 11 + [_P], _I),
-    "dvt_packed_table16": ([_P, _P, _P, _I, _I, _I, _I, _I, _P], _I),
-    "dvt_packed_table16_grad": ([_P, _P, _P, _I, _I, _I, _I, _P], _I),
+    "dvt_packed_table16": ([_P, _P, _P] + [_I] * 9 + [_P], _I),
+    "dvt_packed_table16_grad": ([_P, _P, _P] + [_I] * 12 + [_P], _I),
     "dvt_banks_to_rows": ([_P, _P, _I, _P], _I),
     "dvt_hash_forward": ([_P, _P, _P, _P, _P,
                           _I, _I, _I, _I, _I, _I, _I,

@@ -22,10 +22,11 @@ K5a, :func:`build_rows16`, builds the table in bfloat16 or float16: the
 counterpart of ``dvren_tpu/ops/packed_transpose.py::stack_to_rows`` on
 the route ``dvren_tpu/ops/grid.py::_build_fullpitch`` takes for a 16-bit
 ``packed_dtype`` (shift stack, cast, transpose), fused in
-``csrc/packed_table16.cu``. K5b, :func:`table16_grad_to_params`, is its
-adjoint (``rows_to_stack`` on the f32-cast cotangent, then
-``stack_plane_grads``), K4's gather with a 16-bit input in
-``csrc/packed_table16_bwd.cu``. Both are bit-equal to their twins.
+``csrc/packed_table.cu`` beside K3, whose staged source spans it shares
+(staged as 16-bit pair words). K5b, :func:`table16_grad_to_params`, is
+its adjoint (``rows_to_stack`` on the f32-cast cotangent, then
+``stack_plane_grads``): K4's kernel in ``csrc/packed_table_bwd.cu`` with
+a 16-bit row. Both are bit-equal to their twins.
 
 K6, :func:`banks_to_rows`, is the split tiled backward's relayout, the
 counterpart of ``dvren_tpu/ops/packed_transpose.py::banks_to_u16_rows``:
@@ -46,9 +47,10 @@ from dvren_tpu_torch import _build
 from dvren_tpu_torch.ops.grid import (NCH, _shift_stack_fullpitch,
                                      fullpitch_rows, stack_plane_grads)
 
-# K3 / K4 launch geometry, kept per grid shape. The wrappers pass it to
-# the kernels as it is, and tests/test_torch_packed_tiling.py rebuilds the
-# table and its gradient block by block from it on the CPU.
+# K3 / K5a and K4 / K5b launch geometry, kept per grid shape. The wrappers
+# pass it to the kernels as it is, and tests/test_torch_packed_tiling.py
+# rebuilds the tables and their gradients block by block from it on the
+# CPU.
 N_SMS = 132                  # the H100's SMs: 2 blocks each, at least
 SMEM_LIMIT = 232_448         # shared memory a block may take on the H100
 TABLE_ROWS = 256             # K3: table rows a block writes (a thread each)
@@ -56,13 +58,17 @@ TABLE_ROWS = 256             # K3: table rows a block writes (a thread each)
 
 @dataclass(frozen=True)
 class TableTiling:
-    """K3's launch. Block b writes table rows [b * rows, (b + 1) * rows)
-    (those below ``n_rows``), one thread a row. It first stages, for each
-    (dz, dy), the ``rows + 1`` voxels of every channel that start at
-    :meth:`span_start` (zero from ``n_cells`` on) in shared memory: plane
-    ``dy * 8 + ch * 2 + dz`` of ``stride`` floats, so that the row's
-    16-byte word q = ch * 2 + dz is planes q and 8 + q at the row's voxel
-    and the next one; warps then store whole 512-byte stretches of rows."""
+    """K3's and K5a's launch. Block b writes table rows [b * rows, (b + 1)
+    * rows) (those below ``n_rows``), one thread a row. It first stages,
+    for each (dz, dy), the ``rows + 1`` voxels of every channel that start
+    at :meth:`span_start` (zero from ``n_cells`` on) in shared memory:
+    plane ``dy * 8 + ch * 2 + dz`` of ``stride`` 32-bit words. K3 stages
+    floats, so that the row's 16-byte word q = ch * 2 + dz is planes q and
+    8 + q at the row's voxel and the next one. K5a stages pair words, word
+    i holding voxels i and i + 1 rounded to 16 bits (low, high half), so
+    that the row's 16-byte word ch is word i of planes 2ch, 8 + 2ch,
+    2ch + 1 and 9 + 2ch. Warps then store whole 512-byte stretches of
+    rows."""
     rows: int
     blocks: int
     stride: int          # rows + 1 rounded up to 4 mod 32: no bank conflicts
@@ -83,8 +89,8 @@ def table_tiling(grid_shape, rows: int = TABLE_ROWS) -> TableTiling:
 
 @dataclass(frozen=True)
 class GradTiling:
-    """K4's launch. A run is ``run`` voxels of one z-plane (in-plane
-    index p * run + i, i < run, a thread each); block b owns run
+    """K4's and K5b's launch. A run is ``run`` voxels of one z-plane
+    (in-plane index p * run + i, i < run, a thread each); block b owns run
     p = b % runs of planes [z0, z1) (:meth:`block_planes`) and marches up
     them. Run z sums table rows v - off over the 8 corners: those with
     dz = 0 from run z's staged slot, dz = 1 from run z - 1's, so a ring
@@ -92,18 +98,24 @@ class GradTiling:
     rows of :meth:`slot_rows`: first the dy = 1 rows from base - X - 1,
     then from staged index ``lead`` the dy = 0 rows from base - 1 (one
     span when X <= run + 1, two apart otherwise), column-major with
-    ``stride`` floats a column. Voxel i's corner (dz, dy, dx) is staged
-    index (0 if dy else lead) + i + 1 - dx; rows outside [0, n_cells)
-    are staged as 0, which only voxels outside the grid or rows v - off
-    < 0 meet."""
+    ``stride`` 32-bit words a column: ``slot_cols`` 32 holds a float32
+    row's 32 values (K4), 16 a 16-bit row's pair words as they came
+    (K5b: column ch * 4 + k holds corners 2k and 2k + 1 of channel ch,
+    low and high half). Voxel i's corner (dz, dy, dx) is staged index
+    (0 if dy else lead) + i + 1 - dx; rows outside [0, n_cells) are
+    staged as 0, which only voxels outside the grid or rows v - off < 0
+    meet."""
     run: int
     z_chunk: int
     runs: int            # runs a z-plane: ceil(Y * X / run)
     blocks: int          # runs * ceil(Z / z_chunk)
     lead: int            # min(X, run + 1)
     span: int            # lead + run + 1
-    stride: int          # span, made odd: no bank conflicts
-    smem_bytes: int      # 2 slots x 32 columns, and 3 * run floats of d_color
+    stride: int          # span, made odd (2 mod 4 for 16 columns): no bank
+    #                      conflicts
+    smem_bytes: int      # 2 slots x slot_cols columns, 3 * run floats of
+    #                      d_color
+    slot_cols: int = NCH
 
     def block_planes(self, block: int, z: int) -> tuple:
         """(p, z0, z1) of block ``block`` in a grid of ``z`` planes."""
@@ -121,11 +133,15 @@ class GradTiling:
 
 @functools.lru_cache(maxsize=64)
 def grad_tiling(grid_shape, run: int | None = None,
-                z_chunk: int | None = None) -> GradTiling:
+                z_chunk: int | None = None,
+                slot_cols: int = NCH) -> GradTiling:
     """K4's launch: by default runs of 128 voxels up to X = 64 and of 256
     beyond (a slot reads about 1.5 rows a voxel at X = run / 2), and the
     longest z-chunk of 16, 8, 4 or 2 planes that still gives 2 blocks an
-    SM (else 1)."""
+    SM (else 1). ``slot_cols`` 16 gives K5b's launch, over 16-bit
+    slots."""
+    if slot_cols not in (NCH, NCH // 2):
+        raise ValueError(f"slot_cols: want 32 or 16, got {slot_cols}")
     z, y, x = (int(v) for v in grid_shape)
     if run is None:
         run = 128 if x <= 64 else 256
@@ -135,11 +151,12 @@ def grad_tiling(grid_shape, run: int | None = None,
                         if runs * -(-z // k) >= 2 * N_SMS), 1)
     lead = min(x, run + 1)
     span = lead + run + 1
-    stride = span | 1
+    stride = span | 1 if slot_cols == NCH else span + (2 - span) % 4
     return GradTiling(run=run, z_chunk=z_chunk, runs=runs,
                       blocks=runs * -(-z // z_chunk), lead=lead, span=span,
                       stride=stride,
-                      smem_bytes=(2 * NCH * stride + 3 * run) * 4)
+                      smem_bytes=(2 * slot_cols * stride + 3 * run) * 4,
+                      slot_cols=slot_cols)
 
 
 def build_rows_plain(sigma: torch.Tensor, color: torch.Tensor) -> torch.Tensor:
@@ -264,11 +281,13 @@ def build_rows16(sigma: torch.Tensor, color: torch.Tensor,
     z, y, x = (int(v) for v in sigma.shape)
     n_rows = fullpitch_rows(sigma.shape)
     out = torch.empty((n_rows, NCH), dtype=dtype, device=sigma.device)
+    tl = table_tiling(sigma.shape)
     lib = _build.library()
     with torch.cuda.device(sigma.device):
         code = lib.dvt_packed_table16(
             sigma.data_ptr(), color.data_ptr(), out.data_ptr(),
-            z, y, x, n_rows, kind, _build.stream_ptr(sigma.device))
+            z, y, x, n_rows, kind, tl.rows, tl.stride, tl.blocks,
+            tl.smem_bytes, _build.stream_ptr(sigma.device))
     _build.check(code, "dvt_packed_table16")
     build_rows16.launches += 1
     return out
@@ -300,14 +319,18 @@ def table16_grad_to_params(table_grad16: torch.Tensor, grid_shape) -> tuple:
         raise ValueError(f"unsupported device {table_grad16.device}")
     if not table_grad16.is_contiguous():
         raise ValueError("table_grad16 must be contiguous")
+    if table_grad16.data_ptr() % 16:
+        raise ValueError("table_grad16 must start on a 16-byte boundary")
     dev = table_grad16.device
     d_sigma = torch.empty((z, y, x), dtype=torch.float32, device=dev)
     d_color = torch.empty((z, y, x, 3), dtype=torch.float32, device=dev)
+    tl = grad_tiling((z, y, x), slot_cols=NCH // 2)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.dvt_packed_table16_grad(
             table_grad16.data_ptr(), d_sigma.data_ptr(), d_color.data_ptr(),
-            z, y, x, kind, _build.stream_ptr(dev))
+            z, y, x, kind, tl.run, tl.z_chunk, tl.runs, tl.lead, tl.span,
+            tl.stride, tl.blocks, tl.smem_bytes, _build.stream_ptr(dev))
     _build.check(code, "dvt_packed_table16_grad")
     table16_grad_to_params.launches += 1
     return d_sigma, d_color

@@ -26,7 +26,8 @@ for bit, and the card's render and gradients within those bounds of the
 CPU twins'; in their one-launch form, over every group of a ragged
 schedule at subs 1, 4 and 16 and at the widest spec grid_path_ok admits,
 K8f bit for bit and K8b within 2e-5 x scale of the twins, once per
-render_hash_grid_tiled forward and backward. The 16-bit tables and sparse fields: K5a and K5b bit for bit,
+render_hash_grid_tiled forward and backward. The 16-bit tables and sparse fields: K5a and K5b bit for bit
+from 1^3 to 128^3 (K5a also on inf, -0.0, NaN, float16 overflow, subnormals and ties; K5b's repeats),
 the 16-bit and sparse renders on the card within 5e-6 (depth 1e-4) of the
 CPU's, their gradients within 2e-6 x scale (float32 bricks) or c * ulp x
 scale (16-bit tables: c the largest slot class, ulp 2^-8 bfloat16, 2^-11
@@ -120,7 +121,7 @@ def test_library_builds_once(cuda_device):
                    "tile_backward_kernel", "packed_table_grad_kernel",
                    "hash_forward_kernel", "hash_backward_kernel",
                    "hash_grid_forward_kernel", "hash_grid_backward_kernel",
-                   "packed_table16_kernel", "packed_table16_grad_kernel",
+                   "packed_table16_kernel",
                    "integrate_forward_kernel", "integrate_backward_kernel"):
         assert kernel in report
 
@@ -802,8 +803,7 @@ DTYPES16 = (torch.bfloat16, torch.float16)
 
 
 @pytest.mark.parametrize("dtype", DTYPES16)
-@pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
-                                   (64, 64, 64)])
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
 def test_packed_table16_bit_equal_to_plain(cuda_device, dtype, shape):
     rng = np.random.default_rng(2)
     sigma = torch.from_numpy(
@@ -817,11 +817,55 @@ def test_packed_table16_bit_equal_to_plain(cuda_device, dtype, shape):
     want = packed_transpose.build_rows16_plain(sigma, color, dtype)
     assert got.dtype == dtype
     assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+    # a row's 16-byte words as 32-bit pair words, as the kernel stores them
+    assert torch.equal(_words(got), _words(want))
+
+
+def _special_grid16(shape, seed):
+    """Float32 values that exercise the round to 16 bits: +-inf, -0.0,
+    NaN with payloads and signs, values past float16's range, float16
+    subnormals, and exact ties of both types (halfway between two
+    neighbours, odd and even below)."""
+    n = int(np.prod(shape)) * 4
+    rng = np.random.default_rng(seed)
+    v = rng.normal(scale=4.0, size=n).astype(np.float32)
+    words = v.view(np.uint32)
+    words[0::17] = 0x80000000                              # -0.0
+    words[1::19] = 0x7F800000                              # inf
+    words[2::23] = 0xFF800000                              # -inf
+    nan = np.arange(words[3::13].size, dtype=np.uint32)
+    words[3::13] = 0x7F800001 + (nan * 0x9E3779) % 0x7FFFFF  # NaN payloads
+    words[4::29] = 0xFFC00000 | (nan[:words[4::29].size] & 0x3FFFFF)
+    v[5::11] = rng.uniform(65520.0, 1e6, v[5::11].size)   # float16 inf
+    v[6::11] = rng.uniform(-1e6, -65520.0, v[6::11].size)
+    v[7::11] = rng.uniform(-6e-5, 6e-5, v[7::11].size)    # f16 subnormals
+    m = np.arange(v[8::11].size, dtype=np.uint32)
+    words[8::11] = (0x3F800000 + (m % 255) * 0x10000) | 0x8000  # bf16 ties
+    v[9::11] = (1.0 + (2 * (m[:v[9::11].size] % 1023) + 1) * 2.0 ** -11)
+    v[10::11] = 2.0 ** -14 * (m[:v[10::11].size] % 1024 + 0.5) * 2.0 ** -10
+    return torch.from_numpy(v)
 
 
 @pytest.mark.parametrize("dtype", DTYPES16)
-@pytest.mark.parametrize("shape", [(2, 2, 2), (5, 7, 9), (3, 17, 40),
-                                   (64, 64, 64)])
+def test_packed_table16_special_values(cuda_device, dtype):
+    """The round to nearest even on the card against the twin's cast on
+    the card: infinities, -0.0, overflow to inf (float16), subnormals
+    and ties, word for word; NaN too (both casts give the card's NaN)."""
+    shape = (5, 7, 9)
+    n = 5 * 7 * 9
+    floats = _special_grid16(shape, 4).to(cuda_device)
+    sigma = floats[:n].reshape(shape)
+    color = floats[n:].reshape(shape + (3,))
+    got = packed_transpose.build_rows16(sigma, color, dtype)
+    want = packed_transpose.build_rows16_plain(sigma, color, dtype)
+    torch.cuda.synchronize()
+    assert bool(torch.isnan(want.float()).any())
+    assert bool(torch.isinf(want.float()).any())
+    assert torch.equal(got.view(torch.int16), want.view(torch.int16))
+
+
+@pytest.mark.parametrize("dtype", DTYPES16)
+@pytest.mark.parametrize("shape", PACKED_SHAPES)
 def test_packed_table16_grad_bit_equal_to_plain(cuda_device, dtype, shape):
     rows = packed_transpose.fullpitch_rows(shape)
     gen = torch.Generator(device=cuda_device).manual_seed(6)
@@ -832,7 +876,20 @@ def test_packed_table16_grad_bit_equal_to_plain(cuda_device, dtype, shape):
     assert packed_transpose.table16_grad_to_params.launches == before + 1
     want = packed_transpose.table16_grad_to_params_plain(tg, shape)
     for a, b in zip(got, want):
-        assert a.shape == b.shape and torch.equal(a, b)
+        assert a.shape == b.shape and torch.equal(_words(a), _words(b))
+
+
+@pytest.mark.parametrize("dtype", DTYPES16)
+def test_packed_table16_grad_repeats_bit_for_bit(cuda_device, dtype):
+    shape = (41, 70, 61)
+    gen = torch.Generator(device=cuda_device).manual_seed(8)
+    tg = torch.randn((packed_transpose.fullpitch_rows(shape), 32),
+                     generator=gen, device=cuda_device).to(dtype)
+    first = packed_transpose.table16_grad_to_params(tg, shape)
+    again = packed_transpose.table16_grad_to_params(tg, shape)
+    torch.cuda.synchronize()
+    for a, b in zip(first, again):
+        assert torch.equal(_words(a), _words(b))
 
 
 def test_packed_table16_rejects_strided_input(cuda_device):
