@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -272,8 +272,23 @@ K5a / K5b),
 ``--only hash`` phases 1 and 11-15 (K7f and K7b), ``--only grid`` phases
 1 and 16-20,
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
-37-41, ``--only split`` phases 1 and 42-46: each alone, to time two trees
-against each other in one call.
+37-41, ``--only split`` phases 1 and 42-46, ``--only sched`` phases 1 and
+47-51: each alone, to time two trees against each other in one call.
+
+Phases 47-51 (last) drive every option of the tile schedule builder and
+the modules that wait on them: the native scheduler core against the
+numpy builder (schedule digests equal, the build seconds of each) on the
+dense headline at 16 / 8 / 4 px, the fine grid's cascade and
+``tools/sparse_bench.py``'s 512^3 SDF shell with occupancy at 8 px;
+pitch 2 at the dense headline through ``RenderOptions(tile_pitch=2)``
+(frames, backwards and an SGD step bit-equal to pitch 1, float32 and
+bfloat16; K1 / K2 bit-equal to their twins on its schedule; the bank
+gather at both pitches); the shell through ``use_occupancy`` (its frame
+within 5e-6 of the untrimmed one, its backward, K1 / K2 against their
+twins on the trimmed schedule and its pitch-2 form); six orbit poses
+through ``MovingCameraRenderer`` bit-equal to each pose's own schedule,
+with one schedule structure; and 4 + 4 Adam steps around
+``save_train_state`` / ``load_train_state`` bit-equal to 8.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
@@ -446,7 +461,8 @@ def card_line() -> str:
     return proc.stdout.strip().splitlines()[0]
 
 
-def headline_scene(P, width=512, height=512, grid_n=64, max_steps=128):
+def headline_scene(P, width=512, height=512, grid_n=64, max_steps=128,
+                   tx=0.5, ty=0.5):
     zs, ys, xs = np.meshgrid(
         np.linspace(0, 1, grid_n), np.linspace(0, 1, grid_n),
         np.linspace(0, 1, grid_n), indexing="ij")
@@ -458,7 +474,7 @@ def headline_scene(P, width=512, height=512, grid_n=64, max_steps=128):
         camera=P.CameraConfig(
             k=(width * 1.2, 0.0, width / 2, 0.0, width * 1.2, height / 2,
                0.0, 0.0, 1.0),
-            c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0)),
+            c2w=(1, 0, 0, tx, 0, 1, 0, ty, 0, 0, 1, -1.0)),
         sampling=P.SamplingConfig(dt=2.0 / max_steps, max_steps=max_steps,
                                   mode=P.SamplingMode.STRATIFIED)))
     config = P.DenseGridConfig(resolution=(grid_n,) * 3,
@@ -1832,7 +1848,7 @@ def variant_args(torch, plan, field, sched):
     else:
         table = packed_transpose.build_rows16(
             sigma, color, table_dtype(field.packed_dtype))
-    tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
+    tabs = tiled._gather_banks_flat(table, sched.gathermap_all, sched.pitch)
     geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
     stencil = "super" if sched.cell_scale == 2 else "cell"
     return (tabs, sched.tiles,
@@ -3765,6 +3781,492 @@ def run_split_child(torch, P, dev) -> dict:
     return {"groups": n, "losses": losses, "step_ms": step_ms}
 
 
+SHELL_N = 512       # tools/sparse_bench.py:50-82: the 512^3 SDF shell
+SHELL_STEPS = 192
+ORBIT_POSES = 6     # tools/animation_bench.py:114-135's orbit
+ORBIT_NUMPY_POSES = 3   # poses timed again with the numpy builder
+RESUME_STEPS = 4    # Adam steps before and after the train-state restore
+
+
+@contextlib.contextmanager
+def native_sched(flag: str):
+    """DVREN_NATIVE_SCHED set to ``flag`` inside the block."""
+    old = os.environ.get("DVREN_NATIVE_SCHED")
+    os.environ["DVREN_NATIVE_SCHED"] = flag
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop("DVREN_NATIVE_SCHED")
+        else:
+            os.environ["DVREN_NATIVE_SCHED"] = old
+
+
+def schedule_digest(sched) -> str:
+    """SHA-256 over every array and static of a numpy schedule: its
+    groups, tile set, gather plan, canonical tile order and fallback."""
+    import hashlib
+
+    h = hashlib.sha256()
+
+    def walk(x):
+        if isinstance(x, np.ndarray):
+            h.update(str((x.shape, x.dtype)).encode())
+            h.update(np.ascontiguousarray(x).tobytes())
+        elif dataclasses.is_dataclass(x):
+            for f in dataclasses.fields(x):
+                h.update(f.name.encode())
+                walk(getattr(x, f.name))
+        elif isinstance(x, (tuple, list)):
+            for v in x:
+                walk(v)
+        else:
+            h.update(repr(x).encode())
+
+    walk(sched)
+    return h.hexdigest()[:16]
+
+
+def shell_scene(torch, P, dev, n=SHELL_N, width=512, steps=SHELL_STEPS):
+    """tools/sparse_bench.py's scene: a thin SDF shell (sigma 30 where
+    |r - 0.33| < 0.02) at n^3, its bricks built on the host from the
+    numpy arrays (the dense field never goes to the card), and the plan
+    (width^2, fixed steps, t 0.2-2.2, seed 3). Returns (plan, field,
+    brick build s)."""
+    from dvren_tpu_torch.fields.sparse_grid import build_bricks
+
+    t0 = time.perf_counter()
+    lin = np.linspace(0, 1, n, dtype=np.float32)
+    zs, ys, xs = lin[:, None, None], lin[None, :, None], lin[None, None, :]
+    r = np.sqrt((xs - .5) ** 2 + (ys - .5) ** 2 + (zs - .5) ** 2)
+    sigma = np.where(np.abs(r - 0.33) < 0.02, 30.0, 0.0).astype(np.float32)
+    del r
+    color = np.empty((n, n, n, 3), np.float32)
+    color[..., 0] = xs
+    color[..., 1] = ys
+    color[..., 2] = 1.0 - zs
+    bricks, occupancy = build_bricks(sigma, color, 0.0)
+    del sigma, color
+    field = P.SparseGridField(torch.from_numpy(bricks).to(dev),
+                              torch.from_numpy(occupancy).to(dev),
+                              (n, n, n))
+    del bricks
+    build_s = time.perf_counter() - t0
+    plan = P.Plan.create(P.PlanConfig(
+        width=width, height=width, t_near=0.2, t_far=2.2, seed=3,
+        camera=P.CameraConfig(
+            k=(width * 1.2, 0, width / 2, 0, width * 1.2, width / 2,
+               0, 0, 1),
+            c2w=(1, 0, 0, .5, 0, 1, 0, .5, 0, 0, 1, -1.0)),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps)))
+    return plan, field, build_s
+
+
+def table_args(torch, plan, table, sched):
+    """K1's one-launch arguments over ``sched`` from any (R, C) table."""
+    from dvren_tpu_torch.ops import fused_tiles
+    from dvren_tpu_torch.render import tiled
+
+    tabs = tiled._gather_banks_flat(table, sched.gathermap_all, sched.pitch)
+    geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
+    return (tabs, sched.tiles,
+            fused_tiles.tiles_op_params(plan, geom, sched.tiles, "cell"))
+
+
+def frames_equal(a, b) -> bool:
+    """Two Renderer results (or ImagePlanes) equal bit for bit."""
+    def host(x):
+        return x.detach().cpu().numpy() if hasattr(x, "detach") else x
+    return all(np.array_equal(host(getattr(a, k)), host(getattr(b, k)))
+               for k in ("image", "transmittance", "opacity", "depth"))
+
+
+def run_sched(torch, P, dev, card) -> tuple[list, dict]:
+    """Phases 47-51: every option of the tile schedule builder and the
+    modules that wait on them. 47: the native scheduler core against the
+    numpy builder (schedule digests equal; build seconds of each) on the
+    dense headline at 16 / 8 / 4 px, the fine grid's cascade and the
+    512^3 SDF shell with occupancy at 8 px; 48: pitch 2 through
+    ``Renderer(RenderOptions(tile_pitch=2))`` at the dense headline,
+    float32 and bfloat16, frames, backwards and an SGD step bit-equal to
+    pitch 1, K1 / K2 bit-equal to their twins on its schedule, the bank
+    gather timed at both pitches; 49: the SDF shell through
+    ``Renderer(RenderOptions(use_occupancy=True))``, its frame against the
+    untrimmed one, its backward, K1 / K2 against their twins on the
+    trimmed schedule, and pitch 2 on the shell; 50: the moving camera,
+    six orbit poses through ``MovingCameraRenderer`` bit-equal to each
+    pose's own schedule, one structure, host build / upload / render ms
+    with each builder; 51: 4 Adam steps, ``save_train_state``, a restore
+    into a fresh field and optimizer and 4 more, bit-equal to 8 steps."""
+    from dvren_tpu_torch import native
+    from dvren_tpu_torch.io.checkpoint import (load_train_state,
+                                               save_train_state)
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.opt.fit import mse
+    from dvren_tpu_torch.render import animate, tiled
+
+    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    gen = torch.Generator(device=dev).manual_seed(47)
+    kernels, report = [], {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        report.setdefault("phase_s", {})[name] = now - t_phase
+        t_phase = now
+
+    # 47. the native core against the numpy builder
+    t0 = time.perf_counter()
+    native.library()
+    print(f"native scheduler core build {time.perf_counter() - t0:.3f} s "
+          f"(g++ {native.build_seconds} s)", flush=True)
+    plan, config = headline_scene(P)
+    field = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    fplan, fconfig = headline_scene(P, grid_n=128, max_steps=256)
+    ffield = P.DenseGridField.create(fconfig, device=dev).requires_grad_(
+        False)
+    splan, sfield, brick_s = shell_scene(torch, P, dev)
+    print(f"SDF shell {SHELL_N}^3: {sfield.occupied_bricks} of "
+          f"{sfield.total_bricks} bricks kept, {sfield.memory_bytes() / 1e9:.3f}"
+          f" GB on the card, bricks built in {brick_s:.1f} s", flush=True)
+    builds = {f"headline_{px}px": (lambda px=px: tiled.build_tiled_schedule(
+        plan, field, tile_px=px)) for px in (16, 8, 4)}
+    builds["finegrid_cascade"] = (
+        lambda: tiled.build_tiled_schedule_auto(fplan, ffield)[0])
+    builds["shell_8px_occupancy"] = lambda: tiled.build_tiled_schedule(
+        splan, sfield, tile_px=8, occupancy=True)
+    report["builders"] = {}
+    for name, build in builds.items():
+        out = {}
+        for flag in ("1", "0"):
+            with native_sched(flag):
+                t0 = time.perf_counter()
+                sched = build()
+                out[flag] = (time.perf_counter() - t0, schedule_digest(sched))
+        row = {"schedule_build_s": {"native": out["1"][0],
+                                    "numpy": out["0"][0]},
+               "digest": out["1"][1], "groups": len(sched.groups),
+               "tile_px": sched.tile_px, "cell_scale": sched.cell_scale,
+               "tiled_samples": sched.tiled_samples,
+               "fallback_rays": sched.fallback_rays}
+        report["builders"][name] = row
+        print(f"schedule {name}: native {out['1'][0]:.3f} s, numpy "
+              f"{out['0'][0]:.3f} s, digests {out['1'][1]} / {out['0'][1]}; "
+              f"{schedule_line(sched, out['1'][0])}", flush=True)
+        require(out["1"][1] == out["0"][1],
+                f"the native and numpy builders differ on {name}")
+    del builds, ffield
+    lap("47")
+
+    # 48. pitch 2 at the dense headline, float32 and bfloat16
+    n_values = plan.height * plan.width * 3
+    dl = (torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2
+          - 1).cpu().numpy()
+    target = torch.zeros((plan.height, plan.width, 3), device=dev)
+    report["pitch2"] = {}
+    for dtype in ("float32", "bfloat16"):
+        f = P.DenseGridField.create(config, device=dev).with_packed_dtype(
+            dtype).requires_grad_(False)
+        ctx = P.Context.create(device="cuda")
+        r1 = P.Renderer(ctx, plan)
+        r2 = P.Renderer(ctx, plan, P.RenderOptions(tile_pitch=2))
+        a = r1.forward(f)
+        reset()
+        b = r2.forward(f)
+        fwd_c = counts()
+        s1, s2 = r1._tiled_schedule, r2._tiled_schedule
+        print(f"pitch 2 {dtype}: pitch 1 {schedule_line(s1, 0)}; pitch 2 "
+              f"{schedule_line(s2, build_ms(b.stats.notes) / 1e3)}; forward "
+              f"launches {fwd_c}", flush=True)
+        require(s2.pitch == 2 and s1.fallback_rays == s2.fallback_rays == 0,
+                f"the {dtype} pitch-2 headline schedule has overflow rays")
+        require(frames_equal(a, b),
+                f"the {dtype} pitch-2 frame differs from pitch 1")
+        torch.use_deterministic_algorithms(True)
+        try:
+            g1 = r1.backward(f, dl)
+            reset()
+            g2 = r2.backward(f, dl)
+            bwd_c = counts()
+        finally:
+            torch.use_deterministic_algorithms(False)
+        for key in ("sigma", "color", "camera", "camera_k"):
+            require(float(np.abs(getattr(g1, key)).max()) > 0
+                    and np.array_equal(getattr(g1, key), getattr(g2, key)),
+                    f"the {dtype} pitch-2 backward {key} differs from pitch 1")
+        stepped = []
+        for s in (s1, s2):
+            student = P.DenseGridField.create(
+                config, device=dev).with_packed_dtype(dtype)
+            opt = torch.optim.SGD(student.parameters(), lr=LR * n_values)
+            reset()
+            opt.zero_grad(set_to_none=True)
+            mse(tiled.render_tiled(plan, student, s).image,
+                target).backward()
+            opt.step()
+            step_c = counts()
+            stepped.append(student)
+        require(torch.equal(stepped[0].sigma, stepped[1].sigma)
+                and torch.equal(stepped[0].color, stepped[1].color)
+                and not torch.equal(stepped[1].sigma, f.sigma),
+                f"the {dtype} pitch-2 SGD step differs from pitch 1")
+        table_k = ("packed_table", "packed_table_bwd") if dtype == "float32" \
+            else ("packed_table16", "packed_table16_bwd")
+        require(fwd_c["fused_tiles"] > 0 and fwd_c[table_k[0]] > 0
+                and bwd_c["fused_tiles_bwd"] > 0 and bwd_c[table_k[1]] > 0
+                and step_c["fused_tiles_bwd"] > 0,
+                f"the {dtype} pitch-2 path skipped a kernel: forward {fwd_c}"
+                f", backward {bwd_c}")
+        args = [variant_args(torch, plan, f, s2)]
+        errs = twins_bit_equal(torch, args, gen, SUBSET)
+        if dtype == "float32":
+            table = packed_transpose.build_rows(f.sigma, f.color)
+        else:
+            table = packed_transpose.build_rows16(
+                f.sigma, f.color, getattr(torch, dtype))
+        gather = [cuda_ms(torch, lambda s=s: tiled._gather_banks_flat(
+            table, s.gathermap_all, s.pitch), 20) for s in (s1, s2)]
+        with torch.no_grad():
+            frame = [cuda_ms(torch, lambda s=s: tiled.render_tiled(
+                plan, f, s), 10) for s in (s1, s2)]
+        row = {"groups": [len(s1.groups), len(s2.groups)],
+               "lanes": [int(s1.hostmap_all.numel()),
+                         int(s2.hostmap_all.numel())],
+               "gather_ms": gather, "frame_ms": frame,
+               "build_s": build_ms(b.stats.notes) / 1e3}
+        print(f"pitch 2 {dtype} [{card}]: frames, backwards (sigma, colour, "
+              f"camera) and an SGD step at lr {LR} x {n_values} bit-equal to "
+              f"pitch 1; K1 / K2 == twins on the first {SUBSET} tiles of "
+              f"every group; bank gather ms pitch 1 / 2 {gather[0]:.4f} / "
+              f"{gather[1]:.4f} over {row['lanes'][0]} / {row['lanes'][1]} "
+              f"lanes; frame ms {frame[0]:.4f} / {frame[1]:.4f}", flush=True)
+        if dtype == "float32":
+            gss = tile_gss(torch, args, gen)
+            times = variant_times(torch, args, gss)
+            row.update(k1_ms=times[0], k2_ms=times[1])
+            print(f"pitch 2 K1 {times[0]:.4f} ms (plain {times[2]:.4f}), K2 "
+                  f"{times[1]:.4f} (plain {times[3]:.4f})", flush=True)
+            kernels.extend(variant_kernels(
+                f"pitch2_{s2.tile_px}px", args, gss, s2,
+                (fwd_c["fused_tiles"], step_c["fused_tiles_bwd"]), errs,
+                times))
+        report["pitch2"][dtype] = row
+        del r1, r2, a, b, g1, g2, stepped, table, args
+    lap("48")
+
+    # 49. the SDF shell with occupancy, through the cascade
+    ctx = P.Context.create(device="cuda")
+    r_occ = P.Renderer(ctx, splan, P.RenderOptions(use_occupancy=True))
+    reset()
+    res = r_occ.forward(sfield)
+    occ_c = counts()
+    sched = r_occ._tiled_schedule
+    r_full = P.Renderer(ctx, splan)
+    full = r_full.forward(sfield)
+    sched_full = r_full._tiled_schedule
+    err = max(float(np.abs(getattr(res, k) - getattr(full, k)).max())
+              for k in ("image", "transmittance", "opacity"))
+    depth = float(np.abs(res.depth - full.depth).max())
+    hit = np.array_equal(res.hitmask, full.hitmask)
+    bit_equal = frames_equal(res, full)
+    print(f"shell use_occupancy: {schedule_line(sched, build_ms(res.stats.notes) / 1e3)}"
+          f"; untrimmed {sched_full.tiled_samples} live samples, fallback "
+          f"rays {sched_full.fallback_rays}; notes {res.stats.notes}; "
+          f"launches {occ_c}; frame vs untrimmed: planes {err:.3e}, depth "
+          f"{depth:.3e}, hitmask equal {hit}, bit-equal {bit_equal}",
+          flush=True)
+    require(err <= TOL and hit, "the trimmed shell frame differs from the "
+            "untrimmed one")
+    require(sched.tiled_samples < sched_full.tiled_samples,
+            "occupancy trimmed no sample of the shell")
+    require(float(res.opacity.max()) > 0.5, "the shell is not visible")
+    require(occ_c["fused_tiles"] > 0, "K1 did not launch on the shell")
+    sdl = (torch.rand((splan.ray_count, 3), generator=gen, device=dev) * 2
+           - 1).cpu().numpy()
+    torch.use_deterministic_algorithms(True)
+    try:
+        reset()
+        t0 = time.perf_counter()
+        g = r_occ.backward(sfield, sdl)
+        bwd_s = time.perf_counter() - t0
+        sbwd_c = counts()
+        g_again = r_occ.backward(sfield, sdl)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    require(bool(np.isfinite(g.bricks).all())
+            and float(np.abs(g.bricks).max()) > 0
+            and np.array_equal(g.bricks, g_again.bricks),
+            "the shell backward is not finite, zero or repeatable")
+    require(sbwd_c["fused_tiles_bwd"] > 0, "K2 did not launch on the shell")
+    table = sfield.bricks.detach().reshape(-1, 32)
+    args = [table_args(torch, splan, table, sched)]
+    errs = twins_bit_equal(torch, args, gen, SUBSET)
+    # pitch 2 at tools/sparse_bench.py's 8 px (at the cascade's 4 px the
+    # inflated lanes pass the 15-bit lane id, which build_tiled_schedule
+    # refuses)
+    s1 = tiled.build_tiled_schedule(splan, sfield, tile_px=8,
+                                    occupancy=True).to(dev)
+    s2 = tiled.build_tiled_schedule(splan, sfield, tile_px=8,
+                                    occupancy=True, pitch=2).to(dev)
+    with torch.no_grad():
+        p1 = tiled.render_tiled(splan, sfield, s1)
+        p2 = tiled.render_tiled(splan, sfield, s2)
+    err2 = max(float((getattr(p1, k) - getattr(p2, k)).abs().max())
+               for k in ("image", "transmittance", "opacity"))
+    require(s2.pitch == 2, "the shell's pitch-2 schedule demoted")
+    require(err2 <= TOL and (s2.fallback_rays != s1.fallback_rays
+                             or frames_equal(p1, p2)),
+            "the shell's pitch-2 frame differs from pitch 1")
+    twins_bit_equal(torch, [table_args(torch, splan, table, s2)], gen, SUBSET)
+    gss = tile_gss(torch, args, gen)
+    times = variant_times(torch, args, gss)
+    with torch.no_grad():
+        frame = [cuda_ms(torch, lambda s=s: tiled.render_tiled(
+            splan, sfield, s), 5) for s in (sched, sched_full)]
+    report["shell"] = {
+        "bricks": sfield.occupied_bricks, "brick_build_s": brick_s,
+        "tile_px": sched.tile_px, "groups": len(sched.groups),
+        "tiled_samples": sched.tiled_samples,
+        "tiled_samples_untrimmed": sched_full.tiled_samples,
+        "fallback_rays": sched.fallback_rays,
+        "fallback_rays_untrimmed": sched_full.fallback_rays,
+        "vs_untrimmed": err, "bit_equal": bit_equal,
+        "frame_ms": frame[0], "frame_ms_untrimmed": frame[1],
+        "backward_s": bwd_s, "k1_ms": times[0], "k2_ms": times[1],
+        "pitch1_8px_fallback_rays": s1.fallback_rays,
+        "pitch2_8px_fallback_rays": s2.fallback_rays,
+        "pitch2_vs_pitch1": err2, "pitch2_frame_equal": frames_equal(p1, p2)}
+    print(f"shell [{card}]: trimmed frame {frame[0]:.4f} ms, untrimmed "
+          f"{frame[1]:.4f}; backward {bwd_s:.3f} s (host copy included); K1 "
+          f"{times[0]:.4f} (plain {times[2]:.4f}), K2 {times[1]:.4f} (plain "
+          f"{times[3]:.4f}); K1 / K2 == twins on the trimmed schedule and on "
+          f"the 8 px pitch-2 one (fallback rays {s2.fallback_rays}, pitch 1 "
+          f"{s1.fallback_rays}; frame vs pitch 1 {err2:.3e}, bit-equal "
+          f"{report['shell']['pitch2_frame_equal']})", flush=True)
+    kernels.extend(variant_kernels(
+        f"shell_occupancy_{sched.tile_px}px", args, gss, sched,
+        (occ_c["fused_tiles"], sbwd_c["fused_tiles_bwd"]), errs, times))
+    del r_occ, r_full, res, full, g, g_again, args, gss, s1, s2, p1, p2
+    del sched, sched_full, table, sfield
+    torch.cuda.empty_cache()
+    lap("49")
+
+    # 50. the moving camera over the dense headline
+    def orbit(i):
+        ang = 2 * np.pi * i / ORBIT_POSES
+        return headline_scene(P, tx=0.5 + 0.1 * np.sin(ang),
+                              ty=0.5 + 0.05 * np.cos(ang))[0]
+
+    mover = animate.MovingCameraRenderer(plan, field)
+    poses = []
+    reset()
+    for i in range(ORBIT_POSES):
+        p_i = orbit(i)
+        t0 = time.perf_counter()
+        host = mover.host_schedule(p_i, field)
+        t1 = time.perf_counter()
+        dev_sched = host.to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            planes = tiled.render_tiled(plan, field, dev_sched)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        poses.append({"build_ms": (t1 - t0) * 1e3,
+                      "upload_ms": (t2 - t1) * 1e3,
+                      "render_ms": (t3 - t2) * 1e3})
+        with torch.no_grad():
+            ref = tiled.render_tiled(p_i, field, tiled.build_tiled_schedule(
+                p_i, field).to(dev))
+        require(frames_equal(planes, ref),
+                f"orbit pose {i} differs from its own schedule's frame")
+    orbit_c = counts()
+    require(mover.cache_size() == 1, "the orbit met more than one schedule "
+            "structure")
+    require(orbit_c["fused_tiles"] > 0 and orbit_c["packed_table"] > 0,
+            f"the orbit skipped a kernel: {orbit_c}")
+    numpy_ms = []
+    with native_sched("0"):
+        for i in range(ORBIT_NUMPY_POSES):
+            p_i = orbit(i)
+            t0 = time.perf_counter()
+            mover.host_schedule(p_i, field)
+            numpy_ms.append((time.perf_counter() - t0) * 1e3)
+    report["orbit"] = {"uniform_shape": list(mover.uniform_shape),
+                       "poses": poses, "numpy_build_ms": numpy_ms,
+                       "structures": mover.cache_size()}
+    print(f"orbit [{card}]: {ORBIT_POSES} poses bit-equal to their own "
+          f"schedules, uniform_shape {mover.uniform_shape}, one structure; "
+          f"per pose ms (host build, upload, render) "
+          f"{[(round(p['build_ms'], 3), round(p['upload_ms'], 3), round(p['render_ms'], 3)) for p in poses]}; "
+          f"numpy host build ms {[round(x, 3) for x in numpy_ms]}; "
+          f"launches {orbit_c}", flush=True)
+    lap("50")
+
+    # 51. the train-state checkpoint: 4 + 4 Adam steps against 8
+    import tempfile
+
+    sched = tiled.build_tiled_schedule(plan, field).to(dev)
+    with torch.no_grad():
+        teacher = tiled.render_tiled(plan, field, sched).image
+
+    def student():
+        s = P.DenseGridField.create(config, device=dev)
+        with torch.no_grad():
+            s.sigma.fill_(0.5)
+            s.color.fill_(0.5)
+        return s, torch.optim.Adam(s.parameters(), lr=5e-2)
+
+    def adam(s, opt, n):
+        for _ in range(n):
+            opt.zero_grad(set_to_none=True)
+            mse(tiled.render_tiled(plan, s, sched).image, teacher).backward()
+            opt.step()
+
+    straight, opt = student()
+    adam(straight, opt, 2 * RESUME_STEPS)
+    first, opt = student()
+    adam(first, opt, RESUME_STEPS)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "train_state.npz")
+        t0 = time.perf_counter()
+        save_train_state(path, {"params": first.state_dict(),
+                                "optim": opt.state_dict()},
+                         {"step": RESUME_STEPS})
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(path)
+        resumed, opt2 = student()
+        t0 = time.perf_counter()
+        state, header = load_train_state(
+            path, {"params": resumed.state_dict(),
+                   "optim": opt2.state_dict()})
+        resumed.load_state_dict(state["params"])
+        opt2.load_state_dict(state["optim"])
+        load_s = time.perf_counter() - t0
+    reset()
+    adam(resumed, opt2, RESUME_STEPS)
+    resume_c = counts()
+    require(header == {"step": RESUME_STEPS}
+            and torch.equal(resumed.sigma, straight.sigma)
+            and torch.equal(resumed.color, straight.color)
+            and not torch.equal(first.sigma, straight.sigma),
+            "the resumed Adam run differs from the uninterrupted one")
+    require(resume_c["fused_tiles_bwd"] == RESUME_STEPS
+            and resume_c["packed_table_bwd"] == RESUME_STEPS,
+            f"the resumed steps skipped a kernel: {resume_c}")
+    report["train_state"] = {"bytes": size, "save_s": save_s,
+                             "load_s": load_s}
+    print(f"train state: {RESUME_STEPS} Adam steps, saved ({size} bytes, "
+          f"{save_s:.3f} s), restored into a fresh field and optimizer "
+          f"({load_s:.3f} s), {RESUME_STEPS} more: bit-equal to "
+          f"{2 * RESUME_STEPS} uninterrupted steps; launches {resume_c}",
+          flush=True)
+    lap("51")
+    return kernels, report
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -3832,6 +4334,13 @@ def run(only: str = "all") -> dict:
         elapsed("42-46")
         print(json.dumps({"kernels": split_kernels}), flush=True)
         print(json.dumps({**split_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "sched":
+        sched_kernels, sched_report = run_sched(torch, P, dev, card)
+        elapsed("47-51")
+        print(json.dumps({"kernels": sched_kernels}), flush=True)
+        print(json.dumps({**sched_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
 
@@ -4261,6 +4770,9 @@ def run(only: str = "all") -> dict:
         torch, P, dev, card, headline=(plan, config, field, sched_host))
     kernels += split_kernels
     elapsed("42-46")
+    sched_kernels, hash_report["sched"] = run_sched(torch, P, dev, card)
+    kernels += sched_kernels
+    elapsed("47-51")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -4295,7 +4807,7 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("all", "dense", "tiles", "tables", "hash",
-                           "grid", "gridviews", "window", "split"),
+                           "grid", "gridviews", "window", "split", "sched"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
@@ -4308,6 +4820,9 @@ def main() -> int:
              "px); 'window': phase 1 and "
              "phases 37-41 (the windowed path, its fallback and K9); "
              "'split': phase 1 and phases 42-46 (the split backward, K6); "
+             "'sched': phase 1 and phases 47-51 (the native scheduler core, "
+             "pitch 2, occupancy on the SDF shell, the moving camera, the "
+             "train-state checkpoint); "
              "each for timing two trees against each other in one call")
     parser.add_argument("--split-child", action="store_true",
                         help=argparse.SUPPRESS)   # phase 45's child process

@@ -46,46 +46,55 @@ def occupancy_shape(grid_shape) -> tuple[int, int, int]:
 def build_bricks(sigma: np.ndarray, color: np.ndarray,
                  threshold: float) -> tuple[np.ndarray, np.ndarray]:
     """(bricks (n_bricks, BRICK^3, 32) f32, occupancy (Bz, By, Bx) int32)
-    of a dense grid, streamed over z-slabs of bricks, as
-    ``dvren_tpu``'s ``SparseGridField.from_dense`` builds them: a brick is
-    kept iff one of its sigma stencil values exceeds ``threshold`` in
-    magnitude; kept bricks take slots 1, 2, ... in (z, y, x) order."""
+    of a dense grid, as ``dvren_tpu``'s ``SparseGridField.from_dense``
+    builds them: a brick is kept iff one of its sigma stencil values
+    exceeds ``threshold`` in magnitude (a cell past the grid's last base
+    cell counts as 0); kept bricks take slots 1, 2, ... in (z, y, x)
+    order, their cells' packed rows (corner columns per channel, zero rows
+    past the grid). Streamed over z-slabs of bricks: the decision reads
+    sigma alone, and only the kept bricks' rows are gathered."""
     nz, ny, nx = sigma.shape
     zm, ym, xm = nz - 1, ny - 1, nx - 1
     bz, by, bx = occupancy_shape(sigma.shape)
     occupancy = np.zeros((bz, by, bx), np.int32)
-    brick_rows = [np.zeros((BRICK ** 3, NCH), np.float32)]   # slot 0
-    pad_y, pad_x = by * BRICK, bx * BRICK
+    brick_rows = [np.zeros((1, BRICK ** 3, NCH), np.float32)]   # slot 0
+    n_kept = 1
+    corners = [(dz, dy, dx) for dz in (0, 1) for dy in (0, 1)
+               for dx in (0, 1)]
+    local = np.arange(BRICK)
     for bz_i in range(bz):
         z0 = bz_i * BRICK
         z_hi = min(z0 + BRICK, zm)
-        slab_sigma = sigma[z0:z_hi + 1]
-        slab_color = color[z0:z_hi + 1]
         zc = z_hi - z0
-        parts = [[], [], [], []]
-        for dz in (0, 1):
-            for dy in (0, 1):
-                for dx in (0, 1):
-                    parts[0].append(slab_sigma[dz:dz + zc, dy:dy + ym,
-                                               dx:dx + xm, None])
-                    for ch in range(3):
-                        parts[ch + 1].append(
-                            slab_color[dz:dz + zc, dy:dy + ym, dx:dx + xm,
-                                       ch:ch + 1])
-        packed = np.concatenate(parts[0] + parts[1] + parts[2] + parts[3],
-                                axis=-1)                   # (zc, ym, xm, 32)
-        packed = np.pad(packed, ((0, BRICK - zc), (0, pad_y - ym),
-                                 (0, pad_x - xm), (0, 0)))
-        tiles = packed.reshape(BRICK, by, BRICK, bx, BRICK, NCH)
-        tiles = tiles.transpose(1, 3, 0, 2, 4, 5).reshape(
-            by, bx, BRICK ** 3, NCH)
-        sig_max = np.abs(tiles[..., list(_SIGMA_CH)]).max(axis=(2, 3))
+        a = np.abs(sigma[z0:z_hi + 1])
+        m = a[:zc, :ym, :xm]
+        for dz, dy, dx in corners[1:]:
+            m = np.maximum(m, a[dz:dz + zc, dy:dy + ym, dx:dx + xm])
+        m = np.pad(m, ((0, BRICK - zc), (0, by * BRICK - ym),
+                       (0, bx * BRICK - xm)))
+        sig_max = m.reshape(BRICK, by, BRICK, bx, BRICK).max(axis=(0, 2, 4))
+        if threshold < 0:     # the zero padding itself exceeds it
+            sig_max = np.maximum(sig_max, 0.0)
         occ_y, occ_x = np.nonzero(sig_max > threshold)
-        for j, (by_i, bx_i) in enumerate(zip(occ_y, occ_x)):
-            occupancy[bz_i, by_i, bx_i] = len(brick_rows) + j
-        if occ_y.size:
-            brick_rows.extend(tiles[occ_y, occ_x].astype(np.float32))
-    return np.stack(brick_rows), occupancy
+        if not occ_y.size:
+            continue
+        occupancy[bz_i, occ_y, occ_x] = n_kept + np.arange(occ_y.size)
+        n_kept += occ_y.size
+        zz = (z0 + local)[None, :, None, None]
+        yy = (occ_y[:, None] * BRICK + local)[:, None, :, None]
+        xx = (occ_x[:, None] * BRICK + local)[:, None, None, :]
+        valid = (zz < z_hi) & (yy < ym) & (xx < xm)      # (k, 8, 8, 8)
+        zz, yy, xx = (np.where(valid, v, 0) for v in (zz, yy, xx))
+        rows = np.zeros(valid.shape + (NCH,), np.float32)
+        for ci, (dz, dy, dx) in enumerate(corners):
+            idx = (zz + dz, yy + dy, xx + dx)
+            rows[..., ci] = np.where(valid, sigma[idx], 0.0)
+            col = color[idx]
+            for ch in range(3):
+                rows[..., 8 * (ch + 1) + ci] = np.where(valid, col[..., ch],
+                                                        0.0)
+        brick_rows.append(rows.reshape(-1, BRICK ** 3, NCH))
+    return np.concatenate(brick_rows), occupancy
 
 
 class SparseGridField(nn.Module):

@@ -43,8 +43,9 @@ class GatherPlan:
             inv_map=_on(self.inv_map, device))
 
 
-def build_gather_plan(hostmap_all: np.ndarray,
-                      n_cells: int) -> GatherPlan | None:
+def build_gather_plan(hostmap_all: np.ndarray, n_cells: int,
+                      slot_key: np.ndarray | None = None
+                      ) -> GatherPlan | None:
     """The transpose of the gather ``slot[i] = table[hostmap_all[i]]``, as
     gathers and sums only.
 
@@ -55,13 +56,19 @@ def build_gather_plan(hostmap_all: np.ndarray,
     gather of the slot rows, sums each cell's c_k rows, and assembles the
     (n_cells, w) table gradient by the inverse-permutation gather
     ``inv_map`` (untouched cells read a trailing zero row). None for an
-    empty schedule. Equal to ``dvren_tpu``'s plan array for array."""
+    empty schedule. ``slot_key`` (S,): each cell's rows in rising key
+    order (and so their sum's order), by default slot order. Equal to
+    ``dvren_tpu``'s plan array for array where the key rises with the
+    slot index."""
     if hostmap_all.size == 0:
         return None
     valid = np.nonzero(hostmap_all >= 0)[0].astype(np.int64)
     if valid.size == 0:
         return None
-    order = valid[np.argsort(hostmap_all[valid], kind="stable")]
+    if slot_key is None:
+        order = valid[np.argsort(hostmap_all[valid], kind="stable")]
+    else:
+        order = valid[np.lexsort((slot_key[valid], hostmap_all[valid]))]
     cells, first, counts = np.unique(
         hostmap_all[order], return_index=True, return_counts=True)
     idx_parts, meta, cell_order = [], [], []

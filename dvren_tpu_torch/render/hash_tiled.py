@@ -352,6 +352,7 @@ def render_hash_grid_tiled(plan: Plan, field, schedule,
     _check_grid_spec(field.spec)
     check(schedule.fallback_rays == 0 and schedule.fallback is None,
           "hash grid path requires zero overflow rays")
+    check(schedule.pitch == 1, "hash grid path requires a pitch-1 schedule")
     check(tuple(schedule.grid_shape) == hash_grid.grid_shape(field.spec),
           "schedule was built for a different finest resolution")
     check(schedule.device == field.device,

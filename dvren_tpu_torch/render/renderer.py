@@ -6,8 +6,9 @@ On a dense grid or a sparse brick field, :meth:`Renderer.forward` builds
 the tile schedule by ``build_tiled_schedule_auto``'s cascade (16, 8 or
 4 px tiles, cell or supercell tables) once per (field bbox, packed
 dtype, grid shape, pitch; for a sparse field its brick count and
-occupancy, compared by contents) key, keeps it on the context's device,
-and replays it every frame (the table: K3 for a float32 dense grid on
+occupancy, compared by contents; under ``use_occupancy`` also the
+field's zero set, compared by contents) key, keeps it on the context's
+device, and replays it every frame (the table: K3 for a float32 dense grid on
 cell tables, the supercell table on supercell ones, K5a for a 16-bit
 grid, the bricks as they are for a sparse field; the bank gather, one K1
 launch over every tile group, the tile compose); :meth:`Renderer.backward`
@@ -31,6 +32,11 @@ per plan and renders it with one K7f launch (the backward refuses: hash
 fields train through autograd of ``render_hash_tiled`` or
 ``opt.fit.fit_hash_mlp``).
 
+``RenderOptions(use_occupancy=True)`` trims each ray's steps to its
+non-empty cells when the schedule is built, and ``tile_pitch=2`` packs
+the schedule's lanes by cell pairs (the frames and gradients of pitch 1
+bit for bit).
+
 Every other mode of the JAX Renderer raises ``NotImplementedError``
 naming its ROADMAP item: override rays, the streamed, fused and staged
 paths, and graph capture. Unlike the JAX package, which picks the tiled
@@ -50,6 +56,7 @@ import torch
 from dvren_tpu_torch.core.context import Context
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import DvrenError, check
+from dvren_tpu_torch.fields.sparse_grid import _SIGMA_CH
 from dvren_tpu_torch.ops import (fused_tiles, hash_tiles, integrate_fused,
                                  packed_transpose)
 from dvren_tpu_torch.ops.raygen import camera_arrays
@@ -63,10 +70,16 @@ from dvren_tpu_torch.render.pipeline import plan_jitter_table
 class RenderOptions:
     """Mirrors ``dvren::RenderOptions`` (renderer.hpp:17-21) with the JAX
     package's fields. The tiled paths (``use_tiles`` None: tiles on CUDA,
-    or True) and the windowed path (``use_window=True``) are ported.
-    ``enable_graph``, ``use_occupancy`` and ``tile_pitch=2`` raise when
-    they would take effect; ``capture_stats`` is accepted, and no stage
-    timings are taken yet."""
+    or True), with ``use_occupancy`` and ``tile_pitch`` 1 or 2, and the
+    windowed path (``use_window=True``) are ported. ``use_occupancy``
+    trims each ray's step window to its non-empty cells (exact where
+    empty space is exact zeros); the schedule then depends on the
+    field's zero set, which the Renderer compares at every forward
+    (rebuilding when it changed), and its backward is that of the trimmed
+    render: the corner gradients of leading and trailing empty cells are
+    dropped, so it suits inference and replay, not per-step training.
+    ``enable_graph`` raises when it would take effect;
+    ``capture_stats`` is accepted, and no stage timings are taken yet."""
 
     use_fused_path: bool = True
     enable_graph: bool = False
@@ -138,6 +151,7 @@ class Renderer:
         self._jitter_host = plan_jitter_table(plan)
         self._tiled_schedule = None
         self._tiled_key = None
+        self._tiled_zeros = None      # the zero set under use_occupancy
         self._tiled_demoted = False
         self._window_schedule = None
         self._window_bbox = None
@@ -450,9 +464,27 @@ class Renderer:
         return key + (tuple(int(v) for v in field.sigma.shape), False,
                       self._options.tile_pitch)
 
+    def _zero_set(self, field):
+        """Under ``use_occupancy``, what the trimmed windows depend on: the
+        field's nonzero sigma, on its device (a dense grid's voxels; a
+        sparse field's brick rows with a nonzero sigma corner), compared
+        by contents at every forward. (JAX keys on ``id(field.sigma)``:
+        its arrays are immutable. Here an optimizer step or an edit of
+        ``field.sigma.data`` changes the same tensor in place, and
+        ``.data`` edits bypass its version counter.) None otherwise."""
+        if not self._options.use_occupancy:
+            return None
+        with torch.no_grad():
+            if hasattr(field, "bricks"):
+                return (field.bricks[:, :, list(_SIGMA_CH)] != 0).any(dim=2)
+            return field.sigma != 0
+
     def _forward_tiled(self, field, stats: RenderStats):
         key = self._tiled_schedule_key(field)
-        if self._tiled_schedule is None or self._tiled_key != key:
+        zeros = self._zero_set(field)
+        if (self._tiled_schedule is None or self._tiled_key != key
+                or (zeros is not None
+                    and not torch.equal(zeros, self._tiled_zeros))):
             t0 = time.perf_counter()
             schedule, note = tiled_mod.build_tiled_schedule_auto(
                 self._plan, field, jitter=self._jitter_host,
@@ -462,6 +494,7 @@ class Renderer:
                 stats.notes.append(note)
             self._tiled_schedule = schedule.to(self._ctx.device)
             self._tiled_key = key
+            self._tiled_zeros = zeros
             # auto mode: when most rays' tiles still overflow, the
             # fallback is the windowed path less the schedule's overhead
             self._tiled_demoted = (

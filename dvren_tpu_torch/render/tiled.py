@@ -62,9 +62,14 @@ Rays whose sub-tiles overflow the slot tables go to the windowed
 fallback: the schedule carries a
 :class:`~dvren_tpu_torch.render.windowed.WindowedSchedule` of them
 (``fallback``), and the render overwrites their pixels with the windowed
-path's results (K9f / K9b per fallback group). Not yet ported:
-pitch 2 and occupancy trimming, which raise ``NotImplementedError``
-naming their ROADMAP item.
+path's results (K9f / K9b per fallback group). ``pitch=2`` packs lanes by
+cell pairs, so the bank gather fetches two packed rows per index;
+``occupancy=True`` trims each ray's step window to its non-empty cells;
+``all_tiles=True`` puts every image tile in one uniform group, so a
+schedule's shapes depend on the plan's geometry alone (the moving-camera
+renderer, :mod:`dvren_tpu_torch.render.animate`). The schedule's hot loop
+runs in the native scheduler core (:mod:`dvren_tpu_torch.native`), or in
+numpy under ``DVREN_NATIVE_SCHED=0``; both give the same bytes.
 
 Sample layout per (tile, chunk): block row r in [0, 16), lane l in
 [0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8; with n_sub
@@ -80,9 +85,10 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from dvren_tpu_torch import native
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import check
-from dvren_tpu_torch.fields.sparse_grid import BRICK
+from dvren_tpu_torch.fields.sparse_grid import _SIGMA_CH, BRICK
 from dvren_tpu_torch.ops import fused_tiles, packed_transpose
 from dvren_tpu_torch.ops.compose import ImagePlanes, place_rays
 from dvren_tpu_torch.ops.gather_plan import (build_gather_plan,
@@ -102,11 +108,6 @@ MAX_CELLS = 128
 _SENTINEL = np.int64(1) << 62
 _DROP_TILE = 1 << 30     # tile id of pad tiles: compose drops it
 
-# ROADMAP Queue 1 items for what this slice leaves out
-_TODO_PITCH2 = "pitch-2 packing (ROADMAP Queue 1 item 5)"
-_TODO_OCCUPANCY = "occupancy trimming (ROADMAP Queue 1 item 5)"
-_TODO_ALL_TILES = ("all_tiles, the camera-stable schedule of render/animate.py "
-                   "(ROADMAP Queue 1 item 15)")
 _TODO_BANK_ALIGNED = ("bank_aligned packing (not ported: ROADMAP 'Not ported, "
                       "on purpose')")
 
@@ -164,7 +165,9 @@ class TileGroup:
     banks: int               # banks of 128 lanes per tile
     hostmap: np.ndarray      # (T*banks*128,) int32 packed row per lane,
     #                          -1 on dead lanes
-    gathermap: np.ndarray    # pitch 1: the same array as ``hostmap``
+    gathermap: np.ndarray    # pitch 1: the same array as ``hostmap``;
+    #                          pitch 2: (T*banks*64,) the packed-row pair
+    #                          per lane pair, -1 where neither lane is used
     samp: np.ndarray         # (T, nc, 3, 16, 128) u16: [sample_t hi16,
     #                          sample_t lo16, tile lane | mask << 15, or
     #                          for supercells lane(12) | lb << 12 | m << 15];
@@ -205,7 +208,8 @@ class TiledSchedule:
     fallback: object         # windowed.WindowedSchedule of the overflow
     #                          rays, or None (none, or a cascade probe)
     hostmap_all: np.ndarray  # (S,) int32 every group's hostmap, concatenated
-    gathermap_all: np.ndarray  # (S,) int32 the bank gather's rows
+    gathermap_all: np.ndarray  # (S / pitch,) int32 the bank gather's rows
+    #                            (pitch 2: row pairs), every group's gathermap
     gather_plan: object      # GatherPlan | None (an empty schedule)
     total_rays: int
     tiled_samples: int
@@ -219,6 +223,10 @@ class TiledSchedule:
     pitch: int = 1
     cell_scale: int = 1
     tiles: fused_tiles.TileSet | None = None   # the groups' arrays, flat
+    tile_order: np.ndarray | None = None   # (T_kept,) int32 the kept tiles
+    #                          in pitch 1's group order (pads left out): the
+    #                          camera adjoint sums over them in this order
+    #                          (:func:`_canonical_order`); None: every tile
 
     @property
     def subs(self) -> int:
@@ -257,6 +265,8 @@ class TiledSchedule:
             gathermap_all=_to_device(self.gathermap_all, device),
             gather_plan=(self.gather_plan.to(device)
                          if self.gather_plan is not None else None),
+            tile_order=(None if self.tile_order is None
+                        else _to_device(self.tile_order, device)),
         ).with_tiles(tiles.to(device))
 
     @property
@@ -348,33 +358,96 @@ def _tile_rays(plan: Plan, tile_px: int = 16):
     return tiles, sub.reshape(ty_n * tx_n, per * per)
 
 
-def _pack_runs_numpy(flat: np.ndarray, umax: int):
+def _pack_runs_numpy(flat: np.ndarray, umax: int, pitch: int = 1,
+                     pmax: int | None = None):
     """Per row of sample cell ids: stable sort, give each distinct cell its
-    lane in sorted order (the sentinel sorts last and gets none), and list
-    the distinct (cell, lane) pairs, at most ``umax`` per row.
+    lane in sorted order (pitch 1: its rank; pitch 2: 2 * pair rank +
+    (cell & 1), pairs being cell >> 1; the sentinel sorts last and gets
+    none), and list the distinct (cell, lane) pairs, at most ``umax`` per
+    row, and at pitch 2 the distinct pairs, at most ``pmax`` (the j-th has
+    rank j). The numpy form of the native core's ``dvn_pack_runs``.
 
-    Returns (lidx, lanes_run, ucell, ulane, n_u): the per-sample lane, the
-    run's lane count, the cells and lanes (-1 / 0 padded) and their
-    number."""
+    Returns (lidx, lanes_run, ucell, ulane, n_u, upair, n_p): the
+    per-sample lane, the run's lane count, the cells and lanes (-1 / 0
+    padded) and their number, the pairs (-1 padded) and theirs. ``pmax``
+    defaults to min(cols, 129)."""
+    if pmax is None:
+        pmax = min(flat.shape[1], MAX_CELLS + 1)
     order = np.argsort(flat, axis=1, kind="stable")
     sc = np.take_along_axis(flat, order, 1)
     new = np.ones(flat.shape, bool)
     new[:, 1:] = sc[:, 1:] != sc[:, :-1]
     rank = np.cumsum(new, axis=1, dtype=np.int32) - 1
     has_sent = sc[:, -1] == _SENTINEL
-    lanes_run = (rank[:, -1] + 1 - has_sent).astype(np.int32)
+    if pitch == 2:
+        pcs = np.where(sc == _SENTINEL, _SENTINEL, sc >> 1)
+        new_p = np.ones(flat.shape, bool)
+        new_p[:, 1:] = pcs[:, 1:] != pcs[:, :-1]
+        prank = np.cumsum(new_p, axis=1, dtype=np.int32) - 1
+        lane_sorted = (2 * prank + (sc & 1)).astype(np.int32)
+        lanes_run = (2 * (prank[:, -1] + 1 - has_sent)).astype(np.int32)
+    else:
+        lane_sorted = rank
+        lanes_run = (rank[:, -1] + 1 - has_sent).astype(np.int32)
     lidx = np.empty(flat.shape, np.int32)
-    np.put_along_axis(lidx, order, rank, 1)
+    np.put_along_axis(lidx, order, lane_sorted, 1)
 
-    # stable valid-first partition along the sorted axis
-    valid = new & (sc != _SENTINEL)
-    ord2 = np.argsort(~valid, axis=1, kind="stable")
-    n_u = np.minimum(valid.sum(1), umax).astype(np.int32)
-    within = np.arange(umax)[None, :] < n_u[:, None]
-    ucell = np.where(within, np.take_along_axis(sc, ord2[:, :umax], 1), -1)
-    ulane = np.where(within, np.take_along_axis(rank, ord2[:, :umax], 1),
-                     0).astype(np.int32)
-    return lidx, lanes_run, ucell, ulane, n_u
+    def compact(vals, mask, width, lanes=None):
+        # stable valid-first partition along the sorted axis
+        ord2 = np.argsort(~mask, axis=1, kind="stable")
+        n_v = np.minimum(mask.sum(1), width).astype(np.int32)
+        within = np.arange(width)[None, :] < n_v[:, None]
+        out = np.where(within, np.take_along_axis(vals, ord2[:, :width], 1),
+                       -1)
+        ln = None
+        if lanes is not None:
+            ln = np.where(within, np.take_along_axis(lanes, ord2[:, :width],
+                                                     1), 0).astype(np.int32)
+        return out, ln, n_v
+
+    ucell, ulane, n_u = compact(sc, new & (sc != _SENTINEL), umax,
+                                lane_sorted)
+    if pitch == 2:
+        upair, _, n_p = compact(pcs, new_p & (pcs != _SENTINEL), pmax)
+    else:
+        upair = np.full((flat.shape[0], pmax), -1, np.int64)
+        n_p = np.zeros(flat.shape[0], np.int32)
+    return lidx, lanes_run, ucell, ulane, n_u, upair, n_p
+
+
+def _empty_cells(sigma) -> np.ndarray:
+    """Full-pitch flat bool per grid cell: True where all 8 corner sigmas
+    are exactly 0, so trilinear interpolation in the cell is 0 and
+    skipping its samples changes nothing. The rows no clipped floor
+    produces (ix == X - 1 and the like) count as empty. Host numpy, as in
+    ``dvren_tpu``."""
+    if isinstance(sigma, torch.Tensor):
+        sigma = sigma.detach().cpu().numpy()
+    s = np.asarray(sigma) != 0.0
+    occ = (s[:-1, :-1, :-1] | s[:-1, :-1, 1:] | s[:-1, 1:, :-1]
+           | s[:-1, 1:, 1:] | s[1:, :-1, :-1] | s[1:, :-1, 1:]
+           | s[1:, 1:, :-1] | s[1:, 1:, 1:])
+    full = np.ones(s.shape, bool)
+    full[:-1, :-1, :-1] = ~occ
+    return full.reshape(-1)
+
+
+def _empty_cells_sparse(field) -> np.ndarray:
+    """Full-pitch flat bool per base cell of a sparse brick field: True
+    where the cell's packed row (its 8 sigma corners) is exactly 0.
+    Unoccupied bricks map to the shared zero brick (slot 0), so their
+    cells are empty; a kept brick is tested row by row."""
+    occ = field.occupancy.cpu().numpy()
+    sig = field.bricks.detach()[:, :, list(_SIGMA_CH)]
+    bempty = (sig == 0).all(dim=2).cpu().numpy()          # (NB, 512)
+    nz, ny, nx = (int(v) for v in field.grid_shape)
+    bz, by, bx = occ.shape
+    cells = bempty[occ.reshape(-1)].reshape(bz, by, bx, BRICK, BRICK, BRICK)
+    cells = cells.transpose(0, 3, 1, 4, 2, 5).reshape(
+        bz * BRICK, by * BRICK, bx * BRICK)
+    full = np.ones((nz, ny, nx), bool)
+    full[:nz - 1, :ny - 1, :nx - 1] = cells[:nz - 1, :ny - 1, :nx - 1]
+    return full.reshape(-1)
 
 
 def _sparse_rows_for_cells(cells: np.ndarray, occ: np.ndarray,
@@ -392,13 +465,186 @@ def _sparse_rows_for_cells(cells: np.ndarray, occ: np.ndarray,
     return slot * (BRICK ** 3) + local
 
 
-def _check_slice(field, pitch, occupancy, all_tiles, bank_aligned):
-    if pitch != 1:
-        raise NotImplementedError(_TODO_PITCH2)
-    if occupancy:
-        raise NotImplementedError(_TODO_OCCUPANCY)
-    if all_tiles:
-        raise NotImplementedError(_TODO_ALL_TILES)
+def _tighten_windows_by_occupancy(plan: Plan, o, d, k_enter_ray,
+                                  k_count_ray, jitter, bbox_min, bbox_max,
+                                  grid_shape, cell_empty, block=65536):
+    """Each ray's step window [k_enter, k_enter + k_count) trimmed to its
+    first..last lattice step whose sample (jittered, float32-exact) lands
+    in a non-empty cell: (k_enter, k_count) int32. The trimmed steps
+    contribute exact zeros, so the frame is unchanged. A ray with no such
+    step gets (0, 0) (the schedule never reads k_enter where the count is
+    0). The native core scans each ray forward to its first such step and
+    back to its last; the numpy form evaluates every step of a block of
+    rays (``dvren_tpu``'s ``_tighten_windows_by_occupancy``)."""
+    nz, ny, nx = grid_shape
+    dt = np.float32(plan.sampling.dt)
+    t_near = np.float32(plan.t_near)
+    t_far = np.float32(plan.t_far)
+    k_max = plan.sampling.max_steps
+    n = plan.ray_count
+    hi = np.asarray(bbox_max)
+    lo_d = np.asarray(bbox_min)
+    inv_ext = np.where(hi != lo_d,
+                       1.0 / np.maximum(hi - lo_d, 1e-30), 0.0).astype(
+                           np.float32)
+    lo = np.asarray(bbox_min, np.float32)
+    nudge = np.nextafter(t_far, t_near, dtype=np.float32)
+    if native.enabled():
+        return native.tighten_occupancy(
+            o, d, k_enter_ray, k_count_ray, jitter, float(t_near),
+            float(t_far), float(dt), float(nudge), int(k_max), lo, inv_ext,
+            (nx, ny, nz), cell_empty)
+
+    npts = np.array([nx, ny, nz])
+    new_ke = k_enter_ray.copy()
+    new_cnt = k_count_ray.copy()
+    for start in range(0, n, block):
+        idx = np.arange(start, min(start + block, n))
+        cnt = k_count_ray[idx]
+        if not (cnt > 0).any():
+            continue
+        kw = int(cnt.max())
+        k = k_enter_ray[idx, None] + np.arange(kw, dtype=np.int64)[None, :]
+        in_win = np.arange(kw)[None, :] < cnt[:, None]
+        base_t = t_near + k.astype(np.float32) * dt
+        live = (base_t < t_far) & (k < k_max) & in_win
+        if jitter is not None:
+            jit = jitter[idx[:, None], np.minimum(k, jitter.shape[1] - 1)]
+        else:
+            jit = np.float32(0.5)
+        t = (base_t + jit * dt).astype(np.float32)
+        t = np.where(t >= t_far, nudge, t)
+        ii = np.zeros(live.shape + (3,), np.int64)
+        inside = np.ones(live.shape, bool)
+        for ax in range(3):
+            p = (o[idx, None, ax] + d[idx, None, ax] * t).astype(np.float32)
+            local = ((p - lo[ax]) * inv_ext[ax]).astype(np.float32)
+            inside &= (local >= 0.0) & (local <= 1.0)
+            f = (local * np.float32(npts[ax] - 1)).astype(np.float32)
+            ii[..., ax] = np.clip(np.floor(f), 0, npts[ax] - 2)
+        cell = (ii[..., 2] * ny + ii[..., 1]) * nx + ii[..., 0]
+        occ_live = live & inside & ~cell_empty[cell]
+        any_live = occ_live.any(axis=1)
+        first = np.argmax(occ_live, axis=1)
+        last = kw - 1 - np.argmax(occ_live[:, ::-1], axis=1)
+        new_ke[idx] = np.where(any_live, k_enter_ray[idx] + first, 0)
+        new_cnt[idx] = np.where(any_live, last - first + 1, 0)
+    return new_ke.astype(np.int32), new_cnt.astype(np.int32)
+
+
+def _run_offsets(lanes_f: np.ndarray):
+    """Dense bank packing of each tile's runs (T, runs): each run lands at
+    the next free lane, a run of more than 128 lanes on a bank boundary;
+    an empty run anchors at lane 0 (its samples are masked but must index
+    a valid lane). Returns (the runs' lane offsets, each tile's lane
+    count)."""
+    lanes_f = lanes_f.astype(np.int64)
+    offs = np.zeros(lanes_f.shape, np.int64)
+    cur = np.zeros(lanes_f.shape[0], np.int64)
+    for r in range(lanes_f.shape[1]):
+        n_c = lanes_f[:, r]
+        cur = np.where(n_c > MAX_CELLS, -(-cur // MAX_CELLS) * MAX_CELLS, cur)
+        offs[:, r] = np.where(n_c > 0, cur, 0)
+        cur += n_c
+    return offs, cur
+
+
+def _canonical_order(real_tiles, slot_tiles, n_tiles: int):
+    """The order in which the backward sums over tiles, the same at pitch
+    1 and pitch 2: the kept tiles as pitch 1 groups them, by (chunk
+    count, pitch-1 bank class, image block). Returns (tile_order, the
+    (T_kept,) int32 indices of the kept tiles into the schedule's tile
+    axis in that order; slot_key, an (S,) int64 key per slot, the tile's
+    rank there times 2^16 plus the slot's lane in its tile). At pitch 1
+    the keys rise with the slot index, so the gather plan sorts as
+    ``dvren_tpu``'s does; at pitch 2, where a tile's bank class can
+    differ, they keep pitch 1's order of each cell's slot rows."""
+    if not real_tiles:
+        return np.zeros(0, np.int32), np.zeros(0, np.int64)
+    nc, nb1, block, pos = (np.concatenate(x) for x in zip(*real_tiles))
+    tile_order = pos[np.lexsort((block, nb1, nc))]
+    rank = np.zeros(n_tiles, np.int64)
+    rank[tile_order] = np.arange(tile_order.size)
+    slot_tile = np.concatenate(slot_tiles)
+    starts = np.searchsorted(slot_tile, slot_tile, side="left")
+    lane = np.arange(slot_tile.size) - starts
+    return tile_order.astype(np.int32), (rank[slot_tile] << 16) + lane
+
+
+def _lattice_runs_numpy(ot, dtn, safe, live_r, ke_t, nc: int, n_sub: int,
+                        jitter, plan: Plan, bbox_min, inv_ext, grid_shape,
+                        pitch: int, umax: int, pmax: int, cell_scale: int):
+    """The numpy form of the native core's ``dvn_build_runs``: the sample
+    lattice of a chunk-count class of tiles (every tile's rays from its
+    window start, in the same float32 steps as ``dvren_tpu``'s builder),
+    laid out as (T, nc, 16, 128), then the run pack of every (tile,
+    chunk, sub-tile) row (:func:`_pack_runs_numpy`). Returns (st_l, m_l,
+    lidx, lanes_run, ucell, ulane, n_u, upair, n_p); at ``cell_scale`` 2
+    the packed ids are supercell ids and lidx carries each sample's cell
+    in its supercell at bit 16."""
+    nz, ny, nx = grid_shape
+    t_cnt = int(ot.shape[0])
+    k_steps = nc * CHUNK
+    n = plan.ray_count
+    dt = np.float32(plan.sampling.dt)
+    t_near = np.float32(plan.t_near)
+    t_far = np.float32(plan.t_far)
+    k_max = plan.sampling.max_steps
+    k = (ke_t[:, None, None]
+         + np.arange(k_steps, dtype=np.int64)[None, None, :])
+    k = np.broadcast_to(k, (t_cnt, RAYS_PER_TILE, k_steps))
+    base_t = t_near + k.astype(np.float32) * dt
+    live = (base_t < t_far) & (k < k_max) & live_r[:, :, None]
+    if jitter is not None:
+        rows = np.minimum(safe, n - 1)
+        cols = np.minimum(k, jitter.shape[1] - 1)
+        jit = jitter[rows[:, :, None], cols]
+    else:
+        jit = np.float32(0.5)
+    sample_t = np.asarray(base_t + jit * dt, np.float32)
+    sample_t = np.where(sample_t >= t_far,
+                        np.nextafter(t_far, t_near, dtype=np.float32),
+                        sample_t)
+
+    def _axis(ax, npts):
+        p = ot[:, :, ax:ax + 1] + dtn[:, :, ax:ax + 1] * sample_t
+        local = (p - np.float32(bbox_min[ax])) * inv_ext[ax]
+        inside = (local >= 0.0) & (local <= 1.0)
+        f = local * np.float32(npts - 1)
+        return inside, np.clip(np.floor(f), 0, npts - 2).astype(np.int64)
+
+    in_x, ix = _axis(0, nx)
+    in_y, iy = _axis(1, ny)
+    in_z, iz = _axis(2, nz)
+    m = in_x & in_y & in_z & live
+    if cell_scale == 2:
+        # the supercell's row, and the sample's cell in it
+        # (lb = lx + 2 ly + 4 lz)
+        cell = ((iz >> 1) * (ny // 2) + (iy >> 1)) * (nx // 2) + (ix >> 1)
+        lb = np.where(m, (ix & 1) + 2 * (iy & 1) + 4 * (iz & 1), 0)
+    else:
+        cell = (iz * ny + iy) * nx + ix               # full-pitch table row
+
+    def to_lanes(a):
+        # (T, 256, K) -> (T, nc, 16, 128): ray = row * 16 + lane // 8
+        a = a.reshape(t_cnt, 16, 16, nc, CHUNK)
+        a = a.transpose(0, 3, 1, 2, 4)
+        return a.reshape(t_cnt, nc, 16, 128)
+
+    sub_cols = (16 // n_sub) * 128
+    cell_l = to_lanes(np.where(m, cell, _SENTINEL))
+    m_l = to_lanes(m.astype(np.float32))
+    st_l = to_lanes(np.broadcast_to(sample_t, (t_cnt, RAYS_PER_TILE,
+                                               k_steps)))
+    lidx, *rest = _pack_runs_numpy(cell_l.reshape(-1, sub_cols), umax,
+                                   pitch, pmax)
+    if cell_scale == 2:
+        lidx = lidx | (to_lanes(lb).reshape(-1, sub_cols).astype(np.int32)
+                       << 16)
+    return (st_l, m_l, lidx, *rest)
+
+
+def _check_slice(field, bank_aligned):
     if bank_aligned:
         raise NotImplementedError(_TODO_BANK_ALIGNED)
     check(getattr(field, "oob", OobPolicy.ZERO) == OobPolicy.ZERO,
@@ -441,6 +687,22 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     their schedule (a cascade probe); such a schedule with overflow rays
     cannot be rendered.
 
+    ``occupancy=True`` trims each ray's step window to its first..last
+    sample in a non-empty cell (all 8 corner sigmas exactly 0 elsewhere):
+    the frame is unchanged, and the schedule then depends on where the
+    field's zeros are (reuse it only while they stay). ``pitch=2`` packs
+    each run by cell pairs: a cell's lane is 2 * pair rank + (cell & 1),
+    and ``gathermap`` names one packed-row pair per lane pair, so the bank
+    gather fetches two rows per index (the partner lane of a lone cell
+    stays -1 in ``hostmap``, which the backward reads); the frames and
+    gradients are those of pitch 1 bit for bit. Supercells, and sparse
+    fields with an odd x dimension (whose cell pairs are not brick-row
+    pairs), take pitch 1; ``schedule.pitch`` says which was built.
+    ``all_tiles=True`` (with ``quantize="uniform"`` or ``uniform_shape``)
+    puts every image tile in the one group, those without a live ray fully
+    masked, so the arrays' shapes depend only on the plan's geometry,
+    ``uniform_shape``, ``tile_px`` and ``pitch``.
+
     ``quantize=True`` rounds each group's (chunk count, bank count) up to
     the ``_QUANT`` series; ``"uniform"`` gives every tile one class, the
     largest chunk and bank counts; ``uniform_shape=(nc, nb)`` pins that
@@ -448,7 +710,11 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     into one group (:func:`merge_view_schedules`). The frames are the same
     bit for bit: the padding holds masked samples and unread banks."""
     check(tile_px in (4, 8, 16), "tile_px must be 4, 8 or 16")
+    check(pitch in (1, 2), "pitch must be 1 or 2")
     check(cell_scale in (1, 2), "cell_scale must be 1 or 2")
+    check(not all_tiles or quantize == "uniform"
+          or uniform_shape is not None,
+          "all_tiles requires uniform quantization (one shape class)")
     sparse = hasattr(field, "bricks")
     if cell_scale == 2:
         check(not sparse,
@@ -456,7 +722,11 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         check(getattr(field, "packed_dtype", "float32") == "float32",
               "cell_scale=2 requires float32 tables")
         pitch = 1
-    _check_slice(field, pitch, occupancy, all_tiles, bank_aligned)
+    if pitch == 2 and sparse and int(field.grid_shape[2]) % 2:
+        # with odd nx the flat-id pairs (2j, 2j + 1) wrap x rows, so the
+        # partner is not at brick row(2j) + 1: pitch 1
+        pitch = 1
+    _check_slice(field, bank_aligned)
     bbox_min = tuple(float(v) for v in field.bbox_min)
     bbox_max = tuple(float(v) for v in field.bbox_max)
     if sparse:
@@ -482,6 +752,13 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         jitter = plan_jitter_table(plan)
     if jitter is not None:
         jitter = np.asarray(jitter, np.float32)
+    if occupancy:
+        cell_empty = (_empty_cells_sparse(field) if sparse
+                      else _empty_cells(field.sigma))
+        k_enter_ray, k_count_ray = _tighten_windows_by_occupancy(
+            plan, o, d, k_enter_ray.astype(np.int64),
+            k_count_ray.astype(np.int64), jitter, bbox_min, bbox_max,
+            (nz, ny, nx), cell_empty)
 
     tiles, sub_tile_ids = _tile_rays(plan, tile_px)    # (n_tiles, 256)
     safe_ids = np.maximum(tiles, 0)
@@ -498,14 +775,20 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     uniform = quantize == "uniform" or uniform_shape is not None
     if uniform:
         live_nc = n_chunks_tile[tile_live & (n_chunks_tile > 0)]
-        if live_nc.size:
-            nc_u = int(live_nc.max())
+        if live_nc.size or all_tiles:
+            nc_u = int(live_nc.max()) if live_nc.size else 1
             if uniform_shape is not None:
                 check(uniform_shape[0] >= nc_u,
                       "uniform_shape nc below this schedule's maximum")
                 nc_u = int(uniform_shape[0])
             n_chunks_tile = np.where(tile_live & (n_chunks_tile > 0), nc_u,
                                      n_chunks_tile)
+            if all_tiles:
+                # every image tile joins the one group: a tile without a
+                # live ray is fully masked, and its raw heads are the zero
+                # tile the compose would place there
+                tile_live = np.ones_like(tile_live)
+                n_chunks_tile = np.full_like(n_chunks_tile, nc_u)
     elif quantize:
         nc_cap = -(-k_max // CHUNK)
         lut = np.array([_quant_up(v, nc_cap)
@@ -516,6 +799,11 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     roi = plan.roi
     groups = []
     host_rows: list[np.ndarray] = []
+    gmap_rows: list[np.ndarray] = []
+    real_tiles: list[tuple] = []      # per group (nc, pitch-1 nb, block,
+    #                                   tile index) of its kept tiles
+    slot_tiles: list[np.ndarray] = []     # per group the tile of each slot
+    n_tiles_all = 0
     fallback: list[np.ndarray] = []
     tiled_samples = 0
     pad_pid_base = plan.width * plan.height
@@ -525,13 +813,13 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     nudge = np.nextafter(t_far, t_near, dtype=np.float32)
     sub_cols = (16 // n_sub) * 128                  # samples per sub-tile run
     umax = min(sub_cols, 2 * MAX_CELLS + 1)
+    pmax = min(sub_cols, MAX_CELLS + 1)
+    use_native = native.enabled()
 
     for nc in sorted(set(n_chunks_tile[tile_live & (n_chunks_tile > 0)])):
         sel = np.nonzero(tile_live & (n_chunks_tile == nc))[0]
         nc = int(nc)
         t_cnt = sel.size
-        k_steps = nc * CHUNK
-        runs = t_cnt * nc * n_sub
 
         ids = tiles[sel]                              # (T, 256)
         live_r = ray_live[sel]
@@ -540,56 +828,27 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         dtn = d[safe].astype(np.float32)
         ke_t = tile_ke[sel].astype(np.int64)          # (T,)
 
-        # The sample lattice of every tile, in the same float32 steps as
-        # the JAX package's numpy builder.
-        k = (ke_t[:, None, None]
-             + np.arange(k_steps, dtype=np.int64)[None, None, :])
-        k = np.broadcast_to(k, (t_cnt, RAYS_PER_TILE, k_steps))
-        base_t = t_near + k.astype(np.float32) * dt
-        live = (base_t < t_far) & (k < k_max) & live_r[:, :, None]
-        if jitter is not None:
-            rows = np.minimum(safe, n - 1)
-            cols = np.minimum(k, jitter.shape[1] - 1)
-            jit = jitter[rows[:, :, None], cols]
+        if use_native:
+            # the lattice and the run pack in one pass of the native core
+            (st_l, m_l, lidx, lanes_run, ucell, ulane, n_u, upair,
+             n_p) = native.build_runs(
+                ot, dtn, safe, live_r, ke_t, nc, n_sub, float(t_near),
+                float(t_far), float(dt), float(nudge), int(k_max), jitter,
+                int(n), np.asarray(bbox_min, np.float32),
+                np.asarray(inv_ext, np.float32), (nx, ny, nz), pitch,
+                int(_SENTINEL), umax, pmax, cell_scale=cell_scale)
         else:
-            jit = np.float32(0.5)
-        sample_t = np.asarray(base_t + jit * dt, np.float32)
-        sample_t = np.where(sample_t >= t_far, nudge, sample_t)
-
-        def _axis(ax, npts):
-            p = ot[:, :, ax:ax + 1] + dtn[:, :, ax:ax + 1] * sample_t
-            local = (p - np.float32(bbox_min[ax])) * inv_ext[ax]
-            inside = (local >= 0.0) & (local <= 1.0)
-            f = local * np.float32(npts - 1)
-            return inside, np.clip(np.floor(f), 0, npts - 2).astype(np.int64)
-
-        in_x, ix = _axis(0, nx)
-        in_y, iy = _axis(1, ny)
-        in_z, iz = _axis(2, nz)
-        m = in_x & in_y & in_z & live
+            (st_l, m_l, lidx, lanes_run, ucell, ulane, n_u, upair,
+             n_p) = _lattice_runs_numpy(
+                ot, dtn, safe, live_r, ke_t, nc, n_sub, jitter, plan,
+                bbox_min, inv_ext, (nz, ny, nx), pitch, umax, pmax,
+                cell_scale)
+        lb_l = None
         if cell_scale == 2:
-            # the supercell's row, and the sample's cell in it
-            # (lb = lx + 2 ly + 4 lz)
-            cell = (((iz >> 1) * (ny // 2) + (iy >> 1)) * (nx // 2)
-                    + (ix >> 1))
-            lb = np.where(m, (ix & 1) + 2 * (iy & 1) + 4 * (iz & 1), 0)
-        else:
-            cell = (iz * ny + iy) * nx + ix           # full-pitch table row
-
-        def to_lanes(a):
-            # (T, 256, K) -> (T, nc, 16, 128): ray = row * 16 + lane // 8
-            a = a.reshape(t_cnt, 16, 16, nc, CHUNK)
-            a = a.transpose(0, 3, 1, 2, 4)
-            return a.reshape(t_cnt, nc, 16, 128)
-
-        cell_l = to_lanes(np.where(m, cell, _SENTINEL))
-        m_l = to_lanes(m.astype(np.float32))
-        st_l = to_lanes(np.broadcast_to(
-            sample_t, (t_cnt, RAYS_PER_TILE, k_steps)))
-        lidx, lanes_run, ucell, ulane, n_u = _pack_runs_numpy(
-            cell_l.reshape(runs, sub_cols), umax)
-        lb_l = (to_lanes(lb).reshape(runs, sub_cols).astype(np.int32)
-                if cell_scale == 2 else None)
+            # lidx's low 16 bits are the lane, bits 16.. the sample's cell
+            # in its supercell (lx | ly << 1 | lz << 2)
+            lb_l = (lidx >> 16).astype(np.int32)
+            lidx = (lidx & 0xFFFF).astype(np.int32)
 
         rayt_all = np.stack(
             [ot[:, :, i].reshape(t_cnt, 2, 128) for i in range(3)]
@@ -611,22 +870,12 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
             lanes3 = np.where(sub_bad[:, None, :], 0, lanes3)
             m_l = (m_l.reshape(t_cnt, nc, n_sub, sub_cols)
                    * ~sub_bad[:, None, :, None]).reshape(t_cnt, nc, 16, 128)
-            n_u = np.where(np.broadcast_to(
-                sub_bad[:, None, :], (t_cnt, nc, n_sub)).reshape(-1), 0, n_u)
+            row_bad = np.broadcast_to(
+                sub_bad[:, None, :], (t_cnt, nc, n_sub)).reshape(-1)
+            n_u = np.where(row_bad, 0, n_u)
+            n_p = np.where(row_bad, 0, n_p)
 
-        # Dense bank packing: each (chunk, sub-tile) run lands at the next
-        # free lane; runs of more than 128 cells start on a bank boundary.
-        # Empty runs anchor at lane 0 (their samples are masked but must
-        # index a valid lane).
-        lanes_f = lanes3.reshape(t_cnt, nc * n_sub).astype(np.int64)
-        offs = np.zeros((t_cnt, nc * n_sub), np.int64)
-        cur = np.zeros(t_cnt, np.int64)
-        for r in range(nc * n_sub):
-            n_c = lanes_f[:, r]
-            cur = np.where(n_c > MAX_CELLS, -(-cur // MAX_CELLS) * MAX_CELLS,
-                           cur)
-            offs[:, r] = np.where(n_c > 0, cur, 0)
-            cur += n_c
+        offs, cur = _run_offsets(lanes3.reshape(t_cnt, nc * n_sub))
         off = np.where(overflow[:, None, None], 0,
                        offs.reshape(t_cnt, nc, n_sub))
         nb_tile = np.where(overflow, 0, np.maximum(-(-cur // MAX_CELLS), 1))
@@ -654,6 +903,16 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                     for v in np.unique(nb_tile[~overflow])}
             nb_tile = np.where(overflow, 0, np.vectorize(
                 lambda v: qmap.get(int(v), 0), otypes=[np.int64])(nb_tile))
+        # the bank class each tile would have at pitch 1 (its cells' lane
+        # count): the backward sums in pitch 1's order at either pitch
+        nb_p1 = nb_tile
+        if pitch == 2:
+            _, cur1 = _run_offsets(n_u.reshape(t_cnt, nc * n_sub))
+            nb_p1 = np.maximum(-(-cur1 // MAX_CELLS), 1)
+            if uniform:
+                nb_p1 = np.zeros_like(nb_p1)
+            elif quantize:
+                nb_p1 = np.array([_quant_up(int(v)) for v in nb_p1], np.int64)
 
         for nb in sorted(set(nb_tile[~overflow].tolist())):
             keep = (~overflow) & (nb_tile == nb)
@@ -672,6 +931,17 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                 np.arange(ucell.shape[1])[None, :] < n_u_k[:, None])
             hostmap[rws // (nc * n_sub), off_k[rws] + ulane_k[rws, cls]] = \
                 ucell_k[rws, cls]
+            gmap = None                 # pitch 1: the gather reads hostmap
+            if pitch == 2:
+                # one packed-row pair per lane pair (runs start on even
+                # lanes); a lone cell's partner lane stays -1 in hostmap,
+                # so the backward's gather plan leaves it out
+                gmap = np.full((t_kept, lanes // 2), -1, np.int64)
+                n_p_k, upair_k = n_p[rowsel], upair[rowsel]
+                prs, pcl = np.nonzero(
+                    np.arange(upair.shape[1])[None, :] < n_p_k[:, None])
+                gmap[prs // (nc * n_sub), off_k[prs] // 2 + pcl] = \
+                    upair_k[prs, pcl]
 
             # Tile-local lanes; masked samples point at their run's start.
             rank_s = lidx.reshape(t_cnt, nc, n_sub, sub_cols)[keep].astype(
@@ -751,6 +1021,16 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                     -1).astype(np.int32)
             else:
                 uniq_r = hostmap.astype(np.int32)     # (T, lanes)
+            if gmap is not None and sparse:
+                # pair ids in brick-row space: rows are x-minor in a brick
+                # and BRICK is even, so a pair's even cell maps to an even
+                # brick row and its partner to the next one
+                even_rows = _sparse_rows_for_cells(
+                    np.maximum(gmap, 0) * 2, occ_host, (nz, ny, nx))
+                check(bool((even_rows[gmap >= 0] % 2 == 0).all()),
+                      "sparse pair premise violated (a pair's even cell "
+                      "maps to an odd brick row)")
+                gmap = np.where(gmap >= 0, even_rows >> 1, -1)
             ke_k = ke_t[keep].astype(np.int32)
             # compose targets: overflowing or ROI-dead sub-tiles drop
             tile_ids_k = np.where(
@@ -766,6 +1046,8 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 
                 samp, base, rayt = pad(samp), pad(base), pad(rayt)
                 uniq_r = pad(uniq_r, -1)
+                if gmap is not None:
+                    gmap = pad(gmap, -1)
                 bank0, ray_ids_k, ke_k = pad(bank0), pad(ray_ids_k), pad(ke_k)
                 tile_ids_k = pad(tile_ids_k, _DROP_TILE)
                 pad_ids = (pad_pid_base + np.arange(
@@ -775,11 +1057,18 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
 
             n_samples = int(m_l[keep].sum())
             tiled_samples += n_samples
+            real_tiles.append((np.full(t_kept, nc), nb_p1[keep], sel[keep],
+                               n_tiles_all + np.arange(t_kept)))
+            slot_tiles.append(np.repeat(n_tiles_all + np.arange(t_pad),
+                                        lanes))
+            n_tiles_all += t_pad
             hm = uniq_r.reshape(-1)
+            gm = hm if gmap is None else gmap.astype(np.int32).reshape(-1)
             host_rows.append(hm)
+            gmap_rows.append(gm)
             groups.append(TileGroup(
                 n_chunks=nc, n_tiles=t_pad, banks=nb,
-                hostmap=hm, gathermap=hm, samp=samp, base=base, rayt=rayt,
+                hostmap=hm, gathermap=gm, samp=samp, base=base, rayt=rayt,
                 bank0=bank0, ray_ids=ray_ids_k, k_enter=ke_k,
                 pixel_ids=pids.reshape(-1).astype(np.int32),
                 tile_ids=tile_ids_k, samples=n_samples))
@@ -792,6 +1081,10 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
             ray_subset=np.concatenate(fallback), device=False)
     hostmap_all = (np.concatenate(host_rows) if host_rows
                    else np.zeros(0, np.int32))
+    gathermap_all = (np.concatenate(gmap_rows) if gmap_rows
+                     else np.zeros(0, np.int32))
+    tile_order, slot_key = _canonical_order(real_tiles, slot_tiles,
+                                            n_tiles_all)
     if sparse:
         n_rows = int(field.bricks.shape[0]) * BRICK ** 3
     elif cell_scale == 2:
@@ -800,26 +1093,37 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         n_rows = fullpitch_rows((nz, ny, nx))
     return TiledSchedule(
         groups=tuple(groups), fallback=fb,
-        hostmap_all=hostmap_all, gathermap_all=hostmap_all,
-        gather_plan=build_gather_plan(hostmap_all, n_rows),
+        hostmap_all=hostmap_all, gathermap_all=gathermap_all,
+        gather_plan=build_gather_plan(hostmap_all, n_rows, slot_key),
         total_rays=n, tiled_samples=tiled_samples,
         full_lattice_samples=n * k_max,
         fallback_rays=fb_count,
         grid_shape=(nz, ny, nx), bbox=(bbox_min, bbox_max), tile_px=tile_px,
-        table_kind="sparse" if sparse else "dense",
-        cell_scale=cell_scale).with_tiles()
+        table_kind="sparse" if sparse else "dense", pitch=pitch,
+        cell_scale=cell_scale, tile_order=tile_order).with_tiles()
 
 
 # --------------------------------------------------------------- device side
 
 
-def _gather_banks_flat(table: torch.Tensor,
-                       gathermap_all: torch.Tensor) -> torch.Tensor:
+def _gather_banks_flat(table: torch.Tensor, gathermap_all: torch.Tensor,
+                       pitch: int = 1) -> torch.Tensor:
     """Every group's bank blocks in one (S, w, 128) float32 array, group
     after group: the flat bank tables K1 and K2 read (a 16-bit table is
-    widened after the gather)."""
+    widened after the gather). At pitch 2 ``gathermap_all`` names row
+    pairs: the gather reads (S / 2, 2w) rows of ``table.view(-1, 2w)``,
+    and row p of that holds lanes 2p and 2p + 1, so the bank blocks are
+    laid out as at pitch 1 with half the indices. Dead lanes or pairs (-1)
+    read row (pair) 0."""
     w = int(table.shape[1])
+    if pitch == 2:
+        check(int(table.shape[0]) % 2 == 0,
+              f"a pitch-2 schedule gathers row pairs: the table's "
+              f"{int(table.shape[0])} rows must be even")
+        table = table.contiguous().view(-1, 2 * w)
     rows = torch.index_select(table, 0, gathermap_all.clamp(min=0))
+    if pitch == 2:
+        rows = rows.reshape(-1, w)
     if rows.dtype != torch.float32:
         rows = rows.float()
     return rows.reshape(-1, MAX_CELLS, w).transpose(1, 2).contiguous()
@@ -976,7 +1280,8 @@ class _GroupsetFromParams(torch.autograd.Function):
         else:
             table = packed_transpose.build_rows_plain(sigma, color)
             forward = fused_tiles.tile_forward_set_plain
-        tabs = _gather_banks_flat(table, schedule.gathermap_all)
+        tabs = _gather_banks_flat(table, schedule.gathermap_all,
+                                  schedule.pitch)
         raw = forward(tabs, schedule.tiles, prm, rayt)
         ctx.static = static
         ctx.split = BWD_SPLIT if split else "xla"
@@ -1049,7 +1354,8 @@ class _GroupsetFromTable(torch.autograd.Function):
         schedule, prm, use_kernel, cam, split = static
         forward = (fused_tiles.tile_forward if use_kernel
                    else fused_tiles.tile_forward_set_plain)
-        tabs = _gather_banks_flat(table, schedule.gathermap_all)
+        tabs = _gather_banks_flat(table, schedule.gathermap_all,
+                                  schedule.pitch)
         raw = forward(tabs, schedule.tiles, prm, rayt)
         ctx.static = static
         ctx.split = BWD_SPLIT if split else "xla"
@@ -1119,15 +1425,26 @@ def slot_rows_to_table_as(rows: torch.Tensor, plan, n_rows: int,
 def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w):
     """The (T, 12, 128) ray planes of every tile, rebuilt from the camera
     tensors ``k`` / ``c2w`` (autograd records them), for the rays the
-    schedule baked in: dead and pad lanes carry ray 0 there too."""
-    ids = torch.cat([g.ray_ids.reshape(-1) for g in schedule.groups])
-    rays = generate_rays(plan, k=k, c2w=c2w, ids=ids)
-    nt = int(ids.shape[0]) // RAYS_PER_TILE
+    schedule baked in: dead lanes carry ray 0 there too. The rays are
+    generated in ``schedule.tile_order`` and placed at their tiles (pad
+    tiles get zero planes), so the camera adjoint sums over the tiles in
+    that order, the same at pitch 1 and 2."""
+    ids = torch.cat([g.ray_ids.reshape(-1, RAYS_PER_TILE)
+                     for g in schedule.groups])
+    n_all = int(ids.shape[0])
+    order = schedule.tile_order
+    if order is not None:
+        ids = torch.index_select(ids, 0, order.long())
+    rays = generate_rays(plan, k=k, c2w=c2w, ids=ids.reshape(-1))
+    nt = int(ids.shape[0])
     o = rays.origins.reshape(nt, 2, 128, 3)
     d = rays.directions.reshape(nt, 2, 128, 3)
-    return torch.stack([o[..., i] for i in range(3)]
+    rayt = torch.stack([o[..., i] for i in range(3)]
                        + [d[..., i] for i in range(3)],
                        dim=1).reshape(nt, 12, 128)
+    if order is None:
+        return rayt
+    return _PlaceTiles.apply(rayt, order.long(), n_all)
 
 
 def _check_field_schedule(field, schedule: TiledSchedule, what: str):
@@ -1308,7 +1625,7 @@ def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
               "merge_view_schedules: schedules must share tile_px, pitch, "
               "cell_scale, grid and bbox (build all views at one tile_px)")
     keys = sorted({(g.n_chunks, g.banks) for s in scheds for g in s.groups})
-    merged, slices_all, host_parts = [], [], []
+    merged, slices_all, host_parts, gmap_parts = [], [], [], []
     t_samples = 0
     for key in keys:
         parts, slices, t_off = [], [], 0
@@ -1325,10 +1642,11 @@ def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
             return vals[0] if len(vals) == 1 else np.concatenate(vals)
 
         host_parts.extend(p.hostmap for p in parts)
+        gmap_parts.extend(p.gathermap for p in parts)
         hostmap = cat("hostmap")
         merged.append(TileGroup(
             n_chunks=key[0], n_tiles=t_off, banks=key[1],
-            hostmap=hostmap, gathermap=hostmap, samp=cat("samp"),
+            hostmap=hostmap, gathermap=cat("gathermap"), samp=cat("samp"),
             base=cat("base"), rayt=cat("rayt"), bank0=cat("bank0"),
             ray_ids=cat("ray_ids"), k_enter=cat("k_enter"),
             pixel_ids=cat("pixel_ids"), tile_ids=cat("tile_ids"),
@@ -1337,11 +1655,13 @@ def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
 
     hostmap_all = (np.concatenate(host_parts) if host_parts
                    else np.zeros(0, np.int32))
+    gathermap_all = (np.concatenate(gmap_parts) if gmap_parts
+                     else np.zeros(0, np.int32))
     n_rows = next((int(s.gather_plan.inv_map.shape[0]) for s in scheds
                    if s.gather_plan is not None), 1)
     sched = TiledSchedule(
         groups=tuple(merged), fallback=None,
-        hostmap_all=hostmap_all, gathermap_all=hostmap_all,
+        hostmap_all=hostmap_all, gathermap_all=gathermap_all,
         gather_plan=build_gather_plan(hostmap_all, n_rows),
         total_rays=sum(s.total_rays for s in scheds),
         tiled_samples=t_samples,

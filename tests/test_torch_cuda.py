@@ -52,7 +52,13 @@ twin word for word on random 32-bit words (B = 1, 8 and the headline's
 5,104 blocks), K2's bank form equal to its rows form transposed and to
 its twin's bank form at subs 1, 4 and 16, and the sparse and stack routes'
 gradients under BWD_SPLIT "pallas" equal to "xla"'s, with K6 once per
-group.
+group. The schedule's last options: K1 and K2 bit for bit against their
+twins on pitch-2, occupancy-trimmed and ``all_tiles`` schedules (dense
+float32, bfloat16 and sparse); the pair gather of a 16-bit table equal to
+the pitch-1 gather on every used lane; the Renderer at pitch 2 bit-equal
+to pitch 1 on the card, frame and gradients; ``use_occupancy`` on the
+card within 5e-6 of the CPU's frame and 2e-6 x scale of its gradients;
+the moving-camera renderer bit-equal to each pose's own schedule.
 """
 
 import dataclasses
@@ -184,7 +190,7 @@ def set_args(plan, sched, table, stencil="cell"):
     first over the whole schedule, then over each group alone (a set of
     one shape)."""
     geom = (sched.bbox[0], sched.bbox[1], sched.grid_shape)
-    tabs = tiled._gather_banks_flat(table, sched.gathermap_all)
+    tabs = tiled._gather_banks_flat(table, sched.gathermap_all, sched.pitch)
     out = [(tabs, sched.tiles,
             fused_tiles.tiles_op_params(plan, geom, sched.tiles, stencil))]
     for g, views in zip(sched.groups, sched.tiles.group_views(tabs)):
@@ -1769,3 +1775,146 @@ def test_hash_grid_occupancy_report(cuda_device):
         assert occ["hash_grid_bwd"]["g"] >= 1
     wide = hash_grid.kernel_occupancy(P.HashMLPSpec(**GRID_SPECS["wide"]), 16)
     assert wide["hash_grid_bwd"]["blocks_per_sm"] >= 1
+
+
+# ----------------------------------------- pitch 2, occupancy, all_tiles
+
+
+def _shell_config(n=12):
+    """A shell of sigma 20 (|r - 0.33| < 0.1) with exact zeros around and
+    inside it, over tests/test_tiled.py's bbox."""
+    lin = np.linspace(0, 1, n)
+    zs, ys, xs = np.meshgrid(lin, lin, lin, indexing="ij")
+    r = np.sqrt((xs - .5) ** 2 + (ys - .5) ** 2 + (zs - .5) ** 2)
+    rng = np.random.default_rng(4)
+    return P.DenseGridConfig(
+        resolution=(n, n, n),
+        sigma=np.where(np.abs(r - 0.33) < 0.1, 20.0, 0.0).reshape(-1),
+        color=rng.uniform(0, 1, 3 * n ** 3),
+        bbox_min=(0.3, 0.3, 0.2), bbox_max=(0.8, 0.9, 0.7))
+
+
+def _option_field(kind, device, config=None):
+    plan, cfg = scene("stratified")
+    field = P.DenseGridField.create(config or cfg, device=device)
+    if kind == "bfloat16":
+        field = field.with_packed_dtype("bfloat16")
+    elif kind == "sparse":
+        field = P.SparseGridField.from_dense(field, threshold=0.0,
+                                             device=device)
+    return plan, field
+
+
+def _table(field):
+    if hasattr(field, "bricks"):
+        return field.bricks.reshape(-1, 32)
+    sigma, color = field.sigma.detach(), field.color.detach()
+    if field.packed_dtype == "float32":
+        return packed_transpose.build_rows(sigma, color)
+    return packed_transpose.build_rows16(sigma, color, torch.bfloat16)
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "sparse"])
+@pytest.mark.parametrize("options", ["pitch2_16px", "pitch2_8px",
+                                     "occupancy_8px", "all_tiles"])
+def test_new_schedules_k1_k2_equal_twins(cuda_device, kind, options):
+    """K1 and K2 (rows and d(rayt)) in one launch over every group of a
+    pitch-2, an occupancy-trimmed or an all_tiles schedule, bit for bit
+    against their twins."""
+    kw = {"pitch2_16px": dict(pitch=2), "pitch2_8px": dict(pitch=2,
+                                                           tile_px=8),
+          "occupancy_8px": dict(occupancy=True, tile_px=8),
+          "all_tiles": dict(quantize="uniform", all_tiles=True)}[options]
+    config = _shell_config() if options == "occupancy_8px" else None
+    plan, field = _option_field(kind, cuda_device, config)
+    sched = tiled.build_tiled_schedule(plan, field, **kw)
+    assert sched.fallback_rays == 0 and sched.tiled_samples > 0
+    whole = set_args(plan, sched.to(cuda_device), _table(field))[0]
+    tabs, tiles, prm = whole
+    gs = torch.randn((tiles.n_tiles, 5, 16, 16), device=cuda_device,
+                     generator=torch.Generator(device=cuda_device)
+                     .manual_seed(11))
+    out = fused_tiles.tile_forward(tabs, tiles, prm)
+    rows, d_rayt = fused_tiles.tile_backward(tabs, tiles, gs, prm, cam=True)
+    torch.cuda.synchronize()
+    assert torch.equal(out, fused_tiles.tile_forward_set_plain(tabs, tiles,
+                                                               prm))
+    p_rows, p_rayt = fused_tiles.tile_backward_set_plain(tabs, tiles, gs,
+                                                         prm, cam=True)
+    assert torch.equal(rows, p_rows) and torch.equal(d_rayt, p_rayt)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pair_gather_on_the_card(cuda_device, dtype):
+    plan, field = _option_field("float32", cuda_device)
+    sched = tiled.build_tiled_schedule(plan, field, pitch=2).to(cuda_device)
+    table = packed_transpose.build_rows(field.sigma.detach(),
+                                        field.color.detach()).to(dtype)
+    pair = tiled._gather_banks_flat(table, sched.gathermap_all, 2)
+    single = tiled._gather_banks_flat(table, sched.hostmap_all, 1)
+    used = (sched.hostmap_all >= 0).reshape(-1, 128)[:, None, :].expand_as(
+        pair)
+    assert torch.equal(pair[used], single[used])
+    assert torch.equal(pair.cpu(), tiled._gather_banks_flat(
+        table.cpu(), sched.gathermap_all.cpu(), 2))
+
+
+@pytest.mark.parametrize("kind", ["float32", "bfloat16", "sparse"])
+def test_renderer_pitch2_bit_equal_on_the_card(cuda_device, kind):
+    plan, field = _option_field(kind, cuda_device)
+    ctx = P.Context.create(device="cuda")
+    r1 = P.Renderer(ctx, plan)
+    r2 = P.Renderer(ctx, plan, P.RenderOptions(tile_pitch=2))
+    a, b = r1.forward(field), r2.forward(field)
+    assert r2._tiled_schedule.pitch == 2
+    for key in ("image", "transmittance", "opacity", "depth"):
+        np.testing.assert_array_equal(getattr(a, key), getattr(b, key))
+    dl = np.random.default_rng(5).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    g1, g2 = r1.backward(field, dl), r2.backward(field, dl)
+    keys = (("bricks",) if kind == "sparse" else ("sigma", "color")) + (
+        "camera", "camera_k")
+    for key in keys:
+        np.testing.assert_array_equal(getattr(g1, key), getattr(g2, key))
+
+
+def test_renderer_occupancy_on_the_card_matches_cpu(cuda_device):
+    plan, config = scene("stratified")
+    config = _shell_config()
+    out = {}
+    for dev in ("cpu", "cuda"):
+        field = P.DenseGridField.create(config, device=dev)
+        r = P.Renderer(P.Context.create(device=dev), plan,
+                       P.RenderOptions(use_tiles=True, use_occupancy=True))
+        res = r.forward(field)
+        dl = np.random.default_rng(6).uniform(
+            -1, 1, plan.ray_count * 3).astype(np.float32)
+        out[dev] = (res, r.backward(field, dl))
+    (a, ga), (b, gb) = out["cpu"], out["cuda"]
+    for key in ("image", "transmittance", "opacity"):
+        np.testing.assert_allclose(getattr(b, key), getattr(a, key),
+                                   atol=TOL, rtol=0)
+    for key in ("sigma", "color"):
+        ref = getattr(ga, key)
+        np.testing.assert_allclose(getattr(gb, key), ref, rtol=0,
+                                   atol=GRID_TOL * float(np.abs(ref).max()))
+    np.testing.assert_allclose(gb.camera, ga.camera, rtol=2e-3, atol=1e-4)
+
+
+def test_moving_camera_on_the_card(cuda_device):
+    from dvren_tpu_torch.render import animate
+
+    plan, config = scene("stratified")
+    field = P.DenseGridField.create(config, device=cuda_device)
+    mover = animate.MovingCameraRenderer(plan, field)
+    for dx in (0.0, 0.03, 0.6):
+        p = fit.view_plans(plan, [P.CameraConfig(
+            k=plan.camera.k, c2w=(1, 0, 0, 0.5 + dx, 0, 1, 0, 0.55, 0, 0, 1,
+                                  -1.1))])[0]
+        with torch.no_grad():
+            got = mover.render(p, field)
+            ref = tiled.render_tiled(p, field, tiled.build_tiled_schedule(
+                p, field).to(cuda_device))
+        for key in ("image", "transmittance", "opacity", "depth"):
+            assert torch.equal(getattr(got, key), getattr(ref, key))
+    assert mover.cache_size() == 1

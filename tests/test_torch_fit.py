@@ -170,7 +170,14 @@ def test_uniform_shape_below_maximum_raises():
 @pytest.mark.parametrize("kw, item", [(dict(all_tiles=True), "item 15"),
                                       (dict(bank_aligned=True), "on purpose")])
 def test_unported_schedule_options_raise(kw, item):
+    """``bank_aligned`` raises naming its ROADMAP entry. ``all_tiles``
+    (ROADMAP item 15) is ported: without uniform quantization it raises
+    JAX's refusal."""
     _, pplans = both_plans("fit")
+    if "all_tiles" in kw:
+        with pytest.raises(P.DvrenError, match="uniform quantization"):
+            p_tiled.build_tiled_schedule(pplans[0], scene("fit")[4], **kw)
+        return
     with pytest.raises(NotImplementedError, match=item):
         p_tiled.build_tiled_schedule(pplans[0], scene("fit")[4], **kw)
 

@@ -114,8 +114,19 @@ def _options_case(case):
                                   "streaming", "enable_graph",
                                   "occupancy", "pitch2"])
 def test_unported_modes_raise(case):
-    plan, field, _ = reference("fixed")
+    """The modes not ported raise. ``use_occupancy`` and ``tile_pitch=2``
+    are ported (ROADMAP item 5): those cases render the reference's frame,
+    occupancy within 5e-6 and pitch 2 bit for bit with the port's pitch 1."""
+    plan, field, ref = reference("fixed")
     renderer = port_renderer(plan, _options_case(case))
+    if case in ("occupancy", "pitch2"):
+        got = renderer.forward(port_field(field))
+        assert_planes_close(_Planes(got, plan), _Planes(ref, plan), tol=5e-6)
+        if case == "pitch2":
+            base = port_renderer(plan).forward(port_field(field))
+            np.testing.assert_array_equal(got.image, base.image)
+            np.testing.assert_array_equal(got.depth, base.depth)
+        return
     with pytest.raises(NotImplementedError):
         renderer.forward(port_field(field))
 
@@ -209,10 +220,25 @@ def test_cascade_rescues_overflowing_scene():
                                     dict(all_tiles=True),
                                     dict(bank_aligned=True)])
 def test_unported_schedule_options_raise(kwargs):
+    """``bank_aligned`` (not ported, on purpose) raises. Pitch 2,
+    occupancy and ``all_tiles`` are ported (ROADMAP items 5 and 15): the
+    first two build the schedule JAX builds, and ``all_tiles`` refuses a
+    schedule without uniform quantization, as JAX's does."""
     plan, field, _ = reference("fixed")
-    with pytest.raises(NotImplementedError):
-        p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
-                                     **kwargs)
+    if "bank_aligned" in kwargs:
+        with pytest.raises(NotImplementedError):
+            p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
+                                         **kwargs)
+        return
+    if "all_tiles" in kwargs:
+        with pytest.raises(P.DvrenError, match="uniform quantization"):
+            p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
+                                         **kwargs)
+        return
+    ref = j_tiled.build_tiled_schedule(plan, field, device=False, **kwargs)
+    got = p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
+                                       **kwargs)
+    assert_schedules_equal(ref, got)
 
 
 @pytest.mark.parametrize("kwargs", [dict(tile_px=8), dict(cell_scale=2)])

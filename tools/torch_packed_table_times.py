@@ -13,10 +13,11 @@ then times each wrapper twice with ``chip_smoke.device_ms`` (the stream
 sleeps on the card while the host queues the calls: device time alone)
 and twice with ``chip_smoke.cuda_ms`` (back-to-back calls: the host's
 cost of issuing them included), beside each kernel's bound (bytes over
-3.35 TB/s); K5a and K5b also beside their plain twins and the one
-PyTorch call that computes the TPU kernel's function (a transpose:
-``stack.t().contiguous()`` of the 16-bit (32, R) stack,
-``rows.t().contiguous()`` of the widened (R, 32) rows), on the device.
+3.35 TB/s); each also beside its plain twin and the one PyTorch call
+that computes the TPU kernel's function (a transpose:
+``stack.t().contiguous()`` of the (32, R) stack, float32 for K3, 16-bit
+for K5a; ``rows.t().contiguous()`` of the float32 (R, 32) rows, for K4
+and for K5b's widened rows), on the device.
 
 ``--sweep`` (this tree, or one whose ``packed_transpose.grad_tiling``
 takes ``slot_cols``) also times K4 at other runs and z-chunks, K3 and K5a
@@ -104,10 +105,20 @@ def main() -> int:
             "k4": all(bits_equal(torch, a, b) for a, b in zip(
                 grads, pt.table_grad_to_params_plain(tg, shape)))}
         in_bytes = cs.nbytes(sigma, color)
+        stack32 = pt._shift_stack_fullpitch(sigma, color, n_rows)
         row = {
             "grid": n, "card": card, "equal": equal,
-            "k3": times(lambda: pt.build_rows(sigma, color)),
-            "k4": times(lambda: pt.table_grad_to_params(tg, shape)),
+            "k3": {**times(lambda: pt.build_rows(sigma, color)),
+                   "plain_ms": cs.device_ms(
+                       torch, lambda: pt.build_rows_plain(sigma, color), 10),
+                   "library_ms": cs.device_ms(
+                       torch, lambda: stack32.t().contiguous(), ITERS)},
+            "k4": {**times(lambda: pt.table_grad_to_params(tg, shape)),
+                   "plain_ms": cs.device_ms(
+                       torch, lambda: pt.table_grad_to_params_plain(
+                           tg, shape), 10),
+                   "library_ms": cs.device_ms(
+                       torch, lambda: tg.t().contiguous(), ITERS)},
             "bound_ms": {"k3": bound_ms(in_bytes + cs.nbytes(table)),
                          "k4": bound_ms(cs.nbytes(tg, *grads))}}
         tg16 = {}
@@ -145,6 +156,7 @@ def main() -> int:
             row["bound_ms"][f"k5b_{name}"] = bound_ms(
                 cs.nbytes(tg16[name], *grads16))
             del stack, rows32, table16, grads16
+        del stack32
         print(json.dumps(row), flush=True)
         if not all(equal.values()):
             print(f"a kernel differs from its twin at {n}^3: {equal}",
