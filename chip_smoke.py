@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -273,9 +273,10 @@ K5a / K5b),
 1 and 16-20,
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
 37-41, ``--only split`` phases 1 and 42-46, ``--only sched`` phases 1 and
-47-51: each alone, to time two trees against each other in one call.
+47-51, ``--only general`` phases 1 and 52-57: each alone, to time two
+trees against each other in one call.
 
-Phases 47-51 (last) drive every option of the tile schedule builder and
+Phases 47-51 drive every option of the tile schedule builder and
 the modules that wait on them: the native scheduler core against the
 numpy builder (schedule digests equal, the build seconds of each) on the
 dense headline at 16 / 8 / 4 px, the fine grid's cascade and
@@ -289,6 +290,43 @@ twins on the trimmed schedule and its pitch-2 form); six orbit poses
 through ``MovingCameraRenderer`` bit-equal to each pose's own schedule,
 with one schedule structure; and 4 + 4 Adam steps around
 ``save_train_state`` / ``load_train_state`` bit-equal to 8.
+
+Phases 52-57 (last) drive the Renderer's general paths over the per-ray
+integrator K9f / K9b, each fatal when it fails:
+
+52. the dense headline through ``RenderOptions(use_tiles=False)``: the
+    streamed mode, K9f once per block of 32,768 rays (8); the frame
+    within 5e-6 of ``use_kernel=False`` on the card (depth 1e-4) and of
+    the tiled frame (depth by phase 38's per-ray bound), the backward
+    (two calls under ``torch.use_deterministic_algorithms``, bit-equal)
+    within 2e-6 x scale of the tiled backward, camera rtol 2e-3 / atol
+    1e-4, K9b launched; K9f / K9b against their twins on the 8 blocks;
+    a ``torch.profiler`` breakdown of the streamed step;
+53. the same with ``streaming=False`` (fused) and ``use_fused_path=
+    False`` (staged): frames bit-equal to each other and within 5e-6 of
+    phase 52's, the staged stage times positive, K9f once; the backward
+    (``per_sample_grads``, one K9b launch, ``accumulate_sample_
+    gradients``, ``camera_grads``) within 2e-6 x scale of phase 52's and
+    bit-equal across two calls; ``per_sample_gradients()`` equal to the
+    backward's per-sample gradients; K9f / K9b on the 262,144 x 128
+    lattice against their twins;
+54. the headline grid with nearest interpolation and with clamp OOB
+    under the default options on the card: the streamed mode (the tiles
+    refuse them), frame and backward against ``use_kernel=False``;
+55. an override bundle of two rays a pixel (+-0.25 px, 524,288 rays,
+    ``max_rays`` 524,288): the compose on the card against the CPU's on
+    the same per-ray values (hitmask equal, the rest within 5e-6), two
+    frames and two backwards bit-equal, the camera gradient zero, K9f /
+    K9b on its lattice against their twins;
+56. the hash headline through ``use_tiles=False``: streamed, K9f 8
+    times, within 5e-6 of the K7f frame (depth by the same bound);
+57. ``opt.fit.render_views`` over the fit flagship's eight views,
+    bit-equal to ``pipeline.render`` at each pose.
+
+Each mode's ``Renderer.forward`` and ``.backward`` is timed over 10 warm
+runs between CUDA events (median and spread), beside the peak device
+memory; the kernels line adds ``integrate[_bwd]:streamed_headline``,
+``:fused_headline`` and ``:override``, each with ``ms_per_launch``.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
@@ -4267,6 +4305,501 @@ def run_sched(torch, P, dev, card) -> tuple[list, dict]:
     return kernels, report
 
 
+# ------------------------------------------------------ phases 52-57: general
+
+GENERAL_RUNS = 10        # timed runs per frame and backward (median, spread)
+OVERRIDE_OFFSET = 0.25   # px: phase 55's two rays per pixel sit at +- this
+
+
+def event_times(torch, fn, runs=GENERAL_RUNS, warmup=1) -> dict:
+    """``fn`` timed ``runs`` times after ``warmup`` runs, each between its
+    own CUDA events: the median, least and largest ms."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(runs):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end))
+    return {"median": float(np.median(times)), "min": float(min(times)),
+            "max": float(max(times)), "runs": runs}
+
+
+def spread(t: dict) -> str:
+    return (f"{t['median']:.4f} ({t['min']:.4f}-{t['max']:.4f}, "
+            f"{t['runs']} runs)")
+
+
+def lattice_blocks(torch, plan, field, jitter, tile):
+    """The integrator's inputs per block of ``tile`` generated rays, as
+    ``render_streamed`` builds them: (sigma, (r, g, b), dt, mask, None)."""
+    from dvren_tpu_torch.ops.raygen import generate_rays
+    from dvren_tpu_torch.ops.sampling import generate_samples
+    from dvren_tpu_torch.render.pipeline import eval_fields
+
+    out = []
+    pad = -(-plan.ray_count // tile) * tile - jitter.shape[0]
+    if pad > 0:
+        jitter = torch.cat([jitter, jitter.new_zeros((pad, jitter.shape[1]))])
+    with torch.no_grad():
+        for start in range(0, plan.ray_count, tile):
+            rays = generate_rays(plan, start=start, count=tile,
+                                 device=field.device)
+            lat = generate_samples(plan, rays, ray_index_offset=start,
+                                   jitter=jitter[start:start + tile])
+            sigma, color = eval_fields(field, lat)
+            out.append((sigma, color, lat.dt, lat.mask, None))
+    return out
+
+
+def outputs_inputs(outputs):
+    """A fused, staged or override forward's integrator inputs."""
+    return [(outputs.sigma, outputs.color, outputs.lattice.dt,
+             outputs.lattice.mask, None)]
+
+
+def k9_entries(torch, form, inputs, gs, launches, span, per_frame):
+    """K9f / K9b against their twins on ``inputs`` (one launch per block),
+    timed, with bounds over the processed steps: the kernels line's two
+    entries for this form."""
+    errs = k9_against_twins(torch, inputs, gs, form, *span)
+    proc, early = processed_steps(torch, inputs)
+    times = k9_times(torch, inputs, gs, *span)
+    fb, bb = k9_bounds(inputs, proc)
+    n = len(inputs)
+    print(f"K9 at {form} [{per_frame}]: {n} launch(es) over "
+          f"{tuple(inputs[0][0].shape)}; K9f {times[0]:.4f} ms "
+          f"({times[0] / n:.4f} per launch; twin {times[2]:.4f}, bound "
+          f"{fb['bound_ms']:.4f} by {fb['bound_by']}), K9b {times[1]:.4f} "
+          f"({times[1] / n:.4f} per launch; twin {times[3]:.4f}, bound "
+          f"{bb['bound_ms']:.4f}); {proc} processed steps, {early} rays "
+          f"stop early; vs twins K9f {errs[0]:.3e}, K9b {errs[1]:.3e}",
+          flush=True)
+    return [
+        {"name": f"integrate:{form}", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/integrate.cu",
+         "replaces": "dvren_tpu/ops/integrate_pallas.py:158",
+         "launches": launches["integrate"], "max_abs_err": errs[0],
+         "ms": times[0], "ms_per_launch": times[0] / n,
+         "plain_ms": times[2], **fb},
+        {"name": f"integrate_bwd:{form}", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/integrate_bwd.cu",
+         "replaces": "dvren_tpu/ops/integrate_pallas.py:192",
+         "launches": launches["integrate_bwd"], "max_abs_err": errs[1],
+         "ms": times[1], "ms_per_launch": times[1] / n,
+         "plain_ms": times[3], **bb}]
+
+
+def grads_error(torch, got, ref) -> float:
+    """The largest grid-gradient difference over max |ref|, sigma and
+    colour."""
+    return max(rel_err(torch.from_numpy(getattr(got, k)),
+                       torch.from_numpy(getattr(ref, k)))
+               for k in ("sigma", "color"))
+
+
+def camera_close(got, ref) -> bool:
+    return (np.allclose(got.camera, ref.camera, rtol=CAM_RTOL, atol=CAM_ATOL)
+            and np.allclose(got.camera_k, ref.camera_k, rtol=CAM_RTOL,
+                            atol=CAM_ATOL))
+
+
+def results_equal(a, b, keys) -> bool:
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in keys)
+
+
+FRAME_KEYS = ("image", "transmittance", "opacity", "depth", "hitmask")
+GRAD_KEYS = ("sigma", "color", "camera", "camera_k")
+
+
+def deterministic_backward(torch, renderer, field, dl, counts, reset):
+    """Two ``Renderer.backward`` calls under
+    ``torch.use_deterministic_algorithms``: (first, second, the first's
+    launch counts)."""
+    reset()
+    torch.use_deterministic_algorithms(True)
+    try:
+        g1 = renderer.backward(field, dl)
+        c = counts()
+        g2 = renderer.backward(field, dl)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    for key in GRAD_KEYS:
+        require(bool(np.isfinite(getattr(g1, key)).all()),
+                f"backward {key} not finite")
+    return g1, g2, c
+
+
+def run_general(torch, P, dev, card) -> tuple[list, dict]:
+    """Phases 52-57: the Renderer's general paths on the card (streamed,
+    fused, staged, override; fields the tiles refuse; the hash field
+    streamed; ``render_views``) over K9f / K9b."""
+    from dvren_tpu_torch.ops import integrate_fused
+    from dvren_tpu_torch.ops.compose import compose
+    from dvren_tpu_torch.ops.raygen import Rays, generate_rays
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.render import pipeline
+
+    counts = functools.partial(window_counts, integrate_fused)
+    reset = functools.partial(reset_window_counts, integrate_fused)
+    gen = torch.Generator(device=dev).manual_seed(52)
+    kernels, report = [], {}
+    ctx = P.Context.create(device="cuda")
+
+    # 52. the dense headline streamed: use_tiles=False at 512^2 x 128 is
+    # past the streaming budget (33,554,432 > 4,194,304 samples)
+    plan, config = headline_scene(P)
+    field = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    span = (plan.t_near, plan.t_far)
+    tiled_r = P.Renderer(ctx, plan)
+    tframe = tiled_r.forward(field)
+    streamed = P.Renderer(ctx, plan, P.RenderOptions(use_tiles=False))
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    res = streamed.forward(field)
+    fwd_c = counts()
+    peak_fwd = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"streamed Renderer.forward: mode {streamed._last_mode}, "
+          f"{res.stats.total_ms:.3f} ms, launches {fwd_c}, notes "
+          f"{res.stats.notes}, peak {peak_fwd:.1f} MiB", flush=True)
+    tile = pipeline.default_ray_tile(plan)
+    n_blocks = -(-plan.ray_count // tile)
+    require(streamed._last_mode == "streamed" and n_blocks == 8
+            and fwd_c["integrate"] == n_blocks
+            and fwd_c["integrate_bwd"] == 0,
+            f"the streamed headline did not launch K9f once per block "
+            f"({n_blocks} of {tile} rays): {fwd_c}")
+    jitter = streamed._device_jitter()
+    with torch.no_grad():
+        plain = pipeline.render_streamed(plan, field, jitter=jitter,
+                                         use_kernel=False)
+    err, depth, hit = planes_errors(res, plain)
+    t_err, _, t_hit = planes_errors(res, tiled_frame_planes(torch, tframe,
+                                                            plan))
+    t_depth, t_share, t_ulps = depth_error(res.depth, tframe.depth,
+                                           tframe.opacity, plan.t_far)
+    print(f"streamed frame vs use_kernel=False on the card: planes "
+          f"{err:.3e}, depth {depth:.3e}, hitmask {hit}; vs the tiled frame: "
+          f"planes {t_err:.3e}, depth {t_depth:.3e} ({t_share:.3f} of its "
+          f"per-ray bound 1e-4 + {DEPTH_ULPS} ulps x t_far / opacity, "
+          f"{t_ulps:.3f} ulps past 1e-4), hitmask {t_hit}", flush=True)
+    require(err <= TOL and depth <= TOL_DEPTH and hit,
+            "the streamed frame differs from the plain path")
+    require(t_err <= TOL and t_share <= 1.0 and t_hit,
+            "the streamed frame differs from the tiled frame")
+    dl = (torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2
+          - 1).cpu().numpy()
+    tiled_g = tiled_r.backward(field, dl)
+    torch.cuda.reset_peak_memory_stats()
+    sg1, sg2, s_bwd_c = deterministic_backward(torch, streamed, field, dl,
+                                               counts, reset)
+    peak_bwd = torch.cuda.max_memory_allocated() / 2 ** 20
+    s_err = grads_error(torch, sg1, tiled_g)
+    print(f"streamed Renderer.backward launches {s_bwd_c} (K9f: the blocks "
+          f"recomputed), peak {peak_bwd:.1f} MiB; vs the tiled backward: "
+          f"grids {s_err:.3e} x scale, camera "
+          f"{float(np.abs(sg1.camera - tiled_g.camera).max()):.3e}, camera_k "
+          f"{float(np.abs(sg1.camera_k - tiled_g.camera_k).max()):.3e}",
+          flush=True)
+    require(s_bwd_c["integrate_bwd"] > 0, "the streamed backward ran no K9b")
+    require(s_err <= GRID_TOL and camera_close(sg1, tiled_g),
+            "the streamed backward differs from the tiled backward")
+    require(results_equal(sg1, sg2, GRAD_KEYS),
+            "the streamed backward differs between two calls")
+    s_frame = event_times(torch, lambda: streamed.forward(field))
+    s_back = event_times(torch, lambda: streamed.backward(field, dl))
+    s_blocks = lattice_blocks(torch, plan, field, jitter, tile)
+    s_gs = [torch.rand((tile, 3), generator=gen, device=dev) * 2 - 1
+            for _ in s_blocks]
+    kernels += k9_entries(torch, "streamed_headline", s_blocks, s_gs,
+                          {"integrate": fwd_c["integrate"],
+                           "integrate_bwd": s_bwd_c["integrate_bwd"]},
+                          span, card)
+    del s_blocks
+    breakdown = device_breakdown(torch, lambda: (streamed.forward(field),
+                                                 streamed.backward(field, dl)),
+                                 steps=2)
+    if breakdown is None:
+        print("streamed step under torch.profiler: no device time recorded",
+              flush=True)
+    else:
+        busy, wall, rows = breakdown
+        print(f"streamed step (forward + backward) under torch.profiler "
+              f"[{card}]: kernels {busy:.3f} of {wall:.3f} ms wall (busy "
+              f"{busy / wall:.3f}); top: "
+              + "; ".join(f"{name} {ms:.3f} ms x{n}" for name, ms, n in rows),
+              flush=True)
+    print(f"streamed headline times ms [{card}]: Renderer.forward "
+          f"{spread(s_frame)}, Renderer.backward {spread(s_back)}",
+          flush=True)
+    report["streamed"] = {
+        "frame_ms": s_frame, "backward_ms": s_back, "vs_plain": err,
+        "vs_tiled": t_err, "vs_tiled_depth": t_depth,
+        "vs_tiled_grads": s_err, "peak_fwd_mib": peak_fwd,
+        "peak_bwd_mib": peak_bwd,
+        "profile": None if breakdown is None else {
+            "busy_ms": breakdown[0], "wall_ms": breakdown[1],
+            "top": breakdown[2]}}
+
+    # 53. the headline fused and staged: the whole lattice at once
+    frames, grads, renderers = {}, {}, {}
+    for mode, opts in (("fused", dict(use_tiles=False, streaming=False)),
+                       ("staged", dict(use_tiles=False, streaming=False,
+                                       use_fused_path=False))):
+        r = P.Renderer(ctx, plan, P.RenderOptions(**opts))
+        torch.cuda.reset_peak_memory_stats()
+        reset()
+        frames[mode] = r.forward(field)
+        c = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        st = frames[mode].stats
+        print(f"{mode} Renderer.forward: {st.total_ms:.3f} ms, launches {c}, "
+              f"stages ms ray {st.ray_ms:.3f} sample {st.sample_ms:.3f} "
+              f"integrate {st.integrate_ms:.3f} compose {st.compose_ms:.3f}, "
+              f"peak {peak:.1f} MiB", flush=True)
+        require(r._last_mode == "fused" and c["integrate"] == 1,
+                f"the {mode} forward did not launch K9f once: {c}")
+        torch.cuda.reset_peak_memory_stats()
+        g1, g2, bc = deterministic_backward(torch, r, field, dl, counts,
+                                            reset)
+        bpeak = torch.cuda.max_memory_allocated() / 2 ** 20
+        print(f"{mode} Renderer.backward launches {bc}, peak {bpeak:.1f} "
+              f"MiB", flush=True)
+        require(bc["integrate_bwd"] == 1 and bc["integrate"] == 0,
+                f"the {mode} backward did not launch K9b once: {bc}")
+        require(results_equal(g1, g2, GRAD_KEYS),
+                f"the {mode} backward differs between two calls")
+        grads[mode], renderers[mode] = g1, r
+        report[mode] = {"peak_fwd_mib": peak, "peak_bwd_mib": bpeak,
+                        "forward_launches": c, "backward_launches": bc}
+    st = frames["staged"].stats
+    require(min(st.ray_ms, st.sample_ms, st.integrate_ms, st.compose_ms) > 0,
+            "a staged stage time is not positive")
+    require(results_equal(frames["fused"], frames["staged"], FRAME_KEYS),
+            "the fused and staged frames differ")
+    f_err, f_depth, f_hit = planes_errors(frames["fused"],
+                                          tiled_frame_planes(torch, res, plan))
+    g_err = grads_error(torch, grads["fused"], sg1)
+    print(f"fused == staged bit for bit; fused vs streamed: planes "
+          f"{f_err:.3e}, depth {f_depth:.3e}, hitmask {f_hit}; grads "
+          f"{g_err:.3e} x scale, staged grads equal to fused "
+          f"{results_equal(grads['fused'], grads['staged'], GRAD_KEYS)}",
+          flush=True)
+    require(f_err <= TOL and f_depth <= TOL_DEPTH and f_hit,
+            "the fused frame differs from the streamed frame")
+    require(g_err <= GRID_TOL and camera_close(grads["fused"], sg1)
+            and grads_error(torch, grads["staged"], sg1) <= GRID_TOL,
+            "the fused or staged backward differs from the streamed one")
+    fused = renderers["fused"]
+    outputs = fused.last_outputs
+    with torch.no_grad():
+        d_sigma, d_color = fused._sample_grads(outputs, dl)
+        mask = outputs.lattice.mask
+        want_s, want_c = d_sigma[mask].cpu().numpy(), d_color[mask].cpu().numpy()
+    got_s, got_c = fused.per_sample_gradients(dl)
+    require(np.array_equal(got_s, want_s) and np.array_equal(got_c, want_c),
+            "per_sample_gradients differs from the backward's d_sigma / "
+            "d_color")
+    print(f"per_sample_gradients == the backward's per-sample gradients: "
+          f"{got_s.shape[0]} live samples", flush=True)
+    del d_sigma, d_color
+    for mode in ("fused", "staged"):
+        r = renderers[mode]
+        report[mode]["frame_ms"] = event_times(torch, lambda: r.forward(field))
+        report[mode]["backward_ms"] = event_times(
+            torch, lambda: r.backward(field, dl))
+        print(f"{mode} headline times ms [{card}]: Renderer.forward "
+              f"{spread(report[mode]['frame_ms'])}, Renderer.backward "
+              f"{spread(report[mode]['backward_ms'])}", flush=True)
+    f_gs = [torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2
+            - 1]
+    kernels += k9_entries(
+        torch, "fused_headline", outputs_inputs(outputs), f_gs,
+        {"integrate": report["fused"]["forward_launches"]["integrate"],
+         "integrate_bwd":
+             report["fused"]["backward_launches"]["integrate_bwd"]},
+        span, card)
+    del renderers, outputs, f_gs
+    torch.cuda.empty_cache()
+
+    # 54. fields the tiles refuse, under the default options on the card
+    for name, change in (("nearest", dict(interp=P.InterpMode.NEAREST)),
+                         ("clamp", dict(oob=P.OobPolicy.CLAMP))):
+        f2 = P.DenseGridField.create(dataclasses.replace(config, **change),
+                                     device=dev).requires_grad_(False)
+        r = P.Renderer(ctx, plan)
+        reset()
+        got = r.forward(f2)
+        c = counts()
+        require(r._last_mode == "streamed" and c["integrate"] == n_blocks,
+                f"the {name} field did not take the streamed path: "
+                f"{r._last_mode}, {c}")
+        with torch.no_grad():
+            want = pipeline.render_streamed(plan, f2, jitter=jitter,
+                                            use_kernel=False)
+        e, d, h = planes_errors(got, want)
+        g, _, bc = deterministic_backward(torch, r, f2, dl, counts, reset)
+        ref = r._backward_replay(
+            f2, dl.reshape(-1, 3), None,
+            lambda leaf, k0, c2w0: pipeline.render_streamed(
+                plan, leaf, k=k0, c2w=c2w0, jitter=jitter,
+                use_kernel=False))
+        ge = grads_error(torch, g, ref)
+        print(f"{name} field (default options): mode {r._last_mode}, "
+              f"launches {c}; frame vs use_kernel=False planes {e:.3e}, "
+              f"depth {d:.3e}, hitmask {h}; backward launches {bc}, grads "
+              f"{ge:.3e} x scale", flush=True)
+        require(e <= TOL and d <= TOL_DEPTH and h,
+                f"the {name} frame differs from the plain path")
+        require(bc["integrate_bwd"] > 0 and ge <= GRID_TOL
+                and camera_close(g, ref),
+                f"the {name} backward differs from the plain path")
+        report[name] = {"vs_plain": e, "grads_vs_plain": ge}
+        del f2, r
+
+    # 55. an override bundle at full width: two rays a pixel, +-0.25 px
+    n_over = 2 * plan.ray_count
+    oplan = P.Plan.create(dataclasses.replace(plan.descriptor(),
+                                              max_rays=n_over, max_samples=0))
+    parts = []
+    for dx in (-OVERRIDE_OFFSET, OVERRIDE_OFFSET):
+        k = list(plan.camera.k)
+        k[2] -= dx                  # cx: the ray's pixel centre moves dx
+        shifted = plan.with_camera(dataclasses.replace(plan.camera,
+                                                       k=tuple(k)))
+        parts.append(generate_rays(shifted, device=dev))
+    bundle = Rays(*(torch.cat([getattr(p, f) for p in parts]) for f in
+                    ("origins", "directions", "t_near", "t_far",
+                     "pixel_ids")))
+    over = P.Renderer(ctx, oplan)
+    torch.cuda.reset_peak_memory_stats()
+    reset()
+    o1 = over.forward(field, rays=bundle)
+    o_c = counts()
+    o_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    o2 = over.forward(field, rays=bundle)
+    print(f"override bundle of {n_over} rays: launches {o_c}, "
+          f"{o1.sample_count} samples, peak {o_peak:.1f} MiB, notes "
+          f"{o1.stats.notes}", flush=True)
+    require(over._last_mode == "override" and o_c["integrate"] == 1,
+            f"the override forward did not launch K9f once: {o_c}")
+    require(results_equal(o1, o2, FRAME_KEYS),
+            "the override frame differs between two calls")
+    intl = over.last_outputs.intl
+    cpu = compose(*(x.cpu() for x in (bundle.pixel_ids, intl.radiance,
+                                      intl.transmittance, intl.opacity,
+                                      intl.depth)),
+                  plan.width, plan.height, plan.t_far, unique_pixels=False)
+    c_err = max(float(np.abs(getattr(o1, k) - getattr(cpu, k).numpy()
+                             .reshape(-1)).max())
+                for k in ("image", "transmittance", "opacity", "depth"))
+    c_hit = np.array_equal(o1.hitmask, cpu.hitmask.numpy().reshape(-1))
+    print(f"override compose on the card vs the CPU: {c_err:.3e}, hitmask "
+          f"equal {c_hit}; two calls equal", flush=True)
+    require(c_err <= TOL and c_hit,
+            "the override compose differs from the CPU's")
+    dl2 = (torch.rand((n_over, 3), generator=gen, device=dev) * 2
+           - 1).cpu().numpy()
+    torch.cuda.reset_peak_memory_stats()
+    og1, og2, o_bc = deterministic_backward(torch, over, field, dl2, counts,
+                                            reset)
+    ob_peak = torch.cuda.max_memory_allocated() / 2 ** 20
+    print(f"override Renderer.backward launches {o_bc}, peak {ob_peak:.1f} "
+          f"MiB, camera zero {not og1.camera.any() and not og1.camera_k.any()}",
+          flush=True)
+    require(o_bc["integrate_bwd"] == 1, "the override backward ran no K9b")
+    require(not og1.camera.any() and not og1.camera_k.any(),
+            "the override backward's camera gradient is not zero")
+    require(results_equal(og1, og2, GRAD_KEYS),
+            "the override backward differs between two calls")
+    require(float(np.abs(og1.sigma).max()) > 0, "override grads are zero")
+    o_frame = event_times(torch, lambda: over.forward(field, rays=bundle))
+    o_back = event_times(torch, lambda: over.backward(field, dl2))
+    print(f"override times ms [{card}]: Renderer.forward {spread(o_frame)}, "
+          f"Renderer.backward {spread(o_back)}", flush=True)
+    o_gs = [torch.rand((n_over, 3), generator=gen, device=dev) * 2 - 1]
+    kernels += k9_entries(torch, "override", outputs_inputs(
+        over.last_outputs), o_gs, {"integrate": o_c["integrate"],
+                                   "integrate_bwd": o_bc["integrate_bwd"]},
+        span, card)
+    report["override"] = {"rays": n_over, "frame_ms": o_frame,
+                          "backward_ms": o_back, "peak_fwd_mib": o_peak,
+                          "peak_bwd_mib": ob_peak, "compose_vs_cpu": c_err}
+    del over, o_gs, bundle, parts
+    torch.cuda.empty_cache()
+
+    # 56. the hash headline streamed, against the K7f frame
+    hplan, spec = hash_headline(P)
+    hfield = P.HashMLPField.init_random(torch.Generator().manual_seed(0),
+                                        spec=spec, device=dev)
+    hfield.requires_grad_(False)
+    k7_frame = P.Renderer(ctx, hplan).forward(hfield)
+    hr = P.Renderer(ctx, hplan, P.RenderOptions(use_tiles=False))
+    reset()
+    hres = hr.forward(hfield)
+    h_c = counts()
+    h_err, _, h_hit = planes_errors(hres, tiled_frame_planes(
+        torch, k7_frame, hplan))
+    h_depth, h_share, h_ulps = depth_error(hres.depth, k7_frame.depth,
+                                           k7_frame.opacity, hplan.t_far)
+    print(f"hash headline streamed: mode {hr._last_mode}, launches {h_c}; vs "
+          f"the K7f frame planes {h_err:.3e}, depth {h_depth:.3e} "
+          f"({h_share:.3f} of its per-ray bound, {h_ulps:.3f} ulps past "
+          f"1e-4), hitmask {h_hit}", flush=True)
+    require(hr._last_mode == "streamed" and h_c["integrate"] == n_blocks,
+            f"the hash headline did not stream through K9f: {h_c}")
+    require(h_err <= TOL and h_share <= 1.0 and h_hit,
+            "the streamed hash frame differs from the K7f frame")
+    h_frame = event_times(torch, lambda: hr.forward(hfield))
+    print(f"hash streamed frame ms [{card}]: {spread(h_frame)}", flush=True)
+    report["hash_streamed"] = {"frame_ms": h_frame, "vs_k7f": h_err,
+                               "vs_k7f_depth": h_depth}
+    del hfield, hr
+
+    # 57. render_views over the fit flagship's eight views
+    vplans, vconfig = flagship_views(P)
+    vfield = P.DenseGridField.create(vconfig, device=dev)
+    cams = [p.camera for p in vplans]
+    reset()
+    with torch.no_grad():
+        views = fit.render_views(vplans[0], vfield, cams)
+    v_c = counts()
+    with torch.no_grad():
+        ok = all(torch.equal(views[i], pipeline.render(p, vfield)
+                             .planes.image) for i, p in enumerate(vplans))
+    print(f"render_views: {tuple(views.shape)}, launches {v_c}, each view "
+          f"equal to pipeline.render at its pose {ok}", flush=True)
+    require(ok and v_c["integrate"] == len(vplans),
+            "render_views differs from pipeline.render per view")
+    with torch.no_grad():
+        v_ms = event_times(torch, lambda: fit.render_views(vplans[0], vfield,
+                                                           cams))
+    print(f"render_views ms [{card}]: {spread(v_ms)}", flush=True)
+    report["render_views"] = {"views": len(vplans), "ms": v_ms}
+    return kernels, report
+
+
+def tiled_frame_planes(torch, result, plan):
+    """A ForwardResult's flat arrays as (H, W) planes of tensors, for
+    :func:`planes_errors`."""
+    h, w = plan.height, plan.width
+
+    class Planes:
+        image = torch.from_numpy(result.image.reshape(h, w, 3))
+        transmittance = torch.from_numpy(result.transmittance.reshape(h, w))
+        opacity = torch.from_numpy(result.opacity.reshape(h, w))
+        depth = torch.from_numpy(result.depth.reshape(h, w))
+        hitmask = torch.from_numpy(result.hitmask.reshape(h, w)
+                                   .astype(np.int32))
+
+    return Planes
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -4341,6 +4874,13 @@ def run(only: str = "all") -> dict:
         elapsed("47-51")
         print(json.dumps({"kernels": sched_kernels}), flush=True)
         print(json.dumps({**sched_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "general":
+        gen_kernels, gen_report = run_general(torch, P, dev, card)
+        elapsed("52-57")
+        print(json.dumps({"kernels": gen_kernels}), flush=True)
+        print(json.dumps({**gen_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
 
@@ -4773,6 +5313,9 @@ def run(only: str = "all") -> dict:
     sched_kernels, hash_report["sched"] = run_sched(torch, P, dev, card)
     kernels += sched_kernels
     elapsed("47-51")
+    gen_kernels, hash_report["general"] = run_general(torch, P, dev, card)
+    kernels += gen_kernels
+    elapsed("52-57")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -4807,7 +5350,8 @@ def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     parser.add_argument(
         "--only", choices=("all", "dense", "tiles", "tables", "hash",
-                           "grid", "gridviews", "window", "split", "sched"),
+                           "grid", "gridviews", "window", "split", "sched",
+                           "general"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
@@ -4822,7 +5366,9 @@ def main() -> int:
              "'split': phase 1 and phases 42-46 (the split backward, K6); "
              "'sched': phase 1 and phases 47-51 (the native scheduler core, "
              "pitch 2, occupancy on the SDF shell, the moving camera, the "
-             "train-state checkpoint); "
+             "train-state checkpoint); 'general': phase 1 and phases "
+             "52-57 (the Renderer's streamed, fused, staged and override "
+             "paths over K9f / K9b, render_views); "
              "each for timing two trees against each other in one call")
     parser.add_argument("--split-child", action="store_true",
                         help=argparse.SUPPRESS)   # phase 45's child process

@@ -7,16 +7,16 @@ reference becomes a CUDA kernel written by hand for Hopper (``csrc/``,
 built at first use by :mod:`dvren_tpu_torch._build`), each with a plain
 PyTorch twin that runs on the CPU.
 
-Ported so far: the dense-grid tiled render through
-:meth:`Renderer.forward` (float32, bfloat16 or float16 packed tables),
-and its gradients in the grid and the camera through
-:meth:`Renderer.backward` and autograd of
-:func:`dvren_tpu_torch.render.tiled.render_tiled`; the same for sparse
-brick fields (:class:`SparseGridField`); the hash-MLP field's
-fused render through :meth:`Renderer.forward` and autograd of
-:func:`dvren_tpu_torch.render.hash_tiled.render_hash_tiled`, and its fit
-:func:`dvren_tpu_torch.opt.fit.fit_hash_mlp` (see ROADMAP.md for what
-follows).
+Ported: every mode of the JAX package's :class:`Renderer` outside graph
+capture. On a CUDA context the tiled paths are the default for the fields
+they take (dense grids in float32, bfloat16 or float16 tables, sparse
+brick fields, hash-MLP fields); the windowed, streamed, fused and staged
+paths over the per-ray integrator, and override ray bundles with the
+compose of rays that share pixels, run on any device, with their
+gradients (:meth:`Renderer.backward`, :mod:`dvren_tpu_torch.ops.diff`) and
+the parity views. Training: autograd of the render functions,
+:func:`dvren_tpu_torch.opt.fit.fit_dense_grid`, ``fit_hash_mlp`` and
+``render_views`` (see ROADMAP.md for what follows).
 """
 
 from dvren_tpu_torch.version import __version__
@@ -44,6 +44,12 @@ from dvren_tpu_torch.render.renderer import (
     Renderer,
     RenderOptions,
     RenderStats,
+    WorkspaceInfo,
+)
+from dvren_tpu_torch.render.windowed import (
+    WindowedSchedule,
+    build_schedule,
+    render_windowed,
 )
 
 __all__ = [
@@ -73,4 +79,8 @@ __all__ = [
     "RenderStats",
     "ForwardResult",
     "BackwardResult",
+    "WorkspaceInfo",
+    "WindowedSchedule",
+    "build_schedule",
+    "render_windowed",
 ]

@@ -7,7 +7,9 @@ The constructors put the grid on CUDA unless the caller names a device
 (``device="cpu"`` on the CPU), as :class:`~dvren_tpu_torch.Context` does.
 The tiled renderer reads ``sigma`` and ``color`` whole; the per-ray paths
 evaluate the field at sample positions (``packed_eval_planes`` for a
-trilinear grid, ``sigma_at_planes`` / ``color_at_planes`` otherwise).
+trilinear grid, ``sigma_at_planes`` / ``color_at_planes`` otherwise), and
+the Renderer's fused, staged and override backward sums per-sample
+gradients into the grid with :meth:`accumulate_sample_gradients`.
 """
 
 from __future__ import annotations
@@ -147,6 +149,16 @@ class DenseGridField(nn.Module):
 
     # -- evaluation (the field protocol of the per-ray paths) -----------------
 
+    def sigma_at(self, positions: torch.Tensor) -> torch.Tensor:
+        """Density at (..., 3) world positions -> (...,); differentiable."""
+        return grid_ops.eval_grid(self.sigma, positions, self.bbox_min,
+                                  self.bbox_max, self.interp, self.oob)
+
+    def color_at(self, positions: torch.Tensor) -> torch.Tensor:
+        """Colour at (..., 3) world positions -> (..., 3); differentiable."""
+        return grid_ops.eval_grid(self.color, positions, self.bbox_min,
+                                  self.bbox_max, self.interp, self.oob)
+
     def sigma_at_planes(self, px, py, pz) -> torch.Tensor:
         """Density at coordinate planes; differentiable."""
         return grid_ops.eval_grid_planes(self.sigma, px, py, pz,
@@ -174,3 +186,32 @@ class DenseGridField(nn.Module):
         return grid_ops.eval_packed_trilinear(
             packed, self.grid_shape, px, py, pz, self.bbox_min,
             self.bbox_max, self.oob)
+
+    # -- gradients ------------------------------------------------------------
+
+    def zero_grads(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """(sigma_grad, color_grad) zeroed; DenseGridField::ZeroGradients."""
+        return (torch.zeros_like(self.sigma, requires_grad=False),
+                torch.zeros_like(self.color, requires_grad=False))
+
+    def accumulate_sample_gradients(self, positions: torch.Tensor,
+                                    grad_sigma: torch.Tensor,
+                                    grad_color: torch.Tensor,
+                                    grads: tuple | None = None) -> tuple:
+        """Per-sample gradients summed into voxel gradients
+        (``AccumulateSampleGradients``, dense_grid.cpp:171-309): the vjp
+        of the field's point evaluation at (..., 3) ``positions``, with
+        ``grad_sigma`` (...,) and ``grad_color`` (..., 3); added to
+        ``grads`` when given. No float atomics: the corner rows are
+        summed in a fixed order (:func:`~dvren_tpu_torch.ops.grid.
+        scatter_grid_grads`)."""
+        sigma_g = grid_ops.scatter_grid_grads(
+            self.sigma.shape, positions, grad_sigma, self.bbox_min,
+            self.bbox_max, self.interp, self.oob)
+        color_g = grid_ops.scatter_grid_grads(
+            self.color.shape, positions, grad_color, self.bbox_min,
+            self.bbox_max, self.interp, self.oob)
+        if grads is not None:
+            sigma_g = grads[0] + sigma_g
+            color_g = grads[1] + color_g
+        return sigma_g, color_g

@@ -5,8 +5,10 @@ Counterpart of ``dvren_tpu/fields/hash_mlp.py`` (the original's
 parameters are an ``nn.ParameterDict`` under the JAX package's keys
 (``hash_table`` (L, T, F), ``sigma_w1``, ``sigma_b1``, ``sigma_w2``,
 ``sigma_b2``, ``color_w1``, ``color_b1``, ``color_w2``, ``color_b2``), so
-``field.parameters()`` is what an optimizer trains. The constructors put
-the parameters on CUDA unless the caller names a device
+``field.parameters()`` is what an optimizer trains. The per-ray paths
+(``pipeline.render``, the Renderer's streamed and fused modes) evaluate it
+at sample planes (:meth:`HashMLPField.packed_eval_planes`). The
+constructors put the parameters on CUDA unless the caller names a device
 (``device="cpu"`` on the CPU), as :class:`~dvren_tpu_torch.Context` does.
 """
 
@@ -121,3 +123,20 @@ class HashMLPField(nn.Module):
 
     def color_at(self, positions: torch.Tensor) -> torch.Tensor:
         return ops.eval_color(positions, dict(self.params), self.spec)
+
+    def sigma_at_planes(self, px, py, pz) -> torch.Tensor:
+        """Density plane at coordinate planes; differentiable."""
+        return ops.eval_planes(px, py, pz, dict(self.params), self.spec)[0]
+
+    def color_at_planes(self, px, py, pz) -> tuple:
+        """(r, g, b) planes at coordinate planes; differentiable."""
+        return ops.eval_planes(px, py, pz, dict(self.params), self.spec)[1:]
+
+    @property
+    def supports_packed_eval(self) -> bool:
+        """Sigma and colour in one pass (one shared hash encoding)."""
+        return True
+
+    def packed_eval_planes(self, px, py, pz) -> tuple:
+        """(sigma, r, g, b) planes, the encoding computed once."""
+        return ops.eval_planes(px, py, pz, dict(self.params), self.spec)

@@ -269,6 +269,39 @@ def eval_grid_planes(grid: torch.Tensor, px, py, pz, bbox_min, bbox_max,
     return outs[0] if scalar else tuple(outs)
 
 
+def eval_grid(grid: torch.Tensor, positions: torch.Tensor, bbox_min,
+              bbox_max, interp: InterpMode = InterpMode.LINEAR,
+              oob: OobPolicy = OobPolicy.ZERO) -> torch.Tensor:
+    """:func:`eval_grid_planes` at (..., 3) positions: (...,) for a scalar
+    grid, (..., C) for a vector one."""
+    out = eval_grid_planes(grid, positions[..., 0], positions[..., 1],
+                           positions[..., 2], bbox_min, bbox_max, interp,
+                           oob)
+    if isinstance(out, tuple):
+        return torch.stack(out, dim=-1)
+    return out
+
+
+def scatter_grid_grads(grid_shape, positions: torch.Tensor,
+                       sample_grads: torch.Tensor, bbox_min, bbox_max,
+                       interp: InterpMode = InterpMode.LINEAR,
+                       oob: OobPolicy = OobPolicy.ZERO) -> torch.Tensor:
+    """Per-sample gradients summed into a float32 grid of ``grid_shape``:
+    the vjp of :func:`eval_grid` at a zero grid (``AccumulateSample
+    Gradients``, dense_grid.cpp:171-309), so the interpolation weights are
+    the forward's. The corner rows are summed by :func:`take_rows`'
+    backward, in a fixed order."""
+    zeros = torch.zeros(tuple(int(v) for v in grid_shape),
+                        dtype=torch.float32, device=positions.device,
+                        requires_grad=True)
+    with torch.enable_grad():
+        out = eval_grid(zeros, positions.detach(), bbox_min, bbox_max,
+                        interp, oob)
+        (grads,) = torch.autograd.grad(
+            out, zeros, sample_grads.detach().to(torch.float32))
+    return grads
+
+
 def build_packed_stencil(sigma: torch.Tensor, color: torch.Tensor,
                          dtype: torch.dtype = torch.float32) -> torch.Tensor:
     """The trilinear stencil of every base cell, (Z-1, Y-1, X-1, 32) in

@@ -134,3 +134,21 @@ def generate_rays(plan: Plan, k: torch.Tensor | None = None,
     pixel_ids = torch.where(in_roi, pixel_ids, pad_ids).to(torch.int32)
     return Rays(origins=origins, directions=directions, t_near=t_near,
                 t_far=t_far, pixel_ids=pixel_ids)
+
+
+def validate_override(plan: Plan, rays: Rays) -> Rays:
+    """Check a caller's ray bundle (the hp_ray override path,
+    ray_cpu.cpp:148-150): (N <= max_rays, ...) shapes that agree, with
+    the JAX package's messages."""
+    n = int(rays.origins.shape[0])
+    if (tuple(rays.origins.shape) != (n, 3)
+            or tuple(rays.directions.shape) != (n, 3)):
+        raise ValueError("override rays origins/directions must be (N, 3)")
+    if tuple(rays.t_near.shape) != (n,) or tuple(rays.t_far.shape) != (n,):
+        raise ValueError("override rays t_near/t_far must be (N,)")
+    if tuple(rays.pixel_ids.shape) != (n,):
+        raise ValueError("override rays pixel_ids must be (N,)")
+    if n > plan.max_rays:
+        raise ValueError(f"override ray count {n} exceeds max_rays "
+                         f"{plan.max_rays}")
+    return rays

@@ -228,6 +228,35 @@ def make_train_step_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
     return step
 
 
+def _view_inputs(plan: Plan, cameras: Sequence[CameraConfig], device):
+    """Each view's c2w (3, 4) and the plan's jitter table (None for FIXED
+    sampling) on ``device``."""
+    from dvren_tpu_torch.render.pipeline import plan_jitter_table
+
+    c2ws = [torch.tensor(c.c2w, dtype=torch.float32,
+                         device=device).reshape(3, 4) for c in cameras]
+    jitter = plan_jitter_table(plan)
+    if jitter is not None:
+        jitter = torch.from_numpy(jitter.copy()).to(device)
+    return c2ws, jitter
+
+
+def _render_stack(plan: Plan, field, c2ws, jitter) -> torch.Tensor:
+    from dvren_tpu_torch.render.pipeline import render
+
+    return torch.stack([render(plan, field, c2w=c2w, jitter=jitter)
+                        .planes.image for c2w in c2ws])
+
+
+def render_views(plan: Plan, field, cameras: Sequence[CameraConfig]):
+    """(V, H, W, 3) images of ``field`` from each camera's pose: the
+    plan's whole lattice through ``pipeline.render`` per view (K9f on
+    CUDA tensors), differentiable. JAX vmaps one render over the stacked
+    poses; here the views run in turn, with the same values."""
+    return _render_stack(plan, field, *_view_inputs(plan, cameras,
+                                                    field.device))
+
+
 def make_train_step(plan: Plan, cameras: Sequence[CameraConfig], field,
                     optimizer, sigma_min: float | None = 0.0):
     """The plain training step: each view's whole lattice through
@@ -235,20 +264,11 @@ def make_train_step(plan: Plan, cameras: Sequence[CameraConfig], field,
     port's per-ray integrator), the MSE over the (V, H, W, 3) stack,
     ``optimizer``'s step, then the projection unless ``sigma_min`` is
     None (``dvren_tpu``'s ``make_train_step``)."""
-    from dvren_tpu_torch.render.pipeline import plan_jitter_table, render
-
-    c2ws = [torch.tensor(c.c2w, dtype=torch.float32,
-                         device=field.device).reshape(3, 4)
-            for c in cameras]
-    jitter = plan_jitter_table(plan)
-    if jitter is not None:
-        jitter = torch.from_numpy(jitter.copy()).to(field.device)
+    c2ws, jitter = _view_inputs(plan, cameras, field.device)
 
     def step(f, targets):
         optimizer.zero_grad(set_to_none=True)
-        pred = torch.stack([render(plan, f, c2w=c2w, jitter=jitter)
-                            .planes.image for c2w in c2ws])
-        loss = mse(pred, targets)
+        loss = mse(_render_stack(plan, f, c2ws, jitter), targets)
         loss.backward()
         optimizer.step()
         if sigma_min is not None:

@@ -99,11 +99,13 @@ def render(plan: Plan, field, k=None, c2w=None, ortho_scale=None,
            rays: Rays | None = None, jitter=None,
            use_kernel: bool = True) -> RenderOutputs:
     """The full forward of a plan's lattice. ``rays`` overrides the
-    generated rays; camera tensors default to the plan's camera, and the
-    rays live on the field's device. ``jitter``: the
-    (N, K) table (:func:`plan_jitter_table`), else gathered from it. An
-    override bundle raises ``NotImplementedError`` in the compose (rays
-    that share pixels are not ported).
+    generated rays (the hp_ray override path: its rays may share pixels,
+    and the compose then accumulates them, ``unique_pixels=False``);
+    camera tensors default to the plan's camera, and generated rays live
+    on the field's device. ``jitter``: the (N, K) table
+    (:func:`plan_jitter_table`, or for an override bundle the table of its
+    own size), else gathered from the plan's. The depth cursor starts at
+    ``plan.t_near`` for every ray, an override's too, as in JAX.
     ``use_kernel=False`` integrates with the plain integrator and keeps
     its aux; otherwise ``intl.aux`` is None."""
     unique_pixels = rays is None    # generated rays enumerate the ROI

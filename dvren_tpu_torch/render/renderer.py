@@ -1,47 +1,62 @@
 """Renderer: the plan-bound entry point of the port.
 
-Counterpart of ``dvren_tpu/render/renderer.py`` on its tiled and windowed
-paths.
-On a dense grid or a sparse brick field, :meth:`Renderer.forward` builds
-the tile schedule by ``build_tiled_schedule_auto``'s cascade (16, 8 or
-4 px tiles, cell or supercell tables) once per (field bbox, packed
-dtype, grid shape, pitch; for a sparse field its brick count and
-occupancy, compared by contents; under ``use_occupancy`` also the
-field's zero set, compared by contents) key, keeps it on the context's
-device, and replays it every frame (the table: K3 for a float32 dense grid on
-cell tables, the supercell table on supercell ones, K5a for a 16-bit
-grid, the bricks as they are for a sparse field; the bank gather, one K1
-launch over every tile group, the tile compose); :meth:`Renderer.backward`
-differentiates that replay for
-``sum(image * dl_image)`` in (sigma, color) or the bricks, ``c2w`` and
-``k`` (one K2 launch, the gather-plan reduction, then K4 or K5b on a
-dense grid). The forward's stats notes count the launches of K1
-(``fused_tiles``), K3 (``packed_table``) and K5a (``packed_table16``);
-K2, K4 and K5b (``packed_table16_bwd``) launch in the backward.
-A tile schedule whose rays still overflow after the cascade renders them
-through its windowed fallback (K9f per fallback group; K9b in the
-backward); in the auto mode, when more than half the rays fall back, the
-forward takes the windowed path instead (the note
-``tiled_demoted_to_windowed``), as the JAX Renderer does.
-``RenderOptions(use_window=True)`` takes the windowed path
-(:mod:`dvren_tpu_torch.render.windowed`: a schedule per field bbox, then
-per group the field at the window's samples and K9f), and its backward
-differentiates that replay in the grid and the camera (K9b per group).
-On a hash-MLP field, the forward builds the frame's hash schedule once
-per plan and renders it with one K7f launch (the backward refuses: hash
-fields train through autograd of ``render_hash_tiled`` or
-``opt.fit.fit_hash_mlp``).
+Counterpart of ``dvren_tpu/render/renderer.py``. :meth:`Renderer.forward`
+routes as the JAX Renderer does: an override ray bundle, then the tiled
+paths, the windowed path, the streamed path, and last the fused or staged
+path over the whole lattice.
 
-``RenderOptions(use_occupancy=True)`` trims each ray's steps to its
-non-empty cells when the schedule is built, and ``tile_pitch=2`` packs
-the schedule's lanes by cell pairs (the frames and gradients of pitch 1
-bit for bit).
+- **Tiled** (the default on a CUDA context for the fields the tiles take;
+  ``use_tiles=True`` elsewhere). On a dense grid or a sparse brick field
+  the tile schedule is built by ``build_tiled_schedule_auto``'s cascade
+  (16, 8 or 4 px tiles, cell or supercell tables) once per (field bbox,
+  packed dtype, grid shape, pitch; for a sparse field its brick count and
+  occupancy, compared by contents; under ``use_occupancy`` also the
+  field's zero set, compared by contents) key, kept on the context's
+  device and replayed every frame (the table: K3 for a float32 dense grid
+  on cell tables, the supercell table on supercell ones, K5a for a 16-bit
+  grid, the bricks as they are for a sparse field; the bank gather, one
+  K1 launch over every tile group, the tile compose). The backward
+  differentiates that replay for ``sum(image * dl_image)`` in (sigma,
+  color) or the bricks, ``c2w`` and ``k`` (one K2 launch, the gather-plan
+  reduction, then K4 or K5b on a dense grid). Rays that still overflow
+  after the cascade render through the schedule's windowed fallback (K9f
+  per fallback group; K9b in the backward); in the auto mode, when more
+  than half the rays fall back, the forward takes the windowed path
+  instead (the note ``tiled_demoted_to_windowed``). On a hash-MLP field
+  whose spec the fused kernel takes, the forward renders the frame's hash
+  schedule (built once per plan) with one K7f launch.
+- **Windowed** (``use_window=True``): a schedule per field bbox, then per
+  group the field at the window's samples and K9f; its backward
+  differentiates that replay in the grid and the camera (K9b per group).
+- **Streamed** (``streaming=True``, or by default when ``ray_count *
+  max_steps`` exceeds ``streaming_budget``): ``pipeline.render_streamed``
+  in blocks of ``default_ray_tile`` rays, K9f per block; the backward is
+  autograd of ``sum(image * dl_image)`` through it, each block recomputed.
+- **Fused** (``use_fused_path=True``) and **staged** (False):
+  ``pipeline.render`` over the whole lattice, or its stages (rays,
+  samples, field and K9f, compose) as separate calls whose times fill the
+  stats. Both report the mode ``"fused"``, as in JAX. The backward is the
+  original's decomposition: ``ops.diff.per_sample_grads`` (one K9b
+  launch), the field's ``accumulate_sample_gradients``, then
+  ``ops.diff.camera_grads``.
+- **Override** (``forward(field, rays=...)``): the bundle through
+  ``pipeline.render`` with the compose of rays that share pixels; the
+  stratified jitter keyed on the bundle index; the backward as the fused
+  one with a zero camera gradient (the bundle has no generating camera).
 
-Every other mode of the JAX Renderer raises ``NotImplementedError``
-naming its ROADMAP item: override rays, the streamed, fused and staged
-paths, and graph capture. Unlike the JAX package, which picks the tiled
-paths by default only on a TPU, ``use_tiles=None`` picks them on a CUDA
-context.
+The forward's stats notes count the launches of K1 (``fused_tiles``),
+K3 (``packed_table``), K5a (``packed_table16``), K9f (``integrate``) or,
+on a hash field's tiled path, K7f (``hash_tiles``).
+
+The parity views (:meth:`per_sample_gradients`, :meth:`packed_aux`,
+:meth:`packed_samples`) pack the last forward's live samples in ray-major
+order; after a streamed, windowed or tiled forward they recompute the
+lattice block by block. The backward refuses hash-MLP fields, and sparse
+fields outside the tiled and windowed modes, as JAX's does. Graph capture
+(``enable_graph``) raises ``NotImplementedError`` naming its ROADMAP item.
+Unlike the JAX package, which picks the tiled paths by default only on a
+TPU, ``use_tiles=None`` picks them on a CUDA context; on a CPU context the
+default is the streamed, fused or staged path, as JAX's is off a TPU.
 """
 
 from __future__ import annotations
@@ -57,29 +72,40 @@ from dvren_tpu_torch.core.context import Context
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import DvrenError, check
 from dvren_tpu_torch.fields.sparse_grid import _SIGMA_CH
-from dvren_tpu_torch.ops import (fused_tiles, hash_tiles, integrate_fused,
-                                 packed_transpose)
-from dvren_tpu_torch.ops.raygen import camera_arrays
+from dvren_tpu_torch.ops import (diff, fused_tiles, hash_tiles,
+                                 integrate_fused, packed_transpose, rng)
+from dvren_tpu_torch.ops.compose import compose
+from dvren_tpu_torch.ops.integrate import integrate
+from dvren_tpu_torch.ops.raygen import (Rays, camera_arrays, generate_rays,
+                                        validate_override)
+from dvren_tpu_torch.ops.sampling import generate_samples
 from dvren_tpu_torch.render import hash_tiled as hash_mod
+from dvren_tpu_torch.render import pipeline as pipeline_mod
 from dvren_tpu_torch.render import tiled as tiled_mod
 from dvren_tpu_torch.render import windowed as windowed_mod
-from dvren_tpu_torch.render.pipeline import plan_jitter_table
+from dvren_tpu_torch.render.pipeline import (RenderOutputs, eval_fields,
+                                             integrate_heads,
+                                             plan_jitter_table)
 
 
 @dataclass(frozen=True)
 class RenderOptions:
     """Mirrors ``dvren::RenderOptions`` (renderer.hpp:17-21) with the JAX
-    package's fields. The tiled paths (``use_tiles`` None: tiles on CUDA,
-    or True), with ``use_occupancy`` and ``tile_pitch`` 1 or 2, and the
-    windowed path (``use_window=True``) are ported. ``use_occupancy``
-    trims each ray's step window to its non-empty cells (exact where
-    empty space is exact zeros); the schedule then depends on the
-    field's zero set, which the Renderer compares at every forward
-    (rebuilding when it changed), and its backward is that of the trimmed
-    render: the corner gradients of leading and trailing empty cells are
-    dropped, so it suits inference and replay, not per-step training.
-    ``enable_graph`` raises when it would take effect;
-    ``capture_stats`` is accepted, and no stage timings are taken yet."""
+    package's fields. ``use_tiles``: None takes the tiled paths on a CUDA
+    context for the fields they take, True takes them (or refuses the
+    field), False never. ``use_window=True`` takes the windowed path.
+    Otherwise ``streaming`` (None: when ``ray_count * max_steps`` exceeds
+    ``streaming_budget``) takes the streamed path, else
+    ``use_fused_path`` the fused path or (False) the staged one, whose
+    stage times ``capture_stats`` fills (a device synchronise after each
+    stage on CUDA). ``use_occupancy`` trims each ray's step window to its
+    non-empty cells (exact where empty space is exact zeros); the schedule
+    then depends on the field's zero set, which the Renderer compares at
+    every forward (rebuilding when it changed), and its backward is that
+    of the trimmed render: the corner gradients of leading and trailing
+    empty cells are dropped, so it suits inference and replay, not
+    per-step training. ``tile_pitch`` 1 or 2 packs the schedule's lanes
+    by cells or cell pairs. ``enable_graph`` raises (ROADMAP item 9)."""
 
     use_fused_path: bool = True
     enable_graph: bool = False
@@ -90,6 +116,23 @@ class RenderOptions:
     use_tiles: bool | None = None
     use_occupancy: bool = False
     tile_pitch: int = 1
+
+
+@dataclass
+class WorkspaceInfo:
+    """Mirrors ``dvren::WorkspaceInfo`` (renderer.hpp:23-39)."""
+
+    ray_buffer_bytes: int = 0
+    sample_buffer_bytes: int = 0
+    integration_buffer_bytes: int = 0
+    image_buffer_bytes: int = 0
+    gradient_buffer_bytes: int = 0
+    workspace_buffer_bytes: int = 0
+
+    def total_bytes(self) -> int:
+        return (self.ray_buffer_bytes + self.sample_buffer_bytes
+                + self.integration_buffer_bytes + self.image_buffer_bytes
+                + self.gradient_buffer_bytes + self.workspace_buffer_bytes)
 
 
 @dataclass
@@ -140,8 +183,11 @@ def _launch_counts() -> tuple[int, int, int]:
             hash_tiles.hash_tile_forward.launches)
 
 
+_STREAM_MODES = ("streamed", "windowed", "tiled", "hash_tiled")
+
+
 class Renderer:
-    """Plan-bound renderer that caches the tile schedule on its device."""
+    """Plan-bound renderer that caches its schedules on its device."""
 
     def __init__(self, ctx: Context, plan: Plan,
                  options: RenderOptions | None = None):
@@ -149,6 +195,13 @@ class Renderer:
         self._plan = plan
         self._options = options or RenderOptions()
         self._jitter_host = plan_jitter_table(plan)
+        self._jitter = None           # the table on the context's device
+        self._override_jitter = {}    # bundle size -> its jitter table
+        lattice_samples = plan.ray_count * plan.sampling.max_steps
+        if self._options.streaming is None:
+            self._streaming = lattice_samples > self._options.streaming_budget
+        else:
+            self._streaming = bool(self._options.streaming)
         self._tiled_schedule = None
         self._tiled_key = None
         self._tiled_zeros = None      # the zero set under use_occupancy
@@ -157,7 +210,9 @@ class Renderer:
         self._window_bbox = None
         self._hash_schedule = None    # frame layout only: once per plan
         self._last_mode = None        # the mode of the last forward
-        self._last_ray_count = 0
+        self._last_outputs = None     # its lattice (fused, staged, override)
+        self._last_field = None
+        self._last_ray_count = plan.ray_count
 
     @property
     def plan(self) -> Plan:
@@ -167,6 +222,12 @@ class Renderer:
     def options(self) -> RenderOptions:
         return self._options
 
+    @property
+    def last_outputs(self) -> RenderOutputs | None:
+        """The last fused, staged or override forward's outputs on the
+        device (None after the other modes)."""
+        return self._last_outputs
+
     def _analytic_sample_count(self) -> int:
         """Live-sample count for generated rays: every ray marches
         min(max_steps, #k with t_near + k*dt < t_far) steps."""
@@ -175,23 +236,65 @@ class Renderer:
         k_live = int(math.ceil(span / plan.sampling.dt - 1e-9))
         return plan.ray_count * min(plan.sampling.max_steps, max(k_live, 0))
 
-    def forward(self, field, out: ForwardResult | None = None,
-                rays=None) -> ForwardResult:
-        """Render one frame; analogue of Renderer::Forward (renderer.cpp:232)."""
+    def _device_jitter(self) -> torch.Tensor | None:
+        """The plan's stratified jitter table on the context's device
+        (None for FIXED sampling), uploaded once."""
+        if self._jitter is None and self._jitter_host is not None:
+            self._jitter = torch.tensor(self._jitter_host,
+                                        device=self._ctx.device)
+        return self._jitter
+
+    def _sync(self) -> None:
+        if self._ctx.device.type == "cuda":
+            torch.cuda.synchronize(self._ctx.device)
+
+    def _mode(self, field, rays) -> str:
+        """The path this forward takes, in the JAX Renderer's order."""
         if rays is not None:
-            raise NotImplementedError(
-                "override ray bundles are ROADMAP Queue 1 item 11")
+            return "override"
         if self._use_hash_tiles(field):
-            mode, render = "hash_tiled", self._forward_hash_tiled
-        elif self._use_tiles(field):
-            mode, render = "tiled", self._forward_tiled
-        elif self._options.use_window:
-            mode, render = "windowed", self._forward_windowed
-        else:
-            raise NotImplementedError(self._untiled_mode())
-        check(field.device == self._ctx.device,
-              f"field is on {field.device}, the context on "
-              f"{self._ctx.device}: move it with field.to(device)")
+            return "hash_tiled"
+        if self._use_tiles(field):
+            return "tiled"
+        if self._options.use_window:
+            return "windowed"
+        return "streamed" if self._streaming else "fused"
+
+    @staticmethod
+    def _check_field_protocol(field) -> None:
+        """The per-ray paths evaluate a field at sample planes; a field
+        without that protocol gets an error naming it (not an
+        ``AttributeError`` from inside the evaluation)."""
+        packed = (getattr(field, "supports_packed_eval", False)
+                  and hasattr(field, "packed_eval_planes"))
+        planes = (hasattr(field, "sigma_at_planes")
+                  and hasattr(field, "color_at_planes"))
+        if not (packed or planes):
+            raise DvrenError.invalid_argument(
+                f"{type(field).__name__} does not follow the field protocol "
+                f"of the per-ray paths: sigma_at_planes and color_at_planes, "
+                f"or supports_packed_eval with packed_eval_planes (dense, "
+                f"sparse and hash-MLP fields follow it)")
+
+    def _check_device(self, field) -> None:
+        device = getattr(field, "device", None)
+        check(device == self._ctx.device,
+              f"field is on {device}, the context on {self._ctx.device}: "
+              f"move it with field.to(device)")
+
+    def forward(self, field, out: ForwardResult | None = None,
+                rays: Rays | None = None) -> ForwardResult:
+        """Render one frame; analogue of Renderer::Forward (renderer.cpp:232).
+
+        ``rays``: an override bundle (:class:`~dvren_tpu_torch.ops.raygen.
+        Rays`, at most ``plan.max_rays``): the hp_ray override path
+        (ray_cpu.cpp:148-150) over the whole lattice, its rays composed
+        with the accumulate semantics of rays that share pixels
+        (img_cpu.cpp:161-185)."""
+        mode = self._mode(field, rays)
+        if mode in ("override", "streamed", "fused"):
+            self._check_field_protocol(field)
+        self._check_device(field)
         if self._options.enable_graph:
             raise NotImplementedError(
                 "CUDA graph capture is ROADMAP Queue 1 item 9")
@@ -200,12 +303,24 @@ class Renderer:
         launches0 = _launch_counts()
         k5a0 = packed_transpose.build_rows16.launches
         k9f0 = integrate_fused.integrate_forward.launches
+        outputs = None
         with torch.no_grad():
-            planes = render(field, stats)
+            if mode == "override":
+                outputs = self._forward_override(field, rays, stats)
+            elif mode == "fused":
+                outputs = (self._forward_fused if self._options.use_fused_path
+                           else self._forward_staged)(field, stats)
+            else:
+                planes = {"hash_tiled": self._forward_hash_tiled,
+                          "tiled": self._forward_tiled,
+                          "windowed": self._forward_windowed,
+                          "streamed": self._forward_streamed}[mode](
+                              field, stats)
+        if outputs is not None:
+            planes = outputs.planes
         if mode == "tiled" and self._tiled_demoted:
             mode = "windowed"
-        if self._ctx.device.type == "cuda":
-            torch.cuda.synchronize(self._ctx.device)
+        self._sync()
         stats.total_ms = (time.perf_counter() - t0) * 1e3
         k1, k3, k7 = (b - a for a, b in zip(launches0, _launch_counts()))
         k9 = integrate_fused.integrate_forward.launches - k9f0
@@ -218,7 +333,10 @@ class Renderer:
             stats.notes.append(
                 f"kernel_launches=packed_table16:"
                 f"{packed_transpose.build_rows16.launches - k5a0}")
-        sample_count = self._analytic_sample_count()
+        if outputs is not None:
+            sample_count = int(outputs.lattice.sample_count())
+        else:
+            sample_count = self._analytic_sample_count()
         check(sample_count <= self._plan.max_samples,
               f"sample capacity exceeded: {sample_count} > "
               f"{self._plan.max_samples}")
@@ -235,49 +353,181 @@ class Renderer:
         result.opacity = host(planes.opacity, np.float32)
         result.depth = host(planes.depth, np.float32)
         result.hitmask = host(planes.hitmask, np.uint32)
-        result.ray_count = self._plan.ray_count
+        self._last_mode = mode
+        self._last_outputs = outputs
+        self._last_field = field
+        self._last_ray_count = (outputs.rays.count if mode == "override"
+                                else self._plan.ray_count)
+        result.ray_count = self._last_ray_count
         result.sample_count = sample_count
         result.stats = stats
-        self._last_mode = mode
-        self._last_ray_count = self._plan.ray_count
         return result
 
     Forward = forward
+
+    # ------------------------------------------------ the general paths
+
+    def _forward_streamed(self, field, stats: RenderStats):
+        """``render_streamed`` in ``default_ray_tile`` blocks (K9f per
+        block)."""
+        planes = pipeline_mod.render_streamed(self._plan, field,
+                                              jitter=self._device_jitter())
+        stats.notes.append("streaming_path")
+        return planes
+
+    def _forward_fused(self, field, stats: RenderStats) -> RenderOutputs:
+        """One ``pipeline.render`` over the whole lattice (K9f once)."""
+        outputs = pipeline_mod.render(self._plan, field,
+                                      jitter=self._device_jitter())
+        stats.notes.append("fused_path")
+        return outputs
+
+    def _forward_staged(self, field, stats: RenderStats) -> RenderOutputs:
+        """The lattice pipeline as separate calls: rays, samples, the
+        field and K9f, compose. With ``capture_stats`` each stage is timed
+        to a device synchronise (ray_ms, sample_ms, integrate_ms,
+        compose_ms)."""
+        plan, dev = self._plan, self._ctx.device
+        capture = self._options.capture_stats
+        if capture:
+            self._sync()
+
+        def timed(label, fn):
+            t0 = time.perf_counter()
+            out = fn()
+            if capture:
+                self._sync()
+                setattr(stats, label, (time.perf_counter() - t0) * 1e3)
+            return out
+
+        rays = timed("ray_ms", lambda: generate_rays(plan, device=dev))
+        lattice = timed("sample_ms", lambda: generate_samples(
+            plan, rays, jitter=self._device_jitter()))
+
+        def fields_and_integrate():
+            sigma, color = eval_fields(field, lattice)
+            return sigma, color, integrate_heads(sigma, color, lattice,
+                                                 plan.t_near, plan.t_far)
+
+        sigma, color, intl = timed("integrate_ms", fields_and_integrate)
+        planes = timed("compose_ms", lambda: compose(
+            rays.pixel_ids, intl.radiance, intl.transmittance, intl.opacity,
+            intl.depth, plan.width, plan.height, plan.t_far))
+        stats.notes.append("staged_path")
+        return RenderOutputs(rays=rays, lattice=lattice, sigma=sigma,
+                             color=color, intl=intl, planes=planes)
+
+    def _forward_override(self, field, rays: Rays,
+                          stats: RenderStats) -> RenderOutputs:
+        """An override bundle through ``pipeline.render`` (hp_ray
+        override, ray_cpu.cpp:14-43). The stratified jitter is keyed on
+        the bundle index (samp_cpu.cpp:233), so its table is built per
+        bundle size and kept."""
+        rays = validate_override(self._plan, rays)
+        dev = self._ctx.device
+        rays = Rays(origins=rays.origins.to(dev),
+                    directions=rays.directions.to(dev),
+                    t_near=rays.t_near.to(dev), t_far=rays.t_far.to(dev),
+                    pixel_ids=rays.pixel_ids.to(dev))
+        n = rays.count
+        jitter = None
+        if self._jitter_host is not None:     # stratified plan
+            if n not in self._override_jitter:
+                self._override_jitter[n] = torch.from_numpy(rng.jitter_table(
+                    self._plan.seed, n, self._plan.sampling.max_steps)).to(dev)
+            jitter = self._override_jitter[n]
+        outputs = pipeline_mod.render(self._plan, field, rays=rays,
+                                      jitter=jitter)
+        stats.notes.append("override_path")
+        return outputs
+
+    # ------------------------------------------------------------- backward
 
     def backward(self, field, dl_di,
                  out: BackwardResult | None = None) -> BackwardResult:
         """Analogue of Renderer::Backward (renderer.cpp:390-446).
 
         ``dl_di`` is flat (ray_count*3,) or (ray_count, 3): the loss
-        gradient with respect to each ray's radiance. Differentiates the
-        last forward's mode (tiled, its fallback included, or windowed)
-        at its schedule."""
-        if self._last_mode is None:
+        gradient with respect to each ray's radiance (an override bundle's
+        rays in their order). Differentiates the last forward's mode."""
+        if self._last_mode is None or self._last_field is None:
             raise DvrenError.invalid_argument(
                 "Backward requires a prior Forward")
-        if not (hasattr(field, "sigma") and hasattr(field, "color")
-                or hasattr(field, "bricks")):
+        mode = self._last_mode
+        if mode in ("fused", "override"):
+            supported = hasattr(field, "accumulate_sample_gradients")
+        elif mode == "streamed":
+            supported = (hasattr(field, "with_params")
+                         and hasattr(field, "sigma")
+                         and hasattr(field, "color"))
+        else:
+            supported = (hasattr(field, "sigma") and hasattr(field, "color")
+                         or hasattr(field, "bricks"))
+        if not supported:
             raise DvrenError.unsupported(
                 "Renderer.backward targets dense voxel grids (the reference "
-                "hp_diff contract) and sparse brick fields; train other "
-                "field families through autograd (hash-MLP: "
-                "render_hash_tiled / opt.fit.fit_hash_mlp ride the fused "
-                "kernel)")
+                "hp_diff contract), and sparse brick fields on the tiled and "
+                "windowed paths; train other field families through "
+                "autograd (hash-MLP: render_hash_tiled / "
+                "opt.fit.fit_hash_mlp ride the fused kernel)")
         n = self._last_ray_count
         dl = np.asarray(dl_di, np.float32).reshape(-1)
         check(dl.size == n * 3,
               f"dL/dI must have {n * 3} elements, got {dl.size}")
-        check(field.device == self._ctx.device,
-              f"field is on {field.device}, the context on "
-              f"{self._ctx.device}: move it with field.to(device)")
-        if self._last_mode == "windowed":
-            return self._backward_windowed(field, dl.reshape(n, 3), out)
-        check(self._last_mode == "tiled" and self._tiled_schedule is not None,
-              f"the last forward took the {self._last_mode} path, which "
+        self._check_device(field)
+        dl = dl.reshape(n, 3)
+        if mode == "windowed":
+            return self._backward_windowed(field, dl, out)
+        if mode == "streamed":
+            return self._backward_replay(
+                field, dl, out,
+                lambda leaf, k0, c2w0: pipeline_mod.render_streamed(
+                    self._plan, leaf, k=k0, c2w=c2w0,
+                    jitter=self._device_jitter()))
+        if mode in ("fused", "override"):
+            return self._backward_lattice(field, dl, out,
+                                          camera=mode == "fused")
+        check(mode == "tiled" and self._tiled_schedule is not None,
+              f"the last forward took the {mode} path, which "
               f"Renderer.backward does not differentiate")
-        return self._backward_tiled(field, dl.reshape(n, 3), out)
+        return self._backward_tiled(field, dl, out)
 
     Backward = backward
+
+    def _sample_grads(self, outputs: RenderOutputs, dl: np.ndarray) -> tuple:
+        """``per_sample_grads`` of the last lattice for dL/dI (N, 3): one
+        K9b launch on the card."""
+        dl_dev = torch.from_numpy(np.ascontiguousarray(dl)).to(
+            self._ctx.device)
+        return diff.per_sample_grads(dl_dev, outputs.sigma, outputs.color,
+                                     outputs.lattice.dt, outputs.lattice.mask)
+
+    def _backward_lattice(self, field, dl: np.ndarray,
+                          out: BackwardResult | None,
+                          camera: bool) -> BackwardResult:
+        """The fused, staged and override backward, as the original
+        decomposes it: per-sample gradients (K9b), summed into the grid by
+        the field, then the camera gradient (zero for an override bundle,
+        which no camera generated: the original's dCam is a zero stub
+        always, diff_cpu.cpp:41-47,74)."""
+        outputs = self._last_outputs
+        sample_count = int(outputs.lattice.sample_count())
+        check(sample_count > 0, "Backward requires a non-empty sample set")
+        with torch.no_grad():
+            d_sigma, d_color = self._sample_grads(outputs, dl)
+            sigma_g, color_g = field.accumulate_sample_gradients(
+                outputs.lattice.positions, d_sigma, d_color)
+        if camera:
+            dl_dev = torch.from_numpy(np.ascontiguousarray(dl)).to(
+                self._ctx.device)
+            cam = diff.camera_grads(self._plan, field, dl_dev,
+                                    jitter=self._device_jitter())
+            dc2w, dk = cam["c2w"], cam["k"]
+        else:
+            dc2w, dk = torch.zeros((3, 4)), torch.zeros((3, 3))
+        result = self._finish_backward((sigma_g, color_g, dc2w, dk), out)
+        result.sample_count = sample_count
+        return result
 
     def _dl_image(self, dl: np.ndarray) -> torch.Tensor:
         """Per-ray dL/dI (N, 3) placed into the (H, W, 3) image plane on
@@ -423,25 +673,6 @@ class Renderer:
                 and not self._options.use_window
                 and self._tile_eligible(field))
 
-    def _untiled_mode(self) -> str:
-        """Why this forward would leave the tiled and windowed paths, and
-        where the mode it would take instead stands in the ROADMAP."""
-        opts = self._options
-        if opts.streaming or (
-                opts.streaming is None
-                and self._plan.ray_count * self._plan.sampling.max_steps
-                > opts.streaming_budget):
-            mode = "the streamed path"
-        elif opts.use_fused_path:
-            mode = "the dense-lattice fused path"
-        else:
-            mode = "the staged path"
-        return (f"this forward would take {mode}, which is ROADMAP Queue 1 "
-                f"items 11 and 4 (the general paths); the tiled paths (the "
-                f"default on CUDA, or RenderOptions(use_tiles=True) with a "
-                f"dense OOB_ZERO trilinear grid, a sparse or a hash-MLP "
-                f"field) and the windowed path (use_window=True) are ported")
-
     def _tiled_schedule_key(self, field) -> tuple:
         """What the schedule depends on. The cascade's choice depends on
         the table's ``packed_dtype`` (supercells only for float32), so the
@@ -543,3 +774,151 @@ class Renderer:
                                               self._window_schedule)
         stats.notes.append("windowed_path")
         return planes
+
+    # ------------------------------------------------- parity views (packed)
+
+    def _stream_parity_views(self, field, keys: tuple,
+                             dl: np.ndarray | None = None) -> dict:
+        """Packed per-sample views after a streamed, windowed or tiled
+        forward, recomputed over the full lattice in blocks of
+        ``default_ray_tile`` rays (bounded device memory). The window and
+        tile schedules skip only contributions that are exactly zero, so
+        the view is the full lattice's: its live mask and its values."""
+        plan, dev = self._plan, self._ctx.device
+        n = plan.ray_count
+        tile = pipeline_mod.default_ray_tile(plan)
+        n_tiles = -(-n // tile)
+        jitter = self._device_jitter()
+        if jitter is not None and jitter.shape[0] < n_tiles * tile:
+            jitter = torch.cat([jitter, jitter.new_zeros(
+                (n_tiles * tile - jitter.shape[0], jitter.shape[1]))])
+        packed = {k: [] for k in keys}
+        counts = []
+        with torch.no_grad():
+            for t in range(n_tiles):
+                start = t * tile
+                valid = min(tile, n - start)
+                rays = generate_rays(plan, start=start, count=tile,
+                                     device=dev)
+                lattice = generate_samples(
+                    plan, rays, ray_index_offset=start,
+                    jitter=None if jitter is None
+                    else jitter[start:start + tile])
+                sigma, color = eval_fields(field, lattice)
+                out = dict(positions=lattice.positions, dt=lattice.dt,
+                           sigma=sigma, color=torch.stack(color, dim=-1))
+                if dl is not None:
+                    dl_tile = np.zeros((tile, 3), np.float32)
+                    dl_tile[:valid] = dl[start:start + valid]
+                    out["d_sigma"], out["d_color"] = diff.per_sample_grads(
+                        torch.from_numpy(dl_tile).to(dev), sigma, color,
+                        lattice.dt, lattice.mask)
+                if "aux" in keys:
+                    out["aux"] = integrate(sigma, color, lattice.dt,
+                                           lattice.mask, plan.t_near,
+                                           plan.t_far, with_aux=True).aux
+                mask = lattice.mask[:valid]
+                counts.append(mask.sum(dim=1).cpu().numpy())
+                for k in keys:
+                    packed[k].append(out[k][:valid][mask].cpu().numpy())
+        views = {k: np.concatenate(packed[k]) for k in keys}
+        views["ray_offset"] = np.concatenate(
+            [[0], np.cumsum(np.concatenate(counts))]).astype(np.uint32)
+        return views
+
+    def _require_forward(self, what: str) -> None:
+        if self._last_field is None:
+            raise DvrenError.invalid_argument(
+                f"{what} requires a prior Forward")
+
+    def per_sample_gradients(self, dl_di) -> tuple[np.ndarray, np.ndarray]:
+        """Packed per-sample (d_sigma (M,), d_color (M, 3)) over the live
+        samples in ray-major order (``hp_diff`` parity view): the
+        backward's own ``per_sample_grads``."""
+        self._require_forward("per_sample_gradients")
+        n = self._last_ray_count
+        dl = np.asarray(dl_di, np.float32).reshape(n, 3)
+        if self._last_mode in _STREAM_MODES:
+            views = self._stream_parity_views(
+                self._last_field, ("d_sigma", "d_color"), dl=dl)
+            return views["d_sigma"], views["d_color"]
+        outputs = self._last_outputs
+        with torch.no_grad():
+            d_sigma, d_color = self._sample_grads(outputs, dl)
+        mask = outputs.lattice.mask
+        return d_sigma[mask].cpu().numpy(), d_color[mask].cpu().numpy()
+
+    def packed_aux(self) -> np.ndarray:
+        """Packed per-sample aux (M, 4) = (alpha, weight, T_before,
+        logT_before) over the live samples in ray-major order: the
+        original's persisted integration state (int_cpu.cpp:201-207),
+        from the plain integrator (K9f keeps no aux)."""
+        self._require_forward("packed_aux")
+        if self._last_mode in _STREAM_MODES:
+            return self._stream_parity_views(self._last_field,
+                                             ("aux",))["aux"]
+        out = self._last_outputs
+        with torch.no_grad():
+            aux = out.intl.aux
+            if aux is None:
+                aux = integrate(out.sigma, out.color, out.lattice.dt,
+                                out.lattice.mask, self._plan.t_near,
+                                self._plan.t_far, with_aux=True).aux
+        return aux[out.lattice.mask].cpu().numpy()
+
+    def packed_samples(self) -> dict:
+        """The packed sample stream (``hp_samp_t`` parity view,
+        hp.h:132-138): positions (M, 3), dt (M,), sigma (M,), color
+        (M, 3) and ray_offset (N+1,) uint32 over the live samples in
+        ray-major order (the JAX package's numpy packing; its native
+        packer is not ported, on purpose)."""
+        self._require_forward("packed_samples")
+        if self._last_mode in _STREAM_MODES:
+            views = self._stream_parity_views(
+                self._last_field, ("positions", "dt", "sigma", "color"))
+            return {k: views[k] for k in
+                    ("positions", "dt", "sigma", "color", "ray_offset")}
+        out = self._last_outputs
+        mask = out.lattice.mask
+
+        def packed(x):
+            return x[mask].cpu().numpy()
+
+        return {
+            "positions": packed(out.lattice.positions),
+            "dt": packed(out.lattice.dt),
+            "sigma": packed(out.sigma),
+            "color": packed(torch.stack(out.color, dim=-1)),
+            "ray_offset": out.lattice.ray_offsets().cpu().numpy().astype(
+                np.uint32),
+        }
+
+    # ------------------------------------------------------------ accounting
+
+    def workspace_info(self) -> WorkspaceInfo:
+        """Analytic bytes per buffer family (renderer.cpp:572-610), as the
+        JAX Renderer counts them when it has no compiled executable: the
+        dense lattice N*K for the sample family, and for the workspace the
+        gathered stencil rows (32 floats a sample) and about 8 sample
+        planes over one streamed block or the whole lattice."""
+        plan = self._plan
+        n = plan.ray_count
+        k = plan.sampling.max_steps
+        nk = n * k
+        f32 = 4
+        info = WorkspaceInfo()
+        info.ray_buffer_bytes = n * (3 + 3 + 1 + 1) * f32 + n * 4
+        info.sample_buffer_bytes = (nk * (3 + 1 + 1 + 3) * f32 + nk
+                                    + (n + 1) * 4)
+        info.integration_buffer_bytes = (n * (3 + 1 + 1 + 1) * f32
+                                         + nk * 4 * f32)
+        pixels = plan.pixel_count
+        info.image_buffer_bytes = pixels * (3 + 1 + 1 + 1) * f32 + pixels * 4
+        info.gradient_buffer_bytes = nk * f32 + nk * 3 * f32 + 12 * f32
+        if (self._streaming or self._options.use_window
+                or self._options.use_tiles):
+            live = min(nk, pipeline_mod.default_ray_tile(plan) * k)
+        else:
+            live = nk
+        info.workspace_buffer_bytes = live * (32 + 8) * f32
+        return info

@@ -58,7 +58,12 @@ float32, bfloat16 and sparse); the pair gather of a 16-bit table equal to
 the pitch-1 gather on every used lane; the Renderer at pitch 2 bit-equal
 to pitch 1 on the card, frame and gradients; ``use_occupancy`` on the
 card within 5e-6 of the CPU's frame and 2e-6 x scale of its gradients;
-the moving-camera renderer bit-equal to each pose's own schedule.
+the moving-camera renderer bit-equal to each pose's own schedule. The
+general paths: the Renderer's fused, staged and streamed modes on the
+card within the bounds above of the CPU's (K9f and K9b launched, repeat
+backwards bit for bit), ``ops.diff.per_sample_grads`` one K9b launch, and
+the compose of rays that share pixels the same bit for bit from call to
+call.
 """
 
 import dataclasses
@@ -1918,3 +1923,93 @@ def test_moving_camera_on_the_card(cuda_device):
         for key in ("image", "transmittance", "opacity", "depth"):
             assert torch.equal(getattr(got, key), getattr(ref, key))
     assert mover.cache_size() == 1
+
+
+# ------------------------------------------------ the general paths (K9)
+
+GENERAL_MODES = {"fused": dict(use_tiles=False, streaming=False),
+                 "staged": dict(use_tiles=False, streaming=False,
+                                use_fused_path=False),
+                 "streamed": dict(use_tiles=False, streaming=True)}
+
+
+@pytest.mark.parametrize("mode", sorted(GENERAL_MODES))
+def test_general_modes_on_the_card_match_cpu(cuda_device, mode):
+    """The fused, staged and streamed modes on the card (K9f in the
+    forward, K9b in the backward) against the CPU's twins: planes 5e-6
+    (depth 1e-4), gradients 2e-6 x scale, camera rtol 2e-3 / atol 1e-4;
+    two backwards on the card bit for bit."""
+    plan, config = scene("stratified")
+    dl = np.random.default_rng(8).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        field = P.DenseGridField.create(config, device=dev)
+        r = P.Renderer(P.Context.create(device=dev), plan,
+                       P.RenderOptions(**GENERAL_MODES[mode]))
+        f0 = integrate_fused.integrate_forward.launches
+        res = r.forward(field)
+        b0 = integrate_fused.radiance_vjp.launches
+        grads = r.backward(field, dl)
+        launches = (integrate_fused.integrate_forward.launches - f0,
+                    integrate_fused.radiance_vjp.launches - b0)
+        again = r.backward(field, dl) if dev == "cuda" else None
+        out[dev] = (res, grads, again, launches)
+    (a, ga, _, cpu_launches), (b, gb, gb2, launches) = out["cpu"], out["cuda"]
+    assert cpu_launches == (0, 0)
+    assert launches[0] >= 1 and launches[1] >= 1
+    for key in ("image", "transmittance", "opacity"):
+        np.testing.assert_allclose(getattr(b, key), getattr(a, key),
+                                   atol=TOL, rtol=0)
+    np.testing.assert_allclose(b.depth, a.depth, atol=TOL_DEPTH, rtol=0)
+    np.testing.assert_array_equal(b.hitmask, a.hitmask)
+    for key in ("sigma", "color"):
+        ref = getattr(ga, key)
+        np.testing.assert_allclose(getattr(gb, key), ref, rtol=0,
+                                   atol=GRID_TOL * float(np.abs(ref).max()))
+        np.testing.assert_array_equal(getattr(gb2, key), getattr(gb, key))
+    np.testing.assert_allclose(gb.camera, ga.camera, rtol=2e-3, atol=1e-4)
+    np.testing.assert_array_equal(gb2.camera, gb.camera)
+
+
+def test_per_sample_grads_is_one_k9b_launch(cuda_device):
+    from dvren_tpu_torch.ops import diff
+
+    sigma, planes, dt, mask, _, g = integrate_scene(cuda_device, 300, 96,
+                                                    hi=4.0, zeros=True)
+    before = integrate_fused.radiance_vjp.launches
+    ds, dc = diff.per_sample_grads(g, sigma, planes, dt, mask)
+    assert integrate_fused.radiance_vjp.launches == before + 1
+    # K9b's bounds against its twin on the same device
+    # (test_integrate_backward_matches_plain)
+    ref_s, ref_c = integrate_fused.radiance_vjp_plain(sigma, planes, dt,
+                                                      mask, g)
+    np.testing.assert_allclose(ds.cpu().numpy(), ref_s.cpu().numpy(),
+                               rtol=1e-4, atol=1e-6)
+    np.testing.assert_allclose(dc.cpu().numpy(),
+                               torch.stack(ref_c, dim=-1).cpu().numpy(),
+                               rtol=1e-4, atol=1e-7)
+
+
+def test_shared_compose_is_bit_identical_on_the_card(cuda_device):
+    """The compose of rays that share pixels: the same frame bit for bit
+    from call to call on the card (no float atomics), and the CPU's."""
+    from dvren_tpu_torch.ops.compose import compose
+
+    rng = np.random.default_rng(12)
+    n, w, h = 400_000, 300, 200
+    host = [rng.integers(0, w * h + 50, n).astype(np.int32),
+            rng.uniform(0, 1, (n, 3)).astype(np.float32),
+            rng.uniform(0.05, 1, n).astype(np.float32),
+            rng.uniform(0, 1, n).astype(np.float32),
+            rng.uniform(0.2, 3, n).astype(np.float32)]
+    card = [torch.from_numpy(x).to(cuda_device) for x in host]
+    a = compose(*card, w, h, 3.5, unique_pixels=False)
+    b = compose(*card, w, h, 3.5, unique_pixels=False)
+    c = compose(*map(torch.from_numpy, host), w, h, 3.5, unique_pixels=False)
+    for key in ("image", "transmittance", "opacity", "depth", "hitmask"):
+        assert torch.equal(getattr(a, key), getattr(b, key)), key
+        np.testing.assert_allclose(getattr(a, key).cpu().numpy(),
+                                   getattr(c, key).numpy(), atol=TOL,
+                                   rtol=0, err_msg=key)
+    assert torch.equal(a.hitmask.cpu(), c.hitmask)

@@ -576,3 +576,27 @@ def test_checkpoint_kind_checked(tmp_path):
     p_ckpt.save_dense_grid(tmp_path / "g.npz", pfield)
     with pytest.raises(P.DvrenError, match="kind"):
         p_ckpt.load_hash_mlp(tmp_path / "g.npz", device="cpu")
+
+
+@pytest.mark.parametrize("name", ["fit", "tiled"])
+def test_render_views_matches_jax(name):
+    """``render_views``: (V, H, W, 3) within 5e-6 of JAX's vmapped render
+    (the stratified scene's jitter: the plan's host table here, JAX's
+    in-graph hash there), each view bit-equal to ``pipeline.render`` at
+    its pose, and differentiable in the field."""
+    from dvren_tpu_torch.render import pipeline as p_pipe
+
+    plan, field, cams, pplan, pfield, pcams = scene(name)
+    ref = np.asarray(j_fit.render_views(plan, field, list(cams)))
+    got = p_fit.render_views(pplan, pfield, list(pcams))
+    assert tuple(got.shape) == ref.shape == (len(cams), plan.height,
+                                             plan.width, 3)
+    np.testing.assert_allclose(got.detach().numpy(), ref, atol=TOL, rtol=0)
+    for v, cam in enumerate(pcams):
+        c2w = torch.tensor(cam.c2w, dtype=torch.float32).reshape(3, 4)
+        with torch.no_grad():
+            one = p_pipe.render(pplan, pfield, c2w=c2w).planes.image
+        np.testing.assert_array_equal(got[v].detach().numpy(), one.numpy())
+    got.sum().backward()
+    assert float(pfield.sigma.grad.abs().max()) > 0
+    pfield.sigma.grad = pfield.color.grad = None

@@ -377,11 +377,24 @@ def test_renderer_forward_matches(name):
 
 
 def test_renderer_hash_modes():
-    _, _, pplan, pf = case("fixed")
-    with pytest.raises(NotImplementedError):       # auto on a CPU context
-        hash_renderer(pplan, P.RenderOptions()).forward(pf)
-    with pytest.raises(NotImplementedError):
-        hash_renderer(pplan, P.RenderOptions(use_tiles=False)).forward(pf)
+    """On a CPU context the default and ``use_tiles=False`` take the fused
+    path over ``pipeline.render`` (as JAX's Renderer does off a TPU):
+    JAX's pipeline frame; graph capture raises; a spec the fused kernel
+    refuses under ``use_tiles=True`` is refused."""
+    plan, _, pplan, pf = case("fixed")
+    ref = j_pipeline("fixed")
+    h, w = plan.height, plan.width
+    for options in (P.RenderOptions(), P.RenderOptions(use_tiles=False)):
+        renderer = hash_renderer(pplan, options)
+        res = renderer.forward(pf)
+        assert renderer._last_mode == "fused"
+        assert "fused_path" in res.stats.notes
+        np.testing.assert_allclose(res.image.reshape(h, w, 3),
+                                   np.asarray(ref.image), atol=TOL)
+        np.testing.assert_allclose(res.depth.reshape(h, w),
+                                   np.asarray(ref.depth), atol=TOL_DEPTH)
+        np.testing.assert_array_equal(res.hitmask.reshape(h, w),
+                                      np.asarray(ref.hitmask))
     with pytest.raises(NotImplementedError):
         hash_renderer(pplan, P.RenderOptions(use_tiles=True,
                                              enable_graph=True)).forward(pf)
@@ -401,13 +414,15 @@ def test_renderer_backward_on_hash_field_refuses():
 
 def test_field_without_sigma_is_routed_not_attribute_error():
     """Renderer.forward read field.sigma.device before routing: any field
-    without ``sigma`` died with AttributeError."""
+    without ``sigma`` died with AttributeError. Under the default options
+    a bare object now reaches the general path, which names the field
+    protocol it lacks (JAX's jit raises a TypeError there)."""
     _, _, pplan, _ = case("fixed")
 
     class Bare:
         pass
 
-    with pytest.raises(NotImplementedError):
+    with pytest.raises(P.DvrenError, match="field protocol"):
         hash_renderer(pplan, P.RenderOptions()).forward(Bare())
     with pytest.raises(P.DvrenError):
         hash_renderer(pplan).forward(Bare())

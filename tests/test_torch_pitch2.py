@@ -283,3 +283,49 @@ def test_renderer_tile_pitch2_matches_jax_renderer():
     for key in ("sigma", "color", "camera", "camera_k"):
         np.testing.assert_array_equal(getattr(g2, key), getattr(g1, key),
                                       err_msg=key)
+
+
+def lane_id_scene():
+    """One 16x16 tile over a 64 x 64 x 192 grid, 96 fixed steps: every
+    sample of a 4 px sub-tile's chunk lands in its own cell, so the 16 px
+    and 8 px tables overflow and the cascade ends at 4 px, where pitch 1
+    needs 161 banks a tile and pitch 2, its runs padded to cell pairs,
+    more than the 255 the 15-bit lane id can name."""
+    plan = J.Plan.create(J.PlanConfig(
+        width=16, height=16, t_near=0.05, t_far=1.05, seed=2,
+        camera=J.CameraConfig(k=(8.0, 0, 8.0, 0, 8.0, 8.0, 0, 0, 1),
+                              c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1,
+                                   -0.05)),
+        sampling=J.SamplingConfig(dt=1.0 / 96, max_steps=96)))
+    rng = np.random.default_rng(0)
+    voxels = 64 * 64 * 192
+    field = J.DenseGridField.create(J.DenseGridConfig(
+        resolution=(64, 64, 192), sigma=rng.uniform(0.1, 1.0, voxels),
+        color=rng.uniform(0, 1, 3 * voxels)))
+    return plan, field
+
+
+def test_pitch2_cascade_lane_id_refusal_matches_jax():
+    """The pitch-2 cascade that reaches the 15-bit lane-id refusal at
+    4 px (ROADMAP Queue 3): JAX's schedule builder refuses, and so does the
+    port's, with the same error; pitch 1 builds the same 4 px schedule in
+    both. A defect of the reference, shared on purpose: the port does not
+    demote to pitch 1."""
+    plan, field = lane_id_scene()
+    pplan, pfield = port_plan(plan), port_field(field)
+    with pytest.raises(J.DvrenError) as ref:
+        j_tiled.build_tiled_schedule_auto(plan, field, pitch=2, device=False)
+    with pytest.raises(P.DvrenError) as got:
+        p_tiled.build_tiled_schedule_auto(pplan, pfield, pitch=2)
+    assert "15-bit lane id" in str(ref.value)
+    assert str(got.value) == str(ref.value)
+    ref1, note1 = j_tiled.build_tiled_schedule_auto(plan, field, pitch=1,
+                                                    device=False)
+    got1, note = p_tiled.build_tiled_schedule_auto(pplan, pfield, pitch=1)
+    assert note == note1 == "tiled_subtiled_4px"
+    assert [g.banks for g in got1.groups] == [161]
+    assert_schedules_equal(ref1, got1)
+    with pytest.raises(P.DvrenError, match="15-bit lane id"):
+        P.Renderer(P.Context.create(device="cpu"), pplan,
+                   P.RenderOptions(use_tiles=True, tile_pitch=2)
+                   ).forward(pfield)

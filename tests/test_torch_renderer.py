@@ -2,13 +2,16 @@
 dvren_tpu's tiled Renderer.forward.
 
 The JAX Renderer picks tiles by default only on a TPU, so its side pins
-``RenderOptions(use_tiles=True)``. Planes within 5e-6, depth within 1e-4,
+``RenderOptions(use_tiles=True)``; the general paths (``use_tiles=False``,
+the CPU default, streaming, override bundles) are held to the JAX
+Renderer with the same options. Planes within 5e-6, depth within 1e-4,
 hitmask equal (tests/test_tiled.py::assert_planes_close). On the card,
 tests/test_torch_cuda.py holds the CUDA path to this CPU path.
 """
 
 import functools
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -110,13 +113,28 @@ def _options_case(case):
     }[case]
 
 
+@functools.lru_cache(maxsize=None)
+def reference_general(case):
+    """The JAX Renderer's frame on the general paths (``case`` names the
+    options of :func:`_options_case`)."""
+    plan, field = scene(**SCENES["fixed"])
+    options = {"use_tiles_false": dict(use_tiles=False), "auto_on_cpu": {},
+               "streaming": dict(streaming=True)}[case]
+    return J.Renderer(J.Context.create(), plan,
+                      J.RenderOptions(capture_stats=False, **options)
+                      ).forward(field)
+
+
 @pytest.mark.parametrize("case", ["use_tiles_false", "auto_on_cpu",
                                   "streaming", "enable_graph",
                                   "occupancy", "pitch2"])
 def test_unported_modes_raise(case):
-    """The modes not ported raise. ``use_occupancy`` and ``tile_pitch=2``
-    are ported (ROADMAP item 5): those cases render the reference's frame,
-    occupancy within 5e-6 and pitch 2 bit for bit with the port's pitch 1."""
+    """Graph capture raises (ROADMAP item 9). The other modes are ported:
+    ``use_tiles=False``, the default on a CPU context (the fused path)
+    and ``streaming`` render the JAX Renderer's frame with the same
+    options; ``use_occupancy`` and ``tile_pitch=2`` the tiled reference's,
+    occupancy within 5e-6 and pitch 2 bit for bit with the port's pitch
+    1."""
     plan, field, ref = reference("fixed")
     renderer = port_renderer(plan, _options_case(case))
     if case in ("occupancy", "pitch2"):
@@ -127,14 +145,40 @@ def test_unported_modes_raise(case):
             np.testing.assert_array_equal(got.image, base.image)
             np.testing.assert_array_equal(got.depth, base.depth)
         return
-    with pytest.raises(NotImplementedError):
-        renderer.forward(port_field(field))
+    if case == "enable_graph":
+        with pytest.raises(NotImplementedError, match="item 9"):
+            renderer.forward(port_field(field))
+        return
+    got = renderer.forward(port_field(field))
+    want = reference_general(case)
+    assert_planes_close(_Planes(got, plan), _Planes(want, plan), tol=5e-6)
+    assert got.sample_count == want.sample_count
+    assert renderer._last_mode == ("streamed" if case == "streaming"
+                                   else "fused")
 
 
 def test_override_rays_raise():
-    plan, field, _ = reference("fixed")
-    with pytest.raises(NotImplementedError):
-        port_renderer(plan).forward(port_field(field), rays=object())
+    """Override bundles are ported: a bundle of the plan's own rays,
+    reversed, renders the JAX Renderer's override frame (its rays own
+    their pixels, so it is also the generated frame)."""
+    from dvren_tpu.ops.raygen import Rays as JRays
+    from dvren_tpu.ops.raygen import generate_rays as j_generate_rays
+    from dvren_tpu_torch.ops.raygen import Rays as PRays
+
+    plan, field, tiled_ref = reference("fixed")
+    jr = j_generate_rays(plan)
+    back = {k: np.asarray(getattr(jr, k))[::-1].copy()
+            for k in ("origins", "directions", "t_near", "t_far",
+                      "pixel_ids")}
+    ref = J.Renderer(J.Context.create(), plan).forward(
+        field, rays=JRays(**{k: jnp.asarray(v) for k, v in back.items()}))
+    got = port_renderer(plan).forward(
+        port_field(field),
+        rays=PRays(**{k: torch.from_numpy(v) for k, v in back.items()}))
+    assert_planes_close(_Planes(got, plan), _Planes(ref, plan), tol=5e-6)
+    assert_planes_close(_Planes(got, plan), _Planes(tiled_ref, plan),
+                        tol=5e-6)
+    assert got.ray_count == plan.ray_count
 
 
 def test_ineligible_fields_rejected():

@@ -424,9 +424,15 @@ def test_compose_matches_reference():
     for name in ("image", "transmittance", "opacity", "depth", "hitmask"):
         np.testing.assert_array_equal(getattr(got, name).numpy(),
                                       np.asarray(getattr(ref, name)))
-    with pytest.raises(NotImplementedError):
-        p_compose.compose(*map(torch.from_numpy, (pids, rad, tr, op, dep)),
-                          w, h, 3.5, unique_pixels=False)
+    # the compose of rays that share pixels: pixel 0 takes three rays
+    pids[1:3] = pids[0]
+    ref = j_compose.compose(*map(jnp.asarray, (pids, rad, tr, op, dep)), w,
+                            h, 3.5, unique_pixels=False)
+    got = p_compose.compose(*map(torch.from_numpy, (pids, rad, tr, op, dep)),
+                            w, h, 3.5, unique_pixels=False)
+    for name in ("image", "transmittance", "opacity", "depth", "hitmask"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(ref, name)))
 
 
 def _stack(mode):
