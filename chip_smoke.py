@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -322,6 +322,34 @@ integrator K9f / K9b, each fatal when it fails:
     times, within 5e-6 of the K7f frame (depth by the same bound);
 57. ``opt.fit.render_views`` over the fit flagship's eight views,
     bit-equal to ``pipeline.render`` at each pose.
+
+Phases 58-61 (last; ``--only posed`` runs phases 1 and 58-61 alone)
+drive the device-built pose schedule, graph capture, the tiled stage
+timings and the CLI, each fatal when it fails:
+
+58. ``PosedRenderer`` over the dense headline and phase 50's six orbit
+    poses (pins from a probe over them): the split mode (the main path:
+    K3 and K1 once a pose) within 5e-6 (depth 1e-4) of the
+    ``use_kernel=False`` twin and within 1e-5 of the pose's host-built
+    tiled frame (``MovingCameraRenderer``) and of its windowed frame;
+    repeats and graph mode bit-equal to the split mode, one graph;
+59. ``render_sweep`` bit-equal to the per-pose renders; per pose the
+    device build and the render (split), the replay (graph) beside the
+    host build, upload and render, with CUDA events; ``torch.profiler``
+    finds K1 and K3 in one replay; K1 and K3 on the posed schedule
+    against their twins, timed;
+60. ``enable_graph`` at the headline: the tiled frame and the backward's
+    grid and camera gradients bit-equal to eager, a new field object
+    re-recording, an in-place edit replaying; the eager and replayed
+    frame and step times, the busy share of the replayed step, and K1-K4
+    found by the profiler in it; the windowed and streamed frames and
+    gradients, the fused frame and the hash-tiled frame bit-equal to
+    eager;
+61. the tiled stage times at the headline, and the CLI on
+    ``examples/simple_volume.json`` and ``smoke_volume.json`` (graph on)
+    on the card: its image within 5e-6 of the CPU run's, its PPM
+    byte-equal, and ``python -m dvren_tpu_torch.cli`` writing the same
+    bytes.
 
 Each mode's ``Renderer.forward`` and ``.backward`` is timed over 10 warm
 runs between CUDA events (median and spread), beside the peak device
@@ -4784,6 +4812,465 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
     return kernels, report
 
 
+POSED_TOL = 1e-5    # posed frame against the host-built and windowed frames
+KERNEL_NAMES = {"K1": "tile_forward_kernel", "K2": "tile_backward_kernel",
+                "K3": "packed_table_kernel", "K4": "packed_table_grad_kernel"}
+
+
+def kernel_names(torch, fn) -> dict:
+    """The CUDA kernels ``torch.profiler`` records while ``fn()`` runs
+    once (after one warm run), by name: how many times each ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return {ev.key: ev.count for ev in prof.key_averages()
+            if getattr(ev, "device_type", None) == DeviceType.CUDA}
+
+
+def require_kernels(names, want, what):
+    for short in want:
+        require(any(KERNEL_NAMES[short] in n for n in names),
+                f"{what}: the profiler saw no {short} ({KERNEL_NAMES[short]})"
+                f" kernel; it saw {sorted(names)}")
+
+
+def kernel_count(names, short) -> int:
+    """How many times ``names`` (from :func:`kernel_names`) ran kernel
+    ``short``."""
+    return sum(c for n, c in names.items() if KERNEL_NAMES[short] in n)
+
+
+def graph_equal_run(torch, P, plan, field, options, dl, backward):
+    """One Renderer mode eager and under ``enable_graph``: (eager result,
+    graph result, second graph result, eager grads, graph grads, graph
+    renderer, eager renderer); the backwards under
+    ``torch.use_deterministic_algorithms``."""
+    out = {}
+    for graph in (False, True):
+        r = P.Renderer(P.Context.create(device="cuda"), plan,
+                       P.RenderOptions(enable_graph=graph, **options))
+        first = r.forward(field)
+        again = r.forward(field)
+        grads = None
+        if backward:
+            torch.use_deterministic_algorithms(True)
+            try:
+                grads = r.backward(field, dl)
+            finally:
+                torch.use_deterministic_algorithms(False)
+        out[graph] = (first, again, grads, r)
+    (e, _, ge, re_), (g, g2, gg, rg) = out[False], out[True]
+    return e, g, g2, ge, gg, rg, re_
+
+
+def tensor_errors(a, b):
+    """Max |diff| of two ImagePlanes: (radiance, T and opacity; depth;
+    hitmask equal)."""
+    err = max(float((getattr(a, k) - getattr(b, k)).abs().max())
+              for k in ("image", "transmittance", "opacity"))
+    return (err, float((a.depth - b.depth).abs().max()),
+            bool((a.hitmask == b.hitmask).all()))
+
+
+def results_bit_equal(a, b, keys) -> bool:
+    return all(np.array_equal(getattr(a, k), getattr(b, k)) for k in keys)
+
+
+def run_posed(torch, P, dev, card) -> tuple[list, dict]:
+    """Phases 58-61: the device-built pose schedule (``PosedRenderer``),
+    graph capture under ``enable_graph``, the tiled stage timings and the
+    CLI, at the dense headline."""
+    import tempfile
+
+    from dvren_tpu_torch import cli
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.render import animate, posed, tiled, windowed
+    from dvren_tpu_torch.render.pipeline import plan_jitter_table
+
+    report, kernels = {}, []
+    plan, config = headline_scene(P)
+    field = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+
+    def counts():
+        return launch_counts(fused_tiles, packed_transpose)
+
+    def reset():
+        reset_counts(fused_tiles, packed_transpose)
+
+    def orbit(i):   # phase 50's poses (tools/animation_bench.py:114-135)
+        ang = 2 * np.pi * i / ORBIT_POSES
+        return headline_scene(P, tx=0.5 + 0.1 * np.sin(ang),
+                              ty=0.5 + 0.05 * np.cos(ang))[0]
+
+    poses = [orbit(i) for i in range(ORBIT_POSES)]
+
+    # 58. the posed orbit: split, graph, twin, host-built, windowed
+    t0 = time.perf_counter()
+    split = posed.PosedRenderer(plan, field, fused=False, probe_plans=poses)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    pins = dict(nc_pin=split.nc_pin, nb_pin=split.nb_pin,
+                ez_pin=split.ez_pin)
+    graphed = posed.PosedRenderer(plan, field, fused=True, **pins)
+    twin = posed.PosedRenderer(plan, field, fused=False, use_kernel=False,
+                               **pins)
+    print(f"posed pins [{card}]: nc_pin {split.nc_pin}, nb_pin "
+          f"{split.nb_pin}, ez_pin {split.ez_pin} (probe over the base pose "
+          f"and {ORBIT_POSES} orbit poses, {init_s:.3f} s with the "
+          f"constants' upload)", flush=True)
+    reset()
+    frames = []
+    for p in poses:                       # the main path: split renders
+        frames.append(split.render(p, field))
+    torch.cuda.synchronize()
+    posed_c = counts()
+    require(posed_c["fused_tiles"] == ORBIT_POSES
+            and posed_c["packed_table"] == ORBIT_POSES,
+            f"the posed orbit did not launch K1 and K3 once a pose: "
+            f"{posed_c}")
+    mover = animate.MovingCameraRenderer(plan, field)
+    host_times, errs = [], []
+    graph_frames = []
+    for i, p in enumerate(poses):
+        a = frames[i]
+        b = twin.render(p, field)
+        e, d, h = tensor_errors(a, b)
+        require(e <= TOL and d <= TOL_DEPTH and h,
+                f"posed pose {i}: kernel frame vs twin {e:.3e} / {d:.3e}")
+        require(frames_equal(split.render(p, field), a),
+                f"posed pose {i}: two renders differ")
+        g = graphed.render(p, field)
+        require(frames_equal(g, a), f"posed pose {i}: graph mode differs "
+                                    f"from the split mode")
+        graph_frames.append(g)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = mover.host_schedule(p, field)
+        t1 = time.perf_counter()
+        dev_sched = host.to(dev)
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        with torch.no_grad():
+            ref = tiled.render_tiled(plan, field, dev_sched)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        host_times.append({"build_ms": (t1 - t0) * 1e3,
+                           "upload_ms": (t2 - t1) * 1e3,
+                           "render_ms": (t3 - t2) * 1e3})
+        ws = windowed.build_schedule(p, field.bbox_min, field.bbox_max,
+                                     jitter=plan_jitter_table(p), device=dev)
+        with torch.no_grad():
+            wref = windowed.render_windowed(p, field, ws)
+        e_t = float((a.image - ref.image).abs().max())
+        e_w = float((a.image - wref.image).abs().max())
+        errs.append({"vs_twin": e, "vs_host_tiled": e_t,
+                     "vs_windowed": e_w})
+        require(e_t < POSED_TOL and e_w < POSED_TOL,
+                f"posed pose {i}: vs host-built tiled {e_t:.3e}, vs "
+                f"windowed {e_w:.3e} (bound {POSED_TOL})")
+        del ref, wref, dev_sched, ws, b
+    require(graphed.cache_size() == 1, f"the orbit recorded "
+            f"{graphed.cache_size()} graphs")
+    print(f"posed orbit [{card}]: {ORBIT_POSES} poses, split frames vs "
+          f"twin / host-built tiled / windowed max "
+          f"{max(x['vs_twin'] for x in errs):.3e} / "
+          f"{max(x['vs_host_tiled'] for x in errs):.3e} / "
+          f"{max(x['vs_windowed'] for x in errs):.3e}; repeats and graph "
+          f"mode bit-equal; one graph; launches {posed_c}", flush=True)
+    report["posed"] = {"pins": pins, "init_s": init_s, "errors": errs,
+                       "launches": posed_c}
+    lap_posed = time.perf_counter()
+
+    # 59. the sweep, the per-pose times, a profiled replay
+    images, diags = graphed.render_sweep(poses, field)
+    require(all(torch.equal(images[i], graph_frames[i].image)
+                for i in range(ORBIT_POSES)),
+            "render_sweep differs from the per-pose renders")
+    times = []
+    for i, p in enumerate(poses):
+        cam = split._cam_arrays(p)
+        with torch.no_grad():
+            sched, build_ms = timed_once(
+                torch, lambda: split._build_schedule(*cam)[0])
+            _, render_ms = timed_once(
+                torch, lambda: tiled.render_tiled(plan, field, sched))
+            graphed.render(p, field, check_diag=False)
+            _, replay_ms = timed_once(
+                torch, lambda: graphed.render(p, field, check_diag=False))
+            _, graph_ms = timed_once(torch, graphed.captured.graph.replay)
+        times.append({"device_build_ms": build_ms, "render_ms": render_ms,
+                      "replay_ms": replay_ms, "graph_replay_ms": graph_ms,
+                      **host_times[i]})
+    graphed.check_ok()
+    recorded = graphed.captured.launches
+    require(recorded == {"fused_tiles": 1, "packed_table": 1},
+            f"the posed graph recorded {recorded}, not one K1 and one K3")
+    names = kernel_names(torch, graphed.captured.graph.replay)
+    require_kernels(names, ("K1", "K3"), "a replayed posed frame")
+    replayed = {s: kernel_count(names, s) for s in ("K1", "K3")}
+    require(replayed == {"K1": 1, "K3": 1},
+            f"one replayed posed frame ran {replayed}, not one K1 and one "
+            f"K3")
+    print(f"posed per pose ms [{card}] (device build, render; replay with "
+          f"the camera copy and the output copy, the graph alone | host "
+          f"build, upload, render):", flush=True)
+    for i, t in enumerate(times):
+        print(f"  pose {i}: {t['device_build_ms']:.3f}, "
+              f"{t['render_ms']:.3f}; {t['replay_ms']:.3f}, "
+              f"{t['graph_replay_ms']:.3f} | {t['build_ms']:.1f}, "
+              f"{t['upload_ms']:.2f}, {t['render_ms']:.3f}", flush=True)
+    print(f"  a replayed posed frame ran {sum(names.values())} kernels "
+          f"({len(names)} distinct), K1 and K3 once each (profiler "
+          f"{replayed}; recorded in the graph {recorded})", flush=True)
+    b = device_breakdown(torch, graphed.captured.graph.replay, top=12)
+    if b is not None:
+        print(f"  replayed posed frame: kernels {b[0]:.4f} ms of {b[1]:.4f} "
+              f"ms wall (busy {b[0] / b[1]:.3f}); top "
+              f"{[(n, round(ms, 4), c) for n, ms, c in b[2]]}", flush=True)
+    report["posed"]["times"] = times
+    report["posed"]["replay_breakdown"] = None if b is None else {
+        "kernel_ms": b[0], "wall_ms": b[1],
+        "top": [list(r) for r in b[2]]}
+
+    # K1 and K3 on the posed schedule, against their twins, timed
+    sched, _ = split._build_schedule(*split._cam_arrays(poses[0]))
+    args = variant_args(torch, plan, field, sched)
+    with torch.no_grad():
+        out = fused_tiles.tile_forward(*args)
+        p_out = fused_tiles.tile_forward_set_plain(*args)
+    k1_err = float((out - p_out).abs().max())
+    require(torch.equal(out, p_out), "K1 on the posed schedule differs from "
+                                     "its twin")
+    k1_ms = cuda_ms(torch, lambda: fused_tiles.tile_forward(*args), 10)
+    k1_plain = cuda_ms(torch, lambda: fused_tiles.tile_forward_set_plain(
+        *args), 1, warmup=0)
+    sigma, color = field.sigma, field.color
+    rows_k = packed_transpose.build_rows(sigma, color)
+    rows_p = packed_transpose.build_rows_plain(sigma, color)
+    require(torch.equal(words(rows_k), words(rows_p)), "K3 differs from its "
+                                                       "twin")
+    k3_ms, k3_issued, k3_plain = packed_times(
+        torch, lambda: packed_transpose.build_rows(sigma, color),
+        lambda: packed_transpose.build_rows_plain(sigma, color))
+    samp = sched.tiles.samp.view(torch.int16).to(torch.int32)
+    live = int(((samp[:, 2] >> 15) & 1).sum())
+    kernels += [
+        {"name": "fused_tiles:posed", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:656",
+         "launches": posed_c["fused_tiles"], "max_abs_err": k1_err,
+         "graph_launches_per_replay": {"recorded": recorded["fused_tiles"],
+                                       "profiled": replayed["K1"]},
+         "ms": k1_ms, "plain_ms": k1_plain,
+         **bound(tile_in_bytes(args) + nbytes(out), live * DENSE_FWD_OPS)},
+        {"name": "packed_table:posed", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/packed_table.cu",
+         "replaces": "dvren_tpu/ops/packed_transpose.py:81",
+         "launches": posed_c["packed_table"],
+         "max_abs_err": float((rows_k - rows_p).abs().max()),
+         "graph_launches_per_replay": {"recorded": recorded["packed_table"],
+                                       "profiled": replayed["K3"]},
+         "ms": k3_ms, "issued_ms": k3_issued, "plain_ms": k3_plain,
+         **bound(nbytes(sigma, color, rows_k), 0)}]
+    print(f"posed K1 [{card}]: {k1_ms:.4f} ms (twin {k1_plain:.4f}) over "
+          f"{sched.tiles.n_tiles} tiles x {split.nc_pin} chunks x "
+          f"{split.nb_pin} banks, {live} live samples; K3 {k3_ms:.4f} ms "
+          f"on the device, {k3_issued:.4f} as issued", flush=True)
+    del args, out, p_out, rows_k, rows_p, sched, samp, frames, graph_frames
+    del images, split, twin, graphed
+    torch.cuda.empty_cache()
+    print(f"phases 58-59 took {time.perf_counter() - lap_posed:.1f} s after "
+          f"the orbit", flush=True)
+
+    # 60. enable_graph at the headline
+    dl = np.random.default_rng(11).uniform(
+        -1, 1, plan.ray_count * 3).astype(np.float32)
+    e, g, g2, ge, gg, rg, re_ = graph_equal_run(
+        torch, P, plan, field, dict(use_tiles=True), dl, True)
+    require(rg._last_mode == "tiled" and "graph_executed" in g.stats.notes
+            and any(n.startswith("graph_captured_bwd_compile_ms=")
+                    for n in g.stats.notes)
+            and "kernel_launches=captured_in_graph" in g2.stats.notes,
+            f"the tiled graph did not run: {g.stats.notes}")
+    require(results_bit_equal(g, e, ("image", "transmittance", "opacity",
+                                     "depth", "hitmask"))
+            and results_bit_equal(g2, e, ("image", "depth")),
+            "the replayed tiled frame differs from eager")
+    require(results_bit_equal(gg, ge, GRAD_KEYS),
+            "the replayed tiled backward differs from eager")
+    captured = {k: v[1].launches for k, v in rg._graphs.items()}
+    print(f"enable_graph tiled [{card}]: frame and grid / camera gradients "
+          f"bit-equal to eager; recorded launches {captured}; notes "
+          f"{[n for n in g.stats.notes if n.startswith('graph')]}",
+          flush=True)
+    other = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    res = rg.forward(other)
+    require(any(n.startswith("graph_captured_aot") for n in res.stats.notes),
+            "a new field object did not record a new graph")
+    with torch.no_grad():
+        other.sigma.mul_(1.5)
+    res = rg.forward(other)
+    require(not any(n.startswith("graph_captured") for n in res.stats.notes)
+            and np.array_equal(res.image, re_.forward(other).image),
+            "an in-place edit did not replay the graph with the new values")
+    rg.forward(field)                       # back on the first field
+    dl_img = rg._dl_image(dl.reshape(-1, 3))
+    fwd_graph = rg._graphs["tiled"][1].graph
+    bwd_graph = rg._graphs["tiled_bwd"][1].graph
+    eager_sched = re_._tiled_schedule
+
+    def eager_frame():
+        with torch.no_grad():
+            tiled.render_tiled(plan, field, eager_sched)
+
+    eager_grads = re_._grads_fn(field, re_._replay_render("tiled"), dl_img)
+
+    def eager_step():
+        eager_frame()
+        eager_grads()
+
+    def replay_step():
+        fwd_graph.replay()
+        bwd_graph.replay()
+
+    t_e = event_times(torch, eager_frame)
+    t_g = event_times(torch, fwd_graph.replay)
+    s_e = event_times(torch, eager_step)
+    s_g = event_times(torch, replay_step)
+    names = kernel_names(torch, replay_step)
+    require_kernels(names, ("K1", "K2", "K3", "K4"), "a replayed tiled step")
+    busy = device_breakdown(torch, replay_step)
+    busy_e = device_breakdown(torch, eager_step)
+    k1_rep = device_breakdown(torch, fwd_graph.replay)
+    print(f"tiled frame ms [{card}]: eager {spread(t_e)}, replay "
+          f"{spread(t_g)}; step (forward + backward): eager {spread(s_e)}, "
+          f"replay {spread(s_g)}", flush=True)
+    for what, b in (("replayed step", busy), ("eager step", busy_e),
+                    ("replayed frame", k1_rep)):
+        if b is None:
+            print(f"  {what}: the profiler recorded no kernel", flush=True)
+            continue
+        print(f"  {what}: kernels {b[0]:.4f} ms of {b[1]:.4f} ms wall "
+              f"(busy {b[0] / b[1]:.3f}); top {[(n, round(ms, 4), c) for n, ms, c in b[2]]}",
+              flush=True)
+    report["enable_graph"] = {
+        "tiled_frame_ms": {"eager": t_e, "replay": t_g},
+        "tiled_step_ms": {"eager": s_e, "replay": s_g},
+        "busy_share_replayed_step": (None if busy is None
+                                     else busy[0] / busy[1]),
+        "recorded_launches": captured}
+    del rg, re_, eager_grads, other, g, g2, e, gg, ge
+    torch.cuda.empty_cache()
+    modes = {"windowed": (dict(use_window=True), True),
+             "streamed": (dict(use_tiles=False, streaming=True), True),
+             "fused": (dict(use_tiles=False, streaming=False), False)}
+    for mode, (options, backward) in modes.items():
+        e, g, g2, ge, gg, rg, re_ = graph_equal_run(
+            torch, P, plan, field, options, dl, backward)
+        require(rg._last_mode == mode and "graph_executed" in g2.stats.notes,
+                f"{mode}: the graph did not run ({rg._last_mode}, "
+                f"{g2.stats.notes})")
+        require(results_bit_equal(g, e, ("image", "transmittance", "opacity",
+                                         "depth", "hitmask"))
+                and results_bit_equal(g2, e, ("image", "depth")),
+                f"the replayed {mode} frame differs from eager")
+        if backward:
+            require(results_bit_equal(gg, ge, GRAD_KEYS),
+                    f"the replayed {mode} backward differs from eager")
+        fwd = rg._graphs[mode][1]
+        t_g = event_times(torch, fwd.graph.replay, runs=5)
+        print(f"enable_graph {mode} [{card}]: frame"
+              f"{' and gradients' if backward else ''} bit-equal to eager; "
+              f"replayed frame {spread(t_g)} ms; recorded {fwd.launches}",
+              flush=True)
+        report["enable_graph"][mode] = {"replay_ms": t_g,
+                                        "recorded": fwd.launches}
+        del e, g, g2, ge, gg, rg, re_, fwd
+        torch.cuda.empty_cache()
+    h_plan, spec = hash_headline(P)
+    h_field = P.HashMLPField.init_random(torch.Generator().manual_seed(0),
+                                         spec=spec, device=dev)
+    h_field.requires_grad_(False)
+    e, g, g2, _, _, rg, _ = graph_equal_run(
+        torch, P, h_plan, h_field, dict(use_tiles=True), None, False)
+    require(rg._last_mode == "hash_tiled"
+            and "graph_executed" in g2.stats.notes
+            and results_bit_equal(g, e, ("image", "transmittance",
+                                         "opacity", "depth"))
+            and results_bit_equal(g2, e, ("image",)),
+            "the replayed hash-tiled frame differs from eager")
+    print(f"enable_graph hash_tiled [{card}]: frame bit-equal to eager; "
+          f"recorded {rg._graphs['hash_tiled'][1].launches}", flush=True)
+    del rg, e, g, g2, h_field
+    torch.cuda.empty_cache()
+
+    # 61. the tiled stage timings and the CLI
+    r = P.Renderer(P.Context.create(device="cuda"), plan,
+                   P.RenderOptions(use_tiles=True, capture_stats=True))
+    st = r.forward(field).stats
+    require(min(st.sample_ms, st.integrate_ms, st.compose_ms) > 0,
+            f"tiled stage times not filled: {st}")
+    print(f"tiled stage ms [{card}]: sample (table + bank gather) "
+          f"{st.sample_ms:.4f}, integrate (K1) {st.integrate_ms:.4f}, "
+          f"compose {st.compose_ms:.4f}", flush=True)
+    report["stage_ms"] = {"sample": st.sample_ms,
+                          "integrate": st.integrate_ms,
+                          "compose": st.compose_ms}
+    del r
+    repo = os.path.dirname(os.path.abspath(__file__))
+    real_write = cli.write_ppm
+    cli_report = {}
+    with tempfile.TemporaryDirectory(dir=repo) as tmp:
+        for name in ("simple_volume", "smoke_volume"):
+            path = os.path.join(repo, "examples", name + ".json")
+            images = {}
+
+            def keep(p, image, images=images):
+                images[p] = np.asarray(image)
+                real_write(p, image)
+
+            outs = {d: os.path.join(tmp, f"{name}_{d}.ppm")
+                    for d in ("card", "cpu")}
+            cli.write_ppm = keep
+            try:
+                rc_card = cli.main([path, outs["card"]])
+                rc_cpu = cli.main([path, outs["cpu"]], device="cpu")
+            finally:
+                cli.write_ppm = real_write
+            require(rc_card == 0 and rc_cpu == 0,
+                    f"the CLI failed on {name}: {rc_card}, {rc_cpu}")
+            err = float(np.abs(images[outs["card"]]
+                               - images[outs["cpu"]]).max())
+            with open(outs["card"], "rb") as f1, open(outs["cpu"], "rb") as f2:
+                card_bytes, cpu_bytes = f1.read(), f2.read()
+            diff = int(np.sum(np.frombuffer(card_bytes, np.uint8)
+                              != np.frombuffer(cpu_bytes, np.uint8)))
+            print(f"CLI {name} [{card}]: card image vs CPU {err:.3e}, PPM "
+                  f"bytes differing {diff}", flush=True)
+            require(err <= TOL and diff == 0,
+                    f"the CLI's card image differs from the CPU's on {name}")
+            cli_report[name] = {"vs_cpu": err, "ppm_bytes_differing": diff}
+        proc = subprocess.run(
+            [sys.executable, "-m", "dvren_tpu_torch.cli",
+             os.path.join(repo, "examples", "smoke_volume.json"),
+             os.path.join(tmp, "smoke_module.ppm")],
+            cwd=repo, capture_output=True, text=True, timeout=300)
+        print(f"python -m dvren_tpu_torch.cli smoke_volume.json: rc "
+              f"{proc.returncode}; {proc.stdout.strip()}", flush=True)
+        with open(os.path.join(tmp, "smoke_module.ppm"), "rb") as f:
+            same = f.read() == card_bytes
+        require(proc.returncode == 0 and same,
+                f"the module CLI failed or wrote other bytes: "
+                f"{proc.stderr[-2000:]}")
+    report["cli"] = cli_report
+    return kernels, report
+
+
 def tiled_frame_planes(torch, result, plan):
     """A ForwardResult's flat arrays as (H, W) planes of tensors, for
     :func:`planes_errors`."""
@@ -4881,6 +5368,13 @@ def run(only: str = "all") -> dict:
         elapsed("52-57")
         print(json.dumps({"kernels": gen_kernels}), flush=True)
         print(json.dumps({**gen_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "posed":
+        posed_kernels, posed_report = run_posed(torch, P, dev, card)
+        elapsed("58-61")
+        print(json.dumps({"kernels": posed_kernels}), flush=True)
+        print(json.dumps({**posed_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
 
@@ -5316,6 +5810,9 @@ def run(only: str = "all") -> dict:
     gen_kernels, hash_report["general"] = run_general(torch, P, dev, card)
     kernels += gen_kernels
     elapsed("52-57")
+    posed_kernels, hash_report["posed"] = run_posed(torch, P, dev, card)
+    kernels += posed_kernels
+    elapsed("58-61")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -5351,7 +5848,7 @@ def main() -> int:
     parser.add_argument(
         "--only", choices=("all", "dense", "tiles", "tables", "hash",
                            "grid", "gridviews", "window", "split", "sched",
-                           "general"),
+                           "general", "posed"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
@@ -5368,7 +5865,9 @@ def main() -> int:
              "pitch 2, occupancy on the SDF shell, the moving camera, the "
              "train-state checkpoint); 'general': phase 1 and phases "
              "52-57 (the Renderer's streamed, fused, staged and override "
-             "paths over K9f / K9b, render_views); "
+             "paths over K9f / K9b, render_views); 'posed': phase 1 and "
+             "phases 58-61 (the device-built pose schedule, enable_graph's "
+             "CUDA graphs, the tiled stage timings, the CLI); "
              "each for timing two trees against each other in one call")
     parser.add_argument("--split-child", action="store_true",
                         help=argparse.SUPPRESS)   # phase 45's child process

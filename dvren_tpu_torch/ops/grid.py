@@ -154,13 +154,44 @@ def accumulate_rows(dst: torch.Tensor, idx: torch.Tensor,
     touching torch's global deterministic mode: a stable sort of the
     indices, each index's rows summed in that order
     (``torch.segment_reduce``, a fixed-order sum per segment and column),
-    then one add per distinct index."""
+    then one add per distinct index. While a CUDA graph records the
+    stream, :func:`accumulate_rows_fixed` does it (the same bits): the
+    distinct indices here are counted on the host."""
     if idx.numel() == 0:
         return dst
+    if dst.is_cuda and torch.cuda.is_current_stream_capturing():
+        return accumulate_rows_fixed(dst, idx, rows)
     keys, order = torch.sort(idx, stable=True)
     uniq, counts = torch.unique_consecutive(keys, return_counts=True)
     sums = torch.segment_reduce(rows[order], "sum", lengths=counts, axis=0)
     dst[uniq] += sums     # distinct indices: a plain indexed write
+    return dst
+
+
+def accumulate_rows_fixed(dst: torch.Tensor, idx: torch.Tensor,
+                          rows: torch.Tensor) -> torch.Tensor:
+    """:func:`accumulate_rows` with every shape fixed by ``idx``'s length
+    and nothing read to the host, so that a CUDA graph can record it: the
+    run of each index is its segment at the run's first sorted position
+    (length 0 at the others, whose sums are 0 and whose writes go to a
+    dropped row). Its segment sums take as much memory as ``rows``."""
+    if idx.numel() == 0:
+        return dst
+    keys, order = torch.sort(idx, stable=True)
+    n, n_dst = int(keys.shape[0]), int(dst.shape[0])
+    pos = torch.arange(n, device=idx.device)
+    first = torch.ones(n, dtype=torch.bool, device=idx.device)
+    first[1:] = keys[1:] != keys[:-1]
+    # the next run's first position after each position (n past the last)
+    starts = torch.where(first, pos, n)
+    nxt = torch.flip(torch.cummin(torch.flip(starts, [0]), 0).values, [0])
+    nxt = torch.cat([nxt[1:], nxt.new_full((1,), n)])
+    lengths = torch.where(first, nxt - pos, 0)
+    sums = torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0,
+                                unsafe=True)
+    padded = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
+    padded[torch.where(first, keys, n_dst)] += sums   # distinct but the pad
+    dst.copy_(padded[:n_dst])
     return dst
 
 

@@ -74,10 +74,11 @@ def generate_rays(plan: Plan, k: torch.Tensor | None = None,
             break
     else:
         device = resolve_device(device)
-    dk, dc2w, ds = camera_arrays(plan, device)
-    k = dk if k is None else k
-    c2w = dc2w if c2w is None else c2w
-    ortho_scale = ds if ortho_scale is None else ortho_scale
+    if k is None or c2w is None or ortho_scale is None:
+        dk, dc2w, ds = camera_arrays(plan, device)
+        k = dk if k is None else k
+        c2w = dc2w if c2w is None else c2w
+        ortho_scale = ds if ortho_scale is None else ortho_scale
     k = torch.as_tensor(k, dtype=torch.float32, device=device).reshape(3, 3)
     c2w = torch.as_tensor(c2w, dtype=torch.float32,
                           device=device).reshape(3, 4)

@@ -1,0 +1,138 @@
+"""CUDA Graph capture and replay: the port's ``enable_graph``.
+
+The JAX package answers ``enable_graph`` with an ahead-of-time compile:
+the render becomes one executable that every later frame replays. On the
+card the counterpart is a CUDA Graph. :func:`capture` runs a function
+once on a side stream (the warm-up loads the kernel library, launches
+each kernel once and lets the caching allocator settle), then records one
+more run into a ``torch.cuda.CUDAGraph``; :meth:`CapturedGraph.replay`
+runs the recorded kernels again, with no Python and no launch overhead
+per kernel.
+
+A graph reads and writes fixed addresses. Its inputs are the tensors the
+function read while it was recorded (the field's parameters, a schedule,
+a static camera or cotangent buffer that the caller refills before each
+replay; the graph keeps the function, and with it every tensor it closes
+over), and its outputs are the tensors it returned, which every replay
+overwrites: callers copy them out (:func:`clone_outputs`). A caller keys
+each capture on what the graph reads (:func:`tensor_key`: the address,
+shape, dtype and device of each input tensor), so that a new field object
+re-captures and an in-place optimizer step, which keeps the addresses,
+replays.
+
+Nothing inside a captured function may wait for the device or read a
+value to the host (``.item()``, ``.cpu()``, ``torch.nonzero``,
+``torch.unique``, a shape taken from data) or upload a host array; a
+capture that meets one raises, and :func:`capture` raises with the
+capture's error. The Python launch counters of the kernel wrappers
+(``fused_tiles.tile_forward.launches`` and the rest) move when a kernel
+is recorded, not when a graph replays it: :attr:`CapturedGraph.launches`
+holds the counts recorded into the graph.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+
+import torch
+
+from dvren_tpu_torch.utils.pytree import tree_map
+
+
+def _counted():
+    """(name, wrapper) of every kernel wrapper that counts its launches."""
+    from dvren_tpu_torch.ops import (fused_tiles, hash_grid, hash_tiles,
+                                     integrate_fused, packed_transpose)
+    return (("fused_tiles", fused_tiles.tile_forward),
+            ("fused_tiles_bwd", fused_tiles.tile_backward),
+            ("packed_table", packed_transpose.build_rows),
+            ("packed_table_bwd", packed_transpose.table_grad_to_params),
+            ("packed_table16", packed_transpose.build_rows16),
+            ("packed_table16_bwd", packed_transpose.table16_grad_to_params),
+            ("banks_to_rows", packed_transpose.banks_to_rows),
+            ("hash_tiles", hash_tiles.hash_tile_forward),
+            ("hash_tiles_bwd", hash_tiles.hash_tile_backward),
+            ("hash_grid", hash_grid.hash_grid_forward_tiles),
+            ("hash_grid_bwd", hash_grid.hash_grid_backward_tiles),
+            ("integrate", integrate_fused.integrate_forward),
+            ("integrate_bwd", integrate_fused.radiance_vjp))
+
+
+def launch_counts() -> dict:
+    """The launch counter of every kernel wrapper, by kernel name."""
+    return {name: fn.launches for name, fn in _counted()}
+
+
+def tensor_key(*tensors) -> tuple:
+    """What a graph that reads ``tensors`` depends on: the address, shape,
+    dtype and device of each."""
+    return tuple((int(t.data_ptr()), tuple(t.shape), str(t.dtype),
+                  str(t.device)) for t in tensors)
+
+
+def clone_outputs(tree):
+    """A copy of every tensor in ``tree`` (dataclasses, tuples, lists and
+    dicts of tensors), out of the graph's buffers."""
+    return tree_map(lambda t: t.clone(), tree)
+
+
+@dataclasses.dataclass
+class CapturedGraph:
+    """A recorded CUDA Graph, the outputs its replays overwrite, the
+    kernel launches recorded into it (by kernel name, those above 0) and
+    the milliseconds the warm-up and the capture took. ``fn`` is the
+    recorded function, kept so that every tensor it closes over (a
+    camera leaf, a parameter view) lives as long as the graph that reads
+    its address: freed, its memory would be handed out again and a
+    replay would read whatever landed there."""
+
+    graph: torch.cuda.CUDAGraph
+    outputs: object
+    launches: dict
+    capture_ms: float
+    fn: object = None
+
+    def replay(self):
+        """Run the recorded kernels again; returns the outputs (the
+        graph's own buffers: copy them before the next replay)."""
+        self.graph.replay()
+        return self.outputs
+
+
+def available(device) -> bool:
+    """Whether a CUDA graph can record work on ``device``."""
+    return torch.device(device).type == "cuda"
+
+
+def capture(fn, device) -> CapturedGraph:
+    """Record ``fn()`` (no arguments; it reads its inputs from tensors
+    whose addresses stay fixed) as a CUDA Graph on ``device``, after one
+    eager run on a side stream. Raises ``RuntimeError`` with the
+    capture's error when ``fn`` cannot be recorded."""
+    device = torch.device(device)
+    if not available(device):
+        raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
+    t0 = time.perf_counter()
+    side = torch.cuda.Stream(device)
+    side.wait_stream(torch.cuda.current_stream(device))
+    with torch.cuda.stream(side):
+        fn()
+    torch.cuda.current_stream(device).wait_stream(side)
+    torch.cuda.synchronize(device)
+    graph = torch.cuda.CUDAGraph()
+    before = launch_counts()
+    try:
+        with torch.cuda.device(device), torch.cuda.graph(graph):
+            outputs = fn()
+    except Exception as exc:
+        raise RuntimeError(
+            f"CUDA graph capture failed ({type(exc).__name__}: {exc}); "
+            f"the captured path waited for the device, read a value to "
+            f"the host or uploaded a host array") from exc
+    torch.cuda.synchronize(device)
+    after = launch_counts()
+    launches = {k: after[k] - before[k] for k in after
+                if after[k] != before[k]}
+    return CapturedGraph(graph=graph, outputs=outputs, launches=launches,
+                         capture_ms=(time.perf_counter() - t0) * 1e3, fn=fn)

@@ -182,8 +182,10 @@ def render_streamed(plan: Plan, field, k=None, c2w=None, ortho_scale=None,
         if table is not None:
             bj = table[start:start + tile].to(device)
         if remat and torch.is_grad_enabled():
+            # no random draws to replay (the jitter is a table), and a
+            # CUDA graph cannot record the RNG state's save
             out = checkpoint(block, start, bj, k, c2w, ortho_scale,
-                             use_reentrant=False)
+                             use_reentrant=False, preserve_rng_state=False)
         else:
             out = block(start, bj, k, c2w, ortho_scale)
         parts.append(out)

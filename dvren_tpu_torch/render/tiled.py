@@ -1422,9 +1422,11 @@ def slot_rows_to_table_as(rows: torch.Tensor, plan, n_rows: int,
     return slot_rows_to_table(rows, plan, n_rows).to(dtype)
 
 
-def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w):
+def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w,
+                  ortho_scale=None):
     """The (T, 12, 128) ray planes of every tile, rebuilt from the camera
-    tensors ``k`` / ``c2w`` (autograd records them), for the rays the
+    tensors ``k`` / ``c2w`` / ``ortho_scale`` (autograd records them; what
+    is None is the plan's), for the rays the
     schedule baked in: dead lanes carry ray 0 there too. The rays are
     generated in ``schedule.tile_order`` and placed at their tiles (pad
     tiles get zero planes), so the camera adjoint sums over the tiles in
@@ -1435,7 +1437,8 @@ def _traced_rayts(plan: Plan, schedule: TiledSchedule, k, c2w):
     order = schedule.tile_order
     if order is not None:
         ids = torch.index_select(ids, 0, order.long())
-    rays = generate_rays(plan, k=k, c2w=c2w, ids=ids.reshape(-1))
+    rays = generate_rays(plan, k=k, c2w=c2w, ortho_scale=ortho_scale,
+                         ids=ids.reshape(-1))
     nt = int(ids.shape[0])
     o = rays.origins.reshape(nt, 2, 128, 3)
     d = rays.directions.reshape(nt, 2, 128, 3)
@@ -1475,6 +1478,21 @@ def _check_field_schedule(field, schedule: TiledSchedule, what: str):
     return device
 
 
+def _table_route(field, schedule: TiledSchedule) -> str:
+    """The route ``field``'s table takes on ``schedule``, decided here for
+    :func:`_tiles_raw` and :func:`render_tiled_phases` alike: "bricks" (a
+    sparse field's rows as they are), "super" (the supercell table of
+    :func:`build_supercell_stencil`), "f32" (K3's cell rows) or "16bit"
+    (K5a's)."""
+    if hasattr(field, "bricks"):
+        return "bricks"
+    if schedule.cell_scale == 2:
+        return "super"
+    if getattr(field, "packed_dtype", "float32") == "float32":
+        return "f32"
+    return "16bit"
+
+
 def _tiles_raw(plan: Plan, field, schedule: TiledSchedule,
                use_kernel: bool, rayt=None, stack: bool = False):
     """The raw heads (T, 5, 16, 16) of every tile of the schedule, in
@@ -1497,25 +1515,27 @@ def _tiles_raw(plan: Plan, field, schedule: TiledSchedule,
         rayt = schedule.tiles.rayt
     static = (schedule, prm, use_kernel, cam, False)
     split = (schedule, prm, use_kernel, cam, True)
-    packed_dtype = getattr(field, "packed_dtype", "float32")
-    if hasattr(field, "bricks"):
+    route = _table_route(field, schedule)
+    if route == "bricks":
         bricks = field.bricks.reshape(-1, NCH)
         return _GroupsetFromTable.apply(
             split if bricks.dtype == torch.float32 else static, bricks,
             rayt)
-    if stencil == "super":
+    if route == "super":
         return _GroupsetFromTable.apply(
             static, build_supercell_stencil(field.sigma, field.color), rayt)
-    if packed_dtype == "float32":
+    if route == "f32":
         return _GroupsetFromParams.apply(split if stack else static,
                                          field.sigma, field.color, rayt)
     table = _Table16FromParams.apply(
-        (table_dtype(packed_dtype), use_kernel), field.sigma, field.color)
+        (table_dtype(field.packed_dtype), use_kernel), field.sigma,
+        field.color)
     return _GroupsetFromTable.apply(static, table, rayt)
 
 
 def render_tiled(plan: Plan, field, schedule: TiledSchedule,
-                 use_kernel: bool = True, k=None, c2w=None) -> ImagePlanes:
+                 use_kernel: bool = True, k=None, c2w=None,
+                 camera=None) -> ImagePlanes:
     """Tile-table render of a dense or sparse brick field, differentiable
     in the field's ``sigma`` and ``color`` (or ``bricks``) and, through
     ``k`` (3, 3) / ``c2w`` (3, 4), in the camera at the schedule's
@@ -1539,21 +1559,80 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     emits their adjoint; the cells, slots and mask stay the schedule's, so
     a camera far from the schedule's needs a new schedule. The fallback's
     rays render through the windowed path's groups (K9f / K9b), under the
-    same camera tensors."""
+    same camera tensors; ``camera`` (k, c2w, ortho_scale), the plan's
+    camera as tensors, fills in what ``k`` / ``c2w`` leave out, for the
+    rebuilt ray planes and the fallback (else they upload the plan's
+    camera at each call, which a CUDA graph cannot record)."""
     device = _check_field_schedule(field, schedule, "schedule")
     check(schedule.fallback is not None or schedule.fallback_rays == 0,
           f"the schedule was built with build_fallback=False (a cascade "
           f"probe) but has {schedule.fallback_rays} overflow rays: rebuild "
           f"it with the fallback")
+    ck, cc, co = (None, None, None) if camera is None else camera
     rayt = None
     if (k is not None or c2w is not None) and schedule.groups:
-        rayt = _traced_rayts(plan, schedule, k, c2w)
+        rayt = _traced_rayts(plan, schedule, ck if k is None else k,
+                             cc if c2w is None else c2w, co)
     raw = _tiles_raw(plan, field, schedule, use_kernel, rayt)
-    parts = _fallback_parts(plan, field, schedule.fallback, k=k, c2w=c2w,
+    parts = _fallback_parts(plan, field, schedule.fallback,
+                            k=ck if k is None else k,
+                            c2w=cc if c2w is None else c2w, ortho_scale=co,
                             use_kernel=use_kernel)
     return _compose_tiles(plan, [] if raw is None else [raw],
                           [g.tile_ids for g in schedule.groups], parts,
                           tile_px=schedule.tile_px, device=device)
+
+
+def render_tiled_phases(plan: Plan, schedule: TiledSchedule):
+    """Three functions whose chained application equals
+    :func:`render_tiled` (``dvren_tpu``'s ``render_tiled_phases``): the
+    Renderer's per-stage stats time them one by one.
+
+    Returns (tables_fn(field) -> the flat bank tables (S_b, C, 128),
+    kernel_fn(tabs) -> the raw K1 heads (T, 5, 16, 16) or None for an
+    empty schedule, compose_fn(field, raw) -> ImagePlanes). ``tables`` is
+    the table build of the field's route (:func:`_table_route`: a sparse
+    field's bricks as they are, the supercell table, K3 for float32 cell
+    rows, K5a for 16-bit ones) and the bank gather, ``kernel`` the one K1
+    launch, and ``compose`` the tile compose with the windowed fallback.
+    No autograd node is recorded."""
+    check(schedule.fallback is not None or schedule.fallback_rays == 0,
+          "the schedule was built with build_fallback=False (a cascade "
+          "probe): rebuild it with the fallback")
+    schedule = dataclasses.replace(schedule, tiles=schedule.tile_set())
+    geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
+    stencil = "super" if schedule.cell_scale == 2 else "cell"
+    prm = (fused_tiles.tiles_op_params(plan, geom, schedule.tiles, stencil)
+           if schedule.groups else None)
+
+    def tables_fn(field):
+        _check_field_schedule(field, schedule, "schedule")
+        route = _table_route(field, schedule)
+        if route == "bricks":
+            table = field.bricks.reshape(-1, NCH)
+        elif route == "super":
+            table = build_supercell_stencil(field.sigma, field.color)
+        elif route == "f32":
+            table = packed_transpose.build_rows(field.sigma, field.color)
+        else:
+            table = packed_transpose.build_rows16(
+                field.sigma, field.color, table_dtype(field.packed_dtype))
+        return _gather_banks_flat(table, schedule.gathermap_all,
+                                  schedule.pitch)
+
+    def kernel_fn(tabs):
+        if not schedule.groups:
+            return None
+        return fused_tiles.tile_forward(tabs, schedule.tiles, prm)
+
+    def compose_fn(field, raw):
+        parts = _fallback_parts(plan, field, schedule.fallback)
+        return _compose_tiles(plan, [] if raw is None else [raw],
+                              [g.tile_ids for g in schedule.groups], parts,
+                              tile_px=schedule.tile_px,
+                              device=schedule.device)
+
+    return tables_fn, kernel_fn, compose_fn
 
 
 def _fallback_parts(plan: Plan, field, fallback, k=None, c2w=None,

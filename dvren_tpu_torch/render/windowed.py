@@ -304,7 +304,10 @@ def _run_groups(fn, args_per_group, remat: bool) -> list:
     """``fn(*args)`` per group, each recomputed in the backward when
     ``remat`` (and autograd records)."""
     if remat and torch.is_grad_enabled():
-        return [checkpoint(fn, *a, use_reentrant=False)
+        # no random draws to replay (the jitter is a table), and a CUDA
+        # graph cannot record the RNG state's save
+        return [checkpoint(fn, *a, use_reentrant=False,
+                           preserve_rng_state=False)
                 for a in args_per_group]
     return [fn(*a) for a in args_per_group]
 

@@ -2013,3 +2013,167 @@ def test_shared_compose_is_bit_identical_on_the_card(cuda_device):
                                    getattr(c, key).numpy(), atol=TOL,
                                    rtol=0, err_msg=key)
     assert torch.equal(a.hitmask.cpu(), c.hitmask)
+
+
+# ------------------------------ posed schedules, graph capture and the CLI
+
+
+def _lookat(eye, ctr=(0.5, 0.5, 0.5), up=(0, 1, 0)):
+    eye, ctr, up = (np.array(v, float) for v in (eye, ctr, up))
+    f = ctr - eye
+    f /= np.linalg.norm(f)
+    r = np.cross(f, up)
+    r /= np.linalg.norm(r)
+    u = np.cross(r, f)
+    return tuple(np.concatenate([np.stack([r, u, f], 1), eye[:, None]],
+                                1).reshape(-1))
+
+
+def posed_scene(c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0)):
+    """tests/test_posed.py's scene: a 16^3 blob under 128^2 rays, 32
+    stratified steps."""
+    g, w, steps = 16, 128, 32
+    zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, g)] * 3), indexing="ij")
+    sigma = 10.0 * np.exp(-((xs - 0.5) ** 2 + (ys - 0.5) ** 2
+                            + (zs - 0.45) ** 2) / 0.06)
+    config = P.DenseGridConfig(
+        resolution=(g,) * 3, sigma=sigma.astype(np.float32).reshape(-1),
+        color=np.stack([xs, ys, 1 - zs], -1).astype(np.float32).reshape(-1))
+    plan = P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.2, t_far=2.2, seed=3,
+        camera=P.CameraConfig(k=(w * 1.2, 0, w / 2, 0, w * 1.2, w / 2, 0, 0,
+                                 1), c2w=c2w),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps,
+                                  mode=P.SamplingMode.STRATIFIED)))
+    return plan, config
+
+
+POSED_ORBIT = [_lookat((1.6, 0.8, 0.3)), _lookat((-0.6, 0.2, 1.3)),
+               _lookat((0.5, 1.7, 0.45))]
+
+
+def test_posed_split_graph_and_twin_on_the_card(cuda_device):
+    """The split mode on the card against its twin (5e-6, depth 1e-4) and
+    the host-built frame (1e-5); graph mode and the sweep bit-equal to
+    the split mode; one graph for the orbit; repeats bit for bit."""
+    from dvren_tpu_torch.render import posed
+
+    base, config = posed_scene()
+    field = P.DenseGridField.create(config, device=cuda_device)
+    plans = [posed_scene(c)[0] for c in POSED_ORBIT]
+    split = posed.PosedRenderer(base, field, fused=False, probe_plans=plans)
+    pins = dict(nc_pin=split.nc_pin, nb_pin=split.nb_pin,
+                ez_pin=split.ez_pin)
+    graphed = posed.PosedRenderer(base, field, **pins)
+    twin = posed.PosedRenderer(base, field, use_kernel=False, fused=False,
+                               **pins)
+    frames = []
+    for p in [base] + plans:
+        k1 = fused_tiles.tile_forward.launches
+        a = split.render(p, field)
+        assert fused_tiles.tile_forward.launches == k1 + 1
+        b = twin.render(p, field)
+        for key in ("image", "transmittance", "opacity"):
+            torch.testing.assert_close(getattr(a, key), getattr(b, key),
+                                       atol=TOL, rtol=0)
+        torch.testing.assert_close(a.depth, b.depth, atol=TOL_DEPTH, rtol=0)
+        with torch.no_grad():
+            host = tiled.render_tiled(p, field, tiled.build_tiled_schedule(
+                p, field).to(cuda_device))
+        assert float((a.image - host.image).abs().max()) < 1e-5
+        g = graphed.render(p, field)
+        for key in ("image", "transmittance", "opacity", "depth"):
+            assert torch.equal(getattr(g, key), getattr(a, key)), key
+        assert torch.equal(split.render(p, field).image, a.image)
+        frames.append(a.image)
+    assert graphed.cache_size() == 1
+    images, diags = graphed.render_sweep([base] + plans, field)
+    assert images.shape == (4, 128, 128, 3) and diags.shape == (4, 4)
+    for got, want in zip(images, frames):
+        assert torch.equal(got, want)
+
+
+def _graph_renderer(options, device, graph):
+    return P.Renderer(P.Context.create(device=device), posed_scene()[0],
+                      P.RenderOptions(enable_graph=graph, **options))
+
+
+@pytest.mark.parametrize("mode", ["tiled", "windowed", "streamed", "fused"])
+def test_enable_graph_bit_equal_to_eager(cuda_device, mode):
+    """Each mode's replayed frame, and the tiled, windowed and streamed
+    backward, bit-equal to eager on the card; the notes say what ran."""
+    options = {"tiled": dict(use_tiles=True), "windowed": dict(
+        use_window=True), "streamed": dict(use_tiles=False, streaming=True),
+               "fused": dict(use_tiles=False, streaming=False)}[mode]
+    _, config = posed_scene()
+    field = P.DenseGridField.create(config, device=cuda_device)
+    dl = np.random.default_rng(2).uniform(
+        -1, 1, 128 * 128 * 3).astype(np.float32)
+    torch.use_deterministic_algorithms(True)
+    try:
+        out = {}
+        for graph in (False, True):
+            r = _graph_renderer(options, cuda_device, graph)
+            first = r.forward(field)
+            again = r.forward(field)
+            grads = None if mode == "fused" else r.backward(field, dl)
+            out[graph] = (first, again, grads, r)
+    finally:
+        torch.use_deterministic_algorithms(False)
+    (e, _, ge, _), (g, g2, gg, r) = out[False], out[True]
+    assert r._last_mode == mode
+    assert "graph_executed" in g.stats.notes
+    assert any(n.startswith("graph_captured_aot_compile_ms=")
+               for n in g.stats.notes)
+    assert not any(n.startswith("graph_captured") for n in g2.stats.notes)
+    assert "kernel_launches=captured_in_graph" in g2.stats.notes
+    for key in ("image", "transmittance", "opacity", "depth", "hitmask"):
+        np.testing.assert_array_equal(getattr(g, key), getattr(e, key))
+        np.testing.assert_array_equal(getattr(g2, key), getattr(e, key))
+    if ge is not None:
+        for key in ("sigma", "color", "camera", "camera_k"):
+            np.testing.assert_array_equal(getattr(gg, key), getattr(ge, key))
+
+
+def test_enable_graph_recaptures_on_a_new_field(cuda_device):
+    """A new field object records a new graph; an in-place edit of the
+    same tensors replays the graph and renders the edited values."""
+    _, config = posed_scene()
+    field = P.DenseGridField.create(config, device=cuda_device)
+    r = _graph_renderer(dict(use_tiles=True), cuda_device, True)
+    eager = _graph_renderer(dict(use_tiles=True), cuda_device, False)
+    r.forward(field)
+    other = P.DenseGridField.create(config, device=cuda_device)
+    res = r.forward(other)
+    assert any(n.startswith("graph_captured_aot") for n in res.stats.notes)
+    with torch.no_grad():
+        other.sigma.mul_(2.0)
+    res = r.forward(other)
+    assert not any(n.startswith("graph_captured") for n in res.stats.notes)
+    np.testing.assert_array_equal(res.image, eager.forward(other).image)
+
+
+@pytest.mark.parametrize("config", ["simple_volume", "smoke_volume"])
+def test_cli_on_the_card(cuda_device, config, tmp_path, monkeypatch):
+    """The CLI renders on the card by default; its image within 5e-6 of
+    the CPU run's before the bytes, its PPM byte-equal."""
+    import pathlib
+
+    from dvren_tpu_torch import cli
+
+    path = pathlib.Path(__file__).resolve().parents[1] / "examples" / (
+        config + ".json")
+    images = {}
+    real = cli.write_ppm
+
+    def keep(p, image):
+        images[str(p)] = np.asarray(image)
+        real(p, image)
+
+    monkeypatch.setattr(cli, "write_ppm", keep)
+    card, host = tmp_path / "card.ppm", tmp_path / "cpu.ppm"
+    assert cli.main([str(path), str(card)]) == 0
+    assert cli.main([str(path), str(host)], device="cpu") == 0
+    np.testing.assert_allclose(images[str(card)], images[str(host)],
+                               atol=5e-6, rtol=0)
+    assert card.read_bytes() == host.read_bytes()

@@ -379,8 +379,10 @@ def test_renderer_forward_matches(name):
 def test_renderer_hash_modes():
     """On a CPU context the default and ``use_tiles=False`` take the fused
     path over ``pipeline.render`` (as JAX's Renderer does off a TPU):
-    JAX's pipeline frame; graph capture raises; a spec the fused kernel
-    refuses under ``use_tiles=True`` is refused."""
+    JAX's pipeline frame; ``enable_graph`` has no CUDA graph to record on
+    the CPU, so the hash-tiled path runs eagerly (its frame bit for bit,
+    the note ``graph_capture=none:cpu``); a spec the fused kernel refuses
+    under ``use_tiles=True`` is refused."""
     plan, _, pplan, pf = case("fixed")
     ref = j_pipeline("fixed")
     h, w = plan.height, plan.width
@@ -395,9 +397,13 @@ def test_renderer_hash_modes():
                                    np.asarray(ref.depth), atol=TOL_DEPTH)
         np.testing.assert_array_equal(res.hitmask.reshape(h, w),
                                       np.asarray(ref.hitmask))
-    with pytest.raises(NotImplementedError):
-        hash_renderer(pplan, P.RenderOptions(use_tiles=True,
-                                             enable_graph=True)).forward(pf)
+    graphed = hash_renderer(pplan, P.RenderOptions(
+        use_tiles=True, enable_graph=True)).forward(pf)
+    eager = hash_renderer(pplan, P.RenderOptions(use_tiles=True)).forward(pf)
+    assert "graph_capture=none:cpu" in graphed.stats.notes
+    assert "hash_tiled_path" in graphed.stats.notes
+    np.testing.assert_array_equal(graphed.image, eager.image)
+    np.testing.assert_array_equal(graphed.depth, eager.depth)
     ineligible = P.HashMLPField.create(P.HashMLPConfig(
         spec=P.HashMLPSpec(table_size=100)), device="cpu")
     with pytest.raises(P.DvrenError):       # not a dense grid either

@@ -129,12 +129,14 @@ def reference_general(case):
                                   "streaming", "enable_graph",
                                   "occupancy", "pitch2"])
 def test_unported_modes_raise(case):
-    """Graph capture raises (ROADMAP item 9). The other modes are ported:
-    ``use_tiles=False``, the default on a CPU context (the fused path)
-    and ``streaming`` render the JAX Renderer's frame with the same
-    options; ``use_occupancy`` and ``tile_pitch=2`` the tiled reference's,
-    occupancy within 5e-6 and pitch 2 bit for bit with the port's pitch
-    1."""
+    """Every mode is ported: ``use_tiles=False``, the default on a CPU
+    context (the fused path) and ``streaming`` render the JAX Renderer's
+    frame with the same options; ``use_occupancy`` and ``tile_pitch=2``
+    the tiled reference's, occupancy within 5e-6 and pitch 2 bit for bit
+    with the port's pitch 1; ``enable_graph`` on a CPU context has no
+    CUDA graph to record, so it renders the tiled path eagerly (the
+    tiled reference's frame, bit for bit the port's frame without it)
+    and says so in the note ``graph_capture=none:cpu``."""
     plan, field, ref = reference("fixed")
     renderer = port_renderer(plan, _options_case(case))
     if case in ("occupancy", "pitch2"):
@@ -146,8 +148,13 @@ def test_unported_modes_raise(case):
             np.testing.assert_array_equal(got.depth, base.depth)
         return
     if case == "enable_graph":
-        with pytest.raises(NotImplementedError, match="item 9"):
-            renderer.forward(port_field(field))
+        got = renderer.forward(port_field(field))
+        assert "graph_capture=none:cpu" in got.stats.notes
+        assert "graph_executed" not in got.stats.notes
+        assert_planes_close(_Planes(got, plan), _Planes(ref, plan), tol=5e-6)
+        eager = port_renderer(plan).forward(port_field(field))
+        np.testing.assert_array_equal(got.image, eager.image)
+        np.testing.assert_array_equal(got.depth, eager.depth)
         return
     got = renderer.forward(port_field(field))
     want = reference_general(case)
