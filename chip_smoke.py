@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed|parallel]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -273,8 +273,9 @@ K5a / K5b),
 1 and 16-20,
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
 37-41, ``--only split`` phases 1 and 42-46, ``--only sched`` phases 1 and
-47-51, ``--only general`` phases 1 and 52-57: each alone, to time two
-trees against each other in one call.
+47-51, ``--only general`` phases 1 and 52-57, ``--only parallel`` phases
+1 and 62-64: each alone, to time two trees against each other in one
+call.
 
 Phases 47-51 drive every option of the tile schedule builder and
 the modules that wait on them: the native scheduler core against the
@@ -350,6 +351,34 @@ timings and the CLI, each fatal when it fails:
     on the card: its image within 5e-6 of the CPU run's, its PPM
     byte-equal, and ``python -m dvren_tpu_torch.cli`` writing the same
     bytes.
+
+Phases 62-64 (last; ``--only parallel`` runs phases 1 and 62-64 alone)
+drive ``dvren_tpu_torch.parallel`` on ranks spawned by its ``launch``
+(``parallel_rank``), each fatal when it fails:
+
+62. D = 1 over NCCL: at the dense headline, ``render_tiled_sharded``
+    bit-equal to ``render_tiled``, a tile-DP step's gradients within 2e-6
+    x scale of autograd through ``render_tiled`` and a repeat step
+    bit-identical, ``render_sharded`` bit-equal to ``pipeline.render``,
+    ``render_zsharded`` within 2e-5 of it (depth by phase 38's per-ray
+    bound); at the fit flagship's eight views (96^2 over 64^3, one
+    merged 8 px supercell group), the multi-view tile-DP step against
+    ``render_tiled_stack``'s gradients and ``make_dp_train_step`` against
+    ``render_views``' (2e-6 x scale), three ``fit_dense_grid_tile_dp``
+    steps with a falling loss; the sharded and single-card frames and
+    steps timed (CUDA events, median of 10, min-max), and
+    ``shard_tiled_schedule``'s host seconds;
+63. D = 2 over gloo, two ranks sharing the card: the same checks, the
+    results equal to D = 1's within those bounds, each rank's K1, K2, K3,
+    K4, K9f and K9b launches on the main path (a sharded frame, a tile-DP
+    step, a ray-sharded frame, a view-DP step) above 0, K1 / K2 on rank
+    0's shard bit-equal to their twins and timed (the kernels line adds
+    ``fused_tiles[_bwd]:rank_shard_d2``), K9f / K9b on rank 0's ray shard
+    and on its first view-DP view against their twins at phase 52's
+    bounds and timed (``integrate[_bwd]:ray_shard_d2`` and
+    ``:view_dp_d2``); the times are two ranks on one card, not a scaling
+    figure;
+64. ``dryrun_multichip(2, backend="gloo")``.
 
 Each mode's ``Renderer.forward`` and ``.backward`` is timed over 10 warm
 runs between CUDA events (median and spread), beside the peak device
@@ -5287,6 +5316,464 @@ def tiled_frame_planes(torch, result, plan):
     return Planes
 
 
+# ------------------------------------------------------ phases 62-64: parallel
+
+PAR_COUNTERS = (("K1", "fused_tiles", "tile_forward"),
+                ("K2", "fused_tiles", "tile_backward"),
+                ("K3", "packed_transpose", "build_rows"),
+                ("K4", "packed_transpose", "table_grad_to_params"),
+                ("K9f", "integrate_fused", "integrate_forward"),
+                ("K9b", "integrate_fused", "radiance_vjp"))
+PAR_PLANES_TOL = 2e-5     # z-sharded planes against pipeline.render
+PAR_FIT_STEPS = 3         # fit_dense_grid_tile_dp's steps (falling loss)
+PAR_RUNS = 10             # timed runs of each sharded path (median, spread)
+
+
+def _par_counters():
+    import importlib
+
+    return [getattr(importlib.import_module(f"dvren_tpu_torch.ops.{mod}"),
+                    fn) for _, mod, fn in PAR_COUNTERS]
+
+
+def _leaf_copy(field):
+    return field.with_params(field.sigma.detach().clone(),
+                             field.color.detach().clone())
+
+
+def _grads(field) -> list:
+    return [field.sigma.grad.detach().clone(),
+            field.color.grad.detach().clone()]
+
+
+def parallel_rank(mesh, sched_host, fit_views):
+    """One rank of phases 62-63: the headline's tile-sharded frame and
+    tile-DP step, the ray- and z-sharded frames, the flagship's multi-view
+    tile-DP step, view-DP step and ``fit_dense_grid_tile_dp``, each
+    against its single-card counterpart on rank 0; the main path's kernel
+    launches on every rank; times with CUDA events; K1 / K2 on rank 0's
+    shard against their twins. Every rank runs the sharded calls (they sum
+    over the ranks); a failed check raises, which fails the launch."""
+    import torch
+
+    import dvren_tpu_torch as P
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.opt.fit import _scheduled_views, mse, render_views
+    from dvren_tpu_torch.parallel import shard
+    from dvren_tpu_torch.parallel.mesh import all_reduce_sum
+    from dvren_tpu_torch.render import pipeline, tiled
+
+    dev, n_dev, lead = mesh.device, mesh.size, mesh.rank == 0
+    out = {"device": str(dev), "backend": mesh.backend, "ranks": n_dev}
+    plan, config = headline_scene(P)
+    field = P.DenseGridField.create(config, device=dev).requires_grad_(False)
+    t0 = time.perf_counter()
+    shards = shard.shard_tiled_schedule(sched_host, n_dev)
+    out["shard_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rs = shard._rank_tiles(sched_host, shards, mesh)    # built and kept
+    torch.cuda.synchronize()
+    out["rank_schedule_s"] = time.perf_counter() - t0
+    out["rank_tiles"] = [int(shard.live_tiles_per_rank(g)[mesh.rank])
+                         for g in shards]
+    fplans, fconfig = flagship_views(P, views=fit_views)
+    fplan = fplans[0]
+    fcams = [P.CameraConfig(c2w=tuple(p.camera.c2w)) for p in fplans]
+    ffield = P.DenseGridField.create(fconfig, device=dev).requires_grad_(False)
+    _, merged, render_stack = _scheduled_views(fplan, fcams, ffield, "tiled")
+    require(merged.sched.fallback_rays == 0 and merged.sched.cell_scale == 2
+            and merged.sched.tile_px == 8,
+            "the flagship's merged schedule is not 8 px supercells")
+    with torch.no_grad():
+        ftargets = 0.7 * render_stack(ffield, merged)
+    c2ws = torch.tensor([c.c2w for c in fcams], dtype=torch.float32,
+                        device=dev).reshape(-1, 3, 4)
+    target = torch.zeros((plan.height, plan.width, 3), device=dev)
+
+    # the main path, counted: a sharded frame, a tile-DP step, a
+    # ray-sharded frame and a view-DP step
+    t_field = _leaf_copy(field)
+    t_step = shard.make_tile_dp_train_step(
+        plan, t_field, torch.optim.SGD(t_field.parameters(), lr=LR), mesh,
+        sched_host)
+    v_field = _leaf_copy(ffield)
+    v_step = shard.make_dp_train_step(
+        fplan, v_field, torch.optim.SGD(v_field.parameters(), lr=LR), mesh)
+    counters = _par_counters()
+    for c in counters:
+        c.launches = 0
+    with torch.no_grad():
+        frame = shard.render_tiled_sharded(plan, field, sched_host, mesh,
+                                           shards=shards)
+    t_loss = t_step(shards, target)
+    with torch.no_grad():
+        rframe = shard.render_sharded(plan, field, mesh)
+    v_loss = v_step(c2ws, ftargets)
+    torch.cuda.synchronize()
+    rows = torch.zeros((n_dev, len(counters)), device=dev)
+    rows[mesh.rank] = torch.tensor([float(c.launches) for c in counters],
+                                   device=dev)
+    out["launches"] = all_reduce_sum(mesh, rows).int().tolist()
+    t_grads = _grads(t_field)
+    v_grads = _grads(v_field)
+    # the ranks' parameters after the step, equal bit for bit: each rank's
+    # row of a zero (D, n) array, one sum
+    flat = torch.cat([t_field.sigma.detach().reshape(-1),
+                      t_field.color.detach().reshape(-1)])
+    prow = torch.zeros((n_dev, flat.numel()), device=dev)
+    prow[mesh.rank] = flat
+    prow = all_reduce_sum(mesh, prow)
+    out["ranks_agree"] = bool((prow == prow[0:1]).all())
+    require(out["ranks_agree"], "the ranks' parameters differ after a step")
+    out["frame"] = frame.image.cpu().numpy()
+    out["tile_dp_grads"] = [g.cpu().numpy() for g in t_grads]
+    out["view_dp_grads"] = [g.cpu().numpy() for g in v_grads]
+    out["losses"] = {"tile_dp": float(t_loss), "view_dp": float(v_loss)}
+
+    # a repeat tile-DP step from the same start: the same bits
+    r_field = _leaf_copy(field)
+    shard.make_tile_dp_train_step(
+        plan, r_field, torch.optim.SGD(r_field.parameters(), lr=LR), mesh,
+        sched_host)(shards, target)
+    out["repeat_equal"] = all(torch.equal(a, b)
+                              for a, b in zip(_grads(r_field), t_grads))
+    require(out["repeat_equal"], "a repeat tile-DP step differs")
+
+    with torch.no_grad():
+        zframe = shard.render_zsharded(plan, field, mesh)
+    out["zframe"] = zframe.image.cpu().numpy()
+
+    # the flagship's multi-view tile-DP step (SGD at lr 1)
+    m_field = _leaf_copy(ffield)
+    m_step, m_shards = shard.make_tile_dp_multiview_step(
+        fplan, m_field, torch.optim.SGD(m_field.parameters(), lr=1.0), mesh,
+        merged)
+    m_loss = float(m_step(m_shards, ftargets))
+    m_grads = _grads(m_field)
+    out["multiview_grads"] = [g.cpu().numpy() for g in m_grads]
+
+    # fit_dense_grid_tile_dp from a flat start: the loss falls
+    flat = ffield.with_params(torch.full_like(ffield.sigma, 1.0),
+                              torch.full_like(ffield.color, 0.5))
+    _, fit_losses = shard.fit_dense_grid_tile_dp(
+        fplan, flat, fcams, ftargets, mesh, steps=PAR_FIT_STEPS)
+    out["fit_losses"] = fit_losses.tolist()
+    require(all(b < a for a, b in zip(fit_losses, fit_losses[1:])),
+            f"fit_dense_grid_tile_dp's loss does not fall: {fit_losses}")
+
+    if lead:
+        # the single-card counterparts
+        sched = sched_host.to(dev)
+        with torch.no_grad():
+            ref = tiled.render_tiled(plan, field, sched)
+            ray_ref = pipeline.render(plan, field).planes
+        out["frame_bit_equal"] = all(
+            torch.equal(getattr(frame, k), getattr(ref, k))
+            for k in ("image", "transmittance", "opacity", "depth",
+                      "hitmask"))
+        require(out["frame_bit_equal"],
+                "render_tiled_sharded differs from render_tiled")
+        out["ray_bit_equal"] = all(
+            torch.equal(getattr(rframe, k), getattr(ray_ref, k))
+            for k in ("image", "transmittance", "opacity", "depth",
+                      "hitmask"))
+        require(out["ray_bit_equal"],
+                "render_sharded differs from pipeline.render")
+        z_err = max(float((getattr(zframe, k) - getattr(ray_ref, k))
+                          .abs().max())
+                    for k in ("image", "transmittance", "opacity"))
+        z_depth = depth_error(zframe.depth, ray_ref.depth, ray_ref.opacity,
+                              plan.t_far)
+        out["zsharded"] = {"planes": z_err, "depth": z_depth[0],
+                           "depth_share": z_depth[1]}
+        require(z_err <= PAR_PLANES_TOL and z_depth[1] <= 1.0
+                and torch.equal(zframe.hitmask, ray_ref.hitmask),
+                f"render_zsharded differs from pipeline.render: planes "
+                f"{z_err:.3e}, depth {z_depth}")
+
+        ref_t = _leaf_copy(field)
+        single_loss = mse(tiled.render_tiled(plan, ref_t, sched).image,
+                          target)
+        single_loss.backward()
+        out["tile_dp_err"] = max(rel_err(a, b)
+                                 for a, b in zip(t_grads, _grads(ref_t)))
+        out["tile_dp_bit_equal"] = all(
+            torch.equal(a, b) for a, b in zip(t_grads, _grads(ref_t)))
+        require(out["tile_dp_err"] <= GRID_TOL
+                and abs(float(t_loss) - float(single_loss.detach()))
+                <= 1e-5 * abs(float(single_loss.detach())),
+                f"tile-DP step against render_tiled: grads "
+                f"{out['tile_dp_err']:.3e} x scale")
+
+        ref_m = _leaf_copy(ffield)
+        stack_loss = mse(render_stack(ref_m, merged), ftargets)
+        stack_loss.backward()
+        out["multiview_err"] = max(rel_err(a, b)
+                                   for a, b in zip(m_grads, _grads(ref_m)))
+        require(out["multiview_err"] <= GRID_TOL
+                and abs(m_loss - float(stack_loss.detach()))
+                <= 1e-5 * abs(float(stack_loss.detach())),
+                f"multi-view step against render_tiled_stack: grads "
+                f"{out['multiview_err']:.3e} x scale")
+
+        ref_v = _leaf_copy(ffield)
+        views_loss = mse(render_views(fplan, ref_v, fcams), ftargets)
+        views_loss.backward()
+        out["view_dp_err"] = max(rel_err(a, b)
+                                 for a, b in zip(v_grads, _grads(ref_v)))
+        require(out["view_dp_err"] <= GRID_TOL
+                and abs(float(v_loss) - float(views_loss.detach()))
+                <= 1e-5 * abs(float(views_loss.detach())),
+                f"view-DP step against render_views: grads "
+                f"{out['view_dp_err']:.3e} x scale")
+
+    # times: each rank's sharded calls; the single-card paths at D = 1
+    times = {}
+    s_field = _leaf_copy(field)
+    s_step = shard.make_tile_dp_train_step(
+        plan, s_field, torch.optim.SGD(s_field.parameters(), lr=LR), mesh,
+        sched_host)
+    with torch.no_grad():
+        times["tiled_frame"] = event_times(
+            torch, lambda: shard.render_tiled_sharded(
+                plan, field, sched_host, mesh, shards=shards), PAR_RUNS)
+        times["ray_frame"] = event_times(
+            torch, lambda: shard.render_sharded(plan, field, mesh), PAR_RUNS)
+        times["z_frame"] = event_times(
+            torch, lambda: shard.render_zsharded(plan, field, mesh),
+            PAR_RUNS)
+    times["tile_dp_step"] = event_times(
+        torch, lambda: s_step(shards, target), PAR_RUNS)
+    times["multiview_step"] = event_times(
+        torch, lambda: m_step(m_shards, ftargets), PAR_RUNS)
+    times["view_dp_step"] = event_times(
+        torch, lambda: v_step(c2ws, ftargets), PAR_RUNS)
+    if lead and n_dev == 1:
+        sched = sched_host.to(dev)
+        one = _leaf_copy(field)
+        one_opt = torch.optim.SGD(one.parameters(), lr=LR)
+
+        def one_step():
+            one_opt.zero_grad(set_to_none=True)
+            mse(tiled.render_tiled(plan, one, sched).image, target).backward()
+            one_opt.step()
+
+        mv = _leaf_copy(ffield)
+        mv_opt = torch.optim.SGD(mv.parameters(), lr=1.0)
+
+        def mv_step():
+            mv_opt.zero_grad(set_to_none=True)
+            mse(render_stack(mv, merged), ftargets).backward()
+            mv_opt.step()
+
+        with torch.no_grad():
+            times["single_tiled_frame"] = event_times(
+                torch, lambda: tiled.render_tiled(plan, field, sched),
+                PAR_RUNS)
+            times["single_ray_frame"] = event_times(
+                torch, lambda: pipeline.render(plan, field), PAR_RUNS)
+        times["single_tile_step"] = event_times(torch, one_step, PAR_RUNS)
+        times["single_multiview_step"] = event_times(torch, mv_step,
+                                                     PAR_RUNS)
+    out["times"] = times
+
+    if lead and n_dev > 1:
+        # K1 and K2 on this rank's shard against their twins, timed
+        table = packed_transpose.build_rows(field.sigma, field.color)
+        tabs = tiled._gather_banks_flat(table, rs.gathermap_all)
+        geom = (rs.bbox[0], rs.bbox[1], rs.grid_shape)
+        prm = fused_tiles.tiles_op_params(plan, geom, rs.tiles)
+        args = (tabs, rs.tiles, prm)
+        k1 = fused_tiles.tile_forward(*args)
+        k1p = fused_tiles.tile_forward_set_plain(*args)
+        gen = torch.Generator(device=dev).manual_seed(62)
+        gs = torch.randn((rs.tiles.n_tiles, 5, 16, 16), generator=gen,
+                         device=dev)
+        k2, _ = fused_tiles.tile_backward(tabs, rs.tiles, gs, prm)
+        k2p, _ = fused_tiles.tile_backward_set_plain(tabs, rs.tiles, gs, prm)
+        torch.cuda.synchronize()
+        require(torch.equal(k1, k1p) and torch.equal(k2, k2p),
+                "K1 / K2 on the rank's shard differ from their twins")
+        k1_in = tile_in_bytes(args)
+        out["shard_kernels"] = {
+            "tiles": rs.tiles.n_tiles, "groups": len(rs.groups),
+            "live": rs.tiled_samples,
+            "k1_err": float((k1 - k1p).abs().max()),
+            "k2_err": float((k2 - k2p).abs().max()),
+            "k1_ms": cuda_ms(torch, lambda: fused_tiles.tile_forward(*args),
+                             20),
+            "k1_plain_ms": cuda_ms(
+                torch, lambda: fused_tiles.tile_forward_set_plain(*args), 1,
+                warmup=1),
+            "k2_ms": cuda_ms(torch, lambda: fused_tiles.tile_backward(
+                tabs, rs.tiles, gs, prm), 20),
+            "k2_plain_ms": cuda_ms(
+                torch, lambda: fused_tiles.tile_backward_set_plain(
+                    tabs, rs.tiles, gs, prm), 1, warmup=1),
+            "k1_bytes": k1_in + nbytes(k1),
+            "k2_bytes": k1_in + nbytes(gs) + nbytes(k2)}
+        # K9f / K9b on this rank's ray shard (render_sharded) and on its
+        # first view of the view-DP step, against their twins, timed
+        k9_launches = {"integrate": out["launches"][0][4],
+                       "integrate_bwd": out["launches"][0][5]}
+        with torch.no_grad():
+            _, _, sigma, color, lattice = shard.ray_shard_lattice(
+                plan, field, mesh)
+            ray_in = [(sigma, color, lattice.dt, lattice.mask, None)]
+            view_in = outputs_inputs(pipeline.render(
+                fplan, ffield, c2w=shard.batch_sharded(mesh, c2ws)[0],
+                jitter=pipeline.plan_jitter_table(fplan)))
+        out["k9_entries"] = []
+        for form, inputs, (t_near, t_far) in (
+                ("ray_shard_d2", ray_in, (plan.t_near, plan.t_far)),
+                ("view_dp_d2", view_in, (fplan.t_near, fplan.t_far))):
+            gk = [torch.rand((x[0].shape[0], 3), generator=gen, device=dev)
+                  * 2 - 1 for x in inputs]
+            out["k9_entries"] += k9_entries(
+                torch, form, inputs, gk, k9_launches, (t_near, t_far),
+                f"rank 0 of 2, {tuple(inputs[0][0].shape)}")
+            del inputs, gk
+        del ray_in, view_in, sigma, color, lattice
+    return out
+
+
+def _par_line(tag, r) -> str:
+    t = r["times"]
+    return (f"{tag}: shard {r['shard_s']:.4f} s host, rank schedule "
+            f"{r['rank_schedule_s']:.4f} s (build and upload), rank 0's "
+            f"live tiles per group {r['rank_tiles']}; ms median (min-max) "
+            f"per rank: tiled frame {spread(t['tiled_frame'])}, tile-DP "
+            f"step {spread(t['tile_dp_step'])}, ray frame "
+            f"{spread(t['ray_frame'])}, z frame {spread(t['z_frame'])}, "
+            f"multi-view step {spread(t['multiview_step'])}, view-DP step "
+            f"{spread(t['view_dp_step'])}")
+
+
+def run_parallel(torch, P, dev, card, sched_host=None) -> tuple[list, dict]:
+    """Phases 62-64: the sharded paths of ``dvren_tpu_torch.parallel``.
+
+    62. D = 1 over NCCL (one spawned rank on the card), at the dense
+        headline and the fit flagship's eight views (``parallel_rank``);
+    63. D = 2 over gloo, two ranks sharing the card (both ``cuda:0``; NCCL
+        refuses two ranks on one GPU): the same checks, results equal to
+        D = 1's within their bounds, each rank's K1, K2, K3, K4, K9f and
+        K9b launches on the main path above 0, K1 / K2 on rank 0's shard
+        and K9f / K9b on its ray shard and first view-DP view against
+        their twins and timed;
+    64. ``dryrun_multichip(2, backend="gloo")``.
+    Times at D = 2 are two ranks sharing one card, not a scaling figure.
+    The kernels were built by phase 1: the ranks load the library."""
+    from dvren_tpu_torch.parallel import launch, shard
+    from dvren_tpu_torch.parallel.dryrun import dryrun_multichip
+    from dvren_tpu_torch.render import tiled
+
+    report, t_all = {}, time.perf_counter()
+    if sched_host is None:
+        plan, config = headline_scene(P)
+        field = P.DenseGridField.create(config, device=dev)
+        sched_host, _ = tiled.build_tiled_schedule_auto(plan, field)
+    shard_s = {}
+    for d in (1, 2, 4, 8):
+        t0 = time.perf_counter()
+        shard.shard_tiled_schedule(sched_host, d)
+        shard_s[d] = time.perf_counter() - t0
+    report["shard_tiled_schedule_s"] = shard_s
+    print(f"phase 62: shard_tiled_schedule host s at D = 1, 2, 4, 8: "
+          f"{[round(v, 4) for v in shard_s.values()]}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r1 = launch(parallel_rank, 1, sched_host, FIT_VIEWS, backend="nccl")
+    report["d1_s"] = time.perf_counter() - t0
+    t = r1["times"]
+    print(f"phase 62 (D = 1, {r1['backend']}, {r1['device']}, "
+          f"{report['d1_s']:.1f} s): frame bit-equal "
+          f"{r1['frame_bit_equal']}, ray frame bit-equal "
+          f"{r1['ray_bit_equal']}, z-sharded {r1['zsharded']}, tile-DP "
+          f"grads {r1['tile_dp_err']:.3e} x scale (bit-equal "
+          f"{r1['tile_dp_bit_equal']}), repeat equal {r1['repeat_equal']}, "
+          f"ranks agree {r1['ranks_agree']}, "
+          f"multi-view {r1['multiview_err']:.3e}, view-DP "
+          f"{r1['view_dp_err']:.3e}, fit losses {r1['fit_losses']}; "
+          f"launches {dict(zip([n for n, _, _ in PAR_COUNTERS], r1['launches'][0]))}",
+          flush=True)
+    print(_par_line("phase 62 times", r1), flush=True)
+    print(f"phase 62 single card: tiled frame "
+          f"{spread(t['single_tiled_frame'])}, tiled step "
+          f"{spread(t['single_tile_step'])}, pipeline.render "
+          f"{spread(t['single_ray_frame'])}, merged-stack step "
+          f"{spread(t['single_multiview_step'])}", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    r2 = launch(parallel_rank, 2, sched_host, FIT_VIEWS, backend="gloo",
+                device="cuda:0")
+    report["d2_s"] = time.perf_counter() - t0
+    names = [n for n, _, _ in PAR_COUNTERS]
+    for rank, row in enumerate(r2["launches"]):
+        print(f"phase 63 rank {rank} launches on the main path: "
+              f"{dict(zip(names, row))}", flush=True)
+        require(all(v > 0 for v in row),
+                f"rank {rank} did not launch every kernel: "
+                f"{dict(zip(names, row))}")
+    require(np.array_equal(r2["frame"], r1["frame"]),
+            "the D = 2 frame differs from D = 1's")
+    d12 = {}
+    for key in ("tile_dp_grads", "multiview_grads", "view_dp_grads"):
+        d12[key] = max(rel_err(torch.from_numpy(a), torch.from_numpy(b))
+                       for a, b in zip(r2[key], r1[key]))
+    d12["zframe"] = float(np.abs(r2["zframe"] - r1["zframe"]).max())
+    print(f"phase 63 (D = 2, {r2['backend']}, two ranks on "
+          f"{r2['device']}, {report['d2_s']:.1f} s): frame bit-equal "
+          f"{r2['frame_bit_equal']} (and to D = 1's), ray frame bit-equal "
+          f"{r2['ray_bit_equal']}, z-sharded {r2['zsharded']}, tile-DP "
+          f"grads {r2['tile_dp_err']:.3e} x scale, repeat equal "
+          f"{r2['repeat_equal']}, ranks agree {r2['ranks_agree']}, "
+          f"multi-view {r2['multiview_err']:.3e}, "
+          f"view-DP {r2['view_dp_err']:.3e}, fit losses "
+          f"{r2['fit_losses']}; against D = 1: {d12}", flush=True)
+    require(max(v for k, v in d12.items() if k != "zframe") <= GRID_TOL
+            and d12["zframe"] <= PAR_PLANES_TOL,
+            f"D = 2 results differ from D = 1's: {d12}")
+    print(_par_line("phase 63 times (two ranks sharing one card, not a "
+                    "scaling figure)", r2), flush=True)
+    sk = r2["shard_kernels"]
+    print(f"phase 63 rank 0's shard ({sk['tiles']} tiles in "
+          f"{sk['groups']} groups, {sk['live']} live samples): K1 "
+          f"{sk['k1_ms']:.4f} ms (plain {sk['k1_plain_ms']:.4f}), K2 "
+          f"{sk['k2_ms']:.4f} ms (plain {sk['k2_plain_ms']:.4f}), both "
+          f"bit-equal to their twins", flush=True)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    dry = dryrun_multichip(2, backend="gloo")
+    report["dryrun_s"] = time.perf_counter() - t0
+    print(f"phase 64: dryrun_multichip(2, gloo) {report['dryrun_s']:.1f} s: "
+          f"{dry}", flush=True)
+    report.update(d1=_par_summary(r1), d2=_par_summary(r2), d2_vs_d1=d12,
+                  dryrun=dry, card=card,
+                  total_s=time.perf_counter() - t_all)
+    kernels = [
+        {"name": "fused_tiles:rank_shard_d2", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:656",
+         "launches": r2["launches"][0][0], "max_abs_err": sk["k1_err"],
+         "ms": sk["k1_ms"], "plain_ms": sk["k1_plain_ms"],
+         **bound(sk["k1_bytes"], sk["live"] * DENSE_FWD_OPS)},
+        {"name": "fused_tiles_bwd:rank_shard_d2", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:714",
+         "launches": r2["launches"][0][1], "max_abs_err": sk["k2_err"],
+         "ms": sk["k2_ms"], "plain_ms": sk["k2_plain_ms"],
+         **bound(sk["k2_bytes"], sk["live"] * DENSE_BWD_OPS)},
+    ] + r2["k9_entries"]
+    return kernels, report
+
+
+def _par_summary(r) -> dict:
+    """A rank result without its arrays."""
+    return {k: v for k, v in r.items()
+            if k not in ("frame", "zframe", "tile_dp_grads",
+                         "multiview_grads", "view_dp_grads", "k9_entries")}
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -5375,6 +5862,13 @@ def run(only: str = "all") -> dict:
         elapsed("58-61")
         print(json.dumps({"kernels": posed_kernels}), flush=True)
         print(json.dumps({**posed_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "parallel":
+        par_kernels, par_report = run_parallel(torch, P, dev, card)
+        elapsed("62-64")
+        print(json.dumps({"kernels": par_kernels}), flush=True)
+        print(json.dumps({**par_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
 
@@ -5813,6 +6307,10 @@ def run(only: str = "all") -> dict:
     posed_kernels, hash_report["posed"] = run_posed(torch, P, dev, card)
     kernels += posed_kernels
     elapsed("58-61")
+    par_kernels, hash_report["parallel"] = run_parallel(
+        torch, P, dev, card, sched_host=sched_host)
+    kernels += par_kernels
+    elapsed("62-64")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -5848,7 +6346,7 @@ def main() -> int:
     parser.add_argument(
         "--only", choices=("all", "dense", "tiles", "tables", "hash",
                            "grid", "gridviews", "window", "split", "sched",
-                           "general", "posed"),
+                           "general", "posed", "parallel"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
@@ -5867,7 +6365,10 @@ def main() -> int:
              "52-57 (the Renderer's streamed, fused, staged and override "
              "paths over K9f / K9b, render_views); 'posed': phase 1 and "
              "phases 58-61 (the device-built pose schedule, enable_graph's "
-             "CUDA graphs, the tiled stage timings, the CLI); "
+             "CUDA graphs, the tiled stage timings, the CLI); 'parallel': "
+             "phase 1 and phases 62-64 (the sharded paths over "
+             "torch.distributed at D = 1 over NCCL and D = 2 sharing the "
+             "card over gloo, dryrun_multichip); "
              "each for timing two trees against each other in one call")
     parser.add_argument("--split-child", action="store_true",
                         help=argparse.SUPPRESS)   # phase 45's child process

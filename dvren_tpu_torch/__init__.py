@@ -16,7 +16,8 @@ compose of rays that share pixels, run on any device, with their
 gradients (:meth:`Renderer.backward`, :mod:`dvren_tpu_torch.ops.diff`) and
 the parity views. Training: autograd of the render functions,
 :func:`dvren_tpu_torch.opt.fit.fit_dense_grid`, ``fit_hash_mlp`` and
-``render_views`` (see ROADMAP.md for what follows).
+``render_views``; across devices, :mod:`dvren_tpu_torch.parallel` over
+``torch.distributed`` (see ROADMAP.md for what follows).
 """
 
 from dvren_tpu_torch.version import __version__

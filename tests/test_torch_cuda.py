@@ -2177,3 +2177,23 @@ def test_cli_on_the_card(cuda_device, config, tmp_path, monkeypatch):
     np.testing.assert_allclose(images[str(card)], images[str(host)],
                                atol=5e-6, rtol=0)
     assert card.read_bytes() == host.read_bytes()
+
+
+def test_tile_dp_step_on_the_card_matches_render_tiled(cuda_device):
+    """dvren_tpu_torch.parallel at D = 1 over NCCL on the card: the
+    tile-sharded frame bit-equal to render_tiled, one tile-DP step's
+    summed gradients within 2e-6 x scale of autograd through render_tiled
+    (K3, K1, K2, K4 on the rank's schedule), a repeat step bit for bit."""
+    import torch_parallel_ranks as ranks     # tests/, on pytest's path
+
+    from dvren_tpu_torch.parallel import launch
+
+    _build.library()          # built before the rank starts; it loads it
+    out = launch(ranks.tile_dp_case, 1)
+    assert out["device"] == "cuda:0" and out["backend"] == "nccl"
+    assert out["frame_bit_equal"]
+    for got, again, ref in zip(out["grads"], out["repeat_grads"],
+                               out["ref_grads"]):
+        np.testing.assert_array_equal(got, again)
+        np.testing.assert_allclose(got, ref, rtol=0,
+                                   atol=GRID_TOL * np.abs(ref).max())
