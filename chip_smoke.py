@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed|parallel]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed|parallel|close]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -274,8 +274,8 @@ K5a / K5b),
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
 37-41, ``--only split`` phases 1 and 42-46, ``--only sched`` phases 1 and
 47-51, ``--only general`` phases 1 and 52-57, ``--only parallel`` phases
-1 and 62-64: each alone, to time two trees against each other in one
-call.
+1 and 62-64, ``--only close`` phases 1 and 65-69: each alone, to time two
+trees against each other in one call.
 
 Phases 47-51 drive every option of the tile schedule builder and
 the modules that wait on them: the native scheduler core against the
@@ -379,6 +379,27 @@ drive ``dvren_tpu_torch.parallel`` on ranks spawned by its ``launch``
     ``:view_dp_d2``); the times are two ranks on one card, not a scaling
     figure;
 64. ``dryrun_multichip(2, backend="gloo")``.
+
+Phases 65-69 (last; ``--only close`` runs phases 1 and 65-69 alone), each
+fatal when it fails:
+
+65. the jitter kernel (``csrc/jitter.cu``) at the headline's 262,144 x
+    128 lattice, bit-equal to its twin on the card and to the host table,
+    timed (device and as issued) beside the twin;
+66. ``pipeline.render`` with no jitter table at the headline: the jitter
+    kernel and K9f once each (the counts set to 0 just before), the frame
+    bit-equal to the uploaded table's; median of 5 against the resident
+    table and the host gather route the kernel replaces;
+67. the headline schedule at ``bank_aligned=True``: bank and group
+    counts against the dense packing, the frame and the grid and camera
+    gradients through ``render_tiled`` bit-equal to it, K1 / K2 bit-equal
+    to their twins and timed beside the dense packing's (the kernels line
+    adds ``fused_tiles[_bwd]:bank_aligned``);
+68. the fit flagship's merged schedule through
+    ``make_train_block_scheduled``: a block of 8 Adam steps bit-equal to 8
+    single steps, K1 / K2 once a step, a warm block timed;
+69. ``utils/roofline.forward_roofline`` of the headline schedule beside
+    its measured frame (median of 10).
 
 Each mode's ``Renderer.forward`` and ``.backward`` is timed over 10 warm
 runs between CUDA events (median and spread), beside the peak device
@@ -4369,22 +4390,14 @@ OVERRIDE_OFFSET = 0.25   # px: phase 55's two rays per pixel sit at +- this
 
 
 def event_times(torch, fn, runs=GENERAL_RUNS, warmup=1) -> dict:
-    """``fn`` timed ``runs`` times after ``warmup`` runs, each between its
-    own CUDA events: the median, least and largest ms."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(runs):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return {"median": float(np.median(times)), "min": float(min(times)),
-            "max": float(max(times)), "runs": runs}
+    """``fn`` timed ``runs`` times after ``warmup`` runs, each after a
+    synchronize between its own CUDA events (``utils/timing.time_calls``):
+    the median, least and largest ms."""
+    from dvren_tpu_torch.utils import timing
+
+    t = timing.time_calls(fn, [()], runs, warmup, cuda=True)
+    return {"median": t["median_s"] * 1e3, "min": t["min_s"] * 1e3,
+            "max": t["max_s"] * 1e3, "runs": runs}
 
 
 def spread(t: dict) -> str:
@@ -5661,6 +5674,27 @@ def run_parallel(torch, P, dev, card, sched_host=None) -> tuple[list, dict]:
         and K9f / K9b on its ray shard and first view-DP view against
         their twins and timed;
     64. ``dryrun_multichip(2, backend="gloo")``.
+
+Phases 65-69 (last; ``--only close`` runs phases 1 and 65-69 alone), each
+fatal when it fails:
+
+65. the jitter kernel (``csrc/jitter.cu``) at the headline's 262,144 x
+    128 lattice, bit-equal to its twin on the card and to the host table,
+    timed (device and as issued) beside the twin;
+66. ``pipeline.render`` with no jitter table at the headline: the jitter
+    kernel and K9f once each (the counts set to 0 just before), the frame
+    bit-equal to the uploaded table's; median of 5 against the resident
+    table and the host gather route the kernel replaces;
+67. the headline schedule at ``bank_aligned=True``: bank and group
+    counts against the dense packing, the frame and the grid and camera
+    gradients through ``render_tiled`` bit-equal to it, K1 / K2 bit-equal
+    to their twins and timed beside the dense packing's (the kernels line
+    adds ``fused_tiles[_bwd]:bank_aligned``);
+68. the fit flagship's merged schedule through
+    ``make_train_block_scheduled``: a block of 8 Adam steps bit-equal to 8
+    single steps, K1 / K2 once a step, a warm block timed;
+69. ``utils/roofline.forward_roofline`` of the headline schedule beside
+    its measured frame (median of 10).
     Times at D = 2 are two ranks sharing one card, not a scaling figure.
     The kernels were built by phase 1: the ranks load the library."""
     from dvren_tpu_torch.parallel import launch, shard
@@ -5774,6 +5808,301 @@ def _par_summary(r) -> dict:
                          "multiview_grads", "view_dp_grads", "k9_entries")}
 
 
+CLOSE_BLOCK = 8          # steps in phase 68's fit block
+CLOSE_RUNS = 5           # timed runs of the lattice renders (median, spread)
+PARENT_RUNS = 3          # timed runs of the host jitter route
+
+
+def parent_jitter_rows(torch, plan, rays):
+    """The stratified jitter as ``pipeline.render(jitter=None)`` drew it
+    before the jitter kernel: the (N, K) ray and step indices copied to
+    the host, clipped into the plan's host table, gathered there and
+    uploaded (``ops/sampling.py::_host_jitter_rows`` as it was)."""
+    from dvren_tpu_torch.render.pipeline import plan_jitter_table
+
+    n, k = rays.count, plan.sampling.max_steps
+    dev = rays.origins.device
+    steps2d = torch.arange(k, dtype=torch.int32, device=dev)[None, :].expand(
+        n, k)
+    ray_idx = torch.arange(n, dtype=torch.int64, device=dev)[:, None].expand(
+        n, k)
+    table = plan_jitter_table(plan)
+    rows = np.clip(ray_idx.cpu().numpy(), 0, table.shape[0] - 1)
+    cols = np.clip(steps2d.cpu().numpy(), 0, table.shape[1] - 1)
+    return torch.from_numpy(np.ascontiguousarray(table[rows, cols])).to(dev)
+
+
+def frame_grads(torch, tiled, plan, field, sched):
+    """(the four planes, d_sigma, d_color, d_c2w, d_k) of
+    sum(img * 0.001 + img^2 * 0.01) through ``render_tiled``."""
+    from dvren_tpu_torch.ops.raygen import camera_arrays
+
+    f = field.with_params(field.sigma.detach().clone().requires_grad_(),
+                          field.color.detach().clone().requires_grad_())
+    k, c2w, _ = camera_arrays(plan, field.device)
+    k.requires_grad_(True)
+    c2w.requires_grad_(True)
+    planes = tiled.render_tiled(plan, f, sched, k=k, c2w=c2w)
+    img = planes.image
+    grads = torch.autograd.grad(torch.sum(img * 0.001 + img ** 2 * 0.01),
+                                (f.sigma, f.color, c2w, k))
+    return (planes.image.detach(), planes.transmittance.detach(),
+            planes.opacity.detach(), planes.depth.detach()) + grads
+
+
+def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
+    """Phases 65-69: the stratified jitter on the card, ``pipeline.render``
+    without a table, bank-aligned packing, the fit block and the
+    headline's byte floor."""
+    from dvren_tpu_torch.ops import (fused_tiles, integrate_fused,
+                                     packed_transpose, rng)
+    from dvren_tpu_torch.ops.raygen import generate_rays
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.render import pipeline, tiled
+    from dvren_tpu_torch.utils import roofline
+
+    report = {}
+    if headline is None:
+        plan, config = headline_scene(P)
+        field = P.DenseGridField.create(config, device=dev).requires_grad_(
+            False)
+    else:
+        plan, config, field, _ = headline
+    n, k_steps = plan.ray_count, plan.sampling.max_steps
+
+    # 65. the jitter kernel at the headline's lattice
+    t0 = time.perf_counter()
+    table = pipeline.plan_jitter_table(plan)
+    table_s = time.perf_counter() - t0
+    rays_i = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    steps = torch.arange(k_steps, dtype=torch.int32, device=dev)[
+        None, :].expand(n, k_steps)
+    bounds = (n, k_steps)
+    got = rng.stratified_jitter(plan.seed, rays_i, steps, bounds=bounds)
+    twin = rng.stratified_jitter_plain(plan.seed, rays_i, steps, bounds)
+    torch.cuda.synchronize()
+    require(torch.equal(got, twin), "the jitter kernel differs from its twin")
+    require(np.array_equal(got.cpu().numpy(), table),
+            "the jitter kernel differs from the host table")
+    jit_ms = device_ms(torch, lambda: rng.stratified_jitter(
+        plan.seed, rays_i, steps, bounds=bounds), 50)
+    jit_issued_ms = cuda_ms(torch, lambda: rng.stratified_jitter(
+        plan.seed, rays_i, steps, bounds=bounds), 50)
+    jit_plain_ms = cuda_ms(torch, lambda: rng.stratified_jitter_plain(
+        plan.seed, rays_i, steps, bounds), 5, warmup=1)
+    jit_bytes = n * k_steps * 4 + n * 8 + k_steps * 4
+    print(f"65. jitter kernel at {n} x {k_steps} ({n * k_steps} values): "
+          f"bit-equal to its twin on the card and to the host table "
+          f"({table_s:.3f} s to build on the host); {jit_ms:.4f} ms on the "
+          f"device, {jit_issued_ms:.4f} as issued (twin {jit_plain_ms:.4f}); "
+          f"bound {jit_bytes / HBM_BYTES_S * 1e3:.4f} ms ({jit_bytes} bytes) "
+          f"[{card}]", flush=True)
+
+    # 66. pipeline.render without a table: the main path of the kernel
+    table_dev = torch.from_numpy(np.array(table)).to(dev)
+    rng.stratified_jitter.launches = 0
+    integrate_fused.integrate_forward.launches = 0
+    with torch.no_grad():
+        out = pipeline.render(plan, field)
+        jit_launches = rng.stratified_jitter.launches
+        k9_launches = integrate_fused.integrate_forward.launches
+        ref = pipeline.render(plan, field, jitter=table_dev)
+        torch.cuda.synchronize()
+        require(jit_launches == 1 and k9_launches == 1,
+                f"pipeline.render launched the jitter kernel {jit_launches} "
+                f"times and K9f {k9_launches} times")
+        for key in ("image", "transmittance", "opacity", "depth"):
+            require(torch.equal(getattr(out.planes, key),
+                                getattr(ref.planes, key)),
+                    f"pipeline.render without a table differs in {key}")
+        require(bool(torch.isfinite(out.planes.image).all())
+                and float(out.planes.opacity.max()) > 0.0,
+                "pipeline.render's frame is not finite or empty")
+        new_t = event_times(torch, lambda: pipeline.render(plan, field),
+                            CLOSE_RUNS)
+        table_t = event_times(torch, lambda: pipeline.render(
+            plan, field, jitter=table_dev), CLOSE_RUNS)
+
+        def parent_route():
+            rays = generate_rays(plan, device=dev)
+            return pipeline.render(plan, field, jitter=parent_jitter_rows(
+                torch, plan, rays))
+
+        parent_t = event_times(torch, parent_route, PARENT_RUNS)
+    print(f"66. pipeline.render(jitter=None) at the headline: launches "
+          f"jitter {jit_launches}, K9f {k9_launches}; bit-equal to the "
+          f"uploaded table's frame; ms {spread(new_t)}; with the table "
+          f"resident {spread(table_t)}; the host gather route it replaces "
+          f"{spread(parent_t)} [{card}]", flush=True)
+    report["pipeline_render_ms"] = {"device_jitter": new_t,
+                                    "resident_table": table_t,
+                                    "host_gather": parent_t}
+
+    # 67. the headline at bank_aligned=True against the dense packing
+    scheds = {}
+    for aligned in (False, True):
+        t0 = time.perf_counter()
+        s = tiled.build_tiled_schedule(plan, field, bank_aligned=aligned)
+        scheds[aligned] = (s, time.perf_counter() - t0)
+    (s_dense, dense_s), (s_al, al_s) = scheds[False], scheds[True]
+
+    def banks(s):
+        return int(sum(g.n_tiles * g.banks for g in s.groups))
+
+    b0 = np.concatenate([g.bank0.reshape(-1) for g in s_al.groups])
+    flags = int(((b0 >> 30) & 1).sum())
+    require(flags > 0, "no run carries the ALIGNED bit")
+    d_dev, a_dev = s_dense.to(dev), s_al.to(dev)
+    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
+    reset_counts(fused_tiles, packed_transpose)
+    aligned_out = frame_grads(torch, tiled, plan, field, a_dev)
+    al_launches = counts()
+    dense_out = frame_grads(torch, tiled, plan, field, d_dev)
+    torch.cuda.synchronize()
+    names = ("image", "T", "opacity", "depth", "d_sigma", "d_color", "d_c2w",
+             "d_k")
+    for name, x, y in zip(names, aligned_out, dense_out):
+        require(torch.equal(x, y),
+                f"bank-aligned {name} differs from the dense packing")
+    require(al_launches["fused_tiles"] >= 1
+            and al_launches["fused_tiles_bwd"] >= 1,
+            f"the bank-aligned frame and backward did not launch K1 / K2: "
+            f"{al_launches}")
+    rows = packed_transpose.build_rows(field.sigma.detach(),
+                                       field.color.detach())
+    gen = torch.Generator(device=dev).manual_seed(67)
+    times, al_entries = {}, []
+    for label, s in (("dense", d_dev), ("aligned", a_dev)):
+        tabs = tiled._gather_banks_flat(rows, s.gathermap_all)
+        prm = fused_tiles.tiles_op_params(
+            plan, (s.bbox[0], s.bbox[1], s.grid_shape), s.tiles)
+        gs = torch.randn((s.tiles.n_tiles, 5, 16, 16), generator=gen,
+                         device=dev)
+        k1 = cuda_ms(torch, lambda: fused_tiles.tile_forward(
+            tabs, s.tiles, prm), 20)
+        k2 = cuda_ms(torch, lambda: fused_tiles.tile_backward(
+            tabs, s.tiles, gs, prm, cam=True), 20)
+        times[label] = (k1, k2)
+        if label == "aligned":
+            out_k = fused_tiles.tile_forward(tabs, s.tiles, prm)
+            b_rows, b_rayt = fused_tiles.tile_backward(tabs, s.tiles, gs,
+                                                       prm, cam=True)
+            torch.cuda.synchronize()
+            p_rows, p_rayt = fused_tiles.tile_backward_set_plain(
+                tabs, s.tiles, gs, prm, cam=True)
+            require(torch.equal(out_k, fused_tiles.tile_forward_set_plain(
+                tabs, s.tiles, prm)) and torch.equal(b_rows, p_rows)
+                and torch.equal(b_rayt, p_rayt),
+                "bank-aligned K1 / K2 differ from their twins")
+            k1_plain = cuda_ms(torch, lambda: fused_tiles.tile_forward_set_plain(
+                tabs, s.tiles, prm), 1, warmup=1)
+            k2_plain = cuda_ms(torch, lambda: fused_tiles.tile_backward_set_plain(
+                tabs, s.tiles, gs, prm, cam=True), 1, warmup=1)
+            k1_in = tile_in_bytes((tabs, s.tiles, prm))
+            live = s.tiled_samples
+            al_entries = [
+                {"name": "fused_tiles:bank_aligned", "route": "cuda",
+                 "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
+                 "replaces": "dvren_tpu/ops/fused_tiles.py:656",
+                 "launches": al_launches["fused_tiles"], "max_abs_err": 0.0,
+                 "ms": k1, "plain_ms": k1_plain,
+                 **bound(k1_in + s.tiles.n_tiles * 5 * 256 * 4,
+                         live * DENSE_FWD_OPS)},
+                {"name": "fused_tiles_bwd:bank_aligned", "route": "cuda",
+                 "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
+                 "replaces": "dvren_tpu/ops/fused_tiles.py:714",
+                 "launches": al_launches["fused_tiles_bwd"],
+                 "max_abs_err": 0.0, "ms": k2, "plain_ms": k2_plain,
+                 **bound(k1_in + nbytes(gs, b_rows, b_rayt),
+                         live * DENSE_BWD_OPS)}]
+    print(f"67. bank_aligned at the headline: {len(s_al.groups)} groups, "
+          f"{banks(s_al)} banks (dense {len(s_dense.groups)} groups, "
+          f"{banks(s_dense)} banks: x{banks(s_al) / banks(s_dense):.4f}), "
+          f"banks <= {max(g.banks for g in s_al.groups)} (dense "
+          f"{max(g.banks for g in s_dense.groups)}), {flags} ALIGNED runs; "
+          f"built in {al_s:.3f} s (dense {dense_s:.3f}); frame, grid and "
+          f"camera gradients bit-equal to the dense packing; K1 "
+          f"{times['aligned'][0]:.4f} ms (dense {times['dense'][0]:.4f}), "
+          f"K2 {times['aligned'][1]:.4f} ms (dense {times['dense'][1]:.4f}), "
+          f"both bit-equal to their twins [{card}]", flush=True)
+    report["bank_aligned"] = {
+        "banks": banks(s_al), "dense_banks": banks(s_dense),
+        "groups": len(s_al.groups), "dense_groups": len(s_dense.groups),
+        "aligned_runs": flags, "k1_ms": times["aligned"][0],
+        "k1_dense_ms": times["dense"][0], "k2_ms": times["aligned"][1],
+        "k2_dense_ms": times["dense"][1]}
+
+    # 68. the fit flagship through the K-step block
+    plans, fconfig = flagship_views(P)
+    truth = P.DenseGridField.create(fconfig, device=dev).requires_grad_(False)
+    cams = [P.CameraConfig(c2w=pv.camera.c2w) for pv in plans]
+    views = fit._scheduled_views(plans[0], cams, truth, "tiled")
+    with torch.no_grad():
+        targets = views[2](truth, views[1])
+
+    def trained():
+        f = truth.with_params(torch.full_like(truth.sigma, 0.5),
+                              torch.full_like(truth.color, 0.5))
+        return f, torch.optim.Adam(f.parameters(), lr=FIT_LR,
+                                   betas=(0.9, 0.999), eps=1e-8)
+
+    fa, opt_a = trained()
+    block = fit.make_train_block_scheduled(plans[0], cams, fa, opt_a,
+                                           CLOSE_BLOCK, views=views)
+    reset_counts(fused_tiles, packed_transpose)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = block(fa, targets)
+    torch.cuda.synchronize()
+    first_block_s = time.perf_counter() - t0
+    blk_launches = counts()
+    fb, opt_b = trained()
+    step = fit.make_train_step_scheduled(plans[0], cams, fb, opt_b,
+                                         views=views)
+    singles = torch.stack([step(fb, targets) for _ in range(CLOSE_BLOCK)])
+    torch.cuda.synchronize()
+    require(losses.shape == (CLOSE_BLOCK,) and torch.equal(losses, singles)
+            and torch.equal(fa.sigma, fb.sigma)
+            and torch.equal(fa.color, fb.color),
+            "the fit block differs from its steps")
+    require(blk_launches["fused_tiles"] == CLOSE_BLOCK
+            and blk_launches["fused_tiles_bwd"] == CLOSE_BLOCK,
+            f"the block did not launch K1 / K2 once a step: {blk_launches}")
+    require(float(losses[-1]) < float(losses[0]), "the block's loss rose")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    block(fa, targets)
+    torch.cuda.synchronize()
+    block_ms = (time.perf_counter() - t0) * 1e3
+    print(f"68. fit flagship block of {CLOSE_BLOCK} Adam steps: losses "
+          f"{losses.tolist()}, bit-equal to {CLOSE_BLOCK} single steps; "
+          f"launches {blk_launches}; first block {first_block_s:.4f} s, a "
+          f"warm block {block_ms:.4f} ms ({block_ms / CLOSE_BLOCK:.4f} "
+          f"ms/step) [{card}]", flush=True)
+    report["fit_block"] = {"k": CLOSE_BLOCK, "block_ms": block_ms,
+                           "step_ms": block_ms / CLOSE_BLOCK}
+
+    # 69. the headline frame's byte floor
+    with torch.no_grad():
+        frame = event_times(torch, lambda: tiled.render_tiled(
+            plan, field, d_dev), 10, warmup=2)
+    line = roofline.forward_roofline(d_dev, measured_ms=frame["median"],
+                                     pixels=plan.pixel_count)
+    print("69. roofline " + json.dumps(line) + f" [{card}]", flush=True)
+    report["roofline"] = line
+
+    jitter_entry = {
+        "name": "stratified_jitter", "route": "cuda",
+        "source": "dvren_tpu_torch/csrc/jitter.cu",
+        "replaces": "dvren_tpu/ops/rng.py:80 (no Pallas kernel: the "
+                    "in-graph jitter)",
+        "launches": jit_launches,
+        "max_abs_err": float((got - twin).abs().max()), "ms": jit_ms,
+        "issued_ms": jit_issued_ms, "plain_ms": jit_plain_ms,
+        **bound(jit_bytes, 0)}
+    return [jitter_entry] + al_entries, report
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -5862,6 +6191,13 @@ def run(only: str = "all") -> dict:
         elapsed("58-61")
         print(json.dumps({"kernels": posed_kernels}), flush=True)
         print(json.dumps({**posed_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "close":
+        close_kernels, close_report = run_close(torch, P, dev, card)
+        elapsed("65-69")
+        print(json.dumps({"kernels": close_kernels}), flush=True)
+        print(json.dumps({**close_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
     if only == "parallel":
@@ -6202,20 +6538,27 @@ def run(only: str = "all") -> dict:
     k1_out = tiles.n_tiles * 5 * 256 * 4
     k2_out = nbytes(b_rows)
     live = sched.tiled_samples
+    from dvren_tpu_torch.utils import roofline
+
+    streams = roofline.forward_streams(sched)["phases"]
+    require(streams["kernel"]["bytes"] == k1_in + k1_out
+            and streams["table"]["bytes"] == nbytes(sigma, color, rows_k),
+            "utils/roofline.py's K1 / K3 bytes differ from the kernels' "
+            "inputs and outputs")
     kernels = [
         {"name": "fused_tiles", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
          "replaces": "dvren_tpu/ops/fused_tiles.py:656",
          "launches": launches["fused_tiles"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms,
-         **bound(k1_in + k1_out, live * DENSE_FWD_OPS)},
+         **bound(streams["kernel"]["bytes"], live * DENSE_FWD_OPS)},
         {"name": "packed_table", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/packed_table.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:81",
          "launches": launches["packed_table"],
          "max_abs_err": float((rows_k - rows_p).abs().max()),
          "ms": k3_ms, "issued_ms": k3_issued_ms, "plain_ms": k3_plain_ms,
-         **bound(nbytes(sigma, color, rows_k), 0)},
+         **bound(streams["table"]["bytes"], 0)},
         {"name": "fused_tiles_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
          "replaces": "dvren_tpu/ops/fused_tiles.py:714",
@@ -6311,6 +6654,10 @@ def run(only: str = "all") -> dict:
         torch, P, dev, card, sched_host=sched_host)
     kernels += par_kernels
     elapsed("62-64")
+    close_kernels, hash_report["close"] = run_close(
+        torch, P, dev, card, headline=(plan, config, field, sched_host))
+    kernels += close_kernels
+    elapsed("65-69")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -6346,7 +6693,7 @@ def main() -> int:
     parser.add_argument(
         "--only", choices=("all", "dense", "tiles", "tables", "hash",
                            "grid", "gridviews", "window", "split", "sched",
-                           "general", "posed", "parallel"),
+                           "general", "posed", "parallel", "close"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
@@ -6368,7 +6715,9 @@ def main() -> int:
              "CUDA graphs, the tiled stage timings, the CLI); 'parallel': "
              "phase 1 and phases 62-64 (the sharded paths over "
              "torch.distributed at D = 1 over NCCL and D = 2 sharing the "
-             "card over gloo, dryrun_multichip); "
+             "card over gloo, dryrun_multichip); 'close': phase 1 and "
+             "phases 65-69 (the jitter kernel, pipeline.render without a "
+             "table, bank-aligned K1 / K2, the fit block, the roofline); "
              "each for timing two trees against each other in one call")
     parser.add_argument("--split-child", action="store_true",
                         help=argparse.SUPPRESS)   # phase 45's child process

@@ -51,6 +51,7 @@ from dvren_tpu_torch.render.windowed import (
     WindowedSchedule,
     build_schedule,
     render_windowed,
+    render_windowed_traced,
 )
 
 __all__ = [
@@ -84,4 +85,5 @@ __all__ = [
     "WindowedSchedule",
     "build_schedule",
     "render_windowed",
+    "render_windowed_traced",
 ]

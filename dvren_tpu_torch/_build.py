@@ -41,6 +41,8 @@ _FLAGS = ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_L = ctypes.c_longlong
+_U64 = ctypes.c_ulonglong
 # (argtypes, restype) per C entry point (see csrc/*.cu)
 _SIGNATURES = {
     "dvt_packed_table": ([_P, _P, _P] + [_I] * 8 + [_P], _I),
@@ -81,6 +83,8 @@ _SIGNATURES = {
     "dvt_hash_grid_backward_occupancy": ([_I] * 4 + [_P], _I),
     "dvt_integrate_forward": ([_P] * 8 + [_I, _I] + [_F] * 4 + [_P], _I),
     "dvt_integrate_backward": ([_P] * 11 + [_I, _I, _F, _P], _I),
+    "dvt_stratified_jitter": ([_P, _L, _L, _P, _L, _L, _P, _L, _I, _L, _L,
+                               _U64, _P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -12,10 +12,11 @@ a boolean mask marks its live samples, a prefix of the ray:
 - ``dt = min(base_t + dt, t_far) - base_t`` on live samples, 0 elsewhere;
 - positions ``origin + direction * sample_t`` as three coordinate planes.
 
-The JAX package can hash the stratified jitter in the graph with a uint32
-emulation of splitmix64; the port does not carry that emulation: without
-a jitter table a stratified lattice gathers its rows from the plan's host
-table (:func:`dvren_tpu_torch.render.pipeline.plan_jitter_table`).
+Without a jitter table a stratified lattice hashes its jitter where its
+rays live (:func:`dvren_tpu_torch.ops.rng.stratified_jitter`: the jitter
+kernel on CUDA tensors), as JAX hashes it inside the graph, at the
+indices clamped into the plan's host table, so the lattice equals the
+table route's bit for bit.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ import numpy as np
 import torch
 
 from dvren_tpu_torch.core.plan import Plan, SamplingMode
+from dvren_tpu_torch.ops import rng
 from dvren_tpu_torch.ops.raygen import Rays
 
 
@@ -68,19 +70,6 @@ class SampleLattice:
                           torch.cumsum(per_ray, 0).to(torch.int32)])
 
 
-def _host_jitter_rows(plan: Plan, ray_idx: torch.Tensor,
-                      steps2d: torch.Tensor) -> torch.Tensor:
-    """The stratified jitter of (ray, step) pairs, gathered from the
-    plan's host table (rows and columns clamped into it)."""
-    from dvren_tpu_torch.render.pipeline import plan_jitter_table
-
-    table = plan_jitter_table(plan)
-    rows = np.clip(ray_idx.cpu().numpy(), 0, table.shape[0] - 1)
-    cols = np.clip(steps2d.cpu().numpy(), 0, table.shape[1] - 1)
-    return torch.from_numpy(np.ascontiguousarray(table[rows, cols])).to(
-        steps2d.device)
-
-
 def generate_samples(plan: Plan, rays: Rays,
                      ray_index_offset: torch.Tensor | int = 0,
                      jitter: torch.Tensor | None = None,
@@ -91,7 +80,8 @@ def generate_samples(plan: Plan, rays: Rays,
     ``ray_index_offset`` (an int or an (N,) tensor) shifts the ray indices
     that key the stratified jitter, so a block of rays draws the jitter of
     its global rays. ``jitter`` (N, K): precomputed rows, which take
-    precedence. ``step_offset`` (N,): each ray's first global step (the
+    precedence; without them a stratified plan's jitter is hashed on the
+    rays' device. ``step_offset`` (N,): each ray's first global step (the
     window-clipped path), slot j covering step ``step_offset + j`` over
     ``num_steps`` slots (default ``max_steps``); the global lattice, its
     jitter keying and the max_steps bound are kept, so the window's
@@ -116,10 +106,15 @@ def generate_samples(plan: Plan, rays: Rays,
     if jitter is not None:
         jit = jitter.to(device=dev, dtype=torch.float32)
     elif plan.sampling.mode == SamplingMode.STRATIFIED:
-        offset = torch.as_tensor(ray_index_offset, device=dev)
-        ray_idx = (torch.arange(n, dtype=torch.int64, device=dev)
-                   + offset.to(torch.int64))[:, None].expand(n, k_steps)
-        jit = _host_jitter_rows(plan, ray_idx, steps2d)
+        ray_idx = torch.arange(n, dtype=torch.int64, device=dev)
+        if isinstance(ray_index_offset, torch.Tensor):
+            ray_idx = ray_idx + ray_index_offset.to(device=dev,
+                                                    dtype=torch.int64)
+        else:
+            ray_idx = ray_idx + int(ray_index_offset)
+        jit = rng.stratified_jitter(
+            plan.seed, ray_idx[:, None], steps2d,
+            bounds=(plan.ray_count, plan.sampling.max_steps))
     else:
         jit = torch.full((1, 1), 0.5, dtype=torch.float32, device=dev)
     jit = torch.clamp(jit, 0.0, 1.0)

@@ -10,9 +10,12 @@ once per merged group per step); "windowed", one merged multi-view
 windowed schedule (K9f and K9b once per stack group per step); "plain",
 the dense lattice of each view through ``pipeline.render`` (K9f / K9b
 once per view). :func:`fit_hash_mlp` fits a hash-MLP field through K7f /
-K7b. JAX runs ``sync_every`` steps in one ``lax.scan``; here the steps
-run one by one and the losses are copied to the host every
-``sync_every`` steps.
+K7b. JAX runs ``sync_every`` steps in one ``lax.scan``
+(``make_train_block_scheduled``); here the steps run one by one, their
+losses stay on the device, and they are copied to the host every
+``sync_every`` steps and after the last, so a fit syncs where JAX's
+blocks end. :func:`make_train_block_scheduled` gives JAX's block form,
+k steps returning their (k,) losses.
 """
 
 from __future__ import annotations
@@ -226,6 +229,24 @@ def make_train_step_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
         return loss.detach()
 
     return step
+
+
+def make_train_block_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
+                               field, optimizer, k: int,
+                               mode: str = "tiled", sigma_min: float = 0.0,
+                               views=None):
+    """``k`` optimizer steps of :func:`make_train_step_scheduled` as one
+    block, with JAX's signature: ``block(f, targets) -> (k,)`` per-step
+    losses in one device tensor (JAX's ``lax.scan`` becomes a Python
+    loop; nothing is copied to the host inside a block)."""
+    step = make_train_step_scheduled(plan, cameras, field, optimizer,
+                                     mode=mode, sigma_min=sigma_min,
+                                     views=views)
+
+    def block(f, targets):
+        return torch.stack([step(f, targets) for _ in range(int(k))])
+
+    return block
 
 
 def _view_inputs(plan: Plan, cameras: Sequence[CameraConfig], device):

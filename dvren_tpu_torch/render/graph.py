@@ -28,11 +28,18 @@ capture's error. The Python launch counters of the kernel wrappers
 (``fused_tiles.tile_forward.launches`` and the rest) move when a kernel
 is recorded, not when a graph replays it: :attr:`CapturedGraph.launches`
 holds the counts recorded into the graph.
+
+A captured graph sits in a reference cycle (its function closes over its
+owner, which holds the graph), so only Python's cycle collector frees it,
+and destroying a graph while another records invalidates that capture.
+:func:`capture` therefore collects first and holds the collector off
+while it records.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import gc
 import time
 
 import torch
@@ -122,6 +129,9 @@ def capture(fn, device) -> CapturedGraph:
     torch.cuda.synchronize(device)
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
+    gc.collect()
+    collecting = gc.isenabled()
+    gc.disable()
     try:
         with torch.cuda.device(device), torch.cuda.graph(graph):
             outputs = fn()
@@ -130,6 +140,9 @@ def capture(fn, device) -> CapturedGraph:
             f"CUDA graph capture failed ({type(exc).__name__}: {exc}); "
             f"the captured path waited for the device, read a value to "
             f"the host or uploaded a host array") from exc
+    finally:
+        if collecting:
+            gc.enable()
     torch.cuda.synchronize(device)
     after = launch_counts()
     launches = {k: after[k] - before[k] for k in after

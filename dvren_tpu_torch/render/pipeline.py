@@ -104,8 +104,9 @@ def render(plan: Plan, field, k=None, c2w=None, ortho_scale=None,
     camera tensors default to the plan's camera, and generated rays live
     on the field's device. ``jitter``: the (N, K) table
     (:func:`plan_jitter_table`, or for an override bundle the table of its
-    own size), else gathered from the plan's. The depth cursor starts at
-    ``plan.t_near`` for every ray, an override's too, as in JAX.
+    own size), else hashed on the rays' device
+    (:func:`dvren_tpu_torch.ops.rng.stratified_jitter`). The depth cursor
+    starts at ``plan.t_near`` for every ray, an override's too, as in JAX.
     ``use_kernel=False`` integrates with the plain integrator and keeps
     its aux; otherwise ``intl.aux`` is None."""
     unique_pixels = rays is None    # generated rays enumerate the ROI
@@ -146,8 +147,9 @@ def render_streamed(plan: Plan, field, k=None, c2w=None, ortho_scale=None,
                     use_kernel: bool = True) -> ImagePlanes:
     """:func:`render` in blocks of ``ray_tile`` rays (default
     :func:`default_ray_tile`), the same values per ray (the stratified
-    jitter is keyed on the global ray index). With ``remat`` each block's
-    lattice is recomputed in the backward instead of kept."""
+    jitter is keyed on the global ray index: rows of ``jitter`` when
+    given, else hashed on the device per block). With ``remat`` each
+    block's lattice is recomputed in the backward instead of kept."""
     tile = ray_tile or default_ray_tile(plan)
     n = plan.ray_count
     n_tiles = -(-n // tile)
@@ -155,10 +157,7 @@ def render_streamed(plan: Plan, field, k=None, c2w=None, ortho_scale=None,
     table = None
     if jitter is not None:
         table = (jitter if isinstance(jitter, torch.Tensor)
-                 else torch.from_numpy(np.asarray(jitter, np.float32)))
-    elif plan.sampling.mode == SamplingMode.STRATIFIED:
-        table = torch.from_numpy(np.array(plan_jitter_table(plan)))
-    if table is not None:
+                 else torch.from_numpy(np.array(jitter, np.float32)))
         if table.shape[0] < n_tiles * tile:
             table = torch.cat([table, table.new_zeros(
                 (n_tiles * tile - table.shape[0], table.shape[1]))])

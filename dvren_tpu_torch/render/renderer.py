@@ -1090,8 +1090,9 @@ class Renderer:
         """The packed sample stream (``hp_samp_t`` parity view,
         hp.h:132-138): positions (M, 3), dt (M,), sigma (M,), color
         (M, 3) and ray_offset (N+1,) uint32 over the live samples in
-        ray-major order (the JAX package's numpy packing; its native
-        packer is not ported, on purpose)."""
+        ray-major order: masked on the device, only the live samples
+        copied (the layout of the native core's ``pack_samples`` /
+        ``ray_offsets``, the oracle the tests hold it to)."""
         self._require_forward("packed_samples")
         if self._last_mode in _STREAM_MODES:
             views = self._stream_parity_views(

@@ -108,9 +108,6 @@ MAX_CELLS = 128
 _SENTINEL = np.int64(1) << 62
 _DROP_TILE = 1 << 30     # tile id of pad tiles: compose drops it
 
-_TODO_BANK_ALIGNED = ("bank_aligned packing (not ported: ROADMAP 'Not ported, "
-                      "on purpose')")
-
 # The split backward's relayout (``dvren_tpu``'s ``BWD_SPLIT``, read from
 # DVREN_BWD_SPLIT at import): "pallas" makes K2 emit bank blocks and K6
 # (packed_transpose.banks_to_rows, CUDA here; the value keeps JAX's name)
@@ -532,18 +529,23 @@ def _tighten_windows_by_occupancy(plan: Plan, o, d, k_enter_ray,
     return new_ke.astype(np.int32), new_cnt.astype(np.int32)
 
 
-def _run_offsets(lanes_f: np.ndarray):
+def _run_offsets(lanes_f: np.ndarray, bank_aligned: bool = False):
     """Dense bank packing of each tile's runs (T, runs): each run lands at
     the next free lane, a run of more than 128 lanes on a bank boundary;
-    an empty run anchors at lane 0 (its samples are masked but must index
-    a valid lane). Returns (the runs' lane offsets, each tile's lane
-    count)."""
+    with ``bank_aligned`` also any run that would straddle one (so every
+    run of at most 128 lanes lives in one bank). An empty run anchors at
+    lane 0 (its samples are masked but must index a valid lane). Returns
+    (the runs' lane offsets, each tile's lane count)."""
     lanes_f = lanes_f.astype(np.int64)
     offs = np.zeros(lanes_f.shape, np.int64)
     cur = np.zeros(lanes_f.shape[0], np.int64)
     for r in range(lanes_f.shape[1]):
         n_c = lanes_f[:, r]
-        cur = np.where(n_c > MAX_CELLS, -(-cur // MAX_CELLS) * MAX_CELLS, cur)
+        if bank_aligned:
+            align = (n_c > 0) & (cur % MAX_CELLS + n_c > MAX_CELLS)
+        else:
+            align = n_c > MAX_CELLS
+        cur = np.where(align, -(-cur // MAX_CELLS) * MAX_CELLS, cur)
         offs[:, r] = np.where(n_c > 0, cur, 0)
         cur += n_c
     return offs, cur
@@ -551,14 +553,16 @@ def _run_offsets(lanes_f: np.ndarray):
 
 def _canonical_order(real_tiles, slot_tiles, n_tiles: int):
     """The order in which the backward sums over tiles, the same at pitch
-    1 and pitch 2: the kept tiles as pitch 1 groups them, by (chunk
-    count, pitch-1 bank class, image block). Returns (tile_order, the
-    (T_kept,) int32 indices of the kept tiles into the schedule's tile
-    axis in that order; slot_key, an (S,) int64 key per slot, the tile's
-    rank there times 2^16 plus the slot's lane in its tile). At pitch 1
-    the keys rise with the slot index, so the gather plan sorts as
-    ``dvren_tpu``'s does; at pitch 2, where a tile's bank class can
-    differ, they keep pitch 1's order of each cell's slot rows."""
+    1 and pitch 2 and with bank-aligned runs: the kept tiles as the dense
+    pitch-1 packing groups them, by (chunk count, its bank class, image
+    block). Returns (tile_order, the (T_kept,) int32 indices of the kept
+    tiles into the schedule's tile axis in that order; slot_key, an (S,)
+    int64 key per slot, the tile's rank there times 2^16 plus the slot's
+    lane in its tile). In the dense pitch-1 packing the keys rise with
+    the slot index, so the gather plan sorts as ``dvren_tpu``'s does;
+    where a tile's bank class can differ (pitch 2, bank-aligned runs),
+    they keep that packing's order of each cell's slot rows (a tile's
+    runs keep their order, only their lanes move)."""
     if not real_tiles:
         return np.zeros(0, np.int32), np.zeros(0, np.int64)
     nc, nb1, block, pos = (np.concatenate(x) for x in zip(*real_tiles))
@@ -644,9 +648,7 @@ def _lattice_runs_numpy(ot, dtn, safe, live_r, ke_t, nc: int, n_sub: int,
     return (st_l, m_l, lidx, *rest)
 
 
-def _check_slice(field, bank_aligned):
-    if bank_aligned:
-        raise NotImplementedError(_TODO_BANK_ALIGNED)
+def _check_slice(field):
     check(getattr(field, "oob", OobPolicy.ZERO) == OobPolicy.ZERO,
           "tiled rendering requires an OOB_ZERO field")
     check(getattr(field, "interp", InterpMode.LINEAR) == InterpMode.LINEAR,
@@ -701,7 +703,14 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
     ``all_tiles=True`` (with ``quantize="uniform"`` or ``uniform_shape``)
     puts every image tile in the one group, those without a live ray fully
     masked, so the arrays' shapes depend only on the plan's geometry,
-    ``uniform_shape``, ``tile_px`` and ``pitch``.
+    ``uniform_shape``, ``tile_px`` and ``pitch``. ``bank_aligned=True``
+    starts any run that would straddle a bank boundary at the next bank
+    (``dvren_tpu``'s rule, about 1.18x the lanes at the headline), so each
+    run of at most 128 cells sits in one bank and carries the ALIGNED bit;
+    the frames and gradients are those of the dense packing bit for bit
+    (the kernels here ignore the bit), and a tile pushed past the 15-bit
+    lane id or the supercell's 31 banks is refused or overflows as in
+    ``dvren_tpu``.
 
     ``quantize=True`` rounds each group's (chunk count, bank count) up to
     the ``_QUANT`` series; ``"uniform"`` gives every tile one class, the
@@ -726,7 +735,7 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
         # with odd nx the flat-id pairs (2j, 2j + 1) wrap x rows, so the
         # partner is not at brick row(2j) + 1: pitch 1
         pitch = 1
-    _check_slice(field, bank_aligned)
+    _check_slice(field)
     bbox_min = tuple(float(v) for v in field.bbox_min)
     bbox_max = tuple(float(v) for v in field.bbox_max)
     if sparse:
@@ -875,7 +884,8 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
             n_u = np.where(row_bad, 0, n_u)
             n_p = np.where(row_bad, 0, n_p)
 
-        offs, cur = _run_offsets(lanes3.reshape(t_cnt, nc * n_sub))
+        offs, cur = _run_offsets(lanes3.reshape(t_cnt, nc * n_sub),
+                                 bank_aligned)
         off = np.where(overflow[:, None, None], 0,
                        offs.reshape(t_cnt, nc, n_sub))
         nb_tile = np.where(overflow, 0, np.maximum(-(-cur // MAX_CELLS), 1))
@@ -903,10 +913,12 @@ def build_tiled_schedule(plan: Plan, field, jitter=None,
                     for v in np.unique(nb_tile[~overflow])}
             nb_tile = np.where(overflow, 0, np.vectorize(
                 lambda v: qmap.get(int(v), 0), otypes=[np.int64])(nb_tile))
-        # the bank class each tile would have at pitch 1 (its cells' lane
-        # count): the backward sums in pitch 1's order at either pitch
+        # the bank class each tile would have in the dense pitch-1 packing
+        # (its cells' lane count): the backward sums in that packing's
+        # order at either pitch and with bank-aligned runs, so their
+        # gradients equal its bit for bit
         nb_p1 = nb_tile
-        if pitch == 2:
+        if pitch == 2 or bank_aligned:
             _, cur1 = _run_offsets(n_u.reshape(t_cnt, nc * n_sub))
             nb_p1 = np.maximum(-(-cur1 // MAX_CELLS), 1)
             if uniform:

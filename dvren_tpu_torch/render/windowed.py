@@ -272,8 +272,8 @@ def _window_parts(plan: Plan, budget: int, field, rays: Rays, table_ids,
                   k_enter, block_jitter, use_kernel: bool):
     """(pixel ids, radiance (M, 3), T, opacity, depth) of a group's
     ``rays``: their windows of ``budget`` steps from ``k_enter``, the
-    field, the per-ray integrator. Without ``block_jitter`` the jitter
-    rows come from the host table, keyed on ``table_ids``."""
+    field, the per-ray integrator. Without ``block_jitter`` the jitter is
+    hashed on the device, keyed on ``table_ids``."""
     ray_offset = 0
     if block_jitter is None:
         ray_offset = table_ids.to(torch.int64) - torch.arange(
@@ -325,37 +325,47 @@ def render_windowed(plan: Plan, field,
     a new schedule).
 
     ``schedule``: built here from the field's bbox and ``jitter`` (the
-    plan's host table, else gathered from it) when None; it must be on
-    the field's device. ``remat`` None recomputes the groups in the
-    backward when the frame's residuals would pass 4 GiB.
-    ``use_kernel=False`` integrates with the plain integrator (the
-    reference K9f / K9b are held to)."""
-    _check_window_field(field)
-    device = field.device
+    plan's host table) when None; it must be on the field's device. A
+    group without jitter rows hashes the plan's stratified jitter on the
+    device, so ``jitter`` is refused beside a prebuilt schedule that has
+    such a group (JAX gathers that group's rows from it). ``remat`` None recomputes the groups in the backward when the
+    frame's residuals would pass 4 GiB. ``use_kernel=False`` integrates
+    with the plain integrator (the reference K9f / K9b are held to)."""
     if schedule is None:
         schedule = build_schedule(plan, field.bbox_min, field.bbox_max,
-                                  jitter=jitter, device=device)
+                                  jitter=jitter, device=field.device)
+    else:
+        check(jitter is None or all(g[3] is not None
+                                    for g in schedule.groups),
+              "jitter= beside a prebuilt windowed schedule whose groups "
+              "carry no jitter rows: those groups hash the plan's jitter; "
+              "build the schedule with the table instead")
+    return render_windowed_traced(plan, field, schedule, remat=remat, k=k,
+                                  c2w=c2w, ortho_scale=ortho_scale,
+                                  use_kernel=use_kernel)
+
+
+def render_windowed_traced(plan: Plan, field, schedule: WindowedSchedule,
+                           remat: bool | None = None, k=None, c2w=None,
+                           ortho_scale=None,
+                           use_kernel: bool = True) -> ImagePlanes:
+    """:func:`render_windowed` over a prebuilt ``schedule`` (required, on
+    the field's device), with JAX's signature. JAX stages this form as one
+    traced program for replay; here both run eagerly, and the frame and
+    its camera gradients are differentiable alike."""
+    _check_window_field(field)
+    device = field.device
     check(not schedule.groups or schedule.device == device,
           f"the windowed schedule is on {schedule.device}, the field on "
           f"{device}: move it with .to(device)")
     if not schedule.groups:   # the bbox misses every ray: background
         return _compose_planes(plan, *_empty_parts(device))
-    args = []
-    for budget, ids, ke, jit_rows in schedule.groups:
-        if jit_rows is None and jitter is not None:
-            jit_rows = torch.from_numpy(_jitter_rows(
-                np.asarray(jitter, np.float32), ids.cpu().numpy(),
-                ke.cpu().numpy(), budget)).to(device)
-        args.append((plan, budget, field, ids, ke, jit_rows, k, c2w,
-                     ortho_scale, use_kernel))
+    args = [(plan, budget, field, ids, ke, jit_rows, k, c2w, ortho_scale,
+             use_kernel) for budget, ids, ke, jit_rows in schedule.groups]
     parts = _run_groups(_group_outputs, args,
                         _remat(schedule.windowed_samples, remat))
     return _compose_planes(plan, *(torch.cat([p[i] for p in parts])
                                    for i in range(5)))
-
-
-# One implementation serves both: torch has no trace to stage.
-render_windowed_traced = render_windowed
 
 
 def _empty_parts(device):

@@ -63,10 +63,18 @@ general paths: the Renderer's fused, staged and streamed modes on the
 card within the bounds above of the CPU's (K9f and K9b launched, repeat
 backwards bit for bit), ``ops.diff.per_sample_grads`` one K9b launch, and
 the compose of rays that share pixels the same bit for bit from call to
-call.
+call. The stratified jitter: the jitter kernel bit for bit against its
+twin and the host table (strides, broadcasts, bounds, seeds past 2^63),
+``generate_samples(jitter=None)`` hashing it on the card with no host
+round trip (under ``torch.cuda.set_sync_debug_mode("error")``), equal to
+the table route; bank-aligned schedules' K1 / K2 frames and gradients
+bit-equal to the dense packing's; ``utils/timing.time_calls`` on a
+closure over card tensors. ``render/graph.capture`` records while a
+dead reference cycle that holds another graph would be collected.
 """
 
 import dataclasses
+import gc
 
 import numpy as np
 import pytest
@@ -133,7 +141,8 @@ def test_library_builds_once(cuda_device):
                    "hash_forward_kernel", "hash_backward_kernel",
                    "hash_grid_forward_kernel", "hash_grid_backward_kernel",
                    "packed_table16_kernel",
-                   "integrate_forward_kernel", "integrate_backward_kernel"):
+                   "integrate_forward_kernel", "integrate_backward_kernel",
+                   "stratified_jitter_kernel"):
         assert kernel in report
 
 
@@ -2135,6 +2144,35 @@ def test_enable_graph_bit_equal_to_eager(cuda_device, mode):
             np.testing.assert_array_equal(getattr(gg, key), getattr(ge, key))
 
 
+def test_capture_survives_a_dead_graph_cycle(cuda_device):
+    """A captured graph whose owner died in a reference cycle is freed by
+    the cycle collector; ``capture`` collects before it records, so a
+    collection during the recording finds no graph to destroy."""
+    from dvren_tpu_torch.render import graph as graph_mod
+
+    x = torch.arange(8, dtype=torch.float32, device=cuda_device)
+    calls = []
+
+    def dead_cycle():
+        owner = {}
+        owner["graph"] = graph_mod.capture(lambda: x * 2.0, cuda_device)
+        owner["self"] = owner
+
+    def fn():
+        calls.append(1)
+        if len(calls) == 1:
+            dead_cycle()       # during the eager warm-up
+        else:
+            gc.collect()       # while the graph records
+        return x + 1.0
+
+    captured = graph_mod.capture(fn, cuda_device)
+    x.add_(10.0)
+    captured.replay()
+    assert torch.equal(captured.outputs, x + 1.0)
+    assert gc.isenabled()
+
+
 def test_enable_graph_recaptures_on_a_new_field(cuda_device):
     """A new field object records a new graph; an in-place edit of the
     same tensors replays the graph and renders the edited values."""
@@ -2197,3 +2235,107 @@ def test_tile_dp_step_on_the_card_matches_render_tiled(cuda_device):
         np.testing.assert_array_equal(got, again)
         np.testing.assert_allclose(got, ref, rtol=0,
                                    atol=GRID_TOL * np.abs(ref).max())
+
+
+JITTER_SEEDS = (0, 17, 2 ** 63 + 5)
+
+
+@pytest.mark.parametrize("seed", JITTER_SEEDS)
+def test_jitter_kernel_bit_equal_to_twin(cuda_device, seed):
+    from dvren_tpu_torch.ops import rng
+
+    rays = torch.arange(5, 1005, device=cuda_device)[:, None]
+    steps = torch.arange(70, dtype=torch.int32, device=cuda_device)
+    cases = [
+        (rays, steps[None, :], None),
+        (rays, (steps[None, :] + torch.arange(1000, dtype=torch.int32,
+                                              device=cuda_device)[:, None]
+                - 40), (900, 64)),
+        (rays.reshape(-1), torch.tensor(3, device=cuda_device), None),
+        (rays[::3], steps[None, ::2], (600, 70)),
+        (rays[:, :, None], steps.reshape(1, 7, 10), None),
+    ]
+    for ray, step, bounds in cases:
+        before = rng.stratified_jitter.launches
+        got = rng.stratified_jitter(seed, ray, step, bounds=bounds)
+        torch.cuda.synchronize()
+        assert rng.stratified_jitter.launches == before + 1
+        want = rng.stratified_jitter_plain(seed, ray.cpu(), step.cpu(),
+                                           bounds)
+        assert got.shape == want.shape
+        assert torch.equal(got.cpu(), want)
+    table = rng.jitter_table(seed, 1000, 70, ray_offset=5)
+    got = rng.stratified_jitter(seed, rays, steps[None, :])
+    assert np.array_equal(got.cpu().numpy(), table)
+
+
+def test_generate_samples_hashes_jitter_on_the_card(cuda_device):
+    from dvren_tpu_torch.ops import rng
+    from dvren_tpu_torch.ops.raygen import generate_rays
+    from dvren_tpu_torch.ops.sampling import generate_samples
+    from dvren_tpu_torch.render.pipeline import plan_jitter_table
+
+    plan, _ = scene("stratified")
+    rays = generate_rays(plan, device=cuda_device)
+    table = torch.from_numpy(np.array(plan_jitter_table(plan))).to(
+        cuda_device)
+    want = generate_samples(plan, rays, jitter=table)
+    torch.cuda.synchronize()
+    before = rng.stratified_jitter.launches
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = generate_samples(plan, rays)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    assert rng.stratified_jitter.launches == before + 1
+    for key in ("t", "dt", "mask", "px", "py", "pz"):
+        assert torch.equal(getattr(got, key), getattr(want, key)), key
+
+
+@pytest.mark.parametrize("form", [dict(), dict(tile_px=8), dict(pitch=2)])
+def test_bank_aligned_k1_k2_bit_equal_to_dense(cuda_device, form):
+    from dvren_tpu_torch.ops.raygen import camera_arrays
+
+    plan, config = scene("stratified")
+    field = P.DenseGridField.create(config, device=cuda_device)
+    out = []
+    for aligned in (True, False):
+        sched = tiled.build_tiled_schedule(plan, field, bank_aligned=aligned,
+                                           **form).to(cuda_device)
+        f = field.with_params(field.sigma.detach().clone().requires_grad_(),
+                              field.color.detach().clone().requires_grad_())
+        k, c2w, _ = camera_arrays(plan, cuda_device)
+        k.requires_grad_(True)
+        c2w.requires_grad_(True)
+        before = (fused_tiles.tile_forward.launches,
+                  fused_tiles.tile_backward.launches)
+        planes = tiled.render_tiled(plan, f, sched, k=k, c2w=c2w)
+        img = planes.image
+        grads = torch.autograd.grad(torch.sum(img * 0.001 + img ** 2 * 0.01),
+                                    (f.sigma, f.color, c2w, k))
+        torch.cuda.synchronize()
+        assert fused_tiles.tile_forward.launches > before[0]
+        assert fused_tiles.tile_backward.launches > before[1]
+        out.append((planes.image.detach(), planes.transmittance.detach(),
+                    planes.opacity.detach(), planes.depth.detach()) + grads)
+    for x, y in zip(*out):
+        assert torch.equal(x, y)
+
+
+def test_time_calls_times_card_closures(cuda_device):
+    """``utils/timing.time_calls`` on a closure over card tensors (as
+    chip_smoke's ``event_times`` calls it): one time per call, in seconds
+    between CUDA events, ordered median between least and largest."""
+    from dvren_tpu_torch.utils import timing
+
+    x = torch.randn(1 << 20, device=cuda_device)
+    calls = []
+
+    def fn():
+        calls.append(1)
+        return torch.cumsum(x, 0)
+
+    stats = timing.time_calls(fn, [()], 4, warmup=1, cuda=True)
+    assert len(calls) == 5 and len(stats["per_call_s"]) == 4
+    assert 0.0 < stats["min_s"] <= stats["median_s"] <= stats["max_s"] < 1.0

@@ -170,16 +170,25 @@ def test_uniform_shape_below_maximum_raises():
 @pytest.mark.parametrize("kw, item", [(dict(all_tiles=True), "item 15"),
                                       (dict(bank_aligned=True), "on purpose")])
 def test_unported_schedule_options_raise(kw, item):
-    """``bank_aligned`` raises naming its ROADMAP entry. ``all_tiles``
-    (ROADMAP item 15) is ported: without uniform quantization it raises
-    JAX's refusal."""
-    _, pplans = both_plans("fit")
+    """Both options are ported. ``all_tiles`` (ROADMAP item 15) without
+    uniform quantization raises JAX's refusal; ``bank_aligned`` builds
+    JAX's schedule array for array, and its frame equals the dense
+    packing's bit for bit."""
+    jplans, pplans = both_plans("fit")
     if "all_tiles" in kw:
         with pytest.raises(P.DvrenError, match="uniform quantization"):
             p_tiled.build_tiled_schedule(pplans[0], scene("fit")[4], **kw)
         return
-    with pytest.raises(NotImplementedError, match=item):
-        p_tiled.build_tiled_schedule(pplans[0], scene("fit")[4], **kw)
+    jfield, pfield = scene("fit")[1], scene("fit")[4]
+    ref = j_tiled.build_tiled_schedule(jplans[0], jfield, device=False, **kw)
+    got = p_tiled.build_tiled_schedule(pplans[0], pfield, **kw)
+    assert_schedules_equal(ref, got)
+    dense = p_tiled.build_tiled_schedule(pplans[0], pfield)
+    with torch.no_grad():
+        a = p_tiled.render_tiled(pplans[0], pfield, dense.to("cpu"))
+        b = p_tiled.render_tiled(pplans[0], pfield, got.to("cpu"))
+    for key in ("image", "transmittance", "opacity", "depth"):
+        assert torch.equal(getattr(a, key), getattr(b, key)), key
 
 
 # ---------------------------------------------------------- merged views

@@ -271,16 +271,11 @@ def test_cascade_rescues_overflowing_scene():
                                     dict(all_tiles=True),
                                     dict(bank_aligned=True)])
 def test_unported_schedule_options_raise(kwargs):
-    """``bank_aligned`` (not ported, on purpose) raises. Pitch 2,
-    occupancy and ``all_tiles`` are ported (ROADMAP items 5 and 15): the
-    first two build the schedule JAX builds, and ``all_tiles`` refuses a
-    schedule without uniform quantization, as JAX's does."""
+    """Every option is ported. Pitch 2, occupancy and ``bank_aligned``
+    build the schedule JAX builds (ROADMAP items 5 and 15, and the
+    closing slice), and ``all_tiles`` refuses a schedule without uniform
+    quantization, as JAX's does."""
     plan, field, _ = reference("fixed")
-    if "bank_aligned" in kwargs:
-        with pytest.raises(NotImplementedError):
-            p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
-                                         **kwargs)
-        return
     if "all_tiles" in kwargs:
         with pytest.raises(P.DvrenError, match="uniform quantization"):
             p_tiled.build_tiled_schedule(port_plan(plan), port_field(field),
