@@ -200,7 +200,8 @@ when it fails:
     headline's windowed schedule (a seeded cotangent), and on the same
     lattice with sigma x 10, whose rays stop early (their count printed,
     > 0): tests/test_pallas_parity.py's bounds, repeats bit for bit;
-    their times beside the twins' and their bounds;
+    their times on the device alone and as issued beside the twins',
+    their bounds and waves (every K9 shape below reports the same);
 38. ``Renderer(Context.create(device="cuda"), plan,
     RenderOptions(use_window=True))`` on the dense headline: K9f once
     per group; the planes finite, within 5e-6 (depth 1e-4) of the plain
@@ -216,14 +217,16 @@ when it fails:
     fallback group, within 1e-5 (depth as in 38) of the 16 px supercell
     frame (phase 28's form); its autograd backward (K2 and K9b launch) twice,
     bit for bit; four SGD steps at lr 1e-3 x 786,432 (the loss falls);
-    times and peak device memory; K3 and K4 at 128^3 (the fine grid's
+    times and peak device memory; K9f / K9b on the fallback groups
+    against their twins; K3 and K4 at 128^3 (the fine grid's
     field, a seeded table gradient) against their twins as 32-bit words,
     each timed on the device alone and as issued beside its twin;
 40. ``fit_dense_grid(mode="windowed")`` at the flagship (phase 36's
     scene, targets, rate and cap): K9f and K9b once per stack group per
     step, the loss falls; steps to PSNR 35, ``schedule_build_s``,
     ``steady_step_ms``, ``wall_clock_s``; then ``mode="plain"`` for 10
-    steps (K9 once per view per step; the loss falls);
+    steps (K9 once per view per step; the loss falls); K9f / K9b on
+    view 0's 9,216 x 96 lattice against their twins, in this process;
 41. K1 and K2 in their supercell, subs 16 form on the flagship's view 0
     (4 px, ``cell_scale=2``): one frame and backward (one launch each),
     the twins bit for bit on the first 8 tiles of every group, times
@@ -310,7 +313,8 @@ integrator K9f / K9b, each fatal when it fails:
     gradients``, ``camera_grads``) within 2e-6 x scale of phase 52's and
     bit-equal across two calls; ``per_sample_gradients()`` equal to the
     backward's per-sample gradients; K9f / K9b on the 262,144 x 128
-    lattice against their twins;
+    lattice against their twins; the headline streamed in two blocks
+    (K9f and K9b twice each), K9f / K9b on the first 131,072 x 128 block;
 54. the headline grid with nearest interpolation and with clamp OOB
     under the default options on the card: the streamed mode (the tiles
     refuse them), frame and backward against ``use_kernel=False``;
@@ -404,7 +408,10 @@ fatal when it fails:
 Each mode's ``Renderer.forward`` and ``.backward`` is timed over 10 warm
 runs between CUDA events (median and spread), beside the peak device
 memory; the kernels line adds ``integrate[_bwd]:streamed_headline``,
-``:fused_headline`` and ``:override``, each with ``ms_per_launch``.
+``:fused_headline``, ``:rays_131072`` and ``:override`` (phases 39 and
+40 add ``:fallback_16px`` and ``:view_96``), each with ``ms_per_launch``;
+every K9 entry's ``ms`` is its device time, ``issued_ms`` its time as
+issued, ``waves`` its blocks over the SMs' resident blocks.
 
 Prints a JSON line of per-kernel results (each with its bound: the larger
 of the bytes its inputs and outputs take over the H100's 3.35 TB/s and
@@ -2989,8 +2996,11 @@ def k9_against_twins(torch, inputs, gs, what, t_near, t_far):
     return f_err, b_err
 
 
-def k9_times(torch, inputs, gs, t_near, t_far):
-    """(K9f ms, K9b ms, K9f twin ms, K9b twin ms) over every group."""
+def k9_times(torch, inputs, gs, t_near, t_far) -> dict:
+    """K9f and K9b over every group, each on the device alone
+    (``device_ms``: the stream sleeps while the host queues the launches)
+    and as issued (``cuda_ms``: the wrapper's host cost included where a
+    launch is short), and their twins' ms."""
     from dvren_tpu_torch.ops import integrate_fused as fz
 
     def fwd(f):
@@ -3001,22 +3011,48 @@ def k9_times(torch, inputs, gs, t_near, t_far):
         return lambda: [f(s, pl, d, m, g)
                         for (s, pl, d, m, _), g in zip(inputs, gs)]
 
-    return (cuda_ms(torch, fwd(fz.integrate_forward), 20),
-            cuda_ms(torch, bwd(fz.radiance_vjp), 20),
-            cuda_ms(torch, fwd(fz.integrate_forward_plain), 3, warmup=1),
-            cuda_ms(torch, bwd(fz.radiance_vjp_plain), 3, warmup=1))
+    return {"k9f_ms": device_ms(torch, fwd(fz.integrate_forward), 20),
+            "k9f_issued_ms": cuda_ms(torch, fwd(fz.integrate_forward), 20),
+            "k9b_ms": device_ms(torch, bwd(fz.radiance_vjp), 20),
+            "k9b_issued_ms": cuda_ms(torch, bwd(fz.radiance_vjp), 20),
+            "k9f_plain_ms": cuda_ms(torch, fwd(fz.integrate_forward_plain),
+                                    3, warmup=1),
+            "k9b_plain_ms": cuda_ms(torch, bwd(fz.radiance_vjp_plain), 3,
+                                    warmup=1)}
 
 
-def k9_bounds(inputs, proc) -> tuple[dict, dict]:
+def k9_waves(torch, inputs) -> dict:
+    """Waves of K9f's and K9b's launches over these groups, summed: each
+    launch's blocks (``integrate_fused.launch_geometry``) over the SMs
+    times the blocks resident on one (the runtime's occupancy query)."""
+    from dvren_tpu_torch.ops import integrate_fused as fz
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    waves = {"integrate": 0.0, "integrate_bwd": 0.0}
+    for sigma, *_ in inputs:
+        n, k = sigma.shape
+        blocks = fz.launch_geometry(n, k)[1]
+        occ = fz.kernel_occupancy(k)
+        for name in waves:
+            waves[name] += blocks / (sms * occ[name]["blocks_per_sm"])
+    return waves
+
+
+def k9_bounds(torch, inputs, proc) -> tuple[dict, dict]:
     """Bounds of K9f and K9b at these inputs: each processed step's
     sigma, dt, colours and mask byte read once, the outputs written once
     (K9f: 8 floats a ray; K9b: four (N, K) planes), and the operations
-    per processed step."""
+    per processed step. ``bound_is_floor`` is false where those bytes fit
+    in the card's L2: the timed launches repeat on the same inputs, so
+    they may find them in L2 and beat the HBM bound."""
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
     n = sum(int(x[0].shape[0]) for x in inputs)
     nk = sum(int(x[0].numel()) for x in inputs)
     reads = proc * (5 * 4 + 1)
-    return (bound(reads + n * 4 + n * 8 * 4, proc * K9F_OPS),
-            bound(reads + n * 3 * 4 + nk * 4 * 4, proc * K9B_OPS))
+    return tuple({**bound(n_bytes, ops), "bound_is_floor": n_bytes > l2}
+                 for n_bytes, ops in (
+                     (reads + n * 4 + n * 8 * 4, proc * K9F_OPS),
+                     (reads + n * 3 * 4 + nk * 4 * 4, proc * K9B_OPS)))
 
 
 def run_window(torch, P, dev, card) -> tuple[list, dict]:
@@ -3027,7 +3063,7 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
                                      packed_transpose)
     from dvren_tpu_torch.opt import fit
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import tiled, windowed
+    from dvren_tpu_torch.render import pipeline, tiled, windowed
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
     counts = functools.partial(window_counts, integrate_fused)
@@ -3068,15 +3104,20 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     require(early10 > 0, "no ray stops early at sigma x 10")
     times = k9_times(torch, inputs, gs, *span)
     times10 = k9_times(torch, dense, gs, *span)
-    fb, bb = k9_bounds(inputs, proc)
-    fb10, bb10 = k9_bounds(dense, proc10)
-    print(f"K9 times ms [{card}]: K9f {times[0]:.4f} (twin {times[2]:.4f}, "
+    fb, bb = k9_bounds(torch, inputs, proc)
+    fb10, bb10 = k9_bounds(torch, dense, proc10)
+    waves = k9_waves(torch, inputs)
+    print(f"K9 times ms [{card}], device / issued: K9f {times['k9f_ms']:.4f} "
+          f"/ {times['k9f_issued_ms']:.4f} (twin {times['k9f_plain_ms']:.4f}, "
           f"bound {fb['bound_ms']:.4f} by {fb['bound_by']}), K9b "
-          f"{times[1]:.4f} (twin {times[3]:.4f}, bound "
-          f"{bb['bound_ms']:.4f} by {bb['bound_by']}); sigma x 10: K9f "
-          f"{times10[0]:.4f} (bound {fb10['bound_ms']:.4f}), K9b "
-          f"{times10[1]:.4f} (bound "
-          f"{bb10['bound_ms']:.4f}); {len(inputs)} launches each", flush=True)
+          f"{times['k9b_ms']:.4f} / {times['k9b_issued_ms']:.4f} (twin "
+          f"{times['k9b_plain_ms']:.4f}, bound {bb['bound_ms']:.4f} by "
+          f"{bb['bound_by']}); sigma x 10: K9f {times10['k9f_ms']:.4f} / "
+          f"{times10['k9f_issued_ms']:.4f} (bound {fb10['bound_ms']:.4f}), "
+          f"K9b {times10['k9b_ms']:.4f} / {times10['k9b_issued_ms']:.4f} "
+          f"(bound {bb10['bound_ms']:.4f}); {len(inputs)} launches each, "
+          f"waves K9f {waves['integrate']:.3f}, K9b "
+          f"{waves['integrate_bwd']:.3f}", flush=True)
 
     # 38. Renderer(use_window=True) on the dense headline: forward and a
     # deterministic backward, K9f / K9b once per group
@@ -3150,20 +3191,25 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
          "replaces": "dvren_tpu/ops/integrate_pallas.py:62",
          "launches": fwd_c["integrate"], "max_abs_err": max(errs[0],
                                                             errs10[0]),
-         "ms": times[0], "plain_ms": times[2], **fb},
+         "ms": times["k9f_ms"], "issued_ms": times["k9f_issued_ms"],
+         "plain_ms": times["k9f_plain_ms"], "waves": waves["integrate"],
+         **fb},
         {"name": "integrate_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/integrate_bwd.cu",
          "replaces": "dvren_tpu/ops/integrate_pallas.py:105",
          "launches": bwd_c["integrate_bwd"],
          "max_abs_err": max(errs[1], errs10[1]),
-         "ms": times[1], "plain_ms": times[3], **bb}]
+         "ms": times["k9b_ms"], "issued_ms": times["k9b_issued_ms"],
+         "plain_ms": times["k9b_plain_ms"], "waves": waves["integrate_bwd"],
+         **bb}]
     report["window_headline"] = {
         "groups": n_groups, "budgets": budgets,
         "windowed_samples": wsched.windowed_samples,
         "processed": proc, "early": early, "processed_x10": proc10,
-        "early_x10": early10, "k9f_ms": times[0], "k9b_ms": times[1],
-        "k9f_plain_ms": times[2], "k9b_plain_ms": times[3],
-        "k9f_ms_x10": times10[0], "k9b_ms_x10": times10[1],
+        "early_x10": early10, **times, "waves": waves,
+        "k9f_ms_x10": times10["k9f_ms"], "k9b_ms_x10": times10["k9b_ms"],
+        "k9f_issued_ms_x10": times10["k9f_issued_ms"],
+        "k9b_issued_ms_x10": times10["k9b_issued_ms"],
         "k9f_bound_ms": fb["bound_ms"], "k9b_bound_ms": bb["bound_ms"],
         "frame_ms": frame_ms, "backward_ms": bwd_ms, "vs_plain": err,
         "vs_tiled": t_err, "vs_tiled_depth": t_depth,
@@ -3256,6 +3302,14 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
           f"at lr {LR} x {n_values}: loss {flosses}; times ms [{card}]: frame "
           f"{fframe_ms:.4f}, SGD step {fstep_ms:.4f}; peak device memory "
           f"{fpeak:.1f} MiB", flush=True)
+    fb_inputs = window_group_inputs(torch, fplan, ffield, fsched.fallback)
+    fb_gs = [torch.rand((x[0].shape[0], 3), generator=gen, device=dev) * 2
+             - 1 for x in fb_inputs]
+    kernels += k9_entries(torch, "fallback_16px", fb_inputs, fb_gs,
+                          {"integrate": c_w["integrate"],
+                           "integrate_bwd": b_w["integrate_bwd"]},
+                          (fplan.t_near, fplan.t_far), card)
+    del fb_inputs, fb_gs
     # K3 and K4 at 128^3 against their twins, as 32-bit words, and timed
     fsig, fcol = ffield.sigma, ffield.color
     ftg = torch.randn((packed_transpose.fullpitch_rows(fsig.shape), 32),
@@ -3377,6 +3431,15 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     require(cp["integrate"] == 10 * len(plans)
             and cp["integrate_bwd"] == 10 * len(plans),
             f"the plain fit did not launch K9 once per view per step: {cp}")
+    # K9 at one view's lattice (9,216 x 96), as the plain fit launches it
+    with torch.no_grad():
+        v_in = outputs_inputs(pipeline.render(plans[0], truth))
+    v_gs = [torch.rand((v_in[0][0].shape[0], 3), generator=gen, device=dev)
+            * 2 - 1]
+    kernels += k9_entries(torch, "view_96", v_in, v_gs, cp,
+                          (plans[0].t_near, plans[0].t_far),
+                          f"{card}; one process")
+    del v_in, v_gs
     report["fit_windowed"] = {
         "stack_groups": n_stack, "steps_run": res_w.steps_run,
         "psnr_first": res_w.psnr_history[0],
@@ -4433,36 +4496,68 @@ def outputs_inputs(outputs):
              outputs.lattice.mask, None)]
 
 
+def no_floor(b: dict) -> str:
+    return "" if b["bound_is_floor"] else " (its bytes fit in L2: no floor)"
+
+
 def k9_entries(torch, form, inputs, gs, launches, span, per_frame):
     """K9f / K9b against their twins on ``inputs`` (one launch per block),
-    timed, with bounds over the processed steps: the kernels line's two
-    entries for this form."""
+    timed on the device and as issued, with bounds over the processed
+    steps and waves: the kernels line's two entries for this form."""
     errs = k9_against_twins(torch, inputs, gs, form, *span)
     proc, early = processed_steps(torch, inputs)
-    times = k9_times(torch, inputs, gs, *span)
-    fb, bb = k9_bounds(inputs, proc)
+    t = k9_times(torch, inputs, gs, *span)
+    fb, bb = k9_bounds(torch, inputs, proc)
+    waves = k9_waves(torch, inputs)
     n = len(inputs)
     print(f"K9 at {form} [{per_frame}]: {n} launch(es) over "
-          f"{tuple(inputs[0][0].shape)}; K9f {times[0]:.4f} ms "
-          f"({times[0] / n:.4f} per launch; twin {times[2]:.4f}, bound "
-          f"{fb['bound_ms']:.4f} by {fb['bound_by']}), K9b {times[1]:.4f} "
-          f"({times[1] / n:.4f} per launch; twin {times[3]:.4f}, bound "
-          f"{bb['bound_ms']:.4f}); {proc} processed steps, {early} rays "
-          f"stop early; vs twins K9f {errs[0]:.3e}, K9b {errs[1]:.3e}",
+          f"{tuple(inputs[0][0].shape)}; ms device / issued: K9f "
+          f"{t['k9f_ms']:.4f} / {t['k9f_issued_ms']:.4f} ("
+          f"{t['k9f_ms'] / n:.4f} per launch; twin {t['k9f_plain_ms']:.4f}, "
+          f"bound {fb['bound_ms']:.4f} by {fb['bound_by']}, "
+          f"{fb['bound_ms'] / t['k9f_ms']:.3f} of it{no_floor(fb)}; waves "
+          f"{waves['integrate']:.3f}), K9b {t['k9b_ms']:.4f} / "
+          f"{t['k9b_issued_ms']:.4f} ({t['k9b_ms'] / n:.4f} per launch; twin "
+          f"{t['k9b_plain_ms']:.4f}, bound {bb['bound_ms']:.4f}, "
+          f"{bb['bound_ms'] / t['k9b_ms']:.3f} of it{no_floor(bb)}; waves "
+          f"{waves['integrate_bwd']:.3f}); {proc} processed steps, {early} "
+          f"rays stop early; vs twins K9f {errs[0]:.3e}, K9b {errs[1]:.3e}",
           flush=True)
     return [
         {"name": f"integrate:{form}", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/integrate.cu",
          "replaces": "dvren_tpu/ops/integrate_pallas.py:158",
          "launches": launches["integrate"], "max_abs_err": errs[0],
-         "ms": times[0], "ms_per_launch": times[0] / n,
-         "plain_ms": times[2], **fb},
+         "ms": t["k9f_ms"], "issued_ms": t["k9f_issued_ms"],
+         "ms_per_launch": t["k9f_ms"] / n, "plain_ms": t["k9f_plain_ms"],
+         "waves": waves["integrate"], **fb},
         {"name": f"integrate_bwd:{form}", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/integrate_bwd.cu",
          "replaces": "dvren_tpu/ops/integrate_pallas.py:192",
          "launches": launches["integrate_bwd"], "max_abs_err": errs[1],
-         "ms": times[1], "ms_per_launch": times[1] / n,
-         "plain_ms": times[3], **bb}]
+         "ms": t["k9b_ms"], "issued_ms": t["k9b_issued_ms"],
+         "ms_per_launch": t["k9b_ms"] / n, "plain_ms": t["k9b_plain_ms"],
+         "waves": waves["integrate_bwd"], **bb}]
+
+
+def override_bundle(torch, P, plan, dev):
+    """(the override plan, its Rays): two rays a pixel of ``plan``, its
+    pixel centres moved by -+OVERRIDE_OFFSET px."""
+    from dvren_tpu_torch.ops.raygen import Rays, generate_rays
+
+    n_over = 2 * plan.ray_count
+    oplan = P.Plan.create(dataclasses.replace(plan.descriptor(),
+                                              max_rays=n_over, max_samples=0))
+    parts = []
+    for dx in (-OVERRIDE_OFFSET, OVERRIDE_OFFSET):
+        k = list(plan.camera.k)
+        k[2] -= dx                  # cx: the ray's pixel centre moves dx
+        shifted = plan.with_camera(dataclasses.replace(plan.camera,
+                                                       k=tuple(k)))
+        parts.append(generate_rays(shifted, device=dev))
+    return oplan, Rays(*(torch.cat([getattr(p, f) for p in parts]) for f in
+                         ("origins", "directions", "t_near", "t_far",
+                          "pixel_ids")))
 
 
 def grads_error(torch, got, ref) -> float:
@@ -4511,7 +4606,6 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
     streamed; ``render_views``) over K9f / K9b."""
     from dvren_tpu_torch.ops import integrate_fused
     from dvren_tpu_torch.ops.compose import compose
-    from dvren_tpu_torch.ops.raygen import Rays, generate_rays
     from dvren_tpu_torch.opt import fit
     from dvren_tpu_torch.render import pipeline
 
@@ -4696,6 +4790,26 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
         span, card)
     del renderers, outputs, f_gs
     torch.cuda.empty_cache()
+    # K9 at 131,072 x 128: the headline streamed in two blocks, forward
+    # and backward (the blocks recomputed), then the first block timed
+    half = plan.ray_count // 2
+    leaf = field.with_params(field.sigma.detach().clone().requires_grad_(),
+                             field.color.detach().clone().requires_grad_())
+    reset()
+    img = pipeline.render_streamed(plan, leaf, ray_tile=half,
+                                   jitter=jitter).image
+    h_fwd = counts()["integrate"]
+    torch.autograd.grad(img.sum(), (leaf.sigma, leaf.color))
+    h_c = {"integrate": h_fwd, "integrate_bwd": counts()["integrate_bwd"]}
+    require(h_c == {"integrate": 2, "integrate_bwd": 2},
+            f"the two-block stream launched {h_c}")
+    del img, leaf
+    h_blocks = lattice_blocks(torch, plan, field, jitter, half)[:1]
+    h_gs = [torch.rand((half, 3), generator=gen, device=dev) * 2 - 1]
+    kernels += k9_entries(torch, "rays_131072", h_blocks, h_gs, h_c, span,
+                          card)
+    del h_blocks, h_gs
+    torch.cuda.empty_cache()
 
     # 54. fields the tiles refuse, under the default options on the card
     for name, change in (("nearest", dict(interp=P.InterpMode.NEAREST)),
@@ -4733,19 +4847,8 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
         del f2, r
 
     # 55. an override bundle at full width: two rays a pixel, +-0.25 px
+    oplan, bundle = override_bundle(torch, P, plan, dev)
     n_over = 2 * plan.ray_count
-    oplan = P.Plan.create(dataclasses.replace(plan.descriptor(),
-                                              max_rays=n_over, max_samples=0))
-    parts = []
-    for dx in (-OVERRIDE_OFFSET, OVERRIDE_OFFSET):
-        k = list(plan.camera.k)
-        k[2] -= dx                  # cx: the ray's pixel centre moves dx
-        shifted = plan.with_camera(dataclasses.replace(plan.camera,
-                                                       k=tuple(k)))
-        parts.append(generate_rays(shifted, device=dev))
-    bundle = Rays(*(torch.cat([getattr(p, f) for p in parts]) for f in
-                    ("origins", "directions", "t_near", "t_far",
-                     "pixel_ids")))
     over = P.Renderer(ctx, oplan)
     torch.cuda.reset_peak_memory_stats()
     reset()
@@ -4800,7 +4903,7 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
     report["override"] = {"rays": n_over, "frame_ms": o_frame,
                           "backward_ms": o_back, "peak_fwd_mib": o_peak,
                           "peak_bwd_mib": ob_peak, "compose_vs_cpu": c_err}
-    del over, o_gs, bundle, parts
+    del over, o_gs, bundle
     torch.cuda.empty_cache()
 
     # 56. the hash headline streamed, against the K7f frame

@@ -81,8 +81,10 @@ _SIGNATURES = {
                                + [_P, _P], _I),
     "dvt_hash_grid_forward_occupancy": ([_I] * 4 + [_P], _I),
     "dvt_hash_grid_backward_occupancy": ([_I] * 4 + [_P], _I),
-    "dvt_integrate_forward": ([_P] * 8 + [_I, _I] + [_F] * 4 + [_P], _I),
-    "dvt_integrate_backward": ([_P] * 11 + [_I, _I, _F, _P], _I),
+    "dvt_integrate_forward": ([_P] * 8 + [_I] * 4 + [_F] * 4 + [_P], _I),
+    "dvt_integrate_backward": ([_P] * 11 + [_I] * 4 + [_F, _P], _I),
+    "dvt_integrate_forward_occupancy": ([_I, _I, _P], _I),
+    "dvt_integrate_backward_occupancy": ([_I, _I, _P], _I),
     "dvt_stratified_jitter": ([_P, _L, _L, _P, _L, _L, _P, _L, _I, _L, _L,
                                _U64, _P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
@@ -120,6 +122,37 @@ def _digest() -> str:
     return h.hexdigest()[:16]
 
 
+def run_nvcc(jobs: list[list[str]]) -> list[str]:
+    """Run one ``nvcc`` for each argument list in ``jobs`` (the arguments
+    after nvcc's path), all started together; return their outputs
+    (ptxas's report among them). Raises naming every job that failed."""
+    nvcc = _nvcc()
+    cmds = [[nvcc] + list(args) for args in jobs]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    failed = [(c, p.returncode, out)
+              for c, p, out in zip(cmds, procs, outs) if p.returncode != 0]
+    if failed:
+        raise RuntimeError("nvcc failed:\n" + "\n".join(
+            f"{' '.join(c)} (exit {rc})\n{out}" for c, rc, out in failed))
+    return outs
+
+
+def build_variants(jobs: dict) -> dict:
+    """Build each of ``jobs`` (name -> (library path, [sources])) into a
+    shared library of its own with the port's flags, one ``nvcc`` a job,
+    all started together, and load it: name -> (ctypes.CDLL, nvcc's
+    output). For tools that time a patched or an older copy of ``csrc/``
+    beside :func:`library`; the caller sets the entry points' argtypes."""
+    names = list(jobs)
+    outs = run_nvcc([_ARCH + _FLAGS + ["-shared", "-o", str(jobs[n][0])]
+                     + [str(src) for src in jobs[n][1]] for n in names])
+    return {n: (ctypes.CDLL(str(jobs[n][0])), out)
+            for n, out in zip(names, outs)}
+
+
 def _build() -> Path:
     global build_seconds
     import time
@@ -134,17 +167,8 @@ def _build() -> Path:
     t0 = time.perf_counter()
     srcs = [s for s in _sources() if s.suffix == ".cu"]
     objs = [work / f"{s.stem}.o" for s in srcs]
-    cmds = [[nvcc] + _ARCH + _FLAGS + ["-c", "-o", str(o), str(s)]
-            for s, o in zip(srcs, objs)]
-    procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
-                              stderr=subprocess.STDOUT, text=True)
-             for c in cmds]
-    outs = [p.communicate()[0] for p in procs]
-    failed = [(c, p.returncode, out)
-              for c, p, out in zip(cmds, procs, outs) if p.returncode != 0]
-    if failed:
-        raise RuntimeError("nvcc failed:\n" + "\n".join(
-            f"{' '.join(c)} (exit {rc})\n{out}" for c, rc, out in failed))
+    outs = run_nvcc([_ARCH + _FLAGS + ["-c", "-o", str(o), str(s)]
+                     for s, o in zip(srcs, objs)])
     tmp = work / "lib.so"
     link = [nvcc] + _ARCH + ["-shared", "-o", str(tmp)] + [str(o) for o in objs]
     proc = subprocess.run(link, capture_output=True, text=True)

@@ -4,9 +4,13 @@ Counterpart of ``dvren_tpu/ops/integrate_pallas.py``: radiance,
 transmittance, opacity and depth of (N, K) planes of sigma, colour and
 dt, with a recompute backward for the radiance head. The TPU kernels take
 the prefix sums as triangular matmuls on the MXU; on the card the kernels
-(``csrc/integrate.cu``, ``csrc/integrate_bwd.cu``) give each ray a warp,
-walk its steps in 32-wide chunks with warp scans, and stop once the
-transmittance is spent.
+(``csrc/integrate.cu``, ``csrc/integrate_bwd.cu``) give each ray a warp
+that holds its row in registers (lane j: steps j, j + 32, ...; up to
+:data:`REGISTER_CHUNKS` chunks of 32, every load issued before the first
+scan), take 32-wide warp scans chunk by chunk, and stop once the
+transmittance is spent; a longer row is walked in groups of that many
+chunks (:func:`launch_geometry`). K9b reads each input and writes each
+output once per step of a row of up to 128 steps.
 
 :func:`integrate_fused` is the port's per-ray integrator: every group of
 the windowed path and of the tiled schedule's windowed fallback goes
@@ -27,12 +31,56 @@ Conventions (where the kernels and ``integrate_pallas`` differ):
 
 from __future__ import annotations
 
+import ctypes
+import functools
+
 import torch
 
 from dvren_tpu_torch import _build
-from dvren_tpu_torch.ops.integrate import (OPACITY_EPS, STOP_THRESHOLD,
-                                           integrate, processed_steps,
-                                           scan_prefix)
+from dvren_tpu_torch.ops.integrate import (OPACITY_EPS, SCAN_WIDTH,
+                                           STOP_THRESHOLD, integrate,
+                                           processed_steps, scan_prefix)
+
+WARPS_PER_BLOCK = 4   # rays a block: one warp each (csrc/integrate.cuh)
+REGISTER_CHUNKS = 4   # 32-step chunks a ray's warp holds in registers
+
+
+def launch_geometry(n: int, k: int) -> tuple[int, int]:
+    """(chunks, blocks) of a K9f / K9b launch over (n, k) planes.
+
+    Each ray's warp holds ``chunks`` 32-step chunks of its row in
+    registers (lane j: steps j, j + 32, ...), the fewest that cover the
+    row up to :data:`REGISTER_CHUNKS`; a longer row is walked in groups of
+    that many chunks. ``blocks`` of :data:`WARPS_PER_BLOCK` rays cover the
+    ``n`` rays."""
+    chunks = min(max(-(-k // SCAN_WIDTH), 1), REGISTER_CHUNKS)
+    return chunks, -(-n // WARPS_PER_BLOCK)
+
+
+@functools.lru_cache(maxsize=None)
+def _occupancy(k: int, device: int) -> dict:
+    lib = _build.library()
+    chunks = launch_geometry(1, k)[0]
+    out = {}
+    for name, fn in (("integrate", lib.dvt_integrate_forward_occupancy),
+                     ("integrate_bwd", lib.dvt_integrate_backward_occupancy)):
+        vals = (ctypes.c_int * 3)()
+        with torch.cuda.device(device):
+            code = fn(k, chunks, ctypes.cast(vals, ctypes.c_void_p))
+        _build.check(code, f"{name} occupancy")
+        out[name] = dict(zip(("registers", "local_bytes", "blocks_per_sm"),
+                             list(vals)))
+    return out
+
+
+def kernel_occupancy(k: int, device: int | None = None) -> dict:
+    """K9f's and K9b's registers, local memory (bytes per thread: stack
+    and spills) and resident blocks per SM for rows of ``k`` steps (the
+    kernel instance :func:`launch_geometry` picks) on CUDA device
+    ``device`` (the current one by default), from the CUDA runtime."""
+    if device is None:
+        device = torch.cuda.current_device()
+    return {name: dict(v) for name, v in _occupancy(k, int(device)).items()}
 
 
 def _planes(sigma, color_planes, dt, mask, t_origin):
@@ -90,14 +138,16 @@ def integrate_forward(sigma, color_planes, dt, mask, t_near: float,
     n, k = (int(v) for v in sigma.shape)
     dev = sigma.device
     out = torch.empty((n, 8), dtype=torch.float32, device=dev)
+    chunks, blocks = launch_geometry(n, k)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.dvt_integrate_forward(
             sigma.data_ptr(), cr.data_ptr(), cg.data_ptr(), cb.data_ptr(),
             dt.data_ptr(), mask.data_ptr(),
             t_origin.data_ptr() if t_origin is not None else None,
-            out.data_ptr(), n, k, float(t_near), float(t_far),
-            STOP_THRESHOLD, OPACITY_EPS, _build.stream_ptr(dev))
+            out.data_ptr(), n, k, chunks, blocks, float(t_near),
+            float(t_far), STOP_THRESHOLD, OPACITY_EPS,
+            _build.stream_ptr(dev))
     _build.check(code, "dvt_integrate_forward")
     integrate_forward.launches += 1
     return out
@@ -157,13 +207,14 @@ def radiance_vjp(sigma, color_planes, dt, mask, g) -> tuple:
     dev = sigma.device
     outs = [torch.empty((n, k), dtype=torch.float32, device=dev)
             for _ in range(4)]
+    chunks, blocks = launch_geometry(n, k)
     lib = _build.library()
     with torch.cuda.device(dev):
         code = lib.dvt_integrate_backward(
             sigma.data_ptr(), cr.data_ptr(), cg.data_ptr(), cb.data_ptr(),
             dt.data_ptr(), mask.data_ptr(), g.data_ptr(),
-            *(o.data_ptr() for o in outs), n, k, STOP_THRESHOLD,
-            _build.stream_ptr(dev))
+            *(o.data_ptr() for o in outs), n, k, chunks, blocks,
+            STOP_THRESHOLD, _build.stream_ptr(dev))
     _build.check(code, "dvt_integrate_backward")
     radiance_vjp.launches += 1
     return outs[0], tuple(outs[1:])

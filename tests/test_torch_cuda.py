@@ -44,7 +44,10 @@ schedule's planes on the card, with zero gradients. The per-ray
 integrator: K9f and K9b against their twins at
 tests/test_pallas_parity.py's bounds (radiance rtol 1e-5 / atol 1e-6, T
 and opacity 1e-5 / 1e-7, depth 1e-5 / 1e-5, d_sigma 1e-4 / 1e-6, d_colour
-1e-4 / 1e-7), repeats bit for bit; the windowed Renderer, the tiled
+1e-4 / 1e-7), repeats bit for bit, at rows of 1 to 256 steps (the
+register path's one to four chunks and the grouped walk past them) and
+1, 5 and 9,216 rays, with masked rows, rows that stop in their first
+chunk and exact-zero sigma; the windowed Renderer, the tiled
 schedule's fallback and the windowed and plain fits on the card against
 the CPU (planes 5e-6, depth 1e-4, gradients 2e-6 x scale, losses 1e-5
 relative), with K9's launch counts. The split backward: K6 equal to its
@@ -1292,9 +1295,11 @@ def test_fit_dense_grid_on_the_card(cuda_device):
 # ---------------------------------------------------------------- K9
 
 
-def integrate_scene(device, n=40, k=50, seed=0, hi=4.0, zeros=False):
+def integrate_scene(device, n=40, k=50, seed=0, hi=4.0, zeros=False,
+                    masked_rows=False):
     """tests/test_pallas_parity.py's lattice: sigma in [0, hi), ragged
-    live prefixes; ``zeros`` sets a third of sigma to exactly 0."""
+    live prefixes; ``zeros`` sets a third of sigma to exactly 0,
+    ``masked_rows`` masks every seventh row whole."""
     rng = np.random.default_rng(seed)
     sigma = rng.uniform(0.0, hi, (n, k)).astype(np.float32)
     if zeros:
@@ -1305,6 +1310,9 @@ def integrate_scene(device, n=40, k=50, seed=0, hi=4.0, zeros=False):
     for i, length in enumerate(rng.integers(k // 2, k + 1, n)):
         mask[i, length:] = False
         dt[i, length:] = 0.0
+    if masked_rows:
+        mask[3::7] = False
+        dt[3::7] = 0.0
     origin = (0.3 + rng.integers(0, 5, n) * 0.05).astype(np.float32)
     g = rng.uniform(-1, 1, (n, 3)).astype(np.float32)
     t = [torch.from_numpy(x).to(device)
@@ -1313,15 +1321,31 @@ def integrate_scene(device, n=40, k=50, seed=0, hi=4.0, zeros=False):
     return t[0], planes, t[1], t[2], t[3], t[4]
 
 
-@pytest.mark.parametrize("n,k,hi,zeros", [(40, 50, 4.0, False),
-                                          (40, 50, 40.0, False),
-                                          (16, 200, 4.0, False),
-                                          (300, 96, 4.0, True)])
+# (n, k, hi, zeros): tests/test_pallas_parity.py's lattices, then every row
+# length around the register path's chunks (1 to 4 of 32 steps) and the
+# grouped walk past 128 steps, at 1, 5 and 9,216 rays (a 96^2 view), each
+# with ragged rows (every seventh masked whole), rows that stop in their
+# first chunk (hi 40) and a third of sigma exactly 0 (the 0.5 tie)
+K9_CASES = [(40, 50, 4.0, False), (40, 50, 40.0, False),
+            (16, 200, 4.0, False), (300, 96, 4.0, True)] + [
+    (n, k, hi, zeros)
+    for k in (1, 31, 32, 33, 96, 128, 129, 200, 256)
+    for n in (1, 5, 9216)
+    for hi, zeros in ((4.0, False), (40.0, False), (4.0, True))]
+
+
+def k9_case_id(case):
+    n, k, hi, zeros = case
+    return f"{n}x{k}-hi{hi:g}" + ("-tie" if zeros else "")
+
+
+@pytest.mark.parametrize("n,k,hi,zeros", K9_CASES,
+                         ids=[k9_case_id(c) for c in K9_CASES])
 @pytest.mark.parametrize("with_origin", [False, True])
 def test_integrate_forward_matches_plain(cuda_device, n, k, hi, zeros,
                                          with_origin):
     sigma, planes, dt, mask, origin, _ = integrate_scene(
-        cuda_device, n, k, hi=hi, zeros=zeros)
+        cuda_device, n, k, hi=hi, zeros=zeros, masked_rows=True)
     origin = origin if with_origin else None
     before = integrate_fused.integrate_forward.launches
     got = integrate_fused.integrate_forward(sigma, planes, dt, mask, 0.3,
@@ -1341,13 +1365,11 @@ def test_integrate_forward_matches_plain(cuda_device, n, k, hi, zeros,
                                rtol=1e-4 if k >= 128 else 1e-5, atol=1e-5)
 
 
-@pytest.mark.parametrize("n,k,hi,zeros", [(40, 50, 4.0, False),
-                                          (40, 50, 40.0, False),
-                                          (16, 200, 4.0, False),
-                                          (300, 96, 4.0, True)])
+@pytest.mark.parametrize("n,k,hi,zeros", K9_CASES,
+                         ids=[k9_case_id(c) for c in K9_CASES])
 def test_integrate_backward_matches_plain(cuda_device, n, k, hi, zeros):
-    sigma, planes, dt, mask, _, g = integrate_scene(cuda_device, n, k, hi=hi,
-                                                    zeros=zeros)
+    sigma, planes, dt, mask, _, g = integrate_scene(
+        cuda_device, n, k, hi=hi, zeros=zeros, masked_rows=True)
     before = integrate_fused.radiance_vjp.launches
     ds, dc = integrate_fused.radiance_vjp(sigma, planes, dt, mask, g)
     ds2, dc2 = integrate_fused.radiance_vjp(sigma, planes, dt, mask, g)

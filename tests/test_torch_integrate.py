@@ -266,3 +266,25 @@ def test_fused_node_skips_unused_heads():
     grads = torch.autograd.grad(t.sum(), (s,) + planes)
     assert float(grads[0].abs().max()) > 0
     assert all(float(x.abs().max()) == 0 for x in grads[1:])
+
+
+# The kernels' launch geometry (csrc/integrate.cu, integrate_bwd.cu) at
+# row lengths around the register path's chunks and past it (the grouped
+# walk), at 1, 5 and 9,216 rays
+@pytest.mark.parametrize("n,k", [(1, 1), (5, 31), (5, 32), (1, 33),
+                                 (9216, 96), (5, 128), (1, 129),
+                                 (9216, 256)])
+def test_launch_geometry_covers_every_step_and_ray(n, k):
+    chunks, blocks = p_fused.launch_geometry(n, k)
+    width = p_int.SCAN_WIDTH
+    span = width * chunks
+    groups = -(-k // span)
+    assert 1 <= chunks <= p_fused.REGISTER_CHUNKS
+    # every step in a chunk, no chunk past the row's last step
+    assert (chunks - 1) * width < k <= span * groups
+    # the register path holds the whole row; only the most chunks group
+    assert (groups == 1) == (k <= width * p_fused.REGISTER_CHUNKS)
+    assert groups == 1 or chunks == p_fused.REGISTER_CHUNKS
+    # one warp a ray, no block without a ray
+    assert (blocks - 1) * p_fused.WARPS_PER_BLOCK < n
+    assert blocks * p_fused.WARPS_PER_BLOCK >= n

@@ -36,7 +36,6 @@ import ctypes
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -59,10 +58,9 @@ def build(names) -> dict:
     """Each variant's library, built in parallel."""
     from dvren_tpu_torch import _build
 
-    nvcc = _build._nvcc()
     src = os.path.join(HERE, "dvren_tpu_torch", "csrc")
     root = os.path.join(HERE, "dvren_tpu_torch", "_build", "ablate")
-    procs, libs = [], {}
+    jobs = {}
     for name in names:
         work = os.path.join(root, name)
         shutil.rmtree(work, ignore_errors=True)
@@ -77,18 +75,9 @@ def build(names) -> dict:
             text = text.replace(old, new)
         with open(path, "w") as f:
             f.write(text)
-        libs[name] = os.path.join(work, "lib.so")
-        procs.append(subprocess.Popen(
-            [nvcc] + _build._ARCH + _build._FLAGS
-            + ["-shared", "-o", libs[name], path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, proc in zip(names, procs):
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        jobs[name] = (os.path.join(work, "lib.so"), [path])
     loaded = {}
-    for name, path in libs.items():
-        lib = ctypes.CDLL(path)
+    for name, (lib, _) in _build.build_variants(jobs).items():
         fn = lib.dvt_hash_grid_backward
         fn.argtypes, fn.restype = _build._SIGNATURES["dvt_hash_grid_backward"]
         loaded[name] = fn

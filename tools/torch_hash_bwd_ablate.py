@@ -50,7 +50,6 @@ import ctypes
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -158,9 +157,8 @@ def build(csrc: str, tag: str) -> dict:
     from dvren_tpu_torch import _build
 
     variants = ANCHORS[anchor_set(csrc)]
-    nvcc = _build._nvcc()
     root = os.path.join(HERE, "dvren_tpu_torch", "_build", "ablate_k7", tag)
-    procs, libs = [], {}
+    jobs = {}
     for name, (source, patches) in variants.items():
         work = os.path.join(root, name)
         shutil.rmtree(work, ignore_errors=True)
@@ -171,19 +169,13 @@ def build(csrc: str, tag: str) -> dict:
                 text = f.read()
             with open(path, "w") as f:
                 f.write(text.replace(old, new))
-        libs[name] = os.path.join(work, "lib.so")
-        procs.append(subprocess.Popen(
-            [nvcc] + _build._ARCH + _build._FLAGS
-            + ["-shared", "-o", libs[name], os.path.join(work, source)],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        jobs[name] = (os.path.join(work, "lib.so"),
+                      [os.path.join(work, source)])
     loaded = {}
-    for name, proc in zip(list(variants), procs):
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+    for name, (lib, out) in _build.build_variants(jobs).items():
         entry = ("dvt_hash_backward" if name.startswith("k7b")
                  else "dvt_hash_forward")
-        fn = getattr(ctypes.CDLL(libs[name]), entry)
+        fn = getattr(lib, entry)
         fn.argtypes, fn.restype = _build._SIGNATURES[entry]
         ptxas = [ln.strip() for ln in out.splitlines()
                  if "registers" in ln or "spill" in ln]

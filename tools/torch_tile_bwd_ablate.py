@@ -36,11 +36,9 @@ the anchor, when one is not in the source as many times as it says.
 
 from __future__ import annotations
 
-import ctypes
 import json
 import os
 import shutil
-import subprocess
 import sys
 
 HERE = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -64,10 +62,9 @@ def build(names) -> dict:
     """Each variant's ``dvt_tile_backward``, built in parallel."""
     from dvren_tpu_torch import _build
 
-    nvcc = _build._nvcc()
     src = os.path.join(HERE, "dvren_tpu_torch", "csrc")
     root = os.path.join(HERE, "dvren_tpu_torch", "_build", "ablate_k2")
-    procs, libs = [], {}
+    jobs = {}
     for name in names:
         work = os.path.join(root, name)
         shutil.rmtree(work, ignore_errors=True)
@@ -82,18 +79,10 @@ def build(names) -> dict:
             text = text.replace(old, new)
         with open(path, "w") as f:
             f.write(text)
-        libs[name] = os.path.join(work, "lib.so")
-        procs.append(subprocess.Popen(
-            [nvcc] + _build._ARCH + _build._FLAGS
-            + ["-shared", "-o", libs[name], path],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
-    for name, proc in zip(names, procs):
-        out = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {name}:\n{out}")
+        jobs[name] = (os.path.join(work, "lib.so"), [path])
     loaded = {}
-    for name, path in libs.items():
-        fn = ctypes.CDLL(path).dvt_tile_backward
+    for name, (lib, _) in _build.build_variants(jobs).items():
+        fn = lib.dvt_tile_backward
         fn.argtypes, fn.restype = _build._SIGNATURES["dvt_tile_backward"]
         loaded[name] = fn
     return loaded
