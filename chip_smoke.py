@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed|parallel|close]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed|parallel|close|soak]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -404,6 +404,36 @@ fatal when it fails:
     single steps, K1 / K2 once a step, a warm block timed;
 69. ``utils/roofline.forward_roofline`` of the headline schedule beside
     its measured frame (median of 10).
+
+Phases 70-72 (last; ``--only soak`` runs phases 1 and 70-72 alone), the
+port's counterpart of ``tools/soak.py`` and of the pose refinement of
+``tests/test_scenes.py``, each fatal when it fails:
+
+70. 960x720 over the 64^3 sphere shell (radius 0.3, width 0.05), 64 steps
+    of 2/64 (``dvren_tpu_torch/utils/scenes.py``): through
+    ``Renderer(enable_graph=True)`` (the tiled path: K3, K1, a recorded
+    graph replayed) and through ``use_window=True`` (K9f per group); the
+    first frame, then sigma x 1.0001 in place and 10 steady frames
+    (median, CUDA events); two replays byte-equal; 12 pixels against
+    ``tests/oracle.py`` (image 3e-3, depth 1e-2 off the knife edge);
+71. 120 frames at 192x144 over a 24^3 blob whose sigma is made on the
+    card every frame: through ``pipeline.render`` under stratified
+    sampling (K9f and the jitter kernel once a frame; frames per second
+    between CUDA events), then the same frames with fixed steps through
+    one ``Renderer`` (the tiled path: K3 and K1 every frame), with the
+    per-frame invariants and the oracle on frames 0, 29, 59, 89 and 119;
+72. pose refinement of c2w's translation through its camera gradients:
+    80 Adam steps through ``pipeline.render`` at 20x16, 60 through
+    ``render_tiled`` at 32x32 (K1, K2 with the camera adjoint, the
+    schedule rebuilt every 10 steps), each meeting the tests'
+    convergence bounds, and 20 at 960x720 over the 64^3 shell, which must
+    lower the loss; ms a step. Then K3, K1 and K9f at the 960x720 frame,
+    K2 at the wide pose step, the jitter kernel at the animation's
+    lattice and K9f / K9b at the 20x16 step against their twins, timed,
+    with bounds (the kernels line adds ``fused_tiles:soak_960x720``,
+    ``packed_table:soak_64``, ``fused_tiles_bwd:pose_960x720``,
+    ``integrate:soak_960x720``, ``stratified_jitter:animation`` and
+    ``integrate[_bwd]:pose_20x16``).
 
 Each mode's ``Renderer.forward`` and ``.backward`` is timed over 10 warm
 runs between CUDA events (median and spread), beside the peak device
@@ -6206,6 +6236,541 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
     return [jitter_entry] + al_entries, report
 
 
+SOAK_W, SOAK_H, SOAK_GRID = 960, 720, 64   # tools/soak.py:58-79's scale
+SOAK_STEPS = 64
+SOAK_RUNS = 10           # steady frames timed (median)
+SOAK_PIXELS = 12         # oracle pixels of a high-res frame
+ANIM_FRAMES = 120        # tests/test_soak.py's frame count
+ANIM_GRID = 24           # tools/soak.py's animation grid
+ANIM_ORACLE_FRAMES = (0, 29, 59, 89, 119)
+ANIM_SEED = 21           # the stratified animation plan's seed
+POSE_LR = 1e-2
+POSE_STEPS = 80          # tests/test_scenes.py's pipeline refinement
+POSE_TILED_STEPS = 60    # and its tiled one
+POSE_WIDE_STEPS = 20     # the tiled refinement at the soak's width
+POSE_REBUILD = 10        # steps between schedule rebuilds
+
+
+def soak_oracle(plan, image, depth, sigma, color, pixels, img_tol=3e-3,
+                depth_tol=1e-2, seed=None) -> float:
+    """tests/test_torch_scenes.py::subset_oracle_check on a frame's flat
+    planes: each pixel against ``tests/oracle.py``'s scalar integrator
+    (with ``seed``'s stratified jitter when given), depth skipped where
+    the oracle's opacity sits within 4 * OPACITY_EPS of the depth rule's
+    edge. Returns the largest image error."""
+    import importlib.util
+
+    from dvren_tpu_torch.ops.integrate import OPACITY_EPS
+    from dvren_tpu_torch.ops.rng import stratified_jitter_py
+
+    # tests/oracle.py by its path: another package named ``tests`` on the
+    # path must not shadow it
+    spec = importlib.util.spec_from_file_location("dvren_scalar_oracle", (
+        os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests",
+                     "oracle.py")))
+    oracle = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(oracle)
+    kmat = np.asarray(plan.camera.k).reshape(3, 3)
+    img = np.asarray(image).reshape(plan.height, plan.width, 3)
+    dep = np.asarray(depth).reshape(plan.height, plan.width)
+    worst = 0.0
+    for px, py in pixels:
+        px, py = int(px), int(py)
+        jitter_fn = None
+        if seed is not None:
+            ray = py * plan.width + px
+            jitter_fn = (lambda s, r=ray: stratified_jitter_py(seed, r, s))
+        o, d = oracle.pinhole_ray(px, py, kmat, plan.camera.c2w)
+        exp = oracle.integrate_pixel(
+            o, d, plan.t_near, plan.t_far, plan.sampling.dt,
+            plan.sampling.max_steps, sigma, color, (0, 0, 0), (1, 1, 1),
+            jitter_fn=jitter_fn)
+        err = float(np.abs(img[py, px] - exp["radiance"]).max())
+        require(err < img_tol, f"pixel ({px}, {py}) differs from the "
+                f"oracle by {err:.3e} (tolerance {img_tol})")
+        knife = abs(exp["opacity"] - OPACITY_EPS) < 4 * OPACITY_EPS
+        require(knife or abs(float(dep[py, px]) - exp["depth"]) < depth_tol,
+                f"pixel ({px}, {py})'s depth {float(dep[py, px])} differs "
+                f"from the oracle's {exp['depth']}")
+        worst = max(worst, err)
+    return worst
+
+
+def frame_checks(fr, n_px, what):
+    """A ForwardResult's invariants: finite planes, opacity in [0, 1],
+    T >= 0, every pixel a ray."""
+    for key in ("image", "transmittance", "opacity", "depth"):
+        require(bool(np.isfinite(getattr(fr, key)).all()),
+                f"{what}: {key} not finite")
+    require(float(fr.opacity.max()) <= 1.0 + 1e-6
+            and float(fr.opacity.min()) >= -1e-6
+            and float(fr.transmittance.min()) >= -1e-6,
+            f"{what}: opacity or T out of range")
+    require(int(fr.hitmask.sum()) == n_px, f"{what}: pixels without a ray")
+
+
+def run_soak(torch, P, dev, card) -> tuple[list, dict]:
+    """Phases 70-72: the reference-scale soak (tools/soak.py) and pose
+    refinement (tests/test_scenes.py) on the card."""
+    from dvren_tpu_torch.ops import (fused_tiles, integrate_fused,
+                                     packed_transpose, rng)
+    from dvren_tpu_torch.render import pipeline, tiled
+    from dvren_tpu_torch.utils import roofline
+    from dvren_tpu_torch.utils.scenes import (blob_color, blob_sigma,
+                                              dense_field, grid_coords,
+                                              make_plan, sphere_shell_volume)
+
+    counters = {"fused_tiles": fused_tiles.tile_forward,
+                "fused_tiles_bwd": fused_tiles.tile_backward,
+                "packed_table": packed_transpose.build_rows,
+                "integrate": integrate_fused.integrate_forward,
+                "integrate_bwd": integrate_fused.radiance_vjp,
+                "stratified_jitter": rng.stratified_jitter}
+
+    def reset():
+        for fn in counters.values():
+            fn.launches = 0
+
+    def read():
+        return {name: fn.launches for name, fn in counters.items()}
+
+    report, phase_launches = {}, {}
+    ctx = P.Context.create(device=dev)
+    t_soak = time.perf_counter()
+
+    # 70. 960x720 over the 64^3 shell: tiled with graphs, then windowed
+    sigma_np, color_np = sphere_shell_volume(SOAK_GRID, radius=0.3,
+                                             width=0.05)
+    plan = make_plan(SOAK_W, SOAK_H, dt=2.0 / SOAK_STEPS,
+                     max_steps=SOAK_STEPS)
+    n_px = SOAK_W * SOAK_H
+    pick = np.random.default_rng(3)
+    pixels = list(zip(pick.integers(0, SOAK_W, SOAK_PIXELS),
+                      pick.integers(0, SOAK_H, SOAK_PIXELS)))
+    highres, renderers = {}, {}
+    reset()
+    for label, options in (("tiled", dict(enable_graph=True)),
+                           ("windowed", dict(use_window=True))):
+        r = P.Renderer(ctx, plan, P.RenderOptions(**options))
+        f = dense_field(sigma_np, color_np, dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        first = r.forward(f)
+        torch.cuda.synchronize()
+        first_ms = (time.perf_counter() - t0) * 1e3
+        with torch.no_grad():
+            f.sigma.mul_(1.0001)       # in place: a graph replays it
+        steady = r.forward(f)
+        again = r.forward(f)
+        steady_t = event_times(torch, lambda: r.forward(f), SOAK_RUNS)
+        path = "tiled_path" if label == "tiled" else "windowed_path"
+        require(path in steady.stats.notes,
+                f"the {label} soak frame took another path: "
+                f"{steady.stats.notes}")
+        if label == "tiled":
+            require(any(n.startswith("graph_captured")
+                        for n in first.stats.notes)
+                    and "graph_executed" in steady.stats.notes
+                    and not any(n.startswith("graph_captured")
+                                for n in steady.stats.notes),
+                    f"the soak frame was not replayed from its graph: "
+                    f"{steady.stats.notes}")
+        for key in ("image", "transmittance", "opacity", "depth",
+                    "hitmask"):
+            require(getattr(steady, key).tobytes()
+                    == getattr(again, key).tobytes(),
+                    f"two {label} soak frames differ in {key}")
+        frame_checks(steady, n_px, f"{label} soak frame")
+        require(float(steady.image.std()) > 0.01, "the soak frame is flat")
+        err = soak_oracle(plan, steady.image, steady.depth,
+                          f.sigma.detach().cpu().numpy(), color_np, pixels)
+        notes = [n for n in first.stats.notes if not n.startswith(
+            ("kernel_launches", "stage_ms"))]
+        highres[label] = {"first_ms": first_ms, "steady_ms": steady_t,
+                          "oracle_max_err": err, "notes": notes}
+        renderers[label] = (r, f)
+        print(f"70. {label} {SOAK_W}x{SOAK_H} over {SOAK_GRID}^3, "
+              f"{SOAK_STEPS} steps: first frame {first_ms:.1f} ms, steady "
+              f"Renderer.forward {spread(steady_t)} ms; notes {notes}; "
+              f"{SOAK_PIXELS} pixels within {err:.3e} of the oracle, "
+              f"replays byte-equal [{card}]", flush=True)
+    phase_launches["70"] = read()
+    report["highres"] = highres
+
+    # 71. 120 frames at 192x144 over 24^3, sigma made on the card
+    aplan = make_plan(192, 144, dt=0.0625, max_steps=32)
+    splan = P.Plan.create(dataclasses.replace(
+        aplan.descriptor(), seed=ANIM_SEED,
+        sampling=dataclasses.replace(aplan.sampling,
+                                     mode=P.SamplingMode.STRATIFIED)))
+    coords = grid_coords(ANIM_GRID, dev)
+    acolor = blob_color(coords).contiguous()
+    color_a = acolor.cpu().numpy()
+    ts = [i / float(ANIM_FRAMES) for i in range(ANIM_FRAMES)]
+
+    def blob_field(t):
+        return P.DenseGridField(blob_sigma(coords, t), acolor)
+
+    pick = np.random.default_rng(7)
+    with torch.no_grad():
+        anim_err = 0.0
+        for i in ANIM_ORACLE_FRAMES:         # checked, and warm
+            f = blob_field(ts[i])
+            planes = pipeline.render(splan, f).planes
+            anim_err = max(anim_err, soak_oracle(
+                splan, planes.image.cpu().numpy(),
+                planes.depth.cpu().numpy(), f.sigma.cpu().numpy(), color_a,
+                list(zip(pick.integers(0, 192, 5), pick.integers(0, 144, 5))),
+                img_tol=4e-3, seed=ANIM_SEED))
+        sums = torch.empty(ANIM_FRAMES, device=dev)
+        moved = torch.empty(ANIM_FRAMES, device=dev)
+        torch.cuda.synchronize()
+        reset()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        prev = None
+        for i, t in enumerate(ts):
+            img = pipeline.render(splan, blob_field(t)).planes.image
+            sums[i] = img.sum()
+            moved[i] = 1.0 if prev is None else (img - prev).abs().max()
+            prev = img
+        end.record()
+        end.synchronize()
+        pipe_launches = read()
+    anim_ms = start.elapsed_time(end)
+    fps = ANIM_FRAMES / (anim_ms / 1e3)
+    require(bool(torch.isfinite(sums).all()), "an animation frame is not "
+            "finite")
+    require(float(moved.min()) > 1e-6, "two consecutive animation frames "
+            "are equal")
+    require(pipe_launches["integrate"] == ANIM_FRAMES
+            and pipe_launches["stratified_jitter"] == ANIM_FRAMES,
+            f"the animation did not launch K9f and the jitter kernel once a "
+            f"frame: {pipe_launches}")
+    print(f"71. {ANIM_FRAMES} frames at 192x144 over {ANIM_GRID}^3 "
+          f"(stratified, 32 steps) through pipeline.render: {anim_ms:.2f} "
+          f"ms = {fps:.1f} frames/s (CUDA events, warm); launches "
+          f"{pipe_launches}; frames {ANIM_ORACLE_FRAMES} within "
+          f"{anim_err:.3e} of the oracle [{card}]", flush=True)
+
+    r_anim = P.Renderer(ctx, aplan)
+    pick = np.random.default_rng(7)
+    reset()
+    prev = None
+    renderer_err = 0.0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i, t in enumerate(ts):
+        f = blob_field(t)
+        fr = r_anim.forward(f)
+        frame_checks(fr, 192 * 144, f"animation frame {i}")
+        if i in ANIM_ORACLE_FRAMES:
+            renderer_err = max(renderer_err, soak_oracle(
+                aplan, fr.image, fr.depth, f.sigma.detach().cpu().numpy(),
+                color_a, list(zip(pick.integers(0, 192, 5),
+                                  pick.integers(0, 144, 5))),
+                img_tol=4e-3))
+        if prev is not None:
+            require(float(np.abs(fr.image - prev).max()) > 1e-6,
+                    f"animation frame {i} equals the one before")
+        prev = fr.image
+    renderer_s = time.perf_counter() - t0
+    r_launches = read()
+    require("tiled_path" in fr.stats.notes
+            and r_launches["fused_tiles"] >= ANIM_FRAMES
+            and r_launches["packed_table"] >= ANIM_FRAMES,
+            f"the Renderer's animation did not run K3 and K1 every frame: "
+            f"{r_launches}, {fr.stats.notes}")
+    print(f"71. the same {ANIM_FRAMES} frames (fixed steps) through one "
+          f"Renderer (tiled): {renderer_s:.3f} s = "
+          f"{ANIM_FRAMES / renderer_s:.1f} frames/s (host clock, the "
+          f"invariants and host copies included); launches {r_launches}; "
+          f"frames {ANIM_ORACLE_FRAMES} within {renderer_err:.3e} of the "
+          f"oracle [{card}]", flush=True)
+    phase_launches["71"] = {k: pipe_launches[k] + r_launches[k]
+                            for k in counters}
+    report["animation"] = {"frames": ANIM_FRAMES, "pipeline_ms": anim_ms,
+                           "pipeline_fps": fps, "renderer_s": renderer_s,
+                           "renderer_fps": ANIM_FRAMES / renderer_s,
+                           "oracle_max_err": max(anim_err, renderer_err)}
+
+    # 72. pose refinement: the translation of c2w from its camera gradients
+    def with_t(c2w, tv):
+        return torch.cat([c2w[:, :3], tv[:, None]], dim=1)
+
+    def refine(plan_p, steps, offset, render, rebuild=None,
+               target_sched=None):
+        """Adam on c2w's translation toward ``render``'s frame at the
+        true camera (over ``target_sched``, else a schedule ``rebuild``
+        makes there); ``rebuild(c2w)`` makes the schedule every
+        POSE_REBUILD steps. Returns (first loss, last loss, errors before
+        and after, ms a step (median), rebuild s, the last schedule)."""
+        true_c2w = torch.tensor(plan_p.camera.c2w, dtype=torch.float32,
+                                device=dev).reshape(3, 4)
+        sched = target_sched
+        if sched is None and rebuild is not None:
+            sched = rebuild(true_c2w)
+        with torch.no_grad():
+            target = render(true_c2w, sched).detach()
+        t_true = true_c2w[:, 3]
+        t_start = t_true + torch.tensor(offset, device=dev)
+        tv = t_start.clone().requires_grad_(True)
+        opt = torch.optim.Adam([tv], lr=POSE_LR)
+        losses, step_ms, rebuild_s = [], [], 0.0
+        for it in range(steps):
+            if rebuild and it % POSE_REBUILD == 0:
+                t0 = time.perf_counter()
+                sched = rebuild(with_t(true_c2w, tv.detach()))
+                rebuild_s += time.perf_counter() - t0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            opt.zero_grad()
+            loss = torch.mean((render(with_t(true_c2w, tv), sched)
+                               - target) ** 2)
+            loss.backward()
+            opt.step()
+            losses.append(float(loss.detach()))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        err0 = float((t_start - t_true).abs().max())
+        err1 = float((tv.detach() - t_true).abs().max())
+        return (losses[0], losses[-1], err0, err1,
+                float(np.median(step_ms)), rebuild_s, sched)
+
+    sigma_p, color_p = sphere_shell_volume(12, radius=0.3, width=0.08)
+    pose = {}
+    reset()
+    pplan = make_plan(20, 16, dt=0.0625, max_steps=32)
+    pfield = dense_field(sigma_p, color_p, dev).requires_grad_(False)
+    l0, l1, e0, e1, ms, _, _ = refine(
+        pplan, POSE_STEPS, [0.06, -0.05, 0.0],
+        lambda c2w, _: pipeline.render(pplan, pfield, c2w=c2w).planes.image)
+    pipe_pose_launches = read()
+    require(l1 < 0.2 * l0 and e1 < 0.5 * e0,
+            f"the pipeline pose refinement did not converge: loss {l0} -> "
+            f"{l1}, error {e0} -> {e1}")
+    pose["pipeline"] = {"loss": [l0, l1], "error": [e0, e1], "step_ms": ms}
+
+    def tiled_refinement(plan_t, field_t, steps, offset, target_sched=None):
+        k0 = torch.tensor(plan_t.camera.k, dtype=torch.float32,
+                          device=dev).reshape(3, 3)
+
+        def rebuild(c2w):
+            cam = dataclasses.replace(
+                plan_t.camera, c2w=tuple(c2w.reshape(-1).tolist()))
+            return tiled.build_tiled_schedule(plan_t.with_camera(cam),
+                                              field_t).to(dev)
+
+        return refine(plan_t, steps, offset,
+                      lambda c2w, s: tiled.render_tiled(
+                          plan_t, field_t, s, k=k0, c2w=c2w).image,
+                      rebuild=rebuild, target_sched=target_sched)
+
+    reset()
+    tplan = make_plan(32, 32, dt=0.0625, max_steps=32)
+    tfield = dense_field(sigma_p, color_p, dev).requires_grad_(False)
+    l0, l1, e0, e1, ms, rb, _ = tiled_refinement(
+        tplan, tfield, POSE_TILED_STEPS, [0.05, -0.04, 0.0])
+    tiled_pose_launches = read()
+    require(l1 < 0.5 * l0 and e1 < 0.5 * e0,
+            f"the tiled pose refinement did not converge: loss {l0} -> "
+            f"{l1}, error {e0} -> {e1}")
+    pose["tiled"] = {"loss": [l0, l1], "error": [e0, e1], "step_ms": ms,
+                     "rebuild_s": rb}
+    reset()
+    wfield = dense_field(sigma_np, color_np, dev).requires_grad_(False)
+    l0, l1, e0, e1, ms, rb, wsched = tiled_refinement(
+        plan, wfield, POSE_WIDE_STEPS, [0.05, -0.04, 0.0],
+        target_sched=renderers["tiled"][0]._tiled_schedule)
+    require(l1 < l0, f"the {SOAK_W}x{SOAK_H} pose steps did not lower the "
+            f"loss: {l0} -> {l1}")
+    pose["wide"] = {"loss": [l0, l1], "error": [e0, e1], "step_ms": ms,
+                    "rebuild_s": rb}
+    wide_launches = read()
+    for name in pose:
+        print(f"72. pose refinement, {name}: loss {pose[name]['loss'][0]:.4e}"
+              f" -> {pose[name]['loss'][1]:.4e}, translation error "
+              f"{pose[name]['error'][0]:.4f} -> {pose[name]['error'][1]:.4f};"
+              f" {pose[name]['step_ms']:.3f} ms a step (median, host clock "
+              f"after a synchronize)"
+              + (f", schedule rebuilds {pose[name]['rebuild_s']:.3f} s"
+                 if "rebuild_s" in pose[name] else "") + f" [{card}]",
+              flush=True)
+    phase_launches["72"] = {k: pipe_pose_launches[k]
+                            + tiled_pose_launches[k] + wide_launches[k]
+                            for k in counters}
+    report["pose"] = pose
+    report["phases_s"] = time.perf_counter() - t_soak
+    launches = {k: sum(p[k] for p in phase_launches.values())
+                for k in counters}
+    for name in counters:
+        require(launches[name] > 0, f"phases 70-72 never launched {name}")
+    # K9f's entry at the soak counts phases 70-71; phase 72's pipeline
+    # refinement (K9f and K9b at 20x16) has entries of its own
+    soak_k9f = phase_launches["70"]["integrate"] + phase_launches[
+        "71"]["integrate"]
+
+    # the kernels at the soak's shapes against their twins, timed
+    r_tiled, f_tiled = renderers["tiled"]
+    sched = r_tiled._tiled_schedule
+    with torch.no_grad():
+        sig, col = f_tiled.sigma.detach(), f_tiled.color.detach()
+        rows_k = packed_transpose.build_rows(sig, col)
+        rows_p = packed_transpose.build_rows_plain(sig, col)
+        torch.cuda.synchronize()
+        require(torch.equal(words(rows_k), words(rows_p)),
+                "K3 differs from its twin at the soak's grid")
+        k3_ms, k3_issued, k3_plain = packed_times(
+            torch, lambda: packed_transpose.build_rows(sig, col),
+            lambda: packed_transpose.build_rows_plain(sig, col))
+        tabs = tiled._gather_banks_flat(rows_k, sched.gathermap_all)
+        prm = fused_tiles.tiles_op_params(
+            plan, (sched.bbox[0], sched.bbox[1], sched.grid_shape),
+            sched.tiles)
+        args = (tabs, sched.tiles, prm)
+        out_k = fused_tiles.tile_forward(*args)
+        out_p = fused_tiles.tile_forward_set_plain(*args)
+        torch.cuda.synchronize()
+        require(torch.equal(out_k, out_p),
+                "K1 differs from its twin at the soak's frame")
+        k1_ms = device_ms(torch, lambda: fused_tiles.tile_forward(*args), 20)
+        k1_issued = cuda_ms(torch, lambda: fused_tiles.tile_forward(*args),
+                            20)
+        k1_plain = cuda_ms(torch, lambda: fused_tiles.tile_forward_set_plain(
+            *args), 1, warmup=1)
+        frame_t = event_times(torch, lambda: tiled.render_tiled(
+            plan, f_tiled, sched), SOAK_RUNS, warmup=2)
+    streams = roofline.forward_streams(sched)["phases"]
+    extra = SUPER_OPS if sched.cell_scale == 2 else 0
+    k1_bound = bound(streams["kernel"]["bytes"],
+                     sched.tiled_samples * (DENSE_FWD_OPS + extra))
+    k3_bound = bound(nbytes(sig, col, rows_k), 0)
+
+    r_win, f_win = renderers["windowed"]
+    inputs = window_group_inputs(torch, plan, f_win, r_win._window_schedule)
+    gen = torch.Generator(device=dev).manual_seed(70)
+    gs = [torch.rand((int(x[0].shape[0]), 3), generator=gen, device=dev)
+          for x in inputs]
+    k9_errs = k9_against_twins(torch, inputs, gs, "soak", plan.t_near,
+                               plan.t_far)
+    proc, early = processed_steps(torch, inputs)
+    k9 = k9_times(torch, inputs, gs, plan.t_near, plan.t_far)
+    k9f_bound = k9_bounds(torch, inputs, proc)[0]
+
+    # K2 with the camera adjoint at the wide pose step's last schedule
+    with torch.no_grad():
+        wtabs = tiled._gather_banks_flat(packed_transpose.build_rows(
+            wfield.sigma, wfield.color), wsched.gathermap_all)
+        wprm = fused_tiles.tiles_op_params(
+            plan, (wsched.bbox[0], wsched.bbox[1], wsched.grid_shape),
+            wsched.tiles)
+        wgs = torch.randn((wsched.tiles.n_tiles, 5, 16, 16), generator=gen,
+                          device=dev)
+        b_rows, b_rayt = fused_tiles.tile_backward(wtabs, wsched.tiles, wgs,
+                                                   wprm, cam=True)
+        p_rows, p_rayt = fused_tiles.tile_backward_set_plain(
+            wtabs, wsched.tiles, wgs, wprm, cam=True)
+        torch.cuda.synchronize()
+        k2_err, k2_cam_err = rel_err(b_rows, p_rows), rel_err(b_rayt, p_rayt)
+        require(k2_err <= GRID_TOL and k2_cam_err <= RAYT_TOL,
+                f"K2 differs from its twin at the wide pose step: d(table) "
+                f"{k2_err:.3e}, d(rayt) {k2_cam_err:.3e}")
+        k2_ms = device_ms(torch, lambda: fused_tiles.tile_backward(
+            wtabs, wsched.tiles, wgs, wprm, cam=True), 20)
+        k2_issued = cuda_ms(torch, lambda: fused_tiles.tile_backward(
+            wtabs, wsched.tiles, wgs, wprm, cam=True), 20)
+        k2_plain = cuda_ms(torch, lambda: fused_tiles.tile_backward_set_plain(
+            wtabs, wsched.tiles, wgs, wprm, cam=True), 1, warmup=1)
+    # the jitter kernel at the animation's lattice
+    n_a, k_a = splan.ray_count, splan.sampling.max_steps
+    rays_i = torch.arange(n_a, dtype=torch.int64, device=dev)[:, None]
+    steps_i = torch.arange(k_a, dtype=torch.int32, device=dev)[
+        None, :].expand(n_a, k_a)
+    jit_k = rng.stratified_jitter(ANIM_SEED, rays_i, steps_i,
+                                  bounds=(n_a, k_a))
+    jit_p = rng.stratified_jitter_plain(ANIM_SEED, rays_i, steps_i,
+                                        (n_a, k_a))
+    torch.cuda.synchronize()
+    require(torch.equal(jit_k, jit_p), "the jitter kernel differs from its "
+            "twin at the animation's lattice")
+    jit_ms = device_ms(torch, lambda: rng.stratified_jitter(
+        ANIM_SEED, rays_i, steps_i, bounds=(n_a, k_a)), 50)
+    jit_issued = cuda_ms(torch, lambda: rng.stratified_jitter(
+        ANIM_SEED, rays_i, steps_i, bounds=(n_a, k_a)), 50)
+    jit_plain = cuda_ms(torch, lambda: rng.stratified_jitter_plain(
+        ANIM_SEED, rays_i, steps_i, (n_a, k_a)), 5, warmup=1)
+    jit_bytes = n_a * k_a * 4 + n_a * 8 + k_a * 4
+
+    # K9f / K9b at the pipeline refinement's 20x16 lattice
+    with torch.no_grad():
+        pose_out = pipeline.render(pplan, pfield)
+    pose_inputs = outputs_inputs(pose_out)
+    pose_gs = [torch.rand((pplan.ray_count, 3), generator=gen, device=dev)]
+    pose_k9 = k9_entries(torch, "pose_20x16", pose_inputs, pose_gs,
+                         phase_launches["72"], (pplan.t_near, pplan.t_far),
+                         "a pipeline pose step")
+
+    k2_extra = SUPER_OPS if wsched.cell_scale == 2 else 0
+    k2_bound = bound(tile_in_bytes((wtabs, wsched.tiles, wprm))
+                     + nbytes(wgs, b_rows, b_rayt),
+                     wsched.tiled_samples * (DENSE_BWD_OPS + k2_extra))
+    print(f"70-72 kernels at the soak's shapes: K3 {k3_ms:.4f} device / "
+          f"{k3_issued:.4f} issued (twin {k3_plain:.4f}, bound "
+          f"{k3_bound['bound_ms']:.4f}); K1 over {len(sched.groups)} groups "
+          f"({schedule_line(sched, 0.0)}) {k1_ms:.4f} / {k1_issued:.4f} "
+          f"(twin {k1_plain:.4f}, bound {k1_bound['bound_ms']:.4f}), "
+          f"render_tiled {spread(frame_t)}; K9f over "
+          f"{len(inputs)} windowed groups {k9['k9f_ms']:.4f} / "
+          f"{k9['k9f_issued_ms']:.4f} (twin {k9['k9f_plain_ms']:.4f}, "
+          f"bound {k9f_bound['bound_ms']:.4f}{no_floor(k9f_bound)}; {proc} "
+          f"processed steps, {early} rays stop early); K2 with the camera "
+          f"adjoint at the wide pose step {k2_ms:.4f} / {k2_issued:.4f} "
+          f"(twin {k2_plain:.4f}, bound {k2_bound['bound_ms']:.4f}; vs twin "
+          f"{k2_err:.3e}, d(rayt) {k2_cam_err:.3e}); launches {launches}; "
+          f"phases 70-72 took {report['phases_s']:.1f} s [{card}]",
+          flush=True)
+    report["kernels_ms"] = {
+        "packed_table": [k3_ms, k3_issued], "fused_tiles": [k1_ms, k1_issued],
+        "render_tiled": frame_t, "integrate": [k9["k9f_ms"],
+                                               k9["k9f_issued_ms"]],
+        "fused_tiles_bwd": [k2_ms, k2_issued]}
+    report["launches"] = phase_launches
+    kernels = [
+        {"name": "fused_tiles:soak_960x720", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:1131",
+         "launches": launches["fused_tiles"],
+         "max_abs_err": float((out_k - out_p).abs().max()), "ms": k1_ms,
+         "issued_ms": k1_issued, "plain_ms": k1_plain, **k1_bound},
+        {"name": "packed_table:soak_64", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/packed_table.cu",
+         "replaces": "dvren_tpu/ops/packed_transpose.py:107",
+         "launches": launches["packed_table"],
+         "max_abs_err": float((rows_k - rows_p).abs().max()), "ms": k3_ms,
+         "issued_ms": k3_issued, "plain_ms": k3_plain, **k3_bound},
+        {"name": "fused_tiles_bwd:pose_960x720", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
+         "replaces": "dvren_tpu/ops/fused_tiles.py:1181",
+         "launches": launches["fused_tiles_bwd"],
+         "max_abs_err": float((b_rows - p_rows).abs().max()), "ms": k2_ms,
+         "issued_ms": k2_issued, "plain_ms": k2_plain, **k2_bound},
+        {"name": "integrate:soak_960x720", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/integrate.cu",
+         "replaces": "dvren_tpu/ops/integrate_pallas.py:170",
+         "launches": soak_k9f, "max_abs_err": k9_errs[0],
+         "ms": k9["k9f_ms"], "issued_ms": k9["k9f_issued_ms"],
+         "plain_ms": k9["k9f_plain_ms"], **k9f_bound},
+        {"name": "stratified_jitter:animation", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/jitter.cu",
+         "replaces": "dvren_tpu/ops/rng.py:80 (no Pallas kernel: the "
+                     "in-graph jitter)",
+         "launches": launches["stratified_jitter"],
+         "max_abs_err": float((jit_k - jit_p).abs().max()), "ms": jit_ms,
+         "issued_ms": jit_issued, "plain_ms": jit_plain,
+         **bound(jit_bytes, 0)}]
+    return kernels + pose_k9, report
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -6308,6 +6873,13 @@ def run(only: str = "all") -> dict:
         elapsed("62-64")
         print(json.dumps({"kernels": par_kernels}), flush=True)
         print(json.dumps({**par_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "soak":
+        soak_kernels, soak_report = run_soak(torch, P, dev, card)
+        elapsed("70-72")
+        print(json.dumps({"kernels": soak_kernels}), flush=True)
+        print(json.dumps({**soak_report, "card": card}), flush=True)
         print(card_line(), flush=True)
         return device
 
@@ -6761,6 +7333,9 @@ def run(only: str = "all") -> dict:
         torch, P, dev, card, headline=(plan, config, field, sched_host))
     kernels += close_kernels
     elapsed("65-69")
+    soak_kernels, hash_report["soak"] = run_soak(torch, P, dev, card)
+    kernels += soak_kernels
+    elapsed("70-72")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -6796,7 +7371,8 @@ def main() -> int:
     parser.add_argument(
         "--only", choices=("all", "dense", "tiles", "tables", "hash",
                            "grid", "gridviews", "window", "split", "sched",
-                           "general", "posed", "parallel", "close"),
+                           "general", "posed", "parallel", "close",
+                           "soak"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
@@ -6821,6 +7397,8 @@ def main() -> int:
              "card over gloo, dryrun_multichip); 'close': phase 1 and "
              "phases 65-69 (the jitter kernel, pipeline.render without a "
              "table, bank-aligned K1 / K2, the fit block, the roofline); "
+             "'soak': phase 1 and phases 70-72 (the 960x720 soak frame, "
+             "the 120-frame animation, pose refinement); "
              "each for timing two trees against each other in one call")
     parser.add_argument("--split-child", action="store_true",
                         help=argparse.SUPPRESS)   # phase 45's child process

@@ -8,6 +8,7 @@ CUDA where there is none raises instead of running on the CPU.
 
 import dataclasses
 import pathlib
+import re
 import subprocess
 import sys
 
@@ -99,6 +100,20 @@ def test_sources_never_import_jax_or_the_reference():
                 root = words[1].split(".")[0]
                 assert root not in ("jax", "jaxlib", "dvren_tpu"), \
                     f"{path}: {line}"
+
+
+def test_chip_smoke_imports_neither_jax_nor_the_reference():
+    """chip_smoke.py runs where JAX is absent: it imports neither JAX nor
+    dvren_tpu nor the tests package, and of the tests' files it loads
+    only the numpy oracle, by its path."""
+    text = (REPO / "chip_smoke.py").read_text()
+    for line in text.splitlines():
+        words = line.strip().split()
+        if words[:1] in (["import"], ["from"]) and len(words) > 1:
+            root = words[1].split(".")[0]
+            assert root not in ("jax", "jaxlib", "dvren_tpu", "tests"), line
+    loaded = set(re.findall(r'"tests",\s*"(\w+\.py)"', text))
+    assert loaded == {"oracle.py"}, loaded
 
 
 def test_cuda_context_raises_without_cuda(monkeypatch):

@@ -69,6 +69,7 @@ from dvren_tpu_torch.opt import fit as p_fit
 from dvren_tpu_torch.parallel import Mesh, launch, shard
 from dvren_tpu_torch.parallel.dryrun import dryrun_multichip
 from dvren_tpu_torch.render import tiled as p_tiled
+from dvren_tpu_torch.render.pipeline import render as p_render
 
 torch.set_num_threads(1)
 
@@ -294,6 +295,34 @@ def test_dp_train_step_matches_single_device_grads(n_dev):
     for got, ref in zip(out["dp_grads"], grads):
         np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
     assert out["dp_ranks_agree"]
+
+
+@functools.lru_cache(maxsize=None)
+def port_dp_reference():
+    """The view-DP step's loss and gradient on one device: autograd of
+    the MSE over the 8 poses through the port's ``pipeline.render``."""
+    plan, field = R.parallel_scene(P, 8, 8, device="cpu")
+    f = field.with_params(field.sigma.detach().clone(),
+                          field.color.detach().clone())
+    c2ws = torch.from_numpy(R.dp_poses()).reshape(-1, 3, 4)
+    pred = torch.stack([p_render(plan, f, c2w=c).planes.image
+                        for c in c2ws])
+    loss = torch.mean(pred ** 2)
+    loss.backward()
+    return float(loss.detach()), [f.sigma.grad.numpy(), f.color.grad.numpy()]
+
+
+@pytest.mark.parametrize("n_dev", RANKS)
+def test_dp_step_gradient_is_the_single_device_gradient(n_dev):
+    """Across ranks, the gradient (an SGD step at lr 1) is the one-device
+    gradient of the same loss on the port (loss rel 1e-5; rtol 1e-4 /
+    atol 1e-6, the parameters' float32 ulp)."""
+    out = ranks_run(n_dev)
+    loss, grads = port_dp_reference()
+    assert out["dp_loss"] == pytest.approx(loss, rel=1e-5)
+    for got, ref in zip(out["dp_grads"], grads):
+        assert np.abs(ref).max() > 0
+        np.testing.assert_allclose(got, ref, rtol=1e-4, atol=1e-6)
 
 
 @pytest.mark.parametrize("n_dev", RANKS)
