@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Smoke test of the PyTorch/CUDA port on one NVIDIA GPU.
 
-    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed|parallel|close|soak]
+    python3 chip_smoke.py [--only dense|tiles|tables|hash|grid|gridviews|window|split|sched|general|posed|parallel|close|soak|fit]
 
 Drives the port's main paths once each, at the headline configurations:
 the dense-grid tiled render at 512^2 rays over a 64^3 Gaussian-blob grid
@@ -82,8 +82,10 @@ when it fails:
     bit;
 14. ``fit_hash_mlp`` for 25 Adam steps (``sync_every=25``) toward a
     teacher field of the same spec rendered by the port from the same
-    cameras: the loss is finite and falls, K7f and K7b launch in every
-    step, ``steady_step_ms`` > 0; then K7f and K7b against their twins at
+    cameras: the loss is finite and falls, K7f and K7b recorded once each
+    in the step's CUDA graph (their counters moved by its warm-up and
+    recording only: the replays launch through no wrapper),
+    ``steady_step_ms`` > 0; then K7f and K7b against their twins at
     the fit's shapes (its four-view stack schedule, a seeded random
     cotangent), for the fitted student and for the teacher made opaque
     (sigma_b2 + 5), on which some rays must stop early: K7f within 5e-6
@@ -192,10 +194,12 @@ when it fails:
     at most 300 steps), toward phase 31's per-view frames: the auto mode
     keeps "tiled", the views merge into one 8 px supercell group (its
     shape printed), the stack equals the per-view frames within 5e-6, K1
-    and K2 equal their twins on the group's first 8 tiles and launch once
-    per step each; the steps to PSNR 35, ``schedule_build_s``,
-    ``first_step_s``, ``steady_step_ms``, ``wall_clock_s``, and the Adam
-    step with CUDA events beside phase 32's (each view its own schedule);
+    and K2 equal their twins on the group's first 8 tiles and are recorded
+    once each in the fit's step graph (counters moved by its warm-up and
+    recording only); the steps to PSNR 35, ``schedule_build_s``,
+    ``first_step_s``, ``steady_step_ms``, ``wall_clock_s``, and the
+    replayed Adam step with CUDA events beside phase 32's (each view its
+    own schedule);
 37. K9f and K9b against their twins on every group of the dense
     headline's windowed schedule (a seeded cotangent), and on the same
     lattice with sigma x 10, whose rays stop early (their count printed,
@@ -222,10 +226,12 @@ when it fails:
     field, a seeded table gradient) against their twins as 32-bit words,
     each timed on the device alone and as issued beside its twin;
 40. ``fit_dense_grid(mode="windowed")`` at the flagship (phase 36's
-    scene, targets, rate and cap): K9f and K9b once per stack group per
-    step, the loss falls; steps to PSNR 35, ``schedule_build_s``,
-    ``steady_step_ms``, ``wall_clock_s``; then ``mode="plain"`` for 10
-    steps (K9 once per view per step; the loss falls); K9f / K9b on
+    scene, targets, rate and cap): K9f and K9b recorded once per stack
+    group in the step's graph (counters moved by its warm-up and
+    recording only), the loss falls; steps to PSNR 35,
+    ``schedule_build_s``, ``steady_step_ms``, ``wall_clock_s``, the eager
+    step's kernels under ``torch.profiler``; then ``mode="plain"`` for 10
+    steps (K9 recorded once per view; the loss falls); K9f / K9b on
     view 0's 9,216 x 96 lattice against their twins, in this process;
 41. K1 and K2 in their supercell, subs 16 form on the flagship's view 0
     (4 px, ``cell_scale=2``): one frame and backward (one launch each),
@@ -265,8 +271,8 @@ when it fails:
     lr 5e-2, 8 steps, ``sync_every=4``, once per value of the flag: the
     cascade keeps 16 px cells (else the phase fails: K6 would be off the
     path), the loss histories and final parameters equal bit for bit, K6
-    once per step under "pallas"; ``schedule_build_s`` and
-    ``steady_step_ms`` of each.
+    recorded once in the step graph under "pallas";
+    ``schedule_build_s`` and ``steady_step_ms`` of each.
 
 ``--only dense`` runs phases 1-10, ``--only tiles`` phases 1-10, 28-33,
 36, 41 and 42-46 (every phase that times K1 / K2, in every form),
@@ -277,8 +283,8 @@ K5a / K5b),
 ``--only gridviews`` phases 1 and 34-35, ``--only window`` phases 1 and
 37-41, ``--only split`` phases 1 and 42-46, ``--only sched`` phases 1 and
 47-51, ``--only general`` phases 1 and 52-57, ``--only parallel`` phases
-1 and 62-64, ``--only close`` phases 1 and 65-69: each alone, to time two
-trees against each other in one call.
+1 and 62-64, ``--only close`` phases 1 and 65-69, ``--only fit`` phases 1
+and 73: each alone, to time two trees against each other in one call.
 
 Phases 47-51 drive every option of the tile schedule builder and
 the modules that wait on them: the native scheduler core against the
@@ -400,8 +406,9 @@ fatal when it fails:
     to their twins and timed beside the dense packing's (the kernels line
     adds ``fused_tiles[_bwd]:bank_aligned``);
 68. the fit flagship's merged schedule through
-    ``make_train_block_scheduled``: a block of 8 Adam steps bit-equal to 8
-    single steps, K1 / K2 once a step, a warm block timed;
+    ``make_train_block_scheduled``: a block of 8 Adam steps (8 replays of
+    the step's graph) bit-equal to 8 single steps, K1 / K2 recorded once
+    each in the graph, no counter moved by a warm block, which is timed;
 69. ``utils/roofline.forward_roofline`` of the headline schedule beside
     its measured frame (median of 10).
 
@@ -435,6 +442,22 @@ port's counterpart of ``tools/soak.py`` and of the pose refinement of
     ``integrate:soak_960x720``, ``stratified_jitter:animation`` and
     ``integrate[_bwd]:pose_20x16``).
 
+Phase 73 (last; ``--only fit`` runs phases 1 and 73 alone), fatal when
+it fails: the fits' training steps recorded as CUDA graphs and replayed
+(``opt/fit.py``; JAX's jitted step and ``lax.scan`` block), at the fit
+flagship (phase 36's scene and views) in the tiled, windowed and plain
+modes and at phase 14's hash fit: per mode, 10 replayed steps bit-equal
+to the eager capturable step's body in losses, parameters and Adam's
+state, the launch counters moved by the warm-up and the recording only
+(twice the recorded launches); the graphed fit from the same start
+bit-equal to those steps, its 10 losses within rtol 1e-4 of 10 eager
+steps with a non-capturable Adam; the replayed and the eager step timed
+(median of 10, CUDA events) and their device-busy shares over 5 steps
+(``torch.profiler``; the replays in a child process that records its
+own steps while the parent checks);
+then ``fit_dense_grid`` auto at the flagship, graphed, to PSNR 35 (its
+steps and ``wall_clock_s``).
+
 Each mode's ``Renderer.forward`` and ``.backward`` is timed over 10 warm
 runs between CUDA events (median and spread), beside the peak device
 memory; the kernels line adds ``integrate[_bwd]:streamed_headline``,
@@ -459,6 +482,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import functools
+import gc
 import json
 import os
 import subprocess
@@ -1370,16 +1394,21 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
     losses = res.loss_history
     print(f"fit_hash_mlp: {res.steps_run} steps, loss {losses[0]:.6e} -> "
           f"{losses[-1]:.6e} (psnr {res.psnr_history[0]:.3f} -> "
-          f"{res.psnr_history[-1]:.3f} dB), launches {fit_launches}, "
+          f"{res.psnr_history[-1]:.3f} dB), recorded in the step graph "
+          f"{res.recorded_launches} (capture {res.capture_ms:.1f} ms), "
+          f"launches {fit_launches}, "
           f"schedule {res.schedule_build_s:.3f} s, first step "
           f"{res.first_step_s:.3f} s, steady {res.steady_step_ms:.4f} "
           f"ms/step, wall {res.wall_clock_s:.3f} s", flush=True)
     require(res.steps_run == FIT_STEPS and np.all(np.isfinite(losses)),
             "fit loss not finite")
     require(losses[-1] < losses[0], "fit loss does not fall")
-    require(fit_launches["hash_tiles"] == FIT_STEPS
-            and fit_launches["hash_tiles_bwd"] == FIT_STEPS,
-            f"K7f / K7b did not launch once per fit step: {fit_launches}")
+    require(res.recorded_launches == {"hash_tiles": 1, "hash_tiles_bwd": 1}
+            and fit_launches == {"hash_tiles": 2, "hash_tiles_bwd": 2},
+            f"the fit's step graph did not record K7f / K7b once each, or a "
+            f"replay launched through a wrapper (the warm-up and the "
+            f"recording launch each once): recorded "
+            f"{res.recorded_launches}, counters {fit_launches}")
     require(res.steady_step_ms > 0.0, "steady_step_ms is 0")
 
     # K7f and K7b against their twins at the fit's shapes, for the fitted
@@ -2811,12 +2840,15 @@ def run_fit_flagship(torch, P, dev, card,
           f"{res.reached_target}; schedule_build_s {res.schedule_build_s:.4f}, "
           f"first_step_s {res.first_step_s:.4f}, steady_step_ms "
           f"{res.steady_step_ms:.4f}, wall_clock_s {res.wall_clock_s:.4f}; "
-          f"launches {c}", flush=True)
+          f"recorded in the step graph {res.recorded_launches}, launches "
+          f"{c}", flush=True)
     require(res.mode == "tiled", f"the auto mode chose {res.mode}")
-    require(c["fused_tiles"] == res.steps_run
-            and c["fused_tiles_bwd"] == res.steps_run
+    require(res.recorded_launches == {"fused_tiles": 1, "fused_tiles_bwd": 1}
+            and c["fused_tiles"] == 2 and c["fused_tiles_bwd"] == 2
             and c["packed_table"] == 0 and c["packed_table_bwd"] == 0,
-            f"the fit did not launch K1 and K2 once per step: {c}")
+            f"the fit's step graph did not record K1 and K2 once each, or a "
+            f"replay launched through a wrapper: recorded "
+            f"{res.recorded_launches}, counters {c}")
     require(all(np.isfinite(res.loss_history))
             and res.loss_history[-1] < res.loss_history[0],
             "the flagship fit loss does not fall")
@@ -2828,15 +2860,15 @@ def run_fit_flagship(torch, P, dev, card,
     student = init.with_params(init.sigma.detach().clone(),
                                init.color.detach().clone())
     opt = torch.optim.Adam(student.parameters(), lr=FIT_LR, betas=(0.9, 0.999),
-                           eps=1e-8)
+                           eps=1e-8, capturable=True)
     step = fit.make_train_step_scheduled(plans[0], cams, student, opt,
-                                         views=views)
+                                         views=views)   # recorded, replayed
     step_ms = cuda_ms(torch, lambda: step(student, targets), 10, warmup=2)
     gss = tile_gss(torch, args, gen)
     times = variant_times(torch, args, gss)
     with torch.no_grad():
         stack_ms = cuda_ms(torch, lambda: render_stack(student, merged), 10)
-    print(f"fit flagship times ms [{card}]: Adam step {step_ms:.4f} (each "
+    print(f"fit flagship times ms [{card}]: Adam step replayed {step_ms:.4f} (each "
           f"view its own schedule: {per_view_step_ms:.4f}), {len(plans)}-view "
           f"stack {stack_ms:.4f}; K1 {times[0]:.4f} (plain {times[2]:.4f}), "
           f"K2 {times[1]:.4f} (plain {times[3]:.4f}), one launch each",
@@ -2900,6 +2932,7 @@ def device_breakdown(torch, fn, steps: int = 3, top: int = 8):
     from torch.profiler import ProfilerActivity, profile
 
     fn()
+    gc.collect()        # dead CUDA graphs are destroyed before the trace
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
@@ -3418,29 +3451,33 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
           f"{res_w.schedule_build_s:.4f}, first_step_s "
           f"{res_w.first_step_s:.4f}, steady_step_ms "
           f"{res_w.steady_step_ms:.4f}, wall_clock_s "
-          f"{res_w.wall_clock_s:.4f} [{card}]; launches {c}", flush=True)
+          f"{res_w.wall_clock_s:.4f} [{card}]; recorded in the step graph "
+          f"{res_w.recorded_launches}, launches {c}", flush=True)
     require(res_w.mode == "windowed", f"the fit ran {res_w.mode}")
-    require(c["integrate_bwd"] == n_stack * res_w.steps_run
-            and c["integrate"] >= n_stack * res_w.steps_run,
-            f"the windowed fit did not launch K9f / K9b once per stack group "
-            f"per step: {c}")
+    rec = res_w.recorded_launches
+    require(rec.get("integrate_bwd") == n_stack
+            and rec.get("integrate", 0) >= n_stack
+            and c == {k: 2 * v for k, v in rec.items()},
+            f"the windowed fit's step graph did not record K9f / K9b once "
+            f"per stack group, or a replay launched through a wrapper: "
+            f"recorded {rec}, counters {c}")
     require(all(np.isfinite(res_w.loss_history))
             and res_w.loss_history[-1] < res_w.loss_history[0],
             "the windowed fit loss does not fall")
     student = init.with_params(init.sigma.detach().clone(),
                                init.color.detach().clone())
     adam = torch.optim.Adam(student.parameters(), lr=FIT_LR,
-                            betas=(0.9, 0.999), eps=1e-8)
+                            betas=(0.9, 0.999), eps=1e-8, capturable=True)
     wstep = fit.make_train_step_scheduled(
         plans[0], cams, student, adam, mode="windowed",
         views=fit._scheduled_views(plans[0], cams, student, "windowed"))
-    breakdown = device_breakdown(torch, lambda: wstep(student, targets))
+    breakdown = device_breakdown(torch, lambda: wstep.body(student, targets))
     if breakdown is None:
         print("windowed fit step: the profiler recorded no device time",
               flush=True)
     else:
         dev_ms, wall_ms, rows = breakdown
-        print(f"windowed fit step under torch.profiler [{card}]: kernels "
+        print(f"windowed fit step (eager) under torch.profiler [{card}]: kernels "
               f"{dev_ms:.4f} ms of {wall_ms:.4f} ms wall per step (busy "
               f"share {dev_ms / wall_ms:.3f}); kernels by time per step: "
               + "; ".join(f"{name} {ms:.4f} ms x {n}"
@@ -3453,14 +3490,18 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     cp = counts()
     print(f"fit_dense_grid(mode='plain'): 10 steps, loss "
           f"{res_p.loss_history[0]:.6e} -> {res_p.loss_history[-1]:.6e}, "
-          f"steady_step_ms {res_p.steady_step_ms:.4f} [{card}]; launches "
-          f"{cp}", flush=True)
+          f"steady_step_ms {res_p.steady_step_ms:.4f} [{card}]; recorded in "
+          f"the step graph {res_p.recorded_launches}, launches {cp}",
+          flush=True)
     require(res_p.mode == "plain"
             and res_p.loss_history[-1] < res_p.loss_history[0],
             "the plain fit loss does not fall")
-    require(cp["integrate"] == 10 * len(plans)
-            and cp["integrate_bwd"] == 10 * len(plans),
-            f"the plain fit did not launch K9 once per view per step: {cp}")
+    require(res_p.recorded_launches == {"integrate": len(plans),
+                                        "integrate_bwd": len(plans)}
+            and cp == {k: 2 * v for k, v in res_p.recorded_launches.items()},
+            f"the plain fit's step graph did not record K9 once per view, or "
+            f"a replay launched through a wrapper: recorded "
+            f"{res_p.recorded_launches}, counters {cp}")
     # K9 at one view's lattice (9,216 x 96), as the plain fit launches it
     with torch.no_grad():
         v_in = outputs_inputs(pipeline.render(plans[0], truth))
@@ -3851,16 +3892,22 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
                 mode="tiled")
             torch.cuda.synchronize()
             c = counts()
-        want_k6 = SPLIT_FIT_STEPS if split == "pallas" else 0
+        # K6 recorded once in the step graph under "pallas": the warm-up
+        # and the recording launch it through its wrapper, no replay does
+        want_k6 = 1 if split == "pallas" else 0
         print(f"fit_dense_grid under {split!r}: mode {res.mode}, loss "
               f"{res.loss_history[0]:.6f} -> {res.loss_history[-1]:.6f}, "
               f"schedule_build_s {res.schedule_build_s:.4f}, steady_step_ms "
-              f"{res.steady_step_ms:.4f}, launches {c} ({card})", flush=True)
+              f"{res.steady_step_ms:.4f}, recorded in the step graph "
+              f"{res.recorded_launches}, launches {c} ({card})", flush=True)
         require(res.mode == "tiled" and res.steps_run == SPLIT_FIT_STEPS,
                 f"the fit ran {res.mode} for {res.steps_run} steps")
-        require(c["banks_to_rows"] == want_k6,
-                f"the fit under {split!r} launched K6 {c['banks_to_rows']} "
-                f"times, not {want_k6}")
+        require(res.recorded_launches.get("banks_to_rows", 0) == want_k6
+                and c["banks_to_rows"] == 2 * want_k6,
+                f"the fit under {split!r} recorded K6 "
+                f"{res.recorded_launches.get('banks_to_rows', 0)} times and "
+                f"launched it {c['banks_to_rows']} times, not {want_k6} and "
+                f"{2 * want_k6}")
         require(res.loss_history[-1] < res.loss_history[0],
                 f"the fit's loss does not fall under {split!r}")
         fits[split] = res
@@ -5824,8 +5871,9 @@ fatal when it fails:
     to their twins and timed beside the dense packing's (the kernels line
     adds ``fused_tiles[_bwd]:bank_aligned``);
 68. the fit flagship's merged schedule through
-    ``make_train_block_scheduled``: a block of 8 Adam steps bit-equal to 8
-    single steps, K1 / K2 once a step, a warm block timed;
+    ``make_train_block_scheduled``: a block of 8 Adam steps (8 replays of
+    the step's graph) bit-equal to 8 single steps, K1 / K2 recorded once
+    each in the graph, no counter moved by a warm block, which is timed;
 69. ``utils/roofline.forward_roofline`` of the headline schedule beside
     its measured frame (median of 10).
     Times at D = 2 are two ranks sharing one card, not a scaling figure.
@@ -6177,7 +6225,8 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
         f = truth.with_params(torch.full_like(truth.sigma, 0.5),
                               torch.full_like(truth.color, 0.5))
         return f, torch.optim.Adam(f.parameters(), lr=FIT_LR,
-                                   betas=(0.9, 0.999), eps=1e-8)
+                                   betas=(0.9, 0.999), eps=1e-8,
+                                   capturable=True)
 
     fa, opt_a = trained()
     block = fit.make_train_block_scheduled(plans[0], cams, fa, opt_a,
@@ -6198,18 +6247,28 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
             and torch.equal(fa.sigma, fb.sigma)
             and torch.equal(fa.color, fb.color),
             "the fit block differs from its steps")
-    require(blk_launches["fused_tiles"] == CLOSE_BLOCK
-            and blk_launches["fused_tiles_bwd"] == CLOSE_BLOCK,
-            f"the block did not launch K1 / K2 once a step: {blk_launches}")
+    recorded = block.step.graph.launches
+    require(recorded == {"fused_tiles": 1, "fused_tiles_bwd": 1}
+            and blk_launches["fused_tiles"] == 2
+            and blk_launches["fused_tiles_bwd"] == 2,
+            f"the block's step graph did not record K1 / K2 once each, or a "
+            f"replay launched through a wrapper (the warm-up and the "
+            f"recording launch each once): recorded {recorded}, counters "
+            f"{blk_launches}")
     require(float(losses[-1]) < float(losses[0]), "the block's loss rose")
+    reset_counts(fused_tiles, packed_transpose)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     block(fa, targets)
     torch.cuda.synchronize()
     block_ms = (time.perf_counter() - t0) * 1e3
+    require(not any(counts().values()),
+            f"a warm block's replays launched through a wrapper: {counts()}")
     print(f"68. fit flagship block of {CLOSE_BLOCK} Adam steps: losses "
           f"{losses.tolist()}, bit-equal to {CLOSE_BLOCK} single steps; "
-          f"launches {blk_launches}; first block {first_block_s:.4f} s, a "
+          f"recorded in the step graph {recorded}, launches {blk_launches} "
+          f"(the warm-up and the recording), none in a warm block; first "
+          f"block {first_block_s:.4f} s (the capture included), a "
           f"warm block {block_ms:.4f} ms ({block_ms / CLOSE_BLOCK:.4f} "
           f"ms/step) [{card}]", flush=True)
     report["fit_block"] = {"k": CLOSE_BLOCK, "block_ms": block_ms,
@@ -6771,6 +6830,295 @@ def run_soak(torch, P, dev, card) -> tuple[list, dict]:
     return kernels + pose_k9, report
 
 
+FIT_GRAPH_STEPS = 10     # phase 73: steps graphed against eager, per mode
+FIT_GRAPH_RTOL = 1e-4    # tests/test_torch_fit.py's LOSS_RTOL
+FIT_GRAPH_RUNS = 10      # replayed and eager steps timed (median)
+FIT_GRAPH_PROFILED = 5   # replays under torch.profiler (busy share)
+FIT_EAGER_PROFILED = 2   # eager steps under torch.profiler
+HASH_FIT_LR = 8e-3       # tools/hashmlp_bench.py's fit rate
+
+
+def adam_state_words(opt, params) -> list:
+    """Every state tensor of ``opt`` for ``params``, as 32-bit words."""
+    return [words(t.reshape(-1).float())
+            for p in params for _, t in sorted(opt.state[p].items())]
+
+
+def fit_graph_cases(torch, P, dev) -> dict:
+    """Phase 73's four training steps: per mode (plan, cameras, a fresh
+    field, targets, the learning rate, ``make(f, opt)`` giving the step
+    over ``f``, ``run_fit(f, config)`` the fit): the flagship's merged
+    tiled and windowed schedules and its plain lattice, and
+    tools/hashmlp_bench.py's hash fit."""
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.render import hash_tiled
+
+    plans, fconfig = flagship_views(P)
+    truth = P.DenseGridField.create(fconfig, device=dev).requires_grad_(False)
+    cams = [P.CameraConfig(c2w=pv.camera.c2w) for pv in plans]
+    tviews = fit._scheduled_views(plans[0], cams, truth, "tiled")
+    wviews = fit._scheduled_views(plans[0], cams, truth, "windowed")
+    with torch.no_grad():
+        targets = tviews[2](truth, tviews[1])
+
+    def flat():
+        return truth.with_params(torch.full_like(truth.sigma, 0.5),
+                                 torch.full_like(truth.color, 0.5))
+
+    def dense(mode, views):
+        def make(f, opt):
+            if mode == "plain":
+                return fit.make_train_step(plans[0], cams, f, opt)
+            return fit.make_train_step_scheduled(plans[0], cams, f, opt,
+                                                 mode=mode, views=views)
+
+        def run_fit(f, config):
+            return fit.fit_dense_grid(plans[0], f, cams, targets, config,
+                                      mode=mode)
+
+        return (plans[0], cams, flat, targets, FIT_LR, make, run_fit)
+
+    spec = P.HashMLPSpec()
+    h_plan, h_cams = hash_fit_setup(P)
+    teacher = P.HashMLPField.init_random(torch.Generator().manual_seed(1),
+                                         spec=spec, table_std=1.0,
+                                         device=dev)
+    stack = hash_tiled.build_hash_schedule_stack(
+        fit.view_plans(h_plan, h_cams), device=dev)
+    with torch.no_grad():
+        h_targets = hash_tiled.render_hash_tiled_stack(h_plan, teacher, stack)
+
+    def student():
+        return P.HashMLPField.init_random(torch.Generator().manual_seed(3),
+                                          spec=spec, device=dev)
+
+    return {"tiled": dense("tiled", tviews),
+            "windowed": dense("windowed", wviews),
+            "plain": dense("plain", None),
+            "hash": (h_plan, h_cams, student, h_targets, HASH_FIT_LR,
+                     lambda f, opt: fit._hash_train_step(h_plan, stack, opt),
+                     lambda f, config: fit.fit_hash_mlp(
+                         h_plan, f, h_cams, h_targets, config))}
+
+
+def run_fit_busy_child(torch, P, dev) -> dict:
+    """Phase 73's child process: each mode's step recorded, then, once
+    the parent writes a line (its own checks done, so that nothing else
+    runs on the card), FIT_GRAPH_PROFILED replays of each under
+    ``torch.profiler``: kernel ms, wall ms and the top kernels per replay,
+    by mode. A fresh process: in the parent, tracing a step's replays
+    after the earlier traces crashed the process inside
+    ``cudaGraphLaunch`` (``PERF.md``, the fits' step graphs); a process
+    that records its graphs and then traces only their replays did not."""
+    steps = {}
+    for mode, (_, _, fresh, targets, lr, make, _) in fit_graph_cases(
+            torch, P, dev).items():
+        f = fresh()
+        opt = torch.optim.Adam(f.parameters(), lr=lr, betas=(0.9, 0.999),
+                               eps=1e-8, capturable=True)
+        step = make(f, opt)
+        step(f, targets)
+        steps[mode] = (step, f, targets)
+    torch.cuda.synchronize()
+    print("ready", flush=True)
+    sys.stdin.readline()
+    return {mode: device_breakdown(torch, lambda: step.loss(f, targets),
+                                   steps=FIT_GRAPH_PROFILED)
+            for mode, (step, f, targets) in steps.items()}
+
+
+def start_fit_busy_child():
+    """:func:`run_fit_busy_child` started in a child process, which sets
+    up and records while the parent checks."""
+    return subprocess.Popen([sys.executable, os.path.abspath(__file__),
+                             "--fit-busy-child"], stdin=subprocess.PIPE,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True)
+
+
+def fit_busy_from_child(child) -> dict:
+    """Let the child trace its replays, alone on the card; its result, or
+    ``{"error": ...}`` when it failed (a measurement, not a check: the
+    phase goes on without the replays' busy shares)."""
+    out, err = child.communicate(input="go\n", timeout=600)
+    lines = out.strip().splitlines()
+    if child.returncode != 0 or not lines:
+        print(f"73. the profiler's child exited {child.returncode}: "
+              f"{err[-2000:]}", flush=True)
+        return {"error": f"child exited {child.returncode}"}
+    return json.loads(lines[-1])
+
+
+def run_fit_graph(torch, P, dev, card) -> dict:
+    """Phase 73: the fits' steps recorded as CUDA graphs and replayed. For
+    the flagship's tiled, windowed and plain modes and the hash fit:
+    FIT_GRAPH_STEPS graphed steps bit-equal to the eager capturable body
+    (losses, parameters, Adam's state), the launch counters moved by the
+    warm-up and the recording only; the graphed fit's losses bit-equal to
+    those steps' (the same recording from the same start) and within
+    FIT_GRAPH_RTOL of eager steps with a non-capturable Adam; replayed
+    and eager ms a step (median of FIT_GRAPH_RUNS, CUDA events) and the
+    busy share over FIT_GRAPH_PROFILED replays (``torch.profiler``, in a
+    child process: :func:`run_fit_busy_child`) and eager steps. Then
+    ``fit_dense_grid`` auto at the flagship to PSNR 35."""
+    from dvren_tpu_torch.opt import fit
+    from dvren_tpu_torch.render import graph
+
+    t_phase = time.perf_counter()
+    report, kept, spent = {}, {}, {}
+    child = start_fit_busy_child()
+    try:
+        cases = fit_graph_cases(torch, P, dev)
+        spent["setup"] = time.perf_counter() - t_phase
+        for mode, (plan, cams, fresh, targets, lr, make, run_fit) in \
+                cases.items():
+            t_mode = time.perf_counter()
+            def adam(f, capturable=True):
+                return torch.optim.Adam(f.parameters(), lr=lr,
+                                        betas=(0.9, 0.999), eps=1e-8,
+                                        capturable=capturable)
+
+            fa, fb, fc = fresh(), fresh(), fresh()
+            opt_a, opt_b, opt_c = adam(fa), adam(fb), adam(fc, False)
+            step_g, step_e, step_c = (make(fa, opt_a), make(fb, opt_b),
+                                      make(fc, opt_c))
+            graph.reset_launch_counts()
+            got = torch.stack([step_g(fa, targets)
+                               for _ in range(FIT_GRAPH_STEPS)])
+            torch.cuda.synchronize()
+            moved = {k: v for k, v in graph.launch_counts().items() if v}
+            recorded = dict(step_g.graph.launches)
+            want = torch.stack([step_e.body(fb, targets)
+                                for _ in range(FIT_GRAPH_STEPS)])
+            plain = torch.stack([step_c.body(fc, targets)
+                                 for _ in range(FIT_GRAPH_STEPS)])
+            torch.cuda.synchronize()
+            pa, pb = list(fa.parameters()), list(fb.parameters())
+            require(torch.equal(words(got), words(want)),
+                    f"{mode}: graphed losses differ from the eager step's: "
+                    f"{got.tolist()} against {want.tolist()}")
+            require(all(torch.equal(words(a.detach()), words(b.detach()))
+                        for a, b in zip(pa, pb)),
+                    f"{mode}: graphed parameters differ from the eager "
+                    f"step's")
+            require(all(torch.equal(a, b) for a, b in zip(
+                adam_state_words(opt_a, pa),
+                adam_state_words(opt_b, pb))),
+                f"{mode}: graphed Adam state differs from the eager step's")
+            require(bool(recorded)
+                    and moved == {k: 2 * v for k, v in recorded.items()},
+                    f"{mode}: the counters moved by {moved}, not twice the "
+                    f"recorded {recorded} (the warm-up and the recording): "
+                    f"a replay launched through a wrapper")
+            rel = float(((got - plain).abs() / plain.abs()).max())
+            require(rel <= FIT_GRAPH_RTOL,
+                    f"{mode}: graphed losses differ from the non-capturable "
+                    f"eager steps by {rel:.3e} relative")
+            config = fit.FitConfig(learning_rate=lr, steps=FIT_GRAPH_STEPS,
+                                   target_psnr=None,
+                                   sync_every=FIT_GRAPH_STEPS)
+            graph.reset_launch_counts()
+            res = run_fit(fresh(), config)
+            fit_moved = {k: v for k, v in graph.launch_counts().items()
+                         if v}
+            require(res.recorded_launches == recorded
+                    and fit_moved == {k: 2 * v for k, v in recorded.items()},
+                    f"{mode}: the fit recorded {res.recorded_launches} and "
+                    f"moved the counters by {fit_moved}")
+            require(res.loss_history == got.tolist()
+                    and all(torch.equal(words(a.detach()), words(b.detach()))
+                            for a, b in zip(res.field.parameters(), pa)),
+                    f"{mode}: the graphed fit differs from the graphed steps "
+                    f"from the same start")
+            print(f"73. {mode} step recorded ({step_g.graph.capture_ms:.1f} "
+                  f"ms warm-up and capture; recorded {recorded}) and "
+                  f"replayed: {FIT_GRAPH_STEPS} steps bit-equal to the eager "
+                  f"capturable body (losses {got[0].item():.6e} -> "
+                  f"{got[-1].item():.6e}, parameters, Adam state) and to "
+                  f"the graphed fit; against the non-capturable steps "
+                  f"{rel:.3e} relative; fit first_step_s "
+                  f"{res.first_step_s:.4f}, steady_step_ms "
+                  f"{res.steady_step_ms:.4f} [{card}]", flush=True)
+            report[mode] = {
+                "recorded_launches": recorded,
+                "capture_ms": step_g.graph.capture_ms,
+                "losses": got.tolist(), "vs_non_capturable": rel,
+                "first_step_s": res.first_step_s,
+                "steady_step_ms": res.steady_step_ms}
+            kept[mode] = (step_g, fa, step_e, fb, targets)
+            del fc, opt_c, step_c, res
+            spent[f"checks_{mode}"] = time.perf_counter() - t_mode
+        t_child = time.perf_counter()
+        busy_replayed = fit_busy_from_child(child)
+        spent["child_wait"] = time.perf_counter() - t_child
+    finally:
+        if child.poll() is None:
+            child.kill()
+            child.wait()
+    report["busy_child"] = busy_replayed.get("error", "ok")
+    t_times = time.perf_counter()
+    for mode, (step_g, fa, step_e, fb, targets) in kept.items():
+        replayed = event_times(torch, lambda: step_g(fa, targets),
+                               FIT_GRAPH_RUNS)
+        eager = event_times(torch, lambda: step_e.body(fb, targets),
+                            FIT_GRAPH_RUNS)
+        busy = busy_replayed.get(mode)
+        busy_e = device_breakdown(torch, lambda: step_e.body(fb, targets),
+                                  steps=FIT_EAGER_PROFILED)
+        shares = [None if b is None else b[0] / b[1] for b in (busy, busy_e)]
+        print(f"73. {mode} ms a step replayed {spread(replayed)}, eager "
+              f"{spread(eager)}; busy share over {FIT_GRAPH_PROFILED} "
+              f"replays {shares[0]} (kernels "
+              f"{None if busy is None else round(busy[0], 4)} ms of "
+              f"{None if busy is None else round(busy[1], 4)} ms wall), "
+              f"eager over {FIT_EAGER_PROFILED} steps {shares[1]} (kernels "
+              f"{None if busy_e is None else round(busy_e[0], 4)} ms of "
+              f"{None if busy_e is None else round(busy_e[1], 4)} ms) "
+              f"[{card}]", flush=True)
+        report[mode].update({
+            "replayed_ms": replayed, "eager_ms": eager,
+            "busy_share_replayed": shares[0], "busy_share_eager": shares[1],
+            "busy_replayed": busy, "busy_eager": busy_e})
+    del kept
+    spent["times"] = time.perf_counter() - t_times
+
+    # fit_dense_grid in its auto mode at the flagship, to PSNR 35
+    plan, cams, fresh, targets = cases["tiled"][:4]
+    cfg = fit.FitConfig(learning_rate=FIT_LR, steps=FLAGSHIP_STEPS,
+                        target_psnr=FLAGSHIP_PSNR, log_every=100,
+                        sync_every=FLAGSHIP_SYNC)
+    graph.reset_launch_counts()
+    res = fit.fit_dense_grid(plan, fresh(), cams, targets, cfg)
+    moved = {k: v for k, v in graph.launch_counts().items() if v}
+    reached = next((i + 1 for i, p in enumerate(res.psnr_history)
+                    if p >= FLAGSHIP_PSNR), None)
+    print(f"73. fit_dense_grid auto at the flagship, graphed: mode "
+          f"{res.mode}, {res.steps_run} steps, PSNR {FLAGSHIP_PSNR} first at "
+          f"step {reached} (checked every {FLAGSHIP_SYNC}), wall_clock_s "
+          f"{res.wall_clock_s:.4f} (schedule_build_s "
+          f"{res.schedule_build_s:.4f}, first_step_s {res.first_step_s:.4f} "
+          f"with the capture {res.capture_ms:.1f} ms, steady_step_ms "
+          f"{res.steady_step_ms:.4f}); recorded {res.recorded_launches}, "
+          f"counters moved {moved} [{card}]", flush=True)
+    require(res.mode == "tiled" and res.reached_target,
+            f"the auto fit ran {res.mode} and reached PSNR "
+            f"{FLAGSHIP_PSNR}: {res.reached_target}")
+    require(res.recorded_launches == {"fused_tiles": 1, "fused_tiles_bwd": 1}
+            and moved == {"fused_tiles": 2, "fused_tiles_bwd": 2},
+            f"the auto fit recorded {res.recorded_launches}, moved {moved}")
+    report["auto"] = {
+        "mode": res.mode, "steps_run": res.steps_run,
+        "psnr_target_step": reached, "wall_clock_s": res.wall_clock_s,
+        "schedule_build_s": res.schedule_build_s,
+        "first_step_s": res.first_step_s, "capture_ms": res.capture_ms,
+        "steady_step_ms": res.steady_step_ms}
+    report["phase_s"] = time.perf_counter() - t_phase
+    report["spent_s"] = spent
+    print(f"phase 73 took {report['phase_s']:.1f} s: "
+          + ", ".join(f"{k} {v:.1f}" for k, v in spent.items()), flush=True)
+    return report
+
+
 def run(only: str = "all") -> dict:
     import torch
 
@@ -6873,6 +7221,14 @@ def run(only: str = "all") -> dict:
         elapsed("62-64")
         print(json.dumps({"kernels": par_kernels}), flush=True)
         print(json.dumps({**par_report, "card": card}), flush=True)
+        print(card_line(), flush=True)
+        return device
+    if only == "fit":
+        fit_report = run_fit_graph(torch, P, dev, card)
+        elapsed("73")
+        print(json.dumps({"kernels": []}), flush=True)
+        print(json.dumps({"fit_graph": fit_report, "card": card}),
+              flush=True)
         print(card_line(), flush=True)
         return device
     if only == "soak":
@@ -7336,6 +7692,8 @@ def run(only: str = "all") -> dict:
     soak_kernels, hash_report["soak"] = run_soak(torch, P, dev, card)
     kernels += soak_kernels
     elapsed("70-72")
+    hash_report["fit_graph"] = run_fit_graph(torch, P, dev, card)
+    elapsed("73")
     hash_report["grid"] = grid_report
     hash_report["tables"] = table_report
     hash_report["subtiles"] = sub_report
@@ -7372,7 +7730,7 @@ def main() -> int:
         "--only", choices=("all", "dense", "tiles", "tables", "hash",
                            "grid", "gridviews", "window", "split", "sched",
                            "general", "posed", "parallel", "close",
-                           "soak"),
+                           "soak", "fit"),
         default="all",
         help="'dense': phases 1-10 alone (the dense headline); 'tiles': "
              "phases 1-10, 28-33, 36, 41 and 42-46 (K1 and K2 in every "
@@ -7398,10 +7756,14 @@ def main() -> int:
              "phases 65-69 (the jitter kernel, pipeline.render without a "
              "table, bank-aligned K1 / K2, the fit block, the roofline); "
              "'soak': phase 1 and phases 70-72 (the 960x720 soak frame, "
-             "the 120-frame animation, pose refinement); "
+             "the 120-frame animation, pose refinement); 'fit': phase 1 "
+             "and phase 73 (the fits' steps recorded as CUDA graphs and "
+             "replayed, against their eager steps); "
              "each for timing two trees against each other in one call")
     parser.add_argument("--split-child", action="store_true",
                         help=argparse.SUPPRESS)   # phase 45's child process
+    parser.add_argument("--fit-busy-child", action="store_true",
+                        help=argparse.SUPPRESS)   # phase 73's child process
     args = parser.parse_args()
     try:
         import torch
@@ -7412,6 +7774,17 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is false",
               file=sys.stderr)
         return 1
+    if args.fit_busy_child:
+        try:
+            import dvren_tpu_torch as P
+
+            dev = torch.device("cuda", 0)
+            torch.cuda.set_device(dev)
+            print(json.dumps(run_fit_busy_child(torch, P, dev)), flush=True)
+        except Exception:  # the parent reports the failure and goes on
+            traceback.print_exc()
+            return 1
+        return 0
     if args.split_child:
         try:
             import dvren_tpu_torch as P

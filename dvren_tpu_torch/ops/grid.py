@@ -148,6 +148,13 @@ def stack_plane_grads(t: torch.Tensor, sigma_shape) -> tuple:
 # ------------------------------------------------------- point evaluation
 
 
+def recording(t: torch.Tensor) -> bool:
+    """Whether a CUDA graph is recording the stream that work on ``t``
+    runs on: then the capture-safe forms run (:func:`accumulate_rows_fixed`),
+    which read nothing to the host and give the same bits."""
+    return t.is_cuda and torch.cuda.is_current_stream_capturing()
+
+
 def accumulate_rows(dst: torch.Tensor, idx: torch.Tensor,
                     rows: torch.Tensor) -> torch.Tensor:
     """``dst[idx[i]] += rows[i]`` in place, deterministically and without
@@ -159,7 +166,7 @@ def accumulate_rows(dst: torch.Tensor, idx: torch.Tensor,
     distinct indices here are counted on the host."""
     if idx.numel() == 0:
         return dst
-    if dst.is_cuda and torch.cuda.is_current_stream_capturing():
+    if recording(dst):
         return accumulate_rows_fixed(dst, idx, rows)
     keys, order = torch.sort(idx, stable=True)
     uniq, counts = torch.unique_consecutive(keys, return_counts=True)
@@ -170,28 +177,24 @@ def accumulate_rows(dst: torch.Tensor, idx: torch.Tensor,
 
 def accumulate_rows_fixed(dst: torch.Tensor, idx: torch.Tensor,
                           rows: torch.Tensor) -> torch.Tensor:
-    """:func:`accumulate_rows` with every shape fixed by ``idx``'s length
-    and nothing read to the host, so that a CUDA graph can record it: the
-    run of each index is its segment at the run's first sorted position
-    (length 0 at the others, whose sums are 0 and whose writes go to a
-    dropped row). Its segment sums take as much memory as ``rows``."""
+    """:func:`accumulate_rows` with every shape fixed by ``dst`` and
+    ``idx`` and nothing read to the host, so that a CUDA graph can record
+    it: each row of ``dst`` has a segment of the stably sorted indices
+    (its bounds found by ``searchsorted``, length 0 for a row no index
+    names), the segments are summed in that order (the same sums as the
+    distinct indices' segments) and a row is added to only where its
+    segment is not empty. No index is written twice."""
     if idx.numel() == 0:
         return dst
     keys, order = torch.sort(idx, stable=True)
-    n, n_dst = int(keys.shape[0]), int(dst.shape[0])
-    pos = torch.arange(n, device=idx.device)
-    first = torch.ones(n, dtype=torch.bool, device=idx.device)
-    first[1:] = keys[1:] != keys[:-1]
-    # the next run's first position after each position (n past the last)
-    starts = torch.where(first, pos, n)
-    nxt = torch.flip(torch.cummin(torch.flip(starts, [0]), 0).values, [0])
-    nxt = torch.cat([nxt[1:], nxt.new_full((1,), n)])
-    lengths = torch.where(first, nxt - pos, 0)
+    n_dst = int(dst.shape[0])
+    bounds = torch.searchsorted(keys, torch.arange(
+        n_dst + 1, dtype=keys.dtype, device=keys.device))
+    lengths = bounds[1:] - bounds[:-1]
     sums = torch.segment_reduce(rows[order], "sum", lengths=lengths, axis=0,
                                 unsafe=True)
-    padded = torch.cat([dst, dst.new_zeros((1,) + tuple(dst.shape[1:]))])
-    padded[torch.where(first, keys, n_dst)] += sums   # distinct but the pad
-    dst.copy_(padded[:n_dst])
+    hit = (lengths > 0).reshape((n_dst,) + (1,) * (dst.dim() - 1))
+    dst.copy_(torch.where(hit, dst + sums, dst))
     return dst
 
 

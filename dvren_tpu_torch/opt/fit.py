@@ -1,8 +1,8 @@
 """The training loops: losses, per-view plans, the dense-grid fit and the
 hash-MLP fit.
 
-Counterpart of ``dvren_tpu/opt/fit.py``. A step is plain PyTorch: render
-through autograd, ``loss.backward()``, an optimizer step on the field's
+Counterpart of ``dvren_tpu/opt/fit.py``. A step renders through autograd,
+calls ``loss.backward()`` and steps an optimizer over the field's
 parameters. :func:`fit_dense_grid` fits a dense grid's sigma and colour
 to target views with ``torch.optim.Adam`` in one of three modes: "tiled",
 one merged multi-view tile schedule (:func:`_scheduled_views`: K1 and K2
@@ -10,12 +10,19 @@ once per merged group per step); "windowed", one merged multi-view
 windowed schedule (K9f and K9b once per stack group per step); "plain",
 the dense lattice of each view through ``pipeline.render`` (K9f / K9b
 once per view). :func:`fit_hash_mlp` fits a hash-MLP field through K7f /
-K7b. JAX runs ``sync_every`` steps in one ``lax.scan``
-(``make_train_block_scheduled``); here the steps run one by one, their
-losses stay on the device, and they are copied to the host every
-``sync_every`` steps and after the last, so a fit syncs where JAX's
-blocks end. :func:`make_train_block_scheduled` gives JAX's block form,
-k steps returning their (k,) losses.
+K7b.
+
+JAX compiles a step into one executable (``jax.jit``) and k steps into
+one more (``lax.scan``). Here, on a CUDA field, a step is recorded once
+as a CUDA graph and replayed (:class:`_GraphedStep`,
+``render/graph.py::capture_step``): its kernels run again with no Python
+between them. A block of k steps replays that one graph k times and
+copies each loss into a (k,) device tensor, so one recording serves every
+block length. The optimizer must keep its step count on the device
+(``Adam(..., capturable=True)``, which the fits build on a CUDA field);
+one that does not raises ``DvrenError``. On a CPU field the same step
+runs eagerly. The fits copy the losses to the host every ``sync_every``
+steps and after the last, so a fit syncs where JAX's blocks end.
 """
 
 from __future__ import annotations
@@ -30,6 +37,7 @@ import numpy as np
 import torch
 
 from dvren_tpu_torch.core.plan import CameraConfig, InterpMode, OobPolicy, Plan
+from dvren_tpu_torch.render import graph
 
 
 @dataclass
@@ -53,11 +61,16 @@ class FitResult:
     steps_run: int = 0
     wall_clock_s: float = 0.0      # includes the schedule build
     schedule_build_s: float = 0.0  # host schedule build + merge + upload
-    first_step_s: float = 0.0      # the first step, kernel build included
+    first_step_s: float = 0.0      # the first step, kernel build and
+    #                                the step graph's capture included
     steady_step_ms: float = 0.0    # mean of the remaining steps
     reached_target: bool = False
     mode: str = ""                 # the mode the fit ran (auto may
     #                                demote "tiled" to "windowed")
+    recorded_launches: dict = dc_field(default_factory=dict)
+    #                              kernel launches recorded into the step's
+    #                              CUDA graph, by kernel name (empty on CPU)
+    capture_ms: float = 0.0        # the step graph's warm-up and recording
 
 
 def mse(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
@@ -83,7 +96,8 @@ def _run_steps(step: Callable, snapshot: Callable, config: FitConfig,
                device, result: FitResult,
                checkpoint_cb: Callable | None) -> None:
     """Run exactly ``config.steps`` optimizer steps (``step()`` returns
-    each loss as a device tensor) unless the target PSNR is reached at a
+    each loss as a device tensor, which the next step may overwrite: a
+    graph's buffer; it is cloned at once) unless the target PSNR is reached at a
     sync point: every ``sync_every`` steps the losses are copied to the
     host, the histories grow by them and ``checkpoint_cb(snapshot(),
     steps, psnr)`` fires when a sync point passes a multiple of
@@ -97,7 +111,7 @@ def _run_steps(step: Callable, snapshot: Callable, config: FitConfig,
     ckpts_fired = 0
     t0 = time.perf_counter()
     for i in range(int(config.steps)):
-        pending.append(step())
+        pending.append(step().clone())
         if i == 0:
             _sync(device)
             result.first_step_s = time.perf_counter() - t0
@@ -207,28 +221,76 @@ def _scheduled_views(plan: Plan, cameras: Sequence[CameraConfig], field,
     return plans, merged, render_stack
 
 
+class _GraphedStep:
+    """A training step ``body(f, targets) -> loss`` that, on a CUDA field,
+    is recorded once as a CUDA graph (:func:`graph.capture_step`) and then
+    replayed: the port's ``jax.jit`` of the step. The recording is keyed
+    on the field's parameters and the targets (:func:`graph.tensor_key`):
+    a new field object or targets tensor records anew, an in-place
+    optimizer step replays. ``step(f, targets)`` returns the step's loss
+    as a tensor of its own; on a CPU field it runs ``body``. ``graph`` is
+    the current recording (None before the first step on the card)."""
+
+    def __init__(self, body: Callable, optimizer):
+        self.body = body
+        self.optimizer = optimizer
+        self.graph = None
+        self._key = None
+
+    def loss(self, f, targets) -> torch.Tensor:
+        """Run one step; its loss. On a CUDA field that is the graph's
+        output buffer, which the next replay overwrites."""
+        if not graph.available(f.device):
+            return self.body(f, targets)
+        params = list(f.parameters())
+        key = graph.tensor_key(*params, targets)
+        if key != self._key:
+            self.graph = self._key = None   # freed before the next capture
+            body = self.body    # the recording holds no reference to self,
+            #                     so the graph dies with the step
+            self.graph = graph.capture_step(lambda: body(f, targets),
+                                            f.device, params, self.optimizer)
+            self._key = key
+        return self.graph.replay()
+
+    def __call__(self, f, targets) -> torch.Tensor:
+        out = self.loss(f, targets)
+        return out.clone() if self.graph is not None else out
+
+
+def _step_body(render: Callable, optimizer, sigma_min: float | None):
+    """The eager training step the graph records: ``body(f, targets) ->
+    loss`` renders ``render(f)`` through autograd, steps ``optimizer``
+    and projects the field (:func:`_project`) unless ``sigma_min`` is
+    None."""
+
+    def body(f, targets):
+        optimizer.zero_grad(set_to_none=True)
+        loss = mse(render(f), targets)
+        loss.backward()
+        optimizer.step()
+        if sigma_min is not None:
+            _project(f, sigma_min)
+        return loss.detach()
+
+    return body
+
+
 def make_train_step_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
                               field, optimizer, mode: str = "tiled",
                               sigma_min: float = 0.0, views=None):
     """One training step over the merged multi-view schedule, built once
     and replayed every step: ``step(field, targets) -> loss`` renders the
     stack through autograd, steps ``optimizer`` (over ``field``'s
-    parameters) and projects the field (:func:`_project`). ``views``: a
-    prebuilt :func:`_scheduled_views` result. Schedules depend on the
-    field's bbox and resolution only, so they stay valid across
-    parameter updates."""
+    parameters) and projects the field (:func:`_project`); on a CUDA
+    field it is a recorded graph, replayed (:class:`_GraphedStep`).
+    ``views``: a prebuilt :func:`_scheduled_views` result. Schedules
+    depend on the field's bbox and resolution only, so they stay valid
+    across parameter updates."""
     _, scheds, render_stack = views or _scheduled_views(
         plan, cameras, field, mode)
-
-    def step(f, targets):
-        optimizer.zero_grad(set_to_none=True)
-        loss = mse(render_stack(f, scheds), targets)
-        loss.backward()
-        optimizer.step()
-        _project(f, sigma_min)
-        return loss.detach()
-
-    return step
+    return _GraphedStep(_step_body(lambda f: render_stack(f, scheds),
+                                   optimizer, sigma_min), optimizer)
 
 
 def make_train_block_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
@@ -237,21 +299,32 @@ def make_train_block_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
                                views=None):
     """``k`` optimizer steps of :func:`make_train_step_scheduled` as one
     block, with JAX's signature: ``block(f, targets) -> (k,)`` per-step
-    losses in one device tensor (JAX's ``lax.scan`` becomes a Python
-    loop; nothing is copied to the host inside a block)."""
+    losses in one device tensor. On a CUDA field the step's one graph is
+    replayed k times, each loss copied into the (k,) tensor before the
+    next replay, with no host sync inside the block (JAX's ``lax.scan``);
+    on a CPU field the steps run eagerly. ``block.step`` is the step."""
     step = make_train_step_scheduled(plan, cameras, field, optimizer,
                                      mode=mode, sigma_min=sigma_min,
                                      views=views)
 
     def block(f, targets):
-        return torch.stack([step(f, targets) for _ in range(int(k))])
+        if not graph.available(f.device):
+            return torch.stack([step.body(f, targets)
+                                for _ in range(int(k))])
+        losses = torch.empty(int(k), dtype=torch.float32, device=f.device)
+        for i in range(int(k)):
+            losses[i].copy_(step.loss(f, targets))
+        return losses
 
+    block.step = step
     return block
 
 
 def _view_inputs(plan: Plan, cameras: Sequence[CameraConfig], device):
-    """Each view's c2w (3, 4) and the plan's jitter table (None for FIXED
-    sampling) on ``device``."""
+    """Each view's c2w (3, 4), the plan's jitter table (None for FIXED
+    sampling) and the plan's k (3, 3) and ortho_scale () on ``device``,
+    uploaded once: a recorded step reads them and uploads nothing."""
+    from dvren_tpu_torch.ops.raygen import camera_arrays
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
     c2ws = [torch.tensor(c.c2w, dtype=torch.float32,
@@ -259,13 +332,16 @@ def _view_inputs(plan: Plan, cameras: Sequence[CameraConfig], device):
     jitter = plan_jitter_table(plan)
     if jitter is not None:
         jitter = torch.from_numpy(jitter.copy()).to(device)
-    return c2ws, jitter
+    k, _, ortho_scale = camera_arrays(plan, device)
+    return c2ws, jitter, k, ortho_scale
 
 
-def _render_stack(plan: Plan, field, c2ws, jitter) -> torch.Tensor:
+def _render_stack(plan: Plan, field, c2ws, jitter, k,
+                  ortho_scale) -> torch.Tensor:
     from dvren_tpu_torch.render.pipeline import render
 
-    return torch.stack([render(plan, field, c2w=c2w, jitter=jitter)
+    return torch.stack([render(plan, field, k=k, c2w=c2w,
+                               ortho_scale=ortho_scale, jitter=jitter)
                         .planes.image for c2w in c2ws])
 
 
@@ -284,19 +360,36 @@ def make_train_step(plan: Plan, cameras: Sequence[CameraConfig], field,
     :func:`dvren_tpu_torch.render.pipeline.render` at its ``c2w`` (the
     port's per-ray integrator), the MSE over the (V, H, W, 3) stack,
     ``optimizer``'s step, then the projection unless ``sigma_min`` is
-    None (``dvren_tpu``'s ``make_train_step``)."""
-    c2ws, jitter = _view_inputs(plan, cameras, field.device)
+    None (``dvren_tpu``'s ``make_train_step``); on a CUDA field a
+    recorded graph, replayed (:class:`_GraphedStep`)."""
+    inputs = _view_inputs(plan, cameras, field.device)
+    return _GraphedStep(_step_body(
+        lambda f: _render_stack(plan, f, *inputs), optimizer, sigma_min),
+        optimizer)
 
-    def step(f, targets):
-        optimizer.zero_grad(set_to_none=True)
-        loss = mse(_render_stack(plan, f, c2ws, jitter), targets)
-        loss.backward()
-        optimizer.step()
-        if sigma_min is not None:
-            _project(f, sigma_min)
-        return loss.detach()
 
-    return step
+def _adam(field, learning_rate: float):
+    """optax.adam's defaults (b1 0.9, b2 0.999, eps 1e-8) over the field's
+    parameters; on a CUDA field with its step count on the device
+    (``capturable=True``), so that a CUDA graph records its step. (This
+    torch refuses ``capturable=True`` on the CPU.)"""
+    return torch.optim.Adam(field.parameters(), lr=learning_rate,
+                            betas=(0.9, 0.999), eps=1e-8,
+                            capturable=field.device.type == "cuda")
+
+
+def _fit(step: _GraphedStep, trained, targets, snapshot: Callable,
+         config: FitConfig, result: FitResult,
+         checkpoint_cb: Callable | None) -> FitResult:
+    """Run ``step`` as :func:`_run_steps` says and record its graph's
+    launches and capture time in ``result``."""
+    _run_steps(lambda: step.loss(trained, targets), snapshot, config,
+               trained.device, result, checkpoint_cb)
+    if step.graph is not None:
+        result.recorded_launches = dict(step.graph.launches)
+        result.capture_ms = step.graph.capture_ms
+    result.field = trained
+    return result
 
 
 def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
@@ -304,7 +397,8 @@ def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
                    checkpoint_cb: Callable | None = None,
                    mode: str | None = None) -> FitResult:
     """Fit a DenseGridField's sigma and colour to target views (V, H, W, 3)
-    with Adam (optax's defaults: b1 0.9, b2 0.999, eps 1e-8).
+    with Adam (optax's defaults: b1 0.9, b2 0.999, eps 1e-8; capturable
+    on a CUDA field, whose step is a recorded graph, replayed).
 
     ``mode``: None (auto, as the JAX package picks: "tiled" for a
     trilinear OOB_ZERO grid, demoted to "windowed" when the merged
@@ -312,8 +406,9 @@ def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
     sample lattice; "windowed" for another OOB_ZERO grid; "plain"
     otherwise), or "tiled", "windowed" or "plain". ``result.mode`` is the
     mode that ran. The steps, sync points and checkpoints run as
-    :func:`_run_steps` says. The input field is left as it is; the fitted
-    one is ``result.field``."""
+    :func:`_run_steps` says; ``first_step_s`` includes the step graph's
+    capture, as JAX's includes its compile. The input field is left as it
+    is; the fitted one is ``result.field``."""
     config = config or FitConfig()
     auto = mode is None
     if auto:
@@ -336,9 +431,7 @@ def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
             views = _scheduled_views(plan, cameras, field, mode)
     trained = field.with_params(field.sigma.detach().clone(),
                                 field.color.detach().clone())
-    optimizer = torch.optim.Adam(trained.parameters(),
-                                 lr=config.learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8)
+    optimizer = _adam(trained, config.learning_rate)
     if mode == "plain":
         step = make_train_step(plan, cameras, trained, optimizer,
                                sigma_min=config.sigma_min)
@@ -352,25 +445,34 @@ def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
     targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
     result = FitResult(field=field, mode=mode)
     result.schedule_build_s = time.perf_counter() - t_build0
-    _run_steps(lambda: step(trained, targets),
-               lambda: trained.with_params(trained.sigma.detach().clone(),
-                                           trained.color.detach().clone()),
-               config, dev, result, checkpoint_cb)
-    result.field = trained
-    return result
+    return _fit(step, trained, targets,
+                lambda: trained.with_params(trained.sigma.detach().clone(),
+                                            trained.color.detach().clone()),
+                config, result, checkpoint_cb)
+
+
+def _hash_train_step(plan: Plan, stack, optimizer) -> _GraphedStep:
+    """The hash-MLP training step over a view stack's schedule
+    (``render_hash_tiled_stack``: K7f and K7b once each), as
+    :class:`_GraphedStep`; no projection."""
+    from dvren_tpu_torch.render.hash_tiled import render_hash_tiled_stack
+
+    return _GraphedStep(_step_body(
+        lambda f: render_hash_tiled_stack(plan, f, stack), optimizer, None),
+        optimizer)
 
 
 def fit_hash_mlp(plan: Plan, field, cameras: Sequence[CameraConfig],
                  targets, config: FitConfig | None = None,
                  checkpoint_cb: Callable | None = None) -> FitResult:
     """Fit a HashMLPField (hash table and both MLP heads) to target views
-    (V, H, W, 3) with Adam through the fused hash kernels.
+    (V, H, W, 3) with Adam through the fused hash kernels (capturable on
+    a CUDA field, whose step is a recorded graph, replayed).
 
     The schedule is pure frame layout, built once and uploaded once. The
     steps, sync points and checkpoints run as :func:`_run_steps` says. The
     input field is left as it is; the fitted one is ``result.field``."""
-    from dvren_tpu_torch.render.hash_tiled import (build_hash_schedule_stack,
-                                                   render_hash_tiled_stack)
+    from dvren_tpu_torch.render.hash_tiled import build_hash_schedule_stack
 
     config = config or FitConfig()
     dev = field.device
@@ -382,20 +484,8 @@ def fit_hash_mlp(plan: Plan, field, cameras: Sequence[CameraConfig],
 
     trained = field.with_params(
         {k: v.detach().clone() for k, v in field.params.items()})
-    # optax.adam's defaults: b1 0.9, b2 0.999, eps 1e-8
-    optimizer = torch.optim.Adam(trained.parameters(),
-                                 lr=config.learning_rate,
-                                 betas=(0.9, 0.999), eps=1e-8)
-
-    def step():
-        optimizer.zero_grad(set_to_none=True)
-        loss = mse(render_hash_tiled_stack(plan, trained, stack), targets)
-        loss.backward()
-        optimizer.step()
-        return loss.detach()
-
-    _run_steps(step, lambda: trained.with_params(
+    step = _hash_train_step(plan, stack,
+                            _adam(trained, config.learning_rate))
+    return _fit(step, trained, targets, lambda: trained.with_params(
         {k: v.detach().clone() for k, v in trained.params.items()}),
-        config, dev, result, checkpoint_cb)
-    result.field = trained
-    return result
+        config, result, checkpoint_cb)

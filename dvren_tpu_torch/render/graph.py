@@ -34,6 +34,20 @@ owner, which holds the graph), so only Python's cycle collector frees it,
 and destroying a graph while another records invalidates that capture.
 :func:`capture` therefore collects first and holds the collector off
 while it records.
+
+A training step is JAX's ``jax.jit`` of the step (and, replayed k times,
+its ``lax.scan`` block): :func:`capture_step` records a step that
+renders through autograd, calls ``backward`` and steps an optimizer. Its
+warm-up takes a real optimizer step, which creates the optimizer's state
+tensors (Adam's ``step``, ``exp_avg``, ``exp_avg_sq``) at the addresses
+the recording reads; the parameters and that state are then restored in
+place (:func:`snapshot_step`, :func:`restore_step`), so the first replay
+is the caller's step 1. The gradients are set to None before the
+recording, so that the backward allocates them from the graph's pool and
+every replay rewrites them (PyTorch's whole-network capture). An
+optimizer must keep its step count on the device to be recorded
+(``torch.optim.Adam(..., capturable=True)``); :func:`capture_step`
+refuses one that does not.
 """
 
 from __future__ import annotations
@@ -44,6 +58,7 @@ import time
 
 import torch
 
+from dvren_tpu_torch.core.status import check
 from dvren_tpu_torch.utils.pytree import tree_map
 
 
@@ -69,6 +84,12 @@ def _counted():
 def launch_counts() -> dict:
     """The launch counter of every kernel wrapper, by kernel name."""
     return {name: fn.launches for name, fn in _counted()}
+
+
+def reset_launch_counts() -> None:
+    """Set the launch counter of every kernel wrapper to 0."""
+    for _, fn in _counted():
+        fn.launches = 0
 
 
 def tensor_key(*tensors) -> tuple:
@@ -112,11 +133,12 @@ def available(device) -> bool:
     return torch.device(device).type == "cuda"
 
 
-def capture(fn, device) -> CapturedGraph:
+def capture(fn, device, before_record=None) -> CapturedGraph:
     """Record ``fn()`` (no arguments; it reads its inputs from tensors
     whose addresses stay fixed) as a CUDA Graph on ``device``, after one
-    eager run on a side stream. Raises ``RuntimeError`` with the
-    capture's error when ``fn`` cannot be recorded."""
+    eager run on a side stream; ``before_record()`` runs between the two.
+    Raises ``RuntimeError`` with the capture's error when ``fn`` cannot be
+    recorded."""
     device = torch.device(device)
     if not available(device):
         raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
@@ -127,6 +149,8 @@ def capture(fn, device) -> CapturedGraph:
         fn()
     torch.cuda.current_stream(device).wait_stream(side)
     torch.cuda.synchronize(device)
+    if before_record is not None:
+        before_record()
     graph = torch.cuda.CUDAGraph()
     before = launch_counts()
     gc.collect()
@@ -149,3 +173,63 @@ def capture(fn, device) -> CapturedGraph:
                 if after[k] != before[k]}
     return CapturedGraph(graph=graph, outputs=outputs, launches=launches,
                          capture_ms=(time.perf_counter() - t0) * 1e3, fn=fn)
+
+
+def snapshot_step(params, optimizer) -> tuple:
+    """Copies of ``params`` and of every tensor in ``optimizer``'s state
+    for them, as they are before a step that :func:`restore_step` undoes.
+    The state of a parameter the optimizer has not stepped yet is empty:
+    its tensors appear with the step and are zeroed by the restore."""
+    with torch.no_grad():
+        values = [p.detach().clone() for p in params]
+        state = [{k: v.clone() for k, v in optimizer.state[p].items()
+                  if isinstance(v, torch.Tensor)}
+                 if p in optimizer.state else {} for p in params]
+    return values, state
+
+
+def restore_step(snapshot: tuple, params, optimizer) -> None:
+    """Put ``params`` and ``optimizer``'s state back as
+    :func:`snapshot_step` saw them, in place (``copy_``; state tensors
+    made since, zeroed: a fresh Adam's ``step``, ``exp_avg`` and
+    ``exp_avg_sq`` are zeros), so that every address stays the one a
+    recording reads."""
+    values, state = snapshot
+    with torch.no_grad():
+        for p, v, saved in zip(params, values, state):
+            p.copy_(v)
+            for k, t in optimizer.state.get(p, {}).items():
+                if not isinstance(t, torch.Tensor):
+                    continue
+                if k in saved:
+                    t.copy_(saved[k])
+                else:
+                    t.zero_()
+
+
+def check_capturable(optimizer) -> None:
+    """Raise ``DvrenError`` for an optimizer that keeps its step count on
+    the host (``capturable=False``): a recorded step would replay the
+    step count it was recorded with."""
+    for group in optimizer.param_groups:
+        check(group.get("capturable", True),
+              f"{type(optimizer).__name__} with capturable=False cannot be "
+              f"recorded into a CUDA graph: build it with capturable=True "
+              f"(its step count then lives on the device)")
+
+
+def capture_step(fn, device, params, optimizer) -> CapturedGraph:
+    """Record the training step ``fn()`` (it renders through autograd,
+    calls ``backward``, steps ``optimizer`` over ``params`` and returns
+    the loss) with :func:`capture`, then undo its warm-up's optimizer step
+    (:func:`restore_step`), so the first replay is the step the caller
+    asked for. The gradients are set to None before the recording, so
+    they come from the graph's pool. Raises ``DvrenError`` for an
+    optimizer that cannot be recorded (:func:`check_capturable`)."""
+    check_capturable(optimizer)
+    params = list(params)
+    snapshot = snapshot_step(params, optimizer)
+    graph = capture(fn, device, before_record=lambda: optimizer.zero_grad(
+        set_to_none=True))
+    restore_step(snapshot, params, optimizer)
+    return graph

@@ -1674,19 +1674,38 @@ class MergedViewSchedule:
     of its tile axis, view-major. ``view_fallbacks``: per view, its
     windowed fallback schedule or None. ``view_cams``: per view (k, c2w,
     ortho_scale) when ``merge_view_schedules`` had the plans: fallback
-    rays are generated at render time, under their view's camera."""
+    rays are generated at render time, under their view's camera.
+    ``view_cam_tensors``: those cameras as float32 tensors (k (3, 3), c2w
+    (3, 4), ortho_scale ()) on the schedule's device, uploaded once by
+    :meth:`to`, so a render that a CUDA graph records uploads nothing."""
 
     sched: TiledSchedule
     view_fallbacks: tuple
     view_slices: tuple
     n_views: int
     view_cams: tuple | None = None
+    view_cam_tensors: tuple | None = None
 
     def to(self, device) -> "MergedViewSchedule":
+        cams = None
+        if self.view_cams is not None:
+            cams = tuple(_view_cam_tensors(cam, device)
+                         for cam in self.view_cams)
         return dataclasses.replace(
             self, sched=self.sched.to(device),
             view_fallbacks=tuple(None if f is None else f.to(device)
-                                 for f in self.view_fallbacks))
+                                 for f in self.view_fallbacks),
+            view_cam_tensors=cams)
+
+
+def _view_cam_tensors(cam, device) -> tuple:
+    """A view's (k, c2w, ortho_scale) floats as float32 tensors (3, 3),
+    (3, 4) and () on ``device``."""
+    k, c2w, ortho_scale = cam
+    return (torch.tensor(k, dtype=torch.float32, device=device).reshape(3, 3),
+            torch.tensor(c2w, dtype=torch.float32,
+                         device=device).reshape(3, 4),
+            torch.tensor(ortho_scale, dtype=torch.float32, device=device))
 
 
 def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
@@ -1804,16 +1823,13 @@ def render_tiled_stack(plan: Plan, field, merged: MergedViewSchedule,
             check(merged.view_cams is not None,
                   "merged schedule has fallback rays but no per-view "
                   "cameras; rebuild with merge_view_schedules(plans=...)")
-            cam_k, cam_c2w, cam_os = merged.view_cams[v]
-            parts = _fallback_parts(
-                plan, field, fb,
-                k=torch.tensor(cam_k, dtype=torch.float32,
-                               device=device).reshape(3, 3),
-                c2w=torch.tensor(cam_c2w, dtype=torch.float32,
-                                 device=device).reshape(3, 4),
-                ortho_scale=torch.tensor(cam_os, dtype=torch.float32,
-                                         device=device),
-                use_kernel=use_kernel)
+            check(merged.view_cam_tensors is not None,
+                  "the merged schedule's per-view cameras are not on the "
+                  "device: move it with .to(device)")
+            cam_k, cam_c2w, cam_os = merged.view_cam_tensors[v]
+            parts = _fallback_parts(plan, field, fb, k=cam_k, c2w=cam_c2w,
+                                    ortho_scale=cam_os,
+                                    use_kernel=use_kernel)
         raws_v, ids_v = [], []
         for gi, group in enumerate(sched.groups):
             for vv, t0, cnt in merged.view_slices[gi]:

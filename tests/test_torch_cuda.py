@@ -89,6 +89,7 @@ from dvren_tpu_torch.ops import (fused_tiles, hash_grid, hash_tiles,
                                  integrate_fused, packed_transpose)
 from dvren_tpu_torch.ops.grid import build_supercell_stencil
 from dvren_tpu_torch.opt import fit
+from dvren_tpu_torch.render import graph as graph_mod
 from dvren_tpu_torch.render import hash_tiled, tiled
 
 pytestmark = pytest.mark.cuda
@@ -655,11 +656,10 @@ def test_fit_hash_mlp_on_the_card_matches_cpu(cuda_device):
         0, 1, (2, plan.height, plan.width, 3)).astype(np.float32)
     config = fit.FitConfig(learning_rate=8e-3, steps=3, sync_every=2,
                            target_psnr=None)
-    launches = (hash_tiles.hash_tile_forward.launches,
-                hash_tiles.hash_tile_backward.launches)
+    graph_mod.reset_launch_counts()
     got = fit.fit_hash_mlp(plan, field.to(cuda_device), cams, tgt, config)
-    assert hash_tiles.hash_tile_forward.launches == launches[0] + 3
-    assert hash_tiles.hash_tile_backward.launches == launches[1] + 3
+    assert got.recorded_launches == {"hash_tiles": 1, "hash_tiles_bwd": 1}
+    assert _moved() == _twice(got.recorded_launches)
     want = fit.fit_hash_mlp(plan, hash_scene("stratified")[1], cams, tgt,
                             config)
     np.testing.assert_allclose(got.loss_history, want.loss_history,
@@ -1257,10 +1257,23 @@ def test_render_tiled_stack_matches_plain(cuda_device):
         _close(a, b, GRID_TOL)
 
 
+def _moved() -> dict:
+    """The launch counters that moved since ``reset_launch_counts``."""
+    return {k: v for k, v in graph_mod.launch_counts().items() if v}
+
+
+def _twice(recorded: dict) -> dict:
+    """The counts a recorded step moves the counters by: its warm-up and
+    its recording each launch every kernel once through its wrapper; the
+    replays launch none."""
+    return {k: 2 * v for k, v in recorded.items()}
+
+
 def test_fit_dense_grid_on_the_card(cuda_device):
-    """Three steps of fit_dense_grid: one K1 and one K2 launch per step
-    over the merged groups; the losses within 1e-5 relative of the CPU's
-    fit."""
+    """Three steps of fit_dense_grid: one K1 and one K2 launch recorded in
+    the step's graph over the merged groups, the counters moved by the
+    warm-up and the recording only (the replays launch through no
+    wrapper); the losses within 1e-5 relative of the CPU's fit."""
     plan, cams, truth = fit_scene(cuda_device)
     with torch.no_grad():
         _, merged, render_stack = fit._scheduled_views(plan, cams, truth,
@@ -1274,14 +1287,13 @@ def test_fit_dense_grid_on_the_card(cuda_device):
 
     config = fit.FitConfig(learning_rate=5e-2, steps=3, sync_every=2,
                            target_psnr=None)
-    before = (fused_tiles.tile_forward.launches,
-              fused_tiles.tile_backward.launches)
+    graph_mod.reset_launch_counts()
     got = fit.fit_dense_grid(plan, flat(cuda_device), cams, targets, config,
                              mode="tiled")
     assert got.steps_run == 3
-    assert (fused_tiles.tile_forward.launches,
-            fused_tiles.tile_backward.launches) == (before[0] + 3,
-                                                    before[1] + 3)
+    rec = got.recorded_launches
+    assert rec["fused_tiles"] == 1 and rec["fused_tiles_bwd"] == 1
+    assert _moved() == _twice(rec)
     want = fit.fit_dense_grid(plan, flat("cpu"), cams, targets, config,
                               mode="tiled")
     np.testing.assert_allclose(got.loss_history, want.loss_history,
@@ -1550,8 +1562,9 @@ def test_fallback_on_the_card_matches_cpu(cuda_device, tile_px):
 @pytest.mark.parametrize("mode", ["windowed", "plain"])
 def test_fit_modes_on_the_card(cuda_device, mode):
     """fit_dense_grid's windowed and plain modes on the card: K9f / K9b
-    per stack group (windowed) or per view (plain) each step, the losses
-    within 1e-5 relative of the CPU's."""
+    per stack group (windowed) or per view (plain) recorded in the step's
+    graph, the counters moved by the warm-up and the recording only; the
+    losses within 1e-5 relative of the CPU's."""
     plan, cams, truth = fit_scene(cuda_device)
     with torch.no_grad():
         targets = windowed_targets(plan, cams, truth)
@@ -1562,18 +1575,162 @@ def test_fit_modes_on_the_card(cuda_device, mode):
                              torch.full_like(f.color, 0.5))
 
     config = fit.FitConfig(learning_rate=5e-2, steps=3, target_psnr=None)
-    before = _k9_counts()
+    graph_mod.reset_launch_counts()
     got = fit.fit_dense_grid(plan, flat(cuda_device), cams, targets, config,
                              mode=mode)
-    launched = [b - a for a, b in zip(before, _k9_counts())]
     per_step = len(cams) if mode == "plain" else 1
-    assert launched[1] == 3 * per_step and launched[0] >= 3 * per_step
+    rec = got.recorded_launches
+    assert rec["integrate_bwd"] == per_step and rec["integrate"] >= per_step
+    assert _moved() == _twice(rec)
     want = fit.fit_dense_grid(plan, flat("cpu"), cams, targets, config,
                               mode=mode)
     assert got.mode == want.mode == mode
     np.testing.assert_allclose(got.loss_history, want.loss_history,
                                rtol=1e-5)
     assert got.loss_history[-1] < got.loss_history[0]
+
+
+# ------------------------------------------- the fits' recorded steps
+
+
+GRAPH_MODES = ("tiled", "windowed", "plain", "hash")
+GRAPH_STEPS = 5
+
+
+def graph_case(mode, device):
+    """(make(f, opt) -> step, fresh() -> field, targets, lr) of one fit
+    mode: fit_scene's tiled, windowed and plain steps toward its own
+    frames, and hash_scene("stratified")'s hash step toward random
+    views."""
+    if mode == "hash":
+        plan, _ = hash_scene("stratified")
+        cams = [P.CameraConfig(k=plan.camera.k, c2w=c2w) for c2w in (
+            (1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0),
+            (0, 0, -1, 2.0, 0, 1, 0, 0.5, 1, 0, 0, 0.5))]
+        stack = hash_tiled.build_hash_schedule_stack(
+            fit.view_plans(plan, cams), device=device)
+        targets = torch.from_numpy(np.random.default_rng(2).uniform(
+            0, 1, (2, plan.height, plan.width, 3)).astype(np.float32)).to(
+            device)
+        return (lambda f, opt: fit._hash_train_step(plan, stack, opt),
+                lambda: hash_scene("stratified", device)[1], targets, 8e-3)
+    plan, cams, truth = fit_scene(device)
+    views = (None if mode == "plain"
+             else fit._scheduled_views(plan, cams, truth, mode))
+    with torch.no_grad():
+        targets = (windowed_targets(plan, cams, truth) if mode != "tiled"
+                   else views[2](truth, views[1]).cpu().numpy())
+    targets = torch.from_numpy(targets).to(device)
+
+    def make(f, opt):
+        if mode == "plain":
+            return fit.make_train_step(plan, cams, f, opt)
+        return fit.make_train_step_scheduled(plan, cams, f, opt, mode=mode,
+                                             views=views)
+
+    def fresh():
+        return truth.with_params(torch.full_like(truth.sigma, 0.5),
+                                 torch.full_like(truth.color, 0.5))
+
+    return make, fresh, targets, 5e-2
+
+
+def _capturable_adam(f, lr, capturable=True):
+    return torch.optim.Adam(f.parameters(), lr=lr, betas=(0.9, 0.999),
+                            eps=1e-8, capturable=capturable)
+
+
+def _bits(t):
+    return t.detach().contiguous().reshape(-1).view(torch.int32)
+
+
+def _assert_steps_equal(fa, opt_a, fb, opt_b, la, lb):
+    """Losses, parameters and Adam's state equal bit for bit."""
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(la, lb))
+    pa, pb = list(fa.parameters()), list(fb.parameters())
+    assert all(torch.equal(_bits(a), _bits(b)) for a, b in zip(pa, pb))
+    for a, b in zip(pa, pb):
+        for k in opt_a.state[a]:
+            assert torch.equal(_bits(opt_a.state[a][k].float()),
+                               _bits(opt_b.state[b][k].float())), k
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_graphed_step_bit_equal_to_eager_on_the_card(cuda_device, mode):
+    """The recorded step, replayed GRAPH_STEPS times, equals the eager
+    capturable body bit for bit in losses, parameters and Adam's state;
+    the counters move by the warm-up and the recording only."""
+    make, fresh, targets, lr = graph_case(mode, cuda_device)
+    fa, fb = fresh(), fresh()
+    opt_a, opt_b = _capturable_adam(fa, lr), _capturable_adam(fb, lr)
+    step_a, step_b = make(fa, opt_a), make(fb, opt_b)
+    graph_mod.reset_launch_counts()
+    la = [step_a(fa, targets) for _ in range(GRAPH_STEPS)]
+    lb = [step_b.body(fb, targets) for _ in range(GRAPH_STEPS)]
+    torch.cuda.synchronize()
+    rec = step_a.graph.launches
+    assert rec and _moved() == {k: 2 * v + v * GRAPH_STEPS
+                                for k, v in rec.items()}
+    _assert_steps_equal(fa, opt_a, fb, opt_b, la, lb)
+    assert float(la[-1]) < float(la[0])
+
+
+@pytest.mark.parametrize("mode", ["tiled", "windowed"])
+def test_graphed_block_equals_replayed_steps_on_the_card(cuda_device, mode):
+    """A block of k replays equals k replayed steps bit for bit."""
+    plan, cams, _ = fit_scene(cuda_device)
+    make, fresh, targets, lr = graph_case(mode, cuda_device)
+    fa, fb = fresh(), fresh()
+    opt_a, opt_b = _capturable_adam(fa, lr), _capturable_adam(fb, lr)
+    views = fit._scheduled_views(plan, cams, fa, mode)
+    block = fit.make_train_block_scheduled(plan, cams, fa, opt_a, 4,
+                                           mode=mode, views=views)
+    step = make(fb, opt_b)
+    losses = block(fa, targets)
+    singles = [step(fb, targets) for _ in range(4)]
+    assert losses.shape == (4,)
+    _assert_steps_equal(fa, opt_a, fb, opt_b, losses, singles)
+
+
+@pytest.mark.parametrize("mode", GRAPH_MODES)
+def test_graphed_fits_byte_equal_on_the_card(cuda_device, mode):
+    """Two graphed fits from the same start are byte-equal; the fit's
+    counters move by the warm-up and the recording only."""
+    make, fresh, targets, lr = graph_case(mode, cuda_device)
+    plan, cams, _ = fit_scene(cuda_device)
+    config = fit.FitConfig(learning_rate=lr, steps=6, sync_every=4,
+                           target_psnr=None)
+
+    def run():
+        if mode == "hash":
+            hplan, _ = hash_scene("stratified")
+            hcams = [P.CameraConfig(k=hplan.camera.k, c2w=c2w) for c2w in (
+                (1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1, -1.0),
+                (0, 0, -1, 2.0, 0, 1, 0, 0.5, 1, 0, 0, 0.5))]
+            return fit.fit_hash_mlp(hplan, fresh(), hcams, targets, config)
+        return fit.fit_dense_grid(plan, fresh(), cams, targets, config,
+                                  mode=mode)
+
+    graph_mod.reset_launch_counts()
+    a = run()
+    assert a.recorded_launches and _moved() == _twice(a.recorded_launches)
+    assert a.capture_ms > 0.0 and a.first_step_s > 0.0
+    b = run()
+    assert a.loss_history == b.loss_history and a.steps_run == 6
+    for x, y in zip(a.field.parameters(), b.field.parameters()):
+        assert torch.equal(_bits(x), _bits(y))
+
+
+def test_non_capturable_adam_raises_on_the_card(cuda_device):
+    """A CUDA step given an Adam that keeps its step count on the host
+    raises, naming the fix, and leaves the field as it was."""
+    make, fresh, targets, lr = graph_case("tiled", cuda_device)
+    f = fresh()
+    step = make(f, _capturable_adam(f, lr, capturable=False))
+    before = f.sigma.detach().clone()
+    with pytest.raises(P.DvrenError, match="capturable=True"):
+        step(f, targets)
+    assert torch.equal(f.sigma.detach(), before)
 
 
 def windowed_targets(plan, cams, field):
