@@ -369,25 +369,39 @@ drive ``dvren_tpu_torch.parallel`` on ranks spawned by its ``launch``
 62. D = 1 over NCCL: at the dense headline, ``render_tiled_sharded``
     bit-equal to ``render_tiled``, a tile-DP step's gradients within 2e-6
     x scale of autograd through ``render_tiled`` and a repeat step
-    bit-identical, ``render_sharded`` bit-equal to ``pipeline.render``,
-    ``render_zsharded`` within 2e-5 of it (depth by phase 38's per-ray
-    bound); at the fit flagship's eight views (96^2 over 64^3, one
-    merged 8 px supercell group), the multi-view tile-DP step against
-    ``render_tiled_stack``'s gradients and ``make_dp_train_step`` against
-    ``render_views``' (2e-6 x scale), three ``fit_dense_grid_tile_dp``
-    steps with a falling loss; the sharded and single-card frames and
-    steps timed (CUDA events, median of 10, min-max), and
-    ``shard_tiled_schedule``'s host seconds;
+    bit-identical, ``render_sharded`` bit-equal to ``pipeline.render``
+    with no host jitter table read, ``render_zsharded`` within 2e-5 of it
+    (depth by phase 38's per-ray bound); at the fit flagship's eight
+    views (96^2 over 64^3, one merged 8 px supercell group), the
+    multi-view tile-DP step against ``render_tiled_stack``'s gradients
+    and ``make_dp_train_step`` against ``render_views``' (2e-6 x scale;
+    the view-DP path runs those views with 96 stratified steps, seed 3,
+    so that it hashes its jitter);
+    every kernel of the main path launched, the jitter kernel included;
+    the three steps recorded as CUDA graphs, the all-reduce inside, and
+    replayed (``par_graph_steps``): the headline's tile-DP step, the
+    flagship's multi-view and view-DP steps with Adam, 10 replays each
+    bit-equal to the eager capturable body (losses, parameters, Adam's
+    state), within 1e-4 of a non-capturable Adam's, the counters moved by
+    the warm-up and the recording only (K3, K1, K2, K4; K1, K2; K9f, K9b
+    and the jitter kernel), replayed and eager ms (median of 10);
+    ``fit_dense_grid_tile_dp`` and ``fit_dense_grid_dp`` 10 steps each,
+    recorded once and bit-equal to those steps; the sharded and
+    single-card frames and steps timed (CUDA events, median of 10,
+    min-max), and ``shard_tiled_schedule``'s host seconds;
 63. D = 2 over gloo, two ranks sharing the card: the same checks, the
-    results equal to D = 1's within those bounds, each rank's K1, K2, K3,
-    K4, K9f and K9b launches on the main path (a sharded frame, a tile-DP
-    step, a ray-sharded frame, a view-DP step) above 0, K1 / K2 on rank
-    0's shard bit-equal to their twins and timed (the kernels line adds
+    results equal to D = 1's within those bounds, every step eager (no
+    graph: gloo sums on the host) with its 10 losses within 1e-4 of
+    D = 1's replayed ones, each rank's K1, K2, K3, K4, K9f, K9b and
+    jitter launches on the main path (a sharded frame, a tile-DP step, a
+    ray-sharded frame, a view-DP step) above 0, K1 / K2 on rank 0's shard
+    bit-equal to their twins and timed (the kernels line adds
     ``fused_tiles[_bwd]:rank_shard_d2``), K9f / K9b on rank 0's ray shard
     and on its first view-DP view against their twins at phase 52's
     bounds and timed (``integrate[_bwd]:ray_shard_d2`` and
-    ``:view_dp_d2``); the times are two ranks on one card, not a scaling
-    figure;
+    ``:view_dp_d2``), the jitter kernel at rank 0's ray shard against its
+    twin and timed (``stratified_jitter:ray_shard_d2``); the times are
+    two ranks on one card, not a scaling figure;
 64. ``dryrun_multichip(2, backend="gloo")``.
 
 Phases 65-69 (last; ``--only close`` runs phases 1 and 65-69 alone), each
@@ -1968,10 +1982,11 @@ FIT_LR = 5e-2       # tools/fit_benchmark.py's Adam rate
 SUPER_OPS = 3       # a supercell sample's extra adds: base + lb per axis
 
 
-def flagship_views(P, views=FIT_VIEWS, res=96, grid=64):
+def flagship_views(P, views=FIT_VIEWS, res=96, grid=64, mode="FIXED"):
     """tools/fit_benchmark.py:58-82 rebuilt in numpy: the truth field (a
-    64^3 Gaussian blob), the 96^2 plan (96 fixed steps) and its per-view
-    plans on a translation orbit."""
+    64^3 Gaussian blob), the 96^2 plan (96 fixed steps; ``mode=
+    "STRATIFIED"``: 96 stratified steps, the headline's seed 3) and its
+    per-view plans on a translation orbit."""
     import math
 
     zs, ys, xs = np.meshgrid(*([np.linspace(0, 1, grid)] * 3), indexing="ij")
@@ -1983,9 +1998,11 @@ def flagship_views(P, views=FIT_VIEWS, res=96, grid=64):
                                color=color.reshape(-1))
     plan = P.Plan.create(P.PlanConfig(
         width=res, height=res, t_near=0.2, t_far=2.2,
+        seed=3 if mode == "STRATIFIED" else 0,
         camera=P.CameraConfig(k=(res * 1.2, 0, res / 2, 0, res * 1.2,
                                  res / 2, 0, 0, 1)),
-        sampling=P.SamplingConfig(dt=2.0 / 96, max_steps=96)))
+        sampling=P.SamplingConfig(dt=2.0 / 96, max_steps=96,
+                                  mode=getattr(P.SamplingMode, mode))))
     cams = []
     for i in range(views):
         ang = 2 * math.pi * i / views
@@ -2071,17 +2088,18 @@ def twin64(torch, a, gs):
                                                gs.double(), prm, cam=True)
 
 
-def twins_bit_equal(torch, args, gen, n_tiles=None):
+def twins_bit_equal(torch, args, gen, n_tiles=None, f64_first=None):
     """K1 and K2 (with the camera adjoint), one launch per schedule of
     ``args`` (the first ``n_tiles`` tiles of every group, when given),
     against their twins run group by group: heads, slot rows and d(rayt)
     equal bit for bit, K2's repeat too; and K2's distance from its
     float64 twin (printed: float32 sums in the twin's order, not held to a
-    bound). Returns the largest |kernel - twin| (0.0) over K1 and over K2."""
+    bound) on every schedule, or on the first ``f64_first``. Returns the
+    largest |kernel - twin| (0.0) over K1 and over K2."""
     from dvren_tpu_torch.ops import fused_tiles
 
     k1_err = k2_err = 0.0
-    for a in args:
+    for i, a in enumerate(args):
         if n_tiles is not None:
             a = subset_args(torch, a, n_tiles)
         tabs, tiles, prm = a
@@ -2109,6 +2127,8 @@ def twins_bit_equal(torch, args, gen, n_tiles=None):
                 f"its twin")
         require(torch.equal(rows2, rows) and torch.equal(d_rayt2, d_rayt),
                 "K2 differs between two runs")
+        if f64_first is not None and i >= f64_first:
+            continue
         rows64, rayt64 = twin64(torch, a, gs)
         print(f"  K2 ({prm.subs} sub-tiles, {prm.stencil}) vs its float64 "
               f"twin: d(table) {rel_err(rows.double(), rows64):.3e}, d(rayt) "
@@ -2242,6 +2262,13 @@ def run_subtiles(torch, P, dev, card,
     reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
     gen = torch.Generator(device=dev).manual_seed(28)
     kernels, report = [], {}
+    t_phase = time.perf_counter()
+
+    def lap(name):
+        nonlocal t_phase
+        now = time.perf_counter()
+        report.setdefault("phase_s", {})[name] = now - t_phase
+        t_phase = now
 
     def sgd_steps(plan, field_t, sched, lr):
         target = torch.zeros((plan.height, plan.width, 3), device=dev)
@@ -2374,7 +2401,9 @@ def run_subtiles(torch, P, dev, card,
             "vs_plain": err, "losses": losses}
 
     fine_phase("float32", "float32", "tiled_supercell_16px")
+    lap("28-29")
     fine_phase("bfloat16", "bfloat16", "tiled_subtiled_8px")
+    lap("30")
     if fine_only:
         return kernels, report
 
@@ -2410,10 +2439,10 @@ def run_subtiles(torch, P, dev, card,
             f"the flagship forwards launched {fwd_c}")
     fit_args = [variant_args(torch, pv, truth, s)
                 for pv, s in zip(plans, scheds)]
-    fit_errs = twins_bit_equal(torch, fit_args, gen)
+    fit_errs = twins_bit_equal(torch, fit_args, gen, f64_first=1)
     print(f"fit flagship: K1 and K2 (8 px supercells) == twins bit for bit "
           f"on all {n_groups} groups of the {len(plans)} views, one launch "
-          f"per view", flush=True)
+          f"per view (K2's float64 twin on view 0)", flush=True)
 
     student = P.DenseGridField.create(dataclasses.replace(
         config, sigma=np.full(len(config.sigma), 0.5, np.float32),
@@ -2489,6 +2518,8 @@ def run_subtiles(torch, P, dev, card,
     kernels.extend(variant_kernels(
         "supercell_8px", fit_args, fit_gss, merged,
         (fit_c["fused_tiles"], fit_c["fused_tiles_bwd"]), fit_errs, fit_times))
+
+    lap("31-32")
 
     # 33. view 0 at 4 px: frame and backward
     t0 = time.perf_counter()
@@ -2576,6 +2607,8 @@ def run_subtiles(torch, P, dev, card,
                 "frame_ms": frame4_ms, "fwd_bwd_ms": bwd4_ms,
                 "k1_ms": times4[0], "k2_ms": times4[1],
                 "k1_plain_ms": times4[2], "k2_plain_ms": times4[3]}}
+    lap("33")
+    print(f"phases 28-33 s: {report['phase_s']}", flush=True)
     return kernels, report
 
 
@@ -4040,7 +4073,7 @@ def run_split_child(torch, P, dev) -> dict:
 SHELL_N = 512       # tools/sparse_bench.py:50-82: the 512^3 SDF shell
 SHELL_STEPS = 192
 ORBIT_POSES = 6     # tools/animation_bench.py:114-135's orbit
-ORBIT_NUMPY_POSES = 3   # poses timed again with the numpy builder
+ORBIT_NUMPY_POSES = 1   # poses timed again with the numpy builder
 RESUME_STEPS = 4    # Adam steps before and after the train-state restore
 
 
@@ -5516,10 +5549,20 @@ PAR_COUNTERS = (("K1", "fused_tiles", "tile_forward"),
                 ("K3", "packed_transpose", "build_rows"),
                 ("K4", "packed_transpose", "table_grad_to_params"),
                 ("K9f", "integrate_fused", "integrate_forward"),
-                ("K9b", "integrate_fused", "radiance_vjp"))
+                ("K9b", "integrate_fused", "radiance_vjp"),
+                ("J", "rng", "stratified_jitter"))
 PAR_PLANES_TOL = 2e-5     # z-sharded planes against pipeline.render
-PAR_FIT_STEPS = 3         # fit_dense_grid_tile_dp's steps (falling loss)
+PAR_GRAPH_STEPS = 10      # each sharded step's replays held to its body,
+#                           and the sharded fits' steps
 PAR_RUNS = 10             # timed runs of each sharded path (median, spread)
+# the kernels each sharded step records (D = 1, NCCL): the headline's
+# tile-DP step (16 px cells: K3, K1, K2, K4), the flagship's multi-view
+# step (8 px supercells: K1, K2) and its view-DP step (per view K9f, K9b,
+# the jitter kernel)
+PAR_RECORDED = {"tile_dp": {"fused_tiles", "fused_tiles_bwd", "packed_table",
+                            "packed_table_bwd"},
+                "multiview": {"fused_tiles", "fused_tiles_bwd"},
+                "view_dp": {"integrate", "integrate_bwd", "stratified_jitter"}}
 
 
 def _par_counters():
@@ -5537,6 +5580,109 @@ def _leaf_copy(field):
 def _grads(field) -> list:
     return [field.sigma.grad.detach().clone(),
             field.color.grad.detach().clone()]
+
+
+@contextlib.contextmanager
+def no_jitter_table():
+    """``pipeline.plan_jitter_table`` refused for the duration: a path run
+    inside reads no host jitter table."""
+    from dvren_tpu_torch.render import pipeline
+
+    real = pipeline.plan_jitter_table
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the host jitter table was read")
+
+    pipeline.plan_jitter_table = refuse
+    try:
+        yield
+    finally:
+        pipeline.plan_jitter_table = real
+
+
+def par_graph_steps(mesh, cases, fits) -> dict:
+    """The three sharded steps with Adam (lr FIT_LR, the fits'
+    projection), each from its start (``cases``: name -> (make(f, opt) ->
+    (step, inputs), fresh())): PAR_GRAPH_STEPS calls of the step against
+    the eager body of a twin step with a capturable Adam (losses,
+    parameters, Adam's state bit for bit) and against the body with a
+    non-capturable Adam (losses within FIT_GRAPH_RTOL). On an NCCL mesh
+    the step is recorded once (the counters move by the warm-up and the
+    recording only, over PAR_RECORDED's kernels) and replayed, and the
+    replayed and eager steps are timed; on gloo it stays eager (``graph``
+    None). ``fits``: name -> fit() -> losses, each held bit for bit to its
+    step's losses (and recorded once, on NCCL)."""
+    import torch
+
+    from dvren_tpu_torch.render import graph
+
+    recorded_mesh = mesh.backend == "nccl"
+    out = {}
+
+    def adam(f, capturable=True):
+        return torch.optim.Adam(f.parameters(), lr=FIT_LR, betas=(0.9, 0.999),
+                                eps=1e-8, capturable=capturable)
+
+    for name, (make, fresh) in cases.items():
+        fa, fb, fc = fresh(), fresh(), fresh()
+        oa, ob, oc = adam(fa), adam(fb), adam(fc, False)
+        (sa, inputs), (sb, _), (sc, _) = (make(f, o) for f, o in (
+            (fa, oa), (fb, ob), (fc, oc)))
+        graph.reset_launch_counts()
+        got = torch.stack([sa(*inputs) for _ in range(PAR_GRAPH_STEPS)])
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in graph.launch_counts().items() if v}
+        want = torch.stack([sb.body(*inputs) for _ in range(PAR_GRAPH_STEPS)])
+        plain = torch.stack([sc.body(*inputs)
+                             for _ in range(PAR_GRAPH_STEPS)])
+        torch.cuda.synchronize()
+        pa, pb = list(fa.parameters()), list(fb.parameters())
+        require(torch.equal(words(got), words(want))
+                and all(torch.equal(words(a.detach()), words(b.detach()))
+                        for a, b in zip(pa, pb))
+                and all(torch.equal(a, b) for a, b in zip(
+                    adam_state_words(oa, pa), adam_state_words(ob, pb))),
+                f"{name}: {PAR_GRAPH_STEPS} steps differ from the eager "
+                f"capturable body in losses, parameters or Adam's state")
+        rel = float(((got - plain).abs() / plain.abs()).max())
+        require(rel <= FIT_GRAPH_RTOL,
+                f"{name}: the steps differ from the non-capturable Adam's by "
+                f"{rel:.3e} relative")
+        require(bool(got[-1] < got[0]), f"{name}: the loss does not fall")
+        row = {"losses": got.tolist(), "vs_non_capturable": rel,
+               "moved": moved}
+        if recorded_mesh:
+            rec = dict(sa.graph.launches)
+            require(set(rec) == PAR_RECORDED[name]
+                    and moved == {k: 2 * v for k, v in rec.items()},
+                    f"{name}: recorded {rec} (want {PAR_RECORDED[name]}), "
+                    f"the counters moved by {moved}, not twice that")
+            row.update(recorded=rec, capture_ms=sa.graph.capture_ms,
+                       replayed_ms=event_times(torch, lambda: sa(*inputs),
+                                               PAR_RUNS),
+                       eager_ms=event_times(torch, lambda: sb.body(*inputs),
+                                            PAR_RUNS))
+        else:
+            require(sa.graph is None and sb.graph is None,
+                    f"{name}: a step recorded a graph on a {mesh.backend} "
+                    f"mesh")
+        out[name] = row
+        del fa, fb, fc, oa, ob, oc, sa, sb, sc
+    for name, fit in fits.items():
+        graph.reset_launch_counts()
+        losses = fit()
+        torch.cuda.synchronize()
+        moved = {k: v for k, v in graph.launch_counts().items() if v}
+        step = out[name]
+        require(list(losses) == step["losses"],
+                f"the {name} fit's losses differ from its steps': "
+                f"{list(losses)} against {step['losses']}")
+        if recorded_mesh:
+            require(moved == {k: 2 * v for k, v in step["recorded"].items()},
+                    f"the {name} fit moved the counters by {moved}: not "
+                    f"recorded once")
+        step["fit_moved"] = moved
+    return out
 
 
 def parallel_rank(mesh, sched_host, fit_views):
@@ -5571,6 +5717,9 @@ def parallel_rank(mesh, sched_host, fit_views):
                          for g in shards]
     fplans, fconfig = flagship_views(P, views=fit_views)
     fplan = fplans[0]
+    # the view-DP path at the flagship's views with stratified steps: its
+    # fixed steps launch no jitter kernel
+    splan = flagship_views(P, views=fit_views, mode="STRATIFIED")[0][0]
     fcams = [P.CameraConfig(c2w=tuple(p.camera.c2w)) for p in fplans]
     ffield = P.DenseGridField.create(fconfig, device=dev).requires_grad_(False)
     _, merged, render_stack = _scheduled_views(fplan, fcams, ffield, "tiled")
@@ -5591,7 +5740,7 @@ def parallel_rank(mesh, sched_host, fit_views):
         sched_host)
     v_field = _leaf_copy(ffield)
     v_step = shard.make_dp_train_step(
-        fplan, v_field, torch.optim.SGD(v_field.parameters(), lr=LR), mesh)
+        splan, v_field, torch.optim.SGD(v_field.parameters(), lr=LR), mesh)
     counters = _par_counters()
     for c in counters:
         c.launches = 0
@@ -5599,14 +5748,17 @@ def parallel_rank(mesh, sched_host, fit_views):
         frame = shard.render_tiled_sharded(plan, field, sched_host, mesh,
                                            shards=shards)
     t_loss = t_step(shards, target)
-    with torch.no_grad():
-        rframe = shard.render_sharded(plan, field, mesh)
-    v_loss = v_step(c2ws, ftargets)
+    with no_jitter_table():       # the jitter hashed on the card
+        with torch.no_grad():
+            rframe = shard.render_sharded(plan, field, mesh)
+        v_loss = v_step(c2ws, ftargets)
     torch.cuda.synchronize()
     rows = torch.zeros((n_dev, len(counters)), device=dev)
     rows[mesh.rank] = torch.tensor([float(c.launches) for c in counters],
                                    device=dev)
     out["launches"] = all_reduce_sum(mesh, rows).int().tolist()
+    out["step_graphs"] = {"tile_dp": t_step.graph is not None,
+                          "view_dp": v_step.graph is not None}
     t_grads = _grads(t_field)
     v_grads = _grads(v_field)
     # the ranks' parameters after the step, equal bit for bit: each rank's
@@ -5645,14 +5797,31 @@ def parallel_rank(mesh, sched_host, fit_views):
     m_grads = _grads(m_field)
     out["multiview_grads"] = [g.cpu().numpy() for g in m_grads]
 
-    # fit_dense_grid_tile_dp from a flat start: the loss falls
+    # the three steps with Adam, recorded and replayed on NCCL, eager on
+    # gloo, against their eager bodies; the two sharded fits against them
     flat = ffield.with_params(torch.full_like(ffield.sigma, 1.0),
                               torch.full_like(ffield.color, 0.5))
-    _, fit_losses = shard.fit_dense_grid_tile_dp(
-        fplan, flat, fcams, ftargets, mesh, steps=PAR_FIT_STEPS)
-    out["fit_losses"] = fit_losses.tolist()
-    require(all(b < a for a, b in zip(fit_losses, fit_losses[1:])),
-            f"fit_dense_grid_tile_dp's loss does not fall: {fit_losses}")
+    h_target = 0.7 * frame.image
+
+    def mv_make(f, opt):
+        step, mv_shards = shard.make_tile_dp_multiview_step(
+            fplan, f, opt, mesh, merged, project=shard._project_field)
+        return step, (mv_shards, ftargets)
+
+    cases = {
+        "tile_dp": (lambda f, opt: (shard.make_tile_dp_train_step(
+            plan, f, opt, mesh, sched_host, project=shard._project_field),
+            (shards, h_target)), lambda: _leaf_copy(field)),
+        "multiview": (mv_make, lambda: _leaf_copy(flat)),
+        "view_dp": (lambda f, opt: (shard.make_dp_train_step(
+            splan, f, opt, mesh, project=shard._project_field),
+            (c2ws, ftargets)), lambda: _leaf_copy(flat))}
+    fits = {"multiview": lambda: shard.fit_dense_grid_tile_dp(
+                fplan, flat, fcams, ftargets, mesh, steps=PAR_GRAPH_STEPS)[1],
+            "view_dp": lambda: shard.fit_dense_grid_dp(
+                splan, flat, fcams, ftargets, mesh, steps=PAR_GRAPH_STEPS)[1]}
+    out["graph"] = par_graph_steps(mesh, cases, fits)
+    out["fit_losses"] = out["graph"]["multiview"]["losses"]
 
     if lead:
         # the single-card counterparts
@@ -5710,7 +5879,7 @@ def parallel_rank(mesh, sched_host, fit_views):
                 f"{out['multiview_err']:.3e} x scale")
 
         ref_v = _leaf_copy(ffield)
-        views_loss = mse(render_views(fplan, ref_v, fcams), ftargets)
+        views_loss = mse(render_views(splan, ref_v, fcams), ftargets)
         views_loss.backward()
         out["view_dp_err"] = max(rel_err(a, b)
                                  for a, b in zip(v_grads, _grads(ref_v)))
@@ -5810,16 +5979,15 @@ def parallel_rank(mesh, sched_host, fit_views):
         k9_launches = {"integrate": out["launches"][0][4],
                        "integrate_bwd": out["launches"][0][5]}
         with torch.no_grad():
-            _, _, sigma, color, lattice = shard.ray_shard_lattice(
+            start, count, sigma, color, lattice = shard.ray_shard_lattice(
                 plan, field, mesh)
             ray_in = [(sigma, color, lattice.dt, lattice.mask, None)]
             view_in = outputs_inputs(pipeline.render(
-                fplan, ffield, c2w=shard.batch_sharded(mesh, c2ws)[0],
-                jitter=pipeline.plan_jitter_table(fplan)))
+                splan, ffield, c2w=shard.batch_sharded(mesh, c2ws)[0]))
         out["k9_entries"] = []
         for form, inputs, (t_near, t_far) in (
                 ("ray_shard_d2", ray_in, (plan.t_near, plan.t_far)),
-                ("view_dp_d2", view_in, (fplan.t_near, fplan.t_far))):
+                ("view_dp_d2", view_in, (splan.t_near, splan.t_far))):
             gk = [torch.rand((x[0].shape[0], 3), generator=gen, device=dev)
                   * 2 - 1 for x in inputs]
             out["k9_entries"] += k9_entries(
@@ -5827,6 +5995,37 @@ def parallel_rank(mesh, sched_host, fit_views):
                 f"rank 0 of 2, {tuple(inputs[0][0].shape)}")
             del inputs, gk
         del ray_in, view_in, sigma, color, lattice
+        # the jitter kernel at rank 0's ray shard, against its twin
+        from dvren_tpu_torch.ops import rng
+
+        k_steps = plan.sampling.max_steps
+        rays_i = torch.arange(start, start + count, dtype=torch.int64,
+                              device=dev)[:, None]
+        steps_i = torch.arange(k_steps, dtype=torch.int32, device=dev)[
+            None, :].expand(count, k_steps)
+        bounds = (plan.ray_count, k_steps)
+        jit_k = rng.stratified_jitter(plan.seed, rays_i, steps_i,
+                                      bounds=bounds)
+        jit_p = rng.stratified_jitter_plain(plan.seed, rays_i, steps_i,
+                                            bounds)
+        torch.cuda.synchronize()
+        require(torch.equal(jit_k, jit_p), "the jitter kernel differs from "
+                "its twin at rank 0's ray shard")
+        out["j_entry"] = {
+            "name": "stratified_jitter:ray_shard_d2", "route": "cuda",
+            "source": "dvren_tpu_torch/csrc/jitter.cu",
+            "replaces": "dvren_tpu/ops/rng.py:80 (no Pallas kernel: the "
+                        "in-graph jitter)",
+            "launches": out["launches"][0][6],
+            "max_abs_err": float((jit_k - jit_p).abs().max()),
+            "ms": device_ms(torch, lambda: rng.stratified_jitter(
+                plan.seed, rays_i, steps_i, bounds=bounds), 20),
+            "issued_ms": cuda_ms(torch, lambda: rng.stratified_jitter(
+                plan.seed, rays_i, steps_i, bounds=bounds), 20),
+            "plain_ms": cuda_ms(torch, lambda: rng.stratified_jitter_plain(
+                plan.seed, rays_i, steps_i, bounds), 3, warmup=1),
+            **bound(count * k_steps * 4 + count * 8 + k_steps * 4, 0)}
+        del jit_k, jit_p
     return out
 
 
@@ -5846,13 +6045,16 @@ def run_parallel(torch, P, dev, card, sched_host=None) -> tuple[list, dict]:
     """Phases 62-64: the sharded paths of ``dvren_tpu_torch.parallel``.
 
     62. D = 1 over NCCL (one spawned rank on the card), at the dense
-        headline and the fit flagship's eight views (``parallel_rank``);
+        headline and the fit flagship's eight views (``parallel_rank``),
+        the three training steps and the two fits recorded as CUDA graphs
+        and replayed (``par_graph_steps``);
     63. D = 2 over gloo, two ranks sharing the card (both ``cuda:0``; NCCL
-        refuses two ranks on one GPU): the same checks, results equal to
-        D = 1's within their bounds, each rank's K1, K2, K3, K4, K9f and
-        K9b launches on the main path above 0, K1 / K2 on rank 0's shard
-        and K9f / K9b on its ray shard and first view-DP view against
-        their twins and timed;
+        refuses two ranks on one GPU): the same checks with every step
+        eager, results equal to D = 1's within their bounds, each rank's
+        K1, K2, K3, K4, K9f, K9b and jitter launches on the main path
+        above 0, K1 / K2 on rank 0's shard and K9f / K9b and the jitter
+        kernel on its ray shard (K9 also on its first view-DP view)
+        against their twins and timed;
     64. ``dryrun_multichip(2, backend="gloo")``.
 
 Phases 65-69 (last; ``--only close`` runs phases 1 and 65-69 alone), each
@@ -5911,6 +6113,24 @@ fatal when it fails:
           f"{r1['view_dp_err']:.3e}, fit losses {r1['fit_losses']}; "
           f"launches {dict(zip([n for n, _, _ in PAR_COUNTERS], r1['launches'][0]))}",
           flush=True)
+    names = [n for n, _, _ in PAR_COUNTERS]
+    require(all(v > 0 for v in r1["launches"][0])
+            and all(r1["step_graphs"].values()),
+            f"D = 1: a kernel did not launch on the main path "
+            f"({dict(zip(names, r1['launches'][0]))}) or a step was not "
+            f"recorded ({r1['step_graphs']})")
+    for name, g in r1["graph"].items():
+        print(f"phase 62 {name} step recorded ({g['capture_ms']:.1f} ms "
+              f"warm-up and capture; recorded {g['recorded']}, counters "
+              f"moved {g['moved']}) and replayed: {PAR_GRAPH_STEPS} steps "
+              f"bit-equal to the eager capturable body (losses "
+              f"{g['losses'][0]:.6e} -> {g['losses'][-1]:.6e}, parameters, "
+              f"Adam state), {g['vs_non_capturable']:.3e} relative from the "
+              f"non-capturable Adam's"
+              + (f"; the graphed fit bit-equal, counters moved "
+                 f"{g['fit_moved']}" if "fit_moved" in g else "")
+              + f"; ms a step replayed {spread(g['replayed_ms'])}, eager "
+              f"{spread(g['eager_ms'])} [{card}]", flush=True)
     print(_par_line("phase 62 times", r1), flush=True)
     print(f"phase 62 single card: tiled frame "
           f"{spread(t['single_tiled_frame'])}, tiled step "
@@ -5922,7 +6142,6 @@ fatal when it fails:
     r2 = launch(parallel_rank, 2, sched_host, FIT_VIEWS, backend="gloo",
                 device="cuda:0")
     report["d2_s"] = time.perf_counter() - t0
-    names = [n for n, _, _ in PAR_COUNTERS]
     for rank, row in enumerate(r2["launches"]):
         print(f"phase 63 rank {rank} launches on the main path: "
               f"{dict(zip(names, row))}", flush=True)
@@ -5948,6 +6167,22 @@ fatal when it fails:
     require(max(v for k, v in d12.items() if k != "zframe") <= GRID_TOL
             and d12["zframe"] <= PAR_PLANES_TOL,
             f"D = 2 results differ from D = 1's: {d12}")
+    require(not any(r2["step_graphs"].values()),
+            f"D = 2 over gloo recorded a step: {r2['step_graphs']}")
+    for name, g in r2["graph"].items():
+        rel = float(np.max(np.abs(np.subtract(g["losses"],
+                                              r1["graph"][name]["losses"]))
+                           / np.abs(r1["graph"][name]["losses"])))
+        d12[f"{name}_losses"] = rel
+        print(f"phase 63 {name} step eager over gloo (no graph): "
+              f"{PAR_GRAPH_STEPS} steps equal to the eager capturable body, "
+              f"{g['vs_non_capturable']:.3e} relative from the "
+              f"non-capturable Adam's, {rel:.3e} relative from D = 1's "
+              f"replayed losses"
+              + ("; the fit equal to the steps" if name != "tile_dp"
+                 else ""), flush=True)
+        require(rel <= FIT_GRAPH_RTOL,
+                f"{name}: the D = 2 losses differ from D = 1's by {rel:.3e}")
     print(_par_line("phase 63 times (two ranks sharing one card, not a "
                     "scaling figure)", r2), flush=True)
     sk = r2["shard_kernels"]
@@ -5978,7 +6213,7 @@ fatal when it fails:
          "launches": r2["launches"][0][1], "max_abs_err": sk["k2_err"],
          "ms": sk["k2_ms"], "plain_ms": sk["k2_plain_ms"],
          **bound(sk["k2_bytes"], sk["live"] * DENSE_BWD_OPS)},
-    ] + r2["k9_entries"]
+    ] + r2["k9_entries"] + [r2["j_entry"]]
     return kernels, report
 
 
@@ -5986,7 +6221,8 @@ def _par_summary(r) -> dict:
     """A rank result without its arrays."""
     return {k: v for k, v in r.items()
             if k not in ("frame", "zframe", "tile_dp_grads",
-                         "multiview_grads", "view_dp_grads", "k9_entries")}
+                         "multiview_grads", "view_dp_grads", "k9_entries",
+                         "j_entry")}
 
 
 CLOSE_BLOCK = 8          # steps in phase 68's fit block

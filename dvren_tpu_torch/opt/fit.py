@@ -221,40 +221,84 @@ def _scheduled_views(plan: Plan, cameras: Sequence[CameraConfig], field,
     return plans, merged, render_stack
 
 
-class _GraphedStep:
-    """A training step ``body(f, targets) -> loss`` that, on a CUDA field,
-    is recorded once as a CUDA graph (:func:`graph.capture_step`) and then
-    replayed: the port's ``jax.jit`` of the step. The recording is keyed
-    on the field's parameters and the targets (:func:`graph.tensor_key`):
-    a new field object or targets tensor records anew, an in-place
-    optimizer step replays. ``step(f, targets)`` returns the step's loss
-    as a tensor of its own; on a CPU field it runs ``body``. ``graph`` is
-    the current recording (None before the first step on the card)."""
+def _field_device(f, *_):
+    """Where a fit's step ``step(f, ...)`` records: the field's CUDA
+    device, else None (eager)."""
+    return f.device if graph.available(f.device) else None
 
-    def __init__(self, body: Callable, optimizer):
+
+def _field_params(f, *_):
+    return f.parameters()
+
+
+def _run_body(body: Callable, inputs: tuple, held: tuple):
+    """``body(*inputs)``; ``held`` rides along, so that a recording of it
+    keeps what the body reads alive."""
+    return body(*inputs)
+
+
+def _inputs_key(params, inputs) -> tuple:
+    """What a recorded step reads: the parameters and every tensor input
+    by :func:`graph.tensor_key`, every other input (a field, a list of
+    tile shards, None) by its identity, which the recording holds."""
+    return graph.tensor_key(*params) + tuple(
+        graph.tensor_key(x) if isinstance(x, torch.Tensor) else ("id", id(x))
+        for x in inputs)
+
+
+class _GraphedStep:
+    """A training step ``body(*inputs) -> loss`` that, where it has a
+    device to record on, is recorded once as a CUDA graph
+    (:func:`graph.capture_step`) and then replayed: the port's
+    ``jax.jit`` of the step. The recording is keyed on the parameters and
+    the inputs (:func:`_inputs_key`): a new field object, targets tensor
+    or shards object records anew, an in-place optimizer step replays.
+    ``step(*inputs)`` returns the step's loss as a tensor of its own;
+    without a device it runs ``body``. ``graph`` is the current recording
+    (None before the first step on the card, and always when the step
+    runs eagerly).
+
+    ``device(*inputs)`` is where the step records, or None to run it
+    eagerly, and ``params(*inputs)`` the parameters the recording restores
+    after its warm-up; by default the first input is the field (the fits'
+    ``step(f, targets)``), recorded on a CUDA device. ``hold(*inputs)``
+    names what the body reads besides its inputs and closure (a rank's
+    schedule from a cache): the recording keeps it alive and is keyed on
+    it too."""
+
+    def __init__(self, body: Callable, optimizer,
+                 device: Callable = _field_device,
+                 params: Callable = _field_params,
+                 hold: Callable = lambda *_: ()):
         self.body = body
         self.optimizer = optimizer
         self.graph = None
+        self._device = device
+        self._params = params
+        self._hold = hold
         self._key = None
 
-    def loss(self, f, targets) -> torch.Tensor:
-        """Run one step; its loss. On a CUDA field that is the graph's
-        output buffer, which the next replay overwrites."""
-        if not graph.available(f.device):
-            return self.body(f, targets)
-        params = list(f.parameters())
-        key = graph.tensor_key(*params, targets)
+    def loss(self, *inputs) -> torch.Tensor:
+        """Run one step; its loss. On the card that is the graph's output
+        buffer, which the next replay overwrites."""
+        dev = self._device(*inputs)
+        if dev is None:
+            return self.body(*inputs)
+        params = list(self._params(*inputs))
+        held = tuple(self._hold(*inputs))
+        key = _inputs_key(params, inputs + held)
         if key != self._key:
             self.graph = self._key = None   # freed before the next capture
-            body = self.body    # the recording holds no reference to self,
-            #                     so the graph dies with the step
-            self.graph = graph.capture_step(lambda: body(f, targets),
-                                            f.device, params, self.optimizer)
+            # the recorded function holds the body, the inputs and what
+            # they read, not self, so the graph dies with the step
+            self.graph = graph.capture_step(
+                functools.partial(_run_body, self.body, inputs, held), dev,
+                params, self.optimizer)
             self._key = key
         return self.graph.replay()
 
-    def __call__(self, f, targets) -> torch.Tensor:
-        out = self.loss(f, targets)
+    def __call__(self, *inputs) -> torch.Tensor:
+        out = self.loss(*inputs)
         return out.clone() if self.graph is not None else out
 
 
@@ -320,16 +364,19 @@ def make_train_block_scheduled(plan: Plan, cameras: Sequence[CameraConfig],
     return block
 
 
-def _view_inputs(plan: Plan, cameras: Sequence[CameraConfig], device):
+def _view_inputs(plan: Plan, cameras: Sequence[CameraConfig], device,
+                 table: bool = True):
     """Each view's c2w (3, 4), the plan's jitter table (None for FIXED
-    sampling) and the plan's k (3, 3) and ortho_scale () on ``device``,
-    uploaded once: a recorded step reads them and uploads nothing."""
+    sampling, or with ``table=False``: the lattice then hashes its jitter
+    on the device) and the plan's k (3, 3) and ortho_scale () on
+    ``device``, uploaded once: a recorded step reads them and uploads
+    nothing."""
     from dvren_tpu_torch.ops.raygen import camera_arrays
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
     c2ws = [torch.tensor(c.c2w, dtype=torch.float32,
                          device=device).reshape(3, 4) for c in cameras]
-    jitter = plan_jitter_table(plan)
+    jitter = plan_jitter_table(plan) if table else None
     if jitter is not None:
         jitter = torch.from_numpy(jitter.copy()).to(device)
     k, _, ortho_scale = camera_arrays(plan, device)

@@ -37,6 +37,27 @@ repeat runs at a fixed D are bit-identical and the ranks' parameters stay
 equal. Unlike JAX, a rank's gather plan is its own: SPMD needs one program
 for every device, so JAX pads the plan classes to their union over the
 devices (``_shard_gather_plans``); the port leaves the pads out.
+
+JAX jits the three training steps. Here, on a CUDA mesh over NCCL, each
+step is recorded once as a CUDA graph and replayed
+(``opt/fit.py::_GraphedStep``), with its all-reduces inside the graph: a
+warm-up step creates the communicator and the rank's schedule, the
+recording follows, and the parameters and the optimizer's state are put
+back, so the first replay is step 1. The optimizer must keep its step
+count on the device (the fits build ``Adam(..., capturable=True)`` on
+CUDA); a capture that fails raises. On a gloo mesh (CPU ranks, or ranks
+sharing one card) gloo sums on the host, which no graph records, so the
+steps run their bodies eagerly: the mesh decides this up front
+(:func:`record_device`), and ``step.graph`` stays None. The frames
+(:func:`render_sharded`, :func:`render_tiled_sharded`,
+:func:`render_zsharded`) run eagerly on every mesh: neither package has a
+sharded recorded frame (the port records frames only through
+``Renderer(enable_graph=True)``).
+
+The stratified jitter is hashed on the rank's device from the rays'
+global ids and steps (``ops/rng.py::stratified_jitter``, JAX's hash
+inside its jitted program), bit-equal to rows of the plan's host table,
+which none of these paths uploads.
 """
 
 from __future__ import annotations
@@ -54,14 +75,16 @@ from dvren_tpu_torch.ops.grid import eval_grid_planes
 from dvren_tpu_torch.ops.integrate import OPACITY_EPS, STOP_THRESHOLD
 from dvren_tpu_torch.ops.raygen import generate_rays
 from dvren_tpu_torch.ops.sampling import generate_samples
-from dvren_tpu_torch.opt.fit import _project, _scheduled_views, mse
+from dvren_tpu_torch.opt.fit import (_adam, _GraphedStep, _project,
+                                     _scheduled_views, _view_inputs, mse)
 from dvren_tpu_torch.parallel.mesh import (AllReduceSum, Mesh,
                                            all_reduce_sum, batch_sharded,
                                            replicated)
+from dvren_tpu_torch.render import graph
 from dvren_tpu_torch.render import tiled as tiled_mod
 from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import (eval_fields, integrate_heads,
-                                             plan_jitter_table, render)
+                                             render)
 
 _DROP_TILE = tiled_mod._DROP_TILE
 
@@ -80,8 +103,9 @@ def ray_shard_lattice(plan: Plan, field, mesh: Mesh):
     """This rank's rays of :func:`render_sharded`: (first ray, ray count,
     sigma, colour, lattice) of rays [r * ceil(N / D), ...) of the plan's
     lattice, or None when the rank holds no ray. The integrator's inputs
-    as ``pipeline.render`` builds them, with the rank's rows of the
-    stratified jitter table uploaded once."""
+    as ``pipeline.render`` builds them, the stratified jitter hashed on
+    the device from the rays' global ids (the rows of the plan's table,
+    bit for bit)."""
     n = plan.ray_count
     per = -(-n // mesh.size)
     start = min(mesh.rank * per, n)
@@ -89,10 +113,7 @@ def ray_shard_lattice(plan: Plan, field, mesh: Mesh):
     if not count:
         return None
     rays = generate_rays(plan, start=start, count=count, device=mesh.device)
-    jitter = plan_jitter_table(plan)
-    if jitter is not None:
-        jitter = _on_device(jitter[start:start + count], mesh)
-    lattice = generate_samples(plan, rays, jitter=jitter)
+    lattice = generate_samples(plan, rays, ray_index_offset=start)
     sigma, color = eval_fields(field, lattice)
     return start, count, sigma, color, lattice
 
@@ -157,29 +178,51 @@ def _sum_grads(mesh: Mesh, params, extra=None, scale: float = 1.0):
     return buf[off] if extra is not None else None
 
 
+def record_device(mesh: Mesh) -> torch.device | None:
+    """Where the mesh's training steps are recorded as CUDA graphs: its
+    device when that is CUDA and the group's backend NCCL
+    (:func:`graph.available`), else None: gloo sums on the host, which no
+    graph records, so the steps run eagerly."""
+    return mesh.device if graph.available(mesh.device, mesh.backend) else None
+
+
+def _mesh_step(mesh: Mesh, field, optimizer, body,
+               hold=lambda *_: ()) -> _GraphedStep:
+    """``body(*inputs) -> loss``, a step over ``field``'s parameters, as
+    the mesh's step: recorded once and replayed on an NCCL CUDA mesh,
+    eager elsewhere (:func:`record_device`, decided here). ``hold`` as
+    :class:`_GraphedStep` takes it."""
+    dev = record_device(mesh)
+    params = list(field.parameters())
+    return _GraphedStep(body, optimizer, device=lambda *_: dev,
+                        params=lambda *_: params, hold=hold)
+
+
 def make_dp_train_step(plan: Plan, field, optimizer, mesh: Mesh,
-                       project=None):
+                       project=None) -> _GraphedStep:
     """The view-data-parallel step ``step(c2ws (V, 3, 4), targets (V, H,
     W, 3)) -> loss`` on ``field``'s parameters and ``optimizer`` (over
     them): the rank renders its contiguous V/D views
     (:func:`~dvren_tpu_torch.parallel.mesh.batch_sharded`; a
     ``ValueError`` when D does not divide V) through ``pipeline.render``
-    at each pose, takes the mean-square loss over them, and one sum over
-    the ranks of the gradients and the loss, divided by D, is JAX's
-    ``pmean`` of both; then the optimizer steps and ``project(field)``
-    runs under ``no_grad``. Returns the mean loss (a 0-d tensor, equal on
-    every rank)."""
+    at each pose (the plan's k and ortho_scale uploaded once, the jitter
+    hashed on the device), takes the mean-square loss over them, and one
+    sum over the ranks of the gradients and the loss, divided by D, is
+    JAX's ``pmean`` of both; then the optimizer steps and
+    ``project(field)`` runs under ``no_grad``. Returns the mean loss (a
+    0-d tensor, equal on every rank). Recorded and replayed on an NCCL
+    CUDA mesh (keyed on ``c2ws`` and ``targets``: refill them in place
+    for new poses), eager on gloo (:func:`record_device`)."""
     params = _parameters(field)
-    jitter = plan_jitter_table(plan)
-    if jitter is not None:
-        jitter = _on_device(jitter, mesh)
+    _, _, k, ortho_scale = _view_inputs(plan, (), mesh.device, table=False)
 
-    def step(c2ws, targets):
+    def body(c2ws, targets):
         c_loc = batch_sharded(mesh, c2ws)
         t_loc = batch_sharded(mesh, targets)
         optimizer.zero_grad(set_to_none=True)
-        pred = torch.stack([render(plan, field, c2w=c, jitter=jitter)
-                            .planes.image for c in c_loc])
+        pred = torch.stack([render(plan, field, k=k, c2w=c,
+                                   ortho_scale=ortho_scale).planes.image
+                            for c in c_loc])
         loss = mse(pred, t_loc)
         loss.backward()
         loss = _sum_grads(mesh, params, loss, 1.0 / mesh.size)
@@ -189,7 +232,7 @@ def make_dp_train_step(plan: Plan, field, optimizer, mesh: Mesh,
                 project(field)
         return loss
 
-    return step
+    return _mesh_step(mesh, field, optimizer, body)
 
 
 def _leaf_copy(field, device=None):
@@ -209,12 +252,6 @@ def _trainable_copy(field, mesh: Mesh):
     return trained
 
 
-def _adam(field, learning_rate: float):
-    # optax.adam's defaults, as opt/fit.py::fit_dense_grid
-    return torch.optim.Adam(field.parameters(), lr=learning_rate,
-                            betas=(0.9, 0.999), eps=1e-8)
-
-
 def _project_field(field) -> None:
     _project(field, 0.0)
 
@@ -223,10 +260,12 @@ def fit_dense_grid_dp(plan: Plan, field, cameras: Sequence[CameraConfig],
                       targets, mesh: Mesh, learning_rate: float = 5e-2,
                       steps: int = 100):
     """The view-data-parallel fit (``dvren_tpu``'s ``fit_dense_grid_dp``):
-    Adam with optax's defaults over :func:`make_dp_train_step`, sigma
-    projected to >= 0 and colour to [0, 1] after each step. Returns (the
-    fitted field, the (steps,) losses). A ``ValueError`` when the mesh's
-    size does not divide the view count."""
+    Adam with optax's defaults (``opt/fit.py::_adam``: capturable on
+    CUDA) over :func:`make_dp_train_step`, recorded and replayed on an
+    NCCL CUDA mesh, sigma projected to >= 0 and colour to [0, 1] after
+    each step; each step's loss read to the host, as JAX reads it.
+    Returns (the fitted field, the (steps,) losses). A ``ValueError``
+    when the mesh's size does not divide the view count."""
     if len(cameras) % mesh.size:
         raise ValueError(f"view count {len(cameras)} not divisible by mesh "
                          f"size {mesh.size}")
@@ -319,10 +358,12 @@ def render_zsharded(plan: Plan, field, mesh: Mesh, jitter=None
     (D, N) zero array (JAX's ``all_gather``; adding zeros is exact), then
     the (5, N) weighted partials. Early termination (T <= 1e-4) is exact
     through the global prefix. Plain torch ops (JAX runs no Pallas kernel
-    here); OOB_ZERO trilinear dense grids only. ``jitter``: the (N, K)
-    stratified table, by default the plan's; a sample on a cut plane
-    belongs to the upper slab, one on the grid's top plane to the last
-    rank. Within float32 roundoff of ``pipeline.render``. Forward only:
+    here) and the jitter kernel; OOB_ZERO trilinear dense grids only.
+    ``jitter``: an (N, K) stratified table whose columns the windows
+    gather; by default the jitter of each window's global steps is hashed
+    on the device (the plan's table, bit for bit). A sample on a cut
+    plane belongs to the upper slab, one on the grid's top plane to the
+    last rank. Within float32 roundoff of ``pipeline.render``. Forward only:
     the slabs are host copies of the field, so no gradient could reach
     it; with gradients enabled on a field whose parameters require them
     it raises :class:`DvrenError` (call it under ``torch.no_grad()``)."""
@@ -350,8 +391,6 @@ def render_zsharded(plan: Plan, field, mesh: Mesh, jitter=None
     col = torch.from_numpy(col_slabs[d_idx]).to(dev)
     ke = torch.from_numpy(ke_np[d_idx]).to(dev)
     rays = generate_rays(plan, device=dev)
-    if jitter is None:
-        jitter = plan_jitter_table(plan)
     block_jitter = None
     if jitter is not None:
         tab = _on_device(jitter, mesh)
@@ -595,16 +634,21 @@ def render_tiled_sharded(plan: Plan, field, schedule, mesh: Mesh,
                    rs.tile_px)
 
 
-def _tile_step(mesh: Mesh, field, optimizer, project, render_fn):
-    """``step(shards, target) -> loss``: ``render_fn(rank schedule)`` ->
-    prediction, the mean-square loss, backward, one sum of the ranks'
-    parameter gradients, the optimizer's step and ``project(field)``
-    under ``no_grad``."""
+def _tile_step(mesh: Mesh, field, optimizer, project, schedule,
+               render_fn) -> _GraphedStep:
+    """``step(shards, target) -> loss``: the rank's schedule of
+    ``schedule`` sliced as ``shards`` (:func:`_rank_tiles`), ``render_fn(
+    rank schedule)`` -> prediction, the mean-square loss, backward, one
+    sum of the ranks' parameter gradients, the optimizer's step and
+    ``project(field)`` under ``no_grad``; recorded and replayed on an NCCL
+    CUDA mesh (keyed on the ``shards`` object, the target and the rank
+    schedule, which the recording holds: the cache may drop it), eager on
+    gloo (:func:`record_device`)."""
     params = _parameters(field)
 
-    def step(shards, target):
+    def body(shards, target):
         optimizer.zero_grad(set_to_none=True)
-        loss = mse(render_fn(shards), target)
+        loss = mse(render_fn(_rank_tiles(schedule, shards, mesh)), target)
         loss.backward()
         _sum_grads(mesh, params)
         optimizer.step()
@@ -613,7 +657,8 @@ def _tile_step(mesh: Mesh, field, optimizer, project, render_fn):
                 project(field)
         return loss.detach()
 
-    return step
+    return _mesh_step(mesh, field, optimizer, body, hold=lambda shards, _: (
+        _rank_tiles(schedule, shards, mesh),))
 
 
 def make_tile_dp_train_step(plan: Plan, field, optimizer, mesh: Mesh,
@@ -627,16 +672,16 @@ def make_tile_dp_train_step(plan: Plan, field, optimizer, mesh: Mesh,
     K4 on the rank's tiles, one sum over the ranks gives the parameter
     gradients, then the optimizer steps and ``project(field)`` runs under
     ``no_grad``. One schedule per step (``shards`` None: its own
-    slices)."""
+    slices). On an NCCL CUDA mesh the step is recorded once and replayed
+    (:func:`_tile_step`)."""
     check(schedule.fallback_rays == 0,
           "sharded tiled rendering requires a fallback-free schedule")
 
-    def render_fn(shards):
-        rs = _rank_tiles(schedule, shards, mesh)
+    def render_fn(rs):
         return _planes(plan, _sharded_tiles5(plan, field, rs, mesh),
                        rs.tile_px).image
 
-    return _tile_step(mesh, field, optimizer, project, render_fn)
+    return _tile_step(mesh, field, optimizer, project, schedule, render_fn)
 
 
 def merged_global_tile_ids(plan: Plan, merged) -> list:
@@ -674,12 +719,12 @@ def make_tile_dp_multiview_step(plan: Plan, field, optimizer, mesh: Mesh,
     shards = shard_tiled_schedule(
         sched, mesh.size, global_tile_ids=merged_global_tile_ids(plan, merged))
 
-    def render_fn(shards):
-        rs = _rank_tiles(sched, shards, mesh)
+    def render_fn(rs):
         tiles5 = _sharded_tiles5(plan, field, rs, mesh, merged.n_views)
         return _stack(plan, tiles5, rs.tile_px, merged.n_views)
 
-    return _tile_step(mesh, field, optimizer, project, render_fn), shards
+    return (_tile_step(mesh, field, optimizer, project, sched, render_fn),
+            shards)
 
 
 def fit_dense_grid_tile_dp(plan: Plan, field,
@@ -689,9 +734,11 @@ def fit_dense_grid_tile_dp(plan: Plan, field,
     """The multi-device fit through the fused tile kernels
     (``dvren_tpu``'s ``fit_dense_grid_tile_dp``): the single-card fit's
     merged multi-view schedule (``opt/fit.py::_scheduled_views``) with the
-    tile axis split across the mesh (:func:`make_tile_dp_multiview_step`),
-    Adam with optax's defaults, sigma projected to >= 0 and colour to [0,
-    1]. When the schedules carry fallback rays it runs
+    tile axis split across the mesh (:func:`make_tile_dp_multiview_step`,
+    recorded and replayed on an NCCL CUDA mesh), Adam with optax's
+    defaults (``opt/fit.py::_adam``: capturable on CUDA), sigma projected
+    to >= 0 and colour to [0, 1]; each step's loss read to the host, as
+    JAX reads it. When the schedules carry fallback rays it runs
     :func:`fit_dense_grid_dp` instead, as JAX's does. Returns (the fitted
     field, the (steps,) losses)."""
     trained = _trainable_copy(field, mesh)

@@ -48,6 +48,12 @@ every replay rewrites them (PyTorch's whole-network capture). An
 optimizer must keep its step count on the device to be recorded
 (``torch.optim.Adam(..., capturable=True)``); :func:`capture_step`
 refuses one that does not.
+
+A sharded training step (``parallel/shard.py``) records its collectives
+with it: over NCCL the all-reduce is work on the device's streams, which
+the graph replays (the default capture mode records it: NCCL's watchdog
+thread broke no capture on the card); gloo sums on the host, so a gloo
+mesh's steps run eagerly (:func:`available` with the group's backend).
 """
 
 from __future__ import annotations
@@ -65,7 +71,7 @@ from dvren_tpu_torch.utils.pytree import tree_map
 def _counted():
     """(name, wrapper) of every kernel wrapper that counts its launches."""
     from dvren_tpu_torch.ops import (fused_tiles, hash_grid, hash_tiles,
-                                     integrate_fused, packed_transpose)
+                                     integrate_fused, packed_transpose, rng)
     return (("fused_tiles", fused_tiles.tile_forward),
             ("fused_tiles_bwd", fused_tiles.tile_backward),
             ("packed_table", packed_transpose.build_rows),
@@ -78,7 +84,8 @@ def _counted():
             ("hash_grid", hash_grid.hash_grid_forward_tiles),
             ("hash_grid_bwd", hash_grid.hash_grid_backward_tiles),
             ("integrate", integrate_fused.integrate_forward),
-            ("integrate_bwd", integrate_fused.radiance_vjp))
+            ("integrate_bwd", integrate_fused.radiance_vjp),
+            ("stratified_jitter", rng.stratified_jitter))
 
 
 def launch_counts() -> dict:
@@ -128,9 +135,12 @@ class CapturedGraph:
         return self.outputs
 
 
-def available(device) -> bool:
-    """Whether a CUDA graph can record work on ``device``."""
-    return torch.device(device).type == "cuda"
+def available(device, backend: str | None = None) -> bool:
+    """Whether a CUDA graph can record work on ``device`` and, given a
+    process group's ``backend``, the group's collectives: NCCL enqueues
+    its all-reduce on the device's streams, which a graph records; gloo
+    runs it on the host, which no graph can record."""
+    return torch.device(device).type == "cuda" and backend in (None, "nccl")
 
 
 def capture(fn, device, before_record=None) -> CapturedGraph:

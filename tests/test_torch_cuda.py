@@ -73,7 +73,10 @@ round trip (under ``torch.cuda.set_sync_debug_mode("error")``), equal to
 the table route; bank-aligned schedules' K1 / K2 frames and gradients
 bit-equal to the dense packing's; ``utils/timing.time_calls`` on a
 closure over card tensors. ``render/graph.capture`` records while a
-dead reference cycle that holds another graph would be collected.
+dead reference cycle that holds another graph would be collected. The
+tile-DP step at D = 1 over NCCL, recorded as a CUDA graph with its
+all-reduce, equal to its eager capturable body bit for bit, and a
+stratified ``pipeline.render``'s recording listing the jitter kernel.
 """
 
 import dataclasses
@@ -2414,6 +2417,49 @@ def test_tile_dp_step_on_the_card_matches_render_tiled(cuda_device):
         np.testing.assert_array_equal(got, again)
         np.testing.assert_allclose(got, ref, rtol=0,
                                    atol=GRID_TOL * np.abs(ref).max())
+
+
+def test_tile_dp_step_recorded_on_the_card_equals_eager(cuda_device):
+    """dvren_tpu_torch.parallel at D = 1 over NCCL on the card: the
+    tile-DP step recorded once as a CUDA graph (its all-reduce inside)
+    and replayed equals its eager capturable body bit for bit over 5
+    steps (losses, parameters, Adam's state); the recording holds K3, K1,
+    K2 and K4 once each, and the counters move by the warm-up and the
+    recording only."""
+    import torch_parallel_ranks as ranks     # tests/, on pytest's path
+
+    from dvren_tpu_torch.parallel import launch
+
+    _build.library()          # built before the rank starts; it loads it
+    out = launch(ranks.tile_dp_graph_case, 1)
+    assert out["device"] == "cuda:0" and out["backend"] == "nccl"
+    rec = out["recorded"]
+    assert rec == {"fused_tiles": 1, "fused_tiles_bwd": 1,
+                   "packed_table": 1, "packed_table_bwd": 1}
+    assert out["moved"] == {k: 2 * v for k, v in rec.items()}
+    assert out["state_equal"]
+    assert out["losses"][-1] < out["losses"][0]
+
+
+def test_graph_records_the_jitter_kernel(cuda_device):
+    """A recording of a stratified ``pipeline.render`` with no jitter
+    table lists the jitter kernel among its launches, and its replay is
+    the eager frame bit for bit."""
+    from dvren_tpu_torch.ops.raygen import camera_arrays
+    from dvren_tpu_torch.render import pipeline
+
+    plan, config = scene("stratified")
+    field = P.DenseGridField.create(config, device=cuda_device)
+    k, c2w, ortho = camera_arrays(plan, cuda_device)
+
+    def frame():
+        with torch.no_grad():
+            return pipeline.render(plan, field, k=k, c2w=c2w,
+                                   ortho_scale=ortho).planes.image
+
+    g = graph_mod.capture(frame, cuda_device)
+    assert g.launches == {"stratified_jitter": 1, "integrate": 1}
+    assert torch.equal(g.replay(), frame())
 
 
 JITTER_SEEDS = (0, 17, 2 ** 63 + 5)

@@ -5,8 +5,9 @@ On a CUDA field a training step is recorded once as a CUDA graph and
 replayed: the port's ``jax.jit`` of the step, and, replayed k times, of
 its ``lax.scan`` block. On the CPU there is no graph to record, so a CPU
 field's steps run eagerly; the recording path is held here through a
-stand-in for the graph (a replay reruns the recorded function, as
-tests/test_torch_graph.py's ``fake_graphs`` does). The inputs are
+stand-in for the graph (tests/torch_graph_standin.py: a replay reruns
+the recorded function, as tests/test_torch_graph.py's ``fake_graphs``
+does). The inputs are
 tests/test_torch_fit.py's "fit" scene (four 12^2 views of an 8^3 blob,
 Adam lr 5e-2 from a flat 0.5 field) in the tiled, windowed and plain
 modes, and a hash-MLP field over the same views (Adam lr 8e-3). Held:
@@ -31,7 +32,6 @@ tests/test_torch_fit_block.py; tests/test_torch_cuda.py holds the
 recorded steps against the eager capturable ones on the card.
 """
 
-import contextlib
 import dataclasses
 import functools
 
@@ -42,11 +42,10 @@ import torch
 import dvren_tpu as J
 from tests.test_tiled import scene as tiled_scene
 from tests.test_torch_core import port_field, port_plan
+from tests import torch_graph_standin as standin
 from tests.test_torch_fit import flat_init, scene, targets_for
 
 import dvren_tpu_torch as P
-from dvren_tpu_torch.ops import grid as p_grid
-from dvren_tpu_torch.ops import raygen as p_raygen
 from dvren_tpu_torch.opt import fit as p_fit
 from dvren_tpu_torch.render import graph as p_graph
 from dvren_tpu_torch.render import tiled as p_tiled
@@ -210,71 +209,16 @@ def test_cpu_fit_records_nothing(no_capture, mode):
 # ------------------------------------------- the recording, stood in for
 
 
-class _Rerun:
-    """A stand-in for a recorded graph on the CPU: a replay runs the
-    recorded function again, as it ran while recorded, reading what it
-    closes over, as a graph reads the addresses it recorded."""
-
-    def __init__(self, fn, recorded):
-        self.fn, self.recorded, self.owner = fn, recorded, None
-
-    def replay(self):
-        with self.recorded():
-            self.owner.outputs = self.fn()
-
-
-class _Captured(list):
-    """The graphs recorded so far, and the row counts of every
-    ``accumulate_rows_fixed`` call while recording or replaying."""
-
-    def __init__(self):
-        super().__init__()
-        self.fixed_forms = []
-
-
 @pytest.fixture
-def fake_graphs(monkeypatch):
-    """Graphs on the CPU through :class:`_Rerun`: the graphs recorded so
-    far. The recorded run (and so every replay) may not upload the plan's
-    camera, and it takes the capture-safe forms (``ops/grid.py::
-    recording`` is true), as on the card. The CPU Adam keeps its step
-    count on the host, which a rerun reads anew, so ``check_capturable``
-    stands aside here."""
-    captured = _Captured()
-    fixed_forms = captured.fixed_forms
-
-    def no_upload(*args, **kwargs):
-        raise AssertionError("the plan's camera uploaded while recording")
-
-    def fixed(dst, idx, rows, _real=p_grid.accumulate_rows_fixed):
-        fixed_forms.append(int(idx.numel()))
-        return _real(dst, idx, rows)
-
-    @contextlib.contextmanager
-    def recorded():
-        with monkeypatch.context() as m:
-            m.setattr(p_raygen, "camera_arrays", no_upload)
-            m.setattr(p_grid, "recording", lambda t: True)
-            m.setattr(p_grid, "accumulate_rows_fixed", fixed)
-            yield
-
-    def fake_capture(fn, device, before_record=None):
-        fn()                                  # the warm-up may upload
-        if before_record is not None:
-            before_record()
-        with recorded():
-            outputs = fn()
-        g = _Rerun(fn, recorded)
-        cg = p_graph.CapturedGraph(graph=g, outputs=outputs, launches={},
-                                   capture_ms=0.0, fn=fn)
-        g.owner = cg
-        captured.append(cg)
-        return cg
-
-    monkeypatch.setattr(p_graph, "available", lambda device: True)
-    monkeypatch.setattr(p_graph, "capture", fake_capture)
-    monkeypatch.setattr(p_graph, "check_capturable", lambda optimizer: None)
-    return captured
+def fake_graphs():
+    """Graphs on the CPU through the stand-in of
+    tests/torch_graph_standin.py: the graphs recorded so far. The
+    recorded run (and so every replay) may not upload the plan's camera,
+    and it takes the capture-safe forms (``ops/grid.py::recording`` is
+    true), as on the card. The CPU Adam keeps its step count on the host,
+    which a rerun reads anew, so ``check_capturable`` stands aside here."""
+    with standin.installed() as captured:
+        yield captured
 
 
 @pytest.mark.parametrize("mode", MODES)

@@ -399,6 +399,255 @@ def tile_dp_case(mesh) -> dict:
                            _np(ref_field.color.grad)])
 
 
+# ------------------------------------------- the recorded sharded steps
+
+GRAPH_STEPS = 3     # replays held to the eager body, per step
+
+
+def _words(t) -> torch.Tensor:
+    return t.detach().reshape(-1).float().view(torch.int32)
+
+
+def _adam(f):
+    """optax.adam's defaults at lr 5e-2 (the CPU's: not capturable)."""
+    return torch.optim.Adam(f.parameters(), lr=5e-2, betas=(0.9, 0.999),
+                            eps=1e-8)
+
+
+def _same_state(fa, oa, fb, ob) -> bool:
+    """Parameters and Adam's state bit for bit."""
+    pa, pb = list(fa.parameters()), list(fb.parameters())
+    if not all(torch.equal(_words(a), _words(b)) for a, b in zip(pa, pb)):
+        return False
+    for a, b in zip(pa, pb):
+        sa, sb = oa.state[a], ob.state[b]
+        if sorted(sa) != sorted(sb):
+            return False
+        for k in sa:
+            if not torch.equal(_words(torch.as_tensor(sa[k])),
+                               _words(torch.as_tensor(sb[k]))):
+                return False
+    return True
+
+
+def _replays(captured, make, fresh) -> dict:
+    """A step recorded through the stand-in against the eager body of a
+    twin step from the same start, GRAPH_STEPS each: the losses, the
+    parameters and Adam's state bit for bit, one recording, each loss its
+    own tensor; then the step on new inputs (a new shards object or c2ws
+    tensor) records anew. ``make(f, opt) -> (step, inputs, new
+    inputs)``."""
+    fa, fb = fresh(), fresh()
+    oa, ob = _adam(fa), _adam(fb)
+    (sa, inputs, again), (sb, _, _) = make(fa, oa), make(fb, ob)
+    n0 = len(captured)
+    la = [sa(*inputs) for _ in range(GRAPH_STEPS)]
+    lb = [sb.body(*inputs) for _ in range(GRAPH_STEPS)]
+    out = dict(recordings=len(captured) - n0,
+               graph_is_the_recording=sa.graph is captured[-1],
+               losses_equal=all(torch.equal(_words(a), _words(b))
+                                for a, b in zip(la, lb)),
+               state_equal=_same_state(fa, oa, fb, ob),
+               distinct=len({x.data_ptr() for x in la}) == GRAPH_STEPS,
+               losses=[float(x) for x in la])
+    sa(*again)
+    out["new_inputs_record"] = len(captured) - n0 == 2
+    return out
+
+
+def _no_table(standin):
+    """``pipeline.plan_jitter_table`` refused for the duration."""
+    from dvren_tpu_torch.render import pipeline
+
+    def refuse(*args, **kwargs):
+        raise AssertionError("the host jitter table was read")
+
+    return standin.patched((pipeline, "plan_jitter_table", refuse))
+
+
+def graph_cases(mesh) -> dict:
+    """The recorded sharded steps on CPU ranks, through the stand-in of
+    tests/torch_graph_standin.py: the tile-DP, multi-view tile-DP and
+    view-DP steps' replays against their eager bodies, new inputs
+    recording anew, the recorded runs uploading nothing; the graphed fits
+    against the eager fits; a non-capturable Adam refused on the recorded
+    path; on the gloo mesh itself the steps eager (``graph`` None); the
+    jitter of the ray-sharded frame, the view-DP step and the z-sharded
+    frame hashed, never read from the host table, bit-equal to the table
+    route. (The stand-in is imported here, from the repository's tests:
+    the card's tests import this module where another ``tests`` package
+    may come first.)"""
+    from dvren_tpu_torch.ops.raygen import generate_rays
+    from dvren_tpu_torch.ops.sampling import generate_samples
+    from dvren_tpu_torch.render.pipeline import plan_jitter_table
+    from tests import torch_graph_standin as standin
+
+    torch.set_num_threads(THREADS)
+    out = {}
+    project = shard._project_field
+
+    # the steps' scenes: the 48x32 tile-DP scene, the two-view supercell
+    # scene, the stratified z scene with four poses for view DP
+    plan, field = parallel_scene(P, 48, 32, device="cpu")
+    sched = tiled.build_tiled_schedule(plan, field)
+    shards = shard.shard_tiled_schedule(sched, mesh.size)
+    target = torch.zeros((plan.height, plan.width, 3))
+
+    def tile_make(f, opt):
+        return (shard.make_tile_dp_train_step(plan, f, opt, mesh, sched,
+                                              project=project),
+                (shards, target),
+                (shard.shard_tiled_schedule(sched, mesh.size), target))
+
+    mplan, mfield, mcams = multiview_scene(P, device="cpu")
+    _, merged, render_stack = _scheduled_views(mplan, mcams, mfield, "tiled")
+    with torch.no_grad():
+        mtargets = 0.7 * render_stack(mfield, merged)
+
+    def mv_make(f, opt):
+        step, mshards = shard.make_tile_dp_multiview_step(
+            mplan, f, opt, mesh, merged, project=project)
+        return (step, (mshards, mtargets),
+                (shard.shard_tiled_schedule(
+                    merged.sched, mesh.size,
+                    global_tile_ids=shard.merged_global_tile_ids(
+                        mplan, merged)), mtargets))
+
+    vplan, vfield = z_scene(P, mode="STRATIFIED", device="cpu")
+    c2ws = torch.from_numpy(dp_poses(4)).reshape(-1, 3, 4)
+    with torch.no_grad():
+        vtargets = torch.stack([render(vplan, vfield, c2w=c).planes.image
+                                for c in c2ws])
+    vflat = vfield.with_params(torch.full_like(vfield.sigma, 1.0),
+                               torch.full_like(vfield.color, 0.5))
+
+    def dp_make(f, opt):
+        return (shard.make_dp_train_step(vplan, f, opt, mesh,
+                                         project=project),
+                (c2ws, vtargets), (c2ws.clone(), vtargets))
+
+    fresh = {"tile": lambda: shard._leaf_copy(field),
+             "multiview": lambda: shard._leaf_copy(mfield),
+             "view_dp": lambda: shard._leaf_copy(vflat)}
+    makes = {"tile": tile_make, "multiview": mv_make, "view_dp": dp_make}
+    with standin.installed() as captured:
+        for name, make in makes.items():
+            out[name] = _replays(captured, make, fresh[name])
+        # the graphed fits: one recording each
+        mflat = mfield.with_params(torch.full_like(mfield.sigma, 1.0),
+                                   torch.full_like(mfield.color, 0.5))
+        vcams = [P.CameraConfig(c2w=tuple(float(v) for v in c.reshape(-1)))
+                 for c in c2ws]
+        n0 = len(captured)
+        _, tile_fit = shard.fit_dense_grid_tile_dp(
+            mplan, mflat, mcams, mtargets, mesh, steps=FIT_STEPS)
+        _, dp_fit = shard.fit_dense_grid_dp(
+            vplan, vflat, vcams, vtargets, mesh, steps=FIT_STEPS)
+        out["fit_recordings"] = len(captured) - n0
+    # the same fits eagerly, on the gloo mesh as it is
+    _, tile_eager = shard.fit_dense_grid_tile_dp(
+        mplan, mflat, mcams, mtargets, mesh, steps=FIT_STEPS)
+    _, dp_eager = shard.fit_dense_grid_dp(vplan, vflat, vcams, vtargets,
+                                          mesh, steps=FIT_STEPS)
+    out.update(tile_fit=tile_fit, dp_fit=dp_fit,
+               fit_targets=_np(mtargets), dp_fit_targets=_np(vtargets),
+               fits_equal_eager=(np.array_equal(tile_fit, tile_eager)
+                                 and np.array_equal(dp_fit, dp_eager)))
+
+    # a non-capturable Adam on the recorded path: refused, field untouched
+    with standin.installed(capturable_check=True):
+        f = fresh["tile"]()
+        step, inputs, _ = tile_make(f, _adam(f))
+        try:
+            step(*inputs)
+            out["noncapturable_raises"] = False
+        except DvrenError as err:
+            out["noncapturable_raises"] = "capturable=True" in str(err)
+        out["noncapturable_untouched"] = (
+            torch.equal(f.sigma, field.sigma)
+            and torch.equal(f.color, field.color) and step.graph is None)
+
+    # the gloo mesh as it is: every step runs its body (the eager fits
+    # above equal the graphed ones), no graph
+    out["record_device"] = shard.record_device(mesh)
+    eager = {}
+    for name, make in makes.items():
+        f = fresh[name]()
+        step, inputs, _ = make(f, _adam(f))
+        eager[name] = (bool(torch.isfinite(step(*inputs)))
+                       and step.graph is None)
+    out["gloo_eager"] = eager
+
+    # the jitter hashed on the device: no host table read, bit-equal to
+    # the table route
+    table = torch.from_numpy(plan_jitter_table(vplan).copy())
+    with torch.no_grad():
+        ray_ref = render(vplan, vfield, jitter=table).planes
+        z_ref = shard.render_zsharded(vplan, vfield, mesh, jitter=table)
+        with _no_table(standin):
+            ray = shard.render_sharded(vplan, vfield, mesh)
+            z = shard.render_zsharded(vplan, vfield, mesh)
+            start, count, _, _, lattice = shard.ray_shard_lattice(
+                vplan, vfield, mesh)
+        rows = generate_samples(
+            vplan, generate_rays(vplan, start=start, count=count,
+                                 device="cpu"),
+            jitter=table[start:start + count])
+    out["ray_table_bit_equal"] = _equal(ray, ray_ref)
+    out["z_table_bit_equal"] = _equal(z, z_ref)
+    out["lattice_table_bit_equal"] = (torch.equal(lattice.t, rows.t)
+                                      and torch.equal(lattice.mask,
+                                                      rows.mask))
+    # the view-DP step (SGD at lr 1: the update is the gradient) against
+    # autograd through the table route on one device
+    f = shard._leaf_copy(vfield)
+    step = shard.make_dp_train_step(
+        vplan, f, torch.optim.SGD(f.parameters(), lr=1.0), mesh)
+    zeros = torch.zeros_like(vtargets)
+    with _no_table(standin):
+        out["dp_loss"] = float(step(c2ws, zeros))
+    out["dp_grads"] = _sgd_grads(vfield, f)
+    out["dp_summed_grads"] = [_np(f.sigma.grad), _np(f.color.grad)]
+    ref = shard._leaf_copy(vfield)
+    loss = mse(torch.stack([render(vplan, ref, c2w=c, jitter=table)
+                            .planes.image for c in c2ws]), zeros)
+    loss.backward()
+    out["dp_ref_loss"] = float(loss.detach())
+    out["dp_ref_grads"] = [_np(ref.sigma.grad), _np(ref.color.grad)]
+    return out
+
+
+def tile_dp_graph_case(mesh, steps=5) -> dict:
+    """The tile-DP step on the mesh's device with a capturable Adam:
+    ``steps`` calls of the step (recorded once on an NCCL CUDA mesh, then
+    replayed) against the eager body of a twin step from the same start,
+    the launch counters around both, and the recording's launches."""
+    from dvren_tpu_torch.render import graph
+
+    dev = mesh.device
+    plan, field = parallel_scene(P, 48, 32, device=dev)
+    sched = tiled.build_tiled_schedule(plan, field)
+    target = torch.zeros((plan.height, plan.width, 3), device=dev)
+    fa, fb = shard._leaf_copy(field), shard._leaf_copy(field)
+    oa, ob = (torch.optim.Adam(f.parameters(), lr=5e-2, betas=(0.9, 0.999),
+                               eps=1e-8, capturable=dev.type == "cuda")
+              for f in (fa, fb))
+    sa, sb = (shard.make_tile_dp_train_step(plan, f, o, mesh, sched,
+                                            project=shard._project_field)
+              for f, o in ((fa, oa), (fb, ob)))
+    graph.reset_launch_counts()
+    la = torch.stack([sa(None, target) for _ in range(steps)])
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    moved = {k: v for k, v in graph.launch_counts().items() if v}
+    lb = torch.stack([sb.body(None, target) for _ in range(steps)])
+    return dict(backend=mesh.backend, device=str(dev),
+                recorded=None if sa.graph is None else dict(sa.graph.launches),
+                moved=moved, losses=_np(la),
+                state_equal=(torch.equal(_words(la), _words(lb))
+                             and _same_state(fa, oa, fb, ob)))
+
+
 def fail_on_rank_1(mesh):
     """Rank 1 raises; rank 0 waits in a sum that rank 1 never joins."""
     if mesh.rank == 1:
