@@ -38,6 +38,7 @@ import torch
 
 from dvren_tpu_torch.core.plan import CameraConfig, InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.render import graph
+from dvren_tpu_torch.utils import trace
 
 
 @dataclass
@@ -61,6 +62,7 @@ class FitResult:
     steps_run: int = 0
     wall_clock_s: float = 0.0      # includes the schedule build
     schedule_build_s: float = 0.0  # host schedule build + merge + upload
+    #                                (the fit.schedule span)
     first_step_s: float = 0.0      # the first step, kernel build and
     #                                the step graph's capture included
     steady_step_ms: float = 0.0    # mean of the remaining steps
@@ -177,7 +179,15 @@ def _scheduled_views(plan: Plan, cameras: Sequence[CameraConfig], field,
     one group), the host builds in a thread pool, then one merge and one
     upload. ``mode="windowed"``: one windowed schedule over every view's
     rays (:func:`windowed.build_stack_schedule`), rendered by
-    :func:`windowed.render_windowed_stack`."""
+    :func:`windowed.render_windowed_stack`. Traced as the
+    ``fit.schedule`` span (``utils/trace.py``)."""
+    with trace.span("fit.schedule"):
+        return _views(plan, cameras, field, mode)
+
+
+def _views(plan: Plan, cameras: Sequence[CameraConfig], field, mode: str):
+    """:func:`_scheduled_views`'s work, in no span of its own: the fits
+    time it inside theirs."""
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
     from dvren_tpu_torch.render.tiled import (build_tiled_schedule,
                                               build_tiled_schedule_auto,
@@ -197,10 +207,14 @@ def _scheduled_views(plan: Plan, cameras: Sequence[CameraConfig], field,
     s0, _ = build_tiled_schedule_auto(plans[0], field, jitter=jitter,
                                       quantize="uniform")
 
+    parent = trace.current()
+
     def build_view(p, shape=None):
-        return build_tiled_schedule(
-            p, field, jitter=jitter, tile_px=s0.tile_px, quantize="uniform",
-            cell_scale=s0.cell_scale, uniform_shape=shape)
+        with trace.under(parent):       # a pool thread's spans nest here
+            return build_tiled_schedule(
+                p, field, jitter=jitter, tile_px=s0.tile_px,
+                quantize="uniform", cell_scale=s0.cell_scale,
+                uniform_shape=shape)
 
     with ThreadPoolExecutor(min(8, max(len(plans) - 1, 1))) as ex:
         per_view = [s0] + list(ex.map(build_view, plans[1:]))
@@ -213,7 +227,9 @@ def _scheduled_views(plan: Plan, cameras: Sequence[CameraConfig], field,
             rebuilt = list(ex.map(lambda i: build_view(plans[i], top), todo))
         for i, s in zip(todo, rebuilt):
             per_view[i] = s
-    merged = merge_view_schedules(per_view, plans=plans).to(field.device)
+    merged = merge_view_schedules(per_view, plans=plans)
+    with trace.span("schedule.upload"):
+        merged = merged.to(field.device)
 
     def render_stack(f, scheds):
         return render_tiled_stack(plan, f, scheds)
@@ -283,7 +299,8 @@ class _GraphedStep:
         buffer, which the next replay overwrites."""
         dev = self._device(*inputs)
         if dev is None:
-            return self.body(*inputs)
+            with trace.clock("fit.step", getattr(inputs[0], "device", None)):
+                return self.body(*inputs)
         params = list(self._params(*inputs))
         held = tuple(self._hold(*inputs))
         key = _inputs_key(params, inputs + held)
@@ -293,7 +310,7 @@ class _GraphedStep:
             # they read, not self, so the graph dies with the step
             self.graph = graph.capture_step(
                 functools.partial(_run_body, self.body, inputs, held), dev,
-                params, self.optimizer)
+                params, self.optimizer).owned_by("fit.step")
             self._key = key
         return self.graph.replay()
 
@@ -306,12 +323,18 @@ def _step_body(render: Callable, optimizer, sigma_min: float | None):
     """The eager training step the graph records: ``body(f, targets) ->
     loss`` renders ``render(f)`` through autograd, steps ``optimizer``
     and projects the field (:func:`_project`) unless ``sigma_min`` is
-    None."""
+    None. Its stages (``utils/trace.py``): the render's, then ``loss``,
+    ``backward`` (the loss's and the render's adjoints up to the render's
+    first backward mark), ``optimizer`` (the step and the projection)."""
 
     def body(f, targets):
         optimizer.zero_grad(set_to_none=True)
-        loss = mse(render(f), targets)
+        images = render(f)
+        trace.stage("loss")
+        loss = mse(images, targets)
+        trace.stage("backward")
         loss.backward()
+        trace.stage("optimizer")
         optimizer.step()
         if sigma_min is not None:
             _project(f, sigma_min)
@@ -461,37 +484,39 @@ def fit_dense_grid(plan: Plan, field, cameras: Sequence[CameraConfig],
     if auto:
         mode = scheduled_mode_for(field) or "plain"
     dev = field.device
-    t_build0 = time.perf_counter()
-    views = (_scheduled_views(plan, cameras, field, mode)
-             if mode in ("tiled", "windowed") else None)
-    if auto and mode == "tiled":
-        # the JAX fit's table-economy check: slot traffic in cell-stencil
-        # equivalents (a supercell slot carries 108 values, a cell slot
-        # 32) against the views' full sample lattice
-        sched = views[1].sched
-        wgt = 108 / 32 if sched.cell_scale == 2 else 1.0
-        slots = sum(g.n_tiles * g.banks * 128 for g in sched.groups) * wgt
-        lattice = sum(int(p.ray_count) * int(p.sampling.max_steps)
-                      for p in views[0])
-        if slots > lattice:
-            mode = "windowed"
-            views = _scheduled_views(plan, cameras, field, mode)
-    trained = field.with_params(field.sigma.detach().clone(),
-                                field.color.detach().clone())
-    optimizer = _adam(trained, config.learning_rate)
-    if mode == "plain":
-        step = make_train_step(plan, cameras, trained, optimizer,
-                               sigma_min=config.sigma_min)
-    else:
-        step = make_train_step_scheduled(plan, cameras, trained, optimizer,
-                                         mode=mode,
-                                         sigma_min=config.sigma_min,
-                                         views=views)
-    if not isinstance(targets, torch.Tensor):
-        targets = np.array(targets, np.float32)     # a writable copy
-    targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
-    result = FitResult(field=field, mode=mode)
-    result.schedule_build_s = time.perf_counter() - t_build0
+    with trace.timed("fit.schedule") as build:
+        views = (_views(plan, cameras, field, mode)
+                 if mode in ("tiled", "windowed") else None)
+        if auto and mode == "tiled":
+            # the JAX fit's table-economy check: slot traffic in
+            # cell-stencil equivalents (a supercell slot carries 108
+            # values, a cell slot 32) against the views' full sample
+            # lattice
+            sched = views[1].sched
+            wgt = 108 / 32 if sched.cell_scale == 2 else 1.0
+            slots = sum(g.n_tiles * g.banks * 128
+                        for g in sched.groups) * wgt
+            lattice = sum(int(p.ray_count) * int(p.sampling.max_steps)
+                          for p in views[0])
+            if slots > lattice:
+                mode = "windowed"
+                views = _views(plan, cameras, field, mode)
+        trained = field.with_params(field.sigma.detach().clone(),
+                                    field.color.detach().clone())
+        optimizer = _adam(trained, config.learning_rate)
+        if mode == "plain":
+            step = make_train_step(plan, cameras, trained, optimizer,
+                                   sigma_min=config.sigma_min)
+        else:
+            step = make_train_step_scheduled(plan, cameras, trained,
+                                             optimizer, mode=mode,
+                                             sigma_min=config.sigma_min,
+                                             views=views)
+        if not isinstance(targets, torch.Tensor):
+            targets = np.array(targets, np.float32)     # a writable copy
+        targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
+        result = FitResult(field=field, mode=mode)
+    result.schedule_build_s = build.seconds
     return _fit(step, trained, targets,
                 lambda: trained.with_params(trained.sigma.detach().clone(),
                                             trained.color.detach().clone()),
@@ -523,11 +548,12 @@ def fit_hash_mlp(plan: Plan, field, cameras: Sequence[CameraConfig],
 
     config = config or FitConfig()
     dev = field.device
-    t_build0 = time.perf_counter()
-    stack = build_hash_schedule_stack(view_plans(plan, cameras), device=dev)
-    targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
-    result = FitResult(field=field, mode="hash_tiled")
-    result.schedule_build_s = time.perf_counter() - t_build0
+    with trace.timed("fit.schedule") as build:
+        stack = build_hash_schedule_stack(view_plans(plan, cameras),
+                                          device=dev)
+        targets = torch.as_tensor(targets, dtype=torch.float32, device=dev)
+        result = FitResult(field=field, mode="hash_tiled")
+    result.schedule_build_s = build.seconds
 
     trained = field.with_params(
         {k: v.detach().clone() for k, v in field.params.items()})

@@ -60,43 +60,24 @@ from __future__ import annotations
 
 import dataclasses
 import gc
-import time
 
 import torch
 
 from dvren_tpu_torch.core.status import check
+from dvren_tpu_torch.utils import trace
 from dvren_tpu_torch.utils.pytree import tree_map
 
 
-def _counted():
-    """(name, wrapper) of every kernel wrapper that counts its launches."""
-    from dvren_tpu_torch.ops import (fused_tiles, hash_grid, hash_tiles,
-                                     integrate_fused, packed_transpose, rng)
-    return (("fused_tiles", fused_tiles.tile_forward),
-            ("fused_tiles_bwd", fused_tiles.tile_backward),
-            ("packed_table", packed_transpose.build_rows),
-            ("packed_table_bwd", packed_transpose.table_grad_to_params),
-            ("packed_table16", packed_transpose.build_rows16),
-            ("packed_table16_bwd", packed_transpose.table16_grad_to_params),
-            ("banks_to_rows", packed_transpose.banks_to_rows),
-            ("hash_tiles", hash_tiles.hash_tile_forward),
-            ("hash_tiles_bwd", hash_tiles.hash_tile_backward),
-            ("hash_grid", hash_grid.hash_grid_forward_tiles),
-            ("hash_grid_bwd", hash_grid.hash_grid_backward_tiles),
-            ("integrate", integrate_fused.integrate_forward),
-            ("integrate_bwd", integrate_fused.radiance_vjp),
-            ("stratified_jitter", rng.stratified_jitter))
-
-
 def launch_counts() -> dict:
-    """The launch counter of every kernel wrapper, by kernel name."""
-    return {name: fn.launches for name, fn in _counted()}
+    """The launch counter of every kernel wrapper, by kernel name
+    (``utils/trace.py::KERNELS``)."""
+    return {k.name: k.wrapper.launches for k in trace.KERNELS}
 
 
 def reset_launch_counts() -> None:
     """Set the launch counter of every kernel wrapper to 0."""
-    for _, fn in _counted():
-        fn.launches = 0
+    for k in trace.KERNELS:
+        k.wrapper.launches = 0
 
 
 def tensor_key(*tensors) -> tuple:
@@ -116,22 +97,42 @@ def clone_outputs(tree):
 class CapturedGraph:
     """A recorded CUDA Graph, the outputs its replays overwrite, the
     kernel launches recorded into it (by kernel name, those above 0) and
-    the milliseconds the warm-up and the capture took. ``fn`` is the
-    recorded function, kept so that every tensor it closes over (a
-    camera leaf, a parameter view) lives as long as the graph that reads
-    its address: freed, its memory would be handed out again and a
-    replay would read whatever landed there."""
+    the milliseconds the warm-up and the capture took (the
+    ``graph.capture`` span). ``fn`` is the recorded function, kept so
+    that every tensor it closes over (a camera leaf, a parameter view)
+    lives as long as the graph that reads its address: freed, its memory
+    would be handed out again and a replay would read whatever landed
+    there. ``clock``: the stage clock recorded into the graph with
+    tracing on (``utils/trace.py``; None with it off), read after each
+    replay; ``replays`` counts them."""
 
     graph: torch.cuda.CUDAGraph
     outputs: object
     launches: dict
     capture_ms: float
     fn: object = None
+    clock: object = None
+    replays: int = 0
+
+    def owned_by(self, owner: str) -> "CapturedGraph":
+        """Keep the stage readings of this graph's replays under
+        ``owner`` (``fit.step``, ``posed.render``, ...); returns self."""
+        if self.clock is not None:
+            self.clock.owner = owner
+        return self
 
     def replay(self):
         """Run the recorded kernels again; returns the outputs (the
-        graph's own buffers: copy them before the next replay)."""
-        self.graph.replay()
+        graph's own buffers: copy them before the next replay). With a
+        stage clock recorded, the previous replay's stage times are read
+        first if that replay has completed."""
+        with trace.span("graph.replay", unit=self.replays):
+            if self.clock is not None:
+                self.clock.poll()
+            self.graph.replay()
+            if self.clock is not None:
+                self.clock.arm()
+        self.replays += 1
         return self.outputs
 
 
@@ -147,42 +148,48 @@ def capture(fn, device, before_record=None) -> CapturedGraph:
     """Record ``fn()`` (no arguments; it reads its inputs from tensors
     whose addresses stay fixed) as a CUDA Graph on ``device``, after one
     eager run on a side stream; ``before_record()`` runs between the two.
+    With tracing on, the recording holds a stage clock: the stage marks
+    the recorded run makes (``utils/trace.py::stage``; the warm-up's go
+    nowhere) and its end mark after ``fn`` returns, as event nodes.
     Raises ``RuntimeError`` with the capture's error when ``fn`` cannot be
     recorded."""
     device = torch.device(device)
     if not available(device):
         raise ValueError(f"CUDA graphs need a CUDA device, got {device}")
-    t0 = time.perf_counter()
-    side = torch.cuda.Stream(device)
-    side.wait_stream(torch.cuda.current_stream(device))
-    with torch.cuda.stream(side):
-        fn()
-    torch.cuda.current_stream(device).wait_stream(side)
-    torch.cuda.synchronize(device)
-    if before_record is not None:
-        before_record()
-    graph = torch.cuda.CUDAGraph()
-    before = launch_counts()
-    gc.collect()
-    collecting = gc.isenabled()
-    gc.disable()
-    try:
-        with torch.cuda.device(device), torch.cuda.graph(graph):
-            outputs = fn()
-    except Exception as exc:
-        raise RuntimeError(
-            f"CUDA graph capture failed ({type(exc).__name__}: {exc}); "
-            f"the captured path waited for the device, read a value to "
-            f"the host or uploaded a host array") from exc
-    finally:
-        if collecting:
-            gc.enable()
-    torch.cuda.synchronize(device)
-    after = launch_counts()
+    with trace.timed("graph.capture") as timer:
+        side = torch.cuda.Stream(device)
+        side.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(side):
+            fn()
+        torch.cuda.current_stream(device).wait_stream(side)
+        torch.cuda.synchronize(device)
+        if before_record is not None:
+            before_record()
+        graph = torch.cuda.CUDAGraph()
+        before = launch_counts()
+        gc.collect()
+        collecting = gc.isenabled()
+        gc.disable()
+        try:
+            with torch.cuda.device(device), torch.cuda.graph(graph):
+                scope = trace.clock("graph", device, graph=True)
+                with scope:
+                    outputs = fn()
+        except Exception as exc:
+            raise RuntimeError(
+                f"CUDA graph capture failed ({type(exc).__name__}: {exc}); "
+                f"the captured path waited for the device, read a value "
+                f"to the host or uploaded a host array") from exc
+        finally:
+            if collecting:
+                gc.enable()
+        torch.cuda.synchronize(device)
+        after = launch_counts()
     launches = {k: after[k] - before[k] for k in after
                 if after[k] != before[k]}
     return CapturedGraph(graph=graph, outputs=outputs, launches=launches,
-                         capture_ms=(time.perf_counter() - t0) * 1e3, fn=fn)
+                         capture_ms=timer.ms, fn=fn,
+                         clock=scope.clock)
 
 
 def snapshot_step(params, optimizer) -> tuple:

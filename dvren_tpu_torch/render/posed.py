@@ -71,6 +71,7 @@ from dvren_tpu_torch.render.pipeline import plan_jitter_table
 from dvren_tpu_torch.render.tiled import (CHUNK, MAX_CELLS, TiledSchedule,
                                           TileGroup, _tile_rays,
                                           render_tiled)
+from dvren_tpu_torch.utils import trace
 
 _BIG = 1 << 30
 
@@ -144,8 +145,10 @@ class PosedRenderer:
     ``use_kernel=False`` renders through the kernels' plain twins.
     ``fused``: None for graph mode on a CUDA field and the split mode on
     the CPU, False for the split mode, True for graph mode (a CUDA field
-    only)."""
+    only). Traced (``utils/trace.py``): the construction as the span
+    ``posed.setup``, its probe as ``posed.probe``."""
 
+    @trace.spanned("posed.setup")
     def __init__(self, base_plan: Plan, field, nc_pin=None, nb_pin=None,
                  ez_pin=None, headroom=(1, 2, 2), use_kernel: bool = True,
                  fused: bool | None = None, probe_plans=None):
@@ -206,9 +209,10 @@ class PosedRenderer:
             self._jt_k = upload(jtt.transpose(1, 0, 2))      # (T, K, 256)
 
         if nc_pin is None or nb_pin is None or ez_pin is None:
-            stats = np.stack([
-                self._probe_stats(*self._cam_arrays(p)).cpu().numpy()
-                for p in [base_plan] + list(probe_plans or [])]).max(0)
+            with trace.span("posed.probe"):
+                stats = np.stack([
+                    self._probe_stats(*self._cam_arrays(p)).cpu().numpy()
+                    for p in [base_plan] + list(probe_plans or [])]).max(0)
             span_c, run_max, ez_max, nb_need = (int(v) for v in stats)
             check(run_max <= 2 * MAX_CELLS,
                   f"sliced-box run exceeds 2 banks at the base pose "
@@ -237,6 +241,7 @@ class PosedRenderer:
         self._captures = 0
         self._cam = None          # the graph's static camera inputs
         self._last_diag = None
+        self._frames = 0          # frames rendered (a trace's unit)
 
     # ------------------------------------------------------------------
     def _cam_arrays(self, plan: Plan):
@@ -468,12 +473,17 @@ class PosedRenderer:
         T = self._t_cnt
         nz, ny, nx = self._grid
         jt_k = self._jt_k
+        trace.stage("raygen")
         o, d = self._tile_rays_planes(k, c2w)
+        trace.stage("mask")
         tke, span = self._mask_full(o, d, jt_k)
+        trace.stage("lattice")
         st, ix, iy, iz, m = self._window_lattice(o, d, tke, nc, jt_k)
+        trace.stage("run_stats")
         z0, boxes, zrel, run_lanes, ez_max = self._run_stats(ix, iy, iz, m,
                                                              ez)
         x0s, y0s, exs, areas, prefix = boxes
+        trace.stage("lanes")
         cur, off = self._pack_offsets(run_lanes)
         diag = torch.stack([((span + CHUNK - 1) // CHUNK).max(),
                             run_lanes.max(), ez_max,
@@ -582,16 +592,20 @@ class PosedRenderer:
               f"pose needs {nb_need} banks > nb_pin={self.nb_pin}; "
               "re-create the PosedRenderer with a larger nb_pin")
 
-    def _replay(self, plan: Plan, field):
-        """Graph mode: copy ``plan``'s camera into the graph's inputs
-        (recording the graph first for a new field) and replay; returns
-        copies of (planes, diagnostics)."""
+    def _load_camera(self, plan: Plan, field) -> tuple:
+        """Graph mode: copy ``plan``'s camera into the graph's inputs;
+        returns the key of the graph that renders ``field``."""
         k, c2w = self._cam_arrays(plan)
         if self._cam is None:
             self._cam = (torch.empty_like(k), torch.empty_like(c2w))
         self._cam[0].copy_(k)
         self._cam[1].copy_(c2w)
-        key = graph_mod.tensor_key(field.sigma, field.color)
+        return graph_mod.tensor_key(field.sigma, field.color)
+
+    def _replay(self, key: tuple, field):
+        """Graph mode: replay the graph keyed ``key`` (recording it first
+        for a new field) over the loaded camera; returns copies of
+        (planes, diagnostics)."""
         if self._graph is None or self._graph[0] != key:
             self._graph = None        # free the old graph's buffers first
 
@@ -599,10 +613,12 @@ class PosedRenderer:
                 with torch.no_grad():
                     return self._build_and_render(field, *self._cam)
 
-            self._graph = (key, graph_mod.capture(build_and_render,
-                                                  self._device))
+            self._graph = (key, graph_mod.capture(
+                build_and_render, self._device).owned_by("posed.render"))
             self._captures += 1
-        return graph_mod.clone_outputs(self._graph[1].replay())
+        out = self._graph[1].replay()
+        with trace.span("posed.clone"):
+            return graph_mod.clone_outputs(out)
 
     def render(self, plan: Plan, field, check_diag: bool = True):
         """ImagePlanes for ``plan``'s camera: the device build and the
@@ -610,18 +626,29 @@ class PosedRenderer:
 
         ``check_diag=False`` skips reading the diagnostics after the
         render (call :meth:`check_ok` after a sweep instead; the last
-        frame's are kept)."""
-        self._check_plan(plan)
-        self._check_render_field(field)
-        if self._fused:
-            planes, diag = self._replay(plan, field)
-        else:
-            with torch.no_grad():
-                planes, diag = self._build_and_render(
-                    field, *self._cam_arrays(plan))
-        self._last_diag = diag
-        if check_diag:
-            self._check_diag(diag)
+        frame's are kept). Traced (``utils/trace.py``) as the span
+        ``posed.render``, the frame's number its unit, over
+        ``posed.prepare`` (the checks and the camera's upload),
+        ``graph.replay``, ``posed.clone`` and ``posed.check_diag``; the
+        build's stages are ``raygen``, ``mask``, ``lattice``,
+        ``run_stats`` and ``lanes``, then the tiled render's."""
+        with trace.span("posed.render", unit=self._frames):
+            self._frames += 1
+            with trace.span("posed.prepare"):
+                self._check_plan(plan)
+                self._check_render_field(field)
+                key = self._load_camera(plan, field) if self._fused else None
+            if self._fused:
+                planes, diag = self._replay(key, field)
+            else:
+                with torch.no_grad(), trace.clock("posed.render",
+                                                  self._device):
+                    planes, diag = self._build_and_render(
+                        field, *self._cam_arrays(plan))
+            self._last_diag = diag
+            if check_diag:
+                with trace.span("posed.check_diag"):
+                    self._check_diag(diag)
         return planes
 
     def render_sweep(self, plans, field, check_diag: bool = True):
@@ -634,7 +661,7 @@ class PosedRenderer:
         self._check_render_field(field)
         images, diags = [], []
         for p in plans:
-            planes, diag = self._replay(p, field)
+            planes, diag = self._replay(self._load_camera(p, field), field)
             images.append(planes.image)
             diags.append(diag)
         images, diags = torch.stack(images), torch.stack(diags)

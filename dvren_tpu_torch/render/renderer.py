@@ -110,6 +110,7 @@ from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import (RenderOutputs, eval_fields,
                                              integrate_heads,
                                              plan_jitter_table)
+from dvren_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -459,7 +460,8 @@ class Renderer:
         entry = self._graphs.get(mode)
         if entry is None or entry[0] != key:
             self._graphs.pop(mode, None)
-            captured = graph_mod.capture(fn, self._ctx.device)
+            captured = graph_mod.capture(fn, self._ctx.device).owned_by(
+                "renderer." + mode)
             self._graphs[mode] = (key, captured)
             stats.notes.append(f"graph_captured_aot_compile_ms="
                                f"{captured.capture_ms:.3f}")
@@ -740,7 +742,8 @@ class Renderer:
                               self._dl_static)
         captured = graph_mod.capture(
             self._grads_fn(field, self._replay_render(mode),
-                           self._dl_static), self._ctx.device)
+                           self._dl_static), self._ctx.device).owned_by(
+                               "renderer." + name)
         self._graphs[name] = (key, captured)
         return captured
 
@@ -806,13 +809,11 @@ class Renderer:
         """The fused hash-MLP path (render/hash_tiled.py). The schedule
         is pure frame layout (no field capture): built once per plan."""
         if self._hash_schedule is None:
-            t0 = time.perf_counter()
-            self._hash_schedule = hash_mod.build_hash_schedule(
-                self._plan, jitter=self._jitter_host,
-                device=self._ctx.device)
-            stats.notes.append(
-                f"hash_schedule_build_ms="
-                f"{(time.perf_counter() - t0) * 1e3:.3f}")
+            with trace.timed("renderer.hash_schedule") as build:
+                self._hash_schedule = hash_mod.build_hash_schedule(
+                    self._plan, jitter=self._jitter_host,
+                    device=self._ctx.device)
+            stats.notes.append(f"hash_schedule_build_ms={build.ms:.3f}")
         plan, sched = self._plan, self._hash_schedule
         planes = self._graphed(
             "hash_tiled", field, stats,
@@ -877,24 +878,24 @@ class Renderer:
         if (self._tiled_schedule is None or self._tiled_key != key
                 or (zeros is not None
                     and not torch.equal(zeros, self._tiled_zeros))):
-            t0 = time.perf_counter()
-            schedule, note = tiled_mod.build_tiled_schedule_auto(
-                self._plan, field, jitter=self._jitter_host,
-                occupancy=self._options.use_occupancy,
-                pitch=self._options.tile_pitch)
-            if note:
-                stats.notes.append(note)
-            self._tiled_schedule = schedule.to(self._ctx.device)
-            self._tiled_key = key
-            self._tiled_zeros = zeros
-            # auto mode: when most rays' tiles still overflow, the
-            # fallback is the windowed path less the schedule's overhead
-            self._tiled_demoted = (
-                self._options.use_tiles is None
-                and schedule.fallback_rays * 2 > schedule.total_rays)
-            stats.notes.append(
-                f"tiled_schedule_build_ms="
-                f"{(time.perf_counter() - t0) * 1e3:.3f}")
+            with trace.timed("renderer.tiled_schedule") as build:
+                schedule, note = tiled_mod.build_tiled_schedule_auto(
+                    self._plan, field, jitter=self._jitter_host,
+                    occupancy=self._options.use_occupancy,
+                    pitch=self._options.tile_pitch)
+                if note:
+                    stats.notes.append(note)
+                with trace.span("schedule.upload"):
+                    self._tiled_schedule = schedule.to(self._ctx.device)
+                self._tiled_key = key
+                self._tiled_zeros = zeros
+                # auto mode: when most rays' tiles still overflow, the
+                # fallback is the windowed path less the schedule's
+                # overhead
+                self._tiled_demoted = (
+                    self._options.use_tiles is None
+                    and schedule.fallback_rays * 2 > schedule.total_rays)
+            stats.notes.append(f"tiled_schedule_build_ms={build.ms:.3f}")
             stats.notes.append(
                 f"tiled_samples={schedule.tiled_samples}"
                 f"/{schedule.full_lattice_samples}"
@@ -972,15 +973,13 @@ class Renderer:
         bbox = (tuple(float(v) for v in field.bbox_min),
                 tuple(float(v) for v in field.bbox_max))
         if self._window_schedule is None or self._window_bbox != bbox:
-            t0 = time.perf_counter()
-            sched = windowed_mod.build_schedule(
-                self._plan, field.bbox_min, field.bbox_max,
-                jitter=self._jitter_host, device=self._ctx.device)
-            self._window_schedule = sched
-            self._window_bbox = bbox
-            stats.notes.append(
-                f"window_schedule_build_ms="
-                f"{(time.perf_counter() - t0) * 1e3:.3f}")
+            with trace.timed("renderer.window_schedule") as build:
+                sched = windowed_mod.build_schedule(
+                    self._plan, field.bbox_min, field.bbox_max,
+                    jitter=self._jitter_host, device=self._ctx.device)
+                self._window_schedule = sched
+                self._window_bbox = bbox
+            stats.notes.append(f"window_schedule_build_ms={build.ms:.3f}")
             stats.notes.append(
                 f"window_samples={sched.windowed_samples}"
                 f"/{sched.full_lattice_samples}"

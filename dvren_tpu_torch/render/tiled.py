@@ -71,6 +71,15 @@ renderer, :mod:`dvren_tpu_torch.render.animate`). The schedule's hot loop
 runs in the native scheduler core (:mod:`dvren_tpu_torch.native`), or in
 numpy under ``DVREN_NATIVE_SCHED=0``; both give the same bytes.
 
+With tracing on (:mod:`dvren_tpu_torch.utils.trace`) a render marks its
+device stages: ``table`` (K3, K5a or the supercell table), ``gather``
+(the bank gather), ``k1``, ``compose`` (the compose and any fallback);
+its backward ``k2``, ``slot_reduce`` (the slot rows summed per table
+row) and ``table_grad`` (K4, K5b or the supercell table's adjoint). The
+host build is traced as the spans ``schedule.cascade``,
+``schedule.build`` (and the counter ``schedule.builds``) and
+``schedule.merge``.
+
 Sample layout per (tile, chunk): block row r in [0, 16), lane l in
 [0, 128), ray_in_tile = r * 16 + l // 8, step = l % 8; with n_sub
 sub-tiles, sub-tile s owns the 16 // n_sub rows from s * (16 // n_sub).
@@ -99,6 +108,7 @@ from dvren_tpu_torch.ops.grid import (NCH, build_supercell_stencil,
 from dvren_tpu_torch.ops.raygen import generate_rays
 from dvren_tpu_torch.render import windowed as windowed_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
+from dvren_tpu_torch.utils import trace
 
 TILE_W = 16
 TILE_H = 16
@@ -276,6 +286,7 @@ class TiledSchedule:
 # ----------------------------------------------------------------- host side
 
 
+@trace.spanned("schedule.cascade")
 def build_tiled_schedule_auto(plan: Plan, field, jitter=None,
                               occupancy: bool = False,
                               quantize: bool = False,
@@ -656,6 +667,7 @@ def _check_slice(field):
           "must use the windowed/full paths")
 
 
+@trace.spanned("schedule.build", counter="schedule.builds")
 def build_tiled_schedule(plan: Plan, field, jitter=None,
                          occupancy: bool = False, tile_px: int = 16,
                          quantize: bool = False, pitch: int = 1,
@@ -1292,8 +1304,10 @@ class _GroupsetFromParams(torch.autograd.Function):
         else:
             table = packed_transpose.build_rows_plain(sigma, color)
             forward = fused_tiles.tile_forward_set_plain
+        trace.stage("gather")
         tabs = _gather_banks_flat(table, schedule.gathermap_all,
                                   schedule.pitch)
+        trace.stage("k1")
         raw = forward(tabs, schedule.tiles, prm, rayt)
         ctx.static = static
         ctx.split = BWD_SPLIT if split else "xla"
@@ -1306,11 +1320,14 @@ class _GroupsetFromParams(torch.autograd.Function):
     def backward(ctx, g_raw):
         schedule, use_kernel = ctx.static[0], ctx.static[2]
         want_grid = ctx.needs_input_grad[1] or ctx.needs_input_grad[2]
+        trace.stage("k2")
         rows, d_rayt = _k2_tiles(ctx, g_raw, want_grid)
         d_sigma = d_color = None
         if want_grid:
+            trace.stage("slot_reduce")
             table_grad = slot_rows_to_table(
                 rows, schedule.gather_plan, fullpitch_rows(ctx.grid_shape))
+            trace.stage("table_grad")
             unpack = (packed_transpose.table_grad_to_params if use_kernel
                       else packed_transpose.table_grad_to_params_plain)
             d_sigma, d_color = unpack(table_grad, ctx.grid_shape)
@@ -1366,8 +1383,10 @@ class _GroupsetFromTable(torch.autograd.Function):
         schedule, prm, use_kernel, cam, split = static
         forward = (fused_tiles.tile_forward if use_kernel
                    else fused_tiles.tile_forward_set_plain)
+        trace.stage("gather")
         tabs = _gather_banks_flat(table, schedule.gathermap_all,
                                   schedule.pitch)
+        trace.stage("k1")
         raw = forward(tabs, schedule.tiles, prm, rayt)
         ctx.static = static
         ctx.split = BWD_SPLIT if split else "xla"
@@ -1380,11 +1399,16 @@ class _GroupsetFromTable(torch.autograd.Function):
     def backward(ctx, g_raw):
         schedule = ctx.static[0]
         n_rows, dtype = ctx.table_meta
+        trace.stage("k2")
         rows, d_rayt = _k2_tiles(ctx, g_raw, ctx.needs_input_grad[1])
         d_table = None
         if ctx.needs_input_grad[1]:
+            trace.stage("slot_reduce")
             d_table = slot_rows_to_table_as(rows, schedule.gather_plan,
                                             n_rows, dtype)
+            # the table's own adjoint (K5b, the supercell stencil's
+            # autograd backward) runs after this node returns
+            trace.stage("table_grad")
         return None, d_table, d_rayt
 
 
@@ -1518,6 +1542,7 @@ def _tiles_raw(plan: Plan, field, schedule: TiledSchedule,
     as in JAX)."""
     if not schedule.groups:
         return None
+    trace.stage("table")
     schedule = dataclasses.replace(schedule, tiles=schedule.tile_set())
     geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
     stencil = "super" if schedule.cell_scale == 2 else "cell"
@@ -1586,6 +1611,7 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
         rayt = _traced_rayts(plan, schedule, ck if k is None else k,
                              cc if c2w is None else c2w, co)
     raw = _tiles_raw(plan, field, schedule, use_kernel, rayt)
+    trace.stage("compose")
     parts = _fallback_parts(plan, field, schedule.fallback,
                             k=ck if k is None else k,
                             c2w=cc if c2w is None else c2w, ortho_scale=co,
@@ -1708,6 +1734,7 @@ def _view_cam_tensors(cam, device) -> tuple:
             torch.tensor(ortho_scale, dtype=torch.float32, device=device))
 
 
+@trace.spanned("schedule.merge")
 def merge_view_schedules(scheds, plans=None) -> MergedViewSchedule:
     """Merge per-view numpy schedules (one plan geometry, one field, one
     tile_px and cell_scale) into a :class:`MergedViewSchedule`, its
@@ -1815,6 +1842,7 @@ def render_tiled_stack(plan: Plan, field, merged: MergedViewSchedule,
     device = _check_field_schedule(field, sched, "merged schedule")
     raw = _tiles_raw(plan, field, sched, use_kernel, stack=True)
     group_t0 = [t0 for t0, _, _ in sched.tile_set().offsets()]
+    trace.stage("compose")
     images = []
     for v in range(merged.n_views):
         parts = []
