@@ -340,15 +340,17 @@ timings and the CLI, each fatal when it fails:
 
 58. ``PosedRenderer`` over the dense headline and phase 50's six orbit
     poses (pins from a probe over them): the split mode (the main path:
-    K3 and K1 once a pose) within 5e-6 (depth 1e-4) of the
-    ``use_kernel=False`` twin and within 1e-5 of the pose's host-built
+    the build kernel PB, K3 and K1 once a pose) within 5e-6 (depth 1e-4)
+    of the ``use_kernel=False`` twin and within 1e-5 of the pose's host-built
     tiled frame (``MovingCameraRenderer``) and of its windowed frame;
     repeats and graph mode bit-equal to the split mode, one graph;
 59. ``render_sweep`` bit-equal to the per-pose renders; per pose the
     device build and the render (split), the replay (graph) beside the
-    host build, upload and render, with CUDA events; ``torch.profiler``
-    finds K1 and K3 in one replay; K1 and K3 on the posed schedule
-    against their twins, timed;
+    host build, upload and render, with CUDA events; the graph records
+    and ``torch.profiler`` finds PB, K1 and K3 once in one replay; PB's
+    schedule arrays and diagnostics bit-equal to the torch twin's at
+    every pose, a repeat build the same bits; PB, K1 and K3 on the posed
+    schedule against their twins, timed;
 60. ``enable_graph`` at the headline: the tiled frame and the backward's
     grid and camera gradients bit-equal to eager, a new field object
     re-recording, an in-place edit replaying; the eager and replayed
@@ -5069,7 +5071,9 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
 
 POSED_TOL = 1e-5    # posed frame against the host-built and windowed frames
 KERNEL_NAMES = {"K1": "tile_forward_kernel", "K2": "tile_backward_kernel",
-                "K3": "packed_table_kernel", "K4": "packed_table_grad_kernel"}
+                "K3": "packed_table_kernel", "K4": "packed_table_grad_kernel",
+                "PB": "posed_build_kernel"}
+POSED_ARRAYS = ("samp", "base", "rayt", "bank0", "k_enter", "hostmap")
 
 
 def kernel_names(torch, fn) -> dict:
@@ -5144,6 +5148,8 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
 
     from dvren_tpu_torch import cli
     from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.ops import posed_build as pb
+    from dvren_tpu_torch.ops.raygen import generate_rays
     from dvren_tpu_torch.render import animate, posed, tiled, windowed
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
@@ -5152,10 +5158,12 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
     field = P.DenseGridField.create(config, device=dev).requires_grad_(False)
 
     def counts():
-        return launch_counts(fused_tiles, packed_transpose)
+        return {**launch_counts(fused_tiles, packed_transpose),
+                "posed_build": pb.posed_build.launches}
 
     def reset():
         reset_counts(fused_tiles, packed_transpose)
+        pb.posed_build.launches = 0
 
     def orbit(i):   # phase 50's poses (tools/animation_bench.py:114-135)
         ang = 2 * np.pi * i / ORBIT_POSES
@@ -5185,8 +5193,9 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
     torch.cuda.synchronize()
     posed_c = counts()
     require(posed_c["fused_tiles"] == ORBIT_POSES
-            and posed_c["packed_table"] == ORBIT_POSES,
-            f"the posed orbit did not launch K1 and K3 once a pose: "
+            and posed_c["packed_table"] == ORBIT_POSES
+            and posed_c["posed_build"] == ORBIT_POSES,
+            f"the posed orbit did not launch PB, K1 and K3 once a pose: "
             f"{posed_c}")
     mover = animate.MovingCameraRenderer(plan, field)
     host_times, errs = [], []
@@ -5263,14 +5272,16 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
                       **host_times[i]})
     graphed.check_ok()
     recorded = graphed.captured.launches
-    require(recorded == {"fused_tiles": 1, "packed_table": 1},
-            f"the posed graph recorded {recorded}, not one K1 and one K3")
+    require(recorded == {"fused_tiles": 1, "packed_table": 1,
+                         "posed_build": 1},
+            f"the posed graph recorded {recorded}, not one PB, one K1 and "
+            f"one K3")
     names = kernel_names(torch, graphed.captured.graph.replay)
-    require_kernels(names, ("K1", "K3"), "a replayed posed frame")
-    replayed = {s: kernel_count(names, s) for s in ("K1", "K3")}
-    require(replayed == {"K1": 1, "K3": 1},
-            f"one replayed posed frame ran {replayed}, not one K1 and one "
-            f"K3")
+    require_kernels(names, ("PB", "K1", "K3"), "a replayed posed frame")
+    replayed = {s: kernel_count(names, s) for s in ("PB", "K1", "K3")}
+    require(replayed == {"PB": 1, "K1": 1, "K3": 1},
+            f"one replayed posed frame ran {replayed}, not one PB, one K1 "
+            f"and one K3")
     print(f"posed per pose ms [{card}] (device build, render; replay with "
           f"the camera copy and the output copy, the graph alone | host "
           f"build, upload, render):", flush=True)
@@ -5280,7 +5291,7 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
               f"{t['graph_replay_ms']:.3f} | {t['build_ms']:.1f}, "
               f"{t['upload_ms']:.2f}, {t['render_ms']:.3f}", flush=True)
     print(f"  a replayed posed frame ran {sum(names.values())} kernels "
-          f"({len(names)} distinct), K1 and K3 once each (profiler "
+          f"({len(names)} distinct), PB, K1 and K3 once each (profiler "
           f"{replayed}; recorded in the graph {recorded})", flush=True)
     b = device_breakdown(torch, graphed.captured.graph.replay, top=12)
     if b is not None:
@@ -5314,7 +5325,68 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
         lambda: packed_transpose.build_rows_plain(sigma, color))
     samp = sched.tiles.samp.view(torch.int16).to(torch.int32)
     live = int(((samp[:, 2] >> 15) & 1).sum())
+
+    # PB by its wrapper on the pose's rays, against the twin's build
+    t_near, t_far, dt, nudge, lo, inv, _ = split._lattice_consts()
+
+    def pb_rays(p):
+        k, c2w = split._cam_arrays(p)
+        return generate_rays(plan, k=k, c2w=c2w[:3], ortho_scale=c2w[3, 0])
+
+    def pb_build(rays):
+        return pb.posed_build(
+            rays.origins, rays.directions, split._jt_k,
+            tiles_x=split._tx_n, n_tiles=split._t_cnt,
+            k_max=plan.sampling.max_steps, nc=split.nc_pin,
+            nb=split.nb_pin, ez=split.ez_pin, grid=split._grid,
+            consts=(t_near, t_far, dt, nudge, lo, inv))
+
+    def pb_bits(x):
+        return x.view(torch.int32) if x.dtype == torch.float32 else x
+
+    with torch.no_grad():
+        for i, p in enumerate(poses):
+            rays = pb_rays(p)
+            got = pb_build(rays)
+            again = pb_build(rays)
+            want, want_diag = twin._build_schedule(*split._cam_arrays(p))
+            wants = [getattr(want.groups[0], n) for n in POSED_ARRAYS]
+            for name, a, b, c in zip(POSED_ARRAYS + ("diag",), got, again,
+                                     wants + [want_diag]):
+                require(a.dtype == c.dtype and a.shape == c.shape
+                        and torch.equal(pb_bits(a), pb_bits(c)),
+                        f"PB at posed pose {i}: {name} differs from the "
+                        f"twin's")
+                require(torch.equal(pb_bits(a), pb_bits(b)),
+                        f"PB at posed pose {i}: a repeat build's {name} "
+                        f"differs")
+        rays = pb_rays(poses[0])
+        pb_out = pb_build(rays)
+        pb_ms = cuda_ms(torch, lambda: pb_build(rays), 20)
+        pb_path_ms = cuda_ms(
+            torch, lambda: split._build_schedule(*split._cam_arrays(
+                poses[0])), 20)
+        pb_plain = cuda_ms(
+            torch, lambda: twin._build_schedule(*split._cam_arrays(
+                poses[0])), 3, warmup=1)
+    jt = () if split._jt_k is None else (split._jt_k,)
+    pb_bound = bound(nbytes(rays.origins, rays.directions, *jt, *pb_out), 0)
+    print(f"posed PB [{card}]: schedule arrays and diagnostics bit-equal to "
+          f"the twin's at {ORBIT_POSES} poses, repeat builds the same bits; "
+          f"{pb_ms:.4f} ms on the device (raygen and PB {pb_path_ms:.4f}, "
+          f"the twin's build {pb_plain:.4f}; bound {pb_bound['bound_ms']:.4f} "
+          f"by {pb_bound['bound_by']}: rays and the jitter table read once, "
+          f"every output written once)", flush=True)
     kernels += [
+        {"name": "posed_build:posed", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/posed_build.cu",
+         "replaces": "dvren_tpu/render/posed.py:383 (XLA ops, no Pallas "
+                     "kernel)",
+         "launches": posed_c["posed_build"], "max_abs_err": 0.0,
+         "graph_launches_per_replay": {"recorded": recorded["posed_build"],
+                                       "profiled": replayed["PB"]},
+         "ms": pb_ms, "path_ms": pb_path_ms, "plain_ms": pb_plain,
+         **pb_bound},
         {"name": "fused_tiles:posed", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles.cu",
          "replaces": "dvren_tpu/ops/fused_tiles.py:656",
@@ -5337,7 +5409,7 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
           f"{split.nb_pin} banks, {live} live samples; K3 {k3_ms:.4f} ms "
           f"on the device, {k3_issued:.4f} as issued", flush=True)
     del args, out, p_out, rows_k, rows_p, sched, samp, frames, graph_frames
-    del images, split, twin, graphed
+    del images, split, twin, graphed, rays, pb_out, got, again, want
     torch.cuda.empty_cache()
     print(f"phases 58-59 took {time.perf_counter() - lap_posed:.1f} s after "
           f"the orbit", flush=True)

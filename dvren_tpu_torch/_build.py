@@ -87,6 +87,8 @@ _SIGNATURES = {
     "dvt_integrate_backward_occupancy": ([_I, _I, _P], _I),
     "dvt_stratified_jitter": ([_P, _L, _L, _P, _L, _L, _P, _L, _I, _L, _L,
                                _U64, _P], _I),
+    "dvt_posed_build": ([_P, _L, _L, _P, _L, _L, _P] + [_P] * 7 + [_I] * 9
+                        + [_F] * 10 + [_P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 

@@ -88,7 +88,8 @@ def generate_rays(plan: Plan, k: torch.Tensor | None = None,
         global_idx = ids.to(device=device, dtype=torch.int64).reshape(-1)
     else:
         n = plan.ray_count if count is None else int(count)
-        global_idx = torch.arange(n, dtype=torch.int64, device=device) + start
+        global_idx = torch.arange(start, start + n, dtype=torch.int64,
+                                  device=device)
     n = int(global_idx.shape[0])
     in_roi = global_idx < plan.ray_count
     local = torch.clamp(global_idx, max=plan.ray_count - 1)

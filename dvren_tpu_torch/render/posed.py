@@ -6,9 +6,20 @@ build_tiled_schedule`) costs seconds a pose. Under the camera-stable
 contract (every image tile in one uniform group of ``nc_pin`` chunks and
 ``nb_pin`` banks) every array of the schedule has a shape fixed by the
 plan's geometry, so :class:`PosedRenderer` builds it on the device from
-the two camera arrays, in torch ops, and renders it through
+the two camera arrays and renders it through
 :func:`~dvren_tpu_torch.render.tiled.render_tiled` (K3, the bank gather,
 one K1 launch over the pinned group, the compose).
+
+On a CUDA field with ``use_kernel`` (the default) the build is raygen and
+one launch of ``csrc/posed_build.cu``
+(:func:`~dvren_tpu_torch.ops.posed_build.posed_build`: one block per
+tile, every intermediate in registers and shared memory), which writes
+every array of the schedule and the diagnostics. The torch build below
+is its plain twin, equal to it bit for bit; the twin builds on the CPU,
+under ``use_kernel=False``, and in the construction-time probe on every
+device. The counter ``posed.kernel_frames`` (``utils/trace.py``) counts
+the frames whose schedule the kernel built: each replay of a graph that
+recorded it, each split-mode render.
 
 Lanes come from the JAX package's closed-form sliced-box assignment: per
 (tile, chunk) run the touched cells are sliced by z, each slice gets its
@@ -27,13 +38,15 @@ them. (Under ``jax.jit`` XLA's CPU backend contracts a sample's position
 ``o + d * t`` into an FMA and fuses ``1 / sqrt`` of the ray directions;
 where that moves a position across a cell boundary or the bbox, a lane
 word of JAX's jitted schedule differs.) Where JAX runs a Python loop of
-masked reductions per z-slice, the port reduces once: the per-slice
-boxes are ``scatter_reduce`` (``amin`` / ``amax``) keyed by (tile,
-chunk, slice, lane) and reduced over the lanes, a sample's rank gathers
-its slice's row, and the lane-to-cell decode finds each lane's run by a
-running maximum of the run starts and its slice by a ``searchsorted`` of
-the slices' prefixes. All are exact integer operations, the same in
-every run.
+masked reductions per z-slice, the port's twin reduces once: the
+per-slice boxes are ``scatter_reduce`` (``amin`` / ``amax``) keyed by
+(tile, chunk, slice, lane) and reduced over the lanes, a sample's rank
+gathers its slice's row, and the lane-to-cell decode finds each lane's
+run by a running maximum of the run starts and its slice by a
+``searchsorted`` of the slices' prefixes; the kernel takes each slice's
+box with integer atomics in shared memory and decodes a lane by scanning
+its tile's runs and slices there. All are exact integer operations, the
+same in every run.
 
 Modes (``fused``): on a CUDA field the default (None) is graph mode, the
 counterpart of JAX's one fused dispatch on a TPU: build and render are
@@ -65,6 +78,7 @@ import torch
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy, Plan
 from dvren_tpu_torch.core.status import DvrenError, check
 from dvren_tpu_torch.ops.fused_tiles import DESC_WORDS, TileSet
+from dvren_tpu_torch.ops.posed_build import posed_build
 from dvren_tpu_torch.ops.raygen import generate_rays
 from dvren_tpu_torch.render import graph as graph_mod
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
@@ -466,9 +480,20 @@ class PosedRenderer:
                      for g in (gx, gy, gz))
 
     # ------------------------------------------------------------------
+    @property
+    def kernel_build(self) -> bool:
+        """Whether the schedule comes from the build kernel
+        (``csrc/posed_build.cu``): a CUDA field with ``use_kernel``; else
+        the torch twin builds it."""
+        return self._use_kernel and self._device.type == "cuda"
+
     def _build_schedule(self, k, c2w):
         """The device schedule build: (one-group TiledSchedule, diagnostics
-        (4,) int32 [span chunks, max run, max z-slices, banks needed])."""
+        (4,) int32 [span chunks, max run, max z-slices, banks needed]).
+        One kernel launch where :attr:`kernel_build`, else the torch
+        twin."""
+        if self.kernel_build:
+            return self._build_schedule_kernel(k, c2w)
         nc, nb, ez = self.nc_pin, self.nb_pin, self.ez_pin
         T = self._t_cnt
         nz, ny, nx = self._grid
@@ -521,8 +546,28 @@ class PosedRenderer:
         # then refuse the frame)
         bank0 = torch.clamp(off // MAX_CELLS, max=nb - 1).to(
             torch.int32)[:, :, None]
+        return self._schedule(samp, base, rayt, bank0, tke,
+                              hostmap.reshape(-1)), diag
 
-        hm_flat = hostmap.reshape(-1)
+    def _build_schedule_kernel(self, k, c2w):
+        """:meth:`_build_schedule` on the card: raygen, then one launch of
+        ``csrc/posed_build.cu`` for every array and the diagnostics."""
+        trace.stage("raygen")
+        rays = generate_rays(self._plan, k=k, c2w=c2w[:3],
+                             ortho_scale=c2w[3, 0])
+        trace.stage("build")
+        t_near, t_far, dt, nudge, lo, inv, _ = self._lattice_consts()
+        samp, base, rayt, bank0, tke, hostmap, diag = posed_build(
+            rays.origins, rays.directions, self._jt_k, tiles_x=self._tx_n,
+            n_tiles=self._t_cnt, k_max=self._plan.sampling.max_steps,
+            nc=self.nc_pin, nb=self.nb_pin, ez=self.ez_pin, grid=self._grid,
+            consts=(t_near, t_far, dt, nudge, lo, inv))
+        return self._schedule(samp, base, rayt, bank0, tke, hostmap), diag
+
+    def _schedule(self, samp, base, rayt, bank0, tke, hm_flat):
+        """The one-group TiledSchedule over the build's arrays."""
+        T, nc, nb = self._t_cnt, self.nc_pin, self.nb_pin
+        nz, ny, nx = self._grid
         group = TileGroup(
             n_chunks=nc, n_tiles=T, banks=nb, hostmap=hm_flat,
             gathermap=hm_flat, samp=samp, base=base, rayt=rayt, bank0=bank0,
@@ -533,7 +578,7 @@ class PosedRenderer:
             samp=samp.reshape(T * nc, 3, 16, 128),
             base=base.reshape(T * nb, 3, MAX_CELLS), rayt=rayt, ke=tke,
             bank0=bank0.reshape(-1), desc=self._desc, order=self._order)
-        sched = TiledSchedule(
+        return TiledSchedule(
             groups=(group,), fallback=None, hostmap_all=hm_flat,
             gathermap_all=hm_flat, gather_plan=None,
             total_rays=self._plan.ray_count, tiled_samples=0,
@@ -542,7 +587,6 @@ class PosedRenderer:
             fallback_rays=0, grid_shape=(nz, ny, nx), bbox=self._bbox,
             tile_px=16, table_kind="dense", pitch=1,
             cell_scale=1).with_tiles(tiles)
-        return sched, diag
 
     def _build_and_render(self, field, k, c2w):
         """Build and render, one pose: (planes, diagnostics)."""
@@ -617,6 +661,8 @@ class PosedRenderer:
                 build_and_render, self._device).owned_by("posed.render"))
             self._captures += 1
         out = self._graph[1].replay()
+        if self.kernel_build:
+            trace.count("posed.kernel_frames")
         with trace.span("posed.clone"):
             return graph_mod.clone_outputs(out)
 
@@ -630,8 +676,11 @@ class PosedRenderer:
         ``posed.render``, the frame's number its unit, over
         ``posed.prepare`` (the checks and the camera's upload),
         ``graph.replay``, ``posed.clone`` and ``posed.check_diag``; the
-        build's stages are ``raygen``, ``mask``, ``lattice``,
-        ``run_stats`` and ``lanes``, then the tiled render's."""
+        build's stages are ``raygen`` and ``build`` (the kernel) where
+        :attr:`kernel_build`, else the twin's ``raygen``, ``mask``,
+        ``lattice``, ``run_stats`` and ``lanes``, then the tiled render's.
+        The counter ``posed.kernel_frames`` counts the frames whose
+        schedule the kernel built."""
         with trace.span("posed.render", unit=self._frames):
             self._frames += 1
             with trace.span("posed.prepare"):
@@ -645,6 +694,8 @@ class PosedRenderer:
                                                   self._device):
                     planes, diag = self._build_and_render(
                         field, *self._cam_arrays(plan))
+                if self.kernel_build:
+                    trace.count("posed.kernel_frames")
             self._last_diag = diag
             if check_diag:
                 with trace.span("posed.check_diag"):

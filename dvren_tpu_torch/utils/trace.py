@@ -114,6 +114,8 @@ KERNELS = (
            "integrate_backward_kernel"),
     Kernel("stratified_jitter", _OPS + "rng", "stratified_jitter",
            "stratified_jitter_kernel"),
+    Kernel("posed_build", _OPS + "posed_build", "posed_build",
+           "posed_build_kernel"),
 )
 
 

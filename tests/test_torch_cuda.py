@@ -77,6 +77,13 @@ dead reference cycle that holds another graph would be collected. The
 tile-DP step at D = 1 over NCCL, recorded as a CUDA graph with its
 all-reduce, equal to its eager capturable body bit for bit, and a
 stratified ``pipeline.render``'s recording listing the jitter kernel.
+The posed build kernel: every schedule array and the diagnostics bit for
+bit against the torch twin on tests/test_posed.py's scene (base, three
+orbit poses, the fixed mode), at all 120 poses of the benchmark's 512^2
+blob64 orbit with a repeat build, and past each pin (the same refusal);
+graph mode's planes bit-equal to the twin's schedule through the same
+kernels, one build launch in the recording, ``posed.kernel_frames``
+counting the replays.
 """
 
 import dataclasses
@@ -2282,6 +2289,203 @@ def test_posed_split_graph_and_twin_on_the_card(cuda_device):
     assert images.shape == (4, 128, 128, 3) and diags.shape == (4, 4)
     for got, want in zip(images, frames):
         assert torch.equal(got, want)
+
+
+POSED_ARRAYS = ("samp", "base", "rayt", "bank0", "k_enter", "hostmap")
+
+
+def _posed_pair(base, field, **kw):
+    """(kernel renderer, twin renderer) over one field with one set of
+    pins, both in the split mode; ``kw`` pins or probe plans."""
+    from dvren_tpu_torch.render import posed
+
+    kern = posed.PosedRenderer(base, field, fused=False, **kw)
+    pins = dict(nc_pin=kern.nc_pin, nb_pin=kern.nb_pin, ez_pin=kern.ez_pin)
+    twin = posed.PosedRenderer(base, field, fused=False, use_kernel=False,
+                               **pins)
+    assert kern.kernel_build and not twin.kernel_build
+    return kern, twin
+
+
+def _posed_builds_equal(kern, twin, plan):
+    """The kernel's and the twin's schedule at ``plan``'s camera: every
+    array and the diagnostics bit for bit, and one launch; returns the
+    kernel's (schedule, diagnostics)."""
+    from dvren_tpu_torch.ops import posed_build
+
+    cam = kern._cam_arrays(plan)
+    n = posed_build.posed_build.launches
+    with torch.no_grad():
+        got, got_diag = kern._build_schedule(*cam)
+        want, want_diag = twin._build_schedule(*cam)
+    assert posed_build.posed_build.launches == n + 1
+    for name in POSED_ARRAYS:
+        a = getattr(got.groups[0], name)
+        b = getattr(want.groups[0], name)
+        assert a.dtype == b.dtype and a.shape == b.shape, name
+        if a.dtype == torch.float32:
+            a, b = a.view(torch.int32), b.view(torch.int32)
+        assert torch.equal(a, b), name
+    assert torch.equal(got_diag, want_diag), (got_diag, want_diag)
+    return got, got_diag
+
+
+def _long_run_scene(device):
+    """tests/test_torch_posed.py's long runs: rays along +z through a 2 x
+    2 x 64 grid, a chunk crossing about 60 z-slices; (plan, field)."""
+    nz = 64
+    zs = np.linspace(0, 1, nz)[:, None, None] * np.ones((nz, 2, 2))
+    field = P.DenseGridField.create(P.DenseGridConfig(
+        resolution=(2, 2, nz),
+        sigma=(1.0 + zs).astype(np.float32).reshape(-1),
+        color=np.ones((nz, 2, 2, 3), np.float32).reshape(-1)), device=device)
+    plan = P.Plan.create(P.PlanConfig(
+        width=128, height=16, t_near=0.9, t_far=2.1, seed=3,
+        camera=P.CameraConfig(k=(2000.0, 0, 64, 0, 2000.0, 8, 0, 0, 1),
+                              c2w=(1, 0, 0, 0.5, 0, 1, 0, 0.5, 0, 0, 1,
+                                   -1.0)),
+        sampling=P.SamplingConfig(dt=0.125, max_steps=16,
+                                  mode=P.SamplingMode.STRATIFIED)))
+    return plan, field
+
+
+@pytest.mark.parametrize("pose", ["base", "orbit0", "orbit1", "orbit2",
+                                  "fixed", "ortho", "long_run"])
+def test_posed_kernel_build_equals_twin(cuda_device, pose):
+    """tests/test_posed.py's scene at 128^2: the build kernel's schedule
+    and diagnostics equal the torch twin's bit for bit at the base pose,
+    the three orbit poses, in the fixed sampling mode and through an
+    orthographic camera; and on runs of about 60 z-slices (ez_pin 64:
+    the slices' scan takes two warp passes)."""
+    base, config = posed_scene()
+    kw = {}
+    if pose == "long_run":
+        base, field = _long_run_scene(cuda_device)
+        plan = base
+        kw = dict(nc_pin=2, nb_pin=4, ez_pin=64)
+    else:
+        field = P.DenseGridField.create(config, device=cuda_device)
+    if pose == "fixed":
+        fixed = dataclasses.replace(base.sampling, mode=P.SamplingMode.FIXED)
+        base = dataclasses.replace(base, sampling=fixed)
+        plan = dataclasses.replace(base, camera=posed_scene(
+            POSED_ORBIT[2])[0].camera)
+    elif pose == "ortho":
+        cam = dataclasses.replace(base.camera, ortho_scale=1.0,
+                                  model=P.CameraModel.ORTHOGRAPHIC)
+        base = plan = dataclasses.replace(base, camera=cam)
+    elif pose.startswith("orbit") or pose == "base":
+        plan = base if pose == "base" else posed_scene(
+            POSED_ORBIT[int(pose[-1])])[0]
+    kern, twin = _posed_pair(base, field, **(kw or dict(probe_plans=[plan])))
+    _, diag = _posed_builds_equal(kern, twin, plan)
+    if pose == "long_run":
+        assert int(diag[2]) > 32
+
+
+def _orbit_c2w(i, n=120, amp_x=0.1, amp_y=0.05, tz=-1.0):
+    """Pose ``i`` of the benchmark's translation orbit
+    (bench_port/reference/dense_grid.py::orbit_c2w)."""
+    ang = 2.0 * np.pi * i / n
+    return (1.0, 0.0, 0.0, 0.5 + amp_x * np.sin(ang), 0.0, 1.0, 0.0,
+            0.5 + amp_y * np.cos(ang), 0.0, 0.0, 1.0, tz)
+
+
+def blob64_orbit(device, poses=range(120)):
+    """The benchmark's blob64 orbit: a 64^3 blob under 512^2 rays, 128
+    stratified steps, jitter seed 3; (field, plans of ``poses``)."""
+    n, w, steps = 64, 512, 128
+    ax = torch.linspace(0.0, 1.0, n, dtype=torch.float64)
+    zs, ys, xs = torch.meshgrid(ax, ax, ax, indexing="ij")
+    r2 = (xs - 0.5) ** 2 + (ys - 0.5) ** 2 + (zs - 0.45) ** 2
+    sigma = (12.0 * torch.exp(-r2 / 0.05)).to(torch.float32)
+    color = torch.stack([xs, ys, 1.0 - zs], dim=-1).to(torch.float32)
+    field = P.DenseGridField(sigma.to(device), color.to(device),
+                             bbox_min=(0.0, 0.0, 0.0),
+                             bbox_max=(1.0, 1.0, 1.0))
+    plans = [P.Plan.create(P.PlanConfig(
+        width=w, height=w, t_near=0.2, t_far=2.2, seed=3,
+        camera=P.CameraConfig(k=(1.2 * w, 0.0, w / 2, 0.0, 1.2 * w, w / 2,
+                                 0.0, 0.0, 1.0), c2w=_orbit_c2w(i)),
+        sampling=P.SamplingConfig(dt=2.0 / steps, max_steps=steps,
+                                  mode=P.SamplingMode.STRATIFIED)))
+        for i in poses]
+    return field, plans
+
+
+def test_posed_kernel_build_equals_twin_over_the_blob64_orbit(cuda_device):
+    """The benchmark's 512^2 orbit, pins probed over all 120 poses: at
+    every pose the kernel's schedule and diagnostics equal the twin's bit
+    for bit, and a repeat build the same bits."""
+    field, plans = blob64_orbit(cuda_device)
+    kern, twin = _posed_pair(plans[0], field, probe_plans=plans)
+    for plan in plans:
+        got, diag = _posed_builds_equal(kern, twin, plan)
+        kern._check_diag(diag)
+    with torch.no_grad():
+        again, again_diag = kern._build_schedule(*kern._cam_arrays(plans[0]))
+        first, first_diag = kern._build_schedule(*kern._cam_arrays(plans[0]))
+    assert torch.equal(again_diag, first_diag)
+    for name in POSED_ARRAYS:
+        a, b = getattr(again.groups[0], name), getattr(first.groups[0], name)
+        assert torch.equal(a.view(torch.int32) if a.dtype == torch.float32
+                           else a, b.view(torch.int32)
+                           if b.dtype == torch.float32 else b), name
+
+
+@pytest.mark.parametrize("pin", ["nc_pin", "nb_pin", "ez_pin"])
+def test_posed_kernel_build_refuses_past_each_pin(cuda_device, pin):
+    """A pose past one pin: the kernel's diagnostics equal the twin's and
+    the render refuses it with the twin's message."""
+    base, config = posed_scene()
+    field = P.DenseGridField.create(config, device=cuda_device)
+    plan = posed_scene(POSED_ORBIT[0])[0]
+    probe, _ = _posed_pair(base, field, probe_plans=[plan])
+    pins = dict(nc_pin=probe.nc_pin, nb_pin=probe.nb_pin,
+                ez_pin=probe.ez_pin)
+    pins[pin] = {"nc_pin": 1, "nb_pin": 1, "ez_pin": 1}[pin]
+    kern, twin = _posed_pair(base, field, **pins)
+    _, diag = _posed_builds_equal(kern, twin, plan)
+    errors = []
+    for r in (kern, twin):
+        with pytest.raises(P.DvrenError, match=pin) as info:
+            r.render(plan, field)
+        errors.append(str(info.value))
+    assert errors[0] == errors[1]
+
+
+def test_posed_graph_mode_kernel_planes_equal_split_twin(cuda_device):
+    """Graph mode (the kernel build recorded with K3, the gather, K1 and
+    the compose) renders the planes of the twin's schedule rendered by
+    the same kernels, bit for bit; the recording holds one build launch,
+    and ``posed.kernel_frames`` counts the replays."""
+    from dvren_tpu_torch.render import posed
+    from dvren_tpu_torch.utils import trace
+
+    base, config = posed_scene()
+    field = P.DenseGridField.create(config, device=cuda_device)
+    plans = [base] + [posed_scene(c)[0] for c in POSED_ORBIT]
+    graphed = posed.PosedRenderer(base, field, probe_plans=plans)
+    twin = posed.PosedRenderer(base, field, fused=False, use_kernel=False,
+                               nc_pin=graphed.nc_pin, nb_pin=graphed.nb_pin,
+                               ez_pin=graphed.ez_pin)
+    trace.reset()
+    trace.enable(True)
+    try:
+        for p in plans:
+            got = graphed.render(p, field)
+            with torch.no_grad():
+                want = tiled.render_tiled(p, field, twin.schedule_for(p))
+            for key in ("image", "transmittance", "opacity", "depth"):
+                assert torch.equal(getattr(got, key), getattr(want, key)), key
+        graphed.render_sweep(plans, field)
+        counters = trace.snapshot()["counters"]
+    finally:
+        trace.enable(False)
+        trace.reset()
+    assert graphed.cache_size() == 1
+    assert graphed.captured.launches.get("posed_build") == 1
+    assert counters.get("posed.kernel_frames") == 2 * len(plans)
 
 
 def _graph_renderer(options, device, graph):

@@ -44,7 +44,8 @@ from dvren_tpu.render.pipeline import plan_jitter_table as j_jitter_table
 from dvren_tpu.render.posed import PosedRenderer as JPosed
 from dvren_tpu.render.windowed import build_schedule as j_window_schedule
 from dvren_tpu.render.windowed import render_windowed_traced
-from tests.test_posed import BASE_C2W, G, ORBIT, _field, _plan
+from tests.test_posed import (BASE_C2W, ORBIT, STEPS, G, H, W, _field,
+                              _plan)
 from tests.test_torch_core import port_field, port_plan
 
 import dvren_tpu as J
@@ -53,6 +54,7 @@ from dvren_tpu_torch.render import posed as p_posed
 from dvren_tpu_torch.render import tiled as p_tiled
 from dvren_tpu_torch.render import windowed as p_windowed
 from dvren_tpu_torch.render.pipeline import plan_jitter_table
+from dvren_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -61,6 +63,15 @@ POSES = {"base": BASE_C2W, "orbit0": ORBIT[0], "orbit1": ORBIT[1],
 # lane words of JAX's jitted schedule that differ from the port's, at
 # most (the measured counts are 1, 0, 0, 1; see the module docstring)
 LANE_WORDS_MOVED = 2
+
+
+@pytest.fixture
+def tracing_on():
+    trace.reset()
+    trace.enable(True)
+    yield
+    trace.enable(False)
+    trace.reset()
 
 
 @functools.lru_cache(maxsize=None)
@@ -122,6 +133,113 @@ def test_schedule_equals_jax_op_by_op(name, monkeypatch):
         np.testing.assert_array_equal(got[key], a.reshape(got[key].shape),
                                       err_msg=key)
     np.testing.assert_array_equal(got_diag.numpy(), np.asarray(diag))
+
+
+def _plan_at(c2w, focal=1.2):
+    """tests/test_posed.py's plan with the focal length ``focal`` x W."""
+    return J.Plan.create(J.PlanConfig(
+        width=W, height=H, t_near=0.2, t_far=2.2, seed=3,
+        camera=J.CameraConfig(k=(W * focal, 0, W / 2, 0, W * focal, H / 2,
+                                 0, 0, 1), c2w=c2w),
+        sampling=J.SamplingConfig(dt=2.0 / STEPS, max_steps=STEPS,
+                                  mode=J.SamplingMode.STRATIFIED)))
+
+
+def _orbit_c2w(i, n=120, amp_x=0.1, amp_y=0.05, tz=-1.0):
+    """Pose ``i`` of the benchmark's translation orbit
+    (bench_port/reference/dense_grid.py::orbit_c2w)."""
+    ang = 2.0 * np.pi * i / n
+    return (1.0, 0.0, 0.0, 0.5 + amp_x * np.sin(ang), 0.0, 1.0, 0.0,
+            0.5 + amp_y * np.cos(ang), 0.0, 0.0, 1.0, tz)
+
+
+# the build's edge cases: (pose, focal scale, ez_pin below the pose's)
+EDGE_CASES = {
+    "tiles_miss": ((1, 0, 0, 1.3, 0, 1, 0, 0.5, 0, 0, 1, -1.0), 1.2, 0),
+    "bank_run": (BASE_C2W, 1.0, 0),
+    "past_ez_pin": (BASE_C2W, 1.2, 3),
+    "orbit_x_max": (_orbit_c2w(30), 1.2, 0),
+    "orbit_x_min": (_orbit_c2w(90), 1.2, 0),
+}
+
+
+def _twin_stats(pr, plan):
+    """The twin's (run lanes (T, nc), offsets (T, nc)) at ``plan``."""
+    o, d = pr._tile_rays_planes(*pr._cam_arrays(plan))
+    tke, _ = pr._mask_full(o, d, pr._jt_k)
+    _, ix, iy, iz, m = pr._window_lattice(o, d, tke, pr.nc_pin, pr._jt_k)
+    run_lanes = pr._run_stats(ix, iy, iz, m, pr.ez_pin)[3]
+    return run_lanes, pr._pack_offsets(run_lanes)[1]
+
+
+@pytest.mark.parametrize("case", sorted(EDGE_CASES))
+def test_schedule_edge_cases_equal_jax_op_by_op(case, monkeypatch):
+    """The twin the build kernel is held to, against JAX's build run op by
+    op at the cases the orbit lacks: tiles that miss the bbox (their runs
+    empty, anchored at lane 0), runs over 128 lanes that start at a bank
+    boundary, slices at or past ``ez_pin`` (counted in the diagnostics,
+    in no box), and the benchmark orbit's two x extremes at 128^2."""
+    c2w, focal, ez_cut = EDGE_CASES[case]
+    jplan = _plan_at(c2w, focal)
+    plan = port_plan(jplan)
+    field = _field()
+    pf = port_field(field)
+    pr = p_posed.PosedRenderer(plan, pf)
+    pins = dict(nc_pin=pr.nc_pin, nb_pin=pr.nb_pin, ez_pin=pr.ez_pin)
+    if ez_cut:              # below the pose's slices (the probe adds 2)
+        pins["ez_pin"] -= 2 + ez_cut
+        pr = p_posed.PosedRenderer(plan, pf, **pins)
+    jr = JPosed(jplan, field, use_kernel=False, **pins)
+    cam = pr._cam_arrays(plan)
+    o, d = pr._tile_rays_planes(*cam)
+    monkeypatch.setattr(jr, "_tile_rays_planes", lambda k, c2w: (
+        [jnp.asarray(x.numpy()) for x in o],
+        [jnp.asarray(x.numpy()) for x in d]))
+    sched, diag = jr._build_schedule(*jr._cam_arrays(jplan), jr._consts)
+    got_sched, got_diag = pr._build_schedule(*cam)
+    got = port_arrays(got_sched)
+    for key in got:
+        np.testing.assert_array_equal(
+            got[key], np.asarray(getattr(sched.groups[0], key)).reshape(
+                got[key].shape), err_msg=key)
+    np.testing.assert_array_equal(got_diag.numpy(), np.asarray(diag))
+    run_lanes, off = _twin_stats(pr, plan)
+    if case == "tiles_miss":
+        empty = (run_lanes == 0).all(dim=1).numpy()
+        assert 0 < empty.sum() < len(empty)
+        assert (got["k_enter"][empty] == 0).all()
+        assert (got["bank0"][empty] == 0).all()
+        assert (got["samp"][empty, :, 2] & 0x7FFF == 0).all()
+        assert (got["hostmap"].reshape(len(empty), -1)[empty] == 0).all()
+    elif case == "bank_run":
+        prev_end = torch.cat([torch.zeros_like(off[:, :1]),
+                              (off + run_lanes)[:, :-1]], dim=1)
+        moved = (run_lanes > 128) & (off != prev_end)
+        assert moved.any() and int(run_lanes.max()) <= 256
+        assert (off[moved] % 128 == 0).all()
+    elif case == "past_ez_pin":
+        assert int(got_diag[2]) > pr.ez_pin
+        with pytest.raises(P.DvrenError, match="ez_pin"):
+            pr.render(plan, pf)
+    else:
+        pr._check_diag(got_diag)
+
+
+def test_the_twin_builds_on_the_cpu(tracing_on):
+    """On the CPU the torch twin builds every schedule: no build kernel
+    launch, the twin's stages, and ``posed.kernel_frames`` stays 0."""
+    from dvren_tpu_torch.ops import posed_build
+
+    _, _, pr, pf = renderers()
+    assert not pr.kernel_build
+    n = posed_build.posed_build.launches
+    for c2w in ORBIT:
+        pr.render(port_plan(_plan(c2w)), pf)
+    snap = trace.snapshot()
+    assert posed_build.posed_build.launches == n
+    assert snap["counters"].get("posed.kernel_frames", 0) == 0
+    stages = snap["stages"]["posed.render"]["stages"]
+    assert "build" not in stages and "run_stats" in stages
 
 
 def _cells(o, d, st, contract):
