@@ -25,6 +25,7 @@ from dvren_tpu_torch.core.plan import InterpMode, OobPolicy
 from dvren_tpu_torch.core.status import check
 from dvren_tpu_torch.ops import grid as grid_ops
 from dvren_tpu_torch.ops.grid import table_dtype
+from dvren_tpu_torch.utils import trace
 
 
 @dataclass(frozen=True)
@@ -180,9 +181,15 @@ class DenseGridField(nn.Module):
     def packed_eval_planes(self, px, py, pz) -> tuple:
         """(sigma, r, g, b) planes through one packed-stencil row per
         sample, the stencil built in ``packed_dtype`` from the current
-        parameters (autograd reaches sigma and color through it)."""
-        packed = grid_ops.build_packed_stencil(
-            self.sigma, self.color, table_dtype(self.packed_dtype))
+        parameters (autograd reaches sigma and color through it). Its
+        stages (``utils/trace.py``): ``stencil``, then ``eval`` (the row
+        gathers); in the backward, ``stencil_grad`` (the stencil's adjoint
+        into sigma and colour)."""
+        trace.stage("stencil")
+        (packed,) = trace.stage_on_backward(
+            "stencil_grad", grid_ops.build_packed_stencil(
+                self.sigma, self.color, table_dtype(self.packed_dtype)))
+        trace.stage("eval")
         return grid_ops.eval_packed_trilinear(
             packed, self.grid_shape, px, py, pz, self.bbox_min,
             self.bbox_max, self.oob)

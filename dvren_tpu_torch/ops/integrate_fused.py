@@ -40,6 +40,7 @@ from dvren_tpu_torch import _build
 from dvren_tpu_torch.ops.integrate import (OPACITY_EPS, SCAN_WIDTH,
                                            STOP_THRESHOLD, integrate,
                                            processed_steps, scan_prefix)
+from dvren_tpu_torch.utils import trace
 
 WARPS_PER_BLOCK = 4   # rays a block: one warp each (csrc/integrate.cuh)
 REGISTER_CHUNKS = 4   # 32-step chunks a ray's warp holds in registers
@@ -242,7 +243,10 @@ class _IntegrateFused(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g_rad, g_t, g_op, g_depth):
         dt, mask, t_origin, t_near, t_far = ctx.static
+        # read before the mark: a checkpointed windowed group recomputes
+        # its forward here, under that forward's own stage marks
         sigma, cr, cg, cb = ctx.saved_tensors
+        trace.stage("k9b")
         d_sigma = d_planes = None
         if g_rad is not None:
             d_sigma, d_planes = radiance_vjp(sigma, (cr, cg, cb), dt, mask,

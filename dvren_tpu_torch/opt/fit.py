@@ -180,7 +180,8 @@ def _scheduled_views(plan: Plan, cameras: Sequence[CameraConfig], field,
     upload. ``mode="windowed"``: one windowed schedule over every view's
     rays (:func:`windowed.build_stack_schedule`), rendered by
     :func:`windowed.render_windowed_stack`. Traced as the
-    ``fit.schedule`` span (``utils/trace.py``)."""
+    ``fit.schedule`` span (``utils/trace.py``), the windowed build inside
+    it as ``schedule.windowed``."""
     with trace.span("fit.schedule"):
         return _views(plan, cameras, field, mode)
 
@@ -199,8 +200,10 @@ def _views(plan: Plan, cameras: Sequence[CameraConfig], field, mode: str):
     plans = view_plans(plan, cameras)
     jitter = plan_jitter_table(plan)
     if mode == "windowed":
-        stack = build_stack_schedule(plans, field.bbox_min, field.bbox_max,
-                                     jitter=jitter, device=field.device)
+        with trace.span("schedule.windowed"):
+            stack = build_stack_schedule(plans, field.bbox_min,
+                                         field.bbox_max, jitter=jitter,
+                                         device=field.device)
         return plans, stack, functools.partial(render_windowed_stack, plan)
     if mode != "tiled":
         raise ValueError(f"unknown scheduled mode: {mode}")

@@ -1675,14 +1675,18 @@ def render_tiled_phases(plan: Plan, schedule: TiledSchedule):
 
 def _fallback_parts(plan: Plan, field, fallback, k=None, c2w=None,
                     ortho_scale=None, use_kernel: bool = True) -> list:
-    """Per fallback group, the windowed path's per-ray parts."""
-    if fallback is None:
+    """Per fallback group, the windowed path's per-ray parts. The groups
+    mark the windowed path's stages (``utils/trace.py``); the tile
+    compose's stage resumes after them."""
+    if fallback is None or not fallback.groups:
         return []
-    return [windowed_mod._group_outputs(plan, budget, field, ids, ke, jit,
-                                        k=k, c2w=c2w,
-                                        ortho_scale=ortho_scale,
-                                        use_kernel=use_kernel)
-            for budget, ids, ke, jit in fallback.groups]
+    parts = [windowed_mod._group_outputs(plan, budget, field, ids, ke, jit,
+                                         k=k, c2w=c2w,
+                                         ortho_scale=ortho_scale,
+                                         use_kernel=use_kernel)
+             for budget, ids, ke, jit in fallback.groups]
+    trace.stage("compose")
+    return parts
 
 
 # ------------------------------------------------------------ many views

@@ -25,6 +25,19 @@ and the multi-view fit merges every view's rays into one schedule
 When the residuals of the whole frame would exceed 4 GiB (about 200
 bytes per windowed sample), each group is recomputed in the backward
 (``torch.utils.checkpoint``, where JAX remats).
+
+Traced (``utils/trace.py``), a render marks each group's stages ``eval``
+(the rays, the samples and the row gathers), ``stencil`` (the packed
+stencil, in
+:meth:`~dvren_tpu_torch.fields.dense_grid.DenseGridField.packed_eval_planes`)
+and ``k9f``, then ``compose``; its backward marks each group's ``k9b``,
+``eval_grad`` (the gathers' adjoint into the stencil rows) and
+``stencil_grad``. A recomputed group marks its forward's stages again
+inside the backward, under the same names, and a step's reading of a
+stage sums every group's. The counters ``windowed.renders``,
+``windowed.groups``, ``windowed.samples`` (the schedule's windowed
+samples) and ``windowed.remat_groups`` (groups recomputed in a backward)
+grow with each render, so each over ``windowed.renders`` is a step's.
 """
 
 from __future__ import annotations
@@ -44,6 +57,7 @@ from dvren_tpu_torch.ops.compose import ImagePlanes, compose
 from dvren_tpu_torch.ops.raygen import Rays, generate_rays
 from dvren_tpu_torch.ops.sampling import generate_samples
 from dvren_tpu_torch.render.pipeline import eval_fields, integrate_heads
+from dvren_tpu_torch.utils import trace
 
 _STEP_QUANTUM = 32                 # budgets are multiples of this
 _REMAT_RESIDUAL_BUDGET = 4 << 30   # bytes of residuals kept without remat
@@ -282,9 +296,12 @@ def _window_parts(plan: Plan, budget: int, field, rays: Rays, table_ids,
                                jitter=block_jitter, step_offset=k_enter,
                                num_steps=budget)
     sigma, color = eval_fields(field, lattice)
+    sigma, *color = trace.stage_on_backward("eval_grad", sigma, *color)
+    trace.stage("k9f")
     t_origin = plan.t_near + k_enter.to(torch.float32) * plan.sampling.dt
-    intl = integrate_heads(sigma, color, lattice, plan.t_near, plan.t_far,
-                           t_origin=t_origin, use_kernel=use_kernel)
+    intl = integrate_heads(sigma, tuple(color), lattice, plan.t_near,
+                           plan.t_far, t_origin=t_origin,
+                           use_kernel=use_kernel)
     return (rays.pixel_ids, intl.radiance, intl.transmittance, intl.opacity,
             intl.depth)
 
@@ -294,19 +311,38 @@ def _group_outputs(plan: Plan, budget: int, field, ids, k_enter,
                    use_kernel: bool = True):
     """:func:`_window_parts` of one group's rays, generated by id (through
     the camera tensors when given)."""
+    trace.stage("eval")
     rays = generate_rays(plan, ids=ids, k=k, c2w=c2w,
                          ortho_scale=ortho_scale)
     return _window_parts(plan, budget, field, rays, ids, k_enter,
                          block_jitter, use_kernel)
 
 
-def _run_groups(fn, args_per_group, remat: bool) -> list:
+def _recounted(fn):
+    """``fn``, counting each call after its first (a recompute in the
+    backward) in ``windowed.remat_groups``."""
+    calls = []
+
+    def run(*args):
+        if calls:
+            trace.count("windowed.remat_groups")
+        calls.append(None)
+        return fn(*args)
+
+    return run
+
+
+def _run_groups(fn, args_per_group, remat: bool, samples: int) -> list:
     """``fn(*args)`` per group, each recomputed in the backward when
-    ``remat`` (and autograd records)."""
+    ``remat`` (and autograd records); ``samples``, the schedule's
+    windowed samples, for the counters."""
+    trace.count("windowed.renders")
+    trace.count("windowed.groups", len(args_per_group))
+    trace.count("windowed.samples", samples)
     if remat and torch.is_grad_enabled():
         # no random draws to replay (the jitter is a table), and a CUDA
         # graph cannot record the RNG state's save
-        return [checkpoint(fn, *a, use_reentrant=False,
+        return [checkpoint(_recounted(fn), *a, use_reentrant=False,
                            preserve_rng_state=False)
                 for a in args_per_group]
     return [fn(*a) for a in args_per_group]
@@ -363,7 +399,9 @@ def render_windowed_traced(plan: Plan, field, schedule: WindowedSchedule,
     args = [(plan, budget, field, ids, ke, jit_rows, k, c2w, ortho_scale,
              use_kernel) for budget, ids, ke, jit_rows in schedule.groups]
     parts = _run_groups(_group_outputs, args,
-                        _remat(schedule.windowed_samples, remat))
+                        _remat(schedule.windowed_samples, remat),
+                        schedule.windowed_samples)
+    trace.stage("compose")
     return _compose_planes(plan, *(torch.cat([p[i] for p in parts])
                                    for i in range(5)))
 
@@ -470,6 +508,7 @@ def build_stack_schedule(plans, bbox_min, bbox_max, block: int = 32768,
 def _stack_group_outputs(plan: Plan, budget: int, field, ids, k_enter,
                          block_jitter, o, d, tf, use_kernel: bool = True):
     """:func:`_window_parts` over a stack group's host-built rays."""
+    trace.stage("eval")
     m = int(ids.shape[0])
     rays = Rays(origins=o, directions=d,
                 t_near=torch.full((m,), float(plan.t_near),
@@ -501,7 +540,9 @@ def render_windowed_stack(plan: Plan, field, schedule: WindowedStackSchedule,
     args = [(plan, budget, field, ids, ke, jit_rows, o, d, tf, use_kernel)
             for budget, ids, ke, jit_rows, o, d, tf in schedule.groups]
     parts = _run_groups(_stack_group_outputs, args,
-                        _remat(schedule.windowed_samples, remat))
+                        _remat(schedule.windowed_samples, remat),
+                        schedule.windowed_samples)
+    trace.stage("compose")
     pids, rad, tr, op, dep = (torch.cat([p[i] for p in parts])
                               for i in range(5))
     planes = compose(pids, rad, tr, op, dep, w, v_cnt * h, plan.t_far)

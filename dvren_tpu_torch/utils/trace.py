@@ -34,8 +34,12 @@ an event-record node of the graph, which every replay records again;
 end event has completed (``query()``), never waiting for it. Eagerly on
 the CPU the marks read the host clock and the reading is taken when the
 clock closes. The open clocks form one stack for the process: autograd
-runs a CUDA backward on a thread of its own. Readings are kept per owner (``fit.step``,
-``posed.render``, ...) and per stage.
+runs a CUDA backward on a thread of its own. Readings are kept per owner
+(``fit.step``, ``posed.render``, ...) and per stage. Where autograd runs
+an adjoint with no Python of the program's before it,
+:func:`stage_on_backward` marks its start: an identity node, recorded
+with tracing on only, whose backward marks the stage as the gradients
+arrive.
 
 **Counters**: ``count(name, n)``.
 
@@ -457,6 +461,32 @@ def stage(name: str) -> None:
     clocks = _TRACER.clocks()
     if clocks:
         clocks[-1].mark(name)
+
+
+class _BackwardMark(torch.autograd.Function):
+    """The identity on its tensors, whose backward marks a stage as their
+    gradients arrive and passes them on unchanged."""
+
+    @staticmethod
+    def forward(ctx, name, *tensors):
+        ctx.name = name
+        ctx.set_materialize_grads(False)
+        return tuple(t.view_as(t) for t in tensors)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        stage(ctx.name)
+        return (None, *grads)
+
+
+def stage_on_backward(name: str, *tensors) -> tuple:
+    """``tensors`` as a tuple, with :func:`stage` ``name`` marked where a
+    backward reaches them: the start of their producer's adjoint, which
+    autograd runs with no Python of the producer's to mark it. Off, the
+    same tensor objects, and autograd records no node."""
+    if not _TRACER.on:
+        return tensors
+    return _BackwardMark.apply(name, *tensors)
 
 
 def count(name: str, n: int = 1) -> None:

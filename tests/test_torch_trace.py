@@ -42,8 +42,16 @@ from dvren_tpu_torch.utils import trace
 torch.set_num_threads(1)
 
 ROOT = Path(__file__).resolve().parents[1]
-FIT_STAGES = ("table", "gather", "k1", "compose", "loss", "backward", "k2",
-              "slot_reduce", "table_grad", "optimizer")
+_TILED = ("table", "gather", "k1", "compose", "loss", "backward", "k2",
+          "slot_reduce", "table_grad", "optimizer")
+# the float32 cell route's 32 px views overflow into the windowed
+# fallback, whose groups mark the windowed path's stages inside the
+# compose and the backward
+FIT_STAGES = {"supercell": _TILED,
+              "f32": ("table", "gather", "k1", "compose", "eval", "stencil",
+                      "k9f", "loss", "backward", "k9b", "eval_grad",
+                      "stencil_grad", "k2", "slot_reduce", "table_grad",
+                      "optimizer")}
 POSED_STAGES = ("raygen", "mask", "lattice", "run_stats", "lanes", "table",
                 "gather", "k1", "compose")
 # the card's build: one kernel launch after raygen
@@ -191,7 +199,7 @@ def test_fit_step_stage_order(tracing, route):
     field, step, targets = fit_step(route)
     step(field, targets)
     got = stages("fit.step")
-    assert tuple(got) == FIT_STAGES
+    assert tuple(got) == FIT_STAGES[route]
     assert all(s["count"] == 1 and s["median_ms"] >= 0 for s in got.values())
 
 
@@ -460,7 +468,7 @@ def test_recorded_fit_step_stages(cuda_device, tracing, route):
         torch.cuda.synchronize(cuda_device)
         times.append(start.elapsed_time(end))
     got = stages("fit.step")
-    assert tuple(got) == FIT_STAGES
+    assert tuple(got) == FIT_STAGES[route]
     total = sum(s["median_ms"] for s in got.values())
     assert 0 < total <= statistics.median(times) * 1.05
 
