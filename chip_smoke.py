@@ -214,7 +214,15 @@ when it fails:
     opacity, see ``depth_error``);
     ``Renderer.backward`` under ``torch.use_deterministic_algorithms``:
     K9b once per group, grid and camera gradients finite and nonzero, two
-    calls bit for bit; the frame and the backward timed;
+    calls bit for bit; the frame and the backward timed; then the packed
+    evaluation's kernels (``csrc/packed_eval.cu``) on the headline's
+    first windowed group (32,768 rays x its budget over the 63^3 float32
+    stencil: ``blob64.fit4x512w``'s group and table), a seeded cotangent
+    masked as ``eval_fields`` masks it: the forward's planes, the table's
+    and the positions' cotangents within 1e-6 x scale (the positions'
+    2e-6) of ``eval_packed_trilinear(use_kernel=False)``'s, a repeat
+    backward bit for bit, one launch each (``graph.launch_counts``); the
+    device ms of each beside the twin's and a byte bound;
 39. the fine grid (512^2 over 128^3, 256 steps) at 16 px cells: its
     fallback count equal to JAX's builder's (151,552 of 262,144 rays);
     ``render_tiled`` with K1 once and K9f once per
@@ -227,11 +235,14 @@ when it fails:
     each timed on the device alone and as issued beside its twin;
 40. ``fit_dense_grid(mode="windowed")`` at the flagship (phase 36's
     scene, targets, rate and cap): K9f and K9b recorded once per stack
-    group in the step's graph (counters moved by its warm-up and
-    recording only), the loss falls; steps to PSNR 35,
+    group and the packed evaluation once per evaluation in the step's
+    graph (every kernel counter, ``graph.launch_counts``, moved by its
+    warm-up and recording only), the loss falls; steps to PSNR 35,
     ``schedule_build_s``, ``steady_step_ms``, ``wall_clock_s``, the eager
     step's kernels under ``torch.profiler``; then ``mode="plain"`` for 10
-    steps (K9 recorded once per view; the loss falls); K9f / K9b on
+    steps (K9 and the packed evaluation recorded once per view, every
+    counter moved by the warm-up and recording only; the loss falls);
+    K9f / K9b on
     view 0's 9,216 x 96 lattice against their twins, in this process;
 41. K1 and K2 in their supercell, subs 16 form on the flagship's view 0
     (4 px, ``cell_scale=2``): one frame and backward (one launch each),
@@ -3153,6 +3164,131 @@ def k9_bounds(torch, inputs, proc) -> tuple[dict, dict]:
                      (reads + n * 3 * 4 + nk * 4 * 4, proc * K9B_OPS)))
 
 
+PE_TOL = 1e-6             # x scale: the packed evaluation against its twin
+PE_POS_TOL = 2e-6         # x scale: its position cotangent (autograd's order)
+
+
+def packed_eval_entries(torch, plan, field, sched, gen, card) -> tuple:
+    """The packed evaluation's kernels (``ops/packed_eval.py``) on the
+    first group of the windowed schedule ``sched``: the forward, the
+    backward into the table, and into the table and the positions,
+    against ``eval_packed_trilinear(use_kernel=False)`` on the same
+    tensors, a repeat backward bit for bit, the launches read through
+    ``graph.launch_counts``; device ms beside the twin's and byte bounds.
+    (kernel entries, report)."""
+    from dvren_tpu_torch.ops import grid as grid_ops
+    from dvren_tpu_torch.ops import packed_eval
+    from dvren_tpu_torch.ops.raygen import generate_rays
+    from dvren_tpu_torch.ops.sampling import generate_samples
+    from dvren_tpu_torch.render import graph
+
+    budget, ids, ke, jit = sched.groups[0]
+    with torch.no_grad():
+        lat = generate_samples(plan, generate_rays(plan, ids=ids),
+                               jitter=jit, step_offset=ke, num_steps=budget)
+        pts = tuple(p.contiguous() for p in lat.position_planes)
+        table = grid_ops.build_packed_stencil(field.sigma, field.color)
+    shape = field.grid_shape
+    geom = packed_eval.geometry(shape, field.bbox_min, field.bbox_max,
+                                field.oob)
+    maskf = lat.mask.to(torch.float32)
+    grads = tuple(torch.randn(pts[0].shape, generator=gen,
+                              device=pts[0].device) * maskf
+                  for _ in range(4))
+    n = pts[0].numel()
+
+    def twin(positions=False):
+        leaf = table.detach().requires_grad_(True)
+        p = tuple(x.detach().requires_grad_(positions) for x in pts)
+        planes = grid_ops.eval_packed_trilinear(
+            leaf, shape, *p, field.bbox_min, field.bbox_max, field.oob,
+            use_kernel=False)
+        wrt = (leaf,) + (p if positions else ())
+        return (tuple(x.detach() for x in planes),
+                torch.autograd.grad(planes, wrt, grads))
+
+    graph.reset_launch_counts()
+    planes = packed_eval.packed_eval_forward(table, *pts, geom)
+    d_table, *_ = packed_eval.packed_eval_backward(*pts, grads, table, geom)
+    again, *d_pos = packed_eval.packed_eval_backward(
+        *pts, grads, table, geom, position_grad=True)
+    torch.cuda.synchronize()
+    moved = {k: v for k, v in graph.launch_counts().items() if v}
+    require(moved == {"packed_eval": 1, "packed_eval_bwd": 2},
+            f"the packed evaluation launched {moved}, not one forward and "
+            f"two backwards")
+    want_planes, (want_table, *want_pos) = twin(positions=True)
+    scale = float(table.abs().max())
+    f_err = max(float((a - b).abs().max())
+                for a, b in zip(planes, want_planes))
+    t_scale = float(want_table.abs().max())
+    b_err = float((d_table - want_table.reshape(d_table.shape)).abs().max())
+    p_scale = float(max(d.abs().max() for d in want_pos))
+    p_err = max(float((a - b).abs().max()) for a, b in zip(d_pos, want_pos))
+    print(f"packed evaluation on the headline's first windowed group ({n} "
+          f"samples: {ids.shape[0]} rays x {budget} steps, a {tuple(shape)} "
+          f"grid's {table.shape[0] * table.shape[1] * table.shape[2]} rows): "
+          f"planes {f_err:.3e} of scale {scale:.3e}, table cotangent "
+          f"{b_err:.3e} of {t_scale:.3e}, position cotangent {p_err:.3e} of "
+          f"{p_scale:.3e} against the twin", flush=True)
+    require(f_err <= PE_TOL * scale and b_err <= PE_TOL * t_scale
+            and p_err <= PE_POS_TOL * p_scale,
+            "the packed evaluation differs from its twin")
+    require(torch.equal(again, d_table),
+            "a repeat packed backward gave other bits")
+    del want_planes, want_table, want_pos
+    torch.cuda.empty_cache()
+
+    def fwd():
+        return packed_eval.packed_eval_forward(table, *pts, geom)
+
+    def bwd():
+        return packed_eval.packed_eval_backward(*pts, grads, table, geom)
+
+    def twin_fwd():
+        with torch.no_grad():
+            return grid_ops.eval_packed_trilinear(
+                table, shape, *pts, field.bbox_min, field.bbox_max,
+                field.oob, use_kernel=False)
+
+    f_ms, b_ms = device_ms(torch, fwd, 20), device_ms(torch, bwd, 20)
+    f_plain = cuda_ms(torch, twin_fwd, 3, warmup=1)
+    fb_plain = cuda_ms(torch, twin, 3, warmup=1)
+    # every position read and every plane written once, the table once
+    # (it stays in L2); the backward: positions and cotangents read once,
+    # the (key, index) pairs written and read once, the rows written once
+    f_bound = bound(nbytes(*pts, *planes, table), 0)
+    b_bound = bound(nbytes(*pts, *grads, d_table) + 16 * n, 0)
+    print(f"packed evaluation ms [{card}]: forward {f_ms:.4f} on the device "
+          f"(twin {f_plain:.4f}; bound {f_bound['bound_ms']:.4f} by "
+          f"{f_bound['bound_by']}), backward into the table {b_ms:.4f} "
+          f"(twin's forward and backward {fb_plain:.4f}; bound "
+          f"{b_bound['bound_ms']:.4f}); a repeat backward the same bits",
+          flush=True)
+    kernels = [
+        {"name": "packed_eval:windowed", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/packed_eval.cu",
+         "replaces": "dvren_tpu/ops/grid.py:525 (XLA ops, no Pallas "
+                     "kernel)",
+         "launches": moved["packed_eval"], "max_abs_err": f_err,
+         "ms": f_ms, "plain_ms": f_plain, **f_bound},
+        {"name": "packed_eval_bwd:windowed", "route": "cuda",
+         "source": "dvren_tpu_torch/csrc/packed_eval.cu",
+         "replaces": "dvren_tpu/ops/grid.py:525 (autodiff's scatter-add, "
+                     "no Pallas kernel)",
+         "launches": moved["packed_eval_bwd"],
+         "max_abs_err": max(b_err, p_err), "ms": b_ms,
+         "plain_ms": fb_plain, **b_bound}]
+    report = {"samples": n, "rays": int(ids.shape[0]), "budget": budget,
+              "forward_ms": f_ms, "backward_ms": b_ms,
+              "twin_forward_ms": f_plain, "twin_fwd_bwd_ms": fb_plain,
+              "forward_bound_ms": f_bound["bound_ms"],
+              "backward_bound_ms": b_bound["bound_ms"],
+              "planes_err": f_err, "table_err": b_err,
+              "position_err": p_err}
+    return kernels, report
+
+
 def run_window(torch, P, dev, card) -> tuple[list, dict]:
     """Phases 37-41: the windowed path and the tiled schedule's windowed
     fallback with K9f / K9b, the windowed and plain fit modes, and K1 / K2
@@ -3161,7 +3297,7 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
                                      packed_transpose)
     from dvren_tpu_torch.opt import fit
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import pipeline, tiled, windowed
+    from dvren_tpu_torch.render import graph, pipeline, tiled, windowed
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
     counts = functools.partial(window_counts, integrate_fused)
@@ -3312,6 +3448,9 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
         "frame_ms": frame_ms, "backward_ms": bwd_ms, "vs_plain": err,
         "vs_tiled": t_err, "vs_tiled_depth": t_depth,
         "vs_tiled_depth_share": t_share, "build_s": wbuild_s}
+    pe_kernels, report["packed_eval"] = packed_eval_entries(
+        torch, plan, field, wsched, gen, card)
+    kernels += pe_kernels
 
     # 39. the fine grid at 16 px cells: most rays fall back
     fplan, fconfig = headline_scene(P, grid_n=128, max_steps=256)
@@ -3473,10 +3612,10 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     cfg = fit.FitConfig(learning_rate=FIT_LR, steps=FLAGSHIP_STEPS,
                         target_psnr=FLAGSHIP_PSNR, log_every=100,
                         sync_every=FLAGSHIP_SYNC)
-    reset()
+    graph.reset_launch_counts()
     res_w = fit.fit_dense_grid(plans[0], init, cams, targets, cfg,
                                mode="windowed")
-    c = counts()
+    c = {k: v for k, v in graph.launch_counts().items() if v}
     reached = next((i + 1 for i, p in enumerate(res_w.psnr_history)
                     if p >= FLAGSHIP_PSNR), None)
     print(f"fit_dense_grid(mode='windowed') at the flagship: {n_stack} stack "
@@ -3492,10 +3631,12 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     rec = res_w.recorded_launches
     require(rec.get("integrate_bwd") == n_stack
             and rec.get("integrate", 0) >= n_stack
+            and rec.get("packed_eval") == rec.get("integrate")
+            and rec.get("packed_eval_bwd") == n_stack
             and c == {k: 2 * v for k, v in rec.items()},
-            f"the windowed fit's step graph did not record K9f / K9b once "
-            f"per stack group, or a replay launched through a wrapper: "
-            f"recorded {rec}, counters {c}")
+            f"the windowed fit's step graph did not record K9f / K9b and "
+            f"the packed evaluation once per stack group, or a replay "
+            f"launched through a wrapper: recorded {rec}, counters {c}")
     require(all(np.isfinite(res_w.loss_history))
             and res_w.loss_history[-1] < res_w.loss_history[0],
             "the windowed fit loss does not fall")
@@ -3517,12 +3658,12 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
               f"share {dev_ms / wall_ms:.3f}); kernels by time per step: "
               + "; ".join(f"{name} {ms:.4f} ms x {n}"
                           for name, ms, n in rows), flush=True)
-    reset()
+    graph.reset_launch_counts()
     res_p = fit.fit_dense_grid(plans[0], init, cams, targets,
                                fit.FitConfig(learning_rate=FIT_LR, steps=10,
                                              target_psnr=None),
                                mode="plain")
-    cp = counts()
+    cp = {k: v for k, v in graph.launch_counts().items() if v}
     print(f"fit_dense_grid(mode='plain'): 10 steps, loss "
           f"{res_p.loss_history[0]:.6e} -> {res_p.loss_history[-1]:.6e}, "
           f"steady_step_ms {res_p.steady_step_ms:.4f} [{card}]; recorded in "
@@ -3532,7 +3673,9 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
             and res_p.loss_history[-1] < res_p.loss_history[0],
             "the plain fit loss does not fall")
     require(res_p.recorded_launches == {"integrate": len(plans),
-                                        "integrate_bwd": len(plans)}
+                                        "integrate_bwd": len(plans),
+                                        "packed_eval": len(plans),
+                                        "packed_eval_bwd": len(plans)}
             and cp == {k: 2 * v for k, v in res_p.recorded_launches.items()},
             f"the plain fit's step graph did not record K9 once per view, or "
             f"a replay launched through a wrapper: recorded "
@@ -5634,7 +5777,8 @@ PAR_RUNS = 10             # timed runs of each sharded path (median, spread)
 PAR_RECORDED = {"tile_dp": {"fused_tiles", "fused_tiles_bwd", "packed_table",
                             "packed_table_bwd"},
                 "multiview": {"fused_tiles", "fused_tiles_bwd"},
-                "view_dp": {"integrate", "integrate_bwd", "stratified_jitter"}}
+                "view_dp": {"integrate", "integrate_bwd", "stratified_jitter",
+                            "packed_eval", "packed_eval_bwd"}}
 
 
 def _par_counters():

@@ -89,6 +89,12 @@ _SIGNATURES = {
                                _U64, _P], _I),
     "dvt_posed_build": ([_P, _L, _L, _P, _L, _L, _P] + [_P] * 7 + [_I] * 9
                         + [_F] * 10 + [_P], _I),
+    "dvt_packed_eval_forward": ([_P] * 4 + [_I] + [_P] * 4 + [_L]
+                                + [_I] * 3 + [_F] * 6 + [_I, _I, _P], _I),
+    "dvt_packed_eval_sort_bytes": ([_L, _I, _P], _I),
+    "dvt_packed_eval_backward": ([_P] * 14 + [_U64] + [_P] * 5
+                                 + [_I, _L, _I, _I] + [_I] * 3 + [_F] * 6
+                                 + [_I, _I, _P], _I),
     "dvt_error_string": ([_I], ctypes.c_char_p),
 }
 

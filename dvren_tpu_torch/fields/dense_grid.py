@@ -183,8 +183,12 @@ class DenseGridField(nn.Module):
         sample, the stencil built in ``packed_dtype`` from the current
         parameters (autograd reaches sigma and color through it). Its
         stages (``utils/trace.py``): ``stencil``, then ``eval`` (the row
-        gathers); in the backward, ``stencil_grad`` (the stencil's adjoint
-        into sigma and colour)."""
+        reads); in the backward, ``stencil_grad`` (the stencil's adjoint
+        into sigma and colour). On the card the evaluation and its adjoint
+        into the stencil rows and the positions are the kernels of
+        ``csrc/packed_eval.cu`` (``ops/packed_eval.py``); the counter
+        ``dense.kernel_evals`` counts each evaluation they take, a
+        recomputed one again, and stays 0 on the CPU."""
         trace.stage("stencil")
         (packed,) = trace.stage_on_backward(
             "stencil_grad", grid_ops.build_packed_stencil(

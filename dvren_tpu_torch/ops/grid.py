@@ -23,7 +23,9 @@ row gathered per sample. Every gather goes through :func:`take_rows`,
 whose backward adds the rows' cotangents by a sort-based segment sum
 (:func:`accumulate_rows`: each row's cotangents summed in a fixed order):
 no float atomics in a run-dependent order and no global switch, so repeat
-backwards are bit-identical on the card.
+backwards are bit-identical on the card. On the card the packed stencil's
+evaluation and adjoint are kernels (:mod:`dvren_tpu_torch.ops.packed_eval`);
+:func:`eval_packed_trilinear`'s torch code is their twin.
 """
 
 from __future__ import annotations
@@ -32,6 +34,8 @@ import torch
 
 from dvren_tpu_torch.core.plan import InterpMode, OobPolicy
 from dvren_tpu_torch.core.status import DvrenError
+from dvren_tpu_torch.ops import packed_eval
+from dvren_tpu_torch.utils import trace
 
 NCH = 32     # packed columns: 4 channels x 8 corners
 
@@ -384,11 +388,24 @@ def trilinear_fractions(grid_shape_zyx, px, py, pz, bbox_min, bbox_max,
 
 def eval_packed_trilinear(packed: torch.Tensor, grid_shape_zyx, px, py, pz,
                           bbox_min, bbox_max,
-                          oob: OobPolicy = OobPolicy.ZERO) -> tuple:
+                          oob: OobPolicy = OobPolicy.ZERO,
+                          use_kernel: bool = True) -> tuple:
     """Trilinear (sigma, r, g, b) planes through one packed-stencil row
     per sample (``packed`` from :func:`build_packed_stencil`; a 16-bit
     table is gathered in its type, then widened). The same values as
-    :func:`eval_grid_planes` under LINEAR, to rounding."""
+    :func:`eval_grid_planes` under LINEAR, to rounding.
+
+    Where :func:`~dvren_tpu_torch.ops.packed_eval.routes` holds (a CUDA
+    table of float32, bfloat16 or float16) and ``use_kernel``, the
+    kernels of ``csrc/packed_eval.cu`` evaluate it and take its adjoint
+    into the table and the positions
+    (:func:`~dvren_tpu_torch.ops.packed_eval.eval_planes`), counted in
+    the counter ``dense.kernel_evals``; otherwise the code below, their
+    plain twin, does."""
+    if use_kernel and packed_eval.routes(packed):
+        trace.count("dense.kernel_evals")
+        return packed_eval.eval_planes(packed, grid_shape_zyx, px, py, pz,
+                                       bbox_min, bbox_max, oob)
     nz, ny, nx = (int(v) for v in grid_shape_zyx)
     shape = px.shape
     (ix, iy, iz), w = trilinear_fractions(grid_shape_zyx, px, py, pz,

@@ -120,6 +120,11 @@ KERNELS = (
            "stratified_jitter_kernel"),
     Kernel("posed_build", _OPS + "posed_build", "posed_build",
            "posed_build_kernel"),
+    Kernel("packed_eval", _OPS + "packed_eval", "packed_eval_forward",
+           "packed_eval_forward_kernel"),
+    # the backward's keys, cub's sort and the bounds launch beside it
+    Kernel("packed_eval_bwd", _OPS + "packed_eval", "packed_eval_backward",
+           "packed_eval_segment_kernel"),
 )
 
 

@@ -83,11 +83,29 @@ orbit poses, the fixed mode), at all 120 poses of the benchmark's 512^2
 blob64 orbit with a repeat build, and past each pin (the same refusal);
 graph mode's planes bit-equal to the twin's schedule through the same
 kernels, one build launch in the recording, ``posed.kernel_frames``
-counting the replays.
+counting the replays. The packed-stencil evaluation (csrc/packed_eval.cu):
+the forward kernel's corner weights, read through one-hot tables, bit for
+bit against the twin's ``trilinear_fractions`` (float32, bfloat16 and
+float16 tables, OOB zero and clamp, samples outside the bbox and on its
+upper faces, a zero-extent axis) and its planes within 1e-6 x scale; the
+backward's row cotangents within 1e-6 x the largest of the twin's (16-bit
+tables: within one rounding of the float32 sums), with a third of the
+cotangents zero and with every sample in one cell, the same bits with the
+position cotangent asked for too, and that within 2e-6 x the largest of
+the twin's autograd; S = 0; two backwards and a recorded graph's replays
+bit for bit; a card field routed through the kernels
+(``dense.kernel_evals``), positions that carry a gradient included; and
+the kernels against the JAX package's numbers at the same points
+(``tests/packed_eval_jax_reference.npz``, held to JAX on the CPU by
+``tests/test_torch_packed_eval.py``): planes, the position cotangent (JAX's
+``clip`` passes half at a local of exactly 0 or 1) and the table's, a
+16-bit table's within one rounding of the exact sums and, from JAX's,
+within the roundings JAX takes summing in the table's type.
 """
 
 import dataclasses
 import gc
+import pathlib
 
 import numpy as np
 import pytest
@@ -2647,8 +2665,9 @@ def test_tile_dp_step_recorded_on_the_card_equals_eager(cuda_device):
 
 def test_graph_records_the_jitter_kernel(cuda_device):
     """A recording of a stratified ``pipeline.render`` with no jitter
-    table lists the jitter kernel among its launches, and its replay is
-    the eager frame bit for bit."""
+    table lists the jitter kernel among its launches (beside the packed
+    evaluation and K9f), and its replay is the eager frame bit for
+    bit."""
     from dvren_tpu_torch.ops.raygen import camera_arrays
     from dvren_tpu_torch.render import pipeline
 
@@ -2662,7 +2681,8 @@ def test_graph_records_the_jitter_kernel(cuda_device):
                                    ortho_scale=ortho).planes.image
 
     g = graph_mod.capture(frame, cuda_device)
-    assert g.launches == {"stratified_jitter": 1, "integrate": 1}
+    assert g.launches == {"stratified_jitter": 1, "packed_eval": 1,
+                          "integrate": 1}
     assert torch.equal(g.replay(), frame())
 
 
@@ -2768,3 +2788,363 @@ def test_time_calls_times_card_closures(cuda_device):
     stats = timing.time_calls(fn, [()], 4, warmup=1, cuda=True)
     assert len(calls) == 5 and len(stats["per_call_s"]) == 4
     assert 0.0 < stats["min_s"] <= stats["median_s"] <= stats["max_s"] < 1.0
+
+
+# ------------------------------------- the packed-stencil evaluation kernels
+
+PE_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+PE_TOL = 1e-6          # x max |twin|: the 8-term sums in another order
+PE_POS_TOL = 2e-6      # x max |twin|: the position adjoint, autograd's order
+PE_REFERENCE = pathlib.Path(__file__).with_name(
+    "packed_eval_jax_reference.npz")
+
+
+def pe_case(device, dtype=torch.float32, shape=(9, 7, 11), n=20_000,
+            bbox=((-0.5, 0.2, 0.1), (1.5, 0.9, 2.0)), seed=0, one_cell=False):
+    """A packed stencil of a random (Z, Y, X) grid in ``dtype`` and
+    sample positions: random ones over the bbox and 15 % past it on each
+    side, then every combination of the bbox's lower and upper faces and
+    its middle (the upper faces exactly: base n-2, t = 1); ``one_cell``
+    puts every sample inside cell (1, 1, 1)."""
+    from dvren_tpu_torch.ops import grid as grid_ops
+
+    rng = np.random.default_rng(seed)
+    sigma = torch.from_numpy(rng.uniform(0, 12, shape).astype(np.float32))
+    color = torch.from_numpy(rng.uniform(0, 1, shape + (3,))
+                             .astype(np.float32))
+    packed = grid_ops.build_packed_stencil(sigma, color, dtype).to(device)
+    lo, hi = (np.asarray(v, np.float64) for v in bbox)
+    if one_cell:
+        cells = np.asarray(shape[::-1], np.float64) - 1.0
+        u = (1.0 + rng.uniform(0.05, 0.95, (n, 3))) / cells
+    else:
+        u = rng.uniform(-0.15, 1.15, (n, 3))
+        faces = np.stack(np.meshgrid(*[[0.0, 0.5, 1.0]] * 3,
+                                     indexing="ij"), -1).reshape(-1, 3)
+        u = np.concatenate([u, faces])
+    pos = (lo + u * (hi - lo)).astype(np.float32)
+    px, py, pz = (torch.from_numpy(pos[:, a].copy()).to(device)
+                  for a in range(3))
+    return packed, (px, py, pz), bbox
+
+
+def pe_twin(packed, shape, pts, bbox, oob, grads=None, positions=False):
+    """The twin (use_kernel=False) on the same tensors: planes, and for
+    ``grads`` the table's cotangent, or with ``positions`` the table's and
+    the positions' (zeros where autograd gives none)."""
+    from dvren_tpu_torch.ops import grid as grid_ops
+
+    leaf = packed.detach().requires_grad_(grads is not None)
+    pts = tuple(p.detach().requires_grad_(positions) for p in pts)
+    with torch.set_grad_enabled(grads is not None):
+        planes = grid_ops.eval_packed_trilinear(
+            leaf, shape, *pts, *bbox, oob, use_kernel=False)
+        if grads is None:
+            return planes, None
+        wrt = (leaf,) + (pts if positions else ())
+        got = torch.autograd.grad(planes, wrt, grads, allow_unused=True)
+    got = tuple(torch.zeros_like(x) if d is None else d
+                for d, x in zip(got, wrt))
+    return planes, got if positions else got[0]
+
+
+def pe_weights(shape, pts, geom, dtype):
+    """The forward kernel's (S, 8) corner weights, read through two
+    one-hot tables: plane ch of table h is the weight of corner 4h + ch
+    plus exact zeros (a weight of -0.0 reads +0.0)."""
+    from dvren_tpu_torch.ops import packed_eval
+
+    nz, ny, nx = shape
+    rows = (nz - 1) * (ny - 1) * (nx - 1)
+    out = []
+    for h in (0, 1):
+        table = torch.zeros((rows, 32), dtype=dtype, device=pts[0].device)
+        for ch in range(4):
+            table[:, 4 * (4 * h + ch) + ch] = 1.0
+        out += packed_eval.packed_eval_forward(table, *pts, geom)
+    return torch.stack(out, dim=1)
+
+
+def pe_bits(x):
+    """float32 bits, -0.0 as +0.0."""
+    return (x + 0.0).view(torch.int32)
+
+
+@pytest.mark.parametrize("oob", [P.OobPolicy.ZERO, P.OobPolicy.CLAMP])
+@pytest.mark.parametrize("dtype", PE_DTYPES)
+def test_packed_eval_forward_matches_twin(cuda_device, dtype, oob):
+    """The forward kernel's corner weights equal the twin's
+    (``trilinear_fractions``) bit for bit, and its planes are within 1e-6
+    x scale of the twin's, samples outside the bbox and on its upper faces
+    included; one launch."""
+    from dvren_tpu_torch.ops import grid as grid_ops
+    from dvren_tpu_torch.ops import packed_eval
+
+    shape = (9, 7, 11)
+    packed, pts, bbox = pe_case(cuda_device, dtype, shape)
+    geom = packed_eval.geometry(shape, *bbox, oob)
+    before = packed_eval.packed_eval_forward.launches
+    planes = packed_eval.packed_eval_forward(packed, *pts, geom)
+    assert packed_eval.packed_eval_forward.launches == before + 1
+    w = pe_weights(shape, pts, geom, dtype)
+    _, w_twin = grid_ops.trilinear_fractions(shape, *pts, *bbox, oob)
+    assert torch.equal(pe_bits(w), pe_bits(w_twin))
+    want, _ = pe_twin(packed, shape, pts, bbox, oob)
+    scale = float(packed.float().abs().max())
+    for a, b in zip(planes, want):
+        assert float((a - b).abs().max()) <= PE_TOL * scale
+    if oob == P.OobPolicy.ZERO:
+        outside = (w_twin == 0).all(dim=1)
+        assert bool(outside.any())
+        assert all(float(p[outside].abs().max()) == 0.0 for p in planes)
+
+
+def test_packed_eval_degenerate_axis_matches_twin(cuda_device):
+    """A zero-extent bbox axis: its local is 0, as the twin's; the
+    position cotangent along it is 0, as the twin's autograd gives."""
+    from dvren_tpu_torch.ops import grid as grid_ops
+    from dvren_tpu_torch.ops import packed_eval
+
+    shape = (5, 6, 7)
+    bbox = ((0.0, 0.3, 0.0), (1.0, 0.3, 1.0))
+    oob = P.OobPolicy.CLAMP
+    packed, pts, _ = pe_case(cuda_device, torch.float32, shape, bbox=bbox)
+    geom = packed_eval.geometry(shape, *bbox, oob)
+    w = pe_weights(shape, pts, geom, torch.float32)
+    _, w_twin = grid_ops.trilinear_fractions(shape, *pts, *bbox, oob)
+    assert torch.equal(pe_bits(w), pe_bits(w_twin))
+    grads = tuple(torch.ones_like(pts[0]) for _ in range(4))
+    _, dpx, dpy, dpz = packed_eval.packed_eval_backward(
+        *pts, grads, packed, geom, table_grad=False, position_grad=True)
+    _, (_, *want) = pe_twin(packed, shape, pts, bbox, oob, grads, True)
+    assert not bool(dpy.any()) and not bool(want[1].any())
+    scale = float(max(d.abs().max() for d in want))
+    for a, b in zip((dpx, dpz), (want[0], want[2])):
+        assert float((a - b).abs().max()) <= PE_POS_TOL * scale
+
+
+@pytest.mark.parametrize("one_cell", [False, True], ids=["spread", "one"])
+@pytest.mark.parametrize("oob", [P.OobPolicy.ZERO, P.OobPolicy.CLAMP])
+@pytest.mark.parametrize("dtype", PE_DTYPES)
+def test_packed_eval_backward_matches_twin(cuda_device, dtype, oob,
+                                           one_cell):
+    """The table's cotangent through the kernels' sort, bounds and
+    segment sums: float32 within 1e-6 x the largest of the twin's; a 16-bit
+    table within one of its roundings (plus 1e-6 x the largest) of the
+    twin's float32 sums, which the kernel rounds once (the twin rounds
+    each sample's row to 16 bits before it sums). A third of the samples
+    carry a zero cotangent (masked slots); ``one`` puts every sample in
+    one cell, the longest segment. One forward and one backward launch.
+    With the positions' cotangent asked for too, the table's keeps its
+    bits, and the positions' is within 2e-6 x the largest of the twin's
+    autograd."""
+    from dvren_tpu_torch.ops import packed_eval
+
+    shape = (9, 7, 11)
+    packed, pts, bbox = pe_case(cuda_device, dtype, shape, seed=3,
+                                one_cell=one_cell)
+    n = pts[0].numel()
+    gen = torch.Generator(device=cuda_device).manual_seed(7)
+    keep = (torch.rand(n, generator=gen, device=cuda_device) > 0.33)
+    grads = tuple(torch.randn(n, generator=gen, device=cuda_device) * keep
+                  for _ in range(4))
+    leaf = packed.detach().requires_grad_(True)
+    before = (packed_eval.packed_eval_forward.launches,
+              packed_eval.packed_eval_backward.launches)
+    planes = packed_eval.eval_planes(leaf, shape, *pts, *bbox, oob)
+    (got,) = torch.autograd.grad(planes, leaf, grads)
+    assert (packed_eval.packed_eval_forward.launches,
+            packed_eval.packed_eval_backward.launches) == (before[0] + 1,
+                                                          before[1] + 1)
+    assert got.dtype == dtype and got.shape == packed.shape
+    _, want32 = pe_twin(packed.float(), shape, pts, bbox, oob, grads)
+    scale = float(want32.abs().max())
+    assert scale > 0.0
+    if dtype == torch.float32:
+        assert float((got - want32).abs().max()) <= PE_TOL * scale
+    else:
+        bound = ULP16[dtype] * want32.abs() + PE_TOL * scale
+        assert bool(((got.float() - want32).abs() <= bound).all())
+    if one_cell:
+        rows = got.reshape(-1, 32).float().abs().amax(dim=1)
+        assert int((rows > 0).sum()) == 1
+
+    moving = tuple(p.clone().requires_grad_(True) for p in pts)
+    planes = packed_eval.eval_planes(leaf, shape, *moving, *bbox, oob)
+    again, *dp = torch.autograd.grad(planes, (leaf,) + moving, grads)
+    assert torch.equal(again, got)
+    _, (_, *want_dp) = pe_twin(packed, shape, pts, bbox, oob, grads, True)
+    pos_scale = float(max(d.abs().max() for d in want_dp))
+    assert pos_scale > 0.0
+    for a, b in zip(dp, want_dp):
+        assert float((a - b).abs().max()) <= PE_POS_TOL * pos_scale
+
+
+def test_packed_eval_empty_and_repeat(cuda_device):
+    """S = 0: empty planes, an all-zero table cotangent and empty position
+    cotangents. Two backwards of one forward, and a recorded CUDA graph's
+    replays of the backward, give the same bits as the eager one, with
+    and without the position cotangent."""
+    from dvren_tpu_torch.ops import packed_eval
+
+    shape = (9, 7, 11)
+    packed, pts, bbox = pe_case(cuda_device, torch.float32, shape)
+    geom = packed_eval.geometry(shape, *bbox, P.OobPolicy.ZERO)
+    empty = tuple(p[:0] for p in pts)
+    planes = packed_eval.packed_eval_forward(packed, *empty, geom)
+    assert all(p.shape == (0,) for p in planes)
+    d0, *dp0 = packed_eval.packed_eval_backward(
+        *empty, (empty[0],) * 4, packed, geom, position_grad=True)
+    assert d0.shape == (8 * 6 * 10, 32) and not bool(d0.any())
+    assert all(d.shape == (0,) for d in dp0)
+
+    gen = torch.Generator(device=cuda_device).manual_seed(9)
+    grads = tuple(torch.randn(pts[0].numel(), generator=gen,
+                              device=cuda_device) for _ in range(4))
+    leaf = packed.detach().requires_grad_(True)
+    moving = tuple(p.clone().requires_grad_(True) for p in pts)
+    planes = packed_eval.eval_planes(leaf, shape, *moving, *bbox,
+                                     P.OobPolicy.ZERO)
+    g1 = torch.autograd.grad(planes, (leaf,) + moving, grads,
+                             retain_graph=True)
+    g2 = torch.autograd.grad(planes, (leaf,) + moving, grads)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+
+    for position_grad in (False, True):
+        def backward():
+            return packed_eval.packed_eval_backward(
+                *pts, grads, packed, geom, position_grad=position_grad)
+
+        eager = backward()
+        assert torch.equal(eager[0].reshape(g1[0].shape), g1[0])
+        if position_grad:
+            assert all(torch.equal(a, b) for a, b in zip(eager[1:], g1[1:]))
+        captured = graph_mod.capture(
+            lambda: tuple(x for x in backward() if x is not None),
+            cuda_device)
+        assert captured.launches == {"packed_eval_bwd": 1}
+        want = tuple(x for x in eager if x is not None)
+        for _ in range(2):
+            out = captured.replay()
+            torch.cuda.synchronize(cuda_device)
+            assert all(torch.equal(a, b) for a, b in zip(out, want))
+
+
+def test_packed_eval_routes_the_card_field(cuda_device):
+    """A dense field on the card evaluates through the kernels (counted
+    in ``dense.kernel_evals``) for each table type, with or without a
+    recorded gradient, and with positions that carry one, whose
+    cotangent is the twin's to 2e-6 of the largest; ``use_kernel=False``
+    is the twin."""
+    from dvren_tpu_torch.ops import grid as grid_ops
+    from dvren_tpu_torch.ops import packed_eval
+    from dvren_tpu_torch.utils import trace
+
+    _, pts, bbox = pe_case(cuda_device, torch.float32, (5, 6, 7),
+                           bbox=((0, 0, 0), (1, 1, 1)))
+    field = P.DenseGridField(
+        torch.rand((5, 6, 7), device=cuda_device),
+        torch.rand((5, 6, 7, 3), device=cuda_device))
+    trace.reset()
+    trace.enable(True)
+    try:
+        before = packed_eval.packed_eval_forward.launches
+        for dtype in ("float32", "bfloat16", "float16"):
+            f = field.with_packed_dtype(dtype)
+            f.packed_eval_planes(*pts)
+            with torch.no_grad():
+                f.packed_eval_planes(*pts)
+        assert packed_eval.packed_eval_forward.launches == before + 6
+        moving = tuple(p.clone().requires_grad_(True) for p in pts)
+        sigma = field.packed_eval_planes(*moving)[0]
+        (d_px,) = torch.autograd.grad(sigma.sum(), moving[0])
+        assert packed_eval.packed_eval_forward.launches == before + 7
+        assert trace.snapshot()["counters"]["dense.kernel_evals"] == 7
+    finally:
+        trace.enable(False)
+        trace.reset()
+    packed = grid_ops.build_packed_stencil(field.sigma, field.color)
+    twin = tuple(p.clone().requires_grad_(True) for p in pts)
+    s_twin = grid_ops.eval_packed_trilinear(
+        packed, field.grid_shape, *twin, field.bbox_min, field.bbox_max,
+        field.oob, use_kernel=False)[0]
+    (want,) = torch.autograd.grad(s_twin.sum(), twin[0])
+    scale = float(want.abs().max())
+    assert scale > 0.0
+    assert float((d_px - want).abs().max()) <= PE_POS_TOL * scale
+
+
+@pytest.mark.parametrize("oob", ["zero", "clamp"])
+@pytest.mark.parametrize("dtype", PE_DTYPES, ids=str)
+def test_packed_eval_matches_jax_reference(cuda_device, dtype, oob):
+    """The kernels at the points of ``tests/packed_eval_jax_reference.npz``
+    against the JAX package's ``eval_packed_trilinear`` and its VJP there
+    (JAX on the CPU wrote them; ``tests/test_torch_packed_eval.py`` holds
+    the file to JAX): the planes within 1e-6 x the table's largest; the
+    position cotangent within 2e-6 x JAX's largest, at twice JAX's where a
+    clamped local is exactly 0 or 1 (JAX's ``clip`` passes half there,
+    torch's ``clamp`` and the kernels all); the table's cotangent in
+    float32 within 1e-6 x JAX's largest. A 16-bit table's: within one
+    rounding to its type (plus 1e-6 x the largest) of the exact sums,
+    float64 over the twin's weights; and from JAX's, which rounds each
+    sample's row to the table's type and sums in it, within that rounding
+    and (count + 1) of JAX's roundings of the row's sum of magnitudes."""
+    from dvren_tpu_torch.ops import grid as grid_ops
+    from dvren_tpu_torch.ops import packed_eval
+
+    ref = np.load(PE_REFERENCE)
+    key = f"{str(dtype).split('.')[-1]}.{oob}"
+    shape = tuple(ref["sigma"].shape)
+    bbox = ((-0.5, 0.2, 0.1), (1.5, 0.9, 2.0))
+    policy = P.OobPolicy.CLAMP if oob == "clamp" else P.OobPolicy.ZERO
+    packed = grid_ops.build_packed_stencil(
+        torch.from_numpy(ref["sigma"]), torch.from_numpy(ref["color"]),
+        dtype).reshape(-1, 32).to(cuda_device)
+    leaf = packed.detach().requires_grad_(True)
+    pts = tuple(torch.from_numpy(p).to(cuda_device).requires_grad_(True)
+                for p in ref["positions"])
+    grads = torch.from_numpy(ref["grads"]).to(cuda_device)
+    planes = packed_eval.eval_planes(leaf, shape, *pts, *bbox, policy)
+    d_table, *d_pos = torch.autograd.grad(planes, (leaf,) + pts,
+                                          tuple(grads))
+    got = torch.stack(planes).detach().cpu().numpy()
+    scale = float(packed.float().abs().max())
+    assert np.abs(got - ref[f"{key}.planes"]).max() <= PE_TOL * scale
+
+    dp = torch.stack(d_pos).cpu().numpy()
+    ties = np.zeros(dp.shape, bool)
+    if oob == "clamp":
+        for a in range(3):
+            local, _ = grid_ops._axis_local(
+                torch.from_numpy(ref["positions"][a]), bbox[0][a],
+                bbox[1][a])
+            ties[a] = (local == 0).numpy() | (local == 1).numpy()
+        assert ties.any()
+    dp = np.where(ties, dp * np.float32(0.5), dp)
+    want_dp = ref[f"{key}.position_grad"]
+    assert np.abs(dp - want_dp).max() <= PE_POS_TOL * np.abs(want_dp).max()
+
+    d_table = d_table.float().cpu().numpy().astype(np.float64)
+    want = ref[f"{key}.table_grad"].astype(np.float64)
+    t_scale = np.abs(want).max()
+    assert t_scale > 0.0
+    if dtype == torch.float32:
+        assert np.abs(d_table - want).max() <= PE_TOL * t_scale
+        return
+    cpu_pts = tuple(torch.from_numpy(p) for p in ref["positions"])
+    (ix, iy, iz), w = grid_ops.trilinear_fractions(shape, *cpu_pts, *bbox,
+                                                   policy)
+    nz, ny, nx = shape
+    row = ((iz * (ny - 1) + iy) * (nx - 1) + ix).numpy()
+    terms = (w.numpy().astype(np.float64)[:, :, None]
+             * ref["grads"].T.astype(np.float64)[:, None, :]).reshape(-1, 32)
+    exact = np.zeros(want.shape)
+    mag = np.zeros(want.shape)
+    np.add.at(exact, row, terms)
+    np.add.at(mag, row, np.abs(terms))
+    count = np.bincount(row[(w.numpy() != 0).any(axis=1)],
+                        minlength=want.shape[0])[:, None]
+    u = ULP16[dtype]
+    one = u * np.abs(exact) + PE_TOL * t_scale
+    assert np.all(np.abs(d_table - exact) <= one)
+    assert np.all(np.abs(d_table - want) <= one + (count + 1) * u * mag)

@@ -366,7 +366,9 @@ def cuda_device():
 @pytest.mark.parametrize("remat", [False, True], ids=["kept", "remat"])
 def test_recorded_windowed_step(cuda_device, remat):
     """The step records with its groups recomputed in the backward, and
-    replays the eager step's bits; traced, its stages and counters."""
+    replays the eager step's bits; traced, its stages and counters. Each
+    group's evaluation (a recomputed group's again) goes through the
+    packed-stencil kernels (``dense.kernel_evals``)."""
     field, step, targets, sched = windowed_step(remat, cuda_device)
     eager_f, _, _, _ = windowed_step(remat, cuda_device)
     eager_opt = torch.optim.Adam(eager_f.parameters(), lr=5e-2,
@@ -382,6 +384,9 @@ def test_recorded_windowed_step(cuda_device, remat):
     assert step.graph.launches["integrate"] == len(sched.groups) * (
         2 if remat else 1)
     assert step.graph.launches["integrate_bwd"] == len(sched.groups)
+    assert step.graph.launches["packed_eval"] == len(sched.groups) * (
+        2 if remat else 1)
+    assert step.graph.launches["packed_eval_bwd"] == len(sched.groups)
 
     trace.enable(True)
     field, step, targets, sched = windowed_step(remat, cuda_device)
@@ -398,4 +403,6 @@ def test_recorded_windowed_step(cuda_device, remat):
     assert snap["counters"]["windowed.renders"] == 2
     assert snap["counters"].get("windowed.remat_groups", 0) == (
         2 * len(sched.groups) if remat else 0)
+    assert snap["counters"]["dense.kernel_evals"] == 2 * len(sched.groups) * (
+        2 if remat else 1)
     assert math.isfinite(float(step.loss(field, targets)))
