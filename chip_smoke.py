@@ -519,6 +519,11 @@ import traceback
 
 import numpy as np
 
+# The benchmark's frozen counts and the card's peaks: one copy, read here.
+from bench_port.counts import tiles as tile_counts
+from bench_port.counts import windowed as k9_counts
+from bench_port.lib import kernels as peaks
+
 TOL = 5e-6          # radiance, transmittance, opacity
 TOL_DEPTH = 1e-4    # depth is a ratio: wd / opacity
 GRID_TOL = 2e-6     # gradients and d(table), x max |reference|
@@ -543,22 +548,14 @@ STEPS = 10          # timed training steps
 LR = 1e-3           # bench.py's SGD step
 
 
-# The H100 SXM's published peaks: HBM bytes
-# per second and float32 operations per second outside the tensor cores.
-HBM_BYTES_S = 3.35e12
-F32_OPS_S = 67e12
 # Float operations per processed sample that each function needs from its
 # inputs (exp as one; integer and comparison work not counted), counted
 # from each kernel's source but without the work a kernel's own design
 # adds: a backward counts the forward once (not pass 1's recompute), the
 # adjoint, and a product and an add per slot-row column (not the weights
-# its window sums recompute). The dense stencil forward: fractions 18,
-# corner weights 19, 4 x 8 corners 64, recurrence 15. Its adjoint without
-# the camera term, as timed: the forward, then the step times, the
-# transmittance and plane adjoint and 32 slot products (105). The
-# recurrence; the adjoint's transmittance part.
-DENSE_FWD_OPS = 116
-DENSE_BWD_OPS = DENSE_FWD_OPS + 105
+# its window sums recompute). The dense stencil's K1 and K2 counts are
+# the benchmark's (``tile_counts.FWD_OPS``, ``BWD_OPS``, ``SUPER_OPS``);
+# here the recurrence and the adjoint's transmittance part.
 RECUR_OPS = 15
 ADJ_OPS = 20
 
@@ -649,9 +646,10 @@ def nbytes(*tensors) -> int:
 
 def bound(n_bytes: int, ops: float) -> dict:
     """The least time the card could take: the larger of the bytes over
-    the memory rate and the operations over the float32 rate."""
-    by_bytes = n_bytes / HBM_BYTES_S * 1e3
-    by_ops = ops / F32_OPS_S * 1e3
+    the memory rate and the operations over the float32 rate (the H100
+    SXM's published peaks, ``bench_port/lib/kernels.py``)."""
+    by_bytes = n_bytes / peaks.HBM_BYTES_S * 1e3
+    by_ops = ops / peaks.F32_FLOPS * 1e3
     return {"bound_ms": max(by_bytes, by_ops),
             "bound_by": "bytes" if by_bytes >= by_ops else "operations",
             "library_ms": None}
@@ -792,31 +790,29 @@ def rel_err(got, ref) -> float:
                                                  1e-30)
 
 
-DENSE_KERNELS = {   # counter name -> wrapper, in ops.fused_tiles or
-    #                 ops.packed_transpose
-    "fused_tiles": "tile_forward", "fused_tiles_bwd": "tile_backward",
-    "packed_table": "build_rows", "packed_table_bwd": "table_grad_to_params",
-    "packed_table16": "build_rows16",
-    "packed_table16_bwd": "table16_grad_to_params",
-    "banks_to_rows": "banks_to_rows"}
+# The kernels each phase reads the launch counters of, by their names in
+# the program's kernel table (utils/trace.py::KERNELS).
+DENSE = ("fused_tiles", "fused_tiles_bwd", "packed_table", "packed_table_bwd",
+         "packed_table16", "packed_table16_bwd", "banks_to_rows")
 DENSE_F32 = ("fused_tiles", "packed_table", "fused_tiles_bwd",
              "packed_table_bwd")    # the float32 route's kernels
+HASH = ("hash_tiles", "hash_tiles_bwd")
+GRID = ("hash_grid", "hash_grid_bwd")
+WINDOW = ("integrate", "integrate_bwd")
+POSED = DENSE + ("posed_build",)
+JITTER_K9F = ("stratified_jitter", "integrate")
+SOAK = ("fused_tiles", "fused_tiles_bwd", "packed_table", "integrate",
+        "integrate_bwd", "stratified_jitter")
 
 
-def _wrappers(fused_tiles, packed_transpose) -> dict:
-    return {k: getattr(fused_tiles if k.startswith("fused")
-                       else packed_transpose, fn)
-            for k, fn in DENSE_KERNELS.items()}
+def counts_of(names) -> dict:
+    """The launch counters (``render/graph.py::launch_counts``) of the
+    kernels ``names``; ``graph.reset_launch_counts`` sets every kernel's
+    to 0."""
+    from dvren_tpu_torch.render import graph
 
-
-def launch_counts(fused_tiles, packed_transpose) -> dict:
-    return {k: w.launches
-            for k, w in _wrappers(fused_tiles, packed_transpose).items()}
-
-
-def reset_counts(fused_tiles, packed_transpose) -> None:
-    for w in _wrappers(fused_tiles, packed_transpose).values():
-        w.launches = 0
+    counts = graph.launch_counts()
+    return {k: counts[k] for k in names}
 
 
 def tiled_grads(torch, P, tiled, plan, field, sched, dl_img, use_kernel):
@@ -849,10 +845,10 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
     SGD steps. ``renderer`` holds the headline's schedule (the dtype does
     not change it), ``f32_result`` is its float32 frame and ``k2_rows``
     K2's slot rows for a seeded cotangent (phase 7)."""
-    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.ops import packed_transpose
     from dvren_tpu_torch.ops.grid import _shift_stack_fullpitch
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import tiled
+    from dvren_tpu_torch.render import graph, tiled
 
     sched = renderer._tiled_schedule
     base = P.DenseGridField.create(config, device=dev).requires_grad_(False)
@@ -862,8 +858,8 @@ def run_tables(torch, P, dev, plan, config, renderer, f32_result,
     c_max = max(c_k for _, _, c_k in sched.gather_plan.meta)
     ulp = {"bfloat16": 2.0 ** -8, "float16": 2.0 ** -11}
     gen = torch.Generator(device=dev).manual_seed(21)
-    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, DENSE)
+    reset = graph.reset_launch_counts
     report = {}
 
     # 21. K5a against its twin at 64^3, bfloat16 and float16
@@ -1262,16 +1258,6 @@ def hash_small_scene(P, device=None):
                                        device=device)
 
 
-def hash_counts(hash_tiles) -> dict:
-    return {"hash_tiles": hash_tiles.hash_tile_forward.launches,
-            "hash_tiles_bwd": hash_tiles.hash_tile_backward.launches}
-
-
-def reset_hash_counts(hash_tiles) -> None:
-    hash_tiles.hash_tile_forward.launches = 0
-    hash_tiles.hash_tile_backward.launches = 0
-
-
 def hash_occupancy(hash_tiles, spec, what) -> dict:
     """Print and return K7f's and K7b's registers, shared memory per
     block, local memory per thread and blocks per SM at ``spec`` (CUDA
@@ -1292,7 +1278,7 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
     """Phases 11-15: the hash-MLP field's forward, backward and fit."""
     from dvren_tpu_torch.ops import fused_tiles, hash_tiles
     from dvren_tpu_torch.opt import fit
-    from dvren_tpu_torch.render import hash_tiled
+    from dvren_tpu_torch.render import graph, hash_tiled
 
     # 11. K7f against its plain twin at the hash headline
     plan, spec = hash_headline(P)
@@ -1331,9 +1317,9 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
 
     # 12. Renderer.forward on the hash field, end to end
     renderer = P.Renderer(P.Context.create(device="cuda"), plan)
-    reset_hash_counts(hash_tiles)
+    graph.reset_launch_counts()
     result = renderer.forward(field)
-    fwd_launches = hash_counts(hash_tiles)
+    fwd_launches = counts_of(HASH)
     print(f"hash Renderer.forward: {result.stats.total_ms:.3f} ms (schedule "
           f"included), launches {fwd_launches}, notes "
           f"{result.stats.notes}", flush=True)
@@ -1415,9 +1401,9 @@ def run_hash(torch, P, dev) -> tuple[list, dict]:
                                          spec=spec, device=dev)
     config = fit.FitConfig(steps=FIT_STEPS, sync_every=FIT_STEPS,
                            learning_rate=8e-3, target_psnr=None)
-    reset_hash_counts(hash_tiles)
+    graph.reset_launch_counts()
     res = fit.fit_hash_mlp(f_plan, student, cams, targets, config)
-    fit_launches = hash_counts(hash_tiles)
+    fit_launches = counts_of(HASH)
     losses = res.loss_history
     print(f"fit_hash_mlp: {res.steps_run} steps, loss {losses[0]:.6e} -> "
           f"{losses[-1]:.6e} (psnr {res.psnr_history[0]:.3f} -> "
@@ -1644,18 +1630,6 @@ def image_errors(a, b):
             bool((a.hitmask.cpu() == b.hitmask.cpu()).all()))
 
 
-def grid_counts(hash_grid) -> dict:
-    """K8f's and K8b's launches on the main path: the one-launch wrappers
-    that ``render_hash_grid_tiled`` calls."""
-    return {"hash_grid": hash_grid.hash_grid_forward_tiles.launches,
-            "hash_grid_bwd": hash_grid.hash_grid_backward_tiles.launches}
-
-
-def reset_grid_counts(hash_grid) -> None:
-    hash_grid.hash_grid_forward_tiles.launches = 0
-    hash_grid.hash_grid_backward_tiles.launches = 0
-
-
 def grid_tiles_args(plan, spec, sched, params) -> tuple:
     """(packed table, (flat bank tables, TileSet, sc, GridParams)): the
     one-launch K8f / K8b arguments of ``sched`` for detached ``params``."""
@@ -1687,7 +1661,7 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
     """Phases 16-20: the NGP-scale hash grid path."""
     from dvren_tpu_torch.ops import fused_tiles, gather_plan, hash_grid
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import hash_tiled, tiled
+    from dvren_tpu_torch.render import graph, hash_tiled, tiled
 
     # 16. the grid headline's schedule; K8f against its twin on every group
     print(card_line(), flush=True)
@@ -1758,10 +1732,10 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
 
     # 17. render_hash_grid_tiled on the card against the plain path there
     field.requires_grad_(False)
-    reset_grid_counts(hash_grid)
+    graph.reset_launch_counts()
     with torch.no_grad():
         out = hash_tiled.render_hash_grid_tiled(plan, field, sched)
-        fwd_launches = grid_counts(hash_grid)
+        fwd_launches = counts_of(GRID)
         plain = hash_tiled.render_hash_grid_tiled(plan, field, sched,
                                                   use_kernel=False)
     require(fwd_launches == {"hash_grid": 1, "hash_grid_bwd": 0},
@@ -1870,16 +1844,16 @@ def run_grid(torch, P, dev) -> tuple[list, dict]:
         return step
 
     step = trainer(student)
-    reset_grid_counts(hash_grid)
+    graph.reset_launch_counts()
     losses = []
     for _ in range(GRID_STEPS):
-        before = grid_counts(hash_grid)
+        before = counts_of(GRID)
         losses.append(float(step().detach()))
-        after = grid_counts(hash_grid)
+        after = counts_of(GRID)
         require(all(after[k] - before[k] == 1 for k in after),
                 f"K8f / K8b did not launch once in a step: {before} -> "
                 f"{after}")
-    train_launches = grid_counts(hash_grid)
+    train_launches = counts_of(GRID)
     print(f"{GRID_STEPS} Adam steps (lr 8e-3) toward the teacher: loss "
           f"{losses[0]:.6e} -> {losses[-1]:.6e}; launches {train_launches}: "
           f"K8f and K8b once per step each over the {n_groups} groups",
@@ -1992,7 +1966,6 @@ SUBSET = 8          # tiles per group the sub-tile phases hold to the twins
 FIT_VIEWS = 8       # tools/fit_benchmark.py's flagship: 8 views, 96^2, 64^3
 FIT_ADAM_STEPS = 10
 FIT_LR = 5e-2       # tools/fit_benchmark.py's Adam rate
-SUPER_OPS = 3       # a supercell sample's extra adds: base + lb per axis
 
 
 def flagship_views(P, views=FIT_VIEWS, res=96, grid=64, mode="FIXED"):
@@ -2173,7 +2146,9 @@ def tile_gss(torch, args, gen):
 
 
 def tile_in_bytes(a) -> int:
-    """The bytes K1 reads: bank tables, the tile set's arrays."""
+    """The bytes K1 reads: bank tables, the tile set's arrays. (The
+    benchmark's ``tile_counts.tile_inputs`` also counts the launch order,
+    4 bytes a tile, which K1 and K2 read too.)"""
     tabs, tiles, _ = a
     return nbytes(tabs, tiles.samp, tiles.base, tiles.rayt, tiles.ke,
                   tiles.bank0, tiles.desc)
@@ -2182,7 +2157,7 @@ def tile_in_bytes(a) -> int:
 def variant_kernels(form, args, gss, sched, launches, errs, times) -> list:
     """The ``kernels`` entries of K1 and K2 in one form."""
     live = sched.tiled_samples
-    extra = SUPER_OPS if sched.cell_scale == 2 else 0
+    extra = tile_counts.SUPER_OPS if sched.cell_scale == 2 else 0
     k1_in = sum(tile_in_bytes(a) for a in args)
     out = sum(a[1].n_tiles * 5 * 256 * 4 for a in args)
     rows = sum(a[1].n_bank_rows * 128 * a[2].cols * 4 for a in args)
@@ -2192,14 +2167,14 @@ def variant_kernels(form, args, gss, sched, launches, errs, times) -> list:
          "replaces": "dvren_tpu/ops/fused_tiles.py:656",
          "launches": launches[0], "max_abs_err": errs[0],
          "ms": times[0], "plain_ms": times[2],
-         **bound(k1_in + out, live * (DENSE_FWD_OPS + extra))},
+         **bound(k1_in + out, live * (tile_counts.FWD_OPS + extra))},
         {"name": f"fused_tiles_bwd:{form}", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
          "replaces": "dvren_tpu/ops/fused_tiles.py:714",
          "launches": launches[1], "max_abs_err": errs[1],
          "ms": times[1], "plain_ms": times[3],
          **bound(k1_in + sum(nbytes(g) for g in gss) + rows,
-                 live * (DENSE_BWD_OPS + extra))}]
+                 live * (tile_counts.BWD_OPS + extra))}]
 
 
 def table16_128(torch, packed_transpose, field, gen, card, launches,
@@ -2267,12 +2242,12 @@ def run_subtiles(torch, P, dev, card,
     scene (float32: 16 px supercells; bfloat16: 8 px cells, with K5a and
     K5b at 128^3), the fit flagship's eight views (8 px supercells) and
     its view 0 at 4 px; ``fine_only``: phases 28-30 alone."""
-    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.ops import packed_transpose
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import tiled
+    from dvren_tpu_torch.render import graph, tiled
 
-    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, DENSE)
+    reset = graph.reset_launch_counts
     gen = torch.Generator(device=dev).manual_seed(28)
     kernels, report = [], {}
     t_phase = time.perf_counter()
@@ -2647,7 +2622,7 @@ def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
     K8b run once per view over all of its tile groups."""
     from dvren_tpu_torch.ops import hash_grid
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import hash_tiled
+    from dvren_tpu_torch.render import graph, hash_tiled
 
     want_px = {32: 8, 64: 4}[finest]
     subs = (16 // want_px) ** 2
@@ -2757,16 +2732,16 @@ def run_grid_views(torch, P, dev, card, finest) -> tuple[list, dict]:
         opt.step()
         return loss
 
-    reset_grid_counts(hash_grid)
+    graph.reset_launch_counts()
     losses = []
     for _ in range(GRID_STEPS):
-        before = grid_counts(hash_grid)
+        before = counts_of(GRID)
         losses.append(float(step().detach()))
-        after = grid_counts(hash_grid)
+        after = counts_of(GRID)
         require(all(after[k] - before[k] == len(plans) for k in after),
                 f"K8f / K8b did not launch once per view in a {name} step: "
                 f"{before} -> {after}")
-    launches = grid_counts(hash_grid)
+    launches = counts_of(GRID)
     print(f"{name}: {GRID_STEPS} Adam steps (lr {GRID_VIEW_LR}) on the summed "
           f"loss of {len(plans)} views: loss {losses[0]:.6e} -> "
           f"{losses[-1]:.6e}; launches {launches}: K8f and K8b once per view "
@@ -2826,12 +2801,11 @@ def run_fit_flagship(torch, P, dev, card,
     (tools/fit_benchmark.py's scene, cameras and settings): the views
     merged into one schedule, K1 and K2 once per step; its Adam step
     beside ``per_view_step_ms``, phase 32's with a schedule per view."""
-    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
     from dvren_tpu_torch.opt import fit
-    from dvren_tpu_torch.render import tiled
+    from dvren_tpu_torch.render import graph, tiled
 
-    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, DENSE)
+    reset = graph.reset_launch_counts
     plans, config = flagship_views(P)
     truth = P.DenseGridField.create(config, device=dev).requires_grad_(False)
     cams = [P.CameraConfig(c2w=pv.camera.c2w) for pv in plans]
@@ -3002,16 +2976,6 @@ def device_breakdown(torch, fn, steps: int = 3, top: int = 8):
     return sum(r[1] for r in rows), wall, rows[:top]
 
 
-def window_counts(integrate_fused) -> dict:
-    return {"integrate": integrate_fused.integrate_forward.launches,
-            "integrate_bwd": integrate_fused.radiance_vjp.launches}
-
-
-def reset_window_counts(integrate_fused) -> None:
-    integrate_fused.integrate_forward.launches = 0
-    integrate_fused.radiance_vjp.launches = 0
-
-
 def window_group_inputs(torch, plan, field, sched):
     """Per windowed group, the integrator's inputs as the path builds
     them: (sigma, (r, g, b), dt, mask, t_origin), the field evaluated at
@@ -3148,20 +3112,20 @@ def k9_waves(torch, inputs) -> dict:
 
 
 def k9_bounds(torch, inputs, proc) -> tuple[dict, dict]:
-    """Bounds of K9f and K9b at these inputs: each processed step's
-    sigma, dt, colours and mask byte read once, the outputs written once
-    (K9f: 8 floats a ray; K9b: four (N, K) planes), and the operations
-    per processed step. ``bound_is_floor`` is false where those bytes fit
-    in the card's L2: the timed launches repeat on the same inputs, so
-    they may find them in L2 and beat the HBM bound."""
+    """Bounds of K9f and K9b at these inputs: the benchmark's bytes
+    (``bench_port/counts/windowed.py``: each processed step's sigma, dt,
+    colours and mask byte read once, the outputs written once) and the
+    operations per processed step. ``bound_is_floor`` is false where
+    those bytes fit in the card's L2: the timed launches repeat on the
+    same inputs, so they may find them in L2 and beat the HBM bound."""
     l2 = torch.cuda.get_device_properties(0).L2_cache_size
-    n = sum(int(x[0].shape[0]) for x in inputs)
-    nk = sum(int(x[0].numel()) for x in inputs)
-    reads = proc * (5 * 4 + 1)
+    steps = k9_counts.Steps(
+        processed=proc, rays=sum(int(x[0].shape[0]) for x in inputs),
+        slots=sum(int(x[0].numel()) for x in inputs))
     return tuple({**bound(n_bytes, ops), "bound_is_floor": n_bytes > l2}
                  for n_bytes, ops in (
-                     (reads + n * 4 + n * 8 * 4, proc * K9F_OPS),
-                     (reads + n * 3 * 4 + nk * 4 * 4, proc * K9B_OPS)))
+                     (k9_counts.k9f_bytes(steps), proc * K9F_OPS),
+                     (k9_counts.k9b_bytes(steps), proc * K9B_OPS)))
 
 
 PE_TOL = 1e-6             # x scale: the packed evaluation against its twin
@@ -3293,17 +3257,15 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
     """Phases 37-41: the windowed path and the tiled schedule's windowed
     fallback with K9f / K9b, the windowed and plain fit modes, and K1 / K2
     in their 4 px supercell form."""
-    from dvren_tpu_torch.ops import (fused_tiles, integrate_fused,
-                                     packed_transpose)
+    from dvren_tpu_torch.ops import packed_transpose
     from dvren_tpu_torch.opt import fit
     from dvren_tpu_torch.opt.fit import mse
     from dvren_tpu_torch.render import graph, pipeline, tiled, windowed
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
-    counts = functools.partial(window_counts, integrate_fused)
-    reset = functools.partial(reset_window_counts, integrate_fused)
-    tcounts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    treset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, WINDOW)
+    reset = graph.reset_launch_counts
+    tcounts = functools.partial(counts_of, DENSE)
     gen = torch.Generator(device=dev).manual_seed(37)
     kernels, report = [], {}
 
@@ -3465,7 +3427,6 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
           flush=True)
     require(fsched.fallback_rays == FINE_FALLBACK_RAYS and n_fb > 0,
             "the fine grid at 16 px does not fall back as JAX's builder does")
-    treset()
     reset()
     with torch.no_grad():
         fframe = tiled.render_tiled(fplan, ffield, fsched)
@@ -3498,7 +3459,6 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
         return torch.autograd.grad(torch.sum(img * dl_img),
                                    (leaf.sigma, leaf.color))
 
-    treset()
     reset()
     torch.use_deterministic_algorithms(True)
     try:
@@ -3710,11 +3670,8 @@ def run_window(torch, P, dev, card) -> tuple[list, dict]:
 def run_supercell4(torch, P, dev, card) -> tuple[list, dict]:
     """Phase 41: K1 and K2 in their supercell, subs 16 form (the cascade
     never picks it): the flagship's view 0 at 4 px supercells."""
-    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
-    from dvren_tpu_torch.render import tiled
+    from dvren_tpu_torch.render import graph, tiled
 
-    treset = functools.partial(reset_counts, fused_tiles, packed_transpose)
-    tcounts = functools.partial(launch_counts, fused_tiles, packed_transpose)
     gen = torch.Generator(device=dev).manual_seed(41)
     plans, config = flagship_views(P)
     truth = P.DenseGridField.create(config, device=dev).requires_grad_(False)
@@ -3726,9 +3683,9 @@ def run_supercell4(torch, P, dev, card) -> tuple[list, dict]:
           flush=True)
     student4 = truth.with_params(truth.sigma.detach().clone(),
                                  truth.color.detach().clone())
-    treset()
+    graph.reset_launch_counts()
     tiled.render_tiled(plans[0], student4, s4).image.sum().backward()
-    c4 = tcounts()
+    c4 = counts_of(DENSE)
     args = [variant_args(torch, plans[0], truth, s4)]
     errs4 = twins_bit_equal(torch, args, gen, SUBSET)
     gss = tile_gss(torch, args, gen)
@@ -3853,10 +3810,10 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
     from dvren_tpu_torch.ops import fused_tiles, packed_transpose
     from dvren_tpu_torch.opt import fit
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import tiled
+    from dvren_tpu_torch.render import graph, tiled
 
-    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, DENSE)
+    reset = graph.reset_launch_counts
     kernels, report = [], {}
     if headline is None:
         plan, config = headline_scene(P)
@@ -3936,7 +3893,7 @@ def run_split(torch, P, dev, card, headline=None) -> tuple[list, dict]:
                 "launches": launches, "max_abs_err": err, "ms": banks_ms,
                 "plain_ms": plain_ms,
                 **bound(k_in + sum(nbytes(g) for g in f_gss) + rows_b,
-                        live * DENSE_BWD_OPS)}
+                        live * tile_counts.BWD_OPS)}
 
     subs1 = bank_form_check(torch, args, gss, "subs 1")
     fl_plans, fl_config = flagship_views(P)
@@ -4120,12 +4077,11 @@ def run_split_child(torch, P, dev) -> dict:
     sparse float32 headline through Renderer.backward under both values
     of the flag (deterministic algorithms), four SGD steps on the bricks
     under "pallas", and the step under both."""
-    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import tiled
+    from dvren_tpu_torch.render import graph, tiled
 
-    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, DENSE)
+    reset = graph.reset_launch_counts
     print(f"BWD_SPLIT read from the environment: {tiled.BWD_SPLIT!r}",
           flush=True)
     require(tiled.BWD_SPLIT == "pallas",
@@ -4335,12 +4291,12 @@ def run_sched(torch, P, dev, card) -> tuple[list, dict]:
     from dvren_tpu_torch import native
     from dvren_tpu_torch.io.checkpoint import (load_train_state,
                                                save_train_state)
-    from dvren_tpu_torch.ops import fused_tiles, packed_transpose
+    from dvren_tpu_torch.ops import packed_transpose
     from dvren_tpu_torch.opt.fit import mse
-    from dvren_tpu_torch.render import animate, tiled
+    from dvren_tpu_torch.render import animate, graph, tiled
 
-    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    reset = functools.partial(reset_counts, fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, DENSE)
+    reset = graph.reset_launch_counts
     gen = torch.Generator(device=dev).manual_seed(47)
     kernels, report = [], {}
     t_phase = time.perf_counter()
@@ -4859,13 +4815,12 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
     """Phases 52-57: the Renderer's general paths on the card (streamed,
     fused, staged, override; fields the tiles refuse; the hash field
     streamed; ``render_views``) over K9f / K9b."""
-    from dvren_tpu_torch.ops import integrate_fused
     from dvren_tpu_torch.ops.compose import compose
     from dvren_tpu_torch.opt import fit
-    from dvren_tpu_torch.render import pipeline
+    from dvren_tpu_torch.render import graph, pipeline
 
-    counts = functools.partial(window_counts, integrate_fused)
-    reset = functools.partial(reset_window_counts, integrate_fused)
+    counts = functools.partial(counts_of, WINDOW)
+    reset = graph.reset_launch_counts
     gen = torch.Generator(device=dev).manual_seed(52)
     kernels, report = [], {}
     ctx = P.Context.create(device="cuda")
@@ -5213,9 +5168,9 @@ def run_general(torch, P, dev, card) -> tuple[list, dict]:
 
 
 POSED_TOL = 1e-5    # posed frame against the host-built and windowed frames
-KERNEL_NAMES = {"K1": "tile_forward_kernel", "K2": "tile_backward_kernel",
-                "K3": "packed_table_kernel", "K4": "packed_table_grad_kernel",
-                "PB": "posed_build_kernel"}
+KERNEL_NAMES = {"K1": "fused_tiles", "K2": "fused_tiles_bwd",
+                "K3": "packed_table", "K4": "packed_table_bwd",
+                "PB": "posed_build"}
 POSED_ARRAYS = ("samp", "base", "rayt", "bank0", "k_enter", "hostmap")
 
 
@@ -5234,17 +5189,27 @@ def kernel_names(torch, fn) -> dict:
             if getattr(ev, "device_type", None) == DeviceType.CUDA}
 
 
+def kernel_symbol(short) -> str:
+    """The CUDA symbol (``utils/trace.py::KERNELS``) of kernel ``short``,
+    the name a profiler's trace shows."""
+    from dvren_tpu_torch.utils import trace
+
+    (symbol,) = [k.symbol for k in trace.KERNELS
+                 if k.name == KERNEL_NAMES[short]]
+    return symbol
+
+
 def require_kernels(names, want, what):
     for short in want:
-        require(any(KERNEL_NAMES[short] in n for n in names),
-                f"{what}: the profiler saw no {short} ({KERNEL_NAMES[short]})"
+        require(any(kernel_symbol(short) in n for n in names),
+                f"{what}: the profiler saw no {short} ({kernel_symbol(short)})"
                 f" kernel; it saw {sorted(names)}")
 
 
 def kernel_count(names, short) -> int:
     """How many times ``names`` (from :func:`kernel_names`) ran kernel
     ``short``."""
-    return sum(c for n, c in names.items() if KERNEL_NAMES[short] in n)
+    return sum(c for n, c in names.items() if kernel_symbol(short) in n)
 
 
 def graph_equal_run(torch, P, plan, field, options, dl, backward):
@@ -5293,20 +5258,15 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
     from dvren_tpu_torch.ops import fused_tiles, packed_transpose
     from dvren_tpu_torch.ops import posed_build as pb
     from dvren_tpu_torch.ops.raygen import generate_rays
-    from dvren_tpu_torch.render import animate, posed, tiled, windowed
+    from dvren_tpu_torch.render import animate, graph, posed, tiled, windowed
     from dvren_tpu_torch.render.pipeline import plan_jitter_table
 
     report, kernels = {}, []
     plan, config = headline_scene(P)
     field = P.DenseGridField.create(config, device=dev).requires_grad_(False)
 
-    def counts():
-        return {**launch_counts(fused_tiles, packed_transpose),
-                "posed_build": pb.posed_build.launches}
-
-    def reset():
-        reset_counts(fused_tiles, packed_transpose)
-        pb.posed_build.launches = 0
+    counts = functools.partial(counts_of, POSED)
+    reset = graph.reset_launch_counts
 
     def orbit(i):   # phase 50's poses (tools/animation_bench.py:114-135)
         ang = 2 * np.pi * i / ORBIT_POSES
@@ -5537,7 +5497,8 @@ def run_posed(torch, P, dev, card) -> tuple[list, dict]:
          "graph_launches_per_replay": {"recorded": recorded["fused_tiles"],
                                        "profiled": replayed["K1"]},
          "ms": k1_ms, "plain_ms": k1_plain,
-         **bound(tile_in_bytes(args) + nbytes(out), live * DENSE_FWD_OPS)},
+         **bound(tile_in_bytes(args) + nbytes(out),
+                 live * tile_counts.FWD_OPS)},
         {"name": "packed_table:posed", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/packed_table.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:81",
@@ -5759,13 +5720,10 @@ def tiled_frame_planes(torch, result, plan):
 
 # ------------------------------------------------------ phases 62-64: parallel
 
-PAR_COUNTERS = (("K1", "fused_tiles", "tile_forward"),
-                ("K2", "fused_tiles", "tile_backward"),
-                ("K3", "packed_transpose", "build_rows"),
-                ("K4", "packed_transpose", "table_grad_to_params"),
-                ("K9f", "integrate_fused", "integrate_forward"),
-                ("K9b", "integrate_fused", "radiance_vjp"),
-                ("J", "rng", "stratified_jitter"))
+PAR_COUNTERS = {"K1": "fused_tiles", "K2": "fused_tiles_bwd",
+                "K3": "packed_table", "K4": "packed_table_bwd",
+                "K9f": "integrate", "K9b": "integrate_bwd",
+                "J": "stratified_jitter"}
 PAR_PLANES_TOL = 2e-5     # z-sharded planes against pipeline.render
 PAR_GRAPH_STEPS = 10      # each sharded step's replays held to its body,
 #                           and the sharded fits' steps
@@ -5779,13 +5737,6 @@ PAR_RECORDED = {"tile_dp": {"fused_tiles", "fused_tiles_bwd", "packed_table",
                 "multiview": {"fused_tiles", "fused_tiles_bwd"},
                 "view_dp": {"integrate", "integrate_bwd", "stratified_jitter",
                             "packed_eval", "packed_eval_bwd"}}
-
-
-def _par_counters():
-    import importlib
-
-    return [getattr(importlib.import_module(f"dvren_tpu_torch.ops.{mod}"),
-                    fn) for _, mod, fn in PAR_COUNTERS]
 
 
 def _leaf_copy(field):
@@ -5916,7 +5867,7 @@ def parallel_rank(mesh, sched_host, fit_views):
     from dvren_tpu_torch.opt.fit import _scheduled_views, mse, render_views
     from dvren_tpu_torch.parallel import shard
     from dvren_tpu_torch.parallel.mesh import all_reduce_sum
-    from dvren_tpu_torch.render import pipeline, tiled
+    from dvren_tpu_torch.render import graph, pipeline, tiled
 
     dev, n_dev, lead = mesh.device, mesh.size, mesh.rank == 0
     out = {"device": str(dev), "backend": mesh.backend, "ranks": n_dev}
@@ -5957,9 +5908,7 @@ def parallel_rank(mesh, sched_host, fit_views):
     v_field = _leaf_copy(ffield)
     v_step = shard.make_dp_train_step(
         splan, v_field, torch.optim.SGD(v_field.parameters(), lr=LR), mesh)
-    counters = _par_counters()
-    for c in counters:
-        c.launches = 0
+    graph.reset_launch_counts()
     with torch.no_grad():
         frame = shard.render_tiled_sharded(plan, field, sched_host, mesh,
                                            shards=shards)
@@ -5969,9 +5918,10 @@ def parallel_rank(mesh, sched_host, fit_views):
             rframe = shard.render_sharded(plan, field, mesh)
         v_loss = v_step(c2ws, ftargets)
     torch.cuda.synchronize()
-    rows = torch.zeros((n_dev, len(counters)), device=dev)
-    rows[mesh.rank] = torch.tensor([float(c.launches) for c in counters],
-                                   device=dev)
+    rows = torch.zeros((n_dev, len(PAR_COUNTERS)), device=dev)
+    rows[mesh.rank] = torch.tensor(
+        [float(v) for v in counts_of(PAR_COUNTERS.values()).values()],
+        device=dev)
     out["launches"] = all_reduce_sum(mesh, rows).int().tolist()
     out["step_graphs"] = {"tile_dp": t_step.graph is not None,
                           "view_dp": v_step.graph is not None}
@@ -6327,9 +6277,9 @@ fatal when it fails:
           f"ranks agree {r1['ranks_agree']}, "
           f"multi-view {r1['multiview_err']:.3e}, view-DP "
           f"{r1['view_dp_err']:.3e}, fit losses {r1['fit_losses']}; "
-          f"launches {dict(zip([n for n, _, _ in PAR_COUNTERS], r1['launches'][0]))}",
+          f"launches {dict(zip(PAR_COUNTERS, r1['launches'][0]))}",
           flush=True)
-    names = [n for n, _, _ in PAR_COUNTERS]
+    names = list(PAR_COUNTERS)
     require(all(v > 0 for v in r1["launches"][0])
             and all(r1["step_graphs"].values()),
             f"D = 1: a kernel did not launch on the main path "
@@ -6422,13 +6372,13 @@ fatal when it fails:
          "replaces": "dvren_tpu/ops/fused_tiles.py:656",
          "launches": r2["launches"][0][0], "max_abs_err": sk["k1_err"],
          "ms": sk["k1_ms"], "plain_ms": sk["k1_plain_ms"],
-         **bound(sk["k1_bytes"], sk["live"] * DENSE_FWD_OPS)},
+         **bound(sk["k1_bytes"], sk["live"] * tile_counts.FWD_OPS)},
         {"name": "fused_tiles_bwd:rank_shard_d2", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
          "replaces": "dvren_tpu/ops/fused_tiles.py:714",
          "launches": r2["launches"][0][1], "max_abs_err": sk["k2_err"],
          "ms": sk["k2_ms"], "plain_ms": sk["k2_plain_ms"],
-         **bound(sk["k2_bytes"], sk["live"] * DENSE_BWD_OPS)},
+         **bound(sk["k2_bytes"], sk["live"] * tile_counts.BWD_OPS)},
     ] + r2["k9_entries"] + [r2["j_entry"]]
     return kernels, report
 
@@ -6487,11 +6437,10 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
     """Phases 65-69: the stratified jitter on the card, ``pipeline.render``
     without a table, bank-aligned packing, the fit block and the
     headline's byte floor."""
-    from dvren_tpu_torch.ops import (fused_tiles, integrate_fused,
-                                     packed_transpose, rng)
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose, rng
     from dvren_tpu_torch.ops.raygen import generate_rays
     from dvren_tpu_torch.opt import fit
-    from dvren_tpu_torch.render import pipeline, tiled
+    from dvren_tpu_torch.render import graph, pipeline, tiled
     from dvren_tpu_torch.utils import roofline
 
     report = {}
@@ -6528,17 +6477,16 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
           f"bit-equal to its twin on the card and to the host table "
           f"({table_s:.3f} s to build on the host); {jit_ms:.4f} ms on the "
           f"device, {jit_issued_ms:.4f} as issued (twin {jit_plain_ms:.4f}); "
-          f"bound {jit_bytes / HBM_BYTES_S * 1e3:.4f} ms ({jit_bytes} bytes) "
+          f"bound {jit_bytes / peaks.HBM_BYTES_S * 1e3:.4f} ms "
+          f"({jit_bytes} bytes) "
           f"[{card}]", flush=True)
 
     # 66. pipeline.render without a table: the main path of the kernel
     table_dev = torch.from_numpy(np.array(table)).to(dev)
-    rng.stratified_jitter.launches = 0
-    integrate_fused.integrate_forward.launches = 0
+    graph.reset_launch_counts()
     with torch.no_grad():
         out = pipeline.render(plan, field)
-        jit_launches = rng.stratified_jitter.launches
-        k9_launches = integrate_fused.integrate_forward.launches
+        jit_launches, k9_launches = counts_of(JITTER_K9F).values()
         ref = pipeline.render(plan, field, jitter=table_dev)
         torch.cuda.synchronize()
         require(jit_launches == 1 and k9_launches == 1,
@@ -6586,8 +6534,8 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
     flags = int(((b0 >> 30) & 1).sum())
     require(flags > 0, "no run carries the ALIGNED bit")
     d_dev, a_dev = s_dense.to(dev), s_al.to(dev)
-    counts = functools.partial(launch_counts, fused_tiles, packed_transpose)
-    reset_counts(fused_tiles, packed_transpose)
+    counts = functools.partial(counts_of, DENSE)
+    graph.reset_launch_counts()
     aligned_out = frame_grads(torch, tiled, plan, field, a_dev)
     al_launches = counts()
     dense_out = frame_grads(torch, tiled, plan, field, d_dev)
@@ -6640,14 +6588,14 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
                  "launches": al_launches["fused_tiles"], "max_abs_err": 0.0,
                  "ms": k1, "plain_ms": k1_plain,
                  **bound(k1_in + s.tiles.n_tiles * 5 * 256 * 4,
-                         live * DENSE_FWD_OPS)},
+                         live * tile_counts.FWD_OPS)},
                 {"name": "fused_tiles_bwd:bank_aligned", "route": "cuda",
                  "source": "dvren_tpu_torch/csrc/fused_tiles_bwd.cu",
                  "replaces": "dvren_tpu/ops/fused_tiles.py:714",
                  "launches": al_launches["fused_tiles_bwd"],
                  "max_abs_err": 0.0, "ms": k2, "plain_ms": k2_plain,
                  **bound(k1_in + nbytes(gs, b_rows, b_rayt),
-                         live * DENSE_BWD_OPS)}]
+                         live * tile_counts.BWD_OPS)}]
     print(f"67. bank_aligned at the headline: {len(s_al.groups)} groups, "
           f"{banks(s_al)} banks (dense {len(s_dense.groups)} groups, "
           f"{banks(s_dense)} banks: x{banks(s_al) / banks(s_dense):.4f}), "
@@ -6683,7 +6631,7 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
     fa, opt_a = trained()
     block = fit.make_train_block_scheduled(plans[0], cams, fa, opt_a,
                                            CLOSE_BLOCK, views=views)
-    reset_counts(fused_tiles, packed_transpose)
+    graph.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     losses = block(fa, targets)
@@ -6708,7 +6656,7 @@ def run_close(torch, P, dev, card, headline=None) -> tuple[list, dict]:
             f"recording launch each once): recorded {recorded}, counters "
             f"{blk_launches}")
     require(float(losses[-1]) < float(losses[0]), "the block's loss rose")
-    reset_counts(fused_tiles, packed_transpose)
+    graph.reset_launch_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     block(fa, targets)
@@ -6823,27 +6771,15 @@ def frame_checks(fr, n_px, what):
 def run_soak(torch, P, dev, card) -> tuple[list, dict]:
     """Phases 70-72: the reference-scale soak (tools/soak.py) and pose
     refinement (tests/test_scenes.py) on the card."""
-    from dvren_tpu_torch.ops import (fused_tiles, integrate_fused,
-                                     packed_transpose, rng)
-    from dvren_tpu_torch.render import pipeline, tiled
+    from dvren_tpu_torch.ops import fused_tiles, packed_transpose, rng
+    from dvren_tpu_torch.render import graph, pipeline, tiled
     from dvren_tpu_torch.utils import roofline
     from dvren_tpu_torch.utils.scenes import (blob_color, blob_sigma,
                                               dense_field, grid_coords,
                                               make_plan, sphere_shell_volume)
 
-    counters = {"fused_tiles": fused_tiles.tile_forward,
-                "fused_tiles_bwd": fused_tiles.tile_backward,
-                "packed_table": packed_transpose.build_rows,
-                "integrate": integrate_fused.integrate_forward,
-                "integrate_bwd": integrate_fused.radiance_vjp,
-                "stratified_jitter": rng.stratified_jitter}
-
-    def reset():
-        for fn in counters.values():
-            fn.launches = 0
-
-    def read():
-        return {name: fn.launches for name, fn in counters.items()}
+    reset = graph.reset_launch_counts
+    read = functools.partial(counts_of, SOAK)
 
     report, phase_launches = {}, {}
     ctx = P.Context.create(device=dev)
@@ -7000,7 +6936,7 @@ def run_soak(torch, P, dev, card) -> tuple[list, dict]:
           f"frames {ANIM_ORACLE_FRAMES} within {renderer_err:.3e} of the "
           f"oracle [{card}]", flush=True)
     phase_launches["71"] = {k: pipe_launches[k] + r_launches[k]
-                            for k in counters}
+                            for k in SOAK}
     report["animation"] = {"frames": ANIM_FRAMES, "pipeline_ms": anim_ms,
                            "pipeline_fps": fps, "renderer_s": renderer_s,
                            "renderer_fps": ANIM_FRAMES / renderer_s,
@@ -7109,12 +7045,12 @@ def run_soak(torch, P, dev, card) -> tuple[list, dict]:
               flush=True)
     phase_launches["72"] = {k: pipe_pose_launches[k]
                             + tiled_pose_launches[k] + wide_launches[k]
-                            for k in counters}
+                            for k in SOAK}
     report["pose"] = pose
     report["phases_s"] = time.perf_counter() - t_soak
     launches = {k: sum(p[k] for p in phase_launches.values())
-                for k in counters}
-    for name in counters:
+                for k in SOAK}
+    for name in SOAK:
         require(launches[name] > 0, f"phases 70-72 never launched {name}")
     # K9f's entry at the soak counts phases 70-71; phase 72's pipeline
     # refinement (K9f and K9b at 20x16) has entries of its own
@@ -7152,9 +7088,9 @@ def run_soak(torch, P, dev, card) -> tuple[list, dict]:
         frame_t = event_times(torch, lambda: tiled.render_tiled(
             plan, f_tiled, sched), SOAK_RUNS, warmup=2)
     streams = roofline.forward_streams(sched)["phases"]
-    extra = SUPER_OPS if sched.cell_scale == 2 else 0
+    extra = tile_counts.SUPER_OPS if sched.cell_scale == 2 else 0
     k1_bound = bound(streams["kernel"]["bytes"],
-                     sched.tiled_samples * (DENSE_FWD_OPS + extra))
+                     sched.tiled_samples * (tile_counts.FWD_OPS + extra))
     k3_bound = bound(nbytes(sig, col, rows_k), 0)
 
     r_win, f_win = renderers["windowed"]
@@ -7221,10 +7157,11 @@ def run_soak(torch, P, dev, card) -> tuple[list, dict]:
                          phase_launches["72"], (pplan.t_near, pplan.t_far),
                          "a pipeline pose step")
 
-    k2_extra = SUPER_OPS if wsched.cell_scale == 2 else 0
+    k2_extra = tile_counts.SUPER_OPS if wsched.cell_scale == 2 else 0
     k2_bound = bound(tile_in_bytes((wtabs, wsched.tiles, wprm))
                      + nbytes(wgs, b_rows, b_rayt),
-                     wsched.tiled_samples * (DENSE_BWD_OPS + k2_extra))
+                     wsched.tiled_samples
+                     * (tile_counts.BWD_OPS + k2_extra))
     print(f"70-72 kernels at the soak's shapes: K3 {k3_ms:.4f} device / "
           f"{k3_issued:.4f} issued (twin {k3_plain:.4f}, bound "
           f"{k3_bound['bound_ms']:.4f}); K1 over {len(sched.groups)} groups "
@@ -7577,7 +7514,7 @@ def run(only: str = "all") -> dict:
     import dvren_tpu_torch as P
     from dvren_tpu_torch import _build
     from dvren_tpu_torch.ops import fused_tiles, gather_plan, packed_transpose
-    from dvren_tpu_torch.render import tiled
+    from dvren_tpu_torch.render import graph, tiled
 
     dev = torch.device("cuda", 0)
     torch.cuda.set_device(dev)
@@ -7739,11 +7676,9 @@ def run(only: str = "all") -> dict:
 
     # 5. the main path, end to end
     renderer = P.Renderer(P.Context.create(device="cuda"), plan)
-    fused_tiles.tile_forward.launches = 0
-    packed_transpose.build_rows.launches = 0
+    graph.reset_launch_counts()
     result = renderer.forward(field)
-    launches = {"fused_tiles": fused_tiles.tile_forward.launches,
-                "packed_table": packed_transpose.build_rows.launches}
+    launches = counts_of(("fused_tiles", "packed_table"))
     print(f"Renderer.forward: {result.stats.total_ms:.3f} ms (schedule "
           f"included), launches {launches}, notes {result.stats.notes}",
           flush=True)
@@ -7869,11 +7804,11 @@ def run(only: str = "all") -> dict:
     # 9. Renderer.backward, deterministic
     dl = torch.rand((plan.ray_count, 3), generator=gen, device=dev) * 2 - 1
     dl = dl.cpu().numpy()
-    reset_counts(fused_tiles, packed_transpose)
+    graph.reset_launch_counts()
     torch.use_deterministic_algorithms(True)
     try:
         bwd = renderer.backward(field, dl)
-        bwd_launches = launch_counts(fused_tiles, packed_transpose)
+        bwd_launches = counts_of(DENSE)
         bwd2 = renderer.backward(field, dl)
     finally:
         torch.use_deterministic_algorithms(False)
@@ -7952,9 +7887,9 @@ def run(only: str = "all") -> dict:
         field_t, step = trainer(lr)
         losses = []
         for _ in range(4):
-            before = launch_counts(fused_tiles, packed_transpose)
+            before = counts_of(DENSE)
             losses.append(float(step().detach()))
-            after = launch_counts(fused_tiles, packed_transpose)
+            after = counts_of(DENSE)
             require(all(after[k] == before[k] + 1 for k in DENSE_F32),
                     f"a kernel did not launch once in a training step: "
                     f"{after}")
@@ -7966,9 +7901,9 @@ def run(only: str = "all") -> dict:
     # makes every update smaller than half an ulp of the parameters, so
     # they do not move in float32. The loss must fall at a learning rate
     # scaled by that count (the same steps on the summed squared error).
-    reset_counts(fused_tiles, packed_transpose)
+    graph.reset_launch_counts()
     losses, moved = four_steps(LR)
-    train_launches = launch_counts(fused_tiles, packed_transpose)
+    train_launches = counts_of(DENSE)
     n_values = plan.height * plan.width * 3
     losses_n, moved_n = four_steps(LR * n_values)
     print(f"4 SGD steps at lr {LR}: loss {losses}, largest parameter "
@@ -8034,7 +7969,7 @@ def run(only: str = "all") -> dict:
          "replaces": "dvren_tpu/ops/fused_tiles.py:656",
          "launches": launches["fused_tiles"], "max_abs_err": k1_err,
          "ms": k1_ms, "plain_ms": k1_plain_ms,
-         **bound(streams["kernel"]["bytes"], live * DENSE_FWD_OPS)},
+         **bound(streams["kernel"]["bytes"], live * tile_counts.FWD_OPS)},
         {"name": "packed_table", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/packed_table.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:81",
@@ -8048,7 +7983,7 @@ def run(only: str = "all") -> dict:
          "launches": train_launches["fused_tiles_bwd"],
          "max_abs_err": k2_raw, "ms": k2_ms, "plain_ms": k2_plain_ms,
          **bound(k1_in + sum(nbytes(g) for g in gss) + k2_out,
-                 live * DENSE_BWD_OPS)},
+                 live * tile_counts.BWD_OPS)},
         {"name": "packed_table_bwd", "route": "cuda",
          "source": "dvren_tpu_torch/csrc/packed_table_bwd.cu",
          "replaces": "dvren_tpu/ops/packed_transpose.py:119",

@@ -1514,21 +1514,6 @@ def _check_field_schedule(field, schedule: TiledSchedule, what: str):
     return device
 
 
-def _table_route(field, schedule: TiledSchedule) -> str:
-    """The route ``field``'s table takes on ``schedule``, decided here for
-    :func:`_tiles_raw` and :func:`render_tiled_phases` alike: "bricks" (a
-    sparse field's rows as they are), "super" (the supercell table of
-    :func:`build_supercell_stencil`), "f32" (K3's cell rows) or "16bit"
-    (K5a's)."""
-    if hasattr(field, "bricks"):
-        return "bricks"
-    if schedule.cell_scale == 2:
-        return "super"
-    if getattr(field, "packed_dtype", "float32") == "float32":
-        return "f32"
-    return "16bit"
-
-
 def _tiles_raw(plan: Plan, field, schedule: TiledSchedule,
                use_kernel: bool, rayt=None, stack: bool = False):
     """The raw heads (T, 5, 16, 16) of every tile of the schedule, in
@@ -1552,16 +1537,15 @@ def _tiles_raw(plan: Plan, field, schedule: TiledSchedule,
         rayt = schedule.tiles.rayt
     static = (schedule, prm, use_kernel, cam, False)
     split = (schedule, prm, use_kernel, cam, True)
-    route = _table_route(field, schedule)
-    if route == "bricks":
+    if hasattr(field, "bricks"):
         bricks = field.bricks.reshape(-1, NCH)
         return _GroupsetFromTable.apply(
             split if bricks.dtype == torch.float32 else static, bricks,
             rayt)
-    if route == "super":
+    if schedule.cell_scale == 2:
         return _GroupsetFromTable.apply(
             static, build_supercell_stencil(field.sigma, field.color), rayt)
-    if route == "f32":
+    if getattr(field, "packed_dtype", "float32") == "float32":
         return _GroupsetFromParams.apply(split if stack else static,
                                          field.sigma, field.color, rayt)
     table = _Table16FromParams.apply(
@@ -1619,58 +1603,6 @@ def render_tiled(plan: Plan, field, schedule: TiledSchedule,
     return _compose_tiles(plan, [] if raw is None else [raw],
                           [g.tile_ids for g in schedule.groups], parts,
                           tile_px=schedule.tile_px, device=device)
-
-
-def render_tiled_phases(plan: Plan, schedule: TiledSchedule):
-    """Three functions whose chained application equals
-    :func:`render_tiled` (``dvren_tpu``'s ``render_tiled_phases``): the
-    Renderer's per-stage stats time them one by one.
-
-    Returns (tables_fn(field) -> the flat bank tables (S_b, C, 128),
-    kernel_fn(tabs) -> the raw K1 heads (T, 5, 16, 16) or None for an
-    empty schedule, compose_fn(field, raw) -> ImagePlanes). ``tables`` is
-    the table build of the field's route (:func:`_table_route`: a sparse
-    field's bricks as they are, the supercell table, K3 for float32 cell
-    rows, K5a for 16-bit ones) and the bank gather, ``kernel`` the one K1
-    launch, and ``compose`` the tile compose with the windowed fallback.
-    No autograd node is recorded."""
-    check(schedule.fallback is not None or schedule.fallback_rays == 0,
-          "the schedule was built with build_fallback=False (a cascade "
-          "probe): rebuild it with the fallback")
-    schedule = dataclasses.replace(schedule, tiles=schedule.tile_set())
-    geom = (schedule.bbox[0], schedule.bbox[1], schedule.grid_shape)
-    stencil = "super" if schedule.cell_scale == 2 else "cell"
-    prm = (fused_tiles.tiles_op_params(plan, geom, schedule.tiles, stencil)
-           if schedule.groups else None)
-
-    def tables_fn(field):
-        _check_field_schedule(field, schedule, "schedule")
-        route = _table_route(field, schedule)
-        if route == "bricks":
-            table = field.bricks.reshape(-1, NCH)
-        elif route == "super":
-            table = build_supercell_stencil(field.sigma, field.color)
-        elif route == "f32":
-            table = packed_transpose.build_rows(field.sigma, field.color)
-        else:
-            table = packed_transpose.build_rows16(
-                field.sigma, field.color, table_dtype(field.packed_dtype))
-        return _gather_banks_flat(table, schedule.gathermap_all,
-                                  schedule.pitch)
-
-    def kernel_fn(tabs):
-        if not schedule.groups:
-            return None
-        return fused_tiles.tile_forward(tabs, schedule.tiles, prm)
-
-    def compose_fn(field, raw):
-        parts = _fallback_parts(plan, field, schedule.fallback)
-        return _compose_tiles(plan, [] if raw is None else [raw],
-                              [g.tile_ids for g in schedule.groups], parts,
-                              tile_px=schedule.tile_px,
-                              device=schedule.device)
-
-    return tables_fn, kernel_fn, compose_fn
 
 
 def _fallback_parts(plan: Plan, field, fallback, k=None, c2w=None,

@@ -2,11 +2,12 @@
 kernel table.
 
 Off by default; ``enable(True)`` switches it on for the process, and
-``enable(False)`` off again. Off, :func:`span` returns one shared no-op
-context, :func:`stage` and :func:`count` return at once and nothing is
-recorded: no ``record_function`` is entered and no CUDA event is made, so
-a graph recorded with tracing off is the graph the program records
-without this module.
+``enable(False)`` off again. Off, :func:`span` and :func:`clock` return
+one shared no-op context, :func:`count` returns at once, :func:`stage`
+returns at once where no clock is open, and nothing is recorded: no
+``record_function`` is entered and no CUDA event is made, so a graph
+recorded with tracing off is the graph the program records without this
+module.
 
 **Spans** (host). ``with span("graph.replay"):`` enters
 ``torch.profiler.record_function("dvren.graph.replay")`` while a profiler
@@ -33,10 +34,12 @@ an event-record node of the graph, which every replay records again;
 ``CapturedGraph.replay`` reads the previous replay's stage times once its
 end event has completed (``query()``), never waiting for it. Eagerly on
 the CPU the marks read the host clock and the reading is taken when the
-clock closes. The open clocks form one stack for the process: autograd
-runs a CUDA backward on a thread of its own. Readings are kept per owner
-(``fit.step``, ``posed.render``, ...) and per stage. Where autograd runs
-an adjoint with no Python of the program's before it,
+clock closes. :func:`timed_clock` is a clock that reads with tracing off
+as well, for the Renderer's per-stage stats; its reading is recorded
+only with tracing on. The open clocks form one stack for the process:
+autograd runs a CUDA backward on a thread of its own. Readings are kept
+per owner (``fit.step``, ``posed.render``, ...) and per stage. Where
+autograd runs an adjoint with no Python of the program's before it,
 :func:`stage_on_backward` marks its start: an identity node, recorded
 with tracing on only, whose backward marks the stage as the gradients
 arrive.
@@ -261,12 +264,15 @@ class _Clock:
 class _ClockScope:
     """``with clock(...) as c``: ``c`` is the open clock (None with
     tracing off). After the block, :attr:`clock` is None where the block
-    marked no stage (no end mark is recorded then) or failed."""
+    marked no stage (no end mark is recorded then) or failed. ``timed``
+    (:func:`timed_clock`): the block's end waits for the end mark and the
+    reading is recorded with tracing on only."""
 
-    def __init__(self, owner: str, device, graph: bool):
+    def __init__(self, owner: str, device, graph: bool, timed: bool = False):
         dev = torch.device(device) if device is not None else None
         self.clock = _Clock(owner, dev is not None and dev.type == "cuda",
                             graph)
+        self.timed = timed
 
     def __enter__(self):
         _TRACER.clocks().append(self.clock)
@@ -279,7 +285,12 @@ class _ClockScope:
             self.clock = None
             return False
         clk.close()
-        if clk.graph:
+        if self.timed:
+            if clk.cuda:
+                clk.end.synchronize()
+            if _TRACER.on:
+                _TRACER.reading(clk.owner, clk.reading())
+        elif clk.graph:
             _TRACER.watch(clk)         # armed by each replay
         else:
             clk.arm()
@@ -457,12 +468,19 @@ def clock(owner: str, device=None, graph: bool = False):
     return _ClockScope(owner, device, graph)
 
 
+def timed_clock(owner: str, device=None):
+    """A stage clock open with tracing off too (``as`` gives the clock:
+    its ``reading()`` after the block, ms by stage, the device waited
+    for); its reading is recorded as :func:`clock`'s are only with
+    tracing on. Not for a CUDA graph's recording."""
+    return _ClockScope(owner, device, False, timed=True)
+
+
 def stage(name: str) -> None:
     """Mark the start of stage ``name`` on the innermost open clock (of
     any thread: a step's backward marks from autograd's device thread);
-    nothing without one or with tracing off."""
-    if not _TRACER.on:
-        return
+    nothing without one (with tracing off, only a :func:`timed_clock`
+    is ever open)."""
     clocks = _TRACER.clocks()
     if clocks:
         clocks[-1].mark(name)

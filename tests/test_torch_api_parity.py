@@ -68,6 +68,9 @@ COUNTERPARTS = {
     "render.tiled:bank_tables_from_params": "render.tiled:_gather_bank_tables",
     "render.tiled:ct16_rows_to_table": "ops.gather_plan:slot_rows_to_table",
     "render.tiled:ct16_rows_to_table16": "render.tiled:slot_rows_to_table_as",
+    "render.tiled:render_tiled_phases": (
+        "not ported: the Renderer times the frame render_tiled renders by "
+        "its stage clock (utils/trace.py::timed_clock), not a second path"),
     "utils.pytree:pytree_dataclass": (
         "not ported: a JAX pytree registration; the port walks dataclasses "
         "itself (utils/pytree.py::tree_map)"),

@@ -6,6 +6,7 @@ Also holds the port to its two rules: it imports no JAX, and asking for
 CUDA where there is none raises instead of running on the CPU.
 """
 
+import ast
 import dataclasses
 import pathlib
 import re
@@ -114,6 +115,54 @@ def test_chip_smoke_imports_neither_jax_nor_the_reference():
             assert root not in ("jax", "jaxlib", "dvren_tpu", "tests"), line
     loaded = set(re.findall(r'"tests",\s*"(\w+\.py)"', text))
     assert loaded == {"oracle.py"}, loaded
+
+
+def test_chip_smoke_reads_the_kernel_table_and_the_frozen_counts():
+    """chip_smoke.py keeps no copy of the program's kernel table or of the
+    benchmark's frozen counts: every launch counter it reads
+    (``counts_of``) and every kernel it names is a ``trace.KERNELS``
+    name, it sets no wrapper's counter itself, and its K1 / K2 operation
+    counts, K9's byte rule and the card's peaks are ``bench_port``'s own
+    objects."""
+    import chip_smoke as cs
+    from bench_port.counts import tiles, windowed
+    from bench_port.lib import kernels
+    from dvren_tpu_torch.utils import trace
+
+    names = {k.name for k in trace.KERNELS}
+    tree = ast.parse((REPO / "chip_smoke.py").read_text())
+    read = set()
+    for node in ast.walk(tree):
+        if not isinstance(node, ast.Call) or not node.args:
+            continue
+        args = node.args
+        if isinstance(args[0], ast.Name) and args[0].id == "counts_of":
+            args = args[1:]                 # functools.partial(counts_of, ..)
+        elif getattr(node.func, "id", None) != "counts_of":
+            continue
+        read.update(eval(compile(ast.Expression(args[0]), "chip_smoke.py",
+                                 "eval"), vars(cs)))
+    assert not any(isinstance(t, ast.Attribute) and t.attr == "launches"
+                   for n in ast.walk(tree) if isinstance(n, ast.Assign)
+                   for t in n.targets)
+    assert {"fused_tiles", "hash_tiles", "hash_grid", "integrate",
+            "posed_build", "stratified_jitter"} <= read
+    assert read <= names, read - names
+    named = set(cs.KERNEL_NAMES.values()).union(*cs.PAR_RECORDED.values())
+    assert named <= names, named - names
+    assert cs.kernel_symbol("K4") == "packed_table_grad_kernel"
+
+    assert (cs.tile_counts, cs.k9_counts, cs.peaks) == (tiles, windowed,
+                                                        kernels)
+    frozen = {n for m in (tiles, windowed, kernels) for n in vars(m)
+              if n.isupper()} | {"F32_OPS_S", "DENSE_FWD_OPS",
+                                 "DENSE_BWD_OPS"}
+    copies = {t.id for n in tree.body if isinstance(n, ast.Assign)
+              for t in n.targets if isinstance(t, ast.Name)} & frozen
+    assert not copies, copies
+    assert cs.bound(2 * kernels.HBM_BYTES_S, 0)["bound_ms"] == 2e3
+    assert cs.bound(0, 3 * kernels.F32_FLOPS) == {
+        "bound_ms": 3e3, "bound_by": "operations", "library_ms": None}
 
 
 def test_cuda_context_raises_without_cuda(monkeypatch):

@@ -8,10 +8,11 @@ on a CPU context, and the helpers CUDA graph capture leans on.
   package AOT-compiles on its CPU too; on the card the port records and
   replays, ``tests/test_torch_cuda.py``.)
 - ``capture_stats`` on the tiled path fills ``sample_ms``,
-  ``integrate_ms`` and ``compose_ms`` from a decomposed replay, above 0
-  and cached per (schedule, field metadata), with JAX's note (JAX's
-  ``tests/test_renderer_streaming.py::test_tiled_stage_stats_fill``).
-  ``render_tiled_phases`` chained is ``render_tiled`` bit for bit.
+  ``integrate_ms`` and ``compose_ms`` from the stage clock of the frame
+  it renders, above 0 and cached per (schedule, field metadata), with
+  JAX's note (JAX's
+  ``tests/test_renderer_streaming.py::test_tiled_stage_stats_fill``),
+  and leaves that frame bit for bit the frame rendered without it.
 - The host steps a graph cannot record are kept out of the paths it
   records: under a capture ``accumulate_rows`` takes its fixed-shape
   form, bit-equal to the sort / unique / segment sums it runs eagerly;
@@ -137,14 +138,16 @@ def test_tiled_stage_stats_fill():
 
 @pytest.mark.parametrize("form", ["f32", "bfloat16", "sparse", "supercell",
                                   "fallback"])
-def test_render_tiled_phases_chain_is_render_tiled(form):
+def test_capture_stats_leaves_the_tiled_frame(form, monkeypatch):
+    """The frame ``capture_stats`` times is the frame the Renderer renders
+    without it, bit for bit, in every table route and with the windowed
+    fallback, and each of its stages took time."""
     if form == "fallback":
         from tests.test_torch_fallback import partial_scene
         plan, field = partial_scene()
     else:
         plan, field = small_scene("stratified")
-    pplan, pf = port_plan(plan), port_field(field)
-    jitter = p_tiled.plan_jitter_table(pplan)
+    pf = port_field(field)
     kw = {}
     if form == "bfloat16":
         pf = pf.with_packed_dtype("bfloat16")
@@ -154,15 +157,21 @@ def test_render_tiled_phases_chain_is_render_tiled(form):
         kw = dict(cell_scale=2)
     elif form == "fallback":
         kw = dict(tile_px=8)    # the scene's 8 px tiles partly overflow
-    sched = p_tiled.build_tiled_schedule(pplan, pf, jitter=jitter,
-                                         **kw).to("cpu")
-    assert (sched.fallback_rays > 0) == (form == "fallback")
-    tables, kernel, compose = p_tiled.render_tiled_phases(pplan, sched)
-    with torch.no_grad():
-        got = compose(pf, kernel(tables(pf)))
-        want = p_tiled.render_tiled(pplan, pf, sched)
+    monkeypatch.setattr(
+        p_tiled, "build_tiled_schedule_auto",
+        lambda plan, field, **opts: (p_tiled.build_tiled_schedule(
+            plan, field, **opts, **kw), None))
+    timed = renderer(plan, use_tiles=True, capture_stats=True)
+    got = timed.forward(pf)
+    want = renderer(plan, use_tiles=True, capture_stats=False).forward(pf)
+    assert (timed._tiled_schedule.fallback_rays > 0) == (form == "fallback")
+    assert timed._tiled_schedule.cell_scale == (2 if form == "supercell"
+                                                else 1)
     for key in ("image", "transmittance", "opacity", "depth", "hitmask"):
-        assert torch.equal(getattr(got, key), getattr(want, key)), key
+        np.testing.assert_array_equal(getattr(got, key), getattr(want, key),
+                                      err_msg=key)
+    assert min(got.stats.sample_ms, got.stats.integrate_ms,
+               got.stats.compose_ms) > 0
 
 
 def test_accumulate_rows_fixed_equals_the_segment_sums():

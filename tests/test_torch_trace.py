@@ -5,8 +5,9 @@ The scene is a 12^3 blob seen by two 32^2 views (a scheduled fit step,
 its table on the float32 cell route and on the supercell route) and a
 64x32 posed renderer in its split mode. Held:
 
-- tracing off: nothing is recorded, no ``record_function`` is entered and
-  no CUDA event is made, and the fit step's loss and parameters and the
+- tracing off: nothing is recorded (a ``timed_clock`` is read, not
+  recorded), no ``record_function`` is entered and no CUDA event is made,
+  and the fit step's loss and parameters and the
   posed planes are the bits of tracing on;
 - tracing on: the fit step marks its stages in the order the step runs
   them and they partition it; the posed build marks its stages, then the
@@ -142,6 +143,9 @@ def test_off_records_nothing():
     with trace.span("outer"):
         trace.stage("k1")
         trace.count("schedule.builds")
+    with trace.timed_clock("renderer.staged") as clk:    # read, not recorded
+        trace.stage("k1")
+    assert set(clk.reading()) == {"k1"}
     snap = trace.snapshot()
     assert snap["spans"] == {} and snap["stages"] == {}
     assert snap["counters"] == {} and trace.records() == []
@@ -365,9 +369,12 @@ def test_stage_goes_to_the_innermost_clock(tracing):
             trace.stage("b")
             trace.stage("b")
         trace.stage("c")
+        with trace.timed_clock("timed") as clk:
+            trace.stage("d")
     snap = trace.snapshot()["stages"]
     assert tuple(snap["outer"]["stages"]) == ("a", "c")
     assert snap["inner"]["stages"]["b"]["count"] == 1   # the two marks sum
+    assert snap["timed"]["stages"]["d"]["median_ms"] == clk.reading()["d"]
 
 
 # ------------------------------------------------------------ the table

@@ -87,7 +87,7 @@ def main() -> int:
                 "issued_ms": [cs.cuda_ms(torch, fn, ITERS) for _ in range(2)]}
 
     def bound_ms(n_bytes):
-        return n_bytes / cs.HBM_BYTES_S * 1e3
+        return n_bytes / cs.peaks.HBM_BYTES_S * 1e3
 
     for n in (64, 128):
         _, config = cs.headline_scene(P, grid_n=n)
